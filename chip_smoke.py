@@ -1,0 +1,481 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch/CUDA port (substratus_tpu_torch).
+
+    python3 chip_smoke.py            # every phase, one H100
+    python3 chip_smoke.py --phases card,build,kernels
+    python3 chip_smoke.py --phases card,build,kernels,serve,profile
+
+Phases, each of which exits non-zero on failure:
+
+  card     the card's name and power limit (nvidia-smi) and torch's name;
+  build    nvcc builds csrc/*.cu for sm_90a (one process per source);
+  kernels  each kernel against its plain PyTorch version on the card, in
+           bf16, at the serving path's shapes: max-abs error beside its
+           tolerance, the kernel's time, the plain version's, one PyTorch
+           library call's (timed as a yardstick only; the port never calls
+           it) and the least time the card could take (bytes at 3.35 TB/s,
+           operations at 989 TFLOP/s bf16);
+  serve    serve.main's server in-process at llama2-7b's full width and
+           depth (random weights from a seed, bf16), five concurrent
+           /v1/completions requests, the kernels' launch counts against
+           32 x prefills and 32 x decode steps, and the served tokens held
+           against a direct greedy run of the model;
+  profile  (only when named) host-clock prefill and decode-step times and,
+           under torch.profiler, their device busy time and top kernels.
+
+The line before the last is one JSON object with every kernel's numbers;
+the last line is {"ok": true, "device": {...}}. Details go to
+chiprun_out/chip_smoke.json. Nothing here imports JAX.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import threading
+import time
+import urllib.request
+from pathlib import Path
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
+OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
+# bf16 tolerance: the kernel and the plain version round p (flash) and the
+# output to bf16 after summing in another order, so they differ by about
+# one bf16 ulp of values of order 1 (2^-7 to 2^-6).
+BF16_ATOL = 2e-2
+LSE_ATOL = 1e-3  # f32 row logsumexp, summed in another order
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if out.returncode != 0:
+        fail(f"nvidia-smi: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, n: int = 25) -> float:
+    """Median of n launches, each between two CUDA events, after a warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound(nbytes: float, flops: float):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+# --- kernels against their plain versions -------------------------------------
+
+
+def flash_case(gen, b, s, h, kh, causal, d=128):
+    import torch
+    import torch.nn.functional as F
+
+    from substratus_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+
+    dev = "cuda"
+    q = torch.randn((b, s, h, d), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((b, s, kh, d), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((b, s, kh, d), generator=gen, device=dev).to(torch.bfloat16)
+    out, lse = flash_attention(q, k, v, causal, return_lse=True)
+    ref, ref_lse = flash_attention_plain(q, k, v, causal, return_lse=True)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    lse_err = (lse - ref_lse).abs().max().item()
+    if not (torch.isfinite(out.float()).all() and err <= BF16_ATOL and lse_err <= LSE_ATOL):
+        fail(f"flash b{b} s{s} h{h}/{kh} causal={causal}: max|err| {err} (tol {BF16_ATOL}), "
+             f"lse {lse_err} (tol {LSE_ATOL})")
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    gqa = {"enable_gqa": True} if h != kh else {}
+    pairs = s * (s + 1) // 2 if causal else s * s
+    b_ms, by = bound(2 * (2 * b * s * h * d + 2 * b * s * kh * d), 4 * d * h * b * pairs)
+    return {
+        "case": f"B={b} S={s} H={h} KH={kh} D={d} causal={causal}",
+        "max_abs_err": err, "lse_max_abs_err": lse_err, "tol": BF16_ATOL,
+        "ms": time_ms(lambda: flash_attention(q, k, v, causal)),
+        "plain_ms": time_ms(lambda: flash_attention_plain(q, k, v, causal)),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, **gqa)),
+        "bound_ms": b_ms, "bound_by": by,
+    }
+
+
+def decode_case(gen, b, s, h, kh, int8, positions, d=128):
+    import torch
+    import torch.nn.functional as F
+
+    from substratus_tpu_torch.ops.decode_attention import decode_attention, decode_attention_plain
+    from substratus_tpu_torch.ops.quant import quantize_kv
+
+    dev = "cuda"
+    q = torch.randn((b, 1, h, d), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((b, kh, s, d), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((b, kh, s, d), generator=gen, device=dev).to(torch.bfloat16)
+    pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+    ks = vs = None
+    if int8:
+        k, ks = quantize_kv(k)
+        v, vs = quantize_kv(v)
+        ks, vs = ks[..., 0].contiguous(), vs[..., 0].contiguous()
+    out = decode_attention(q, k, v, pos, ks, vs)
+    ref = decode_attention_plain(q, k, v, pos, ks, vs)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    if not (torch.isfinite(out.float()).all() and err <= BF16_ATOL):
+        fail(f"decode b{b} s{s} h{h}/{kh} int8={int8}: max|err| {err} (tol {BF16_ATOL})")
+    rows = sum(min(p + 1, s) for p in positions if p >= 0)  # cache rows the data needs
+    elem = 1 if int8 else 2
+    nbytes = 2 * b * h * d * 2 + 2 * rows * kh * d * elem + (2 * rows * kh * 4 if int8 else 0) + 4 * b
+    b_ms, by = bound(nbytes, 4 * d * rows * kh * (h // kh))
+    library_ms = None
+    if not int8:  # no PyTorch call takes an int8 cache with per-row scales
+        qt = q.transpose(1, 2)
+        mask = (torch.arange(s, device=dev)[None, :] <= pos[:, None].long())[:, None, None, :]
+        gqa = {"enable_gqa": True} if h != kh else {}
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, k, v, attn_mask=mask, **gqa))
+    return {
+        "case": f"B={b} S={s} H={h} KH={kh} D={d} {'int8' if int8 else 'bf16'} pos={positions}",
+        "max_abs_err": err, "tol": BF16_ATOL,
+        "ms": time_ms(lambda: decode_attention(q, k, v, pos, ks, vs)),
+        "plain_ms": time_ms(lambda: decode_attention_plain(q, k, v, pos, ks, vs)),
+        "library_ms": library_ms, "bound_ms": b_ms, "bound_by": by,
+    }
+
+
+def kernel_phase():
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    flash = [
+        flash_case(gen, 1, 512, 32, 32, True),  # llama2-7b prefill, bucket 512
+        flash_case(gen, 1, 100, 32, 32, True),  # a ragged length
+        flash_case(gen, 1, 512, 32, 8, True),  # llama3-8b heads (GQA 4)
+        flash_case(gen, 1, 384, 32, 32, False),
+    ]
+    positions = [0, 1, 17, 255, 511, 700, 1000, 1023]
+    decode = [
+        decode_case(gen, 8, 1024, 32, 32, False, positions),  # llama2-7b decode, B=8
+        decode_case(gen, 8, 1024, 32, 32, True, positions),
+        decode_case(gen, 8, 1024, 32, 8, False, positions),  # llama3-8b heads (GQA 4)
+        decode_case(gen, 8, 1024, 32, 8, True, positions),
+    ]
+    for name, cases in (("flash_fwd", flash), ("decode_attn", decode)):
+        for c in cases:
+            lib = "n/a" if c["library_ms"] is None else f"{c['library_ms']:.4f}"
+            print(f"kernel {name} [{c['case']}]: max|err| {c['max_abs_err']:.3g} (tol {c['tol']})"
+                  f"{' lse ' + format(c['lse_max_abs_err'], '.3g') if 'lse_max_abs_err' in c else ''}"
+                  f" | ms {c['ms']:.4f} plain {c['plain_ms']:.4f} library {lib}"
+                  f" bound {c['bound_ms']:.4f} ({c['bound_by']})", flush=True)
+    return {"flash_fwd": flash, "decode_attn": decode}
+
+
+# --- the main path: serve.main's server ---------------------------------------
+
+PROMPTS = [  # (text, max_tokens, temperature, stream): ByteTokenizer ids = 1 + bytes
+    ("The quick brown", 32, 0.0, False),  # 16 tokens -> bucket 16
+    ("x" * 99, 32, 0.0, True),  # 100 tokens -> bucket 128, streamed
+    ("serve " * 66 + "abc", 32, 0.0, False),  # 400 tokens -> bucket 512
+    ("A sampled reply " * 6 + "!!!", 32, 0.8, False),  # 100 tokens, temperature 0.8
+    ("Greedy again, sixteen..", 32, 0.0, False),
+]
+
+
+def post(base: str, body: dict):
+    req = urllib.request.Request(f"{base}/v1/completions", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        if not body.get("stream"):
+            return resp.status, json.loads(resp.read()), None
+        usage, finish, n_chunks, ttft = None, None, 0, None
+        for raw in resp:
+            line = raw.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            if line == "data: [DONE]":
+                break
+            obj = json.loads(line[6:])
+            if obj.get("usage"):
+                usage = obj["usage"]
+            for ch in obj["choices"]:
+                if ttft is None:
+                    ttft = time.perf_counter() - t0
+                n_chunks += 1
+                finish = ch["finish_reason"] or finish
+        return resp.status, {"usage": usage, "finish": finish, "chunks": n_chunks}, ttft
+
+
+def wait_idle(engine) -> None:
+    """Let the scheduler finish the iteration that released the last slot
+    (its step counters land just after the final token is delivered)."""
+    deadline = time.time() + 30
+    while engine.active.any() and time.time() < deadline:
+        time.sleep(0.01)
+    time.sleep(0.5)
+
+
+def reference_check(engine) -> dict:
+    """Hold the engine's greedy tokens (decode kernel over the slot cache)
+    against one teacher-forced forward of prompt + tokens through the
+    flash kernel, and that forward against the plain attention path."""
+    import torch
+
+    from substratus_tpu_torch.models import llama
+    from substratus_tpu_torch.serve.tokenizer import ByteTokenizer
+
+    prompt = ByteTokenizer().encode(PROMPTS[0][0])
+    toks = engine.generate(prompt, max_tokens=16, temperature=0.0)
+    seq = torch.tensor([prompt + toks[:-1]], device=engine.device)
+    cfg = engine.cfg
+    kern, _ = llama.forward(engine.params, seq, cfg)
+    plain, _ = llama.forward(engine.params, seq, cfg.replace(attn_impl="plain"))
+    kern, plain = kern[0, len(prompt) - 1:], plain[0, len(prompt) - 1:]
+    scale = kern.abs().max().item()
+    path_err = (kern - plain).abs().max().item()
+    # How far below the reference's best logit each served token lies.
+    gaps = (kern.max(dim=-1).values - kern[torch.arange(len(toks)), torch.tensor(toks)]).tolist()
+    agree = sum(int(kern[i].argmax()) == t for i, t in enumerate(toks))
+    out = {"tokens": toks, "logit_scale": scale, "kernel_vs_plain_max_abs": path_err,
+           "argmax_agree": agree, "max_gap": max(gaps)}
+    print(f"reference: {agree}/{len(toks)} served greedy tokens are the argmax of the teacher-forced "
+          f"forward (largest gap {max(gaps):.4g}); kernel vs plain logits max|diff| {path_err:.4g} "
+          f"at logit scale {scale:.4g}", flush=True)
+    if not (torch.isfinite(kern).all() and torch.isfinite(plain).all()):
+        fail("non-finite logits")
+    if not toks or path_err > 0.05 * scale or max(gaps) > 0.05 * scale:
+        fail(f"served tokens or logits disagree with the reference: {out}")
+    return out
+
+
+def _device_summary(prof, wall: float, reps: int, top_n: int = 10) -> dict:
+    """Device busy time and the top kernels of a profile (device-side
+    events only: the CPU ops that launched them carry the same time)."""
+    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    busy = sum(dev_us(e) for e in kernels) / 1e6
+    top = sorted(kernels, key=dev_us, reverse=True)[:top_n]
+    return {"profiled_ms": 1e3 * wall / reps, "device_busy_ms": 1e3 * busy / reps,
+            "top": [{"name": e.key, "ms": dev_us(e) / 1e3 / reps, "calls": e.count / reps} for e in top]}
+
+
+def profile_engine(engine, steps: int = 8) -> dict:
+    """Host-clock prefill and decode-step times and, under torch.profiler,
+    their device busy time and top kernels, with every decode slot active.
+    Driven from this thread after the scheduler has stopped."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from substratus_tpu_torch.serve.engine import Request
+
+    def admit(n: int) -> float:  # one prompt of n tokens into a free slot
+        engine.queue.put(Request([256] + [65] * (n - 1), max_tokens=10_000, temperature=0.0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if engine._admit() != 1:
+            fail("profile: admission failed")
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def decode(n: int) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            engine._decode_step()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    out = {"prefill_ms": {n: 1e3 * min(admit(n), admit(n)) for n in (16, 400)}}
+    with profile(activities=activities) as prof:
+        wall = admit(400)
+    out["prefill_400"] = _device_summary(prof, wall, 1)
+    while not engine.active.all():
+        admit(100)
+    decode(2)
+    out["decode_step_ms"] = 1e3 * decode(steps) / steps
+    with profile(activities=activities) as prof:
+        wall = decode(steps)
+    out["decode"] = _device_summary(prof, wall, steps)
+    out["batch"] = int(engine.active.sum())
+    print(f"profile: prefill 16 tokens {out['prefill_ms'][16]:.1f} ms, 400 tokens {out['prefill_ms'][400]:.1f} ms "
+          f"(device busy {out['prefill_400']['device_busy_ms']:.2f} ms); decode step at B={out['batch']} "
+          f"{out['decode_step_ms']:.2f} ms (device busy {out['decode']['device_busy_ms']:.2f} ms, "
+          f"{100 * out['decode']['device_busy_ms'] / out['decode_step_ms']:.1f}%)", flush=True)
+    for phase in ("prefill_400", "decode"):
+        for e in out[phase]["top"]:
+            print(f"profile {phase}: {e['ms']:8.3f} ms {e['calls']:6.1f} calls  {e['name'][:80]}", flush=True)
+    return out
+
+
+def serve_phase(card: str, profile_steps: bool = False):
+    import torch
+
+    from substratus_tpu_torch.ops.decode_attention import decode_attention
+    from substratus_tpu_torch.ops.flash_attention import flash_attention
+    from substratus_tpu_torch.serve import main as serve_main
+
+    OUT_DIR.mkdir(exist_ok=True)
+    params_path = OUT_DIR / "chip_smoke_params.json"
+    params_path.write_text(json.dumps({"config": "llama2-7b", "max_batch": 8, "max_seq_len": 1024,
+                                       "max_prefill_len": 512, "kv_cache_dtype": "model"}))
+    t0 = time.perf_counter()
+    server = serve_main.build(["--params", str(params_path), "--host", "127.0.0.1", "--port", "0"])
+    engine = server.state.engine
+    torch.cuda.synchronize()
+    cfg = engine.cfg
+    if (cfg.dim, cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.vocab_size) != (4096, 32, 32, 32, 32000):
+        fail(f"not llama2-7b at full width and depth: {cfg}")
+    server.start()
+    base = f"http://127.0.0.1:{server.port}"
+    try:
+        print(f"serve: llama2-7b built in {time.perf_counter() - t0:.1f} s "
+              f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card)", flush=True)
+        with urllib.request.urlopen(f"{base}/", timeout=60) as r:
+            if r.status != 200:
+                fail(f"GET / -> {r.status}")
+        post(base, {"prompt": "warm up", "max_tokens": 2, "temperature": 0.0})  # cuBLAS handles etc.
+        wait_idle(engine)
+
+        for k, v in engine.stats.items():
+            engine.stats[k] = 0 * v
+        flash_attention.launches = 0
+        decode_attention.launches = 0
+        results = [None] * len(PROMPTS)
+
+        def run(i, text, max_tokens, temp, stream):
+            body = {"prompt": text, "max_tokens": max_tokens, "temperature": temp}
+            if stream:
+                body.update(stream=True, stream_options={"include_usage": True})
+            try:
+                results[i] = post(base, body)
+            except Exception as e:  # reported below as a failed request
+                results[i] = (None, repr(e), None)
+
+        t_run = time.perf_counter()
+        threads = [threading.Thread(target=run, args=(i, *p)) for i, p in enumerate(PROMPTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t_run
+        wait_idle(engine)
+        launches = {"flash_fwd": flash_attention.launches, "decode_attn": decode_attention.launches}
+        stats = dict(engine.stats)
+        reference = reference_check(engine)
+    finally:
+        server.stop()
+    profiled = profile_engine(engine) if profile_steps else None
+
+    generated = 0
+    for (text, max_tokens, temp, stream), (status, body, _) in zip(PROMPTS, results):
+        if status != 200:
+            fail(f"request {text[:20]!r}: {status} {body}")
+        usage = body["usage"]
+        n_prompt = len(text.encode()) + 1
+        if usage is None or usage["prompt_tokens"] != n_prompt or not 1 <= usage["completion_tokens"] <= max_tokens:
+            fail(f"request {text[:20]!r}: usage {usage}, want {n_prompt} prompt tokens")
+        finish = body["finish"] if stream else body["choices"][0]["finish_reason"]
+        if (finish == "length") != (usage["completion_tokens"] == max_tokens):
+            fail(f"request {text[:20]!r}: finish {finish} with {usage['completion_tokens']} tokens")
+        if stream and body["chunks"] != usage["completion_tokens"] + 1:
+            fail(f"streamed request: {body['chunks']} chunks for {usage['completion_tokens']} tokens")
+        generated += usage["completion_tokens"]
+    L = cfg.n_layers
+    if stats["prefills"] != len(PROMPTS):
+        fail(f"{stats['prefills']} prefills for {len(PROMPTS)} requests")
+    if launches["flash_fwd"] != L * stats["prefills"] or launches["decode_attn"] != L * stats["decode_steps"]:
+        fail(f"launches {launches} against {L} x {stats['prefills']} prefills and "
+             f"{L} x {stats['decode_steps']} decode steps")
+    if launches["flash_fwd"] == 0 or launches["decode_attn"] == 0:
+        fail(f"a kernel of the main path never launched: {launches}")
+    ttft = stats["prefill_seconds"] / stats["prefills"]
+    step_ms = 1e3 * stats["decode_seconds"] / stats["decode_steps"]
+    decode_tps = (generated - len(PROMPTS)) / stats["decode_seconds"]
+    print(f"serve: {len(PROMPTS)} concurrent requests, {generated} tokens in {wall:.2f} s; "
+          f"{stats['prefills']} prefills, {stats['decode_steps']} decode steps; launches {launches}", flush=True)
+    print(f"serve [{card}]: mean prefill (TTFT on the engine) {ttft * 1e3:.1f} ms, "
+          f"decode {decode_tps:.1f} tokens/s, mean step {step_ms:.2f} ms", flush=True)
+    return {"launches": launches, "stats": stats, "wall_s": wall, "generated": generated,
+            "ttft_ms": ttft * 1e3, "decode_tokens_per_s": decode_tps, "step_ms": step_ms,
+            "requests": [r[1] for r in results], "reference": reference, "profile": profiled}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--phases", default="card,build,kernels,serve")
+    phases = ap.parse_args().phases.split(",")
+
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs the card")
+    try:
+        from substratus_tpu_torch import kernels
+    except ImportError as e:
+        fail(f"the port is not importable here: {e}")
+
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    print(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}", flush=True)
+    report = {"card": card, "kind": kind}
+    if "build" in phases:
+        t0 = time.perf_counter()
+        kernels.library()
+        print(f"build: {time.perf_counter() - t0:.1f} s (nvcc {kernels.build_seconds} s)", flush=True)
+    if "kernels" in phases:
+        report["kernels"] = kernel_phase()
+    if "serve" in phases:
+        report["serve"] = serve_phase(card, profile_steps="profile" in phases)
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+
+    if "kernels" in phases:
+        sources = {"flash_fwd": ("substratus_tpu_torch/csrc/flash_fwd.cu",
+                                 "substratus_tpu/ops/flash_attention.py:91"),
+                   "decode_attn": ("substratus_tpu_torch/csrc/decode_attn.cu",
+                                   "substratus_tpu/ops/decode_attention.py:138")}
+        line = []
+        for name, cases in report["kernels"].items():
+            main_case = cases[0]  # the serving path's shape
+            line.append({
+                "name": name, "route": "cuda", "source": sources[name][0], "replaces": sources[name][1],
+                "launches": report.get("serve", {}).get("launches", {}).get(name, 0),
+                "max_abs_err": main_case["max_abs_err"], "ms": main_case["ms"],
+                "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
+                "bound_by": main_case["bound_by"], "library_ms": main_case["library_ms"],
+            })
+        print(card, flush=True)
+        print(json.dumps({"kernels": line}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

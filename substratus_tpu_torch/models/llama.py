@@ -1,0 +1,296 @@
+"""Llama model family (port of substratus_tpu/models/llama.py), dense
+configurations.
+
+The weights keep the JAX package's einsum layouts (wq [D, H, hd], wo
+[H, hd, D], w_gate [D, M], ...), one ``LlamaBlock`` per layer in an
+``nn.ModuleList`` where the JAX tree stacks layers on a leading axis
+(bridge.params_from_jax splits it). Projections and the lm_head are
+plain ``torch.matmul``; attention goes through the kernel wrappers:
+``flash_attention`` for the no-cache prefill and ``decode_attention``
+(inside update_cache_and_attend) for decode steps, both chosen by
+``attn_impl`` / ``decode_attn_impl``.
+
+The decode cache is the dense slot cache k/v [L, B, KH, S, hd] (+ f32
+scales [L, B, KH, S] when int8), written in place.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from substratus_tpu_torch.ops.attention import dot_product_attention
+from substratus_tpu_torch.ops.basics import rms_norm, rope, swiglu
+from substratus_tpu_torch.ops.decode_attention import update_cache_and_attend
+from substratus_tpu_torch.ops.flash_attention import flash_attention
+from substratus_tpu_torch.utils.device import DeviceLike, resolve_device, seeded_generator
+
+Cache = Dict[str, torch.Tensor]
+
+
+@dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 32000
+    dim: int = 4096
+    n_layers: int = 32
+    n_heads: int = 32
+    n_kv_heads: int = 32
+    hidden_dim: int = 11008
+    head_dim: Optional[int] = None
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-5
+    max_seq_len: int = 4096
+    tie_embeddings: bool = False
+    dtype: torch.dtype = torch.bfloat16
+    # No-cache (prefill) attention: "flash" = ops/flash_attention.py (the
+    # CUDA kernel on the card), "plain" = ops/attention.py reference.
+    attn_impl: str = "flash"
+    # Single-token cached attention: "kernel" = ops/decode_attention.py's
+    # CUDA kernel on the card, "plain" = its plain version; "fused"
+    # (ops/fused_decode.py) is not ported yet.
+    decode_attn_impl: str = "kernel"
+    # Multi-token cached attention: "plain" only until the cached flash
+    # kernel is ported.
+    chunk_attn_impl: str = "plain"
+    # Mixture-of-experts (Mixtral family): not ported yet, so these
+    # configs raise.
+    n_experts: int = 0
+
+    @property
+    def head_size(self) -> int:
+        return self.head_dim if self.head_dim is not None else self.dim // self.n_heads
+
+    def replace(self, **kw) -> "LlamaConfig":
+        return dataclasses.replace(self, **kw)
+
+
+# Same shapes as the JAX package's CONFIGS.
+CONFIGS: Dict[str, LlamaConfig] = {
+    "tiny": LlamaConfig(
+        vocab_size=256, dim=64, n_layers=2, n_heads=4, n_kv_heads=2,
+        hidden_dim=128, max_seq_len=128, norm_eps=1e-6,
+    ),
+    "debug-1b": LlamaConfig(
+        vocab_size=32000, dim=2048, n_layers=16, n_heads=16, n_kv_heads=8,
+        hidden_dim=5632, max_seq_len=2048,
+    ),
+    "llama2-7b": LlamaConfig(),
+    "llama2-13b": LlamaConfig(dim=5120, n_layers=40, n_heads=40, n_kv_heads=40, hidden_dim=13824),
+    "llama2-70b": LlamaConfig(dim=8192, n_layers=80, n_heads=64, n_kv_heads=8, hidden_dim=28672),
+    "llama3-8b": LlamaConfig(
+        vocab_size=128256, dim=4096, n_layers=32, n_heads=32, n_kv_heads=8,
+        hidden_dim=14336, rope_theta=500000.0, max_seq_len=8192,
+    ),
+    "tinyllama-1.1b": LlamaConfig(
+        vocab_size=32000, dim=2048, n_layers=22, n_heads=32, n_kv_heads=4,
+        hidden_dim=5632, max_seq_len=2048,
+    ),
+    "tiny-moe": LlamaConfig(
+        vocab_size=256, dim=64, n_layers=2, n_heads=4, n_kv_heads=2,
+        hidden_dim=128, max_seq_len=128, norm_eps=1e-6, n_experts=4,
+    ),
+    "mixtral-8x7b": LlamaConfig(
+        vocab_size=32000, dim=4096, n_layers=32, n_heads=32, n_kv_heads=8,
+        hidden_dim=14336, rope_theta=1000000.0, max_seq_len=32768,
+        n_experts=8,
+    ),
+}
+
+
+def _check_dense(cfg: LlamaConfig) -> None:
+    if cfg.n_experts > 0:
+        raise NotImplementedError(
+            "mixture-of-experts llama configs are not ported yet: ROADMAP Queue 1"
+        )
+
+
+def _weight(shape, cfg: LlamaConfig, device: torch.device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=cfg.dtype, device=device), requires_grad=False)
+
+
+class LlamaBlock(nn.Module):
+    """One transformer block's weights, in the JAX einsum layouts."""
+
+    def __init__(self, cfg: LlamaConfig, device: torch.device):
+        super().__init__()
+        D, H, KH, hd, M = cfg.dim, cfg.n_heads, cfg.n_kv_heads, cfg.head_size, cfg.hidden_dim
+        self.attn_norm = _weight((D,), cfg, device)
+        self.wq = _weight((D, H, hd), cfg, device)
+        self.wk = _weight((D, KH, hd), cfg, device)
+        self.wv = _weight((D, KH, hd), cfg, device)
+        self.wo = _weight((H, hd, D), cfg, device)
+        self.mlp_norm = _weight((D,), cfg, device)
+        self.w_gate = _weight((D, M), cfg, device)
+        self.w_up = _weight((D, M), cfg, device)
+        self.w_down = _weight((M, D), cfg, device)
+
+
+class Llama(nn.Module):
+    """Parameter container (uninitialized; fill with init_params or
+    load_state_dict). Call forward() / decode_step() to run it."""
+
+    def __init__(self, cfg: LlamaConfig, device: DeviceLike = None):
+        super().__init__()
+        _check_dense(cfg)
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.tok_embed = _weight((cfg.vocab_size, cfg.dim), cfg, device)
+        self.layers = nn.ModuleList(LlamaBlock(cfg, device) for _ in range(cfg.n_layers))
+        self.out_norm = _weight((cfg.dim,), cfg, device)
+        if not cfg.tie_embeddings:
+            self.lm_head = _weight((cfg.dim, cfg.vocab_size), cfg, device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.tok_embed.device
+
+
+@torch.no_grad()
+def init_params(cfg: LlamaConfig, seed: int = 0, device: DeviceLike = None) -> Llama:
+    """Random init on `device` from a seeded torch.Generator: truncated
+    normal in [-2, 2] scaled by fan_in^-0.5 (the JAX init's distribution,
+    not its numbers), norms at 1."""
+    params = Llama(cfg, device)
+    gen = seeded_generator(seed, params.device)
+
+    def dense(w: torch.Tensor, fan_in: int) -> None:
+        tmp = torch.empty(w.shape, dtype=torch.float32, device=w.device)
+        torch.nn.init.trunc_normal_(tmp, a=-2.0, b=2.0, generator=gen)
+        w.copy_(tmp.mul_(fan_in**-0.5))
+
+    D, H, hd, M = cfg.dim, cfg.n_heads, cfg.head_size, cfg.hidden_dim
+    dense(params.tok_embed, D)
+    for lp in params.layers:
+        lp.attn_norm.fill_(1.0)
+        lp.mlp_norm.fill_(1.0)
+        dense(lp.wq, D)
+        dense(lp.wk, D)
+        dense(lp.wv, D)
+        dense(lp.wo, H * hd)
+        dense(lp.w_gate, D)
+        dense(lp.w_up, D)
+        dense(lp.w_down, M)
+    params.out_norm.fill_(1.0)
+    if not cfg.tie_embeddings:
+        dense(params.lm_head, D)
+    return params
+
+
+def init_cache(
+    cfg: LlamaConfig,
+    batch: int,
+    max_len: Optional[int] = None,
+    dtype: Optional[torch.dtype] = None,
+    device: DeviceLike = None,
+) -> Cache:
+    """Dense decode cache, layers-stacked: k/v [L, B, KH, S, hd]; with
+    dtype=torch.int8, per-vector int8 entries plus f32 scales [L, B, KH, S]."""
+    device = resolve_device(device)
+    S = max_len or cfg.max_seq_len
+    dtype = dtype or cfg.dtype
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, S, cfg.head_size)
+    cache = {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+    }
+    if dtype == torch.int8:
+        cache["k_scale"] = torch.ones(shape[:-1], dtype=torch.float32, device=device)
+        cache["v_scale"] = torch.ones(shape[:-1], dtype=torch.float32, device=device)
+    return cache
+
+
+def _self_attention(q, k, v, positions, cfg: LlamaConfig) -> torch.Tensor:
+    """No-cache causal attention, per cfg.attn_impl. The flash kernel
+    assumes standard positions (row r attends 0..r), which holds for full
+    prefill."""
+    if cfg.attn_impl == "flash":
+        return flash_attention(q, k, v, True)
+    if cfg.attn_impl == "plain":
+        return dot_product_attention(q, k, v, causal=True, q_positions=positions)
+    raise NotImplementedError(f"attn_impl={cfg.attn_impl!r} is not ported (flash|plain)")
+
+
+def _block(
+    x: torch.Tensor,  # [B, S, D]
+    lp: LlamaBlock,
+    positions: torch.Tensor,  # [B, S]
+    cfg: LlamaConfig,
+    layer_cache: Optional[Cache],
+    kv_length: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Cache]:
+    """One transformer block. Returns (x_out, kv): the fresh {k, v}
+    entries without a cache (prefill), else the updated layer cache."""
+    b, s, _ = x.shape
+    H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_size
+    h = rms_norm(x, lp.attn_norm, cfg.norm_eps)
+    q = torch.matmul(h, lp.wq.reshape(cfg.dim, H * hd)).reshape(b, s, H, hd)
+    kk = torch.matmul(h, lp.wk.reshape(cfg.dim, KH * hd)).reshape(b, s, KH, hd)
+    vv = torch.matmul(h, lp.wv.reshape(cfg.dim, KH * hd)).reshape(b, s, KH, hd)
+    q = rope(q, positions, cfg.rope_theta)
+    kk = rope(kk, positions, cfg.rope_theta)
+
+    if layer_cache is None:
+        attn = _self_attention(q, kk, vv, positions, cfg)
+        kv = {"k": kk, "v": vv}
+    else:
+        attn, kv = update_cache_and_attend(
+            layer_cache, q, kk, vv, positions, kv_length=kv_length,
+            impl=cfg.decode_attn_impl, chunk_impl=cfg.chunk_attn_impl,
+        )
+    x = x + torch.matmul(attn.reshape(b, s, H * hd), lp.wo.reshape(H * hd, cfg.dim))
+    h = rms_norm(x, lp.mlp_norm, cfg.norm_eps)
+    gate = torch.matmul(h, lp.w_gate)
+    up = torch.matmul(h, lp.w_up)
+    x = x + torch.matmul(swiglu(gate, up), lp.w_down)
+    return x, kv
+
+
+@torch.no_grad()
+def forward(
+    params: Llama,
+    tokens: torch.Tensor,  # [B, S] integer ids
+    cfg: LlamaConfig,
+    *,
+    positions: Optional[torch.Tensor] = None,  # [B, S] absolute positions
+    cache: Optional[Cache] = None,  # dense cache from init_cache (written in place)
+    kv_length: Optional[torch.Tensor] = None,  # [B] valid cache prefix
+) -> Tuple[torch.Tensor, Cache]:
+    """Returns (logits [B, S, vocab] float32, kv).
+
+    Without cache (prefill): kv = fresh entries {k, v: [L, B, S, KH, hd]},
+    the fragment the engine inserts into a slot cache. With cache: tokens
+    are written at `positions` and attention runs over the cache; kv is
+    the same (updated) cache dict."""
+    _check_dense(cfg)
+    B, S = tokens.shape
+    if positions is None:
+        positions = torch.arange(S, device=tokens.device).expand(B, S)
+    x = params.tok_embed[tokens.long()].to(cfg.dtype)
+    fresh = []
+    for i, lp in enumerate(params.layers):
+        layer_cache = None if cache is None else {name: t[i] for name, t in cache.items()}
+        x, kv = _block(x, lp, positions, cfg, layer_cache, kv_length)
+        if cache is None:
+            fresh.append(kv)
+    x = rms_norm(x, params.out_norm, cfg.norm_eps)
+    head = params.tok_embed.t() if cfg.tie_embeddings else params.lm_head
+    logits = torch.matmul(x, head.to(cfg.dtype)).float()
+    if cache is not None:
+        return logits, cache
+    return logits, {name: torch.stack([kv[name] for kv in fresh]) for name in ("k", "v")}
+
+
+def decode_step(
+    params: Llama,
+    cache: Cache,
+    tokens: torch.Tensor,  # [B] current token per row
+    positions: torch.Tensor,  # [B] position to write/attend at
+    cfg: LlamaConfig,
+) -> Tuple[torch.Tensor, Cache]:
+    """One decode step: logits [B, vocab] for the next token; the cache
+    is updated in place (and returned, as the JAX function returns it)."""
+    logits, cache = forward(params, tokens[:, None], cfg, positions=positions[:, None], cache=cache)
+    return logits[:, 0, :], cache

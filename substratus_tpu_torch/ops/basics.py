@@ -1,0 +1,38 @@
+"""Elementwise / normalization / positional ops (port of
+substratus_tpu/ops/basics.py). Plain PyTorch: these are bandwidth-bound
+elementwise passes that the JAX package also leaves outside any kernel."""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm in float32 accumulation regardless of input dtype."""
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    normed = x32 * torch.reciprocal(torch.sqrt(var + eps))
+    return (normed * scale.float()).to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float = 10000.0, device=None) -> torch.Tensor:
+    """Inverse frequencies, shape [head_dim // 2] (float32)."""
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta**exponent)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:
+    """Rotary position embedding, HF-Llama "rotate_half" convention, with
+    f32 angles. x: [..., seq, heads, head_dim]; positions broadcastable
+    to [..., seq]."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    angles = positions[..., None].float() * freqs  # [..., seq, d/2]
+    cos = torch.cos(angles)[..., None, :]  # broadcast over heads
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat((x1 * cos - x2 * sin, x2 * cos + x1 * sin), dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    return F.silu(gate) * up

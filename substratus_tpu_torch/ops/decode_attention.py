@@ -1,0 +1,223 @@
+"""Decode-step attention over the dense slot cache, bf16 or int8: the CUDA
+kernel csrc/decode_attn.cu beside its plain PyTorch version, plus the
+cache update around it (port of substratus_tpu/ops/decode_attention.py).
+
+The kernel replaces substratus_tpu/ops/decode_attention.py::_kernel
+(decode_attention(impl="pallas")). Single-token decode reads the whole
+live cache once per layer per step, so the kernel is bound by bytes; see
+the source note in csrc/decode_attn.cu.
+
+Cache layout is [B, KH, S, D] (each kv head's history contiguous); int8
+caches carry f32 scales [B, KH, S]. k_scale multiplies the score after
+the QK dot and v_scale folds into p, so no dequantized copy is made.
+
+Unlike the JAX package, which rebinds a donated cache, the port writes
+the cache in place; every write and every kernel read runs on the one
+scheduler thread, on PyTorch's current stream. A write at a position
+past the cache (a drifting inactive slot) is dropped, as JAX's
+out-of-range scatter drops it: no index ever goes past S-1.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from substratus_tpu_torch import kernels
+from substratus_tpu_torch.ops.attention import dot_product_attention
+from substratus_tpu_torch.ops.quant import dequantize_kv, quantize_kv
+
+NEG_INF = -1e30
+HEAD_DIMS = (16, 32, 64, 128)
+GROUPS = (1, 2, 4, 8)
+
+
+def decode_attention_plain(
+    q: torch.Tensor,  # [B, 1, H, D]
+    k: torch.Tensor,  # [B, KH, S, D]
+    v: torch.Tensor,
+    positions: torch.Tensor,  # [B]
+    k_scale: Optional[torch.Tensor] = None,  # [B, KH, S] f32
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The kernel's function in plain PyTorch, following the JAX Pallas
+    _kernel: q scaled by D^-0.5 in f32, f32 scores (times k_scale), mask
+    cols <= pos, f32 softmax, p times v_scale kept f32 for the PV
+    product. A row with no live column outputs 0. (The JAX _xla path
+    scales q in the model dtype and rounds p to it instead; the two agree
+    exactly only in f32.)"""
+    b, _, h, d = q.shape
+    kh, s = k.shape[1], k.shape[2]
+    g = h // kh
+    qf = (q.float() * d**-0.5).reshape(b, kh, g, d)
+    logits = torch.einsum("bkgd,bksd->bkgs", qf, k.float())
+    if k_scale is not None:
+        logits = logits * k_scale[:, :, None, :]
+    live = torch.arange(s, device=q.device)[None, :] <= positions[:, None].long()  # [B, S]
+    logits = torch.where(live[:, None, None, :], logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    p = torch.where(live[:, None, None, :], p, 0.0)
+    if v_scale is not None:
+        p = p * v_scale[:, :, None, :]
+    out = torch.einsum("bkgs,bksd->bkgd", p, v.float())
+    return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+def decode_attention(
+    q: torch.Tensor,  # [B, 1, H, D]
+    k: torch.Tensor,  # [B, KH, S, D] (int8 when k_scale given)
+    v: torch.Tensor,
+    positions: torch.Tensor,  # [B] absolute position of the query token
+    k_scale: Optional[torch.Tensor] = None,  # [B, KH, S] f32
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Single-token attention against the cache, columns <= positions[b].
+    Returns [B, 1, H, D] in q's dtype. CUDA tensors launch the kernel (or
+    raise); CPU tensors run the plain version. ``decode_attention.launches``
+    counts kernel launches."""
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k, v, positions, k_scale, v_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention: unsupported device {q.device}")
+    b, sq, h, d = q.shape
+    _, kh, s, dk = k.shape
+    quantized = k_scale is not None
+    if sq != 1 or dk != d or v.shape != k.shape or k.shape[0] != b or h % kh:
+        raise ValueError(f"decode_attention: unsupported shapes q{tuple(q.shape)} k{tuple(k.shape)}")
+    if d not in HEAD_DIMS or h // kh not in GROUPS:
+        raise ValueError(f"decode_attention: head_dim {d} / group {h // kh} not built (head_dim {HEAD_DIMS}, group {GROUPS})")
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"decode_attention: the kernel takes bf16 queries, got {q.dtype}")
+    want = torch.int8 if quantized else torch.bfloat16
+    if k.dtype != want or v.dtype != want:
+        raise ValueError(f"decode_attention: cache must be {want}, got {k.dtype}/{v.dtype}")
+    if quantized and (
+        v_scale is None or k_scale.shape != (b, kh, s) or v_scale.shape != (b, kh, s)
+        or k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32
+    ):
+        raise ValueError("decode_attention: int8 caches need f32 k_scale and v_scale [B, KH, S]")
+    tensors = (q, k, v, positions) + ((k_scale, v_scale) if quantized else ())
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("decode_attention: all operands must be on one device")
+    # The kernel reads 16-byte rows straight from the cache: no copies of it.
+    if not (k.is_contiguous() and v.is_contiguous()) or (k.data_ptr() | v.data_ptr()) % 16:
+        raise ValueError("decode_attention: k/v must be contiguous and 16-byte aligned")
+    if quantized and not (k_scale.is_contiguous() and v_scale.is_contiguous()):
+        raise ValueError("decode_attention: scales must be contiguous")
+    q = q.contiguous()
+    pos = positions.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    rc = kernels.library().decode_attn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        k_scale.data_ptr() if quantized else None,
+        v_scale.data_ptr() if quantized else None,
+        pos.data_ptr(), out.data_ptr(),
+        b, h, kh, s, d, kernels.DTYPE_CODES[k.dtype], float(d**-0.5),
+        kernels.stream_ptr(q.device),
+    )
+    kernels.check(rc, "decode_attn")
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0
+
+
+def _write_rows(cache: torch.Tensor, rows: torch.Tensor, positions: torch.Tensor) -> None:
+    """cache[b, :, positions[b, i]] = rows[b, :, i] in place, dropping
+    positions >= S (as JAX's out-of-range scatter does) without ever
+    indexing past S-1. cache [B, KH, S, ...], rows [B, KH, Sn, ...],
+    positions [B, Sn]."""
+    b, kh, s = cache.shape[:3]
+    sn = positions.shape[1]
+    bidx = torch.arange(b, device=cache.device)[:, None, None]
+    hidx = torch.arange(kh, device=cache.device)[None, :, None]
+    if sn == 1:
+        # The decode path: one row per (b, head), so a select against the
+        # current value drops out-of-range writes with no host sync.
+        valid = (positions < s).reshape(b, 1, 1, *([1] * (rows.dim() - 3)))
+        idx = torch.clamp(positions, max=s - 1)[:, None, :]
+        old = cache[bidx, hidx, idx]
+        cache[bidx, hidx, idx] = torch.where(valid, rows.to(cache.dtype), old)
+        return
+    # Multi-token writes (chunked continuation): positions clamped onto
+    # S-1 could collide, so select the in-range entries explicitly.
+    keep = positions < s  # [B, Sn]
+    bb, ii = torch.nonzero(keep, as_tuple=True)
+    pos = positions[bb, ii]
+    cache[bb[:, None], torch.arange(kh, device=cache.device)[None, :], pos[:, None]] = (
+        rows[bb, :, ii].to(cache.dtype)
+    )
+
+
+def update_cache_and_attend(
+    layer_cache: Dict[str, torch.Tensor],  # {k, v[, k_scale, v_scale]} [B, KH, S, D]
+    q: torch.Tensor,  # [B, S, H, D] new queries (S=1 on the decode path)
+    kk: torch.Tensor,  # [B, S, KH, D] new keys (activation layout)
+    vv: torch.Tensor,  # [B, S, KH, D]
+    positions: torch.Tensor,  # [B, S] absolute positions
+    *,
+    kv_length: Optional[torch.Tensor] = None,  # [B] valid prefix override
+    impl: str = "kernel",
+    chunk_impl: str = "plain",
+):
+    """Write fresh kv entries into a layer's slot cache (in place,
+    quantizing when the cache is int8) and attend. Single-token steps go
+    through decode_attention (impl="kernel") or its plain version
+    (impl="plain"); multi-token continuation or kv_length-masked resumes
+    dequantize and run dot_product_attention. Returns (attn [B, S, H, D],
+    the layer cache dict)."""
+    if impl == "fused":
+        raise NotImplementedError(
+            "decode_attn_impl='fused' (ops/fused_decode.py) is not ported yet: ROADMAP Queue 2"
+        )
+    if impl not in ("kernel", "plain"):
+        raise ValueError(f"decode attention impl {impl!r} invalid (kernel|plain|fused)")
+    if chunk_impl != "plain":
+        raise NotImplementedError(
+            f"chunk_attn_impl={chunk_impl!r} (flash_cached_attention) is not ported yet: ROADMAP Queue 2"
+        )
+    s = kk.shape[1]
+    kkT = kk.transpose(1, 2)  # [B, KH, S, D]
+    vvT = vv.transpose(1, 2)
+    quantized = "k_scale" in layer_cache
+    if quantized:
+        kq, kscale = quantize_kv(kkT)  # scale [B, KH, S, 1]
+        vq, vscale = quantize_kv(vvT)
+        _write_rows(layer_cache["k"], kq, positions)
+        _write_rows(layer_cache["v"], vq, positions)
+        _write_rows(layer_cache["k_scale"], kscale[..., 0], positions)
+        _write_rows(layer_cache["v_scale"], vscale[..., 0], positions)
+    else:
+        _write_rows(layer_cache["k"], kkT, positions)
+        _write_rows(layer_cache["v"], vvT, positions)
+    if s == 1 and kv_length is None:
+        attend = decode_attention if impl == "kernel" else decode_attention_plain
+        attn = attend(
+            q, layer_cache["k"], layer_cache["v"], positions[:, 0],
+            layer_cache.get("k_scale"), layer_cache.get("v_scale"),
+        )
+        return attn, layer_cache
+    if quantized:
+        k_cache = dequantize_kv(layer_cache["k"], layer_cache["k_scale"][..., None], q.dtype)
+        v_cache = dequantize_kv(layer_cache["v"], layer_cache["v_scale"][..., None], q.dtype)
+    else:
+        k_cache, v_cache = layer_cache["k"], layer_cache["v"]
+    attn = dot_product_attention(
+        q, k_cache.transpose(1, 2), v_cache.transpose(1, 2),
+        causal=True, q_positions=positions, kv_length=kv_length,
+    )
+    return attn, layer_cache
+
+
+def pack_fragment(cache: Dict[str, torch.Tensor], kv: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Convert an activation-layout prefill fragment {k, v: [..., S, KH, D]}
+    into the slot-cache layout {k, v: [..., KH, S, D][, scales [..., KH, S]]},
+    quantizing when `cache` is int8."""
+    kT = kv["k"].transpose(-3, -2)
+    vT = kv["v"].transpose(-3, -2)
+    if "k_scale" in cache:
+        kq, ks = quantize_kv(kT)
+        vq, vs = quantize_kv(vT)
+        return {"k": kq, "k_scale": ks[..., 0], "v": vq, "v_scale": vs[..., 0]}
+    return {"k": kT.to(cache["k"].dtype), "v": vT.to(cache["v"].dtype)}

@@ -1,0 +1,354 @@
+"""Continuous-batching inference engine, synchronous dense path (port of
+substratus_tpu/serve/engine.py).
+
+  * the decode batch is a fixed array of slots over the dense cache
+    [L, B, KH, S, hd] (model dtype or int8);
+  * each request is prefilled alone at a power-of-two bucket length and
+    its KV fragment inserted into a free slot;
+  * every decode step advances all slots one token and samples on the
+    device; finished slots are freed and refilled between steps.
+
+Threading model: callers enqueue Requests (thread-safe); one scheduler
+thread owns the model, the cache and the generator, so every cache write
+and every kernel launch is ordered on that thread's current stream. The
+step is synchronous: it reads the sampled tokens back to the host before
+the next dispatch (the JAX engine's overlap=False scheduler).
+
+Not ported yet (ROADMAP Queue 1): the paged layout and prefix reuse,
+chunked prefill, the overlapped scheduler, speculation, adapters,
+disaggregated roles and lockstep gangs; EngineConfig has none of their
+fields.
+"""
+from __future__ import annotations
+
+import dataclasses
+import queue
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from substratus_tpu_torch.models import llama
+from substratus_tpu_torch.ops.decode_attention import pack_fragment
+from substratus_tpu_torch.ops.sampling import sample
+from substratus_tpu_torch.utils.device import DeviceLike, resolve_device, seeded_generator
+
+
+class EngineOverloaded(RuntimeError):
+    """submit() rejected: the waiting queue is at its configured bound."""
+
+    def __init__(self, queue_depth: int, retry_after: float = 1.0):
+        super().__init__(f"engine overloaded: {queue_depth} requests already waiting")
+        self.queue_depth = queue_depth
+        self.retry_after = retry_after
+
+
+@dataclass
+class EngineConfig:
+    max_batch: int = 8  # decode slots
+    max_seq_len: int = 1024  # cache length per slot
+    max_prefill_len: int = 512  # longest prompt (after the keep-newest clip)
+    # Waiting-queue bound: submit() raises EngineOverloaded beyond it.
+    max_queue: Optional[int] = None
+    top_k: int = 0  # static top-k (0 = disabled)
+    eos_token_id: int = 2
+    # "model" keeps the cache in the model dtype; "int8" stores entries
+    # quantized per vector with f32 scales.
+    kv_cache_dtype: str = "model"
+
+
+@dataclass
+class Request:
+    prompt_tokens: List[int]
+    max_tokens: int = 64
+    temperature: float = 0.0
+    top_p: float = 1.0
+    eos_token_id: Optional[int] = None
+    # Each generated token id is put on this queue; None marks completion.
+    out: "queue.Queue[Optional[int]]" = field(default_factory=queue.Queue)
+    # Set before the terminal None: "stop" (eos), "length" (max_tokens or
+    # context window) or "error" (engine died).
+    finish_reason: str = "stop"
+
+
+@dataclass
+class _InFlightStep:
+    """One dispatched decode step: its sampled tokens (on the device) and
+    the slots active at dispatch."""
+
+    tokens: torch.Tensor
+    slots: List[int]
+
+
+def _bucket(n: int, lo: int = 16) -> int:
+    b = lo
+    while b < n:
+        b *= 2
+    return b
+
+
+def _pad_to_bucket(tokens, cap: int):
+    """Right-pad a token list to its power-of-two bucket (capped)."""
+    true_len = len(tokens)
+    bucket = min(_bucket(true_len), cap)
+    padded = np.zeros((1, bucket), np.int64)
+    padded[0, :true_len] = tokens
+    return padded, true_len
+
+
+class Engine:
+    def __init__(
+        self,
+        cfg: llama.LlamaConfig,
+        params: llama.Llama,
+        ec: Optional[EngineConfig] = None,
+        *,
+        device: DeviceLike = None,
+        model=llama,
+    ):
+        """Serve `params` (a models.llama.Llama) on `device`: cuda unless
+        the caller passes device="cpu"; params must already live there."""
+        # Copy before clamping: never mutate the caller's config.
+        ec = dataclasses.replace(ec) if ec is not None else EngineConfig()
+        self.device = resolve_device(device)
+        if params.device != self.device:
+            raise ValueError(f"params live on {params.device}, engine device is {self.device}")
+        if ec.kv_cache_dtype not in ("model", "int8"):
+            raise ValueError(f"kv_cache_dtype {ec.kv_cache_dtype!r} invalid (expected 'model' or 'int8')")
+        ec.max_seq_len = min(ec.max_seq_len, cfg.max_seq_len)
+        ec.max_prefill_len = min(ec.max_prefill_len, ec.max_seq_len)
+        if ec.max_prefill_len < 1 or ec.max_batch < 1 or ec.max_seq_len < 2:
+            raise ValueError(
+                f"invalid engine config: max_prefill_len={ec.max_prefill_len} "
+                f"max_batch={ec.max_batch} max_seq_len={ec.max_seq_len}"
+            )
+        self.cfg, self.params, self.ec, self.model = cfg, params, ec, model
+        B, S = ec.max_batch, ec.max_seq_len
+        cache_dtype = torch.int8 if ec.kv_cache_dtype == "int8" else None
+        self.cache = model.init_cache(cfg, B, S, dtype=cache_dtype, device=self.device)
+        self.generator = seeded_generator(0, self.device)
+
+        # Per-slot decode inputs live on the host and go to the device
+        # each step (a few bytes per row).
+        self.tokens = np.zeros((B,), np.int64)
+        self.positions = np.zeros((B,), np.int64)
+        self.temps = np.zeros((B,), np.float32)
+        self.top_ps = np.ones((B,), np.float32)
+        self.slot_req: List[Optional[Request]] = [None] * B
+        self.slot_generated: List[int] = [0] * B
+        self.active = np.zeros(B, dtype=bool)
+
+        self.queue: "queue.Queue[Request]" = queue.Queue()
+        self._stop = threading.Event()
+        self._wake = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._admitting: Optional[Request] = None
+        self.error: Optional[BaseException] = None
+        # Host-clock counters of the scheduler thread (read by benches).
+        self.stats: Dict[str, float] = {
+            "prefills": 0,
+            "prefill_tokens": 0,
+            "prefill_seconds": 0.0,
+            "decode_steps": 0,
+            "decode_seconds": 0.0,
+        }
+
+    # --- public API -------------------------------------------------------
+
+    def clipped_prompt(self, prompt_tokens: List[int]) -> List[int]:
+        """Keep the newest tokens that fit the cache, minus one slot for
+        generation."""
+        return prompt_tokens[-(self.ec.max_seq_len - 1):]
+
+    def submit(self, req: Request) -> Request:
+        n = len(self.clipped_prompt(req.prompt_tokens))
+        if n == 0:
+            raise ValueError("empty prompt")
+        if n > self.ec.max_prefill_len:
+            raise ValueError(
+                f"prompt of {n} tokens exceeds max_prefill_len={self.ec.max_prefill_len} "
+                "(chunked prefill is not ported yet: ROADMAP Queue 1)"
+            )
+        if self.error is not None:
+            req.finish_reason = "error"
+            req.out.put(None)  # engine is dead; never strand the caller
+            return req
+        if self.ec.max_queue is not None and self.queue.qsize() >= self.ec.max_queue:
+            raise EngineOverloaded(self.queue.qsize())
+        self.queue.put(req)
+        self._wake.set()
+        if self.error is not None:
+            # The scheduler may have died (and drained the queue) between
+            # the check above and the put.
+            req.finish_reason = "error"
+            req.out.put(None)
+        return req
+
+    def start(self) -> None:
+        self._thread = threading.Thread(target=self._loop, name="engine-scheduler", daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._wake.set()
+        if self._thread:
+            self._thread.join(timeout=60)
+
+    def generate(self, prompt_tokens: List[int], max_tokens: int = 32, **kw) -> List[int]:
+        """Blocking single-request generation (engine must be started)."""
+        req = self.submit(Request(prompt_tokens, max_tokens=max_tokens, **kw))
+        out: List[int] = []
+        while True:
+            tok = req.out.get(timeout=600)
+            if tok is None:
+                return out
+            out.append(tok)
+
+    # --- scheduler ----------------------------------------------------------
+
+    def _admit(self) -> int:
+        """Fill free slots from the queue; capped per iteration while
+        slots decode, so a burst of arrivals cannot starve them."""
+        cap = max(1, self.ec.max_batch // 4) if self.active.any() else self.ec.max_batch
+        admitted = 0
+        while admitted < cap and not self.active.all():
+            try:
+                req = self.queue.get_nowait()
+            except queue.Empty:
+                break
+            self._admitting = req
+            slot = int(np.flatnonzero(~self.active)[0])
+            self._admit_dense(req, slot)
+            self._admitting = None
+            admitted += 1
+        return admitted
+
+    def _admit_dense(self, req: Request, slot: int) -> None:
+        t0 = time.perf_counter()
+        prompt = self.clipped_prompt(req.prompt_tokens)
+        padded, true_len = _pad_to_bucket(prompt, self.ec.max_prefill_len)
+        tokens = torch.from_numpy(padded).to(self.device)
+        logits, kv = self.model.forward(self.params, tokens, self.cfg)
+        self._insert(kv, slot)
+        self.stats["prefills"] += 1
+        self.stats["prefill_tokens"] += true_len
+        self._finalize_admit(req, slot, logits[0, true_len - 1], true_len)
+        # _finalize_admit's host read of the first token ends the prefill.
+        self.stats["prefill_seconds"] += time.perf_counter() - t0
+
+    def _insert(self, kv: Dict[str, torch.Tensor], slot: int) -> None:
+        """Write a prefill fragment {k, v: [L, 1, Sb, KH, hd]} into
+        cache[:, slot, :, :Sb] (quantized when the cache is int8)."""
+        frag = pack_fragment(self.cache, kv)
+        for key, value in frag.items():
+            sb = value.shape[3]
+            self.cache[key][:, slot, :, :sb].copy_(value[:, 0])
+
+    def _sample(self, logits: torch.Tensor, temps: np.ndarray, top_ps: np.ndarray) -> torch.Tensor:
+        return sample(
+            logits, self.generator,
+            torch.from_numpy(temps).to(self.device),
+            top_k=self.ec.top_k,
+            top_p=torch.from_numpy(top_ps).to(self.device),
+        )
+
+    def _finalize_admit(self, req: Request, slot: int, last_logits, true_len: int) -> None:
+        first = self._sample(
+            last_logits[None, :],
+            np.array([req.temperature], np.float32),
+            np.array([req.top_p], np.float32),
+        )
+        first_id = int(first[0])  # the host read of the first token
+        self.slot_req[slot] = req
+        self.slot_generated[slot] = 0
+        self.active[slot] = True
+        self.tokens[slot] = first_id
+        self.positions[slot] = true_len
+        self.temps[slot] = req.temperature
+        self.top_ps[slot] = req.top_p
+        self._emit(slot, first_id)
+
+    def _dispatch(self) -> _InFlightStep:
+        """Device half of one decode step: advance every slot one token
+        (the cache is written in place), sample on the device, and return
+        the bookkeeping without reading anything back."""
+        logits, _ = self.model.decode_step(
+            self.params, self.cache,
+            torch.from_numpy(self.tokens).to(self.device),
+            torch.from_numpy(self.positions).to(self.device),
+            self.cfg,
+        )
+        next_tokens = self._sample(logits, self.temps, self.top_ps)
+        # Clamp at the last cache row: active slots are released at the
+        # window before reaching it (_emit's hit_window), so the clamp only
+        # holds inactive slots, whose positions would otherwise drift past
+        # the cache every step they sit idle.
+        self.positions = np.minimum(self.positions + 1, self.ec.max_seq_len - 1)
+        return _InFlightStep(tokens=next_tokens, slots=[int(s) for s in np.flatnonzero(self.active)])
+
+    def _drain(self, step: _InFlightStep) -> None:
+        """Host half of one decode step: the one host read of the sampled
+        tokens, then per-slot emits and EOS/budget/window release."""
+        host = step.tokens.cpu().numpy()
+        for slot in step.slots:
+            self.tokens[slot] = host[slot]
+            self._emit(slot, int(host[slot]))
+
+    def _decode_step(self) -> None:
+        """One synchronous iteration (the JAX engine's overlap=False
+        scheduler): dispatch, then drain at once."""
+        t0 = time.perf_counter()
+        self._drain(self._dispatch())
+        self.stats["decode_steps"] += 1
+        self.stats["decode_seconds"] += time.perf_counter() - t0
+
+    def _emit(self, slot: int, token_id: int) -> None:
+        """Deliver one token; release the slot at EOS, budget or context
+        window."""
+        req = self.slot_req[slot]
+        eos = req.eos_token_id if req.eos_token_id is not None else self.ec.eos_token_id
+        self.slot_generated[slot] += 1
+        hit_eos = token_id == eos
+        hit_budget = self.slot_generated[slot] >= req.max_tokens
+        hit_window = int(self.positions[slot]) + 1 >= self.ec.max_seq_len
+        if not hit_eos:
+            req.out.put(token_id)
+        if hit_eos or hit_budget or hit_window:
+            req.finish_reason = "stop" if hit_eos else "length"
+            req.out.put(None)
+            self._release_slot(slot)
+
+    def _release_slot(self, slot: int) -> None:
+        self.active[slot] = False
+        self.slot_req[slot] = None
+
+    def _loop(self) -> None:
+        try:
+            while not self._stop.is_set():
+                self._admit()
+                if not self.active.any():
+                    self._wake.wait(timeout=0.05)
+                    self._wake.clear()
+                    continue
+                self._decode_step()
+        except BaseException as e:  # propagate to waiting callers
+            self.error = e
+
+            def kill(req: Request) -> None:
+                req.finish_reason = "error"
+                req.out.put(None)
+
+            if self._admitting is not None:
+                kill(self._admitting)
+            for req in self.slot_req:
+                if req is not None:
+                    kill(req)
+            while True:
+                try:
+                    kill(self.queue.get_nowait())
+                except queue.Empty:
+                    break
+            raise

@@ -1,0 +1,135 @@
+"""Serving entry point of the port (port of substratus_tpu/serve/main.py):
+
+    python -m substratus_tpu_torch.serve.main --config llama2-7b --port 8080 [--device cpu]
+
+It serves a named configuration with random weights from a seed (the JAX
+entry point's weightless ``--config`` mode) over the OpenAI surface of
+serve/server.py, on the card unless ``--device cpu`` is given.
+
+Knobs come from flags or from the container contract's params file
+(``/content/params.json``, or ``--params``); flags win. The port serves
+the subset ``config``, ``max_batch``, ``max_seq_len``, ``max_prefill_len``
+and ``kv_cache_dtype`` (plus ``max_queue``). Every other
+key of the JAX entry point exits with the ROADMAP queue that will serve
+it, unless it holds the one value this port already serves (for example
+``kv_layout: dense``): a knob is never silently ignored.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+from typing import Any, Dict, Optional
+
+# params.json keys the port does not serve yet: the value it does serve
+# (a key holding it passes), and where the rest waits.
+_NOT_SERVED = {
+    "model": (None, "Queue 1, checkpoint loading (waits for weights in the repository)"),
+    "baseModel": (None, "Queue 1, checkpoint loading (waits for weights in the repository)"),
+    "quantize": ("none", "Queue 1, int8/int4 weights (and Queue 2 for the int4 kernel)"),
+    "q4_impl": (None, "Queue 2, ops/quant4.py::_matmul_kernel"),
+    "kv_layout": ("dense", "Queue 1, paged KV"),
+    "overlap": (False, "Queue 1, the overlapped scheduler"),
+    "spec_k": (0, "Queue 1, speculative decoding"),
+    "draft_model": (None, "Queue 1, speculative decoding"),
+    "adapters": (None, "Queue 1, multi-tenant adapters"),
+    "role": ("both", "Queue 1, disaggregated prefill/decode"),
+    "disaggregated": (None, "Queue 1, disaggregated prefill/decode"),
+    "transfer_port": (None, "Queue 1, disaggregated prefill/decode"),
+    "decode_peers": (None, "Queue 1, disaggregated prefill/decode"),
+    "batchGenerate": (None, "Queue 1, batch generation"),
+    "tensor": (None, "Queue 1, multi-GPU serving"),
+    "sequence": (None, "Queue 1, multi-GPU serving"),
+    "replicas": (None, "Queue 1, multi-GPU serving"),
+    "drain_grace": (None, "Queue 1, the serving surface (gateway contract)"),
+    # The port always runs its kernels on the card; the others wait.
+    "attn_impl": (None, "Queue 2, the TPU kernels still to port"),
+    "decode_attn_impl": (None, "Queue 2, the TPU kernels still to port"),
+    "chunk_attn_impl": (None, "Queue 2, the TPU kernels still to port"),
+}
+_SERVED = ("config", "max_batch", "max_seq_len", "max_prefill_len", "kv_cache_dtype", "max_queue")
+
+
+def load_params_json(path: Optional[str]) -> Dict[str, Any]:
+    if path and os.path.exists(path):
+        with open(path) as f:
+            return json.load(f)
+    return {}
+
+
+def check_params(params: Dict[str, Any]) -> None:
+    """Exit on any key the port does not serve yet (naming its ROADMAP
+    queue) and on any key it does not know."""
+    for key, value in params.items():
+        if key in _NOT_SERVED:
+            served, where = _NOT_SERVED[key]
+            if value != served:
+                raise SystemExit(
+                    f"params.json: {key}={value!r} is not served by the PyTorch port yet: ROADMAP {where}"
+                )
+        elif key not in _SERVED:
+            raise SystemExit(f"params.json: unknown key {key!r}")
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(prog="python -m substratus_tpu_torch.serve.main")
+    ap.add_argument("--config", default=None, help="named config served with random weights (default tiny)")
+    ap.add_argument("--host", default="0.0.0.0")
+    ap.add_argument("--port", type=int, default=8080, help="0 picks a free port")
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--params", default="/content/params.json", help="params file (container contract)")
+    ap.add_argument("--max-batch", type=int, default=None)
+    ap.add_argument("--max-seq-len", type=int, default=None)
+    return ap.parse_args(argv)
+
+
+def build(argv=None):
+    """Parse the flags, build the model, engine and HTTP server, start the
+    engine, and return the (not yet serving) serve.server.Server."""
+    from substratus_tpu_torch.models import registry
+    from substratus_tpu_torch.serve.engine import Engine, EngineConfig
+    from substratus_tpu_torch.serve.server import Server, ServerState
+    from substratus_tpu_torch.serve.tokenizer import load_tokenizer
+    from substratus_tpu_torch.utils.device import resolve_device
+
+    args = parse_args(argv)
+    params_json = load_params_json(args.params)
+    check_params(params_json)
+    device = resolve_device(args.device)
+
+    name = args.config or params_json.get("config", "tiny")
+    family, cfg = registry.find_named_config(name)
+    tokenizer = load_tokenizer(None)
+    if cfg.vocab_size < tokenizer.vocab_size:
+        cfg = cfg.replace(vocab_size=tokenizer.vocab_size)
+    params = family.init_params(cfg, seed=0, device=device)
+
+    def knob(flag, key, default):
+        return flag if flag is not None else params_json.get(key, default)
+
+    max_batch = int(knob(args.max_batch, "max_batch", 8))
+    # Bounded admission: 4x max_batch waiters by default, 0 = unbounded,
+    # as the JAX entry point has it.
+    max_queue = int(params_json.get("max_queue", 4 * max_batch))
+    ec = EngineConfig(
+        max_batch=max_batch,
+        max_seq_len=int(knob(args.max_seq_len, "max_seq_len", 1024)),
+        max_prefill_len=int(params_json.get("max_prefill_len", EngineConfig.max_prefill_len)),
+        kv_cache_dtype=params_json.get("kv_cache_dtype", "model"),
+        eos_token_id=tokenizer.eos_id,
+        max_queue=max_queue if max_queue > 0 else None,
+    )
+    engine = Engine(cfg, params, ec, device=device, model=family)
+    server = Server(ServerState(engine, tokenizer, name), host=args.host, port=args.port)
+    engine.start()
+    print(f"serving {name} on {args.host}:{server.port} ({device})", flush=True)
+    return server
+
+
+def main(argv=None) -> int:
+    build(argv).serve_forever()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,98 @@
+"""The port's standard-library OpenAI server (substratus_tpu_torch/serve/
+server.py, serve/main.py) on the CPU with the tiny config: readiness, the
+non-streamed body with usage, SSE chunks ending in [DONE], and the
+params.json policy of serve.main."""
+import json
+import urllib.error
+import urllib.request
+
+import pytest
+import torch
+
+from substratus_tpu_torch.serve import main
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The shapes here are tiny: one intra-op thread keeps torch's worker
+    pool from spinning on cores that timing-sensitive tests share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def server(tmp_path_factory):
+    params = tmp_path_factory.mktemp("params") / "params.json"
+    params.write_text(json.dumps({"config": "tiny", "max_batch": 4, "max_seq_len": 64,
+                                  "max_prefill_len": 32, "kv_cache_dtype": "int8"}))
+    srv = main.build(["--device", "cpu", "--host", "127.0.0.1", "--port", "0", "--params", str(params)]).start()
+    yield srv
+    srv.stop()
+
+
+def _post(srv, body):
+    req = urllib.request.Request(f"http://127.0.0.1:{srv.port}/v1/completions",
+                                 data=json.dumps(body).encode(), headers={"Content-Type": "application/json"})
+    return urllib.request.urlopen(req, timeout=120)
+
+
+def test_readiness(server):
+    with urllib.request.urlopen(f"http://127.0.0.1:{server.port}/", timeout=30) as r:
+        assert r.status == 200 and r.read() == b"ok"
+    assert server.state.engine.cache["k"].dtype.is_floating_point is False  # int8 from params.json
+
+
+def test_completion_body_counts_generated_tokens(server):
+    with _post(server, {"prompt": "hello", "max_tokens": 7, "temperature": 0}) as r:
+        body = json.loads(r.read())
+    assert body["object"] == "text_completion" and body["model"] == "tiny"
+    usage = body["usage"]
+    assert usage["prompt_tokens"] == 6  # BOS + 5 bytes
+    engine = server.state.engine
+    want = engine.generate(engine.clipped_prompt([256] + list(b"hello")), max_tokens=7, temperature=0.0)
+    assert usage["completion_tokens"] == len(want)
+    assert usage["total_tokens"] == 6 + len(want)
+    choice = body["choices"][0]
+    assert choice["text"] == server.state.tokenizer.decode(want)
+    assert choice["finish_reason"] == ("length" if len(want) == 7 else "stop")
+
+
+def test_streamed_sse_ends_with_done(server):
+    with _post(server, {"prompt": "stream me", "max_tokens": 5, "temperature": 0.7, "top_p": 0.9,
+                        "stream": True, "stream_options": {"include_usage": True}}) as r:
+        assert r.headers["Content-Type"] == "text/event-stream"
+        lines = [ln.decode().strip() for ln in r if ln.strip()]
+    assert all(ln.startswith("data: ") for ln in lines) and lines[-1] == "data: [DONE]"
+    chunks = [json.loads(ln[6:]) for ln in lines[:-1]]
+    usage = chunks[-1]["usage"]
+    text_chunks = [c for c in chunks if c["choices"]]
+    assert len(text_chunks) == usage["completion_tokens"] + 1  # one per token, then the finish
+    assert text_chunks[-1]["choices"][0]["finish_reason"] in ("length", "stop")
+    assert all(c["object"] == "text_completion" for c in chunks)
+
+
+@pytest.mark.parametrize("body,status", [
+    ({"max_tokens": 3}, 400),  # no prompt
+    ({"prompt": "x", "max_tokens": 0}, 400),
+    ({"prompt": "x", "top_p": 1.5}, 400),
+    ({"prompt": "x" * 40}, 400),  # over max_prefill_len: chunked prefill is not ported
+])
+def test_bad_requests(server, body, status):
+    with pytest.raises(urllib.error.HTTPError) as e:
+        _post(server, body)
+    assert e.value.code == status
+
+
+def test_params_policy():
+    """Served keys, and unserved knobs at the one value the port serves,
+    pass; every other knob exits naming its ROADMAP queue."""
+    main.check_params({"config": "tiny", "max_batch": 2, "kv_layout": "dense", "quantize": "none",
+                       "role": "both", "spec_k": 0, "overlap": False})
+    for params in ({"kv_layout": "paged"}, {"spec_k": 4}, {"quantize": "int8"}, {"adapters": {"dir": "x"}},
+                   {"role": "prefill"}, {"decode_attn_impl": "fused"}, {"model": "m"}):
+        with pytest.raises(SystemExit, match="ROADMAP"):
+            main.check_params(params)
+    with pytest.raises(SystemExit, match="unknown key"):
+        main.check_params({"no_such_knob": 1})
