@@ -1,36 +1,51 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (substratus_tpu_torch).
 
-    python3 chip_smoke.py            # every phase, one H100
+    python3 chip_smoke.py            # every phase but profile, one H100
     python3 chip_smoke.py --phases card,build,kernels
     python3 chip_smoke.py --phases card,build,kernels,serve,profile
 
 Phases, each of which exits non-zero on failure:
 
-  card     the card's name and power limit (nvidia-smi) and torch's name;
-  build    nvcc builds csrc/*.cu for sm_90a (one process per source);
-  kernels  each kernel against its plain PyTorch version on the card, in
-           bf16, at the serving path's shapes: max-abs error beside its
-           tolerance, the kernel's time, the plain version's, one PyTorch
-           library call's (timed as a yardstick only; the port never calls
-           it) and the least time the card could take (bytes at 3.35 TB/s,
-           operations at 989 TFLOP/s bf16);
-  serve    serve.main's server in-process at llama2-7b's full width and
-           depth (random weights from a seed, bf16), five concurrent
-           /v1/completions requests, the kernels' launch counts against
-           32 x prefills and 32 x decode steps, and the served tokens held
-           against a direct greedy run of the model;
-  profile  (only when named) host-clock prefill and decode-step times and,
-           under torch.profiler, their device busy time and top kernels.
+  card        the card's name and power limit (nvidia-smi) and torch's name;
+  build       nvcc builds csrc/*.cu for sm_90a (one process per source);
+  kernels     each kernel against its plain PyTorch version on the card, in
+              bf16 (and int8 caches), at the serving path's shapes: max-abs
+              error beside its tolerance, the kernel's time, the plain
+              version's, one PyTorch library call's (timed as a yardstick
+              only; the port never calls it) and the least time the card
+              could take (bytes at 3.35 TB/s, operations at 989 TFLOP/s
+              bf16); for the fused decode kernel also the unfused path's
+              time (row writes plus the decode kernel) for the same work;
+  serve       serve.main's server in-process at llama2-7b's full width and
+              depth (random weights from a seed, bf16, max_seq_len 1024),
+              five concurrent /v1/completions requests, the kernels' launch
+              counts against 32 x prefills and 32 x decode steps, and the
+              served tokens held against a direct greedy run of the model;
+  serve-long  the same server at max_seq_len 4096 with decode_attn_impl
+              "fused": four concurrent requests of about 3000, 1500, 600
+              and 40 tokens, whose chunks run through the cached flash
+              kernel (32 x prefill chunks) and whose decode steps through
+              the fused kernel (32 x steps, the decode kernel never); every
+              served greedy token held against a single-shot forward;
+  profile     (only when named) host-clock prefill and decode-step times
+              and, under torch.profiler, their device busy time and top
+              kernels, after serve (prompts of 16 and 400 tokens) and after
+              serve-long (40 and 3000 tokens, the slots filled at 1000;
+              the decode steps also unfused, in turns with the fused ones).
 
-The line before the last is one JSON object with every kernel's numbers;
-the last line is {"ok": true, "device": {...}}. Details go to
-chiprun_out/chip_smoke.json. Nothing here imports JAX.
+The line before the last is one JSON object with every kernel's numbers
+(launches from the serve phase whose path runs the kernel); the last line
+is {"ok": true, "device": {...}}. Details go to chip_smoke.json in OUT_DIR.
+Nothing here imports JAX.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
+import queue
+import random
 import statistics
 import subprocess
 import sys
@@ -164,6 +179,128 @@ def decode_case(gen, b, s, h, kh, int8, positions, d=128):
     }
 
 
+def cached_case(gen, h, kh, int8, limit_row=False, b=1, sq=512, sk=4096, start=2048, d=128):
+    """A chunk of sq queries at positions start.. against an sk-row cache
+    (the fifth 512-token chunk of a long prompt by default). limit_row:
+    kv_length clips the chunk and the first row's position is -1, so that
+    row's limit is -1 and its output must be exactly 0."""
+    import torch
+    import torch.nn.functional as F
+
+    from substratus_tpu_torch.ops.flash_attention import flash_cached_attention, flash_cached_attention_plain
+    from substratus_tpu_torch.ops.quant import quantize_kv
+
+    dev = "cuda"
+    q = torch.randn((b, sq, h, d), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((b, kh, sk, d), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((b, kh, sk, d), generator=gen, device=dev).to(torch.bfloat16)
+    pos = (start + torch.arange(sq, device=dev)).repeat(b, 1).to(torch.int32)
+    kv_len = None
+    if limit_row:
+        pos[:, 0] = -1
+        kv_len = torch.full((b,), start + sq // 2, dtype=torch.int32, device=dev)
+    ks = vs = None
+    if int8:
+        k, ks = quantize_kv(k)
+        v, vs = quantize_kv(v)
+        ks, vs = ks[..., 0].contiguous(), vs[..., 0].contiguous()
+    args = (q, k, v, pos, ks, vs, kv_len)
+    out = flash_cached_attention(*args)
+    ref = flash_cached_attention_plain(*args)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    if not (torch.isfinite(out.float()).all() and err <= BF16_ATOL):
+        fail(f"flash_cached h{h}/{kh} int8={int8} limit_row={limit_row}: max|err| {err} (tol {BF16_ATOL})")
+    if limit_row and not torch.all(out[:, 0] == 0):
+        fail("flash_cached: a row with limit -1 is not exactly 0")
+    limit = pos.long() if kv_len is None else torch.minimum(pos.long(), kv_len.long()[:, None] - 1)
+    live_cols = (limit.clamp(min=-1) + 1).clamp(max=sk)  # [B, Sq]
+    rows = int(live_cols.amax(dim=1).sum())  # cache rows the blocks must read
+    elem = 1 if int8 else 2
+    nbytes = 2 * b * sq * h * d * 2 + 2 * rows * kh * d * elem + (2 * rows * kh * 4 if int8 else 0) + 4 * b * sq
+    b_ms, by = bound(nbytes, 4 * d * h * int(live_cols.sum()))
+    library_ms = None
+    if not int8:  # no PyTorch call takes an int8 cache with per-row scales
+        qt = q.transpose(1, 2)
+        mask = (torch.arange(sk, device=dev)[None, None, :] <= limit[:, :, None])[:, None]
+        gqa = {"enable_gqa": True} if h != kh else {}
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, k, v, attn_mask=mask, **gqa))
+    return {
+        "case": f"B={b} Sq={sq} Sk={sk} H={h} KH={kh} D={d} {'int8' if int8 else 'bf16'} pos {start}.."
+                f"{start + sq - 1}{' kv_length, one row at limit -1' if limit_row else ''}",
+        "max_abs_err": err, "tol": BF16_ATOL,
+        "ms": time_ms(lambda: flash_cached_attention(*args)),
+        "plain_ms": time_ms(lambda: flash_cached_attention_plain(*args)),
+        "library_ms": library_ms, "bound_ms": b_ms, "bound_by": by,
+    }
+
+
+def fused_case(gen, h, kh, int8, positions, b=8, s=4096, d=128):
+    """The fused cache write + decode attention at decode positions spread
+    over the cache. After the launch the cache row at pos must be the new
+    row. Also timed: the unfused path for the same work (the row writes of
+    update_cache_and_attend plus the decode kernel)."""
+    import torch
+    import torch.nn.functional as F
+
+    from substratus_tpu_torch.ops.decode_attention import _write_rows, decode_attention
+    from substratus_tpu_torch.ops.fused_decode import fused_decode_attention, fused_decode_attention_plain
+    from substratus_tpu_torch.ops.quant import quantize_kv
+
+    dev = "cuda"
+    q = torch.randn((b, 1, h, d), generator=gen, device=dev).to(torch.bfloat16)
+    nk, nv = (torch.randn((b, kh, 1, d), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+    ck, cv = (torch.randn((b, kh, s, d), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+    pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+    pos2 = pos.long()[:, None]
+    rows = (torch.arange(b, device=dev)[:, None], torch.arange(kh, device=dev)[None, :], pos2)
+    scales = ()
+    if int8:
+        (nk, nks), (nv, nvs), (ck, cks), (cv, cvs) = map(quantize_kv, (nk, nv, ck, cv))
+        nks, nvs, cks, cvs = nks[..., 0], nvs[..., 0], cks[..., 0].contiguous(), cvs[..., 0].contiguous()
+        cks[rows], cvs[rows] = nks[..., 0], nvs[..., 0]  # the caller's scale writes
+        scales = (nks, nvs, cks, cvs)
+    kc, vc, kp, vp = ck.clone(), cv.clone(), ck.clone(), cv.clone()
+    out, _, _ = fused_decode_attention(q, nk, nv, kc, vc, pos, *scales)
+    ref, _, _ = fused_decode_attention_plain(q, nk, nv, kp, vp, pos, *scales)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    if not (torch.isfinite(out.float()).all() and err <= BF16_ATOL):
+        fail(f"fused_decode h{h}/{kh} int8={int8}: max|err| {err} (tol {BF16_ATOL})")
+    if not (torch.equal(kc[rows], nk[:, :, 0]) and torch.equal(vc[rows], nv[:, :, 0])
+            and torch.equal(kc, kp) and torch.equal(vc, vp)):
+        fail(f"fused_decode h{h}/{kh} int8={int8}: the cache row at pos is not the new row")
+    hist = sum(positions)  # history rows 0..pos-1 the kernel must read
+    elem = 1 if int8 else 2
+    nbytes = (2 * b * h * d * 2 + 2 * hist * kh * d * elem + (2 * hist * kh * 4 if int8 else 0)
+              + 2 * 2 * b * kh * d * elem + (2 * b * kh * 4 if int8 else 0) + 4 * b)
+    b_ms, by = bound(nbytes, 4 * d * h * (hist + b))
+    ks_c, vs_c = (scales[2], scales[3]) if int8 else (None, None)
+
+    def unfused():
+        _write_rows(kc, nk, pos2)
+        _write_rows(vc, nv, pos2)
+        if int8:
+            _write_rows(ks_c, scales[0], pos2)
+            _write_rows(vs_c, scales[1], pos2)
+        decode_attention(q, kc, vc, pos, ks_c, vs_c)
+
+    library_ms = None
+    if not int8:
+        qt = q.transpose(1, 2)
+        mask = (torch.arange(s, device=dev)[None, :] <= pos2)[:, None, None, :]
+        gqa = {"enable_gqa": True} if h != kh else {}
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kc, vc, attn_mask=mask, **gqa))
+    unfused_ms = time_ms(unfused)
+    return {
+        "case": f"B={b} S={s} H={h} KH={kh} D={d} {'int8' if int8 else 'bf16'} pos={positions}",
+        "max_abs_err": err, "tol": BF16_ATOL,
+        "ms": time_ms(lambda: fused_decode_attention(q, nk, nv, kc, vc, pos, *scales)),
+        "plain_ms": time_ms(lambda: fused_decode_attention_plain(q, nk, nv, kp, vp, pos, *scales)),
+        "unfused_ms": unfused_ms, "library_ms": library_ms, "bound_ms": b_ms, "bound_by": by,
+    }
+
+
 def kernel_phase():
     import torch
 
@@ -182,14 +319,28 @@ def kernel_phase():
         decode_case(gen, 8, 1024, 32, 8, False, positions),  # llama3-8b heads (GQA 4)
         decode_case(gen, 8, 1024, 32, 8, True, positions),
     ]
-    for name, cases in (("flash_fwd", flash), ("decode_attn", decode)):
+    cached = [
+        cached_case(gen, 32, 32, False),  # llama2-7b, the fifth chunk of a long prompt
+        cached_case(gen, 32, 32, True),
+        cached_case(gen, 32, 8, False),  # llama3-8b heads (GQA 4)
+        cached_case(gen, 32, 32, False, limit_row=True),
+    ]
+    spread = [0, 1, 300, 1024, 2047, 3000, 4000, 4095]  # one slot at S-1
+    fused = [
+        fused_case(gen, 32, 32, False, spread),  # llama2-7b decode, B=8, S=4096
+        fused_case(gen, 32, 32, True, spread),
+        fused_case(gen, 32, 8, False, spread),  # llama3-8b heads (GQA 4)
+    ]
+    report = {"flash_fwd": flash, "decode_attn": decode, "flash_cached": cached, "fused_decode": fused}
+    for name, cases in report.items():
         for c in cases:
             lib = "n/a" if c["library_ms"] is None else f"{c['library_ms']:.4f}"
             print(f"kernel {name} [{c['case']}]: max|err| {c['max_abs_err']:.3g} (tol {c['tol']})"
                   f"{' lse ' + format(c['lse_max_abs_err'], '.3g') if 'lse_max_abs_err' in c else ''}"
                   f" | ms {c['ms']:.4f} plain {c['plain_ms']:.4f} library {lib}"
+                  f"{' unfused ' + format(c['unfused_ms'], '.4f') if 'unfused_ms' in c else ''}"
                   f" bound {c['bound_ms']:.4f} ({c['bound_by']})", flush=True)
-    return {"flash_fwd": flash, "decode_attn": decode}
+    return report
 
 
 # --- the main path: serve.main's server ---------------------------------------
@@ -284,10 +435,15 @@ def _device_summary(prof, wall: float, reps: int, top_n: int = 10) -> dict:
             "top": [{"name": e.key, "ms": dev_us(e) / 1e3 / reps, "calls": e.count / reps} for e in top]}
 
 
-def profile_engine(engine, steps: int = 8) -> dict:
-    """Host-clock prefill and decode-step times and, under torch.profiler,
-    their device busy time and top kernels, with every decode slot active.
-    Driven from this thread after the scheduler has stopped."""
+def profile_engine(engine, label: str = "profile", lens=(16, 400), fill: int = 100, steps: int = 8,
+                   alt_decode=None) -> dict:
+    """Host-clock prefill times of prompts of `lens` tokens and the
+    decode-step time, and, under torch.profiler, the device busy time and
+    top kernels of the longer prefill and of decode steps with every slot
+    active (the rest filled with `fill`-token prompts). With alt_decode,
+    the same slots also decode with that decode_attn_impl, in turns with
+    the configured one. Driven from this thread after the scheduler has
+    stopped."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -311,39 +467,59 @@ def profile_engine(engine, steps: int = 8) -> dict:
         return time.perf_counter() - t0
 
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    out = {"prefill_ms": {n: 1e3 * min(admit(n), admit(n)) for n in (16, 400)}}
+    short, long = lens
+    out = {"prefill_ms": {n: 1e3 * min(admit(n), admit(n)) for n in lens}}
+    chunks = engine.stats["prefill_chunks"]
     with profile(activities=activities) as prof:
-        wall = admit(400)
-    out["prefill_400"] = _device_summary(prof, wall, 1)
+        wall = admit(long)
+    out[f"prefill_{long}"] = _device_summary(prof, wall, 1)
+    out["chunks"] = int(engine.stats["prefill_chunks"] - chunks)
     while not engine.active.all():
-        admit(100)
+        admit(fill)
     decode(2)
     out["decode_step_ms"] = 1e3 * decode(steps) / steps
     with profile(activities=activities) as prof:
         wall = decode(steps)
     out["decode"] = _device_summary(prof, wall, steps)
     out["batch"] = int(engine.active.sum())
-    print(f"profile: prefill 16 tokens {out['prefill_ms'][16]:.1f} ms, 400 tokens {out['prefill_ms'][400]:.1f} ms "
-          f"(device busy {out['prefill_400']['device_busy_ms']:.2f} ms); decode step at B={out['batch']} "
+    if alt_decode is not None:
+        cfg = engine.cfg
+        turns = {cfg.decode_attn_impl: [out["decode_step_ms"]], alt_decode: []}
+        for impl in (alt_decode, alt_decode, cfg.decode_attn_impl):
+            engine.cfg = cfg.replace(decode_attn_impl=impl)
+            turns[impl].append(1e3 * decode(steps) / steps)
+        engine.cfg = cfg.replace(decode_attn_impl=alt_decode)
+        with profile(activities=activities) as prof:
+            wall = decode(steps)
+        engine.cfg = cfg
+        out["decode_turns_ms"] = turns
+        out[f"decode_{alt_decode}"] = _device_summary(prof, wall, steps)
+        print(f"{label}: decode step at B={out['batch']} in turns, ms: "
+              + "; ".join(f"{impl} {', '.join(f'{t:.2f}' for t in ts)}" for impl, ts in turns.items())
+              + f"; device busy {out['decode']['device_busy_ms']:.2f} ms ({cfg.decode_attn_impl}) against "
+              f"{out[f'decode_{alt_decode}']['device_busy_ms']:.2f} ms ({alt_decode})", flush=True)
+    print(f"{label}: prefill {short} tokens {out['prefill_ms'][short]:.1f} ms, {long} tokens "
+          f"{out['prefill_ms'][long]:.1f} ms in {out['chunks'] or 1} chunk(s) (device busy "
+          f"{out[f'prefill_{long}']['device_busy_ms']:.2f} ms); decode step at B={out['batch']} "
           f"{out['decode_step_ms']:.2f} ms (device busy {out['decode']['device_busy_ms']:.2f} ms, "
           f"{100 * out['decode']['device_busy_ms'] / out['decode_step_ms']:.1f}%)", flush=True)
-    for phase in ("prefill_400", "decode"):
+    for phase in (f"prefill_{long}", "decode"):
         for e in out[phase]["top"]:
-            print(f"profile {phase}: {e['ms']:8.3f} ms {e['calls']:6.1f} calls  {e['name'][:80]}", flush=True)
+            print(f"{label} {phase}: {e['ms']:8.3f} ms {e['calls']:6.1f} calls  {e['name'][:80]}", flush=True)
     return out
 
 
-def serve_phase(card: str, profile_steps: bool = False):
+def start_server(name: str, params: dict):
+    """serve.main's server in-process from a params.json, at llama2-7b's
+    full width and depth, answering GET / and warmed up by one request.
+    Returns (server, engine, base URL)."""
     import torch
 
-    from substratus_tpu_torch.ops.decode_attention import decode_attention
-    from substratus_tpu_torch.ops.flash_attention import flash_attention
     from substratus_tpu_torch.serve import main as serve_main
 
     OUT_DIR.mkdir(exist_ok=True)
-    params_path = OUT_DIR / "chip_smoke_params.json"
-    params_path.write_text(json.dumps({"config": "llama2-7b", "max_batch": 8, "max_seq_len": 1024,
-                                       "max_prefill_len": 512, "kv_cache_dtype": "model"}))
+    params_path = OUT_DIR / f"chip_smoke_params_{name}.json"
+    params_path.write_text(json.dumps(params))
     t0 = time.perf_counter()
     server = serve_main.build(["--params", str(params_path), "--host", "127.0.0.1", "--port", "0"])
     engine = server.state.engine
@@ -353,47 +529,44 @@ def serve_phase(card: str, profile_steps: bool = False):
         fail(f"not llama2-7b at full width and depth: {cfg}")
     server.start()
     base = f"http://127.0.0.1:{server.port}"
-    try:
-        print(f"serve: llama2-7b built in {time.perf_counter() - t0:.1f} s "
-              f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card)", flush=True)
-        with urllib.request.urlopen(f"{base}/", timeout=60) as r:
-            if r.status != 200:
-                fail(f"GET / -> {r.status}")
-        post(base, {"prompt": "warm up", "max_tokens": 2, "temperature": 0.0})  # cuBLAS handles etc.
-        wait_idle(engine)
+    print(f"{name}: llama2-7b built in {time.perf_counter() - t0:.1f} s "
+          f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card)", flush=True)
+    with urllib.request.urlopen(f"{base}/", timeout=60) as r:
+        if r.status != 200:
+            fail(f"GET / -> {r.status}")
+    post(base, {"prompt": "warm up", "max_tokens": 2, "temperature": 0.0})  # cuBLAS handles etc.
+    wait_idle(engine)
+    return server, engine, base
 
-        for k, v in engine.stats.items():
-            engine.stats[k] = 0 * v
-        flash_attention.launches = 0
-        decode_attention.launches = 0
-        results = [None] * len(PROMPTS)
 
-        def run(i, text, max_tokens, temp, stream):
-            body = {"prompt": text, "max_tokens": max_tokens, "temperature": temp}
-            if stream:
-                body.update(stream=True, stream_options={"include_usage": True})
-            try:
-                results[i] = post(base, body)
-            except Exception as e:  # reported below as a failed request
-                results[i] = (None, repr(e), None)
+def run_concurrent(base: str, prompts) -> tuple:
+    """POST every (text, max_tokens, temperature, stream) at once; returns
+    ([(status, body, ttft)], wall seconds)."""
+    results = [None] * len(prompts)
 
-        t_run = time.perf_counter()
-        threads = [threading.Thread(target=run, args=(i, *p)) for i, p in enumerate(PROMPTS)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join()
-        wall = time.perf_counter() - t_run
-        wait_idle(engine)
-        launches = {"flash_fwd": flash_attention.launches, "decode_attn": decode_attention.launches}
-        stats = dict(engine.stats)
-        reference = reference_check(engine)
-    finally:
-        server.stop()
-    profiled = profile_engine(engine) if profile_steps else None
+    def run(i, text, max_tokens, temp, stream):
+        body = {"prompt": text, "max_tokens": max_tokens, "temperature": temp}
+        if stream:
+            body.update(stream=True, stream_options={"include_usage": True})
+        try:
+            results[i] = post(base, body)
+        except Exception as e:  # reported by check_usage as a failed request
+            results[i] = (None, repr(e), None)
 
+    t_run = time.perf_counter()
+    threads = [threading.Thread(target=run, args=(i, *p)) for i, p in enumerate(prompts)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return results, time.perf_counter() - t_run
+
+
+def check_usage(prompts, results) -> int:
+    """Every status 200 with the right usage and finish; returns the
+    number of generated tokens."""
     generated = 0
-    for (text, max_tokens, temp, stream), (status, body, _) in zip(PROMPTS, results):
+    for (text, max_tokens, temp, stream), (status, body, _) in zip(prompts, results):
         if status != 200:
             fail(f"request {text[:20]!r}: {status} {body}")
         usage = body["usage"]
@@ -406,7 +579,36 @@ def serve_phase(card: str, profile_steps: bool = False):
         if stream and body["chunks"] != usage["completion_tokens"] + 1:
             fail(f"streamed request: {body['chunks']} chunks for {usage['completion_tokens']} tokens")
         generated += usage["completion_tokens"]
-    L = cfg.n_layers
+    return generated
+
+
+def zero_counts(engine, counters) -> None:
+    for k, v in engine.stats.items():
+        engine.stats[k] = 0 * v
+    for c in counters:
+        c.launches = 0
+
+
+def serve_phase(card: str, profile_steps: bool = False):
+    from substratus_tpu_torch.ops.decode_attention import decode_attention
+    from substratus_tpu_torch.ops.flash_attention import flash_attention
+
+    server, engine, base = start_server("serve", {
+        "config": "llama2-7b", "max_batch": 8, "max_seq_len": 1024, "max_prefill_len": 512,
+        "kv_cache_dtype": "model"})
+    try:
+        zero_counts(engine, (flash_attention, decode_attention))
+        results, wall = run_concurrent(base, PROMPTS)
+        wait_idle(engine)
+        launches = {"flash_fwd": flash_attention.launches, "decode_attn": decode_attention.launches}
+        stats = dict(engine.stats)
+        reference = reference_check(engine)
+    finally:
+        server.stop()
+    profiled = profile_engine(engine) if profile_steps else None
+
+    generated = check_usage(PROMPTS, results)
+    L = engine.cfg.n_layers
     if stats["prefills"] != len(PROMPTS):
         fail(f"{stats['prefills']} prefills for {len(PROMPTS)} requests")
     if launches["flash_fwd"] != L * stats["prefills"] or launches["decode_attn"] != L * stats["decode_steps"]:
@@ -426,9 +628,138 @@ def serve_phase(card: str, profile_steps: bool = False):
             "requests": [r[1] for r in results], "reference": reference, "profile": profiled}
 
 
+def _long_text(n_bytes: int, seed: int) -> str:
+    rng = random.Random(seed)
+    words = ["the", "cache", "of", "a", "long", "prompt", "runs", "in", "chunks", "through",
+             "flash", "kernel", "served", "tokens", "decode", "step", "card", "model"]
+    text = ""
+    while len(text) < n_bytes:
+        text += rng.choice(words) + " "
+    return text[:n_bytes]
+
+
+# Long prompts through the chunked prefill: (text, max_tokens, temperature,
+# stream); ByteTokenizer ids = 1 + bytes, so 3000 / 1500 / 600 / 40 tokens,
+# which max_prefill_len=512 runs as 6 / 3 / 2 chunks and one single-shot
+# prefill. The 3000-token request is streamed for its time to first token.
+LONG_PARAMS = {"config": "llama2-7b", "max_batch": 8, "max_seq_len": 4096, "max_prefill_len": 512,
+               "kv_cache_dtype": "model", "decode_attn_impl": "fused", "chunk_attn_impl": "flash"}
+LONG_PROMPTS = [
+    (_long_text(2999, 1), 32, 0.0, True),
+    (_long_text(1499, 2), 32, 0.0, False),
+    (_long_text(599, 3), 32, 0.0, False),
+    (_long_text(39, 4), 32, 0.0, False),
+]
+
+
+class _TeeQueue(queue.Queue):
+    """A request's token queue that also keeps every token it delivers."""
+
+    def __init__(self):
+        super().__init__()
+        self.tokens = []
+
+    def put(self, item, block=True, timeout=None):
+        if item is not None:
+            self.tokens.append(item)
+        super().put(item, block, timeout)
+
+
+def long_reference_check(engine, requests) -> dict:
+    """Each served greedy token (chunked prefill + fused decode) within 5%
+    of the logit scale of the best logit of one teacher-forced single-shot
+    forward (flash prefill, no cache) over prompt + served tokens."""
+    import torch
+
+    from substratus_tpu_torch.models import llama
+
+    out = []
+    for req in requests:
+        prompt, toks = engine.clipped_prompt(req.prompt_tokens), req.out.tokens
+        seq = torch.tensor([prompt + toks[:-1]], device=engine.device)
+        logits, _ = llama.forward(engine.params, seq, engine.cfg)
+        logits = logits[0, len(prompt) - 1:]
+        if not torch.isfinite(logits).all():
+            fail(f"serve-long: non-finite logits in the reference of a {len(prompt)}-token prompt")
+        scale = logits.abs().max().item()
+        gaps = logits.max(dim=-1).values - logits[torch.arange(len(toks)), torch.tensor(toks)]
+        agree = sum(int(logits[i].argmax()) == t for i, t in enumerate(toks))
+        out.append({"prompt_tokens": len(prompt), "tokens": len(toks), "argmax_agree": agree,
+                    "max_gap": gaps.max().item(), "logit_scale": scale})
+        print(f"serve-long reference: {len(prompt)}-token prompt, {agree}/{len(toks)} served greedy tokens are "
+              f"the argmax of the single-shot forward (largest gap {gaps.max().item():.4g} at logit scale "
+              f"{scale:.4g})", flush=True)
+        if not toks or gaps.max().item() > 0.05 * scale:
+            fail(f"serve-long: served tokens disagree with the single-shot reference: {out[-1]}")
+    return {"requests": out}
+
+
+def serve_long_phase(card: str, profile_steps: bool = False):
+    """Long prompts on the dense cache: chunked prefill through the cached
+    flash kernel, decode through the fused kernel, llama2-7b at
+    max_seq_len 4096 (a 17.2 GB bf16 cache beside 13.5 GB of weights)."""
+    import torch
+
+    from substratus_tpu_torch.ops.decode_attention import decode_attention
+    from substratus_tpu_torch.ops.flash_attention import flash_attention, flash_cached_attention
+    from substratus_tpu_torch.ops.fused_decode import fused_decode_attention
+
+    gc.collect()  # the serve phase's server and cache
+    torch.cuda.empty_cache()
+    server, engine, base = start_server("serve-long", LONG_PARAMS)
+    counters = {"flash_cached": flash_cached_attention, "fused_decode": fused_decode_attention,
+                "flash_fwd": flash_attention, "decode_attn": decode_attention}
+    requests = []
+    submit = engine.submit
+
+    def tee_submit(req):
+        req.out = _TeeQueue()
+        requests.append(req)
+        return submit(req)
+
+    engine.submit = tee_submit
+    try:
+        zero_counts(engine, counters.values())
+        results, wall = run_concurrent(base, LONG_PROMPTS)
+        wait_idle(engine)
+        launches = {name: c.launches for name, c in counters.items()}
+        stats = dict(engine.stats)
+    finally:
+        server.stop()
+    generated = check_usage(LONG_PROMPTS, results)
+    engine.submit = submit
+    L = engine.cfg.n_layers
+    want = {"flash_cached": L * stats["prefill_chunks"], "flash_fwd": L * stats["prefills"],
+            "fused_decode": L * stats["decode_steps"], "decode_attn": 0}
+    chunk = LONG_PARAMS["max_prefill_len"]
+    lengths = [len(text.encode()) + 1 for text, *_ in LONG_PROMPTS]
+    chunks = sum(-(-n // chunk) for n in lengths if n > chunk)  # 6 + 3 + 2
+    singles = sum(n <= chunk for n in lengths)
+    if launches != want or (stats["prefill_chunks"], stats["prefills"]) != (chunks, singles):
+        fail(f"serve-long: launches {launches} against {want}; stats {stats}, want {chunks} chunks "
+             f"and {singles} single-shot prefills")
+    if not all(launches[name] > 0 for name in ("flash_cached", "fused_decode", "flash_fwd")):
+        fail(f"serve-long: a kernel of the path never launched: {launches}")
+    reference = long_reference_check(engine, requests)
+    profiled = profile_engine(engine, "profile-long", (40, 3000), 1000, alt_decode="kernel") if profile_steps else None
+    ttft = results[0][2]
+    step_ms = 1e3 * stats["decode_seconds"] / stats["decode_steps"]
+    decode_tps = (generated - len(LONG_PROMPTS)) / stats["decode_seconds"]
+    print(f"serve-long: {len(LONG_PROMPTS)} concurrent requests ({', '.join(str(len(p[0]) + 1) for p in LONG_PROMPTS)}"
+          f" prompt tokens), {generated} tokens in {wall:.2f} s; {stats['prefill_chunks']} prefill chunks, "
+          f"{stats['prefills']} single-shot prefill, {stats['decode_steps']} decode steps; launches {launches}",
+          flush=True)
+    print(f"serve-long [{card}]: TTFT of the 3000-token request {ttft * 1e3:.1f} ms (client, streamed), "
+          f"engine prefill time {stats['prefill_seconds'] * 1e3:.1f} ms in all, decode {decode_tps:.1f} tokens/s, "
+          f"mean step {step_ms:.2f} ms", flush=True)
+    return {"launches": launches, "stats": stats, "wall_s": wall, "generated": generated,
+            "ttft_3000_ms": ttft * 1e3, "decode_tokens_per_s": decode_tps, "step_ms": step_ms,
+            "requests": [r[1] for r in results], "reference": reference, "profile": profiled}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="card,build,kernels,serve")
+    ap.add_argument("--phases", default="card,build,kernels,serve,serve-long")
     phases = ap.parse_args().phases.split(",")
 
     import torch
@@ -452,6 +783,8 @@ def main() -> int:
         report["kernels"] = kernel_phase()
     if "serve" in phases:
         report["serve"] = serve_phase(card, profile_steps="profile" in phases)
+    if "serve-long" in phases:
+        report["serve-long"] = serve_long_phase(card, profile_steps="profile" in phases)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
@@ -459,13 +792,20 @@ def main() -> int:
         sources = {"flash_fwd": ("substratus_tpu_torch/csrc/flash_fwd.cu",
                                  "substratus_tpu/ops/flash_attention.py:91"),
                    "decode_attn": ("substratus_tpu_torch/csrc/decode_attn.cu",
-                                   "substratus_tpu/ops/decode_attention.py:138")}
+                                   "substratus_tpu/ops/decode_attention.py:138"),
+                   "flash_cached": ("substratus_tpu_torch/csrc/flash_cached.cu",
+                                    "substratus_tpu/ops/flash_attention.py:452"),
+                   "fused_decode": ("substratus_tpu_torch/csrc/fused_decode.cu",
+                                    "substratus_tpu/ops/fused_decode.py:48")}
+        # Each kernel's launches come from the serve phase whose path runs it.
+        phase_of = {"flash_fwd": "serve", "decode_attn": "serve",
+                    "flash_cached": "serve-long", "fused_decode": "serve-long"}
         line = []
         for name, cases in report["kernels"].items():
             main_case = cases[0]  # the serving path's shape
             line.append({
                 "name": name, "route": "cuda", "source": sources[name][0], "replaces": sources[name][1],
-                "launches": report.get("serve", {}).get("launches", {}).get(name, 0),
+                "launches": report.get(phase_of[name], {}).get("launches", {}).get(name, 0),
                 "max_abs_err": main_case["max_abs_err"], "ms": main_case["ms"],
                 "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
                 "bound_by": main_case["bound_by"], "library_ms": main_case["library_ms"],

@@ -13,13 +13,12 @@
 // Design. One block per (b, kv head), serving the G = H / KH query rows
 // of its group, so each kv head's history is read once for all of them.
 // The loop covers only columns 0..pos[b]: that trip count is where the
-// bandwidth goes. Each warp splits into sub-groups of D/8 lanes; a
-// sub-group reads one cache row at a time, 8 elements (16 bytes of bf16)
-// per lane, two rows in flight per iteration. Every sub-group keeps its
-// own online-softmax state (m, l, acc) per query row; the states merge
-// across sub-groups by shuffles and across warps through shared memory.
-// int8: k_scale multiplies the score after the dot and v_scale folds
-// into p, so no dequantized copy of the cache is made.
+// bandwidth goes. The loop (decode_common.cuh, shared with
+// fused_decode.cu) reads 16 bytes per lane, keeps one online-softmax
+// state per sub-group of lanes and merges them by shuffles; the states of
+// the warps merge here through shared memory. int8: k_scale multiplies
+// the score after the dot and v_scale folds into p, so no dequantized
+// copy of the cache is made.
 //
 // Numerics follow _kernel: q is scaled by D^-0.5 in f32, dots and the
 // softmax are f32, p stays f32 for the PV product, out = acc / l.
@@ -31,40 +30,12 @@
 // blocks on 132 SMs; a GQA model at small batch (KH=8, B=8: 64 blocks)
 // fills under half of them. Splitting S over more blocks
 // (flash-decoding) is later work.
-#include "common.cuh"
+#include "decode_common.cuh"
 
 namespace substratus {
 namespace {
 
-constexpr int NW = 8;   // warps per block
-constexpr int VEC = 8;  // cache elements per lane per row
-constexpr int U = 2;    // rows in flight per sub-group per iteration
-
-template <typename TC> struct Row8;
-
-// 8 bf16 = 16 bytes
-template <> struct Row8<__nv_bfloat16> {
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float* out) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h2[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
-  }
-};
-
-// 8 int8 = 8 bytes
-template <> struct Row8<int8_t> {
-  static __device__ __forceinline__ void load(const int8_t* p, float* out) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const int8_t* c = reinterpret_cast<const int8_t*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) out[i] = (float)c[i];
-  }
-};
+using decode::NW;
 
 template <typename TC, int D, int G>
 __global__ void __launch_bounds__(NW * 32) decode_attn_kernel(
@@ -72,140 +43,31 @@ __global__ void __launch_bounds__(NW * 32) decode_attn_kernel(
     const TC* __restrict__ v, const float* __restrict__ k_scale,
     const float* __restrict__ v_scale, const int* __restrict__ pos,
     __nv_bfloat16* __restrict__ o, int KH, int S, float scale) {
-  constexpr int LPR = D / VEC;    // lanes per cache row
-  constexpr int RPW = 32 / LPR;   // rows per warp at a time
-  constexpr int NSUB = NW * RPW;  // sub-groups per block
-  static_assert(D % VEC == 0 && 32 % LPR == 0, "unsupported head_dim");
   constexpr bool kQuant = sizeof(TC) == 1;
-
-  __shared__ float sm_m[NW][G];
-  __shared__ float sm_l[NW][G];
-  __shared__ float sm_acc[NW][G][D];
+  __shared__ decode::Partials<G, D> part;
 
   const int b = blockIdx.x / KH;
   const int kvh = blockIdx.x % KH;
   const int H = KH * G;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int sub = lane / LPR;
-  const int e0 = (lane % LPR) * VEC;  // this lane's first element
-  const int group = warp * RPW + sub;
-  const unsigned full = 0xffffffffu;
-
   const int p = pos[b];
   const int n = p < 0 ? 0 : min(p + 1, S);
-
-  float qr[G][VEC];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    const __nv_bfloat16* qp = q + ((size_t)b * H + kvh * G + g) * D + e0;
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) qr[g][e] = __bfloat162float(qp[e]) * scale;
-  }
-  float m[G], l[G], acc[G][VEC];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    m[g] = kNegInf;
-    l[g] = 0.f;
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) acc[g][e] = 0.f;
-  }
-
   const size_t head = (size_t)b * KH + kvh;
-  const TC* kh = k + head * S * D + e0;
-  const TC* vh = v + head * S * D + e0;
-  const float* ksh = kQuant ? k_scale + head * S : nullptr;
-  const float* vsh = kQuant ? v_scale + head * S : nullptr;
-
-  for (int base = 0; base < n; base += NSUB * U) {
-    float kf[U][VEC], vf[U][VEC], ks[U], vs[U];
-    bool ok[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int s = base + u * NSUB + group;
-      ok[u] = s < n;
-      if (ok[u]) {
-        Row8<TC>::load(kh + (size_t)s * D, kf[u]);
-        Row8<TC>::load(vh + (size_t)s * D, vf[u]);
-        ks[u] = kQuant ? ksh[s] : 1.f;
-        vs[u] = kQuant ? vsh[s] : 1.f;
-      } else {
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) kf[u][e] = vf[u][e] = 0.f;
-        ks[u] = vs[u] = 0.f;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        float dot = 0.f;
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) dot += qr[g][e] * kf[u][e];
-        // Reduce over the sub-group's lanes (all lanes take part: the
-        // shuffles sit outside the ok[u] branch).
-#pragma unroll
-        for (int off = LPR / 2; off > 0; off /= 2) dot += __shfl_xor_sync(full, dot, off);
-        if (ok[u]) {
-          const float s = kQuant ? dot * ks[u] : dot;
-          const float m_new = fmaxf(m[g], s);
-          const float alpha = expf(m[g] - m_new);
-          const float pr = expf(s - m_new);
-          l[g] = alpha * l[g] + pr;
-          const float pv = kQuant ? pr * vs[u] : pr;
-#pragma unroll
-          for (int e = 0; e < VEC; ++e) acc[g][e] = acc[g][e] * alpha + pv * vf[u][e];
-          m[g] = m_new;
-        }
-      }
-    }
-  }
-
-  // Merge the RPW sub-groups of this warp: lanes lane and lane ^ (k*LPR)
-  // hold the same elements for different rows.
-#pragma unroll
-  for (int off = LPR; off < 32; off *= 2) {
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float m_o = __shfl_xor_sync(full, m[g], off);
-      const float l_o = __shfl_xor_sync(full, l[g], off);
-      const float m_new = fmaxf(m[g], m_o);
-      const float a = expf(m[g] - m_new);
-      const float a_o = expf(m_o - m_new);
-      l[g] = a * l[g] + a_o * l_o;
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        const float acc_o = __shfl_xor_sync(full, acc[g][e], off);
-        acc[g][e] = a * acc[g][e] + a_o * acc_o;
-      }
-      m[g] = m_new;
-    }
-  }
-  if (sub == 0) {
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      if (lane == 0) {
-        sm_m[warp][g] = m[g];
-        sm_l[warp][g] = l[g];
-      }
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) sm_acc[warp][g][e0 + e] = acc[g][e];
-    }
-  }
-  __syncthreads();
+  decode::attend_rows<TC, D, G>(q + ((size_t)b * H + kvh * G) * D, k + head * S * D,
+                                v + head * S * D, kQuant ? k_scale + head * S : nullptr,
+                                kQuant ? v_scale + head * S : nullptr, n, scale, part);
 
   // Merge across warps: one thread per (g, d).
   for (int i = threadIdx.x; i < G * D; i += NW * 32) {
     const int g = i / D, d = i % D;
     float mx = kNegInf;
 #pragma unroll
-    for (int w = 0; w < NW; ++w) mx = fmaxf(mx, sm_m[w][g]);
+    for (int w = 0; w < NW; ++w) mx = fmaxf(mx, part.m[w][g]);
     float lsum = 0.f, a = 0.f;
 #pragma unroll
     for (int w = 0; w < NW; ++w) {
-      const float c = expf(sm_m[w][g] - mx);
-      lsum += c * sm_l[w][g];
-      a += c * sm_acc[w][g][d];
+      const float c = expf(part.m[w][g] - mx);
+      lsum += c * part.l[w][g];
+      a += c * part.acc[w][g][d];
     }
     const float out = lsum == 0.f ? 0.f : a / lsum;
     o[((size_t)b * H + kvh * G + g) * D + d] = __float2bfloat16(out);

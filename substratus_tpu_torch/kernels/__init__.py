@@ -41,6 +41,11 @@ SIGNATURES = {
     "flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     # q, k, v, k_scale, v_scale, pos, o, B, H, KH, S, D, cache_dtype, scale, stream
     "decode_attn": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    # q, k, v, k_scale, v_scale, pos, kv_len, o, B, Sq, Sk, H, KH, D, cache_dtype, scale, stream
+    "flash_cached": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # q, new_k, new_v, new_ks, new_vs, k, v, k_scale, v_scale, pos, o,
+    # B, H, KH, S, D, cache_dtype, scale, stream
+    "fused_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
 }
 # dtype codes shared with csrc/*.cu
 DTYPE_CODES = {torch.bfloat16: 0, torch.int8: 1}

@@ -6,9 +6,11 @@ The weights keep the JAX package's einsum layouts (wq [D, H, hd], wo
 ``nn.ModuleList`` where the JAX tree stacks layers on a leading axis
 (bridge.params_from_jax splits it). Projections and the lm_head are
 plain ``torch.matmul``; attention goes through the kernel wrappers:
-``flash_attention`` for the no-cache prefill and ``decode_attention``
-(inside update_cache_and_attend) for decode steps, both chosen by
-``attn_impl`` / ``decode_attn_impl``.
+``flash_attention`` for the no-cache prefill, and inside
+update_cache_and_attend ``decode_attention`` or ``fused_decode_attention``
+for decode steps and ``flash_cached_attention`` for the chunks of a long
+prompt, chosen by ``attn_impl`` / ``decode_attn_impl`` /
+``chunk_attn_impl``.
 
 The decode cache is the dense slot cache k/v [L, B, KH, S, hd] (+ f32
 scales [L, B, KH, S] when int8), written in place.
@@ -49,12 +51,14 @@ class LlamaConfig:
     # CUDA kernel on the card), "plain" = ops/attention.py reference.
     attn_impl: str = "flash"
     # Single-token cached attention: "kernel" = ops/decode_attention.py's
-    # CUDA kernel on the card, "plain" = its plain version; "fused"
-    # (ops/fused_decode.py) is not ported yet.
+    # CUDA kernel on the card, "plain" = its plain version, "fused" =
+    # ops/fused_decode.py (the cache row write and the attention in one
+    # kernel; opt-in, as in the JAX package).
     decode_attn_impl: str = "kernel"
-    # Multi-token cached attention: "plain" only until the cached flash
-    # kernel is ported.
-    chunk_attn_impl: str = "plain"
+    # Multi-token cached attention (chunked prefill): "flash" =
+    # ops/flash_attention.py's cached kernel on the card, "plain" =
+    # dequantize + ops/attention.py reference.
+    chunk_attn_impl: str = "flash"
     # Mixture-of-experts (Mixtral family): not ported yet, so these
     # configs raise.
     n_experts: int = 0

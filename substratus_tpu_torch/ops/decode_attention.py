@@ -1,6 +1,9 @@
 """Decode-step attention over the dense slot cache, bf16 or int8: the CUDA
 kernel csrc/decode_attn.cu beside its plain PyTorch version, plus the
-cache update around it (port of substratus_tpu/ops/decode_attention.py).
+cache update around it that picks the attention of each step (port of
+substratus_tpu/ops/decode_attention.py): this kernel, the fused write +
+attention of ops/fused_decode.py, or, for multi-token chunks, the cached
+flash kernel of ops/flash_attention.py.
 
 The kernel replaces substratus_tpu/ops/decode_attention.py::_kernel
 (decode_attention(impl="pallas")). Single-token decode reads the whole
@@ -24,10 +27,11 @@ from typing import Dict, Optional
 import torch
 
 from substratus_tpu_torch import kernels
-from substratus_tpu_torch.ops.attention import dot_product_attention
+from substratus_tpu_torch.ops.attention import NEG_INF, dot_product_attention
+from substratus_tpu_torch.ops.flash_attention import flash_cached_attention
+from substratus_tpu_torch.ops.fused_decode import fused_decode_attention
 from substratus_tpu_torch.ops.quant import dequantize_kv, quantize_kv
 
-NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
 GROUPS = (1, 2, 4, 8)
 
@@ -159,28 +163,47 @@ def update_cache_and_attend(
     *,
     kv_length: Optional[torch.Tensor] = None,  # [B] valid prefix override
     impl: str = "kernel",
-    chunk_impl: str = "plain",
+    chunk_impl: str = "flash",
 ):
     """Write fresh kv entries into a layer's slot cache (in place,
     quantizing when the cache is int8) and attend. Single-token steps go
-    through decode_attention (impl="kernel") or its plain version
-    (impl="plain"); multi-token continuation or kv_length-masked resumes
-    dequantize and run dot_product_attention. Returns (attn [B, S, H, D],
-    the layer cache dict)."""
-    if impl == "fused":
-        raise NotImplementedError(
-            "decode_attn_impl='fused' (ops/fused_decode.py) is not ported yet: ROADMAP Queue 2"
-        )
-    if impl not in ("kernel", "plain"):
+    through decode_attention (impl="kernel"), its plain version
+    (impl="plain"), or the fused write + attention kernel of
+    ops/fused_decode.py (impl="fused"). Multi-token continuation (chunked
+    prefill) or kv_length-masked resumes run flash_cached_attention on the
+    written cache (chunk_impl="flash", no dequantized copy) or dequantize
+    and run dot_product_attention (chunk_impl="plain"). Returns (attn
+    [B, S, H, D], the layer cache dict)."""
+    if impl not in ("kernel", "plain", "fused"):
         raise ValueError(f"decode attention impl {impl!r} invalid (kernel|plain|fused)")
-    if chunk_impl != "plain":
-        raise NotImplementedError(
-            f"chunk_attn_impl={chunk_impl!r} (flash_cached_attention) is not ported yet: ROADMAP Queue 2"
-        )
+    if chunk_impl not in ("flash", "plain"):
+        raise ValueError(f"chunk attention impl {chunk_impl!r} invalid (flash|plain)")
     s = kk.shape[1]
     kkT = kk.transpose(1, 2)  # [B, KH, S, D]
     vvT = vv.transpose(1, 2)
     quantized = "k_scale" in layer_cache
+
+    if s == 1 and kv_length is None and impl == "fused":
+        # One clamp shared by the scale writes and the kernel's row write:
+        # a drifted position (an idle engine slot) hits row S-1 in both, so
+        # an int8 row is never paired with a stale scale.
+        positions = torch.clamp(positions, max=layer_cache["k"].shape[2] - 1)
+        if quantized:
+            kq, kscale = quantize_kv(kkT)  # scale [B, KH, 1, 1]
+            vq, vscale = quantize_kv(vvT)
+            _write_rows(layer_cache["k_scale"], kscale[..., 0], positions)
+            _write_rows(layer_cache["v_scale"], vscale[..., 0], positions)
+            attn, _, _ = fused_decode_attention(
+                q, kq, vq, layer_cache["k"], layer_cache["v"], positions[:, 0],
+                kscale[..., 0], vscale[..., 0], layer_cache["k_scale"], layer_cache["v_scale"],
+            )
+        else:
+            attn, _, _ = fused_decode_attention(
+                q, kkT.to(layer_cache["k"].dtype), vvT.to(layer_cache["v"].dtype),
+                layer_cache["k"], layer_cache["v"], positions[:, 0],
+            )
+        return attn, layer_cache
+
     if quantized:
         kq, kscale = quantize_kv(kkT)  # scale [B, KH, S, 1]
         vq, vscale = quantize_kv(vvT)
@@ -196,6 +219,12 @@ def update_cache_and_attend(
         attn = attend(
             q, layer_cache["k"], layer_cache["v"], positions[:, 0],
             layer_cache.get("k_scale"), layer_cache.get("v_scale"),
+        )
+        return attn, layer_cache
+    if chunk_impl == "flash":
+        attn = flash_cached_attention(
+            q, layer_cache["k"], layer_cache["v"], positions,
+            layer_cache.get("k_scale"), layer_cache.get("v_scale"), kv_length,
         )
         return attn, layer_cache
     if quantized:

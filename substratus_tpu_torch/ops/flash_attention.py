@@ -1,15 +1,21 @@
-"""Flash-attention forward: the CUDA kernel csrc/flash_fwd.cu beside its
-plain PyTorch version.
+"""Flash attention: two CUDA kernels, each beside its plain PyTorch
+version.
 
-Replaces substratus_tpu/ops/flash_attention.py::_flash_kernel (entry
-point flash_attention), the prefill attention of the serving path. Both of its
-products run on the tensor cores (mma.sync, bf16 in, f32 accumulate); at
-the llama2-7b prefill shape its bound on an H100 is the bytes of
-q/k/v/o. See the source note in csrc/flash_fwd.cu.
+* ``flash_attention`` (csrc/flash_fwd.cu) replaces
+  substratus_tpu/ops/flash_attention.py::_flash_kernel, the no-cache
+  prefill attention of the serving path. Both of its products run on the
+  tensor cores (mma.sync, bf16 in, f32 accumulate); at the llama2-7b
+  prefill shape its bound on an H100 is the bytes of q/k/v/o. See the
+  source note in csrc/flash_fwd.cu.
+* ``flash_cached_attention`` (csrc/flash_cached.cu) replaces
+  ``_cached_kernel``: a multi-token chunk against the dense slot cache
+  (every chunk of a chunked prefill), per-row limits from the query
+  positions, bf16 or int8 cache. See the source note in
+  csrc/flash_cached.cu.
 
-``flash_attention`` launches the kernel for CUDA tensors (or raises) and
-runs the plain version only for tensors on the CPU. ``flash_attention.launches``
-counts kernel launches.
+Each wrapper launches its kernel for CUDA tensors (or raises) and runs the
+plain version only for tensors on the CPU. ``flash_attention.launches`` and
+``flash_cached_attention.launches`` count kernel launches.
 """
 from __future__ import annotations
 
@@ -105,3 +111,105 @@ def flash_attention(
 
 
 flash_attention.launches = 0
+
+
+def flash_cached_attention_plain(
+    q: torch.Tensor,  # [B, Sq, H, D]
+    k: torch.Tensor,  # [B, KH, Sk, D] (int8 when k_scale given)
+    v: torch.Tensor,
+    q_positions: torch.Tensor,  # [B, Sq]
+    k_scale: Optional[torch.Tensor] = None,  # [B, KH, Sk] f32
+    v_scale: Optional[torch.Tensor] = None,
+    kv_length: Optional[torch.Tensor] = None,  # [B]
+) -> torch.Tensor:
+    """The kernel's function in plain PyTorch, following the Pallas
+    _cached_kernel (not _xla): the cache converts to q's dtype, scores are
+    f32 sums of q.k products in that dtype, times D^-0.5 and then k_scale;
+    row r attends columns 0..min(q_pos, kv_length-1); p = exp(s - m) sums
+    into l, takes v_scale, and is rounded to q's dtype before the PV
+    product; out = acc / l, and a row with no live column is 0."""
+    b, sq, h, d = q.shape
+    kh, sk = k.shape[1], k.shape[2]
+    dt = q.dtype
+    limit = q_positions.long()
+    if kv_length is not None:
+        limit = torch.minimum(limit, kv_length.long()[:, None] - 1)
+    qf = q.float().reshape(b, sq, kh, h // kh, d)
+    s = torch.einsum("bqkgd,bksd->bkgqs", qf, k.to(dt).float()) * d**-0.5
+    if k_scale is not None:
+        s = s * k_scale[:, :, None, None, :]
+    live = torch.arange(sk, device=q.device)[None, None, :] <= limit[:, :, None]  # [B, Sq, Sk]
+    live = live[:, None, None]
+    s = torch.where(live, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(live & (m > NEG_INF / 2), torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    if v_scale is not None:
+        p = p * v_scale[:, :, None, None, :]
+    out = torch.einsum("bkgqs,bksd->bkgqd", p.to(dt).float(), v.to(dt).float())
+    out = out / torch.where(l == 0, 1.0, l)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(dt)
+
+
+def flash_cached_attention(
+    q: torch.Tensor,  # [B, Sq, H, D]
+    k: torch.Tensor,  # [B, KH, Sk, D] slot-cache layout (int8 when scales given)
+    v: torch.Tensor,
+    q_positions: torch.Tensor,  # [B, Sq] absolute positions
+    k_scale: Optional[torch.Tensor] = None,  # [B, KH, Sk] f32
+    v_scale: Optional[torch.Tensor] = None,
+    kv_length: Optional[torch.Tensor] = None,  # [B] valid-prefix mask
+) -> torch.Tensor:
+    """A multi-token chunk against the slot cache: row r of batch b
+    attends cache columns 0..min(q_positions[b, r], kv_length[b] - 1).
+    Returns [B, Sq, H, D] in q's dtype. CUDA tensors launch the kernel (or
+    raise); CPU tensors run the plain version."""
+    if q.device.type == "cpu":
+        return flash_cached_attention_plain(q, k, v, q_positions, k_scale, v_scale, kv_length)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_cached_attention: unsupported device {q.device}")
+    b, sq, h, d = q.shape
+    _, kh, sk, dk = k.shape
+    quantized = k_scale is not None
+    if dk != d or v.shape != k.shape or k.shape[0] != b or h % kh or q_positions.shape != (b, sq):
+        raise ValueError(
+            f"flash_cached_attention: unsupported shapes q{tuple(q.shape)} k{tuple(k.shape)} "
+            f"positions{tuple(q_positions.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_cached_attention: head_dim {d} not built ({HEAD_DIMS})")
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"flash_cached_attention: the kernel takes bf16 queries, got {q.dtype}")
+    want = torch.int8 if quantized else torch.bfloat16
+    if k.dtype != want or v.dtype != want:
+        raise ValueError(f"flash_cached_attention: cache must be {want}, got {k.dtype}/{v.dtype}")
+    if quantized and (
+        v_scale is None or k_scale.shape != (b, kh, sk) or v_scale.shape != (b, kh, sk)
+        or k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32
+        or not (k_scale.is_contiguous() and v_scale.is_contiguous())
+    ):
+        raise ValueError("flash_cached_attention: int8 caches need contiguous f32 k_scale and v_scale [B, KH, Sk]")
+    tensors = (q, k, v, q_positions) + ((k_scale, v_scale) if quantized else ()) + (
+        (kv_length,) if kv_length is not None else ())
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("flash_cached_attention: all operands must be on one device")
+    # The kernel reads 16-byte rows straight from the cache: no copies of it.
+    if not (k.is_contiguous() and v.is_contiguous()) or (k.data_ptr() | v.data_ptr()) % 16:
+        raise ValueError("flash_cached_attention: k/v must be contiguous and 16-byte aligned")
+    q = q.contiguous()
+    pos = q_positions.to(torch.int32).contiguous()
+    kv_len = kv_length.to(torch.int32).contiguous() if kv_length is not None else None
+    out = torch.empty_like(q)
+    rc = kernels.library().flash_cached(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        k_scale.data_ptr() if quantized else None,
+        v_scale.data_ptr() if quantized else None,
+        pos.data_ptr(), kv_len.data_ptr() if kv_len is not None else None, out.data_ptr(),
+        b, sq, sk, h, kh, d, kernels.DTYPE_CODES[k.dtype], float(d**-0.5),
+        kernels.stream_ptr(q.device),
+    )
+    kernels.check(rc, "flash_cached")
+    flash_cached_attention.launches += 1
+    return out
+
+
+flash_cached_attention.launches = 0

@@ -1,0 +1,154 @@
+"""Fused cache write + decode attention over the dense slot cache: the CUDA
+kernel csrc/fused_decode.cu beside its plain PyTorch version (port of
+substratus_tpu/ops/fused_decode.py).
+
+The kernel replaces substratus_tpu/ops/fused_decode.py::_kernel
+(fused_decode_attention). One launch per layer per decode step writes the
+fresh k/v row into cache row ``pos`` and attends: the history is masked
+strictly below ``pos`` and the current token's term comes from the
+operands, so the fresh row is never read back. It is bound by the bytes of
+the history rows; see the source note in csrc/fused_decode.cu.
+
+The fresh row arrives in the cache dtype; for int8 its scales
+``new_ks``/``new_vs`` [B, KH, 1] weight the current token's term, and the
+caller has already scattered them into the cache scales (the tiny scale
+writes stay outside the kernel, as in the JAX package). Positions clamp
+to [0, S-1], so a drifted idle slot writes row S-1 and nothing else.
+
+Unlike the JAX package, which aliases the donated cache, the port writes
+the caches in place and returns the very tensors it was given.
+``fused_decode_attention.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from substratus_tpu_torch import kernels
+from substratus_tpu_torch.ops.attention import NEG_INF
+
+HEAD_DIMS = (16, 32, 64, 128)  # built by csrc/fused_decode.cu
+GROUPS = (1, 2, 4, 8)
+
+
+def fused_decode_attention_plain(
+    q: torch.Tensor,  # [B, 1, H, D]
+    new_k: torch.Tensor,  # [B, KH, 1, D] fresh row, cache dtype
+    new_v: torch.Tensor,
+    cache_k: torch.Tensor,  # [B, KH, S, D], written in place
+    cache_v: torch.Tensor,
+    positions: torch.Tensor,  # [B] slot of the fresh token
+    new_ks: Optional[torch.Tensor] = None,  # [B, KH, 1] f32
+    new_vs: Optional[torch.Tensor] = None,
+    cache_ks: Optional[torch.Tensor] = None,  # [B, KH, S] f32 (fresh scale already scattered)
+    cache_vs: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The kernel's function in plain PyTorch, following the Pallas
+    _kernel: write the row, then q scaled by D^-0.5 in f32 against the
+    history cols < pos (times cache_ks) and the current token from the
+    operands (times new_ks); f32 softmax over both; p times the v scales
+    kept f32 for the PV product."""
+    b, _, h, d = q.shape
+    kh, s = cache_k.shape[1], cache_k.shape[2]
+    pos = torch.clamp(positions.long(), 0, s - 1)
+    bidx = torch.arange(b, device=q.device)[:, None]
+    hidx = torch.arange(kh, device=q.device)[None, :]
+    cache_k[bidx, hidx, pos[:, None]] = new_k[:, :, 0]
+    cache_v[bidx, hidx, pos[:, None]] = new_v[:, :, 0]
+
+    qf = (q.float() * d**-0.5).reshape(b, kh, h // kh, d)
+    hist = torch.einsum("bkgd,bksd->bkgs", qf, cache_k.float())  # [B, KH, G, S]
+    cur = torch.einsum("bkgd,bkd->bkg", qf, new_k[:, :, 0].float())[..., None]  # [B, KH, G, 1]
+    if new_ks is not None:
+        hist = hist * cache_ks[:, :, None, :]
+        cur = cur * new_ks[:, :, None, :]
+    live = (torch.arange(s, device=q.device)[None, :] < pos[:, None])[:, None, None, :]
+    logits = torch.cat([torch.where(live, hist, NEG_INF), cur], dim=-1)
+    p = torch.softmax(logits, dim=-1)
+    p_hist = torch.where(live, p[..., :s], 0.0)
+    p_cur = p[..., s:]
+    if new_vs is not None:
+        p_hist = p_hist * cache_vs[:, :, None, :]
+        p_cur = p_cur * new_vs[:, :, None, :]
+    out = torch.einsum("bkgs,bksd->bkgd", p_hist, cache_v.float())
+    out = out + p_cur * new_v.float()  # [B, KH, G, 1] * [B, KH, 1, D]
+    return out.reshape(b, 1, h, d).to(q.dtype), cache_k, cache_v
+
+
+def fused_decode_attention(
+    q: torch.Tensor,  # [B, 1, H, D]
+    new_k: torch.Tensor,  # [B, KH, 1, D] fresh row, cache dtype
+    new_v: torch.Tensor,
+    cache_k: torch.Tensor,  # [B, KH, S, D] WITHOUT the fresh row; written in place
+    cache_v: torch.Tensor,
+    positions: torch.Tensor,  # [B] slot of the fresh token
+    new_ks: Optional[torch.Tensor] = None,  # [B, KH, 1] f32
+    new_vs: Optional[torch.Tensor] = None,
+    cache_ks: Optional[torch.Tensor] = None,  # [B, KH, S] f32
+    cache_vs: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Write the fresh kv row into its cache slot AND attend, one kernel.
+    Returns (attn [B, 1, H, D] in q's dtype, cache_k, cache_v), the caches
+    being the tensors given, written in place. CUDA tensors launch the
+    kernel (or raise); CPU tensors run the plain version."""
+    args = (q, new_k, new_v, cache_k, cache_v, positions, new_ks, new_vs, cache_ks, cache_vs)
+    if q.device.type == "cpu":
+        return fused_decode_attention_plain(*args)
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_decode_attention: unsupported device {q.device}")
+    b, sq, h, d = q.shape
+    _, kh, s, dk = cache_k.shape
+    quantized = new_ks is not None
+    if (sq != 1 or dk != d or cache_v.shape != cache_k.shape or cache_k.shape[0] != b or h % kh
+            or new_k.shape != (b, kh, 1, d) or new_v.shape != new_k.shape or positions.shape != (b,)):
+        raise ValueError(
+            f"fused_decode_attention: unsupported shapes q{tuple(q.shape)} new_k{tuple(new_k.shape)} "
+            f"cache{tuple(cache_k.shape)} positions{tuple(positions.shape)}")
+    if d not in HEAD_DIMS or h // kh not in GROUPS:
+        raise ValueError(
+            f"fused_decode_attention: head_dim {d} / group {h // kh} not built "
+            f"(head_dim {HEAD_DIMS}, group {GROUPS})")
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"fused_decode_attention: the kernel takes bf16 queries, got {q.dtype}")
+    want = torch.int8 if quantized else torch.bfloat16
+    if any(t.dtype != want for t in (new_k, new_v, cache_k, cache_v)):
+        raise ValueError(f"fused_decode_attention: the fresh row and the cache must be {want}")
+    scales = (new_ks, new_vs, cache_ks, cache_vs) if quantized else ()
+    if quantized and (
+        any(t is None or t.dtype != torch.float32 for t in scales)
+        or new_ks.shape != (b, kh, 1) or new_vs.shape != (b, kh, 1)
+        or cache_ks.shape != (b, kh, s) or cache_vs.shape != (b, kh, s)
+        or not (cache_ks.is_contiguous() and cache_vs.is_contiguous())
+    ):
+        raise ValueError(
+            "fused_decode_attention: int8 needs f32 new_ks/new_vs [B, KH, 1] and contiguous "
+            "cache scales [B, KH, S]")
+    if any(t.device != q.device for t in (new_k, new_v, cache_k, cache_v, positions) + scales):
+        raise ValueError("fused_decode_attention: all operands must be on one device")
+    # The kernel writes and reads 16-byte rows of the caches in place.
+    if not (cache_k.is_contiguous() and cache_v.is_contiguous()) or (
+            cache_k.data_ptr() | cache_v.data_ptr()) % 16:
+        raise ValueError("fused_decode_attention: caches must be contiguous and 16-byte aligned")
+    q, new_k, new_v = q.contiguous(), new_k.contiguous(), new_v.contiguous()
+    if (new_k.data_ptr() | new_v.data_ptr()) % 16:
+        raise ValueError("fused_decode_attention: the fresh rows must be 16-byte aligned")
+    if quantized:
+        new_ks, new_vs = new_ks.contiguous(), new_vs.contiguous()
+    pos = positions.to(torch.int32).contiguous()  # clamped to [0, S-1] in the kernel
+    out = torch.empty_like(q)
+    rc = kernels.library().fused_decode(
+        q.data_ptr(), new_k.data_ptr(), new_v.data_ptr(),
+        new_ks.data_ptr() if quantized else None, new_vs.data_ptr() if quantized else None,
+        cache_k.data_ptr(), cache_v.data_ptr(),
+        cache_ks.data_ptr() if quantized else None, cache_vs.data_ptr() if quantized else None,
+        pos.data_ptr(), out.data_ptr(),
+        b, h, kh, s, d, kernels.DTYPE_CODES[cache_k.dtype], float(d**-0.5),
+        kernels.stream_ptr(q.device),
+    )
+    kernels.check(rc, "fused_decode")
+    fused_decode_attention.launches += 1
+    return out, cache_k, cache_v
+
+
+fused_decode_attention.launches = 0

@@ -4,7 +4,9 @@ substratus_tpu/serve/engine.py).
   * the decode batch is a fixed array of slots over the dense cache
     [L, B, KH, S, hd] (model dtype or int8);
   * each request is prefilled alone at a power-of-two bucket length and
-    its KV fragment inserted into a free slot;
+    its KV fragment inserted into a free slot; a prompt longer than
+    ``max_prefill_len`` runs as a sequence of chunks written straight into
+    its slot's cache, each attending everything before it;
   * every decode step advances all slots one token and samples on the
     device; finished slots are freed and refilled between steps.
 
@@ -15,7 +17,7 @@ step is synchronous: it reads the sampled tokens back to the host before
 the next dispatch (the JAX engine's overlap=False scheduler).
 
 Not ported yet (ROADMAP Queue 1): the paged layout and prefix reuse,
-chunked prefill, the overlapped scheduler, speculation, adapters,
+the overlapped scheduler, speculation, adapters,
 disaggregated roles and lockstep gangs; EngineConfig has none of their
 fields.
 """
@@ -50,7 +52,8 @@ class EngineOverloaded(RuntimeError):
 class EngineConfig:
     max_batch: int = 8  # decode slots
     max_seq_len: int = 1024  # cache length per slot
-    max_prefill_len: int = 512  # longest prompt (after the keep-newest clip)
+    # Longest single-shot prefill; longer prompts run in chunks of this size.
+    max_prefill_len: int = 512
     # Waiting-queue bound: submit() raises EngineOverloaded beyond it.
     max_queue: Optional[int] = None
     top_k: int = 0  # static top-k (0 = disabled)
@@ -148,8 +151,11 @@ class Engine:
         self._admitting: Optional[Request] = None
         self.error: Optional[BaseException] = None
         # Host-clock counters of the scheduler thread (read by benches).
+        # "prefills" counts single-shot prefills, "prefill_chunks" the
+        # chunks of chunked ones; "prefill_seconds" covers both.
         self.stats: Dict[str, float] = {
             "prefills": 0,
+            "prefill_chunks": 0,
             "prefill_tokens": 0,
             "prefill_seconds": 0.0,
             "decode_steps": 0,
@@ -167,11 +173,6 @@ class Engine:
         n = len(self.clipped_prompt(req.prompt_tokens))
         if n == 0:
             raise ValueError("empty prompt")
-        if n > self.ec.max_prefill_len:
-            raise ValueError(
-                f"prompt of {n} tokens exceeds max_prefill_len={self.ec.max_prefill_len} "
-                "(chunked prefill is not ported yet: ROADMAP Queue 1)"
-            )
         if self.error is not None:
             req.finish_reason = "error"
             req.out.put(None)  # engine is dead; never strand the caller
@@ -229,15 +230,44 @@ class Engine:
     def _admit_dense(self, req: Request, slot: int) -> None:
         t0 = time.perf_counter()
         prompt = self.clipped_prompt(req.prompt_tokens)
-        padded, true_len = _pad_to_bucket(prompt, self.ec.max_prefill_len)
-        tokens = torch.from_numpy(padded).to(self.device)
-        logits, kv = self.model.forward(self.params, tokens, self.cfg)
-        self._insert(kv, slot)
-        self.stats["prefills"] += 1
+        true_len = len(prompt)
+        if true_len <= self.ec.max_prefill_len:
+            padded, true_len = _pad_to_bucket(prompt, self.ec.max_prefill_len)
+            tokens = torch.from_numpy(padded).to(self.device)
+            logits, kv = self.model.forward(self.params, tokens, self.cfg)
+            self._insert(kv, slot)
+            last_logits = logits[0, true_len - 1]
+            self.stats["prefills"] += 1
+        else:
+            last_logits = self._chunked_prefill(prompt, slot)
         self.stats["prefill_tokens"] += true_len
-        self._finalize_admit(req, slot, logits[0, true_len - 1], true_len)
+        self._finalize_admit(req, slot, last_logits, true_len)
         # _finalize_admit's host read of the first token ends the prefill.
         self.stats["prefill_seconds"] += time.perf_counter() - t0
+
+    def _chunked_prefill(self, prompt: List[int], slot: int) -> torch.Tensor:
+        """Prefill a prompt longer than one bucket: run bucket-sized chunks
+        against the slot's cache, each written in place into
+        cache[:, slot] (a view whose per-layer slices are contiguous) and
+        attending everything before it. Returns the last real token's
+        logits."""
+        slot_cache = {name: t[:, slot : slot + 1] for name, t in self.cache.items()}
+        chunk = self.ec.max_prefill_len
+        offset, last_logits = 0, None
+        while offset < len(prompt):
+            padded, clen = _pad_to_bucket(prompt[offset : offset + chunk], chunk)
+            tokens = torch.from_numpy(padded).to(self.device)
+            # The padded tail clamps onto the one slot past the prompt: real
+            # queries never attend it, and the first decode step writes that
+            # slot before reading it. clipped_prompt keeps prompts within
+            # max_seq_len - 1, so the slot exists.
+            positions = torch.clamp(torch.arange(offset, offset + tokens.shape[1], device=self.device),
+                                    max=offset + clen)[None, :]
+            logits, _ = self.model.forward(self.params, tokens, self.cfg, positions=positions, cache=slot_cache)
+            last_logits = logits[0, clen - 1]
+            offset += clen
+            self.stats["prefill_chunks"] += 1
+        return last_logits
 
     def _insert(self, kv: Dict[str, torch.Tensor], slot: int) -> None:
         """Write a prefill fragment {k, v: [L, 1, Sb, KH, hd]} into

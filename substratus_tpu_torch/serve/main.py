@@ -8,18 +8,30 @@ serve/server.py, on the card unless ``--device cpu`` is given.
 
 Knobs come from flags or from the container contract's params file
 (``/content/params.json``, or ``--params``); flags win. The port serves
-the subset ``config``, ``max_batch``, ``max_seq_len``, ``max_prefill_len``
-and ``kv_cache_dtype`` (plus ``max_queue``). Every other
-key of the JAX entry point exits with the ROADMAP queue that will serve
-it, unless it holds the one value this port already serves (for example
-``kv_layout: dense``): a knob is never silently ignored.
+the subset ``config``, ``max_batch``, ``max_seq_len``, ``max_prefill_len``,
+``kv_cache_dtype`` and ``max_queue``, and the attention knobs under the JAX
+entry point's names:
+
+* ``decode_attn_impl``: ``fused`` runs the fused cache-write + decode
+  kernel (ops/fused_decode.py); ``xla`` (the JAX default) and ``pallas``
+  run the decode kernel (ops/decode_attention.py);
+* ``chunk_attn_impl``: ``flash`` and ``xla`` (the JAX default) both run the
+  cached flash kernel (ops/flash_attention.py) on the chunks of a long
+  prompt.
+
+The port has no XLA, so a reference name runs a kernel too; the startup
+line says which. ``fused`` with ``kv_layout: paged`` exits, as in the JAX
+entry point. Every other key of the JAX entry point exits with the
+ROADMAP queue that will serve it, unless it holds the one value this port
+already serves (for example ``kv_layout: dense``): a knob is never
+silently ignored, and an unknown value of a served knob exits too.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 # params.json keys the port does not serve yet: the value it does serve
 # (a key holding it passes), and where the rest waits.
@@ -42,12 +54,15 @@ _NOT_SERVED = {
     "sequence": (None, "Queue 1, multi-GPU serving"),
     "replicas": (None, "Queue 1, multi-GPU serving"),
     "drain_grace": (None, "Queue 1, the serving surface (gateway contract)"),
-    # The port always runs its kernels on the card; the others wait.
+    # The port always runs its flash kernel for the prefill.
     "attn_impl": (None, "Queue 2, the TPU kernels still to port"),
-    "decode_attn_impl": (None, "Queue 2, the TPU kernels still to port"),
-    "chunk_attn_impl": (None, "Queue 2, the TPU kernels still to port"),
 }
-_SERVED = ("config", "max_batch", "max_seq_len", "max_prefill_len", "kv_cache_dtype", "max_queue")
+_SERVED = ("config", "max_batch", "max_seq_len", "max_prefill_len", "kv_cache_dtype", "max_queue",
+           "decode_attn_impl", "chunk_attn_impl")
+# The JAX entry point's attention names -> the port's models/llama.py
+# setting (JAX default first). The port has no XLA: "xla" runs a kernel.
+_DECODE_IMPLS = {"xla": "kernel", "pallas": "kernel", "fused": "fused"}
+_CHUNK_IMPLS = {"xla": "flash", "flash": "flash"}
 
 
 def load_params_json(path: Optional[str]) -> Dict[str, Any]:
@@ -57,9 +72,30 @@ def load_params_json(path: Optional[str]) -> Dict[str, Any]:
     return {}
 
 
+def resolve_attn_impls(params: Dict[str, Any]) -> Tuple[str, str]:
+    """(decode_attn_impl, chunk_attn_impl) of models/llama.py for the
+    params.json names; exits on an unknown name and, as the JAX entry
+    point's resolve_kv_layout does, on fused decode with the paged layout
+    (the paged decode path never reaches the fused kernel)."""
+    decode = params.get("decode_attn_impl", "xla")
+    chunk = params.get("chunk_attn_impl", "xla")
+    if decode not in _DECODE_IMPLS:
+        raise SystemExit(f"params.json: decode_attn_impl={decode!r} invalid (one of {sorted(_DECODE_IMPLS)})")
+    if chunk not in _CHUNK_IMPLS:
+        raise SystemExit(f"params.json: chunk_attn_impl={chunk!r} invalid (one of {sorted(_CHUNK_IMPLS)})")
+    if decode == "fused" and params.get("kv_layout") == "paged":
+        raise SystemExit(
+            "params.json: decode_attn_impl=fused requires kv_layout=dense "
+            "(the paged decode path does not use the fused kernel)"
+        )
+    return _DECODE_IMPLS[decode], _CHUNK_IMPLS[chunk]
+
+
 def check_params(params: Dict[str, Any]) -> None:
     """Exit on any key the port does not serve yet (naming its ROADMAP
-    queue) and on any key it does not know."""
+    queue), on any key it does not know, and on an attention name it
+    does not serve."""
+    resolve_attn_impls(params)
     for key, value in params.items():
         if key in _NOT_SERVED:
             served, where = _NOT_SERVED[key]
@@ -102,6 +138,8 @@ def build(argv=None):
     tokenizer = load_tokenizer(None)
     if cfg.vocab_size < tokenizer.vocab_size:
         cfg = cfg.replace(vocab_size=tokenizer.vocab_size)
+    decode_impl, chunk_impl = resolve_attn_impls(params_json)
+    cfg = cfg.replace(decode_attn_impl=decode_impl, chunk_attn_impl=chunk_impl)
     params = family.init_params(cfg, seed=0, device=device)
 
     def knob(flag, key, default):
@@ -122,7 +160,10 @@ def build(argv=None):
     engine = Engine(cfg, params, ec, device=device, model=family)
     server = Server(ServerState(engine, tokenizer, name), host=args.host, port=args.port)
     engine.start()
-    print(f"serving {name} on {args.host}:{server.port} ({device})", flush=True)
+    print(f"serving {name} on {args.host}:{server.port} ({device}); decode attention: "
+          f"{'fused cache-write + decode kernel' if decode_impl == 'fused' else 'decode kernel'} "
+          f"(decode_attn_impl={params_json.get('decode_attn_impl', 'xla')}), long-prompt chunks: "
+          f"cached flash kernel (chunk_attn_impl={params_json.get('chunk_attn_impl', 'xla')})", flush=True)
     return server
 
 

@@ -1,0 +1,91 @@
+"""Chunked prefill in the port's Engine (substratus_tpu_torch/serve/
+engine.py): a prompt longer than max_prefill_len runs as bucket-sized
+chunks written into its slot's cache, each through the cached attention
+(flash_cached_attention, its plain version on the CPU).
+
+float32 tiny config, the JAX weights carried across by
+bridge.params_from_jax. A 71-token prompt at max_prefill_len=32 (chunks
+of 32, 32 and 7 padded to 16) must give the greedy tokens of the JAX
+Engine(kv_layout="dense", overlap=False) at the same setting, with the
+model-dtype and the int8 cache, and of the port's own single-shot
+prefill; a short request before and after the long one gives the same
+tokens (the chunks write only their own slot).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from substratus_tpu.models import llama as jllama
+from substratus_tpu.serve.engine import Engine as JEngine
+from substratus_tpu.serve.engine import EngineConfig as JEngineConfig
+from substratus_tpu_torch.bridge import params_from_jax
+from substratus_tpu_torch.models import llama
+from substratus_tpu_torch.serve.engine import Engine, EngineConfig
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The shapes here are tiny: one intra-op thread keeps torch's worker
+    pool from spinning on cores that timing-sensitive tests share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+EOS = 257
+J_CFG = jllama.CONFIGS["tiny"].replace(vocab_size=258, dtype=jnp.float32)
+T_CFG = llama.CONFIGS["tiny"].replace(vocab_size=258, dtype=torch.float32)
+PROMPT = [256] + np.random.default_rng(7).integers(0, 255, 70).tolist()  # 71 tokens
+
+
+@pytest.fixture(scope="module")
+def weights():
+    j_params = jllama.init_params(J_CFG, jax.random.key(0))
+    t_params = llama.Llama(T_CFG, device="cpu")
+    t_params.load_state_dict(params_from_jax(jax.device_get(j_params)))
+    return j_params, t_params
+
+
+def _ec(max_prefill, kv="model"):
+    return dict(max_batch=2, max_seq_len=128, max_prefill_len=max_prefill, eos_token_id=EOS,
+                kv_cache_dtype=kv)
+
+
+def _generate(engine, prompts, max_tokens=8):
+    engine.start()
+    try:
+        return [engine.generate(list(p), max_tokens=max_tokens, temperature=0.0) for p in prompts]
+    finally:
+        engine.stop()
+
+
+@pytest.mark.parametrize("kv", ["model", "int8"])
+def test_chunked_matches_jax_engine(weights, kv):
+    j_params, t_params = weights
+    engine = Engine(T_CFG, t_params, EngineConfig(**_ec(32, kv)), device="cpu")
+    got = _generate(engine, [PROMPT])
+    want = _generate(JEngine(J_CFG, j_params, JEngineConfig(kv_layout="dense", overlap=False, **_ec(32, kv))),
+                     [PROMPT])
+    assert got == want and len(got[0]) >= 1
+    assert engine.stats["prefill_chunks"] == 3 and engine.stats["prefills"] == 0
+    assert engine.stats["prefill_tokens"] == 71
+
+
+def test_chunked_matches_single_shot(weights):
+    _, t_params = weights
+    whole = _generate(Engine(T_CFG, t_params, EngineConfig(**_ec(128)), device="cpu"), [PROMPT])
+    chunked = _generate(Engine(T_CFG, t_params, EngineConfig(**_ec(32)), device="cpu"), [PROMPT])
+    assert chunked == whole
+
+
+def test_short_requests_around_a_long_one(weights):
+    """The chunks write only the long request's slot: a short request
+    gives the same tokens before and after it."""
+    _, t_params = weights
+    engine = Engine(T_CFG, t_params, EngineConfig(**_ec(32)), device="cpu")
+    before, long_out, after = _generate(engine, [[256, 1, 2], PROMPT, [256, 1, 2]], max_tokens=6)
+    assert before == after and len(long_out) >= 1
+    assert engine.stats["prefills"] == 2 and engine.stats["prefill_chunks"] == 3

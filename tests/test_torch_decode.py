@@ -98,42 +98,52 @@ def test_update_cache_and_attend_matches_jax(sn, with_len, quantized):
     vv = r.standard_normal((b, sn, kh, d)).astype(np.float32)
     positions = (np.array([[3], [s - sn]]) + np.arange(sn)[None, :]).astype(np.int32)
     kv_len = np.array([3 + sn, s], np.int32) if with_len else None
-    t_cache = {name: _t(x.copy()) for name, x in cache.items()}
-    got, t_out = tdec.update_cache_and_attend(
-        t_cache, _t(q), _t(kk), _t(vv), _t(positions), kv_length=_t(kv_len))
     want, j_out = jdec.update_cache_and_attend(
         {name: _j(x) for name, x in cache.items()}, _j(q), _j(kk), _j(vv), _j(positions),
         kv_length=_j(kv_len))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
-    assert t_out is t_cache  # written in place
-    for name in cache:
-        np.testing.assert_array_equal(t_out[name].numpy(), np.asarray(j_out[name]), err_msg=name)
+    # Chunks: the cached flash kernel's plain version and the dequantize +
+    # reference path agree with JAX alike.
+    for chunk_impl in ("flash", "plain"):
+        t_cache = {name: _t(x.copy()) for name, x in cache.items()}
+        got, t_out = tdec.update_cache_and_attend(
+            t_cache, _t(q), _t(kk), _t(vv), _t(positions), kv_length=_t(kv_len), chunk_impl=chunk_impl)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, err_msg=chunk_impl)
+        assert t_out is t_cache  # written in place
+        for name in cache:
+            np.testing.assert_array_equal(t_out[name].numpy(), np.asarray(j_out[name]), err_msg=name)
 
 
 @pytest.mark.parametrize("quantized", [False, True], ids=["f32", "int8"])
 def test_out_of_range_write_is_dropped(quantized):
     """A position past the cache is dropped, as JAX's out-of-range scatter
-    drops it; no index goes past S-1. The impls not ported yet raise."""
+    drops it; no index goes past S-1. The fused impl clamps it onto S-1 in
+    row and scale alike, as JAX's does, and a chunk with positions past
+    the cache through the cached flash impl agrees with JAX too."""
     b, kh, h, s, d = 2, 2, 4, 8, 16
     cache = _layer_cache(kh, s, b, d, quantized, seed=3)
     r = np.random.default_rng(4)
     q = r.standard_normal((b, 1, h, d)).astype(np.float32)
     kk = r.standard_normal((b, 1, kh, d)).astype(np.float32)
     positions = np.array([[s], [2]], np.int32)
-    t_cache = {name: _t(x.copy()) for name, x in cache.items()}
-    _, t_out = tdec.update_cache_and_attend(t_cache, _t(q), _t(kk), _t(kk), _t(positions))
-    _, j_out = jdec.update_cache_and_attend(
-        {name: _j(x) for name, x in cache.items()}, _j(q), _j(kk), _j(kk), _j(positions))
-    for name in cache:
-        np.testing.assert_array_equal(t_out[name].numpy(), np.asarray(j_out[name]), err_msg=name)
-    np.testing.assert_array_equal(t_out["k"][0].numpy(), cache["k"][0])
-    x = torch.zeros((1, 1, 2, 16))
-    pos = torch.zeros((1, 1), dtype=torch.int64)
-    one = {name: t[:1, :, :, ...] for name, t in t_cache.items()}
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        tdec.update_cache_and_attend(one, x, x, x, pos, impl="fused")
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        tdec.update_cache_and_attend(one, x, x, x, pos, chunk_impl="flash")
+    chunk_q = r.standard_normal((b, 4, h, d)).astype(np.float32)
+    chunk_kv = r.standard_normal((b, 4, kh, d)).astype(np.float32)
+    chunk_pos = np.array([[s - 2, s - 1, s, s + 1], [2, 3, 4, 5]], np.int32)
+    for impl, chunk_impl, args in (("kernel", "flash", (q, kk, kk, positions)),
+                                   ("fused", "flash", (q, kk, kk, positions)),
+                                   ("kernel", "flash", (chunk_q, chunk_kv, chunk_kv, chunk_pos))):
+        t_cache = {name: _t(x.copy()) for name, x in cache.items()}
+        got, t_out = tdec.update_cache_and_attend(t_cache, *map(_t, args), impl=impl, chunk_impl=chunk_impl)
+        want, j_out = jdec.update_cache_and_attend(
+            {name: _j(x) for name, x in cache.items()}, *map(_j, args),
+            impl="fused" if impl == "fused" else "xla")
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, err_msg=impl)
+        for name in cache:
+            np.testing.assert_array_equal(t_out[name].numpy(), np.asarray(j_out[name]), err_msg=name)
+        if impl == "fused":  # the drifted row lands on S-1
+            np.testing.assert_array_equal(t_out["k"][0, :, s - 1].numpy(),
+                                          (j_out["k"][0, :, s - 1]))
+        else:
+            np.testing.assert_array_equal(t_out["k"][0, :, : s - 2].numpy(), cache["k"][0, :, : s - 2])
 
 
 @pytest.mark.parametrize("quantized", [False, True], ids=["f32", "int8"])

@@ -102,8 +102,13 @@ def test_prompt_clip_and_prefill_limit(weights):
     eng = Engine(T_CFG, t_params, EngineConfig(max_batch=2, max_seq_len=32, max_prefill_len=16,
                                                 eos_token_id=EOS), device="cpu")
     assert eng.clipped_prompt(list(range(40))) == list(range(9, 40))  # newest max_seq_len-1
-    with pytest.raises(ValueError, match="max_prefill_len"):
-        eng.submit(Request(list(range(20)), max_tokens=2))
+    # Longer than max_prefill_len: served as two chunks (16 + 4), not refused.
+    (toks, _), = _run(eng, Request, [list(range(20))])
+    assert 1 <= len(toks) <= MAX_TOKENS and all(0 <= t < 258 for t in toks)
+    assert eng.stats["prefill_chunks"] == 2 and eng.stats["prefills"] == 0
+    assert eng.stats["prefill_tokens"] == 20
+    with pytest.raises(ValueError, match="empty prompt"):
+        eng.submit(Request([], max_tokens=2))
 
 
 def test_buckets():

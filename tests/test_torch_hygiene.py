@@ -77,10 +77,17 @@ def test_cpu_kernel_wrappers_use_plain_version_only_for_cpu_tensors():
     """A tensor on another device than the CPU never reaches the plain
     version: without a card the wrappers raise instead of computing."""
     from substratus_tpu_torch.ops.decode_attention import decode_attention
-    from substratus_tpu_torch.ops.flash_attention import flash_attention
+    from substratus_tpu_torch.ops.flash_attention import flash_attention, flash_cached_attention
+    from substratus_tpu_torch.ops.fused_decode import fused_decode_attention
 
     q = torch.zeros((1, 4, 2, 64), device="meta")
+    kv = q.transpose(1, 2)
     with pytest.raises((ValueError, RuntimeError)):
         flash_attention(q, q, q)
     with pytest.raises((ValueError, RuntimeError)):
-        decode_attention(q[:, :1], q.transpose(1, 2), q.transpose(1, 2), torch.zeros(1, dtype=torch.int32))
+        decode_attention(q[:, :1], kv, kv, torch.zeros(1, dtype=torch.int32))
+    with pytest.raises((ValueError, RuntimeError)):
+        flash_cached_attention(q, kv, kv, torch.zeros((1, 4), dtype=torch.int32))
+    with pytest.raises((ValueError, RuntimeError)):
+        fused_decode_attention(q[:, :1], kv[:, :, :1], kv[:, :, :1], kv, kv, torch.zeros(1, dtype=torch.int32))
+    assert (flash_cached_attention.launches, fused_decode_attention.launches) == (0, 0)

@@ -77,7 +77,7 @@ def test_streamed_sse_ends_with_done(server):
     ({"max_tokens": 3}, 400),  # no prompt
     ({"prompt": "x", "max_tokens": 0}, 400),
     ({"prompt": "x", "top_p": 1.5}, 400),
-    ({"prompt": "x" * 40}, 400),  # over max_prefill_len: chunked prefill is not ported
+    ({"prompt": "x", "temperature": -1}, 400),
 ])
 def test_bad_requests(server, body, status):
     with pytest.raises(urllib.error.HTTPError) as e:
@@ -85,14 +85,34 @@ def test_bad_requests(server, body, status):
     assert e.value.code == status
 
 
+def test_long_prompt_is_served_in_chunks(server):
+    """41 tokens at max_prefill_len=32: two chunks, then decode."""
+    engine = server.state.engine
+    chunks = engine.stats["prefill_chunks"]
+    with _post(server, {"prompt": "x" * 40, "max_tokens": 4, "temperature": 0}) as r:
+        assert r.status == 200
+        body = json.loads(r.read())
+    assert body["usage"]["prompt_tokens"] == 41 and 1 <= body["usage"]["completion_tokens"] <= 4
+    assert engine.stats["prefill_chunks"] == chunks + 2
+
+
 def test_params_policy():
     """Served keys, and unserved knobs at the one value the port serves,
-    pass; every other knob exits naming its ROADMAP queue."""
+    pass; every other knob exits naming its ROADMAP queue. The attention
+    knobs take the JAX names (the reference names run the kernels)."""
     main.check_params({"config": "tiny", "max_batch": 2, "kv_layout": "dense", "quantize": "none",
-                       "role": "both", "spec_k": 0, "overlap": False})
+                       "role": "both", "spec_k": 0, "overlap": False, "decode_attn_impl": "fused",
+                       "chunk_attn_impl": "flash"})
+    assert main.resolve_attn_impls({}) == ("kernel", "flash")
+    assert main.resolve_attn_impls({"decode_attn_impl": "fused", "kv_layout": "dense"}) == ("fused", "flash")
+    assert main.resolve_attn_impls({"decode_attn_impl": "pallas", "chunk_attn_impl": "xla"}) == ("kernel", "flash")
     for params in ({"kv_layout": "paged"}, {"spec_k": 4}, {"quantize": "int8"}, {"adapters": {"dir": "x"}},
-                   {"role": "prefill"}, {"decode_attn_impl": "fused"}, {"model": "m"}):
+                   {"role": "prefill"}, {"attn_impl": "flash"}, {"model": "m"}):
         with pytest.raises(SystemExit, match="ROADMAP"):
+            main.check_params(params)
+    for params, match in (({"decode_attn_impl": "fused", "kv_layout": "paged"}, "requires kv_layout=dense"),
+                          ({"decode_attn_impl": "magic"}, "invalid"), ({"chunk_attn_impl": "plain"}, "invalid")):
+        with pytest.raises(SystemExit, match=match):
             main.check_params(params)
     with pytest.raises(SystemExit, match="unknown key"):
         main.check_params({"no_such_knob": 1})
