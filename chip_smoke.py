@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # every phase but profile, one H100
     python3 chip_smoke.py --phases card,build,kernels
     python3 chip_smoke.py --phases card,build,kernels,serve,profile
+    python3 chip_smoke.py --phases card,build,kernels,serve-int4,profile
 
 Phases, each of which exits non-zero on failure:
 
@@ -17,6 +18,11 @@ Phases, each of which exits non-zero on failure:
               could take (bytes at 3.35 TB/s, operations at 989 TFLOP/s
               bf16); for the fused decode kernel also the unfused path's
               time (row writes plus the decode kernel) for the same work;
+              the int4 matmul at llama2-7b's projection and lm_head widths,
+              timed with the 50 MB L2 flushed (by a 256 MB read) before
+              each launch, as a decode step streams 3.5 GB of weights; its
+              library call one torch.matmul over the dequantized bf16
+              weight;
   serve       serve.main's server in-process at llama2-7b's full width and
               depth (random weights from a seed, bf16, max_seq_len 1024),
               five concurrent /v1/completions requests, the kernels' launch
@@ -28,11 +34,20 @@ Phases, each of which exits non-zero on failure:
               kernel (32 x prefill chunks) and whose decode steps through
               the fused kernel (32 x steps, the decode kernel never); every
               served greedy token held against a single-shot forward;
+  serve-int4  the JAX package's throughput stack: int4 weights (the random
+              bf16 weights quantized on the card), int8 cache, fused
+              decode, max_seq_len 2048; serve's five prompts and one of
+              1500 tokens (3 chunks); every projection and the lm_head
+              through the int4 matmul kernel ((7 x 32 + 1) x forwards),
+              the attention kernels as in serve-long, every served greedy
+              token held against a single-shot forward on the int4 weights;
   profile     (only when named) host-clock prefill and decode-step times
               and, under torch.profiler, their device busy time and top
               kernels, after serve (prompts of 16 and 400 tokens) and after
               serve-long (40 and 3000 tokens, the slots filled at 1000;
-              the decode steps also unfused, in turns with the fused ones).
+              the decode steps also unfused, in turns with the fused ones)
+              and after serve-int4 (16 and 1500 tokens), with the int4
+              matmul's and the GEMMs' share of the device time.
 
 The line before the last is one JSON object with every kernel's numbers
 (launches from the serve phase whose path runs the kernel); the last line
@@ -79,14 +94,17 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, n: int = 25) -> float:
-    """Median of n launches, each between two CUDA events, after a warm-up."""
+def time_ms(fn, n: int = 25, flush=None) -> float:
+    """Median of n launches, each between two CUDA events, after a warm-up;
+    flush() runs before each launch, outside the events."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(n):
+        if flush is not None:
+            flush()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -301,6 +319,45 @@ def fused_case(gen, h, kh, int8, positions, b=8, s=4096, d=128):
     }
 
 
+def q4_case(gen, m, n, c=4096, heads=None):
+    """x [m, c] bf16 times a random weight [c, n] quantized by quantize4
+    as the model's own (heads: wo's [heads, c / heads, n] layout, groups
+    along head_dim), the L2 flushed before each timed launch."""
+    import torch
+
+    from substratus_tpu_torch.ops.quant4 import q4_matmul, q4_matmul_plain, quantize4
+
+    dev = "cuda"
+    shape, contracting = ((heads, c // heads, n), (0, 1)) if heads else ((c, n), (0,))
+    qt = quantize4(torch.randn(shape, generator=gen, device=dev) * c**-0.5, contracting)
+    packed, scale, block = qt.packed.reshape(c // 2, n), qt.scale.reshape(-1, n), qt.block
+    x = torch.randn((m, c), generator=gen, device=dev).to(torch.bfloat16)
+    out = q4_matmul(x, packed, scale, block)
+    ref = q4_matmul_plain(x, packed, scale, block)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    # Both sides multiply the same bf16 weights: the output's bf16 rounding
+    # (2^-8 relative) and the f32 summation order differ.
+    tol = 1e-2 * ref.float().abs().max().item()
+    if not (torch.isfinite(out.float()).all() and err <= tol):
+        fail(f"q4_matmul m{m} c{c} n{n} block {block}: max|err| {err} (tol {tol})")
+    dense = qt.dequant(torch.bfloat16).reshape(c, n)
+    l2 = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)  # 256 MB, 5x the 50 MB L2
+
+    def flush():  # a read: written lines would be written back inside the timed launch
+        l2.sum()
+
+    b_ms, by = bound(m * c * 2 + packed.numel() + 4 * scale.numel() + m * n * 2, 2 * m * c * n)
+    return {
+        "case": f"M={m} C={c} N={n} block={block}{f' (wo, {heads} heads)' if heads else ''}",
+        "max_abs_err": err, "tol": tol,
+        "ms": time_ms(lambda: q4_matmul(x, packed, scale, block), flush=flush),
+        "plain_ms": time_ms(lambda: q4_matmul_plain(x, packed, scale, block), flush=flush),
+        "library_ms": time_ms(lambda: torch.matmul(x, dense), flush=flush),
+        "bound_ms": b_ms, "bound_by": by,
+    }
+
+
 def kernel_phase():
     import torch
 
@@ -331,7 +388,18 @@ def kernel_phase():
         fused_case(gen, 32, 32, True, spread),
         fused_case(gen, 32, 8, False, spread),  # llama3-8b heads (GQA 4)
     ]
-    report = {"flash_fwd": flash, "decode_attn": decode, "flash_cached": cached, "fused_decode": fused}
+    q4 = [
+        q4_case(gen, 8, 11008),  # llama2-7b w_gate/w_up at B=8
+        q4_case(gen, 8, 32000),  # the lm_head at B=8
+        q4_case(gen, 8, 4096, c=11008),  # w_down at B=8
+        q4_case(gen, 8, 4096),  # wq/wk/wv/wo at B=8
+        q4_case(gen, 512, 11008),  # w_gate over a 512-token prefill bucket or chunk
+        q4_case(gen, 128, 32000),  # the lm_head over a 128-token prefill bucket
+        q4_case(gen, 1, 11008),  # one decoding slot
+        q4_case(gen, 8, 2048, c=2048, heads=32),  # tinyllama's wo: groups of 64
+    ]
+    report = {"flash_fwd": flash, "decode_attn": decode, "flash_cached": cached, "fused_decode": fused,
+              "q4_matmul": q4}
     for name, cases in report.items():
         for c in cases:
             lib = "n/a" if c["library_ms"] is None else f"{c['library_ms']:.4f}"
@@ -421,17 +489,27 @@ def reference_check(engine) -> dict:
     return out
 
 
+# Kernel-name fragments of the int4 matmul and of cuBLAS's GEMMs.
+Q4_NAMES = ("q4_matmul", "q4_splitk")
+GEMM_NAMES = ("gemm", "gemv", "nvjet", "xmma", "cutlass")
+
+
 def _device_summary(prof, wall: float, reps: int, top_n: int = 10) -> dict:
-    """Device busy time and the top kernels of a profile (device-side
-    events only: the CPU ops that launched them carry the same time)."""
+    """Device busy time, the top kernels, and the time of the int4 matmul
+    and of the GEMMs, of a profile (device-side events only: the CPU ops
+    that launched them carry the same time)."""
     kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
+    def ms_of(names):
+        return sum(dev_us(e) for e in kernels if any(s in e.key.lower() for s in names)) / 1e3 / reps
+
     busy = sum(dev_us(e) for e in kernels) / 1e6
     top = sorted(kernels, key=dev_us, reverse=True)[:top_n]
     return {"profiled_ms": 1e3 * wall / reps, "device_busy_ms": 1e3 * busy / reps,
+            "q4_matmul_ms": ms_of(Q4_NAMES), "gemm_ms": ms_of(GEMM_NAMES),
             "top": [{"name": e.key, "ms": dev_us(e) / 1e3 / reps, "calls": e.count / reps} for e in top]}
 
 
@@ -502,7 +580,8 @@ def profile_engine(engine, label: str = "profile", lens=(16, 400), fill: int = 1
           f"{out['prefill_ms'][long]:.1f} ms in {out['chunks'] or 1} chunk(s) (device busy "
           f"{out[f'prefill_{long}']['device_busy_ms']:.2f} ms); decode step at B={out['batch']} "
           f"{out['decode_step_ms']:.2f} ms (device busy {out['decode']['device_busy_ms']:.2f} ms, "
-          f"{100 * out['decode']['device_busy_ms'] / out['decode_step_ms']:.1f}%)", flush=True)
+          f"{100 * out['decode']['device_busy_ms'] / out['decode_step_ms']:.1f}%; int4 matmul "
+          f"{out['decode']['q4_matmul_ms']:.3f} ms, GEMMs {out['decode']['gemm_ms']:.3f} ms of it)", flush=True)
     for phase in (f"prefill_{long}", "decode"):
         for e in out[phase]["top"]:
             print(f"{label} {phase}: {e['ms']:8.3f} ms {e['calls']:6.1f} calls  {e['name'][:80]}", flush=True)
@@ -665,10 +744,26 @@ class _TeeQueue(queue.Queue):
         super().put(item, block, timeout)
 
 
-def long_reference_check(engine, requests) -> dict:
+def tee_requests(engine) -> list:
+    """Keep every request the engine is handed from now on, each token
+    queue a _TeeQueue; `del engine.submit` ends it."""
+    requests = []
+    submit = engine.submit
+
+    def tee_submit(req):
+        req.out = _TeeQueue()
+        requests.append(req)
+        return submit(req)
+
+    engine.submit = tee_submit
+    return requests
+
+
+def long_reference_check(engine, requests, label: str = "serve-long") -> dict:
     """Each served greedy token (chunked prefill + fused decode) within 5%
     of the logit scale of the best logit of one teacher-forced single-shot
-    forward (flash prefill, no cache) over prompt + served tokens."""
+    forward (flash prefill, no cache) over prompt + served tokens, on the
+    engine's own weights."""
     import torch
 
     from substratus_tpu_torch.models import llama
@@ -680,17 +775,17 @@ def long_reference_check(engine, requests) -> dict:
         logits, _ = llama.forward(engine.params, seq, engine.cfg)
         logits = logits[0, len(prompt) - 1:]
         if not torch.isfinite(logits).all():
-            fail(f"serve-long: non-finite logits in the reference of a {len(prompt)}-token prompt")
+            fail(f"{label}: non-finite logits in the reference of a {len(prompt)}-token prompt")
         scale = logits.abs().max().item()
         gaps = logits.max(dim=-1).values - logits[torch.arange(len(toks)), torch.tensor(toks)]
         agree = sum(int(logits[i].argmax()) == t for i, t in enumerate(toks))
         out.append({"prompt_tokens": len(prompt), "tokens": len(toks), "argmax_agree": agree,
                     "max_gap": gaps.max().item(), "logit_scale": scale})
-        print(f"serve-long reference: {len(prompt)}-token prompt, {agree}/{len(toks)} served greedy tokens are "
+        print(f"{label} reference: {len(prompt)}-token prompt, {agree}/{len(toks)} served greedy tokens are "
               f"the argmax of the single-shot forward (largest gap {gaps.max().item():.4g} at logit scale "
               f"{scale:.4g})", flush=True)
         if not toks or gaps.max().item() > 0.05 * scale:
-            fail(f"serve-long: served tokens disagree with the single-shot reference: {out[-1]}")
+            fail(f"{label}: served tokens disagree with the single-shot reference: {out[-1]}")
     return {"requests": out}
 
 
@@ -709,15 +804,7 @@ def serve_long_phase(card: str, profile_steps: bool = False):
     server, engine, base = start_server("serve-long", LONG_PARAMS)
     counters = {"flash_cached": flash_cached_attention, "fused_decode": fused_decode_attention,
                 "flash_fwd": flash_attention, "decode_attn": decode_attention}
-    requests = []
-    submit = engine.submit
-
-    def tee_submit(req):
-        req.out = _TeeQueue()
-        requests.append(req)
-        return submit(req)
-
-    engine.submit = tee_submit
+    requests = tee_requests(engine)
     try:
         zero_counts(engine, counters.values())
         results, wall = run_concurrent(base, LONG_PROMPTS)
@@ -727,7 +814,7 @@ def serve_long_phase(card: str, profile_steps: bool = False):
     finally:
         server.stop()
     generated = check_usage(LONG_PROMPTS, results)
-    engine.submit = submit
+    del engine.submit
     L = engine.cfg.n_layers
     want = {"flash_cached": L * stats["prefill_chunks"], "flash_fwd": L * stats["prefills"],
             "fused_decode": L * stats["decode_steps"], "decode_attn": 0}
@@ -757,9 +844,90 @@ def serve_long_phase(card: str, profile_steps: bool = False):
             "requests": [r[1] for r in results], "reference": reference, "profile": profiled}
 
 
+# The JAX package's throughput stack (int4 weights, int8 cache, fused
+# decode) at llama2-7b's full width and depth: serve's five prompts and one
+# greedy 1500-token prompt, which max_prefill_len=512 runs as 3 chunks,
+# streamed for its time to first token.
+INT4_PARAMS = {"config": "llama2-7b", "quantize": "int4", "kv_cache_dtype": "int8", "decode_attn_impl": "fused",
+               "chunk_attn_impl": "flash", "max_batch": 8, "max_seq_len": 2048, "max_prefill_len": 512}
+INT4_PROMPTS = PROMPTS + [(_long_text(1499, 5), 32, 0.0, True)]
+
+
+def serve_int4_phase(card: str, profile_steps: bool = False):
+    """int4 weights through serve.main: every projection and the lm_head
+    of every forward (single-shot prefill, chunk or decode step) launch
+    the int4 matmul once; the served greedy tokens are held against a
+    single-shot forward on the same int4 weights."""
+    import torch
+
+    from substratus_tpu_torch.ops.decode_attention import decode_attention
+    from substratus_tpu_torch.ops.flash_attention import flash_attention, flash_cached_attention
+    from substratus_tpu_torch.ops.fused_decode import fused_decode_attention
+    from substratus_tpu_torch.ops.quant import is_quantized
+    from substratus_tpu_torch.ops.quant4 import q4_matmul
+
+    gc.collect()  # the earlier phases' servers and caches
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    server, engine, base = start_server("serve-int4", INT4_PARAMS)
+    params = engine.params
+    nbytes = {"weights": sum(t.numel() * t.element_size() for t in params.state_dict().values()
+                             if isinstance(t, torch.Tensor)),
+              "cache": sum(t.numel() * t.element_size() for t in engine.cache.values()),
+              "allocated": torch.cuda.memory_allocated(), "peak_while_building": torch.cuda.max_memory_allocated()}
+    print(f"serve-int4: bytes on the card after quantization: {nbytes['weights']} of weights (int4 projections "
+          f"and lm_head, bf16 tok_embed and norms), {nbytes['cache']} of int8 cache, {nbytes['allocated']} "
+          f"allocated in all; peak {nbytes['peak_while_building']} while the bf16 weights were quantized",
+          flush=True)
+    if not is_quantized(params.layers[0].wq) or not is_quantized(params.lm_head):
+        fail("serve-int4: the weights were not quantized")
+    counters = {"q4_matmul": q4_matmul, "flash_fwd": flash_attention, "flash_cached": flash_cached_attention,
+                "fused_decode": fused_decode_attention, "decode_attn": decode_attention}
+    requests = tee_requests(engine)
+    try:
+        zero_counts(engine, counters.values())
+        results, wall = run_concurrent(base, INT4_PROMPTS)
+        wait_idle(engine)
+        launches = {name: c.launches for name, c in counters.items()}
+        stats = dict(engine.stats)
+    finally:
+        server.stop()
+    generated = check_usage(INT4_PROMPTS, results)
+    del engine.submit
+    L = engine.cfg.n_layers
+    forwards = stats["prefills"] + stats["prefill_chunks"] + stats["decode_steps"]
+    want = {"q4_matmul": (7 * L + 1) * forwards, "flash_fwd": L * stats["prefills"],
+            "flash_cached": L * stats["prefill_chunks"], "fused_decode": L * stats["decode_steps"], "decode_attn": 0}
+    chunk = INT4_PARAMS["max_prefill_len"]
+    lengths = [len(text.encode()) + 1 for text, *_ in INT4_PROMPTS]
+    chunks = sum(-(-n // chunk) for n in lengths if n > chunk)
+    singles = sum(n <= chunk for n in lengths)
+    if launches != want or (stats["prefill_chunks"], stats["prefills"]) != (chunks, singles):
+        fail(f"serve-int4: launches {launches} against {want}; stats {stats}, want {chunks} chunks "
+             f"and {singles} single-shot prefills")
+    if not all(launches[name] > 0 for name in ("q4_matmul", "flash_fwd", "flash_cached", "fused_decode")):
+        fail(f"serve-int4: a kernel of the path never launched: {launches}")
+    reference = long_reference_check(engine, [r for r in requests if r.temperature == 0.0], "serve-int4")
+    profiled = profile_engine(engine, "profile-int4", (16, 1500)) if profile_steps else None
+    ttft = results[-1][2]
+    step_ms = 1e3 * stats["decode_seconds"] / stats["decode_steps"]
+    decode_tps = (generated - len(INT4_PROMPTS)) / stats["decode_seconds"]
+    prefill_ms = 1e3 * stats["prefill_seconds"] / len(INT4_PROMPTS)
+    print(f"serve-int4: {len(INT4_PROMPTS)} concurrent requests, {generated} tokens in {wall:.2f} s; "
+          f"{stats['prefills']} single-shot prefills, {stats['prefill_chunks']} prefill chunks, "
+          f"{stats['decode_steps']} decode steps; launches {launches}", flush=True)
+    print(f"serve-int4 [{card}]: mean prefill (engine) {prefill_ms:.1f} ms, decode {decode_tps:.1f} tokens/s, "
+          f"mean step {step_ms:.2f} ms, TTFT of the 1500-token request {ttft * 1e3:.1f} ms (client, streamed)",
+          flush=True)
+    return {"launches": launches, "stats": stats, "bytes": nbytes, "wall_s": wall, "generated": generated,
+            "prefill_ms": prefill_ms, "decode_tokens_per_s": decode_tps, "step_ms": step_ms,
+            "ttft_1500_ms": ttft * 1e3, "requests": [r[1] for r in results], "reference": reference,
+            "profile": profiled}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="card,build,kernels,serve,serve-long")
+    ap.add_argument("--phases", default="card,build,kernels,serve,serve-long,serve-int4")
     phases = ap.parse_args().phases.split(",")
 
     import torch
@@ -785,6 +953,8 @@ def main() -> int:
         report["serve"] = serve_phase(card, profile_steps="profile" in phases)
     if "serve-long" in phases:
         report["serve-long"] = serve_long_phase(card, profile_steps="profile" in phases)
+    if "serve-int4" in phases:
+        report["serve-int4"] = serve_int4_phase(card, profile_steps="profile" in phases)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
@@ -796,10 +966,11 @@ def main() -> int:
                    "flash_cached": ("substratus_tpu_torch/csrc/flash_cached.cu",
                                     "substratus_tpu/ops/flash_attention.py:452"),
                    "fused_decode": ("substratus_tpu_torch/csrc/fused_decode.cu",
-                                    "substratus_tpu/ops/fused_decode.py:48")}
+                                    "substratus_tpu/ops/fused_decode.py:48"),
+                   "q4_matmul": ("substratus_tpu_torch/csrc/q4_matmul.cu", "substratus_tpu/ops/quant4.py:168")}
         # Each kernel's launches come from the serve phase whose path runs it.
         phase_of = {"flash_fwd": "serve", "decode_attn": "serve",
-                    "flash_cached": "serve-long", "fused_decode": "serve-long"}
+                    "flash_cached": "serve-long", "fused_decode": "serve-long", "q4_matmul": "serve-int4"}
         line = []
         for name, cases in report["kernels"].items():
             main_case = cases[0]  # the serving path's shape

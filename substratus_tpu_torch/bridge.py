@@ -5,6 +5,12 @@ params pytree with numpy (or numpy-convertible) leaves -- per-layer
 weights stacked on a leading L axis -- and returns the port's
 ``state_dict`` for ``models.llama.Llama.load_state_dict``. It needs no
 JAX: leaves go through ``numpy.asarray``.
+
+Quantized leaves carry over as they are: an int4 ``Q4Tensor`` as its
+``packed`` bytes, ``scale`` and (as the module's extra state) its
+``pack_axis`` and ``block``; an int8 ``QTensor`` as ``q`` and ``scale``.
+Load them into ``Llama(cfg, quantize="int4")`` (or ``"int8"``). The
+negative ``pack_axis`` stays valid when the layer axis is split off.
 """
 from __future__ import annotations
 
@@ -15,8 +21,6 @@ import torch
 
 
 def _tensor(leaf: Any) -> torch.Tensor:
-    if hasattr(leaf, "scale") and hasattr(leaf, "q"):
-        raise NotImplementedError("quantized (QTensor) weights are not ported yet: ROADMAP Queue 1")
     arr = np.asarray(leaf)
     if arr.dtype.name == "bfloat16":
         # torch.from_numpy rejects ml_dtypes' bfloat16; f32 holds it exactly.
@@ -25,12 +29,30 @@ def _tensor(leaf: Any) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))
 
 
-def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+def _entries(leaf: Any) -> Dict[str, Any]:
+    """A leaf's state-dict entries relative to its own name ("" for a
+    dense tensor), each tensor still carrying the stacked layer axis."""
+    if hasattr(leaf, "packed"):  # Q4Tensor
+        return {".packed": _tensor(leaf.packed), ".scale": _tensor(leaf.scale),
+                "._extra_state": {"pack_axis": int(leaf.pack_axis), "block": int(leaf.block)}}
+    if hasattr(leaf, "q") and hasattr(leaf, "scale"):  # QTensor
+        return {".q": _tensor(leaf.q), ".scale": _tensor(leaf.scale)}
+    return {"": _tensor(leaf)}
+
+
+def params_from_jax(tree: Dict[str, Any]) -> Dict[str, Any]:
     """JAX llama params {tok_embed, layers: {name: [L, ...]}, out_norm[,
-    lm_head]} -> {"tok_embed", "layers.{i}.{name}", "out_norm"[, "lm_head"]}."""
-    state = {name: _tensor(tree[name]) for name in ("tok_embed", "out_norm", "lm_head") if name in tree}
+    lm_head]} -> {"tok_embed", "layers.{i}.{name}[.buffer]", "out_norm"[,
+    "lm_head[.buffer]"]}."""
+    state: Dict[str, Any] = {}
+    for name in ("tok_embed", "out_norm", "lm_head"):
+        if name in tree:
+            state.update({name + suffix: v for suffix, v in _entries(tree[name]).items()})
     for name, stacked in tree["layers"].items():
-        per_layer = _tensor(stacked)
-        for i in range(per_layer.shape[0]):
-            state[f"layers.{i}.{name}"] = per_layer[i]
+        entries = _entries(stacked)
+        n_layers = next(v.shape[0] for v in entries.values() if isinstance(v, torch.Tensor))
+        for i in range(n_layers):
+            for suffix, value in entries.items():
+                # Tensors lose the layer axis; extra state is every layer's.
+                state[f"layers.{i}.{name}{suffix}"] = value[i] if isinstance(value, torch.Tensor) else value
     return state

@@ -46,6 +46,10 @@ SIGNATURES = {
     # q, new_k, new_v, new_ks, new_vs, k, v, k_scale, v_scale, pos, o,
     # B, H, KH, S, D, cache_dtype, scale, stream
     "fused_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    # x, packed, scale, out, ws, M, N, C, block, splits, stream
+    "q4_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # M, N, C, block, sms -> split-K factor of q4_matmul
+    "q4_matmul_splits": [_I, _I, _I, _I, _I],
 }
 # dtype codes shared with csrc/*.cu
 DTYPE_CODES = {torch.bfloat16: 0, torch.int8: 1}

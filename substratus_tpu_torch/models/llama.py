@@ -4,8 +4,11 @@ configurations.
 The weights keep the JAX package's einsum layouts (wq [D, H, hd], wo
 [H, hd, D], w_gate [D, M], ...), one ``LlamaBlock`` per layer in an
 ``nn.ModuleList`` where the JAX tree stacks layers on a leading axis
-(bridge.params_from_jax splits it). Projections and the lm_head are
-plain ``torch.matmul``; attention goes through the kernel wrappers:
+(bridge.params_from_jax splits it). Dense projections and the lm_head are
+plain ``torch.matmul``; a quantized one (``quantize_weights``: int8
+``QTensor`` or int4 ``Q4Tensor``, chosen by ``quant_contracting``) goes
+through ``ops.quant.qeinsum`` with the JAX equations, which runs the int4
+kernel of ops/quant4.py. Attention goes through the kernel wrappers:
 ``flash_attention`` for the no-cache prefill, and inside
 update_cache_and_attend ``decode_attention`` or ``fused_decode_attention``
 for decode steps and ``flash_cached_attention`` for the chunks of a long
@@ -28,6 +31,8 @@ from substratus_tpu_torch.ops.attention import dot_product_attention
 from substratus_tpu_torch.ops.basics import rms_norm, rope, swiglu
 from substratus_tpu_torch.ops.decode_attention import update_cache_and_attend
 from substratus_tpu_torch.ops.flash_attention import flash_attention
+from substratus_tpu_torch.ops.quant import QTensor, qeinsum, quantize_params
+from substratus_tpu_torch.ops.quant4 import Q4Tensor, quantize4_params
 from substratus_tpu_torch.utils.device import DeviceLike, resolve_device, seeded_generator
 
 Cache = Dict[str, torch.Tensor]
@@ -111,41 +116,71 @@ def _check_dense(cfg: LlamaConfig) -> None:
         )
 
 
-def _weight(shape, cfg: LlamaConfig, device: torch.device) -> nn.Parameter:
+def quant_contracting(cfg: LlamaConfig) -> Dict:
+    """Contracting dims per leaf for ops.quant.quantize_params (and
+    quantize4_params); () = dense. Axes are for the JAX package's STACKED
+    layer leaves (leading layer dim), e.g. wq [L, d, h, k] contracts d=1;
+    the port's per-layer weights contract one axis lower
+    (_layer_contracting). The scales come out per output channel. Dense
+    configurations only (the JAX function's expert entries wait for MoE)."""
+    _check_dense(cfg)
+    layers = {"attn_norm": (), "wq": (1,), "wk": (1,), "wv": (1,), "wo": (1, 2), "mlp_norm": (),
+              "w_gate": (1,), "w_up": (1,), "w_down": (1,)}
+    q = {"tok_embed": (), "layers": layers, "out_norm": ()}
+    if not cfg.tie_embeddings:
+        q["lm_head"] = (0,)
+    return q
+
+
+def _layer_contracting(cfg: LlamaConfig) -> Dict[str, Tuple[int, ...]]:
+    """quant_contracting's layer entries for one LlamaBlock's weights."""
+    return {name: tuple(c - 1 for c in axes) for name, axes in quant_contracting(cfg)["layers"].items()}
+
+
+QUANTIZE_MODES = {"int8": (QTensor, quantize_params), "int4": (Q4Tensor, quantize4_params)}
+
+
+def _check_quantize(quantize: str) -> None:
+    if quantize != "none" and quantize not in QUANTIZE_MODES:
+        raise ValueError(f"quantize={quantize!r} invalid (none|{'|'.join(QUANTIZE_MODES)})")
+
+
+def _weight(shape, cfg: LlamaConfig, device: torch.device, quantize: str = "none", contracting=()):
+    if quantize != "none" and contracting:
+        return QUANTIZE_MODES[quantize][0].empty(shape, contracting, device)
     return nn.Parameter(torch.empty(shape, dtype=cfg.dtype, device=device), requires_grad=False)
 
 
 class LlamaBlock(nn.Module):
     """One transformer block's weights, in the JAX einsum layouts."""
 
-    def __init__(self, cfg: LlamaConfig, device: torch.device):
+    def __init__(self, cfg: LlamaConfig, device: torch.device, quantize: str = "none"):
         super().__init__()
         D, H, KH, hd, M = cfg.dim, cfg.n_heads, cfg.n_kv_heads, cfg.head_size, cfg.hidden_dim
-        self.attn_norm = _weight((D,), cfg, device)
-        self.wq = _weight((D, H, hd), cfg, device)
-        self.wk = _weight((D, KH, hd), cfg, device)
-        self.wv = _weight((D, KH, hd), cfg, device)
-        self.wo = _weight((H, hd, D), cfg, device)
-        self.mlp_norm = _weight((D,), cfg, device)
-        self.w_gate = _weight((D, M), cfg, device)
-        self.w_up = _weight((D, M), cfg, device)
-        self.w_down = _weight((M, D), cfg, device)
+        shapes = {"attn_norm": (D,), "wq": (D, H, hd), "wk": (D, KH, hd), "wv": (D, KH, hd),
+                  "wo": (H, hd, D), "mlp_norm": (D,), "w_gate": (D, M), "w_up": (D, M), "w_down": (M, D)}
+        contracting = _layer_contracting(cfg)
+        for name, shape in shapes.items():
+            setattr(self, name, _weight(shape, cfg, device, quantize, contracting[name]))
 
 
 class Llama(nn.Module):
     """Parameter container (uninitialized; fill with init_params or
-    load_state_dict). Call forward() / decode_step() to run it."""
+    load_state_dict). Call forward() / decode_step() to run it.
+    quantize="int8"|"int4" lays out quantized storage for the weights
+    quant_contracting names (to load a quantized state dict into)."""
 
-    def __init__(self, cfg: LlamaConfig, device: DeviceLike = None):
+    def __init__(self, cfg: LlamaConfig, device: DeviceLike = None, quantize: str = "none"):
         super().__init__()
         _check_dense(cfg)
+        _check_quantize(quantize)
         device = resolve_device(device)
         self.cfg = cfg
         self.tok_embed = _weight((cfg.vocab_size, cfg.dim), cfg, device)
-        self.layers = nn.ModuleList(LlamaBlock(cfg, device) for _ in range(cfg.n_layers))
+        self.layers = nn.ModuleList(LlamaBlock(cfg, device, quantize) for _ in range(cfg.n_layers))
         self.out_norm = _weight((cfg.dim,), cfg, device)
         if not cfg.tie_embeddings:
-            self.lm_head = _weight((cfg.dim, cfg.vocab_size), cfg, device)
+            self.lm_head = _weight((cfg.dim, cfg.vocab_size), cfg, device, quantize, (0,))
 
     @property
     def device(self) -> torch.device:
@@ -183,6 +218,34 @@ def init_params(cfg: LlamaConfig, seed: int = 0, device: DeviceLike = None) -> L
     return params
 
 
+def _quantize_module(module: nn.Module, qfn, contracting: Dict[str, Tuple[int, ...]]) -> None:
+    """Replace `module`'s dense weights named in `contracting` by their
+    quantized form; the dense copies are freed on return."""
+    dense = {name: getattr(module, name) for name, axes in contracting.items()
+             if axes and not isinstance(getattr(module, name), (QTensor, Q4Tensor))}
+    for name, q in qfn(dense, {name: contracting[name] for name in dense}).items():
+        delattr(module, name)
+        setattr(module, name, q)
+
+
+@torch.no_grad()
+def quantize_weights(params: Llama, quantize: str) -> Llama:
+    """Turn an initialized Llama's weights into int8 QTensors or int4
+    Q4Tensors in place ("none" keeps them dense), one layer at a time, so
+    each layer's dense copy is freed before the next is quantized: no
+    dense transient beside the quantized model. tok_embed and the norms
+    stay dense; quantized weights pass as they are."""
+    _check_quantize(quantize)
+    if quantize == "none":
+        return params
+    qfn = QUANTIZE_MODES[quantize][1]
+    layer = _layer_contracting(params.cfg)
+    for lp in params.layers:
+        _quantize_module(lp, qfn, layer)
+    _quantize_module(params, qfn, {"lm_head": quant_contracting(params.cfg).get("lm_head", ())})
+    return params
+
+
 def init_cache(
     cfg: LlamaConfig,
     batch: int,
@@ -217,6 +280,18 @@ def _self_attention(q, k, v, positions, cfg: LlamaConfig) -> torch.Tensor:
     raise NotImplementedError(f"attn_impl={cfg.attn_impl!r} is not ported (flash|plain)")
 
 
+def _project(eq: str, x: torch.Tensor, w, cfg: LlamaConfig) -> torch.Tensor:
+    """einsum(eq, x, w) in the JAX package's layouts: a quantized weight
+    through qeinsum, a dense one as one torch.matmul over the flattened
+    contracted and kept dims."""
+    if isinstance(w, (QTensor, Q4Tensor)):
+        return qeinsum(eq, x, w, cfg.dtype)
+    ins, out = eq.split("->")
+    nc = sum(letter not in out for letter in ins.split(",")[0])
+    y = torch.matmul(x.flatten(-nc), w.to(cfg.dtype).flatten(0, nc - 1).flatten(1))
+    return y.reshape(*x.shape[:-nc], *w.shape[nc:])
+
+
 def _block(
     x: torch.Tensor,  # [B, S, D]
     lp: LlamaBlock,
@@ -227,12 +302,10 @@ def _block(
 ) -> Tuple[torch.Tensor, Cache]:
     """One transformer block. Returns (x_out, kv): the fresh {k, v}
     entries without a cache (prefill), else the updated layer cache."""
-    b, s, _ = x.shape
-    H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_size
     h = rms_norm(x, lp.attn_norm, cfg.norm_eps)
-    q = torch.matmul(h, lp.wq.reshape(cfg.dim, H * hd)).reshape(b, s, H, hd)
-    kk = torch.matmul(h, lp.wk.reshape(cfg.dim, KH * hd)).reshape(b, s, KH, hd)
-    vv = torch.matmul(h, lp.wv.reshape(cfg.dim, KH * hd)).reshape(b, s, KH, hd)
+    q = _project("bsd,dhk->bshk", h, lp.wq, cfg)
+    kk = _project("bsd,dhk->bshk", h, lp.wk, cfg)
+    vv = _project("bsd,dhk->bshk", h, lp.wv, cfg)
     q = rope(q, positions, cfg.rope_theta)
     kk = rope(kk, positions, cfg.rope_theta)
 
@@ -244,11 +317,11 @@ def _block(
             layer_cache, q, kk, vv, positions, kv_length=kv_length,
             impl=cfg.decode_attn_impl, chunk_impl=cfg.chunk_attn_impl,
         )
-    x = x + torch.matmul(attn.reshape(b, s, H * hd), lp.wo.reshape(H * hd, cfg.dim))
+    x = x + _project("bshk,hkd->bsd", attn, lp.wo, cfg)
     h = rms_norm(x, lp.mlp_norm, cfg.norm_eps)
-    gate = torch.matmul(h, lp.w_gate)
-    up = torch.matmul(h, lp.w_up)
-    x = x + torch.matmul(swiglu(gate, up), lp.w_down)
+    gate = _project("bsd,dm->bsm", h, lp.w_gate, cfg)
+    up = _project("bsd,dm->bsm", h, lp.w_up, cfg)
+    x = x + _project("bsm,md->bsd", swiglu(gate, up), lp.w_down, cfg)
     return x, kv
 
 
@@ -281,7 +354,7 @@ def forward(
             fresh.append(kv)
     x = rms_norm(x, params.out_norm, cfg.norm_eps)
     head = params.tok_embed.t() if cfg.tie_embeddings else params.lm_head
-    logits = torch.matmul(x, head.to(cfg.dtype)).float()
+    logits = _project("bsd,dv->bsv", x, head, cfg).float()
     if cache is not None:
         return logits, cache
     return logits, {name: torch.stack([kv[name] for kv in fresh]) for name in ("k", "v")}

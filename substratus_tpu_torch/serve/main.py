@@ -9,8 +9,15 @@ serve/server.py, on the card unless ``--device cpu`` is given.
 Knobs come from flags or from the container contract's params file
 (``/content/params.json``, or ``--params``); flags win. The port serves
 the subset ``config``, ``max_batch``, ``max_seq_len``, ``max_prefill_len``,
-``kv_cache_dtype`` and ``max_queue``, and the attention knobs under the JAX
-entry point's names:
+``kv_cache_dtype`` and ``max_queue``, the weight knobs
+
+* ``quantize``: ``none``, ``int8`` (weight-only int8, plain torch ops) and
+  ``int4`` (nibble-packed groups through the int4 matmul kernel of
+  ops/quant4.py); the random weights are quantized on the device, layer by
+  layer, as the JAX entry point's _maybe_quantize does. ``w8a8`` exits;
+* ``q4_impl``: ``pallas`` and ``xla`` both run the int4 kernel;
+
+and the attention knobs under the JAX entry point's names:
 
 * ``decode_attn_impl``: ``fused`` runs the fused cache-write + decode
   kernel (ops/fused_decode.py); ``xla`` (the JAX default) and ``pallas``
@@ -38,8 +45,6 @@ from typing import Any, Dict, Optional, Tuple
 _NOT_SERVED = {
     "model": (None, "Queue 1, checkpoint loading (waits for weights in the repository)"),
     "baseModel": (None, "Queue 1, checkpoint loading (waits for weights in the repository)"),
-    "quantize": ("none", "Queue 1, int8/int4 weights (and Queue 2 for the int4 kernel)"),
-    "q4_impl": (None, "Queue 2, ops/quant4.py::_matmul_kernel"),
     "kv_layout": ("dense", "Queue 1, paged KV"),
     "overlap": (False, "Queue 1, the overlapped scheduler"),
     "spec_k": (0, "Queue 1, speculative decoding"),
@@ -58,7 +63,10 @@ _NOT_SERVED = {
     "attn_impl": (None, "Queue 2, the TPU kernels still to port"),
 }
 _SERVED = ("config", "max_batch", "max_seq_len", "max_prefill_len", "kv_cache_dtype", "max_queue",
-           "decode_attn_impl", "chunk_attn_impl")
+           "decode_attn_impl", "chunk_attn_impl", "quantize", "q4_impl")
+_QUANTIZE = ("none", "int8", "int4")
+# The port has no XLA: both of the JAX entry point's int4 lowerings run the kernel.
+_Q4_IMPLS = ("pallas", "xla")
 # The JAX entry point's attention names -> the port's models/llama.py
 # setting (JAX default first). The port has no XLA: "xla" runs a kernel.
 _DECODE_IMPLS = {"xla": "kernel", "pallas": "kernel", "fused": "fused"}
@@ -91,11 +99,27 @@ def resolve_attn_impls(params: Dict[str, Any]) -> Tuple[str, str]:
     return _DECODE_IMPLS[decode], _CHUNK_IMPLS[chunk]
 
 
+def resolve_quantize(params: Dict[str, Any]) -> str:
+    """The weight mode of params.json; exits on w8a8 (not ported), on an
+    unknown mode and on a q4_impl other than the JAX entry point's two."""
+    quantize = params.get("quantize", "none")
+    if quantize == "w8a8":
+        raise SystemExit("params.json: quantize='w8a8' is not served by the PyTorch port yet: ROADMAP Queue 1 "
+                         "item 11 (qeinsum_w8a8, an int8 x int8 product that wants a kernel of its own)")
+    if quantize not in _QUANTIZE:
+        raise SystemExit(f"params.json: quantize={quantize!r} invalid (one of {_QUANTIZE + ('w8a8',)})")
+    q4_impl = params.get("q4_impl")
+    if q4_impl is not None and q4_impl not in _Q4_IMPLS:
+        raise SystemExit(f"params.json: q4_impl={q4_impl!r} invalid (one of {_Q4_IMPLS})")
+    return quantize
+
+
 def check_params(params: Dict[str, Any]) -> None:
     """Exit on any key the port does not serve yet (naming its ROADMAP
-    queue), on any key it does not know, and on an attention name it
-    does not serve."""
+    queue), on any key it does not know, and on an attention or weight
+    mode it does not serve."""
     resolve_attn_impls(params)
+    resolve_quantize(params)
     for key, value in params.items():
         if key in _NOT_SERVED:
             served, where = _NOT_SERVED[key]
@@ -140,7 +164,8 @@ def build(argv=None):
         cfg = cfg.replace(vocab_size=tokenizer.vocab_size)
     decode_impl, chunk_impl = resolve_attn_impls(params_json)
     cfg = cfg.replace(decode_attn_impl=decode_impl, chunk_attn_impl=chunk_impl)
-    params = family.init_params(cfg, seed=0, device=device)
+    quantize = resolve_quantize(params_json)
+    params = family.quantize_weights(family.init_params(cfg, seed=0, device=device), quantize)
 
     def knob(flag, key, default):
         return flag if flag is not None else params_json.get(key, default)
@@ -160,7 +185,10 @@ def build(argv=None):
     engine = Engine(cfg, params, ec, device=device, model=family)
     server = Server(ServerState(engine, tokenizer, name), host=args.host, port=args.port)
     engine.start()
-    print(f"serving {name} on {args.host}:{server.port} ({device}); decode attention: "
+    weights = {"none": f"{str(cfg.dtype).removeprefix('torch.')} weights, torch.matmul",
+               "int8": "int8 weights (scale after the dot), torch.einsum",
+               "int4": f"int4 weights, int4 matmul kernel (q4_impl={params_json.get('q4_impl', 'auto')})"}
+    print(f"serving {name} on {args.host}:{server.port} ({device}); {weights[quantize]}; decode attention: "
           f"{'fused cache-write + decode kernel' if decode_impl == 'fused' else 'decode kernel'} "
           f"(decode_attn_impl={params_json.get('decode_attn_impl', 'xla')}), long-prompt chunks: "
           f"cached flash kernel (chunk_attn_impl={params_json.get('chunk_attn_impl', 'xla')})", flush=True)

@@ -7,12 +7,17 @@ the port, so it also runs where JAX is not installed:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
 Each flash case also runs the cached flash kernel at its heads and query
-length, and each decode case the fused decode kernel, bf16 and int8.
+length, and each decode case the fused decode kernel, bf16 and int8. The
+int4 matmul runs at decode and prefill row counts over the llama2-7b
+projection widths.
 
 bf16 tolerance: atol 2e-2, about one bf16 ulp of values of order 1, since
 the kernel and the plain version round p (flash) and the output to bf16
 after summing in another order; the f32 LSE within 1e-3. The fused
 decode kernel writes the cache row bit for bit as its plain version does.
+The int4 matmul within 1e-2 of the largest output: both sides multiply the
+same bf16 weights, so only the bf16 rounding of the output (2^-8
+relative) and the f32 summation order differ.
 """
 import pytest
 import torch
@@ -23,6 +28,7 @@ from substratus_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_plain, flash_cached_attention, flash_cached_attention_plain)
 from substratus_tpu_torch.ops.fused_decode import fused_decode_attention, fused_decode_attention_plain
 from substratus_tpu_torch.ops.quant import quantize_kv
+from substratus_tpu_torch.ops.quant4 import q4_matmul, q4_matmul_plain, q4einsum, quantize4
 from substratus_tpu_torch.serve.engine import Engine, EngineConfig
 
 pytestmark = pytest.mark.cuda
@@ -122,6 +128,39 @@ def test_decode_kernel_matches_plain(cuda, h, kh, d):
         assert (out.float() - ref.float()).abs().max().item() <= ATOL
         assert torch.equal(kc, kp) and torch.equal(vc, vp)
         assert torch.equal(kc[rows], new[0][:, :, 0]) and torch.equal(vc[rows], new[1][:, :, 0])
+
+
+def test_q4_matmul_matches_plain(cuda):
+    """M = 1, 8 (decode), 77 and 512 (prefill) rows over N = 1024, 4096
+    (with C = 11008, w_down) and 11008, groups of 128 and 64, plus N = 1000
+    (8-byte vectors and a ragged column tile); unsupported operands and an
+    equation that does not fit the kernel raise."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    cases = [(m, n, block) for block in (128, 64) for n in (1024, 4096, 11008) for m in (1, 8, 77, 512)]
+    for m, n, block in cases + [(8, 1000, 128), (77, 1000, 64)]:
+        c = 11008 if n == 4096 else 4096
+        packed = torch.randint(0, 256, (c // 2, n), generator=gen, device=cuda, dtype=torch.uint8)
+        scale = torch.rand((c // block, n), generator=gen, device=cuda) * 0.02
+        x = torch.randn((m, c), generator=gen, device=cuda).to(torch.bfloat16)
+        before = q4_matmul.launches
+        out = q4_matmul(x, packed, scale, block)
+        assert q4_matmul.launches == before + 1
+        ref = q4_matmul_plain(x, packed, scale, block)
+        torch.cuda.synchronize()
+        assert out.shape == (m, n) and out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
+        err = (out.float() - ref.float()).abs().max().item()
+        assert err <= 1e-2 * ref.float().abs().max().item(), (m, n, block, err)
+    packed = torch.zeros((64, 256), dtype=torch.uint8, device=cuda)
+    x = torch.zeros((8, 128), dtype=torch.bfloat16, device=cuda)
+    for args in ((x, packed, torch.ones((8, 256), device=cuda), 16),  # group size not built
+                 (x.float(), packed, torch.ones((1, 256), device=cuda), 128),  # f32 activations
+                 (x, packed[:, :250], torch.ones((1, 250), device=cuda), 128)):  # N not a multiple of 8
+        with pytest.raises(ValueError):
+            q4_matmul(*args)
+    # An equation the kernel cannot take raises on the card: no dense fallback.
+    w = quantize4(torch.randn((4, 256, 128), generator=gen, device=cuda), (1,))
+    with pytest.raises(ValueError, match="does not fit"):
+        q4einsum("bsd,edm->bsem", torch.randn((2, 3, 256), device=cuda).to(torch.bfloat16), w)
 
 
 @pytest.mark.parametrize("name", ["head_dim-128", "tiny"])

@@ -1,7 +1,7 @@
 """The port's standard-library OpenAI server (substratus_tpu_torch/serve/
 server.py, serve/main.py) on the CPU with the tiny config: readiness, the
-non-streamed body with usage, SSE chunks ending in [DONE], and the
-params.json policy of serve.main."""
+non-streamed body with usage, SSE chunks ending in [DONE], int4 and int8
+weights, and the params.json policy of serve.main."""
 import json
 import urllib.error
 import urllib.request
@@ -9,6 +9,8 @@ import urllib.request
 import pytest
 import torch
 
+from substratus_tpu_torch.ops.quant import QTensor
+from substratus_tpu_torch.ops.quant4 import Q4Tensor
 from substratus_tpu_torch.serve import main
 
 
@@ -96,6 +98,29 @@ def test_long_prompt_is_served_in_chunks(server):
     assert engine.stats["prefill_chunks"] == chunks + 2
 
 
+@pytest.mark.parametrize("quantize,kind", [("int4", Q4Tensor), ("int8", QTensor)])
+def test_quantized_weights_are_served(tmp_path, quantize, kind):
+    """quantize: int4 / int8 quantize the random weights at startup (the
+    projections and the lm_head; tok_embed and the norms stay dense) and
+    the server answers with the engine's own greedy tokens."""
+    params = tmp_path / "params.json"
+    params.write_text(json.dumps({"config": "tiny", "max_batch": 2, "max_seq_len": 64, "quantize": quantize,
+                                  "q4_impl": "pallas", "decode_attn_impl": "fused"}))
+    srv = main.build(["--device", "cpu", "--host", "127.0.0.1", "--port", "0", "--params", str(params)]).start()
+    try:
+        model = srv.state.engine.params
+        assert isinstance(model.layers[1].wo, kind) and isinstance(model.lm_head, kind)
+        assert isinstance(model.tok_embed, torch.nn.Parameter) and isinstance(model.layers[0].mlp_norm,
+                                                                               torch.nn.Parameter)
+        with _post(srv, {"prompt": "quant", "max_tokens": 6, "temperature": 0}) as r:
+            body = json.loads(r.read())
+        want = srv.state.engine.generate([256] + list(b"quant"), max_tokens=6, temperature=0.0)
+        assert body["choices"][0]["text"] == srv.state.tokenizer.decode(want)
+        assert body["usage"]["completion_tokens"] == len(want) >= 1
+    finally:
+        srv.stop()
+
+
 def test_params_policy():
     """Served keys, and unserved knobs at the one value the port serves,
     pass; every other knob exits naming its ROADMAP queue. The attention
@@ -106,12 +131,18 @@ def test_params_policy():
     assert main.resolve_attn_impls({}) == ("kernel", "flash")
     assert main.resolve_attn_impls({"decode_attn_impl": "fused", "kv_layout": "dense"}) == ("fused", "flash")
     assert main.resolve_attn_impls({"decode_attn_impl": "pallas", "chunk_attn_impl": "xla"}) == ("kernel", "flash")
-    for params in ({"kv_layout": "paged"}, {"spec_k": 4}, {"quantize": "int8"}, {"adapters": {"dir": "x"}},
+    for quantize in ("none", "int8", "int4"):
+        for q4_impl in ("pallas", "xla"):
+            main.check_params({"quantize": quantize, "q4_impl": q4_impl})
+    assert main.resolve_quantize({}) == "none" and main.resolve_quantize({"quantize": "int4"}) == "int4"
+    for params in ({"kv_layout": "paged"}, {"spec_k": 4}, {"quantize": "w8a8"}, {"adapters": {"dir": "x"}},
                    {"role": "prefill"}, {"attn_impl": "flash"}, {"model": "m"}):
         with pytest.raises(SystemExit, match="ROADMAP"):
             main.check_params(params)
     for params, match in (({"decode_attn_impl": "fused", "kv_layout": "paged"}, "requires kv_layout=dense"),
-                          ({"decode_attn_impl": "magic"}, "invalid"), ({"chunk_attn_impl": "plain"}, "invalid")):
+                          ({"decode_attn_impl": "magic"}, "invalid"), ({"chunk_attn_impl": "plain"}, "invalid"),
+                          ({"quantize": "int3"}, "invalid"), ({"quantize": "int4", "q4_impl": "triton"}, "invalid"),
+                          ({"q4_impl": "auto"}, "invalid")):
         with pytest.raises(SystemExit, match=match):
             main.check_params(params)
     with pytest.raises(SystemExit, match="unknown key"):
