@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases card,build,kernels
     python3 chip_smoke.py --phases card,build,kernels,serve,profile
     python3 chip_smoke.py --phases card,build,kernels,serve-int4,profile
+    python3 chip_smoke.py --phases card,build,kernels,train,train-full
 
 Phases, each of which exits non-zero on failure:
 
@@ -22,7 +23,12 @@ Phases, each of which exits non-zero on failure:
               timed with the 50 MB L2 flushed (by a 256 MB read) before
               each launch, as a decode step streams 3.5 GB of weights; its
               library call one torch.matmul over the dequantized bf16
-              weight;
+              weight; the flash backward's dQ and dK/dV kernels at the
+              training shape of one llama2-7b layer (B=8, S=1024), GQA,
+              ragged and non-causal, held per output vector against a
+              limit that must also reject a planted dropped tile, their
+              library call one backward through scaled_dot_product_attention
+              (dq, dk and dv at once);
   serve       serve.main's server in-process at llama2-7b's full width and
               depth (random weights from a seed, bf16, max_seq_len 1024),
               five concurrent /v1/completions requests, the kernels' launch
@@ -41,16 +47,36 @@ Phases, each of which exits non-zero on failure:
               through the int4 matmul kernel ((7 x 32 + 1) x forwards),
               the attention kernels as in serve-long, every served greedy
               token held against a single-shot forward on the int4 weights;
+  train       train.main at llama2-7b's full width and depth (random weights
+              from seed 0, bf16) with the finetune example's params: LoRA
+              rank 16 on wq/wv, batch 8 x 1024, learning rate 2e-4, remat,
+              4 steps (checkpoints every 2) on a seeded token corpus, then
+              a second call to 6 steps that resumes from step 4. Before it,
+              one step's adapter gradients through the kernels against
+              attn_impl="plain", and the first batch's loss without grad.
+              Launches per optimizer step exactly 64 forward (forward and
+              recompute), 32 dQ and 32 dK/dV; every loss finite; the first
+              equal to the no-grad loss; the merged artifact reloads to the
+              same logits; step seconds, tokens/s, MFU, peak memory, the
+              checkpoint and artifact seconds;
+  train-full  full finetuning (lora_rank 0) through the Trainer at
+              llama2-7b's width, 4 layers, batch 2 x 1024, 3 steps: the
+              same gradient check over every weight, the launch counts,
+              every weight unchanged by step 0 (rate 0) and changed by
+              step 1;
   profile     (only when named) host-clock prefill and decode-step times
               and, under torch.profiler, their device busy time and top
               kernels, after serve (prompts of 16 and 400 tokens) and after
               serve-long (40 and 3000 tokens, the slots filled at 1000;
               the decode steps also unfused, in turns with the fused ones)
               and after serve-int4 (16 and 1500 tokens), with the int4
-              matmul's and the GEMMs' share of the device time.
+              matmul's and the GEMMs' share of the device time; after
+              train and train-full, one more step under torch.profiler:
+              its device busy time and top kernels.
 
 The line before the last is one JSON object with every kernel's numbers
-(launches from the serve phase whose path runs the kernel); the last line
+(launches from the serve or train phase whose path runs the kernel); the
+last line
 is {"ok": true, "device": {...}}. Details go to chip_smoke.json in OUT_DIR.
 Nothing here imports JAX.
 """
@@ -77,6 +103,12 @@ OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 # one bf16 ulp of values of order 1 (2^-7 to 2^-6).
 BF16_ATOL = 2e-2
 LSE_ATOL = 1e-3  # f32 row logsumexp, summed in another order
+# The flash backward against its plain version, per output vector (see
+# row_rel_err): both round p, ds and the outputs to bf16 at the same places
+# and differ in f32 summation order, so most outputs are bit-equal and a
+# rounding flip moves a vector by at most one bf16 ulp of one term (2^-8 to
+# 2^-7 of a key with a single query). A dropped tile moves whole vectors.
+BWD_ROW_REL = 2**-6
 
 
 def fail(msg: str) -> None:
@@ -358,6 +390,88 @@ def q4_case(gen, m, n, c=4096, heads=None):
     }
 
 
+def row_rel_err(got, ref) -> float:
+    """The largest error of one output vector (a query row of dQ, a key's
+    dK or dV, over D) relative to that vector's own norm, or to 2^-8 of
+    the tensor's RMS vector norm where that is larger: a vector whose
+    exact value is 0 (dQ of the first causal row, whose softmax holds one
+    entry) comes out of either side as rounding residue."""
+    import torch
+
+    g, r = got.float(), ref.float()
+    norms = r.norm(dim=-1)
+    den = torch.maximum(norms, norms.square().mean().sqrt() * 2**-8).clamp_min(torch.finfo(torch.float32).tiny)
+    return ((g - r).norm(dim=-1) / den).max().item()
+
+
+def bwd_case(gen, b, s, h, kh, causal, d=128):
+    """The flash backward's dQ and dK/dV kernels against their plain
+    version on the same q, k, v, dO and the forward kernel's out and LSE,
+    held per output vector (row_rel_err <= BWD_ROW_REL). A max-abs limit
+    scaled by the largest value would let most keys' dK/dV go unchecked:
+    key 0 is attended by every query and sets it, later keys are smaller.
+    The limit must also reject two planted faults, built from the plain
+    version: dQ without the last k-tile of the dQ kernel (64 keys; the 40
+    live ones at S=1000) and dK/dV without the last q-tile of the dK/dV
+    kernel (32 rows; the 8 live ones at S=1000). Returns one case for each
+    kernel; their library call is one backward through
+    scaled_dot_product_attention (all of dq, dk, dv), its forward outside
+    the timed region."""
+    import torch
+    import torch.nn.functional as F
+
+    from substratus_tpu_torch.ops import flash_attention as fa
+
+    dev = "cuda"
+    q, do = (torch.randn((b, s, h, d), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((b, s, kh, d), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+    scale = d**-0.5
+    out, lse = fa.flash_attention(q, k, v, causal, return_lse=True)
+    delta = fa.bwd_delta(out, do)
+    args = (q, k, v, do, lse, delta, causal, scale)
+    got = (fa.flash_attention_bwd_dq(*args), *fa.flash_attention_bwd_dkv(*args))
+    ref = (fa._bwd_dq_plain(*args), *fa._bwd_dkv_plain(*args))
+    _, ds = fa._bwd_probs(*args)
+    ds[..., 64 * ((s - 1) // 64):] = 0
+    dq_fault = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float()).reshape(q.shape).to(q.dtype)
+    del ds
+    cut = 32 * ((s - 1) // 32)
+    do_cut, delta_cut = do.clone(), delta.clone()
+    do_cut[:, cut:], delta_cut[:, cut:] = 0, 0
+    dkv_fault = fa._bwd_dkv_plain(q, k, v, do_cut, lse, delta_cut, causal, scale)
+    torch.cuda.synchronize()
+    label = f"flash backward b{b} s{s} h{h}/{kh} causal={causal}"
+    errs, rels = [], []
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        errs.append((g.float() - r.float()).abs().max().item())
+        rels.append(row_rel_err(g, r))
+        if not (torch.isfinite(g.float()).all() and rels[-1] <= BWD_ROW_REL):
+            fail(f"{label} {name}: row error {rels[-1]} (limit {BWD_ROW_REL}), max|err| {errs[-1]}")
+    faults = (row_rel_err(dq_fault, ref[0]), max(row_rel_err(f, r) for f, r in zip(dkv_fault, ref[1:])))
+    if min(faults) <= BWD_ROW_REL:
+        fail(f"{label}: the limit {BWD_ROW_REL} accepts a planted fault (dq, dkv row errors {faults})")
+    gqa = {"enable_gqa": True} if h != kh else {}
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, **gqa)
+    dot = do.transpose(1, 2)
+    library_ms = time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True))
+    pairs = s * (s + 1) // 2 if causal else s * s
+    read = 2 * (2 * b * s * h * d + 2 * b * s * kh * d) + 4 * 2 * b * h * s  # q, dO, k, v; lse, delta
+    name = f"B={b} S={s} H={h} KH={kh} D={d} causal={causal}"
+    dq_bound = bound(read + 2 * b * s * h * d, 6 * d * h * b * pairs)  # S, dP, dQ
+    dkv_bound = bound(read + 2 * 2 * b * s * kh * d, 8 * d * h * b * pairs)  # S, dP, dV, dK
+    return (
+        {"case": name, "max_abs_err": errs[0], "row_rel_err": rels[0], "fault_row_rel_err": faults[0],
+         "ms": time_ms(lambda: fa.flash_attention_bwd_dq(*args)),
+         "plain_ms": time_ms(lambda: fa._bwd_dq_plain(*args), n=5),
+         "library_ms": library_ms, "bound_ms": dq_bound[0], "bound_by": dq_bound[1]},
+        {"case": name, "max_abs_err": max(errs[1:]), "row_rel_err": max(rels[1:]), "fault_row_rel_err": faults[1],
+         "ms": time_ms(lambda: fa.flash_attention_bwd_dkv(*args)),
+         "plain_ms": time_ms(lambda: fa._bwd_dkv_plain(*args), n=5),
+         "library_ms": library_ms, "bound_ms": dkv_bound[0], "bound_by": dkv_bound[1]},
+    )
+
+
 def kernel_phase():
     import torch
 
@@ -398,12 +512,23 @@ def kernel_phase():
         q4_case(gen, 1, 11008),  # one decoding slot
         q4_case(gen, 8, 2048, c=2048, heads=32),  # tinyllama's wo: groups of 64
     ]
+    bwd = [
+        bwd_case(gen, 8, 1024, 32, 32, True),  # one llama2-7b layer at the finetune example's batch
+        bwd_case(gen, 8, 1024, 32, 8, True),  # GQA 4
+        bwd_case(gen, 2, 1000, 32, 32, True),  # ragged: the last tile holds 40 rows
+        bwd_case(gen, 2, 384, 32, 32, False),
+    ]
     report = {"flash_fwd": flash, "decode_attn": decode, "flash_cached": cached, "fused_decode": fused,
-              "q4_matmul": q4}
+              "q4_matmul": q4, "flash_bwd_dq": [c[0] for c in bwd], "flash_bwd_dkv": [c[1] for c in bwd]}
     for name, cases in report.items():
         for c in cases:
             lib = "n/a" if c["library_ms"] is None else f"{c['library_ms']:.4f}"
-            print(f"kernel {name} [{c['case']}]: max|err| {c['max_abs_err']:.3g} (tol {c['tol']})"
+            if "row_rel_err" in c:
+                check = (f"row error {c['row_rel_err']:.4g} (limit {BWD_ROW_REL}; planted fault "
+                         f"{c['fault_row_rel_err']:.4g}), max|err| {c['max_abs_err']:.3g}")
+            else:
+                check = f"max|err| {c['max_abs_err']:.3g} (tol {c['tol']})"
+            print(f"kernel {name} [{c['case']}]: {check}"
                   f"{' lse ' + format(c['lse_max_abs_err'], '.3g') if 'lse_max_abs_err' in c else ''}"
                   f" | ms {c['ms']:.4f} plain {c['plain_ms']:.4f} library {lib}"
                   f"{' unfused ' + format(c['unfused_ms'], '.4f') if 'unfused_ms' in c else ''}"
@@ -469,8 +594,9 @@ def reference_check(engine) -> dict:
     toks = engine.generate(prompt, max_tokens=16, temperature=0.0)
     seq = torch.tensor([prompt + toks[:-1]], device=engine.device)
     cfg = engine.cfg
-    kern, _ = llama.forward(engine.params, seq, cfg)
-    plain, _ = llama.forward(engine.params, seq, cfg.replace(attn_impl="plain"))
+    with torch.inference_mode():
+        kern, _ = llama.forward(engine.params, seq, cfg)
+        plain, _ = llama.forward(engine.params, seq, cfg.replace(attn_impl="plain"))
     kern, plain = kern[0, len(prompt) - 1:], plain[0, len(prompt) - 1:]
     scale = kern.abs().max().item()
     path_err = (kern - plain).abs().max().item()
@@ -772,7 +898,8 @@ def long_reference_check(engine, requests, label: str = "serve-long") -> dict:
     for req in requests:
         prompt, toks = engine.clipped_prompt(req.prompt_tokens), req.out.tokens
         seq = torch.tensor([prompt + toks[:-1]], device=engine.device)
-        logits, _ = llama.forward(engine.params, seq, engine.cfg)
+        with torch.inference_mode():
+            logits, _ = llama.forward(engine.params, seq, engine.cfg)
         logits = logits[0, len(prompt) - 1:]
         if not torch.isfinite(logits).all():
             fail(f"{label}: non-finite logits in the reference of a {len(prompt)}-token prompt")
@@ -925,9 +1052,275 @@ def serve_int4_phase(card: str, profile_steps: bool = False):
             "profile": profiled}
 
 
+# --- training: train.main and the Trainer ----------------------------------------
+
+# The finetune example's params (examples/llama2-7b/finetuned-model.yaml):
+# LoRA rank 16, batch 8 x 1024, learning rate 2e-4; 4 steps and checkpoints
+# every 2 here, then a second call to 6 steps resumes from step 4.
+TRAIN_PARAMS = {"config": "llama2-7b", "lora_rank": 16, "lora_alpha": 16, "batch_size": 8, "seq_len": 1024,
+                "learning_rate": 2e-4, "save_steps": 2, "remat": True, "seed": 0}
+TRAIN_STEPS = (4, 6)
+# Gradients through the kernels against attn_impl="plain": the two paths
+# round attention differently in bf16 (the kernels round p to bf16 before
+# PV, the plain path keeps the softmax in f32), and the difference passes
+# through every layer's backward, a few percent in the worst tensors; a
+# wrong mask, scale or GQA sum gives cosines far below.
+GRAD_COS_ALL = 0.999  # every trainable gradient as one vector
+GRAD_COS = 0.99  # each tensor
+GRAD_REL = 0.15  # each tensor: |g - ref| / |ref| (Frobenius)
+
+
+def _bwd_counters():
+    from substratus_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq)
+
+    return {"flash_fwd": flash_attention, "flash_bwd_dq": flash_attention_bwd_dq,
+            "flash_bwd_dkv": flash_attention_bwd_dkv}
+
+
+def grad_check(trainer, batch, label: str) -> dict:
+    """One step's gradients of the trainer's trainable tensors through the
+    kernels and through attn_impl="plain" (same weights, same batch)."""
+    import numpy as np
+    import torch
+
+    from substratus_tpu_torch.train.trainer import cross_entropy_loss
+
+    tokens = torch.from_numpy(np.asarray(batch["tokens"])).to(trainer.device, torch.long)
+    weights = torch.from_numpy(batch["weights"]).to(trainer.device)
+    cfg = trainer.cfg
+    grads = []
+    for impl in ("flash", "plain"):
+        trainer.cfg = cfg.replace(attn_impl=impl)
+        loss = cross_entropy_loss(*trainer.loss_inputs(tokens, weights))
+        grads.append(torch.autograd.grad(loss, trainer.trainable))
+    trainer.cfg = cfg
+    def cos(a, b):
+        return (a @ b / (a.norm() * b.norm()).clamp(min=1e-30)).item()
+
+    worst_cos, worst_rel, dot, n_g, n_ref = 1.0, 0.0, 0.0, 0.0, 0.0
+    for g, ref in zip(*grads):
+        g, ref = g.float().flatten(), ref.float().flatten()
+        if not torch.isfinite(g).all():
+            fail(f"{label}: non-finite gradients through the kernels")
+        dot, n_g, n_ref = dot + (g @ ref).item(), n_g + (g @ g).item(), n_ref + (ref @ ref).item()
+        if ref.norm().item() == 0.0:
+            if g.norm().item() != 0.0:
+                fail(f"{label}: a gradient the plain path gives as 0 is not 0 through the kernels")
+            continue
+        worst_cos = min(worst_cos, cos(g, ref))
+        worst_rel = max(worst_rel, ((g - ref).norm() / ref.norm()).item())
+    all_cos = dot / max((n_g * n_ref) ** 0.5, 1e-30)
+    print(f"{label}: {len(grads[0])} trainable tensors' gradients through the kernels against attn_impl=plain: "
+          f"cosine {all_cos:.6f} over all (at least {GRAD_COS_ALL}); per tensor worst cosine {worst_cos:.6f} "
+          f"(at least {GRAD_COS}), worst relative error {worst_rel:.4g} (at most {GRAD_REL})", flush=True)
+    if all_cos < GRAD_COS_ALL or worst_cos < GRAD_COS or worst_rel > GRAD_REL:
+        fail(f"{label}: gradients through the kernels disagree with the plain path")
+    return {"cosine_all": all_cos, "worst_cosine": worst_cos, "worst_rel_err": worst_rel, "tensors": len(grads[0])}
+
+
+def profile_train_step(trainer, batch, label: str) -> dict:
+    """One more optimizer step under torch.profiler: host-clock and device
+    busy time, and the top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+    out = _device_summary(prof, time.perf_counter() - t0, 1)
+    print(f"{label} profile: step {out['profiled_ms']:.1f} ms under the profiler, device busy "
+          f"{out['device_busy_ms']:.1f} ms ({100 * out['device_busy_ms'] / out['profiled_ms']:.1f}%), "
+          f"GEMMs {out['gemm_ms']:.1f} ms", flush=True)
+    for e in out["top"]:
+        print(f"{label} profile: {e['ms']:8.3f} ms {e['calls']:6.1f} calls  {e['name'][:80]}", flush=True)
+    return out
+
+
+def _step_stats(seconds, step_log) -> dict:
+    """Median step seconds after the first (which warms up), and the
+    tokens/s and MFU of train/telemetry.py's StepLogger at that median."""
+    steady = statistics.median(seconds[1:] if len(seconds) > 1 else seconds)
+    tokens_per_s, mfu = step_log.rates(steady)
+    return {"step_s": seconds, "median_step_s": steady, "tokens_per_s": tokens_per_s, "mfu": mfu}
+
+
+def train_phase(card: str, profile_steps: bool = False) -> dict:
+    """llama2-7b LoRA through train.main, as described in the module
+    docstring. Weights, corpus and artifacts live in a temporary
+    directory that is removed at the end."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from substratus_tpu_torch.models import llama
+    from substratus_tpu_torch.ops.flash_attention import flash_attention
+    from substratus_tpu_torch.train import main as train_main
+    from substratus_tpu_torch.train.checkpoints import load_artifact
+    from substratus_tpu_torch.train.data import PackedDataset
+    from substratus_tpu_torch.train.trainer import TrainConfig, Trainer
+    from substratus_tpu_torch.serve.tokenizer import ByteTokenizer
+
+    gc.collect()  # the serving phases' engines and caches
+    torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        (tmp / "data").mkdir()
+        # A seeded token stream over the vocabulary: 2M tokens, 1953 blocks.
+        np.save(tmp / "data" / "corpus.npy", np.random.default_rng(0).integers(0, 32000, 2_000_000, dtype=np.int32))
+        free_gb = shutil.disk_usage(tmp).free / 1e9
+        p = TRAIN_PARAMS
+        cfg = llama.CONFIGS[p["config"]]
+        if (cfg.dim, cfg.n_layers, cfg.n_heads, cfg.vocab_size) != (4096, 32, 32, 32000):
+            fail(f"train: not llama2-7b at full width and depth: {cfg}")
+        tc = TrainConfig(lora_rank=p["lora_rank"], lora_alpha=p["lora_alpha"], learning_rate=p["learning_rate"],
+                         seed=p["seed"], remat=p["remat"])
+        first = next(PackedDataset(str(tmp / "data"), ByteTokenizer(), p["batch_size"], p["seq_len"],
+                                   seed=p["seed"]))
+
+        # Before the run, on the weights train.main starts from (the same
+        # seeds): the first batch's loss without grad, then one step's
+        # adapter gradients through the kernels against the plain path,
+        # with B drawn at random (B = 0 would give A no gradient).
+        check = Trainer(cfg, tc, device="cuda")
+        tokens = torch.from_numpy(first["tokens"]).to(check.device, torch.long)
+        with torch.inference_mode():
+            logits, _ = llama.forward(check.params, tokens, cfg)
+            nograd_loss = torch.nn.functional.cross_entropy(logits[:, :-1].flatten(0, 1),
+                                                            tokens[:, 1:].flatten()).item()
+        del logits
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        with torch.no_grad():
+            for layer in check.lora.layers:
+                for ab in layer.values():
+                    ab["b"].copy_(torch.randn(ab["b"].shape, generator=gen, device="cuda") * 1e-2)
+        grads = grad_check(check, first, "train")
+        del check
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        runs = []
+        for steps in TRAIN_STEPS:
+            params_path = tmp / f"params_{steps}.json"
+            params_path.write_text(json.dumps(dict(p, steps=steps)))
+            for c in _bwd_counters().values():
+                c.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            res = train_main.run(["--data", str(tmp / "data"), "--out", str(tmp / "out"),
+                                  "--params", str(params_path)])
+            launches = {name: c.launches for name, c in _bwd_counters().items()}
+            n = len(res["losses"])
+            want = {"flash_fwd": 64 * n, "flash_bwd_dq": 32 * n, "flash_bwd_dkv": 32 * n}
+            if launches != want:
+                fail(f"train: launches {launches} over {n} steps, want {want}")
+            if not all(np.isfinite(res["losses"])):
+                fail(f"train: non-finite losses {res['losses']}")
+            runs.append({"start_step": res["start_step"], "losses": res["losses"], "launches": launches,
+                         "checkpoint_s": res["checkpoint_seconds"], "artifact_s": res["artifact_seconds"],
+                         "peak_bytes": torch.cuda.max_memory_allocated(),
+                         **_step_stats(res["step_seconds"], res["step_log"])})
+            if steps == TRAIN_STEPS[0]:
+                del res
+                gc.collect()
+                torch.cuda.empty_cache()
+        if runs[0]["start_step"] != 0 or runs[1]["start_step"] != TRAIN_STEPS[0] or res["trainer"].step != TRAIN_STEPS[1]:
+            fail(f"train: the second call did not resume from step {TRAIN_STEPS[0]}: {runs}")
+        # The first step's loss (rate 0, B = 0) against the no-grad forward.
+        first_err = abs(runs[0]["losses"][0] - nograd_loss)
+        if first_err > 1e-3 * nograd_loss:
+            fail(f"train: first loss {runs[0]['losses'][0]} against the no-grad forward's {nograd_loss}")
+
+        # The artifact (the merged model) reloads to the same logits.
+        t0 = time.perf_counter()
+        cfg2, model = load_artifact(str(tmp / "out"))
+        load_s = time.perf_counter() - t0
+        probe = tokens[:1, :256]
+        with torch.inference_mode():
+            want_logits, _ = llama.forward(res["merged"], probe, res["cfg"])
+            got_logits, _ = llama.forward(model, probe, cfg2)
+        reload_err = (got_logits - want_logits).abs().max().item()
+        del model, res["merged"]
+        if reload_err != 0.0:
+            fail(f"train: the reloaded artifact's logits differ by {reload_err}")
+        profiled = profile_train_step(res["trainer"], first, "train") if profile_steps else None
+        artifact_bytes = (tmp / "out" / "params.pt").stat().st_size
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    r0, r1 = runs
+    print(f"train: llama2-7b LoRA r16, batch 8 x 1024, {TRAIN_STEPS[0]} steps then {TRAIN_STEPS[1] - TRAIN_STEPS[0]} "
+          f"resumed; losses {r0['losses']} then {r1['losses']}; first loss {r0['losses'][0]:.6f} against "
+          f"{nograd_loss:.6f} without grad; launches {r0['launches']} and {r1['launches']}", flush=True)
+    print(f"train [{card}]: step {r0['median_step_s']:.3f} s (median after the first; all {r0['step_s']}), "
+          f"{r0['tokens_per_s']:.0f} tokens/s, MFU {r0['mfu']}, peak {r0['peak_bytes'] / 2**30:.1f} GiB; "
+          f"checkpoints {r0['checkpoint_s']} s; merged artifact {artifact_bytes} bytes written in "
+          f"{r0['artifact_s']:.1f} s, reloaded in {load_s:.1f} s, logits max|diff| {reload_err}; "
+          f"{free_gb:.0f} GB were free", flush=True)
+    return {"runs": runs, "grad_check": grads, "nograd_loss": nograd_loss, "artifact_bytes": artifact_bytes,
+            "artifact_load_s": load_s, "launches": r0["launches"], "profile": profiled}
+
+
+def train_full_phase(card: str, profile_steps: bool = False) -> dict:
+    """Full finetuning through the Trainer at llama2-7b's width, 4 layers,
+    batch 2 x 1024, 3 steps."""
+    import numpy as np
+    import torch
+
+    from substratus_tpu_torch.models import llama
+    from substratus_tpu_torch.train.telemetry import StepLogger, device_peak_flops
+    from substratus_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = llama.CONFIGS["llama2-7b"].replace(n_layers=4)
+    # Rate 1e-2: the norms' bf16 weights sit at 1.0, where a bf16 step is
+    # 2^-7, so a smaller update rounds back to 1.0 (in the JAX trainer too).
+    trainer = Trainer(cfg, TrainConfig(lora_rank=0, learning_rate=1e-2, warmup_steps=1, total_steps=3),
+                      device="cuda")
+    rng = np.random.default_rng(0)
+    batches = [{"tokens": rng.integers(0, cfg.vocab_size, (2, 1024), dtype=np.int32),
+                "weights": np.ones((2, 1024), np.float32)} for _ in range(3)]
+    grads = grad_check(trainer, batches[0], "train-full")
+    names = [name for name, _ in trainer.params.named_parameters()]
+    before = [t.detach().clone() for t in trainer.trainable]
+    for c in _bwd_counters().values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    losses, seconds, changed = [], [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(trainer.train_step(batch))
+        seconds.append(time.perf_counter() - t0)
+        changed.append([not torch.equal(a, b) for a, b in zip(before, trainer.trainable)])
+        before = [t.detach().clone() for t in trainer.trainable]
+    launches = {name: c.launches for name, c in _bwd_counters().items()}
+    L = cfg.n_layers
+    if launches != {"flash_fwd": 2 * L * 3, "flash_bwd_dq": L * 3, "flash_bwd_dkv": L * 3}:
+        fail(f"train-full: launches {launches} over 3 steps of {L} layers")
+    if not all(np.isfinite(losses)):
+        fail(f"train-full: non-finite losses {losses}")
+    if any(changed[0]) or not all(changed[1]):
+        fail(f"train-full: step 0 (rate 0) changed {[n for n, c in zip(names, changed[0]) if c]}; step 1 left "
+             f"{[n for n, c in zip(names, changed[1]) if not c]} unchanged")
+    n_params = sum(t.numel() for t in trainer.trainable)
+    stats = _step_stats(seconds, StepLogger(n_params, 2 * 1024, device_peak_flops(trainer.device)))
+    peak = torch.cuda.max_memory_allocated()
+    profiled = profile_train_step(trainer, batches[0], "train-full") if profile_steps else None
+    print(f"train-full: llama2-7b width, {L} layers ({n_params} weights, all trained), batch 2 x 1024; losses "
+          f"{losses}; launches {launches}; step 0 changed no weight, step 1 all {len(names)}", flush=True)
+    print(f"train-full [{card}]: step {stats['median_step_s']:.3f} s (all {seconds}), {stats['tokens_per_s']:.0f} "
+          f"tokens/s, MFU {stats['mfu']}, peak {peak / 2**30:.1f} GiB", flush=True)
+    return {"losses": losses, "launches": launches, "grad_check": grads, "peak_bytes": peak,
+            "profile": profiled, **stats}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="card,build,kernels,serve,serve-long,serve-int4")
+    ap.add_argument("--phases", default="card,build,kernels,serve,serve-long,serve-int4,train,train-full")
     phases = ap.parse_args().phases.split(",")
 
     import torch
@@ -955,6 +1348,10 @@ def main() -> int:
         report["serve-long"] = serve_long_phase(card, profile_steps="profile" in phases)
     if "serve-int4" in phases:
         report["serve-int4"] = serve_int4_phase(card, profile_steps="profile" in phases)
+    if "train" in phases:
+        report["train"] = train_phase(card, profile_steps="profile" in phases)
+    if "train-full" in phases:
+        report["train-full"] = train_full_phase(card, profile_steps="profile" in phases)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
@@ -967,13 +1364,19 @@ def main() -> int:
                                     "substratus_tpu/ops/flash_attention.py:452"),
                    "fused_decode": ("substratus_tpu_torch/csrc/fused_decode.cu",
                                     "substratus_tpu/ops/fused_decode.py:48"),
-                   "q4_matmul": ("substratus_tpu_torch/csrc/q4_matmul.cu", "substratus_tpu/ops/quant4.py:168")}
-        # Each kernel's launches come from the serve phase whose path runs it.
+                   "q4_matmul": ("substratus_tpu_torch/csrc/q4_matmul.cu", "substratus_tpu/ops/quant4.py:168"),
+                   "flash_bwd_dq": ("substratus_tpu_torch/csrc/flash_bwd.cu",
+                                    "substratus_tpu/ops/flash_attention.py:247"),
+                   "flash_bwd_dkv": ("substratus_tpu_torch/csrc/flash_bwd.cu",
+                                     "substratus_tpu/ops/flash_attention.py:290")}
+        # Each kernel's launches come from the serve or train phase whose
+        # path runs it (train: the first train.main call, 4 steps).
         phase_of = {"flash_fwd": "serve", "decode_attn": "serve",
-                    "flash_cached": "serve-long", "fused_decode": "serve-long", "q4_matmul": "serve-int4"}
+                    "flash_cached": "serve-long", "fused_decode": "serve-long", "q4_matmul": "serve-int4",
+                    "flash_bwd_dq": "train", "flash_bwd_dkv": "train"}
         line = []
         for name, cases in report["kernels"].items():
-            main_case = cases[0]  # the serving path's shape
+            main_case = cases[0]  # the main path's shape
             line.append({
                 "name": name, "route": "cuda", "source": sources[name][0], "replaces": sources[name][1],
                 "launches": report.get(phase_of[name], {}).get("launches", {}).get(name, 0),

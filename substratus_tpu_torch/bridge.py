@@ -1,10 +1,13 @@
 """Carry weights from the JAX package's parameter tree into the port.
 
-``params_from_jax`` is the one function that does so: it takes the llama
+``params_from_jax`` carries the model's weights: it takes the llama
 params pytree with numpy (or numpy-convertible) leaves -- per-layer
 weights stacked on a leading L axis -- and returns the port's
 ``state_dict`` for ``models.llama.Llama.load_state_dict``. It needs no
 JAX: leaves go through ``numpy.asarray``.
+
+``lora_from_jax`` does the same for the trainer's LoRA adapters: the
+state_dict of ``train.lora.LoraAdapters``.
 
 Quantized leaves carry over as they are: an int4 ``Q4Tensor`` as its
 ``packed`` bytes, ``scale`` and (as the module's extra state) its
@@ -55,4 +58,18 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, Any]:
             for suffix, value in entries.items():
                 # Tensors lose the layer axis; extra state is every layer's.
                 state[f"layers.{i}.{name}{suffix}"] = value[i] if isinstance(value, torch.Tensor) else value
+    return state
+
+
+def lora_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX LoRA adapters {name: {"a": [L, in, r], "b": [L, r, *out]}}
+    (train/lora.py::init_lora, or Trainer.lora) -> the state_dict of the
+    port's train.lora.LoraAdapters: {"layers.{i}.{name}.a", ...}, f32
+    (bf16 leaves convert exactly; load_state_dict casts them back)."""
+    state: Dict[str, torch.Tensor] = {}
+    for name, ab in tree.items():
+        for key in ("a", "b"):
+            stacked = _tensor(ab[key])
+            for i in range(stacked.shape[0]):
+                state[f"layers.{i}.{name}.{key}"] = stacked[i]
     return state

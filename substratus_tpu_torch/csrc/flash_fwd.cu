@@ -53,20 +53,6 @@ constexpr size_t flash_smem_bytes() {
   return sizeof(__nv_bfloat16) * (BQ + 2 * BK) * (D + PAD);
 }
 
-// Copy rows [s0, s0 + ROWS) of a [*, stride]-strided bf16 matrix into a
-// padded shared tile, 16 bytes per thread per step; rows past `n` read 0.
-template <int ROWS, int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          size_t stride, int s0, int n) {
-  constexpr int CHUNKS = D / 8;
-  for (int i = threadIdx.x; i < ROWS * CHUNKS; i += NT) {
-    const int r = i / CHUNKS, c = (i % CHUNKS) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (s0 + r < n) v = *reinterpret_cast<const uint4*>(src + (size_t)(s0 + r) * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * (D + PAD) + c) = v;
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
@@ -98,7 +84,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
   const __nv_bfloat16* kb = k + ((size_t)b * Sk * KH + kvh) * D;
   const __nv_bfloat16* vb = v + ((size_t)b * Sk * KH + kvh) * D;
 
-  load_tile<BQ, D>(Qs, q + ((size_t)b * Sq * H + h) * D, q_stride, q0, Sq);
+  load_tile<BQ, D, NT>(Qs, q + ((size_t)b * Sq * H + h) * D, q_stride, q0, Sq);
   __syncthreads();
   // Q fragments for the whole loop: matrix m of ldmatrix.x4 is rows
   // (m & 1) * 8.. and columns (m >> 1) * 8.. of the 16x16 A tile.
@@ -121,8 +107,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
 
   for (int k0 = 0; k0 < k_end; k0 += BK) {
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<BK, D>(Ks, kb, kv_stride, k0, Sk);
-    load_tile<BK, D>(Vs, vb, kv_stride, k0, Sk);
+    load_tile<BK, D, NT>(Ks, kb, kv_stride, k0, Sk);
+    load_tile<BK, D, NT>(Vs, vb, kv_stride, k0, Sk);
     __syncthreads();
 
     // S = Q K^T: matrix m of ldmatrix.x4 is keys (m >> 1) * 8.. and head

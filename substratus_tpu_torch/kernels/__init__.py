@@ -50,6 +50,10 @@ SIGNATURES = {
     "q4_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # M, N, C, block, sms -> split-K factor of q4_matmul
     "q4_matmul_splits": [_I, _I, _I, _I, _I],
+    # q, k, v, do, lse, delta, dq, B, Sq, Sk, H, KH, D, dtype, scale, causal, stream
+    "flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    # q, k, v, do, lse, delta, dk, dv, B, Sq, Sk, H, KH, D, dtype, scale, causal, stream
+    "flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
 }
 # dtype codes shared with csrc/*.cu
 DTYPE_CODES = {torch.bfloat16: 0, torch.int8: 1}

@@ -15,6 +15,12 @@ for decode steps and ``flash_cached_attention`` for the chunks of a long
 prompt, chosen by ``attn_impl`` / ``decode_attn_impl`` /
 ``chunk_attn_impl``.
 
+``forward`` also trains: with ``lora`` it adds the adapters' low-rank
+updates (ops/basics.py::lora_delta), with ``remat`` it recomputes each
+block in the backward (torch.utils.checkpoint), and under autograd the
+flash kernel's backward runs through ops/flash_attention.py's
+FlashAttention. Serving calls it under torch.inference_mode().
+
 The decode cache is the dense slot cache k/v [L, B, KH, S, hd] (+ f32
 scales [L, B, KH, S] when int8), written in place.
 """
@@ -26,9 +32,10 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from substratus_tpu_torch.ops.attention import dot_product_attention
-from substratus_tpu_torch.ops.basics import rms_norm, rope, swiglu
+from substratus_tpu_torch.ops.basics import lora_delta, rms_norm, rope, swiglu
 from substratus_tpu_torch.ops.decode_attention import update_cache_and_attend
 from substratus_tpu_torch.ops.flash_attention import flash_attention
 from substratus_tpu_torch.ops.quant import QTensor, qeinsum, quantize_params
@@ -299,13 +306,23 @@ def _block(
     cfg: LlamaConfig,
     layer_cache: Optional[Cache],
     kv_length: Optional[torch.Tensor] = None,
+    lora_layer=None,  # this layer's adapters {name: {"a", "b"}}
+    lora_scale: float = 1.0,
 ) -> Tuple[torch.Tensor, Cache]:
     """One transformer block. Returns (x_out, kv): the fresh {k, v}
     entries without a cache (prefill), else the updated layer cache."""
+    lora = lora_layer if lora_layer is not None else {}
+
+    def proj(name: str, inp: torch.Tensor, eq: str, lora_eq: str) -> torch.Tensor:
+        out = _project(eq, inp, getattr(lp, name), cfg)
+        if name in lora:
+            out = out + lora_delta(inp, lora[name], lora_scale, lora_eq)
+        return out
+
     h = rms_norm(x, lp.attn_norm, cfg.norm_eps)
-    q = _project("bsd,dhk->bshk", h, lp.wq, cfg)
-    kk = _project("bsd,dhk->bshk", h, lp.wk, cfg)
-    vv = _project("bsd,dhk->bshk", h, lp.wv, cfg)
+    q = proj("wq", h, "bsd,dhk->bshk", "bsr,rhk->bshk")
+    kk = proj("wk", h, "bsd,dhk->bshk", "bsr,rhk->bshk")
+    vv = proj("wv", h, "bsd,dhk->bshk", "bsr,rhk->bshk")
     q = rope(q, positions, cfg.rope_theta)
     kk = rope(kk, positions, cfg.rope_theta)
 
@@ -317,15 +334,17 @@ def _block(
             layer_cache, q, kk, vv, positions, kv_length=kv_length,
             impl=cfg.decode_attn_impl, chunk_impl=cfg.chunk_attn_impl,
         )
-    x = x + _project("bshk,hkd->bsd", attn, lp.wo, cfg)
+    o = _project("bshk,hkd->bsd", attn, lp.wo, cfg)
+    if "wo" in lora:  # the adapter sees the flattened [B, S, H*hd]
+        o = o + lora_delta(attn.flatten(2), lora["wo"], lora_scale, "bsr,rd->bsd")
+    x = x + o
     h = rms_norm(x, lp.mlp_norm, cfg.norm_eps)
-    gate = _project("bsd,dm->bsm", h, lp.w_gate, cfg)
-    up = _project("bsd,dm->bsm", h, lp.w_up, cfg)
-    x = x + _project("bsm,md->bsd", swiglu(gate, up), lp.w_down, cfg)
+    gate = proj("w_gate", h, "bsd,dm->bsm", "bsr,rm->bsm")
+    up = proj("w_up", h, "bsd,dm->bsm", "bsr,rm->bsm")
+    x = x + proj("w_down", swiglu(gate, up), "bsm,md->bsd", "bsr,rd->bsd")
     return x, kv
 
 
-@torch.no_grad()
 def forward(
     params: Llama,
     tokens: torch.Tensor,  # [B, S] integer ids
@@ -334,29 +353,47 @@ def forward(
     positions: Optional[torch.Tensor] = None,  # [B, S] absolute positions
     cache: Optional[Cache] = None,  # dense cache from init_cache (written in place)
     kv_length: Optional[torch.Tensor] = None,  # [B] valid cache prefix
+    lora=None,  # {"layers": per-layer adapters (train/lora.py), "scale": alpha / rank}
+    remat: bool = False,  # recompute each block in the backward (training memory saver)
+    train: bool = False,  # a training forward: no cache fragment (MoE's dispatch is not ported)
 ) -> Tuple[torch.Tensor, Cache]:
     """Returns (logits [B, S, vocab] float32, kv).
 
     Without cache (prefill): kv = fresh entries {k, v: [L, B, S, KH, hd]},
-    the fragment the engine inserts into a slot cache. With cache: tokens
-    are written at `positions` and attention runs over the cache; kv is
-    the same (updated) cache dict."""
+    the fragment the engine inserts into a slot cache; a training forward
+    (train=True) returns no fragment (kv = {}), which nothing reads there.
+    With cache: tokens are written at `positions` and attention runs over
+    the cache; kv is the same (updated) cache dict.
+
+    Autograd records the call unless the caller turns it off (serving runs
+    it under torch.inference_mode()); gradients reach what requires them:
+    the adapters in `lora`, or the weights the trainer unfroze."""
     _check_dense(cfg)
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
     x = params.tok_embed[tokens.long()].to(cfg.dtype)
+    lora_layers = lora["layers"] if lora is not None else None
+    lora_scale = lora["scale"] if lora is not None else 1.0
     fresh = []
     for i, lp in enumerate(params.layers):
         layer_cache = None if cache is None else {name: t[i] for name, t in cache.items()}
-        x, kv = _block(x, lp, positions, cfg, layer_cache, kv_length)
-        if cache is None:
+        args = (x, lp, positions, cfg, layer_cache, kv_length,
+                None if lora_layers is None else lora_layers[i], lora_scale)
+        if remat:
+            # The block draws no random numbers: no RNG state to stash.
+            x, kv = checkpoint(_block, *args, use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, kv = _block(*args)
+        if cache is None and not train:
             fresh.append(kv)
     x = rms_norm(x, params.out_norm, cfg.norm_eps)
     head = params.tok_embed.t() if cfg.tie_embeddings else params.lm_head
     logits = _project("bsd,dv->bsv", x, head, cfg).float()
     if cache is not None:
         return logits, cache
+    if train:
+        return logits, {}
     return logits, {name: torch.stack([kv[name] for kv in fresh]) for name in ("k", "v")}
 
 

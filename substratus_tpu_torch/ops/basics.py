@@ -36,3 +36,16 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> to
 
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return F.silu(gate) * up
+
+
+def lora_delta(h: torch.Tensor, adapter, scale: float, out_einsum: str) -> torch.Tensor:
+    """LoRA low-rank update h @ A @ B * scale (port of the JAX package's
+    lora_delta); adapter {"a": [in, r], "b": [r, *out]} from
+    train/lora.py. Each product runs in the promoted dtype of its operands,
+    as jnp.einsum promotes: bf16 adapters on an f32 model give an f32
+    delta."""
+    a, b = adapter["a"], adapter["b"]
+    dt = torch.promote_types(h.dtype, a.dtype)
+    down = torch.einsum("bsd,dr->bsr", h.to(dt), a.to(dt))
+    dt = torch.promote_types(dt, b.dtype)
+    return torch.einsum(out_einsum, down.to(dt), b.to(dt)) * scale

@@ -13,9 +13,17 @@ version.
   positions, bf16 or int8 cache. See the source note in
   csrc/flash_cached.cu.
 
+* ``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv``
+  (csrc/flash_bwd.cu) replace ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``,
+  the training backward: ``FlashAttention`` (a torch.autograd.Function,
+  the counterpart of the JAX custom_vjp) saves q, k, v, out and the LSE of
+  the forward kernel and calls both. See the source note in
+  csrc/flash_bwd.cu.
+
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs the
-plain version only for tensors on the CPU. ``flash_attention.launches`` and
-``flash_cached_attention.launches`` count kernel launches.
+plain version only for tensors on the CPU. ``flash_attention.launches``,
+``flash_cached_attention.launches``, ``flash_attention_bwd_dq.launches``
+and ``flash_attention_bwd_dkv.launches`` count kernel launches.
 """
 from __future__ import annotations
 
@@ -65,6 +73,31 @@ def flash_attention_plain(
     return out, lse.reshape(b * h, sq)
 
 
+def _check_qkv(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *more: torch.Tensor):
+    """The checks every flash kernel of this module makes on [B, S, H|KH,
+    D] operands; returns them contiguous (`more` must be shaped like q)."""
+    b, sq, h, d = q.shape
+    kh = k.shape[2]
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16) or any(t.dtype != q.dtype for t in more):
+        raise ValueError(
+            f"{name}: the kernel takes bf16 operands, got {q.dtype}/{k.dtype}/{v.dtype} "
+            "(attn_impl='plain' serves other dtypes)"
+        )
+    if (d not in HEAD_DIMS or k.shape[-1] != d or v.shape != k.shape or k.shape[0] != b
+            or any(t.shape != q.shape for t in more)):
+        raise ValueError(f"{name}: unsupported shapes q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)}")
+    if h % kh:
+        raise ValueError(f"{name}: {h} query heads not a multiple of {kh} kv heads")
+    if any(t.device != q.device for t in (k, v) + more):
+        raise ValueError(f"{name}: all operands must be on one device")
+    tensors = tuple(t.contiguous() for t in (q, k, v) + more)
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: operands must be 16-byte aligned (the kernel loads 16-byte rows)")
+    return tensors
+
+
 def flash_attention(
     q: torch.Tensor,  # [B, Sq, H, D]
     k: torch.Tensor,  # [B, Sk, KH, D]
@@ -74,29 +107,27 @@ def flash_attention(
     return_lse: bool = False,
 ):
     """Self-attention (no cache) over [B, S, H|KH, D]; returns the output
-    in q's dtype, and with return_lse the f32 row logsumexp [B*H, Sq]."""
+    in q's dtype, and with return_lse the f32 row logsumexp [B*H, Sq].
+
+    When autograd records (grad enabled and an input requires grad) the
+    call goes through FlashAttention, whose backward runs the two backward
+    kernels; otherwise only the forward kernel runs, without the LSE."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if return_lse:
+            raise ValueError("flash_attention: return_lse is not differentiable")
+        return FlashAttention.apply(q, k, v, causal, scale)
+    return _flash_forward(q, k, v, causal, scale, return_lse)
+
+
+def _flash_forward(q, k, v, causal: bool, scale: float, return_lse: bool):
+    """The forward kernel's launch (or, for CPU tensors, its plain version)."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, scale, return_lse)
     b, sq, h, d = q.shape
     sk, kh = k.shape[1], k.shape[2]
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
-    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
-        raise ValueError(
-            f"flash_attention: the kernel takes bf16 q/k/v, got {q.dtype}/{k.dtype}/{v.dtype} "
-            "(attn_impl='plain' serves other dtypes)"
-        )
-    if d not in HEAD_DIMS or k.shape[-1] != d or v.shape != k.shape or k.shape[0] != b:
-        raise ValueError(f"flash_attention: unsupported shapes q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)}")
-    if h % kh:
-        raise ValueError(f"flash_attention: {h} query heads not a multiple of {kh} kv heads")
-    if not (k.device == v.device == q.device):
-        raise ValueError("flash_attention: q, k, v must be on one device")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16:
-        raise ValueError("flash_attention: q/k/v must be 16-byte aligned (the kernel loads 16-byte rows)")
+    q, k, v = _check_qkv("flash_attention", q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device) if return_lse else None
     rc = kernels.library().flash_fwd(
@@ -111,6 +142,172 @@ def flash_attention(
 
 
 flash_attention.launches = 0
+
+
+def _bwd_probs(q, k, v, do, lse, delta, causal: bool, scale: float):
+    """p and ds [B, KH, G, Sq, Sk] of the Pallas backward kernels, in f32
+    with the values of q's dtype: f32 scores times scale, the col <= row
+    mask, p = exp(s - lse) (0 where masked), ds = p (dO.V^T - D) scale;
+    both rounded to q's dtype before their products."""
+    b, sq, h, d = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    s = torch.einsum("bqkgd,bskd->bkgqs", q.float().reshape(b, sq, kh, g, d), k.float()) * scale
+    lse = lse.reshape(b, kh, g, sq, 1)
+    p = torch.exp(s - lse)
+    if causal:
+        live = torch.arange(sk, device=q.device)[None, :] <= torch.arange(sq, device=q.device)[:, None]
+        p = torch.where(live, p, 0.0)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", do.float().reshape(b, sq, kh, g, d), v.float())
+    ds = p * (dp - delta.reshape(b, kh, g, sq, 1)) * scale
+    return p.to(q.dtype).float(), ds.to(q.dtype).float()
+
+
+def _bwd_dq_plain(q, k, v, do, lse, delta, causal: bool, scale: float) -> torch.Tensor:
+    b, sq, h, d = q.shape
+    _, ds = _bwd_probs(q, k, v, do, lse, delta, causal, scale)
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float())
+    return dq.reshape(b, sq, h, d).to(q.dtype)
+
+
+def _bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool, scale: float):
+    b, sq, h, d = q.shape
+    kh = k.shape[2]
+    p, ds = _bwd_probs(q, k, v, do, lse, delta, causal, scale)
+    qf = q.float().reshape(b, sq, kh, h // kh, d)
+    dof = do.float().reshape(b, sq, kh, h // kh, d)
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qf)  # the GQA group summed in f32
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dof)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def bwd_delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """D = rowsum(dO * O) in f32, [B*H, Sq] like the LSE (plain torch, as
+    it is XLA work in the JAX package)."""
+    b, sq, h, _ = out.shape
+    return (do.float() * out.float()).sum(-1).transpose(1, 2).reshape(b * h, sq).contiguous()
+
+
+def flash_attention_bwd_plain(
+    q: torch.Tensor,  # [B, Sq, H, D]
+    k: torch.Tensor,  # [B, Sk, KH, D]
+    v: torch.Tensor,
+    out: torch.Tensor,  # [B, Sq, H, D], the forward's output
+    lse: torch.Tensor,  # [B*H, Sq] f32, the forward's row logsumexp
+    do: torch.Tensor,  # [B, Sq, H, D], the output's gradient
+    causal: bool = True,
+    scale: Optional[float] = None,
+):
+    """(dq, dk, dv) of flash attention in plain PyTorch, following the
+    Pallas _bwd_dq_kernel / _bwd_dkv_kernel (not autograd of the forward):
+    f32 scores, the col <= row mask, p = exp(s - lse) recomputed, ds = p
+    (dO.V^T - D) scale, ds and p rounded to the input dtype before their
+    products, dK/dV summed over the GQA group."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    delta = bwd_delta(out, do)
+    return (_bwd_dq_plain(q, k, v, do, lse, delta, causal, scale),
+            *_bwd_dkv_plain(q, k, v, do, lse, delta, causal, scale))
+
+
+def _check_stats(name: str, q: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor):
+    b, sq, h, _ = q.shape
+    for t in (lse, delta):
+        if t.shape != (b * h, sq) or t.dtype != torch.float32 or t.device != q.device:
+            raise ValueError(f"{name}: lse and delta must be f32 [B*H, Sq] = [{b * h}, {sq}] on q's device")
+    return lse.contiguous(), delta.contiguous()
+
+
+def flash_attention_bwd_dq(
+    q: torch.Tensor,  # [B, Sq, H, D]
+    k: torch.Tensor,  # [B, Sk, KH, D]
+    v: torch.Tensor,
+    do: torch.Tensor,  # [B, Sq, H, D]
+    lse: torch.Tensor,  # [B*H, Sq] f32
+    delta: torch.Tensor,  # [B*H, Sq] f32, bwd_delta(out, do)
+    causal: bool = True,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """dQ [B, Sq, H, D] in q's dtype. CUDA tensors launch the kernel (or
+    raise); CPU tensors run the plain version."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return _bwd_dq_plain(q, k, v, do, lse, delta, causal, scale)
+    b, sq, h, d = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    q, k, v, do = _check_qkv("flash_attention_bwd_dq", q, k, v, do)
+    lse, delta = _check_stats("flash_attention_bwd_dq", q, lse, delta)
+    dq = torch.empty_like(q)
+    rc = kernels.library().flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), b, sq, sk, h, kh, d, kernels.DTYPE_CODES[q.dtype], float(scale), int(causal),
+        kernels.stream_ptr(q.device),
+    )
+    kernels.check(rc, "flash_bwd_dq")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd_dkv(
+    q: torch.Tensor,  # [B, Sq, H, D]
+    k: torch.Tensor,  # [B, Sk, KH, D]
+    v: torch.Tensor,
+    do: torch.Tensor,  # [B, Sq, H, D]
+    lse: torch.Tensor,  # [B*H, Sq] f32
+    delta: torch.Tensor,  # [B*H, Sq] f32
+    causal: bool = True,
+    scale: Optional[float] = None,
+):
+    """(dK, dV) [B, Sk, KH, D] in k's dtype, summed over each kv head's
+    query heads. CUDA tensors launch the kernel (or raise); CPU tensors run
+    the plain version."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return _bwd_dkv_plain(q, k, v, do, lse, delta, causal, scale)
+    b, sq, h, d = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    q, k, v, do = _check_qkv("flash_attention_bwd_dkv", q, k, v, do)
+    lse, delta = _check_stats("flash_attention_bwd_dkv", q, lse, delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    rc = kernels.library().flash_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, kh, d, kernels.DTYPE_CODES[q.dtype], float(scale),
+        int(causal), kernels.stream_ptr(q.device),
+    )
+    kernels.check(rc, "flash_bwd_dkv")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with its hand-written backward: the counterpart of
+    the JAX package's custom_vjp (q, k, v differentiable; causal and scale
+    not). The forward runs the forward kernel with the LSE and saves q, k,
+    v, out and LSE; the backward computes D = rowsum(dO * O) in plain
+    torch and runs the dQ and dK/dV kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float):
+        out, lse = _flash_forward(q, k, v, causal, scale, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        delta = bwd_delta(out, do)
+        dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, ctx.causal, ctx.scale)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
 
 
 def flash_cached_attention_plain(

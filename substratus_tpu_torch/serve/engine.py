@@ -234,7 +234,8 @@ class Engine:
         if true_len <= self.ec.max_prefill_len:
             padded, true_len = _pad_to_bucket(prompt, self.ec.max_prefill_len)
             tokens = torch.from_numpy(padded).to(self.device)
-            logits, kv = self.model.forward(self.params, tokens, self.cfg)
+            with torch.inference_mode():  # serving builds no autograd graph
+                logits, kv = self.model.forward(self.params, tokens, self.cfg)
             self._insert(kv, slot)
             last_logits = logits[0, true_len - 1]
             self.stats["prefills"] += 1
@@ -263,7 +264,8 @@ class Engine:
             # max_seq_len - 1, so the slot exists.
             positions = torch.clamp(torch.arange(offset, offset + tokens.shape[1], device=self.device),
                                     max=offset + clen)[None, :]
-            logits, _ = self.model.forward(self.params, tokens, self.cfg, positions=positions, cache=slot_cache)
+            with torch.inference_mode():
+                logits, _ = self.model.forward(self.params, tokens, self.cfg, positions=positions, cache=slot_cache)
             last_logits = logits[0, clen - 1]
             offset += clen
             self.stats["prefill_chunks"] += 1
@@ -305,12 +307,13 @@ class Engine:
         """Device half of one decode step: advance every slot one token
         (the cache is written in place), sample on the device, and return
         the bookkeeping without reading anything back."""
-        logits, _ = self.model.decode_step(
-            self.params, self.cache,
-            torch.from_numpy(self.tokens).to(self.device),
-            torch.from_numpy(self.positions).to(self.device),
-            self.cfg,
-        )
+        with torch.inference_mode():
+            logits, _ = self.model.decode_step(
+                self.params, self.cache,
+                torch.from_numpy(self.tokens).to(self.device),
+                torch.from_numpy(self.positions).to(self.device),
+                self.cfg,
+            )
         next_tokens = self._sample(logits, self.temps, self.top_ps)
         # Clamp at the last cache row: active slots are released at the
         # window before reaching it (_emit's hit_window), so the clamp only

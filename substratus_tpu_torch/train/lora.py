@@ -1,0 +1,103 @@
+"""LoRA adapters (port of substratus_tpu/train/lora.py), llama family.
+
+The JAX package stacks every layer's adapter on a leading L axis
+({name: {a: [L, in, r], b: [L, r, *out]}}); the port keeps one entry per
+layer, beside the per-layer ``LlamaBlock``s, as the parameters of
+``LoraAdapters``: ``adapters.layers[i][name]["a"]`` is [in, r] and
+``["b"]`` is [r, *out]. models/llama.py::forward takes
+``{"layers": adapters.layers, "scale": alpha / rank}``.
+"""
+from __future__ import annotations
+
+import copy
+from typing import Dict, List, Tuple
+
+import torch
+from torch import nn
+
+from substratus_tpu_torch.models.llama import Llama, LlamaConfig, _check_dense
+from substratus_tpu_torch.utils.device import DeviceLike, resolve_device, seeded_generator
+
+# Which projections get adapters (the HF PEFT default for Llama is q, v).
+DEFAULT_TARGETS = ("wq", "wv")
+
+
+def _shapes(cfg: LlamaConfig) -> Dict[str, Tuple[int, Tuple[int, ...]]]:
+    """name -> (in_dim, out_shape) of each adaptable projection."""
+    hd = cfg.head_size
+    return {
+        "wq": (cfg.dim, (cfg.n_heads, hd)),
+        "wk": (cfg.dim, (cfg.n_kv_heads, hd)),
+        "wv": (cfg.dim, (cfg.n_kv_heads, hd)),
+        "wo": (cfg.n_heads * hd, (cfg.dim,)),
+        "w_gate": (cfg.dim, (cfg.hidden_dim,)),
+        "w_up": (cfg.dim, (cfg.hidden_dim,)),
+        "w_down": (cfg.hidden_dim, (cfg.dim,)),
+    }
+
+
+class LoraAdapters(nn.Module):
+    """Per-layer adapters as parameters: ``layers[i][name]`` is a
+    ParameterDict {"a": [in, r], "b": [r, *out]}; state_dict keys are
+    ``layers.{i}.{name}.{a|b}``."""
+
+    def __init__(self, layers: List[Dict[str, Dict[str, torch.Tensor]]]):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            nn.ModuleDict({name: nn.ParameterDict({k: nn.Parameter(t) for k, t in ab.items()})
+                           for name, ab in layer.items()})
+            for layer in layers
+        )
+
+    @property
+    def targets(self) -> List[str]:
+        return sorted(self.layers[0]) if len(self.layers) else []
+
+
+def init_lora(
+    cfg: LlamaConfig,
+    seed: int = 0,
+    rank: int = 8,
+    targets: Tuple[str, ...] = DEFAULT_TARGETS,
+    dtype: torch.dtype = torch.bfloat16,
+    device: DeviceLike = None,
+) -> LoraAdapters:
+    """A gaussian times 1/rank (drawn in f32 from a seeded torch.Generator,
+    then cast), B zero: training starts from the base model. The adapters
+    are bf16 by default whatever the model's dtype, as in the JAX package."""
+    _check_dense(cfg)
+    device = resolve_device(device)
+    gen = seeded_generator(seed, device)
+    shapes = _shapes(cfg)
+    unknown = [name for name in targets if name not in shapes]
+    if unknown:
+        raise ValueError(f"unknown LoRA targets {unknown} (one of {sorted(shapes)})")
+    layers: List[Dict[str, Dict[str, torch.Tensor]]] = [{} for _ in range(cfg.n_layers)]
+    for name in targets:
+        in_dim, out_shape = shapes[name]
+        a = torch.randn((cfg.n_layers, in_dim, rank), generator=gen, device=device) * (1.0 / rank)
+        for i, layer in enumerate(layers):
+            layer[name] = {"a": a[i].to(dtype),
+                           "b": torch.zeros((rank,) + out_shape, dtype=dtype, device=device)}
+    return LoraAdapters(layers)
+
+
+@torch.no_grad()
+def merge_lora(params: Llama, adapters: LoraAdapters, scale: float) -> Llama:
+    """A dense model to save or serve without adapters: the base weights
+    plus scale * A @ B (in f32, then rounded to W's dtype), one layer at a
+    time. `params` is left as it is, as the JAX package's merge returns a
+    new tree: the merged model holds new tensors for the adapted weights
+    and shares every other one with `params`."""
+    adapted = [getattr(lp, name) for lp, layer in zip(params.layers, adapters.layers) for name in layer]
+    if any(not isinstance(w, torch.Tensor) or not w.is_floating_point() for w in adapted):
+        raise TypeError("merge_lora: an adapted weight is quantized; the port trains dense bases only")
+    skip = {id(w) for w in adapted}
+    merged = copy.deepcopy(params, {id(t): t for t in params.parameters() if id(t) not in skip})
+    for lp, layer in zip(merged.layers, adapters.layers):
+        for name, ab in layer.items():
+            w = getattr(lp, name)
+            delta = torch.einsum("dr,r...->d...", ab["a"].float(), ab["b"].float()) * scale
+            # wo's adapter input is the flattened [H*hd]: reshape to [H, hd, D].
+            w.copy_((w.float() + delta.reshape(w.shape)).to(w.dtype))
+    return merged

@@ -1,0 +1,187 @@
+"""Training entry point of the port (port of substratus_tpu/train/main.py):
+
+    python -m substratus_tpu_torch.train.main [--data DIR] [--out DIR] [--params FILE] [--device cpu]
+
+Container contract: the dataset at /content/data, hyperparameters at
+/content/params.json, outputs to /content/artifacts. It trains a named
+configuration from random weights (the JAX entry point's mode without a
+model directory) on one card, or on the CPU with ``--device cpu``.
+
+params.json keys served, under the JAX entry point's names and defaults:
+``steps`` (or ``max_steps``), ``batch_size``, ``seq_len``,
+``learning_rate``, ``warmup_steps``, ``save_steps``, ``lora_rank``,
+``lora_alpha``, ``config``, ``remat``, ``seed``, ``grad_accum_steps``;
+``attn_impl``: absent, ``xla`` or ``flash`` run the flash kernels and
+their backward (the port has no XLA), ``plain`` the plain attention (for
+the CPU); ``dp``/``fsdp``/``sequence``/``tensor`` only as 1 or -1 (one
+card). Every other key or value exits naming the ROADMAP item that will
+serve it, and so does ``--model``.
+
+It resumes from the newest checkpoint under {out}/checkpoints (skipping
+the batches the finished steps drew, so a resumed run sees the batches an
+uninterrupted one would), prints one JSON line per 10 steps
+(train/telemetry.py), and writes the artifact to {out}: the merged model
+for a LoRA run, plus the adapter under {out}/adapter.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import time
+from typing import Any, Dict, List, Optional
+
+from substratus_tpu_torch.serve.main import load_params_json
+
+_SERVED = ("steps", "max_steps", "batch_size", "seq_len", "learning_rate", "warmup_steps", "save_steps",
+           "lora_rank", "lora_alpha", "config", "remat", "seed", "grad_accum_steps", "attn_impl")
+_MESH_AXES = ("dp", "fsdp", "sequence", "tensor")
+_NOT_SERVED = {
+    "quantize": "Queue 1 item 12 (QLoRA trains on a loaded base; checkpoint loading waits for weights "
+                "in the repository)",
+    "profile_steps": "Queue 1 item 14 (profiling windows, with multi-GPU training)",
+}
+# The JAX entry point's attention names -> models/llama.py's attn_impl.
+_ATTN_IMPLS = {"xla": "flash", "flash": "flash", "plain": "plain"}
+_MULTI_GPU = "Queue 1 item 14 (multi-GPU training: meshes, ring and Ulysses attention)"
+
+
+def check_params(p: Dict[str, Any]) -> None:
+    """Exit on a key or value the port does not train with yet, naming
+    its ROADMAP item, and on an unknown key."""
+    for key, value in p.items():
+        if key in _NOT_SERVED:
+            raise SystemExit(f"params.json: {key}={value!r} is not served by the PyTorch port yet: "
+                             f"ROADMAP {_NOT_SERVED[key]}")
+        if key in _MESH_AXES:
+            if int(value) not in (1, -1):
+                raise SystemExit(f"params.json: {key}={value!r}: the port trains on one card; ROADMAP {_MULTI_GPU}")
+        elif key == "attn_impl":
+            if value in ("ring", "ulysses"):
+                raise SystemExit(f"params.json: attn_impl={value!r} is not served by the PyTorch port yet: "
+                                 f"ROADMAP {_MULTI_GPU}")
+            if value not in _ATTN_IMPLS:
+                raise SystemExit(f"params.json: attn_impl={value!r} invalid (one of {sorted(_ATTN_IMPLS)})")
+        elif key not in _SERVED:
+            raise SystemExit(f"params.json: unknown key {key!r}")
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(prog="python -m substratus_tpu_torch.train.main")
+    ap.add_argument("--data", default="/content/data")
+    ap.add_argument("--model", default=None, help="base model dir (not ported yet: exits)")
+    ap.add_argument("--out", default="/content/artifacts")
+    ap.add_argument("--params", default="/content/params.json")
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    return ap.parse_args(argv)
+
+
+def run(argv=None) -> Dict[str, Any]:
+    """Train as main() does and return what a caller inspects: the
+    trainer, the config, the model written as the artifact (for a LoRA
+    run the merged copy; the trainer keeps its base and adapters), the
+    StepLogger, the first step of this run, and per step of this run the
+    loss, step seconds and checkpoint seconds; the artifact's seconds."""
+    from substratus_tpu_torch.models import registry
+    from substratus_tpu_torch.serve.tokenizer import load_tokenizer
+    from substratus_tpu_torch.train.checkpoints import CheckpointManager, save_adapter_artifact, save_artifact
+    from substratus_tpu_torch.train.data import PackedDataset
+    from substratus_tpu_torch.train.lora import merge_lora
+    from substratus_tpu_torch.train.telemetry import StepLogger, device_peak_flops
+    from substratus_tpu_torch.train.trainer import TrainConfig, Trainer
+    from substratus_tpu_torch.utils.device import resolve_device
+
+    args = parse_args(argv)
+    if args.model is not None or os.path.isdir("/content/model"):
+        raise SystemExit("train.main: training from a model directory is not served by the PyTorch port yet: "
+                         "ROADMAP Queue 1 item 12 (checkpoint loading)")
+    p = load_params_json(args.params)
+    check_params(p)
+    device = resolve_device(args.device)
+
+    steps = int(p.get("steps", p.get("max_steps", 100)))
+    batch_size = int(p.get("batch_size", 8))
+    seq_len = int(p.get("seq_len", 512))
+    lora_rank = int(p.get("lora_rank", 0))
+    lora_alpha = float(p.get("lora_alpha", 16.0))
+    _, cfg = registry.find_named_config(p.get("config", "tiny"))
+    tokenizer = load_tokenizer(None)
+    if cfg.vocab_size < tokenizer.vocab_size:
+        cfg = cfg.replace(vocab_size=tokenizer.vocab_size)
+    cfg = cfg.replace(attn_impl=_ATTN_IMPLS[p.get("attn_impl", "xla")])
+    accum = max(1, int(p.get("grad_accum_steps", 1)))
+    if batch_size % accum:
+        batch_size = (batch_size // accum + 1) * accum
+        print(f"batch_size rounded up to {batch_size} (a multiple of grad_accum_steps={accum})", flush=True)
+
+    tc = TrainConfig(
+        learning_rate=float(p.get("learning_rate", 2e-5)),
+        warmup_steps=int(p.get("warmup_steps", min(10, steps // 10 + 1))),
+        total_steps=steps,
+        lora_rank=lora_rank,
+        lora_alpha=lora_alpha,
+        remat=bool(p.get("remat", True)),
+        seed=int(p.get("seed", 0)),
+        grad_accum_steps=accum,
+    )
+    trainer = Trainer(cfg, tc, device=device)
+    data = PackedDataset(args.data, tokenizer, batch_size, seq_len, seed=tc.seed)
+    print(f"training on {device}: steps={steps}, batch {batch_size} x {seq_len}, corpus={data.n_tokens} tokens, "
+          f"lora_rank={lora_rank}, attention {cfg.attn_impl}", flush=True)
+
+    ckpt = CheckpointManager(os.path.join(args.out, "checkpoints"),
+                             save_steps=int(p.get("save_steps", max(1, steps // 5))))
+    start_step = 0
+    resumed = ckpt.restore_latest(map_location=trainer.device)
+    if resumed is not None:
+        start_step, state = resumed
+        trainer.trainable_module().load_state_dict(state["trainable"])
+        trainer.optimizer.load_state_dict(state["opt_state"])
+        trainer.step = start_step
+        for _ in range(start_step):  # the batches the finished steps drew
+            next(data)
+        print(f"resumed from step {start_step}", flush=True)
+
+    step_log = StepLogger(n_params=sum(t.numel() for t in trainer.params.parameters()),
+                          tokens_per_step=batch_size * seq_len, peak_flops=device_peak_flops(trainer.device))
+    losses: List[float] = []
+    step_seconds: List[float] = []
+    checkpoint_seconds: List[float] = []
+    for step in range(start_step, steps):
+        # Phase splits: data, the step (its loss read waits for the
+        # device), the checkpoint.
+        t0 = time.perf_counter()
+        batch = next(data)
+        t_step = time.perf_counter()
+        loss = trainer.train_step(batch)
+        t_ckpt = time.perf_counter()
+        ckpt.maybe_save(step + 1, {"trainable": trainer.trainable_module().state_dict(),
+                                   "opt_state": trainer.optimizer.state_dict()}, force=step == steps - 1)
+        t_end = time.perf_counter()
+        step_log.log_step(step, loss, t_ckpt - t_step, last=step == steps - 1,
+                          data_seconds=t_step - t0, checkpoint_seconds=t_end - t_ckpt)
+        losses.append(loss)
+        step_seconds.append(t_ckpt - t_step)
+        checkpoint_seconds.append(t_end - t_ckpt)
+    ckpt.close()
+
+    t0 = time.perf_counter()
+    final = merge_lora(trainer.params, trainer.lora, trainer.lora_scale) if trainer.lora is not None else trainer.params
+    save_artifact(args.out, final, cfg, extra_meta={"trained_steps": steps})
+    if trainer.lora is not None:
+        save_adapter_artifact(os.path.join(args.out, "adapter"), trainer.lora, alpha=lora_alpha, rank=lora_rank,
+                              extra_meta={"trained_steps": steps})
+        print(f"adapter artifact saved to {args.out}/adapter", flush=True)
+    artifact_seconds = time.perf_counter() - t0
+    print(f"artifact saved to {args.out} in {artifact_seconds:.1f} s", flush=True)
+    return {"trainer": trainer, "cfg": cfg, "merged": final, "step_log": step_log, "start_step": start_step,
+            "losses": losses, "step_seconds": step_seconds, "checkpoint_seconds": checkpoint_seconds,
+            "artifact_seconds": artifact_seconds}
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    run(argv)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

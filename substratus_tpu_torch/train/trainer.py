@@ -1,0 +1,157 @@
+"""The trainer (port of substratus_tpu/train/trainer.py) on one card: full
+or LoRA finetuning of a llama model, with gradient accumulation and
+per-block recompute (remat).
+
+Where the JAX trainer jits one sharded step over a mesh, this one runs the
+step eagerly on one device: the forward (models/llama.py, attention
+through the flash kernel and its FlashAttention backward), the loss in f32,
+torch.autograd.grad for the trainable tensors, then the optax-equivalent
+optimizer of train/optim.py. Meshes, process counts and globally sharded
+batches wait for multi-GPU (ROADMAP Queue 1 item 14).
+
+In LoRA mode the base weights stay frozen and only the adapters
+(train/lora.py) train; otherwise every weight trains.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from substratus_tpu_torch.models import llama
+from substratus_tpu_torch.models.llama import Llama, LlamaConfig
+from substratus_tpu_torch.train import lora as lora_lib
+from substratus_tpu_torch.train.optim import AdamW, warmup_cosine_decay_schedule
+from substratus_tpu_torch.utils.device import DeviceLike, resolve_device
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 2e-5
+    weight_decay: float = 0.0
+    warmup_steps: int = 10
+    total_steps: int = 100
+    grad_clip: float = 1.0
+    b1: float = 0.9
+    b2: float = 0.999
+    # LoRA: rank 0 disables (full finetune)
+    lora_rank: int = 0
+    lora_alpha: float = 16.0
+    # Projections to adapt (train/lora.py).
+    lora_targets: tuple = ("wq", "wv")
+    remat: bool = True
+    seed: int = 0
+    # Gradient accumulation: the batch splits into this many microbatches,
+    # each run forward and backward in turn (activation memory scales with
+    # the microbatch, optimizer cadence with the batch).
+    grad_accum_steps: int = 1
+
+
+def cross_entropy_sum(
+    logits: torch.Tensor,  # [B, S, V] float32
+    targets: torch.Tensor,  # [B, S] integer
+    weights: Optional[torch.Tensor] = None,  # [B, S] 0/1 loss mask
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(weighted nll sum, weight sum): the accumulation-friendly form."""
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+    if weights is None:
+        weights = torch.ones_like(nll)
+    weights = weights.float()
+    return (nll * weights).sum(), weights.sum()
+
+
+def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
+                       weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    s, w = cross_entropy_sum(logits, targets, weights)
+    return s / torch.clamp(w, min=1.0)
+
+
+def make_optimizer(tc: TrainConfig, params: List[torch.Tensor]) -> AdamW:
+    """optax.chain(clip_by_global_norm(grad_clip), adamw(warmup_cosine))
+    over `params`, as the JAX make_optimizer builds it."""
+    schedule = warmup_cosine_decay_schedule(
+        init_value=0.0,
+        peak_value=tc.learning_rate,
+        warmup_steps=tc.warmup_steps,
+        decay_steps=max(tc.total_steps, tc.warmup_steps + 1),
+    )
+    return AdamW(params, schedule, tc.grad_clip, b1=tc.b1, b2=tc.b2, weight_decay=tc.weight_decay)
+
+
+class Trainer:
+    """Owns the model, the trainable tensors and the optimizer state.
+
+    In LoRA mode `lora` holds the adapters (the trainable tensors) and
+    `params` stays frozen; otherwise every tensor of `params` trains.
+    Random weights come from init_params(seed=tc.seed), adapters from
+    init_lora(seed=tc.seed + 1), unless `params` is given."""
+
+    def __init__(self, cfg: LlamaConfig, tc: TrainConfig, params: Optional[Llama] = None,
+                 device: DeviceLike = None):
+        self.cfg, self.tc = cfg, tc
+        if params is None:
+            params = llama.init_params(cfg, seed=tc.seed, device=resolve_device(device))
+        self.params = params
+        self.device = params.device
+        if tc.lora_rank > 0:
+            self.lora = lora_lib.init_lora(cfg, seed=tc.seed + 1, rank=tc.lora_rank,
+                                           targets=tuple(tc.lora_targets), device=self.device)
+            self.lora_scale = tc.lora_alpha / tc.lora_rank
+            self.trainable = list(self.lora.parameters())
+        else:
+            self.lora, self.lora_scale = None, None
+            self.trainable = list(params.parameters())
+        for p in params.parameters():
+            p.requires_grad_(self.lora is None)
+        self.optimizer = make_optimizer(tc, self.trainable)
+        self.step = 0
+
+    def trainable_module(self) -> torch.nn.Module:
+        """The module whose state_dict is the trainable state."""
+        return self.lora if self.lora is not None else self.params
+
+    def loss_inputs(self, tokens: torch.Tensor, weights: torch.Tensor):
+        """(logits, targets, weights) of next-token prediction: the
+        arguments of cross_entropy_sum / cross_entropy_loss."""
+        lora = {"layers": self.lora.layers, "scale": self.lora_scale} if self.lora is not None else None
+        logits, _ = llama.forward(self.params, tokens, self.cfg, lora=lora, remat=self.tc.remat, train=True)
+        return logits[:, :-1], tokens[:, 1:], weights[:, 1:]
+
+    def train_step(self, batch: Dict[str, np.ndarray]) -> float:
+        """batch: {"tokens": [B, S] int, "weights": [B, S] 0/1} as numpy.
+        One optimizer update; returns the loss (weighted mean nll)."""
+        tokens = torch.from_numpy(np.asarray(batch["tokens"])).to(self.device, torch.long)
+        weights = torch.from_numpy(np.asarray(batch["weights"], np.float32)).to(self.device)
+        accum = max(1, self.tc.grad_accum_steps)
+        if tokens.shape[0] % accum:
+            raise ValueError(f"batch size {tokens.shape[0]} must split into grad_accum_steps={accum} microbatches")
+        if accum == 1:
+            loss = cross_entropy_loss(*self.loss_inputs(tokens, weights))
+            grads = torch.autograd.grad(loss, self.trainable)
+        else:
+            # Grad-of-sum per microbatch, accumulated in f32 and normalized
+            # once by the total token weight: exactly the single-step update
+            # even when microbatches carry different numbers of loss tokens.
+            s_sum = torch.zeros((), device=self.device)
+            w_sum = torch.zeros((), device=self.device)
+            acc = [torch.zeros(p.shape, dtype=torch.float32, device=self.device) for p in self.trainable]
+            for mb_tokens, mb_weights in zip(tokens.chunk(accum), weights.chunk(accum)):
+                s, w = cross_entropy_sum(*self.loss_inputs(mb_tokens, mb_weights))
+                for a, g in zip(acc, torch.autograd.grad(s, self.trainable)):
+                    a += g.float()
+                s_sum, w_sum = s_sum + s.detach(), w_sum + w
+            denom = torch.clamp(w_sum, min=1.0)
+            loss = s_sum / denom
+            # Back to the parameter dtype, as the JAX step casts them.
+            grads = [(a / denom).to(p.dtype) for a, p in zip(acc, self.trainable)]
+        self.optimizer.update(grads)
+        self.step += 1
+        return float(loss.detach())
+
+    def snapshot_params(self) -> Dict[str, torch.Tensor]:
+        """A host copy of the model's state dict (the base weights in LoRA
+        mode), safe to hand to a consumer that outlives the next step."""
+        return {name: t.detach().to("cpu", copy=True) for name, t in self.params.state_dict().items()}

@@ -18,6 +18,8 @@ import substratus_tpu_torch
 from substratus_tpu_torch.models import llama
 from substratus_tpu_torch.serve import main
 from substratus_tpu_torch.serve.engine import Engine
+from substratus_tpu_torch.train import main as train_main
+from substratus_tpu_torch.train.trainer import TrainConfig, Trainer
 from substratus_tpu_torch.utils import device
 
 REPO = Path(__file__).resolve().parents[1]
@@ -61,6 +63,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     with pytest.raises(RuntimeError, match="CUDA"):
         main.build(["--config", "tiny", "--params", "", "--port", "0"])
     assert main.parse_args([]).device is None
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(llama.CONFIGS["tiny"], TrainConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_main.run(["--params", "", "--data", str(REPO / "examples"), "--out", "unused"])
+    assert train_main.parse_args([]).device is None
 
 
 def test_default_device_is_the_card(monkeypatch):
@@ -77,7 +84,8 @@ def test_cpu_kernel_wrappers_use_plain_version_only_for_cpu_tensors():
     """A tensor on another device than the CPU never reaches the plain
     version: without a card the wrappers raise instead of computing."""
     from substratus_tpu_torch.ops.decode_attention import decode_attention
-    from substratus_tpu_torch.ops.flash_attention import flash_attention, flash_cached_attention
+    from substratus_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_cached_attention)
     from substratus_tpu_torch.ops.fused_decode import fused_decode_attention
 
     q = torch.zeros((1, 4, 2, 64), device="meta")
@@ -90,4 +98,10 @@ def test_cpu_kernel_wrappers_use_plain_version_only_for_cpu_tensors():
         flash_cached_attention(q, kv, kv, torch.zeros((1, 4), dtype=torch.int32))
     with pytest.raises((ValueError, RuntimeError)):
         fused_decode_attention(q[:, :1], kv[:, :, :1], kv[:, :, :1], kv, kv, torch.zeros(1, dtype=torch.int32))
+    stats = torch.zeros((8, 4), device="meta")
+    with pytest.raises((ValueError, RuntimeError)):
+        flash_attention_bwd_dq(q, q, q, q, stats, stats)
+    with pytest.raises((ValueError, RuntimeError)):
+        flash_attention_bwd_dkv(q, q, q, q, stats, stats)
     assert (flash_cached_attention.launches, fused_decode_attention.launches) == (0, 0)
+    assert (flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches) == (0, 0)
