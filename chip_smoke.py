@@ -23,9 +23,14 @@ Phases, each of which exits non-zero on failure:
               timed with the 50 MB L2 flushed (by a 256 MB read) before
               each launch, as a decode step streams 3.5 GB of weights; its
               library call one torch.matmul over the dequantized bf16
-              weight; the flash backward's dQ and dK/dV kernels at the
-              training shape of one llama2-7b layer (B=8, S=1024), GQA,
-              ragged and non-causal, held per output vector against a
+              weight; each case launches the design q4_design names
+              (q4_matmul.cu at decode rows, q4_matmul_wgmma.cu over the
+              prefill buckets and the chunk's four shapes) and is held
+              per output row, a limit that must also reject a dropped
+              scale group and a dropped ragged row tile; the flash
+              backward's dQ and dK/dV kernels at the training shape of
+              one llama2-7b layer (B=8, S=1024), GQA, ragged and
+              non-causal, held per output vector against a
               limit that must also reject a planted dropped tile, their
               library call one backward through scaled_dot_product_attention
               (dq, dk and dv at once);
@@ -44,7 +49,9 @@ Phases, each of which exits non-zero on failure:
               bf16 weights quantized on the card), int8 cache, fused
               decode, max_seq_len 2048; serve's five prompts and one of
               1500 tokens (3 chunks); every projection and the lm_head
-              through the int4 matmul kernel ((7 x 32 + 1) x forwards),
+              through the int4 matmul ((7 x 32 + 1) x forwards: the
+              forwards of more than 16 rows through the wgmma design, the
+              decode steps and the 16-token bucket through q4_matmul.cu),
               the attention kernels as in serve-long, every served greedy
               token held against a single-shot forward on the int4 weights;
   train       train.main at llama2-7b's full width and depth (random weights
@@ -75,8 +82,8 @@ Phases, each of which exits non-zero on failure:
               its device busy time and top kernels.
 
 The line before the last is one JSON object with every kernel's numbers
-(launches from the serve or train phase whose path runs the kernel); the
-last line
+(launches from the serve or train phase whose path runs the kernel; the
+int4 matmul's two designs are two entries); the last line
 is {"ok": true, "device": {...}}. Details go to chip_smoke.json in OUT_DIR.
 Nothing here imports JAX.
 """
@@ -108,7 +115,11 @@ LSE_ATOL = 1e-3  # f32 row logsumexp, summed in another order
 # and differ in f32 summation order, so most outputs are bit-equal and a
 # rounding flip moves a vector by at most one bf16 ulp of one term (2^-8 to
 # 2^-7 of a key with a single query). A dropped tile moves whole vectors.
-BWD_ROW_REL = 2**-6
+# The int4 matmul per output row likewise: both sides multiply the same
+# bf16 weights and differ in the f32 summation order and the output's bf16
+# rounding (2^-8 relative); a dropped scale group moves every row by about
+# 0.18 of its norm at C = 4096, a dropped row tile its rows by all of it.
+ROW_REL = 2**-6
 
 
 def fail(msg: str) -> None:
@@ -128,7 +139,10 @@ def card_line() -> str:
 
 def time_ms(fn, n: int = 25, flush=None) -> float:
     """Median of n launches, each between two CUDA events, after a warm-up;
-    flush() runs before each launch, outside the events."""
+    flush() runs before each launch, outside the events, followed by a spin
+    on the card that holds the start event back until the host has
+    enqueued fn (the int4 wrapper's Python took 45-112 us a call on the
+    card's host, more than the flush's 80 us: its launch time was counted)."""
     import torch
 
     fn()
@@ -137,6 +151,7 @@ def time_ms(fn, n: int = 25, flush=None) -> float:
     for _ in range(n):
         if flush is not None:
             flush()
+            torch.cuda._sleep(500_000)  # clock cycles, about 0.3 ms
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -354,25 +369,49 @@ def fused_case(gen, h, kh, int8, positions, b=8, s=4096, d=128):
 def q4_case(gen, m, n, c=4096, heads=None):
     """x [m, c] bf16 times a random weight [c, n] quantized by quantize4
     as the model's own (heads: wo's [heads, c / heads, n] layout, groups
-    along head_dim), the L2 flushed before each timed launch."""
+    along head_dim), the L2 flushed before each timed launch. The call
+    must launch the design q4_design names (the per-design counters), and
+    match the plain version within 1e-2 of its largest value and per output
+    row within ROW_REL. For the wgmma design the limit must also reject
+    planted faults built from the plain version: the output without its
+    last scale group and, at a ragged M (200), the output with its last
+    64-row tile zeroed (rows 192..199)."""
     import torch
 
-    from substratus_tpu_torch.ops.quant4 import q4_matmul, q4_matmul_plain, quantize4
+    from substratus_tpu_torch.ops.quant4 import q4_design, q4_matmul, q4_matmul_plain, quantize4
 
     dev = "cuda"
     shape, contracting = ((heads, c // heads, n), (0, 1)) if heads else ((c, n), (0,))
     qt = quantize4(torch.randn(shape, generator=gen, device=dev) * c**-0.5, contracting)
     packed, scale, block = qt.packed.reshape(c // 2, n), qt.scale.reshape(-1, n), qt.block
     x = torch.randn((m, c), generator=gen, device=dev).to(torch.bfloat16)
+    design = q4_design(m, n, c, block)
+    before = {d: getattr(q4_matmul, f"launches_{d}") for d in ("wgmma", "mma")}
     out = q4_matmul(x, packed, scale, block)
+    launched = {d: getattr(q4_matmul, f"launches_{d}") - before[d] for d in before}
     ref = q4_matmul_plain(x, packed, scale, block)
     torch.cuda.synchronize()
+    label = f"q4_matmul m{m} c{c} n{n} block {block}"
+    if launched != {d: int(d == design) for d in launched}:
+        fail(f"{label}: launches {launched}, want one of the {design} design")
     err = (out.float() - ref.float()).abs().max().item()
     # Both sides multiply the same bf16 weights: the output's bf16 rounding
     # (2^-8 relative) and the f32 summation order differ.
     tol = 1e-2 * ref.float().abs().max().item()
-    if not (torch.isfinite(out.float()).all() and err <= tol):
-        fail(f"q4_matmul m{m} c{c} n{n} block {block}: max|err| {err} (tol {tol})")
+    rel = row_rel_err(out, ref)
+    if not (torch.isfinite(out.float()).all() and err <= tol and rel <= ROW_REL):
+        fail(f"{label}: max|err| {err} (tol {tol}), row error {rel} (limit {ROW_REL})")
+    fault = None
+    if design == "wgmma":
+        short = q4_matmul_plain(x[:, : c - block].contiguous(), packed[: (c - block) // 2], scale[:-1], block)
+        faults = [row_rel_err(short, ref)]
+        if m == 200:
+            tile = ref.clone()
+            tile[64 * ((m - 1) // 64):] = 0
+            faults.append(row_rel_err(tile, ref))
+        fault = min(faults)
+        if fault <= ROW_REL:
+            fail(f"{label}: the limit {ROW_REL} accepts a planted fault (row errors {faults})")
     dense = qt.dequant(torch.bfloat16).reshape(c, n)
     l2 = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)  # 256 MB, 5x the 50 MB L2
 
@@ -381,8 +420,8 @@ def q4_case(gen, m, n, c=4096, heads=None):
 
     b_ms, by = bound(m * c * 2 + packed.numel() + 4 * scale.numel() + m * n * 2, 2 * m * c * n)
     return {
-        "case": f"M={m} C={c} N={n} block={block}{f' (wo, {heads} heads)' if heads else ''}",
-        "max_abs_err": err, "tol": tol,
+        "case": f"M={m} C={c} N={n} block={block}{f' (wo, {heads} heads)' if heads else ''}", "design": design,
+        "max_abs_err": err, "tol": tol, "row_rel_err": rel, "fault_row_rel_err": fault,
         "ms": time_ms(lambda: q4_matmul(x, packed, scale, block), flush=flush),
         "plain_ms": time_ms(lambda: q4_matmul_plain(x, packed, scale, block), flush=flush),
         "library_ms": time_ms(lambda: torch.matmul(x, dense), flush=flush),
@@ -407,7 +446,7 @@ def row_rel_err(got, ref) -> float:
 def bwd_case(gen, b, s, h, kh, causal, d=128):
     """The flash backward's dQ and dK/dV kernels against their plain
     version on the same q, k, v, dO and the forward kernel's out and LSE,
-    held per output vector (row_rel_err <= BWD_ROW_REL). A max-abs limit
+    held per output vector (row_rel_err <= ROW_REL). A max-abs limit
     scaled by the largest value would let most keys' dK/dV go unchecked:
     key 0 is attended by every query and sets it, later keys are smaller.
     The limit must also reject two planted faults, built from the plain
@@ -445,11 +484,11 @@ def bwd_case(gen, b, s, h, kh, causal, d=128):
     for name, g, r in zip(("dq", "dk", "dv"), got, ref):
         errs.append((g.float() - r.float()).abs().max().item())
         rels.append(row_rel_err(g, r))
-        if not (torch.isfinite(g.float()).all() and rels[-1] <= BWD_ROW_REL):
-            fail(f"{label} {name}: row error {rels[-1]} (limit {BWD_ROW_REL}), max|err| {errs[-1]}")
+        if not (torch.isfinite(g.float()).all() and rels[-1] <= ROW_REL):
+            fail(f"{label} {name}: row error {rels[-1]} (limit {ROW_REL}), max|err| {errs[-1]}")
     faults = (row_rel_err(dq_fault, ref[0]), max(row_rel_err(f, r) for f, r in zip(dkv_fault, ref[1:])))
-    if min(faults) <= BWD_ROW_REL:
-        fail(f"{label}: the limit {BWD_ROW_REL} accepts a planted fault (dq, dkv row errors {faults})")
+    if min(faults) <= ROW_REL:
+        fail(f"{label}: the limit {ROW_REL} accepts a planted fault (dq, dkv row errors {faults})")
     gqa = {"enable_gqa": True} if h != kh else {}
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
     lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, **gqa)
@@ -502,7 +541,7 @@ def kernel_phase():
         fused_case(gen, 32, 32, True, spread),
         fused_case(gen, 32, 8, False, spread),  # llama3-8b heads (GQA 4)
     ]
-    q4 = [
+    q4 = [  # the first case of each design is its main-path shape
         q4_case(gen, 8, 11008),  # llama2-7b w_gate/w_up at B=8
         q4_case(gen, 8, 32000),  # the lm_head at B=8
         q4_case(gen, 8, 4096, c=11008),  # w_down at B=8
@@ -511,6 +550,11 @@ def kernel_phase():
         q4_case(gen, 128, 32000),  # the lm_head over a 128-token prefill bucket
         q4_case(gen, 1, 11008),  # one decoding slot
         q4_case(gen, 8, 2048, c=2048, heads=32),  # tinyllama's wo: groups of 64
+        q4_case(gen, 512, 4096),  # wq/wk/wv/wo over a 512-row chunk
+        q4_case(gen, 512, 4096, c=11008),  # w_down over a 512-row chunk
+        q4_case(gen, 512, 32000),  # the lm_head over a 512-row chunk
+        q4_case(gen, 32, 11008),  # w_gate over a 32-token bucket
+        q4_case(gen, 200, 4096),  # a ragged row count (the planted dropped row tile)
     ]
     bwd = [
         bwd_case(gen, 8, 1024, 32, 32, True),  # one llama2-7b layer at the finetune example's batch
@@ -519,13 +563,15 @@ def kernel_phase():
         bwd_case(gen, 2, 384, 32, 32, False),
     ]
     report = {"flash_fwd": flash, "decode_attn": decode, "flash_cached": cached, "fused_decode": fused,
-              "q4_matmul": q4, "flash_bwd_dq": [c[0] for c in bwd], "flash_bwd_dkv": [c[1] for c in bwd]}
+              "q4_matmul": [c for c in q4 if c["design"] == "mma"],
+              "q4_matmul_wgmma": [c for c in q4 if c["design"] == "wgmma"],
+              "flash_bwd_dq": [c[0] for c in bwd], "flash_bwd_dkv": [c[1] for c in bwd]}
     for name, cases in report.items():
         for c in cases:
             lib = "n/a" if c["library_ms"] is None else f"{c['library_ms']:.4f}"
             if "row_rel_err" in c:
-                check = (f"row error {c['row_rel_err']:.4g} (limit {BWD_ROW_REL}; planted fault "
-                         f"{c['fault_row_rel_err']:.4g}), max|err| {c['max_abs_err']:.3g}")
+                planted = "" if c["fault_row_rel_err"] is None else f"; planted fault {c['fault_row_rel_err']:.4g}"
+                check = f"row error {c['row_rel_err']:.4g} (limit {ROW_REL}{planted}), max|err| {c['max_abs_err']:.3g}"
             else:
                 check = f"max|err| {c['max_abs_err']:.3g} (tol {c['tol']})"
             print(f"kernel {name} [{c['case']}]: {check}"
@@ -635,7 +681,8 @@ def _device_summary(prof, wall: float, reps: int, top_n: int = 10) -> dict:
     busy = sum(dev_us(e) for e in kernels) / 1e6
     top = sorted(kernels, key=dev_us, reverse=True)[:top_n]
     return {"profiled_ms": 1e3 * wall / reps, "device_busy_ms": 1e3 * busy / reps,
-            "q4_matmul_ms": ms_of(Q4_NAMES), "gemm_ms": ms_of(GEMM_NAMES),
+            "q4_matmul_ms": ms_of(Q4_NAMES), "q4_matmul_wgmma_ms": ms_of(("q4_matmul_wgmma",)),
+            "gemm_ms": ms_of(GEMM_NAMES),
             "top": [{"name": e.key, "ms": dev_us(e) / 1e3 / reps, "calls": e.count / reps} for e in top]}
 
 
@@ -702,9 +749,11 @@ def profile_engine(engine, label: str = "profile", lens=(16, 400), fill: int = 1
               + "; ".join(f"{impl} {', '.join(f'{t:.2f}' for t in ts)}" for impl, ts in turns.items())
               + f"; device busy {out['decode']['device_busy_ms']:.2f} ms ({cfg.decode_attn_impl}) against "
               f"{out[f'decode_{alt_decode}']['device_busy_ms']:.2f} ms ({alt_decode})", flush=True)
+    pre = out[f"prefill_{long}"]
     print(f"{label}: prefill {short} tokens {out['prefill_ms'][short]:.1f} ms, {long} tokens "
           f"{out['prefill_ms'][long]:.1f} ms in {out['chunks'] or 1} chunk(s) (device busy "
-          f"{out[f'prefill_{long}']['device_busy_ms']:.2f} ms); decode step at B={out['batch']} "
+          f"{pre['device_busy_ms']:.2f} ms; int4 matmul {pre['q4_matmul_ms']:.2f} ms, wgmma design "
+          f"{pre['q4_matmul_wgmma_ms']:.2f} ms of it); decode step at B={out['batch']} "
           f"{out['decode_step_ms']:.2f} ms (device busy {out['decode']['device_busy_ms']:.2f} ms, "
           f"{100 * out['decode']['device_busy_ms'] / out['decode_step_ms']:.1f}%; int4 matmul "
           f"{out['decode']['q4_matmul_ms']:.3f} ms, GEMMs {out['decode']['gemm_ms']:.3f} ms of it)", flush=True)
@@ -791,7 +840,9 @@ def zero_counts(engine, counters) -> None:
     for k, v in engine.stats.items():
         engine.stats[k] = 0 * v
     for c in counters:
-        c.launches = 0
+        for name in vars(c):
+            if name.startswith("launches"):  # q4_matmul also counts per design
+                setattr(c, name, 0)
 
 
 def serve_phase(card: str, profile_steps: bool = False):
@@ -991,7 +1042,8 @@ def serve_int4_phase(card: str, profile_steps: bool = False):
     from substratus_tpu_torch.ops.flash_attention import flash_attention, flash_cached_attention
     from substratus_tpu_torch.ops.fused_decode import fused_decode_attention
     from substratus_tpu_torch.ops.quant import is_quantized
-    from substratus_tpu_torch.ops.quant4 import q4_matmul
+    from substratus_tpu_torch.ops.quant4 import WGMMA_MIN_M, q4_matmul
+    from substratus_tpu_torch.serve.engine import _bucket
 
     gc.collect()  # the earlier phases' servers and caches
     torch.cuda.empty_cache()
@@ -1016,6 +1068,9 @@ def serve_int4_phase(card: str, profile_steps: bool = False):
         results, wall = run_concurrent(base, INT4_PROMPTS)
         wait_idle(engine)
         launches = {name: c.launches for name, c in counters.items()}
+        # q4_matmul: q4_matmul.cu's kernel; q4_matmul_wgmma: the prefill design
+        launches.update(q4_matmul=q4_matmul.launches_mma, q4_matmul_wgmma=q4_matmul.launches_wgmma,
+                        q4_matmul_total=q4_matmul.launches)
         stats = dict(engine.stats)
     finally:
         server.stop()
@@ -1023,16 +1078,27 @@ def serve_int4_phase(card: str, profile_steps: bool = False):
     del engine.submit
     L = engine.cfg.n_layers
     forwards = stats["prefills"] + stats["prefill_chunks"] + stats["decode_steps"]
-    want = {"q4_matmul": (7 * L + 1) * forwards, "flash_fwd": L * stats["prefills"],
-            "flash_cached": L * stats["prefill_chunks"], "fused_decode": L * stats["decode_steps"], "decode_attn": 0}
     chunk = INT4_PARAMS["max_prefill_len"]
     lengths = [len(text.encode()) + 1 for text, *_ in INT4_PROMPTS]
     chunks = sum(-(-n // chunk) for n in lengths if n > chunk)
     singles = sum(n <= chunk for n in lengths)
+    # Rows of each prefill forward: a prompt's bucket, or each chunk's
+    # (capped at the chunk); a decode step has max_batch rows. Every
+    # llama2-7b projection takes the wgmma design above WGMMA_MIN_M rows.
+    rows = [min(_bucket(n), chunk) for n in lengths if n <= chunk]
+    rows += [min(_bucket(min(chunk, n - o)), chunk) for n in lengths if n > chunk for o in range(0, n, chunk)]
+    wide = sum(r > WGMMA_MIN_M for r in rows)
+    want = {"q4_matmul": (7 * L + 1) * (forwards - wide), "q4_matmul_wgmma": (7 * L + 1) * wide,
+            "q4_matmul_total": (7 * L + 1) * forwards, "flash_fwd": L * stats["prefills"],
+            "flash_cached": L * stats["prefill_chunks"], "fused_decode": L * stats["decode_steps"], "decode_attn": 0}
+    print(f"serve-int4: prefill forwards of {rows} rows; {wide} of them above {WGMMA_MIN_M} rows take the wgmma "
+          f"design ({want['q4_matmul_wgmma']} launches), the other {forwards - wide} forwards (decode steps of "
+          f"{INT4_PARAMS['max_batch']} rows included) q4_matmul.cu's kernel ({want['q4_matmul']})", flush=True)
     if launches != want or (stats["prefill_chunks"], stats["prefills"]) != (chunks, singles):
         fail(f"serve-int4: launches {launches} against {want}; stats {stats}, want {chunks} chunks "
              f"and {singles} single-shot prefills")
-    if not all(launches[name] > 0 for name in ("q4_matmul", "flash_fwd", "flash_cached", "fused_decode")):
+    if not all(launches[name] > 0 for name in ("q4_matmul", "q4_matmul_wgmma", "flash_fwd", "flash_cached",
+                                               "fused_decode")):
         fail(f"serve-int4: a kernel of the path never launched: {launches}")
     reference = long_reference_check(engine, [r for r in requests if r.temperature == 0.0], "serve-int4")
     profiled = profile_engine(engine, "profile-int4", (16, 1500)) if profile_steps else None
@@ -1365,6 +1431,8 @@ def main() -> int:
                    "fused_decode": ("substratus_tpu_torch/csrc/fused_decode.cu",
                                     "substratus_tpu/ops/fused_decode.py:48"),
                    "q4_matmul": ("substratus_tpu_torch/csrc/q4_matmul.cu", "substratus_tpu/ops/quant4.py:168"),
+                   "q4_matmul_wgmma": ("substratus_tpu_torch/csrc/q4_matmul_wgmma.cu",
+                                       "substratus_tpu/ops/quant4.py:168"),
                    "flash_bwd_dq": ("substratus_tpu_torch/csrc/flash_bwd.cu",
                                     "substratus_tpu/ops/flash_attention.py:247"),
                    "flash_bwd_dkv": ("substratus_tpu_torch/csrc/flash_bwd.cu",
@@ -1373,6 +1441,7 @@ def main() -> int:
         # path runs it (train: the first train.main call, 4 steps).
         phase_of = {"flash_fwd": "serve", "decode_attn": "serve",
                     "flash_cached": "serve-long", "fused_decode": "serve-long", "q4_matmul": "serve-int4",
+                    "q4_matmul_wgmma": "serve-int4",
                     "flash_bwd_dq": "train", "flash_bwd_dkv": "train"}
         line = []
         for name, cases in report["kernels"].items():

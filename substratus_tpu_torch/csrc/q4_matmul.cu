@@ -5,7 +5,16 @@
 //
 // Replaces the TPU kernel substratus_tpu/ops/quant4.py _matmul_kernel
 // (driven by _matmul), the serving path's projections and lm_head under
-// quantize=int4 (7 * n_layers + 1 launches a forward).
+// quantize=int4 (7 * n_layers + 1 launches a forward), together with
+// q4_matmul_wgmma.cu. Which design serves which M (ops/quant4.py::
+// q4_design, by shape alone): the decode steps (M <= 16, at most
+// max_batch rows) stream the weight bytes, and this kernel's [16, 64]
+// tiles with split-K match cuBLAS on the bf16 weight there; above 16 rows
+// the products bound the call, and q4_matmul_wgmma.cu (TMA, wgmma, the
+// dequantization under the products) serves every shape it takes (N a
+// multiple of 16, groups of 128: every llama2-7b projection and the
+// lm_head). This kernel's [64, 128] tiles keep the rest (N = 1000, groups
+// of 64, as tinyllama's wo).
 //
 // Layout: x [M, C] bf16, packed [C/2, N] uint8, scale [C/block, N] f32,
 // out [M, N] bf16, all contiguous; ws [splits, M, N] f32 scratch when
@@ -28,8 +37,8 @@
 // fragments from ldmatrix and W fragments from ldmatrix.trans. Two tile
 // shapes: M <= 16 (a decode step) takes [16, 64] with each warp on 16
 // columns (44 KB of shared memory, so five blocks fit an SM), M > 16 (a
-// prefill bucket or a chunk) [64, 128] with each warp on 32 x 64. Rows
-// past M and columns past N are zero-filled and not written.
+// shape q4_matmul_wgmma.cu does not take) [64, 128] with each warp on
+// 32 x 64. Rows past M and columns past N are zero-filled and not written.
 //
 // Bound on an H100 (SXM, 3.35 TB/s, 989 TFLOP/s bf16): at decode (M = 8)
 // the bytes, 24.2 MB for w_gate [4096, 11008] (7.2 us), since there are
@@ -40,7 +49,8 @@
 // not overlap the loads (four warps a block, two barriers a group). At
 // M = 512 the operations bound it (46.2 GFLOP, 47 us); every [64, 128]
 // tile dequantizes its groups again, every column tile reads x again, and
-// the products use mma.sync rather than wgmma.
+// the products use mma.sync rather than wgmma: 4.6x behind cuBLAS there,
+// which is why q4_matmul_wgmma.cu takes those shapes.
 #include "mma.cuh"
 
 namespace substratus {

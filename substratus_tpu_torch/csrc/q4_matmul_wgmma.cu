@@ -1,0 +1,459 @@
+// int4 unpack-dequant matmul for Hopper (sm_90a) at prefill shapes:
+// out[M, N] = x[M, C] @ W, the same function as q4_matmul.cu's kernel
+// (W[g * 128 + r, n] the low nibble of packed byte (g * 64 + r, n),
+// W[g * 128 + 64 + r, n] its high nibble, each sign-extended and times
+// scale[g, n]), for groups of 128 and N a multiple of 16.
+//
+// Replaces, with q4_matmul.cu, the TPU kernel substratus_tpu/ops/quant4.py
+// _matmul_kernel. ops/quant4.py::q4_design routes a call here when
+// M > 16, N % 16 == 0 and the group is 128: every llama2-7b projection and
+// the lm_head over a prefill bucket (32..512 rows) or a 512-row chunk.
+// q4_matmul.cu keeps the decode steps (M <= 16, split-K) and every other
+// shape.
+//
+// Numerics are the plain version's: each W value is (int4 * scale) in f32
+// rounded to bf16 (round to nearest even), products accumulate in f32 on
+// the tensor cores, the output is rounded once to bf16.
+//
+// Bound on an H100 (SXM, 989 TFLOP/s bf16, 3.35 TB/s): the operations at
+// M >= 64 (M = 512, C = 4096, N = 11008: 46.2 GFLOP, 47 us). q4_matmul.cu's
+// [64, 128] tiles serialise the dequantization with mma.sync (two barriers
+// a group), dequantize every weight again in each 64-row tile, and cannot
+// reach the bf16 rate, which only wgmma reaches.
+//
+// Design: the transposed product, out^T[N, M] = W^T x^T, so that the
+// dequantized weights are wgmma's A operand in registers and never pass
+// through shared memory.
+//
+// - A block of three warpgroups owns 128 output columns (n) by BM rows
+//   (m). Warpgroup 2 is the producer: two of its threads keep two TMA
+//   rings in flight (tensor maps encoded on the host for each call), one
+//   of x tiles [BM, 128] bf16 (two [BM, 64] boxes, 128-byte swizzle:
+//   exactly the K-major B operand of wgmma), and one, running further
+//   ahead, of a group's packed bytes [64, 128] (128-byte swizzle) and its
+//   128 scales. TMA zero-fills x's rows past M and the columns past N.
+//   setmaxnreg gives the producer's registers to the consumers.
+// - Warpgroups 0 and 1 consume, each on 64 columns. A warp's 16 columns
+//   are its 16 rows of A; with ldmatrix.trans on the packed bytes (as
+//   16-bit pairs of columns) a thread receives bytes (k, 2c), (k, 2c + 1),
+//   (k + 1, 2c), (k + 1, 2c + 1) -- exactly its A fragment when A row c is
+//   mapped to column 2c and row c + 8 to column 2c + 1 -- and dequantizes
+//   them in registers (about 3.6 instructions a weight). The dequantized
+//   weights never pass through shared memory, which holds only TMA stages.
+// - Each consumer issues group g's eight m64nBMk16 wgmmas on its A
+//   registers, dequantizes group g + 1 into a second set of registers
+//   while they run, then waits for them. (A first version dequantized into
+//   a double-buffered bf16 W tile in shared memory, read as wgmma's
+//   MN-major B operand: 1.4x slower at M = 512, its rings shallower for
+//   the 64 KB of W tiles.)
+// - BM (the output rows of a block, wgmma's N) is 32 up to 32 rows, 64 up
+//   to 64, and 128 above unless 64 fills the card better (q4_bm): every
+//   weight is dequantized once per BM rows, and the tensor cores do little
+//   work for rows past M.
+//
+// Waves on the 132 SMs (one block per SM) at M = 512 (BM = 128): 128 tiles
+// for N = 4096 (one wave), 344 for N = 11008 (2.6), 1000 for N = 32000
+// (7.6). At M = 128 there are N / 128 column tiles: 86 for N = 11008 and
+// 250 for N = 32000 at BM = 128, while for N = 4096 BM = 64 doubles its 32
+// tiles. x is read again by every column tile, from L2 (361 MB at M = 512,
+// N = 11008, for 22.5 MB of packed bytes). Measured on an H100 against
+// torch.matmul on the dequantized bf16 weight: PERF.md. A persistent tile
+// scheduler, clusters with TMA multicast of the x tile, and split-K where
+// a shape gives few tiles (N = 4096 below 128 rows) are later steps.
+#include <cuda.h>  // CUtensorMap and its enums (the function comes from the driver at run time)
+
+#include "mma.cuh"
+
+namespace substratus {
+namespace {
+
+constexpr int BN = 128;      // output columns per block (64 per consumer warpgroup)
+constexpr int GROUP = 128;   // rows of W per scale group (K per stage)
+constexpr int CONSUMERS = 256;
+constexpr int THREADS = CONSUMERS + 128;  // two consumer warpgroups and the producer's
+
+// Shared memory of a block: the ring of x tiles (XSTAGES) and the ring of
+// packed bytes with their scales (PSTAGES), filled by TMA.
+template <int BM>
+struct Layout {
+  static constexpr int XSTAGES = BM == 128 ? 5 : 8;
+  static constexpr int PSTAGES = BM == 128 ? 6 : BM == 64 ? 8 : 12;
+  static constexpr int x_bytes = BM * GROUP * 2;   // two [BM, 64] swizzled boxes
+  static constexpr int p_bytes = GROUP / 2 * BN;   // packed bytes of a group
+  static constexpr int s_bytes = BN * 4;           // scales of a group
+  static constexpr int x_off = 0;
+  static constexpr int p_off = x_off + XSTAGES * x_bytes;
+  static constexpr int s_off = p_off + PSTAGES * p_bytes;
+  static constexpr int bar_off = s_off + PSTAGES * s_bytes;
+  // full and empty barriers of both rings, + slack to align the base to 1024
+  static constexpr int total = bar_off + 16 * (XSTAGES + PSTAGES) + 1024;
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// A wgmma shared-memory descriptor with the 128-byte swizzle: start
+// address, leading and stride byte offsets, each in 16-byte units.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 | (uint64_t)(sbo >> 4) << 32 |
+         (uint64_t)1 << 62;
+}
+
+// The compiler must not move registers that a wgmma in flight reads or
+// writes.
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[j][i])::"memory");
+}
+
+// d[64 x n] += A[64 x 16] (registers) * B[16 x n] (K-major, shared), bf16
+// in, f32 accumulators.
+__device__ __forceinline__ void wgmma(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// (t & mask) ^ magic in one instruction (the compiler splits it into two
+// when both constants are immediates).
+__device__ __forceinline__ float and_xor(uint32_t t, uint32_t mask, uint32_t magic) {
+  uint32_t d;
+  asm("lop3.b32 %0, %1, %2, %3, 0x6a;\n" : "=r"(d) : "r"(t), "r"(mask), "r"(magic));
+  return __uint_as_float(d);
+}
+
+// One register of ldmatrix.trans output, bytes (k, c0), (k, c1), (k + 1,
+// c0), (k + 1, c1), into four A registers: the low nibbles (K rows k,
+// k + 1 of the group) and the high nibbles (rows k + 64, k + 65) of column
+// c0 (lo0, hi0) and of column c1 (lo1, hi1), each a bf16 pair. A nibble u
+// in bits [b, b + 4) of a word, b <= 12, masked, xor-ed with 8 << b and
+// or-ed into 0x4B000000, is the float 2^23 + 2^b (u ^ 8) exactly; one
+// subtraction gives 2^b q for the sign-extended q, and times s 2^-b (sc,
+// exact for scales above 2^-114) gives f32(q * s) exactly. Bytes 2 and 3
+// are shifted down to the bit positions of bytes 0 and 1.
+__device__ __forceinline__ void dequant_reg(uint32_t w, const float (&sc)[4], uint32_t& lo0, uint32_t& lo1,
+                                            uint32_t& hi0, uint32_t& hi1) {
+  float lo[4], hi[4];  // by byte: (k, c0), (k, c1), (k + 1, c0), (k + 1, c1)
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const uint32_t t = i ? w >> 16 : w;
+    lo[2 * i] = (and_xor(t, 0xFu, 0x4B000008u) - 8388616.f) * sc[0];         // 2^23 + 8
+    hi[2 * i] = (and_xor(t, 0xF0u, 0x4B000080u) - 8388736.f) * sc[1];        // 2^23 + 2^7
+    lo[2 * i + 1] = (and_xor(t, 0xF00u, 0x4B000800u) - 8390656.f) * sc[2];   // 2^23 + 2^11
+    hi[2 * i + 1] = (and_xor(t, 0xF000u, 0x4B008000u) - 8421376.f) * sc[3];  // 2^23 + 2^15
+  }
+  lo0 = pack_bf16(lo[0], lo[2]);
+  lo1 = pack_bf16(lo[1], lo[3]);
+  hi0 = pack_bf16(hi[0], hi[2]);
+  hi1 = pack_bf16(hi[1], hi[3]);
+}
+
+template <int BM>
+__global__ void __launch_bounds__(THREADS, 1) q4_matmul_wgmma_kernel(
+    const __grid_constant__ CUtensorMap x_map, const __grid_constant__ CUtensorMap p_map,
+    const __grid_constant__ CUtensorMap s_map, __nv_bfloat16* __restrict__ out, int M, int N, int G) {
+  using L = Layout<BM>;
+  constexpr int XS = L::XSTAGES, PS = L::PSTAGES;
+  constexpr int ACC = BM / 2;  // f32 accumulators a thread: m64 x nBM over 128 threads
+
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // the 128-byte swizzle repeats every 1024 bytes
+  const uint8_t* gbase = smem_raw + (base - raw);
+  const uint32_t x_full = base + L::bar_off, x_empty = x_full + 8 * XS;
+  const uint32_t p_full = x_empty + 8 * XS, p_empty = p_full + 8 * PS;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+
+  if (threadIdx.x == 0) {
+    // full: the producer's expect_tx, completed by TMA's bytes; empty: lane
+    // 0 of each of the eight consumer warps when it is done with a stage.
+    for (int s = 0; s < XS; ++s) mbar_init(x_full + 8 * s, 1), mbar_init(x_empty + 8 * s, 8);
+    for (int s = 0; s < PS; ++s) mbar_init(p_full + 8 * s, 1), mbar_init(p_empty + 8 * s, 8);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {
+    // Producer warpgroup: lane 0 of its first warp fills the x ring, lane
+    // 0 of its second the ring of packed bytes and scales.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == CONSUMERS) {
+      for (int g = 0; g < G; ++g) {
+        const int s = g % XS;
+        if (g >= XS) mbar_wait(x_empty + 8 * s, ((g / XS) - 1) & 1);
+        const uint32_t bar = x_full + 8 * s, xs = base + L::x_off + s * L::x_bytes;
+        mbar_expect_tx(bar, L::x_bytes);
+        tma_load_2d(xs, &x_map, bar, g * GROUP, m0);
+        tma_load_2d(xs + L::x_bytes / 2, &x_map, bar, g * GROUP + 64, m0);
+      }
+    } else if (threadIdx.x == CONSUMERS + 32) {
+      for (int g = 0; g < G; ++g) {
+        const int s = g % PS;
+        if (g >= PS) mbar_wait(p_empty + 8 * s, ((g / PS) - 1) & 1);
+        const uint32_t bar = p_full + 8 * s;
+        mbar_expect_tx(bar, L::p_bytes + L::s_bytes);
+        tma_load_2d(base + L::p_off + s * L::p_bytes, &p_map, bar, n0, g * (GROUP / 2));
+        tma_load_2d(base + L::s_off + s * L::s_bytes, &s_map, bar, n0, g);
+      }
+    }
+  } else {
+    // Consumer warpgroups.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int ct = threadIdx.x, wg = ct / 128, warp = (ct % 128) / 32, lane = ct % 32;
+    const int col = wg * 64 + warp * 16;  // the warp's 16 columns: its A rows, permuted
+    // ldmatrix rows: lane l gives packed row l (then 32 + l), in the
+    // swizzled position of the warp's 16-byte chunk.
+    const uint32_t ld = lane * 128 + (((col / 16) ^ (lane & 7)) << 4);
+    float acc[ACC];
+#pragma unroll
+    for (int i = 0; i < ACC; ++i) acc[i] = 0.f;
+
+    // Group g's A fragments: a[j] for the K rows 16 j.. of the group (j < 4
+    // low nibbles, j >= 4 high nibbles); ldmatrix matrix q holds K rows
+    // 8 q.. of the low half, the first (q even) or second 8 of step q / 2.
+    auto dequant = [&](int g, uint32_t (&a)[8][4]) {
+      const int s = g % PS;
+      mbar_wait(p_full + 8 * s, (g / PS) & 1);
+      const uint32_t P = base + L::p_off + s * L::p_bytes;
+      uint32_t r[2][4];
+      ldmatrix_x4_trans(r[0], P + ld);
+      ldmatrix_x4_trans(r[1], P + ld + 32 * 128);
+      const float2 sc = *reinterpret_cast<const float2*>(gbase + L::s_off + s * L::s_bytes +
+                                                         4 * (col + 2 * (lane / 4)));
+      // column c0's scale for nibbles at bits 0 and 4, c1's at bits 8 and 12
+      const float scales[4] = {sc.x, sc.x * 0x1p-4f, sc.y * 0x1p-8f, sc.y * 0x1p-12f};
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int j = q / 2, h = 2 * (q % 2);
+        dequant_reg(r[q / 4][q % 4], scales, a[j][h], a[j][h + 1], a[j + 4][h], a[j + 4][h + 1]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(p_empty + 8 * s);
+    };
+    // Group g's eight products on its A registers, issued asynchronously;
+    // group g + 1 dequantized into next while they run; then the products
+    // are waited for and the x stage freed.
+    auto step = [&](int g, uint32_t (&a)[8][4], uint32_t (&next)[8][4]) {
+      const int s = g % XS;
+      mbar_wait(x_full + 8 * s, (g / XS) & 1);
+      const uint32_t xs = base + L::x_off + s * L::x_bytes;
+      fence_regs(acc);
+      fence_regs(a);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int j = 0; j < GROUP / 16; ++j)  // 16 K rows are 32 bytes of a swizzled 128-byte row
+        wgmma(acc, a[j], smem_desc(xs + (j / 4) * (L::x_bytes / 2) + (j % 4) * 32, 16, 1024));
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      if (g + 1 < G) dequant(g + 1, next);
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      fence_regs(acc);
+      fence_regs(a);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(x_empty + 8 * s);
+    };
+
+    uint32_t a0[8][4], a1[8][4];
+    dequant(0, a0);
+    for (int g = 0; g < G; g += 2) {
+      step(g, a0, a1);
+      if (g + 1 < G) step(g + 1, a1, a0);
+    }
+
+    // Accumulator i: A row 16 warp + lane / 4 + 8 ((i / 2) % 2), i.e. column
+    // col + 2 (lane / 4) + (i / 2) % 2, and B column (output row)
+    // 8 (i / 4) + 2 (lane % 4) + i % 2: each thread writes column pairs.
+    const int c = n0 + col + 2 * (lane / 4);
+    if (c < N) {
+#pragma unroll
+      for (int j = 0; j < BM / 8; ++j) {
+        const int row = m0 + 8 * j + 2 * (lane % 4);
+        if (row < M)
+          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * N + c) =
+              __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 2]);
+        if (row + 1 < M)
+          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)(row + 1) * N + c) =
+              __floats2bfloat162_rn(acc[4 * j + 1], acc[4 * j + 3]);
+      }
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (the library
+// is not linked against libcuda).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status) == cudaSuccess &&
+        status == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 2-D row-major map: dims {inner, outer}, row stride in bytes, box {bi, bo}.
+bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, uint64_t inner, uint64_t outer,
+              uint64_t row_bytes, uint32_t bi, uint32_t bo, CUtensorMapSwizzle swizzle) {
+  const cuuint64_t dims[2] = {inner, outer};
+  const cuuint64_t strides[1] = {row_bytes};
+  const cuuint32_t box[2] = {bi, bo};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode_tiled()(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BM>
+int launch(const void* x, const void* packed, const void* scale, void* out, int M, int N, int C,
+           cudaStream_t stream) {
+  constexpr int smem = Layout<BM>::total;
+  auto kernel = q4_matmul_wgmma_kernel<BM>;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  CUtensorMap x_map, p_map, s_map;
+  const int G = C / GROUP;
+  if (!make_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, C, M, (uint64_t)C * 2, 64, BM,
+                CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !make_map(&p_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, packed, N, C / 2, N, BN, GROUP / 2,
+                CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !make_map(&s_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, scale, N, G, (uint64_t)N * 4, BN, 1,
+                CU_TENSOR_MAP_SWIZZLE_NONE))
+    return -3;
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  kernel<<<grid, THREADS, smem, stream>>>(x_map, p_map, s_map, static_cast<__nv_bfloat16*>(out), M, N, G);
+  return (int)cudaGetLastError();
+}
+
+// The block's output rows: the smallest of 32, 64 and 128 that covers M,
+// except that above 64 rows 64 is kept while 128-row tiles would fill at
+// most half of the card's SMs (at M = 128: N = 4096 takes 64 tiles of 64
+// rows, which ran faster than 32 of 128 on an H100; N = 11008 takes 86 of
+// 128, faster than 172 of 64, 1.3 waves).
+int q4_bm(int M, int N) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      sms = 132;
+  }
+  if (M <= 32) return 32;
+  if (M <= 64) return 64;
+  const int tiles = (N + BN - 1) / BN * ((M + 127) / 128);
+  return 2 * tiles <= sms ? 64 : 128;
+}
+
+}  // namespace
+}  // namespace substratus
+
+// x [M, C] bf16, packed [C/2, N] uint8, scale [C/128, N] f32, out [M, N]
+// bf16, all contiguous and 16-byte aligned. -1 for a shape this design
+// does not take (ops/quant4.py::q4_design routes those to q4_matmul), -3
+// when the driver gives no tensor map.
+extern "C" int q4_matmul_wgmma(const void* x, const void* packed, const void* scale, void* out, int M, int N,
+                               int C, int block, void* stream) {
+  using namespace substratus;
+  if (block != GROUP || M < 1 || N < 16 || N % 16 != 0 || C < GROUP || C % GROUP != 0) return -1;
+  if (((uintptr_t)x | (uintptr_t)packed | (uintptr_t)scale) % 16 != 0) return -1;
+  if ((M + 31) / 32 > 65535) return -1;  // grid.y limit
+  if (encode_tiled() == nullptr) return -3;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (q4_bm(M, N)) {
+    case 128:
+      return launch<128>(x, packed, scale, out, M, N, C, s);
+    case 64:
+      return launch<64>(x, packed, scale, out, M, N, C, s);
+    default:
+      return launch<32>(x, packed, scale, out, M, N, C, s);
+  }
+}

@@ -48,6 +48,8 @@ SIGNATURES = {
     "fused_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     # x, packed, scale, out, ws, M, N, C, block, splits, stream
     "q4_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, packed, scale, out, M, N, C, block, stream (the prefill design)
+    "q4_matmul_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # M, N, C, block, sms -> split-K factor of q4_matmul
     "q4_matmul_splits": [_I, _I, _I, _I, _I],
     # q, k, v, do, lse, delta, dq, B, Sq, Sk, H, KH, D, dtype, scale, causal, stream

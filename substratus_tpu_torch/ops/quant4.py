@@ -7,17 +7,22 @@ into one uint8 along the LAST contracting dim of the weight, block-folded
 as its low and high nibbles), with a symmetric f32 scale (absmax/7, values
 clipped to [-8, 7]) per group of ``block`` rows and every other channel.
 
-``q4_matmul`` (csrc/q4_matmul.cu) replaces the TPU kernel
-``_matmul_kernel``: x[M, C] @ W with W unpacked from the nibbles and
-scaled per group inside the kernel, so only the packed bytes and the
-scales leave device memory. On CUDA tensors it launches the kernel or
-raises; on CPU tensors it runs ``q4_matmul_plain``. ``q4_matmul.launches``
-counts the launches. ``q4einsum`` routes every dense-layer projection
-(wq/wk/wv, wo, gate/up/down, lm_head) through it; an equation that does
-not fit dequantizes and runs a plain einsum on the CPU, as in the JAX
-package, and raises on the card.
+``q4_matmul`` replaces the TPU kernel ``_matmul_kernel``: x[M, C] @ W
+with W unpacked from the nibbles and scaled per group inside the kernel,
+so only the packed bytes and the scales leave device memory. Two CUDA
+designs compute it, chosen by shape alone (``q4_design``): the prefill
+kernel csrc/q4_matmul_wgmma.cu (TMA, wgmma, the dequantization
+overlapped with the products) for M > 16 with N a multiple of 16 and
+groups of 128, and csrc/q4_matmul.cu (mma.sync, split-K at M <= 16) for
+every decode step and every other shape. On CUDA tensors it launches one
+of them or raises; on CPU tensors it runs ``q4_matmul_plain``.
+``q4_matmul.launches`` counts every launch, ``launches_wgmma`` and
+``launches_mma`` those of each design. ``q4einsum`` routes every
+dense-layer projection (wq/wk/wv, wo, gate/up/down, lm_head) through it;
+an equation that does not fit dequantizes and runs a plain einsum on the
+CPU, as in the JAX package, and raises on the card.
 
-The card runs the kernel for every M >= 1, where the JAX package gives
+The card runs a kernel for every M >= 1, where the JAX package gives
 M < 8 to its XLA formula because of the TPU's tiling; the math is the same.
 """
 from __future__ import annotations
@@ -31,7 +36,8 @@ from torch import nn
 from substratus_tpu_torch import kernels
 
 BLOCK = 128  # pack-fold / scale-group size along the packed dim
-KERNEL_BLOCKS = (32, 64, 128)  # groups the CUDA kernel is built for
+KERNEL_BLOCKS = (32, 64, 128)  # groups the CUDA kernels are built for
+WGMMA_MIN_M = 16  # rows above which the prefill design serves (a decode step has at most max_batch)
 
 
 def _pack_block_for(dim: int) -> int:
@@ -170,11 +176,24 @@ def _splits(m: int, n: int, c: int, block: int, device_index: int) -> int:
     return kernels.library().q4_matmul_splits(m, n, c, block, sms)
 
 
+def q4_design(m: int, n: int, c: int, block: int) -> str:
+    """The CUDA design that serves x[m, c] @ W[c, n] in groups of `block`:
+    "wgmma" (csrc/q4_matmul_wgmma.cu: TMA rings, each group dequantized in
+    registers as wgmma's A operand under the products of the group before)
+    for the prefill regime, m > 16 with n a multiple of 16 (TMA's 16-byte
+    row stride of the packed bytes) and groups of 128 -- every llama2-7b
+    projection and the lm_head over a prefill bucket or chunk; "mma"
+    (csrc/q4_matmul.cu: mma.sync, split-K at m <= 16) for every decode
+    step and every other shape (n = 1000, groups of 64). By shape alone:
+    a launch that fails raises, it is not retried on the other design."""
+    return "wgmma" if m > WGMMA_MIN_M and n % 16 == 0 and block == 128 and c % block == 0 else "mma"
+
+
 def q4_matmul(x2: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor, block: int) -> torch.Tensor:
     """x2 [M, C] @ int4-packed [C/2, N] -> [M, N] in x2's dtype. CUDA
-    tensors launch csrc/q4_matmul.cu (bf16 x, block in KERNEL_BLOCKS, N a
-    multiple of 8, C a multiple of block) or raise; CPU tensors run the
-    plain version."""
+    tensors launch the design ``q4_design`` names (bf16 x, block in
+    KERNEL_BLOCKS, N a multiple of 8, C a multiple of block) or raise; CPU
+    tensors run the plain version."""
     if x2.device.type == "cpu":
         return q4_matmul_plain(x2, packed, scale, block)
     if x2.device.type != "cuda":
@@ -198,20 +217,31 @@ def q4_matmul(x2: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor, block
     x2 = x2.contiguous()
     if x2.data_ptr() % 16:
         raise ValueError("q4_matmul: x must be 16-byte aligned")
-    splits = _splits(m, n, c, block, x2.device.index)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
-    ws = torch.empty((splits, m, n), dtype=torch.float32, device=x2.device) if splits > 1 else None
-    rc = kernels.library().q4_matmul(
-        x2.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        ws.data_ptr() if ws is not None else None, m, n, c, block, splits,
-        kernels.stream_ptr(x2.device),
-    )
-    kernels.check(rc, "q4_matmul")
+    if q4_design(m, n, c, block) == "wgmma":
+        rc = kernels.library().q4_matmul_wgmma(
+            x2.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(), m, n, c, block,
+            kernels.stream_ptr(x2.device),
+        )
+        kernels.check(rc, "q4_matmul (wgmma)")
+        q4_matmul.launches_wgmma += 1
+    else:
+        splits = _splits(m, n, c, block, x2.device.index)
+        ws = torch.empty((splits, m, n), dtype=torch.float32, device=x2.device) if splits > 1 else None
+        rc = kernels.library().q4_matmul(
+            x2.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            ws.data_ptr() if ws is not None else None, m, n, c, block, splits,
+            kernels.stream_ptr(x2.device),
+        )
+        kernels.check(rc, "q4_matmul")
+        q4_matmul.launches_mma += 1
     q4_matmul.launches += 1
     return out
 
 
-q4_matmul.launches = 0
+q4_matmul.launches = 0  # every launch
+q4_matmul.launches_wgmma = 0  # csrc/q4_matmul_wgmma.cu (the prefill design)
+q4_matmul.launches_mma = 0  # csrc/q4_matmul.cu (decode steps, other shapes)
 
 
 @functools.lru_cache(maxsize=None)
