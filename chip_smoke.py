@@ -29,11 +29,15 @@ Phases, each of which exits non-zero on failure:
               per output row, a limit that must also reject a dropped
               scale group and a dropped ragged row tile; the flash
               backward's dQ and dK/dV kernels at the training shape of
-              one llama2-7b layer (B=8, S=1024), GQA, ragged and
-              non-causal, held per output vector against a
+              one llama2-7b layer (B=8, S=1024), GQA, ragged,
+              non-causal and tinyllama's heads (the wgmma design,
+              csrc/flash_bwd_wgmma.cu) and at head_dim 32 (the mma design,
+              csrc/flash_bwd.cu), each launching the design
+              flash_bwd_design names, held per output vector against a
               limit that must also reject a planted dropped tile, their
               library call one backward through scaled_dot_product_attention
-              (dq, dk and dv at once);
+              (dq, dk and dv at once), beside which dq + dkv + bwd_delta
+              is printed;
   serve       serve.main's server in-process at llama2-7b's full width and
               depth (random weights from a seed, bf16, max_seq_len 1024),
               five concurrent /v1/completions requests, the kernels' launch
@@ -62,7 +66,8 @@ Phases, each of which exits non-zero on failure:
               one step's adapter gradients through the kernels against
               attn_impl="plain", and the first batch's loss without grad.
               Launches per optimizer step exactly 64 forward (forward and
-              recompute), 32 dQ and 32 dK/dV; every loss finite; the first
+              recompute), 32 dQ and 32 dK/dV, all of the backward's
+              through the wgmma design; every loss finite; the first
               equal to the no-grad loss; the merged artifact reloads to the
               same logits; step seconds, tokens/s, MFU, peak memory, the
               checkpoint and artifact seconds;
@@ -452,13 +457,15 @@ def bwd_case(gen, b, s, h, kh, causal, d=128):
     The limit must also reject two planted faults, built from the plain
     version: dQ without the last k-tile of the dQ kernel (64 keys; the 40
     live ones at S=1000) and dK/dV without the last q-tile of the dK/dV
-    kernel (32 rows; the 8 live ones at S=1000). Returns one case for each
-    kernel; their library call is one backward through
+    kernel (64 rows; the 40 live ones at S=1000). Each call must launch
+    the design flash_bwd_design names. Returns one case for each kernel;
+    their library call is one backward through
     scaled_dot_product_attention (all of dq, dk, dv), its forward outside
     the timed region."""
     import torch
     import torch.nn.functional as F
 
+    from substratus_tpu_torch import kernels
     from substratus_tpu_torch.ops import flash_attention as fa
 
     dev = "cuda"
@@ -468,18 +475,24 @@ def bwd_case(gen, b, s, h, kh, causal, d=128):
     out, lse = fa.flash_attention(q, k, v, causal, return_lse=True)
     delta = fa.bwd_delta(out, do)
     args = (q, k, v, do, lse, delta, causal, scale)
+    design = fa.flash_bwd_design(d)
+    counters = [getattr(fn, f"launches_{design}") for fn in (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)]
     got = (fa.flash_attention_bwd_dq(*args), *fa.flash_attention_bwd_dkv(*args))
     ref = (fa._bwd_dq_plain(*args), *fa._bwd_dkv_plain(*args))
+    launched = [getattr(fn, f"launches_{design}") - n
+                for fn, n in zip((fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv), counters)]
     _, ds = fa._bwd_probs(*args)
     ds[..., 64 * ((s - 1) // 64):] = 0
     dq_fault = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float()).reshape(q.shape).to(q.dtype)
     del ds
-    cut = 32 * ((s - 1) // 32)
+    cut = 64 * ((s - 1) // 64)
     do_cut, delta_cut = do.clone(), delta.clone()
     do_cut[:, cut:], delta_cut[:, cut:] = 0, 0
     dkv_fault = fa._bwd_dkv_plain(q, k, v, do_cut, lse, delta_cut, causal, scale)
     torch.cuda.synchronize()
-    label = f"flash backward b{b} s{s} h{h}/{kh} causal={causal}"
+    label = f"flash backward b{b} s{s} h{h}/{kh} d{d} causal={causal}"
+    if launched != [1, 1]:
+        fail(f"{label}: launches of the {design} design {launched}, want one of each kernel")
     errs, rels = [], []
     for name, g, r in zip(("dq", "dk", "dv"), got, ref):
         errs.append((g.float() - r.float()).abs().max().item())
@@ -499,12 +512,28 @@ def bwd_case(gen, b, s, h, kh, causal, d=128):
     name = f"B={b} S={s} H={h} KH={kh} D={d} causal={causal}"
     dq_bound = bound(read + 2 * b * s * h * d, 6 * d * h * b * pairs)  # S, dP, dQ
     dkv_bound = bound(read + 2 * 2 * b * s * kh * d, 8 * d * h * b * pairs)  # S, dP, dV, dK
+    delta_ms = time_ms(lambda: fa.bwd_delta(out, do))  # FlashAttention.backward's third launch
+    # Host time of one call of the dQ kernel's C entry point: the wgmma
+    # design encodes four tensor maps a call, the mma design none.
+    dq_out = torch.empty_like(q)
+    c_dq = getattr(kernels.library(), "flash_bwd_dq_wgmma" if design == "wgmma" else "flash_bwd_dq")
+    c_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+              dq_out.data_ptr(), b, s, s, h, kh, d, kernels.DTYPE_CODES[q.dtype], scale, int(causal),
+              kernels.stream_ptr(q.device))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        kernels.check(c_dq(*c_args), "flash_bwd_dq")
+    host_us = (time.perf_counter() - t0) / 50 * 1e6
+    torch.cuda.synchronize()
     return (
-        {"case": name, "max_abs_err": errs[0], "row_rel_err": rels[0], "fault_row_rel_err": faults[0],
+        {"case": name, "design": design, "max_abs_err": errs[0], "row_rel_err": rels[0],
+         "fault_row_rel_err": faults[0], "delta_ms": delta_ms, "host_us": host_us,
          "ms": time_ms(lambda: fa.flash_attention_bwd_dq(*args)),
          "plain_ms": time_ms(lambda: fa._bwd_dq_plain(*args), n=5),
          "library_ms": library_ms, "bound_ms": dq_bound[0], "bound_by": dq_bound[1]},
-        {"case": name, "max_abs_err": max(errs[1:]), "row_rel_err": max(rels[1:]), "fault_row_rel_err": faults[1],
+        {"case": name, "design": design, "max_abs_err": max(errs[1:]), "row_rel_err": max(rels[1:]),
+         "fault_row_rel_err": faults[1],
          "ms": time_ms(lambda: fa.flash_attention_bwd_dkv(*args)),
          "plain_ms": time_ms(lambda: fa._bwd_dkv_plain(*args), n=5),
          "library_ms": library_ms, "bound_ms": dkv_bound[0], "bound_by": dkv_bound[1]},
@@ -561,6 +590,8 @@ def kernel_phase():
         bwd_case(gen, 8, 1024, 32, 8, True),  # GQA 4
         bwd_case(gen, 2, 1000, 32, 32, True),  # ragged: the last tile holds 40 rows
         bwd_case(gen, 2, 384, 32, 32, False),
+        bwd_case(gen, 8, 1024, 32, 4, True, d=64),  # tinyllama's heads
+        bwd_case(gen, 2, 1024, 32, 32, True, d=32),  # the mma design (head_dim 16 and 32)
     ]
     report = {"flash_fwd": flash, "decode_attn": decode, "flash_cached": cached, "fused_decode": fused,
               "q4_matmul": [c for c in q4 if c["design"] == "mma"],
@@ -579,6 +610,11 @@ def kernel_phase():
                   f" | ms {c['ms']:.4f} plain {c['plain_ms']:.4f} library {lib}"
                   f"{' unfused ' + format(c['unfused_ms'], '.4f') if 'unfused_ms' in c else ''}"
                   f" bound {c['bound_ms']:.4f} ({c['bound_by']})", flush=True)
+    for dq, dkv in zip(report["flash_bwd_dq"], report["flash_bwd_dkv"]):
+        print(f"flash backward [{dq['case']}]: dq {dq['ms']:.4f} + dkv {dkv['ms']:.4f} + bwd_delta "
+              f"{dq['delta_ms']:.4f} = {dq['ms'] + dkv['ms'] + dq['delta_ms']:.4f} ms against SDPA's backward "
+              f"{dq['library_ms']:.4f}; dq's C entry point {dq['host_us']:.1f} us of host time a call "
+              f"({dq['design']} design)", flush=True)
     return report
 
 
@@ -1136,12 +1172,26 @@ GRAD_COS = 0.99  # each tensor
 GRAD_REL = 0.15  # each tensor: |g - ref| / |ref| (Frobenius)
 
 
-def _bwd_counters():
+def _zero_train_counts() -> None:
     from substratus_tpu_torch.ops.flash_attention import (
         flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq)
 
-    return {"flash_fwd": flash_attention, "flash_bwd_dq": flash_attention_bwd_dq,
-            "flash_bwd_dkv": flash_attention_bwd_dkv}
+    flash_attention.launches = 0
+    for c in (flash_attention_bwd_dq, flash_attention_bwd_dkv):
+        c.launches = c.launches_wgmma = c.launches_mma = 0
+
+
+def _train_launches() -> dict:
+    """The forward's launches and the backward's of the wgmma design
+    (llama2-7b's head_dim 128), with every launch of the backward in
+    `_all` (equal unless another design ran)."""
+    from substratus_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq)
+
+    return {"flash_fwd": flash_attention.launches,
+            "flash_bwd_dq": flash_attention_bwd_dq.launches_wgmma, "flash_bwd_dq_all": flash_attention_bwd_dq.launches,
+            "flash_bwd_dkv": flash_attention_bwd_dkv.launches_wgmma,
+            "flash_bwd_dkv_all": flash_attention_bwd_dkv.launches}
 
 
 def grad_check(trainer, batch, label: str) -> dict:
@@ -1273,14 +1323,14 @@ def train_phase(card: str, profile_steps: bool = False) -> dict:
         for steps in TRAIN_STEPS:
             params_path = tmp / f"params_{steps}.json"
             params_path.write_text(json.dumps(dict(p, steps=steps)))
-            for c in _bwd_counters().values():
-                c.launches = 0
+            _zero_train_counts()
             torch.cuda.reset_peak_memory_stats()
             res = train_main.run(["--data", str(tmp / "data"), "--out", str(tmp / "out"),
                                   "--params", str(params_path)])
-            launches = {name: c.launches for name, c in _bwd_counters().items()}
+            launches = _train_launches()
             n = len(res["losses"])
-            want = {"flash_fwd": 64 * n, "flash_bwd_dq": 32 * n, "flash_bwd_dkv": 32 * n}
+            want = {"flash_fwd": 64 * n, "flash_bwd_dq": 32 * n, "flash_bwd_dq_all": 32 * n,
+                    "flash_bwd_dkv": 32 * n, "flash_bwd_dkv_all": 32 * n}
             if launches != want:
                 fail(f"train: launches {launches} over {n} steps, want {want}")
             if not all(np.isfinite(res["losses"])):
@@ -1352,8 +1402,7 @@ def train_full_phase(card: str, profile_steps: bool = False) -> dict:
     grads = grad_check(trainer, batches[0], "train-full")
     names = [name for name, _ in trainer.params.named_parameters()]
     before = [t.detach().clone() for t in trainer.trainable]
-    for c in _bwd_counters().values():
-        c.launches = 0
+    _zero_train_counts()
     torch.cuda.reset_peak_memory_stats()
     losses, seconds, changed = [], [], []
     for batch in batches:
@@ -1363,9 +1412,10 @@ def train_full_phase(card: str, profile_steps: bool = False) -> dict:
         seconds.append(time.perf_counter() - t0)
         changed.append([not torch.equal(a, b) for a, b in zip(before, trainer.trainable)])
         before = [t.detach().clone() for t in trainer.trainable]
-    launches = {name: c.launches for name, c in _bwd_counters().items()}
+    launches = _train_launches()
     L = cfg.n_layers
-    if launches != {"flash_fwd": 2 * L * 3, "flash_bwd_dq": L * 3, "flash_bwd_dkv": L * 3}:
+    if launches != {"flash_fwd": 2 * L * 3, "flash_bwd_dq": L * 3, "flash_bwd_dq_all": L * 3,
+                    "flash_bwd_dkv": L * 3, "flash_bwd_dkv_all": L * 3}:
         fail(f"train-full: launches {launches} over 3 steps of {L} layers")
     if not all(np.isfinite(losses)):
         fail(f"train-full: non-finite losses {losses}")
@@ -1433,9 +1483,9 @@ def main() -> int:
                    "q4_matmul": ("substratus_tpu_torch/csrc/q4_matmul.cu", "substratus_tpu/ops/quant4.py:168"),
                    "q4_matmul_wgmma": ("substratus_tpu_torch/csrc/q4_matmul_wgmma.cu",
                                        "substratus_tpu/ops/quant4.py:168"),
-                   "flash_bwd_dq": ("substratus_tpu_torch/csrc/flash_bwd.cu",
+                   "flash_bwd_dq": ("substratus_tpu_torch/csrc/flash_bwd_wgmma.cu",
                                     "substratus_tpu/ops/flash_attention.py:247"),
-                   "flash_bwd_dkv": ("substratus_tpu_torch/csrc/flash_bwd.cu",
+                   "flash_bwd_dkv": ("substratus_tpu_torch/csrc/flash_bwd_wgmma.cu",
                                      "substratus_tpu/ops/flash_attention.py:290")}
         # Each kernel's launches come from the serve or train phase whose
         # path runs it (train: the first train.main call, 4 steps).

@@ -1,10 +1,13 @@
-// Flash-attention backward for Hopper (sm_90a): dQ and dK/dV from the
-// forward's row logsumexp, recomputing the probabilities tile by tile so
-// no [Sq, Sk] matrix reaches device memory.
+// Flash-attention backward for Hopper (sm_90a) at head_dim 16 and 32: dQ
+// and dK/dV from the forward's row logsumexp, recomputing the
+// probabilities tile by tile so no [Sq, Sk] matrix reaches device memory.
 //
-// Replaces the TPU kernels substratus_tpu/ops/flash_attention.py
-// _bwd_dq_kernel and _bwd_dkv_kernel (driven by _flash_backward), the
-// training backward of every attention layer.
+// Replaces, with flash_bwd_wgmma.cu (head_dim 64 and 128, every model but
+// the tiny test configs), the TPU kernels
+// substratus_tpu/ops/flash_attention.py _bwd_dq_kernel and
+// _bwd_dkv_kernel (driven by _flash_backward), the training backward of
+// every attention layer; ops/flash_attention.py::flash_bwd_design routes
+// by head_dim.
 //
 // Layout: q, dO [B, Sq, H, D], k, v [B, Sk, KH, D], bf16, contiguous; lse
 // and delta = rowsum(dO * O) [B*H, Sq] f32 (delta is computed outside, as
@@ -42,7 +45,8 @@
 // q/k/v/dO/dQ (0.10 ms); dK/dV four products (137 GFLOP, 0.139 ms)
 // against 0.40 GB: both bound by operations. These first versions load
 // tiles synchronously (no cp.async/TMA pipeline) and use mma.sync rather
-// than wgmma, as the forward does.
+// than wgmma, as the forward does; at head_dim 128 they reached 12-13% of
+// the bound, and flash_bwd_wgmma.cu took that shape over.
 #include "mma.cuh"
 
 namespace substratus {
@@ -311,14 +315,6 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
   store_rows<D>(dv + kv_off, kv_stride, key0, Sk, dv_acc, t);
 }
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem, bool& configured) {
-  if (configured) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  configured = err == cudaSuccess;
-  return err;
-}
-
 template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
               const float* delta, void* dq, int B, int Sq, int Sk, int H, int KH, float scale,
@@ -374,10 +370,6 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
       return launch_dq<16>(q, k, v, dout, l, dl, dq, B, Sq, Sk, H, KH, scale, causal, s);
     case 32:
       return launch_dq<32>(q, k, v, dout, l, dl, dq, B, Sq, Sk, H, KH, scale, causal, s);
-    case 64:
-      return launch_dq<64>(q, k, v, dout, l, dl, dq, B, Sq, Sk, H, KH, scale, causal, s);
-    case 128:
-      return launch_dq<128>(q, k, v, dout, l, dl, dq, B, Sq, Sk, H, KH, scale, causal, s);
     default:
       return -2;
   }
@@ -398,10 +390,6 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
       return launch_dkv<16>(q, k, v, dout, l, dl, dk, dv, B, Sq, Sk, H, KH, scale, causal, s);
     case 32:
       return launch_dkv<32>(q, k, v, dout, l, dl, dk, dv, B, Sq, Sk, H, KH, scale, causal, s);
-    case 64:
-      return launch_dkv<64>(q, k, v, dout, l, dl, dk, dv, B, Sq, Sk, H, KH, scale, causal, s);
-    case 128:
-      return launch_dkv<128>(q, k, v, dout, l, dl, dk, dv, B, Sq, Sk, H, KH, scale, causal, s);
     default:
       return -2;
   }

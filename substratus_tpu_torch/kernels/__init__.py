@@ -56,6 +56,9 @@ SIGNATURES = {
     "flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     # q, k, v, do, lse, delta, dk, dv, B, Sq, Sk, H, KH, D, dtype, scale, causal, stream
     "flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    # the same two at head_dim 64 and 128 (csrc/flash_bwd_wgmma.cu)
+    "flash_bwd_dq_wgmma": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    "flash_bwd_dkv_wgmma": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
 }
 # dtype codes shared with csrc/*.cu
 DTYPE_CODES = {torch.bfloat16: 0, torch.int8: 1}

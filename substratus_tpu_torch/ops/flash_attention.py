@@ -13,17 +13,20 @@ version.
   positions, bf16 or int8 cache. See the source note in
   csrc/flash_cached.cu.
 
-* ``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv``
-  (csrc/flash_bwd.cu) replace ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``,
-  the training backward: ``FlashAttention`` (a torch.autograd.Function,
-  the counterpart of the JAX custom_vjp) saves q, k, v, out and the LSE of
-  the forward kernel and calls both. See the source note in
-  csrc/flash_bwd.cu.
+* ``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv`` replace
+  ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``, the training backward:
+  ``FlashAttention`` (a torch.autograd.Function, the counterpart of the
+  JAX custom_vjp) saves q, k, v, out and the LSE of the forward kernel and
+  calls both. Two designs compute them, chosen by head_dim alone
+  (``flash_bwd_design``): csrc/flash_bwd_wgmma.cu (wgmma, TMA rings, a
+  producer warpgroup) at head_dim 64 and 128, every model but ``tiny``;
+  csrc/flash_bwd.cu (mma.sync) at 16 and 32. See the source notes.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs the
 plain version only for tensors on the CPU. ``flash_attention.launches``,
 ``flash_cached_attention.launches``, ``flash_attention_bwd_dq.launches``
-and ``flash_attention_bwd_dkv.launches`` count kernel launches.
+and ``flash_attention_bwd_dkv.launches`` count kernel launches (the
+backward's ``launches_wgmma`` and ``launches_mma`` those of each design).
 """
 from __future__ import annotations
 
@@ -183,9 +186,10 @@ def _bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool, scale: float):
 
 def bwd_delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     """D = rowsum(dO * O) in f32, [B*H, Sq] like the LSE (plain torch, as
-    it is XLA work in the JAX package)."""
+    it is XLA work in the JAX package). O is promoted to f32 inside the
+    multiply: one f32 copy of [B, Sq, H, D] fewer than with O.float()."""
     b, sq, h, _ = out.shape
-    return (do.float() * out.float()).sum(-1).transpose(1, 2).reshape(b * h, sq).contiguous()
+    return (do.float() * out).sum(-1).transpose(1, 2).reshape(b * h, sq).contiguous()
 
 
 def flash_attention_bwd_plain(
@@ -208,6 +212,15 @@ def flash_attention_bwd_plain(
     delta = bwd_delta(out, do)
     return (_bwd_dq_plain(q, k, v, do, lse, delta, causal, scale),
             *_bwd_dkv_plain(q, k, v, do, lse, delta, causal, scale))
+
+
+def flash_bwd_design(d: int) -> str:
+    """The CUDA design of the backward kernels at head_dim d: "wgmma"
+    (csrc/flash_bwd_wgmma.cu: TMA rings, wgmma products, 128 rows a block)
+    at 64 and 128, "mma" (csrc/flash_bwd.cu: mma.sync) at 16 and 32. By
+    shape alone: a launch that fails raises, it is not retried on the
+    other design."""
+    return "wgmma" if d in (64, 128) else "mma"
 
 
 def _check_stats(name: str, q: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor):
@@ -239,17 +252,25 @@ def flash_attention_bwd_dq(
     q, k, v, do = _check_qkv("flash_attention_bwd_dq", q, k, v, do)
     lse, delta = _check_stats("flash_attention_bwd_dq", q, lse, delta)
     dq = torch.empty_like(q)
-    rc = kernels.library().flash_bwd_dq(
+    wgmma = flash_bwd_design(d) == "wgmma"
+    name = "flash_bwd_dq_wgmma" if wgmma else "flash_bwd_dq"
+    rc = getattr(kernels.library(), name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dq.data_ptr(), b, sq, sk, h, kh, d, kernels.DTYPE_CODES[q.dtype], float(scale), int(causal),
         kernels.stream_ptr(q.device),
     )
-    kernels.check(rc, "flash_bwd_dq")
+    kernels.check(rc, name)
     flash_attention_bwd_dq.launches += 1
+    if wgmma:
+        flash_attention_bwd_dq.launches_wgmma += 1
+    else:
+        flash_attention_bwd_dq.launches_mma += 1
     return dq
 
 
-flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.launches = 0  # every launch
+flash_attention_bwd_dq.launches_wgmma = 0  # csrc/flash_bwd_wgmma.cu (head_dim 64, 128)
+flash_attention_bwd_dq.launches_mma = 0  # csrc/flash_bwd.cu (head_dim 16, 32)
 
 
 def flash_attention_bwd_dkv(
@@ -274,17 +295,25 @@ def flash_attention_bwd_dkv(
     q, k, v, do = _check_qkv("flash_attention_bwd_dkv", q, k, v, do)
     lse, delta = _check_stats("flash_attention_bwd_dkv", q, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    rc = kernels.library().flash_bwd_dkv(
+    wgmma = flash_bwd_design(d) == "wgmma"
+    name = "flash_bwd_dkv_wgmma" if wgmma else "flash_bwd_dkv"
+    rc = getattr(kernels.library(), name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, kh, d, kernels.DTYPE_CODES[q.dtype], float(scale),
         int(causal), kernels.stream_ptr(q.device),
     )
-    kernels.check(rc, "flash_bwd_dkv")
+    kernels.check(rc, name)
     flash_attention_bwd_dkv.launches += 1
+    if wgmma:
+        flash_attention_bwd_dkv.launches_wgmma += 1
+    else:
+        flash_attention_bwd_dkv.launches_mma += 1
     return dk, dv
 
 
-flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv.launches = 0  # every launch
+flash_attention_bwd_dkv.launches_wgmma = 0  # csrc/flash_bwd_wgmma.cu (head_dim 64, 128)
+flash_attention_bwd_dkv.launches_mma = 0  # csrc/flash_bwd.cu (head_dim 16, 32)
 
 
 class FlashAttention(torch.autograd.Function):

@@ -170,9 +170,6 @@ class Engine:
         return prompt_tokens[-(self.ec.max_seq_len - 1):]
 
     def submit(self, req: Request) -> Request:
-        n = len(self.clipped_prompt(req.prompt_tokens))
-        if n == 0:
-            raise ValueError("empty prompt")
         if self.error is not None:
             req.finish_reason = "error"
             req.out.put(None)  # engine is dead; never strand the caller
@@ -231,6 +228,9 @@ class Engine:
         t0 = time.perf_counter()
         prompt = self.clipped_prompt(req.prompt_tokens)
         true_len = len(prompt)
+        # An empty prompt, as the reference's dense path admits it, pads to
+        # the smallest bucket and samples from the last padded row
+        # (true_len - 1 = -1); decoding starts at position 0.
         if true_len <= self.ec.max_prefill_len:
             padded, true_len = _pad_to_bucket(prompt, self.ec.max_prefill_len)
             tokens = torch.from_numpy(padded).to(self.device)

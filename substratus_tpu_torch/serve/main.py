@@ -24,7 +24,10 @@ and the attention knobs under the JAX entry point's names:
   run the decode kernel (ops/decode_attention.py);
 * ``chunk_attn_impl``: ``flash`` and ``xla`` (the JAX default) both run the
   cached flash kernel (ops/flash_attention.py) on the chunks of a long
-  prompt.
+  prompt;
+* ``attn_impl``: ``flash`` and ``xla`` (the JAX default off the TPU) run
+  the flash kernel (ops/flash_attention.py) on a single-shot prefill,
+  ``plain`` its plain PyTorch version; ``ring`` and ``ulysses`` exit.
 
 The port has no XLA, so a reference name runs a kernel too; the startup
 line says which. ``fused`` with ``kv_layout: paged`` exits, as in the JAX
@@ -59,11 +62,9 @@ _NOT_SERVED = {
     "sequence": (None, "Queue 1, multi-GPU serving"),
     "replicas": (None, "Queue 1, multi-GPU serving"),
     "drain_grace": (None, "Queue 1, the serving surface (gateway contract)"),
-    # The port always runs its flash kernel for the prefill.
-    "attn_impl": (None, "Queue 2, the TPU kernels still to port"),
 }
 _SERVED = ("config", "max_batch", "max_seq_len", "max_prefill_len", "kv_cache_dtype", "max_queue",
-           "decode_attn_impl", "chunk_attn_impl", "quantize", "q4_impl")
+           "decode_attn_impl", "chunk_attn_impl", "attn_impl", "quantize", "q4_impl")
 _QUANTIZE = ("none", "int8", "int4")
 # The port has no XLA: both of the JAX entry point's int4 lowerings run the kernel.
 _Q4_IMPLS = ("pallas", "xla")
@@ -71,6 +72,9 @@ _Q4_IMPLS = ("pallas", "xla")
 # setting (JAX default first). The port has no XLA: "xla" runs a kernel.
 _DECODE_IMPLS = {"xla": "kernel", "pallas": "kernel", "fused": "fused"}
 _CHUNK_IMPLS = {"xla": "flash", "flash": "flash"}
+# The JAX entry points' attn_impl (serving and training) -> models/llama.py's.
+ATTN_IMPLS = {"xla": "flash", "flash": "flash", "plain": "plain"}
+_MULTI_GPU = "Queue 1 item 10 (multi-GPU: ring and Ulysses attention)"
 
 
 def load_params_json(path: Optional[str]) -> Dict[str, Any]:
@@ -80,13 +84,20 @@ def load_params_json(path: Optional[str]) -> Dict[str, Any]:
     return {}
 
 
-def resolve_attn_impls(params: Dict[str, Any]) -> Tuple[str, str]:
-    """(decode_attn_impl, chunk_attn_impl) of models/llama.py for the
-    params.json names; exits on an unknown name and, as the JAX entry
-    point's resolve_kv_layout does, on fused decode with the paged layout
-    (the paged decode path never reaches the fused kernel)."""
+def resolve_attn_impls(params: Dict[str, Any]) -> Tuple[str, str, str]:
+    """(decode_attn_impl, chunk_attn_impl, attn_impl) of models/llama.py
+    for the params.json names; exits on an unknown name, on the multi-GPU
+    attentions and, as the JAX entry point's resolve_kv_layout does, on
+    fused decode with the paged layout (the paged decode path never
+    reaches the fused kernel)."""
     decode = params.get("decode_attn_impl", "xla")
     chunk = params.get("chunk_attn_impl", "xla")
+    prefill = params.get("attn_impl", "xla")
+    if prefill in ("ring", "ulysses"):
+        raise SystemExit(f"params.json: attn_impl={prefill!r} is not served by the PyTorch port yet: "
+                         f"ROADMAP {_MULTI_GPU}")
+    if prefill not in ATTN_IMPLS:
+        raise SystemExit(f"params.json: attn_impl={prefill!r} invalid (one of {sorted(ATTN_IMPLS)})")
     if decode not in _DECODE_IMPLS:
         raise SystemExit(f"params.json: decode_attn_impl={decode!r} invalid (one of {sorted(_DECODE_IMPLS)})")
     if chunk not in _CHUNK_IMPLS:
@@ -96,7 +107,7 @@ def resolve_attn_impls(params: Dict[str, Any]) -> Tuple[str, str]:
             "params.json: decode_attn_impl=fused requires kv_layout=dense "
             "(the paged decode path does not use the fused kernel)"
         )
-    return _DECODE_IMPLS[decode], _CHUNK_IMPLS[chunk]
+    return _DECODE_IMPLS[decode], _CHUNK_IMPLS[chunk], ATTN_IMPLS[prefill]
 
 
 def resolve_quantize(params: Dict[str, Any]) -> str:
@@ -162,8 +173,8 @@ def build(argv=None):
     tokenizer = load_tokenizer(None)
     if cfg.vocab_size < tokenizer.vocab_size:
         cfg = cfg.replace(vocab_size=tokenizer.vocab_size)
-    decode_impl, chunk_impl = resolve_attn_impls(params_json)
-    cfg = cfg.replace(decode_attn_impl=decode_impl, chunk_attn_impl=chunk_impl)
+    decode_impl, chunk_impl, prefill_impl = resolve_attn_impls(params_json)
+    cfg = cfg.replace(decode_attn_impl=decode_impl, chunk_attn_impl=chunk_impl, attn_impl=prefill_impl)
     quantize = resolve_quantize(params_json)
     params = family.quantize_weights(family.init_params(cfg, seed=0, device=device), quantize)
 
@@ -188,7 +199,9 @@ def build(argv=None):
     weights = {"none": f"{str(cfg.dtype).removeprefix('torch.')} weights, torch.matmul",
                "int8": "int8 weights (scale after the dot), torch.einsum",
                "int4": f"int4 weights, int4 matmul kernel (q4_impl={params_json.get('q4_impl', 'auto')})"}
-    print(f"serving {name} on {args.host}:{server.port} ({device}); {weights[quantize]}; decode attention: "
+    prefill = "flash kernel" if prefill_impl == "flash" else "plain PyTorch"
+    print(f"serving {name} on {args.host}:{server.port} ({device}); {weights[quantize]}; prefill attention: "
+          f"{prefill} (attn_impl={params_json.get('attn_impl', 'xla')}); decode attention: "
           f"{'fused cache-write + decode kernel' if decode_impl == 'fused' else 'decode kernel'} "
           f"(decode_attn_impl={params_json.get('decode_attn_impl', 'xla')}), long-prompt chunks: "
           f"cached flash kernel (chunk_attn_impl={params_json.get('chunk_attn_impl', 'xla')})", flush=True)

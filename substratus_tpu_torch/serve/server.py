@@ -162,8 +162,6 @@ class Handler(BaseHTTPRequestHandler):
         except EngineOverloaded as e:
             return self._error(429, str(e), "overloaded",
                                {"Retry-After": str(max(1, math.ceil(e.retry_after)))})
-        except ValueError as e:  # e.g. an empty prompt
-            return self._error(400, str(e), "invalid_request_error")
         if body.get("stream"):
             return self._stream(req, body)
         ids, finish = self._collect(req)

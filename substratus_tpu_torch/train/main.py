@@ -30,7 +30,7 @@ import os
 import time
 from typing import Any, Dict, List, Optional
 
-from substratus_tpu_torch.serve.main import load_params_json
+from substratus_tpu_torch.serve.main import ATTN_IMPLS, load_params_json
 
 _SERVED = ("steps", "max_steps", "batch_size", "seq_len", "learning_rate", "warmup_steps", "save_steps",
            "lora_rank", "lora_alpha", "config", "remat", "seed", "grad_accum_steps", "attn_impl")
@@ -40,8 +40,6 @@ _NOT_SERVED = {
                 "in the repository)",
     "profile_steps": "Queue 1 item 14 (profiling windows, with multi-GPU training)",
 }
-# The JAX entry point's attention names -> models/llama.py's attn_impl.
-_ATTN_IMPLS = {"xla": "flash", "flash": "flash", "plain": "plain"}
 _MULTI_GPU = "Queue 1 item 14 (multi-GPU training: meshes, ring and Ulysses attention)"
 
 
@@ -59,8 +57,8 @@ def check_params(p: Dict[str, Any]) -> None:
             if value in ("ring", "ulysses"):
                 raise SystemExit(f"params.json: attn_impl={value!r} is not served by the PyTorch port yet: "
                                  f"ROADMAP {_MULTI_GPU}")
-            if value not in _ATTN_IMPLS:
-                raise SystemExit(f"params.json: attn_impl={value!r} invalid (one of {sorted(_ATTN_IMPLS)})")
+            if value not in ATTN_IMPLS:
+                raise SystemExit(f"params.json: attn_impl={value!r} invalid (one of {sorted(ATTN_IMPLS)})")
         elif key not in _SERVED:
             raise SystemExit(f"params.json: unknown key {key!r}")
 
@@ -107,7 +105,7 @@ def run(argv=None) -> Dict[str, Any]:
     tokenizer = load_tokenizer(None)
     if cfg.vocab_size < tokenizer.vocab_size:
         cfg = cfg.replace(vocab_size=tokenizer.vocab_size)
-    cfg = cfg.replace(attn_impl=_ATTN_IMPLS[p.get("attn_impl", "xla")])
+    cfg = cfg.replace(attn_impl=ATTN_IMPLS[p.get("attn_impl", "xla")])
     accum = max(1, int(p.get("grad_accum_steps", 1)))
     if batch_size % accum:
         batch_size = (batch_size // accum + 1) * accum

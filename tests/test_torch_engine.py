@@ -107,8 +107,23 @@ def test_prompt_clip_and_prefill_limit(weights):
     assert 1 <= len(toks) <= MAX_TOKENS and all(0 <= t < 258 for t in toks)
     assert eng.stats["prefill_chunks"] == 2 and eng.stats["prefills"] == 0
     assert eng.stats["prefill_tokens"] == 20
-    with pytest.raises(ValueError, match="empty prompt"):
-        eng.submit(Request([], max_tokens=2))
+    # An empty prompt is admitted (as the reference admits it), not refused.
+    req = eng.submit(Request([], max_tokens=2))
+    assert eng.queue.get_nowait() is req
+
+
+def test_empty_prompt_matches_jax_engine(weights):
+    """An empty prompt pads to the smallest bucket and samples its first
+    token from the last padded row, as JAX's dense admission does; a
+    normal prompt decoding beside it is unaffected."""
+    j_params, t_params = weights
+    ec = dict(max_batch=2, max_seq_len=64, eos_token_id=EOS)
+    prompts = [[], PROMPTS[1]]
+    got = _run(Engine(T_CFG, t_params, EngineConfig(**ec), device="cpu"), Request, prompts)
+    want = _run(JEngine(J_CFG, j_params, JEngineConfig(kv_layout="dense", overlap=False, **ec)),
+                JRequest, prompts)
+    assert got == want
+    assert len(got[0][0]) >= 1
 
 
 def test_buckets():

@@ -20,8 +20,10 @@ import torch
 
 from substratus_tpu.ops.flash_attention import _flash_backward, _flash_forward
 from substratus_tpu.ops.flash_attention import flash_attention as j_flash
+from substratus_tpu_torch.models import llama
 from substratus_tpu_torch.ops.flash_attention import (
-    FlashAttention, flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_bwd_plain)
+    FlashAttention, flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_bwd_plain,
+    flash_bwd_design)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -103,3 +105,13 @@ def test_serving_path_runs_the_forward_only():
     flash_attention(q, k, v).sum().backward()
     assert (flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches) == before
     assert q.grad is not None and k.grad.shape == k.shape
+
+
+def test_backward_design_by_head_dim():
+    """The backward kernels' design by head_dim alone: wgmma
+    (csrc/flash_bwd_wgmma.cu) at 64 and 128, which every model but the
+    tiny test configs has; mma.sync (csrc/flash_bwd.cu) at 16 and 32."""
+    assert [flash_bwd_design(d) for d in (16, 32, 64, 128)] == ["mma", "mma", "wgmma", "wgmma"]
+    for name, cfg in llama.CONFIGS.items():
+        want = "mma" if name.startswith("tiny") and not name.startswith("tinyllama") else "wgmma"
+        assert flash_bwd_design(cfg.dim // cfg.n_heads) == want, name

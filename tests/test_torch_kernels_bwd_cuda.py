@@ -1,5 +1,6 @@
-"""The port's flash-attention backward kernels (csrc/flash_bwd.cu) on the
-card: dQ and dK/dV against their plain PyTorch version, autograd through
+"""The port's flash-attention backward kernels (csrc/flash_bwd_wgmma.cu at
+head_dim 64 and 128, csrc/flash_bwd.cu at 16 and 32) on the card: dQ and
+dK/dV against their plain PyTorch version, autograd through
 the kernels against autograd through attn_impl="plain" on a small llama,
 and the launch counts of a training step under remat.
 
@@ -33,7 +34,7 @@ import torch
 from substratus_tpu_torch.models import llama
 from substratus_tpu_torch.ops.flash_attention import (
     bwd_delta, flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_bwd_plain,
-    flash_attention_plain)
+    flash_attention_plain, flash_bwd_design)
 from substratus_tpu_torch.train.lora import init_lora
 from substratus_tpu_torch.train.trainer import TrainConfig, Trainer
 
@@ -65,19 +66,24 @@ def _close(name, out, ref, limit=BWD_ROW_REL):
 @pytest.mark.parametrize("b,s,h,kh,d,causal", [
     (2, 256, 8, 8, 128, True), (2, 256, 8, 2, 128, True), (1, 1000, 4, 4, 128, True),
     (1, 65, 4, 2, 64, True), (1, 384, 4, 4, 128, False), (2, 100, 4, 2, 16, True), (1, 77, 4, 2, 32, False),
+    (2, 1024, 32, 32, 128, True),  # one llama2-7b layer
+    (2, 512, 32, 4, 64, True),  # tinyllama's heads: GQA 8, head_dim 64
 ])
 def test_bwd_kernels_match_plain(cuda, b, s, h, kh, d, causal):
     """S=1000 and S=65 leave the last tile mostly masked (40 and 1 live
-    rows): its p must be 0, never exp of a masked logit."""
+    rows): its p must be 0, never exp of a masked logit. Each call
+    launches the design flash_bwd_design names."""
     gen = torch.Generator(device=cuda).manual_seed(s + kh + d)
     q, do = (torch.randn((b, s, h, d), generator=gen, device=cuda).to(torch.bfloat16) for _ in range(2))
     k, v = (torch.randn((b, s, kh, d), generator=gen, device=cuda).to(torch.bfloat16) for _ in range(2))
     out, lse = flash_attention(q, k, v, causal, return_lse=True)
     delta = bwd_delta(out, do)
-    before = (flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches)
+    counters = [(fn, attr) for fn in (flash_attention_bwd_dq, flash_attention_bwd_dkv)
+                for attr in ("launches", f"launches_{flash_bwd_design(d)}")]
+    before = [getattr(fn, attr) for fn, attr in counters]
     dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
-    assert (flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
+    assert [getattr(fn, attr) for fn, attr in counters] == [n + 1 for n in before]
     ref = flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
     torch.cuda.synchronize()
     for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):

@@ -105,9 +105,10 @@ def test_quantized_weights_are_served(tmp_path, quantize, kind):
     the server answers with the engine's own greedy tokens."""
     params = tmp_path / "params.json"
     params.write_text(json.dumps({"config": "tiny", "max_batch": 2, "max_seq_len": 64, "quantize": quantize,
-                                  "q4_impl": "pallas", "decode_attn_impl": "fused"}))
+                                  "q4_impl": "pallas", "decode_attn_impl": "fused", "attn_impl": "plain"}))
     srv = main.build(["--device", "cpu", "--host", "127.0.0.1", "--port", "0", "--params", str(params)]).start()
     try:
+        assert srv.state.engine.cfg.attn_impl == "plain"
         model = srv.state.engine.params
         assert isinstance(model.layers[1].wo, kind) and isinstance(model.lm_head, kind)
         assert isinstance(model.tok_embed, torch.nn.Parameter) and isinstance(model.layers[0].mlp_norm,
@@ -127,20 +128,26 @@ def test_params_policy():
     knobs take the JAX names (the reference names run the kernels)."""
     main.check_params({"config": "tiny", "max_batch": 2, "kv_layout": "dense", "quantize": "none",
                        "role": "both", "spec_k": 0, "overlap": False, "decode_attn_impl": "fused",
-                       "chunk_attn_impl": "flash"})
-    assert main.resolve_attn_impls({}) == ("kernel", "flash")
-    assert main.resolve_attn_impls({"decode_attn_impl": "fused", "kv_layout": "dense"}) == ("fused", "flash")
-    assert main.resolve_attn_impls({"decode_attn_impl": "pallas", "chunk_attn_impl": "xla"}) == ("kernel", "flash")
+                       "chunk_attn_impl": "flash", "attn_impl": "flash"})
+    assert main.resolve_attn_impls({}) == ("kernel", "flash", "flash")
+    assert main.resolve_attn_impls({"decode_attn_impl": "fused", "kv_layout": "dense"}) == ("fused", "flash", "flash")
+    assert main.resolve_attn_impls({"decode_attn_impl": "pallas", "chunk_attn_impl": "xla"}) == (
+        "kernel", "flash", "flash")
+    # attn_impl, the single-shot prefill: the reference names run the flash kernel, plain its plain version.
+    for impl, want in (("xla", "flash"), ("flash", "flash"), ("plain", "plain")):
+        main.check_params({"attn_impl": impl})
+        assert main.resolve_attn_impls({"attn_impl": impl})[2] == want
     for quantize in ("none", "int8", "int4"):
         for q4_impl in ("pallas", "xla"):
             main.check_params({"quantize": quantize, "q4_impl": q4_impl})
     assert main.resolve_quantize({}) == "none" and main.resolve_quantize({"quantize": "int4"}) == "int4"
     for params in ({"kv_layout": "paged"}, {"spec_k": 4}, {"quantize": "w8a8"}, {"adapters": {"dir": "x"}},
-                   {"role": "prefill"}, {"attn_impl": "flash"}, {"model": "m"}):
+                   {"role": "prefill"}, {"attn_impl": "ring"}, {"attn_impl": "ulysses"}, {"model": "m"}):
         with pytest.raises(SystemExit, match="ROADMAP"):
             main.check_params(params)
     for params, match in (({"decode_attn_impl": "fused", "kv_layout": "paged"}, "requires kv_layout=dense"),
                           ({"decode_attn_impl": "magic"}, "invalid"), ({"chunk_attn_impl": "plain"}, "invalid"),
+                          ({"attn_impl": "splash"}, "invalid"),
                           ({"quantize": "int3"}, "invalid"), ({"quantize": "int4", "q4_impl": "triton"}, "invalid"),
                           ({"q4_impl": "auto"}, "invalid")):
         with pytest.raises(SystemExit, match=match):
