@@ -37,18 +37,35 @@ Phases, each of which exits non-zero on failure:
               limit that must also reject a planted dropped tile, their
               library call one backward through scaled_dot_product_attention
               (dq, dk and dv at once), beside which dq + dkv + bwd_delta
-              is printed;
+              is printed; the flash forward (prefill buckets, the training
+              shape B=8 S=1024, ragged, GQA, non-causal, tinyllama's heads)
+              and the cached flash (the fifth chunk of a long prompt, GQA,
+              kv_length, ragged chunks; bf16 and int8 caches), each
+              launching the design flash_fwd_design or flash_cached_design
+              names (csrc/flash_fwd_wgmma.cu at head_dim 64 and 128), held per
+              output vector against a limit that must also reject the
+              output without the design's last live k-tile and, at a
+              ragged length, with its last q-tile zeroed; at the main
+              shapes also timed in turns with the mma design's kernels
+              (csrc/flash_fwd.cu, csrc/flash_cached.cu at head_dim 128),
+              with each C entry point's host time a call; the
+              flash kernels and SDPA timed with the card held until the
+              host has enqueued them, SDPA on views of the same tensors as
+              in every case (for the forward also on head-major copies,
+              beside it);
   serve       serve.main's server in-process at llama2-7b's full width and
               depth (random weights from a seed, bf16, max_seq_len 1024),
               five concurrent /v1/completions requests, the kernels' launch
-              counts against 32 x prefills and 32 x decode steps, and the
+              counts against 32 x prefills (all of the flash forward's
+              wgmma design) and 32 x decode steps, and the
               served tokens held against a direct greedy run of the model;
   serve-long  the same server at max_seq_len 4096 with decode_attn_impl
               "fused": four concurrent requests of about 3000, 1500, 600
               and 40 tokens, whose chunks run through the cached flash
-              kernel (32 x prefill chunks) and whose decode steps through
-              the fused kernel (32 x steps, the decode kernel never); every
-              served greedy token held against a single-shot forward;
+              kernel's wgmma design (32 x prefill chunks) and whose decode
+              steps through the fused kernel (32 x steps, the decode kernel
+              never); every served greedy token held against a single-shot
+              forward;
   serve-int4  the JAX package's throughput stack: int4 weights (the random
               bf16 weights quantized on the card), int8 cache, fused
               decode, max_seq_len 2048; serve's five prompts and one of
@@ -56,7 +73,8 @@ Phases, each of which exits non-zero on failure:
               through the int4 matmul ((7 x 32 + 1) x forwards: the
               forwards of more than 16 rows through the wgmma design, the
               decode steps and the 16-token bucket through q4_matmul.cu),
-              the attention kernels as in serve-long, every served greedy
+              the attention kernels as in serve-long (the cached flash
+              over the int8 cache), every served greedy
               token held against a single-shot forward on the int4 weights;
   train       train.main at llama2-7b's full width and depth (random weights
               from seed 0, bf16) with the finetune example's params: LoRA
@@ -66,8 +84,8 @@ Phases, each of which exits non-zero on failure:
               one step's adapter gradients through the kernels against
               attn_impl="plain", and the first batch's loss without grad.
               Launches per optimizer step exactly 64 forward (forward and
-              recompute), 32 dQ and 32 dK/dV, all of the backward's
-              through the wgmma design; every loss finite; the first
+              recompute), 32 dQ and 32 dK/dV, all through the wgmma
+              designs; every loss finite; the first
               equal to the no-grad loss; the merged artifact reloads to the
               same logits; step seconds, tokens/s, MFU, peak memory, the
               checkpoint and artifact seconds;
@@ -88,7 +106,8 @@ Phases, each of which exits non-zero on failure:
 
 The line before the last is one JSON object with every kernel's numbers
 (launches from the serve or train phase whose path runs the kernel; the
-int4 matmul's two designs are two entries); the last line
+int4 matmul's two designs are two entries, and the cached flash's int8
+route another); the last line
 is {"ok": true, "device": {...}}. Details go to chip_smoke.json in OUT_DIR.
 Nothing here imports JAX.
 """
@@ -124,7 +143,11 @@ LSE_ATOL = 1e-3  # f32 row logsumexp, summed in another order
 # bf16 weights and differ in the f32 summation order and the output's bf16
 # rounding (2^-8 relative); a dropped scale group moves every row by about
 # 0.18 of its norm at C = 4096, a dropped row tile its rows by all of it.
+# The flash forward and the cached flash likewise (p and the output rounded
+# to bf16 at the same places): a dropped k-tile moves the rows that attend
+# it by about its share of their softmax, a zeroed q-tile its rows by all.
 ROW_REL = 2**-6
+KT_WGMMA = 128  # keys of a bf16 K/V tile of csrc/flash_fwd_wgmma.cu (an int8 cache's tiles hold 64)
 
 
 def fail(msg: str) -> None:
@@ -142,12 +165,15 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, n: int = 25, flush=None) -> float:
+def time_ms(fn, n: int = 25, flush=None, hold: bool = False) -> float:
     """Median of n launches, each between two CUDA events, after a warm-up;
     flush() runs before each launch, outside the events, followed by a spin
     on the card that holds the start event back until the host has
     enqueued fn (the int4 wrapper's Python took 45-112 us a call on the
-    card's host, more than the flush's 80 us: its launch time was counted)."""
+    card's host, more than the flush's 80 us: its launch time was counted).
+    hold: the spin alone, for calls whose device time is shorter than the
+    host time of their wrapper (the flash kernels at serving shapes, SDPA),
+    so that the events time the card and not the host."""
     import torch
 
     fn()
@@ -156,6 +182,7 @@ def time_ms(fn, n: int = 25, flush=None) -> float:
     for _ in range(n):
         if flush is not None:
             flush()
+        if flush is not None or hold:
             torch.cuda._sleep(500_000)  # clock cycles, about 0.3 ms
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
@@ -174,37 +201,112 @@ def bound(nbytes: float, flops: float):
 # --- kernels against their plain versions -------------------------------------
 
 
-def flash_case(gen, b, s, h, kh, causal, d=128):
+def host_time_us(call, n: int = 50) -> float:
+    """Host time of one call of a C entry point (it enqueues and returns)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        call()
+    out = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return out
+
+
+def in_turns(calls: dict, rounds: int = 2) -> dict:
+    """Each call's time_ms (hold) in turns: a b b a for two calls."""
+    times = {name: [] for name in calls}
+    order = list(calls)
+    for r in range(rounds):
+        for name in order if r % 2 == 0 else order[::-1]:
+            times[name].append(time_ms(calls[name], hold=True))
+    return times
+
+
+def planted_faults(label: str, ref, dropped, s: int) -> list:
+    """Row errors of planted faults against ref: `dropped` (the plain
+    output without the design's last live k-tile) and, at a ragged length
+    s, ref with its last 64-row q-tile (one consumer warpgroup's) zeroed.
+    Fails unless ROW_REL rejects each."""
+    faults = [row_rel_err(dropped, ref)]
+    if s % 64:
+        tile = ref.clone()
+        tile[:, 64 * ((s - 1) // 64):] = 0
+        faults.append(row_rel_err(tile, ref))
+    if min(faults) <= ROW_REL:
+        fail(f"{label}: the limit {ROW_REL} accepts a planted fault (row errors {faults})")
+    return faults
+
+
+def flash_case(gen, b, s, h, kh, causal, d=128, compare=False):
+    """The forward against its plain version on the same q, k, v: max-abs
+    and per output vector (row_rel_err <= ROW_REL), the LSE within
+    LSE_ATOL; the call must launch the design flash_fwd_design names, and
+    the limit must reject the planted faults (the output without the
+    design's last live k-tile; at a ragged S its last q-tile zeroed).
+    Its library call is SDPA on views of q, k, v, as in every other case;
+    library_contiguous_ms SDPA on [B, H, S, D] copies made outside the
+    timing (the yardstick of this case's earlier readings).
+    compare (the main shapes): the design's kernel timed in turns with
+    flash_fwd.cu's (the mma design, called through its C entry point
+    at this head_dim as a measurement), and each C entry point's host time
+    a call. Times hold the card (time_ms)."""
     import torch
     import torch.nn.functional as F
 
-    from substratus_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+    from substratus_tpu_torch import kernels
+    from substratus_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain, flash_fwd_design
 
     dev = "cuda"
     q = torch.randn((b, s, h, d), generator=gen, device=dev).to(torch.bfloat16)
     k = torch.randn((b, s, kh, d), generator=gen, device=dev).to(torch.bfloat16)
     v = torch.randn((b, s, kh, d), generator=gen, device=dev).to(torch.bfloat16)
+    design = flash_fwd_design(d)
+    before = {x: getattr(flash_attention, f"launches_{x}") for x in ("wgmma", "mma")}
     out, lse = flash_attention(q, k, v, causal, return_lse=True)
+    launched = {x: getattr(flash_attention, f"launches_{x}") - n for x, n in before.items()}
     ref, ref_lse = flash_attention_plain(q, k, v, causal, return_lse=True)
     torch.cuda.synchronize()
+    label = f"flash b{b} s{s} h{h}/{kh} causal={causal}"
+    if launched != {x: int(x == design) for x in launched}:
+        fail(f"{label}: launches {launched}, want one of the {design} design")
     err = (out.float() - ref.float()).abs().max().item()
+    rel = row_rel_err(out, ref)
     lse_err = (lse - ref_lse).abs().max().item()
-    if not (torch.isfinite(out.float()).all() and err <= BF16_ATOL and lse_err <= LSE_ATOL):
-        fail(f"flash b{b} s{s} h{h}/{kh} causal={causal}: max|err| {err} (tol {BF16_ATOL}), "
+    if not (torch.isfinite(out.float()).all() and err <= BF16_ATOL and rel <= ROW_REL and lse_err <= LSE_ATOL):
+        fail(f"{label}: max|err| {err} (tol {BF16_ATOL}), row error {rel} (limit {ROW_REL}), "
              f"lse {lse_err} (tol {LSE_ATOL})")
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    cut = KT_WGMMA * ((s - 1) // KT_WGMMA)  # the design's last k-tile: keys cut..s-1
+    dropped = (flash_attention_plain(q, k[:, :cut], v[:, :cut], causal) if cut else torch.zeros_like(ref))
+    faults = planted_faults(label, ref, dropped, s)
+    # SDPA on views of the same q, k, v, as every other case's library call
+    # (library_ms); beside it on head-major copies made outside the timing.
+    views = tuple(x.transpose(1, 2) for x in (q, k, v))
+    copies = tuple(x.contiguous() for x in views)
     gqa = {"enable_gqa": True} if h != kh else {}
     pairs = s * (s + 1) // 2 if causal else s * s
     b_ms, by = bound(2 * (2 * b * s * h * d + 2 * b * s * kh * d), 4 * d * h * b * pairs)
-    return {
-        "case": f"B={b} S={s} H={h} KH={kh} D={d} causal={causal}",
-        "max_abs_err": err, "lse_max_abs_err": lse_err, "tol": BF16_ATOL,
-        "ms": time_ms(lambda: flash_attention(q, k, v, causal)),
-        "plain_ms": time_ms(lambda: flash_attention_plain(q, k, v, causal)),
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal, **gqa)),
+    case = {
+        "case": f"B={b} S={s} H={h} KH={kh} D={d} causal={causal}", "design": design,
+        "max_abs_err": err, "lse_max_abs_err": lse_err, "tol": BF16_ATOL, "row_rel_err": rel,
+        "fault_row_rel_err": min(faults),
+        "ms": time_ms(lambda: flash_attention(q, k, v, causal), hold=True),
+        "plain_ms": time_ms(lambda: flash_attention_plain(q, k, v, causal), n=5),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(*views, is_causal=causal, **gqa), hold=True),
+        "library_contiguous_ms": time_ms(
+            lambda: F.scaled_dot_product_attention(*copies, is_causal=causal, **gqa), hold=True),
         "bound_ms": b_ms, "bound_by": by,
     }
+    if compare:
+        lib, o2 = kernels.library(), torch.empty_like(q)
+        head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o2.data_ptr(), None, b, s, s, h, kh, d,
+                kernels.DTYPE_CODES[q.dtype], d**-0.5, int(causal))
+        stream = kernels.stream_ptr(q.device)
+        calls = {"wgmma": lambda: kernels.check(lib.flash_fwd_wgmma(*head, stream), "flash_fwd_wgmma"),
+                 "mma": lambda: kernels.check(lib.flash_fwd(*head, stream), "flash_fwd")}
+        case.update(turns_ms=in_turns(calls), host_us={name: host_time_us(call) for name, call in calls.items()})
+    return case
 
 
 def decode_case(gen, b, s, h, kh, int8, positions, d=128):
@@ -249,15 +351,23 @@ def decode_case(gen, b, s, h, kh, int8, positions, d=128):
     }
 
 
-def cached_case(gen, h, kh, int8, limit_row=False, b=1, sq=512, sk=4096, start=2048, d=128):
+def cached_case(gen, h, kh, int8, limit_row=False, b=1, sq=512, sk=4096, start=2048, d=128, compare=False):
     """A chunk of sq queries at positions start.. against an sk-row cache
     (the fifth 512-token chunk of a long prompt by default). limit_row:
     kv_length clips the chunk and the first row's position is -1, so that
-    row's limit is -1 and its output must be exactly 0."""
+    row's limit is -1 and its output must be exactly 0. Held as
+    flash_case holds the forward: the design flash_cached_design names,
+    max-abs and per output vector, planted faults (without the design's
+    last live k-tile; at a ragged sq its last q-tile zeroed); compare:
+    timed in turns with flash_cached.cu's kernel (the mma design) and
+    each C entry point's host time a call (int8 included: no PyTorch call
+    takes an int8 cache)."""
     import torch
     import torch.nn.functional as F
 
-    from substratus_tpu_torch.ops.flash_attention import flash_cached_attention, flash_cached_attention_plain
+    from substratus_tpu_torch import kernels
+    from substratus_tpu_torch.ops.flash_attention import (
+        flash_cached_attention, flash_cached_attention_plain, flash_cached_design)
     from substratus_tpu_torch.ops.quant import quantize_kv
 
     dev = "cuda"
@@ -274,17 +384,30 @@ def cached_case(gen, h, kh, int8, limit_row=False, b=1, sq=512, sk=4096, start=2
         k, ks = quantize_kv(k)
         v, vs = quantize_kv(v)
         ks, vs = ks[..., 0].contiguous(), vs[..., 0].contiguous()
+    design = flash_cached_design(d)
     args = (q, k, v, pos, ks, vs, kv_len)
+    before = {x: getattr(flash_cached_attention, f"launches_{x}") for x in ("wgmma", "mma")}
     out = flash_cached_attention(*args)
+    launched = {x: getattr(flash_cached_attention, f"launches_{x}") - n for x, n in before.items()}
     ref = flash_cached_attention_plain(*args)
     torch.cuda.synchronize()
+    label = f"flash_cached sq{sq} h{h}/{kh} int8={int8} limit_row={limit_row}"
+    if launched != {x: int(x == design) for x in launched}:
+        fail(f"{label}: launches {launched}, want one of the {design} design")
     err = (out.float() - ref.float()).abs().max().item()
-    if not (torch.isfinite(out.float()).all() and err <= BF16_ATOL):
-        fail(f"flash_cached h{h}/{kh} int8={int8} limit_row={limit_row}: max|err| {err} (tol {BF16_ATOL})")
+    rel = row_rel_err(out, ref)
+    if not (torch.isfinite(out.float()).all() and err <= BF16_ATOL and rel <= ROW_REL):
+        fail(f"{label}: max|err| {err} (tol {BF16_ATOL}), row error {rel} (limit {ROW_REL})")
     if limit_row and not torch.all(out[:, 0] == 0):
         fail("flash_cached: a row with limit -1 is not exactly 0")
     limit = pos.long() if kv_len is None else torch.minimum(pos.long(), kv_len.long()[:, None] - 1)
     live_cols = (limit.clamp(min=-1) + 1).clamp(max=sk)  # [B, Sq]
+    kt = KT_WGMMA if design == "wgmma" and not int8 else 64  # keys of the design's k-tile (int8: 64)
+    cut = kt * ((int(live_cols.max()) - 1) // kt)  # its last live k-tile: cache rows cut..
+    short = [t[:, :, :cut].contiguous() if t is not None else None for t in (k, v, ks, vs)]
+    dropped = (flash_cached_attention_plain(q, short[0], short[1], pos, short[2], short[3], kv_len) if cut
+               else torch.zeros_like(ref))
+    faults = planted_faults(label, ref, dropped, sq)
     rows = int(live_cols.amax(dim=1).sum())  # cache rows the blocks must read
     elem = 1 if int8 else 2
     nbytes = 2 * b * sq * h * d * 2 + 2 * rows * kh * d * elem + (2 * rows * kh * 4 if int8 else 0) + 4 * b * sq
@@ -294,15 +417,25 @@ def cached_case(gen, h, kh, int8, limit_row=False, b=1, sq=512, sk=4096, start=2
         qt = q.transpose(1, 2)
         mask = (torch.arange(sk, device=dev)[None, None, :] <= limit[:, :, None])[:, None]
         gqa = {"enable_gqa": True} if h != kh else {}
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, k, v, attn_mask=mask, **gqa))
-    return {
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, k, v, attn_mask=mask, **gqa), hold=True)
+    case = {
         "case": f"B={b} Sq={sq} Sk={sk} H={h} KH={kh} D={d} {'int8' if int8 else 'bf16'} pos {start}.."
                 f"{start + sq - 1}{' kv_length, one row at limit -1' if limit_row else ''}",
-        "max_abs_err": err, "tol": BF16_ATOL,
-        "ms": time_ms(lambda: flash_cached_attention(*args)),
-        "plain_ms": time_ms(lambda: flash_cached_attention_plain(*args)),
+        "design": design, "max_abs_err": err, "tol": BF16_ATOL, "row_rel_err": rel, "fault_row_rel_err": min(faults),
+        "ms": time_ms(lambda: flash_cached_attention(*args), hold=True),
+        "plain_ms": time_ms(lambda: flash_cached_attention_plain(*args), n=5),
         "library_ms": library_ms, "bound_ms": b_ms, "bound_by": by,
     }
+    if compare:
+        lib, o2 = kernels.library(), torch.empty_like(q)
+        head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), ks.data_ptr() if int8 else None,
+                vs.data_ptr() if int8 else None, pos.data_ptr(), kv_len.data_ptr() if kv_len is not None else None,
+                o2.data_ptr(), b, sq, sk, h, kh, d, kernels.DTYPE_CODES[k.dtype], d**-0.5,
+                kernels.stream_ptr(q.device))
+        calls = {"wgmma": lambda: kernels.check(lib.flash_cached_wgmma(*head), "flash_cached_wgmma"),
+                 "mma": lambda: kernels.check(lib.flash_cached(*head), "flash_cached")}
+        case.update(turns_ms=in_turns(calls), host_us={name: host_time_us(call) for name, call in calls.items()})
+    return case
 
 
 def fused_case(gen, h, kh, int8, positions, b=8, s=4096, d=128):
@@ -520,12 +653,7 @@ def bwd_case(gen, b, s, h, kh, causal, d=128):
     c_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
               dq_out.data_ptr(), b, s, s, h, kh, d, kernels.DTYPE_CODES[q.dtype], scale, int(causal),
               kernels.stream_ptr(q.device))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(50):
-        kernels.check(c_dq(*c_args), "flash_bwd_dq")
-    host_us = (time.perf_counter() - t0) / 50 * 1e6
-    torch.cuda.synchronize()
+    host_us = host_time_us(lambda: kernels.check(c_dq(*c_args), "flash_bwd_dq"))
     return (
         {"case": name, "design": design, "max_abs_err": errs[0], "row_rel_err": rels[0],
          "fault_row_rel_err": faults[0], "delta_ms": delta_ms, "host_us": host_us,
@@ -546,10 +674,13 @@ def kernel_phase():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     flash = [
-        flash_case(gen, 1, 512, 32, 32, True),  # llama2-7b prefill, bucket 512
+        flash_case(gen, 1, 512, 32, 32, True, compare=True),  # llama2-7b prefill, bucket 512
+        flash_case(gen, 8, 1024, 32, 32, True, compare=True),  # one llama2-7b layer of a LoRA step (64 a step)
         flash_case(gen, 1, 100, 32, 32, True),  # a ragged length
+        flash_case(gen, 1, 1000, 32, 32, True),  # ragged: the last q-tile holds 40 rows
         flash_case(gen, 1, 512, 32, 8, True),  # llama3-8b heads (GQA 4)
         flash_case(gen, 1, 384, 32, 32, False),
+        flash_case(gen, 8, 1024, 32, 4, True, d=64),  # tinyllama's heads in training
     ]
     positions = [0, 1, 17, 255, 511, 700, 1000, 1023]
     decode = [
@@ -559,10 +690,16 @@ def kernel_phase():
         decode_case(gen, 8, 1024, 32, 8, True, positions),
     ]
     cached = [
-        cached_case(gen, 32, 32, False),  # llama2-7b, the fifth chunk of a long prompt
-        cached_case(gen, 32, 32, True),
+        cached_case(gen, 32, 32, False, compare=True),  # llama2-7b, the fifth chunk of a long prompt
         cached_case(gen, 32, 8, False),  # llama3-8b heads (GQA 4)
         cached_case(gen, 32, 32, False, limit_row=True),
+        cached_case(gen, 32, 32, False, sq=100),  # a ragged chunk (the last q-tile holds 36 rows)
+        cached_case(gen, 32, 4, False, d=64, sq=1000, start=1024),  # tinyllama's heads, ragged
+    ]
+    cached_int8 = [  # serve-int4's int8 cache
+        cached_case(gen, 32, 32, True, compare=True),
+        cached_case(gen, 32, 32, True, sq=100),
+        cached_case(gen, 32, 4, True, d=64, sq=1000, start=1024),
     ]
     spread = [0, 1, 300, 1024, 2047, 3000, 4000, 4095]  # one slot at S-1
     fused = [
@@ -593,7 +730,8 @@ def kernel_phase():
         bwd_case(gen, 8, 1024, 32, 4, True, d=64),  # tinyllama's heads
         bwd_case(gen, 2, 1024, 32, 32, True, d=32),  # the mma design (head_dim 16 and 32)
     ]
-    report = {"flash_fwd": flash, "decode_attn": decode, "flash_cached": cached, "fused_decode": fused,
+    report = {"flash_fwd": flash, "decode_attn": decode, "flash_cached": cached, "flash_cached_int8": cached_int8,
+              "fused_decode": fused,
               "q4_matmul": [c for c in q4 if c["design"] == "mma"],
               "q4_matmul_wgmma": [c for c in q4 if c["design"] == "wgmma"],
               "flash_bwd_dq": [c[0] for c in bwd], "flash_bwd_dkv": [c[1] for c in bwd]}
@@ -605,11 +743,22 @@ def kernel_phase():
                 check = f"row error {c['row_rel_err']:.4g} (limit {ROW_REL}{planted}), max|err| {c['max_abs_err']:.3g}"
             else:
                 check = f"max|err| {c['max_abs_err']:.3g} (tol {c['tol']})"
-            print(f"kernel {name} [{c['case']}]: {check}"
+            design = f" ({c['design']} design)" if "design" in c else ""
+            print(f"kernel {name} [{c['case']}]{design}: {check}"
                   f"{' lse ' + format(c['lse_max_abs_err'], '.3g') if 'lse_max_abs_err' in c else ''}"
                   f" | ms {c['ms']:.4f} plain {c['plain_ms']:.4f} library {lib}"
+                  f"{' (on head-major copies ' + format(c['library_contiguous_ms'], '.4f') + ')' if 'library_contiguous_ms' in c else ''}"
                   f"{' unfused ' + format(c['unfused_ms'], '.4f') if 'unfused_ms' in c else ''}"
                   f" bound {c['bound_ms']:.4f} ({c['bound_by']})", flush=True)
+    for name in ("flash_fwd", "flash_cached", "flash_cached_int8"):
+        for c in report[name]:
+            if "turns_ms" in c:
+                print(f"{name} [{c['case']}] in turns, ms: "
+                      + "; ".join(f"{x} {', '.join(f'{t:.4f}' for t in ts)}" for x, ts in c["turns_ms"].items())
+                      + f" (SDPA {'n/a' if c['library_ms'] is None else format(c['library_ms'], '.4f')}"
+                      f"{', on head-major copies ' + format(c['library_contiguous_ms'], '.4f') if 'library_contiguous_ms' in c else ''}"
+                      f", bound {c['bound_ms']:.4f}); host time a call of each C "
+                      "entry point: " + ", ".join(f"{x} {us:.1f} us" for x, us in c["host_us"].items()), flush=True)
     for dq, dkv in zip(report["flash_bwd_dq"], report["flash_bwd_dkv"]):
         print(f"flash backward [{dq['case']}]: dq {dq['ms']:.4f} + dkv {dkv['ms']:.4f} + bwd_delta "
               f"{dq['delta_ms']:.4f} = {dq['ms'] + dkv['ms'] + dq['delta_ms']:.4f} ms against SDPA's backward "
@@ -700,12 +849,16 @@ def reference_check(engine) -> dict:
 # Kernel-name fragments of the int4 matmul and of cuBLAS's GEMMs.
 Q4_NAMES = ("q4_matmul", "q4_splitk")
 GEMM_NAMES = ("gemm", "gemv", "nvjet", "xmma", "cutlass")
+# The flash kernels, each timed on its own in a profile: the forward's two
+# designs, the cached flash's mma design (the wgmma design's cached kernel
+# is flash_fwd_wgmma_kernel<D, true>), the backward's.
+FLASH_NAMES = ("flash_fwd_wgmma_kernel", "flash_fwd_kernel", "flash_cached_kernel", "flash_bwd_dq", "flash_bwd_dkv")
 
 
 def _device_summary(prof, wall: float, reps: int, top_n: int = 10) -> dict:
-    """Device busy time, the top kernels, and the time of the int4 matmul
-    and of the GEMMs, of a profile (device-side events only: the CPU ops
-    that launched them carry the same time)."""
+    """Device busy time, the top kernels, and the time of the int4 matmul,
+    of the GEMMs and of each flash kernel, of a profile (device-side events
+    only: the CPU ops that launched them carry the same time)."""
     kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
 
     def dev_us(e):
@@ -718,7 +871,7 @@ def _device_summary(prof, wall: float, reps: int, top_n: int = 10) -> dict:
     top = sorted(kernels, key=dev_us, reverse=True)[:top_n]
     return {"profiled_ms": 1e3 * wall / reps, "device_busy_ms": 1e3 * busy / reps,
             "q4_matmul_ms": ms_of(Q4_NAMES), "q4_matmul_wgmma_ms": ms_of(("q4_matmul_wgmma",)),
-            "gemm_ms": ms_of(GEMM_NAMES),
+            "gemm_ms": ms_of(GEMM_NAMES), "flash_ms": {name: ms_of((name.lower(),)) for name in FLASH_NAMES},
             "top": [{"name": e.key, "ms": dev_us(e) / 1e3 / reps, "calls": e.count / reps} for e in top]}
 
 
@@ -793,6 +946,8 @@ def profile_engine(engine, label: str = "profile", lens=(16, 400), fill: int = 1
           f"{out['decode_step_ms']:.2f} ms (device busy {out['decode']['device_busy_ms']:.2f} ms, "
           f"{100 * out['decode']['device_busy_ms'] / out['decode_step_ms']:.1f}%; int4 matmul "
           f"{out['decode']['q4_matmul_ms']:.3f} ms, GEMMs {out['decode']['gemm_ms']:.3f} ms of it)", flush=True)
+    flash = {name: ms for name, ms in pre["flash_ms"].items() if ms}
+    print(f"{label}: prefill {long} tokens, flash kernels, ms: {flash}", flush=True)
     for phase in (f"prefill_{long}", "decode"):
         for e in out[phase]["top"]:
             print(f"{label} {phase}: {e['ms']:8.3f} ms {e['calls']:6.1f} calls  {e['name'][:80]}", flush=True)
@@ -892,7 +1047,8 @@ def serve_phase(card: str, profile_steps: bool = False):
         zero_counts(engine, (flash_attention, decode_attention))
         results, wall = run_concurrent(base, PROMPTS)
         wait_idle(engine)
-        launches = {"flash_fwd": flash_attention.launches, "decode_attn": decode_attention.launches}
+        launches = {"flash_fwd": flash_attention.launches, "flash_fwd_wgmma": flash_attention.launches_wgmma,
+                    "decode_attn": decode_attention.launches}
         stats = dict(engine.stats)
         reference = reference_check(engine)
     finally:
@@ -903,9 +1059,10 @@ def serve_phase(card: str, profile_steps: bool = False):
     L = engine.cfg.n_layers
     if stats["prefills"] != len(PROMPTS):
         fail(f"{stats['prefills']} prefills for {len(PROMPTS)} requests")
-    if launches["flash_fwd"] != L * stats["prefills"] or launches["decode_attn"] != L * stats["decode_steps"]:
-        fail(f"launches {launches} against {L} x {stats['prefills']} prefills and "
-             f"{L} x {stats['decode_steps']} decode steps")
+    if (launches["flash_fwd"] != L * stats["prefills"] or launches["decode_attn"] != L * stats["decode_steps"]
+            or launches["flash_fwd_wgmma"] != launches["flash_fwd"]):
+        fail(f"launches {launches} against {L} x {stats['prefills']} prefills (all of the wgmma design, "
+             f"head_dim 128) and {L} x {stats['decode_steps']} decode steps")
     if launches["flash_fwd"] == 0 or launches["decode_attn"] == 0:
         fail(f"a kernel of the main path never launched: {launches}")
     ttft = stats["prefill_seconds"] / stats["prefills"]
@@ -1024,6 +1181,8 @@ def serve_long_phase(card: str, profile_steps: bool = False):
         results, wall = run_concurrent(base, LONG_PROMPTS)
         wait_idle(engine)
         launches = {name: c.launches for name, c in counters.items()}
+        launches.update(flash_cached_wgmma=flash_cached_attention.launches_wgmma,
+                        flash_fwd_wgmma=flash_attention.launches_wgmma)
         stats = dict(engine.stats)
     finally:
         server.stop()
@@ -1031,7 +1190,9 @@ def serve_long_phase(card: str, profile_steps: bool = False):
     del engine.submit
     L = engine.cfg.n_layers
     want = {"flash_cached": L * stats["prefill_chunks"], "flash_fwd": L * stats["prefills"],
-            "fused_decode": L * stats["decode_steps"], "decode_attn": 0}
+            "fused_decode": L * stats["decode_steps"], "decode_attn": 0,
+            # the bf16 cache and head_dim 128: every chunk and prefill on the wgmma design
+            "flash_cached_wgmma": L * stats["prefill_chunks"], "flash_fwd_wgmma": L * stats["prefills"]}
     chunk = LONG_PARAMS["max_prefill_len"]
     lengths = [len(text.encode()) + 1 for text, *_ in LONG_PROMPTS]
     chunks = sum(-(-n // chunk) for n in lengths if n > chunk)  # 6 + 3 + 2
@@ -1075,7 +1236,7 @@ def serve_int4_phase(card: str, profile_steps: bool = False):
     import torch
 
     from substratus_tpu_torch.ops.decode_attention import decode_attention
-    from substratus_tpu_torch.ops.flash_attention import flash_attention, flash_cached_attention
+    from substratus_tpu_torch.ops.flash_attention import flash_attention, flash_cached_attention, flash_cached_design
     from substratus_tpu_torch.ops.fused_decode import fused_decode_attention
     from substratus_tpu_torch.ops.quant import is_quantized
     from substratus_tpu_torch.ops.quant4 import WGMMA_MIN_M, q4_matmul
@@ -1106,7 +1267,9 @@ def serve_int4_phase(card: str, profile_steps: bool = False):
         launches = {name: c.launches for name, c in counters.items()}
         # q4_matmul: q4_matmul.cu's kernel; q4_matmul_wgmma: the prefill design
         launches.update(q4_matmul=q4_matmul.launches_mma, q4_matmul_wgmma=q4_matmul.launches_wgmma,
-                        q4_matmul_total=q4_matmul.launches)
+                        q4_matmul_total=q4_matmul.launches, flash_fwd_wgmma=flash_attention.launches_wgmma,
+                        # the int8 cache's chunks, of the design flash_cached_design names
+                        flash_cached_int8=getattr(flash_cached_attention, f"launches_{flash_cached_design(128)}"))
         stats = dict(engine.stats)
     finally:
         server.stop()
@@ -1126,7 +1289,8 @@ def serve_int4_phase(card: str, profile_steps: bool = False):
     wide = sum(r > WGMMA_MIN_M for r in rows)
     want = {"q4_matmul": (7 * L + 1) * (forwards - wide), "q4_matmul_wgmma": (7 * L + 1) * wide,
             "q4_matmul_total": (7 * L + 1) * forwards, "flash_fwd": L * stats["prefills"],
-            "flash_cached": L * stats["prefill_chunks"], "fused_decode": L * stats["decode_steps"], "decode_attn": 0}
+            "flash_cached": L * stats["prefill_chunks"], "fused_decode": L * stats["decode_steps"], "decode_attn": 0,
+            "flash_fwd_wgmma": L * stats["prefills"], "flash_cached_int8": L * stats["prefill_chunks"]}
     print(f"serve-int4: prefill forwards of {rows} rows; {wide} of them above {WGMMA_MIN_M} rows take the wgmma "
           f"design ({want['q4_matmul_wgmma']} launches), the other {forwards - wide} forwards (decode steps of "
           f"{INT4_PARAMS['max_batch']} rows included) q4_matmul.cu's kernel ({want['q4_matmul']})", flush=True)
@@ -1176,19 +1340,18 @@ def _zero_train_counts() -> None:
     from substratus_tpu_torch.ops.flash_attention import (
         flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq)
 
-    flash_attention.launches = 0
-    for c in (flash_attention_bwd_dq, flash_attention_bwd_dkv):
+    for c in (flash_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv):
         c.launches = c.launches_wgmma = c.launches_mma = 0
 
 
 def _train_launches() -> dict:
-    """The forward's launches and the backward's of the wgmma design
-    (llama2-7b's head_dim 128), with every launch of the backward in
-    `_all` (equal unless another design ran)."""
+    """The launches of each kernel's wgmma design (llama2-7b's head_dim
+    128), with every launch of the kernel in `_all` (equal unless another
+    design ran)."""
     from substratus_tpu_torch.ops.flash_attention import (
         flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq)
 
-    return {"flash_fwd": flash_attention.launches,
+    return {"flash_fwd": flash_attention.launches_wgmma, "flash_fwd_all": flash_attention.launches,
             "flash_bwd_dq": flash_attention_bwd_dq.launches_wgmma, "flash_bwd_dq_all": flash_attention_bwd_dq.launches,
             "flash_bwd_dkv": flash_attention_bwd_dkv.launches_wgmma,
             "flash_bwd_dkv_all": flash_attention_bwd_dkv.launches}
@@ -1249,7 +1412,8 @@ def profile_train_step(trainer, batch, label: str) -> dict:
     out = _device_summary(prof, time.perf_counter() - t0, 1)
     print(f"{label} profile: step {out['profiled_ms']:.1f} ms under the profiler, device busy "
           f"{out['device_busy_ms']:.1f} ms ({100 * out['device_busy_ms'] / out['profiled_ms']:.1f}%), "
-          f"GEMMs {out['gemm_ms']:.1f} ms", flush=True)
+          f"GEMMs {out['gemm_ms']:.1f} ms; flash kernels, ms: "
+          + ", ".join(f"{name} {ms:.2f}" for name, ms in out["flash_ms"].items()), flush=True)
     for e in out["top"]:
         print(f"{label} profile: {e['ms']:8.3f} ms {e['calls']:6.1f} calls  {e['name'][:80]}", flush=True)
     return out
@@ -1329,7 +1493,7 @@ def train_phase(card: str, profile_steps: bool = False) -> dict:
                                   "--params", str(params_path)])
             launches = _train_launches()
             n = len(res["losses"])
-            want = {"flash_fwd": 64 * n, "flash_bwd_dq": 32 * n, "flash_bwd_dq_all": 32 * n,
+            want = {"flash_fwd": 64 * n, "flash_fwd_all": 64 * n, "flash_bwd_dq": 32 * n, "flash_bwd_dq_all": 32 * n,
                     "flash_bwd_dkv": 32 * n, "flash_bwd_dkv_all": 32 * n}
             if launches != want:
                 fail(f"train: launches {launches} over {n} steps, want {want}")
@@ -1414,7 +1578,7 @@ def train_full_phase(card: str, profile_steps: bool = False) -> dict:
         before = [t.detach().clone() for t in trainer.trainable]
     launches = _train_launches()
     L = cfg.n_layers
-    if launches != {"flash_fwd": 2 * L * 3, "flash_bwd_dq": L * 3, "flash_bwd_dq_all": L * 3,
+    if launches != {"flash_fwd": 2 * L * 3, "flash_fwd_all": 2 * L * 3, "flash_bwd_dq": L * 3, "flash_bwd_dq_all": L * 3,
                     "flash_bwd_dkv": L * 3, "flash_bwd_dkv_all": L * 3}:
         fail(f"train-full: launches {launches} over 3 steps of {L} layers")
     if not all(np.isfinite(losses)):
@@ -1472,12 +1636,14 @@ def main() -> int:
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
     if "kernels" in phases:
-        sources = {"flash_fwd": ("substratus_tpu_torch/csrc/flash_fwd.cu",
+        sources = {"flash_fwd": ("substratus_tpu_torch/csrc/flash_fwd_wgmma.cu",
                                  "substratus_tpu/ops/flash_attention.py:91"),
                    "decode_attn": ("substratus_tpu_torch/csrc/decode_attn.cu",
                                    "substratus_tpu/ops/decode_attention.py:138"),
-                   "flash_cached": ("substratus_tpu_torch/csrc/flash_cached.cu",
+                   "flash_cached": ("substratus_tpu_torch/csrc/flash_fwd_wgmma.cu",
                                     "substratus_tpu/ops/flash_attention.py:452"),
+                   "flash_cached_int8": ("substratus_tpu_torch/csrc/flash_fwd_wgmma.cu",
+                                         "substratus_tpu/ops/flash_attention.py:452"),
                    "fused_decode": ("substratus_tpu_torch/csrc/fused_decode.cu",
                                     "substratus_tpu/ops/fused_decode.py:48"),
                    "q4_matmul": ("substratus_tpu_torch/csrc/q4_matmul.cu", "substratus_tpu/ops/quant4.py:168"),
@@ -1488,17 +1654,22 @@ def main() -> int:
                    "flash_bwd_dkv": ("substratus_tpu_torch/csrc/flash_bwd_wgmma.cu",
                                      "substratus_tpu/ops/flash_attention.py:290")}
         # Each kernel's launches come from the serve or train phase whose
-        # path runs it (train: the first train.main call, 4 steps).
-        phase_of = {"flash_fwd": "serve", "decode_attn": "serve",
-                    "flash_cached": "serve-long", "fused_decode": "serve-long", "q4_matmul": "serve-int4",
-                    "q4_matmul_wgmma": "serve-int4",
-                    "flash_bwd_dq": "train", "flash_bwd_dkv": "train"}
+        # path runs it (train: the first train.main call, 4 steps), as
+        # (phase, its launch count): the flash forward's and the cached
+        # flash's of their wgmma design, the cached flash's over the int8
+        # cache apart.
+        phase_of = {"flash_fwd": ("serve", "flash_fwd_wgmma"), "decode_attn": ("serve", "decode_attn"),
+                    "flash_cached": ("serve-long", "flash_cached_wgmma"),
+                    "flash_cached_int8": ("serve-int4", "flash_cached_int8"),
+                    "fused_decode": ("serve-long", "fused_decode"), "q4_matmul": ("serve-int4", "q4_matmul"),
+                    "q4_matmul_wgmma": ("serve-int4", "q4_matmul_wgmma"),
+                    "flash_bwd_dq": ("train", "flash_bwd_dq"), "flash_bwd_dkv": ("train", "flash_bwd_dkv")}
         line = []
         for name, cases in report["kernels"].items():
             main_case = cases[0]  # the main path's shape
             line.append({
                 "name": name, "route": "cuda", "source": sources[name][0], "replaces": sources[name][1],
-                "launches": report.get(phase_of[name], {}).get("launches", {}).get(name, 0),
+                "launches": report.get(phase_of[name][0], {}).get("launches", {}).get(phase_of[name][1], 0),
                 "max_abs_err": main_case["max_abs_err"], "ms": main_case["ms"],
                 "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
                 "bound_by": main_case["bound_by"], "library_ms": main_case["library_ms"],

@@ -76,14 +76,10 @@
 namespace substratus {
 namespace {
 
-constexpr int WG = 128;              // threads of a warpgroup
 constexpr int THREADS = 3 * WG;      // two consumer warpgroups and the producer
 constexpr int TILE = 64;             // rows of a consumer (wgmma's M) and of a streamed tile
 constexpr int BLOCK = 2 * TILE;      // keys (dK/dV) or query rows (dQ) of a block
-constexpr int ROW = 128;             // bytes of a box row: 64 bf16 columns
 constexpr int BOX = TILE * ROW;      // a [64, 64] box
-constexpr int KSTEP = 16 * ROW;      // 16 rows: one k16 step of an MN-major operand
-constexpr float LOG2E = 1.4426950408889634f;
 
 // Shared memory of the dK/dV kernel: K and V of the block (NB boxes of
 // [128, 64] each), then the ring of (Q, dO) tiles (NB boxes of [64, 64]
@@ -117,56 +113,6 @@ struct DqLayout {
   static constexpr int bar_off = k_off + STAGES * 2 * tile_bytes;
   static constexpr int total = bar_off + 8 * (2 * STAGES + 1) + 1024;
 };
-
-// K-major descriptor of k16 step j of a [rows, D] operand stored as boxes
-// of `box` bytes ([rows, 64] each) from `addr`.
-__device__ __forceinline__ uint64_t kmajor(uint32_t addr, int box, int j) {
-  return smem_desc(addr + (j / 4) * box + (j % 4) * 32, 16, 1024);
-}
-
-// MN-major descriptor of k16 step kk of a [64, D] tile (K = its rows,
-// N = D across its [64, 64] boxes).
-__device__ __forceinline__ uint64_t mnmajor(uint32_t addr, int kk) {
-  return smem_desc(addr + kk * KSTEP, BOX, 1024);
-}
-
-// The four A fragments (k16 steps over 64 columns) of an m64n64
-// accumulator rounded to bf16.
-__device__ __forceinline__ void to_a(uint32_t (&a)[4][4], const float (&x)[32]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
-}
-
-// Rows row0 and row0 + 8 of a [*, stride] bf16 matrix from an m64nD
-// accumulator (columns 8 j + 2 t, + 1); rows at or past n are not written.
-template <int D>
-__device__ __forceinline__ void store_acc(__nv_bfloat16* base, size_t stride, int row0, int n,
-                                          const float (&acc)[D / 2], int t) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    if (row >= n) continue;
-    __nv_bfloat16* out = base + (size_t)row * stride + 2 * t;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) = __floats2bfloat162_rn(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
-  }
-}
-
-// The block's tile rank (0 = heaviest under causal masking) and head.
-// Heads go in chunks of `chunk`, and within a chunk every head's rank 0,
-// then every head's rank 1, ...: the blocks in flight share a few heads'
-// streamed tiles in L2, and each chunk starts with its heaviest blocks.
-__device__ __forceinline__ void block_work(int n_tiles, int chunk, int& rank, int& head) {
-  const int n_heads = gridDim.x / n_tiles;
-  const int c0 = blockIdx.x / (chunk * n_tiles) * chunk;  // the chunk's first head
-  const int heads = min(chunk, n_heads - c0);
-  const int r = blockIdx.x - c0 * n_tiles;
-  rank = r / heads;
-  head = c0 + r % heads;
-}
 
 template <int D>
 __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkv_wgmma_kernel(
@@ -295,7 +241,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkv_wgmma_kernel(
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < TILE / 16; ++kk)  // dV += P^T dO
-          wgmma_rs<1>(dv_acc, pa[kk], mnmajor(dos, kk), 1);
+          wgmma_rs<1>(dv_acc, pa[kk], mnmajor(dos, BOX, kk), 1);
         wgmma_commit();
         wgmma_wait<1>();  // dP^T (the groups complete in order)
         fence_regs(dpacc);
@@ -315,7 +261,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkv_wgmma_kernel(
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < TILE / 16; ++kk)  // dK += dS^T Q
-          wgmma_rs<1>(dk_acc, dsa[kk], mnmajor(qs, kk), 1);
+          wgmma_rs<1>(dk_acc, dsa[kk], mnmajor(qs, BOX, kk), 1);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(dv_acc);
@@ -462,7 +408,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_wgmma_kernel(
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < TILE / 16; ++kk)  // dQ += dS K
-        wgmma_rs<1>(dq_acc, dsa[kk], mnmajor(ks, kk), 1);
+        wgmma_rs<1>(dq_acc, dsa[kk], mnmajor(ks, BOX, kk), 1);
       wgmma_commit();
       held = s;
     }
@@ -473,19 +419,6 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_wgmma_kernel(
 
     store_acc<D>(dq + ((size_t)b * Sq * H + h) * D, (size_t)H * D, row0, Sq, dq_acc, t4);
   }
-}
-
-// Heads per chunk of block_work: about one wave of blocks (one block an
-// SM).
-int head_chunk(int tiles) {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      sms = 132;
-  }
-  return sms / tiles > 1 ? sms / tiles : 1;
 }
 
 // Each call encodes its four tensor maps on the host (the pointers change

@@ -3,8 +3,10 @@
 // [Sq, Sk] score matrix never reaches device memory.
 //
 // Replaces the TPU kernel substratus_tpu/ops/flash_attention.py
-// _cached_kernel (driven by _cached_impl / flash_cached_attention), the
-// attention of every chunk of a chunked prefill.
+// _cached_kernel (driven by _cached_impl / flash_cached_attention) at
+// head_dim 16 and 32 (ops/flash_attention.py::flash_cached_design);
+// flash_fwd_wgmma.cu takes 64 and 128, and this kernel's 64 and 128
+// instances serve chip_smoke.py's side-by-side timing.
 //
 // Layout: q [B, Sq, H, D] bf16; k/v [B, KH, Sk, D] bf16, or int8 with f32
 // scales [B, KH, Sk]; pos [B, Sq] int32 absolute positions of the queries;

@@ -3,8 +3,10 @@
 // device memory.
 //
 // Replaces the TPU kernel substratus_tpu/ops/flash_attention.py
-// _flash_kernel (driven by _flash_forward / flash_attention), the
-// serving path's prefill attention.
+// _flash_kernel (driven by _flash_forward / flash_attention) at head_dim
+// 16 and 32 (ops/flash_attention.py::flash_fwd_design); flash_fwd_wgmma.cu
+// takes 64 and 128, and this kernel's 64 and 128 instances serve
+// chip_smoke.py's side-by-side timing.
 //
 // Layout: q [B, Sq, H, D], k/v [B, Sk, KH, D], o [B, Sq, H, D], bf16,
 // contiguous; lse (optional) [B*H, Sq] f32. Query head h reads kv head

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks of the port's wgmma kernels
-// (q4_matmul_wgmma.cu, flash_bwd_wgmma.cu): mbarriers, TMA tile loads
-// with tensor maps encoded on the host through the driver, cp.async
-// tracked by an mbarrier, wgmma's shared-memory descriptors and products,
-// and setmaxnreg.
+// (q4_matmul_wgmma.cu, flash_bwd_wgmma.cu, flash_fwd_wgmma.cu): mbarriers,
+// TMA tile loads with tensor maps encoded on the host by the CUDA driver,
+// cp.async tracked by an mbarrier, wgmma's shared-memory descriptors and
+// products, setmaxnreg, and the flash kernels' operand descriptors,
+// fragment conversions, stores and block order.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (the function comes from the driver at run time)
@@ -197,6 +198,103 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+// wgmma_ss with N = 128: d[64 x 128] (+)= A[64 x 16] * B[16 x 128].
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// --- the flash kernels' operands (flash_bwd_wgmma.cu, flash_fwd_wgmma.cu) ---
+//
+// Every bf16 operand lies in shared memory as TMA writes it: boxes of
+// [rows, 64] columns (128-byte rows, the 128-byte swizzle), one box per 64
+// columns of D, each box 1024-byte aligned.
+
+constexpr int WG = 128;     // threads of a warpgroup
+constexpr int ROW = 128;    // bytes of a box row: 64 bf16 columns
+constexpr int KSTEP = 16 * ROW;  // 16 rows: one k16 step of an MN-major operand
+constexpr float LOG2E = 1.4426950408889634f;
+
+// K-major descriptor of k16 step j of a [rows, D] operand stored as boxes
+// of `box` bytes ([rows, 64] each) from `addr`.
+__device__ __forceinline__ uint64_t kmajor(uint32_t addr, int box, int j) {
+  return smem_desc(addr + (j / 4) * box + (j % 4) * 32, 16, 1024);
+}
+
+// MN-major descriptor of k16 step kk of a [rows, D] operand read with its
+// rows as K (N = D across its boxes of `box` bytes).
+__device__ __forceinline__ uint64_t mnmajor(uint32_t addr, int box, int kk) {
+  return smem_desc(addr + kk * KSTEP, box, 1024);
+}
+
+// The A fragments (k16 steps over N columns) of an m64nN accumulator
+// rounded to bf16.
+template <int R>
+__device__ __forceinline__ void to_a(uint32_t (&a)[R / 8][4], const float (&x)[R]) {
+#pragma unroll
+  for (int kk = 0; kk < R / 8; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+}
+
+// Rows row0 and row0 + 8 of a [*, stride] bf16 matrix from an m64nD
+// accumulator (columns 8 j + 2 t, + 1); rows at or past n are not written.
+template <int D>
+__device__ __forceinline__ void store_acc(__nv_bfloat16* base, size_t stride, int row0, int n,
+                                          const float (&acc)[D / 2], int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= n) continue;
+    __nv_bfloat16* out = base + (size_t)row * stride + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) = __floats2bfloat162_rn(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+  }
+}
+
+// The block's tile rank (0 = heaviest under causal masking) and head, for a
+// one-dimensional grid of n_tiles blocks per head. Heads go in chunks of
+// `chunk`, and within a chunk every head's rank 0, then every head's rank
+// 1, ...: the blocks in flight share a few heads' streamed tiles in L2, and
+// each chunk starts with its heaviest blocks.
+__device__ __forceinline__ void block_work(int n_tiles, int chunk, int& rank, int& head) {
+  const int n_heads = gridDim.x / n_tiles;
+  const int c0 = blockIdx.x / (chunk * n_tiles) * chunk;  // the chunk's first head
+  const int heads = min(chunk, n_heads - c0);
+  const int r = blockIdx.x - c0 * n_tiles;
+  rank = r / heads;
+  head = c0 + r % heads;
+}
+
+// Heads per chunk of block_work: about one wave of blocks (one block an
+// SM).
+inline int head_chunk(int tiles) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      sms = 132;
+  }
+  return sms / tiles > 1 ? sms / tiles : 1;
+}
+
 // --- tensor maps (host) --------------------------------------------------
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
@@ -229,17 +327,41 @@ inline bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// A map over a contiguous bf16 [B, S, H, D] tensor as the 4-D (D, H, S, B),
-// box {64, 1, rows, 1} with the 128-byte swizzle: one [rows, 64] slab of
-// one head, exactly a K-major wgmma operand (or an MN-major one read with
-// its rows as K). Rows past S read as zero.
-inline bool make_head_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D, int rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2, (cuuint64_t)S * H * D * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+// A 4-D bf16 map with the 128-byte swizzle over the contiguous tensor
+// dims[3] x dims[2] x dims[1] x dims[0] (dims[0] = D innermost).
+inline bool make_bf16_map(CUtensorMap* map, const void* ptr, const cuuint64_t (&dims)[4], const cuuint32_t (&box)[4]) {
+  const cuuint64_t strides[3] = {dims[0] * 2, dims[1] * dims[0] * 2, dims[2] * dims[1] * dims[0] * 2};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box, elem,
                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A map over a contiguous bf16 [B, S, H, D] tensor as the 4-D (D, H, S, B),
+// box {64, 1, rows, 1}: one [rows, 64] slab of one head, exactly a K-major
+// wgmma operand (or an MN-major one read with its rows as K). Rows past S
+// read as zero.
+inline bool make_head_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D, int rows) {
+  return make_bf16_map(map, ptr, {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B},
+                       {64, 1, (cuuint32_t)rows, 1});
+}
+
+// The same over the slot-cache layout [B, KH, S, D] as (D, S, KH, B), box
+// {64, rows, 1, 1}.
+inline bool make_cache_map(CUtensorMap* map, const void* ptr, int B, int KH, int S, int D, int rows) {
+  return make_bf16_map(map, ptr, {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)KH, (cuuint64_t)B},
+                       {64, (cuuint32_t)rows, 1, 1});
+}
+
+// An int8 slot cache [B, KH, S, D] as (D, S, KH, B), box {D, rows, 1, 1}
+// with no swizzle: `rows` dense rows of D bytes. Rows past S read as zero.
+inline bool make_int8_cache_map(CUtensorMap* map, const void* ptr, int B, int KH, int S, int D, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)KH, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D, (cuuint64_t)S * D, (cuuint64_t)KH * S * D};
+  const cuuint32_t box[4] = {(cuuint32_t)D, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(ptr), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -39,10 +39,14 @@ _F = ctypes.c_float
 SIGNATURES = {
     # q, k, v, o, lse, B, Sq, Sk, H, KH, D, dtype, scale, causal, stream
     "flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    # the same at head_dim 64 and 128 (csrc/flash_fwd_wgmma.cu)
+    "flash_fwd_wgmma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     # q, k, v, k_scale, v_scale, pos, o, B, H, KH, S, D, cache_dtype, scale, stream
     "decode_attn": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     # q, k, v, k_scale, v_scale, pos, kv_len, o, B, Sq, Sk, H, KH, D, cache_dtype, scale, stream
     "flash_cached": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # the same at head_dim 64 and 128 (csrc/flash_fwd_wgmma.cu)
+    "flash_cached_wgmma": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     # q, new_k, new_v, new_ks, new_vs, k, v, k_scale, v_scale, pos, o,
     # B, H, KH, S, D, cache_dtype, scale, stream
     "fused_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],

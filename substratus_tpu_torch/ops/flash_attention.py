@@ -1,17 +1,17 @@
-"""Flash attention: two CUDA kernels, each beside its plain PyTorch
-version.
+"""Flash attention: CUDA kernels, each beside its plain PyTorch version.
 
-* ``flash_attention`` (csrc/flash_fwd.cu) replaces
+* ``flash_attention`` replaces
   substratus_tpu/ops/flash_attention.py::_flash_kernel, the no-cache
-  prefill attention of the serving path. Both of its products run on the
-  tensor cores (mma.sync, bf16 in, f32 accumulate); at the llama2-7b
-  prefill shape its bound on an H100 is the bytes of q/k/v/o. See the
-  source note in csrc/flash_fwd.cu.
-* ``flash_cached_attention`` (csrc/flash_cached.cu) replaces
-  ``_cached_kernel``: a multi-token chunk against the dense slot cache
-  (every chunk of a chunked prefill), per-row limits from the query
-  positions, bf16 or int8 cache. See the source note in
-  csrc/flash_cached.cu.
+  prefill attention of the serving path and the forward of training. Two
+  designs compute it, chosen by shape alone (``flash_fwd_design``):
+  csrc/flash_fwd_wgmma.cu (wgmma, a TMA ring, a producer warpgroup) at
+  head_dim 64 and 128, every model but ``tiny``; csrc/flash_fwd.cu
+  (mma.sync) at 16 and 32.
+* ``flash_cached_attention`` replaces ``_cached_kernel``: a multi-token
+  chunk against the dense slot cache (every chunk of a chunked prefill),
+  per-row limits from the query positions, bf16 or int8 cache
+  (``flash_cached_design``: csrc/flash_fwd_wgmma.cu at head_dim 64 and
+  128, csrc/flash_cached.cu at 16 and 32).
 
 * ``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv`` replace
   ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``, the training backward:
@@ -25,8 +25,9 @@ version.
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs the
 plain version only for tensors on the CPU. ``flash_attention.launches``,
 ``flash_cached_attention.launches``, ``flash_attention_bwd_dq.launches``
-and ``flash_attention_bwd_dkv.launches`` count kernel launches (the
-backward's ``launches_wgmma`` and ``launches_mma`` those of each design).
+and ``flash_attention_bwd_dkv.launches`` count kernel launches (each one's
+``launches_wgmma`` and ``launches_mma`` those of each design). See the
+source notes in csrc/ for each design and its bound.
 """
 from __future__ import annotations
 
@@ -124,6 +125,17 @@ def flash_attention(
     return _flash_forward(q, k, v, causal, scale, return_lse)
 
 
+def flash_fwd_design(d: int) -> str:
+    """The CUDA design of the forward kernel at head_dim d: "wgmma"
+    (csrc/flash_fwd_wgmma.cu: wgmma, a TMA ring of K/V tiles, 128 query
+    rows a block) at 64 and 128, "mma" (csrc/flash_fwd.cu: mma.sync, 64
+    rows a block) at 16 and 32. 64-row blocks of the wgmma design were
+    slower at both the serving and the training shape (PERF.md), so
+    no other shape picks them. By shape alone: a launch that fails raises,
+    it is not retried on the other design."""
+    return "wgmma" if d in (64, 128) else "mma"
+
+
 def _flash_forward(q, k, v, causal: bool, scale: float, return_lse: bool):
     """The forward kernel's launch (or, for CPU tensors, its plain version)."""
     if q.device.type == "cpu":
@@ -133,18 +145,26 @@ def _flash_forward(q, k, v, causal: bool, scale: float, return_lse: bool):
     q, k, v = _check_qkv("flash_attention", q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device) if return_lse else None
-    rc = kernels.library().flash_fwd(
+    wgmma = flash_fwd_design(d) == "wgmma"
+    name = "flash_fwd_wgmma" if wgmma else "flash_fwd"
+    rc = getattr(kernels.library(), name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if lse is not None else None,
         b, sq, sk, h, kh, d, kernels.DTYPE_CODES[q.dtype], float(scale), int(causal),
         kernels.stream_ptr(q.device),
     )
-    kernels.check(rc, "flash_fwd")
+    kernels.check(rc, name)
     flash_attention.launches += 1
+    if wgmma:
+        flash_attention.launches_wgmma += 1
+    else:
+        flash_attention.launches_mma += 1
     return (out, lse) if return_lse else out
 
 
-flash_attention.launches = 0
+flash_attention.launches = 0  # every launch
+flash_attention.launches_wgmma = 0  # csrc/flash_fwd_wgmma.cu (head_dim 64, 128)
+flash_attention.launches_mma = 0  # csrc/flash_fwd.cu (head_dim 16, 32)
 
 
 def _bwd_probs(q, k, v, do, lse, delta, causal: bool, scale: float):
@@ -377,6 +397,16 @@ def flash_cached_attention_plain(
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(dt)
 
 
+def flash_cached_design(d: int) -> str:
+    """The CUDA design of the cached flash kernel at head_dim d: "wgmma"
+    (csrc/flash_fwd_wgmma.cu, 128 query rows a block; an int8 cache's
+    tiles converted to bf16 in shared memory) at 64 and 128, "mma"
+    (csrc/flash_cached.cu: mma.sync) at 16 and 32, for a bf16 or an int8
+    cache alike. By head_dim alone: a launch that fails raises, it is not
+    retried on the other design."""
+    return "wgmma" if d in (64, 128) else "mma"
+
+
 def flash_cached_attention(
     q: torch.Tensor,  # [B, Sq, H, D]
     k: torch.Tensor,  # [B, KH, Sk, D] slot-cache layout (int8 when scales given)
@@ -425,7 +455,9 @@ def flash_cached_attention(
     pos = q_positions.to(torch.int32).contiguous()
     kv_len = kv_length.to(torch.int32).contiguous() if kv_length is not None else None
     out = torch.empty_like(q)
-    rc = kernels.library().flash_cached(
+    wgmma = flash_cached_design(d) == "wgmma"
+    name = "flash_cached_wgmma" if wgmma else "flash_cached"
+    rc = getattr(kernels.library(), name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         k_scale.data_ptr() if quantized else None,
         v_scale.data_ptr() if quantized else None,
@@ -433,9 +465,15 @@ def flash_cached_attention(
         b, sq, sk, h, kh, d, kernels.DTYPE_CODES[k.dtype], float(d**-0.5),
         kernels.stream_ptr(q.device),
     )
-    kernels.check(rc, "flash_cached")
+    kernels.check(rc, name)
     flash_cached_attention.launches += 1
+    if wgmma:
+        flash_cached_attention.launches_wgmma += 1
+    else:
+        flash_cached_attention.launches_mma += 1
     return out
 
 
-flash_cached_attention.launches = 0
+flash_cached_attention.launches = 0  # every launch
+flash_cached_attention.launches_wgmma = 0  # csrc/flash_fwd_wgmma.cu (head_dim 64, 128)
+flash_cached_attention.launches_mma = 0  # csrc/flash_cached.cu (head_dim 16, 32)

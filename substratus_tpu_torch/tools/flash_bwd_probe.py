@@ -1,11 +1,15 @@
-"""Variants of the flash backward's Hopper kernels (csrc/flash_bwd_wgmma.cu),
-timed in turns on the card, to see what bounds them:
+"""Variants of the flash kernels' Hopper designs, timed in turns on the card,
+to see what bounds them:
 
-    python -m substratus_tpu_torch.tools.flash_bwd_probe [--all]
+    python -m substratus_tpu_torch.tools.flash_bwd_probe [--all]   # the backward
+    python -m substratus_tpu_torch.tools.flash_bwd_probe --forward  # the forward, the cached flash
 
-Each variant is the source with one change, a text substitution that must
-apply, built by nvcc into its own library under build/kernels/probe/ and
-called through the C entry points with the wrapper's arguments:
+Each variant is the sources with one change, a text substitution that must
+apply (in the kernel's source or in csrc/hopper.cuh, which holds the block
+order), built by nvcc into its own library under build/kernels/probe/ and
+called through the C entry points with the wrapper's arguments.
+
+The backward (csrc/flash_bwd_wgmma.cu):
 
   built        as the repository builds it;
   light_first  the lightest block of each head (or chunk) first;
@@ -21,11 +25,28 @@ called through the C entry points with the wrapper's arguments:
 
 Shapes: one llama2-7b layer in training (B=8, S=1024, H=KH=32, D=128,
 causal); with --all also GQA 4 (KH=8) and tinyllama's heads (H=32, KH=4,
-D=64). Prints, for each shape and variant, the median over three rounds
+D=64).
+
+The forward (--forward; csrc/flash_fwd_wgmma.cu, both of its kernels):
+built, light_first, loads_only (the consumers wait for each stage and
+free it), no_products (every wgmma removed, the scores zero), no_exp
+(exp2 removed from p), no_store (the output not written), stages_2 (a
+ring of two stages), kt_64 (K/V tiles of 64 keys; kt_64_stages_6 with a
+ring of six), block_64 (64-row blocks: one consumer warpgroup), and
+head_major (the built kernel on [B, H, S, D] copies of q, k, v, as B*H
+batches of one head: SDPA's layout); beside them SDPA on those copies and
+on strided views of q, k, v (each with a copy of its output).
+Shapes: the llama2-7b prefill (B=1, S=512) and training layer (B=8,
+S=1024), causal, and the cached flash's fifth 512-token chunk of a
+4096-row cache.
+
+Prints, for each shape and variant, the median over three rounds
 (alternating order) of each kernel's time (a round: the median of 25
-launches between CUDA events) and the largest error per output vector
+launches between CUDA events, the card held 0.3 ms before each so that
+the host's time is not counted) and the largest error per output vector
 against the plain version (variants that drop work disagree by design),
 and writes chiprun_out/flash_bwd_probe.json. Needs the card and nvcc.
+With --forward the file is flash_fwd_probe.json beside it.
 """
 from __future__ import annotations
 
@@ -42,8 +63,8 @@ import torch
 from substratus_tpu_torch import kernels
 from substratus_tpu_torch.ops import flash_attention as fa
 
-SOURCE = kernels.CSRC / "flash_bwd_wgmma.cu"
 OUT = Path(__file__).resolve().parents[2] / "chiprun_out" / "flash_bwd_probe.json"
+HEADER = "hopper.cuh"
 
 
 def _sub(text: str, old: str, new: str) -> str:
@@ -52,43 +73,89 @@ def _sub(text: str, old: str, new: str) -> str:
     return text.replace(old, new)
 
 
-def variants(src: str) -> dict:
+def _sources(kernel: str) -> dict:
+    return {name: (kernels.CSRC / name).read_text() for name in (kernel, HEADER)}
+
+
+def _orders(src: dict, kernel: str) -> dict:
+    """The block orders of hopper.cuh's block_work and head_chunk."""
+    h = src[HEADER]
     chunk_rule = "  return sms / tiles > 1 ? sms / tiles : 1;"
+    return {
+        "light_first": {**src, HEADER: _sub(h, "  rank = r / heads;", "  rank = n_tiles - 1 - r / heads;")},
+        "heads_1": {**src, HEADER: _sub(h, chunk_rule, "  return 1;")},
+        "heads_all": {**src, HEADER: _sub(h, chunk_rule, "  return 65536;")},
+    }
+
+
+def bwd_variants() -> dict:
+    kernel = "flash_bwd_wgmma.cu"
+    src = _sources(kernel)
+    k = src[kernel]
 
     def loads_only(text):
         text = _sub(text, "      if (causal && k0 >= q_lo + TILE) {", "      if (true) {")
         return _sub(text, "      const bool live = !causal || q0 + TILE > key_lo;", "      const bool live = false;")
 
-    heads_all = _sub(src, chunk_rule, "  return 65536;")
+    orders = _orders(src, kernel)
     return {
         "built": src,
-        "light_first": _sub(src, "  rank = r / heads;", "  rank = n_tiles - 1 - r / heads;"),
-        "heads_1": _sub(src, chunk_rule, "  return 1;"),
-        "heads_all": heads_all,
-        "loads_only": loads_only(src),
-        "loads_only_heads_all": loads_only(heads_all),
-        "no_products": _sub(_sub(src, "wgmma_ss(", "(void)("), "wgmma_rs<1>(", "(void)("),
-        "no_exp": _sub(src, "exp2f(", "("),
+        **orders,
+        "loads_only": {**src, kernel: loads_only(k)},
+        "loads_only_heads_all": {**orders["heads_all"], kernel: loads_only(k)},
+        "no_products": {**src, kernel: _sub(_sub(k, "wgmma_ss(", "(void)("), "wgmma_rs<1>(", "(void)(")},
+        "no_exp": {**src, kernel: _sub(k, "exp2f(", "(")},
     }
 
 
-def build(texts: dict) -> dict:
+def fwd_variants() -> dict:
+    kernel = "flash_fwd_wgmma.cu"
+    src = _sources(kernel)
+    k = src[kernel]
+    loads_only = _sub(k, "      if (n_tiles > 0) {\n        float alpha[2];", (
+        "      if (n_tiles > 0) {\n        mbar_wait(q_full, 0);\n"
+        "        for (int t = 0; t < n_tiles; ++t) mbar_wait(full + 8 * (t % ST), (t / ST) & 1), release(t % ST);\n"
+        "      }\n      if (false) {\n        float alpha[2];"))
+    no_products = _sub(_sub(k, "wgmma_ss(", "(void)("), "wgmma_rs<1>(", "(void)(")
+    no_products = _sub(no_products, "float o_acc[D / 2], sacc[T / 2];", "float o_acc[D / 2], sacc[T / 2] = {};")
+    store = "      store_acc<D>(o + ((size_t)b * Sq * H + h) * D"
+    kt_64 = _sub(k, "constexpr int KT = 128;", "constexpr int KT = 64;")
+    stages = "static constexpr int STAGES = D == 128 ? 3 : 4;"
+    orders = _orders(src, kernel)
+    return {
+        "built": src,
+        "light_first": orders["light_first"],
+        "loads_only": {**src, kernel: loads_only},
+        "no_products": {**src, kernel: no_products},
+        "no_exp": {**src, kernel: _sub(k, "exp2f(fmaf(", "(fmaf(")},
+        "no_store": {**src, kernel: _sub(k, store, "      if (o_acc[0] == 12345.f) " + store.lstrip())},
+        "stages_2": {**src, kernel: _sub(k, stages, "static constexpr int STAGES = 2;")},
+        "kt_64": {**src, kernel: kt_64},
+        "kt_64_stages_6": {**src, kernel: _sub(kt_64, stages, "static constexpr int STAGES = D == 128 ? 6 : 8;")},
+        "block_64": {**src, kernel: _sub(k, "constexpr int NC = 2;", "constexpr int NC = 1;")},
+    }
+
+
+def build(variants: dict, kernel: str, entries) -> dict:
     out = kernels.build_dir() / "probe"
-    out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, text in texts.items():
-        cu = out / f"flash_bwd_{name}.cu"
-        cu.write_text(text)
+    for name, files in variants.items():
+        d = out / f"{Path(kernel).stem}_{name}"
+        d.mkdir(parents=True, exist_ok=True)
+        for fname, text in files.items():
+            (d / fname).write_text(text)
+        # The variant's own hopper.cuh first: a quoted include searches the
+        # including file's directory before -I.
         procs[name] = subprocess.Popen(
-            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-I", str(kernels.CSRC), "-o", str(cu.with_suffix(".so")),
-             str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-I", str(kernels.CSRC), "-o", str(d / "probe.so"),
+             str(d / kernel)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
             raise SystemExit(f"flash_bwd_probe: nvcc failed for {name}:\n{log[-4000:]}")
-        lib = ctypes.CDLL(str(out / f"flash_bwd_{name}.so"))
-        for fn in ("flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma"):
+        lib = ctypes.CDLL(str(out / f"{Path(kernel).stem}_{name}" / "probe.so"))
+        for fn in entries:
             getattr(lib, fn).argtypes = kernels.SIGNATURES[fn]
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
@@ -101,6 +168,7 @@ def time_ms(fn, n: int = 25) -> float:
     times = []
     for _ in range(n):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(500_000)  # hold the card until the host has enqueued the launch
         start.record()
         fn()
         end.record()
@@ -116,7 +184,27 @@ def row_err(got, ref) -> float:
     return ((g - r).norm(dim=-1) / den).max().item()
 
 
-def probe_shape(libs: dict, b: int, s: int, h: int, kh: int, d: int) -> dict:
+def in_rounds(label: str, runs: dict, outs: dict, ref) -> dict:
+    """runs: {variant: {kernel: call}}; three rounds in alternating order."""
+    times = {name: {kernel: [] for kernel in calls} for name, calls in runs.items()}
+    order = list(runs)
+    for rnd in range(3):
+        for name in order if rnd % 2 == 0 else order[::-1]:
+            for kernel, fn in runs[name].items():
+                times[name][kernel].append(time_ms(fn))
+    torch.cuda.synchronize()
+    result = {}
+    for name in runs:
+        errs = [row_err(g, r) for g, r in zip(outs[name], ref)]
+        result[name] = {**{f"{kernel}_ms": statistics.median(ts) for kernel, ts in times[name].items()},
+                        "rounds": times[name], "row_err": errs}
+        print(f"flash_bwd_probe [{label}] {name:20s} "
+              + ", ".join(f"{kernel} {result[name][f'{kernel}_ms']:.4f} ms" for kernel in times[name])
+              + "; row error " + " ".join(f"{e:.3g}" for e in errs), flush=True)
+    return {label: result}
+
+
+def probe_bwd(libs: dict, b: int, s: int, h: int, kh: int, d: int) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     q, do = (torch.randn((b, s, h, d), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(2))
     k, v = (torch.randn((b, s, kh, d), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(2))
@@ -140,28 +228,65 @@ def probe_shape(libs: dict, b: int, s: int, h: int, kh: int, d: int) -> dict:
             kernels.check(lib.flash_bwd_dkv_wgmma(*ins, dk.data_ptr(), dv.data_ptr(), *tail), "flash_bwd_dkv_wgmma")
 
         runs[name] = {"dq": call_dq, "dkv": call_dkv}
-    times = {name: {"dq": [], "dkv": []} for name in runs}
-    order = list(runs)
-    for rnd in range(3):
-        for name in order if rnd % 2 == 0 else order[::-1]:
-            for kernel, fn in runs[name].items():
-                times[name][kernel].append(time_ms(fn))
-    torch.cuda.synchronize()
-    label = f"B={b} S={s} H={h} KH={kh} D={d} causal"
-    result = {}
-    for name in runs:
-        errs = [row_err(g, r) for g, r in zip(outs[name], ref)]
-        result[name] = {"dq_ms": statistics.median(times[name]["dq"]), "dkv_ms": statistics.median(times[name]["dkv"]),
-                        "rounds": times[name], "row_err": errs}
-        print(f"flash_bwd_probe [{label}] {name:12s} dq {result[name]['dq_ms']:.4f} ms, dkv "
-              f"{result[name]['dkv_ms']:.4f} ms; row error dq {errs[0]:.3g} dk {errs[1]:.3g} dv {errs[2]:.3g}",
-              flush=True)
-    return {label: result}
+    return in_rounds(f"B={b} S={s} H={h} KH={kh} D={d} causal", runs, outs, ref)
+
+
+def probe_fwd(libs: dict, b: int, s: int, h: int, kh: int, d: int) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn((b, s, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((b, s, kh, d), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(2))
+    ref = (fa.flash_attention_plain(q, k, v, True),)
+    stream = torch.cuda.current_stream().cuda_stream
+    runs, outs = {}, {}
+    for name, lib in libs.items():
+        o = torch.empty_like(q)
+        outs[name] = (o,)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None, b, s, s, h, kh, d,
+                kernels.DTYPE_CODES[torch.bfloat16], d**-0.5, 1, stream)
+        runs[name] = {"fwd": lambda lib=lib, args=args: kernels.check(lib.flash_fwd_wgmma(*args), "flash_fwd_wgmma")}
+    if kh == h:  # the built kernel on head-major copies ([B, H, S, D]: B*H batches of one head), SDPA's layout
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        o = torch.empty_like(qt)
+        outs["head_major"] = (o.transpose(1, 2),)
+        args = (qt.data_ptr(), kt.data_ptr(), vt.data_ptr(), o.data_ptr(), None, b * h, s, s, 1, 1, d,
+                kernels.DTYPE_CODES[torch.bfloat16], d**-0.5, 1, stream)
+        runs["head_major"] = {"fwd": lambda args=args: kernels.check(libs["built"].flash_fwd_wgmma(*args),
+                                                                     "flash_fwd_wgmma")}
+        # The yardstick on both layouts: SDPA on the head-major copies (as
+        # chip_smoke.py times it) and on strided views of q, k, v.
+        for name, xs in (("sdpa_head_major", (qt, kt, vt)), ("sdpa_strided", tuple(x.transpose(1, 2) for x in (q, k, v)))):
+            out = torch.empty_like(qt)
+            outs[name] = (out.transpose(1, 2),)
+
+            def sdpa(xs=xs, out=out):
+                out.copy_(torch.nn.functional.scaled_dot_product_attention(*xs, is_causal=True))
+
+            runs[name] = {"fwd": sdpa}
+    return in_rounds(f"forward B={b} S={s} H={h} KH={kh} D={d} causal", runs, outs, ref)
+
+
+def probe_cached(libs: dict, sq: int = 512, sk: int = 4096, start: int = 2048, h: int = 32, d: int = 128) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn((1, sq, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((1, h, sk, d), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(2))
+    pos = (start + torch.arange(sq, device="cuda")).to(torch.int32)[None]
+    ref = (fa.flash_cached_attention_plain(q, k, v, pos),)
+    stream = torch.cuda.current_stream().cuda_stream
+    runs, outs = {}, {}
+    for name, lib in libs.items():
+        o = torch.empty_like(q)
+        outs[name] = (o,)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None, pos.data_ptr(), None, o.data_ptr(), 1, sq, sk,
+                h, h, d, kernels.DTYPE_CODES[torch.bfloat16], d**-0.5, stream)
+        runs[name] = {"cached": lambda lib=lib, args=args: kernels.check(lib.flash_cached_wgmma(*args),
+                                                                         "flash_cached_wgmma")}
+    return in_rounds(f"cached Sq={sq} Sk={sk} H=KH={h} D={d} pos {start}..{start + sq - 1}", runs, outs, ref)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m substratus_tpu_torch.tools.flash_bwd_probe")
-    ap.add_argument("--all", action="store_true", help="also GQA 4 and tinyllama's heads")
+    ap.add_argument("--all", action="store_true", help="backward: also GQA 4 and tinyllama's heads")
+    ap.add_argument("--forward", action="store_true", help="the forward and the cached flash instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("flash_bwd_probe: needs the card", file=sys.stderr)
@@ -169,13 +294,21 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(f"flash_bwd_probe: {card}", flush=True)
-    libs = build(variants(SOURCE.read_text()))
-    shapes = [(8, 1024, 32, 32, 128)] + ([(8, 1024, 32, 8, 128), (8, 1024, 32, 4, 64)] if args.all else [])
     report = {"card": card}
-    for shape in shapes:
-        report.update(probe_shape(libs, *shape))
-    OUT.parent.mkdir(exist_ok=True)
-    OUT.write_text(json.dumps(report, indent=1))
+    if args.forward:
+        libs = build(fwd_variants(), "flash_fwd_wgmma.cu", ("flash_fwd_wgmma", "flash_cached_wgmma"))
+        for shape in ((1, 512, 32, 32, 128), (8, 1024, 32, 32, 128)):
+            report.update(probe_fwd(libs, *shape))
+        report.update(probe_cached(libs))
+        out = OUT.with_name("flash_fwd_probe.json")
+    else:
+        libs = build(bwd_variants(), "flash_bwd_wgmma.cu", ("flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma"))
+        shapes = [(8, 1024, 32, 32, 128)] + ([(8, 1024, 32, 8, 128), (8, 1024, 32, 4, 64)] if args.all else [])
+        for shape in shapes:
+            report.update(probe_bwd(libs, *shape))
+        out = OUT
+    out.parent.mkdir(exist_ok=True)
+    out.write_text(json.dumps(report, indent=1))
     return 0
 
 

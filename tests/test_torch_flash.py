@@ -4,8 +4,9 @@ flash_attention.py) against the JAX package's.
 On the CPU the wrapper runs its plain version; it is held against JAX's
 flash_attention in Pallas interpret mode (as tests/test_attention_kernels.py
 runs it) and against dot_product_attention, float32, atol 1e-5 (another
-summation order). The CUDA kernel itself is held against the plain version
-in tests/test_torch_kernels_cuda.py.
+summation order). The CUDA kernels themselves are held against the plain
+version in tests/test_torch_kernels_cuda.py and
+tests/test_torch_flash_fwd_cuda.py; here, which design each shape routes to.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -14,8 +15,9 @@ import torch
 
 from substratus_tpu.ops.attention import dot_product_attention as j_dpa
 from substratus_tpu.ops.flash_attention import flash_attention as j_flash
+from substratus_tpu_torch.models import llama
 from substratus_tpu_torch.ops.attention import dot_product_attention
-from substratus_tpu_torch.ops.flash_attention import flash_attention
+from substratus_tpu_torch.ops.flash_attention import flash_attention, flash_cached_design, flash_fwd_design
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -67,3 +69,18 @@ def test_flash_bf16_rounds_p_like_jax():
     assert out.dtype == torch.bfloat16
     np.testing.assert_allclose(out.float().numpy(), np.asarray(want, np.float32), atol=2e-2)
 
+
+
+def test_forward_designs_by_shape():
+    """The forward kernels' designs by shape alone: the flash forward on
+    wgmma (csrc/flash_fwd_wgmma.cu, 128 query rows a block) at head_dim
+    64 and 128, which every model but the tiny test configs has, mma.sync
+    (csrc/flash_fwd.cu, 64 rows) at 16 and 32; the cached flash likewise
+    (csrc/flash_fwd_wgmma.cu or csrc/flash_cached.cu), whether the cache is
+    bf16 or int8 (serve-int4's kv_cache_dtype)."""
+    assert [flash_fwd_design(d) for d in (16, 32, 64, 128)] == ["mma", "mma", "wgmma", "wgmma"]
+    assert [flash_cached_design(d) for d in (16, 32, 64, 128)] == ["mma", "mma", "wgmma", "wgmma"]
+    for name, cfg in llama.CONFIGS.items():
+        want = "mma" if name.startswith("tiny") and not name.startswith("tinyllama") else "wgmma"
+        d = cfg.dim // cfg.n_heads
+        assert flash_fwd_design(d) == want and flash_cached_design(d) == want, name
