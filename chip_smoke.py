@@ -17,8 +17,18 @@ Phases, each of which exits non-zero on failure:
               version's, one PyTorch library call's (timed as a yardstick
               only; the port never calls it) and the least time the card
               could take (bytes at 3.35 TB/s, operations at 989 TFLOP/s
-              bf16); for the fused decode kernel also the unfused path's
-              time (row writes plus the decode kernel) for the same work;
+              bf16); the decode attention and the fused decode (llama2-7b
+              at B=8, GQA 4 and 8, int8 caches, one long conversation at
+              B=1 S=4096, positions around the splits, before the cache
+              and past it), each launching the design decode_design names
+              (csrc/decode_split.cu at head_dim 64 and 128), held per
+              output vector against a limit that must also reject the
+              output without each slot's last live split, timed with the
+              card held and, at the main shapes, in turns with the rows
+              design (csrc/decode_attn.cu, csrc/fused_decode.cu) with each
+              C entry point's host time; for the fused decode kernel also
+              the unfused path's time (row writes plus the decode kernel)
+              for the same work;
               the int4 matmul at llama2-7b's projection and lm_head widths,
               timed with the 50 MB L2 flushed (by a 256 MB read) before
               each launch, as a decode step streams 3.5 GB of weights; its
@@ -57,14 +67,16 @@ Phases, each of which exits non-zero on failure:
               depth (random weights from a seed, bf16, max_seq_len 1024),
               five concurrent /v1/completions requests, the kernels' launch
               counts against 32 x prefills (all of the flash forward's
-              wgmma design) and 32 x decode steps, and the
+              wgmma design) and 32 x decode steps (all of the decode
+              kernel's split design), and the
               served tokens held against a direct greedy run of the model;
   serve-long  the same server at max_seq_len 4096 with decode_attn_impl
               "fused": four concurrent requests of about 3000, 1500, 600
               and 40 tokens, whose chunks run through the cached flash
               kernel's wgmma design (32 x prefill chunks) and whose decode
-              steps through the fused kernel (32 x steps, the decode kernel
-              never); every served greedy token held against a single-shot
+              steps through the fused kernel's split design (32 x steps,
+              the decode kernel never); every served greedy token held
+              against a single-shot
               forward;
   serve-int4  the JAX package's throughput stack: int4 weights (the random
               bf16 weights quantized on the card), int8 cache, fused
@@ -309,11 +321,21 @@ def flash_case(gen, b, s, h, kh, causal, d=128, compare=False):
     return case
 
 
-def decode_case(gen, b, s, h, kh, int8, positions, d=128):
+def decode_case(gen, b, s, h, kh, int8, positions, d=128, compare=False):
+    """Single-token decode attention against its plain version at
+    `positions`: the call must launch the design decode_design names; held
+    by max-abs and per output vector (row_rel_err <= ROW_REL), a limit
+    that must reject the planted fault (the plain output without each
+    slot's last live split of decode_split_plan's rows). compare: the
+    design's kernel timed in turns with decode_attn.cu's (the rows design,
+    called through its C entry point), and each C entry point's host time
+    a call. The kernel and SDPA are timed with the card held (time_ms)."""
     import torch
     import torch.nn.functional as F
 
+    from substratus_tpu_torch import kernels
     from substratus_tpu_torch.ops.decode_attention import decode_attention, decode_attention_plain
+    from substratus_tpu_torch.ops.fused_decode import decode_design, decode_split_plan, sm_count, split_workspace
     from substratus_tpu_torch.ops.quant import quantize_kv
 
     dev = "cuda"
@@ -326,29 +348,59 @@ def decode_case(gen, b, s, h, kh, int8, positions, d=128):
         k, ks = quantize_kv(k)
         v, vs = quantize_kv(v)
         ks, vs = ks[..., 0].contiguous(), vs[..., 0].contiguous()
+    design = decode_design(d, s, int8)
+    before = {x: getattr(decode_attention, f"launches_{x}") for x in ("split", "rows")}
     out = decode_attention(q, k, v, pos, ks, vs)
+    launched = {x: getattr(decode_attention, f"launches_{x}") - n for x, n in before.items()}
     ref = decode_attention_plain(q, k, v, pos, ks, vs)
     torch.cuda.synchronize()
+    label = f"decode b{b} s{s} h{h}/{kh} d{d} int8={int8}"
+    if launched != {x: int(x == design) for x in launched}:
+        fail(f"{label}: launches {launched}, want one of the {design} design")
     err = (out.float() - ref.float()).abs().max().item()
-    if not (torch.isfinite(out.float()).all() and err <= BF16_ATOL):
-        fail(f"decode b{b} s{s} h{h}/{kh} int8={int8}: max|err| {err} (tol {BF16_ATOL})")
-    rows = sum(min(p + 1, s) for p in positions if p >= 0)  # cache rows the data needs
+    rel = row_rel_err(out, ref)
+    if not (torch.isfinite(out.float()).all() and err <= BF16_ATOL and rel <= ROW_REL):
+        fail(f"{label}: max|err| {err} (tol {BF16_ATOL}), row error {rel} (limit {ROW_REL})")
+    if not torch.all(out[pos < 0] == 0):
+        fail(f"{label}: a slot before the cache (pos < 0) is not exactly 0")
+    # The planted fault: each slot without its last live split (rows from
+    # cut on), i.e. attending rows 0..cut-1.
+    n_split, rows = decode_split_plan(s, b * kh, sm_count(0))
+    live = [0 if p < 0 else min(p + 1, s) for p in positions]
+    cut = torch.tensor([rows * ((n - 1) // rows) - 1 if n else -1 for n in live], dtype=torch.int32, device=dev)
+    fault = row_rel_err(decode_attention_plain(q, k, v, cut, ks, vs), ref)
+    if fault <= ROW_REL:
+        fail(f"{label}: the limit {ROW_REL} accepts a planted fault (row error {fault})")
+    n_rows = sum(live)  # cache rows the data needs
     elem = 1 if int8 else 2
-    nbytes = 2 * b * h * d * 2 + 2 * rows * kh * d * elem + (2 * rows * kh * 4 if int8 else 0) + 4 * b
-    b_ms, by = bound(nbytes, 4 * d * rows * kh * (h // kh))
+    nbytes = 2 * b * h * d * 2 + 2 * n_rows * kh * d * elem + (2 * n_rows * kh * 4 if int8 else 0) + 4 * b
+    b_ms, by = bound(nbytes, 4 * d * n_rows * kh * (h // kh))
     library_ms = None
     if not int8:  # no PyTorch call takes an int8 cache with per-row scales
         qt = q.transpose(1, 2)
         mask = (torch.arange(s, device=dev)[None, :] <= pos[:, None].long())[:, None, None, :]
         gqa = {"enable_gqa": True} if h != kh else {}
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, k, v, attn_mask=mask, **gqa))
-    return {
-        "case": f"B={b} S={s} H={h} KH={kh} D={d} {'int8' if int8 else 'bf16'} pos={positions}",
-        "max_abs_err": err, "tol": BF16_ATOL,
-        "ms": time_ms(lambda: decode_attention(q, k, v, pos, ks, vs)),
-        "plain_ms": time_ms(lambda: decode_attention_plain(q, k, v, pos, ks, vs)),
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, k, v, attn_mask=mask, **gqa), hold=True)
+    case = {
+        "case": f"B={b} S={s} H={h} KH={kh} D={d} {'int8' if int8 else 'bf16'} pos={positions}", "design": design,
+        "plan": [n_split, rows], "max_abs_err": err, "tol": BF16_ATOL, "row_rel_err": rel, "fault_row_rel_err": fault,
+        "ms": time_ms(lambda: decode_attention(q, k, v, pos, ks, vs), hold=True),
+        "plain_ms": time_ms(lambda: decode_attention_plain(q, k, v, pos, ks, vs), n=5),
         "library_ms": library_ms, "bound_ms": b_ms, "bound_by": by,
     }
+    if compare:
+        lib, o2 = kernels.library(), torch.empty_like(q)
+        _, _, ws = split_workspace(q, b, kh, s)
+        head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), ks.data_ptr() if int8 else None,
+                vs.data_ptr() if int8 else None, pos.data_ptr(), o2.data_ptr())
+        dims = (b, h, kh, s, d, kernels.DTYPE_CODES[k.dtype], d**-0.5)
+        stream = kernels.stream_ptr(q.device)
+        ws_ptr = ws.data_ptr() if ws is not None else None
+        calls = {"split": lambda: kernels.check(lib.decode_split(*head, ws_ptr, *dims, rows, n_split, stream),
+                                                "decode_split"),
+                 "rows": lambda: kernels.check(lib.decode_attn(*head, *dims, stream), "decode_attn")}
+        case.update(turns_ms=in_turns(calls), host_us={name: host_time_us(call) for name, call in calls.items()})
+    return case
 
 
 def cached_case(gen, h, kh, int8, limit_row=False, b=1, sq=512, sk=4096, start=2048, d=128, compare=False):
@@ -438,16 +490,24 @@ def cached_case(gen, h, kh, int8, limit_row=False, b=1, sq=512, sk=4096, start=2
     return case
 
 
-def fused_case(gen, h, kh, int8, positions, b=8, s=4096, d=128):
+def fused_case(gen, h, kh, int8, positions, b=8, s=4096, d=128, compare=False):
     """The fused cache write + decode attention at decode positions spread
-    over the cache. After the launch the cache row at pos must be the new
-    row. Also timed: the unfused path for the same work (the row writes of
-    update_cache_and_attend plus the decode kernel)."""
+    over the cache, held as decode_case holds decode attention (the design
+    decode_design names; max-abs and per output vector; the planted fault
+    each slot without its last live split of history rows). After the
+    launch the cache row at pos must be the new row and no other row may
+    have moved. Also timed: the unfused path for the same work (the row
+    writes of update_cache_and_attend plus the decode kernel). compare:
+    timed in turns with fused_decode.cu's kernel (the rows design), and
+    each C entry point's host time a call."""
     import torch
     import torch.nn.functional as F
 
-    from substratus_tpu_torch.ops.decode_attention import _write_rows, decode_attention
-    from substratus_tpu_torch.ops.fused_decode import fused_decode_attention, fused_decode_attention_plain
+    from substratus_tpu_torch import kernels
+    from substratus_tpu_torch.ops.decode_attention import _write_rows, decode_attention, decode_attention_plain
+    from substratus_tpu_torch.ops.fused_decode import (
+        decode_design, decode_split_plan, fused_decode_attention, fused_decode_attention_plain, sm_count,
+        split_workspace)
     from substratus_tpu_torch.ops.quant import quantize_kv
 
     dev = "cuda"
@@ -463,16 +523,38 @@ def fused_case(gen, h, kh, int8, positions, b=8, s=4096, d=128):
         nks, nvs, cks, cvs = nks[..., 0], nvs[..., 0], cks[..., 0].contiguous(), cvs[..., 0].contiguous()
         cks[rows], cvs[rows] = nks[..., 0], nvs[..., 0]  # the caller's scale writes
         scales = (nks, nvs, cks, cvs)
+    design = decode_design(d, s, int8)
     kc, vc, kp, vp = ck.clone(), cv.clone(), ck.clone(), cv.clone()
+    before = {x: getattr(fused_decode_attention, f"launches_{x}") for x in ("split", "rows")}
     out, _, _ = fused_decode_attention(q, nk, nv, kc, vc, pos, *scales)
+    launched = {x: getattr(fused_decode_attention, f"launches_{x}") - n for x, n in before.items()}
     ref, _, _ = fused_decode_attention_plain(q, nk, nv, kp, vp, pos, *scales)
     torch.cuda.synchronize()
+    label = f"fused_decode b{b} s{s} h{h}/{kh} d{d} int8={int8}"
+    if launched != {x: int(x == design) for x in launched}:
+        fail(f"{label}: launches {launched}, want one of the {design} design")
     err = (out.float() - ref.float()).abs().max().item()
-    if not (torch.isfinite(out.float()).all() and err <= BF16_ATOL):
-        fail(f"fused_decode h{h}/{kh} int8={int8}: max|err| {err} (tol {BF16_ATOL})")
+    rel = row_rel_err(out, ref)
+    if not (torch.isfinite(out.float()).all() and err <= BF16_ATOL and rel <= ROW_REL):
+        fail(f"{label}: max|err| {err} (tol {BF16_ATOL}), row error {rel} (limit {ROW_REL})")
     if not (torch.equal(kc[rows], nk[:, :, 0]) and torch.equal(vc[rows], nv[:, :, 0])
             and torch.equal(kc, kp) and torch.equal(vc, vp)):
-        fail(f"fused_decode h{h}/{kh} int8={int8}: the cache row at pos is not the new row")
+        fail(f"{label}: the cache row at pos is not the new row, or another row moved")
+    # The planted fault: each slot's history without its last live split
+    # (rows from cut on): the current token placed at row cut of a copy and
+    # attended with rows 0..cut-1 by the plain decode attention.
+    n_split, split_rows = decode_split_plan(s, b * kh, sm_count(0))
+    cut = torch.tensor([split_rows * ((p - 1) // split_rows) if p > 0 else 0 for p in positions], device=dev)
+    at_cut = (rows[0], rows[1], cut[:, None])
+    kf, vf = kp.clone(), vp.clone()
+    kf[at_cut], vf[at_cut] = nk[:, :, 0], nv[:, :, 0]
+    ksf = vsf = None
+    if int8:
+        ksf, vsf = cks.clone(), cvs.clone()
+        ksf[at_cut], vsf[at_cut] = nks[..., 0], nvs[..., 0]
+    fault = row_rel_err(decode_attention_plain(q, kf, vf, cut, ksf, vsf), ref)
+    if fault <= ROW_REL:
+        fail(f"{label}: the limit {ROW_REL} accepts a planted fault (row error {fault})")
     hist = sum(positions)  # history rows 0..pos-1 the kernel must read
     elem = 1 if int8 else 2
     nbytes = (2 * b * h * d * 2 + 2 * hist * kh * d * elem + (2 * hist * kh * 4 if int8 else 0)
@@ -493,15 +575,29 @@ def fused_case(gen, h, kh, int8, positions, b=8, s=4096, d=128):
         qt = q.transpose(1, 2)
         mask = (torch.arange(s, device=dev)[None, :] <= pos2)[:, None, None, :]
         gqa = {"enable_gqa": True} if h != kh else {}
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kc, vc, attn_mask=mask, **gqa))
-    unfused_ms = time_ms(unfused)
-    return {
-        "case": f"B={b} S={s} H={h} KH={kh} D={d} {'int8' if int8 else 'bf16'} pos={positions}",
-        "max_abs_err": err, "tol": BF16_ATOL,
-        "ms": time_ms(lambda: fused_decode_attention(q, nk, nv, kc, vc, pos, *scales)),
-        "plain_ms": time_ms(lambda: fused_decode_attention_plain(q, nk, nv, kp, vp, pos, *scales)),
-        "unfused_ms": unfused_ms, "library_ms": library_ms, "bound_ms": b_ms, "bound_by": by,
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kc, vc, attn_mask=mask, **gqa), hold=True)
+    case = {
+        "case": f"B={b} S={s} H={h} KH={kh} D={d} {'int8' if int8 else 'bf16'} pos={positions}", "design": design,
+        "plan": [n_split, split_rows], "max_abs_err": err, "tol": BF16_ATOL, "row_rel_err": rel,
+        "fault_row_rel_err": fault,
+        "ms": time_ms(lambda: fused_decode_attention(q, nk, nv, kc, vc, pos, *scales), hold=True),
+        "plain_ms": time_ms(lambda: fused_decode_attention_plain(q, nk, nv, kp, vp, pos, *scales), n=5),
+        "unfused_ms": time_ms(unfused, hold=True), "library_ms": library_ms, "bound_ms": b_ms, "bound_by": by,
     }
+    if compare:
+        lib, o2 = kernels.library(), torch.empty_like(q)
+        _, _, ws = split_workspace(q, b, kh, s)
+        sp = [x.data_ptr() for x in scales] if int8 else [None] * 4
+        head = (q.data_ptr(), nk.data_ptr(), nv.data_ptr(), sp[0], sp[1], kc.data_ptr(), vc.data_ptr(), sp[2], sp[3],
+                pos.data_ptr(), o2.data_ptr())
+        dims = (b, h, kh, s, d, kernels.DTYPE_CODES[kc.dtype], d**-0.5)
+        stream = kernels.stream_ptr(q.device)
+        ws_ptr = ws.data_ptr() if ws is not None else None
+        calls = {"split": lambda: kernels.check(
+                     lib.fused_decode_split(*head, ws_ptr, *dims, split_rows, n_split, stream), "fused_decode_split"),
+                 "rows": lambda: kernels.check(lib.fused_decode(*head, *dims, stream), "fused_decode")}
+        case.update(turns_ms=in_turns(calls), host_us={name: host_time_us(call) for name, call in calls.items()})
+    return case
 
 
 def q4_case(gen, m, n, c=4096, heads=None):
@@ -684,10 +780,15 @@ def kernel_phase():
     ]
     positions = [0, 1, 17, 255, 511, 700, 1000, 1023]
     decode = [
-        decode_case(gen, 8, 1024, 32, 32, False, positions),  # llama2-7b decode, B=8
-        decode_case(gen, 8, 1024, 32, 32, True, positions),
-        decode_case(gen, 8, 1024, 32, 8, False, positions),  # llama3-8b heads (GQA 4)
+        decode_case(gen, 8, 1024, 32, 32, False, positions, compare=True),  # llama2-7b decode, B=8
+        decode_case(gen, 8, 1024, 32, 32, True, positions, compare=True),
+        decode_case(gen, 8, 1024, 32, 8, False, positions, compare=True),  # llama3-8b heads (GQA 4)
         decode_case(gen, 8, 1024, 32, 8, True, positions),
+        decode_case(gen, 1, 4096, 32, 32, False, [4000], compare=True),  # one long conversation
+        decode_case(gen, 8, 1024, 32, 4, False, positions, d=64, compare=True),  # tinyllama's heads (GQA 8)
+        # serve-int4's cache length (two splits): at and around the first
+        # split's end, before the cache and past it
+        decode_case(gen, 8, 2048, 32, 32, False, [-1, 0, 1023, 1024, 1025, 1500, 2047, 3000]),
     ]
     cached = [
         cached_case(gen, 32, 32, False, compare=True),  # llama2-7b, the fifth chunk of a long prompt
@@ -703,9 +804,11 @@ def kernel_phase():
     ]
     spread = [0, 1, 300, 1024, 2047, 3000, 4000, 4095]  # one slot at S-1
     fused = [
-        fused_case(gen, 32, 32, False, spread),  # llama2-7b decode, B=8, S=4096
-        fused_case(gen, 32, 32, True, spread),
-        fused_case(gen, 32, 8, False, spread),  # llama3-8b heads (GQA 4)
+        fused_case(gen, 32, 32, False, spread, compare=True),  # llama2-7b decode, B=8, S=4096
+        fused_case(gen, 32, 32, True, spread, compare=True),  # serve-int4's int8 cache
+        fused_case(gen, 32, 8, False, spread, compare=True),  # llama3-8b heads (GQA 4)
+        fused_case(gen, 32, 8, True, spread, compare=True),
+        fused_case(gen, 32, 32, False, [4000], b=1, compare=True),  # one long conversation
     ]
     q4 = [  # the first case of each design is its main-path shape
         q4_case(gen, 8, 11008),  # llama2-7b w_gate/w_up at B=8
@@ -743,14 +846,14 @@ def kernel_phase():
                 check = f"row error {c['row_rel_err']:.4g} (limit {ROW_REL}{planted}), max|err| {c['max_abs_err']:.3g}"
             else:
                 check = f"max|err| {c['max_abs_err']:.3g} (tol {c['tol']})"
-            design = f" ({c['design']} design)" if "design" in c else ""
+            design = f" ({c['design']} design{', plan ' + str(c['plan']) if 'plan' in c else ''})" if "design" in c else ""
             print(f"kernel {name} [{c['case']}]{design}: {check}"
                   f"{' lse ' + format(c['lse_max_abs_err'], '.3g') if 'lse_max_abs_err' in c else ''}"
                   f" | ms {c['ms']:.4f} plain {c['plain_ms']:.4f} library {lib}"
                   f"{' (on head-major copies ' + format(c['library_contiguous_ms'], '.4f') + ')' if 'library_contiguous_ms' in c else ''}"
                   f"{' unfused ' + format(c['unfused_ms'], '.4f') if 'unfused_ms' in c else ''}"
                   f" bound {c['bound_ms']:.4f} ({c['bound_by']})", flush=True)
-    for name in ("flash_fwd", "flash_cached", "flash_cached_int8"):
+    for name in ("flash_fwd", "flash_cached", "flash_cached_int8", "decode_attn", "fused_decode"):
         for c in report[name]:
             if "turns_ms" in c:
                 print(f"{name} [{c['case']}] in turns, ms: "
@@ -853,6 +956,10 @@ GEMM_NAMES = ("gemm", "gemv", "nvjet", "xmma", "cutlass")
 # designs, the cached flash's mma design (the wgmma design's cached kernel
 # is flash_fwd_wgmma_kernel<D, true>), the backward's.
 FLASH_NAMES = ("flash_fwd_wgmma_kernel", "flash_fwd_kernel", "flash_cached_kernel", "flash_bwd_dq", "flash_bwd_dkv")
+# The decode kernels: the split design (csrc/decode_split.cu; decode and
+# fused alike, told apart by the phase's decode_attn_impl) and its combine,
+# the rows design's two.
+DECODE_NAMES = ("decode_split_kernel", "decode_combine_kernel", "decode_attn_kernel", "fused_decode_kernel")
 
 
 def _device_summary(prof, wall: float, reps: int, top_n: int = 10) -> dict:
@@ -872,6 +979,7 @@ def _device_summary(prof, wall: float, reps: int, top_n: int = 10) -> dict:
     return {"profiled_ms": 1e3 * wall / reps, "device_busy_ms": 1e3 * busy / reps,
             "q4_matmul_ms": ms_of(Q4_NAMES), "q4_matmul_wgmma_ms": ms_of(("q4_matmul_wgmma",)),
             "gemm_ms": ms_of(GEMM_NAMES), "flash_ms": {name: ms_of((name.lower(),)) for name in FLASH_NAMES},
+            "decode_ms": {name: ms_of((name,)) for name in DECODE_NAMES},
             "top": [{"name": e.key, "ms": dev_us(e) / 1e3 / reps, "calls": e.count / reps} for e in top]}
 
 
@@ -946,6 +1054,10 @@ def profile_engine(engine, label: str = "profile", lens=(16, 400), fill: int = 1
           f"{out['decode_step_ms']:.2f} ms (device busy {out['decode']['device_busy_ms']:.2f} ms, "
           f"{100 * out['decode']['device_busy_ms'] / out['decode_step_ms']:.1f}%; int4 matmul "
           f"{out['decode']['q4_matmul_ms']:.3f} ms, GEMMs {out['decode']['gemm_ms']:.3f} ms of it)", flush=True)
+    decode_kernels = {name: round(ms, 4) for name, ms in out["decode"]["decode_ms"].items() if ms}
+    print(f"{label}: decode step, decode kernels, ms a step: {decode_kernels}"
+          + (f"; {alt_decode}: " + str({name: round(ms, 4) for name, ms in out[f'decode_{alt_decode}']['decode_ms'].items()
+                                        if ms}) if alt_decode is not None else ""), flush=True)
     flash = {name: ms for name, ms in pre["flash_ms"].items() if ms}
     print(f"{label}: prefill {long} tokens, flash kernels, ms: {flash}", flush=True)
     for phase in (f"prefill_{long}", "decode"):
@@ -1048,7 +1160,7 @@ def serve_phase(card: str, profile_steps: bool = False):
         results, wall = run_concurrent(base, PROMPTS)
         wait_idle(engine)
         launches = {"flash_fwd": flash_attention.launches, "flash_fwd_wgmma": flash_attention.launches_wgmma,
-                    "decode_attn": decode_attention.launches}
+                    "decode_attn": decode_attention.launches, "decode_attn_split": decode_attention.launches_split}
         stats = dict(engine.stats)
         reference = reference_check(engine)
     finally:
@@ -1060,9 +1172,10 @@ def serve_phase(card: str, profile_steps: bool = False):
     if stats["prefills"] != len(PROMPTS):
         fail(f"{stats['prefills']} prefills for {len(PROMPTS)} requests")
     if (launches["flash_fwd"] != L * stats["prefills"] or launches["decode_attn"] != L * stats["decode_steps"]
-            or launches["flash_fwd_wgmma"] != launches["flash_fwd"]):
+            or launches["flash_fwd_wgmma"] != launches["flash_fwd"]
+            or launches["decode_attn_split"] != launches["decode_attn"]):
         fail(f"launches {launches} against {L} x {stats['prefills']} prefills (all of the wgmma design, "
-             f"head_dim 128) and {L} x {stats['decode_steps']} decode steps")
+             f"head_dim 128) and {L} x {stats['decode_steps']} decode steps (all of the split design)")
     if launches["flash_fwd"] == 0 or launches["decode_attn"] == 0:
         fail(f"a kernel of the main path never launched: {launches}")
     ttft = stats["prefill_seconds"] / stats["prefills"]
@@ -1182,7 +1295,8 @@ def serve_long_phase(card: str, profile_steps: bool = False):
         wait_idle(engine)
         launches = {name: c.launches for name, c in counters.items()}
         launches.update(flash_cached_wgmma=flash_cached_attention.launches_wgmma,
-                        flash_fwd_wgmma=flash_attention.launches_wgmma)
+                        flash_fwd_wgmma=flash_attention.launches_wgmma,
+                        fused_decode_split=fused_decode_attention.launches_split)
         stats = dict(engine.stats)
     finally:
         server.stop()
@@ -1191,8 +1305,10 @@ def serve_long_phase(card: str, profile_steps: bool = False):
     L = engine.cfg.n_layers
     want = {"flash_cached": L * stats["prefill_chunks"], "flash_fwd": L * stats["prefills"],
             "fused_decode": L * stats["decode_steps"], "decode_attn": 0,
-            # the bf16 cache and head_dim 128: every chunk and prefill on the wgmma design
-            "flash_cached_wgmma": L * stats["prefill_chunks"], "flash_fwd_wgmma": L * stats["prefills"]}
+            # the bf16 cache and head_dim 128: every chunk and prefill on the wgmma
+            # design, every decode step on the split design
+            "flash_cached_wgmma": L * stats["prefill_chunks"], "flash_fwd_wgmma": L * stats["prefills"],
+            "fused_decode_split": L * stats["decode_steps"]}
     chunk = LONG_PARAMS["max_prefill_len"]
     lengths = [len(text.encode()) + 1 for text, *_ in LONG_PROMPTS]
     chunks = sum(-(-n // chunk) for n in lengths if n > chunk)  # 6 + 3 + 2
@@ -1269,7 +1385,8 @@ def serve_int4_phase(card: str, profile_steps: bool = False):
         launches.update(q4_matmul=q4_matmul.launches_mma, q4_matmul_wgmma=q4_matmul.launches_wgmma,
                         q4_matmul_total=q4_matmul.launches, flash_fwd_wgmma=flash_attention.launches_wgmma,
                         # the int8 cache's chunks, of the design flash_cached_design names
-                        flash_cached_int8=getattr(flash_cached_attention, f"launches_{flash_cached_design(128)}"))
+                        flash_cached_int8=getattr(flash_cached_attention, f"launches_{flash_cached_design(128)}"),
+                        fused_decode_split=fused_decode_attention.launches_split)
         stats = dict(engine.stats)
     finally:
         server.stop()
@@ -1290,7 +1407,8 @@ def serve_int4_phase(card: str, profile_steps: bool = False):
     want = {"q4_matmul": (7 * L + 1) * (forwards - wide), "q4_matmul_wgmma": (7 * L + 1) * wide,
             "q4_matmul_total": (7 * L + 1) * forwards, "flash_fwd": L * stats["prefills"],
             "flash_cached": L * stats["prefill_chunks"], "fused_decode": L * stats["decode_steps"], "decode_attn": 0,
-            "flash_fwd_wgmma": L * stats["prefills"], "flash_cached_int8": L * stats["prefill_chunks"]}
+            "flash_fwd_wgmma": L * stats["prefills"], "flash_cached_int8": L * stats["prefill_chunks"],
+            "fused_decode_split": L * stats["decode_steps"]}
     print(f"serve-int4: prefill forwards of {rows} rows; {wide} of them above {WGMMA_MIN_M} rows take the wgmma "
           f"design ({want['q4_matmul_wgmma']} launches), the other {forwards - wide} forwards (decode steps of "
           f"{INT4_PARAMS['max_batch']} rows included) q4_matmul.cu's kernel ({want['q4_matmul']})", flush=True)
@@ -1638,13 +1756,13 @@ def main() -> int:
     if "kernels" in phases:
         sources = {"flash_fwd": ("substratus_tpu_torch/csrc/flash_fwd_wgmma.cu",
                                  "substratus_tpu/ops/flash_attention.py:91"),
-                   "decode_attn": ("substratus_tpu_torch/csrc/decode_attn.cu",
+                   "decode_attn": ("substratus_tpu_torch/csrc/decode_split.cu",
                                    "substratus_tpu/ops/decode_attention.py:138"),
                    "flash_cached": ("substratus_tpu_torch/csrc/flash_fwd_wgmma.cu",
                                     "substratus_tpu/ops/flash_attention.py:452"),
                    "flash_cached_int8": ("substratus_tpu_torch/csrc/flash_fwd_wgmma.cu",
                                          "substratus_tpu/ops/flash_attention.py:452"),
-                   "fused_decode": ("substratus_tpu_torch/csrc/fused_decode.cu",
+                   "fused_decode": ("substratus_tpu_torch/csrc/decode_split.cu",
                                     "substratus_tpu/ops/fused_decode.py:48"),
                    "q4_matmul": ("substratus_tpu_torch/csrc/q4_matmul.cu", "substratus_tpu/ops/quant4.py:168"),
                    "q4_matmul_wgmma": ("substratus_tpu_torch/csrc/q4_matmul_wgmma.cu",
@@ -1657,11 +1775,11 @@ def main() -> int:
         # path runs it (train: the first train.main call, 4 steps), as
         # (phase, its launch count): the flash forward's and the cached
         # flash's of their wgmma design, the cached flash's over the int8
-        # cache apart.
-        phase_of = {"flash_fwd": ("serve", "flash_fwd_wgmma"), "decode_attn": ("serve", "decode_attn"),
+        # cache apart, the decode kernels' of their split design.
+        phase_of = {"flash_fwd": ("serve", "flash_fwd_wgmma"), "decode_attn": ("serve", "decode_attn_split"),
                     "flash_cached": ("serve-long", "flash_cached_wgmma"),
                     "flash_cached_int8": ("serve-int4", "flash_cached_int8"),
-                    "fused_decode": ("serve-long", "fused_decode"), "q4_matmul": ("serve-int4", "q4_matmul"),
+                    "fused_decode": ("serve-long", "fused_decode_split"), "q4_matmul": ("serve-int4", "q4_matmul"),
                     "q4_matmul_wgmma": ("serve-int4", "q4_matmul_wgmma"),
                     "flash_bwd_dq": ("train", "flash_bwd_dq"), "flash_bwd_dkv": ("train", "flash_bwd_dkv")}
         line = []

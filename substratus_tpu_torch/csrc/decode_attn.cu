@@ -28,8 +28,10 @@
 // bf16: 2 x 8 x 32 x 1024 x 128 x 2 B = 134 MB per layer at full
 // positions, about 40 us). At llama2-7b (KH=32) and B=8 the grid is 256
 // blocks on 132 SMs; a GQA model at small batch (KH=8, B=8: 64 blocks)
-// fills under half of them. Splitting S over more blocks
-// (flash-decoding) is later work.
+// fills under half of them. csrc/decode_split.cu splits S over more
+// blocks and serves head_dim 64 and 128 (ops/fused_decode.py::
+// decode_design); this kernel serves 16 and 32, and its 64/128
+// instances stay for chip_smoke.py's side-by-side timing.
 #include "decode_common.cuh"
 
 namespace substratus {

@@ -32,7 +32,10 @@
 // unfused decode attention is; the fusion saves the separate row-write
 // launches and the re-read of the fresh row. At llama2-7b, B=8, S=4096,
 // bf16, positions spread over 0..4095 (14,467 history rows), it reads
-// about 237 MB per layer (about 71 us).
+// about 237 MB per layer (about 71 us). csrc/decode_split.cu serves
+// head_dim 64 and 128 (S split over blocks; ops/fused_decode.py::
+// decode_design); this kernel serves 16 and 32, and its 64/128 instances
+// stay for chip_smoke.py's side-by-side timing.
 #include "decode_common.cuh"
 
 namespace substratus {

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the port's wgmma kernels
-// (q4_matmul_wgmma.cu, flash_bwd_wgmma.cu, flash_fwd_wgmma.cu): mbarriers,
-// TMA tile loads with tensor maps encoded on the host by the CUDA driver,
+// (q4_matmul_wgmma.cu, flash_bwd_wgmma.cu, flash_fwd_wgmma.cu) and of
+// decode_split.cu: mbarriers, TMA tile loads with tensor maps encoded on
+// the host by the CUDA driver, 1-D bulk copies that need no map,
 // cp.async tracked by an mbarrier, wgmma's shared-memory descriptors and
 // products, setmaxnreg, and the flash kernels' operand descriptors,
 // fragment conversions, stores and block order.
@@ -54,6 +55,15 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
       ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// TMA's 1-D form: `bytes` contiguous bytes from global memory into shared
+// memory, completing on the barrier; no tensor map. Both addresses and the
+// size are multiples of 16 bytes.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+               ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+               : "memory");
 }
 
 // 4-byte cp.async into shared memory; src_bytes 0 writes zeros.

@@ -43,6 +43,9 @@ SIGNATURES = {
     "flash_fwd_wgmma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     # q, k, v, k_scale, v_scale, pos, o, B, H, KH, S, D, cache_dtype, scale, stream
     "decode_attn": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    # q, k, v, k_scale, v_scale, pos, o, ws, B, H, KH, S, D, cache_dtype, scale, rows, n_split, stream
+    # (csrc/decode_split.cu)
+    "decode_split": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     # q, k, v, k_scale, v_scale, pos, kv_len, o, B, Sq, Sk, H, KH, D, cache_dtype, scale, stream
     "flash_cached": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     # the same at head_dim 64 and 128 (csrc/flash_fwd_wgmma.cu)
@@ -50,6 +53,9 @@ SIGNATURES = {
     # q, new_k, new_v, new_ks, new_vs, k, v, k_scale, v_scale, pos, o,
     # B, H, KH, S, D, cache_dtype, scale, stream
     "fused_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    # q, new_k, new_v, new_ks, new_vs, k, v, k_scale, v_scale, pos, o, ws,
+    # B, H, KH, S, D, cache_dtype, scale, rows, n_split, stream (csrc/decode_split.cu)
+    "fused_decode_split": [_P] * 12 + [_I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     # x, packed, scale, out, ws, M, N, C, block, splits, stream
     "q4_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, packed, scale, out, M, N, C, block, stream (the prefill design)

@@ -1,14 +1,18 @@
 """Decode-step attention over the dense slot cache, bf16 or int8: the CUDA
-kernel csrc/decode_attn.cu beside its plain PyTorch version, plus the
-cache update around it that picks the attention of each step (port of
-substratus_tpu/ops/decode_attention.py): this kernel, the fused write +
+kernels beside their plain PyTorch version, plus the cache update around
+them that picks the attention of each step (port of
+substratus_tpu/ops/decode_attention.py): these kernels, the fused write +
 attention of ops/fused_decode.py, or, for multi-token chunks, the cached
 flash kernel of ops/flash_attention.py.
 
-The kernel replaces substratus_tpu/ops/decode_attention.py::_kernel
+The kernels replace substratus_tpu/ops/decode_attention.py::_kernel
 (decode_attention(impl="pallas")). Single-token decode reads the whole
-live cache once per layer per step, so the kernel is bound by bytes; see
-the source note in csrc/decode_attn.cu.
+live cache once per layer per step, so they are bound by bytes. Two
+designs, chosen by shape alone (ops/fused_decode.py::decode_design):
+csrc/decode_split.cu (S split over blocks by decode_split_plan, a ring of
+cache tiles, one softmax rescale a tile; head_dim 64 and 128) and
+csrc/decode_attn.cu (one block per slot and kv head; head_dim 16 and 32).
+See the source notes.
 
 Cache layout is [B, KH, S, D] (each kv head's history contiguous); int8
 caches carry f32 scales [B, KH, S]. k_scale multiplies the score after
@@ -29,7 +33,7 @@ import torch
 from substratus_tpu_torch import kernels
 from substratus_tpu_torch.ops.attention import NEG_INF, dot_product_attention
 from substratus_tpu_torch.ops.flash_attention import flash_cached_attention
-from substratus_tpu_torch.ops.fused_decode import fused_decode_attention
+from substratus_tpu_torch.ops.fused_decode import decode_design, fused_decode_attention, split_workspace
 from substratus_tpu_torch.ops.quant import dequantize_kv, quantize_kv
 
 HEAD_DIMS = (16, 32, 64, 128)
@@ -76,9 +80,10 @@ def decode_attention(
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Single-token attention against the cache, columns <= positions[b].
-    Returns [B, 1, H, D] in q's dtype. CUDA tensors launch the kernel (or
-    raise); CPU tensors run the plain version. ``decode_attention.launches``
-    counts kernel launches."""
+    Returns [B, 1, H, D] in q's dtype. CUDA tensors launch the design
+    decode_design names (or raise); CPU tensors run the plain version.
+    ``decode_attention.launches`` counts kernel launches, its
+    ``launches_split`` and ``launches_rows`` those of each design."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, positions, k_scale, v_scale)
     if q.device.type != "cuda":
@@ -111,20 +116,29 @@ def decode_attention(
     q = q.contiguous()
     pos = positions.to(torch.int32).contiguous()
     out = torch.empty_like(q)
-    rc = kernels.library().decode_attn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        k_scale.data_ptr() if quantized else None,
-        v_scale.data_ptr() if quantized else None,
-        pos.data_ptr(), out.data_ptr(),
-        b, h, kh, s, d, kernels.DTYPE_CODES[k.dtype], float(d**-0.5),
-        kernels.stream_ptr(q.device),
-    )
-    kernels.check(rc, "decode_attn")
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            k_scale.data_ptr() if quantized else None, v_scale.data_ptr() if quantized else None,
+            pos.data_ptr(), out.data_ptr())
+    dims = (b, h, kh, s, d, kernels.DTYPE_CODES[k.dtype], float(d**-0.5))
+    if decode_design(d, s, quantized) == "split":
+        if quantized and (k_scale.data_ptr() | v_scale.data_ptr()) % 16:
+            raise ValueError("decode_attention: scales must be 16-byte aligned")
+        rows, n_split, ws = split_workspace(q, b, kh, s)
+        rc = kernels.library().decode_split(
+            *head, ws.data_ptr() if ws is not None else None, *dims, rows, n_split, kernels.stream_ptr(q.device))
+        kernels.check(rc, "decode_split")
+        decode_attention.launches_split += 1
+    else:
+        rc = kernels.library().decode_attn(*head, *dims, kernels.stream_ptr(q.device))
+        kernels.check(rc, "decode_attn")
+        decode_attention.launches_rows += 1
     decode_attention.launches += 1
     return out
 
 
-decode_attention.launches = 0
+decode_attention.launches = 0  # every launch
+decode_attention.launches_split = 0  # csrc/decode_split.cu (head_dim 64, 128)
+decode_attention.launches_rows = 0  # csrc/decode_attn.cu (head_dim 16, 32)
 
 
 def _write_rows(cache: torch.Tensor, rows: torch.Tensor, positions: torch.Tensor) -> None:

@@ -1,13 +1,18 @@
 """Fused cache write + decode attention over the dense slot cache: the CUDA
-kernel csrc/fused_decode.cu beside its plain PyTorch version (port of
-substratus_tpu/ops/fused_decode.py).
+kernels beside their plain PyTorch version (port of
+substratus_tpu/ops/fused_decode.py), and the split plan that the decode
+kernels of this module and ops/decode_attention.py share.
 
-The kernel replaces substratus_tpu/ops/fused_decode.py::_kernel
+The kernels replace substratus_tpu/ops/fused_decode.py::_kernel
 (fused_decode_attention). One launch per layer per decode step writes the
 fresh k/v row into cache row ``pos`` and attends: the history is masked
 strictly below ``pos`` and the current token's term comes from the
-operands, so the fresh row is never read back. It is bound by the bytes of
-the history rows; see the source note in csrc/fused_decode.cu.
+operands, so the fresh row is never read back. They are bound by the bytes
+of the history rows. Two designs compute it, chosen by shape alone
+(``decode_design``): csrc/decode_split.cu (S split over blocks, a ring of
+cache tiles, one softmax rescale a tile; head_dim 64 and 128) and
+csrc/fused_decode.cu (one block per slot and kv head; head_dim 16 and 32).
+See the source notes.
 
 The fresh row arrives in the cache dtype; for int8 its scales
 ``new_ks``/``new_vs`` [B, KH, 1] weight the current token's term, and the
@@ -17,10 +22,12 @@ to [0, S-1], so a drifted idle slot writes row S-1 and nothing else.
 
 Unlike the JAX package, which aliases the donated cache, the port writes
 the caches in place and returns the very tensors it was given.
-``fused_decode_attention.launches`` counts kernel launches.
+``fused_decode_attention.launches`` counts kernel launches, its
+``launches_split`` and ``launches_rows`` those of each design.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -30,6 +37,54 @@ from substratus_tpu_torch.ops.attention import NEG_INF
 
 HEAD_DIMS = (16, 32, 64, 128)  # built by csrc/fused_decode.cu
 GROUPS = (1, 2, 4, 8)
+SPLIT_HEAD_DIMS = (64, 128)  # built by csrc/decode_split.cu
+# The split plan: rows a split in whole rounds of the kernel's 8 warps x
+# 32-row tiles, from SPLIT_MIN_ROWS to SPLIT_MAX_ROWS, as many as make
+# about SPLIT_BLOCKS_PER_SM blocks an SM when every slot is at its last
+# row (tools/decode_probe.py measured the plans; PERF.md).
+SPLIT_ROUND = 256
+SPLIT_MIN_ROWS = 256
+SPLIT_MAX_ROWS = 1024
+SPLIT_BLOCKS_PER_SM = 2
+
+
+def decode_split_plan(s: int, heads: int, sms: int) -> Tuple[int, int]:
+    """(n_split, rows) of csrc/decode_split.cu for an S-row cache of
+    `heads` = B * KH kv heads on a card of `sms` SMs: split i reads rows
+    [i * rows, (i + 1) * rows). By shapes alone, never the positions, so
+    a step reads nothing back from the card. One split (no combine) once
+    the heads alone fill the card at a short cache; at most
+    SPLIT_MAX_ROWS rows a block, so one long conversation among short
+    ones still spreads over the card."""
+    rows = -(-s * heads // (SPLIT_BLOCKS_PER_SM * sms))
+    rows = min(SPLIT_MAX_ROWS, max(SPLIT_MIN_ROWS, -(-rows // SPLIT_ROUND) * SPLIT_ROUND))
+    return -(-s // rows), rows
+
+
+def decode_design(d: int, s: int, quantized: bool) -> str:
+    """The CUDA design of the decode kernels (decode_attention and
+    fused_decode_attention) at head_dim d and S rows: "split"
+    (csrc/decode_split.cu) at head_dim 64 and 128 (an int8 cache also
+    needs S a multiple of 4, its scale rows copied 16 bytes at a time),
+    "rows" (csrc/decode_attn.cu, csrc/fused_decode.cu) otherwise. By shape
+    alone: a launch that fails raises, it is not retried on the other
+    design."""
+    return "split" if d in SPLIT_HEAD_DIMS and (not quantized or s % 4 == 0) else "rows"
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def split_workspace(q: torch.Tensor, b: int, kh: int, s: int):
+    """(rows, n_split, workspace) of the split design for q [B, 1, H, D]:
+    the f32 partials [B * KH, n_split, G, D + 2] when n_split > 1."""
+    h, d = q.shape[2], q.shape[3]
+    n_split, rows = decode_split_plan(s, b * kh, sm_count(q.device.index))
+    ws = (torch.empty(b * kh * n_split * (h // kh) * (d + 2), dtype=torch.float32, device=q.device)
+          if n_split > 1 else None)
+    return rows, n_split, ws
 
 
 def fused_decode_attention_plain(
@@ -137,18 +192,28 @@ def fused_decode_attention(
         new_ks, new_vs = new_ks.contiguous(), new_vs.contiguous()
     pos = positions.to(torch.int32).contiguous()  # clamped to [0, S-1] in the kernel
     out = torch.empty_like(q)
-    rc = kernels.library().fused_decode(
-        q.data_ptr(), new_k.data_ptr(), new_v.data_ptr(),
-        new_ks.data_ptr() if quantized else None, new_vs.data_ptr() if quantized else None,
-        cache_k.data_ptr(), cache_v.data_ptr(),
-        cache_ks.data_ptr() if quantized else None, cache_vs.data_ptr() if quantized else None,
-        pos.data_ptr(), out.data_ptr(),
-        b, h, kh, s, d, kernels.DTYPE_CODES[cache_k.dtype], float(d**-0.5),
-        kernels.stream_ptr(q.device),
-    )
-    kernels.check(rc, "fused_decode")
+    head = (q.data_ptr(), new_k.data_ptr(), new_v.data_ptr(),
+            new_ks.data_ptr() if quantized else None, new_vs.data_ptr() if quantized else None,
+            cache_k.data_ptr(), cache_v.data_ptr(),
+            cache_ks.data_ptr() if quantized else None, cache_vs.data_ptr() if quantized else None,
+            pos.data_ptr(), out.data_ptr())
+    dims = (b, h, kh, s, d, kernels.DTYPE_CODES[cache_k.dtype], float(d**-0.5))
+    if decode_design(d, s, quantized) == "split":
+        if quantized and (cache_ks.data_ptr() | cache_vs.data_ptr()) % 16:
+            raise ValueError("fused_decode_attention: cache scales must be 16-byte aligned")
+        rows, n_split, ws = split_workspace(q, b, kh, s)
+        rc = kernels.library().fused_decode_split(
+            *head, ws.data_ptr() if ws is not None else None, *dims, rows, n_split, kernels.stream_ptr(q.device))
+        kernels.check(rc, "fused_decode_split")
+        fused_decode_attention.launches_split += 1
+    else:
+        rc = kernels.library().fused_decode(*head, *dims, kernels.stream_ptr(q.device))
+        kernels.check(rc, "fused_decode")
+        fused_decode_attention.launches_rows += 1
     fused_decode_attention.launches += 1
     return out, cache_k, cache_v
 
 
-fused_decode_attention.launches = 0
+fused_decode_attention.launches = 0  # every launch
+fused_decode_attention.launches_split = 0  # csrc/decode_split.cu (head_dim 64, 128)
+fused_decode_attention.launches_rows = 0  # csrc/fused_decode.cu (head_dim 16, 32)
