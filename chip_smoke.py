@@ -34,10 +34,15 @@ Phases, each of which exits non-zero on failure:
               each launch, as a decode step streams 3.5 GB of weights; its
               library call one torch.matmul over the dequantized bf16
               weight; each case launches the design q4_design names
-              (q4_matmul.cu at decode rows, q4_matmul_wgmma.cu over the
-              prefill buckets and the chunk's four shapes) and is held
+              (q4_matmul_decode.cu at decode rows: llama2-7b's four
+              shapes at B=8, one slot, the 16-token bucket, llama3-8b's
+              lm_head, each also timed in turns with q4_matmul.cu's
+              kernel through the C entry points; q4_matmul_wgmma.cu over
+              the prefill buckets and the chunk's four shapes;
+              q4_matmul.cu for groups of 64 and N = 1000) and is held
               per output row, a limit that must also reject a dropped
-              scale group and a dropped ragged row tile; the flash
+              scale group, a dropped ragged row tile (wgmma) and the
+              plan's second split left out (decode); the flash
               backward's dQ and dK/dV kernels at the training shape of
               one llama2-7b layer (B=8, S=1024), GQA, ragged,
               non-causal and tinyllama's heads (the wgmma design,
@@ -84,7 +89,8 @@ Phases, each of which exits non-zero on failure:
               1500 tokens (3 chunks); every projection and the lm_head
               through the int4 matmul ((7 x 32 + 1) x forwards: the
               forwards of more than 16 rows through the wgmma design, the
-              decode steps and the 16-token bucket through q4_matmul.cu),
+              decode steps and the 16-token bucket through the decode
+              design, none through q4_matmul.cu),
               the attention kernels as in serve-long (the cached flash
               over the int8 cache), every served greedy
               token held against a single-shot forward on the int4 weights;
@@ -112,14 +118,17 @@ Phases, each of which exits non-zero on failure:
               serve-long (40 and 3000 tokens, the slots filled at 1000;
               the decode steps also unfused, in turns with the fused ones)
               and after serve-int4 (16 and 1500 tokens), with the int4
-              matmul's and the GEMMs' share of the device time; after
+              matmul's and the GEMMs' share of the device time (a decode
+              step of serve-int4 must run no split-K sums of
+              q4_matmul.cu); after
               train and train-full, one more step under torch.profiler:
               its device busy time and top kernels.
 
 The line before the last is one JSON object with every kernel's numbers
 (launches from the serve or train phase whose path runs the kernel; the
-int4 matmul's two designs are two entries, and the cached flash's int8
-route another); the last line
+int4 matmul's three designs are three entries, q4_matmul.cu's with no
+launch on the main path, and the cached flash's int8 route another); the
+last line
 is {"ok": true, "device": {...}}. Details go to chip_smoke.json in OUT_DIR.
 Nothing here imports JAX.
 """
@@ -226,13 +235,14 @@ def host_time_us(call, n: int = 50) -> float:
     return out
 
 
-def in_turns(calls: dict, rounds: int = 2) -> dict:
-    """Each call's time_ms (hold) in turns: a b b a for two calls."""
+def in_turns(calls: dict, rounds: int = 2, flush=None) -> dict:
+    """Each call's time_ms (hold; flush before each launch where given) in
+    turns: a b b a for two calls."""
     times = {name: [] for name in calls}
     order = list(calls)
     for r in range(rounds):
         for name in order if r % 2 == 0 else order[::-1]:
-            times[name].append(time_ms(calls[name], hold=True))
+            times[name].append(time_ms(calls[name], flush=flush, hold=True))
     return times
 
 
@@ -600,19 +610,25 @@ def fused_case(gen, h, kh, int8, positions, b=8, s=4096, d=128, compare=False):
     return case
 
 
-def q4_case(gen, m, n, c=4096, heads=None):
+def q4_case(gen, m, n, c=4096, heads=None, compare=False):
     """x [m, c] bf16 times a random weight [c, n] quantized by quantize4
     as the model's own (heads: wo's [heads, c / heads, n] layout, groups
     along head_dim), the L2 flushed before each timed launch. The call
     must launch the design q4_design names (the per-design counters), and
     match the plain version within 1e-2 of its largest value and per output
-    row within ROW_REL. For the wgmma design the limit must also reject
-    planted faults built from the plain version: the output without its
-    last scale group and, at a ragged M (200), the output with its last
-    64-row tile zeroed (rows 192..199)."""
+    row within ROW_REL. For the wgmma and decode designs the limit must
+    also reject planted faults built from the plain version: the output
+    without its last scale group; at a ragged M (200), the output with its
+    last 64-row tile zeroed (wgmma); the output without the groups of the
+    plan's second split (decode, where the plan splits). compare (decode
+    design): its C entry point timed in turns with q4_matmul.cu's
+    (workspace and second launch included) at the same shape."""
     import torch
 
-    from substratus_tpu_torch.ops.quant4 import q4_design, q4_matmul, q4_matmul_plain, quantize4
+    from substratus_tpu_torch import kernels
+    from substratus_tpu_torch.ops.fused_decode import sm_count
+    from substratus_tpu_torch.ops.quant4 import (
+        _mma_splits, cluster_capacity, q4_decode_plan, q4_design, q4_matmul, q4_matmul_plain, quantize4)
 
     dev = "cuda"
     shape, contracting = ((heads, c // heads, n), (0, 1)) if heads else ((c, n), (0,))
@@ -620,7 +636,7 @@ def q4_case(gen, m, n, c=4096, heads=None):
     packed, scale, block = qt.packed.reshape(c // 2, n), qt.scale.reshape(-1, n), qt.block
     x = torch.randn((m, c), generator=gen, device=dev).to(torch.bfloat16)
     design = q4_design(m, n, c, block)
-    before = {d: getattr(q4_matmul, f"launches_{d}") for d in ("wgmma", "mma")}
+    before = {d: getattr(q4_matmul, f"launches_{d}") for d in ("decode", "wgmma", "mma")}
     out = q4_matmul(x, packed, scale, block)
     launched = {d: getattr(q4_matmul, f"launches_{d}") - before[d] for d in before}
     ref = q4_matmul_plain(x, packed, scale, block)
@@ -635,14 +651,24 @@ def q4_case(gen, m, n, c=4096, heads=None):
     rel = row_rel_err(out, ref)
     if not (torch.isfinite(out.float()).all() and err <= tol and rel <= ROW_REL):
         fail(f"{label}: max|err| {err} (tol {tol}), row error {rel} (limit {ROW_REL})")
-    fault = None
-    if design == "wgmma":
+    fault, plan = None, None
+    if design in ("wgmma", "decode"):
         short = q4_matmul_plain(x[:, : c - block].contiguous(), packed[: (c - block) // 2], scale[:-1], block)
         faults = [row_rel_err(short, ref)]
-        if m == 200:
+        if design == "wgmma" and m == 200:
             tile = ref.clone()
             tile[64 * ((m - 1) // 64):] = 0
             faults.append(row_rel_err(tile, ref))
+        if design == "decode":
+            plan = q4_decode_plan(m, n, c, sm_count(0), cluster_capacity(0, 8 if m <= 8 else 16))
+            g, splits = c // block, plan[1]
+            if splits > 1:  # without split 1's groups
+                keep = torch.ones(g, dtype=torch.bool, device=dev)
+                keep[g // splits: 2 * g // splits] = False
+                missing = q4_matmul_plain(x[:, keep.repeat_interleave(block)].contiguous(),
+                                          packed[keep.repeat_interleave(block // 2)].contiguous(),
+                                          scale[keep].contiguous(), block)
+                faults.append(row_rel_err(missing, ref))
         fault = min(faults)
         if fault <= ROW_REL:
             fail(f"{label}: the limit {ROW_REL} accepts a planted fault (row errors {faults})")
@@ -653,14 +679,32 @@ def q4_case(gen, m, n, c=4096, heads=None):
         l2.sum()
 
     b_ms, by = bound(m * c * 2 + packed.numel() + 4 * scale.numel() + m * n * 2, 2 * m * c * n)
-    return {
+    case = {
         "case": f"M={m} C={c} N={n} block={block}{f' (wo, {heads} heads)' if heads else ''}", "design": design,
         "max_abs_err": err, "tol": tol, "row_rel_err": rel, "fault_row_rel_err": fault,
         "ms": time_ms(lambda: q4_matmul(x, packed, scale, block), flush=flush),
-        "plain_ms": time_ms(lambda: q4_matmul_plain(x, packed, scale, block), flush=flush),
+        "plain_ms": time_ms(lambda: q4_matmul_plain(x, packed, scale, block), n=5, flush=flush),
         "library_ms": time_ms(lambda: torch.matmul(x, dense), flush=flush),
         "bound_ms": b_ms, "bound_by": by,
     }
+    if plan is not None:
+        case["plan"] = list(plan)
+    if compare:
+        lib, stream = kernels.library(), kernels.stream_ptr(x.device)
+        head = (x.data_ptr(), packed.data_ptr(), scale.data_ptr())
+        o_decode, o_mma = torch.empty_like(out), torch.empty_like(out)
+        splits = _mma_splits(m, n, c, block, 0)
+        ws = torch.empty((splits, m, n), dtype=torch.float32, device=dev)
+        calls = {"decode": lambda: kernels.check(lib.q4_matmul_decode(*head, o_decode.data_ptr(), m, n, c, block,
+                                                                      *plan, stream), "q4_matmul_decode"),
+                 "q4_matmul.cu": lambda: kernels.check(lib.q4_matmul(*head, o_mma.data_ptr(), ws.data_ptr(), m, n, c,
+                                                                     block, splits, stream), "q4_matmul")}
+        turns = in_turns(calls, flush=flush)
+        torch.cuda.synchronize()
+        if row_rel_err(o_mma, ref) > ROW_REL or not torch.equal(o_decode, out):
+            fail(f"{label}: the C entry points' outputs disagree with the wrapper's or the plain version")
+        case["turns_ms"] = turns
+    return case
 
 
 def row_rel_err(got, ref) -> float:
@@ -810,20 +854,24 @@ def kernel_phase():
         fused_case(gen, 32, 8, True, spread, compare=True),
         fused_case(gen, 32, 32, False, [4000], b=1, compare=True),  # one long conversation
     ]
-    q4 = [  # the first case of each design is its main-path shape
-        q4_case(gen, 8, 11008),  # llama2-7b w_gate/w_up at B=8
-        q4_case(gen, 8, 32000),  # the lm_head at B=8
-        q4_case(gen, 8, 4096, c=11008),  # w_down at B=8
-        q4_case(gen, 8, 4096),  # wq/wk/wv/wo at B=8
+    q4 = [  # the first case of each design is its main-path shape (q4_matmul.cu's: off the main path)
+        q4_case(gen, 8, 11008, compare=True),  # llama2-7b w_gate/w_up at B=8
+        q4_case(gen, 8, 4096, c=11008, compare=True),  # w_down at B=8
+        q4_case(gen, 8, 32000, compare=True),  # the lm_head at B=8
+        q4_case(gen, 8, 4096, compare=True),  # wq/wk/wv/wo at B=8
+        q4_case(gen, 1, 11008, compare=True),  # one decoding slot
+        q4_case(gen, 16, 11008, compare=True),  # the 16-token prefill bucket
+        q4_case(gen, 8, 128256, compare=True),  # llama3-8b's lm_head at B=8
         q4_case(gen, 512, 11008),  # w_gate over a 512-token prefill bucket or chunk
         q4_case(gen, 128, 32000),  # the lm_head over a 128-token prefill bucket
-        q4_case(gen, 1, 11008),  # one decoding slot
-        q4_case(gen, 8, 2048, c=2048, heads=32),  # tinyllama's wo: groups of 64
         q4_case(gen, 512, 4096),  # wq/wk/wv/wo over a 512-row chunk
         q4_case(gen, 512, 4096, c=11008),  # w_down over a 512-row chunk
         q4_case(gen, 512, 32000),  # the lm_head over a 512-row chunk
         q4_case(gen, 32, 11008),  # w_gate over a 32-token bucket
         q4_case(gen, 200, 4096),  # a ragged row count (the planted dropped row tile)
+        q4_case(gen, 8, 2048, c=2048, heads=32),  # tinyllama's wo at B=8: groups of 64
+        q4_case(gen, 8, 1000),  # N not a multiple of 16
+        q4_case(gen, 77, 2048, c=2048, heads=32),  # a ragged row count, groups of 64
     ]
     bwd = [
         bwd_case(gen, 8, 1024, 32, 32, True),  # one llama2-7b layer at the finetune example's batch
@@ -835,6 +883,7 @@ def kernel_phase():
     ]
     report = {"flash_fwd": flash, "decode_attn": decode, "flash_cached": cached, "flash_cached_int8": cached_int8,
               "fused_decode": fused,
+              "q4_matmul_decode": [c for c in q4 if c["design"] == "decode"],
               "q4_matmul": [c for c in q4 if c["design"] == "mma"],
               "q4_matmul_wgmma": [c for c in q4 if c["design"] == "wgmma"],
               "flash_bwd_dq": [c[0] for c in bwd], "flash_bwd_dkv": [c[1] for c in bwd]}
@@ -862,6 +911,10 @@ def kernel_phase():
                       f"{', on head-major copies ' + format(c['library_contiguous_ms'], '.4f') if 'library_contiguous_ms' in c else ''}"
                       f", bound {c['bound_ms']:.4f}); host time a call of each C "
                       "entry point: " + ", ".join(f"{x} {us:.1f} us" for x, us in c["host_us"].items()), flush=True)
+    for c in report["q4_matmul_decode"]:
+        print(f"q4_matmul_decode [{c['case']}] plan {c['plan']} in turns with q4_matmul.cu, ms (L2 flushed): "
+              + "; ".join(f"{x} {', '.join(f'{t:.4f}' for t in ts)}" for x, ts in c["turns_ms"].items())
+              + f" (torch.matmul on the bf16 weight {c['library_ms']:.4f}, bound {c['bound_ms']:.4f})", flush=True)
     for dq, dkv in zip(report["flash_bwd_dq"], report["flash_bwd_dkv"]):
         print(f"flash backward [{dq['case']}]: dq {dq['ms']:.4f} + dkv {dkv['ms']:.4f} + bwd_delta "
               f"{dq['delta_ms']:.4f} = {dq['ms'] + dkv['ms'] + dq['delta_ms']:.4f} ms against SDPA's backward "
@@ -949,8 +1002,9 @@ def reference_check(engine) -> dict:
     return out
 
 
-# Kernel-name fragments of the int4 matmul and of cuBLAS's GEMMs.
-Q4_NAMES = ("q4_matmul", "q4_splitk")
+# Kernel-name fragments of the int4 matmul (its three designs' kernels and
+# q4_matmul.cu's split-K sums) and of cuBLAS's GEMMs.
+Q4_NAMES = ("q4_matmul_decode", "q4_matmul", "q4_splitk")
 GEMM_NAMES = ("gemm", "gemv", "nvjet", "xmma", "cutlass")
 # The flash kernels, each timed on its own in a profile: the forward's two
 # designs, the cached flash's mma design (the wgmma design's cached kernel
@@ -978,6 +1032,7 @@ def _device_summary(prof, wall: float, reps: int, top_n: int = 10) -> dict:
     top = sorted(kernels, key=dev_us, reverse=True)[:top_n]
     return {"profiled_ms": 1e3 * wall / reps, "device_busy_ms": 1e3 * busy / reps,
             "q4_matmul_ms": ms_of(Q4_NAMES), "q4_matmul_wgmma_ms": ms_of(("q4_matmul_wgmma",)),
+            "q4_matmul_decode_ms": ms_of(("q4_matmul_decode",)), "q4_splitk_ms": ms_of(("q4_splitk",)),
             "gemm_ms": ms_of(GEMM_NAMES), "flash_ms": {name: ms_of((name.lower(),)) for name in FLASH_NAMES},
             "decode_ms": {name: ms_of((name,)) for name in DECODE_NAMES},
             "top": [{"name": e.key, "ms": dev_us(e) / 1e3 / reps, "calls": e.count / reps} for e in top]}
@@ -1053,7 +1108,9 @@ def profile_engine(engine, label: str = "profile", lens=(16, 400), fill: int = 1
           f"{pre['q4_matmul_wgmma_ms']:.2f} ms of it); decode step at B={out['batch']} "
           f"{out['decode_step_ms']:.2f} ms (device busy {out['decode']['device_busy_ms']:.2f} ms, "
           f"{100 * out['decode']['device_busy_ms'] / out['decode_step_ms']:.1f}%; int4 matmul "
-          f"{out['decode']['q4_matmul_ms']:.3f} ms, GEMMs {out['decode']['gemm_ms']:.3f} ms of it)", flush=True)
+          f"{out['decode']['q4_matmul_ms']:.3f} ms (decode design {out['decode']['q4_matmul_decode_ms']:.3f}, "
+          f"q4_matmul.cu's split-K sums {out['decode']['q4_splitk_ms']:.3f}), GEMMs "
+          f"{out['decode']['gemm_ms']:.3f} ms of it)", flush=True)
     decode_kernels = {name: round(ms, 4) for name, ms in out["decode"]["decode_ms"].items() if ms}
     print(f"{label}: decode step, decode kernels, ms a step: {decode_kernels}"
           + (f"; {alt_decode}: " + str({name: round(ms, 4) for name, ms in out[f'decode_{alt_decode}']['decode_ms'].items()
@@ -1381,8 +1438,10 @@ def serve_int4_phase(card: str, profile_steps: bool = False):
         results, wall = run_concurrent(base, INT4_PROMPTS)
         wait_idle(engine)
         launches = {name: c.launches for name, c in counters.items()}
-        # q4_matmul: q4_matmul.cu's kernel; q4_matmul_wgmma: the prefill design
-        launches.update(q4_matmul=q4_matmul.launches_mma, q4_matmul_wgmma=q4_matmul.launches_wgmma,
+        # q4_matmul_decode: the decode design; q4_matmul_wgmma: the prefill
+        # design; q4_matmul: q4_matmul.cu's kernel (no shape of this path)
+        launches.update(q4_matmul_decode=q4_matmul.launches_decode, q4_matmul=q4_matmul.launches_mma,
+                        q4_matmul_wgmma=q4_matmul.launches_wgmma,
                         q4_matmul_total=q4_matmul.launches, flash_fwd_wgmma=flash_attention.launches_wgmma,
                         # the int8 cache's chunks, of the design flash_cached_design names
                         flash_cached_int8=getattr(flash_cached_attention, f"launches_{flash_cached_design(128)}"),
@@ -1400,26 +1459,30 @@ def serve_int4_phase(card: str, profile_steps: bool = False):
     singles = sum(n <= chunk for n in lengths)
     # Rows of each prefill forward: a prompt's bucket, or each chunk's
     # (capped at the chunk); a decode step has max_batch rows. Every
-    # llama2-7b projection takes the wgmma design above WGMMA_MIN_M rows.
+    # llama2-7b projection takes the wgmma design above WGMMA_MIN_M rows
+    # and the decode design up to it.
     rows = [min(_bucket(n), chunk) for n in lengths if n <= chunk]
     rows += [min(_bucket(min(chunk, n - o)), chunk) for n in lengths if n > chunk for o in range(0, n, chunk)]
     wide = sum(r > WGMMA_MIN_M for r in rows)
-    want = {"q4_matmul": (7 * L + 1) * (forwards - wide), "q4_matmul_wgmma": (7 * L + 1) * wide,
+    want = {"q4_matmul_decode": (7 * L + 1) * (forwards - wide), "q4_matmul": 0, "q4_matmul_wgmma": (7 * L + 1) * wide,
             "q4_matmul_total": (7 * L + 1) * forwards, "flash_fwd": L * stats["prefills"],
             "flash_cached": L * stats["prefill_chunks"], "fused_decode": L * stats["decode_steps"], "decode_attn": 0,
             "flash_fwd_wgmma": L * stats["prefills"], "flash_cached_int8": L * stats["prefill_chunks"],
             "fused_decode_split": L * stats["decode_steps"]}
     print(f"serve-int4: prefill forwards of {rows} rows; {wide} of them above {WGMMA_MIN_M} rows take the wgmma "
           f"design ({want['q4_matmul_wgmma']} launches), the other {forwards - wide} forwards (decode steps of "
-          f"{INT4_PARAMS['max_batch']} rows included) q4_matmul.cu's kernel ({want['q4_matmul']})", flush=True)
+          f"{INT4_PARAMS['max_batch']} rows included) the decode design ({want['q4_matmul_decode']}), none "
+          "q4_matmul.cu's kernel", flush=True)
     if launches != want or (stats["prefill_chunks"], stats["prefills"]) != (chunks, singles):
         fail(f"serve-int4: launches {launches} against {want}; stats {stats}, want {chunks} chunks "
              f"and {singles} single-shot prefills")
-    if not all(launches[name] > 0 for name in ("q4_matmul", "q4_matmul_wgmma", "flash_fwd", "flash_cached",
+    if not all(launches[name] > 0 for name in ("q4_matmul_decode", "q4_matmul_wgmma", "flash_fwd", "flash_cached",
                                                "fused_decode")):
         fail(f"serve-int4: a kernel of the path never launched: {launches}")
     reference = long_reference_check(engine, [r for r in requests if r.temperature == 0.0], "serve-int4")
     profiled = profile_engine(engine, "profile-int4", (16, 1500)) if profile_steps else None
+    if profiled is not None and profiled["decode"]["q4_splitk_ms"]:
+        fail(f"profile-int4: a decode step ran q4_matmul.cu's split-K sums ({profiled['decode']['q4_splitk_ms']} ms)")
     ttft = results[-1][2]
     step_ms = 1e3 * stats["decode_seconds"] / stats["decode_steps"]
     decode_tps = (generated - len(INT4_PROMPTS)) / stats["decode_seconds"]
@@ -1764,6 +1827,8 @@ def main() -> int:
                                          "substratus_tpu/ops/flash_attention.py:452"),
                    "fused_decode": ("substratus_tpu_torch/csrc/decode_split.cu",
                                     "substratus_tpu/ops/fused_decode.py:48"),
+                   "q4_matmul_decode": ("substratus_tpu_torch/csrc/q4_matmul_decode.cu",
+                                        "substratus_tpu/ops/quant4.py:168"),
                    "q4_matmul": ("substratus_tpu_torch/csrc/q4_matmul.cu", "substratus_tpu/ops/quant4.py:168"),
                    "q4_matmul_wgmma": ("substratus_tpu_torch/csrc/q4_matmul_wgmma.cu",
                                        "substratus_tpu/ops/quant4.py:168"),
@@ -1775,11 +1840,13 @@ def main() -> int:
         # path runs it (train: the first train.main call, 4 steps), as
         # (phase, its launch count): the flash forward's and the cached
         # flash's of their wgmma design, the cached flash's over the int8
-        # cache apart, the decode kernels' of their split design.
+        # cache apart, the decode kernels' of their split design, the int4
+        # matmul's of each design (q4_matmul.cu's: none on the main path).
         phase_of = {"flash_fwd": ("serve", "flash_fwd_wgmma"), "decode_attn": ("serve", "decode_attn_split"),
                     "flash_cached": ("serve-long", "flash_cached_wgmma"),
                     "flash_cached_int8": ("serve-int4", "flash_cached_int8"),
-                    "fused_decode": ("serve-long", "fused_decode_split"), "q4_matmul": ("serve-int4", "q4_matmul"),
+                    "fused_decode": ("serve-long", "fused_decode_split"),
+                    "q4_matmul_decode": ("serve-int4", "q4_matmul_decode"), "q4_matmul": ("serve-int4", "q4_matmul"),
                     "q4_matmul_wgmma": ("serve-int4", "q4_matmul_wgmma"),
                     "flash_bwd_dq": ("train", "flash_bwd_dq"), "flash_bwd_dkv": ("train", "flash_bwd_dkv")}
         line = []

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks of the port's wgmma kernels
-// (q4_matmul_wgmma.cu, flash_bwd_wgmma.cu, flash_fwd_wgmma.cu) and of
-// decode_split.cu: mbarriers, TMA tile loads with tensor maps encoded on
-// the host by the CUDA driver, 1-D bulk copies that need no map,
-// cp.async tracked by an mbarrier, wgmma's shared-memory descriptors and
+// (q4_matmul_wgmma.cu, flash_bwd_wgmma.cu, flash_fwd_wgmma.cu), of
+// decode_split.cu and of q4_matmul_decode.cu: mbarriers, TMA tile loads
+// with tensor maps encoded on the host by the CUDA driver, 1-D bulk copies
+// that need no map, cp.async tracked by an mbarrier, the int4
+// dequantization into A registers, wgmma's shared-memory descriptors and
 // products, setmaxnreg, and the flash kernels' operand descriptors,
 // fragment conversions, stores and block order.
 #pragma once
@@ -33,6 +34,54 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   while (!done) {
     asm volatile(
         "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// --- thread-block clusters --------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The cluster barrier in two halves: every thread of every block of the
+// cluster arrives (without ordering memory), and waits before it first
+// touches another block's shared memory (or exits) until all have arrived.
+// (Not .aligned: a warp may reach them diverged.)
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory"); }
+
+// The address of `addr` (this block's shared memory) in the shared memory
+// of the cluster's block `rank`.
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// Two floats into another block's shared memory (addresses from
+// cluster_map), counted as 8 bytes on that block's barrier `bar`.
+__device__ __forceinline__ void st_async_f2(uint32_t addr, float x, float y, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], {%1, %2}, [%3];\n"
+               ::"r"(addr), "f"(x), "f"(y), "r"(bar)
+               : "memory");
+}
+
+// mbar_wait for a phase completed by other blocks of the cluster (their
+// st.async bytes): acquire at cluster scope.
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done)
         : "r"(bar), "r"(parity)
         : "memory");
@@ -87,6 +136,63 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 template <int N>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// --- int4 weights as a register A operand (q4_matmul_wgmma.cu,
+// q4_matmul_decode.cu) --------------------------------------------------------
+//
+// Packed int4 bytes [64 rows, 128 columns] (a group of 128 K rows: row r
+// holds K rows r and r + 64 as its low and high nibbles) lie in shared
+// memory as TMA writes a [64, 128] box with the 128-byte swizzle. Read as
+// 16-bit pairs of columns with ldmatrix.trans, a thread receives bytes
+// (k, 2c), (k, 2c + 1), (k + 1, 2c), (k + 1, 2c + 1) -- exactly its
+// m16n8k16 A fragment when A row c is mapped to column 2c and row c + 8 to
+// column 2c + 1 -- and dequant_reg turns them into bf16 A registers.
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// (t & mask) ^ magic in one instruction (the compiler splits it into two
+// when both constants are immediates).
+__device__ __forceinline__ float and_xor(uint32_t t, uint32_t mask, uint32_t magic) {
+  uint32_t d;
+  asm("lop3.b32 %0, %1, %2, %3, 0x6a;\n" : "=r"(d) : "r"(t), "r"(mask), "r"(magic));
+  return __uint_as_float(d);
+}
+
+// One register of ldmatrix.trans output, bytes (k, c0), (k, c1), (k + 1,
+// c0), (k + 1, c1), into four A registers: the low nibbles (K rows k,
+// k + 1 of the group) and the high nibbles (rows k + 64, k + 65) of column
+// c0 (lo0, hi0) and of column c1 (lo1, hi1), each a bf16 pair. A nibble u
+// in bits [b, b + 4) of a word, b <= 12, masked, xor-ed with 8 << b and
+// or-ed into 0x4B000000, is the float 2^23 + 2^b (u ^ 8) exactly; one
+// subtraction gives 2^b q for the sign-extended q, and times s 2^-b (sc,
+// exact for scales above 2^-114) gives f32(q * s) exactly. Bytes 2 and 3
+// are shifted down to the bit positions of bytes 0 and 1.
+__device__ __forceinline__ void dequant_reg(uint32_t w, const float (&sc)[4], uint32_t& lo0, uint32_t& lo1,
+                                            uint32_t& hi0, uint32_t& hi1) {
+  float lo[4], hi[4];  // by byte: (k, c0), (k, c1), (k + 1, c0), (k + 1, c1)
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const uint32_t t = i ? w >> 16 : w;
+    lo[2 * i] = (and_xor(t, 0xFu, 0x4B000008u) - 8388616.f) * sc[0];         // 2^23 + 8
+    hi[2 * i] = (and_xor(t, 0xF0u, 0x4B000080u) - 8388736.f) * sc[1];        // 2^23 + 2^7
+    lo[2 * i + 1] = (and_xor(t, 0xF00u, 0x4B000800u) - 8390656.f) * sc[2];   // 2^23 + 2^11
+    hi[2 * i + 1] = (and_xor(t, 0xF000u, 0x4B008000u) - 8421376.f) * sc[3];  // 2^23 + 2^15
+  }
+  lo0 = pack_bf16(lo[0], lo[2]);
+  lo1 = pack_bf16(lo[1], lo[3]);
+  hi0 = pack_bf16(hi[0], hi[2]);
+  hi1 = pack_bf16(hi[1], hi[3]);
 }
 
 // --- wgmma ------------------------------------------------------------------

@@ -6,15 +6,13 @@
 // Replaces the TPU kernel substratus_tpu/ops/quant4.py _matmul_kernel
 // (driven by _matmul), the serving path's projections and lm_head under
 // quantize=int4 (7 * n_layers + 1 launches a forward), together with
-// q4_matmul_wgmma.cu. Which design serves which M (ops/quant4.py::
-// q4_design, by shape alone): the decode steps (M <= 16, at most
-// max_batch rows) stream the weight bytes, and this kernel's [16, 64]
-// tiles with split-K match cuBLAS on the bf16 weight there; above 16 rows
-// the products bound the call, and q4_matmul_wgmma.cu (TMA, wgmma, the
-// dequantization under the products) serves every shape it takes (N a
-// multiple of 16, groups of 128: every llama2-7b projection and the
-// lm_head). This kernel's [64, 128] tiles keep the rest (N = 1000, groups
-// of 64, as tinyllama's wo).
+// q4_matmul_decode.cu and q4_matmul_wgmma.cu. Which design serves which
+// shape (ops/quant4.py::q4_design, by shape alone): at N a multiple of 16
+// and groups of 128 (every llama2-7b projection and the lm_head) the
+// decode steps (M <= 16) go to q4_matmul_decode.cu and larger M to
+// q4_matmul_wgmma.cu; this kernel keeps the rest (groups of 32 and 64, as
+// tinyllama's wo, and N a multiple of 8 but not of 16), at any M: its
+// [16, 64] tiles with split-K up to 16 rows, [64, 128] tiles above.
 //
 // Layout: x [M, C] bf16, packed [C/2, N] uint8, scale [C/block, N] f32,
 // out [M, N] bf16, all contiguous; ws [splits, M, N] f32 scratch when
@@ -41,7 +39,7 @@
 // 32 x 64. Rows past M and columns past N are zero-filled and not written.
 //
 // Bound on an H100 (SXM, 3.35 TB/s, 989 TFLOP/s bf16): at decode (M = 8)
-// the bytes, 24.2 MB for w_gate [4096, 11008] (7.2 us), since there are
+// the bytes, 24.2 MB for a [4096, 11008] weight (7.2 us), since there are
 // 2 x 8 products a weight byte; [16, 64] tiles give only 172 blocks for
 // that shape, so C is split over grid.z until each SM has four blocks
 // (q4_matmul_splits), each split writes f32 partials and a second kernel

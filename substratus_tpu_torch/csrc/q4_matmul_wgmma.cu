@@ -4,12 +4,12 @@
 // W[g * 128 + 64 + r, n] its high nibble, each sign-extended and times
 // scale[g, n]), for groups of 128 and N a multiple of 16.
 //
-// Replaces, with q4_matmul.cu, the TPU kernel substratus_tpu/ops/quant4.py
-// _matmul_kernel. ops/quant4.py::q4_design routes a call here when
-// M > 16, N % 16 == 0 and the group is 128: every llama2-7b projection and
-// the lm_head over a prefill bucket (32..512 rows) or a 512-row chunk.
-// q4_matmul.cu keeps the decode steps (M <= 16, split-K) and every other
-// shape.
+// Replaces, with q4_matmul_decode.cu and q4_matmul.cu, the TPU kernel
+// substratus_tpu/ops/quant4.py _matmul_kernel. ops/quant4.py::q4_design
+// routes a call here when M > 16, N % 16 == 0 and the group is 128: every
+// llama2-7b projection and the lm_head over a prefill bucket (32..512
+// rows) or a 512-row chunk. q4_matmul_decode.cu takes the same shapes at
+// M <= 16 (the decode steps), q4_matmul.cu every other shape.
 //
 // Numerics are the plain version's: each W value is (int4 * scale) in f32
 // rounded to bf16 (round to nearest even), products accumulate in f32 on
@@ -86,46 +86,6 @@ struct Layout {
   // full and empty barriers of both rings, + slack to align the base to 1024
   static constexpr int total = bar_off + 16 * (XSTAGES + PSTAGES) + 1024;
 };
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// (t & mask) ^ magic in one instruction (the compiler splits it into two
-// when both constants are immediates).
-__device__ __forceinline__ float and_xor(uint32_t t, uint32_t mask, uint32_t magic) {
-  uint32_t d;
-  asm("lop3.b32 %0, %1, %2, %3, 0x6a;\n" : "=r"(d) : "r"(t), "r"(mask), "r"(magic));
-  return __uint_as_float(d);
-}
-
-// One register of ldmatrix.trans output, bytes (k, c0), (k, c1), (k + 1,
-// c0), (k + 1, c1), into four A registers: the low nibbles (K rows k,
-// k + 1 of the group) and the high nibbles (rows k + 64, k + 65) of column
-// c0 (lo0, hi0) and of column c1 (lo1, hi1), each a bf16 pair. A nibble u
-// in bits [b, b + 4) of a word, b <= 12, masked, xor-ed with 8 << b and
-// or-ed into 0x4B000000, is the float 2^23 + 2^b (u ^ 8) exactly; one
-// subtraction gives 2^b q for the sign-extended q, and times s 2^-b (sc,
-// exact for scales above 2^-114) gives f32(q * s) exactly. Bytes 2 and 3
-// are shifted down to the bit positions of bytes 0 and 1.
-__device__ __forceinline__ void dequant_reg(uint32_t w, const float (&sc)[4], uint32_t& lo0, uint32_t& lo1,
-                                            uint32_t& hi0, uint32_t& hi1) {
-  float lo[4], hi[4];  // by byte: (k, c0), (k, c1), (k + 1, c0), (k + 1, c1)
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const uint32_t t = i ? w >> 16 : w;
-    lo[2 * i] = (and_xor(t, 0xFu, 0x4B000008u) - 8388616.f) * sc[0];         // 2^23 + 8
-    hi[2 * i] = (and_xor(t, 0xF0u, 0x4B000080u) - 8388736.f) * sc[1];        // 2^23 + 2^7
-    lo[2 * i + 1] = (and_xor(t, 0xF00u, 0x4B000800u) - 8390656.f) * sc[2];   // 2^23 + 2^11
-    hi[2 * i + 1] = (and_xor(t, 0xF000u, 0x4B008000u) - 8421376.f) * sc[3];  // 2^23 + 2^15
-  }
-  lo0 = pack_bf16(lo[0], lo[2]);
-  lo1 = pack_bf16(lo[1], lo[3]);
-  hi0 = pack_bf16(hi[0], hi[2]);
-  hi1 = pack_bf16(hi[1], hi[3]);
-}
 
 template <int BM>
 __global__ void __launch_bounds__(THREADS, 1) q4_matmul_wgmma_kernel(

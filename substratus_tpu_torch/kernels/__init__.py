@@ -60,6 +60,11 @@ SIGNATURES = {
     "q4_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, packed, scale, out, M, N, C, block, stream (the prefill design)
     "q4_matmul_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, packed, scale, out, M, N, C, block, bn, splits, stream (the decode
+    # design, csrc/q4_matmul_decode.cu; bn and splits from q4_decode_plan)
+    "q4_matmul_decode": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # M, splits, shared memory of a block -> clusters the card runs at once
+    "q4_matmul_decode_clusters": [_I, _I, _I],
     # M, N, C, block, sms -> split-K factor of q4_matmul
     "q4_matmul_splits": [_I, _I, _I, _I, _I],
     # q, k, v, do, lse, delta, dq, B, Sq, Sk, H, KH, D, dtype, scale, causal, stream

@@ -9,18 +9,23 @@ clipped to [-8, 7]) per group of ``block`` rows and every other channel.
 
 ``q4_matmul`` replaces the TPU kernel ``_matmul_kernel``: x[M, C] @ W
 with W unpacked from the nibbles and scaled per group inside the kernel,
-so only the packed bytes and the scales leave device memory. Two CUDA
-designs compute it, chosen by shape alone (``q4_design``): the prefill
-kernel csrc/q4_matmul_wgmma.cu (TMA, wgmma, the dequantization
-overlapped with the products) for M > 16 with N a multiple of 16 and
-groups of 128, and csrc/q4_matmul.cu (mma.sync, split-K at M <= 16) for
-every decode step and every other shape. On CUDA tensors it launches one
-of them or raises; on CPU tensors it runs ``q4_matmul_plain``.
-``q4_matmul.launches`` counts every launch, ``launches_wgmma`` and
-``launches_mma`` those of each design. ``q4einsum`` routes every
-dense-layer projection (wq/wk/wv, wo, gate/up/down, lm_head) through it;
-an equation that does not fit dequantizes and runs a plain einsum on the
-CPU, as in the JAX package, and raises on the card.
+so only the packed bytes and the scales leave device memory. Three CUDA
+designs compute it, chosen by shape alone (``q4_design``): the decode
+kernel csrc/q4_matmul_decode.cu (the weights as mma.sync's register A
+operand, a TMA ring, split-K summed inside one cluster launch, tiles from
+``q4_decode_plan``) for M <= 16, the prefill kernel
+csrc/q4_matmul_wgmma.cu (TMA, wgmma, the dequantization overlapped with
+the products) for M > 16, both with N a multiple of 16 and groups of 128,
+and csrc/q4_matmul.cu (mma.sync, split-K in a second launch) for every
+other shape. On CUDA tensors it launches one of them or raises; on CPU
+tensors it runs ``q4_matmul_plain``. ``q4_matmul.launches`` counts every
+launch, ``launches_decode``, ``launches_wgmma`` and ``launches_mma`` those
+of each design. ``q4einsum`` routes every dense-layer projection
+(wq/wk/wv, wo, gate/up/down, lm_head) through them, with the weight
+checked once per pair of buffers (``q4_operands``) and a call's Python
+kept to the activation's checks and the launch; an equation that does not
+fit dequantizes and runs a plain einsum on the CPU, as in the JAX package,
+and raises on the card.
 
 The card runs a kernel for every M >= 1, where the JAX package gives
 M < 8 to its XLA formula because of the TPU's tiling; the math is the same.
@@ -28,16 +33,17 @@ M < 8 to its XLA formula because of the TPU's tiling; the math is the same.
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from substratus_tpu_torch import kernels
+from substratus_tpu_torch.ops.fused_decode import sm_count
 
 BLOCK = 128  # pack-fold / scale-group size along the packed dim
 KERNEL_BLOCKS = (32, 64, 128)  # groups the CUDA kernels are built for
-WGMMA_MIN_M = 16  # rows above which the prefill design serves (a decode step has at most max_batch)
+WGMMA_MIN_M = 16  # rows above which the prefill design serves; up to it the decode design (a step has at most max_batch)
 
 
 def _pack_block_for(dim: int) -> int:
@@ -69,6 +75,11 @@ class Q4Tensor(nn.Module):
         self.register_buffer("scale", scale)
         self.pack_axis = pack_axis
         self.block = block
+        self._operands = None  # q4_operands' checked views of the buffers
+
+    def _apply(self, fn, *args, **kwargs):
+        self._operands = None  # .to() and the like make new buffers: drop the old ones' views
+        return super()._apply(fn, *args, **kwargs)
 
     @classmethod
     def empty(cls, shape: Sequence[int], contracting: Sequence[int], device=None) -> "Q4Tensor":
@@ -167,81 +178,199 @@ def q4_matmul_plain(x2: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
     return torch.matmul(x2.float(), w.float()).to(x2.dtype)
 
 
+# The decode design, csrc/q4_matmul_decode.cu: its chunk of columns, ring
+# depth, cluster limit and shared memory, kept in step with the source.
+DECODE_CHUNK = 128
+DECODE_RING = 8
+DECODE_MAX_SPLITS = 8
+DECODE_SMEM = 232448  # a block's dynamic shared memory
+
+
+def q4_decode_smem(m: int, cpb: int, gps: int, splits: int) -> int:
+    """Dynamic shared memory of a q4_matmul_decode.cu block (its
+    ``layout``): the ring of packed bytes and scales, x's tiles (m rows
+    padded to 8 or 16; one a stage, or with cpb > 1 chunks one for each of
+    the gps groups, kept for every chunk), two buffers of the sets'
+    sums, the f32 partials of every split of cpb chunks when the groups are
+    split (rank 0 sums them), the barriers."""
+    rows = 8 if m <= 8 else 16
+    x_tiles = gps if cpb > 1 else DECODE_RING
+    part = splits * cpb * rows * DECODE_CHUNK * 4 if splits > 1 else 0
+    return (DECODE_RING * (BLOCK // 2 * DECODE_CHUNK + DECODE_CHUNK * 4) + x_tiles * rows * BLOCK * 2
+            + 2 * DECODE_CHUNK // 16 * 32 * rows // 2 * 4 + part
+            + 8 * (2 * DECODE_RING + 1 + (gps if cpb > 1 else 0)) + 1024)
+
+
 @functools.lru_cache(maxsize=None)
-def _splits(m: int, n: int, c: int, block: int, device_index: int) -> int:
-    """Split-K factor of the kernel's C loop, chosen by csrc/q4_matmul.cu
-    from the card's SM count (it owns the tile shapes). Cached: a model
-    asks the same few shapes on every forward."""
-    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
-    return kernels.library().q4_matmul_splits(m, n, c, block, sms)
+def q4_decode_plan(m: int, n: int, c: int, sms: int, held: Optional[Tuple[int, ...]] = None) -> Tuple[int, int]:
+    """(bn, splits) of csrc/q4_matmul_decode.cu for x[m, c] @ W[c, n] on a
+    card of `sms` SMs: each block owns bn columns (bn / 128 chunks walked
+    in turn) and one of `splits` splits of the c / 128 scale groups, split
+    i taking groups [i G / splits, (i + 1) G / splits), so the splits
+    differ by at most one group and each has one (splits <= G); the splits
+    of a column tile are a cluster. held[s - 1]: how many clusters of s
+    blocks the card runs at once (``cluster_capacity``; a block fills an
+    SM, and a cluster's blocks share a GPC, so fewer than sms / s), sms //
+    s where not given. Among the plans whose shared memory fits: the
+    fewest waves, then the least work of a block (counted in stages of one
+    group's chunk, a split tile's sum counted as one stage a chunk); then
+    fewer splits, fewer chunks."""
+    chunks, groups = -(-n // DECODE_CHUNK), c // BLOCK
+    best = None
+    for splits in range(1, min(DECODE_MAX_SPLITS, groups) + 1):
+        gps = -(-groups // splits)
+        for cpb in range(1, chunks + 1):
+            if q4_decode_smem(m, cpb, gps, splits) > DECODE_SMEM:
+                break  # from two chunks on, more only add partials
+            slots = held[splits - 1] if held else sms // splits
+            tiles = -(-chunks // cpb)
+            key = (-(-tiles // max(slots, 1)), cpb * gps + (cpb if splits > 1 else 0), splits, cpb)
+            if best is None or key < best[0]:
+                best = (key, (cpb * DECODE_CHUNK, splits))
+    if best is None:
+        raise ValueError(f"q4_decode_plan: no plan fits x[{m}, {c}] @ W[{c}, {n}]")
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_capacity(device_index: int, m: int) -> Tuple[int, ...]:
+    """How many clusters of 1..8 blocks of the decode design (for x of m
+    rows) the card runs at once (cudaOccupancyMaxActiveClusters), for
+    q4_decode_plan. A block's threads and registers fill an SM, whatever
+    its shared memory."""
+    lib = kernels.library()
+    held = tuple(lib.q4_matmul_decode_clusters(m, s, DECODE_SMEM // 2) for s in range(1, DECODE_MAX_SPLITS + 1))
+    if min(held) < 1:
+        raise RuntimeError(f"q4_matmul_decode_clusters: {held}")
+    return held
 
 
 def q4_design(m: int, n: int, c: int, block: int) -> str:
-    """The CUDA design that serves x[m, c] @ W[c, n] in groups of `block`:
+    """The CUDA design that serves x[m, c] @ W[c, n] in groups of `block`,
+    by shape alone:
+    "decode" (csrc/q4_matmul_decode.cu: the weights as mma.sync's register
+    A operand, a TMA ring, split-K summed inside one cluster launch) for
+    m <= 16 with n a multiple of 16 and groups of 128 -- every llama2-7b
+    and llama3-8b projection and lm_head at decode and the 16-token bucket;
     "wgmma" (csrc/q4_matmul_wgmma.cu: TMA rings, each group dequantized in
     registers as wgmma's A operand under the products of the group before)
-    for the prefill regime, m > 16 with n a multiple of 16 (TMA's 16-byte
-    row stride of the packed bytes) and groups of 128 -- every llama2-7b
-    projection and the lm_head over a prefill bucket or chunk; "mma"
-    (csrc/q4_matmul.cu: mma.sync, split-K at m <= 16) for every decode
-    step and every other shape (n = 1000, groups of 64). By shape alone:
-    a launch that fails raises, it is not retried on the other design."""
-    return "wgmma" if m > WGMMA_MIN_M and n % 16 == 0 and block == 128 and c % block == 0 else "mma"
+    for m > 16 with n a multiple of 16 and groups of 128 -- every prefill
+    bucket or chunk; "mma" (csrc/q4_matmul.cu: mma.sync, split-K at
+    m <= 16) for every other shape (groups of 32 or 64, n a multiple of 8
+    but not of 16). A launch that fails raises, it is not retried on
+    another design."""
+    if n % 16 or block != 128 or c % block:
+        return "mma"
+    return "wgmma" if m > WGMMA_MIN_M else "decode"
 
 
-def q4_matmul(x2: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor, block: int) -> torch.Tensor:
-    """x2 [M, C] @ int4-packed [C/2, N] -> [M, N] in x2's dtype. CUDA
-    tensors launch the design ``q4_design`` names (bf16 x, block in
-    KERNEL_BLOCKS, N a multiple of 8, C a multiple of block) or raise; CPU
-    tensors run the plain version."""
-    if x2.device.type == "cpu":
-        return q4_matmul_plain(x2, packed, scale, block)
-    if x2.device.type != "cuda":
-        raise ValueError(f"q4_matmul: unsupported device {x2.device}")
-    m, c = x2.shape
-    c2, n = packed.shape
-    if x2.dtype != torch.bfloat16:
-        raise ValueError(f"q4_matmul: the kernel takes bf16 activations, got {x2.dtype}")
-    if block not in KERNEL_BLOCKS:
-        raise ValueError(f"q4_matmul: group size {block} not built {KERNEL_BLOCKS}")
-    if m < 1 or c != 2 * c2 or c % block or n % 8 or scale.shape != (c // block, n):
-        raise ValueError(f"q4_matmul: unsupported shapes x{tuple(x2.shape)} packed{tuple(packed.shape)} "
-                         f"scale{tuple(scale.shape)} block {block}")
+@functools.lru_cache(maxsize=None)
+def _mma_splits(m: int, n: int, c: int, block: int, device_index: int) -> int:
+    """Split-K factor of csrc/q4_matmul.cu's C loop, chosen by the source
+    from the card's SM count (it owns the tile shapes). Cached: a model
+    asks the same few shapes on every forward."""
+    return kernels.library().q4_matmul_splits(m, n, c, block, sm_count(device_index))
+
+
+def check_weight(packed: torch.Tensor, scale: torch.Tensor, block: int) -> None:
+    """Raise unless the kernels take packed [C/2, N] uint8 and scale
+    [C/block, N] f32 as they lie: contiguous, 16-byte aligned, on one
+    device, block in KERNEL_BLOCKS, N a multiple of 8. The kernels stream
+    the weight as it is: no copies of it."""
+    check_weight.calls += 1
     if packed.dtype != torch.uint8 or scale.dtype != torch.float32:
         raise ValueError(f"q4_matmul: packed must be uint8 and scale f32, got {packed.dtype}/{scale.dtype}")
-    if packed.device != x2.device or scale.device != x2.device:
-        raise ValueError("q4_matmul: all operands must be on one device")
-    # The kernel streams the weight as it lies: no copies of it.
+    if block not in KERNEL_BLOCKS:
+        raise ValueError(f"q4_matmul: group size {block} not built {KERNEL_BLOCKS}")
+    if packed.ndim != 2 or packed.shape[1] % 8 or scale.shape != (2 * packed.shape[0] // block, packed.shape[1]) \
+            or (2 * packed.shape[0]) % block:
+        raise ValueError(f"q4_matmul: unsupported weight packed{tuple(packed.shape)} scale{tuple(scale.shape)} "
+                         f"block {block}")
+    if packed.device != scale.device:
+        raise ValueError("q4_matmul: packed and scale must be on one device")
     if not (packed.is_contiguous() and scale.is_contiguous()) or (packed.data_ptr() | scale.data_ptr()) % 16:
         raise ValueError("q4_matmul: packed and scale must be contiguous and 16-byte aligned")
+
+
+check_weight.calls = 0  # weights checked (once per weight on the model's path)
+
+
+def q4_operands(w: Q4Tensor, nc: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """w's packed [C/2, N] and scale [C/block, N] as the kernels take them
+    (nc contracted dims flattened into C), checked by check_weight once
+    per pair of buffers: the views are kept on w and reused while its
+    buffers are the same tensors. ``.to()`` (Q4Tensor._apply), an
+    assignment or load_state_dict(assign=True) gives new buffers, which are
+    checked again; an in-place load_state_dict keeps buffers and layout."""
+    cached = w._operands
+    if cached is None or cached[0] is not w.packed or cached[1] is not w.scale or cached[2] != nc:
+        c = 1
+        for d in w.packed.shape[:nc]:
+            c *= d
+        p2 = w.packed.reshape(c, -1)
+        s2 = w.scale.reshape(-1, p2.shape[1])
+        check_weight(p2, s2, w.block)
+        cached = w._operands = (w.packed, w.scale, nc, p2, s2)
+    return cached[3], cached[4]
+
+
+def _launch(x2: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor, block: int) -> torch.Tensor:
+    """x2 [M, C] on the card @ a weight check_weight has passed: the
+    activation's checks and one launch of the design q4_design names."""
+    if x2.device.type != "cuda":
+        raise ValueError(f"q4_matmul: unsupported device {x2.device}")
+    if x2.dtype != torch.bfloat16:
+        raise ValueError(f"q4_matmul: the kernel takes bf16 activations, got {x2.dtype}")
+    m, c = x2.shape
+    c2, n = packed.shape
+    if m < 1 or c != 2 * c2 or x2.device != packed.device:
+        raise ValueError(f"q4_matmul: x{tuple(x2.shape)} ({x2.device}) does not fit the weight "
+                         f"packed{tuple(packed.shape)} ({packed.device})")
     x2 = x2.contiguous()
     if x2.data_ptr() % 16:
         raise ValueError("q4_matmul: x must be 16-byte aligned")
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
-    if q4_design(m, n, c, block) == "wgmma":
-        rc = kernels.library().q4_matmul_wgmma(
-            x2.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(), m, n, c, block,
-            kernels.stream_ptr(x2.device),
-        )
+    design = q4_design(m, n, c, block)
+    lib, stream = kernels.library(), kernels.stream_ptr(x2.device)
+    if design == "decode":
+        index = x2.device.index
+        bn, splits = q4_decode_plan(m, n, c, sm_count(index), cluster_capacity(index, 8 if m <= 8 else 16))
+        rc = lib.q4_matmul_decode(x2.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(), m, n, c,
+                                  block, bn, splits, stream)
+        kernels.check(rc, "q4_matmul (decode)")
+        q4_matmul.launches_decode += 1
+    elif design == "wgmma":
+        rc = lib.q4_matmul_wgmma(x2.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(), m, n, c,
+                                 block, stream)
         kernels.check(rc, "q4_matmul (wgmma)")
         q4_matmul.launches_wgmma += 1
     else:
-        splits = _splits(m, n, c, block, x2.device.index)
+        splits = _mma_splits(m, n, c, block, x2.device.index)
         ws = torch.empty((splits, m, n), dtype=torch.float32, device=x2.device) if splits > 1 else None
-        rc = kernels.library().q4_matmul(
-            x2.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            ws.data_ptr() if ws is not None else None, m, n, c, block, splits,
-            kernels.stream_ptr(x2.device),
-        )
+        rc = lib.q4_matmul(x2.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                           ws.data_ptr() if ws is not None else None, m, n, c, block, splits, stream)
         kernels.check(rc, "q4_matmul")
         q4_matmul.launches_mma += 1
     q4_matmul.launches += 1
     return out
 
 
+def q4_matmul(x2: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor, block: int) -> torch.Tensor:
+    """x2 [M, C] @ int4-packed [C/2, N] -> [M, N] in x2's dtype. CUDA
+    tensors launch the design ``q4_design`` names (bf16 x, a weight
+    check_weight takes, C a multiple of block) or raise; CPU tensors run
+    the plain version. The weight is checked on every call here; q4einsum
+    checks a model's weight once (q4_operands)."""
+    if x2.device.type == "cpu":
+        return q4_matmul_plain(x2, packed, scale, block)
+    check_weight(packed, scale, block)
+    return _launch(x2, packed, scale, block)
+
+
 q4_matmul.launches = 0  # every launch
+q4_matmul.launches_decode = 0  # csrc/q4_matmul_decode.cu (the decode design)
 q4_matmul.launches_wgmma = 0  # csrc/q4_matmul_wgmma.cu (the prefill design)
-q4_matmul.launches_mma = 0  # csrc/q4_matmul.cu (decode steps, other shapes)
+q4_matmul.launches_mma = 0  # csrc/q4_matmul.cu (every other shape)
 
 
 @functools.lru_cache(maxsize=None)
@@ -296,8 +425,8 @@ def q4einsum(eq: str, x: torch.Tensor, w: Q4Tensor, dtype: torch.dtype = torch.b
     for d in x.shape[-nc:]:
         c *= d
     x2 = x.reshape(m, c).to(dtype)
-    p2 = w.packed.reshape(c // 2, -1)
-    n = p2.shape[1]
-    s2 = w.scale.reshape(-1, n)
-    y = q4_matmul(x2, p2, s2, w.block)
+    if x2.device.type == "cpu":
+        y = q4_matmul_plain(x2, w.packed.reshape(c // 2, -1), w.scale.reshape(c // w.block, -1), w.block)
+    else:
+        y = _launch(x2, *q4_operands(w, nc), w.block)
     return y.reshape(*batch_shape, *w.packed.shape[nc:]).to(dtype)

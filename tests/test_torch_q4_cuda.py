@@ -1,8 +1,10 @@
 """The int4 matmul's prefill design (csrc/q4_matmul_wgmma.cu) on the card:
 against its plain PyTorch version at llama2-7b's projection and lm_head
-widths over the prefill row counts, the routing between the two designs
+widths over the prefill row counts, the routing between the three designs
 (ops/quant4.py::q4_design) seen through the per-design launch counters,
-and the C entry point's refusals.
+and the C entry point's refusals. The decode design
+(csrc/q4_matmul_decode.cu) has its own file,
+tests/test_torch_q4_decode_cuda.py.
 
 Every test here needs an NVIDIA card (the kernels are CUDA C++ for sm_90a
 with no CPU mode) and skips without one. The file imports only torch and
@@ -56,17 +58,19 @@ def _weight(gen, c, n, block=None):
 
 
 def _run(gen, m, c, n, weight):
-    """(kernel output, plain output, (wgmma, mma) launches of the call)."""
+    """(kernel output, plain output, (decode, wgmma, mma) launches of the
+    call)."""
     packed, scale, block = weight
     x = torch.randn((m, c), generator=gen, device=gen.device).to(torch.bfloat16)
-    before = (q4_matmul.launches, q4_matmul.launches_wgmma, q4_matmul.launches_mma)
+    counters = ("launches", "launches_decode", "launches_wgmma", "launches_mma")
+    before = [getattr(q4_matmul, name) for name in counters]
     out = q4_matmul(x, packed, scale, block)
     ref = q4_matmul_plain(x, packed, scale, block)
     torch.cuda.synchronize()
-    after = (q4_matmul.launches, q4_matmul.launches_wgmma, q4_matmul.launches_mma)
+    after = [getattr(q4_matmul, name) for name in counters]
     assert after[0] == before[0] + 1
     assert out.shape == (m, n) and out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
-    return out, ref, (after[1] - before[1], after[2] - before[2])
+    return out, ref, tuple(a - b for a, b in zip(after[1:], before[1:]))
 
 
 @pytest.mark.parametrize("c,n", [(4096, 4096), (11008, 4096), (4096, 11008), (4096, 32000)])
@@ -79,7 +83,7 @@ def test_prefill_kernel_matches_plain(cuda, c, n):
         out, ref, launched = _run(gen, m, c, n, weight)
         err = _row_rel(out, ref)
         print(f"M={m} C={c} N={n}: row error {err:.4g} (limit {ROW_REL:.4g})")
-        assert launched == (1, 0) and err <= ROW_REL, (m, c, n, launched, err)
+        assert launched == (0, 1, 0) and err <= ROW_REL, (m, c, n, launched, err)
 
 
 def test_ragged_and_small_shapes(cuda):
@@ -90,21 +94,26 @@ def test_ragged_and_small_shapes(cuda):
         out, ref, launched = _run(gen, m, c, n, _weight(gen, c, n))
         err = _row_rel(out, ref)
         print(f"M={m} C={c} N={n}: row error {err:.4g}")
-        assert launched == (1, 0) and err <= ROW_REL, (m, c, n, launched, err)
+        assert launched == (0, 1, 0) and err <= ROW_REL, (m, c, n, launched, err)
 
 
 def test_routing_keeps_the_mma_kernel(cuda):
-    """Decode steps (M <= 16) at every llama2-7b width, N not a multiple of
-    16 and groups of 64 at prefill rows stay on q4_matmul.cu's kernel."""
+    """Decode steps (M <= 16) at every llama2-7b width and the lm_head go
+    to the decode design (csrc/q4_matmul_decode.cu); N not a multiple of
+    16 and groups of 64, at prefill rows and at decode rows, stay on
+    q4_matmul.cu's kernel."""
     gen = torch.Generator(device=cuda).manual_seed(6)
-    cases = [(m, c, n, None) for m in (1, 8, 16) for c, n in ((4096, 4096), (11008, 4096), (4096, 11008))]
-    cases += [(8, 4096, 32000, None), (77, 4096, 1000, 128), (512, 2048, 2048, 64), (77, 4096, 4096, 64)]
-    for m, c, n, block in cases:
-        assert q4_design(m, n, c, block or 128) == "mma"
+    cases = [(m, c, n, None, "decode") for m in (1, 8, 16) for c, n in ((4096, 4096), (11008, 4096), (4096, 11008))]
+    cases += [(8, 4096, 32000, None, "decode"), (77, 4096, 1000, 128, "mma"), (512, 2048, 2048, 64, "mma"),
+              (77, 4096, 4096, 64, "mma"), (8, 4096, 1000, 128, "mma"), (8, 2048, 2048, 64, "mma"),
+              (1, 4096, 4104, 128, "mma")]
+    for m, c, n, block, design in cases:
+        assert q4_design(m, n, c, block or 128) == design
         out, ref, launched = _run(gen, m, c, n, _weight(gen, c, n, block))
         err = _row_rel(out, ref)
-        print(f"M={m} C={c} N={n} block {block or 128}: row error {err:.4g}")
-        assert launched == (0, 1) and err <= ROW_REL, (m, c, n, block, launched, err)
+        print(f"M={m} C={c} N={n} block {block or 128}: {design} design, row error {err:.4g}")
+        want = tuple(int(d == design) for d in ("decode", "wgmma", "mma"))
+        assert launched == want and err <= ROW_REL, (m, c, n, block, launched, err)
 
 
 def test_planted_faults_fail(cuda):

@@ -12,12 +12,13 @@ ops/quant.py) against the JAX package's, on the same numpy inputs.
 * q4einsum on the model's five equations and one that does not fit (the
   dequant path), int8 quantize/qeinsum (scale after the dot, including
   permuted kept letters), within 1e-5 in f32.
-* q4_design, the routing between the two CUDA designs: every llama2-7b
-  projection and the lm_head at decode (M <= 16, the mma kernel) and at
+* q4_design, the routing between the three CUDA designs: every llama2-7b
+  projection and the lm_head at decode (M <= 16, the decode kernel) and at
   every prefill bucket (the wgmma kernel), N = 1000 and groups of 64 on
-  the mma kernel.
+  the mma kernel (tests/test_torch_q4_decode.py covers llama3-8b too).
 The CUDA kernels themselves are held against the plain version in
-tests/test_torch_kernels_cuda.py and tests/test_torch_q4_cuda.py.
+tests/test_torch_kernels_cuda.py, tests/test_torch_q4_cuda.py and
+tests/test_torch_q4_decode_cuda.py.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -102,14 +103,14 @@ def test_q4_matmul_plain_matches_jax(dtype):
 
 def test_q4_design_routes_by_shape():
     """llama2-7b's projections (C, N): wq/wk/wv/wo, w_gate/w_up, w_down
-    and the lm_head; decode steps of up to 16 rows take the mma kernel,
+    and the lm_head; decode steps of up to 16 rows take the decode kernel,
     prefill buckets (32..512 rows) and chunks the wgmma kernel; a width
     that is not a multiple of 16 and groups of 64 (tinyllama's wo) stay on
     the mma kernel at every row count."""
     widths = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)]
     for c, n in widths:
         for m in (1, 8, 16):
-            assert quant4.q4_design(m, n, c, 128) == "mma", (m, c, n)
+            assert quant4.q4_design(m, n, c, 128) == "decode", (m, c, n)
         for m in (17, 32, 64, 77, 128, 256, 512):
             assert quant4.q4_design(m, n, c, 128) == "wgmma", (m, c, n)
     for m in (8, 77, 512):
@@ -117,13 +118,15 @@ def test_q4_design_routes_by_shape():
         assert quant4.q4_design(m, 2048, 2048, 64) == "mma"
         assert quant4.q4_design(m, 4104, 4096, 128) == "mma"  # a multiple of 8, not of 16
     # On CPU tensors the wrapper runs the plain version and no design counts a launch.
-    counts = (quant4.q4_matmul.launches, quant4.q4_matmul.launches_wgmma, quant4.q4_matmul.launches_mma)
+    counters = ("launches", "launches_decode", "launches_wgmma", "launches_mma")
+    counts = [getattr(quant4.q4_matmul, name) for name in counters]
     tq = quant4.quantize4(torch.from_numpy(_randn((256, 128), 12, 0.1)), (0,))
-    x = torch.from_numpy(_randn((32, 256), 13)).to(torch.bfloat16)
-    assert quant4.q4_design(32, 128, 256, tq.block) == "wgmma"
-    assert torch.equal(quant4.q4_matmul(x, tq.packed, tq.scale, tq.block),
-                       quant4.q4_matmul_plain(x, tq.packed, tq.scale, tq.block))
-    assert (quant4.q4_matmul.launches, quant4.q4_matmul.launches_wgmma, quant4.q4_matmul.launches_mma) == counts
+    for m, design in ((32, "wgmma"), (8, "decode")):
+        x = torch.from_numpy(_randn((m, 256), 13)).to(torch.bfloat16)
+        assert quant4.q4_design(m, 128, 256, tq.block) == design
+        assert torch.equal(quant4.q4_matmul(x, tq.packed, tq.scale, tq.block),
+                           quant4.q4_matmul_plain(x, tq.packed, tq.scale, tq.block))
+    assert [getattr(quant4.q4_matmul, name) for name in counters] == counts
 
 
 @pytest.mark.parametrize("eq,xs,ws,contr", [
