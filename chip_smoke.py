@@ -94,6 +94,20 @@ Phases, each of which exits non-zero on failure:
               the attention kernels as in serve-long (the cached flash
               over the int8 cache), every served greedy
               token held against a single-shot forward on the int4 weights;
+              each serve phase runs the default engine: the overlapped
+              scheduler, the decode step one CUDA graph captured at the
+              warm-up request, so every step of the run is a replay (a
+              kernel's launches: its wrapper's count plus the graph's
+              launches a replay times the replays). Then, on the stopped
+              engine: serve and serve-int4 serve their requests again
+              through overlap=false and the eager step, every greedy
+              request token for token the default run's, with that run's
+              mean step; every phase holds its sampled tokens inside their
+              masks, draws four different rows in four replays at
+              temperature 50, and runs 16 overlapped steps at full batch
+              whose dispatch makes no host sync (set_sync_debug_mode
+              "error"), with their host clock; serve-long also one
+              prompt's three chunks with no host sync;
   train       train.main at llama2-7b's full width and depth (random weights
               from seed 0, bf16) with the finetune example's params: LoRA
               rank 16 on wq/wv, batch 8 x 1024, learning rate 2e-4, remat,
@@ -113,10 +127,11 @@ Phases, each of which exits non-zero on failure:
               every weight unchanged by step 0 (rate 0) and changed by
               step 1;
   profile     (only when named) host-clock prefill and decode-step times
-              and, under torch.profiler, their device busy time and top
-              kernels, after serve (prompts of 16 and 400 tokens) and after
-              serve-long (40 and 3000 tokens, the slots filled at 1000;
-              the decode steps also unfused, in turns with the fused ones)
+              (the overlapped graph replays) and, under torch.profiler,
+              their device busy time and top kernels, after serve
+              (prompts of 16 and 400 tokens) and after serve-long (40 and
+              3000 tokens, the slots filled at 1000; the decode steps also
+              unfused, in turns with the fused ones, each impl's own graph)
               and after serve-int4 (16 and 1500 tokens), with the int4
               matmul's and the GEMMs' share of the device time (a decode
               step of serve-int4 must run no split-K sums of
@@ -1043,9 +1058,13 @@ def profile_engine(engine, label: str = "profile", lens=(16, 400), fill: int = 1
     """Host-clock prefill times of prompts of `lens` tokens and the
     decode-step time, and, under torch.profiler, the device busy time and
     top kernels of the longer prefill and of decode steps with every slot
-    active (the rest filled with `fill`-token prompts). With alt_decode,
-    the same slots also decode with that decode_attn_impl, in turns with
-    the configured one. Driven from this thread after the scheduler has
+    active (the rest filled with `fill`-token prompts). The decode steps
+    are the engine's own: overlapped, each a replay of its captured graph,
+    `steps` of them and the flush of the last. With alt_decode, the same
+    slots also decode with that decode_attn_impl, in turns with the
+    configured one: a new model config makes the engine capture a new
+    graph, so each turn replays its own impl's graph (captured before the
+    turn is timed). Driven from this thread after the scheduler has
     stopped."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1065,7 +1084,8 @@ def profile_engine(engine, label: str = "profile", lens=(16, 400), fill: int = 1
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(n):
-            engine._decode_step()
+            engine._step()
+        engine._flush()
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
@@ -1085,13 +1105,19 @@ def profile_engine(engine, label: str = "profile", lens=(16, 400), fill: int = 1
         wall = decode(steps)
     out["decode"] = _device_summary(prof, wall, steps)
     out["batch"] = int(engine.active.sum())
+    # Kernels launched inside a replayed graph reach the profile only if
+    # CUPTI reports them: the step's attention kernel must be named.
+    out["graph_kernels_named"] = any(out["decode"]["decode_ms"].values())
     if alt_decode is not None:
         cfg = engine.cfg
+        cfgs = {cfg.decode_attn_impl: cfg, alt_decode: cfg.replace(decode_attn_impl=alt_decode)}
         turns = {cfg.decode_attn_impl: [out["decode_step_ms"]], alt_decode: []}
         for impl in (alt_decode, alt_decode, cfg.decode_attn_impl):
-            engine.cfg = cfg.replace(decode_attn_impl=impl)
+            engine.cfg = cfgs[impl]
+            decode(1)  # captures this impl's graph when the config changed
             turns[impl].append(1e3 * decode(steps) / steps)
-        engine.cfg = cfg.replace(decode_attn_impl=alt_decode)
+        engine.cfg = cfgs[alt_decode]
+        decode(1)
         with profile(activities=activities) as prof:
             wall = decode(steps)
         engine.cfg = cfg
@@ -1099,19 +1125,24 @@ def profile_engine(engine, label: str = "profile", lens=(16, 400), fill: int = 1
         out[f"decode_{alt_decode}"] = _device_summary(prof, wall, steps)
         print(f"{label}: decode step at B={out['batch']} in turns, ms: "
               + "; ".join(f"{impl} {', '.join(f'{t:.2f}' for t in ts)}" for impl, ts in turns.items())
-              + f"; device busy {out['decode']['device_busy_ms']:.2f} ms ({cfg.decode_attn_impl}) against "
-              f"{out[f'decode_{alt_decode}']['device_busy_ms']:.2f} ms ({alt_decode})", flush=True)
+              + f" (each impl's own captured graph); device busy {out['decode']['device_busy_ms']:.2f} ms "
+              f"({cfg.decode_attn_impl}) against {out[f'decode_{alt_decode}']['device_busy_ms']:.2f} ms ({alt_decode})",
+              flush=True)
     pre = out[f"prefill_{long}"]
+    busy = out["decode"]["device_busy_ms"] or float("nan")  # nan: the profile saw no device time
     print(f"{label}: prefill {short} tokens {out['prefill_ms'][short]:.1f} ms, {long} tokens "
           f"{out['prefill_ms'][long]:.1f} ms in {out['chunks'] or 1} chunk(s) (device busy "
           f"{pre['device_busy_ms']:.2f} ms; int4 matmul {pre['q4_matmul_ms']:.2f} ms, wgmma design "
           f"{pre['q4_matmul_wgmma_ms']:.2f} ms of it); decode step at B={out['batch']} "
-          f"{out['decode_step_ms']:.2f} ms (device busy {out['decode']['device_busy_ms']:.2f} ms, "
-          f"{100 * out['decode']['device_busy_ms'] / out['decode_step_ms']:.1f}%; int4 matmul "
+          f"{out['decode_step_ms']:.2f} ms, overlapped graph replays (device busy "
+          f"{busy:.2f} ms, {100 * busy / out['decode_step_ms']:.1f}%, the step {out['decode_step_ms'] / busy:.2f}x "
+          f"it; int4 matmul "
           f"{out['decode']['q4_matmul_ms']:.3f} ms (decode design {out['decode']['q4_matmul_decode_ms']:.3f}, "
           f"q4_matmul.cu's split-K sums {out['decode']['q4_splitk_ms']:.3f}), GEMMs "
           f"{out['decode']['gemm_ms']:.3f} ms of it)", flush=True)
     decode_kernels = {name: round(ms, 4) for name, ms in out["decode"]["decode_ms"].items() if ms}
+    if not out["graph_kernels_named"]:
+        print(f"{label}: the profile names no decode kernel inside the replayed graph", flush=True)
     print(f"{label}: decode step, decode kernels, ms a step: {decode_kernels}"
           + (f"; {alt_decode}: " + str({name: round(ms, 4) for name, ms in out[f'decode_{alt_decode}']['decode_ms'].items()
                                         if ms}) if alt_decode is not None else ""), flush=True)
@@ -1205,6 +1236,153 @@ def zero_counts(engine, counters) -> None:
                 setattr(c, name, 0)
 
 
+def launched(engine, fn, attr: str = "launches") -> int:
+    """A kernel counter's launches since zero_counts: the wrapper's own
+    count (the eager launches) plus those that the replays of the engine's
+    captured decode step hold, which no wrapper sees."""
+    return getattr(fn, attr) + engine.replayed_launches(f"{fn.__name__}.{attr}")
+
+
+def sync_free(fn, *args):
+    """fn(*args) with every host sync an error (set_sync_debug_mode)."""
+    import torch
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def check_graph_run(engine, stats: dict, label: str) -> None:
+    """The phase's decode steps all replayed the one graph the engine
+    captured (at the warm-up request, before the counts were zeroed)."""
+    if not engine.decode_graph or not engine.overlap or engine._graph is None or engine._graph.graph is None:
+        fail(f"{label}: the default engine must be overlapped with a captured decode step")
+    if stats["graph_replays"] != stats["decode_steps"] or stats["graph_warmups"] != 0 or not stats["decode_steps"]:
+        fail(f"{label}: {stats['decode_steps']} decode steps, {stats['graph_replays']} replays, "
+             f"{stats['graph_warmups']} warm-ups: every step must replay the graph captured before")
+    print(f"{label}: every decode step a replay of the graph captured at the warm-up request (warm-up and capture "
+          f"{engine._graph.capture_seconds * 1e3:.1f} ms); one replay holds {engine._graph.captured}", flush=True)
+
+
+def eager_check(engine, requests, label: str) -> dict:
+    """The phase's requests served again, all submitted at once, through a
+    second engine on the same weights with overlap=False and the eager step
+    (decode_graph=False): every greedy request's tokens and finish must be
+    the default run's. Returns that run's step numbers."""
+    import dataclasses
+
+    import torch
+
+    from substratus_tpu_torch.serve.engine import Engine, Request
+
+    ec = dataclasses.replace(engine.ec, overlap=False)
+    eager = Engine(engine.cfg, engine.params, ec, device=engine.device, model=engine.model, decode_graph=False)
+    if eager.overlap or eager.decode_graph:
+        fail(f"{label}: the comparison engine must be synchronous and eager")
+    eager.start()
+    try:
+        reqs = [eager.submit(Request(list(r.prompt_tokens), max_tokens=r.max_tokens, temperature=r.temperature,
+                                     top_p=r.top_p)) for r in requests]
+        outs = []
+        for req in reqs:
+            toks = []
+            while (tok := req.out.get(timeout=600)) is not None:
+                toks.append(tok)
+            outs.append((toks, req.finish_reason))
+    finally:
+        eager.stop()
+    greedy = 0
+    for req, (toks, finish) in zip(requests, outs):
+        if req.temperature == 0.0:
+            greedy += 1
+            if (toks, finish) != (req.out.tokens, req.finish_reason):
+                fail(f"{label}: a greedy request's tokens differ between the default engine and the synchronous "
+                     f"eager one: {req.out.tokens} ({req.finish_reason}) against {toks} ({finish})")
+    st = eager.stats
+    out = {"greedy_identical": greedy, "decode_steps": st["decode_steps"], "graph_replays": st["graph_replays"],
+           "step_ms": 1e3 * st["decode_seconds"] / st["decode_steps"],
+           "decode_tokens_per_s": sum(len(t) - 1 for t, _ in outs) / st["decode_seconds"]}
+    print(f"{label}: the same {len(requests)} requests through overlap=false and the eager step: all {greedy} greedy "
+          f"requests token for token the default run's; mean step {out['step_ms']:.2f} ms over "
+          f"{st['decode_steps']} steps, decode {out['decode_tokens_per_s']:.1f} tokens/s", flush=True)
+    del eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def graph_checks(engine, requests, label: str) -> dict:
+    """On the stopped engine of a serve phase: each sampled token lies
+    inside its request's top-k / top-p mask of a teacher-forced forward;
+    four replays of the captured step at temperature 50 on the same inputs
+    draw four different rows and advance the generator; then every slot
+    filled (greedy and sampled) and 16 steady-state overlapped steps whose
+    dispatch half runs under set_sync_debug_mode("error"), with their host
+    clock a step."""
+    import numpy as np
+    import torch
+
+    from substratus_tpu_torch.models import llama
+    from substratus_tpu_torch.ops.sampling import masked_logits
+    from substratus_tpu_torch.serve.engine import Request
+
+    sampled = [r for r in requests if r.temperature > 0]
+    for req in sampled:
+        prompt, toks = engine.clipped_prompt(req.prompt_tokens), req.out.tokens
+        with torch.inference_mode():
+            logits, _ = llama.forward(engine.params, torch.tensor([prompt + toks[:-1]], device=engine.device),
+                                      engine.cfg)
+        n = len(toks)
+        masked = masked_logits(logits[0, len(prompt) - 1:], torch.full((n,), req.temperature, device=engine.device),
+                               engine.ec.top_k, torch.full((n,), req.top_p, device=engine.device))
+        if not n or not torch.isfinite(masked[torch.arange(n), torch.tensor(toks)]).all():
+            fail(f"{label}: a sampled token lies outside its mask: {toks}")
+    graph, b = engine._graph, engine.ec.max_batch
+    offset = engine.generator.get_offset()
+    hot = (engine.tokens, engine.positions, np.full(b, 50.0, np.float32), np.ones(b, np.float32), np.ones(b, bool))
+    draws = [tuple(graph.launch(*hot)().tolist()) for _ in range(4)]
+    advanced = engine.generator.get_offset() - offset
+    if len(set(draws)) != len(draws) or advanced <= 0 or not all(0 <= t < engine.cfg.vocab_size for d in draws
+                                                                 for t in d):
+        fail(f"{label}: replays of the captured step drew {draws}, generator offset +{advanced}")
+
+    for i in range(b):
+        engine.queue.put(Request([256] + [65 + i] * 99, max_tokens=10_000, temperature=0.8 * (i % 2)))
+    while not engine.active.all():
+        if engine._admit() == 0:
+            fail(f"{label}: admission failed")
+    for _ in range(4):
+        engine._step()
+    dispatch, dispatch_s = engine._dispatch, []
+
+    def checked():
+        t = time.perf_counter()
+        launched = sync_free(dispatch)
+        dispatch_s.append(time.perf_counter() - t)
+        return launched
+
+    engine._dispatch = checked
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        for _ in range(16):
+            engine._step()
+        engine._flush()
+    finally:
+        del engine._dispatch
+    steady_ms = 1e3 * (time.perf_counter() - t0) / 16
+    dispatch_ms = 1e3 * statistics.median(dispatch_s)
+    for slot in range(b):
+        engine._release_slot(slot)
+    print(f"{label}: {len(sampled)} sampled requests inside their masks; 4 replays at temperature 50 drew 4 different "
+          f"rows (generator offset +{advanced}); 16 overlapped steps at B={b} with no host sync in their dispatch, "
+          f"{steady_ms:.2f} ms a step on the host clock, the dispatch half {dispatch_ms:.3f} ms (median)", flush=True)
+    return {"sampled_checked": len(sampled), "draws": draws, "generator_advance": advanced,
+            "steady_step_ms": steady_ms, "dispatch_ms": dispatch_ms, "capture_ms": engine._graph.capture_seconds * 1e3}
+
+
 def serve_phase(card: str, profile_steps: bool = False):
     from substratus_tpu_torch.ops.decode_attention import decode_attention
     from substratus_tpu_torch.ops.flash_attention import flash_attention
@@ -1212,22 +1390,26 @@ def serve_phase(card: str, profile_steps: bool = False):
     server, engine, base = start_server("serve", {
         "config": "llama2-7b", "max_batch": 8, "max_seq_len": 1024, "max_prefill_len": 512,
         "kv_cache_dtype": "model"})
+    requests = tee_requests(engine)
     try:
         zero_counts(engine, (flash_attention, decode_attention))
         results, wall = run_concurrent(base, PROMPTS)
         wait_idle(engine)
-        launches = {"flash_fwd": flash_attention.launches, "flash_fwd_wgmma": flash_attention.launches_wgmma,
-                    "decode_attn": decode_attention.launches, "decode_attn_split": decode_attention.launches_split}
+        launches = {"flash_fwd": launched(engine, flash_attention),
+                    "flash_fwd_wgmma": launched(engine, flash_attention, "launches_wgmma"),
+                    "decode_attn": launched(engine, decode_attention),
+                    "decode_attn_split": launched(engine, decode_attention, "launches_split")}
         stats = dict(engine.stats)
+        del engine.submit
         reference = reference_check(engine)
     finally:
         server.stop()
-    profiled = profile_engine(engine) if profile_steps else None
 
     generated = check_usage(PROMPTS, results)
     L = engine.cfg.n_layers
     if stats["prefills"] != len(PROMPTS):
         fail(f"{stats['prefills']} prefills for {len(PROMPTS)} requests")
+    check_graph_run(engine, stats, "serve")
     if (launches["flash_fwd"] != L * stats["prefills"] or launches["decode_attn"] != L * stats["decode_steps"]
             or launches["flash_fwd_wgmma"] != launches["flash_fwd"]
             or launches["decode_attn_split"] != launches["decode_attn"]):
@@ -1241,10 +1423,15 @@ def serve_phase(card: str, profile_steps: bool = False):
     print(f"serve: {len(PROMPTS)} concurrent requests, {generated} tokens in {wall:.2f} s; "
           f"{stats['prefills']} prefills, {stats['decode_steps']} decode steps; launches {launches}", flush=True)
     print(f"serve [{card}]: mean prefill (TTFT on the engine) {ttft * 1e3:.1f} ms, "
-          f"decode {decode_tps:.1f} tokens/s, mean step {step_ms:.2f} ms", flush=True)
+          f"decode {decode_tps:.1f} tokens/s, mean step {step_ms:.2f} ms (overlapped, the step one CUDA graph)",
+          flush=True)
+    eager = eager_check(engine, requests, "serve")
+    graph = graph_checks(engine, requests, "serve")
+    profiled = profile_engine(engine) if profile_steps else None
     return {"launches": launches, "stats": stats, "wall_s": wall, "generated": generated,
             "ttft_ms": ttft * 1e3, "decode_tokens_per_s": decode_tps, "step_ms": step_ms,
-            "requests": [r[1] for r in results], "reference": reference, "profile": profiled}
+            "requests": [r[1] for r in results], "reference": reference, "eager_sync": eager, "graph": graph,
+            "profile": profiled}
 
 
 def _long_text(n_bytes: int, seed: int) -> str:
@@ -1350,15 +1537,16 @@ def serve_long_phase(card: str, profile_steps: bool = False):
         zero_counts(engine, counters.values())
         results, wall = run_concurrent(base, LONG_PROMPTS)
         wait_idle(engine)
-        launches = {name: c.launches for name, c in counters.items()}
-        launches.update(flash_cached_wgmma=flash_cached_attention.launches_wgmma,
-                        flash_fwd_wgmma=flash_attention.launches_wgmma,
-                        fused_decode_split=fused_decode_attention.launches_split)
+        launches = {name: launched(engine, c) for name, c in counters.items()}
+        launches.update(flash_cached_wgmma=launched(engine, flash_cached_attention, "launches_wgmma"),
+                        flash_fwd_wgmma=launched(engine, flash_attention, "launches_wgmma"),
+                        fused_decode_split=launched(engine, fused_decode_attention, "launches_split"))
         stats = dict(engine.stats)
     finally:
         server.stop()
     generated = check_usage(LONG_PROMPTS, results)
     del engine.submit
+    check_graph_run(engine, stats, "serve-long")
     L = engine.cfg.n_layers
     want = {"flash_cached": L * stats["prefill_chunks"], "flash_fwd": L * stats["prefills"],
             "fused_decode": L * stats["decode_steps"], "decode_attn": 0,
@@ -1376,6 +1564,16 @@ def serve_long_phase(card: str, profile_steps: bool = False):
     if not all(launches[name] > 0 for name in ("flash_cached", "fused_decode", "flash_fwd")):
         fail(f"serve-long: a kernel of the path never launched: {launches}")
     reference = long_reference_check(engine, requests)
+    # One prompt of 3 chunks written into a free slot with every host sync
+    # an error: the chunks' cache writes read nothing back.
+    prompt = next(r.prompt_tokens for r in requests if len(r.prompt_tokens) == 1500)
+    chunks = engine.stats["prefill_chunks"]
+    torch.cuda.synchronize()
+    logits = sync_free(engine._chunked_prefill, prompt, 0)
+    if engine.stats["prefill_chunks"] - chunks != 3 or not torch.isfinite(logits).all():
+        fail(f"serve-long: the sync-free chunked prefill ran {engine.stats['prefill_chunks'] - chunks} chunks")
+    print(f"serve-long: a {len(prompt)}-token prompt's 3 chunks with no host sync", flush=True)
+    graph = graph_checks(engine, requests, "serve-long")
     profiled = profile_engine(engine, "profile-long", (40, 3000), 1000, alt_decode="kernel") if profile_steps else None
     ttft = results[0][2]
     step_ms = 1e3 * stats["decode_seconds"] / stats["decode_steps"]
@@ -1386,10 +1584,10 @@ def serve_long_phase(card: str, profile_steps: bool = False):
           flush=True)
     print(f"serve-long [{card}]: TTFT of the 3000-token request {ttft * 1e3:.1f} ms (client, streamed), "
           f"engine prefill time {stats['prefill_seconds'] * 1e3:.1f} ms in all, decode {decode_tps:.1f} tokens/s, "
-          f"mean step {step_ms:.2f} ms", flush=True)
+          f"mean step {step_ms:.2f} ms (overlapped, the step one CUDA graph)", flush=True)
     return {"launches": launches, "stats": stats, "wall_s": wall, "generated": generated,
             "ttft_3000_ms": ttft * 1e3, "decode_tokens_per_s": decode_tps, "step_ms": step_ms,
-            "requests": [r[1] for r in results], "reference": reference, "profile": profiled}
+            "requests": [r[1] for r in results], "reference": reference, "graph": graph, "profile": profiled}
 
 
 # The JAX package's throughput stack (int4 weights, int8 cache, fused
@@ -1437,20 +1635,24 @@ def serve_int4_phase(card: str, profile_steps: bool = False):
         zero_counts(engine, counters.values())
         results, wall = run_concurrent(base, INT4_PROMPTS)
         wait_idle(engine)
-        launches = {name: c.launches for name, c in counters.items()}
+        launches = {name: launched(engine, c) for name, c in counters.items()}
         # q4_matmul_decode: the decode design; q4_matmul_wgmma: the prefill
         # design; q4_matmul: q4_matmul.cu's kernel (no shape of this path)
-        launches.update(q4_matmul_decode=q4_matmul.launches_decode, q4_matmul=q4_matmul.launches_mma,
-                        q4_matmul_wgmma=q4_matmul.launches_wgmma,
-                        q4_matmul_total=q4_matmul.launches, flash_fwd_wgmma=flash_attention.launches_wgmma,
+        launches.update(q4_matmul_decode=launched(engine, q4_matmul, "launches_decode"),
+                        q4_matmul=launched(engine, q4_matmul, "launches_mma"),
+                        q4_matmul_wgmma=launched(engine, q4_matmul, "launches_wgmma"),
+                        q4_matmul_total=launched(engine, q4_matmul),
+                        flash_fwd_wgmma=launched(engine, flash_attention, "launches_wgmma"),
                         # the int8 cache's chunks, of the design flash_cached_design names
-                        flash_cached_int8=getattr(flash_cached_attention, f"launches_{flash_cached_design(128)}"),
-                        fused_decode_split=fused_decode_attention.launches_split)
+                        flash_cached_int8=launched(engine, flash_cached_attention,
+                                                   f"launches_{flash_cached_design(128)}"),
+                        fused_decode_split=launched(engine, fused_decode_attention, "launches_split"))
         stats = dict(engine.stats)
     finally:
         server.stop()
     generated = check_usage(INT4_PROMPTS, results)
     del engine.submit
+    check_graph_run(engine, stats, "serve-int4")
     L = engine.cfg.n_layers
     forwards = stats["prefills"] + stats["prefill_chunks"] + stats["decode_steps"]
     chunk = INT4_PARAMS["max_prefill_len"]
@@ -1480,6 +1682,8 @@ def serve_int4_phase(card: str, profile_steps: bool = False):
                                                "fused_decode")):
         fail(f"serve-int4: a kernel of the path never launched: {launches}")
     reference = long_reference_check(engine, [r for r in requests if r.temperature == 0.0], "serve-int4")
+    eager = eager_check(engine, requests, "serve-int4")
+    graph = graph_checks(engine, requests, "serve-int4")
     profiled = profile_engine(engine, "profile-int4", (16, 1500)) if profile_steps else None
     if profiled is not None and profiled["decode"]["q4_splitk_ms"]:
         fail(f"profile-int4: a decode step ran q4_matmul.cu's split-K sums ({profiled['decode']['q4_splitk_ms']} ms)")
@@ -1491,12 +1695,12 @@ def serve_int4_phase(card: str, profile_steps: bool = False):
           f"{stats['prefills']} single-shot prefills, {stats['prefill_chunks']} prefill chunks, "
           f"{stats['decode_steps']} decode steps; launches {launches}", flush=True)
     print(f"serve-int4 [{card}]: mean prefill (engine) {prefill_ms:.1f} ms, decode {decode_tps:.1f} tokens/s, "
-          f"mean step {step_ms:.2f} ms, TTFT of the 1500-token request {ttft * 1e3:.1f} ms (client, streamed)",
-          flush=True)
+          f"mean step {step_ms:.2f} ms (overlapped, the step one CUDA graph), TTFT of the 1500-token request "
+          f"{ttft * 1e3:.1f} ms (client, streamed)", flush=True)
     return {"launches": launches, "stats": stats, "bytes": nbytes, "wall_s": wall, "generated": generated,
             "prefill_ms": prefill_ms, "decode_tokens_per_s": decode_tps, "step_ms": step_ms,
             "ttft_1500_ms": ttft * 1e3, "requests": [r[1] for r in results], "reference": reference,
-            "profile": profiled}
+            "eager_sync": eager, "graph": graph, "profile": profiled}
 
 
 # --- training: train.main and the Trainer ----------------------------------------

@@ -158,14 +158,21 @@ def _write_rows(cache: torch.Tensor, rows: torch.Tensor, positions: torch.Tensor
         old = cache[bidx, hidx, idx]
         cache[bidx, hidx, idx] = torch.where(valid, rows.to(cache.dtype), old)
         return
-    # Multi-token writes (chunked continuation): positions clamped onto
-    # S-1 could collide, so select the in-range entries explicitly.
-    keep = positions < s  # [B, Sn]
-    bb, ii = torch.nonzero(keep, as_tuple=True)
-    pos = positions[bb, ii]
-    cache[bb[:, None], torch.arange(kh, device=cache.device)[None, :], pos[:, None]] = (
-        rows[bb, :, ii].to(cache.dtype)
-    )
+    # Multi-token writes (chunked continuation), with no host sync: several
+    # entries may land on one row (a drop clamped onto S-1, the engine's
+    # padded tail clamped onto one position). The last in-range entry of a
+    # row wins, as XLA's scatter has it, and every write to that row carries
+    # the winner's value (or the row's own where none is in range), so
+    # colliding writes agree whatever order the device runs them in.
+    pos = positions.long()
+    tgt = torch.remainder(torch.clamp(pos, -s, s - 1), s)  # [B, Sn]; negatives wrap, as in JAX
+    src = torch.where((pos < s) & (pos >= -s), torch.arange(sn, device=cache.device), -1)
+    win = torch.full((b, s), -1, dtype=src.dtype, device=cache.device).scatter_reduce_(1, tgt, src, "amax")
+    win = win.gather(1, tgt)  # [B, Sn] the entry whose value each write carries
+    idx = tgt[:, None, :]
+    new = rows[bidx, hidx, win.clamp(min=0)[:, None, :]].to(cache.dtype)
+    keep = (win >= 0).reshape(b, 1, sn, *([1] * (rows.dim() - 3)))
+    cache[bidx, hidx, idx] = torch.where(keep, new, cache[bidx, hidx, idx])
 
 
 def update_cache_and_attend(

@@ -21,10 +21,12 @@ def masked_logits(
     v = logits.shape[-1]
     safe_t = torch.clamp(temperature, min=1e-6)[:, None]
     scaled = logits / safe_t
-    neg_inf = torch.tensor(float("-inf"), device=logits.device)
+    # masked_fill takes its value from the host as a kernel argument, so
+    # nothing is copied to the device: the step stays capturable in a CUDA
+    # graph (serve/decode_graph.py).
     if top_k and top_k < v:
         kth = torch.topk(scaled, top_k, dim=-1).values[:, -1:]
-        scaled = torch.where(scaled < kth, neg_inf, scaled)
+        scaled = scaled.masked_fill(scaled < kth, float("-inf"))
     if top_p is not None:
         sorted_logits = torch.sort(scaled, dim=-1, descending=True).values
         probs = torch.softmax(sorted_logits, dim=-1)
@@ -32,10 +34,8 @@ def masked_logits(
         # Keep the smallest prefix with cumulative prob >= top_p (always
         # keep the first token).
         keep_sorted = (cum - probs) < top_p[:, None]
-        cutoff = torch.where(
-            keep_sorted, sorted_logits, torch.tensor(float("inf"), device=logits.device)
-        ).amin(dim=-1, keepdim=True)
-        scaled = torch.where(scaled < cutoff, neg_inf, scaled)
+        cutoff = sorted_logits.masked_fill(~keep_sorted, float("inf")).amin(dim=-1, keepdim=True)
+        scaled = scaled.masked_fill(scaled < cutoff, float("-inf"))
     return scaled
 
 

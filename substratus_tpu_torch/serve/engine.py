@@ -1,4 +1,4 @@
-"""Continuous-batching inference engine, synchronous dense path (port of
+"""Continuous-batching inference engine on the dense cache (port of
 substratus_tpu/serve/engine.py).
 
   * the decode batch is a fixed array of slots over the dense cache
@@ -8,27 +8,35 @@ substratus_tpu/serve/engine.py).
     ``max_prefill_len`` runs as a sequence of chunks written straight into
     its slot's cache, each attending everything before it;
   * every decode step advances all slots one token and samples on the
-    device; finished slots are freed and refilled between steps.
+    device; finished slots are freed and refilled between steps. On the
+    card the step's device work is one CUDA graph, captured once and
+    replayed (serve/decode_graph.py).
 
 Threading model: callers enqueue Requests (thread-safe); one scheduler
 thread owns the model, the cache and the generator, so every cache write
-and every kernel launch is ordered on that thread's current stream. The
-step is synchronous: it reads the sampled tokens back to the host before
-the next dispatch (the JAX engine's overlap=False scheduler).
+and every kernel launch is ordered on that thread's current stream.
+
+Scheduling (EngineConfig.overlap): the overlapped scheduler, the default,
+dispatches step N+1, each continuing slot's token fed from step N's
+output on the device, before it reads step N's tokens to the host, so the
+host half of a step (the read, emits, release, admission) runs while the
+card computes step N+1. A slot released at step N's drain still rides
+step N+1; that step's token for it is dropped by the drain's identity
+check. overlap=False reads each step's tokens before the next dispatch.
 
 Not ported yet (ROADMAP Queue 1): the paged layout and prefix reuse,
-the overlapped scheduler, speculation, adapters,
-disaggregated roles and lockstep gangs; EngineConfig has none of their
-fields.
+speculation, adapters, disaggregated roles and lockstep gangs;
+EngineConfig has none of their fields.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import queue
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,6 +44,7 @@ import torch
 from substratus_tpu_torch.models import llama
 from substratus_tpu_torch.ops.decode_attention import pack_fragment
 from substratus_tpu_torch.ops.sampling import sample
+from substratus_tpu_torch.serve.decode_graph import DecodeGraph
 from substratus_tpu_torch.utils.device import DeviceLike, resolve_device, seeded_generator
 
 
@@ -61,6 +70,10 @@ class EngineConfig:
     # "model" keeps the cache in the model dtype; "int8" stores entries
     # quantized per vector with f32 scales.
     kv_cache_dtype: str = "model"
+    # The overlapped scheduler (module docstring). None = on, as the JAX
+    # engine resolves it for a single-process engine (the port has no roles
+    # or gangs); False gives the synchronous scheduler.
+    overlap: Optional[bool] = None
 
 
 @dataclass
@@ -79,11 +92,16 @@ class Request:
 
 @dataclass
 class _InFlightStep:
-    """One dispatched decode step: its sampled tokens (on the device) and
-    the slots active at dispatch."""
+    """One dispatched decode step whose host read is deferred. `slots`
+    pins the (slot, Request) pairs active at dispatch: a slot released or
+    re-admitted before the drain fails the identity check, and its token
+    never reaches a consumer. `pos_next` is the positions array after this
+    step's advance, so the drain's context-window check is this step's
+    even when a later dispatch has moved the live array on."""
 
-    tokens: torch.Tensor
-    slots: List[int]
+    read: Callable[[], np.ndarray]  # waits for this step's tokens, host copy [B]
+    slots: List[Tuple[int, "Request"]]
+    pos_next: np.ndarray
 
 
 def _bucket(n: int, lo: int = 16) -> int:
@@ -111,9 +129,13 @@ class Engine:
         *,
         device: DeviceLike = None,
         model=llama,
+        decode_graph: bool = True,
     ):
         """Serve `params` (a models.llama.Llama) on `device`: cuda unless
-        the caller passes device="cpu"; params must already live there."""
+        the caller passes device="cpu"; params must already live there.
+        On the card the decode step is captured as a CUDA graph unless
+        decode_graph=False (the eager step, kept to compare the two); on
+        the CPU it always runs eagerly."""
         # Copy before clamping: never mutate the caller's config.
         ec = dataclasses.replace(ec) if ec is not None else EngineConfig()
         self.device = resolve_device(device)
@@ -133,6 +155,8 @@ class Engine:
         cache_dtype = torch.int8 if ec.kv_cache_dtype == "int8" else None
         self.cache = model.init_cache(cfg, B, S, dtype=cache_dtype, device=self.device)
         self.generator = seeded_generator(0, self.device)
+        self.overlap = ec.overlap is not False
+        self.decode_graph = decode_graph and self.device.type == "cuda"
 
         # Per-slot decode inputs live on the host and go to the device
         # each step (a few bytes per row).
@@ -143,6 +167,15 @@ class Engine:
         self.slot_req: List[Optional[Request]] = [None] * B
         self.slot_generated: List[int] = [0] * B
         self.active = np.zeros(B, dtype=bool)
+        # The pipeline's one in-flight step, and the per-slot "the host token
+        # is newer" mask of the device feedback: a slot not fresh takes the
+        # last dispatched step's token from the device (the graph's `out`);
+        # admission marks its slot fresh, and once a drain or flush has
+        # settled the batch every slot is.
+        self._pending: Optional[_InFlightStep] = None
+        self._token_fresh = np.ones((B,), bool)
+        self._graph: Optional[DecodeGraph] = None
+        self._graph_cfg = None  # the model config the graph was made for
 
         self.queue: "queue.Queue[Request]" = queue.Queue()
         self._stop = threading.Event()
@@ -153,6 +186,12 @@ class Engine:
         # Host-clock counters of the scheduler thread (read by benches).
         # "prefills" counts single-shot prefills, "prefill_chunks" the
         # chunks of chunked ones; "prefill_seconds" covers both.
+        # "decode_steps" counts dispatched steps and "decode_seconds" the
+        # wall time of the scheduler iterations that decode (the dispatch of
+        # one step and, overlapped, the drain of the one before), so its
+        # mean is the gap between steps a client sees in either scheduler.
+        # On the card "graph_replays" counts replays of the captured step
+        # and "graph_warmups" its eager warm-up runs (decode_graph.py).
         self.stats: Dict[str, float] = {
             "prefills": 0,
             "prefill_chunks": 0,
@@ -160,6 +199,8 @@ class Engine:
             "prefill_seconds": 0.0,
             "decode_steps": 0,
             "decode_seconds": 0.0,
+            "graph_replays": 0,
+            "graph_warmups": 0,
         }
 
     # --- public API -------------------------------------------------------
@@ -190,6 +231,8 @@ class Engine:
         self._thread.start()
 
     def stop(self) -> None:
+        """Stop the scheduler; a step still in flight is drained first
+        (_loop), so its tokens and releases reach their consumers."""
         self._stop.set()
         self._wake.set()
         if self._thread:
@@ -233,9 +276,8 @@ class Engine:
         # (true_len - 1 = -1); decoding starts at position 0.
         if true_len <= self.ec.max_prefill_len:
             padded, true_len = _pad_to_bucket(prompt, self.ec.max_prefill_len)
-            tokens = torch.from_numpy(padded).to(self.device)
             with torch.inference_mode():  # serving builds no autograd graph
-                logits, kv = self.model.forward(self.params, tokens, self.cfg)
+                logits, kv = self.model.forward(self.params, self._to_device(padded), self.cfg)
             self._insert(kv, slot)
             last_logits = logits[0, true_len - 1]
             self.stats["prefills"] += 1
@@ -257,7 +299,7 @@ class Engine:
         offset, last_logits = 0, None
         while offset < len(prompt):
             padded, clen = _pad_to_bucket(prompt[offset : offset + chunk], chunk)
-            tokens = torch.from_numpy(padded).to(self.device)
+            tokens = self._to_device(padded)
             # The padded tail clamps onto the one slot past the prompt: real
             # queries never attend it, and the first decode step writes that
             # slot before reading it. clipped_prompt keeps prompts within
@@ -279,12 +321,17 @@ class Engine:
             sb = value.shape[3]
             self.cache[key][:, slot, :, :sb].copy_(value[:, 0])
 
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        """A host array on the engine's device; on the card through pinned
+        memory, so the copy makes the host wait for nothing."""
+        t = torch.from_numpy(a)
+        if self.device.type == "cuda":
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
+
     def _sample(self, logits: torch.Tensor, temps: np.ndarray, top_ps: np.ndarray) -> torch.Tensor:
         return sample(
-            logits, self.generator,
-            torch.from_numpy(temps).to(self.device),
-            top_k=self.ec.top_k,
-            top_p=torch.from_numpy(top_ps).to(self.device),
+            logits, self.generator, self._to_device(temps), top_k=self.ec.top_k, top_p=self._to_device(top_ps)
         )
 
     def _finalize_admit(self, req: Request, slot: int, last_logits, true_len: int) -> None:
@@ -298,55 +345,120 @@ class Engine:
         self.slot_generated[slot] = 0
         self.active[slot] = True
         self.tokens[slot] = first_id
+        # The device's tokens predate this admission: the next dispatch
+        # takes this slot's first token from the host.
+        self._token_fresh[slot] = True
         self.positions[slot] = true_len
         self.temps[slot] = req.temperature
         self.top_ps[slot] = req.top_p
         self._emit(slot, first_id)
 
+    def _device_step(self, cfg: llama.LlamaConfig, tokens: torch.Tensor, positions: torch.Tensor,
+                     temps: torch.Tensor, top_ps: torch.Tensor) -> torch.Tensor:
+        """The decode step's device work: advance every slot one token (the
+        cache is written in place) and sample, all on the device."""
+        logits, _ = self.model.decode_step(self.params, self.cache, tokens, positions, cfg)
+        return sample(logits, self.generator, temps, top_k=self.ec.top_k, top_p=top_ps)
+
+    def _decode_graph(self) -> DecodeGraph:
+        """The step's graph for the current model config. A captured graph
+        replays the config it was captured with, so a new config (a
+        profile's turn of another decode attention) gets a new graph, after
+        a flush: the device feedback lives in the old graph's buffers."""
+        if self._graph is None or self._graph_cfg is not self.cfg:
+            self._flush()
+            self._graph_cfg = self.cfg
+            self._graph = DecodeGraph(functools.partial(self._device_step, self.cfg), self.ec.max_batch,
+                                      self.device, self.generator, self.stats, capture=self.decode_graph)
+        return self._graph
+
+    def replayed_launches(self, counter: str) -> int:
+        """The launches of a kernel counter ("function.counter", e.g.
+        "decode_attention.launches") made by replays of the step's graph,
+        which the counter itself does not see: its launches in one replay
+        times stats["graph_replays"]."""
+        captured = self._graph.captured if self._graph is not None else {}
+        return captured.get(counter, 0) * int(self.stats["graph_replays"])
+
     def _dispatch(self) -> _InFlightStep:
-        """Device half of one decode step: advance every slot one token
-        (the cache is written in place), sample on the device, and return
-        the bookkeeping without reading anything back."""
-        with torch.inference_mode():
-            logits, _ = self.model.decode_step(
-                self.params, self.cache,
-                torch.from_numpy(self.tokens).to(self.device),
-                torch.from_numpy(self.positions).to(self.device),
-                self.cfg,
-            )
-        next_tokens = self._sample(logits, self.temps, self.top_ps)
+        """Device half of one decode step: launch it (each continuing slot's
+        token from the last step's output on the device, each freshly
+        admitted one's from the host) and return the bookkeeping without
+        reading anything back. Everything that waits for the device belongs
+        in _drain, which the overlapped scheduler runs a step later."""
+        graph = self._decode_graph()
+        read = graph.launch(self.tokens, self.positions, self.temps, self.top_ps, self._token_fresh)
+        self._token_fresh[:] = False
         # Clamp at the last cache row: active slots are released at the
         # window before reaching it (_emit's hit_window), so the clamp only
         # holds inactive slots, whose positions would otherwise drift past
         # the cache every step they sit idle.
         self.positions = np.minimum(self.positions + 1, self.ec.max_seq_len - 1)
-        return _InFlightStep(tokens=next_tokens, slots=[int(s) for s in np.flatnonzero(self.active)])
+        self.stats["decode_steps"] += 1
+        return _InFlightStep(read=read, slots=[(int(s), self.slot_req[int(s)]) for s in np.flatnonzero(self.active)],
+                             pos_next=self.positions.copy())
 
     def _drain(self, step: _InFlightStep) -> None:
         """Host half of one decode step: the one host read of the sampled
-        tokens, then per-slot emits and EOS/budget/window release."""
-        host = step.tokens.cpu().numpy()
-        for slot in step.slots:
+        tokens (it waits on the step's own event, never on the stream, so
+        a step dispatched since keeps the card busy), then per-slot emits
+        and EOS/budget/window release for the slots active at dispatch
+        whose request still holds them."""
+        host = step.read()
+        for slot, req in step.slots:
+            if self.slot_req[slot] is not req:
+                continue  # released (or re-admitted) since the dispatch
             self.tokens[slot] = host[slot]
-            self._emit(slot, int(host[slot]))
+            self._emit(slot, int(host[slot]), int(step.pos_next[slot]))
+        if not self.overlap:
+            # Synchronous: the next dispatch feeds host tokens only.
+            self._token_fresh[:] = True
+
+    def _flush(self) -> None:
+        """Drain the in-flight step now: before the scheduler exits (stop)
+        and before the step's graph is replaced. The batch is then settled,
+        and the next dispatch feeds host tokens for every slot."""
+        pending, self._pending = self._pending, None
+        if pending is None:
+            return
+        self._drain(pending)
+        self._token_fresh[:] = True
 
     def _decode_step(self) -> None:
-        """One synchronous iteration (the JAX engine's overlap=False
-        scheduler): dispatch, then drain at once."""
-        t0 = time.perf_counter()
+        """One synchronous iteration (overlap=False): dispatch, then drain
+        at once."""
         self._drain(self._dispatch())
-        self.stats["decode_steps"] += 1
-        self.stats["decode_seconds"] += time.perf_counter() - t0
 
-    def _emit(self, slot: int, token_id: int) -> None:
+    def _step_overlapped(self) -> None:
+        """One pipelined iteration: dispatch step N, then drain step N-1
+        while step N occupies the card. Dispatch first: a dispatch that
+        replaces the graph flushes the pending step itself."""
+        launched = self._dispatch()
+        prev, self._pending = self._pending, launched
+        if prev is not None:
+            self._drain(prev)
+
+    def _step(self) -> None:
+        """One scheduler iteration's decoding, on the resolved scheduler."""
+        if self.overlap:
+            self._step_overlapped()
+        else:
+            self._decode_step()
+
+    def _emit(self, slot: int, token_id: int, pos_next: Optional[int] = None) -> None:
         """Deliver one token; release the slot at EOS, budget or context
-        window."""
+        window. `pos_next` is the slot's next-write position as of the step
+        that sampled the token: under overlap the live positions array has
+        already moved on for the step in flight, and reading it would
+        release a request at the window one token early."""
         req = self.slot_req[slot]
         eos = req.eos_token_id if req.eos_token_id is not None else self.ec.eos_token_id
         self.slot_generated[slot] += 1
+        if pos_next is None:
+            pos_next = int(self.positions[slot])
         hit_eos = token_id == eos
         hit_budget = self.slot_generated[slot] >= req.max_tokens
-        hit_window = int(self.positions[slot]) + 1 >= self.ec.max_seq_len
+        hit_window = pos_next + 1 >= self.ec.max_seq_len
         if not hit_eos:
             req.out.put(token_id)
         if hit_eos or hit_budget or hit_window:
@@ -363,11 +475,21 @@ class Engine:
             while not self._stop.is_set():
                 self._admit()
                 if not self.active.any():
+                    # Nothing decoding: a step still in flight holds only
+                    # released slots, and waits for the next dispatch or
+                    # the stop's flush.
                     self._wake.wait(timeout=0.05)
                     self._wake.clear()
                     continue
-                self._decode_step()
+                t0 = time.perf_counter()
+                self._step()
+                self.stats["decode_seconds"] += time.perf_counter() - t0
+            # A clean stop with a step in flight delivers its tokens first.
+            self._flush()
         except BaseException as e:  # propagate to waiting callers
+            # Every request still held gets its terminal None: the slots of
+            # the step in flight are among slot_req until their drain.
+            self._pending = None
             self.error = e
 
             def kill(req: Request) -> None:

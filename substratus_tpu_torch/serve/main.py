@@ -9,7 +9,9 @@ serve/server.py, on the card unless ``--device cpu`` is given.
 Knobs come from flags or from the container contract's params file
 (``/content/params.json``, or ``--params``); flags win. The port serves
 the subset ``config``, ``max_batch``, ``max_seq_len``, ``max_prefill_len``,
-``kv_cache_dtype`` and ``max_queue``, the weight knobs
+``kv_cache_dtype``, ``max_queue`` and ``overlap`` (absent or ``true``: the
+overlapped scheduler; ``false``: the synchronous one; on the card the
+decode step is a CUDA graph in both), the weight knobs
 
 * ``quantize``: ``none``, ``int8`` (weight-only int8, plain torch ops) and
   ``int4`` (nibble-packed groups through the int4 matmul kernel of
@@ -49,7 +51,6 @@ _NOT_SERVED = {
     "model": (None, "Queue 1, checkpoint loading (waits for weights in the repository)"),
     "baseModel": (None, "Queue 1, checkpoint loading (waits for weights in the repository)"),
     "kv_layout": ("dense", "Queue 1, paged KV"),
-    "overlap": (False, "Queue 1, the overlapped scheduler"),
     "spec_k": (0, "Queue 1, speculative decoding"),
     "draft_model": (None, "Queue 1, speculative decoding"),
     "adapters": (None, "Queue 1, multi-tenant adapters"),
@@ -63,7 +64,7 @@ _NOT_SERVED = {
     "replicas": (None, "Queue 1, multi-GPU serving"),
     "drain_grace": (None, "Queue 1, the serving surface (gateway contract)"),
 }
-_SERVED = ("config", "max_batch", "max_seq_len", "max_prefill_len", "kv_cache_dtype", "max_queue",
+_SERVED = ("config", "max_batch", "max_seq_len", "max_prefill_len", "kv_cache_dtype", "max_queue", "overlap",
            "decode_attn_impl", "chunk_attn_impl", "attn_impl", "quantize", "q4_impl")
 _QUANTIZE = ("none", "int8", "int4")
 # The port has no XLA: both of the JAX entry point's int4 lowerings run the kernel.
@@ -125,12 +126,23 @@ def resolve_quantize(params: Dict[str, Any]) -> str:
     return quantize
 
 
+def resolve_overlap(params: Dict[str, Any]) -> Optional[bool]:
+    """EngineConfig.overlap from params.json, as the JAX entry point passes
+    it (absent: None, which the engine resolves to on); exits on a value
+    that is not a boolean."""
+    overlap = params.get("overlap")
+    if overlap is not None and not isinstance(overlap, bool):
+        raise SystemExit(f"params.json: overlap={overlap!r} invalid (true or false)")
+    return overlap
+
+
 def check_params(params: Dict[str, Any]) -> None:
     """Exit on any key the port does not serve yet (naming its ROADMAP
-    queue), on any key it does not know, and on an attention or weight
-    mode it does not serve."""
+    queue), on any key it does not know, and on an attention, weight or
+    scheduler mode it does not serve."""
     resolve_attn_impls(params)
     resolve_quantize(params)
+    resolve_overlap(params)
     for key, value in params.items():
         if key in _NOT_SERVED:
             served, where = _NOT_SERVED[key]
@@ -192,6 +204,7 @@ def build(argv=None):
         kv_cache_dtype=params_json.get("kv_cache_dtype", "model"),
         eos_token_id=tokenizer.eos_id,
         max_queue=max_queue if max_queue > 0 else None,
+        overlap=resolve_overlap(params_json),
     )
     engine = Engine(cfg, params, ec, device=device, model=family)
     server = Server(ServerState(engine, tokenizer, name), host=args.host, port=args.port)
@@ -204,7 +217,9 @@ def build(argv=None):
           f"{prefill} (attn_impl={params_json.get('attn_impl', 'xla')}); decode attention: "
           f"{'fused cache-write + decode kernel' if decode_impl == 'fused' else 'decode kernel'} "
           f"(decode_attn_impl={params_json.get('decode_attn_impl', 'xla')}), long-prompt chunks: "
-          f"cached flash kernel (chunk_attn_impl={params_json.get('chunk_attn_impl', 'xla')})", flush=True)
+          f"cached flash kernel (chunk_attn_impl={params_json.get('chunk_attn_impl', 'xla')}); scheduler: "
+          f"{'overlapped' if engine.overlap else 'synchronous'}, decode step "
+          f"{'one CUDA graph' if engine.decode_graph else 'eager'}", flush=True)
     return server
 
 

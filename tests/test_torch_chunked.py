@@ -89,3 +89,40 @@ def test_short_requests_around_a_long_one(weights):
     before, long_out, after = _generate(engine, [[256, 1, 2], PROMPT, [256, 1, 2]], max_tokens=6)
     assert before == after and len(long_out) >= 1
     assert engine.stats["prefills"] == 2 and engine.stats["prefill_chunks"] == 3
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["f32", "int8"])
+def test_chunk_write_drops_and_duplicates_match_jax(quantized):
+    """A chunk's cache write with positions past the cache (dropped) and
+    positions repeated (the padded tail clamped onto one row, and a drop
+    clamped onto S-1 beside an in-range write there): the port's write,
+    which never reads a position back to the host, leaves the cache as
+    JAX's scatter does (the last in-range entry of a row wins)."""
+    from substratus_tpu.ops import decode_attention as jdec
+    from substratus_tpu.ops.quant import quantize_kv as j_quantize_kv
+    from substratus_tpu_torch.ops import decode_attention as tdec
+
+    b, kh, h, s, d = 2, 2, 4, 8, 16
+    r = np.random.default_rng(11)
+    k = r.standard_normal((b, kh, s, d)).astype(np.float32)
+    cache = {"k": k, "v": r.standard_normal((b, kh, s, d)).astype(np.float32)}
+    if quantized:
+        cache = {}
+        for name in ("k", "v"):
+            q, scale = j_quantize_kv(jnp.asarray(r.standard_normal((b, kh, s, d)).astype(np.float32)))
+            cache[name], cache[f"{name}_scale"] = np.asarray(q), np.asarray(scale)[..., 0]
+    q = r.standard_normal((b, 5, h, d)).astype(np.float32)
+    kv = r.standard_normal((b, 5, kh, d)).astype(np.float32)
+    # Row 0: a write at S-1, then two past the cache; row 1: a tail of three
+    # entries clamped onto position 4, as the engine pads a chunk.
+    positions = np.array([[5, 6, s - 1, s, s + 3], [2, 3, 4, 4, 4]], np.int32)
+    assert len(set(positions[1])) < positions.shape[1] and (positions >= s).any()
+    t_cache = {name: torch.from_numpy(x.copy()) for name, x in cache.items()}
+    got, _ = tdec.update_cache_and_attend(t_cache, *(torch.from_numpy(x) for x in (q, kv, kv, positions)))
+    want, j_out = jdec.update_cache_and_attend({name: jnp.asarray(x) for name, x in cache.items()},
+                                               *(jnp.asarray(x) for x in (q, kv, kv, positions)))
+    for name in cache:
+        np.testing.assert_array_equal(t_cache[name].numpy(), np.asarray(j_out[name]), err_msg=name)
+    # The rows that real queries attend agree too (row 1's padded tail
+    # attends a row the tail rewrote, in both packages alike).
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)

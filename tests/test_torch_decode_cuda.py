@@ -18,8 +18,11 @@ that is larger. Both sides compute in f32 and round the output to bf16;
 they differ in the order of the f32 sums, so a vector moves by about one
 bf16 ulp, while dropping one split's rows moves whole vectors
 (chip_smoke.py checks that the limit rejects that). The fused kernel's
-row write is held bit for bit. Each test prints its readings (pytest -rP).
+row write is held bit for bit. The Engine's decode step, captured as one
+CUDA graph (serve/decode_graph.py), is held token for token against the
+eager synchronous step. Each test prints its readings (pytest -rP).
 """
+import numpy as np
 import pytest
 import torch
 
@@ -29,7 +32,7 @@ from substratus_tpu_torch.ops.decode_attention import decode_attention, decode_a
 from substratus_tpu_torch.ops.fused_decode import (
     decode_design, decode_split_plan, fused_decode_attention, fused_decode_attention_plain, sm_count)
 from substratus_tpu_torch.ops.quant import quantize_kv
-from substratus_tpu_torch.serve.engine import Engine, EngineConfig
+from substratus_tpu_torch.serve.engine import Engine, EngineConfig, Request
 
 pytestmark = pytest.mark.cuda
 ROW_REL = 2**-6
@@ -193,10 +196,14 @@ def test_engine_decode_steps_launch_the_split_design(cuda, impl, kv):
         outs = [engine.generate(p, max_tokens=8, temperature=0.0) for p in prompts]
     finally:
         engine.stop()
-    launched = {d: getattr(fn, f"launches_{d}") - n for d, n in before.items()}
-    print(f"engine {impl} {kv}: {engine.stats['decode_steps']} decode steps, launches {launched}")
+    # The wrapper counts the graph's warm-up; replays hold the rest.
+    launched = {d: getattr(fn, f"launches_{d}") - n + engine.replayed_launches(f"{fn.__name__}.launches_{d}")
+                for d, n in before.items()}
+    steps = engine.stats["decode_steps"] + engine.stats["graph_warmups"]
+    print(f"engine {impl} {kv}: {engine.stats['decode_steps']} decode steps ({engine.stats['graph_replays']} "
+          f"replays), launches {launched}")
     assert all(len(o) == 8 for o in outs)
-    assert launched == {"split": 2 * engine.stats["decode_steps"], "rows": 0} and launched["split"] > 0
+    assert launched == {"split": 2 * steps, "rows": 0} and launched["split"] > 0
     for prompt, toks in zip(prompts, outs):
         logits, _ = llama.forward(params, torch.tensor([prompt + toks[:-1]], device=cuda), cfg)
         logits = logits[0, len(prompt) - 1:].float()
@@ -204,3 +211,64 @@ def test_engine_decode_steps_launch_the_split_design(cuda, impl, kv):
         if kv == "model":
             gaps = logits.max(dim=-1).values - logits[torch.arange(len(toks)), torch.tensor(toks)]
             assert gaps.max().item() <= 0.05 * logits.abs().max().item()
+
+
+def test_decode_graph_replays_the_eager_step(cuda):
+    """The default Engine (overlapped, the decode step one CUDA graph,
+    fused decode at head_dim 128) gives the greedy tokens of the
+    synchronous eager step (overlap=False, decode_graph=False); its graph
+    is captured once (one warm-up) and replayed at every step; four
+    replays on the same inputs at temperature 50 draw four different rows
+    and advance the generator; a steady-state dispatch makes no host sync."""
+    cfg = llama.LlamaConfig(vocab_size=512, dim=512, n_layers=2, n_heads=4, n_kv_heads=2, hidden_dim=1024,
+                            max_seq_len=512, decode_attn_impl="fused")
+    params = llama.init_params(cfg, seed=0)
+    prompts = [[(3 * i + j) % 500 + 1 for j in range(n)] for i, n in enumerate((200, 40, 7, 90, 13))]
+    engines, outs = {}, {}
+    for name, overlap, graph in (("graph", None, True), ("eager", False, False)):
+        engine = engines[name] = Engine(cfg, params, EngineConfig(max_batch=4, max_seq_len=512, eos_token_id=-1,
+                                                                  overlap=overlap), decode_graph=graph)
+        engine.start()
+        try:
+            reqs = [engine.submit(Request(p, max_tokens=12, temperature=0.0)) for p in prompts]
+            outs[name] = []
+            for req in reqs:
+                toks = []
+                while (tok := req.out.get(timeout=300)) is not None:
+                    toks.append(tok)
+                outs[name].append(toks)
+        finally:
+            engine.stop()
+    engine = engines["graph"]
+    print(f"graph engine: {engine.stats}; one replay holds {engine._graph.captured}")
+    assert outs["graph"] == outs["eager"] and all(len(t) == 12 for t in outs["graph"])
+    assert engine.overlap and engines["eager"].stats["graph_replays"] == 0
+    assert engine.stats["graph_warmups"] == 1 and engine.stats["graph_replays"] == engine.stats["decode_steps"]
+    assert engine._graph.captured["fused_decode_attention.launches_split"] == cfg.n_layers
+
+    b = engine.ec.max_batch
+    offset = engine.generator.get_offset()
+    hot = (engine.tokens, engine.positions, np.full(b, 50.0, np.float32), np.ones(b, np.float32), np.ones(b, bool))
+    draws = {tuple(engine._graph.launch(*hot)().tolist()) for _ in range(4)}
+    assert len(draws) == 4 and engine.generator.get_offset() > offset
+
+    for i in range(b):
+        engine.queue.put(Request([i + 1] * 30, max_tokens=1000, temperature=0.5 * (i % 2)))
+        assert engine._admit() == 1
+    engine._step()
+    engine._step()
+    dispatch = engine._dispatch
+
+    def sync_free():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return dispatch()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    engine._dispatch = sync_free
+    for _ in range(4):
+        engine._step()
+    del engine._dispatch
+    engine._flush()
+    assert engine.stats["graph_warmups"] == 1

@@ -196,7 +196,11 @@ def test_engine_runs_the_kernels(cuda, name):
         engine.stop()
     assert all(len(o) == 6 for o in outs)
     assert flash_attention.launches - flash0 == 2 * engine.stats["prefills"] == 6
-    assert decode_attention.launches - decode0 == 2 * engine.stats["decode_steps"]
+    # Every decode step replays the captured graph; the wrapper counts only
+    # the warm-up's launches, the graph holds the rest (serve/decode_graph.py).
+    assert engine.stats["graph_replays"] == engine.stats["decode_steps"] > 0
+    assert decode_attention.launches - decode0 + engine.replayed_launches("decode_attention.launches") == 2 * (
+        engine.stats["decode_steps"] + engine.stats["graph_warmups"])
 
     kv = "int8" if name == "tiny" else "model"
     cfg = cfg.replace(decode_attn_impl="fused")
@@ -214,7 +218,9 @@ def test_engine_runs_the_kernels(cuda, name):
     assert all(len(o) == 6 for o in outs)
     # 100 tokens: 4 chunks of 32; 40 tokens: 2 chunks; 10 tokens: single-shot.
     assert engine.stats["prefill_chunks"] == 6 and engine.stats["prefills"] == 1
-    assert (flash, cached, decode) == (2, 2 * 6, 0) and fused == 2 * engine.stats["decode_steps"] > 0
+    fused += engine.replayed_launches("fused_decode_attention.launches")
+    assert (flash, cached, decode) == (2, 2 * 6, 0) and engine.stats["decode_steps"] > 0
+    assert fused == 2 * (engine.stats["decode_steps"] + engine.stats["graph_warmups"])
     if kv == "model":
         for prompt, toks in zip(prompts, outs):
             logits, _ = llama.forward(params, torch.tensor([prompt + toks[:-1]], device=cuda), cfg)

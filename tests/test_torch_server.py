@@ -122,6 +122,29 @@ def test_quantized_weights_are_served(tmp_path, quantize, kind):
         srv.stop()
 
 
+def test_overlap_is_served(server, tmp_path):
+    """params.json overlap: absent gives the overlapped scheduler (the
+    module's server), false the synchronous one, which answers the same
+    greedy tokens; a value that is not a boolean exits."""
+    assert server.state.engine.overlap is True and main.resolve_overlap({}) is None
+    params = tmp_path / "params.json"
+    params.write_text(json.dumps({"config": "tiny", "max_batch": 4, "max_seq_len": 64, "max_prefill_len": 32,
+                                  "kv_cache_dtype": "int8", "overlap": False}))
+    srv = main.build(["--device", "cpu", "--host", "127.0.0.1", "--port", "0", "--params", str(params)]).start()
+    try:
+        assert srv.state.engine.overlap is False and srv.state.engine.ec.overlap is False
+        with _post(srv, {"prompt": "sync", "max_tokens": 6, "temperature": 0}) as r:
+            sync_text = json.loads(r.read())["choices"][0]["text"]
+    finally:
+        srv.stop()
+    with _post(server, {"prompt": "sync", "max_tokens": 6, "temperature": 0}) as r:
+        assert json.loads(r.read())["choices"][0]["text"] == sync_text
+    main.check_params({"overlap": True})
+    for value in ("false", 0, 1):
+        with pytest.raises(SystemExit, match="overlap.*invalid"):
+            main.check_params({"overlap": value})
+
+
 def test_params_policy():
     """Served keys, and unserved knobs at the one value the port serves,
     pass; every other knob exits naming its ROADMAP queue. The attention
