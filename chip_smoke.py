@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases card,build,kernels,serve,profile
     python3 chip_smoke.py --phases card,build,kernels,serve-int4,profile
     python3 chip_smoke.py --phases card,build,kernels,train,train-full
+    python3 chip_smoke.py --phases card,build,serve-ckpt
 
 Phases, each of which exits non-zero on failure:
 
@@ -108,6 +109,24 @@ Phases, each of which exits non-zero on failure:
               whose dispatch makes no host sync (set_sync_debug_mode
               "error"), with their host clock; serve-long also one
               prompt's three chunks with no host sync;
+  serve-ckpt  checkpoints at llama2-7b's full width and depth, written from
+              the seed-0 weights by tools/ckpt_writer.py, one on disk at a
+              time (the free bytes printed before each write, too few fail
+              the run): an HF directory of bf16 safetensors shards of at
+              most 5 GB, served through serve.main --model with serve's
+              knobs, its loaded state bit for bit the source's and its
+              greedy tokens those of an in-process engine on the source
+              weights, the reference check, the load seconds and GB/s;
+              then train.main --model on it with quantize int8 (QLoRA)
+              and the train phase's LoRA params for 2 steps (step seconds,
+              peak memory, the backward's launches per design); then a
+              Q4_0 GGUF (Q8_0 embedding and output, F32 norms, an embedded
+              32000-piece SPM vocabulary) served with serve-int4's knobs
+              and a prompt of at least 1500 tokens: its loaded state bit
+              for bit the writer's dequantization, greedy tokens those of
+              an in-process engine on those weights, the int4 path's
+              launches per design, every prompt through the vocabulary and
+              back, usage equal to the encode lengths, tokens per byte;
   train       train.main at llama2-7b's full width and depth (random weights
               from seed 0, bf16) with the finetune example's params: LoRA
               rank 16 on wq/wv, batch 8 x 1024, learning rate 2e-4, remat,
@@ -119,8 +138,10 @@ Phases, each of which exits non-zero on failure:
               recompute), 32 dQ and 32 dK/dV, all through the wgmma
               designs; every loss finite; the first
               equal to the no-grad loss; the merged artifact reloads to the
-              same logits; step seconds, tokens/s, MFU, peak memory, the
-              checkpoint and artifact seconds;
+              same logits, and serve.main --model serves it with the greedy
+              tokens of an in-process engine on the merged model; step
+              seconds, tokens/s, MFU, peak memory, the checkpoint and
+              artifact seconds;
   train-full  full finetuning (lora_rank 0) through the Trainer at
               llama2-7b's width, 4 layers, batch 2 x 1024, 3 steps: the
               same gradient check over every weight, the launch counts,
@@ -154,6 +175,7 @@ import gc
 import json
 import queue
 import random
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1154,10 +1176,10 @@ def profile_engine(engine, label: str = "profile", lens=(16, 400), fill: int = 1
     return out
 
 
-def start_server(name: str, params: dict):
-    """serve.main's server in-process from a params.json, at llama2-7b's
-    full width and depth, answering GET / and warmed up by one request.
-    Returns (server, engine, base URL)."""
+def start_server(name: str, params: dict, argv=()):
+    """serve.main's server in-process from a params.json (and `argv`), at
+    llama2-7b's full width and depth, answering GET / and warmed up by one
+    request. Returns (server, engine, base URL)."""
     import torch
 
     from substratus_tpu_torch.serve import main as serve_main
@@ -1166,7 +1188,7 @@ def start_server(name: str, params: dict):
     params_path = OUT_DIR / f"chip_smoke_params_{name}.json"
     params_path.write_text(json.dumps(params))
     t0 = time.perf_counter()
-    server = serve_main.build(["--params", str(params_path), "--host", "127.0.0.1", "--port", "0"])
+    server = serve_main.build(["--params", str(params_path), "--host", "127.0.0.1", "--port", "0", *argv])
     engine = server.state.engine
     torch.cuda.synchronize()
     cfg = engine.cfg
@@ -1207,15 +1229,16 @@ def run_concurrent(base: str, prompts) -> tuple:
     return results, time.perf_counter() - t_run
 
 
-def check_usage(prompts, results) -> int:
-    """Every status 200 with the right usage and finish; returns the
-    number of generated tokens."""
+def check_usage(prompts, results, encode=None) -> int:
+    """Every status 200 with the right usage (prompt tokens: `encode`'s
+    count, else ByteTokenizer's) and finish; returns the number of
+    generated tokens."""
     generated = 0
     for (text, max_tokens, temp, stream), (status, body, _) in zip(prompts, results):
         if status != 200:
             fail(f"request {text[:20]!r}: {status} {body}")
         usage = body["usage"]
-        n_prompt = len(text.encode()) + 1
+        n_prompt = len(encode(text)) if encode else len(text.encode()) + 1
         if usage is None or usage["prompt_tokens"] != n_prompt or not 1 <= usage["completion_tokens"] <= max_tokens:
             fail(f"request {text[:20]!r}: usage {usage}, want {n_prompt} prompt tokens")
         finish = body["finish"] if stream else body["choices"][0]["finish_reason"]
@@ -1266,21 +1289,27 @@ def check_graph_run(engine, stats: dict, label: str) -> None:
           f"{engine._graph.capture_seconds * 1e3:.1f} ms); one replay holds {engine._graph.captured}", flush=True)
 
 
-def eager_check(engine, requests, label: str) -> dict:
+def eager_check(engine, requests, label: str, params=None) -> dict:
     """The phase's requests served again, all submitted at once, through a
-    second engine on the same weights with overlap=False and the eager step
-    (decode_graph=False): every greedy request's tokens and finish must be
-    the default run's. Returns that run's step numbers."""
+    second engine with the served engine's knobs: by default on the same
+    weights with overlap=False and the eager step (decode_graph=False);
+    given `params` (the weights a checkpoint was written from), the default
+    engine (overlapped, the step a graph) on those. Every greedy request's
+    tokens and finish must be the served run's. Returns that run's step
+    numbers."""
     import dataclasses
 
     import torch
 
     from substratus_tpu_torch.serve.engine import Engine, Request
 
-    ec = dataclasses.replace(engine.ec, overlap=False)
-    eager = Engine(engine.cfg, engine.params, ec, device=engine.device, model=engine.model, decode_graph=False)
-    if eager.overlap or eager.decode_graph:
-        fail(f"{label}: the comparison engine must be synchronous and eager")
+    if params is None:
+        ec = dataclasses.replace(engine.ec, overlap=False)
+        eager = Engine(engine.cfg, engine.params, ec, device=engine.device, model=engine.model, decode_graph=False)
+        if eager.overlap or eager.decode_graph:
+            fail(f"{label}: the comparison engine must be synchronous and eager")
+    else:
+        eager = Engine(engine.cfg, params, engine.ec, device=engine.device, model=engine.model)
     eager.start()
     try:
         reqs = [eager.submit(Request(list(r.prompt_tokens), max_tokens=r.max_tokens, temperature=r.temperature,
@@ -1298,14 +1327,15 @@ def eager_check(engine, requests, label: str) -> dict:
         if req.temperature == 0.0:
             greedy += 1
             if (toks, finish) != (req.out.tokens, req.finish_reason):
-                fail(f"{label}: a greedy request's tokens differ between the default engine and the synchronous "
-                     f"eager one: {req.out.tokens} ({req.finish_reason}) against {toks} ({finish})")
+                fail(f"{label}: a greedy request's tokens differ between the served engine and the comparison "
+                     f"one: {req.out.tokens} ({req.finish_reason}) against {toks} ({finish})")
     st = eager.stats
     out = {"greedy_identical": greedy, "decode_steps": st["decode_steps"], "graph_replays": st["graph_replays"],
            "step_ms": 1e3 * st["decode_seconds"] / st["decode_steps"],
            "decode_tokens_per_s": sum(len(t) - 1 for t, _ in outs) / st["decode_seconds"]}
-    print(f"{label}: the same {len(requests)} requests through overlap=false and the eager step: all {greedy} greedy "
-          f"requests token for token the default run's; mean step {out['step_ms']:.2f} ms over "
+    how = "overlap=false and the eager step" if params is None else "an in-process engine on the source weights"
+    print(f"{label}: the same {len(requests)} requests through {how}: all {greedy} greedy "
+          f"requests token for token the served run's; mean step {out['step_ms']:.2f} ms over "
           f"{st['decode_steps']} steps, decode {out['decode_tokens_per_s']:.1f} tokens/s", flush=True)
     del eager
     gc.collect()
@@ -1383,13 +1413,15 @@ def graph_checks(engine, requests, label: str) -> dict:
             "steady_step_ms": steady_ms, "dispatch_ms": dispatch_ms, "capture_ms": engine._graph.capture_seconds * 1e3}
 
 
+SERVE_PARAMS = {"config": "llama2-7b", "max_batch": 8, "max_seq_len": 1024, "max_prefill_len": 512,
+                "kv_cache_dtype": "model"}
+
+
 def serve_phase(card: str, profile_steps: bool = False):
     from substratus_tpu_torch.ops.decode_attention import decode_attention
     from substratus_tpu_torch.ops.flash_attention import flash_attention
 
-    server, engine, base = start_server("serve", {
-        "config": "llama2-7b", "max_batch": 8, "max_seq_len": 1024, "max_prefill_len": 512,
-        "kv_cache_dtype": "model"})
+    server, engine, base = start_server("serve", SERVE_PARAMS)
     requests = tee_requests(engine)
     try:
         zero_counts(engine, (flash_attention, decode_attention))
@@ -1599,6 +1631,72 @@ INT4_PARAMS = {"config": "llama2-7b", "quantize": "int4", "kv_cache_dtype": "int
 INT4_PROMPTS = PROMPTS + [(_long_text(1499, 5), 32, 0.0, True)]
 
 
+def int4_counters() -> dict:
+    """The kernel wrappers whose launches the int4 serving path counts."""
+    from substratus_tpu_torch.ops.decode_attention import decode_attention
+    from substratus_tpu_torch.ops.flash_attention import flash_attention, flash_cached_attention
+    from substratus_tpu_torch.ops.fused_decode import fused_decode_attention
+    from substratus_tpu_torch.ops.quant4 import q4_matmul
+
+    return {"q4_matmul": q4_matmul, "flash_fwd": flash_attention, "flash_cached": flash_cached_attention,
+            "fused_decode": fused_decode_attention, "decode_attn": decode_attention}
+
+
+def int4_launches(engine, counters) -> dict:
+    """Each int4-path counter's launches since zero_counts, and per design."""
+    from substratus_tpu_torch.ops.flash_attention import flash_cached_design
+
+    launches = {name: launched(engine, c) for name, c in counters.items()}
+    q4, flash, cached, fused = (counters[n] for n in ("q4_matmul", "flash_fwd", "flash_cached", "fused_decode"))
+    # q4_matmul_decode: the decode design; q4_matmul_wgmma: the prefill
+    # design; q4_matmul: q4_matmul.cu's kernel (no shape of this path)
+    launches.update(q4_matmul_decode=launched(engine, q4, "launches_decode"),
+                    q4_matmul=launched(engine, q4, "launches_mma"),
+                    q4_matmul_wgmma=launched(engine, q4, "launches_wgmma"),
+                    q4_matmul_total=launched(engine, q4),
+                    flash_fwd_wgmma=launched(engine, flash, "launches_wgmma"),
+                    # the int8 cache's chunks, of the design flash_cached_design names
+                    flash_cached_int8=launched(engine, cached, f"launches_{flash_cached_design(128)}"),
+                    fused_decode_split=launched(engine, fused, "launches_split"))
+    return launches
+
+
+def check_int4_launches(engine, stats, launches, lengths, label: str) -> None:
+    """The int4 path's launches against what the requests' prompt lengths
+    (in tokens) and the engine's stats ask for: every projection and the
+    lm_head of every forward once through the int4 matmul, by design."""
+    from substratus_tpu_torch.ops.quant4 import WGMMA_MIN_M
+    from substratus_tpu_torch.serve.engine import _bucket
+
+    L = engine.cfg.n_layers
+    forwards = stats["prefills"] + stats["prefill_chunks"] + stats["decode_steps"]
+    chunk = engine.ec.max_prefill_len
+    chunks = sum(-(-n // chunk) for n in lengths if n > chunk)
+    singles = sum(n <= chunk for n in lengths)
+    # Rows of each prefill forward: a prompt's bucket, or each chunk's
+    # (capped at the chunk); a decode step has max_batch rows. Every
+    # llama2-7b projection takes the wgmma design above WGMMA_MIN_M rows
+    # and the decode design up to it.
+    rows = [min(_bucket(n), chunk) for n in lengths if n <= chunk]
+    rows += [min(_bucket(min(chunk, n - o)), chunk) for n in lengths if n > chunk for o in range(0, n, chunk)]
+    wide = sum(r > WGMMA_MIN_M for r in rows)
+    want = {"q4_matmul_decode": (7 * L + 1) * (forwards - wide), "q4_matmul": 0, "q4_matmul_wgmma": (7 * L + 1) * wide,
+            "q4_matmul_total": (7 * L + 1) * forwards, "flash_fwd": L * stats["prefills"],
+            "flash_cached": L * stats["prefill_chunks"], "fused_decode": L * stats["decode_steps"], "decode_attn": 0,
+            "flash_fwd_wgmma": L * stats["prefills"], "flash_cached_int8": L * stats["prefill_chunks"],
+            "fused_decode_split": L * stats["decode_steps"]}
+    print(f"{label}: prefill forwards of {rows} rows; {wide} of them above {WGMMA_MIN_M} rows take the wgmma "
+          f"design ({want['q4_matmul_wgmma']} launches), the other {forwards - wide} forwards (decode steps of "
+          f"{engine.ec.max_batch} rows included) the decode design ({want['q4_matmul_decode']}), none "
+          "q4_matmul.cu's kernel", flush=True)
+    if launches != want or (stats["prefill_chunks"], stats["prefills"]) != (chunks, singles):
+        fail(f"{label}: launches {launches} against {want}; stats {stats}, want {chunks} chunks "
+             f"and {singles} single-shot prefills")
+    if not all(launches[name] > 0 for name in ("q4_matmul_decode", "q4_matmul_wgmma", "flash_fwd", "flash_cached",
+                                               "fused_decode")):
+        fail(f"{label}: a kernel of the path never launched: {launches}")
+
+
 def serve_int4_phase(card: str, profile_steps: bool = False):
     """int4 weights through serve.main: every projection and the lm_head
     of every forward (single-shot prefill, chunk or decode step) launch
@@ -1606,12 +1704,7 @@ def serve_int4_phase(card: str, profile_steps: bool = False):
     single-shot forward on the same int4 weights."""
     import torch
 
-    from substratus_tpu_torch.ops.decode_attention import decode_attention
-    from substratus_tpu_torch.ops.flash_attention import flash_attention, flash_cached_attention, flash_cached_design
-    from substratus_tpu_torch.ops.fused_decode import fused_decode_attention
     from substratus_tpu_torch.ops.quant import is_quantized
-    from substratus_tpu_torch.ops.quant4 import WGMMA_MIN_M, q4_matmul
-    from substratus_tpu_torch.serve.engine import _bucket
 
     gc.collect()  # the earlier phases' servers and caches
     torch.cuda.empty_cache()
@@ -1628,59 +1721,20 @@ def serve_int4_phase(card: str, profile_steps: bool = False):
           flush=True)
     if not is_quantized(params.layers[0].wq) or not is_quantized(params.lm_head):
         fail("serve-int4: the weights were not quantized")
-    counters = {"q4_matmul": q4_matmul, "flash_fwd": flash_attention, "flash_cached": flash_cached_attention,
-                "fused_decode": fused_decode_attention, "decode_attn": decode_attention}
+    counters = int4_counters()
     requests = tee_requests(engine)
     try:
         zero_counts(engine, counters.values())
         results, wall = run_concurrent(base, INT4_PROMPTS)
         wait_idle(engine)
-        launches = {name: launched(engine, c) for name, c in counters.items()}
-        # q4_matmul_decode: the decode design; q4_matmul_wgmma: the prefill
-        # design; q4_matmul: q4_matmul.cu's kernel (no shape of this path)
-        launches.update(q4_matmul_decode=launched(engine, q4_matmul, "launches_decode"),
-                        q4_matmul=launched(engine, q4_matmul, "launches_mma"),
-                        q4_matmul_wgmma=launched(engine, q4_matmul, "launches_wgmma"),
-                        q4_matmul_total=launched(engine, q4_matmul),
-                        flash_fwd_wgmma=launched(engine, flash_attention, "launches_wgmma"),
-                        # the int8 cache's chunks, of the design flash_cached_design names
-                        flash_cached_int8=launched(engine, flash_cached_attention,
-                                                   f"launches_{flash_cached_design(128)}"),
-                        fused_decode_split=launched(engine, fused_decode_attention, "launches_split"))
+        launches = int4_launches(engine, counters)
         stats = dict(engine.stats)
     finally:
         server.stop()
     generated = check_usage(INT4_PROMPTS, results)
     del engine.submit
     check_graph_run(engine, stats, "serve-int4")
-    L = engine.cfg.n_layers
-    forwards = stats["prefills"] + stats["prefill_chunks"] + stats["decode_steps"]
-    chunk = INT4_PARAMS["max_prefill_len"]
-    lengths = [len(text.encode()) + 1 for text, *_ in INT4_PROMPTS]
-    chunks = sum(-(-n // chunk) for n in lengths if n > chunk)
-    singles = sum(n <= chunk for n in lengths)
-    # Rows of each prefill forward: a prompt's bucket, or each chunk's
-    # (capped at the chunk); a decode step has max_batch rows. Every
-    # llama2-7b projection takes the wgmma design above WGMMA_MIN_M rows
-    # and the decode design up to it.
-    rows = [min(_bucket(n), chunk) for n in lengths if n <= chunk]
-    rows += [min(_bucket(min(chunk, n - o)), chunk) for n in lengths if n > chunk for o in range(0, n, chunk)]
-    wide = sum(r > WGMMA_MIN_M for r in rows)
-    want = {"q4_matmul_decode": (7 * L + 1) * (forwards - wide), "q4_matmul": 0, "q4_matmul_wgmma": (7 * L + 1) * wide,
-            "q4_matmul_total": (7 * L + 1) * forwards, "flash_fwd": L * stats["prefills"],
-            "flash_cached": L * stats["prefill_chunks"], "fused_decode": L * stats["decode_steps"], "decode_attn": 0,
-            "flash_fwd_wgmma": L * stats["prefills"], "flash_cached_int8": L * stats["prefill_chunks"],
-            "fused_decode_split": L * stats["decode_steps"]}
-    print(f"serve-int4: prefill forwards of {rows} rows; {wide} of them above {WGMMA_MIN_M} rows take the wgmma "
-          f"design ({want['q4_matmul_wgmma']} launches), the other {forwards - wide} forwards (decode steps of "
-          f"{INT4_PARAMS['max_batch']} rows included) the decode design ({want['q4_matmul_decode']}), none "
-          "q4_matmul.cu's kernel", flush=True)
-    if launches != want or (stats["prefill_chunks"], stats["prefills"]) != (chunks, singles):
-        fail(f"serve-int4: launches {launches} against {want}; stats {stats}, want {chunks} chunks "
-             f"and {singles} single-shot prefills")
-    if not all(launches[name] > 0 for name in ("q4_matmul_decode", "q4_matmul_wgmma", "flash_fwd", "flash_cached",
-                                               "fused_decode")):
-        fail(f"serve-int4: a kernel of the path never launched: {launches}")
+    check_int4_launches(engine, stats, launches, [len(text.encode()) + 1 for text, *_ in INT4_PROMPTS], "serve-int4")
     reference = long_reference_check(engine, [r for r in requests if r.temperature == 0.0], "serve-int4")
     eager = eager_check(engine, requests, "serve-int4")
     graph = graph_checks(engine, requests, "serve-int4")
@@ -1701,6 +1755,272 @@ def serve_int4_phase(card: str, profile_steps: bool = False):
             "prefill_ms": prefill_ms, "decode_tokens_per_s": decode_tps, "step_ms": step_ms,
             "ttft_1500_ms": ttft * 1e3, "requests": [r[1] for r in results], "reference": reference,
             "eager_sync": eager, "graph": graph, "profile": profiled}
+
+
+# --- checkpoints: serve.main and train.main on loaded weights -------------------
+
+CKPT_TRAIN_STEPS = 2
+
+
+def disk_room(path: Path, need: int, label: str) -> int:
+    """Free bytes where a checkpoint is about to be written; too few fail
+    the run (the phase is never skipped)."""
+    free = shutil.disk_usage(path).free
+    print(f"{label}: {free} bytes free in {path} before writing about {need}", flush=True)
+    if free < need * 1.1:
+        fail(f"{label}: {free} bytes free, the checkpoint needs about {need}")
+    return free
+
+
+def timed_loads():
+    """Wrap serve.main's load_checkpoint so that each call's seconds
+    (synchronized) land in the returned list; the wrapper stays until
+    `restore()`."""
+    import torch
+
+    from substratus_tpu_torch.serve import main as serve_main
+
+    seconds, load = [], serve_main.load_checkpoint
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        out = load(*args, **kw)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    serve_main.load_checkpoint = timed
+    return seconds, lambda: setattr(serve_main, "load_checkpoint", load)
+
+
+def same_state(a, b, label: str) -> int:
+    """Fail unless two modules' state dicts are equal tensor for tensor, bit
+    for bit; returns the bytes compared."""
+    import torch
+
+    sa, sb = a.state_dict(), b.state_dict()
+    if set(sa) != set(sb):
+        fail(f"{label}: the loaded model has other tensors: {sorted(set(sa) ^ set(sb))[:8]}")
+    bad = [n for n, t in sa.items() if torch.is_tensor(t) and (t.dtype != sb[n].dtype or t.shape != sb[n].shape
+                                                               or not torch.equal(t, sb[n]))]
+    if bad:
+        fail(f"{label}: {len(bad)} tensors differ from the source, first {bad[:4]}")
+    return sum(t.numel() * t.element_size() for t in sa.values() if torch.is_tensor(t))
+
+
+def ckpt_hf_part(card: str, tmp: Path) -> dict:
+    """llama2-7b (seed 0, bf16) written as an HF safetensors directory,
+    served through serve.main --model with serve's knobs: the loaded
+    weights bit for bit the source's, the served greedy tokens those of an
+    in-process engine on the source weights, the reference check."""
+    import torch
+
+    from substratus_tpu_torch.models import llama
+    from substratus_tpu_torch.ops.decode_attention import decode_attention
+    from substratus_tpu_torch.ops.flash_attention import flash_attention
+    from substratus_tpu_torch.tools.ckpt_writer import write_hf
+
+    cfg = llama.CONFIGS["llama2-7b"]
+    source = llama.init_params(cfg, seed=0, device="cuda")
+    nbytes = sum(t.numel() * t.element_size() for t in source.state_dict().values())
+    free = disk_room(tmp, nbytes, "serve-ckpt safetensors")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    written = write_hf(str(tmp / "hf"), source)
+    write_s = time.perf_counter() - t0
+    print(f"serve-ckpt: llama2-7b written as {len(written['files'])} safetensors shards, {written['bytes']} bytes in "
+          f"{write_s:.1f} s", flush=True)
+    loads, restore = timed_loads()
+    try:
+        server, engine, base = start_server("serve-ckpt-hf", {k: v for k, v in SERVE_PARAMS.items() if k != "config"},
+                                            ["--model", str(tmp / "hf")])
+    finally:
+        restore()
+    requests = tee_requests(engine)
+    try:
+        compared = same_state(engine.params, source, "serve-ckpt safetensors")
+        zero_counts(engine, (flash_attention, decode_attention))
+        results, wall = run_concurrent(base, PROMPTS)
+        wait_idle(engine)
+        launches = {"flash_fwd": launched(engine, flash_attention),
+                    "flash_fwd_wgmma": launched(engine, flash_attention, "launches_wgmma"),
+                    "decode_attn": launched(engine, decode_attention),
+                    "decode_attn_split": launched(engine, decode_attention, "launches_split")}
+        stats = dict(engine.stats)
+        del engine.submit
+        same = eager_check(engine, requests, "serve-ckpt safetensors", params=source)
+        reference = reference_check(engine)
+    finally:
+        server.stop()
+    generated = check_usage(PROMPTS, results)
+    L = cfg.n_layers
+    if (launches["flash_fwd"] != L * stats["prefills"] or launches["decode_attn"] != L * stats["decode_steps"]
+            or launches["flash_fwd_wgmma"] != launches["flash_fwd"] or not launches["decode_attn"]
+            or launches["decode_attn_split"] != launches["decode_attn"] or not launches["flash_fwd"]):
+        fail(f"serve-ckpt safetensors: launches {launches} against {L} x {stats['prefills']} prefills and "
+             f"{L} x {stats['decode_steps']} decode steps")
+    load_s = loads[0]
+    print(f"serve-ckpt safetensors [{card}]: serve.main --model loaded {written['bytes']} bytes in {load_s:.2f} s "
+          f"({written['bytes'] / load_s / 1e9:.2f} GB/s); {compared} bytes bit for bit the source's; "
+          f"{len(PROMPTS)} requests, {generated} tokens in {wall:.2f} s; launches {launches}", flush=True)
+    del engine, server, source
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"bytes": written["bytes"], "shards": len(written["files"]), "write_s": write_s, "load_s": load_s,
+            "load_gb_per_s": written["bytes"] / load_s / 1e9, "free_bytes_before": free, "launches": launches,
+            "stats": stats, "same_as_source": same, "reference": reference}
+
+
+def ckpt_qlora_part(card: str, tmp: Path) -> dict:
+    """train.main --model on the safetensors directory with quantize int8
+    (QLoRA) and the train phase's LoRA params, for 2 steps."""
+    import numpy as np
+    import torch
+
+    from substratus_tpu_torch.train import main as train_main
+
+    (tmp / "data").mkdir(exist_ok=True)
+    np.save(tmp / "data" / "corpus.npy", np.random.default_rng(0).integers(0, 32000, 100_000, dtype=np.int32))
+    params = {k: v for k, v in TRAIN_PARAMS.items() if k != "config"}
+    (tmp / "qlora.json").write_text(json.dumps(dict(params, steps=CKPT_TRAIN_STEPS, quantize="int8")))
+    disk_room(tmp, 8 * 10**9, "serve-ckpt QLoRA artifact")
+    _zero_train_counts()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        res = train_main.run(["--model", str(tmp / "hf"), "--data", str(tmp / "data"), "--out", str(tmp / "qlora"),
+                              "--params", str(tmp / "qlora.json")])
+        launches = _train_launches()
+        peak = torch.cuda.max_memory_allocated()
+        n = len(res["losses"])
+        quantized = type(res["trainer"].params.layers[0].wk).__name__
+        if quantized != "QTensor" or res["trainer"].lora is None:
+            fail(f"serve-ckpt QLoRA: the base is {quantized}, adapters {res['trainer'].lora is not None}")
+        if launches != {"flash_fwd": 64 * n, "flash_fwd_all": 64 * n, "flash_bwd_dq": 32 * n,
+                        "flash_bwd_dq_all": 32 * n, "flash_bwd_dkv": 32 * n, "flash_bwd_dkv_all": 32 * n}:
+            fail(f"serve-ckpt QLoRA: launches {launches} over {n} steps")
+        if n != CKPT_TRAIN_STEPS or not all(np.isfinite(res["losses"])):
+            fail(f"serve-ckpt QLoRA: losses {res['losses']}")
+        out = {"losses": res["losses"], "step_s": res["step_seconds"], "peak_bytes": peak, "launches": launches,
+               "artifact_s": res["artifact_seconds"]}
+    finally:
+        shutil.rmtree(tmp / "qlora", ignore_errors=True)
+    print(f"serve-ckpt QLoRA [{card}]: train.main --model <safetensors dir> with quantize int8, LoRA r16 on wq/wv, "
+          f"batch 8 x 1024, remat: losses {out['losses']}, steps {out['step_s']} s, peak {peak / 2**30:.1f} GiB; "
+          f"backward launches {launches} (wgmma design: flash_bwd_dq, flash_bwd_dkv)", flush=True)
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def gguf_prompts(tok) -> list:
+    """serve-int4's prompts under the embedded vocabulary: serve's five and
+    one greedy long prompt grown until it holds at least 1500 tokens."""
+    n = 1499
+    while len(tok.encode(text := _long_text(n, 5))) < 1500:
+        n += 500
+    return PROMPTS + [(text, 32, 0.0, True)]
+
+
+def ckpt_gguf_part(card: str, tmp: Path) -> dict:
+    """The same weights written as a Q4_0 GGUF (Q8_0 embedding and output,
+    F32 norms) with a 32000-piece SPM vocabulary, served through
+    serve.main --model with serve-int4's knobs (int4 weights requantized
+    from the loaded ones, int8 cache, fused decode): the loaded weights bit
+    for bit the writer's dequantization, the served greedy tokens those of
+    an in-process engine on those weights, every prompt through the
+    embedded tokenizer and back, the reference check."""
+    import torch
+
+    from substratus_tpu_torch.load.gguf import load_gguf, tokenizer_from_gguf
+    from substratus_tpu_torch.models import llama
+    from substratus_tpu_torch.tools.ckpt_writer import spm_vocab, write_gguf
+
+    cfg = llama.CONFIGS["llama2-7b"]
+    source = llama.init_params(cfg, seed=0, device="cuda")
+    vocab = spm_vocab(cfg.vocab_size, 0, tuple(text for text, *_ in PROMPTS) + (_long_text(20000, 5),))
+    path = tmp / "llama2-7b-q4_0.gguf"
+    free = disk_room(tmp, 4_100_000_000, "serve-ckpt gguf")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    expected = write_gguf(str(path), source, vocab)
+    torch.cuda.synchronize()
+    write_s = time.perf_counter() - t0
+    size = path.stat().st_size
+    del source
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _, loaded = load_gguf(str(path), device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    compared = same_state(loaded, expected, "serve-ckpt gguf")
+    del expected
+    torch.cuda.empty_cache()
+    print(f"serve-ckpt gguf: {size} bytes written in {write_s:.1f} s; load_gguf {load_s:.2f} s "
+          f"({size / load_s / 1e9:.2f} GB/s of file), {compared} bytes bit for bit the writer's dequantization",
+          flush=True)
+    tok = tokenizer_from_gguf(str(path))
+    prompts = gguf_prompts(tok)
+    for text, *_ in prompts:
+        if tok.decode(tok.encode(text)) != text:
+            fail(f"serve-ckpt gguf: {text[:30]!r} does not decode back from its ids")
+    n_bytes, n_tokens = (sum(len(t.encode()) for t, *_ in prompts), sum(len(tok.encode(t)) - 1 for t, *_ in prompts))
+    llama.quantize_weights(loaded, "int4")  # as serve.main quantizes what it loads
+    loads, restore = timed_loads()
+    try:
+        params = {k: v for k, v in INT4_PARAMS.items() if k != "config"}
+        server, engine, base = start_server("serve-ckpt-gguf", params, ["--model", str(path)])
+    finally:
+        restore()
+    counters = int4_counters()
+    requests = tee_requests(engine)
+    try:
+        same_state(engine.params, loaded, "serve-ckpt gguf int4")
+        zero_counts(engine, counters.values())
+        results, wall = run_concurrent(base, prompts)
+        wait_idle(engine)
+        launches = int4_launches(engine, counters)
+        stats = dict(engine.stats)
+        del engine.submit
+        same = eager_check(engine, requests, "serve-ckpt gguf", params=loaded)
+        reference = long_reference_check(engine, [r for r in requests if r.temperature == 0.0], "serve-ckpt gguf")
+    finally:
+        server.stop()
+    if server.state.tokenizer.vocab_size != cfg.vocab_size:
+        fail(f"serve-ckpt gguf: served with a tokenizer of {server.state.tokenizer.vocab_size} ids")
+    generated = check_usage(prompts, results, tok.encode)
+    check_int4_launches(engine, stats, launches, [len(tok.encode(t)) for t, *_ in prompts], "serve-ckpt gguf")
+    print(f"serve-ckpt gguf [{card}]: serve.main --model loaded and requantized to int4 in {loads[0]:.2f} s; "
+          f"{len(prompts)} requests of {[len(tok.encode(t)) for t, *_ in prompts]} tokens "
+          f"({n_tokens / n_bytes:.3f} tokens per byte through the embedded vocabulary), {generated} tokens in "
+          f"{wall:.2f} s; launches {launches}", flush=True)
+    del engine, server, loaded
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"bytes": size, "write_s": write_s, "load_gguf_s": load_s, "load_gb_per_s": size / load_s / 1e9,
+            "serve_load_s": loads[0], "free_bytes_before": free, "tokens_per_byte": n_tokens / n_bytes,
+            "launches": launches, "stats": stats, "same_as_source": same, "reference": reference}
+
+
+def serve_ckpt_phase(card: str) -> dict:
+    """Checkpoints at llama2-7b's full width and depth, one on disk at a
+    time: the safetensors directory (served, then the QLoRA base), then
+    the GGUF file."""
+    import tempfile
+
+    import torch
+
+    gc.collect()  # the earlier phases' servers and caches
+    torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    try:
+        out = {"safetensors": ckpt_hf_part(card, tmp)}
+        out["qlora"] = ckpt_qlora_part(card, tmp)
+        shutil.rmtree(tmp / "hf")
+        out["gguf"] = ckpt_gguf_part(card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
 
 
 # --- training: train.main and the Trainer ----------------------------------------
@@ -1816,7 +2136,6 @@ def train_phase(card: str, profile_steps: bool = False) -> dict:
     """llama2-7b LoRA through train.main, as described in the module
     docstring. Weights, corpus and artifacts live in a temporary
     directory that is removed at the end."""
-    import shutil
     import tempfile
 
     import numpy as np
@@ -1908,9 +2227,11 @@ def train_phase(card: str, profile_steps: bool = False) -> dict:
             want_logits, _ = llama.forward(res["merged"], probe, res["cfg"])
             got_logits, _ = llama.forward(model, probe, cfg2)
         reload_err = (got_logits - want_logits).abs().max().item()
-        del model, res["merged"]
+        del model
         if reload_err != 0.0:
             fail(f"train: the reloaded artifact's logits differ by {reload_err}")
+        served = serve_artifact(tmp / "out", res["merged"])
+        del res["merged"]
         profiled = profile_train_step(res["trainer"], first, "train") if profile_steps else None
         artifact_bytes = (tmp / "out" / "params.pt").stat().st_size
     finally:
@@ -1925,7 +2246,38 @@ def train_phase(card: str, profile_steps: bool = False) -> dict:
           f"{r0['artifact_s']:.1f} s, reloaded in {load_s:.1f} s, logits max|diff| {reload_err}; "
           f"{free_gb:.0f} GB were free", flush=True)
     return {"runs": runs, "grad_check": grads, "nograd_loss": nograd_loss, "artifact_bytes": artifact_bytes,
-            "artifact_load_s": load_s, "launches": r0["launches"], "profile": profiled}
+            "artifact_load_s": load_s, "launches": r0["launches"], "served_artifact": served, "profile": profiled}
+
+
+def serve_artifact(path: Path, merged) -> dict:
+    """The finetune -> serve loop: train.main's merged artifact through
+    serve.main --model with serve's knobs, its weights bit for bit the
+    trainer's merged model, its greedy tokens those of an in-process engine
+    on that model."""
+    import torch
+
+    loads, restore = timed_loads()
+    try:
+        server, engine, base = start_server("train-artifact", {k: v for k, v in SERVE_PARAMS.items()
+                                                               if k != "config"}, ["--model", str(path)])
+    finally:
+        restore()
+    requests = tee_requests(engine)
+    try:
+        same_state(engine.params, merged, "train artifact")
+        results, wall = run_concurrent(base, PROMPTS)
+        wait_idle(engine)
+        del engine.submit
+        same = eager_check(engine, requests, "train artifact", params=merged)
+    finally:
+        server.stop()
+    generated = check_usage(PROMPTS, results)
+    print(f"train: serve.main --model <the merged artifact> loaded it in {loads[0]:.2f} s; {len(PROMPTS)} requests, "
+          f"{generated} tokens in {wall:.2f} s", flush=True)
+    del engine, server
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"load_s": loads[0], "generated": generated, "same_as_merged": same}
 
 
 def train_full_phase(card: str, profile_steps: bool = False) -> dict:
@@ -1985,8 +2337,9 @@ def train_full_phase(card: str, profile_steps: bool = False) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="card,build,kernels,serve,serve-long,serve-int4,train,train-full")
+    ap.add_argument("--phases", default="card,build,kernels,serve,serve-long,serve-int4,serve-ckpt,train,train-full")
     phases = ap.parse_args().phases.split(",")
+    t_start = time.perf_counter()
 
     import torch
 
@@ -2013,10 +2366,14 @@ def main() -> int:
         report["serve-long"] = serve_long_phase(card, profile_steps="profile" in phases)
     if "serve-int4" in phases:
         report["serve-int4"] = serve_int4_phase(card, profile_steps="profile" in phases)
+    if "serve-ckpt" in phases:
+        report["serve-ckpt"] = serve_ckpt_phase(card)
     if "train" in phases:
         report["train"] = train_phase(card, profile_steps="profile" in phases)
     if "train-full" in phases:
         report["train-full"] = train_full_phase(card, profile_steps="profile" in phases)
+    report["wall_s"] = time.perf_counter() - t_start
+    print(f"chip_smoke: phases {','.join(phases)} in {report['wall_s']:.1f} s", flush=True)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 

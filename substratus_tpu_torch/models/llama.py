@@ -253,6 +253,32 @@ def quantize_weights(params: Llama, quantize: str) -> Llama:
     return params
 
 
+def quantized_layout(params: Llama) -> Dict[str, str]:
+    """{weight name: "int8" | "int4"} of the weights `params` holds
+    quantized (a QLoRA model merges its adapted weights back to dense and
+    keeps the rest int8)."""
+    return {name: "int4" if isinstance(m, Q4Tensor) else "int8" for name, m in params.named_modules()
+            if isinstance(m, (QTensor, Q4Tensor))}
+
+
+def lay_out_quantized(params: Llama, layout: Dict[str, str]) -> Llama:
+    """Replace the dense weights `layout` (a quantized_layout) names by
+    uninitialized quantized storage, in place, so that a state dict saved
+    from a model with that layout loads into `params`."""
+    layer = _layer_contracting(params.cfg)
+    for name, mode in layout.items():
+        _check_quantize(mode)
+        if name.startswith("layers."):
+            _, i, attr = name.split(".")
+            owner, contracting = params.layers[int(i)], layer[attr]
+        else:
+            owner, attr, contracting = params, name, quant_contracting(params.cfg)[name]
+        dense = getattr(owner, attr)
+        delattr(owner, attr)
+        setattr(owner, attr, _weight(tuple(dense.shape), params.cfg, dense.device, mode, contracting))
+    return params
+
+
 def init_cache(
     cfg: LlamaConfig,
     batch: int,

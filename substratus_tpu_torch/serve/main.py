@@ -1,22 +1,29 @@
 """Serving entry point of the port (port of substratus_tpu/serve/main.py):
 
-    python -m substratus_tpu_torch.serve.main --config llama2-7b --port 8080 [--device cpu]
+    python -m substratus_tpu_torch.serve.main [--model PATH] [--config llama2-7b] [--port 8080] [--device cpu]
 
-It serves a named configuration with random weights from a seed (the JAX
-entry point's weightless ``--config`` mode) over the OpenAI surface of
-serve/server.py, on the card unless ``--device cpu`` is given.
+It serves a checkpoint, or a named configuration with random weights from
+a seed (the JAX entry point's weightless ``--config`` mode), over the
+OpenAI surface of serve/server.py, on the card unless ``--device cpu`` is
+given. The checkpoint is ``--model``, else params.json ``model``, else a
+directory mounted at ``/content/model`` (the container contract), resolved
+as the JAX entry point's load_checkpoint does: a .gguf file (or a
+directory holding one), then the port's own artifact (train/checkpoints.py),
+then a local HF directory (load/hf.py); its tokenizer comes from the same
+path (serve/tokenizer.py) and its directory's name is the served model's.
 
 Knobs come from flags or from the container contract's params file
 (``/content/params.json``, or ``--params``); flags win. The port serves
-the subset ``config``, ``max_batch``, ``max_seq_len``, ``max_prefill_len``,
-``kv_cache_dtype``, ``max_queue`` and ``overlap`` (absent or ``true``: the
+the subset ``model``, ``config``, ``max_batch``, ``max_seq_len``,
+``max_prefill_len``, ``kv_cache_dtype``, ``max_queue`` and ``overlap`` (absent or ``true``: the
 overlapped scheduler; ``false``: the synchronous one; on the card the
 decode step is a CUDA graph in both), the weight knobs
 
 * ``quantize``: ``none``, ``int8`` (weight-only int8, plain torch ops) and
   ``int4`` (nibble-packed groups through the int4 matmul kernel of
-  ops/quant4.py); the random weights are quantized on the device, layer by
-  layer, as the JAX entry point's _maybe_quantize does. ``w8a8`` exits;
+  ops/quant4.py); the loaded or random weights are quantized on the
+  device, layer by layer, as the JAX entry point's _maybe_quantize does
+  (weights an artifact holds quantized stay as they are). ``w8a8`` exits;
 * ``q4_impl``: ``pallas`` and ``xla`` both run the int4 kernel;
 
 and the attention knobs under the JAX entry point's names:
@@ -34,9 +41,10 @@ and the attention knobs under the JAX entry point's names:
 The port has no XLA, so a reference name runs a kernel too; the startup
 line says which. ``fused`` with ``kv_layout: paged`` exits, as in the JAX
 entry point. Every other key of the JAX entry point exits with the
-ROADMAP queue that will serve it, unless it holds the one value this port
-already serves (for example ``kv_layout: dense``): a knob is never
-silently ignored, and an unknown value of a served knob exits too.
+ROADMAP item that will serve it, named by its title, unless it holds the
+one value this port already serves (for example ``kv_layout: dense``): a
+knob is never silently ignored, and an unknown value of a served knob
+exits too.
 """
 from __future__ import annotations
 
@@ -45,11 +53,12 @@ import json
 import os
 from typing import Any, Dict, Optional, Tuple
 
+import torch
+
 # params.json keys the port does not serve yet: the value it does serve
 # (a key holding it passes), and where the rest waits.
 _NOT_SERVED = {
-    "model": (None, "Queue 1, checkpoint loading (waits for weights in the repository)"),
-    "baseModel": (None, "Queue 1, checkpoint loading (waits for weights in the repository)"),
+    "baseModel": (None, "Queue 1, multi-tenant adapters (a base model shared by adapters)"),
     "kv_layout": ("dense", "Queue 1, paged KV"),
     "spec_k": (0, "Queue 1, speculative decoding"),
     "draft_model": (None, "Queue 1, speculative decoding"),
@@ -64,8 +73,8 @@ _NOT_SERVED = {
     "replicas": (None, "Queue 1, multi-GPU serving"),
     "drain_grace": (None, "Queue 1, the serving surface (gateway contract)"),
 }
-_SERVED = ("config", "max_batch", "max_seq_len", "max_prefill_len", "kv_cache_dtype", "max_queue", "overlap",
-           "decode_attn_impl", "chunk_attn_impl", "attn_impl", "quantize", "q4_impl")
+_SERVED = ("model", "config", "max_batch", "max_seq_len", "max_prefill_len", "kv_cache_dtype", "max_queue",
+           "overlap", "decode_attn_impl", "chunk_attn_impl", "attn_impl", "quantize", "q4_impl")
 _QUANTIZE = ("none", "int8", "int4")
 # The port has no XLA: both of the JAX entry point's int4 lowerings run the kernel.
 _Q4_IMPLS = ("pallas", "xla")
@@ -75,7 +84,9 @@ _DECODE_IMPLS = {"xla": "kernel", "pallas": "kernel", "fused": "fused"}
 _CHUNK_IMPLS = {"xla": "flash", "flash": "flash"}
 # The JAX entry points' attn_impl (serving and training) -> models/llama.py's.
 ATTN_IMPLS = {"xla": "flash", "flash": "flash", "plain": "plain"}
-_MULTI_GPU = "Queue 1 item 10 (multi-GPU: ring and Ulysses attention)"
+_MULTI_GPU = "Queue 1, multi-GPU and RL (ring and Ulysses attention)"
+# The container contract's model mount.
+CONTENT_MODEL = "/content/model"
 
 
 def load_params_json(path: Optional[str]) -> Dict[str, Any]:
@@ -116,8 +127,8 @@ def resolve_quantize(params: Dict[str, Any]) -> str:
     unknown mode and on a q4_impl other than the JAX entry point's two."""
     quantize = params.get("quantize", "none")
     if quantize == "w8a8":
-        raise SystemExit("params.json: quantize='w8a8' is not served by the PyTorch port yet: ROADMAP Queue 1 "
-                         "item 11 (qeinsum_w8a8, an int8 x int8 product that wants a kernel of its own)")
+        raise SystemExit("params.json: quantize='w8a8' is not served by the PyTorch port yet: ROADMAP Queue 1, "
+                         "w8a8 (qeinsum_w8a8, an int8 x int8 product that wants a kernel of its own)")
     if quantize not in _QUANTIZE:
         raise SystemExit(f"params.json: quantize={quantize!r} invalid (one of {_QUANTIZE + ('w8a8',)})")
     q4_impl = params.get("q4_impl")
@@ -154,8 +165,49 @@ def check_params(params: Dict[str, Any]) -> None:
             raise SystemExit(f"params.json: unknown key {key!r}")
 
 
+def load_checkpoint(path: str, device=None, dtype=torch.bfloat16) -> Tuple[Any, Any]:
+    """(cfg, model on `device`) of a checkpoint path, by the JAX entry
+    point's rule: a .gguf file (or a directory holding one), then the
+    port's own artifact, then a local HF directory. A JAX Orbax artifact
+    exits: reading it needs JAX and Orbax. `dtype` applies to GGUF and HF
+    checkpoints; an artifact keeps the dtype it was saved in."""
+    from substratus_tpu_torch.load.gguf import load_gguf, resolve_gguf_or_exit
+    from substratus_tpu_torch.load.hf import load_pretrained
+    from substratus_tpu_torch.train.checkpoints import FORMAT, META_FILE, load_artifact
+
+    gguf = resolve_gguf_or_exit(path)
+    if gguf is not None:
+        return load_gguf(gguf, dtype=dtype, device=device)
+    meta_path = os.path.join(path, META_FILE)
+    if os.path.isfile(meta_path):
+        with open(meta_path) as f:
+            fmt = json.load(f).get("format")
+        if fmt != FORMAT:
+            raise SystemExit(f"{path}: an artifact of format {fmt!r} (the JAX package's Orbax artifacts are "
+                             f"'substratus-tpu-v1', their weights need JAX and Orbax to read); the PyTorch port "
+                             f"serves its own artifacts ({FORMAT!r}), GGUF files and local HF directories")
+        return load_artifact(path, device=device)
+    return load_pretrained(path, dtype=dtype, device=device)
+
+
+def resolve_model_path(flag: Optional[str], params: Dict[str, Any]) -> Optional[str]:
+    """The checkpoint to serve or train from: the flag, else params.json
+    ``model``, else the container contract's mount if it exists."""
+    return flag or params.get("model") or (CONTENT_MODEL if os.path.isdir(CONTENT_MODEL) else None)
+
+
+def check_vocab(tokenizer, cfg) -> None:
+    """Exit if the tokenizer has ids the model's embedding has no row for."""
+    if tokenizer.vocab_size > cfg.vocab_size:
+        raise SystemExit(f"the tokenizer has {tokenizer.vocab_size} ids but the model's embedding only "
+                         f"{cfg.vocab_size} rows")
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(prog="python -m substratus_tpu_torch.serve.main")
+    ap.add_argument("--model", default=None,
+                    help="checkpoint: a .gguf file, a port artifact or a local HF directory (default: params.json "
+                         "model, else /content/model if mounted)")
     ap.add_argument("--config", default=None, help="named config served with random weights (default tiny)")
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--port", type=int, default=8080, help="0 picks a free port")
@@ -180,15 +232,24 @@ def build(argv=None):
     check_params(params_json)
     device = resolve_device(args.device)
 
-    name = args.config or params_json.get("config", "tiny")
-    family, cfg = registry.find_named_config(name)
-    tokenizer = load_tokenizer(None)
-    if cfg.vocab_size < tokenizer.vocab_size:
-        cfg = cfg.replace(vocab_size=tokenizer.vocab_size)
+    quantize = resolve_quantize(params_json)
+    model_path = resolve_model_path(args.model, params_json)
+    if model_path:
+        cfg, params = load_checkpoint(model_path, device)
+        name = os.path.basename(os.path.normpath(model_path))
+        tokenizer = load_tokenizer(model_path)
+        check_vocab(tokenizer, cfg)
+    else:
+        name = args.config or params_json.get("config", "tiny")
+        cfg = registry.find_named_config(name)[1]
+        tokenizer = load_tokenizer(None)
+        if cfg.vocab_size < tokenizer.vocab_size:
+            cfg = cfg.replace(vocab_size=tokenizer.vocab_size)
+        params = registry.module_of(cfg).init_params(cfg, seed=0, device=device)
+    family = registry.module_of(cfg)
     decode_impl, chunk_impl, prefill_impl = resolve_attn_impls(params_json)
     cfg = cfg.replace(decode_attn_impl=decode_impl, chunk_attn_impl=chunk_impl, attn_impl=prefill_impl)
-    quantize = resolve_quantize(params_json)
-    params = family.quantize_weights(family.init_params(cfg, seed=0, device=device), quantize)
+    params = family.quantize_weights(params, quantize)
 
     def knob(flag, key, default):
         return flag if flag is not None else params_json.get(key, default)
@@ -212,8 +273,11 @@ def build(argv=None):
     weights = {"none": f"{str(cfg.dtype).removeprefix('torch.')} weights, torch.matmul",
                "int8": "int8 weights (scale after the dot), torch.einsum",
                "int4": f"int4 weights, int4 matmul kernel (q4_impl={params_json.get('q4_impl', 'auto')})"}
+    # An artifact may hold quantized weights without a quantize knob (QLoRA's int8 base).
+    held = set(family.quantized_layout(params).values())
+    shown = quantize if quantize != "none" or len(held) != 1 else held.pop()
     prefill = "flash kernel" if prefill_impl == "flash" else "plain PyTorch"
-    print(f"serving {name} on {args.host}:{server.port} ({device}); {weights[quantize]}; prefill attention: "
+    print(f"serving {name} on {args.host}:{server.port} ({device}); {weights[shown]}; prefill attention: "
           f"{prefill} (attn_impl={params_json.get('attn_impl', 'xla')}); decode attention: "
           f"{'fused cache-write + decode kernel' if decode_impl == 'fused' else 'decode kernel'} "
           f"(decode_attn_impl={params_json.get('decode_attn_impl', 'xla')}), long-prompt chunks: "

@@ -9,8 +9,9 @@ checkpoints.py):
   resumes from the newest;
 * model artifacts: ``save_artifact`` writes the model's state_dict
   (``params.pt``) beside the ``substratus.json`` sidecar (model config,
-  family, ``"format": "substratus-tpu-torch-v1"``); ``load_artifact``
-  rebuilds the ``Llama``;
+  family, ``"format": "substratus-tpu-torch-v1"``, and ``quantized``, the
+  weights held int8 or int4, as after QLoRA); ``load_artifact`` rebuilds
+  the ``Llama`` with that layout;
 * adapter artifacts: ``save_adapter_artifact`` writes a LoRA adapter's
   state_dict (``adapters.pt``) and its sidecar (rank, alpha, targets).
 
@@ -26,7 +27,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from substratus_tpu_torch.models.llama import Llama, LlamaConfig
+from substratus_tpu_torch.models.llama import Llama, LlamaConfig, lay_out_quantized, quantized_layout
 from substratus_tpu_torch.utils.device import DeviceLike, resolve_device
 
 META_FILE = "substratus.json"
@@ -68,7 +69,11 @@ def save_artifact(path: str, params: Llama, cfg: LlamaConfig, extra_meta: Option
     substratus.json sidecar."""
     os.makedirs(path, exist_ok=True)
     _atomic_save(params.state_dict(), os.path.join(path, PARAMS_FILE))
-    _write_meta(path, {"model_config": _cfg_to_dict(cfg), "family": "llama", "format": FORMAT}, extra_meta)
+    meta = {"model_config": _cfg_to_dict(cfg), "family": "llama", "format": FORMAT}
+    layout = quantized_layout(params)
+    if layout:
+        meta["quantized"] = layout
+    _write_meta(path, meta, extra_meta)
 
 
 def load_artifact(path: str, device: DeviceLike = None) -> Tuple[LlamaConfig, Llama]:
@@ -79,7 +84,7 @@ def load_artifact(path: str, device: DeviceLike = None) -> Tuple[LlamaConfig, Ll
     if meta.get("format") != FORMAT:
         raise ValueError(f"{path}: format {meta.get('format')!r} is not {FORMAT!r}")
     cfg = _cfg_from_dict(meta["model_config"])
-    model = Llama(cfg, device=resolve_device(device))
+    model = lay_out_quantized(Llama(cfg, device=resolve_device(device)), meta.get("quantized", {}))
     # Memory-mapped on the host, copied tensor by tensor into the model:
     # no second device copy of the weights.
     state = torch.load(os.path.join(path, PARAMS_FILE), map_location="cpu", mmap=True, weights_only=True)

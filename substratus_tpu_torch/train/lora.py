@@ -16,6 +16,8 @@ import torch
 from torch import nn
 
 from substratus_tpu_torch.models.llama import Llama, LlamaConfig, _check_dense
+from substratus_tpu_torch.ops.quant import QTensor
+from substratus_tpu_torch.ops.quant4 import Q4Tensor
 from substratus_tpu_torch.utils.device import DeviceLike, resolve_device, seeded_generator
 
 # Which projections get adapters (the HF PEFT default for Llama is q, v).
@@ -84,20 +86,27 @@ def init_lora(
 
 @torch.no_grad()
 def merge_lora(params: Llama, adapters: LoraAdapters, scale: float) -> Llama:
-    """A dense model to save or serve without adapters: the base weights
-    plus scale * A @ B (in f32, then rounded to W's dtype), one layer at a
-    time. `params` is left as it is, as the JAX package's merge returns a
-    new tree: the merged model holds new tensors for the adapted weights
-    and shares every other one with `params`."""
-    adapted = [getattr(lp, name) for lp, layer in zip(params.layers, adapters.layers) for name in layer]
-    if any(not isinstance(w, torch.Tensor) or not w.is_floating_point() for w in adapted):
-        raise TypeError("merge_lora: an adapted weight is quantized; the port trains dense bases only")
-    skip = {id(w) for w in adapted}
-    merged = copy.deepcopy(params, {id(t): t for t in params.parameters() if id(t) not in skip})
+    """A model to save or serve without adapters: the base weights plus
+    scale * A @ B (in f32, then rounded to W's dtype), one layer at a time.
+    A quantized base weight (QLoRA) is dequantized in f32 first and the
+    merged weight is dense bf16, as in the JAX package; the weights
+    without adapters stay quantized. `params` is left as it is, as the JAX
+    package's merge returns a new tree: the merged model holds new tensors
+    for the adapted weights and shares every other one with `params`."""
+    skip = {id(getattr(lp, name)) for lp, layer in zip(params.layers, adapters.layers) for name in layer}
+    shared = [t for t in (*params.parameters(), *params.buffers()) if id(t) not in skip]
+    merged = copy.deepcopy(params, {id(t): t for t in shared})
     for lp, layer in zip(merged.layers, adapters.layers):
         for name, ab in layer.items():
             w = getattr(lp, name)
+            quantized = isinstance(w, (QTensor, Q4Tensor))
+            base = w.dequant(torch.float32) if quantized else w.float()
             delta = torch.einsum("dr,r...->d...", ab["a"].float(), ab["b"].float()) * scale
             # wo's adapter input is the flattened [H*hd]: reshape to [H, hd, D].
-            w.copy_((w.float() + delta.reshape(w.shape)).to(w.dtype))
+            out = (base + delta.reshape(base.shape)).to(torch.bfloat16 if quantized else w.dtype)
+            if quantized:
+                delattr(lp, name)
+                setattr(lp, name, nn.Parameter(out, requires_grad=False))
+            else:
+                w.copy_(out)
     return merged

@@ -1,27 +1,35 @@
 """Training entry point of the port (port of substratus_tpu/train/main.py):
 
-    python -m substratus_tpu_torch.train.main [--data DIR] [--out DIR] [--params FILE] [--device cpu]
+    python -m substratus_tpu_torch.train.main [--model PATH] [--data DIR] [--out DIR] [--params FILE] [--device cpu]
 
-Container contract: the dataset at /content/data, hyperparameters at
-/content/params.json, outputs to /content/artifacts. It trains a named
-configuration from random weights (the JAX entry point's mode without a
-model directory) on one card, or on the CPU with ``--device cpu``.
+Container contract: the base model at /content/model, the dataset at
+/content/data, hyperparameters at /content/params.json, outputs to
+/content/artifacts. It trains from a checkpoint (``--model``, else the
+mounted /content/model: a .gguf file, a port artifact or a local HF
+directory, resolved as serve.main resolves it, the tokenizer from the same
+path), or else a named configuration from random weights, on one card, or
+on the CPU with ``--device cpu``.
 
 params.json keys served, under the JAX entry point's names and defaults:
 ``steps`` (or ``max_steps``), ``batch_size``, ``seq_len``,
 ``learning_rate``, ``warmup_steps``, ``save_steps``, ``lora_rank``,
 ``lora_alpha``, ``config``, ``remat``, ``seed``, ``grad_accum_steps``;
+``quantize``: ``int8`` quantizes a loaded base that is not quantized yet
+(QLoRA: LoRA adapters over int8 weights, as the JAX entry point does),
+``none`` leaves it; without a model it exits (QLoRA needs a base model);
 ``attn_impl``: absent, ``xla`` or ``flash`` run the flash kernels and
 their backward (the port has no XLA), ``plain`` the plain attention (for
 the CPU); ``dp``/``fsdp``/``sequence``/``tensor`` only as 1 or -1 (one
 card). Every other key or value exits naming the ROADMAP item that will
-serve it, and so does ``--model``.
+serve it.
 
 It resumes from the newest checkpoint under {out}/checkpoints (skipping
 the batches the finished steps drew, so a resumed run sees the batches an
 uninterrupted one would), prints one JSON line per 10 steps
 (train/telemetry.py), and writes the artifact to {out}: the merged model
-for a LoRA run, plus the adapter under {out}/adapter.
+for a LoRA run, plus the adapter under {out}/adapter, and the base
+model's tokenizer (serve/tokenizer.py::copy_tokenizer), so that serve.main
+serves {out} as it is.
 """
 from __future__ import annotations
 
@@ -30,17 +38,16 @@ import os
 import time
 from typing import Any, Dict, List, Optional
 
-from substratus_tpu_torch.serve.main import ATTN_IMPLS, load_params_json
+from substratus_tpu_torch.serve.main import (
+    ATTN_IMPLS, check_vocab, load_checkpoint, load_params_json, resolve_model_path)
 
 _SERVED = ("steps", "max_steps", "batch_size", "seq_len", "learning_rate", "warmup_steps", "save_steps",
-           "lora_rank", "lora_alpha", "config", "remat", "seed", "grad_accum_steps", "attn_impl")
+           "lora_rank", "lora_alpha", "config", "remat", "seed", "grad_accum_steps", "attn_impl", "quantize")
 _MESH_AXES = ("dp", "fsdp", "sequence", "tensor")
 _NOT_SERVED = {
-    "quantize": "Queue 1 item 12 (QLoRA trains on a loaded base; checkpoint loading waits for weights "
-                "in the repository)",
-    "profile_steps": "Queue 1 item 14 (profiling windows, with multi-GPU training)",
+    "profile_steps": "Queue 1, multi-GPU and RL (profiling windows)",
 }
-_MULTI_GPU = "Queue 1 item 14 (multi-GPU training: meshes, ring and Ulysses attention)"
+_MULTI_GPU = "Queue 1, multi-GPU and RL (training meshes, ring and Ulysses attention)"
 
 
 def check_params(p: Dict[str, Any]) -> None:
@@ -53,6 +60,12 @@ def check_params(p: Dict[str, Any]) -> None:
         if key in _MESH_AXES:
             if int(value) not in (1, -1):
                 raise SystemExit(f"params.json: {key}={value!r}: the port trains on one card; ROADMAP {_MULTI_GPU}")
+        elif key == "quantize":
+            if value not in ("none", "int8"):
+                raise SystemExit(f"params.json: quantize={value!r} invalid for training (none, or int8: QLoRA)")
+            if value == "int8" and int(p.get("lora_rank", 0)) <= 0:
+                raise SystemExit("params.json: quantize='int8' (QLoRA) trains LoRA adapters over the int8 base: "
+                                 "set lora_rank")
         elif key == "attn_impl":
             if value in ("ring", "ulysses"):
                 raise SystemExit(f"params.json: attn_impl={value!r} is not served by the PyTorch port yet: "
@@ -66,7 +79,9 @@ def check_params(p: Dict[str, Any]) -> None:
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(prog="python -m substratus_tpu_torch.train.main")
     ap.add_argument("--data", default="/content/data")
-    ap.add_argument("--model", default=None, help="base model dir (not ported yet: exits)")
+    ap.add_argument("--model", default=None,
+                    help="base model: a .gguf file, a port artifact or a local HF directory (default: "
+                         "/content/model if mounted)")
     ap.add_argument("--out", default="/content/artifacts")
     ap.add_argument("--params", default="/content/params.json")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
@@ -79,8 +94,9 @@ def run(argv=None) -> Dict[str, Any]:
     run the merged copy; the trainer keeps its base and adapters), the
     StepLogger, the first step of this run, and per step of this run the
     loss, step seconds and checkpoint seconds; the artifact's seconds."""
-    from substratus_tpu_torch.models import registry
-    from substratus_tpu_torch.serve.tokenizer import load_tokenizer
+    from substratus_tpu_torch.models import llama, registry
+    from substratus_tpu_torch.ops.quant import is_quantized
+    from substratus_tpu_torch.serve.tokenizer import copy_tokenizer, load_tokenizer
     from substratus_tpu_torch.train.checkpoints import CheckpointManager, save_adapter_artifact, save_artifact
     from substratus_tpu_torch.train.data import PackedDataset
     from substratus_tpu_torch.train.lora import merge_lora
@@ -89,11 +105,12 @@ def run(argv=None) -> Dict[str, Any]:
     from substratus_tpu_torch.utils.device import resolve_device
 
     args = parse_args(argv)
-    if args.model is not None or os.path.isdir("/content/model"):
-        raise SystemExit("train.main: training from a model directory is not served by the PyTorch port yet: "
-                         "ROADMAP Queue 1 item 12 (checkpoint loading)")
     p = load_params_json(args.params)
     check_params(p)
+    model_path = resolve_model_path(args.model, {})
+    if p.get("quantize", "none") != "none" and model_path is None:
+        raise SystemExit("params.json: quantize='int8' is QLoRA, which needs a base model (--model or "
+                         "/content/model)")
     device = resolve_device(args.device)
 
     steps = int(p.get("steps", p.get("max_steps", 100)))
@@ -101,10 +118,20 @@ def run(argv=None) -> Dict[str, Any]:
     seq_len = int(p.get("seq_len", 512))
     lora_rank = int(p.get("lora_rank", 0))
     lora_alpha = float(p.get("lora_alpha", 16.0))
-    _, cfg = registry.find_named_config(p.get("config", "tiny"))
-    tokenizer = load_tokenizer(None)
-    if cfg.vocab_size < tokenizer.vocab_size:
-        cfg = cfg.replace(vocab_size=tokenizer.vocab_size)
+    params = None
+    if model_path:
+        cfg, params = load_checkpoint(model_path, device)
+        tokenizer = load_tokenizer(model_path)
+        check_vocab(tokenizer, cfg)
+        if p.get("quantize") == "int8" and not is_quantized(params):  # int8 artifacts arrive quantized
+            llama.quantize_weights(params, "int8")
+        print(f"base model {model_path}: {cfg.n_layers} layers, dim {cfg.dim}, {cfg.dtype}"
+              f"{', int8 (QLoRA)' if is_quantized(params) else ''}", flush=True)
+    else:
+        _, cfg = registry.find_named_config(p.get("config", "tiny"))
+        tokenizer = load_tokenizer(None)
+        if cfg.vocab_size < tokenizer.vocab_size:
+            cfg = cfg.replace(vocab_size=tokenizer.vocab_size)
     cfg = cfg.replace(attn_impl=ATTN_IMPLS[p.get("attn_impl", "xla")])
     accum = max(1, int(p.get("grad_accum_steps", 1)))
     if batch_size % accum:
@@ -121,7 +148,7 @@ def run(argv=None) -> Dict[str, Any]:
         seed=int(p.get("seed", 0)),
         grad_accum_steps=accum,
     )
-    trainer = Trainer(cfg, tc, device=device)
+    trainer = Trainer(cfg, tc, params=params, device=device)
     data = PackedDataset(args.data, tokenizer, batch_size, seq_len, seed=tc.seed)
     print(f"training on {device}: steps={steps}, batch {batch_size} x {seq_len}, corpus={data.n_tokens} tokens, "
           f"lora_rank={lora_rank}, attention {cfg.attn_impl}", flush=True)
@@ -165,6 +192,8 @@ def run(argv=None) -> Dict[str, Any]:
     t0 = time.perf_counter()
     final = merge_lora(trainer.params, trainer.lora, trainer.lora_scale) if trainer.lora is not None else trainer.params
     save_artifact(args.out, final, cfg, extra_meta={"trained_steps": steps})
+    if model_path and copy_tokenizer(model_path, args.out):
+        print(f"the base model's tokenizer copied to {args.out}", flush=True)
     if trainer.lora is not None:
         save_adapter_artifact(os.path.join(args.out, "adapter"), trainer.lora, alpha=lora_alpha, rank=lora_rank,
                               extra_meta={"trained_steps": steps})

@@ -3,7 +3,8 @@ JSON progress line per logging interval with the step time, throughput and
 model FLOPs utilization (MFU), under the JAX package's keys.
 
 The shared metrics registry (histograms, gauges) and the trace ids on each
-line wait for the port's observability (ROADMAP Queue 1 item 15).
+line wait for the port's observability (ROADMAP Queue 1, the rest of the
+serving surface: /metrics and tracing).
 """
 from __future__ import annotations
 

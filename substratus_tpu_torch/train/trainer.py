@@ -7,7 +7,7 @@ step eagerly on one device: the forward (models/llama.py, attention
 through the flash kernel and its FlashAttention backward), the loss in f32,
 torch.autograd.grad for the trainable tensors, then the optax-equivalent
 optimizer of train/optim.py. Meshes, process counts and globally sharded
-batches wait for multi-GPU (ROADMAP Queue 1 item 14).
+batches wait for multi-GPU (ROADMAP Queue 1, multi-GPU and RL).
 
 In LoRA mode the base weights stay frozen and only the adapters
 (train/lora.py) train; otherwise every weight trains.

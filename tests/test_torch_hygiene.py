@@ -1,14 +1,19 @@
 """Import and device hygiene of the PyTorch port (substratus_tpu_torch/):
 
 * no module of the port, nor chip_smoke.py, imports jax or the JAX
-  package (substratus_tpu), even one that does not import jax;
-* every module imports without CUDA, nvcc or triton;
+  package (substratus_tpu), even one that does not import jax, nor
+  transformers or safetensors at module level (the card's machine has
+  neither);
+* every module imports without CUDA, nvcc or triton, and every module
+  imports with transformers and safetensors unimportable;
 * the entry points run on cuda unless asked for the CPU, and raise here
-  rather than drift to the CPU.
+  rather than drift to the CPU; so do the checkpoint loaders.
 """
 import ast
 import importlib
 import pkgutil
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -34,11 +39,30 @@ def _imports(path: Path):
             yield node.module
 
 
+def _module_level_imports(path: Path):
+    """The imports a module runs when it is imported: not those inside a
+    function's body."""
+    todo = list(ast.parse(path.read_text(), str(path)).body)
+    while todo:
+        node = todo.pop()
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif not isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+            todo.extend(ast.iter_child_nodes(node))
+
+
 def test_no_jax_and_no_jax_package():
     assert len(SOURCES) > 10
     bad = [f"{path.relative_to(REPO)}: imports {name}" for path in SOURCES for name in _imports(path)
            if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "substratus_tpu")]
     assert not bad
+    bad = [f"{path.relative_to(REPO)}: imports {name} at module level" for path in SOURCES
+           for name in _module_level_imports(path) if name.split(".")[0] in ("transformers", "safetensors")]
+    assert not bad
+    hf_tokenizer = REPO / "substratus_tpu_torch" / "serve" / "tokenizer.py"
+    assert "transformers" in _imports(hf_tokenizer) and "transformers" not in _module_level_imports(hf_tokenizer)
 
 
 def test_every_module_imports_without_cuda():
@@ -49,6 +73,43 @@ def test_every_module_imports_without_cuda():
     from substratus_tpu_torch import kernels
 
     assert kernels._lib is None  # nothing was built at import
+
+
+def test_modules_import_without_transformers_and_safetensors():
+    """In a fresh interpreter, as on the card's machine: every module of
+    the port imports with both packages unimportable."""
+    code = ("import sys, importlib, pkgutil\n"
+            "sys.modules['transformers'] = sys.modules['safetensors'] = None\n"
+            "import substratus_tpu_torch\n"
+            "names = [m.name for m in pkgutil.walk_packages(substratus_tpu_torch.__path__, 'substratus_tpu_torch.')]\n"
+            "for name in names:\n"
+            "    importlib.import_module(name)\n"
+            "assert 'substratus_tpu_torch.load.hf' in names and 'substratus_tpu_torch.load.gguf' in names\n"
+            "assert sys.modules['transformers'] is None and 'jax' not in sys.modules\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+
+
+def test_checkpoint_loaders_default_to_cuda_and_raise_without_it(tmp_path):
+    from substratus_tpu_torch.load.gguf import load_gguf
+    from substratus_tpu_torch.load.hf import load_pretrained
+    from substratus_tpu_torch.tools import ckpt_writer
+    from substratus_tpu_torch.train.checkpoints import save_artifact
+
+    model = llama.init_params(llama.CONFIGS["tiny"], device="cpu")
+    ckpt_writer.write_hf(str(tmp_path / "hf"), model)
+    ckpt_writer.write_gguf(str(tmp_path / "m.gguf"), model)
+    save_artifact(str(tmp_path / "art"), model, model.cfg)
+    for load in (lambda: load_gguf(str(tmp_path / "m.gguf")), lambda: load_pretrained(str(tmp_path / "hf")),
+                 lambda: main.load_checkpoint(str(tmp_path / "m.gguf")),
+                 lambda: main.load_checkpoint(str(tmp_path / "hf")),
+                 lambda: main.load_checkpoint(str(tmp_path / "art"))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            load()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main.build(["--model", str(tmp_path / "hf"), "--params", "", "--port", "0"])
+    _, cpu = main.load_checkpoint(str(tmp_path / "hf"), "cpu")
+    assert cpu.device == torch.device("cpu")
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it():

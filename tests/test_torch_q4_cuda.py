@@ -19,6 +19,11 @@ output row (over N) within ROW_REL = 2^-6 of its own norm, or of 2^-8 of
 the RMS row norm where that is larger. A dropped scale group (1/32 of C at
 C = 4096) moves rows by about 0.18 of their norm; test_planted_faults_fail
 checks that the limit rejects it and a dropped ragged row tile.
+
+The checkpoint loaders' device work is here too: GGUF block
+dequantization (load/gguf.py, torch ops on the model's device) and the
+safetensors reader's tensors loaded into a model on the card, each equal
+bit for bit to the same work on the CPU.
 """
 import pytest
 import torch
@@ -149,3 +154,51 @@ def test_entry_point_refuses_other_shapes(cuda):
     assert lib.q4_matmul_wgmma(*args, 64, 1024, 4000, 128, stream) == -1
     assert lib.q4_matmul_wgmma(*args, 64, 1024, 4096, 128, stream) == 0
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("ggml_type", [0, 1, 2, 3, 6, 8])
+def test_gguf_dequantization_on_the_card_matches_cpu(cuda, ggml_type):
+    """Random blocks of every supported GGML type (scales valid f16 values,
+    codes random bytes) at a w_gate's size dequantize on the card to the
+    CPU's values, bit for bit."""
+    from substratus_tpu_torch.load.gguf import _BLOCK, _dequantize
+
+    n = 4096 * 11008
+    qk, bsz = _BLOCK[ggml_type]
+    gen = torch.Generator().manual_seed(ggml_type)
+    raw = torch.randint(0, 256, (n // qk, bsz), dtype=torch.uint8, generator=gen)
+    if ggml_type == 0:
+        raw = torch.randn(n, generator=gen).view(torch.uint8).view(n // qk, bsz)
+    elif ggml_type == 1:
+        raw = torch.randn(n, generator=gen).half().view(torch.uint8).view(n // qk, bsz)
+    else:  # the f16 scale (and Q4_1's f16 min) first in each block
+        heads = 4 if ggml_type == 3 else 2
+        raw[:, :heads] = (torch.randn(n // qk, heads // 2, generator=gen) * 0.01).half().view(torch.uint8)
+    raw = raw.reshape(-1)
+    want = _dequantize(raw.clone(), ggml_type, n)
+    got = _dequantize(raw.to(cuda), ggml_type, n)
+    assert got.device.type == "cuda" and got.dtype == want.dtype == torch.float32
+    assert torch.equal(got.cpu(), want)
+
+
+def test_checkpoints_load_on_the_card_as_on_the_cpu(cuda, tmp_path):
+    """A bf16 model written as safetensors shards and as a Q4_0 GGUF loads
+    into a model on the card with the state it loads into on the CPU."""
+    from substratus_tpu_torch.load.gguf import load_gguf
+    from substratus_tpu_torch.load.hf import load_pretrained, read_safetensors
+    from substratus_tpu_torch.models import llama
+    from substratus_tpu_torch.tools.ckpt_writer import write_gguf, write_hf
+
+    cfg = llama.CONFIGS["tiny"].replace(dim=256, hidden_dim=512, vocab_size=512)
+    model = llama.init_params(cfg, seed=0, device="cpu")
+    write_hf(str(tmp_path / "hf"), model, shard_bytes=1 << 20)
+    write_gguf(str(tmp_path / "m.gguf"), model)
+    for path in sorted((tmp_path / "hf").glob("*.safetensors")):
+        for name, t in read_safetensors(str(path)).items():
+            assert torch.equal(t.to(cuda).cpu(), t), name
+    for load, path in ((load_pretrained, tmp_path / "hf"), (load_gguf, tmp_path / "m.gguf")):
+        _, on_card = load(str(path), device=cuda)
+        _, on_cpu = load(str(path), device="cpu")
+        assert on_card.device.type == "cuda"
+        for name, t in on_cpu.state_dict().items():
+            assert torch.equal(on_card.state_dict()[name].cpu(), t), name

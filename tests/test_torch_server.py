@@ -165,7 +165,7 @@ def test_params_policy():
             main.check_params({"quantize": quantize, "q4_impl": q4_impl})
     assert main.resolve_quantize({}) == "none" and main.resolve_quantize({"quantize": "int4"}) == "int4"
     for params in ({"kv_layout": "paged"}, {"spec_k": 4}, {"quantize": "w8a8"}, {"adapters": {"dir": "x"}},
-                   {"role": "prefill"}, {"attn_impl": "ring"}, {"attn_impl": "ulysses"}, {"model": "m"}):
+                   {"role": "prefill"}, {"attn_impl": "ring"}, {"attn_impl": "ulysses"}, {"baseModel": "m"}):
         with pytest.raises(SystemExit, match="ROADMAP"):
             main.check_params(params)
     for params, match in (({"decode_attn_impl": "fused", "kv_layout": "paged"}, "requires kv_layout=dense"),

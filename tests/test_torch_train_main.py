@@ -10,7 +10,10 @@ and its data, checkpoint and artifact modules, on the CPU.
   merged model's logits, exactly; the adapter artifact holds the trained
   adapters. A full finetune with grad_accum_steps=2 on a .npy corpus.
 * Keys and values the port does not train with exit naming their ROADMAP
-  item; without --device cpu it raises here (no card).
+  item by its title; quantize without a base model exits (QLoRA needs
+  one), and so does a --model that is no local checkpoint; --model on a
+  checkpoint trains from its weights; without --device cpu it raises here
+  (no card).
 """
 import json
 
@@ -114,13 +117,13 @@ def test_full_finetune_with_accumulation(tmp_path, corpus):
 
 
 @pytest.mark.parametrize("params,argv,match", [
-    ({"quantize": "int8"}, [], "Queue 1 item 12"),
-    ({"profile_steps": [1, 2]}, [], "Queue 1 item 14"),
-    ({"attn_impl": "ring", "sequence": 1}, [], "Queue 1 item 14"),
-    ({"tensor": 2}, [], "Queue 1 item 14"),
+    ({"quantize": "int8", "lora_rank": 4}, [], "QLoRA, which needs a base model"),
+    ({"profile_steps": [1, 2]}, [], "Queue 1, multi-GPU and RL"),
+    ({"attn_impl": "ring", "sequence": 1}, [], "Queue 1, multi-GPU and RL"),
+    ({"tensor": 2}, [], "Queue 1, multi-GPU and RL"),
     ({"attn_impl": "pallas"}, [], "invalid"),
     ({"optimizer": "sgd"}, [], "unknown key"),
-    ({}, ["--model", "/nonexistent"], "Queue 1 item 12"),
+    ({}, ["--model", "/nonexistent"], "local checkpoints only"),
 ])
 def test_unported_knobs_exit(tmp_path, corpus, params, argv, match):
     p = tmp_path / "params.json"
@@ -128,6 +131,21 @@ def test_unported_knobs_exit(tmp_path, corpus, params, argv, match):
     with pytest.raises(SystemExit, match=match):
         train_main.run(["--data", str(corpus), "--out", str(tmp_path / "o"), "--params", str(p),
                         "--device", "cpu", *argv])
+
+
+def test_model_flag_trains_from_the_checkpoint(tmp_path, corpus):
+    from substratus_tpu_torch.tools.ckpt_writer import write_hf
+
+    base = llama.init_params(llama.CONFIGS["tiny"].replace(vocab_size=258, dtype=torch.float32), seed=5,
+                             device="cpu")
+    write_hf(str(tmp_path / "base"), base)
+    p = tmp_path / "params.json"
+    p.write_text(json.dumps({"steps": 1, "batch_size": 2, "seq_len": 32, "lora_rank": 4}))
+    res = train_main.run(["--data", str(corpus), "--out", str(tmp_path / "o"), "--params", str(p), "--device", "cpu",
+                          "--model", str(tmp_path / "base")])
+    assert res["cfg"].dtype == torch.bfloat16  # the loaders' default
+    for name, t in res["trainer"].params.state_dict().items():  # LoRA: the base stays as loaded
+        assert torch.equal(t, base.state_dict()[name].bfloat16()), name
 
 
 def test_default_device_is_the_card(tmp_path, corpus):
