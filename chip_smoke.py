@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases card,build,kernels,serve-int4,profile
     python3 chip_smoke.py --phases card,build,kernels,train,train-full
     python3 chip_smoke.py --phases card,build,serve-ckpt
+    python3 chip_smoke.py --phases card,build,serve,serve-paged,profile
 
 Phases, each of which exits non-zero on failure:
 
@@ -70,7 +71,9 @@ Phases, each of which exits non-zero on failure:
               in every case (for the forward also on head-major copies,
               beside it);
   serve       serve.main's server in-process at llama2-7b's full width and
-              depth (random weights from a seed, bf16, max_seq_len 1024),
+              depth (random weights from a seed, bf16, max_seq_len 1024,
+              kv_layout dense, as every phase before serve-paged and
+              serve-ckpt's and train's servers),
               five concurrent /v1/completions requests, the kernels' launch
               counts against 32 x prefills (all of the flash forward's
               wgmma design) and 32 x decode steps (all of the decode
@@ -109,6 +112,28 @@ Phases, each of which exits non-zero on failure:
               whose dispatch makes no host sync (set_sync_debug_mode
               "error"), with their host clock; serve-long also one
               prompt's three chunks with no host sync;
+  serve-paged the JAX server's default for llama, the paged pool, in three
+              legs: (a) serve.main with serve's knobs and no kv_layout
+              (pages of 16, a pool of 8192 tokens, the prefix cache):
+              one request of a 480-token prefix (30 pages) and a
+              32-token suffix, then 7 concurrent ones sharing the prefix
+              (one streamed), then serve's five prompts; exactly 3360
+              prefix-hit tokens, every other prompt token prefilled, each
+              prompt one chunk through its block-table row, no attention
+              kernel launched (the paged read is a gather and the plain
+              attention, as in JAX), every greedy token held by the
+              teacher-forced reference, the graph engine's greedy tokens
+              the eager synchronous paged step's, the sampling and
+              sync-free checks of the serve phases, every page back;
+              the mean step beside serve's dense one, the prefill of the
+              first request against the hits', the pool's bytes; (b) an
+              Engine on a pool of 2048 tokens without the prefix cache:
+              8 greedy requests of 100-340 tokens, 192 tokens each, at
+              least one preempted and resumed, none truncated, each held
+              by the reference over its own prompt and every token it
+              delivered; (c) serve-int4's weights on int8 pages
+              (kv_layout paged, no fused decode): the int4 matmul's
+              launches by design, the references;
   serve-ckpt  checkpoints at llama2-7b's full width and depth, written from
               the seed-0 weights by tools/ckpt_writer.py, one on disk at a
               time (the free bytes printed before each write, too few fail
@@ -153,7 +178,11 @@ Phases, each of which exits non-zero on failure:
               (prompts of 16 and 400 tokens) and after serve-long (40 and
               3000 tokens, the slots filled at 1000; the decode steps also
               unfused, in turns with the fused ones, each impl's own graph)
-              and after serve-int4 (16 and 1500 tokens), with the int4
+              and after serve-int4 (16 and 1500 tokens), and after
+              serve-paged's legs (a) (16 and 512 tokens; before it a
+              512-token prompt's prefill without a prefix hit and again
+              with 496 tokens hit) and (c) (16 and 1500 tokens), the
+              prefix cache off so that each prefill runs in full, with the int4
               matmul's and the GEMMs' share of the device time (a decode
               step of serve-int4 must run no split-K sums of
               q4_matmul.cu); after
@@ -1163,7 +1192,7 @@ def profile_engine(engine, label: str = "profile", lens=(16, 400), fill: int = 1
           f"q4_matmul.cu's split-K sums {out['decode']['q4_splitk_ms']:.3f}), GEMMs "
           f"{out['decode']['gemm_ms']:.3f} ms of it)", flush=True)
     decode_kernels = {name: round(ms, 4) for name, ms in out["decode"]["decode_ms"].items() if ms}
-    if not out["graph_kernels_named"]:
+    if not out["graph_kernels_named"] and not engine.paged:  # the paged step runs no decode kernel
         print(f"{label}: the profile names no decode kernel inside the replayed graph", flush=True)
     print(f"{label}: decode step, decode kernels, ms a step: {decode_kernels}"
           + (f"; {alt_decode}: " + str({name: round(ms, 4) for name, ms in out[f'decode_{alt_decode}']['decode_ms'].items()
@@ -1371,7 +1400,8 @@ def graph_checks(engine, requests, label: str) -> dict:
             fail(f"{label}: a sampled token lies outside its mask: {toks}")
     graph, b = engine._graph, engine.ec.max_batch
     offset = engine.generator.get_offset()
-    hot = (engine.tokens, engine.positions, np.full(b, 50.0, np.float32), np.ones(b, np.float32), np.ones(b, bool))
+    hot = (engine.tokens, engine.positions, np.full(b, 50.0, np.float32), np.ones(b, np.float32), np.ones(b, bool),
+           *((engine.block_table,) if engine.paged else ()))
     draws = [tuple(graph.launch(*hot)().tolist()) for _ in range(4)]
     advanced = engine.generator.get_offset() - offset
     if len(set(draws)) != len(draws) or advanced <= 0 or not all(0 <= t < engine.cfg.vocab_size for d in draws
@@ -1413,8 +1443,10 @@ def graph_checks(engine, requests, label: str) -> dict:
             "steady_step_ms": steady_ms, "dispatch_ms": dispatch_ms, "capture_ms": engine._graph.capture_seconds * 1e3}
 
 
+# The dense path (serve, serve-ckpt's safetensors server, train's artifact
+# server); serve-paged drops kv_layout, the JAX entry point's default.
 SERVE_PARAMS = {"config": "llama2-7b", "max_batch": 8, "max_seq_len": 1024, "max_prefill_len": 512,
-                "kv_cache_dtype": "model"}
+                "kv_cache_dtype": "model", "kv_layout": "dense"}
 
 
 def serve_phase(card: str, profile_steps: bool = False):
@@ -1673,6 +1705,14 @@ def check_int4_launches(engine, stats, launches, lengths, label: str) -> None:
     chunk = engine.ec.max_prefill_len
     chunks = sum(-(-n // chunk) for n in lengths if n > chunk)
     singles = sum(n <= chunk for n in lengths)
+    if engine.paged:
+        # Every paged prompt runs as chunks through its block-table row
+        # (a short one as one chunk of its bucket), with no prefix shared
+        # here, and every chunk and decode step attends the gathered pages
+        # with the plain attention: no attention kernel launches.
+        if stats["prefix_hit_tokens"]:
+            fail(f"{label}: {stats['prefix_hit_tokens']} prefix-hit tokens; the rows below assume none")
+        chunks, singles = chunks + singles, 0
     # Rows of each prefill forward: a prompt's bucket, or each chunk's
     # (capped at the chunk); a decode step has max_batch rows. Every
     # llama2-7b projection takes the wgmma design above WGMMA_MIN_M rows
@@ -1680,11 +1720,12 @@ def check_int4_launches(engine, stats, launches, lengths, label: str) -> None:
     rows = [min(_bucket(n), chunk) for n in lengths if n <= chunk]
     rows += [min(_bucket(min(chunk, n - o)), chunk) for n in lengths if n > chunk for o in range(0, n, chunk)]
     wide = sum(r > WGMMA_MIN_M for r in rows)
+    attn = 0 if engine.paged else L
     want = {"q4_matmul_decode": (7 * L + 1) * (forwards - wide), "q4_matmul": 0, "q4_matmul_wgmma": (7 * L + 1) * wide,
-            "q4_matmul_total": (7 * L + 1) * forwards, "flash_fwd": L * stats["prefills"],
-            "flash_cached": L * stats["prefill_chunks"], "fused_decode": L * stats["decode_steps"], "decode_attn": 0,
-            "flash_fwd_wgmma": L * stats["prefills"], "flash_cached_int8": L * stats["prefill_chunks"],
-            "fused_decode_split": L * stats["decode_steps"]}
+            "q4_matmul_total": (7 * L + 1) * forwards, "flash_fwd": attn * stats["prefills"],
+            "flash_cached": attn * stats["prefill_chunks"], "fused_decode": attn * stats["decode_steps"],
+            "decode_attn": 0, "flash_fwd_wgmma": attn * stats["prefills"],
+            "flash_cached_int8": attn * stats["prefill_chunks"], "fused_decode_split": attn * stats["decode_steps"]}
     print(f"{label}: prefill forwards of {rows} rows; {wide} of them above {WGMMA_MIN_M} rows take the wgmma "
           f"design ({want['q4_matmul_wgmma']} launches), the other {forwards - wide} forwards (decode steps of "
           f"{engine.ec.max_batch} rows included) the decode design ({want['q4_matmul_decode']}), none "
@@ -1692,8 +1733,9 @@ def check_int4_launches(engine, stats, launches, lengths, label: str) -> None:
     if launches != want or (stats["prefill_chunks"], stats["prefills"]) != (chunks, singles):
         fail(f"{label}: launches {launches} against {want}; stats {stats}, want {chunks} chunks "
              f"and {singles} single-shot prefills")
-    if not all(launches[name] > 0 for name in ("q4_matmul_decode", "q4_matmul_wgmma", "flash_fwd", "flash_cached",
-                                               "fused_decode")):
+    path = ("q4_matmul_decode", "q4_matmul_wgmma") + (() if engine.paged else ("flash_fwd", "flash_cached",
+                                                                                "fused_decode"))
+    if not all(launches[name] > 0 for name in path):
         fail(f"{label}: a kernel of the path never launched: {launches}")
 
 
@@ -1755,6 +1797,278 @@ def serve_int4_phase(card: str, profile_steps: bool = False):
             "prefill_ms": prefill_ms, "decode_tokens_per_s": decode_tps, "step_ms": step_ms,
             "ttft_1500_ms": ttft * 1e3, "requests": [r[1] for r in results], "reference": reference,
             "eager_sync": eager, "graph": graph, "profile": profiled}
+
+
+# --- the paged pool: serve.main's default for llama ---------------------------
+
+# A shared prefix of 480 tokens (BOS + 479 bytes: 30 full pages of 16)
+# under one 32-byte suffix, then under seven of 20-60 bytes; each suffix
+# starts with its own bytes, so each later request shares exactly the 30
+# prefix pages (the 31st page holds its own suffix).
+PAGED_PREFIX = "System: " + _long_text(471, 6)
+PAGED_FIRST = (PAGED_PREFIX + "[a] " + _long_text(28, 7), 32, 0.0, False)
+PAGED_SEVEN = [(PAGED_PREFIX + f"[{tag}] " + _long_text(n - 4, 8 + i), 32, 0.0, i == 2)
+               for i, (tag, n) in enumerate(zip("bcdefgh", (20, 27, 34, 41, 48, 54, 60)))]
+PAGED_HIT = 480
+# Preempt-and-resume: 8 greedy requests of 100-340 prompt tokens (1800 in
+# all), 192 tokens each, against a pool of 2048 tokens (128 pages).
+PREEMPT_LENS = (100, 140, 180, 220, 260, 300, 340, 260)
+PREEMPT_TOKENS = 192
+PREEMPT_POOL = 2048
+
+
+def check_pages_recovered(engine, label: str) -> None:
+    """After idle every page is free or held once by the prefix registry,
+    and every block-table row points at the trash page."""
+    registry = engine.prefix._map.values() if engine.prefix is not None else ()
+    held = [engine.alloc.refs(pid) for pid, _, _ in registry]
+    if engine.alloc.free_pages + len(held) != engine.n_pages or any(r != 1 for r in held) or engine.block_table.any():
+        fail(f"{label}: {engine.alloc.free_pages} free pages and {len(held)} held by the registry of {engine.n_pages}")
+
+
+def profile_prefix_hit(engine, label: str) -> dict:
+    """Host clock and device busy time of one paged admission of a
+    512-token prompt without a prefix hit and of the same prompt again,
+    which takes 31 of its 32 pages from the registry (the last token's page
+    runs), each under torch.profiler, after an unprofiled admission of
+    another 512-token prompt. Driven from this thread on the stopped
+    engine; the slots are released after."""
+    import contextlib
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from substratus_tpu_torch.serve.engine import Request
+    from substratus_tpu_torch.serve.tokenizer import ByteTokenizer
+
+    def admit(prompt, profiled: bool) -> dict:
+        engine.queue.put(Request(list(prompt), max_tokens=10_000, temperature=0.0))
+        hits = engine.stats["prefix_hit_tokens"]
+        torch.cuda.synchronize()
+        activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with profile(activities=activities) if profiled else contextlib.nullcontext() as prof:
+            t0 = time.perf_counter()
+            if engine._admit() != 1:
+                fail(f"{label}: admission failed")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        out = {"host_ms": wall * 1e3, "hit_tokens": engine.stats["prefix_hit_tokens"] - hits}
+        if profiled:
+            out["device_busy_ms"] = _device_summary(prof, wall, 1)["device_busy_ms"]
+        return out
+
+    tok = ByteTokenizer()
+    admit(tok.encode("Warm: " + _long_text(505, 30)), False)
+    prompt = tok.encode("Other: " + _long_text(504, 31))
+    miss, hit = admit(prompt, True), admit(prompt, True)
+    for slot in np.flatnonzero(engine.active):
+        engine._release_slot(int(slot))
+    if (miss["hit_tokens"], hit["hit_tokens"], len(prompt)) != (0, 496, 512):
+        fail(f"{label}: {miss['hit_tokens']} and {hit['hit_tokens']} prefix-hit tokens of a {len(prompt)}-token prompt")
+    print(f"{label}: a 512-token prompt's prefill without a hit {miss['host_ms']:.1f} ms host clock, "
+          f"{miss['device_busy_ms']:.2f} ms device busy; again, 496 tokens from the registry, {hit['host_ms']:.1f} ms, "
+          f"{hit['device_busy_ms']:.2f} ms", flush=True)
+    return {"miss": miss, "hit": hit}
+
+
+def paged_default_leg(card: str, dense_step_ms, profile_steps: bool):
+    """serve.main with serve's knobs and no kv_layout: llama resolves to the
+    paged pool, as in the JAX entry point. Returns (report, the weights,
+    the config) for the preemption leg."""
+    from substratus_tpu_torch.ops.decode_attention import decode_attention
+    from substratus_tpu_torch.ops.flash_attention import flash_attention, flash_cached_attention
+    from substratus_tpu_torch.ops.fused_decode import fused_decode_attention
+
+    params_json = {k: v for k, v in SERVE_PARAMS.items() if k != "kv_layout"}
+    server, engine, base = start_server("serve-paged", params_json)
+    pool_bytes = sum(t.numel() * t.element_size() for t in engine.cache.values())
+    if not engine.paged or engine.page_size != 16 or engine.n_pages != 512 or engine.prefix is None:
+        fail(f"serve-paged: the default server is not on a 512-page pool of 16-token pages with a prefix cache "
+             f"(paged {engine.paged})")
+    # The attention kernels' wrappers, none of which the paged path calls.
+    counters = {"decode_attn": decode_attention, "fused_decode": fused_decode_attention, "flash_fwd": flash_attention,
+                "flash_cached": flash_cached_attention}
+    requests = tee_requests(engine)
+    try:
+        zero_counts(engine, counters.values())
+        first, _ = run_concurrent(base, [PAGED_FIRST])
+        wait_idle(engine)
+        first_s = engine.stats["prefill_seconds"]
+        seven, _ = run_concurrent(base, PAGED_SEVEN)
+        wait_idle(engine)
+        seven_s, seven_hits = engine.stats["prefill_seconds"] - first_s, engine.stats["prefix_hit_tokens"]
+        rest, _ = run_concurrent(base, PROMPTS)
+        wait_idle(engine)
+        launches = {name: launched(engine, c) for name, c in counters.items()}
+        stats = dict(engine.stats)
+    finally:
+        server.stop()
+    del engine.submit
+    traffic = [PAGED_FIRST] + PAGED_SEVEN + PROMPTS
+    generated = sum(check_usage(p, r) for p, r in (([PAGED_FIRST], first), (PAGED_SEVEN, seven), (PROMPTS, rest)))
+    check_graph_run(engine, stats, "serve-paged")
+    true_lens = [len(text.encode()) + 1 for text, *_ in traffic]
+    hits = len(PAGED_SEVEN) * PAGED_HIT
+    if (stats["prefix_hit_tokens"], seven_hits, stats["prefill_tokens"]) != (hits, hits, sum(true_lens) - hits):
+        fail(f"serve-paged: {stats['prefix_hit_tokens']} prefix-hit tokens ({seven_hits} by the seven), "
+             f"{stats['prefill_tokens']} prefilled; want {hits} and {sum(true_lens) - hits}")
+    if stats["prefills"] or stats["prefill_chunks"] != len(traffic) or stats["preemptions"]:
+        fail(f"serve-paged: every prompt must be one chunk through its block-table row, none preempted: {stats}")
+    if any(launches.values()):
+        fail(f"serve-paged: an attention kernel launched on the paged path: {launches}")
+    check_pages_recovered(engine, "serve-paged")
+    step_ms = 1e3 * stats["decode_seconds"] / stats["decode_steps"]
+    decode_tps = (generated - len(traffic)) / stats["decode_seconds"]
+    print(f"serve-paged: {len(traffic)} requests ({true_lens[0]} tokens alone, then {len(PAGED_SEVEN)} concurrent "
+          f"sharing its {PAGED_HIT}-token prefix, then serve's {len(PROMPTS)}), {generated} tokens; "
+          f"{stats['prefix_hit_tokens']} prefix-hit tokens, {stats['prefill_tokens']} prefilled in "
+          f"{stats['prefill_chunks']} chunks, {stats['decode_steps']} decode steps, the most slots active "
+          f"{stats['max_active']}; attention kernel launches {launches}", flush=True)
+    print(f"serve-paged [{card}]: the pool {pool_bytes} bytes ({engine.n_pages} pages and the trash page); prefill "
+          f"of the first request (no hit) {first_s * 1e3:.1f} ms, of the {len(PAGED_SEVEN)} that hit "
+          f"{seven_s / len(PAGED_SEVEN) * 1e3:.1f} ms each on average; mean decode step {step_ms:.2f} ms, "
+          f"decode {decode_tps:.1f} tokens/s (overlapped, the step one CUDA graph); serve's dense step in this run "
+          f"{'not run' if dense_step_ms is None else f'{dense_step_ms:.2f} ms'}", flush=True)
+    reference = long_reference_check(engine, [r for r in requests if r.temperature == 0.0], "serve-paged")
+    eager = eager_check(engine, requests, "serve-paged")
+    graph = graph_checks(engine, requests, "serve-paged")
+    profiled = None
+    if profile_steps:
+        hit_profile = profile_prefix_hit(engine, "profile-paged")
+        # Each of the profile's prefills runs in full: its repeated prompts
+        # would otherwise take their pages from the registry.
+        engine.prefix = None
+        profiled = dict(profile_engine(engine, "profile-paged", (16, 512)), prefix_hit=hit_profile)
+    report = {"launches": launches, "stats": stats, "pool_bytes": pool_bytes, "generated": generated,
+              "first_prefill_ms": first_s * 1e3, "hit_prefill_ms": seven_s / len(PAGED_SEVEN) * 1e3,
+              "step_ms": step_ms, "decode_tokens_per_s": decode_tps, "dense_step_ms": dense_step_ms,
+              "requests": [r[1] for r in first + seven + rest], "reference": reference, "eager_sync": eager,
+              "graph": graph, "profile": profiled}
+    return report, engine.params, engine.cfg
+
+
+def paged_preempt_leg(card: str, params, cfg) -> dict:
+    """The default engine (overlapped, the step a CUDA graph) on a pool of
+    2048 tokens without the prefix cache, under more demand than it holds:
+    the youngest slots are preempted and resumed with prompt + generated
+    tokens. Every request is held by the teacher-forced reference (a
+    re-prefill in bf16 rounds unlike the decode steps that wrote the
+    same entries, so not by equality with a roomy run)."""
+    from substratus_tpu_torch.serve.engine import Engine, EngineConfig, Request
+    from substratus_tpu_torch.serve.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    ec = EngineConfig(max_batch=8, max_seq_len=1024, max_prefill_len=512, kv_layout="paged",
+                      kv_pool_tokens=PREEMPT_POOL, prefix_cache=False, eos_token_id=tok.eos_id)
+    engine = Engine(cfg, params, ec)
+    prompts = [tok.encode(_long_text(n - 1, 20 + i)) for i, n in enumerate(PREEMPT_LENS)]
+    reqs = [Request(list(p), max_tokens=PREEMPT_TOKENS, temperature=0.0, out=_TeeQueue()) for p in prompts]
+    preempted, preempt = [], engine._preempt
+
+    def record(victim):
+        preempted.append(engine.slot_req[victim])
+        preempt(victim)
+
+    engine._preempt = record
+    engine.start()
+    t0 = time.perf_counter()
+    try:
+        for req in reqs:
+            engine.submit(req)
+        for req in reqs:
+            while req.out.get(timeout=600) is not None:
+                pass
+    finally:
+        engine.stop()
+    wall = time.perf_counter() - t0
+    stats = dict(engine.stats)
+    demand = sum(PREEMPT_LENS) + len(PREEMPT_LENS) * PREEMPT_TOKENS
+    for req in reqs:
+        if not (req.finish_reason == "stop" or len(req.out.tokens) == PREEMPT_TOKENS):
+            fail(f"serve-paged preempt: a request ended {req.finish_reason} after {len(req.out.tokens)} tokens")
+    if stats["preemptions"] < 1 or stats["truncated_by_pool"] or engine.error is not None:
+        fail(f"serve-paged preempt: {stats['preemptions']} preemptions, {stats['truncated_by_pool']} truncated "
+             f"for {demand} tokens of demand on a {PREEMPT_POOL}-token pool ({engine.error})")
+    if engine._graph is None or engine._graph.graph is None or stats["graph_replays"] != stats["decode_steps"]:
+        fail(f"serve-paged preempt: {stats['decode_steps']} steps, {stats['graph_replays']} replays of the graph")
+    check_pages_recovered(engine, "serve-paged preempt")
+    # The references: each request's own prompt and every token it delivered
+    # (a preempted request resumed with its delivered tokens appended).
+    for req, prompt in zip(reqs, prompts):
+        req.prompt_tokens = prompt
+    reference = long_reference_check(engine, reqs, "serve-paged preempt")
+    step_ms = 1e3 * stats["decode_seconds"] / stats["decode_steps"]
+    victims = len({id(r) for r in preempted})
+    print(f"serve-paged preempt [{card}]: {len(reqs)} greedy requests ({sum(PREEMPT_LENS)} prompt tokens, "
+          f"{PREEMPT_TOKENS} tokens each: {demand} tokens of demand) on a {PREEMPT_POOL}-token pool "
+          f"({engine.n_pages} pages): {stats['preemptions']} preemptions of {victims} requests, none truncated, "
+          f"{stats['prefill_chunks']} prefill chunks ({stats['prefill_tokens']} tokens, the resumed prompts' "
+          f"included), {stats['decode_steps']} decode steps, mean step {step_ms:.2f} ms, the most slots active "
+          f"{stats['max_active']}, {wall:.2f} s in all; every request, the {victims} preempted ones included, "
+          "held by the reference", flush=True)
+    return {"stats": stats, "wall_s": wall, "demand_tokens": demand, "preempted_requests": victims,
+            "step_ms": step_ms, "reference": reference}
+
+
+def paged_int4_leg(card: str, profile_steps: bool) -> dict:
+    """serve-int4's weights and int8 cache on int8 pages (kv_layout paged,
+    no fused decode) at window 2048: every projection and the lm_head of
+    every chunk and decode step through the int4 matmul, by design."""
+    import torch
+
+    params_json = {**{k: v for k, v in INT4_PARAMS.items() if k != "decode_attn_impl"}, "kv_layout": "paged"}
+    server, engine, base = start_server("serve-paged-int4", params_json)
+    if not engine.paged or engine.cache["k"].dtype != torch.int8:
+        fail("serve-paged int4: the server is not on an int8 page pool")
+    counters = int4_counters()
+    requests = tee_requests(engine)
+    try:
+        zero_counts(engine, counters.values())
+        results, wall = run_concurrent(base, INT4_PROMPTS)
+        wait_idle(engine)
+        launches = int4_launches(engine, counters)
+        stats = dict(engine.stats)
+        del engine.submit
+        reference = reference_check(engine)
+    finally:
+        server.stop()
+    generated = check_usage(INT4_PROMPTS, results)
+    check_graph_run(engine, stats, "serve-paged int4")
+    check_int4_launches(engine, stats, launches, [len(text.encode()) + 1 for text, *_ in INT4_PROMPTS],
+                        "serve-paged int4")
+    long_ref = long_reference_check(engine, [r for r in requests if r.temperature == 0.0], "serve-paged int4")
+    check_pages_recovered(engine, "serve-paged int4")
+    profiled = None
+    if profile_steps:
+        engine.prefix = None  # each of the profile's prefills in full, as in leg (a)
+        profiled = profile_engine(engine, "profile-paged-int4", (16, 1500))
+    step_ms = 1e3 * stats["decode_seconds"] / stats["decode_steps"]
+    print(f"serve-paged int4 [{card}]: {len(INT4_PROMPTS)} requests, {generated} tokens in {wall:.2f} s; "
+          f"{stats['prefill_chunks']} prefill chunks, {stats['decode_steps']} decode steps, mean step "
+          f"{step_ms:.2f} ms; launches {launches}", flush=True)
+    return {"launches": launches, "stats": stats, "wall_s": wall, "generated": generated, "step_ms": step_ms,
+            "reference": reference, "long_reference": long_ref, "profile": profiled}
+
+
+def serve_paged_phase(card: str, dense_step_ms=None, profile_steps: bool = False) -> dict:
+    """The JAX server's default for llama, the paged pool, in three legs:
+    serve.main with no kv_layout (prefix reuse), preempt-and-resume on a
+    small pool, and the int4 stack on int8 pages."""
+    import torch
+
+    gc.collect()  # the earlier phases' servers and caches
+    torch.cuda.empty_cache()
+    out = {}
+    out["default"], params, cfg = paged_default_leg(card, dense_step_ms, profile_steps)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["preempt"] = paged_preempt_leg(card, params, cfg)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["int4"] = paged_int4_leg(card, profile_steps)
+    return out
 
 
 # --- checkpoints: serve.main and train.main on loaded weights -------------------
@@ -2337,7 +2651,8 @@ def train_full_phase(card: str, profile_steps: bool = False) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="card,build,kernels,serve,serve-long,serve-int4,serve-ckpt,train,train-full")
+    ap.add_argument("--phases", default="card,build,kernels,serve,serve-long,serve-int4,serve-paged,serve-ckpt,train,"
+                                        "train-full")
     phases = ap.parse_args().phases.split(",")
     t_start = time.perf_counter()
 
@@ -2366,6 +2681,9 @@ def main() -> int:
         report["serve-long"] = serve_long_phase(card, profile_steps="profile" in phases)
     if "serve-int4" in phases:
         report["serve-int4"] = serve_int4_phase(card, profile_steps="profile" in phases)
+    if "serve-paged" in phases:
+        report["serve-paged"] = serve_paged_phase(card, report.get("serve", {}).get("step_ms"),
+                                                  profile_steps="profile" in phases)
     if "serve-ckpt" in phases:
         report["serve-ckpt"] = serve_ckpt_phase(card)
     if "train" in phases:

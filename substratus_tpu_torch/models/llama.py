@@ -22,7 +22,11 @@ flash kernel's backward runs through ops/flash_attention.py's
 FlashAttention. Serving calls it under torch.inference_mode().
 
 The decode cache is the dense slot cache k/v [L, B, KH, S, hd] (+ f32
-scales [L, B, KH, S] when int8), written in place.
+scales [L, B, KH, S] when int8), or, with a ``block_table``, the paged
+pool k/v [L, P, bs, KH, hd] of ops/kvcache.py (+ f32 scales [..., 1]);
+either is written in place. The paged read is the JAX package's: the
+context gathered through the block table, then the plain attention of
+ops/attention.py (no kernel reads pages, as none does in JAX).
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from substratus_tpu_torch.ops import kvcache
 from substratus_tpu_torch.ops.attention import dot_product_attention
 from substratus_tpu_torch.ops.basics import lora_delta, rms_norm, rope, swiglu
 from substratus_tpu_torch.ops.decode_attention import update_cache_and_attend
@@ -302,6 +307,26 @@ def init_cache(
     return cache
 
 
+# The engine may serve this family on the paged pool (serve/paged_kv.py
+# owns the allocator; ops/kvcache.py the device ops).
+SUPPORTS_PAGED = True
+
+
+def init_paged_cache(
+    cfg: LlamaConfig,
+    pages: int,
+    page_size: int,
+    dtype: Optional[torch.dtype] = None,
+    device: DeviceLike = None,
+) -> Cache:
+    """Paged decode cache: a page pool k/v [L, P, bs, KH, hd] addressed
+    through a block table per sequence (ops/kvcache.py); with
+    dtype=torch.int8, int8 entries plus f32 scales [L, P, bs, KH, 1]."""
+    dtype = dtype or cfg.dtype
+    return kvcache.init_paged_cache(cfg.n_layers, pages, page_size, cfg.n_kv_heads, cfg.head_size, dtype,
+                                    quantized=dtype == torch.int8, device=resolve_device(device))
+
+
 def _self_attention(q, k, v, positions, cfg: LlamaConfig) -> torch.Tensor:
     """No-cache causal attention, per cfg.attn_impl. The flash kernel
     assumes standard positions (row r attends 0..r), which holds for full
@@ -334,6 +359,7 @@ def _block(
     kv_length: Optional[torch.Tensor] = None,
     lora_layer=None,  # this layer's adapters {name: {"a", "b"}}
     lora_scale: float = 1.0,
+    block_table: Optional[torch.Tensor] = None,  # [B, M]: layer_cache is a page pool
 ) -> Tuple[torch.Tensor, Cache]:
     """One transformer block. Returns (x_out, kv): the fresh {k, v}
     entries without a cache (prefill), else the updated layer cache."""
@@ -355,6 +381,9 @@ def _block(
     if layer_cache is None:
         attn = _self_attention(q, kk, vv, positions, cfg)
         kv = {"k": kk, "v": vv}
+    elif block_table is not None:
+        kv, k_ctx, v_ctx = kvcache.paged_update_and_read(layer_cache, block_table, positions, kk, vv, cfg.dtype)
+        attn = dot_product_attention(q, k_ctx, v_ctx, causal=True, q_positions=positions, kv_length=kv_length)
     else:
         attn, kv = update_cache_and_attend(
             layer_cache, q, kk, vv, positions, kv_length=kv_length,
@@ -377,7 +406,8 @@ def forward(
     cfg: LlamaConfig,
     *,
     positions: Optional[torch.Tensor] = None,  # [B, S] absolute positions
-    cache: Optional[Cache] = None,  # dense cache from init_cache (written in place)
+    cache: Optional[Cache] = None,  # init_cache's, or init_paged_cache's with block_table (written in place)
+    block_table: Optional[torch.Tensor] = None,  # [B, M] page ids: `cache` is the paged pool
     kv_length: Optional[torch.Tensor] = None,  # [B] valid cache prefix
     lora=None,  # {"layers": per-layer adapters (train/lora.py), "scale": alpha / rank}
     remat: bool = False,  # recompute each block in the backward (training memory saver)
@@ -389,7 +419,8 @@ def forward(
     the fragment the engine inserts into a slot cache; a training forward
     (train=True) returns no fragment (kv = {}), which nothing reads there.
     With cache: tokens are written at `positions` and attention runs over
-    the cache; kv is the same (updated) cache dict.
+    the cache (with block_table, over each row's pages gathered through
+    it); kv is the same (updated) cache dict.
 
     Autograd records the call unless the caller turns it off (serving runs
     it under torch.inference_mode()); gradients reach what requires them:
@@ -405,7 +436,7 @@ def forward(
     for i, lp in enumerate(params.layers):
         layer_cache = None if cache is None else {name: t[i] for name, t in cache.items()}
         args = (x, lp, positions, cfg, layer_cache, kv_length,
-                None if lora_layers is None else lora_layers[i], lora_scale)
+                None if lora_layers is None else lora_layers[i], lora_scale, block_table)
         if remat:
             # The block draws no random numbers: no RNG state to stash.
             x, kv = checkpoint(_block, *args, use_reentrant=False, preserve_rng_state=False)
@@ -429,8 +460,10 @@ def decode_step(
     tokens: torch.Tensor,  # [B] current token per row
     positions: torch.Tensor,  # [B] position to write/attend at
     cfg: LlamaConfig,
+    block_table: Optional[torch.Tensor] = None,  # [B, M]: `cache` is the paged pool
 ) -> Tuple[torch.Tensor, Cache]:
     """One decode step: logits [B, vocab] for the next token; the cache
     is updated in place (and returned, as the JAX function returns it)."""
-    logits, cache = forward(params, tokens[:, None], cfg, positions=positions[:, None], cache=cache)
+    logits, cache = forward(params, tokens[:, None], cfg, positions=positions[:, None], cache=cache,
+                            block_table=block_table)
     return logits[:, 0, :], cache

@@ -3,10 +3,13 @@ card as one CUDA graph (the counterpart of the JAX engine's jitted
 ``_build_decode``, substratus_tpu/serve/engine.py).
 
 A DecodeGraph owns the step's inputs on the device (``tokens``,
-``positions``, ``temps``, ``top_ps`` and the ``fresh`` mask) and its output
+``positions``, ``temps``, ``top_ps`` and the ``fresh`` mask; for an engine
+on the paged pool also its ``block_table`` [B, max_pages]) and its output
 (``out``, the sampled tokens). The step itself, ``step(tokens, positions,
-temps, top_ps) -> sampled``, is the engine's decode_step + sample over its
-cache and params. Each launch:
+temps, top_ps[, block_table]) -> sampled``, is the engine's decode_step +
+sample over its cache and params. The block table is an input like the
+others, so a replay reads the pages the engine has grown since the
+capture. Each launch:
 
   1. writes the host inputs into a pinned staging set (two sets, used in
      turns) and copies them into the static buffers without a host sync;
@@ -43,7 +46,7 @@ from __future__ import annotations
 
 import functools
 import time
-from typing import Callable, Dict, Iterator, Tuple
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,6 +59,7 @@ from substratus_tpu_torch.ops.quant4 import check_weight, q4_matmul
 COUNTED = (decode_attention, fused_decode_attention, q4_matmul, check_weight)
 
 _INPUTS = ("tokens", "positions", "temps", "top_ps", "fresh")
+_PAGED_INPUTS = _INPUTS + ("block_table",)
 
 
 def _counters() -> Iterator[Tuple[str, object, str]]:
@@ -71,13 +75,15 @@ class DecodeGraph:
 
     def __init__(
         self,
-        step: Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor],
+        step: Callable[..., torch.Tensor],
         batch: int,
         device: torch.device,
         generator: torch.Generator,
         stats: Dict[str, float],
         capture: bool,
+        pages: int = 0,
     ):
+        """`pages` > 0: the step also takes a block table [batch, pages]."""
         if capture and device.type != "cuda":
             raise ValueError(f"a decode graph is captured on the card, not on {device}")
         self.step, self.device, self.generator, self.stats = step, device, generator, stats
@@ -88,9 +94,12 @@ class DecodeGraph:
         self.top_ps = torch.ones(batch, dtype=torch.float32, device=device)
         self.fresh = torch.ones(batch, dtype=torch.bool, device=device)
         self.out = torch.zeros(batch, dtype=torch.int32, device=device)
+        self.block_table = torch.zeros(batch, pages, dtype=torch.int64, device=device) if pages else None
+        self.inputs = _PAGED_INPUTS if pages else _INPUTS
         cuda = device.type == "cuda"
-        self._staging = [{name: torch.empty(batch, dtype=getattr(self, name).dtype, pin_memory=cuda)
-                          for name in _INPUTS} for _ in range(2)]
+        self._staging = [{name: torch.empty(getattr(self, name).shape, dtype=getattr(self, name).dtype,
+                                            pin_memory=cuda)
+                          for name in self.inputs} for _ in range(2)]
         self._host_out = [torch.empty(batch, dtype=torch.int32, pin_memory=cuda) for _ in range(2)]
         self._done = [torch.cuda.Event() if cuda else None for _ in range(2)]
         self._unread = [False, False]
@@ -102,7 +111,8 @@ class DecodeGraph:
     def _body(self) -> None:
         with torch.inference_mode():  # serving builds no autograd graph
             tokens = torch.where(self.fresh, self.tokens, self.out.to(torch.int64))
-            self.out.copy_(self.step(tokens, self.positions, self.temps, self.top_ps))
+            pages = () if self.block_table is None else (self.block_table,)
+            self.out.copy_(self.step(tokens, self.positions, self.temps, self.top_ps, *pages))
 
     def _capture(self) -> None:
         t0 = time.perf_counter()
@@ -126,16 +136,18 @@ class DecodeGraph:
         self.capture_seconds = time.perf_counter() - t0
 
     def launch(self, tokens: np.ndarray, positions: np.ndarray, temps: np.ndarray, top_ps: np.ndarray,
-               fresh: np.ndarray) -> Callable[[], np.ndarray]:
+               fresh: np.ndarray, block_table: Optional[np.ndarray] = None) -> Callable[[], np.ndarray]:
         """Stage the host inputs, run the step (replay, capture first, or
         eager) and queue its tokens' copy to the host. Returns the read of
         this launch's tokens."""
+        if (block_table is None) != (self.block_table is None):
+            raise ValueError("a block table is an input of exactly the paged engine's step")
         turn = self._turn
         if self._unread[turn]:
             raise RuntimeError("decode step launched before the step two launches back was read")
         self._turn ^= 1
         staging = self._staging[turn]
-        for name, value in zip(_INPUTS, (tokens, positions, temps, top_ps, fresh)):
+        for name, value in zip(self.inputs, (tokens, positions, temps, top_ps, fresh, block_table)):
             staging[name].numpy()[:] = value
             getattr(self, name).copy_(staging[name], non_blocking=True)
         if self.capture and self.graph is None:

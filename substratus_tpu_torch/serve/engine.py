@@ -1,20 +1,35 @@
-"""Continuous-batching inference engine on the dense cache (port of
-substratus_tpu/serve/engine.py).
+"""Continuous-batching inference engine (port of
+substratus_tpu/serve/engine.py), on the paged pool or the dense cache.
 
-  * the decode batch is a fixed array of slots over the dense cache
-    [L, B, KH, S, hd] (model dtype or int8);
-  * each request is prefilled alone at a power-of-two bucket length and
-    its KV fragment inserted into a free slot; a prompt longer than
+  * the decode batch is a fixed array of slots. EngineConfig.kv_layout
+    picks their cache: "paged" (a pool of pages [L, P, bs, KH, hd] shared
+    by all slots, each slot's pages named by its row of a block table),
+    "dense" (one max_seq_len region a slot, [L, B, KH, S, hd]) or "auto",
+    the default, which is paged for a model family that supports it (llama
+    does), as the JAX engine resolves it; either in the model dtype or
+    int8;
+  * paged: a prompt's full pages are published in a chain-hash registry
+    (serve/paged_kv.py), so a later prompt with the same prefix shares
+    them and prefills only the rest; the prompt runs as chunks of
+    ``max_prefill_len`` through its block-table row. Pages are allocated
+    as decoding crosses page boundaries; when the pool runs dry the
+    registry's least recently used entries are evicted, then the youngest
+    slot is preempted and later resumed with prompt + generated tokens
+    (re-prefilled), and a request alone in a dry pool ends as truncated;
+  * dense: each request is prefilled alone at a power-of-two bucket length
+    and its KV fragment inserted into a free slot; a prompt longer than
     ``max_prefill_len`` runs as a sequence of chunks written straight into
     its slot's cache, each attending everything before it;
   * every decode step advances all slots one token and samples on the
     device; finished slots are freed and refilled between steps. On the
     card the step's device work is one CUDA graph, captured once and
-    replayed (serve/decode_graph.py).
+    replayed (serve/decode_graph.py); on the paged pool the block table
+    is one of its inputs.
 
 Threading model: callers enqueue Requests (thread-safe); one scheduler
-thread owns the model, the cache and the generator, so every cache write
-and every kernel launch is ordered on that thread's current stream.
+thread owns the model, the cache, the page bookkeeping and the generator,
+so every cache write and every kernel launch is ordered on that thread's
+current stream.
 
 Scheduling (EngineConfig.overlap): the overlapped scheduler, the default,
 dispatches step N+1, each continuing slot's token fed from step N's
@@ -22,11 +37,16 @@ output on the device, before it reads step N's tokens to the host, so the
 host half of a step (the read, emits, release, admission) runs while the
 card computes step N+1. A slot released at step N's drain still rides
 step N+1; that step's token for it is dropped by the drain's identity
-check. overlap=False reads each step's tokens before the next dispatch.
+check. Pages a released slot held may be handed to a new request while
+that step is in flight: its writes come after the step's on the stream.
+Preemption and truncation first flush the step in flight, so they see a
+settled batch. overlap=False reads each step's tokens before the next
+dispatch.
 
-Not ported yet (ROADMAP Queue 1): the paged layout and prefix reuse,
-speculation, adapters, disaggregated roles and lockstep gangs;
-EngineConfig has none of their fields.
+Not ported yet (ROADMAP Queue 1): speculation and its draft pool,
+adapters (and the registry's adapter salt), disaggregated roles with their
+page export and import, and lockstep gangs; EngineConfig has none of their
+fields.
 """
 from __future__ import annotations
 
@@ -45,6 +65,7 @@ from substratus_tpu_torch.models import llama
 from substratus_tpu_torch.ops.decode_attention import pack_fragment
 from substratus_tpu_torch.ops.sampling import sample
 from substratus_tpu_torch.serve.decode_graph import DecodeGraph
+from substratus_tpu_torch.serve.paged_kv import PageAllocator, PrefixRegistry, SlotPages, chain_entries
 from substratus_tpu_torch.utils.device import DeviceLike, resolve_device, seeded_generator
 
 
@@ -70,6 +91,16 @@ class EngineConfig:
     # "model" keeps the cache in the model dtype; "int8" stores entries
     # quantized per vector with f32 scales.
     kv_cache_dtype: str = "model"
+    # KV layout (module docstring): "paged", "dense", or "auto" (paged when
+    # the model family supports it), as in the JAX engine.
+    kv_layout: str = "auto"
+    page_size: int = 16  # tokens a page (paged)
+    # The pool's size in tokens (paged). None = max_batch * max_seq_len,
+    # the dense footprint; fewer oversubscribes the slots, and the
+    # scheduler preempts (and later resumes) the youngest slot when the
+    # pool runs dry.
+    kv_pool_tokens: Optional[int] = None
+    prefix_cache: bool = True  # share full prompt pages across requests (paged)
     # The overlapped scheduler (module docstring). None = on, as the JAX
     # engine resolves it for a single-process engine (the port has no roles
     # or gangs); False gives the synchronous scheduler.
@@ -153,7 +184,37 @@ class Engine:
         self.cfg, self.params, self.ec, self.model = cfg, params, ec, model
         B, S = ec.max_batch, ec.max_seq_len
         cache_dtype = torch.int8 if ec.kv_cache_dtype == "int8" else None
-        self.cache = model.init_cache(cfg, B, S, dtype=cache_dtype, device=self.device)
+        supports_paged = getattr(model, "SUPPORTS_PAGED", False)
+        layout = ec.kv_layout
+        if layout == "auto":
+            layout = "paged" if supports_paged else "dense"
+        if layout not in ("paged", "dense"):
+            raise ValueError(f"kv_layout {layout!r} invalid")
+        if layout == "paged" and not supports_paged:
+            raise ValueError(f"kv_layout=paged unsupported for {model.__name__}")
+        self.paged = layout == "paged"
+        if self.paged:
+            bs = ec.page_size
+            if bs < 1:
+                raise ValueError(f"page_size {bs} invalid")
+            if ec.kv_pool_tokens is not None and ec.kv_pool_tokens < 1:
+                raise ValueError(f"kv_pool_tokens {ec.kv_pool_tokens} invalid")
+            # One full-length sequence (and its one-past-the-prompt slot)
+            # always fits.
+            pool_tokens = max(B * S if ec.kv_pool_tokens is None else ec.kv_pool_tokens, S + bs)
+            self.page_size = bs
+            self.n_pages = -(-pool_tokens // bs)
+            self.max_pages = -(-S // bs)  # a slot's block-table width
+            # Physical page 0 is the trash page: idle slots' decode writes
+            # land there (their block-table rows are zero), never in a live
+            # page. The allocator hands out ids 1..n_pages.
+            self.cache = model.init_paged_cache(cfg, self.n_pages + 1, bs, dtype=cache_dtype, device=self.device)
+            self.block_table = np.zeros((B, self.max_pages), np.int64)
+            self.alloc = PageAllocator(self.n_pages, first_page=1)
+            self.prefix = PrefixRegistry(self.alloc) if ec.prefix_cache else None
+            self.slot_pages = SlotPages(B)
+        else:
+            self.cache = model.init_cache(cfg, B, S, dtype=cache_dtype, device=self.device)
         self.generator = seeded_generator(0, self.device)
         self.overlap = ec.overlap is not False
         self.decode_graph = decode_graph and self.device.type == "cuda"
@@ -167,6 +228,15 @@ class Engine:
         self.slot_req: List[Optional[Request]] = [None] * B
         self.slot_generated: List[int] = [0] * B
         self.active = np.zeros(B, dtype=bool)
+        # Each slot's delivered tokens (a preempted request resumes with
+        # prompt + these) and its admission order (preemption takes the
+        # youngest slot, so the oldest requests keep their progress).
+        self.slot_tokens: List[List[int]] = [[] for _ in range(B)]
+        self.slot_admit_seq: List[int] = [0] * B
+        self._admit_counter = 0
+        # Requests that board before the queue: preempted ones, and one
+        # held back because the pool was dry at its admission.
+        self._resume: List[Request] = []
         # The pipeline's one in-flight step, and the per-slot "the host token
         # is newer" mask of the device feedback: a slot not fresh takes the
         # last dispatched step's token from the device (the graph's `out`);
@@ -185,7 +255,12 @@ class Engine:
         self.error: Optional[BaseException] = None
         # Host-clock counters of the scheduler thread (read by benches).
         # "prefills" counts single-shot prefills, "prefill_chunks" the
-        # chunks of chunked ones; "prefill_seconds" covers both.
+        # chunks of chunked ones (on the paged pool every prompt runs as
+        # chunks through its block-table row); "prefill_seconds" covers
+        # both. "prefill_tokens" counts the tokens run through the model,
+        # "prefix_hit_tokens" those a prompt took from shared pages instead;
+        # "preemptions" and "truncated_by_pool" count the pool's two
+        # answers to pressure, "max_active" the most slots ever decoding.
         # "decode_steps" counts dispatched steps and "decode_seconds" the
         # wall time of the scheduler iterations that decode (the dispatch of
         # one step and, overlapped, the drain of the one before), so its
@@ -196,7 +271,11 @@ class Engine:
             "prefills": 0,
             "prefill_chunks": 0,
             "prefill_tokens": 0,
+            "prefix_hit_tokens": 0,
             "prefill_seconds": 0.0,
+            "preemptions": 0,
+            "truncated_by_pool": 0,
+            "max_active": 0,
             "decode_steps": 0,
             "decode_seconds": 0.0,
             "graph_replays": 0,
@@ -250,21 +329,39 @@ class Engine:
 
     # --- scheduler ----------------------------------------------------------
 
+    def _next_request(self) -> Optional[Request]:
+        """Preempted and held-back requests board before the queue."""
+        if self._resume:
+            return self._resume.pop(0)
+        try:
+            return self.queue.get_nowait()
+        except queue.Empty:
+            return None
+
     def _admit(self) -> int:
         """Fill free slots from the queue; capped per iteration while
-        slots decode, so a burst of arrivals cannot starve them."""
+        slots decode, so a burst of arrivals cannot starve them. On the
+        paged pool a request that finds too few pages is held at the front
+        of the line and the round ends: decoding slots will free pages."""
         cap = max(1, self.ec.max_batch // 4) if self.active.any() else self.ec.max_batch
         admitted = 0
         while admitted < cap and not self.active.all():
-            try:
-                req = self.queue.get_nowait()
-            except queue.Empty:
+            req = self._next_request()
+            if req is None:
                 break
             self._admitting = req
             slot = int(np.flatnonzero(~self.active)[0])
-            self._admit_dense(req, slot)
+            if self.paged:
+                ok = self._admit_paged(req, slot)
+            else:
+                self._admit_dense(req, slot)
+                ok = True
             self._admitting = None
+            if not ok:
+                self._resume.insert(0, req)
+                break
             admitted += 1
+        self.stats["max_active"] = max(self.stats["max_active"], int(self.active.sum()))
         return admitted
 
     def _admit_dense(self, req: Request, slot: int) -> None:
@@ -289,29 +386,83 @@ class Engine:
         self.stats["prefill_seconds"] += time.perf_counter() - t0
 
     def _chunked_prefill(self, prompt: List[int], slot: int) -> torch.Tensor:
-        """Prefill a prompt longer than one bucket: run bucket-sized chunks
-        against the slot's cache, each written in place into
-        cache[:, slot] (a view whose per-layer slices are contiguous) and
-        attending everything before it. Returns the last real token's
-        logits."""
+        """Prefill a prompt longer than one bucket on the dense cache: its
+        chunks written in place into cache[:, slot] (a view whose per-layer
+        slices are contiguous), each attending everything before it.
+        Returns the last real token's logits."""
         slot_cache = {name: t[:, slot : slot + 1] for name, t in self.cache.items()}
+        return self._run_chunks(prompt, 0, cache=slot_cache)
+
+    def _run_chunks(self, prompt: List[int], start: int, cache: Dict[str, torch.Tensor],
+                    block_table: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Run prompt[start:] through the model in bucket-sized chunks
+        against `cache` (one slot's dense cache, or the paged pool through
+        a block-table row [1, M]), each chunk attending everything before
+        it. Returns the last real token's logits."""
         chunk = self.ec.max_prefill_len
-        offset, last_logits = 0, None
+        kw = {} if block_table is None else {"block_table": block_table}
+        offset, last_logits = start, None
         while offset < len(prompt):
             padded, clen = _pad_to_bucket(prompt[offset : offset + chunk], chunk)
             tokens = self._to_device(padded)
             # The padded tail clamps onto the one slot past the prompt: real
             # queries never attend it, and the first decode step writes that
-            # slot before reading it. clipped_prompt keeps prompts within
-            # max_seq_len - 1, so the slot exists.
+            # slot before reading it. Prompts are kept within
+            # max_seq_len - 1, so the slot exists (paged: admission owns a
+            # page for it).
             positions = torch.clamp(torch.arange(offset, offset + tokens.shape[1], device=self.device),
                                     max=offset + clen)[None, :]
             with torch.inference_mode():
-                logits, _ = self.model.forward(self.params, tokens, self.cfg, positions=positions, cache=slot_cache)
+                logits, _ = self.model.forward(self.params, tokens, self.cfg, positions=positions, cache=cache,
+                                               **kw)
             last_logits = logits[0, clen - 1]
             offset += clen
             self.stats["prefill_chunks"] += 1
         return last_logits
+
+    def _admit_paged(self, req: Request, slot: int) -> bool:
+        """Paged admission: take the registry's pages for the prompt's
+        shared prefix, allocate the rest, prefill only the unshared part
+        through the slot's block-table row, then publish the prompt's full
+        pages. False (nothing held) when the pool is dry."""
+        t0 = time.perf_counter()
+        bs = self.page_size
+        # An empty prompt runs one pad token through the model, so that
+        # first-token logits exist, as the JAX engine's paged path does.
+        prompt = self.clipped_prompt(req.prompt_tokens) or [0]
+        true_len = len(prompt)
+        entries = chain_entries(prompt, bs) if self.prefix is not None else []
+        # Reuse only pages strictly before the last prompt token: that
+        # token must run through the model for its logits.
+        shared = self.prefix.match(entries[: (true_len - 1) // bs]) if self.prefix is not None else []
+        reuse = len(shared) * bs
+        # Claim the shared pages before allocating owned ones: _try_alloc
+        # may evict registry entries, and an unclaimed matched page could be
+        # evicted and handed back as an owned one, one page in both roles.
+        if shared:
+            self.prefix.claim(shared)
+        # Owned pages cover positions reuse..true_len: the bucket padding
+        # writes the one slot past the prompt.
+        owned = self._try_alloc(-(-(true_len + 1) // bs) - len(shared))
+        if owned is None:
+            for pid in shared:
+                self.alloc.decref(pid)
+            return False
+        self.slot_pages.assign(slot, shared, owned)
+        pages = self.slot_pages.pages[slot]
+        self.block_table[slot] = 0
+        self.block_table[slot, : len(pages)] = pages
+        row = self._to_device(self.block_table[slot : slot + 1].copy())
+        last_logits = self._run_chunks(prompt, reuse, cache=self.cache, block_table=row)
+        self.stats["prefill_tokens"] += true_len - reuse
+        self.stats["prefix_hit_tokens"] += reuse
+        n_full = true_len // bs
+        if self.prefix is not None and n_full:
+            self.prefix.register(entries[:n_full], pages[:n_full])
+        self._finalize_admit(req, slot, last_logits, true_len)
+        # _finalize_admit's host read of the first token ends the prefill.
+        self.stats["prefill_seconds"] += time.perf_counter() - t0
+        return True
 
     def _insert(self, kv: Dict[str, torch.Tensor], slot: int) -> None:
         """Write a prefill fragment {k, v: [L, 1, Sb, KH, hd]} into
@@ -343,6 +494,9 @@ class Engine:
         first_id = int(first[0])  # the host read of the first token
         self.slot_req[slot] = req
         self.slot_generated[slot] = 0
+        self.slot_tokens[slot] = []
+        self._admit_counter += 1
+        self.slot_admit_seq[slot] = self._admit_counter
         self.active[slot] = True
         self.tokens[slot] = first_id
         # The device's tokens predate this admission: the next dispatch
@@ -354,10 +508,13 @@ class Engine:
         self._emit(slot, first_id)
 
     def _device_step(self, cfg: llama.LlamaConfig, tokens: torch.Tensor, positions: torch.Tensor,
-                     temps: torch.Tensor, top_ps: torch.Tensor) -> torch.Tensor:
+                     temps: torch.Tensor, top_ps: torch.Tensor,
+                     block_table: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The decode step's device work: advance every slot one token (the
-        cache is written in place) and sample, all on the device."""
-        logits, _ = self.model.decode_step(self.params, self.cache, tokens, positions, cfg)
+        cache is written in place; on the paged pool through the block
+        table) and sample, all on the device."""
+        kw = {} if block_table is None else {"block_table": block_table}
+        logits, _ = self.model.decode_step(self.params, self.cache, tokens, positions, cfg, **kw)
         return sample(logits, self.generator, temps, top_k=self.ec.top_k, top_p=top_ps)
 
     def _decode_graph(self) -> DecodeGraph:
@@ -369,7 +526,8 @@ class Engine:
             self._flush()
             self._graph_cfg = self.cfg
             self._graph = DecodeGraph(functools.partial(self._device_step, self.cfg), self.ec.max_batch,
-                                      self.device, self.generator, self.stats, capture=self.decode_graph)
+                                      self.device, self.generator, self.stats, capture=self.decode_graph,
+                                      pages=self.max_pages if self.paged else 0)
         return self._graph
 
     def replayed_launches(self, counter: str) -> int:
@@ -380,14 +538,90 @@ class Engine:
         captured = self._graph.captured if self._graph is not None else {}
         return captured.get(counter, 0) * int(self.stats["graph_replays"])
 
-    def _dispatch(self) -> _InFlightStep:
+    # --- the paged pool under pressure -----------------------------------
+
+    def _try_alloc(self, n: int) -> Optional[List[int]]:
+        """n fresh pages, evicting the registry's least recently used
+        entries under pressure; None (nothing held) when the pool is dry."""
+        got: List[int] = []
+        while len(got) < n:
+            pid = self.alloc.alloc()
+            if pid is not None:
+                got.append(pid)
+            elif self.prefix is None or not self.prefix.evict_lru():
+                for p in got:
+                    self.alloc.decref(p)
+                return None
+        return got
+
+    def _pick_victim(self, exclude: int) -> Optional[int]:
+        """The youngest active slot other than `exclude`."""
+        others = [int(s) for s in np.flatnonzero(self.active) if s != exclude]
+        return max(others, key=lambda s: self.slot_admit_seq[s], default=None)
+
+    def _preempt(self, victim: int) -> None:
+        """Evict a slot mid-decode: its pages free now, and its request (the
+        same object, whose consumer keeps reading) boards again first, with
+        prompt := prompt + delivered tokens and the budget that is left, so
+        its re-prefill rebuilds the slot's context."""
+        req = self.slot_req[victim]
+        gen = self.slot_tokens[victim]
+        req.prompt_tokens = list(req.prompt_tokens) + gen
+        req.max_tokens -= len(gen)
+        self._release_slot(victim)
+        self._resume.insert(0, req)
+        self.stats["preemptions"] += 1
+
+    def _ensure_capacity(self, slot: int) -> None:
+        """Before a step writes the slot's next position, make sure a page
+        backs it: allocate, evicting registry entries, then preempt the
+        youngest other slot. Alone in a dry pool, the request ends as
+        truncated ("length")."""
+        if not self.active[slot]:
+            return  # preempted earlier in this pass
+        pos = min(int(self.positions[slot]), self.ec.max_seq_len - 1)
+        while pos // self.page_size >= len(self.slot_pages.pages[slot]):
+            got = self._try_alloc(1)
+            while got is None:
+                if self._pending is not None:
+                    # Preemption and truncation need a settled batch: the
+                    # step in flight may release slots (and free pages) at
+                    # its drain, and a victim's resume prompt needs every
+                    # token it generated. Flush, then try again.
+                    self._flush()
+                    if not self.active[slot]:
+                        return  # the flush released this very slot
+                    got = self._try_alloc(1)
+                    continue
+                victim = self._pick_victim(exclude=slot)
+                if victim is None:
+                    req = self.slot_req[slot]
+                    req.finish_reason = "length"
+                    req.out.put(None)
+                    self._release_slot(slot)
+                    self.stats["truncated_by_pool"] += 1
+                    return
+                self._preempt(victim)
+                got = self._try_alloc(1)
+            self.block_table[slot, len(self.slot_pages.pages[slot])] = got[0]
+            self.slot_pages.append(slot, got[0])
+
+    def _dispatch(self) -> Optional[_InFlightStep]:
         """Device half of one decode step: launch it (each continuing slot's
         token from the last step's output on the device, each freshly
         admitted one's from the host) and return the bookkeeping without
         reading anything back. Everything that waits for the device belongs
-        in _drain, which the overlapped scheduler runs a step later."""
+        in _drain, which the overlapped scheduler runs a step later. On the
+        paged pool every slot first gets the page its write needs (which
+        may flush, preempt or truncate); None when that emptied the batch."""
+        if self.paged:
+            for slot in np.flatnonzero(self.active):
+                self._ensure_capacity(int(slot))
+            if not self.active.any():
+                return None
         graph = self._decode_graph()
-        read = graph.launch(self.tokens, self.positions, self.temps, self.top_ps, self._token_fresh)
+        pages = (self.block_table,) if self.paged else ()
+        read = graph.launch(self.tokens, self.positions, self.temps, self.top_ps, self._token_fresh, *pages)
         self._token_fresh[:] = False
         # Clamp at the last cache row: active slots are released at the
         # window before reaching it (_emit's hit_window), so the clamp only
@@ -427,12 +661,14 @@ class Engine:
     def _decode_step(self) -> None:
         """One synchronous iteration (overlap=False): dispatch, then drain
         at once."""
-        self._drain(self._dispatch())
+        step = self._dispatch()
+        if step is not None:
+            self._drain(step)
 
     def _step_overlapped(self) -> None:
         """One pipelined iteration: dispatch step N, then drain step N-1
         while step N occupies the card. Dispatch first: a dispatch that
-        replaces the graph flushes the pending step itself."""
+        replaces the graph, or preempts, flushes the pending step itself."""
         launched = self._dispatch()
         prev, self._pending = self._pending, launched
         if prev is not None:
@@ -461,6 +697,7 @@ class Engine:
         hit_window = pos_next + 1 >= self.ec.max_seq_len
         if not hit_eos:
             req.out.put(token_id)
+            self.slot_tokens[slot].append(token_id)
         if hit_eos or hit_budget or hit_window:
             req.finish_reason = "stop" if hit_eos else "length"
             req.out.put(None)
@@ -469,6 +706,13 @@ class Engine:
     def _release_slot(self, slot: int) -> None:
         self.active[slot] = False
         self.slot_req[slot] = None
+        self.slot_tokens[slot] = []
+        if self.paged:
+            self.slot_pages.release(slot, self.alloc)
+            # Point the idle row at the trash page: its decode writes go on
+            # (static shapes) and must never land in a page the allocator
+            # may hand to another request.
+            self.block_table[slot] = 0
 
     def _loop(self) -> None:
         try:
@@ -498,6 +742,8 @@ class Engine:
 
             if self._admitting is not None:
                 kill(self._admitting)
+            for req in self._resume:
+                kill(req)
             for req in self.slot_req:
                 if req is not None:
                     kill(req)

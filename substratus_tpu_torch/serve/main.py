@@ -17,7 +17,18 @@ Knobs come from flags or from the container contract's params file
 the subset ``model``, ``config``, ``max_batch``, ``max_seq_len``,
 ``max_prefill_len``, ``kv_cache_dtype``, ``max_queue`` and ``overlap`` (absent or ``true``: the
 overlapped scheduler; ``false``: the synchronous one; on the card the
-decode step is a CUDA graph in both), the weight knobs
+decode step is a CUDA graph in both), the cache's layout
+
+* ``kv_layout``: ``auto`` (the default) serves llama on the paged pool, as
+  the JAX entry point does: pages of 16 tokens, a pool of max_batch x
+  max_seq_len tokens, prompt prefixes shared, preempt-and-resume under
+  pressure (serve/engine.py); ``paged`` asks for it and ``dense`` for one
+  region a slot. ``decode_attn_impl: fused`` resolves ``auto`` to dense and
+  exits with ``paged`` (resolve_kv_layout, as in the JAX entry point). As
+  there, the page size, the pool's size and the prefix cache are
+  EngineConfig's alone: params.json has no key for them;
+
+the weight knobs
 
 * ``quantize``: ``none``, ``int8`` (weight-only int8, plain torch ops) and
   ``int4`` (nibble-packed groups through the int4 matmul kernel of
@@ -39,12 +50,14 @@ and the attention knobs under the JAX entry point's names:
   ``plain`` its plain PyTorch version; ``ring`` and ``ulysses`` exit.
 
 The port has no XLA, so a reference name runs a kernel too; the startup
-line says which. ``fused`` with ``kv_layout: paged`` exits, as in the JAX
-entry point. Every other key of the JAX entry point exits with the
-ROADMAP item that will serve it, named by its title, unless it holds the
-one value this port already serves (for example ``kv_layout: dense``): a
-knob is never silently ignored, and an unknown value of a served knob
-exits too.
+line says which. On the paged pool the attention knobs choose nothing:
+every prompt runs as chunks through its block-table row, and chunks and
+decode steps alike attend the pages gathered through it with the plain
+attention, as in the JAX package. Every other key of the JAX entry point
+exits with the ROADMAP item that will serve it, named by its title,
+unless it holds the one value this port already serves (for example
+``role: both``): a knob is never silently ignored, and an unknown value of
+a served knob exits too.
 """
 from __future__ import annotations
 
@@ -59,7 +72,6 @@ import torch
 # (a key holding it passes), and where the rest waits.
 _NOT_SERVED = {
     "baseModel": (None, "Queue 1, multi-tenant adapters (a base model shared by adapters)"),
-    "kv_layout": ("dense", "Queue 1, paged KV"),
     "spec_k": (0, "Queue 1, speculative decoding"),
     "draft_model": (None, "Queue 1, speculative decoding"),
     "adapters": (None, "Queue 1, multi-tenant adapters"),
@@ -74,7 +86,8 @@ _NOT_SERVED = {
     "drain_grace": (None, "Queue 1, the serving surface (gateway contract)"),
 }
 _SERVED = ("model", "config", "max_batch", "max_seq_len", "max_prefill_len", "kv_cache_dtype", "max_queue",
-           "overlap", "decode_attn_impl", "chunk_attn_impl", "attn_impl", "quantize", "q4_impl")
+           "overlap", "kv_layout", "decode_attn_impl", "chunk_attn_impl", "attn_impl", "quantize", "q4_impl")
+_KV_LAYOUTS = ("auto", "paged", "dense")
 _QUANTIZE = ("none", "int8", "int4")
 # The port has no XLA: both of the JAX entry point's int4 lowerings run the kernel.
 _Q4_IMPLS = ("pallas", "xla")
@@ -98,10 +111,8 @@ def load_params_json(path: Optional[str]) -> Dict[str, Any]:
 
 def resolve_attn_impls(params: Dict[str, Any]) -> Tuple[str, str, str]:
     """(decode_attn_impl, chunk_attn_impl, attn_impl) of models/llama.py
-    for the params.json names; exits on an unknown name, on the multi-GPU
-    attentions and, as the JAX entry point's resolve_kv_layout does, on
-    fused decode with the paged layout (the paged decode path never
-    reaches the fused kernel)."""
+    for the params.json names; exits on an unknown name and on the
+    multi-GPU attentions."""
     decode = params.get("decode_attn_impl", "xla")
     chunk = params.get("chunk_attn_impl", "xla")
     prefill = params.get("attn_impl", "xla")
@@ -114,12 +125,26 @@ def resolve_attn_impls(params: Dict[str, Any]) -> Tuple[str, str, str]:
         raise SystemExit(f"params.json: decode_attn_impl={decode!r} invalid (one of {sorted(_DECODE_IMPLS)})")
     if chunk not in _CHUNK_IMPLS:
         raise SystemExit(f"params.json: chunk_attn_impl={chunk!r} invalid (one of {sorted(_CHUNK_IMPLS)})")
-    if decode == "fused" and params.get("kv_layout") == "paged":
+    return _DECODE_IMPLS[decode], _CHUNK_IMPLS[chunk], ATTN_IMPLS[prefill]
+
+
+def resolve_kv_layout(params: Dict[str, Any]) -> str:
+    """EngineConfig.kv_layout of params.json, as the JAX entry point
+    resolves it: the fused decode kernel lives on the dense path (the paged
+    read never reaches it), so fused with auto resolves to dense, and fused
+    with paged, a contradiction, exits. Also exits on an unknown layout."""
+    layout = params.get("kv_layout", "auto")
+    if layout not in _KV_LAYOUTS:
+        raise SystemExit(f"params.json: kv_layout={layout!r} invalid (one of {_KV_LAYOUTS})")
+    fused = params.get("decode_attn_impl") == "fused"
+    if fused and layout == "auto":
+        return "dense"
+    if fused and layout == "paged":
         raise SystemExit(
             "params.json: decode_attn_impl=fused requires kv_layout=dense "
             "(the paged decode path does not use the fused kernel)"
         )
-    return _DECODE_IMPLS[decode], _CHUNK_IMPLS[chunk], ATTN_IMPLS[prefill]
+    return layout
 
 
 def resolve_quantize(params: Dict[str, Any]) -> str:
@@ -152,6 +177,7 @@ def check_params(params: Dict[str, Any]) -> None:
     queue), on any key it does not know, and on an attention, weight or
     scheduler mode it does not serve."""
     resolve_attn_impls(params)
+    resolve_kv_layout(params)
     resolve_quantize(params)
     resolve_overlap(params)
     for key, value in params.items():
@@ -263,6 +289,7 @@ def build(argv=None):
         max_seq_len=int(knob(args.max_seq_len, "max_seq_len", 1024)),
         max_prefill_len=int(params_json.get("max_prefill_len", EngineConfig.max_prefill_len)),
         kv_cache_dtype=params_json.get("kv_cache_dtype", "model"),
+        kv_layout=resolve_kv_layout(params_json),
         eos_token_id=tokenizer.eos_id,
         max_queue=max_queue if max_queue > 0 else None,
         overlap=resolve_overlap(params_json),
@@ -276,12 +303,20 @@ def build(argv=None):
     # An artifact may hold quantized weights without a quantize knob (QLoRA's int8 base).
     held = set(family.quantized_layout(params).values())
     shown = quantize if quantize != "none" or len(held) != 1 else held.pop()
-    prefill = "flash kernel" if prefill_impl == "flash" else "plain PyTorch"
-    print(f"serving {name} on {args.host}:{server.port} ({device}); {weights[shown]}; prefill attention: "
-          f"{prefill} (attn_impl={params_json.get('attn_impl', 'xla')}); decode attention: "
-          f"{'fused cache-write + decode kernel' if decode_impl == 'fused' else 'decode kernel'} "
-          f"(decode_attn_impl={params_json.get('decode_attn_impl', 'xla')}), long-prompt chunks: "
-          f"cached flash kernel (chunk_attn_impl={params_json.get('chunk_attn_impl', 'xla')}); scheduler: "
+    layout = f"kv_layout={params_json.get('kv_layout', 'auto')}"
+    if engine.paged:
+        cache = (f"paged KV ({layout}): pages of {engine.page_size} tokens, a pool of {engine.n_pages} pages and "
+                 f"the trash page, prefix cache {'on' if engine.prefix is not None else 'off'}; prompts in chunks "
+                 "through their block-table rows, chunks and decode steps attending the gathered pages with "
+                 "plain PyTorch attention")
+    else:
+        prefill = "flash kernel" if prefill_impl == "flash" else "plain PyTorch"
+        cache = (f"dense KV ({layout}); prefill attention: {prefill} "
+                 f"(attn_impl={params_json.get('attn_impl', 'xla')}); decode attention: "
+                 f"{'fused cache-write + decode kernel' if decode_impl == 'fused' else 'decode kernel'} "
+                 f"(decode_attn_impl={params_json.get('decode_attn_impl', 'xla')}), long-prompt chunks: "
+                 f"cached flash kernel (chunk_attn_impl={params_json.get('chunk_attn_impl', 'xla')})")
+    print(f"serving {name} on {args.host}:{server.port} ({device}); {weights[shown]}; {cache}; scheduler: "
           f"{'overlapped' if engine.overlap else 'synchronous'}, decode step "
           f"{'one CUDA graph' if engine.decode_graph else 'eager'}", flush=True)
     return server

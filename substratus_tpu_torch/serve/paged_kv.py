@@ -1,0 +1,178 @@
+"""Host-side paged-KV bookkeeping: page allocator + shared-prefix registry
+(the port's own copy of substratus_tpu/serve/paged_kv.py, which is plain
+Python; the port imports nothing of the JAX package).
+
+Device layout and ops live in ops/kvcache.py; this module owns the decisions
+— which page holds which tokens, who is sharing what — all plain Python on
+the scheduler thread (engine threading model: one thread owns device state,
+so no locks here).
+
+Sharing model (prefix caching):
+  * only FULL pages of prompt tokens are shared; the partially-filled tail
+    page and everything a sequence generates stay private, so shared pages
+    are immutable by construction;
+  * pages are identified by a rolling chain hash — page i's key commits to
+    every token before it, so a hit at depth i implies the whole prefix
+    matches;
+  * the registry holds its own reference on shared pages (they survive the
+    sequences that created them) and evicts LRU-first under allocator
+    pressure.
+"""
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import List, Optional, Sequence, Tuple
+
+
+class PageAllocator:
+    """Free-list page allocator with reference counts (shared prefixes hold
+    multiple refs on one page)."""
+
+    def __init__(self, num_pages: int, first_page: int = 0):
+        """Hands out ids first_page..first_page+num_pages-1. The engine
+        reserves physical page 0 as a write-off target: idle decode slots
+        (block-table rows zeroed) scatter their garbage tokens there, so
+        they can never clobber a live sequence's page."""
+        self.num_pages = num_pages
+        self.first_page = first_page
+        self._free: List[int] = list(
+            range(first_page + num_pages - 1, first_page - 1, -1)
+        )
+        self._refs: List[int] = [0] * (first_page + num_pages)
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
+    def used_pages(self) -> int:
+        return self.num_pages - len(self._free)
+
+    def alloc(self) -> Optional[int]:
+        """One page at refcount 1, or None when exhausted."""
+        if not self._free:
+            return None
+        pid = self._free.pop()
+        self._refs[pid] = 1
+        return pid
+
+    def incref(self, pid: int) -> None:
+        assert self._refs[pid] > 0, f"incref on free page {pid}"
+        self._refs[pid] += 1
+
+    def decref(self, pid: int) -> None:
+        assert self._refs[pid] > 0, f"decref on free page {pid}"
+        self._refs[pid] -= 1
+        if self._refs[pid] == 0:
+            self._free.append(pid)
+
+    def refs(self, pid: int) -> int:
+        return self._refs[pid]
+
+
+def chain_entries(
+    tokens: Sequence[int], page_size: int, salt: object = None
+) -> List[Tuple[int, int, Tuple[int, ...]]]:
+    """Per FULL page: (chain_hash, parent_hash, page_tokens). The chain hash
+    commits to every token before the page — but hash() is not collision-
+    proof on user-controlled token sequences, so the registry also verifies
+    (parent_hash, page_tokens) on match: with the parent link verified
+    inductively, equal page tokens imply the whole prefix matches.
+
+    `salt` seeds the chain root: multi-tenant serving passes the request's
+    adapter id so a prompt prefilled under one LoRA adapter (whose wk/wv
+    deltas change the cached K/V values) can never be reused by another
+    tenant — same tokens, different adapter, disjoint chains."""
+    out: List[Tuple[int, int, Tuple[int, ...]]] = []
+    h = 0 if salt is None else hash(("adapter-salt", salt))
+    for i in range(len(tokens) // page_size):
+        page = tuple(tokens[i * page_size : (i + 1) * page_size])
+        parent = h
+        h = hash((h, page))
+        out.append((h, parent, page))
+    return out
+
+
+class PrefixRegistry:
+    """chain-hash -> (page id, parent hash, page tokens) map with LRU
+    eviction. The registry owns one reference per registered page; eviction
+    drops it (the page is freed once no live sequence still shares it)."""
+
+    def __init__(self, alloc: PageAllocator, max_entries: int = 4096):
+        self.alloc = alloc
+        self.max_entries = max_entries
+        self._map: "OrderedDict[int, Tuple[int, int, Tuple[int, ...]]]" = (
+            OrderedDict()
+        )
+        self.hits = 0
+        self.misses = 0
+
+    def __len__(self) -> int:
+        return len(self._map)
+
+    def match(
+        self, entries: Sequence[Tuple[int, int, Tuple[int, ...]]]
+    ) -> List[int]:
+        """Longest-prefix hit: page ids for the leading run of verified
+        chain entries (refcounts NOT yet taken — see claim)."""
+        run: List[int] = []
+        for h, parent, page in entries:
+            hit = self._map.get(h)
+            if hit is None or hit[1] != parent or hit[2] != page:
+                break  # unknown, or a raw hash collision — never trust it
+            self._map.move_to_end(h)
+            run.append(hit[0])
+        self.hits += len(run)
+        self.misses += len(entries) - len(run)
+        return run
+
+    def claim(self, pids: Sequence[int]) -> None:
+        """Take a sequence's reference on matched shared pages."""
+        for pid in pids:
+            self.alloc.incref(pid)
+
+    def register(
+        self,
+        entries: Sequence[Tuple[int, int, Tuple[int, ...]]],
+        pids: Sequence[int],
+    ) -> None:
+        """Publish a sequence's full prompt pages. Already-known hashes keep
+        their existing page (the caller's copy stays private)."""
+        for (h, parent, page), pid in zip(entries, pids):
+            if h in self._map:
+                self._map.move_to_end(h)
+                continue
+            if len(self._map) >= self.max_entries and not self.evict_lru():
+                return
+            self.alloc.incref(pid)
+            self._map[h] = (pid, parent, page)
+
+    def evict_lru(self) -> bool:
+        """Drop the least-recently-used entry; returns False when empty."""
+        if not self._map:
+            return False
+        _, (pid, _, _) = self._map.popitem(last=False)
+        self.alloc.decref(pid)
+        return True
+
+
+class SlotPages:
+    """Per-slot page list: which pool pages back each decode slot, and how
+    many of the leading ones are shared (read-only for this slot)."""
+
+    def __init__(self, max_batch: int):
+        self.pages: List[List[int]] = [[] for _ in range(max_batch)]
+        self.shared: List[int] = [0] * max_batch
+
+    def assign(self, slot: int, shared: List[int], owned: List[int]) -> None:
+        self.pages[slot] = list(shared) + list(owned)
+        self.shared[slot] = len(shared)
+
+    def append(self, slot: int, pid: int) -> None:
+        self.pages[slot].append(pid)
+
+    def release(self, slot: int, alloc: PageAllocator) -> None:
+        for pid in self.pages[slot]:
+            alloc.decref(pid)
+        self.pages[slot] = []
+        self.shared[slot] = 0

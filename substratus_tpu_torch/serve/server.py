@@ -157,18 +157,21 @@ class Handler(BaseHTTPRequestHandler):
             top_p=float(body.get("top_p", 1.0)),
             eos_token_id=state.tokenizer.eos_id,
         )
+        # Counted now: a request preempted on the paged pool resumes with
+        # its delivered tokens appended to prompt_tokens.
+        n_prompt = len(req.prompt_tokens)
         try:
             state.engine.submit(req)
         except EngineOverloaded as e:
             return self._error(429, str(e), "overloaded",
                                {"Retry-After": str(max(1, math.ceil(e.retry_after)))})
         if body.get("stream"):
-            return self._stream(req, body)
+            return self._stream(req, body, n_prompt)
         ids, finish = self._collect(req)
         if state.engine.error is not None:
             return self._error(500, str(state.engine.error), "engine_error")
         self._send(200, completion_body(
-            state, state.tokenizer.decode(ids), len(req.prompt_tokens), len(ids), finish,
+            state, state.tokenizer.decode(ids), n_prompt, len(ids), finish,
             model=body.get("model"),
         ))
 
@@ -181,7 +184,7 @@ class Handler(BaseHTTPRequestHandler):
                 return ids, req.finish_reason
             ids.append(tok)
 
-    def _stream(self, req: Request, body: dict) -> None:
+    def _stream(self, req: Request, body: dict, n_prompt: int) -> None:
         """SSE: one chunk per generated token (its text may be empty, e.g.
         a non-byte id or half a codepoint), then the finish chunk, the
         optional usage chunk and [DONE]."""
@@ -216,7 +219,6 @@ class Handler(BaseHTTPRequestHandler):
         full = tokenizer.decode(ids)
         chunk(full[sent:], req.finish_reason)
         if (body.get("stream_options") or {}).get("include_usage"):
-            n_prompt = len(req.prompt_tokens)
             chunk("", usage={"prompt_tokens": n_prompt, "completion_tokens": len(ids),
                              "total_tokens": n_prompt + len(ids)})
         self.wfile.write(b"data: [DONE]\n\n")

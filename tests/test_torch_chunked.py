@@ -65,7 +65,7 @@ def _generate(engine, prompts, max_tokens=8):
 @pytest.mark.parametrize("kv", ["model", "int8"])
 def test_chunked_matches_jax_engine(weights, kv):
     j_params, t_params = weights
-    engine = Engine(T_CFG, t_params, EngineConfig(**_ec(32, kv)), device="cpu")
+    engine = Engine(T_CFG, t_params, EngineConfig(kv_layout="dense", **_ec(32, kv)), device="cpu")
     got = _generate(engine, [PROMPT])
     want = _generate(JEngine(J_CFG, j_params, JEngineConfig(kv_layout="dense", overlap=False, **_ec(32, kv))),
                      [PROMPT])
@@ -76,8 +76,8 @@ def test_chunked_matches_jax_engine(weights, kv):
 
 def test_chunked_matches_single_shot(weights):
     _, t_params = weights
-    whole = _generate(Engine(T_CFG, t_params, EngineConfig(**_ec(128)), device="cpu"), [PROMPT])
-    chunked = _generate(Engine(T_CFG, t_params, EngineConfig(**_ec(32)), device="cpu"), [PROMPT])
+    whole = _generate(Engine(T_CFG, t_params, EngineConfig(kv_layout="dense", **_ec(128)), device="cpu"), [PROMPT])
+    chunked = _generate(Engine(T_CFG, t_params, EngineConfig(kv_layout="dense", **_ec(32)), device="cpu"), [PROMPT])
     assert chunked == whole
 
 
@@ -85,7 +85,7 @@ def test_short_requests_around_a_long_one(weights):
     """The chunks write only the long request's slot: a short request
     gives the same tokens before and after it."""
     _, t_params = weights
-    engine = Engine(T_CFG, t_params, EngineConfig(**_ec(32)), device="cpu")
+    engine = Engine(T_CFG, t_params, EngineConfig(kv_layout="dense", **_ec(32)), device="cpu")
     before, long_out, after = _generate(engine, [[256, 1, 2], PROMPT, [256, 1, 2]], max_tokens=6)
     assert before == after and len(long_out) >= 1
     assert engine.stats["prefills"] == 2 and engine.stats["prefill_chunks"] == 3

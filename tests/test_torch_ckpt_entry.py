@@ -110,7 +110,7 @@ def _serve(path, tmp_path, monkeypatch, argv=("--model",), params=None):
     monkeypatch.setattr(serve_main, "load_checkpoint", functools.partial(serve_main.load_checkpoint,
                                                                          dtype=torch.float32))
     p = tmp_path / "params.json"
-    p.write_text(json.dumps(dict(SERVE_PARAMS, **(params or {}))))
+    p.write_text(json.dumps(dict(SERVE_PARAMS, kv_layout="dense", **(params or {}))))
     model = [*argv, path] if argv else []
     return serve_main.build(["--device", "cpu", "--host", "127.0.0.1", "--port", "0", "--params", str(p),
                              *model]).start()
@@ -139,7 +139,7 @@ def _check_served(srv, want_tokens):
 
 
 def _engine_tokens(model, cfg):
-    engine = Engine(cfg, model, EngineConfig(eos_token_id=NEVER, **SERVE_PARAMS), device="cpu")
+    engine = Engine(cfg, model, EngineConfig(eos_token_id=NEVER, kv_layout="dense", **SERVE_PARAMS), device="cpu")
     engine.start()
     return engine, lambda prompt: engine.generate(prompt, max_tokens=8, temperature=0.0)
 

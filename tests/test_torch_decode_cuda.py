@@ -187,7 +187,8 @@ def test_engine_decode_steps_launch_the_split_design(cuda, impl, kv):
     cfg = llama.LlamaConfig(vocab_size=512, dim=512, n_layers=2, n_heads=4, n_kv_heads=2, hidden_dim=1024,
                             max_seq_len=512, decode_attn_impl=impl)
     params = llama.init_params(cfg, seed=0)
-    engine = Engine(cfg, params, EngineConfig(max_batch=4, max_seq_len=512, eos_token_id=-1, kv_cache_dtype=kv))
+    engine = Engine(cfg, params, EngineConfig(max_batch=4, max_seq_len=512, eos_token_id=-1, kv_cache_dtype=kv,
+                                              kv_layout="dense"))
     fn = decode_attention if impl == "kernel" else fused_decode_attention
     before = {d: getattr(fn, f"launches_{d}") for d in ("split", "rows")}
     prompts = [[(5 * i + j) % 500 + 1 for j in range(n)] for i, n in enumerate((300, 40, 7))]
@@ -227,7 +228,8 @@ def test_decode_graph_replays_the_eager_step(cuda):
     engines, outs = {}, {}
     for name, overlap, graph in (("graph", None, True), ("eager", False, False)):
         engine = engines[name] = Engine(cfg, params, EngineConfig(max_batch=4, max_seq_len=512, eos_token_id=-1,
-                                                                  overlap=overlap), decode_graph=graph)
+                                                                  overlap=overlap, kv_layout="dense"),
+                                        decode_graph=graph)
         engine.start()
         try:
             reqs = [engine.submit(Request(p, max_tokens=12, temperature=0.0)) for p in prompts]
@@ -272,3 +274,43 @@ def test_decode_graph_replays_the_eager_step(cuda):
     del engine._dispatch
     engine._flush()
     assert engine.stats["graph_warmups"] == 1
+
+
+def test_paged_graph_replays_the_eager_step(cuda):
+    """On the paged pool (the default layout for llama) the overlapped
+    engine's captured step, whose block table is a static input, gives
+    the greedy tokens of the synchronous eager paged step, through pages
+    grown since the capture and a pool too small for the demand (the same
+    preemptions in both); no attention kernel runs on this path and every
+    page comes back."""
+    cfg = llama.LlamaConfig(vocab_size=512, dim=512, n_layers=2, n_heads=4, n_kv_heads=2, hidden_dim=1024,
+                            max_seq_len=512)
+    params = llama.init_params(cfg, seed=0)
+    prompts = [[(3 * i + j) % 500 + 1 for j in range(n)] for i, n in enumerate((200, 40, 7, 90, 13))]
+    engines, outs = {}, {}
+    for name, overlap, graph in (("graph", None, True), ("eager", False, False)):
+        # 33 pages of 16: the first four requests need 39 by their last token.
+        engine = engines[name] = Engine(cfg, params, EngineConfig(max_batch=4, max_seq_len=512, eos_token_id=-1,
+                                                                  overlap=overlap, kv_pool_tokens=528),
+                                        decode_graph=graph)
+        engine.start()
+        try:
+            reqs = [engine.submit(Request(p, max_tokens=64, temperature=0.0)) for p in prompts]
+            outs[name] = []
+            for req in reqs:
+                toks = []
+                while (tok := req.out.get(timeout=300)) is not None:
+                    toks.append(tok)
+                outs[name].append(toks)
+        finally:
+            engine.stop()
+    engine, eager = engines["graph"], engines["eager"]
+    print(f"paged graph engine: {engine.stats}; one replay holds {engine._graph.captured}")
+    assert engine.paged and engine.n_pages == 33 and engine.overlap and eager.stats["graph_replays"] == 0
+    assert outs["graph"] == outs["eager"] and all(len(t) == 64 for t in outs["graph"])
+    assert engine.stats["preemptions"] == eager.stats["preemptions"] >= 1
+    assert engine.stats["truncated_by_pool"] == 0
+    assert engine.stats["graph_warmups"] == 1 and engine.stats["graph_replays"] == engine.stats["decode_steps"]
+    assert engine._graph.captured == {}  # the gather and the plain attention: no kernel wrapper
+    for e in engines.values():
+        assert e.alloc.free_pages + len(e.prefix) == e.n_pages and not e.block_table.any()

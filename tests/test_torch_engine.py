@@ -69,7 +69,7 @@ def _run(engine, req_cls, prompts, **kw):
 def test_engine_greedy_matches_jax_engine_and_greedy_decode(weights):
     j_params, t_params = weights
     ec = dict(max_batch=4, max_seq_len=64, eos_token_id=EOS)
-    got = _run(Engine(T_CFG, t_params, EngineConfig(**ec), device="cpu"), Request, PROMPTS)
+    got = _run(Engine(T_CFG, t_params, EngineConfig(kv_layout="dense", **ec), device="cpu"), Request, PROMPTS)
     want = _run(JEngine(J_CFG, j_params, JEngineConfig(kv_layout="dense", overlap=False, **ec)),
                 JRequest, PROMPTS)
     assert got == want
@@ -100,7 +100,7 @@ def test_engine_sampled_and_queue_bound(weights):
 def test_prompt_clip_and_prefill_limit(weights):
     _, t_params = weights
     eng = Engine(T_CFG, t_params, EngineConfig(max_batch=2, max_seq_len=32, max_prefill_len=16,
-                                                eos_token_id=EOS), device="cpu")
+                                                eos_token_id=EOS, kv_layout="dense"), device="cpu")
     assert eng.clipped_prompt(list(range(40))) == list(range(9, 40))  # newest max_seq_len-1
     # Longer than max_prefill_len: served as two chunks (16 + 4), not refused.
     (toks, _), = _run(eng, Request, [list(range(20))])
@@ -119,7 +119,7 @@ def test_empty_prompt_matches_jax_engine(weights):
     j_params, t_params = weights
     ec = dict(max_batch=2, max_seq_len=64, eos_token_id=EOS)
     prompts = [[], PROMPTS[1]]
-    got = _run(Engine(T_CFG, t_params, EngineConfig(**ec), device="cpu"), Request, prompts)
+    got = _run(Engine(T_CFG, t_params, EngineConfig(kv_layout="dense", **ec), device="cpu"), Request, prompts)
     want = _run(JEngine(J_CFG, j_params, JEngineConfig(kv_layout="dense", overlap=False, **ec)),
                 JRequest, prompts)
     assert got == want

@@ -238,6 +238,6 @@ def test_engine_on_loaded_gguf_matches_jax_engine(tmp_path):
         finally:
             engine.stop()
 
-    got = run(Engine(cfg, model, EngineConfig(**ec), device="cpu"), Request)
+    got = run(Engine(cfg, model, EngineConfig(kv_layout="dense", **ec), device="cpu"), Request)
     want = run(JEngine(j_cfg, j_params, JEngineConfig(kv_layout="dense", overlap=False, **ec)), JRequest)
     assert got == want and all(toks for toks, _ in got)

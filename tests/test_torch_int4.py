@@ -147,7 +147,7 @@ def test_engine_matches_jax_engine_int4(weights):
     r = np.random.default_rng(7)
     prompts = [[256] + r.integers(0, 255, n - 1).tolist() for n in (71, 5, 20)]
     ec = dict(max_batch=4, max_seq_len=128, max_prefill_len=32, eos_token_id=EOS)
-    engine = Engine(T_CFG, t_params, EngineConfig(**ec), device="cpu")
+    engine = Engine(T_CFG, t_params, EngineConfig(kv_layout="dense", **ec), device="cpu")
     got = _run(engine, Request, prompts)
     want = _run(JEngine(J_CFG, j_params, JEngineConfig(kv_layout="dense", overlap=False, **ec)), JRequest, prompts)
     assert got == want and all(len(t) >= 1 for t in got)

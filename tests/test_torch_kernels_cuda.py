@@ -187,7 +187,7 @@ def test_engine_runs_the_kernels(cuda, name):
     plain, _ = llama.forward(params, tokens, cfg.replace(attn_impl="plain"))
     assert (kern - plain).abs().max().item() <= 0.05 * kern.abs().max().item()
 
-    engine = Engine(cfg, params, EngineConfig(max_batch=4, max_seq_len=128, eos_token_id=-1))
+    engine = Engine(cfg, params, EngineConfig(max_batch=4, max_seq_len=128, eos_token_id=-1, kv_layout="dense"))
     flash0, decode0 = flash_attention.launches, decode_attention.launches
     engine.start()
     try:
@@ -205,7 +205,7 @@ def test_engine_runs_the_kernels(cuda, name):
     kv = "int8" if name == "tiny" else "model"
     cfg = cfg.replace(decode_attn_impl="fused")
     engine = Engine(cfg, params, EngineConfig(max_batch=4, max_seq_len=128, max_prefill_len=32, eos_token_id=-1,
-                                              kv_cache_dtype=kv))
+                                              kv_cache_dtype=kv, kv_layout="dense"))
     counters = (flash_attention, flash_cached_attention, fused_decode_attention, decode_attention)
     before = [c.launches for c in counters]
     prompts = [[(7 * i + j) % 250 for j in range(n)] for i, n in enumerate((100, 40, 10))]

@@ -64,7 +64,7 @@ def weights():
 
 
 def _port(t_params, overlap=None, **ec):
-    ec = {"max_batch": 4, "max_seq_len": 64, "eos_token_id": EOS, **ec}
+    ec = {"max_batch": 4, "max_seq_len": 64, "eos_token_id": EOS, "kv_layout": "dense", **ec}
     return Engine(T_CFG, t_params, EngineConfig(overlap=overlap, **ec), device="cpu")
 
 

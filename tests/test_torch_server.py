@@ -164,7 +164,9 @@ def test_params_policy():
         for q4_impl in ("pallas", "xla"):
             main.check_params({"quantize": quantize, "q4_impl": q4_impl})
     assert main.resolve_quantize({}) == "none" and main.resolve_quantize({"quantize": "int4"}) == "int4"
-    for params in ({"kv_layout": "paged"}, {"spec_k": 4}, {"quantize": "w8a8"}, {"adapters": {"dir": "x"}},
+    for layout in ("auto", "paged", "dense"):  # every layout is served; no key is the paged pool
+        main.check_params({"kv_layout": layout})
+    for params in ({"spec_k": 4}, {"quantize": "w8a8"}, {"adapters": {"dir": "x"}},
                    {"role": "prefill"}, {"attn_impl": "ring"}, {"attn_impl": "ulysses"}, {"baseModel": "m"}):
         with pytest.raises(SystemExit, match="ROADMAP"):
             main.check_params(params)
