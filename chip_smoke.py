@@ -479,9 +479,12 @@ def decode_case(gen, b, s, h, kh, int8, positions, d=128, compare=False):
     return case
 
 
-def cached_case(gen, h, kh, int8, limit_row=False, b=1, sq=512, sk=4096, start=2048, d=128, compare=False):
+def cached_case(gen, h, kh, int8, limit_row=False, b=1, sq=512, sk=4096, start=2048, d=128, compare=False,
+                starts=None):
     """A chunk of sq queries at positions start.. against an sk-row cache
-    (the fifth 512-token chunk of a long prompt by default). limit_row:
+    (the fifth 512-token chunk of a long prompt by default); with `starts`
+    each row's own first position (a verify round: rows at S-1 are idle
+    slots, whose later positions lie past the cache). limit_row:
     kv_length clips the chunk and the first row's position is -1, so that
     row's limit is -1 and its output must be exactly 0. Held as
     flash_case holds the forward: the design flash_cached_design names,
@@ -503,6 +506,8 @@ def cached_case(gen, h, kh, int8, limit_row=False, b=1, sq=512, sk=4096, start=2
     k = torch.randn((b, kh, sk, d), generator=gen, device=dev).to(torch.bfloat16)
     v = torch.randn((b, kh, sk, d), generator=gen, device=dev).to(torch.bfloat16)
     pos = (start + torch.arange(sq, device=dev)).repeat(b, 1).to(torch.int32)
+    if starts is not None:
+        pos = (torch.tensor(starts, device=dev)[:, None] + torch.arange(sq, device=dev)[None, :]).to(torch.int32)
     kv_len = None
     if limit_row:
         pos[:, 0] = -1
@@ -547,8 +552,9 @@ def cached_case(gen, h, kh, int8, limit_row=False, b=1, sq=512, sk=4096, start=2
         gqa = {"enable_gqa": True} if h != kh else {}
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, k, v, attn_mask=mask, **gqa), hold=True)
     case = {
-        "case": f"B={b} Sq={sq} Sk={sk} H={h} KH={kh} D={d} {'int8' if int8 else 'bf16'} pos {start}.."
-                f"{start + sq - 1}{' kv_length, one row at limit -1' if limit_row else ''}",
+        "case": f"B={b} Sq={sq} Sk={sk} H={h} KH={kh} D={d} {'int8' if int8 else 'bf16'} "
+                + (f"pos {start}..{start + sq - 1}" if starts is None else f"rows from {min(starts)}..{max(starts)}")
+                + f"{' kv_length, one row at limit -1' if limit_row else ''}",
         "design": design, "max_abs_err": err, "tol": BF16_ATOL, "row_rel_err": rel, "fault_row_rel_err": min(faults),
         "ms": time_ms(lambda: flash_cached_attention(*args), hold=True),
         "plain_ms": time_ms(lambda: flash_cached_attention_plain(*args), n=5),
@@ -906,11 +912,15 @@ def kernel_phase():
         cached_case(gen, 32, 32, False, limit_row=True),
         cached_case(gen, 32, 32, False, sq=100),  # a ragged chunk (the last q-tile holds 36 rows)
         cached_case(gen, 32, 4, False, d=64, sq=1000, start=1024),  # tinyllama's heads, ragged
+        # a verify round of width 5 at B=8 over a 1024-row cache, two rows idle at S-1
+        cached_case(gen, 32, 32, False, b=8, sq=5, sk=1024, starts=[0, 131, 302, 511, 777, 1019, 1023, 1023]),
     ]
     cached_int8 = [  # serve-int4's int8 cache
         cached_case(gen, 32, 32, True, compare=True),
         cached_case(gen, 32, 32, True, sq=100),
         cached_case(gen, 32, 4, True, d=64, sq=1000, start=1024),
+        # serve-spec (b)'s verify of width 4 at B=24 over the int8 cache, two rows idle at S-1
+        cached_case(gen, 32, 32, True, b=24, sq=4, sk=1024, starts=[37 * i for i in range(22)] + [1023, 1023]),
     ]
     spread = [0, 1, 300, 1024, 2047, 3000, 4000, 4095]  # one slot at S-1
     fused = [
@@ -934,6 +944,8 @@ def kernel_phase():
         q4_case(gen, 512, 4096, c=11008),  # w_down over a 512-row chunk
         q4_case(gen, 512, 32000),  # the lm_head over a 512-row chunk
         q4_case(gen, 32, 11008),  # w_gate over a 32-token bucket
+        q4_case(gen, 24, 11008),  # w_gate of a width-1 round at B=24 (serve-spec)
+        q4_case(gen, 96, 11008),  # w_gate of a width-4 verify at B=24
         q4_case(gen, 200, 4096),  # a ragged row count (the planted dropped row tile)
         q4_case(gen, 8, 2048, c=2048, heads=32),  # tinyllama's wo at B=8: groups of 64
         q4_case(gen, 8, 1000),  # N not a multiple of 16
@@ -1523,15 +1535,18 @@ LONG_PROMPTS = [
 
 
 class _TeeQueue(queue.Queue):
-    """A request's token queue that also keeps every token it delivers."""
+    """A request's token queue that also keeps every token it delivers,
+    and the host clock of each."""
 
     def __init__(self):
         super().__init__()
         self.tokens = []
+        self.times = []
 
     def put(self, item, block=True, timeout=None):
         if item is not None:
             self.tokens.append(item)
+            self.times.append(time.perf_counter())
         super().put(item, block, timeout)
 
 
@@ -1550,11 +1565,11 @@ def tee_requests(engine) -> list:
     return requests
 
 
-def long_reference_check(engine, requests, label: str = "serve-long") -> dict:
+def long_reference_check(engine, requests, label: str = "serve-long", quiet: bool = False) -> dict:
     """Each served greedy token (chunked prefill + fused decode) within 5%
     of the logit scale of the best logit of one teacher-forced single-shot
     forward (flash prefill, no cache) over prompt + served tokens, on the
-    engine's own weights."""
+    engine's own weights. quiet: one line for all requests."""
     import torch
 
     from substratus_tpu_torch.models import llama
@@ -1573,11 +1588,17 @@ def long_reference_check(engine, requests, label: str = "serve-long") -> dict:
         agree = sum(int(logits[i].argmax()) == t for i, t in enumerate(toks))
         out.append({"prompt_tokens": len(prompt), "tokens": len(toks), "argmax_agree": agree,
                     "max_gap": gaps.max().item(), "logit_scale": scale})
-        print(f"{label} reference: {len(prompt)}-token prompt, {agree}/{len(toks)} served greedy tokens are "
-              f"the argmax of the single-shot forward (largest gap {gaps.max().item():.4g} at logit scale "
-              f"{scale:.4g})", flush=True)
+        if not quiet:
+            print(f"{label} reference: {len(prompt)}-token prompt, {agree}/{len(toks)} served greedy tokens are "
+                  f"the argmax of the single-shot forward (largest gap {gaps.max().item():.4g} at logit scale "
+                  f"{scale:.4g})", flush=True)
         if not toks or gaps.max().item() > 0.05 * scale:
             fail(f"{label}: served tokens disagree with the single-shot reference: {out[-1]}")
+    if quiet:
+        worst = max(out, key=lambda r: r["max_gap"] / r["logit_scale"])
+        print(f"{label} reference: {sum(r['argmax_agree'] for r in out)}/{sum(r['tokens'] for r in out)} served "
+              f"greedy tokens of {len(out)} requests are the argmax of the single-shot forward; largest gap "
+              f"{worst['max_gap']:.4g} at logit scale {worst['logit_scale']:.4g}", flush=True)
     return {"requests": out}
 
 
@@ -2068,6 +2089,522 @@ def serve_paged_phase(card: str, dense_step_ms=None, profile_steps: bool = False
     gc.collect()
     torch.cuda.empty_cache()
     out["int4"] = paged_int4_leg(card, profile_steps)
+    return out
+
+
+# --- speculative decoding: prompt lookup and a draft model ---------------------
+
+# examples/llama2-7b/server-throughput.yaml's params as written: no
+# kv_layout (the paged pool) and serve.main's default max_seq_len, 1024.
+SPEC_PARAMS = {"config": "llama2-7b", "quantize": "int4", "kv_cache_dtype": "int8", "max_batch": 24, "spec_k": 3}
+
+
+def _repeat_text(i: int, n_bytes: int) -> str:
+    """A repetitive prompt, one phrase again and again: prompt lookup finds
+    the context's trailing n-grams earlier in it."""
+    phrase = f"step {i}: read the page, write the token, then read the page again. "
+    return (phrase * (n_bytes // len(phrase) + 1))[:n_bytes]
+
+
+# Legs (a) and (b): 24 requests of 64 tokens, 12 repetitive (61-336
+# tokens) and serve's five prompts cycled (16-411 tokens; the one at
+# temperature 0.8 twice).
+SPEC_PROMPTS = ([(_repeat_text(i, 60 + 25 * i), 64, 0.0, i == 0) for i in range(12)]
+                + [(PROMPTS[j % 5][0] + ("" if j < 5 else f" (again, {j})"), 64, PROMPTS[j % 5][2], False)
+                   for j in range(12)])
+# Leg (c): serve's five prompts and three repetitive ones.
+DRAFT_PROMPTS = PROMPTS + [(_repeat_text(20 + i, 120 + 60 * i), 32, 0.0, False) for i in range(3)]
+# The per-design counters a spec leg reads: name -> (kernel wrapper, counter).
+SPEC_DESIGNS = {"q4_matmul_decode": ("q4_matmul", "launches_decode"),
+                "q4_matmul_wgmma": ("q4_matmul", "launches_wgmma"), "q4_matmul": ("q4_matmul", "launches_mma"),
+                "flash_cached_int8": ("flash_cached_attention", "launches_wgmma"),
+                "fused_decode_split": ("fused_decode_attention", "launches_split"),
+                "flash_fwd_wgmma": ("flash_attention", "launches_wgmma"),
+                "decode_attn_split": ("decode_attention", "launches_split")}
+
+
+def prime_spec_graphs(engine) -> None:
+    """Capture every graph of a spec engine before a timed run: one round
+    of each width launched on the idle engine (its rows write only into
+    the trash page, or into idle slots' regions, which an admission
+    overwrites before any read). A started engine's scheduler thread
+    idles meanwhile: it only polls an empty queue."""
+    import numpy as np
+
+    engine._flush()  # an idle scheduler may still hold its last round, unread
+    graph, b, k = engine._decode_graph(), engine.ec.max_batch, engine.ec.spec_k
+    props = None if engine.spec_draft else np.zeros((b, k), np.int64)
+    pages = {"block_table": engine.block_table} if engine.paged else {}
+    for width in range(1, k + 2):
+        graph.launch(engine.tokens, engine.positions, engine.temps, engine.top_ps, np.ones(b, bool),
+                     np.zeros(b, np.int64), np.zeros(b, bool), width, props=props, **pages)()
+
+
+def spec_launches(engine) -> dict:
+    """Each design's launches since zero_counts: "total" (the wrappers'
+    own, the prefills', plus the replays'), and per graph of the engine's
+    SpecGraph its replays'."""
+    wrappers = {fn.__name__: fn for fn in int4_counters().values()}
+    total, per_graph = {}, {}
+    for name, (fn, attr) in SPEC_DESIGNS.items():
+        total[name] = launched(engine, wrappers[fn], attr)
+        for key, launches in engine._graph.captured.items():
+            n = launches.get(f"{fn}.{attr}", 0) * int(engine.stats.get(f"replays_{key}", 0))
+            if n:
+                per_graph.setdefault(key, {})[name] = n
+    return {"total": total, "per_graph": per_graph}
+
+
+def warm_by_hand(engine, prompt) -> None:
+    """Capture an engine's graphs before a timed run: one greedy request of
+    24 tokens driven by hand, the scheduler not started."""
+    from substratus_tpu_torch.serve.engine import Request
+
+    engine.queue.put(Request(list(prompt), max_tokens=24, temperature=0.0))
+    if engine._admit() != 1:
+        fail("warm-up: admission failed")
+    while engine.active.any():
+        engine._step()
+    engine._flush()
+
+
+def serve_all(engine, prompts, specs) -> tuple:
+    """Submit a Request for each prompt (token ids; max_tokens and
+    temperature from `specs`' (text, max_tokens, temperature, stream)),
+    each token queue a _TeeQueue, before the scheduler starts: its first
+    iteration admits them together, so the schedule repeats from run to
+    run. Start it, wait for every stream, stop it. Returns (requests,
+    seconds from the start to the last token)."""
+    from substratus_tpu_torch.serve.engine import Request
+
+    reqs = [engine.submit(Request(list(p), max_tokens=mt, temperature=temp, out=_TeeQueue()))
+            for p, (_, mt, temp, _) in zip(prompts, specs)]
+    t0 = time.perf_counter()
+    engine.start()
+    try:
+        for req in reqs:
+            while req.out.get(timeout=600) is not None:
+                pass
+        wall = time.perf_counter() - t0
+        wait_idle(engine)
+    finally:
+        engine.stop()
+    return reqs, wall
+
+
+def run_summary(engine, stats, reqs, label: str, card: str) -> dict:
+    """Decode tokens/s, mean round (step) ms and, for a spec engine, the
+    verify passes, proposals, acceptance and rounds and replays by width."""
+    decode_tokens = sum(len(r.out.tokens) - 1 for r in reqs)  # the first token comes from the prefill
+    # What one greedy stream sees: its tokens after the first over the host
+    # clock from its first token to its last, averaged over the streams.
+    streams = [(len(r.out.tokens) - 1) / (r.out.times[-1] - r.out.times[0]) for r in reqs
+               if r.temperature == 0.0 and len(r.out.tokens) > 1 and r.out.times[-1] > r.out.times[0]]
+    out = {"decode_tokens": decode_tokens, "decode_steps": stats["decode_steps"],
+           "round_ms": 1e3 * stats["decode_seconds"] / stats["decode_steps"],
+           "decode_tokens_per_s": decode_tokens / stats["decode_seconds"],
+           "tokens_per_round": decode_tokens / stats["decode_steps"],
+           "stream_tokens_per_s": statistics.mean(streams) if streams else None}
+    line = (f"{label} [{card}]: {len(reqs)} requests, {decode_tokens} decode tokens in {stats['decode_steps']} "
+            f"{'rounds' if engine.spec else 'steps'}, mean {out['round_ms']:.2f} ms, {out['decode_tokens_per_s']:.1f} "
+            f"decode tokens/s, a greedy stream's own {out['stream_tokens_per_s'] or float('nan'):.1f} tokens/s "
+            f"(mean of {len(streams)})")
+    if engine.spec:
+        k = engine.ec.spec_k
+        out.update({key: stats[key] for key in ("verify_passes", "spec_proposed", "spec_accepted")},
+                   rounds_by_width={w: stats[f"rounds_w{w}"] for w in range(1, k + 2)},
+                   replays_by_width={w: stats.get(f"replays_verify{w}", 0) for w in range(1, k + 2)},
+                   accepted_per_verify=stats["spec_accepted"] / max(1, stats["verify_passes"]))
+        line += (f"; {stats['verify_passes']} verify passes, {stats['spec_proposed']} proposed, "
+                 f"{stats['spec_accepted']} accepted ({out['accepted_per_verify']:.2f} a verify pass, "
+                 f"{out['tokens_per_round']:.2f} tokens a round, over all slots); rounds by width {out['rounds_by_width']}, graph "
+                 f"replays by width {out['replays_by_width']}")
+    print(line, flush=True)
+    return out
+
+
+def plain_twin(engine, prompts, specs, label: str, card: str) -> dict:
+    """The same requests through a plain engine (spec_k 0, the spec
+    engine's other knobs, its weights): overlapped, the step one CUDA
+    graph, captured at a warm-up request before the counts start."""
+    import dataclasses
+
+    from substratus_tpu_torch.serve.engine import Engine
+
+    plain = Engine(engine.cfg, engine.params, dataclasses.replace(engine.ec, spec_k=0), device=engine.device,
+                   model=engine.model)
+    warm_by_hand(plain, [256] + [65] * 15)
+    zero_counts(plain, ())
+    reqs, wall = serve_all(plain, prompts, specs)
+    stats = dict(plain.stats)
+    if plain.paged:
+        check_pages_recovered(plain, label)
+    out = dict(run_summary(plain, stats, reqs, label, card), wall_s=wall, requests=reqs)
+    del plain
+    gc.collect()
+    return out
+
+
+def against_plain(engine, reqs, plain_reqs, label: str, what: str = "the plain engine's") -> dict:
+    """How many greedy requests are token for token those of another run
+    (`what`, by default the plain engine's); for each that is not, the
+    first differing token of both runs must be a near-tie: within 5% of
+    the logit scale of the best logit of a teacher-forced forward over the
+    prompt and the common prefix."""
+    import torch
+
+    from substratus_tpu_torch.models import llama
+
+    identical, diffs = 0, []
+    for req, twin in zip(reqs, plain_reqs):
+        if req.temperature != 0.0:
+            continue
+        a, b = req.out.tokens, twin.out.tokens
+        if a == b:
+            identical += 1
+            continue
+        i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+        eos = engine.ec.eos_token_id
+        pick = [t[i] if i < len(t) else eos for t in (a, b)]  # a stream that stopped there sampled EOS
+        prompt = engine.clipped_prompt(req.prompt_tokens)
+        with torch.inference_mode():
+            logits, _ = llama.forward(engine.params, torch.tensor([prompt + a[:i]], device=engine.device), engine.cfg)
+        row = logits[0, -1]
+        scale = row.abs().max().item()
+        gaps = [(row.max() - row[t]).item() for t in pick]
+        diffs.append({"at": i, "tokens": pick, "gaps": gaps, "logit_scale": scale})
+        if max(gaps) > 0.05 * scale:
+            fail(f"{label}: a greedy request departs from {what} at token {i} ({pick}) by more than a "
+                 f"near-tie: gaps {gaps} at logit scale {scale:.4g}")
+    greedy = sum(r.temperature == 0.0 for r in reqs)
+    print(f"{label}: {identical} of {greedy} greedy requests token for token {what}"
+          + (f"; the others first differ at a near-tie: {[(d['at'], [round(g, 4) for g in d['gaps']]) for d in diffs]}"
+             if diffs else ""), flush=True)
+    return {"identical": identical, "greedy": greedy, "differ": diffs}
+
+
+def graph_ms(engine, profile_steps: bool, reps: int = 5) -> dict:
+    """Each captured graph's time a replay on the idle engine (the accept
+    walk, the draft's steps, each width's verify: CUDA events around
+    `reps` replays; with profile also the device busy time under
+    torch.profiler). Idle rows write only past their slots' live entries
+    (dense) or into the trash page (paged)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for key, graph in sorted(engine._graph.graphs.items()):
+        graph.replay()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        out[key] = {"event_ms": start.elapsed_time(end) / reps}
+        if profile_steps:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    graph.replay()
+                torch.cuda.synchronize()
+            out[key]["device_busy_ms"] = _device_summary(prof, time.perf_counter() - t0, reps)["device_busy_ms"]
+    return out
+
+
+def card_bytes(engine) -> dict:
+    import torch
+
+    def size(values):  # a quantized weight's state also holds its layout's ints
+        return sum(v.numel() * v.element_size() for v in values if isinstance(v, torch.Tensor))
+
+    out = {"weights": size(engine.params.state_dict().values()), "cache": size(engine.cache.values()),
+           "allocated": torch.cuda.memory_allocated(), "peak": torch.cuda.max_memory_allocated()}
+    if engine.spec_draft:
+        out.update(draft_weights=size(engine.draft_params.state_dict().values()),
+                   draft_cache=size(engine.draft_cache.values()))
+    return out
+
+
+def spec_report(engine, stats, reqs, plain, launches, label: str, card: str, profile_steps: bool) -> dict:
+    """A spec run's numbers beside its plain twin's, its checks against the
+    plain run and the reference, and its graphs' replay times."""
+    spec = run_summary(engine, stats, reqs, label, card)
+    greedy = [r for r in reqs if r.temperature == 0.0]
+    by_prompt = {tuple(r.prompt_tokens): r for r in plain["requests"]}
+    twins = [by_prompt[tuple(r.prompt_tokens)] for r in reqs]
+    same = against_plain(engine, reqs, twins, label)
+    reference = long_reference_check(engine, greedy, label, quiet=True)
+    if engine.paged:
+        check_pages_recovered(engine, label)
+    if stats["verify_passes"] <= 0:
+        fail(f"{label}: no verify pass")
+    if engine.decode_graph and (stats["graph_warmups"] or stats["graph_replays"] != stats["decode_steps"]):
+        fail(f"{label}: every round must replay graphs captured before the run: {stats}")
+    for r in reqs:
+        if not r.out.tokens or not (r.finish_reason == "stop" or len(r.out.tokens) == r.max_tokens):
+            fail(f"{label}: a request ended {r.finish_reason} after {len(r.out.tokens)} tokens")
+    times = graph_ms(engine, profile_steps)
+    nbytes = card_bytes(engine)
+    print(f"{label} [{card}]: spec against plain: {spec['decode_tokens_per_s']:.1f} against "
+          f"{plain['decode_tokens_per_s']:.1f} decode tokens/s ({spec['decode_tokens_per_s'] / plain['decode_tokens_per_s']:.2f}x), "
+          f"mean round {spec['round_ms']:.2f} ms against a plain step of {plain['round_ms']:.2f} ms; a greedy "
+          f"stream's own {spec['stream_tokens_per_s'] or float('nan'):.1f} against "
+          f"{plain['stream_tokens_per_s'] or float('nan'):.1f} tokens/s; each graph a replay: " + ", ".join(f"{k} {v['event_ms']:.2f} ms" + (f" (device busy {v['device_busy_ms']:.2f})"
+                                                                     if "device_busy_ms" in v else "")
+                                  for k, v in times.items())
+          + f"; launches {launches['total']}, by graph {launches['per_graph']}; bytes on the card {nbytes}",
+          flush=True)
+    plain = {k: v for k, v in plain.items() if k != "requests"}
+    return {"spec": spec, "plain": plain, "against_plain": same, "reference": reference, "launches": launches,
+            "graph_ms": times, "bytes": nbytes, "stats": stats}
+
+
+def spec_lookup_leg(card: str, profile_steps: bool):
+    """(a) The throughput example through serve.main over HTTP: int4
+    weights, int8 pages, max_batch 24, prompt lookup with spec_k 3.
+    Returns (report, the weights, the config) for leg (b)."""
+    import torch
+
+    from substratus_tpu_torch.ops.quant4 import Q4Tensor
+    from substratus_tpu_torch.serve.tokenizer import ByteTokenizer
+
+    label = "serve-spec (a)"
+    server, engine, base = start_server("serve-spec", SPEC_PARAMS)
+    if not (engine.spec and not engine.spec_draft and engine.paged and engine.ec.spec_k == 3
+            and engine.ec.max_batch == 24 and engine.ec.max_seq_len == 1024 and engine.cache["k"].dtype == torch.int8
+            and isinstance(engine.params.layers[0].w_gate, Q4Tensor)):
+        fail(f"{label}: the server is not the throughput example's (int4, int8 pages, B=24, lookup k=3)")
+    try:
+        tok = ByteTokenizer()
+        ids = [tok.encode(text) for text, *_ in SPEC_PROMPTS]
+        plain = plain_twin(engine, ids, SPEC_PROMPTS, f"{label} plain", card)
+        prime_spec_graphs(engine)  # the server's engine is idle: nothing else launches meanwhile
+        requests = tee_requests(engine)
+        zero_counts(engine, int4_counters().values())
+        results, wall = run_concurrent(base, SPEC_PROMPTS)
+        wait_idle(engine)
+        launches = spec_launches(engine)
+        stats = dict(engine.stats)
+        del engine.submit
+        check_usage(SPEC_PROMPTS, results)
+        by_prompt = {tuple(r.prompt_tokens): r for r in requests}
+        reqs = [by_prompt[tuple(p)] for p in ids]
+        check_spec_launches(engine, stats, launches, label)
+        report = spec_report(engine, stats, reqs, plain, launches, label, card, profile_steps)
+        if stats["spec_accepted"] <= 0:
+            fail(f"{label}: no proposal accepted")
+    finally:
+        server.stop()
+    report["wall_s"] = wall
+    return report, engine.params, engine.cfg
+
+
+def check_spec_launches(engine, stats, launches, label: str) -> None:
+    """Every forward's projections and lm_head through the int4 matmul once
+    (prefills, chunks, every round's verify); each verify graph's by M =
+    B x width; on the dense cache the cached flash kernel in every round
+    wider than one token and the fused decode in the others, n_layers a
+    forward."""
+    from substratus_tpu_torch.ops.quant4 import WGMMA_MIN_M
+
+    L, B = engine.cfg.n_layers, engine.ec.max_batch
+    total, per_graph = launches["total"], launches["per_graph"]
+    runs = {w: stats[f"rounds_w{w}"] for w in range(1, engine.ec.spec_k + 2) if stats[f"rounds_w{w}"]}
+    if any(stats.get(f"replays_verify{w}", 0) != n for w, n in runs.items()) or stats["graph_warmups"] or \
+            stats["graph_replays"] != stats["decode_steps"]:
+        fail(f"{label}: every round must replay its width's graph, captured before the run: {stats}")
+    forwards = stats["prefills"] + stats["prefill_chunks"] + sum(runs.values())
+    q4 = total["q4_matmul_decode"] + total["q4_matmul_wgmma"] + total["q4_matmul"]
+    want = {}
+    for w, n in runs.items():
+        design = "q4_matmul_wgmma" if B * w > WGMMA_MIN_M else "q4_matmul_decode"
+        want[f"verify{w}"] = {design: (7 * L + 1) * n}
+        if not engine.paged:
+            want[f"verify{w}"]["flash_cached_int8" if w > 1 else "fused_decode_split"] = L * n
+    got = {key: v for key, v in per_graph.items() if key.startswith("verify")}
+    if q4 != (7 * L + 1) * forwards or total["q4_matmul"] or got != want or not total["q4_matmul_decode"] \
+            or not total["q4_matmul_wgmma"]:
+        fail(f"{label}: launches {launches} against {(7 * L + 1) * forwards} int4 matmuls and by graph {want}")
+    if not engine.paged and (total["flash_cached_int8"] != sum(v.get("flash_cached_int8", 0) for v in want.values())
+                             or not total["flash_cached_int8"] or not total["fused_decode_split"]):
+        fail(f"{label}: the cached flash kernel must run every wide round's attention: {launches}")
+    print(f"{label}: {forwards} forwards ({stats['prefills']} prefills, {stats['prefill_chunks']} chunks, "
+          f"{sum(runs.values())} rounds) of {(7 * L + 1)} int4 matmuls each; by graph {got}",
+          flush=True)
+
+
+def spec_dense_leg(card: str, params, cfg, profile_steps: bool) -> dict:
+    """(b) The dense stack (JAX's test_all_decode_levers_stack_dense_fused_
+    int4_lookup at full width): leg (a)'s weights and knobs on the dense
+    cache with the fused decode: the cached flash kernel runs every wide
+    round over the int8 cache. The spec graphs are also held token for
+    token against the eager synchronous spec round (eager_check)."""
+    from substratus_tpu_torch.serve.engine import Engine, EngineConfig
+    from substratus_tpu_torch.serve.tokenizer import ByteTokenizer
+
+    label = "serve-spec (b)"
+    tok = ByteTokenizer()
+    ec = EngineConfig(max_batch=24, max_seq_len=1024, max_prefill_len=512, kv_cache_dtype="int8", kv_layout="dense",
+                      spec_k=3, eos_token_id=tok.eos_id)
+    engine = Engine(cfg.replace(decode_attn_impl="fused"), params, ec)
+    ids = [tok.encode(text) for text, *_ in SPEC_PROMPTS]
+    plain = plain_twin(engine, ids, SPEC_PROMPTS, f"{label} plain", card)
+    warm_by_hand(engine, tok.encode(_repeat_text(99, 200)))
+    prime_spec_graphs(engine)
+    zero_counts(engine, int4_counters().values())
+    reqs, wall = serve_all(engine, ids, SPEC_PROMPTS)
+    launches = spec_launches(engine)
+    stats = dict(engine.stats)
+    check_spec_launches(engine, stats, launches, label)
+    report = spec_report(engine, stats, reqs, plain, launches, label, card, profile_steps)
+    if stats["spec_accepted"] <= 0:
+        fail(f"{label}: no proposal accepted")
+    report["eager"] = eager_spec_check(engine, reqs, label)
+    report["wall_s"] = wall
+    return report
+
+
+def eager_spec_check(engine, reqs, label: str) -> dict:
+    """A spec run's requests again through the eager round
+    (decode_graph=False) with the engine's knobs, submitted as that run's
+    were: overlapped, whose greedy tokens must be the graphs' token for
+    token (the same schedule, so the same kernels at the same shapes);
+    then synchronous (overlap=false), whose lookup history lags no round,
+    so its proposals and verify widths may differ: each greedy request is
+    identical or first differs at a near-tie."""
+    import dataclasses
+
+    from substratus_tpu_torch.serve.engine import Engine
+
+    prompts = [r.prompt_tokens for r in reqs]
+    specs = [(None, r.max_tokens, r.temperature, False) for r in reqs]
+    out = {}
+    for overlap in (True, False):
+        eager = Engine(engine.cfg, engine.params, dataclasses.replace(engine.ec, overlap=overlap),
+                       device=engine.device, model=engine.model, decode_graph=False,
+                       draft=(engine.draft_cfg, engine.draft_params) if engine.spec_draft else None)
+        name = "eager overlapped" if overlap else "eager synchronous"
+        ereqs, wall = serve_all(eager, prompts, specs)
+        if eager.decode_graph or eager.stats["graph_replays"]:
+            fail(f"{label}: the {name} engine replayed a graph")
+        summary = run_summary(eager, dict(eager.stats), ereqs, f"{label} {name}", card_line())
+        if overlap:
+            for req, twin in zip(reqs, ereqs):
+                if req.temperature == 0.0 and (req.out.tokens, req.finish_reason) != (twin.out.tokens,
+                                                                                       twin.finish_reason):
+                    fail(f"{label}: a greedy request's tokens differ between the graphs and the eager round: "
+                         f"{req.out.tokens} against {twin.out.tokens}")
+            same = {"identical": sum(r.temperature == 0.0 for r in reqs)}
+            print(f"{label}: all {same['identical']} greedy requests token for token the eager overlapped round's",
+                  flush=True)
+        else:
+            same = against_plain(engine, reqs, ereqs, label, f"the {name} round's")
+        out[name] = dict(summary, against=same, wall_s=wall)
+        del eager
+        gc.collect()
+    return out
+
+
+def spec_draft_leg(card: str, profile_steps: bool) -> dict:
+    """(c) A draft model: llama2-7b bf16 on the paged pool, spec_k 4, B=8,
+    serve's five prompts and three repetitive ones. First tinyllama-1.1b
+    from seed 1, written by tools/ckpt_writer.py and served as
+    draft_model through serve.main (it disagrees: rounds are rejected and
+    the adaptive policy degrades the streams); then the target as its own
+    draft (JAX's test_engine_speculation_exact_and_accelerated: every
+    proposal accepted)."""
+    import tempfile
+
+    import torch
+
+    from substratus_tpu_torch.models import llama
+    from substratus_tpu_torch.serve.engine import Engine
+    from substratus_tpu_torch.serve.tokenizer import ByteTokenizer
+    from substratus_tpu_torch.tools.ckpt_writer import write_hf
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_draft_"))
+    out = {}
+    try:
+        dcfg = llama.CONFIGS["tinyllama-1.1b"]
+        source = llama.init_params(dcfg, seed=1, device="cuda")
+        disk_room(tmp, sum(t.numel() * t.element_size() for t in source.state_dict().values()), "serve-spec draft")
+        written = write_hf(str(tmp / "tinyllama-1.1b"), source)
+        del source
+        params_json = {"config": "llama2-7b", "max_batch": 8, "max_seq_len": 1024, "max_prefill_len": 512,
+                       "spec_k": 4, "draft_model": str(tmp / "tinyllama-1.1b")}
+        label = "serve-spec (c) tinyllama draft"
+        server, engine, base = start_server("serve-spec-draft", params_json)
+        d = engine.draft_cfg if engine.spec_draft else None
+        if d is None or not engine.paged or any(getattr(d, f) != getattr(dcfg, f) for f in (
+                "dim", "n_layers", "n_heads", "n_kv_heads", "hidden_dim", "vocab_size")):
+            fail(f"{label}: the server does not propose with tinyllama-1.1b on the paged pool: {d}")
+        try:
+            tok = ByteTokenizer()
+            ids = [tok.encode(text) for text, *_ in DRAFT_PROMPTS]
+            plain = plain_twin(engine, ids, DRAFT_PROMPTS, "serve-spec (c) plain", card)
+            prime_spec_graphs(engine)
+            requests = tee_requests(engine)
+            zero_counts(engine, int4_counters().values())
+            results, wall = run_concurrent(base, DRAFT_PROMPTS)
+            wait_idle(engine)
+            launches = spec_launches(engine)
+            stats = dict(engine.stats)
+            del engine.submit
+            check_usage(DRAFT_PROMPTS, results)
+            by_prompt = {tuple(r.prompt_tokens): r for r in requests}
+            reqs = [by_prompt[tuple(p)] for p in ids]
+            out["tinyllama"] = spec_report(engine, stats, reqs, plain, launches, label, card, profile_steps)
+            out["tinyllama"].update(wall_s=wall, draft_bytes_written=written["bytes"])
+        finally:
+            server.stop()
+        label = "serve-spec (c) self-draft"
+        selfd = Engine(engine.cfg, engine.params, engine.ec, draft=(engine.cfg, engine.params))
+        del engine, server
+        gc.collect()
+        torch.cuda.empty_cache()
+        warm_by_hand(selfd, tok.encode(_repeat_text(99, 200)))
+        prime_spec_graphs(selfd)
+        zero_counts(selfd, int4_counters().values())
+        reqs, wall = serve_all(selfd, ids, DRAFT_PROMPTS)
+        launches = spec_launches(selfd)
+        stats = dict(selfd.stats)
+        out["self"] = spec_report(selfd, stats, reqs, plain, launches, label, card, profile_steps)
+        out["self"]["wall_s"] = wall
+        if stats["spec_accepted"] <= 0:
+            fail(f"{label}: the target as its own draft had no proposal accepted")
+        del selfd
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def serve_spec_phase(card: str, profile_steps: bool = False) -> dict:
+    """Speculative decoding at llama2-7b's full width in three legs, each
+    against a plain engine on the same requests and weights: (a) the
+    throughput example through serve.main (prompt lookup on int8 pages),
+    (b) the same weights on the dense cache with the fused decode (the
+    cached flash kernel on every wide round), (c) a draft model."""
+    import torch
+
+    gc.collect()  # the earlier phases' servers and caches
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = {}
+    out["lookup"], params, cfg = spec_lookup_leg(card, profile_steps)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["dense"] = spec_dense_leg(card, params, cfg, profile_steps)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["draft"] = spec_draft_leg(card, profile_steps)
+    # The legs' launches of each design, for the kernels line.
+    out["launches"] = {name: sum(leg["launches"]["total"][name] for leg in (out["lookup"], out["dense"]))
+                       for name in SPEC_DESIGNS}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"serve-spec: {out['seconds']:.1f} s; launches of legs (a) and (b) by design {out['launches']}", flush=True)
     return out
 
 
@@ -2651,8 +3188,8 @@ def train_full_phase(card: str, profile_steps: bool = False) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="card,build,kernels,serve,serve-long,serve-int4,serve-paged,serve-ckpt,train,"
-                                        "train-full")
+    ap.add_argument("--phases", default="card,build,kernels,serve,serve-long,serve-int4,serve-paged,serve-spec,"
+                                        "serve-ckpt,train,train-full")
     phases = ap.parse_args().phases.split(",")
     t_start = time.perf_counter()
 
@@ -2684,6 +3221,8 @@ def main() -> int:
     if "serve-paged" in phases:
         report["serve-paged"] = serve_paged_phase(card, report.get("serve", {}).get("step_ms"),
                                                   profile_steps="profile" in phases)
+    if "serve-spec" in phases:
+        report["serve-spec"] = serve_spec_phase(card, profile_steps="profile" in phases)
     if "serve-ckpt" in phases:
         report["serve-ckpt"] = serve_ckpt_phase(card)
     if "train" in phases:
@@ -2728,12 +3267,15 @@ def main() -> int:
                     "q4_matmul_decode": ("serve-int4", "q4_matmul_decode"), "q4_matmul": ("serve-int4", "q4_matmul"),
                     "q4_matmul_wgmma": ("serve-int4", "q4_matmul_wgmma"),
                     "flash_bwd_dq": ("train", "flash_bwd_dq"), "flash_bwd_dkv": ("train", "flash_bwd_dkv")}
+        # serve-spec's launches (legs (a) and (b)) of each design, its own count.
+        spec_launches_of = report.get("serve-spec", {}).get("launches", {})
         line = []
         for name, cases in report["kernels"].items():
             main_case = cases[0]  # the main path's shape
             line.append({
                 "name": name, "route": "cuda", "source": sources[name][0], "replaces": sources[name][1],
                 "launches": report.get(phase_of[name][0], {}).get("launches", {}).get(phase_of[name][1], 0),
+                "launches_serve_spec": spec_launches_of.get(phase_of[name][1]),
                 "max_abs_err": main_case["max_abs_err"], "ms": main_case["ms"],
                 "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
                 "bound_by": main_case["bound_by"], "library_ms": main_case["library_ms"],

@@ -43,15 +43,34 @@ Preemption and truncation first flush the step in flight, so they see a
 settled batch. overlap=False reads each step's tokens before the next
 dispatch.
 
-Not ported yet (ROADMAP Queue 1): speculation and its draft pool,
-adapters (and the registry's adapter salt), disaggregated roles with their
-page export and import, and lockstep gangs; EngineConfig has none of their
-fields.
+Speculative decoding (EngineConfig.spec_k > 0): each round a proposer
+guesses up to spec_k greedy tokens a slot, and one target forward over
+[B, width] (a verify) scores them all; a greedy slot emits the longest
+matching prefix plus the target's correction (full acceptance: the
+proposals and no bonus token, the last one seeding the next round), a
+sampling slot the verify's position-0 sample. The proposer is a draft
+model (Engine(..., draft=(cfg, params)), on the paged pool only: its own
+pool of the same pages, named by the target's block table, prefilled at
+admission from the prefix hit on) or, without one, prompt lookup (the
+continuation after the latest earlier match of the context's trailing
+n-gram, host work). Per slot an EWMA of the acceptance rate sets the
+draft length, degrades the slot to a plain row below spec_threshold and
+re-probes it every spec_probe_every rounds. A round where nothing
+proposes is a width-1 verify, a plain decode step. Rounds overlap as
+steps do: round N+1 chains its tokens and positions from round N's
+device outputs by the accept walk on the device, and round N's host walk
+runs in round N+1's drain slot. On the card a round is a few CUDA graphs
+(serve/decode_graph.py::SpecGraph).
+
+Not ported yet (ROADMAP Queue 1): adapters (and the registry's adapter
+salt), disaggregated roles with their page export and import, and
+lockstep gangs; EngineConfig has none of their fields.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 import queue
 import threading
 import time
@@ -64,7 +83,7 @@ import torch
 from substratus_tpu_torch.models import llama
 from substratus_tpu_torch.ops.decode_attention import pack_fragment
 from substratus_tpu_torch.ops.sampling import sample
-from substratus_tpu_torch.serve.decode_graph import DecodeGraph
+from substratus_tpu_torch.serve.decode_graph import DecodeGraph, SpecGraph
 from substratus_tpu_torch.serve.paged_kv import PageAllocator, PrefixRegistry, SlotPages, chain_entries
 from substratus_tpu_torch.utils.device import DeviceLike, resolve_device, seeded_generator
 
@@ -105,6 +124,15 @@ class EngineConfig:
     # engine resolves it for a single-process engine (the port has no roles
     # or gangs); False gives the synchronous scheduler.
     overlap: Optional[bool] = None
+    # Speculative decoding (module docstring): up to spec_k proposals a
+    # greedy slot a round; 0 = off. Per slot the draft length is
+    # ceil(ewma * spec_k) while the acceptance EWMA (decay spec_ewma_decay)
+    # holds spec_threshold, else 0 (a plain row) with a k = 1 probe every
+    # spec_probe_every rounds; spec_threshold 0 always proposes spec_k.
+    spec_k: int = 0
+    spec_threshold: float = 0.35
+    spec_probe_every: int = 8
+    spec_ewma_decay: float = 0.8
 
 
 @dataclass
@@ -135,6 +163,22 @@ class _InFlightStep:
     pos_next: np.ndarray
 
 
+@dataclass
+class _InFlightSpecStep:
+    """One dispatched speculative round whose host read is deferred, with
+    _InFlightStep's identity check. The next round chains off its device
+    outputs (SpecGraph's advance); `read` is its one host read. The base
+    positions are the host's: a spec dispatch does not advance them, the
+    drain does."""
+
+    read: Callable[[], Tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]]  # (choices, samples, draft props)
+    props: Optional[np.ndarray]  # host [B, width-1] lookup proposals (None with a draft: read them)
+    k_eff: np.ndarray  # host [B] each slot's draft length this round
+    tried: np.ndarray  # host [B] planned a proposal (the EWMA decays on a lookup miss)
+    greedy: np.ndarray  # host [B] rows of the accept walk
+    slots: List[Tuple[int, "Request"]]
+
+
 def _bucket(n: int, lo: int = 16) -> int:
     b = lo
     while b < n:
@@ -161,12 +205,15 @@ class Engine:
         device: DeviceLike = None,
         model=llama,
         decode_graph: bool = True,
+        draft: Optional[Tuple[llama.LlamaConfig, llama.Llama]] = None,
     ):
         """Serve `params` (a models.llama.Llama) on `device`: cuda unless
         the caller passes device="cpu"; params must already live there.
-        On the card the decode step is captured as a CUDA graph unless
-        decode_graph=False (the eager step, kept to compare the two); on
-        the CPU it always runs eagerly."""
+        On the card the decode step (or the speculative round) is captured
+        as CUDA graphs unless decode_graph=False (the eager step, kept to
+        compare the two); on the CPU it always runs eagerly. `draft`
+        (cfg, params of the same family, on the same device) proposes for
+        ec.spec_k > 0; without it, prompt lookup does."""
         # Copy before clamping: never mutate the caller's config.
         ec = dataclasses.replace(ec) if ec is not None else EngineConfig()
         self.device = resolve_device(device)
@@ -215,6 +262,26 @@ class Engine:
             self.slot_pages = SlotPages(B)
         else:
             self.cache = model.init_cache(cfg, B, S, dtype=cache_dtype, device=self.device)
+        if ec.spec_k < 0:
+            raise ValueError(f"spec_k {ec.spec_k} invalid")
+        self.spec = bool(ec.spec_k)
+        # The adaptive draft length: each slot's acceptance EWMA (1.0, the
+        # optimistic start, at admission) and its count of degraded rounds.
+        self._spec_ewma = np.ones((B,), np.float64)
+        self._spec_degraded = np.zeros((B,), np.int64)
+        self.spec_draft = self.spec and draft is not None
+        if self.spec_draft and not self.paged:
+            # The draft names its pages through the target's block table;
+            # a dense draft cache has no insert path. Prompt lookup works on
+            # either layout.
+            raise ValueError("draft-model spec_k requires the paged kv layout")
+        if self.spec_draft:
+            self.draft_cfg, self.draft_params = draft
+            if self.draft_params.device != self.device:
+                raise ValueError(f"draft params live on {self.draft_params.device}, engine device is {self.device}")
+            # The target's page ids index this pool too, in the same dtype.
+            self.draft_cache = model.init_paged_cache(self.draft_cfg, self.n_pages + 1, bs, dtype=cache_dtype,
+                                                      device=self.device)
         self.generator = seeded_generator(0, self.device)
         self.overlap = ec.overlap is not False
         self.decode_graph = decode_graph and self.device.type == "cuda"
@@ -244,7 +311,7 @@ class Engine:
         # settled the batch every slot is.
         self._pending: Optional[_InFlightStep] = None
         self._token_fresh = np.ones((B,), bool)
-        self._graph: Optional[DecodeGraph] = None
+        self._graph = None  # the DecodeGraph, or the SpecGraph of a spec engine
         self._graph_cfg = None  # the model config the graph was made for
 
         self.queue: "queue.Queue[Request]" = queue.Queue()
@@ -267,6 +334,12 @@ class Engine:
         # mean is the gap between steps a client sees in either scheduler.
         # On the card "graph_replays" counts replays of the captured step
         # and "graph_warmups" its eager warm-up runs (decode_graph.py).
+        # Speculation: "decode_steps" counts rounds, "verify_passes" those
+        # wider than one token, "rounds_w<w>" those of width w;
+        # "spec_proposed" and "spec_accepted" count greedy proposals and
+        # the accepted ones; "draft_prefill_chunks" the draft's chunks;
+        # a round's "graph_replays" holds one "replays_<graph>" of each of
+        # its SpecGraph graphs.
         self.stats: Dict[str, float] = {
             "prefills": 0,
             "prefill_chunks": 0,
@@ -280,7 +353,12 @@ class Engine:
             "decode_seconds": 0.0,
             "graph_replays": 0,
             "graph_warmups": 0,
+            "verify_passes": 0,
+            "spec_proposed": 0,
+            "spec_accepted": 0,
+            "draft_prefill_chunks": 0,
         }
+        self.stats.update({f"rounds_w{w}": 0 for w in range(1, ec.spec_k + 2)} if self.spec else {})
 
     # --- public API -------------------------------------------------------
 
@@ -394,11 +472,14 @@ class Engine:
         return self._run_chunks(prompt, 0, cache=slot_cache)
 
     def _run_chunks(self, prompt: List[int], start: int, cache: Dict[str, torch.Tensor],
-                    block_table: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Run prompt[start:] through the model in bucket-sized chunks
-        against `cache` (one slot's dense cache, or the paged pool through
-        a block-table row [1, M]), each chunk attending everything before
-        it. Returns the last real token's logits."""
+                    block_table: Optional[torch.Tensor] = None, draft: bool = False) -> torch.Tensor:
+        """Run prompt[start:] through the model (the draft model with
+        `draft`) in bucket-sized chunks against `cache` (one slot's dense
+        cache, or a paged pool through a block-table row [1, M]), each
+        chunk attending everything before it. Returns the last real
+        token's logits."""
+        params, cfg = (self.draft_params, self.draft_cfg) if draft else (self.params, self.cfg)
+        counter = "draft_prefill_chunks" if draft else "prefill_chunks"
         chunk = self.ec.max_prefill_len
         kw = {} if block_table is None else {"block_table": block_table}
         offset, last_logits = start, None
@@ -413,11 +494,10 @@ class Engine:
             positions = torch.clamp(torch.arange(offset, offset + tokens.shape[1], device=self.device),
                                     max=offset + clen)[None, :]
             with torch.inference_mode():
-                logits, _ = self.model.forward(self.params, tokens, self.cfg, positions=positions, cache=cache,
-                                               **kw)
+                logits, _ = self.model.forward(params, tokens, cfg, positions=positions, cache=cache, **kw)
             last_logits = logits[0, clen - 1]
             offset += clen
-            self.stats["prefill_chunks"] += 1
+            self.stats[counter] += 1
         return last_logits
 
     def _admit_paged(self, req: Request, slot: int) -> bool:
@@ -454,6 +534,11 @@ class Engine:
         self.block_table[slot, : len(pages)] = pages
         row = self._to_device(self.block_table[slot : slot + 1].copy())
         last_logits = self._run_chunks(prompt, reuse, cache=self.cache, block_table=row)
+        if self.spec_draft:
+            # The draft's prefill starts at the hit too: a shared page was
+            # written by the admission that registered it, for both pools
+            # (later writes land past every registered full page).
+            self._run_chunks(prompt, reuse, cache=self.draft_cache, block_table=row, draft=True)
         self.stats["prefill_tokens"] += true_len - reuse
         self.stats["prefix_hit_tokens"] += reuse
         n_full = true_len // bs
@@ -502,6 +587,10 @@ class Engine:
         # The device's tokens predate this admission: the next dispatch
         # takes this slot's first token from the host.
         self._token_fresh[slot] = True
+        # Adaptive speculation starts optimistic: no history of the slot's
+        # last tenant carries over.
+        self._spec_ewma[slot] = 1.0
+        self._spec_degraded[slot] = 0
         self.positions[slot] = true_len
         self.temps[slot] = req.temperature
         self.top_ps[slot] = req.top_p
@@ -517,26 +606,59 @@ class Engine:
         logits, _ = self.model.decode_step(self.params, self.cache, tokens, positions, cfg, **kw)
         return sample(logits, self.generator, temps, top_k=self.ec.top_k, top_p=top_ps)
 
-    def _decode_graph(self) -> DecodeGraph:
-        """The step's graph for the current model config. A captured graph
-        replays the config it was captured with, so a new config (a
-        profile's turn of another decode attention) gets a new graph, after
-        a flush: the device feedback lives in the old graph's buffers."""
+    def _verify_step(self, cfg: llama.LlamaConfig, tokens: torch.Tensor, positions: torch.Tensor,
+                     temps: torch.Tensor, top_ps: torch.Tensor,
+                     block_table: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """A speculative round's target forward over tokens [B, w] at
+        positions [B, w] (the cache written in place): the greedy choice at
+        every position and the sample of position 0. At w = 1 it is the
+        decode step."""
+        kw = {} if block_table is None else {"block_table": block_table}
+        logits, _ = self.model.forward(self.params, tokens, cfg, positions=positions, cache=self.cache, **kw)
+        sampled = sample(logits[:, 0], self.generator, temps, top_k=self.ec.top_k, top_p=top_ps)
+        return logits.argmax(dim=-1), sampled
+
+    def _propose_steps(self, tokens: torch.Tensor, positions: torch.Tensor, k: int,
+                       block_table: torch.Tensor) -> torch.Tensor:
+        """k greedy decode steps of the draft through its paged pool from
+        tokens [B] at positions [B]: its proposals [B, k]."""
+        props = []
+        for i in range(k):
+            logits, _ = self.model.forward(self.draft_params, tokens[:, None], self.draft_cfg,
+                                           positions=(positions + i)[:, None], cache=self.draft_cache,
+                                           block_table=block_table)
+            tokens = logits[:, 0].argmax(dim=-1)
+            props.append(tokens)
+        return torch.stack(props, dim=1)
+
+    def _decode_graph(self):
+        """The step's graph (a SpecGraph for a spec engine) for the current
+        model config. A captured graph replays the config it was captured
+        with, so a new config (a profile's turn of another decode
+        attention) gets a new graph, after a flush: the device feedback
+        lives in the old graph's buffers."""
         if self._graph is None or self._graph_cfg is not self.cfg:
             self._flush()
             self._graph_cfg = self.cfg
-            self._graph = DecodeGraph(functools.partial(self._device_step, self.cfg), self.ec.max_batch,
-                                      self.device, self.generator, self.stats, capture=self.decode_graph,
-                                      pages=self.max_pages if self.paged else 0)
+            pages = self.max_pages if self.paged else 0
+            if self.spec:
+                self._graph = SpecGraph(functools.partial(self._verify_step, self.cfg),
+                                        self._propose_steps if self.spec_draft else None, self.ec.max_batch,
+                                        self.ec.spec_k, self.ec.max_seq_len - 1, self.device, self.generator,
+                                        self.stats, capture=self.decode_graph, pages=pages)
+            else:
+                self._graph = DecodeGraph(functools.partial(self._device_step, self.cfg), self.ec.max_batch,
+                                          self.device, self.generator, self.stats, capture=self.decode_graph,
+                                          pages=pages)
         return self._graph
 
     def replayed_launches(self, counter: str) -> int:
         """The launches of a kernel counter ("function.counter", e.g.
-        "decode_attention.launches") made by replays of the step's graph,
+        "decode_attention.launches") made by replays of the step's graphs,
         which the counter itself does not see: its launches in one replay
-        times stats["graph_replays"]."""
-        captured = self._graph.captured if self._graph is not None else {}
-        return captured.get(counter, 0) * int(self.stats["graph_replays"])
+        times stats["graph_replays"] (a SpecGraph: summed over its graphs,
+        each by its own replays)."""
+        return self._graph.replayed_launches(counter) if self._graph is not None else 0
 
     # --- the paged pool under pressure -----------------------------------
 
@@ -572,14 +694,15 @@ class Engine:
         self._resume.insert(0, req)
         self.stats["preemptions"] += 1
 
-    def _ensure_capacity(self, slot: int) -> None:
-        """Before a step writes the slot's next position, make sure a page
-        backs it: allocate, evicting registry entries, then preempt the
-        youngest other slot. Alone in a dry pool, the request ends as
-        truncated ("length")."""
+    def _ensure_capacity(self, slot: int, upto: Optional[int] = None) -> None:
+        """Before a step writes the slot's positions up to `upto` (default
+        its next position), make sure pages back them: allocate, evicting
+        registry entries, then preempt the youngest other slot. Alone in a
+        dry pool, the request ends as truncated ("length"). Positions past
+        the window need no page (their writes go to the trash page)."""
         if not self.active[slot]:
             return  # preempted earlier in this pass
-        pos = min(int(self.positions[slot]), self.ec.max_seq_len - 1)
+        pos = min(int(self.positions[slot]) if upto is None else upto, self.ec.max_seq_len - 1)
         while pos // self.page_size >= len(self.slot_pages.pages[slot]):
             got = self._try_alloc(1)
             while got is None:
@@ -605,6 +728,188 @@ class Engine:
                 got = self._try_alloc(1)
             self.block_table[slot, len(self.slot_pages.pages[slot])] = got[0]
             self.slot_pages.append(slot, got[0])
+
+    # --- speculative rounds ------------------------------------------------
+
+    @staticmethod
+    def _prompt_lookup(ctx, k: int, max_n: int = 3) -> Optional[np.ndarray]:
+        """Prompt-lookup proposal: the continuation after the most recent
+        earlier occurrence of the context's trailing n-gram (largest n
+        first), k tokens (a short continuation padded with its last token),
+        or None when nothing matches."""
+        a = np.asarray(ctx, np.int32)
+        n_ctx = a.size
+        for n in range(min(max_n, n_ctx - 1), 0, -1):
+            tgt = a[n_ctx - n:]
+            # Starts 0..n_ctx-n-1: windowing a[:-1] leaves out the trailing n-gram itself.
+            win = np.lib.stride_tricks.sliding_window_view(a[: n_ctx - 1], n)
+            hits = np.flatnonzero((win == tgt).all(axis=1))
+            if hits.size:
+                j = int(hits[-1])
+                cont = a[j + n : j + n + k]
+                if cont.size:
+                    out = np.full((k,), cont[-1], np.int32)
+                    out[: cont.size] = cont
+                    return out
+        return None
+
+    def _plan_spec_round(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The adaptive draft length of the next round, per active slot:
+        sampling slots never propose; greedy ones propose
+        ceil(ewma * spec_k) while the EWMA holds spec_threshold, else none,
+        with a k = 1 probe every spec_probe_every degraded rounds. Returns
+        host (k_eff, tried, greedy) [B]; a lookup miss may still zero
+        k_eff."""
+        ec = self.ec
+        k_eff = np.zeros((ec.max_batch,), np.int64)
+        tried = np.zeros((ec.max_batch,), bool)
+        greedy = np.zeros((ec.max_batch,), bool)
+        for slot in np.flatnonzero(self.active):
+            slot = int(slot)
+            if self.slot_req[slot].temperature != 0.0:
+                continue
+            greedy[slot] = True
+            ewma = float(self._spec_ewma[slot])
+            if ewma >= ec.spec_threshold:
+                k_eff[slot] = min(ec.spec_k, max(1, math.ceil(ewma * ec.spec_k)))
+                tried[slot] = True
+                self._spec_degraded[slot] = 0
+            else:
+                self._spec_degraded[slot] += 1
+                if self._spec_degraded[slot] >= ec.spec_probe_every:
+                    self._spec_degraded[slot] = 0
+                    k_eff[slot] = 1
+                    tried[slot] = True
+        return k_eff, tried, greedy
+
+    def _spec_history(self, slot: int) -> Optional[List[int]]:
+        """The lookup scan's context: prompt and delivered tokens, extended
+        through the round in flight as if its proposals were all accepted
+        (the verify rejects a wrong guess, so only speed depends on it). An
+        in-flight row that proposed nothing has an unknown next token: the
+        scan's own one-token guess stands in, and with none the slot
+        proposes nothing this round (None)."""
+        req = self.slot_req[slot]
+        ctx = list(self.clipped_prompt(req.prompt_tokens) or [0]) + self.slot_tokens[slot]
+        p = self._pending
+        if p is None or self._token_fresh[slot]:
+            return ctx  # a settled batch, or a slot admitted since the dispatch
+        ke = int(p.k_eff[slot])
+        if ke > 0:
+            return ctx + [int(x) for x in p.props[slot, :ke]]
+        guess = self._prompt_lookup(ctx, 1)
+        return None if guess is None else ctx + [int(guess[0])]
+
+    def _spec_dispatch(self) -> Optional[_InFlightSpecStep]:
+        """Device half of one speculative round: plan each slot's draft
+        length, scan for lookup proposals (host work that runs while the
+        round before occupies the card), grow the pages the round writes,
+        launch it (its tokens and positions chained from the round in
+        flight on the device) and return the bookkeeping without reading
+        anything back. The width is max(k_eff) + 1; width 1 is a plain
+        decode step. None when capacity handling emptied the batch."""
+        k_eff, tried, greedy = self._plan_spec_round()
+        ec = self.ec
+        lookup = None
+        if not self.spec_draft:
+            lookup = np.zeros((ec.max_batch, ec.spec_k), np.int64)
+            for slot in np.flatnonzero(k_eff > 0):
+                slot = int(slot)
+                ctx = self._spec_history(slot)
+                guess = None if ctx is None else self._prompt_lookup(ctx, int(k_eff[slot]))
+                if guess is None:
+                    # A plain row this round. A failed scan decays the EWMA;
+                    # an unknowable history says nothing about the stream.
+                    tried[slot] = ctx is not None
+                    k_eff[slot] = 0
+                else:
+                    lookup[slot, : guess.size] = guess
+        width = int(k_eff.max()) + 1
+        if self.paged:
+            # The round in flight may still move a slot on by its own
+            # max(1, k_eff) before this one writes: that slack joins the
+            # bound. _pending is read per slot, since _ensure_capacity may
+            # flush it (the positions are then settled and the slack 0).
+            for slot in np.flatnonzero(self.active):
+                slot = int(slot)
+                p = self._pending
+                slack = max(1, int(p.k_eff[slot])) if p is not None and not self._token_fresh[slot] else 0
+                self._ensure_capacity(slot, int(self.positions[slot]) + slack + width - 1)
+            if not self.active.any():
+                return None
+        graph = self._decode_graph()
+        # With nothing in flight every row takes the host's token and position.
+        fresh = self._token_fresh if self._pending is not None else np.ones_like(self._token_fresh)
+        pages = {"block_table": self.block_table} if self.paged else {}
+        read = graph.launch(self.tokens, self.positions, self.temps, self.top_ps, fresh, k_eff, greedy, width,
+                            props=lookup, **pages)
+        if width > 1:
+            # Width-1 rounds are plain decode steps, not verify passes.
+            self.stats["verify_passes"] += 1
+        self.stats[f"rounds_w{width}"] += 1
+        self.stats["decode_steps"] += 1
+        self._token_fresh[:] = False
+        return _InFlightSpecStep(read=read, props=None if lookup is None else lookup[:, : width - 1],
+                                 k_eff=k_eff, tried=tried, greedy=greedy,
+                                 slots=[(int(s), self.slot_req[int(s)]) for s in np.flatnonzero(self.active)])
+
+    def _spec_drain(self, step: _InFlightSpecStep) -> None:
+        """Host half of one speculative round: its one host read, then per
+        slot active at dispatch (and still its request's) the accept walk,
+        emits, release, and the EWMA's update. A greedy row emits the
+        longest matching prefix of its proposals plus the target's
+        correction, or on full acceptance the proposals alone (the last one
+        seeds the next round); a sampling row its position-0 sample. The
+        host positions move only here, so on entry a slot's is this
+        round's base, and each emit carries its own (pos0 + i) for the
+        window's release."""
+        chs, smp, draft_props = step.read()
+        props = step.props if step.props is not None else draft_props
+        d = self.ec.spec_ewma_decay
+        for slot, req in step.slots:
+            if self.slot_req[slot] is not req:
+                continue  # released (or re-admitted) since the dispatch
+            ke = int(step.k_eff[slot])
+            pos0 = int(self.positions[slot])
+            if not step.greedy[slot]:
+                emit = [int(smp[slot])]
+            else:
+                accepted = 0
+                while accepted < ke and props[slot, accepted] == chs[slot, accepted]:
+                    accepted += 1
+                if ke > 0:
+                    self.stats["spec_proposed"] += ke
+                    self.stats["spec_accepted"] += accepted
+                    self._spec_ewma[slot] = d * self._spec_ewma[slot] + (1.0 - d) * (accepted / ke)
+                elif step.tried[slot]:
+                    # A planned proposal the lookup could not make: a zero
+                    # observation that leaves the counters alone.
+                    self._spec_ewma[slot] = d * self._spec_ewma[slot]
+                if ke > 0 and accepted == ke:
+                    emit = [int(x) for x in props[slot, :ke]]
+                else:
+                    emit = [int(x) for x in props[slot, :accepted]] + [int(chs[slot, accepted])]
+            self.tokens[slot] = emit[-1]
+            for i, tok in enumerate(emit, start=1):
+                self._emit(slot, tok, pos0 + i)
+                if self.slot_req[slot] is not req:
+                    break  # EOS, budget or window within the run
+            self.positions[slot] = min(pos0 + len(emit), self.ec.max_seq_len - 1)
+        if not self.overlap:
+            # Synchronous: the next round feeds host values only.
+            self._token_fresh[:] = True
+
+    def _dispatch_any(self):
+        """The dispatch half on the engine's kind: a speculative round or a
+        plain decode step."""
+        return self._spec_dispatch() if self.spec else self._dispatch()
+
+    def _drain_any(self, step) -> None:
+        """The drain half matching the in-flight bookkeeping's kind."""
+        if isinstance(step, _InFlightSpecStep):
+            self._spec_drain(step)
+        else:
+            self._drain(step)
 
     def _dispatch(self) -> Optional[_InFlightStep]:
         """Device half of one decode step: launch it (each continuing slot's
@@ -649,30 +954,30 @@ class Engine:
             self._token_fresh[:] = True
 
     def _flush(self) -> None:
-        """Drain the in-flight step now: before the scheduler exits (stop)
-        and before the step's graph is replaced. The batch is then settled,
+        """Drain the in-flight step (or round) now: before the scheduler
+        exits (stop) and before the step's graph is replaced. The batch is then settled,
         and the next dispatch feeds host tokens for every slot."""
         pending, self._pending = self._pending, None
         if pending is None:
             return
-        self._drain(pending)
+        self._drain_any(pending)
         self._token_fresh[:] = True
 
     def _decode_step(self) -> None:
         """One synchronous iteration (overlap=False): dispatch, then drain
         at once."""
-        step = self._dispatch()
+        step = self._dispatch_any()
         if step is not None:
-            self._drain(step)
+            self._drain_any(step)
 
     def _step_overlapped(self) -> None:
         """One pipelined iteration: dispatch step N, then drain step N-1
         while step N occupies the card. Dispatch first: a dispatch that
         replaces the graph, or preempts, flushes the pending step itself."""
-        launched = self._dispatch()
+        launched = self._dispatch_any()
         prev, self._pending = self._pending, launched
         if prev is not None:
-            self._drain(prev)
+            self._drain_any(prev)
 
     def _step(self) -> None:
         """One scheduler iteration's decoding, on the resolved scheduler."""

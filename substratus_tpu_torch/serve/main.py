@@ -17,7 +17,17 @@ Knobs come from flags or from the container contract's params file
 the subset ``model``, ``config``, ``max_batch``, ``max_seq_len``,
 ``max_prefill_len``, ``kv_cache_dtype``, ``max_queue`` and ``overlap`` (absent or ``true``: the
 overlapped scheduler; ``false``: the synchronous one; on the card the
-decode step is a CUDA graph in both), the cache's layout
+decode step is a CUDA graph in both), speculative decoding
+
+* ``spec_k`` (``--spec-k``): up to k proposals a greedy request a round,
+  verified by one target forward (serve/engine.py); with ``draft_model``
+  (``--draft-model``, a checkpoint path resolved as ``model`` is, of the
+  same family, quantized as the target) a draft model proposes, else
+  prompt lookup does. A draft needs the paged pool: with ``kv_layout``
+  dense the entry point says so and serves without speculation, as the JAX
+  one does;
+
+the cache's layout
 
 * ``kv_layout``: ``auto`` (the default) serves llama on the paged pool, as
   the JAX entry point does: pages of 16 tokens, a pool of max_batch x
@@ -72,8 +82,6 @@ import torch
 # (a key holding it passes), and where the rest waits.
 _NOT_SERVED = {
     "baseModel": (None, "Queue 1, multi-tenant adapters (a base model shared by adapters)"),
-    "spec_k": (0, "Queue 1, speculative decoding"),
-    "draft_model": (None, "Queue 1, speculative decoding"),
     "adapters": (None, "Queue 1, multi-tenant adapters"),
     "role": ("both", "Queue 1, disaggregated prefill/decode"),
     "disaggregated": (None, "Queue 1, disaggregated prefill/decode"),
@@ -86,7 +94,8 @@ _NOT_SERVED = {
     "drain_grace": (None, "Queue 1, the serving surface (gateway contract)"),
 }
 _SERVED = ("model", "config", "max_batch", "max_seq_len", "max_prefill_len", "kv_cache_dtype", "max_queue",
-           "overlap", "kv_layout", "decode_attn_impl", "chunk_attn_impl", "attn_impl", "quantize", "q4_impl")
+           "overlap", "kv_layout", "decode_attn_impl", "chunk_attn_impl", "attn_impl", "quantize", "q4_impl",
+           "spec_k", "draft_model")
 _KV_LAYOUTS = ("auto", "paged", "dense")
 _QUANTIZE = ("none", "int8", "int4")
 # The port has no XLA: both of the JAX entry point's int4 lowerings run the kernel.
@@ -172,14 +181,24 @@ def resolve_overlap(params: Dict[str, Any]) -> Optional[bool]:
     return overlap
 
 
+def resolve_spec(flag: Optional[int], draft_flag: Optional[str], params: Dict[str, Any]) -> Tuple[int, Optional[str]]:
+    """(spec_k, draft checkpoint path) from the flags, else params.json;
+    exits on a spec_k that is not a count."""
+    spec_k = flag if flag is not None else params.get("spec_k", 0)
+    if isinstance(spec_k, bool) or not isinstance(spec_k, int) or spec_k < 0:
+        raise SystemExit(f"params.json: spec_k={spec_k!r} invalid (a count of proposals, 0 = off)")
+    return spec_k, draft_flag or params.get("draft_model")
+
+
 def check_params(params: Dict[str, Any]) -> None:
     """Exit on any key the port does not serve yet (naming its ROADMAP
-    queue), on any key it does not know, and on an attention, weight or
-    scheduler mode it does not serve."""
+    queue), on any key it does not know, and on an attention, weight,
+    scheduler or speculation mode it does not serve."""
     resolve_attn_impls(params)
     resolve_kv_layout(params)
     resolve_quantize(params)
     resolve_overlap(params)
+    resolve_spec(None, None, params)
     for key, value in params.items():
         if key in _NOT_SERVED:
             served, where = _NOT_SERVED[key]
@@ -241,6 +260,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--params", default="/content/params.json", help="params file (container contract)")
     ap.add_argument("--max-batch", type=int, default=None)
     ap.add_argument("--max-seq-len", type=int, default=None)
+    ap.add_argument("--draft-model", default=None, help="draft checkpoint for speculative decoding (params.json "
+                                                        "draft_model)")
+    ap.add_argument("--spec-k", type=int, default=None, help="proposals a verify round (0 = off; params.json spec_k)")
     return ap.parse_args(argv)
 
 
@@ -284,17 +306,37 @@ def build(argv=None):
     # Bounded admission: 4x max_batch waiters by default, 0 = unbounded,
     # as the JAX entry point has it.
     max_queue = int(params_json.get("max_queue", 4 * max_batch))
+    kv_layout = resolve_kv_layout(params_json)
+    spec_k, draft_path = resolve_spec(args.spec_k, args.draft_model, params_json)
+    if spec_k and draft_path and kv_layout == "dense":
+        # The draft shares the target's page tables; prompt lookup would
+        # work on the dense cache, but the operator asked for a draft.
+        print("draft spec_k needs kv_layout=paged; speculation disabled", flush=True)
+        spec_k = 0
+    draft = None
+    if spec_k and draft_path:
+        draft_cfg, draft_params = load_checkpoint(draft_path, device)
+        try:
+            same_family = registry.module_of(draft_cfg) is family
+        except TypeError:  # a family the port has not ported
+            same_family = False
+        if not same_family:
+            raise SystemExit("draft model must be the same family as the target")
+        # The draft rides the target's quantization: it is there to cut
+        # the bytes a token costs, not to add bf16 streams.
+        draft = (draft_cfg, family.quantize_weights(draft_params, quantize))
     ec = EngineConfig(
         max_batch=max_batch,
         max_seq_len=int(knob(args.max_seq_len, "max_seq_len", 1024)),
         max_prefill_len=int(params_json.get("max_prefill_len", EngineConfig.max_prefill_len)),
         kv_cache_dtype=params_json.get("kv_cache_dtype", "model"),
-        kv_layout=resolve_kv_layout(params_json),
+        kv_layout=kv_layout,
         eos_token_id=tokenizer.eos_id,
         max_queue=max_queue if max_queue > 0 else None,
         overlap=resolve_overlap(params_json),
+        spec_k=spec_k,
     )
-    engine = Engine(cfg, params, ec, device=device, model=family)
+    engine = Engine(cfg, params, ec, device=device, model=family, draft=draft)
     server = Server(ServerState(engine, tokenizer, name), host=args.host, port=args.port)
     engine.start()
     weights = {"none": f"{str(cfg.dtype).removeprefix('torch.')} weights, torch.matmul",
@@ -316,9 +358,13 @@ def build(argv=None):
                  f"{'fused cache-write + decode kernel' if decode_impl == 'fused' else 'decode kernel'} "
                  f"(decode_attn_impl={params_json.get('decode_attn_impl', 'xla')}), long-prompt chunks: "
                  f"cached flash kernel (chunk_attn_impl={params_json.get('chunk_attn_impl', 'xla')})")
+    spec = "off"
+    if spec_k:
+        spec = f"draft={draft_path} k={spec_k}" if draft is not None else f"prompt-lookup k={spec_k}"
     print(f"serving {name} on {args.host}:{server.port} ({device}); {weights[shown]}; {cache}; scheduler: "
           f"{'overlapped' if engine.overlap else 'synchronous'}, decode step "
-          f"{'one CUDA graph' if engine.decode_graph else 'eager'}", flush=True)
+          f"{('a CUDA graph a width' if engine.spec else 'one CUDA graph') if engine.decode_graph else 'eager'}; "
+          f"speculative decoding: {spec}", flush=True)
     return server
 
 

@@ -166,7 +166,8 @@ def test_params_policy():
     assert main.resolve_quantize({}) == "none" and main.resolve_quantize({"quantize": "int4"}) == "int4"
     for layout in ("auto", "paged", "dense"):  # every layout is served; no key is the paged pool
         main.check_params({"kv_layout": layout})
-    for params in ({"spec_k": 4}, {"quantize": "w8a8"}, {"adapters": {"dir": "x"}},
+    main.check_params({"spec_k": 4, "draft_model": "/models/draft"})  # served: speculative decoding
+    for params in ({"quantize": "w8a8"}, {"adapters": {"dir": "x"}},
                    {"role": "prefill"}, {"attn_impl": "ring"}, {"attn_impl": "ulysses"}, {"baseModel": "m"}):
         with pytest.raises(SystemExit, match="ROADMAP"):
             main.check_params(params)
@@ -174,7 +175,7 @@ def test_params_policy():
                           ({"decode_attn_impl": "magic"}, "invalid"), ({"chunk_attn_impl": "plain"}, "invalid"),
                           ({"attn_impl": "splash"}, "invalid"),
                           ({"quantize": "int3"}, "invalid"), ({"quantize": "int4", "q4_impl": "triton"}, "invalid"),
-                          ({"q4_impl": "auto"}, "invalid")):
+                          ({"q4_impl": "auto"}, "invalid"), ({"spec_k": -1}, "invalid"), ({"spec_k": "3"}, "invalid")):
         with pytest.raises(SystemExit, match=match):
             main.check_params(params)
     with pytest.raises(SystemExit, match="unknown key"):
