@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases card,build,kernels,train,train-full
     python3 chip_smoke.py --phases card,build,serve-ckpt
     python3 chip_smoke.py --phases card,build,serve,serve-paged,profile
+    python3 chip_smoke.py --phases card,build,serve-surface
 
 Phases, each of which exits non-zero on failure:
 
@@ -152,6 +153,35 @@ Phases, each of which exits non-zero on failure:
               an in-process engine on those weights, the int4 path's
               launches per design, every prompt through the vocabulary and
               back, usage equal to the encode lengths, tokens per byte;
+  serve-surface
+              the container contract's serving surface: tools/ckpt_writer.py
+              writes llama2-7b from seeds 0 and 1 and a 2-layer model of its
+              width as Q4_0 GGUFs with the SPM vocabulary and a Llama-2
+              chat template; serve.main runs as a child process on the
+              seed-0 file with serve-spec (a)'s params (int4, int8 pages,
+              B=24, lookup k=3), max_queue 4 and drain_grace 60, in four
+              legs: (a) chat, whole and streamed, holds usage to the
+              template's rendering; stop cuts an earlier greedy completion
+              of the same short prompt (under 16 tokens: no page is shared,
+              so runs repeat bit for bit) whole and streamed, never sending
+              the stop, its slot free on /loadz; /loadz carries every key
+              of the JAX load_snapshot; /metrics parses, its TTFT count is
+              the requests served and its spec totals /loadz's; a burst of
+              36 gets at least 8 answers of 429 with Retry-After and serves
+              the rest whole; an expired deadline 504; (b) /swapz to the
+              same file in the middle of a 160-token stream leaves it token
+              for token an unswapped run's, seed 1 changes a completion and
+              bumps weights_version, seed 0 again gives the first one, the
+              2-layer file 409 with the version unmoved, no graph captured
+              twice; (d) a 2 s /debug/profile under short-prompt traffic
+              writes a trace naming q4_matmul_decode_kernel; (c) SIGTERM
+              during a 256-token stream: readiness and /loadz 503 within
+              1 s, a new POST 503 with Retry-After, the stream whole, exit
+              0 within the grace. It prints the time to ready, the served
+              mean round from the phase histogram beside serve-spec (a)'s
+              round and plain step of the same run, and the child's int4
+              launches by design (substratus_serve_kernel_launches, counted
+              from the end of the warm-up request);
   train       train.main at llama2-7b's full width and depth (random weights
               from seed 0, bf16) with the finetune example's params: LoRA
               rank 16 on wq/wv, batch 8 x 1024, learning rate 2e-4, remat,
@@ -190,7 +220,8 @@ Phases, each of which exits non-zero on failure:
               its device busy time and top kernels.
 
 The line before the last is one JSON object with every kernel's numbers
-(launches from the serve or train phase whose path runs the kernel; the
+(launches from the serve or train phase whose path runs the kernel, with
+serve-spec's and serve-surface's beside; the
 int4 matmul's three designs are three entries, q4_matmul.cu's with no
 launch on the main path, and the cached flash's int8 route another); the
 last line
@@ -205,11 +236,13 @@ import json
 import queue
 import random
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 from pathlib import Path
 
@@ -1012,29 +1045,51 @@ PROMPTS = [  # (text, max_tokens, temperature, stream): ByteTokenizer ids = 1 + 
 ]
 
 
+def http(base: str, path: str, body=None, headers=None, timeout: float = 600, on_first=None):
+    """(status, headers, text) of a GET (body None) or a JSON POST;
+    `on_first` runs once the body's first line is in (a stream's first
+    chunk)."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"{base}{path}", data=data, headers={"Content-Type": "application/json",
+                                                                       **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            first = r.readline()
+            if on_first is not None:
+                on_first()
+            return r.status, dict(r.headers), (first + r.read()).decode()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read().decode()
+
+
+def sse_parse(text: str, chat: bool = False):
+    """(pieces, finish, usage, done) of an SSE body: a piece a choice."""
+    pieces, finish, usage, done = [], None, None, False
+    for line in text.split("\n"):
+        if not line.startswith("data: "):
+            continue
+        if line == "data: [DONE]":
+            done = True
+            continue
+        obj = json.loads(line[6:])
+        usage = obj.get("usage") or usage
+        for ch in obj["choices"]:
+            pieces.append(ch["delta"].get("content", "") if chat else ch["text"])
+            finish = ch["finish_reason"] or finish
+    return pieces, finish, usage, done
+
+
 def post(base: str, body: dict):
-    req = urllib.request.Request(f"{base}/v1/completions", data=json.dumps(body).encode(),
-                                 headers={"Content-Type": "application/json"})
-    t0 = time.perf_counter()
-    with urllib.request.urlopen(req, timeout=600) as resp:
-        if not body.get("stream"):
-            return resp.status, json.loads(resp.read()), None
-        usage, finish, n_chunks, ttft = None, None, 0, None
-        for raw in resp:
-            line = raw.decode().strip()
-            if not line.startswith("data: "):
-                continue
-            if line == "data: [DONE]":
-                break
-            obj = json.loads(line[6:])
-            if obj.get("usage"):
-                usage = obj["usage"]
-            for ch in obj["choices"]:
-                if ttft is None:
-                    ttft = time.perf_counter() - t0
-                n_chunks += 1
-                finish = ch["finish_reason"] or finish
-        return resp.status, {"usage": usage, "finish": finish, "chunks": n_chunks}, ttft
+    """(status, the JSON body or a stream's {usage, finish, chunks}, the
+    client's time to the first chunk) of a completion."""
+    t0, ttft = time.perf_counter(), []
+    status, _, text = http(base, "/v1/completions", body, on_first=lambda: ttft.append(time.perf_counter() - t0))
+    if status != 200:
+        return status, text, None
+    if not body.get("stream"):
+        return status, json.loads(text), None
+    pieces, finish, usage, _ = sse_parse(text)
+    return status, {"usage": usage, "finish": finish, "chunks": len(pieces)}, ttft[0]
 
 
 def wait_idle(engine) -> None:
@@ -1239,9 +1294,8 @@ def start_server(name: str, params: dict, argv=()):
     base = f"http://127.0.0.1:{server.port}"
     print(f"{name}: llama2-7b built in {time.perf_counter() - t0:.1f} s "
           f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card)", flush=True)
-    with urllib.request.urlopen(f"{base}/", timeout=60) as r:
-        if r.status != 200:
-            fail(f"GET / -> {r.status}")
+    if (status := http(base, "/", timeout=60)[0]) != 200:
+        fail(f"GET / -> {status}")
     post(base, {"prompt": "warm up", "max_tokens": 2, "temperature": 0.0})  # cuBLAS handles etc.
     wait_idle(engine)
     return server, engine, base
@@ -2874,6 +2928,459 @@ def serve_ckpt_phase(card: str) -> dict:
     return out
 
 
+# --- the serving surface: serve.main as a child process ---------------------------
+
+# serve-spec's params (the throughput example: int4, int8 pages, B=24, lookup
+# k=3) from a checkpoint, with a short queue (429 under a burst) and a grace.
+SURFACE_PARAMS = {"quantize": "int4", "kv_cache_dtype": "int8", "max_batch": 24, "spec_k": 3, "max_queue": 4,
+                  "drain_grace": 60}
+# The keys of the JAX engine's load_snapshot() (substratus_tpu/serve/engine.py
+# load_snapshot, without batch generation and adapters) and of its /loadz.
+LOADZ_KEYS = ("queue_depth", "active_slots", "max_slots", "kv_free_frac", "max_queue", "role", "transfer_queue_depth",
+              "overlap", "weights_version", "prefill_tokens", "prefix_hit_tokens", "load_seq", "load_ts", "slo", "spec",
+              "model", "draining")
+SURFACE_CHAT = [{"role": "system", "content": "You answer about caches."},
+                {"role": "user", "content": "How do the pages of a long prompt decode?"}]
+SURFACE_PROMPT = "the cache of a long prompt runs in chunks through the"
+BURST = 36
+
+
+def scrape(base: str) -> dict:
+    """/metrics parsed: {"types": {family: type}, "samples": {name{labels}: value}}; fails on a line that is
+    neither a comment nor a sample."""
+    status, headers, text = http(base, "/metrics")
+    if status != 200 or headers.get("Content-Type") != "text/plain; version=0.0.4; charset=utf-8":
+        fail(f"serve-surface: /metrics -> {status} {headers.get('Content-Type')}")
+    types, samples = {}, {}
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            _, _, name, kind = line.split(" ")
+            types[name] = kind
+        elif line and not line.startswith("#"):
+            key, _, value = line.rpartition(" ")
+            if not key:
+                fail(f"serve-surface: /metrics line {line!r} does not parse")
+            samples[key] = float(value)
+    return {"types": types, "samples": samples}
+
+
+def surface_forwards(metrics: dict) -> int:
+    """The child engine's forwards so far: prefills, prefill chunks, rounds,
+    and each verify graph's warm-up at its capture (one a width used)."""
+    s = metrics["samples"]
+    verify_captures = sum(1 for k, v in s.items() if k.startswith("substratus_serve_replays_verify") and v > 0)
+    return verify_captures + sum(int(s.get(f"substratus_serve_{k}", 0))
+                                 for k in ("prefills", "prefill_chunks", "decode_steps"))
+
+
+def surface_launches(metrics: dict) -> dict:
+    """The child's kernel counters from substratus_serve_kernel_launches."""
+    prefix = 'substratus_serve_kernel_launches{counter="'
+    return {k[len(prefix):-2]: int(v) for k, v in metrics["samples"].items() if k.startswith(prefix)}
+
+
+class SurfaceChild:
+    """serve.main in a child process (a real SIGTERM ends it), its output in
+    OUT_DIR/serve_surface_child.log; the port it printed."""
+
+    def __init__(self, model: Path, params: dict, env: dict):
+        OUT_DIR.mkdir(exist_ok=True)
+        self.params_path = OUT_DIR / "chip_smoke_params_serve-surface.json"
+        self.params_path.write_text(json.dumps(params))
+        self.log = (OUT_DIR / "serve_surface_child.log").open("w")
+        self.lines = []
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen([sys.executable, "-m", "substratus_tpu_torch.serve.main", "--model", str(model),
+                                      "--params", str(self.params_path), "--host", "127.0.0.1", "--port", "0"],
+                                     cwd=Path(__file__).resolve().parent, env=env, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
+        self.serving = threading.Event()
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.log.write(line)
+            self.log.flush()
+            self.lines.append(line)
+            if line.startswith("serving "):
+                self.serving.set()
+
+    def wait_ready(self, timeout: float = 300) -> tuple:
+        """(base URL, seconds from the start to GET / answering 200)."""
+        if not self.serving.wait(timeout) or self.proc.poll() is not None:
+            fail(f"serve-surface: the child did not start: {''.join(self.lines[-20:])}")
+        line = next(ln for ln in self.lines if ln.startswith("serving "))
+        base = f"http://127.0.0.1:{int(line.split('127.0.0.1:')[1].split()[0])}"
+        while http(base, "/")[0] != 200:
+            if self.proc.poll() is not None or time.perf_counter() - self.t0 > timeout:
+                fail(f"serve-surface: the child never became ready: {''.join(self.lines[-20:])}")
+            time.sleep(0.1)
+        return base, time.perf_counter() - self.t0
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=60)
+        self.reader.join(timeout=10)
+        self.log.close()
+
+
+def write_surface_checkpoints(tmp: Path) -> dict:
+    """llama2-7b seed 0 and seed 1, and a 2-layer model of its width, as Q4_0
+    GGUF files with a 32000-piece SPM vocabulary and a chat template."""
+    import torch
+
+    from substratus_tpu_torch.models import llama
+    from substratus_tpu_torch.tools.ckpt_writer import LLAMA2_CHAT_TEMPLATE, spm_vocab, write_gguf
+
+    cfg = llama.CONFIGS["llama2-7b"]
+    paths = {"n_layers": cfg.n_layers}
+    texts = (SURFACE_PROMPT, _long_text(20000, 5)) + tuple(m["content"] for m in SURFACE_CHAT)
+    vocab = spm_vocab(cfg.vocab_size, 0, texts, chat_template=LLAMA2_CHAT_TEMPLATE)
+    for name, seed, c in (("seed0", 0, cfg), ("seed1", 1, cfg), ("two_layers", 0, cfg.replace(n_layers=2))):
+        disk_room(tmp, 4_100_000_000 * c.n_layers // cfg.n_layers, f"serve-surface {name}")
+        path = tmp / f"llama2-7b-{name}.gguf"
+        t0 = time.perf_counter()
+        model = llama.init_params(c, seed=seed, device="cuda")
+        write_gguf(str(path), model, vocab)
+        del model
+        torch.cuda.empty_cache()
+        print(f"serve-surface: {path.name} ({path.stat().st_size} bytes) written in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        paths[name] = path
+    return paths
+
+
+def surface_contract(base: str, tok, label: str) -> dict:
+    """Leg (a): chat held by the template, stop (whole and streamed), /loadz's
+    keys, /metrics against the requests served, a burst into 429s, 504."""
+    served = 0
+    out = {}
+    # Chat, whole and streamed: the prompt is the template's rendering.
+    rendered = tok.apply_chat_template(SURFACE_CHAT)
+    want_prompt = len(tok.encode_templated(rendered))
+    body = {"messages": SURFACE_CHAT, "max_tokens": 24, "temperature": 0}
+    status, _, text = http(base, "/v1/chat/completions", body)
+    chat = json.loads(text) if status == 200 else fail(f"{label}: chat -> {status} {text}")
+    status, _, text = http(base, "/v1/chat/completions", {**body, "stream": True,
+                                                           "stream_options": {"include_usage": True}})
+    pieces, finish, usage, done = sse_parse(text, chat=True)
+    if chat["usage"]["prompt_tokens"] != want_prompt or (usage or {}).get("prompt_tokens") != want_prompt or not done:
+        fail(f"{label}: chat prompt tokens {chat['usage']} / {usage}, the template renders {want_prompt}")
+    # The rendering is longer than a page: the second request takes the first
+    # one's page from the registry, so its chunk (and the int4 design by rows)
+    # differs and bf16 near-ties may flip; each answer is held to its own usage.
+    if len(pieces) != usage["completion_tokens"] + 1 or (finish == "length") != (usage["completion_tokens"] == 24) \
+            or (chat["choices"][0]["finish_reason"] == "length") != (chat["usage"]["completion_tokens"] == 24):
+        fail(f"{label}: chat finish/usage: {chat['choices'][0]['finish_reason']} {chat['usage']}; streamed {finish} "
+             f"{usage} in {len(pieces)} chunks")
+    served += 2
+    # stop: a substring of an earlier greedy completion of the same prompt.
+    body = {"prompt": SURFACE_PROMPT, "max_tokens": 48, "temperature": 0}
+    status, _, text = http(base, "/v1/completions", body)
+    full = json.loads(text)["choices"][0]["text"]
+    words = full.split()
+    if len(words) < 6:
+        fail(f"{label}: the greedy completion {full!r} has too few words to cut")
+    stop = " " + words[4]
+    cut = full.find(stop)
+    status, _, text = http(base, "/v1/completions", {**body, "stop": stop})
+    got = json.loads(text)
+    served += 2
+    if (got["choices"][0]["text"] != full[:cut] or got["choices"][0]["finish_reason"] != "stop"
+            or got["usage"]["completion_tokens"] >= 48):
+        fail(f"{label}: stop {stop!r}: {got['choices'][0]} {got['usage']}, want {full[:cut]!r}")
+    t0 = time.perf_counter()
+    while json.loads(http(base, "/loadz")[2])["active_slots"] and time.perf_counter() - t0 < 5:
+        time.sleep(0.05)
+    if json.loads(http(base, "/loadz")[2])["active_slots"]:
+        fail(f"{label}: the stopped request's slot is not free")
+    status, _, text = http(base, "/v1/completions", {**body, "stop": [stop], "stream": True})
+    pieces, finish, _, done = sse_parse(text)
+    served += 1
+    if "".join(pieces) != full[:cut] or finish != "stop" or not done or \
+            any(stop in "".join(pieces[:n]) for n in range(len(pieces) + 1)):
+        fail(f"{label}: the streamed stop sent {''.join(pieces)!r} ({finish}), want {full[:cut]!r}")
+    out["stop"] = {"stop": stop, "cut_at_char": cut, "completion_tokens": got["usage"]["completion_tokens"]}
+    # A burst past max_queue: at least 8 shed with Retry-After >= 1, the rest served whole.
+    results = [None] * BURST
+
+    def one(i):
+        results[i] = http(base, "/v1/completions", {"prompt": f"{SURFACE_PROMPT} {i}", "max_tokens": 16,
+                                                    "temperature": 0})
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(BURST)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    burst_s = time.perf_counter() - t0
+    shed = [r for r in results if r[0] == 429]
+    admitted = [r for r in results if r[0] != 429]
+    if len(shed) < 8 or any(int(r[1].get("Retry-After", 0)) < 1 for r in shed):
+        fail(f"{label}: a burst of {BURST} got {len(shed)} answers of 429 (want >= 8 with Retry-After >= 1)")
+    for status, _, text in admitted:
+        if status != 200 or not 1 <= json.loads(text)["usage"]["completion_tokens"] <= 16:
+            fail(f"{label}: an admitted request of the burst: {status} {text[:200]}")
+    served += len(admitted)
+    out["burst"] = {"requests": BURST, "shed_429": len(shed), "served": len(admitted), "seconds": burst_s}
+    # An expired deadline: 504.
+    status, _, text = http(base, "/v1/completions", {"prompt": "late"},
+                           {"x-request-deadline": str(time.time() - 1)})
+    if status != 504 or json.loads(text)["error"]["type"] != "deadline":
+        fail(f"{label}: an expired deadline -> {status} {text}")
+    # /loadz and /metrics at rest.
+    time.sleep(0.5)
+    loadz = json.loads(http(base, "/loadz")[2])
+    missing = [k for k in LOADZ_KEYS if k not in loadz]
+    if missing or loadz["role"] != "both" or loadz["max_slots"] != 24 or loadz["max_queue"] != 4:
+        fail(f"{label}: /loadz lacks {missing} or differs: {loadz}")
+    metrics = scrape(base)
+    s = metrics["samples"]
+    ttft = s.get("substratus_serve_ttft_seconds_count", 0)
+    out["served"] = served
+    return out, ttft, loadz, metrics
+
+
+def surface_stream(base: str, prompt: str, max_tokens: int, during=None) -> tuple:
+    """(text, usage, finish) of a greedy streamed completion; `during` runs
+    (on another thread) once the first chunk is in."""
+    body = {"prompt": prompt, "max_tokens": max_tokens, "temperature": 0, "stream": True,
+            "stream_options": {"include_usage": True}}
+    extra, threads = {}, []
+
+    def started():
+        if during is not None:
+            threads.append(threading.Thread(target=lambda: extra.update(during() or {})))
+            threads[0].start()
+
+    status, _, text = http(base, "/v1/completions", body, on_first=started)
+    for thread in threads:
+        thread.join()
+    if status != 200:
+        fail(f"serve-surface: a stream answered {status}: {text[:200]}")
+    pieces, finish, usage, done = sse_parse(text)
+    if not done or len(pieces) != usage["completion_tokens"] + 1:
+        fail(f"serve-surface: a stream ended without [DONE] or with {len(pieces)} chunks for {usage}")
+    return "".join(pieces), usage, finish, extra
+
+
+def surface_swap(base: str, paths: dict, label: str) -> dict:
+    """Leg (b): a swap to the same file mid-stream leaves the stream as an
+    unswapped run's; seed 1 changes a greedy completion and bumps the
+    version; back to seed 0 gives the first completion again; the 2-layer
+    file gets 409 and the version stays; no graph is captured twice."""
+    def swap(path, want_status=200):
+        t0 = time.perf_counter()
+        status, _, text = http(base, "/swapz", {"checkpoint": str(path)})
+        if status != want_status:
+            fail(f"{label}: /swapz {path.name} -> {status} {text[:300]}")
+        return json.loads(text), time.perf_counter() - t0
+
+    def version():
+        return json.loads(http(base, "/loadz")[2])["weights_version"]
+
+    def graphs(metrics):
+        s = metrics["samples"]
+        used = sorted(k[len("substratus_serve_replays_"):] for k, v in s.items()
+                      if k.startswith("substratus_serve_replays_") and v > 0)
+        return int(s.get("substratus_serve_graph_warmups", 0)), used
+
+    before = graphs(scrape(base))
+    prompt = "a long prompt runs"  # fewer than 16 tokens: no page is registered, every run prefills it whole
+    plain, usage, _, _ = surface_stream(base, prompt, 160)
+    v0 = version()
+    t0 = time.perf_counter()
+    swapped, usage_s, _, extra = surface_stream(
+        base, prompt, 160, during=lambda: {"swap": swap(paths["seed0"]), "swapped_at": time.perf_counter()})
+    stream_s = time.perf_counter() - t0
+    if extra["swapped_at"] - t0 >= stream_s:
+        fail(f"{label}: the stream of {usage_s} ended before the swap was applied")
+    if swapped != plain or usage_s != usage:
+        fail(f"{label}: a swap to the same weights mid-stream changed the stream: {swapped!r} against {plain!r}")
+    first, _, _, _ = surface_stream(base, prompt, 64)
+    reply, seconds1 = swap(paths["seed1"])
+    other, _, _, _ = surface_stream(base, prompt, 64)
+    if reply["weights_version"] != v0 + 2 or version() != v0 + 2 or other == first:
+        fail(f"{label}: the seed-1 swap: {reply}, its completion {other[:80]!r} (seed 0: {first[:80]!r})")
+    reply, seconds0 = swap(paths["seed0"])
+    again, _, _, _ = surface_stream(base, prompt, 64)
+    if again != first:
+        fail(f"{label}: back on seed 0 the completion is {again!r}, first {first!r}")
+    rejected, _ = swap(paths["two_layers"], 409)
+    if rejected["error"]["type"] != "swap_rejected" or version() != v0 + 3:
+        fail(f"{label}: the 2-layer swap: {rejected}, version {version()}")
+    after = graphs(scrape(base))
+    new = sorted(set(after[1]) - set(before[1]))
+    if after[0] != len(after[1]) or after[0] != before[0] + len(new):
+        fail(f"{label}: {after[0]} captures for the graphs {after[1]} (before: {before}): a graph was captured again")
+    print(f"{label}: a swap to the same file mid-stream left the stream token for token ({usage['completion_tokens']}"
+          f" tokens); seed 1 changed the completion, seed 0 again gave the first one; swaps took "
+          f"{extra['swap'][1]:.1f}, {seconds1:.1f} and {seconds0:.1f} s (load, quantize, install); the 2-layer file "
+          f"409; graphs captured {before[0]} before, {after[0]} after ({after[1]})", flush=True)
+    return {"swap_seconds": [extra["swap"][1], seconds1, seconds0], "captures_before": before[0],
+            "captures_after": after[0], "graphs": after[1], "weights_version": version()}
+
+
+def surface_profile(base: str, label: str) -> dict:
+    """Leg (d): a 2 s /debug/profile under traffic of short prompts (one
+    chunk of 16 rows each: the int4 matmul's decode design) names
+    q4_matmul_decode_kernel."""
+    stop = threading.Event()
+
+    def traffic():
+        i = 0
+        while not stop.is_set():
+            http(base, "/v1/completions", {"prompt": f"the card {i}", "max_tokens": 8, "temperature": 0})
+            i += 1
+
+    threads = [threading.Thread(target=traffic) for _ in range(4)]
+    for t in threads:
+        t.start()
+    time.sleep(0.5)
+    try:
+        status, _, text = http(base, "/debug/profile", {"seconds": 2})
+    finally:
+        stop.set()
+        for t in threads:
+            t.join()
+    reply = json.loads(text) if status == 200 else fail(f"{label}: /debug/profile -> {status} {text}")
+    traces = [f for f in reply["files"] if f.endswith(".json")]
+    if not traces:
+        fail(f"{label}: the capture wrote no trace: {reply}")
+    trace = Path(traces[0]).read_text()
+    names = ("q4_matmul_decode_kernel", "q4_matmul_wgmma_kernel")
+    found = {n: trace.count(n) for n in names}
+    if not found["q4_matmul_decode_kernel"]:
+        fail(f"{label}: the trace does not name q4_matmul_decode_kernel ({found}; {len(trace)} bytes)")
+    print(f"{label}: a 2 s capture under traffic, a trace of {len(trace)} bytes naming {found}", flush=True)
+    shutil.rmtree(reply["dir"], ignore_errors=True)
+    return {"trace_bytes": len(trace), "kernel_mentions": found}
+
+
+def surface_drain(child: SurfaceChild, base: str, label: str) -> dict:
+    """Leg (c): SIGTERM during a 256-token stream: within 1 s readiness and
+    /loadz 503 (draining), a new POST 503 with Retry-After; the stream ends
+    whole and the child exits 0 within the grace."""
+    seen = {}
+
+    def term():
+        t0 = time.perf_counter()
+        seen["t_term"] = t0
+        child.proc.send_signal(signal.SIGTERM)
+        try:
+            while time.perf_counter() - t0 < 5:
+                if http(base, "/", timeout=5)[0] == 503:
+                    seen["ready_503_s"] = time.perf_counter() - t0
+                    break
+                time.sleep(0.02)
+            loadz = http(base, "/loadz", timeout=5)
+            post = http(base, "/v1/completions", {"prompt": "x"}, timeout=5)
+            seen.update(loadz=(loadz[0], json.loads(loadz[2]).get("draining")),
+                        post=(post[0], post[1].get("Retry-After")))
+        except (urllib.error.URLError, ConnectionError) as e:  # the listener closed: reported below
+            seen["error"] = repr(e)
+        return {}
+
+    text, usage, finish, _ = surface_stream(base, SURFACE_PROMPT, 256, during=term)
+    t_end = time.perf_counter()
+    code = child.proc.wait(timeout=90)
+    exit_s = time.perf_counter() - seen["t_term"]
+    if seen.get("ready_503_s") is None or seen["ready_503_s"] > 1.0 or seen.get("loadz") != (503, True) \
+            or seen["post"][0] != 503 or int(seen["post"][1] or 0) < 1:
+        fail(f"{label}: after SIGTERM: {seen}")
+    if t_end - seen["t_term"] < seen["ready_503_s"]:
+        fail(f"{label}: the stream ended before readiness turned: {seen}")
+    if code != 0 or exit_s > 60:
+        fail(f"{label}: the child exited {code} {exit_s:.1f} s after SIGTERM: {''.join(child.lines[-10:])}")
+    print(f"{label}: SIGTERM mid-stream: readiness 503 after {seen['ready_503_s'] * 1e3:.0f} ms, /loadz 503 draining, "
+          f"a new POST 503 Retry-After {seen['post'][1]}; the stream ended whole ({usage['completion_tokens']} tokens, "
+          f"{finish}); exit 0 {exit_s:.1f} s after SIGTERM", flush=True)
+    return {"ready_503_ms": seen["ready_503_s"] * 1e3, "stream_tokens": usage["completion_tokens"],
+            "exit_s": exit_s}
+
+
+def serve_surface_phase(card: str, spec_step_ms=None) -> dict:
+    """The container contract's serving surface at llama2-7b's full width:
+    serve.main as a child process on a Q4_0 GGUF with a chat template, with
+    the throughput example's params, in four legs: (a) the contract,
+    (b) hot weight swaps, (d) /debug/profile, (c) the drain on SIGTERM."""
+    import os
+    import tempfile
+
+    import torch
+
+    from substratus_tpu_torch.load.gguf import tokenizer_from_gguf
+
+    label = "serve-surface"
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_surface_"))
+    child = None
+    try:
+        paths = write_surface_checkpoints(tmp)
+        tok = tokenizer_from_gguf(str(paths["seed0"]))
+        env = {**os.environ, "PROFILE_DIR": str(tmp / "profile"),
+               "PYTHONPATH": str(Path(__file__).resolve().parent) + os.pathsep + os.environ.get("PYTHONPATH", "")}
+        child = SurfaceChild(paths["seed0"], SURFACE_PARAMS, env)
+        base, ready_s = child.wait_ready()
+        print(f"{label}: serve.main ready in {ready_s:.1f} s (a child process: load, int4, engine, first request "
+              f"aside)", flush=True)
+        http(base, "/v1/completions", {"prompt": "warm up", "max_tokens": 2, "temperature": 0})
+        time.sleep(0.5)
+        m0 = scrape(base)
+        counts0, forwards0 = surface_launches(m0), surface_forwards(m0)
+        contract, ttft_count, loadz, metrics = surface_contract(base, tok, f"{label} (a)")
+        served = contract["served"] + 1  # and the warm-up
+        s = metrics["samples"]
+        spec = loadz["spec"]
+        if ttft_count != served or s.get("substratus_serve_spec_proposed_tokens_total") != spec["proposed_tokens"] \
+                or s.get("substratus_serve_spec_accepted_tokens_total") != spec["accepted_tokens"] \
+                or not spec["proposed_tokens"]:
+            fail(f"{label} (a): TTFT count {ttft_count} for {served} requests served; spec totals "
+                 f"{s.get('substratus_serve_spec_proposed_tokens_total')}/"
+                 f"{s.get('substratus_serve_spec_accepted_tokens_total')} against /loadz {spec}")
+        decode = (s['substratus_serve_phase_seconds_sum{phase="decode"}'],
+                  s['substratus_serve_phase_seconds_count{phase="decode"}'])
+        step_ms = 1e3 * decode[0] / decode[1]
+        print(f"{label} (a) [{card}]: chat held by the template, stop whole and streamed, {contract['burst']}, 504, "
+              f"/loadz keys, /metrics: TTFT count {ttft_count} = {served} requests, spec totals {spec}; the served "
+              f"mean decode round from the phase histogram {step_ms:.2f} ms over {int(decode[1])} rounds"
+              + (f"; serve-spec (a) in this run: mean round {spec_step_ms[0]:.2f} ms, plain step "
+                 f"{spec_step_ms[1]:.2f} ms" if spec_step_ms else ""), flush=True)
+        swap = surface_swap(base, paths, f"{label} (b)")
+        profile = surface_profile(base, f"{label} (d)")
+        time.sleep(0.5)
+        m1 = scrape(base)
+        counts1 = surface_launches(m1)
+        launches = {k: counts1.get(k, 0) - counts0.get(k, 0) for k in counts1}
+        forwards = surface_forwards(m1) - forwards0
+        by_design = {"q4_matmul_decode": launches.get("q4_matmul.launches_decode", 0),
+                     "q4_matmul_wgmma": launches.get("q4_matmul.launches_wgmma", 0),
+                     "q4_matmul": launches.get("q4_matmul.launches_mma", 0)}
+        if not by_design["q4_matmul_decode"] or not by_design["q4_matmul_wgmma"] or by_design["q4_matmul"] \
+                or sum(by_design.values()) != launches.get("q4_matmul.launches", -1) \
+                or launches["q4_matmul.launches"] != (7 * paths["n_layers"] + 1) * forwards:
+            fail(f"{label}: int4 launches {launches} against {forwards} forwards of {7 * paths['n_layers'] + 1} int4 "
+                 "matmuls")
+        print(f"{label}: int4 matmul launches of legs (a), (b), (d) by design {by_design}: {forwards} forwards "
+              f"(prefill chunks, rounds and the verify graphs' warm-ups) of {7 * paths['n_layers'] + 1} each, none "
+              "through q4_matmul.cu", flush=True)
+        drain = surface_drain(child, base, f"{label} (c)")
+    finally:
+        if child is not None:
+            child.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    print(f"{label}: {wall:.1f} s", flush=True)
+    return {"ready_s": ready_s, "contract": contract, "step_ms": step_ms, "decode_rounds": int(decode[1]),
+            "swap": swap, "profile": profile, "drain": drain, "launches": by_design, "all_launches": launches,
+            "seconds": wall}
+
+
 # --- training: train.main and the Trainer ----------------------------------------
 
 # The finetune example's params (examples/llama2-7b/finetuned-model.yaml):
@@ -3189,7 +3696,7 @@ def train_full_phase(card: str, profile_steps: bool = False) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default="card,build,kernels,serve,serve-long,serve-int4,serve-paged,serve-spec,"
-                                        "serve-ckpt,train,train-full")
+                                        "serve-ckpt,serve-surface,train,train-full")
     phases = ap.parse_args().phases.split(",")
     t_start = time.perf_counter()
 
@@ -3225,6 +3732,10 @@ def main() -> int:
         report["serve-spec"] = serve_spec_phase(card, profile_steps="profile" in phases)
     if "serve-ckpt" in phases:
         report["serve-ckpt"] = serve_ckpt_phase(card)
+    if "serve-surface" in phases:
+        lookup = report.get("serve-spec", {}).get("lookup")
+        spec_step = (lookup["spec"]["round_ms"], lookup["plain"]["round_ms"]) if lookup else None
+        report["serve-surface"] = serve_surface_phase(card, spec_step)
     if "train" in phases:
         report["train"] = train_phase(card, profile_steps="profile" in phases)
     if "train-full" in phases:
@@ -3267,8 +3778,11 @@ def main() -> int:
                     "q4_matmul_decode": ("serve-int4", "q4_matmul_decode"), "q4_matmul": ("serve-int4", "q4_matmul"),
                     "q4_matmul_wgmma": ("serve-int4", "q4_matmul_wgmma"),
                     "flash_bwd_dq": ("train", "flash_bwd_dq"), "flash_bwd_dkv": ("train", "flash_bwd_dkv")}
-        # serve-spec's launches (legs (a) and (b)) of each design, its own count.
+        # serve-spec's launches (legs (a) and (b)) of each design, and
+        # serve-surface's (its child process's legs (a), (b) and (d)), each
+        # its own count.
         spec_launches_of = report.get("serve-spec", {}).get("launches", {})
+        surface_launches_of = report.get("serve-surface", {}).get("launches", {})
         line = []
         for name, cases in report["kernels"].items():
             main_case = cases[0]  # the main path's shape
@@ -3276,6 +3790,7 @@ def main() -> int:
                 "name": name, "route": "cuda", "source": sources[name][0], "replaces": sources[name][1],
                 "launches": report.get(phase_of[name][0], {}).get("launches", {}).get(phase_of[name][1], 0),
                 "launches_serve_spec": spec_launches_of.get(phase_of[name][1]),
+                "launches_serve_surface": surface_launches_of.get(phase_of[name][1]),
                 "max_abs_err": main_case["max_abs_err"], "ms": main_case["ms"],
                 "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
                 "bound_by": main_case["bound_by"], "library_ms": main_case["library_ms"],

@@ -317,9 +317,9 @@ class GGUFTokenizer:
     a .gguf file serves standalone with its own real tokenizer.
 
     Token types follow the sentencepiece proto: 1 normal, 2 unknown,
-    3 control (skipped on decode), 6 byte (`<0xXX>` pieces). Chat
-    templates (the JAX class's apply_chat_template) wait for
-    /v1/chat/completions."""
+    3 control (skipped on decode), 6 byte (`<0xXX>` pieces). The file's
+    jinja chat template (tokenizer.chat_template) renders chat messages
+    (apply_chat_template) for /v1/chat/completions."""
 
     def __init__(self, meta: Dict[str, Any]):
         t = "tokenizer.ggml."
@@ -330,6 +330,8 @@ class GGUFTokenizer:
         self.bos_id = int(meta.get(t + "bos_token_id", 1))
         self.eos_id = int(meta.get(t + "eos_token_id", 2))
         self.unk_id = int(meta.get(t + "unknown_token_id", 0))
+        self.chat_template: Optional[str] = meta.get("tokenizer.chat_template")
+        self._compiled_template = None
         self._special_re = None
         self.vocab_size = n
         self._index = {tok: i for i, tok in enumerate(self.tokens)}
@@ -395,6 +397,39 @@ class GGUFTokenizer:
                     out.append(self._byte.get(b, self.unk_id))
             i = nxt[i]
         return out
+
+    def apply_chat_template(self, messages) -> Optional[str]:
+        """Render with the GGUF's embedded jinja chat template (the format
+        the checkpoint was trained on; tokenizer.chat_template). None when
+        the file carries no template (callers fall back to the generic
+        transcript)."""
+        if not self.chat_template:
+            return None
+        if self._compiled_template is None:
+            # Sandboxed: the template ships inside a model file, as
+            # transformers treats it. Compiled once (this runs per chat
+            # request), with the helpers transformers guarantees
+            # (raise_exception, strftime_now, tojson), so real Mistral,
+            # Zephyr and Llama-3 templates render. jinja2 is a requirement
+            # of the torch wheel.
+            import datetime
+            import json as _json
+
+            from jinja2.sandbox import ImmutableSandboxedEnvironment
+
+            env = ImmutableSandboxedEnvironment(keep_trailing_newline=True, autoescape=False)
+
+            def raise_exception(message):
+                raise ValueError(f"chat template error: {message}")
+
+            env.globals["raise_exception"] = raise_exception
+            env.globals["strftime_now"] = lambda fmt: datetime.datetime.now().strftime(fmt)
+            env.filters["tojson"] = lambda v, **kw: _json.dumps(v, **kw)
+            self._compiled_template = env.from_string(self.chat_template)
+        bos = self.tokens[self.bos_id] if self.bos_id < self.vocab_size else ""
+        eos = self.tokens[self.eos_id] if self.eos_id < self.vocab_size else ""
+        return self._compiled_template.render(messages=messages, add_generation_prompt=True, bos_token=bos,
+                                              eos_token=eos)
 
     def encode_templated(self, text: str) -> List[int]:
         """Encode a TEMPLATE-RENDERED prompt: control-token strings the

@@ -1,0 +1,459 @@
+"""Shared telemetry registry: counters, gauges, fixed-bucket histograms
+(the port's own copy of substratus_tpu/observability/metrics.py: given the
+same calls it renders the same text).
+
+One process-global registry (`METRICS`) serves every plane — the serve
+engine's request latencies, the train loop's step times, the controller
+Manager's reconcile counters — in Prometheus text exposition format 0.0.4,
+so a single scrape config covers controller, serving, and training pods
+identically (the reference only ever exposed controller-runtime's registry
+behind kube-rbac-proxy; SURVEY.md §5).
+
+No client library: the format is lines of `name{labels} value` plus
+`# HELP`/`# TYPE` headers, and histograms are three derived series
+(`_bucket` with cumulative `le` counts, `_sum`, `_count`) — ~200 lines of
+stdlib beats a dependency the image doesn't carry.
+
+Labels are passed as dicts (`{"kind": "Model"}`) and values are escaped per
+the exposition spec (backslash, double-quote, newline). Legacy callers that
+pass a pre-rendered label string keep working, unescaped, as before.
+"""
+from __future__ import annotations
+
+import math
+import re
+import threading
+import time
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
+
+Labels = Union[str, Mapping[str, object], None]
+
+_NAME_RE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
+_LABEL_RE = re.compile(r"^[a-zA-Z_][a-zA-Z0-9_]*$")
+
+# Default latency buckets (seconds): spans sub-ms token gaps up to
+# multi-minute train steps; quantile error is bounded by bucket width.
+LATENCY_BUCKETS = (
+    0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+    1.0, 2.5, 5.0, 10.0, 30.0, 60.0, 120.0,
+)
+# Occupancy / utilization ratios in [0, 1].
+RATIO_BUCKETS = (0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 1.0)
+# Throughput (tokens/sec): decades with a 1-2.5-5 ladder.
+THROUGHPUT_BUCKETS = (
+    10.0, 25.0, 50.0, 100.0, 250.0, 500.0, 1_000.0, 2_500.0, 5_000.0,
+    10_000.0, 25_000.0, 50_000.0, 100_000.0, 250_000.0, 1_000_000.0,
+)
+
+
+def escape_label_value(value: object) -> str:
+    """Exposition-format label value escaping: \\ " and newline."""
+    return (
+        str(value)
+        .replace("\\", "\\\\")
+        .replace('"', '\\"')
+        .replace("\n", "\\n")
+    )
+
+
+def _escape_help(text: str) -> str:
+    return text.replace("\\", "\\\\").replace("\n", "\\n")
+
+
+def _fmt_value(value: float) -> str:
+    """Canonical sample rendering: integer-valued samples print without a
+    trailing `.0`, so a counter scraped as `5` never drifts to `5.0` when a
+    later `inc(by=0.5)`-style caller turns the stored value into a float."""
+    f = float(value)
+    if math.isnan(f):
+        return "NaN"
+    if math.isinf(f):
+        return "+Inf" if f > 0 else "-Inf"
+    if f == int(f) and abs(f) < 2**53:
+        return str(int(f))
+    return repr(f)
+
+
+def _fmt_le(bound: float) -> str:
+    if math.isinf(bound):
+        return "+Inf"
+    if float(bound).is_integer():
+        return _fmt_value(bound)
+    return "%.12g" % bound
+
+
+def _labelstr(labels: Labels) -> str:
+    """Canonical inner label string. Dicts are validated + escaped and
+    sorted (so {"a":1,"b":2} and {"b":2,"a":1} are the same series); legacy
+    pre-rendered strings pass through untouched."""
+    if not labels:
+        return ""
+    if isinstance(labels, str):
+        return labels
+    parts = []
+    for k in sorted(labels):
+        if not _LABEL_RE.match(k):
+            raise ValueError(f"invalid label name {k!r}")
+        parts.append(f'{k}="{escape_label_value(labels[k])}"')
+    return ",".join(parts)
+
+
+class _Hist:
+    """One histogram series: cumulative bucket counts + sum + count,
+    plus an optional per-bucket exemplar (last trace id observed into
+    the bucket WITH an exemplar — OpenMetrics semantics; the 0.0.4 text
+    exposition cannot carry them, so they surface via the
+    ``exemplars()`` read API / debug JSON instead)."""
+
+    __slots__ = ("counts", "sum", "count", "exemplars")
+
+    def __init__(self, n_buckets: int):
+        self.counts = [0] * n_buckets  # per-bucket (non-cumulative) counts
+        self.sum = 0.0
+        self.count = 0
+        self.exemplars: Optional[Dict[int, dict]] = None  # bucket idx -> ex
+
+
+class Metrics:
+    """Process-global metric registry, Prometheus text format 0.0.4."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.counters: Dict[Tuple[str, str], float] = {}  # counters+gauges
+        self._types: Dict[str, str] = {}  # family -> counter|gauge|histogram
+        self._help: Dict[str, str] = {}
+        self._buckets: Dict[str, Tuple[float, ...]] = {}
+        self._hists: Dict[Tuple[str, str], _Hist] = {}
+
+    # -- registration ------------------------------------------------------
+
+    def _family(self, name: str, kind: str) -> None:
+        """Bind `name` to a metric kind; a name can never change kind (a
+        scrape with `foo` as both gauge and histogram is unparseable)."""
+        if not _NAME_RE.match(name):
+            raise ValueError(f"invalid metric name {name!r}")
+        have = self._types.get(name)
+        if have is None:
+            self._types[name] = kind
+        elif have != kind:
+            raise ValueError(
+                f"metric {name!r} is a {have}, not a {kind}"
+            )
+
+    def describe(self, name: str, help: str, type: Optional[str] = None) -> None:
+        """Attach HELP text (and optionally pre-declare the type)."""
+        with self._lock:
+            if type is not None:
+                if type not in ("counter", "gauge", "histogram"):
+                    raise ValueError(f"unknown metric type {type!r}")
+                self._family(name, type)
+            elif not _NAME_RE.match(name):
+                raise ValueError(f"invalid metric name {name!r}")
+            self._help[name] = help
+
+    def histogram(
+        self, name: str, help: str = "",
+        buckets: Sequence[float] = LATENCY_BUCKETS,
+    ) -> "Histogram":
+        """Declare a histogram family (idempotent) and return a handle."""
+        bs = tuple(sorted(float(b) for b in buckets))
+        if not bs:
+            raise ValueError("histogram needs at least one bucket")
+        with self._lock:
+            self._family(name, "histogram")
+            if name in self._buckets and self._buckets[name] != bs:
+                raise ValueError(
+                    f"histogram {name!r} already declared with different "
+                    "buckets"
+                )
+            self._buckets[name] = bs
+            if help:
+                self._help[name] = help
+        return Histogram(self, name)
+
+    # -- writes ------------------------------------------------------------
+
+    def inc(self, name: str, labels: Labels = "", by: float = 1.0) -> None:
+        key = (name, _labelstr(labels))
+        with self._lock:
+            self._family(name, "counter")
+            self.counters[key] = self.counters.get(key, 0.0) + by
+
+    def set(self, name: str, value: float, labels: Labels = "") -> None:
+        with self._lock:
+            self._family(name, "gauge")
+            self.counters[(name, _labelstr(labels))] = value
+
+    def observe(
+        self, name: str, value: float, labels: Labels = "",
+        buckets: Optional[Sequence[float]] = None,
+        exemplar: Optional[str] = None,
+    ) -> None:
+        """Record `value` into the `name` histogram (declared on first use;
+        `buckets` applies only then). `exemplar` attaches a trace id to
+        the bucket this observation lands in (OpenMetrics-style; last
+        writer wins per bucket) — dashboards jump from a p99 bucket to
+        the offending request's journey through it."""
+        key = (name, _labelstr(labels))
+        with self._lock:
+            self._family(name, "histogram")
+            bs = self._buckets.get(name)
+            if bs is None:
+                bs = tuple(
+                    sorted(float(b) for b in (buckets or LATENCY_BUCKETS))
+                )
+                self._buckets[name] = bs
+            h = self._hists.get(key)
+            if h is None:
+                h = self._hists[key] = _Hist(len(bs) + 1)  # +1: +Inf
+            v = float(value)
+            i = len(bs)  # +Inf bucket
+            for j, b in enumerate(bs):
+                if v <= b:
+                    i = j
+                    break
+            h.counts[i] += 1
+            h.sum += v
+            h.count += 1
+            if exemplar is not None:
+                if h.exemplars is None:
+                    h.exemplars = {}
+                h.exemplars[i] = {
+                    "trace_id": str(exemplar),
+                    "value": v,
+                    "ts": time.time(),
+                }
+
+    # -- reads -------------------------------------------------------------
+
+    def get(self, name: str, labels: Labels = "") -> Optional[float]:
+        """Current counter/gauge value, or a histogram's observation count."""
+        key = (name, _labelstr(labels))
+        with self._lock:
+            if key in self._hists:
+                return float(self._hists[key].count)
+            return self.counters.get(key)
+
+    def histogram_series(self, name: str) -> Dict[str, dict]:
+        """Snapshot of one histogram family, keyed by the canonical label
+        string ("" for unlabeled):
+
+            {label_str: {"buckets": [(le, cumulative_count), ...,
+                         (inf, count)], "sum": float, "count": int}}
+
+        Empty dict when the family is unknown or has no observations.
+        This is the read API behind /debug/perfz and the gang bench —
+        consumers get the same cumulative-bucket data a Prometheus scrape
+        would, without parsing the text exposition."""
+        with self._lock:
+            bs = self._buckets.get(name)
+            if bs is None:
+                return {}
+            out: Dict[str, dict] = {}
+            for (n, ls), h in self._hists.items():
+                if n != name:
+                    continue
+                cum = 0
+                buckets = []
+                for bound, c in zip(tuple(bs) + (math.inf,), h.counts):
+                    cum += c
+                    buckets.append((bound, cum))
+                out[ls] = {"buckets": buckets, "sum": h.sum, "count": h.count}
+            return out
+
+    def exemplars(self, name: str, labels: Labels = "") -> Dict[str, dict]:
+        """Exemplars attached to one histogram series, keyed by the
+        bucket's `le` rendering:
+
+            {"0.25": {"trace_id": ..., "value": ..., "ts": ...}, ...}
+
+        Empty when the series is unknown or nothing carried an
+        exemplar. The text exposition stays format 0.0.4 (no `# {...}`
+        suffixes); this read API + the debug planes are the carrier."""
+        key = (name, _labelstr(labels))
+        with self._lock:
+            h = self._hists.get(key)
+            bs = self._buckets.get(name)
+            if h is None or bs is None or not h.exemplars:
+                return {}
+            bounds = tuple(bs) + (math.inf,)
+            return {
+                _fmt_le(bounds[i]): dict(ex)
+                for i, ex in h.exemplars.items()
+            }
+
+    def remove(self, name: str, labels: Labels = "") -> None:
+        """Drop ONE series (the family's declaration stays). For
+        replica-labeled gauges whose replica left the fleet
+        (gateway/fleet.py eviction) — a dead replica's last value would
+        otherwise be scraped forever as if it were current."""
+        key = (name, _labelstr(labels))
+        with self._lock:
+            self.counters.pop(key, None)
+            self._hists.pop(key, None)
+
+    def reset(self) -> None:
+        """Drop every series and declaration (test isolation)."""
+        with self._lock:
+            self.counters.clear()
+            self._types.clear()
+            self._help.clear()
+            self._buckets.clear()
+            self._hists.clear()
+
+    def render(self) -> str:
+        with self._lock:
+            by_family: Dict[str, List[Tuple[str, str]]] = {}
+            for (name, labels), value in self.counters.items():
+                by_family.setdefault(name, []).append(
+                    (labels, _fmt_value(value))
+                )
+            lines: List[str] = []
+            for name in sorted(set(by_family) | {n for n, _ in self._hists}):
+                kind = self._types.get(name, "gauge")
+                help_ = self._help.get(name, name)
+                lines.append(f"# HELP {name} {_escape_help(help_)}")
+                lines.append(f"# TYPE {name} {kind}")
+                if kind == "histogram":
+                    series = sorted(
+                        (ls, h) for (n, ls), h in self._hists.items()
+                        if n == name
+                    )
+                    bs = self._buckets[name]
+                    for ls, h in series:
+                        cum = 0
+                        for bound, c in zip(
+                            tuple(bs) + (math.inf,), h.counts
+                        ):
+                            cum += c
+                            le = f'le="{_fmt_le(bound)}"'
+                            lab = f"{ls},{le}" if ls else le
+                            lines.append(f"{name}_bucket{{{lab}}} {cum}")
+                        lines.append(
+                            f"{name}_sum{{{ls}}} {_fmt_value(h.sum)}"
+                            if ls else f"{name}_sum {_fmt_value(h.sum)}"
+                        )
+                        lines.append(
+                            f"{name}_count{{{ls}}} {h.count}"
+                            if ls else f"{name}_count {h.count}"
+                        )
+                else:
+                    for ls, v in sorted(by_family.get(name, [])):
+                        lines.append(
+                            f"{name}{{{ls}}} {v}" if ls else f"{name} {v}"
+                        )
+            return "\n".join(lines) + "\n"
+
+
+class Histogram:
+    """Thin handle onto a registry histogram family (`Metrics.histogram`)."""
+
+    def __init__(self, registry: Metrics, name: str):
+        self.registry = registry
+        self.name = name
+
+    def observe(self, value: float, labels: Labels = "") -> None:
+        self.registry.observe(self.name, value, labels)
+
+
+def quantile_from_buckets(buckets, q: float) -> Optional[float]:
+    """Prometheus-style histogram_quantile over cumulative buckets
+    ([(le, cumulative_count), ...] as returned by histogram_series,
+    final bound +Inf): linear interpolation inside the bucket holding
+    rank q*count. Returns None for an empty histogram; observations in
+    the +Inf bucket clamp to the last finite bound (same convention as
+    PromQL — the histogram cannot say more than its widest bucket)."""
+    if not buckets:
+        return None
+    total = buckets[-1][1]
+    if total <= 0:
+        return None
+    rank = q * total
+    prev_bound, prev_cum = 0.0, 0
+    for bound, cum in buckets:
+        if cum >= rank:
+            if math.isinf(bound):
+                return prev_bound
+            if cum == prev_cum:
+                return bound
+            frac = (rank - prev_cum) / (cum - prev_cum)
+            return prev_bound + (bound - prev_bound) * frac
+        prev_bound, prev_cum = bound, cum
+    return prev_bound
+
+
+METRICS = Metrics()
+
+
+# -- exposition lint (hack/metrics_lint.py + tests) --------------------------
+
+_SAMPLE_RE = re.compile(
+    r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{(.*)\})? (-?[0-9]+(\.[0-9]+)?"
+    r"(e[+-]?[0-9]+)?|[+-]Inf|NaN)$"
+)
+_LABELS_RE = re.compile(
+    r'^[a-zA-Z_][a-zA-Z0-9_]*="(\\.|[^"\\])*"'
+    r'(,[a-zA-Z_][a-zA-Z0-9_]*="(\\.|[^"\\])*")*$'
+)
+
+
+def lint_exposition(text: str) -> List[str]:
+    """Validate Prometheus text-format output; returns a list of problems
+    (empty = clean). Checks: every sample parses, label values are escaped,
+    every family has exactly one HELP and one TYPE emitted before its
+    samples, histogram families emit _bucket/_sum/_count with a +Inf
+    bucket, and no family is declared twice."""
+    problems: List[str] = []
+    helped: set = set()
+    typed: Dict[str, str] = {}
+    sampled: set = set()
+    for ln, line in enumerate(text.splitlines(), 1):
+        if not line:
+            continue
+        if line.startswith("# HELP "):
+            parts = line.split(" ", 3)
+            name = parts[2] if len(parts) >= 3 else ""
+            if name in helped:
+                problems.append(f"line {ln}: duplicate HELP for {name}")
+            helped.add(name)
+            continue
+        if line.startswith("# TYPE "):
+            parts = line.split(" ")
+            if len(parts) != 4 or parts[3] not in (
+                "counter", "gauge", "histogram", "summary", "untyped"
+            ):
+                problems.append(f"line {ln}: malformed TYPE: {line!r}")
+                continue
+            name = parts[2]
+            if name in typed:
+                problems.append(f"line {ln}: duplicate TYPE for {name}")
+            if name in sampled:
+                problems.append(
+                    f"line {ln}: TYPE for {name} after its samples"
+                )
+            typed[name] = parts[3]
+            continue
+        if line.startswith("#"):
+            continue
+        m = _SAMPLE_RE.match(line)
+        if not m:
+            problems.append(f"line {ln}: unparseable sample: {line!r}")
+            continue
+        name, labels = m.group(1), m.group(3)
+        if labels and not _LABELS_RE.match(labels):
+            problems.append(f"line {ln}: bad label syntax: {labels!r}")
+        family = name
+        for suffix in ("_bucket", "_sum", "_count"):
+            base = name[: -len(suffix)] if name.endswith(suffix) else None
+            if base and typed.get(base) == "histogram":
+                family = base
+        sampled.add(family)
+        if family not in typed:
+            problems.append(f"line {ln}: sample {name} has no TYPE")
+        if family not in helped:
+            problems.append(f"line {ln}: sample {name} has no HELP")
+    for name in typed:
+        if typed[name] == "histogram" and name in sampled:
+            if f'{name}_bucket' not in text or "+Inf" not in text:
+                problems.append(f"histogram {name} missing +Inf bucket")
+    return problems

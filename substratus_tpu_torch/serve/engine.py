@@ -62,14 +62,25 @@ device outputs by the accept walk on the device, and round N's host walk
 runs in round N+1's drain slot. On the card a round is a few CUDA graphs
 (serve/decode_graph.py::SpecGraph).
 
+The serving surface (serve/server.py) reads the engine through the JAX
+engine's hooks: Request.cancelled (a stop-sequence match releases the slot
+at the request's next emit, "stop"), load_snapshot() (/loadz), the JAX
+engine's histograms and counters in observability/metrics.py (host clocks
+read where the scheduler already waits: no metric adds a device sync) and
+swap_params() (POST /swapz: the new weights copied into the served tensors
+by the scheduler thread on a settled pipeline, so every captured graph
+stays valid).
+
 Not ported yet (ROADMAP Queue 1): adapters (and the registry's adapter
-salt), disaggregated roles with their page export and import, and
-lockstep gangs; EngineConfig has none of their fields.
+salt), disaggregated roles with their page export and import, lockstep
+gangs, and request journeys and the step timeline (item 3b);
+EngineConfig has none of their fields.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 import math
 import queue
 import threading
@@ -81,6 +92,8 @@ import numpy as np
 import torch
 
 from substratus_tpu_torch.models import llama
+from substratus_tpu_torch.observability.metrics import METRICS, RATIO_BUCKETS
+from substratus_tpu_torch.observability.sketch import SLOTracker
 from substratus_tpu_torch.ops.decode_attention import pack_fragment
 from substratus_tpu_torch.ops.sampling import sample
 from substratus_tpu_torch.serve.decode_graph import DecodeGraph, SpecGraph
@@ -88,13 +101,126 @@ from substratus_tpu_torch.serve.paged_kv import PageAllocator, PrefixRegistry, S
 from substratus_tpu_torch.utils.device import DeviceLike, resolve_device, seeded_generator
 
 
+# The JAX engine's serving histograms and counters, under its names,
+# types, labels and buckets (observed at the points where it observes
+# them; declared at import so /metrics carries HELP and TYPE before the
+# first request).
+METRICS.histogram(
+    "substratus_serve_ttft_seconds",
+    "Time from request submission to its first generated token (seconds).",
+)
+METRICS.histogram(
+    "substratus_serve_inter_token_seconds",
+    "Gap between consecutive generated tokens of one request (seconds).",
+)
+METRICS.histogram(
+    "substratus_serve_queue_wait_seconds",
+    "Time from request submission to the start of its prefill (seconds).",
+)
+METRICS.histogram(
+    "substratus_serve_batch_occupancy_ratio",
+    "Active decode slots / max_batch, sampled once per scheduler iteration.",
+    buckets=RATIO_BUCKETS,
+)
+METRICS.histogram(
+    "substratus_serve_kv_page_utilization_ratio",
+    "Allocated KV pages / pool size, sampled once per scheduler iteration "
+    "(paged layout only).",
+    buckets=RATIO_BUCKETS,
+)
+METRICS.histogram(
+    "substratus_serve_phase_seconds",
+    "Wall time of one scheduler phase (seconds), labeled by phase: "
+    "admission (queue -> slots, prefill included), prefill (device prefill "
+    "inside admission), sample (first-token sampling + host read), decode "
+    "(the batched decode/verify dispatch of one iteration and, overlapped, "
+    "the drain of the one before).",
+)
+METRICS.describe(
+    "substratus_serve_first_compile_seconds",
+    "Wall time of the first decode iteration (on the card the decode "
+    "step's warm-up and CUDA graph capture dominate; steady-state decode "
+    'is substratus_serve_phase_seconds{phase="decode"}).',
+    type="gauge",
+)
+METRICS.histogram(
+    "substratus_serve_host_overlap_seconds",
+    "Host-side work (the deferred token read, emits, stop handling) "
+    "hidden under the in-flight decode step by the overlapped scheduler "
+    "(seconds).",
+)
+METRICS.describe(
+    "substratus_serve_pipeline_flushes_total",
+    "Overlapped-scheduler pipeline flushes by reason (drain|preempt|swap|"
+    "graph): points where the engine must observe a settled batch before "
+    "proceeding (graph: a new model config's decode graph).",
+    type="counter",
+)
+METRICS.describe(
+    "substratus_serve_prefill_tokens_total",
+    "Prompt tokens actually prefilled through the model (prefix-cache "
+    "misses; the cold-work half of the reuse ratio).",
+    type="counter",
+)
+METRICS.describe(
+    "substratus_serve_prefix_hit_tokens_total",
+    "Prompt tokens satisfied from shared prefix pages instead of "
+    "recompute (paged layout, serve/paged_kv.py).",
+    type="counter",
+)
+METRICS.describe(
+    "substratus_serve_spec_proposed_tokens_total",
+    "Draft tokens proposed to speculative verify rounds (greedy streams "
+    "only; placeholder rows and degraded streams do not count).",
+    type="counter",
+)
+METRICS.describe(
+    "substratus_serve_spec_accepted_tokens_total",
+    "Proposed draft tokens the target model accepted (longest matching "
+    "prefix of each verify round).",
+    type="counter",
+)
+METRICS.describe(
+    "substratus_serve_weight_swaps_total",
+    "Hot weight-swaps by outcome: applied (weights copied into the served "
+    "tensors, every captured graph kept) or rejected (name/shape/dtype "
+    "mismatch; the engine keeps serving the old weights).",
+    type="counter",
+)
+METRICS.describe(
+    "substratus_serve_weights_version",
+    "Version of the weights the engine is currently serving "
+    "(bumped by Engine.swap_params; also on load_snapshot()/ /loadz).",
+    type="gauge",
+)
+
+
 class EngineOverloaded(RuntimeError):
-    """submit() rejected: the waiting queue is at its configured bound."""
+    """submit() rejected: the waiting queue is at its configured bound.
+    `retry_after` (seconds) is the server's Retry-After, 1 s as the JAX
+    engine gives it."""
 
     def __init__(self, queue_depth: int, retry_after: float = 1.0):
         super().__init__(f"engine overloaded: {queue_depth} requests already waiting")
         self.queue_depth = queue_depth
         self.retry_after = retry_after
+
+
+class _StagedSwap:
+    """One pending hot weight-swap, staged by swap_params() from any
+    thread and applied by the scheduler thread at the top of its next
+    iteration. The caller parks on `done`; `applied`/`error` carry the
+    outcome back across the thread boundary (written before `done` is
+    set)."""
+
+    __slots__ = ("state", "version", "done", "applied", "error")
+
+    def __init__(self, state: Dict[str, object], version: Optional[int]):
+        self.state = state
+        self.version = version
+        self.done = threading.Event()
+        self.applied: Optional[int] = None
+        self.error: Optional[BaseException] = None
 
 
 @dataclass
@@ -133,6 +259,11 @@ class EngineConfig:
     spec_threshold: float = 0.35
     spec_probe_every: int = 8
     spec_ewma_decay: float = 0.8
+    # SLO thresholds (observability/sketch.py): emits over budget count in
+    # substratus_slo_burn_total{slo=...}, and the mergeable percentile
+    # sketches ride load_snapshot() (/loadz).
+    slo_ttft_s: float = 2.0
+    slo_inter_token_s: float = 0.25
 
 
 @dataclass
@@ -144,9 +275,18 @@ class Request:
     eos_token_id: Optional[int] = None
     # Each generated token id is put on this queue; None marks completion.
     out: "queue.Queue[Optional[int]]" = field(default_factory=queue.Queue)
-    # Set before the terminal None: "stop" (eos), "length" (max_tokens or
-    # context window) or "error" (engine died).
+    id: str = ""
+    # Set before the terminal None: "stop" (eos or cancelled), "length"
+    # (max_tokens or context window) or "error" (engine died).
     finish_reason: str = "stop"
+    # Cooperative cancellation: a consumer (the server on a stop-sequence
+    # match) sets it; the scheduler releases the slot (and its pages) at
+    # the request's next emit instead of decoding to max_tokens.
+    cancelled: bool = False
+    # Host clocks for the latency histograms: submission (queue wait,
+    # TTFT) and the previous emit (inter-token gap).
+    submit_ts: float = 0.0
+    last_emit_ts: float = 0.0
 
 
 @dataclass
@@ -359,6 +499,18 @@ class Engine:
             "draft_prefill_chunks": 0,
         }
         self.stats.update({f"rounds_w{w}": 0 for w in range(1, ec.spec_k + 2)} if self.spec else {})
+        # Serving telemetry: one SLO tracker fed from _emit (its sketches
+        # ride load_snapshot()), the first decode iteration's wall time
+        # (substratus_serve_first_compile_seconds: the graph's warm-up and
+        # capture on the card), a per-engine load-report sequence
+        # (itertools.count is atomic under the GIL; HTTP threads call
+        # load_snapshot concurrently), and the hot weight-swap's version
+        # and staging queue.
+        self.slo = SLOTracker({"ttft": ec.slo_ttft_s, "inter_token": ec.slo_inter_token_s})
+        self._first_decode_done = False
+        self._load_seq = itertools.count(1)
+        self.weights_version = 0
+        self._swap_q: "queue.Queue[_StagedSwap]" = queue.Queue()
 
     # --- public API -------------------------------------------------------
 
@@ -372,8 +524,13 @@ class Engine:
             req.finish_reason = "error"
             req.out.put(None)  # engine is dead; never strand the caller
             return req
-        if self.ec.max_queue is not None and self.queue.qsize() >= self.ec.max_queue:
-            raise EngineOverloaded(self.queue.qsize())
+        if self.ec.max_queue is not None:
+            # Approximate (another submitter may race the read): overload
+            # control holds the queue near its bound, not exactly at it.
+            depth = self.queue.qsize()
+            if depth >= self.ec.max_queue:
+                raise EngineOverloaded(depth)
+        req.submit_ts = time.perf_counter()
         self.queue.put(req)
         self._wake.set()
         if self.error is not None:
@@ -382,6 +539,156 @@ class Engine:
             req.finish_reason = "error"
             req.out.put(None)
         return req
+
+    def swap_params(self, new_params, version: Optional[int] = None, *, timeout_s: float = 120.0) -> int:
+        """Hot weight-swap: serve `new_params` (a module of the served
+        model's structure, or its state dict) on the live engine.
+
+        Callable from any thread. The new state must have the served
+        one's names, and each tensor its shape and dtype (quantized
+        weights: the packed values and scales, and the same packing); a
+        mismatch raises ValueError here and the engine keeps serving the
+        old weights. An accepted swap is staged for the scheduler thread,
+        which installs it at the top of its next iteration on a settled
+        pipeline (_flush("swap")) by copying every tensor into the served
+        one in place: the decode graph, every SpecGraph width and the int4
+        matmul's operand views read the weights by address, so each stays
+        valid, with no new capture (the JAX engine's "no recompile"). The
+        prefix registry is emptied (its pages hold the old weights' K/V);
+        in-flight streams keep their own pages, positions and generator,
+        so a swap to value-identical weights is token-exact across the
+        boundary. The draft model is not swapped. The version becomes
+        `version`, or the current one + 1.
+
+        Blocks until the scheduler applied the swap and returns the new
+        version."""
+        if self.error is not None:
+            raise RuntimeError("engine is dead") from self.error
+        if self._thread is None or self._stop.is_set():
+            raise RuntimeError("swap_params needs a running engine")
+        cur = self.params.state_dict()
+        new = new_params.state_dict() if hasattr(new_params, "state_dict") else dict(new_params)
+        mismatch = None
+        if set(new) != set(cur):
+            mismatch = f"names differ ({sorted(set(new) ^ set(cur))[:4]} not in both)"
+        else:
+            for name, c in cur.items():
+                n = new[name]
+                if torch.is_tensor(c) != torch.is_tensor(n):
+                    mismatch = f"{name}: a tensor in one state only"
+                elif torch.is_tensor(c) and (c.shape != n.shape or c.dtype != n.dtype):
+                    mismatch = f"{name}: {tuple(n.shape)}/{n.dtype} vs served {tuple(c.shape)}/{c.dtype}"
+                elif not torch.is_tensor(c) and c != n:
+                    mismatch = f"{name}: {n} vs served {c}"
+                if mismatch is not None:
+                    break
+        if mismatch is not None:
+            METRICS.inc("substratus_serve_weight_swaps_total", {"outcome": "rejected"})
+            raise ValueError(f"swap_params rejected: {mismatch}; matching structure is what keeps every captured "
+                             "graph valid: load a checkpoint of the served architecture (or drain and restart for a "
+                             "different one)")
+        sw = _StagedSwap(new, version)
+        self._swap_q.put(sw)
+        self._wake.set()
+        deadline = time.monotonic() + timeout_s
+        while not sw.done.wait(timeout=0.05):
+            if not self._thread.is_alive():
+                # Staged after the scheduler's last look at the queue.
+                self._fail_staged_swaps(self.error or RuntimeError("engine stopped before the swap was applied"))
+            elif time.monotonic() > deadline:
+                raise TimeoutError(f"swap_params: the scheduler did not apply the swap within {timeout_s}s")
+        if sw.error is not None:
+            raise sw.error
+        return sw.applied
+
+    def _apply_swap(self, sw: _StagedSwap, version: int) -> None:
+        """Install one staged swap (scheduler thread only): settle the
+        pipeline so no step mixes two weight versions, then copy each
+        tensor into the served one on this thread's stream (ordered before
+        every later replay)."""
+        self._flush("swap")
+        with torch.no_grad():
+            for name, t in self.params.state_dict().items():
+                if torch.is_tensor(t):
+                    t.copy_(sw.state[name])
+        if self.device.type == "cuda":
+            # The new tensors may come from another stream's pool (a
+            # loader's): they are read before they can be freed and reused.
+            torch.cuda.current_stream(self.device).synchronize()
+        if self.paged and self.prefix is not None:
+            while self.prefix.evict_lru():
+                pass
+        self.weights_version = version
+        METRICS.inc("substratus_serve_weight_swaps_total", {"outcome": "applied"})
+        METRICS.set("substratus_serve_weights_version", version)
+        sw.applied = version
+        sw.done.set()
+
+    def _apply_staged_swaps(self) -> None:
+        """Install every staged swap, in order."""
+        while True:
+            try:
+                sw = self._swap_q.get_nowait()
+            except queue.Empty:
+                return
+            self._apply_swap(sw, sw.version if sw.version is not None else self.weights_version + 1)
+
+    def _fail_staged_swaps(self, exc: BaseException) -> None:
+        """Unblock swap_params() waiters when the scheduler exits with
+        their swap still staged (stop or crash)."""
+        while True:
+            try:
+                sw = self._swap_q.get_nowait()
+            except queue.Empty:
+                return
+            sw.error = exc
+            sw.done.set()
+
+    def load_snapshot(self) -> Dict[str, object]:
+        """The load report of the gateway protocol (gateway/loadreport.py),
+        the JAX engine's keys: host counters only, no device read, no
+        lock (a slightly torn snapshot routes marginally worse, which is
+        fine). Served on /loadz and compacted into the x-substratus-load
+        header. The port has no disaggregated roles yet: role "both",
+        transfer_queue_depth 0."""
+        active = int(self.active.sum())
+        if self.paged:
+            kv_free = self.alloc.free_pages / max(1, self.n_pages)
+        else:
+            kv_free = (self.ec.max_batch - active) / self.ec.max_batch
+        snap = {
+            "queue_depth": self.queue.qsize() + len(self._resume),
+            "active_slots": active,
+            "max_slots": self.ec.max_batch,
+            "kv_free_frac": round(kv_free, 4),
+            "max_queue": self.ec.max_queue,
+            "role": "both",
+            "transfer_queue_depth": 0,
+            "overlap": self.overlap,
+            "weights_version": self.weights_version,
+            "prefill_tokens": self.stats["prefill_tokens"],
+            "prefix_hit_tokens": self.stats["prefix_hit_tokens"],
+            # Report ordering for the gateway's fleet aggregator.
+            "load_seq": next(self._load_seq),
+            "load_ts": round(time.time(), 3),
+            "slo": self.slo.snapshot(),
+        }
+        if self.spec:
+            # Lifetime acceptance, and each active greedy stream's draft
+            # length as the policy would plan it next (0: degraded or
+            # sampling).
+            prop, acc = self.stats["spec_proposed"], self.stats["spec_accepted"]
+            ks = []
+            for slot in np.flatnonzero(self.active):
+                req = self.slot_req[int(slot)]
+                ewma = float(self._spec_ewma[int(slot)])
+                if req is None or req.temperature != 0.0 or ewma < self.ec.spec_threshold:
+                    ks.append(0)
+                else:
+                    ks.append(min(self.ec.spec_k, max(1, math.ceil(ewma * self.ec.spec_k))))
+            snap["spec"] = {"proposed_tokens": prop, "accepted_tokens": acc,
+                            "acceptance": round(acc / prop, 4) if prop else None, "adaptive_k": ks}
+        return snap
 
     def start(self) -> None:
         self._thread = threading.Thread(target=self._loop, name="engine-scheduler", daemon=True)
@@ -429,11 +736,17 @@ class Engine:
                 break
             self._admitting = req
             slot = int(np.flatnonzero(~self.active)[0])
+            # Queue wait is submission -> first prefill; a preempted
+            # request boarding again (last_emit_ts set) already paid it.
+            if req.submit_ts and not req.last_emit_ts:
+                METRICS.observe("substratus_serve_queue_wait_seconds", time.perf_counter() - req.submit_ts)
+            t_prefill = time.perf_counter()
             if self.paged:
                 ok = self._admit_paged(req, slot)
             else:
                 self._admit_dense(req, slot)
                 ok = True
+            METRICS.observe("substratus_serve_phase_seconds", time.perf_counter() - t_prefill, {"phase": "prefill"})
             self._admitting = None
             if not ok:
                 self._resume.insert(0, req)
@@ -459,6 +772,7 @@ class Engine:
         else:
             last_logits = self._chunked_prefill(prompt, slot)
         self.stats["prefill_tokens"] += true_len
+        METRICS.inc("substratus_serve_prefill_tokens_total", by=true_len)
         self._finalize_admit(req, slot, last_logits, true_len)
         # _finalize_admit's host read of the first token ends the prefill.
         self.stats["prefill_seconds"] += time.perf_counter() - t0
@@ -541,6 +855,9 @@ class Engine:
             self._run_chunks(prompt, reuse, cache=self.draft_cache, block_table=row, draft=True)
         self.stats["prefill_tokens"] += true_len - reuse
         self.stats["prefix_hit_tokens"] += reuse
+        METRICS.inc("substratus_serve_prefill_tokens_total", by=true_len - reuse)
+        if reuse:
+            METRICS.inc("substratus_serve_prefix_hit_tokens_total", by=reuse)
         n_full = true_len // bs
         if self.prefix is not None and n_full:
             self.prefix.register(entries[:n_full], pages[:n_full])
@@ -571,12 +888,14 @@ class Engine:
         )
 
     def _finalize_admit(self, req: Request, slot: int, last_logits, true_len: int) -> None:
+        t_sample = time.perf_counter()
         first = self._sample(
             last_logits[None, :],
             np.array([req.temperature], np.float32),
             np.array([req.top_p], np.float32),
         )
         first_id = int(first[0])  # the host read of the first token
+        METRICS.observe("substratus_serve_phase_seconds", time.perf_counter() - t_sample, {"phase": "sample"})
         self.slot_req[slot] = req
         self.slot_generated[slot] = 0
         self.slot_tokens[slot] = []
@@ -638,7 +957,7 @@ class Engine:
         attention) gets a new graph, after a flush: the device feedback
         lives in the old graph's buffers."""
         if self._graph is None or self._graph_cfg is not self.cfg:
-            self._flush()
+            self._flush("graph")
             self._graph_cfg = self.cfg
             pages = self.max_pages if self.paged else 0
             if self.spec:
@@ -711,7 +1030,7 @@ class Engine:
                     # step in flight may release slots (and free pages) at
                     # its drain, and a victim's resume prompt needs every
                     # token it generated. Flush, then try again.
-                    self._flush()
+                    self._flush("preempt")
                     if not self.active[slot]:
                         return  # the flush released this very slot
                     got = self._try_alloc(1)
@@ -880,6 +1199,8 @@ class Engine:
                 if ke > 0:
                     self.stats["spec_proposed"] += ke
                     self.stats["spec_accepted"] += accepted
+                    METRICS.inc("substratus_serve_spec_proposed_tokens_total", by=ke)
+                    METRICS.inc("substratus_serve_spec_accepted_tokens_total", by=accepted)
                     self._spec_ewma[slot] = d * self._spec_ewma[slot] + (1.0 - d) * (accepted / ke)
                 elif step.tried[slot]:
                     # A planned proposal the lookup could not make: a zero
@@ -893,7 +1214,7 @@ class Engine:
             for i, tok in enumerate(emit, start=1):
                 self._emit(slot, tok, pos0 + i)
                 if self.slot_req[slot] is not req:
-                    break  # EOS, budget or window within the run
+                    break  # EOS, budget, window or cancellation within the run
             self.positions[slot] = min(pos0 + len(emit), self.ec.max_seq_len - 1)
         if not self.overlap:
             # Synchronous: the next round feeds host values only.
@@ -953,13 +1274,17 @@ class Engine:
             # Synchronous: the next dispatch feeds host tokens only.
             self._token_fresh[:] = True
 
-    def _flush(self) -> None:
-        """Drain the in-flight step (or round) now: before the scheduler
-        exits (stop) and before the step's graph is replaced. The batch is then settled,
-        and the next dispatch feeds host tokens for every slot."""
+    def _flush(self, reason: str = "drain") -> None:
+        """Drain the in-flight step (or round) now, where the engine must
+        see a settled batch: before the scheduler exits ("drain"),
+        preemption or truncation ("preempt"), a weight swap ("swap") and
+        a new decode graph ("graph"); counted by reason in
+        substratus_serve_pipeline_flushes_total. The batch is then
+        settled, and the next dispatch feeds host tokens for every slot."""
         pending, self._pending = self._pending, None
         if pending is None:
             return
+        METRICS.inc("substratus_serve_pipeline_flushes_total", {"reason": reason})
         self._drain_any(pending)
         self._token_fresh[:] = True
 
@@ -977,7 +1302,11 @@ class Engine:
         launched = self._dispatch_any()
         prev, self._pending = self._pending, launched
         if prev is not None:
+            t_drain = time.perf_counter()
             self._drain_any(prev)
+            if self._pending is not None:
+                # Host work hidden under the step in flight.
+                METRICS.observe("substratus_serve_host_overlap_seconds", time.perf_counter() - t_drain)
 
     def _step(self) -> None:
         """One scheduler iteration's decoding, on the resolved scheduler."""
@@ -1000,13 +1329,27 @@ class Engine:
         hit_eos = token_id == eos
         hit_budget = self.slot_generated[slot] >= req.max_tokens
         hit_window = pos_next + 1 >= self.ec.max_seq_len
-        if not hit_eos:
+        cancelled = req.cancelled
+        if not hit_eos and not cancelled:
+            now = time.perf_counter()
+            if req.last_emit_ts:
+                self._observe_latency("inter_token", now - req.last_emit_ts)
+            elif req.submit_ts:
+                self._observe_latency("ttft", now - req.submit_ts)
+            req.last_emit_ts = now
             req.out.put(token_id)
             self.slot_tokens[slot].append(token_id)
-        if hit_eos or hit_budget or hit_window:
-            req.finish_reason = "stop" if hit_eos else "length"
+        if hit_eos or hit_budget or hit_window or cancelled:
+            # EOS and cancellation are natural stops; the budget and the
+            # context window truncate ("length").
+            req.finish_reason = "stop" if hit_eos or cancelled else "length"
             req.out.put(None)
             self._release_slot(slot)
+
+    def _observe_latency(self, slo: str, seconds: float) -> None:
+        """One TTFT or inter-token gap: its histogram and its SLO sketch."""
+        self.slo.observe(slo, seconds)
+        METRICS.observe(f"substratus_serve_{slo}_seconds", seconds)
 
     def _release_slot(self, slot: int) -> None:
         self.active[slot] = False
@@ -1022,7 +1365,13 @@ class Engine:
     def _loop(self) -> None:
         try:
             while not self._stop.is_set():
-                self._admit()
+                self._apply_staged_swaps()
+                t_admit = time.perf_counter()
+                if self._admit():
+                    # Only iterations that boarded someone: an idle engine
+                    # waking on its empty queue would flood it with ~0 s.
+                    METRICS.observe("substratus_serve_phase_seconds", time.perf_counter() - t_admit,
+                                    {"phase": "admission"})
                 if not self.active.any():
                     # Nothing decoding: a step still in flight holds only
                     # released slots, and waits for the next dispatch or
@@ -1030,16 +1379,30 @@ class Engine:
                     self._wake.wait(timeout=0.05)
                     self._wake.clear()
                     continue
+                METRICS.observe("substratus_serve_batch_occupancy_ratio", self.active.sum() / self.ec.max_batch)
+                if self.paged:
+                    METRICS.observe("substratus_serve_kv_page_utilization_ratio",
+                                    (self.n_pages - self.alloc.free_pages) / self.n_pages)
                 t0 = time.perf_counter()
                 self._step()
-                self.stats["decode_seconds"] += time.perf_counter() - t0
+                dt = time.perf_counter() - t0
+                self.stats["decode_seconds"] += dt
+                if self._first_decode_done:
+                    METRICS.observe("substratus_serve_phase_seconds", dt, {"phase": "decode"})
+                else:
+                    # The first iteration holds the decode graph's warm-up
+                    # and capture: kept out of the steady-state histogram.
+                    self._first_decode_done = True
+                    METRICS.set("substratus_serve_first_compile_seconds", dt)
             # A clean stop with a step in flight delivers its tokens first.
-            self._flush()
+            self._flush("drain")
+            self._fail_staged_swaps(RuntimeError("engine stopped before the swap was applied"))
         except BaseException as e:  # propagate to waiting callers
             # Every request still held gets its terminal None: the slots of
             # the step in flight are among slot_req until their drain.
             self._pending = None
             self.error = e
+            self._fail_staged_swaps(e)
 
             def kill(req: Request) -> None:
                 req.finish_reason = "error"

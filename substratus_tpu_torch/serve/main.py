@@ -4,8 +4,17 @@
 
 It serves a checkpoint, or a named configuration with random weights from
 a seed (the JAX entry point's weightless ``--config`` mode), over the
-OpenAI surface of serve/server.py, on the card unless ``--device cpu`` is
-given. The checkpoint is ``--model``, else params.json ``model``, else a
+container contract's serving surface of serve/server.py (``GET /``,
+``/loadz``, ``/metrics``, ``/v1/models``, ``POST /v1/completions`` with
+``stop``, ``/v1/chat/completions``, ``/swapz``, ``/debug/profile``; 429,
+504 and 503 admission), on the card unless ``--device cpu`` is given. On
+SIGTERM or SIGINT it drains: readiness answers 503 at once, requests in
+flight finish within ``drain_grace`` seconds (params.json, else the
+SUBSTRATUS_DRAIN_GRACE environment variable, else 30), then it exits 0.
+``POST /swapz`` loads the named checkpoint through the boot path's load
+and quantize pipeline and swaps it in (serve/engine.py swap_params).
+
+The checkpoint is ``--model``, else params.json ``model``, else a
 directory mounted at ``/content/model`` (the container contract), resolved
 as the JAX entry point's load_checkpoint does: a .gguf file (or a
 directory holding one), then the port's own artifact (train/checkpoints.py),
@@ -15,7 +24,8 @@ path (serve/tokenizer.py) and its directory's name is the served model's.
 Knobs come from flags or from the container contract's params file
 (``/content/params.json``, or ``--params``); flags win. The port serves
 the subset ``model``, ``config``, ``max_batch``, ``max_seq_len``,
-``max_prefill_len``, ``kv_cache_dtype``, ``max_queue`` and ``overlap`` (absent or ``true``: the
+``max_prefill_len``, ``kv_cache_dtype``, ``max_queue`` (429 beyond it; 0
+unbounded), ``drain_grace`` and ``overlap`` (absent or ``true``: the
 overlapped scheduler; ``false``: the synchronous one; on the card the
 decode step is a CUDA graph in both), speculative decoding
 
@@ -64,14 +74,18 @@ line says which. On the paged pool the attention knobs choose nothing:
 every prompt runs as chunks through its block-table row, and chunks and
 decode steps alike attend the pages gathered through it with the plain
 attention, as in the JAX package. Every other key of the JAX entry point
-exits with the ROADMAP item that will serve it, named by its title,
-unless it holds the one value this port already serves (for example
-``role: both``): a knob is never silently ignored, and an unknown value of
-a served knob exits too.
+exits with the ROADMAP item that will serve it, named by its title
+(``baseModel`` and ``adapters``: multi-tenant adapters; ``role``,
+``disaggregated``, ``transfer_port``, ``decode_peers``: disaggregated
+prefill/decode; ``batchGenerate``: batch generation; ``tensor``,
+``sequence``, ``replicas``: multi-GPU serving), unless it holds the one
+value this port already serves (for example ``role: both``): a knob is
+never silently ignored, and an unknown value of a served knob exits too.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 from typing import Any, Dict, Optional, Tuple
@@ -91,11 +105,10 @@ _NOT_SERVED = {
     "tensor": (None, "Queue 1, multi-GPU serving"),
     "sequence": (None, "Queue 1, multi-GPU serving"),
     "replicas": (None, "Queue 1, multi-GPU serving"),
-    "drain_grace": (None, "Queue 1, the serving surface (gateway contract)"),
 }
 _SERVED = ("model", "config", "max_batch", "max_seq_len", "max_prefill_len", "kv_cache_dtype", "max_queue",
            "overlap", "kv_layout", "decode_attn_impl", "chunk_attn_impl", "attn_impl", "quantize", "q4_impl",
-           "spec_k", "draft_model")
+           "spec_k", "draft_model", "drain_grace")
 _KV_LAYOUTS = ("auto", "paged", "dense")
 _QUANTIZE = ("none", "int8", "int4")
 # The port has no XLA: both of the JAX entry point's int4 lowerings run the kernel.
@@ -190,15 +203,28 @@ def resolve_spec(flag: Optional[int], draft_flag: Optional[str], params: Dict[st
     return spec_k, draft_flag or params.get("draft_model")
 
 
+def resolve_drain_grace(params: Dict[str, Any]) -> Optional[float]:
+    """params.json drain_grace (seconds; absent: None, which the server
+    resolves from SUBSTRATUS_DRAIN_GRACE, else 30); exits on a value that
+    is not a non-negative number."""
+    grace = params.get("drain_grace")
+    if grace is None:
+        return None
+    if isinstance(grace, bool) or not isinstance(grace, (int, float)) or not grace >= 0:
+        raise SystemExit(f"params.json: drain_grace={grace!r} invalid (seconds, >= 0)")
+    return float(grace)
+
+
 def check_params(params: Dict[str, Any]) -> None:
     """Exit on any key the port does not serve yet (naming its ROADMAP
     queue), on any key it does not know, and on an attention, weight,
-    scheduler or speculation mode it does not serve."""
+    scheduler, speculation or drain setting it does not serve."""
     resolve_attn_impls(params)
     resolve_kv_layout(params)
     resolve_quantize(params)
     resolve_overlap(params)
     resolve_spec(None, None, params)
+    resolve_drain_grace(params)
     for key, value in params.items():
         if key in _NOT_SERVED:
             served, where = _NOT_SERVED[key]
@@ -268,7 +294,8 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def build(argv=None):
     """Parse the flags, build the model, engine and HTTP server, start the
-    engine, and return the (not yet serving) serve.server.Server."""
+    engine, and return the (not yet serving) serve.server.Server, with its
+    checkpoint loader for POST /swapz and its drain grace."""
     from substratus_tpu_torch.models import registry
     from substratus_tpu_torch.serve.engine import Engine, EngineConfig
     from substratus_tpu_torch.serve.server import Server, ServerState
@@ -337,7 +364,30 @@ def build(argv=None):
         spec_k=spec_k,
     )
     engine = Engine(cfg, params, ec, device=device, model=family, draft=draft)
-    server = Server(ServerState(engine, tokenizer, name), host=args.host, port=args.port)
+
+    def checkpoint_loader(ref: str):
+        """POST /swapz's checkpoint ref -> weights ready to install: boot's
+        load and quantize pipeline, so a checkpoint of the same
+        architecture matches the served weights (any other is rejected by
+        Engine.swap_params, never installed)."""
+        if not os.path.exists(ref):
+            raise FileNotFoundError(f"{ref}: no such checkpoint")
+        # On the card, on a stream of its own: on the scheduler's, each of
+        # the load's host copies would wait for the decode rounds queued
+        # there. The host waits for the load alone before the swap.
+        side = torch.cuda.Stream(device) if device.type == "cuda" else None
+        try:
+            with torch.cuda.stream(side) if side is not None else contextlib.nullcontext():
+                _, new_params = load_checkpoint(ref, device)
+                new_params = family.quantize_weights(new_params, quantize)
+        except SystemExit as e:  # a file this port cannot load: the swap is refused
+            raise ValueError(str(e)) from None
+        if side is not None:
+            side.synchronize()
+        return new_params
+
+    server = Server(ServerState(engine, tokenizer, name, checkpoint_loader=checkpoint_loader), host=args.host,
+                    port=args.port, drain_grace_s=resolve_drain_grace(params_json))
     engine.start()
     weights = {"none": f"{str(cfg.dtype).removeprefix('torch.')} weights, torch.matmul",
                "int8": "int8 weights (scale after the dot), torch.einsum",
@@ -369,6 +419,8 @@ def build(argv=None):
 
 
 def main(argv=None) -> int:
+    """Serve until SIGTERM or SIGINT, then drain (serve/server.py) and
+    exit 0."""
     build(argv).serve_forever()
     return 0
 

@@ -1,48 +1,195 @@
 """OpenAI-compatible HTTP server over the port's Engine, on the standard
-library alone (port of the HTTP contract of substratus_tpu/serve/server.py,
-which is built on aiohttp).
+library alone: the serving surface of the container contract
+(docs/container-contract.md), after substratus_tpu/serve/server.py, which
+is built on aiohttp. Status codes, bodies and headers are the JAX
+server's:
 
-Container contract: ``GET /`` is readiness (200 once the engine runs, 500
-with the error once it died); ``POST /v1/completions`` takes
-``{prompt, max_tokens, temperature, top_p, stream}`` and answers with the
-OpenAI ``text_completion`` body, ``usage`` included, or -- with
-``stream: true`` -- one SSE ``data:`` chunk per generated token, a last
-chunk carrying the finish reason, and ``data: [DONE]``. With
-``stream_options: {"include_usage": true}`` a usage chunk precedes
-``[DONE]``, as in OpenAI's API.
+  * ``GET /`` readiness: 200 ``ok`` once the engine runs, 503 ``draining``
+    from SIGTERM on, 500 with the error once the engine died;
+  * ``GET /loadz`` the engine's load_snapshot() with ``model`` and
+    ``draining`` (the gateway protocol, gateway/loadreport.py): 503 while
+    draining, 500 with the error;
+  * ``GET /metrics`` the Prometheus text of observability/metrics.py, the
+    engine gauges refreshed at scrape, in the versioned content type;
+  * ``GET /v1/models`` the served model (a ``model`` field naming any other
+    gets 404 ``model_not_found``: adapters wait for ROADMAP Queue 1 item 6);
+  * ``POST /v1/completions`` ``{prompt, max_tokens, temperature, top_p,
+    stop, stream}`` and ``POST /v1/chat/completions`` (``messages``,
+    rendered by the tokenizer's chat template, else a generic transcript):
+    the OpenAI body with ``usage``, or with ``stream: true`` SSE ``data:``
+    chunks, one a generated token (its text may be empty: a control id,
+    half a codepoint, or text held back because it could begin a stop
+    sequence), a last chunk with the finish reason, with
+    ``stream_options: {"include_usage": true}`` a usage chunk, then
+    ``data: [DONE]``. A ``stop`` match cancels the engine's slot at once
+    and cuts the text before the match; a stream never sends a stop
+    sequence, even one split across tokens;
+  * admission: 503 with ``Retry-After`` while draining, 504 for an expired
+    ``x-request-deadline``, 429 with ``Retry-After`` when the engine's
+    queue is at ``max_queue``; 200 responses of ``/v1/`` carry the
+    ``x-substratus-load`` report header (streams at their start);
+  * ``POST /swapz`` ``{checkpoint, version, source}``: a hot weight swap
+    through the configured checkpoint loader (Engine.swap_params): 200,
+    400 (a bad body, no such checkpoint), 409 (a structure mismatch: the
+    old weights stay) or 501 (no loader);
+  * ``POST /debug/profile`` ``{"seconds": N}`` (0 < N <= 60) or
+    ``{"action": "start"|"stop"}`` (capped at 60 s): a torch.profiler
+    capture (the card's kernels with CUDA activity) written as a Chrome
+    trace under PROFILE_DIR; 409 while one runs.
+
+Every response counts in substratus_http_requests_total. Spans,
+traceparent propagation, request journeys and the other /debug pages wait
+for ROADMAP Queue 1 item 3b; the RBAC authorizer too (the JAX entry point
+passes none, so /swapz and /debug are open there as here).
 
 Each connection runs on its own thread (``ThreadingHTTPServer``) and
 blocks on its request's token queue; the engine's one scheduler thread
-does all the device work.
+does all the device work. Server.serve_forever drains on SIGTERM or
+SIGINT: readiness fails first, in-flight requests finish (up to the
+grace), then the listener closes and the engine stops last.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
+import signal
+import tempfile
 import threading
 import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
+from urllib.parse import urlsplit
 
+from substratus_tpu_torch.gateway.limiter import deadline_remaining, parse_deadline
+from substratus_tpu_torch.gateway.loadreport import HEADER as LOAD_HEADER
+from substratus_tpu_torch.gateway.loadreport import LoadReport
+from substratus_tpu_torch.observability.httpstats import count_http_response
+from substratus_tpu_torch.observability.metrics import METRICS
 from substratus_tpu_torch.serve.engine import Engine, EngineOverloaded, Request
-from substratus_tpu_torch.serve.tokenizer import ByteTokenizer
+
+# Scrape-time engine gauges (the request-latency histograms live in
+# serve/engine.py), as the JAX server declares them.
+for _name, _help in (
+    ("substratus_serve_active_slots", "Decode slots currently generating."),
+    ("substratus_serve_max_slots", "Configured decode slot count (max_batch)."),
+    ("substratus_serve_queue_depth", "Requests waiting for a decode slot."),
+    ("substratus_serve_kv_pages_total", "KV pool size in pages (paged layout)."),
+    ("substratus_serve_kv_pages_free", "Unallocated KV pages (paged layout)."),
+):
+    METRICS.describe(_name, _help, type="gauge")
+METRICS.describe("substratus_serve_requests_total", "Completion requests received.", type="counter")
+# The port's own: which hand-written kernels the served path launched.
+METRICS.describe("substratus_serve_kernel_launches",
+                 "Launches of each kernel counter of the port's CUDA kernels (function.counter; a design's own "
+                 "counter beside the total) since the process started: the wrapper's count plus the launches inside "
+                 "the engine's CUDA graph replays.", type="gauge")
 
 # Per-token wait before a stream is declared dead (the engine puts a
 # terminal None on every request, error included, so this only guards a
 # wedged device).
 TOKEN_TIMEOUT_S = 600.0
+# The longest /debug/profile capture, and the watchdog of a started one.
+PROFILE_CAP_S = 60.0
+# The exposition format Prometheus negotiates for.
+METRICS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 
 
-class BadRequest(ValueError):
-    """A request body the server refuses with 400."""
+class HTTPError(Exception):
+    """An error response: its status, its body (text, or a dict sent as
+    JSON) and extra headers."""
+
+    def __init__(self, status: int, body, headers: Optional[dict] = None):
+        super().__init__(status, body)
+        self.status, self.body, self.headers = status, body, headers or {}
+
+
+def _json_error(status: int, message: str, kind: str, headers: Optional[dict] = None, **extra) -> HTTPError:
+    return HTTPError(status, {"error": {"message": message, "type": kind, **extra}}, headers)
 
 
 class ServerState:
-    def __init__(self, engine: Engine, tokenizer: ByteTokenizer, model_name: str):
+    def __init__(self, engine: Engine, tokenizer, model_name: str,
+                 checkpoint_loader: Optional[Callable[[str], object]] = None):
         self.engine = engine
         self.tokenizer = tokenizer
         self.model_name = model_name
+        # Checkpoint ref -> weights ready to install (the boot path's load
+        # and quantize pipeline). POST /swapz needs it; None = this replica
+        # cannot hot-swap (501, so a rollout controller skips it honestly).
+        self.checkpoint_loader = checkpoint_loader
+        self.ready = True
+        # SIGTERM sets it: readiness (`GET /`, `/loadz`) and new requests
+        # answer 503 while in-flight streams run to the drain deadline.
+        self.draining = False
+        # In-flight requests by id; handler threads add and remove under
+        # the lock.
+        self.inflight: dict = {}
+        # Handlers running, from the parsed request line to the written
+        # response: drain() waits for none to run, so a response owed
+        # before the engine's part (admission, encoding) or after it (the
+        # body's write) is never cut by the exit.
+        self.handlers = 0
+        self._lock = threading.Lock()
+        self.swap_lock = threading.Lock()  # one swap at a time
+        self.profile = _Profile(engine)
+
+    def track_request(self, req: Request) -> None:
+        with self._lock:
+            self.inflight[req.id] = req
+
+    def untrack_request(self, req: Request) -> None:
+        with self._lock:
+            self.inflight.pop(req.id, None)
+
+    @contextlib.contextmanager
+    def handling(self):
+        with self._lock:
+            self.handlers += 1
+        try:
+            yield
+        finally:
+            with self._lock:
+                self.handlers -= 1
+
+    def render_chat(self, messages):
+        """Messages -> (prompt, templated), with the MODEL's chat template
+        when the tokenizer carries one (an HF tokenizer's, or a GGUF's
+        embedded tokenizer.chat_template): chat checkpoints are trained on
+        their template and degrade badly off it. `templated` makes encoding
+        parse the special tokens the template rendered and skip the
+        automatic BOS. Otherwise the generic role-joined transcript, also
+        when a template exists but fails (said on stdout)."""
+        tmpl = getattr(self.tokenizer, "apply_chat_template", None)
+        if tmpl is not None:
+            try:
+                rendered = tmpl(messages)
+            except Exception as e:  # a broken template must not take the endpoint down
+                print(f"chat template failed ({type(e).__name__}: {e}); using the generic transcript", flush=True)
+                rendered = None
+            if rendered is not None:
+                return rendered, True
+        prompt = "\n".join(f"{m.get('role', 'user')}: {m.get('content', '')}" for m in messages)
+        return prompt + "\nassistant:", False
+
+    def encode_prompt(self, prompt: str, templated: bool = False):
+        """Prompt -> ids; a template-rendered prompt takes the tokenizer's
+        special-token-aware path (no doubled BOS, control tokens as ids)
+        when it has one."""
+        if templated:
+            enc = getattr(self.tokenizer, "encode_templated", None)
+            if enc is not None:
+                return enc(prompt)
+        return self.tokenizer.encode(prompt)
+
+
+def _find_stop(text: str, stop) -> Optional[int]:
+    """Earliest index of any stop sequence in text, or None: the one
+    matching rule of the cancellation and of the final cut."""
+    cuts = [idx for s in stop or [] if s and (idx := text.find(s)) != -1]
+    return min(cuts) if cuts else None
 
 
 def completion_body(state: ServerState, text: str, n_prompt: int, n_gen: int,
@@ -63,49 +210,149 @@ def completion_body(state: ServerState, text: str, n_prompt: int, n_gen: int,
     }
 
 
-def parse_body(raw: bytes) -> dict:
-    """Decode and validate a /v1/completions body (the JAX server's
-    _validate_body rules for the knobs this port serves)."""
-    try:
-        body = json.loads(raw or b"{}")
-    except json.JSONDecodeError:
-        raise BadRequest("invalid JSON body")
-    if not isinstance(body, dict):
-        raise BadRequest("body must be a JSON object")
-    if body.get("prompt") is None:
-        raise BadRequest("missing 'prompt'")
-    if body.get("stop") is not None:
-        raise BadRequest("'stop' is not served by this port yet")
+def validate_body(body: dict) -> None:
+    """Reject malformed knobs before any engine work (the JAX server's
+    _validate_body: the same statuses and messages)."""
+    stop = body.get("stop")
+    if stop is not None and not (isinstance(stop, str)
+                                 or (isinstance(stop, list) and all(isinstance(s, str) for s in stop))):
+        raise HTTPError(400, "'stop' must be a string or list of strings")
     if "max_tokens" in body:
         try:
             v = int(body["max_tokens"])
         except (TypeError, ValueError):
-            raise BadRequest("'max_tokens' must be an integer")
+            raise HTTPError(400, "'max_tokens' must be an integer")
         if v < 1:
-            raise BadRequest("'max_tokens' must be >= 1")
+            raise HTTPError(400, "'max_tokens' must be >= 1")
     for key in ("temperature", "top_p"):
         if key in body:
             try:
                 v = float(body[key])
             except (TypeError, ValueError):
-                raise BadRequest(f"'{key}' must be a number")
+                raise HTTPError(400, f"'{key}' must be a number")
             if not math.isfinite(v):
-                raise BadRequest(f"'{key}' must be finite")
+                # json.loads takes NaN and Infinity, and NaN passes any <.
+                raise HTTPError(400, f"'{key}' must be finite")
             if key == "temperature" and v < 0:
-                raise BadRequest("'temperature' must be >= 0")
+                raise HTTPError(400, "'temperature' must be >= 0")
             if key == "top_p" and not (0 < v <= 1):
-                raise BadRequest("'top_p' must be in (0, 1]")
-    return body
+                raise HTTPError(400, "'top_p' must be in (0, 1]")
 
 
-def _text_so_far(tokenizer: ByteTokenizer, ids) -> str:
-    """Decoded text of `ids`, less a trailing partial UTF-8 codepoint
-    (at most 3 replacement chars; a longer run is invalid output)."""
-    full = tokenizer.decode(ids)
-    trail = 0
-    while trail < 3 and len(full) > trail and full[-1 - trail] == "�":
-        trail += 1
-    return full[: len(full) - trail] if trail < 3 else full
+def kernel_launches(engine: Engine) -> Dict[str, int]:
+    """Each serving kernel counter ("function.counter") since the process
+    started: its wrapper's own launches plus those inside the engine's
+    graph replays, which no wrapper sees."""
+    from substratus_tpu_torch.ops.decode_attention import decode_attention
+    from substratus_tpu_torch.ops.flash_attention import flash_attention, flash_cached_attention
+    from substratus_tpu_torch.ops.fused_decode import fused_decode_attention
+    from substratus_tpu_torch.ops.quant4 import q4_matmul
+
+    out = {}
+    for fn in (flash_attention, flash_cached_attention, decode_attention, fused_decode_attention, q4_matmul):
+        for attr, value in list(vars(fn).items()):
+            if attr.startswith("launches") and isinstance(value, int):
+                key = f"{fn.__name__}.{attr}"
+                out[key] = value + engine.replayed_launches(key)
+    return out
+
+
+def _stops(body: dict) -> Optional[list]:
+    stop = body.get("stop")
+    return [stop] if isinstance(stop, str) else stop
+
+
+class _Profile:
+    """/debug/profile's captures: one at a time, each on a thread of its
+    own that starts torch.profiler (CPU, and CUDA activity on the card:
+    every kernel of the process, the engine's graph replays included),
+    waits for its end (a stop, or its cap: the seconds asked for, or the
+    watchdog of a started one) and writes a Chrome trace into a fresh
+    directory under PROFILE_DIR (default: the temp dir's
+    substratus-profile). A capture its cap ended is over, as in JAX: the
+    next start succeeds and a stop finds none running."""
+
+    def __init__(self, engine: Engine):
+        self.engine = engine
+        self.lock = threading.Lock()
+        self.live: Optional[dict] = None  # {"dir", "t0", "stop", "thread", "result", "blocking"} while one runs
+
+    def _dir(self) -> str:
+        base = os.environ.get("PROFILE_DIR") or os.path.join(tempfile.gettempdir(), "substratus-profile")
+        os.makedirs(base, exist_ok=True)
+        return tempfile.mkdtemp(prefix=time.strftime("%Y%m%d-%H%M%S-"), dir=base)
+
+    def start(self, cap_s: float, blocking: bool = False) -> dict:
+        """Start a capture that ends after cap_s, or at stop() unless it is
+        `blocking`; 409 while one runs, 500 when the profiler cannot
+        start."""
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        with self.lock:
+            if self.live is not None:
+                raise HTTPError(409, "a profile capture is already running")
+            activities = [ProfilerActivity.CPU]
+            if self.engine.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            live = {"dir": self._dir(), "t0": time.perf_counter(), "stop": threading.Event(), "result": {},
+                    "blocking": blocking}
+            started = threading.Event()
+
+            def run():
+                try:
+                    prof = profile(activities=activities)
+                    prof.start()
+                except Exception as e:  # profiler backends raise anything: a 500 with the message
+                    live["result"]["error"] = f"profiler failed to start: {e}"
+                    started.set()
+                    return
+                started.set()
+                capped = not live["stop"].wait(cap_s)
+                try:
+                    if self.engine.device.type == "cuda":
+                        torch.cuda.synchronize(self.engine.device)  # the kernels in flight reach the trace
+                    prof.stop()
+                    prof.export_chrome_trace(os.path.join(live["dir"], "trace.json"))
+                except Exception as e:  # the capture must still be clearable; the error is in the response
+                    live["result"]["stop_error"] = str(e)
+                live["result"]["seconds"] = round(time.perf_counter() - live["t0"], 3)
+                if capped:  # cleared once the trace is out: the next capture starts a fresh profiler
+                    with self.lock:
+                        if self.live is live:
+                            self.live = None
+
+            live["thread"] = threading.Thread(target=run, name="profile", daemon=True)
+            live["thread"].start()
+            started.wait()
+            if "error" in live["result"]:
+                live["thread"].join()
+                raise HTTPError(500, live["result"]["error"])
+            self.live = live
+            return live
+
+    @staticmethod
+    def _summary(live: dict) -> dict:
+        """A finished capture's dir, seconds, errors and files."""
+        live["thread"].join()
+        files = sorted(os.path.join(root, n) for root, _, names in os.walk(live["dir"]) for n in names)
+        return {"dir": live["dir"], **live["result"], "files": files[-10:]}
+
+    def capture(self, seconds: float) -> dict:
+        """A capture of `seconds`, ended by its cap alone; 409 while one
+        runs."""
+        return self._summary(self.start(seconds, blocking=True))
+
+    def stop(self) -> dict:
+        """End the started capture; its summary. 409 when none runs (a
+        blocking capture is not one a stop may end, as in JAX)."""
+        with self.lock:
+            live = self.live
+            if live is None or live["blocking"]:
+                raise HTTPError(409, "no profile capture is running")
+            self.live = None
+        live["stop"].set()
+        return self._summary(live)
 
 
 class Handler(BaseHTTPRequestHandler):
@@ -116,123 +363,397 @@ class Handler(BaseHTTPRequestHandler):
     def log_message(self, format, *args):  # quiet: one line per request is noise here
         pass
 
-    def _send(self, status: int, payload, content_type="application/json", headers=None):
-        data = payload if isinstance(payload, bytes) else (
-            json.dumps(payload).encode() if content_type == "application/json" else str(payload).encode()
-        )
+    # --- responses ------------------------------------------------------
+
+    def _send(self, status: int, payload, content_type: Optional[str] = None, headers=None) -> None:
+        if isinstance(payload, (dict, list)):
+            data, content_type = json.dumps(payload).encode(), content_type or "application/json; charset=utf-8"
+        else:
+            data = payload if isinstance(payload, bytes) else str(payload).encode()
+            content_type = content_type or "text/plain; charset=utf-8"
         self.send_response(status)
         self.send_header("Content-Type", content_type)
         self.send_header("Content-Length", str(len(data)))
+        if status == 200 and self._path.startswith("/v1/"):
+            # Passive load reporting: the gateway learns this replica's
+            # load from the responses it already gets.
+            self.send_header(LOAD_HEADER, self._load_header())
         for k, v in (headers or {}).items():
             self.send_header(k, v)
         self.end_headers()
         self.wfile.write(data)
+        count_http_response(self._path, status)
 
-    def _error(self, status: int, message: str, kind: str, headers=None):
-        self._send(status, {"error": {"message": message, "type": kind}}, headers=headers)
+    def _load_header(self) -> str:
+        return LoadReport.from_snapshot(self.state.engine.load_snapshot()).to_header()
+
+    def _route(self, routes: dict) -> None:
+        self._path = urlsplit(self.path).path
+        self._committed = False  # a stream's 200 and headers are out
+        fn = routes.get(self._path)
+        with self.state.handling():
+            try:
+                if fn is None:
+                    raise HTTPError(404, "404: Not Found")
+                fn()
+            except (BrokenPipeError, ConnectionResetError):
+                self.close_connection = True
+            except Exception as e:
+                if self._committed:  # the status is sent: only the connection can end
+                    self.close_connection = True
+                elif isinstance(e, HTTPError):
+                    self._send(e.status, e.body, headers=e.headers)
+                else:  # last resort: a JSON 500 beats an opaque one
+                    self._send(500, {"error": f"{type(e).__name__}: {e}"})
 
     def do_GET(self):
-        if self.path != "/":
-            return self._error(404, f"no route {self.path}", "not_found")
-        err = self.state.engine.error
-        if err is not None:
-            return self._send(500, str(err), "text/plain")
-        return self._send(200, "ok", "text/plain")
+        self._route({"/": self._root, "/loadz": self._loadz, "/metrics": self._metrics, "/v1/models": self._models})
 
     def do_POST(self):
-        if self.path != "/v1/completions":
-            return self._error(404, f"no route {self.path}", "not_found")
+        self._route({"/v1/completions": self._completions, "/v1/chat/completions": self._chat,
+                     "/swapz": self._swapz, "/debug/profile": self._profile})
+
+    def _json_body(self, missing_ok: bool = False):
+        raw = self.rfile.read(int(self.headers.get("Content-Length") or 0))
         try:
-            body = parse_body(self.rfile.read(int(self.headers.get("Content-Length") or 0)))
-        except BadRequest as e:
-            return self._error(400, str(e), "invalid_request_error")
-        prompt = body["prompt"]
-        if isinstance(prompt, list):
-            prompt = prompt[0] if prompt else ""
+            body = json.loads(raw or b"{}")
+        except json.JSONDecodeError:
+            if missing_ok:
+                return {}
+            raise HTTPError(400, "invalid JSON body")
+        if not isinstance(body, dict):
+            raise HTTPError(400, "body must be a JSON object")
+        return body
+
+    # --- GET --------------------------------------------------------------
+
+    def _root(self) -> None:
         state = self.state
+        if state.engine.error is not None:
+            return self._send(500, str(state.engine.error))
+        if state.draining:
+            return self._send(503, "draining")
+        self._send(200 if state.ready else 503, "ok")
+
+    def _loadz(self) -> None:
+        """The load report of the gateway protocol: 503 while draining (the
+        gateway stops routing here without ejecting the replica)."""
+        state = self.state
+        snap = state.engine.load_snapshot()
+        snap["model"] = state.model_name
+        snap["draining"] = state.draining
+        if state.engine.error is not None:
+            return self._send(500, {**snap, "error": str(state.engine.error)})
+        self._send(200 if state.ready and not state.draining else 503, snap)
+
+    def _metrics(self) -> None:
+        """Prometheus text: the engine gauges refreshed at scrape, then the
+        whole registry (the latency histograms of serve/engine.py)."""
+        eng = self.state.engine
+        METRICS.set("substratus_serve_active_slots", int(eng.active.sum()))
+        METRICS.set("substratus_serve_max_slots", eng.ec.max_batch)
+        METRICS.set("substratus_serve_queue_depth", eng.queue.qsize())
+        for k, v in list(eng.stats.items()):
+            METRICS.set(f"substratus_serve_{k}", v)
+        if eng.paged:
+            METRICS.set("substratus_serve_kv_pages_total", eng.n_pages)
+            METRICS.set("substratus_serve_kv_pages_free", eng.alloc.free_pages)
+        for counter, n in kernel_launches(eng).items():
+            METRICS.set("substratus_serve_kernel_launches", n, {"counter": counter})
+        self._send(200, METRICS.render().encode(), METRICS_CONTENT_TYPE)
+
+    def _models(self) -> None:
+        self._send(200, {"object": "list", "data": [{"id": self.state.model_name, "object": "model",
+                                                     "owned_by": "substratus-tpu"}]})
+
+    # --- completions --------------------------------------------------------
+
+    def _check_admission(self) -> None:
+        """A draining server takes no new request (503: the caller retries
+        on a live replica); an expired deadline is shed as 504 (decoding
+        for a client that gave up wastes a slot)."""
+        if self.state.draining:
+            raise _json_error(503, "server is draining", "draining", {"Retry-After": "1"})
+        remaining = deadline_remaining(parse_deadline(self.headers))
+        if remaining is not None and remaining <= 0:
+            raise _json_error(504, "request deadline already expired", "deadline")
+
+    def _submit(self, prompt: str, body: dict, templated: bool = False) -> Tuple[Request, int]:
+        """The request on the engine's queue, tracked, and its prompt's
+        length; 404 for a model this replica does not serve, 429 with
+        Retry-After when the queue is full."""
+        state = self.state
+        name = body.get("model")
+        if name and name != state.model_name:
+            raise _json_error(404, f"model {name!r} not found", "invalid_request_error", code="model_not_found")
         req = Request(
-            prompt_tokens=state.tokenizer.encode(str(prompt)),
+            prompt_tokens=state.encode_prompt(prompt, templated),
             max_tokens=int(body.get("max_tokens", 16)),
             temperature=float(body.get("temperature", 1.0)),
             top_p=float(body.get("top_p", 1.0)),
             eos_token_id=state.tokenizer.eos_id,
+            id=uuid.uuid4().hex,
         )
         # Counted now: a request preempted on the paged pool resumes with
         # its delivered tokens appended to prompt_tokens.
         n_prompt = len(req.prompt_tokens)
+        state.track_request(req)
         try:
-            state.engine.submit(req)
+            return state.engine.submit(req), n_prompt
         except EngineOverloaded as e:
-            return self._error(429, str(e), "overloaded",
-                               {"Retry-After": str(max(1, math.ceil(e.retry_after)))})
-        if body.get("stream"):
-            return self._stream(req, body, n_prompt)
-        ids, finish = self._collect(req)
-        if state.engine.error is not None:
-            return self._error(500, str(state.engine.error), "engine_error")
-        self._send(200, completion_body(
-            state, state.tokenizer.decode(ids), n_prompt, len(ids), finish,
-            model=body.get("model"),
-        ))
+            state.untrack_request(req)
+            # Bounded queue -> explicit shed: 429 + Retry-After beats a
+            # queue whose wait exceeds any deadline.
+            raise _json_error(429, str(e), "overloaded", {"Retry-After": str(max(1, int(e.retry_after + 0.999)))})
 
-    @staticmethod
-    def _collect(req: Request) -> Tuple[list, str]:
+    def _generate(self, prompt: str, body: dict, templated: bool = False):
+        """(text, prompt tokens, completion tokens, finish) of a request
+        served whole. With `stop`, a bounded tail of the text is checked per
+        token; on a match the engine request is cancelled (its slot frees
+        at its next emit) and the text is cut before the earliest match."""
+        state = self.state
+        req, n_prompt = self._submit(prompt, body, templated)
+        stop = _stops(body)
+        tok = state.tokenizer
         ids = []
-        while True:
-            tok = req.out.get(timeout=TOKEN_TIMEOUT_S)
-            if tok is None:
-                return ids, req.finish_reason
-            ids.append(tok)
+        try:
+            # A match must end at the newest token; decoding the last
+            # 4 * max_stop_len + 8 tokens always covers it (>= 1 byte a
+            # token, <= 4 bytes a character).
+            window = 4 * max((len(s) for s in stop), default=0) + 8 if stop else 0
+            while (t := req.out.get(timeout=TOKEN_TIMEOUT_S)) is not None:
+                ids.append(t)
+                if stop and _find_stop(tok.decode(ids[-window:]), stop) is not None \
+                        and _find_stop(tok.decode(ids), stop) is not None:
+                    # The tail is a cheap filter; boundary effects of the
+                    # decode (a stripped leading space) can make it differ
+                    # from the full text's suffix, so the full text decides.
+                    req.cancelled = True
+                    while req.out.get(timeout=TOKEN_TIMEOUT_S) is not None:
+                        pass
+                    break
+        finally:
+            state.untrack_request(req)
+        if state.engine.error is not None:
+            raise HTTPError(500, str(state.engine.error))
+        text = tok.decode(ids)
+        if stop is not None and (cut := _find_stop(text, stop)) is not None:
+            return text[:cut], n_prompt, len(ids), "stop"
+        return text, n_prompt, len(ids), req.finish_reason
 
-    def _stream(self, req: Request, body: dict, n_prompt: int) -> None:
-        """SSE: one chunk per generated token (its text may be empty, e.g.
-        a non-byte id or half a codepoint), then the finish chunk, the
-        optional usage chunk and [DONE]."""
-        self.send_response(200)
-        self.send_header("Content-Type", "text/event-stream")
-        self.send_header("Cache-Control", "no-cache")
-        self.send_header("Connection", "close")
-        self.end_headers()
-        self.close_connection = True
-        cid = f"cmpl-{uuid.uuid4().hex[:24]}"
-        created = int(time.time())
-        model = str(body.get("model") or self.state.model_name)
-        tokenizer = self.state.tokenizer
+    def _stream(self, prompt: str, body: dict, chat: bool, templated: bool = False) -> None:
+        """SSE: one chunk a generated token, then the finish chunk, the
+        optional usage chunk and [DONE]. Matching runs on the full decode of
+        all generated tokens (concatenated per-token decodes diverge from it
+        at boundary effects); with stop sequences the stream holds back the
+        last max(len(stop)) - 1 characters until more text (or the end)
+        proves they begin no match, and it never sends a match or anything
+        after it. A trailing partial UTF-8 codepoint waits too."""
+        state = self.state
+        req, n_prompt = self._submit(prompt, body, templated)
+        if state.engine.error is not None:
+            state.untrack_request(req)
+            raise HTTPError(500, str(state.engine.error))
+        stop = _stops(body)
+        try:
+            self.send_response(200)
+            self.send_header("Content-Type", "text/event-stream")
+            self.send_header("Cache-Control", "no-cache")
+            self.send_header("Connection", "close")
+            # The load report at the stream's start: by its end it would
+            # be stale anyway.
+            self.send_header(LOAD_HEADER, self._load_header())
+            self.end_headers()
+            self.close_connection = True
+            self._committed = True
+            cid = f"cmpl-{uuid.uuid4().hex[:24]}"
+            created = int(time.time())
+            model = str(body.get("model") or state.model_name)
+            tok = state.tokenizer
 
-        def chunk(text: str, finish=None, usage=None) -> None:
-            obj = {"id": cid, "object": "text_completion", "created": created, "model": model,
-                   "choices": [] if usage else [{"index": 0, "text": text, "finish_reason": finish}]}
-            if usage:
-                obj["usage"] = usage
-            self.wfile.write(f"data: {json.dumps(obj)}\n\n".encode())
+            def write(piece: str, finish=None, usage=None) -> None:
+                if chat:
+                    choice = {"index": 0, "delta": {"content": piece} if piece else {}, "finish_reason": finish}
+                else:
+                    choice = {"index": 0, "text": piece, "finish_reason": finish}
+                obj = {"id": cid, "object": "chat.completion.chunk" if chat else "text_completion",
+                       "created": created, "model": model, "choices": [] if usage else [choice]}
+                if usage:
+                    obj["usage"] = usage
+                self.wfile.write(f"data: {json.dumps(obj)}\n\n".encode())
+                self.wfile.flush()
+
+            holdback = max(0, max((len(s) for s in stop), default=0) - 1) if stop else 0
+            ids, sent, finish = [], 0, None
+            while (t := req.out.get(timeout=TOKEN_TIMEOUT_S)) is not None:
+                ids.append(t)
+                full = tok.decode(ids)
+                if stop:
+                    # A new match ends in the unsent tail (plus the holdback).
+                    base = max(0, sent - holdback)
+                    cut = _find_stop(full[base:], stop)
+                    if cut is not None:
+                        cut += base
+                        write(full[sent:cut] if cut > sent else "")
+                        sent = max(sent, cut)
+                        req.cancelled = True
+                        while req.out.get(timeout=TOKEN_TIMEOUT_S) is not None:
+                            pass
+                        finish = "stop"
+                        break
+                emit_to = len(full) - holdback
+                trail = 0
+                while trail < 3 and emit_to - 1 - trail >= 0 and full[emit_to - 1 - trail] == "�":
+                    trail += 1
+                emit_to -= trail if trail < 3 else 0  # a longer run is invalid output, streamed as it is
+                write(full[sent:emit_to] if emit_to > sent else "")
+                sent = max(sent, emit_to)
+            tail = ""
+            if finish is None:
+                full = tok.decode(ids)
+                if stop and (cut := _find_stop(full, stop)) is not None:
+                    full, finish = full[:cut], "stop"
+                else:
+                    # "error" when the engine died mid-stream: the committed
+                    # 200 ends honestly.
+                    finish = req.finish_reason
+                tail = full[sent:]
+            write(tail, finish)
+            if (body.get("stream_options") or {}).get("include_usage"):
+                write("", usage={"prompt_tokens": n_prompt, "completion_tokens": len(ids),
+                                 "total_tokens": n_prompt + len(ids)})
+            self.wfile.write(b"data: [DONE]\n\n")
             self.wfile.flush()
+            count_http_response(self._path, 200)
+        except (BrokenPipeError, ConnectionResetError):
+            req.cancelled = True  # the client left: free its slot
+            raise
+        finally:
+            # Untracked after [DONE]: a drain waits for the stream's end.
+            state.untrack_request(req)
 
-        ids, sent = [], 0
-        while True:
-            tok = req.out.get(timeout=TOKEN_TIMEOUT_S)
-            if tok is None:
-                break
-            ids.append(tok)
-            text = _text_so_far(tokenizer, ids)
-            chunk(text[sent:])
-            sent = max(sent, len(text))
-        full = tokenizer.decode(ids)
-        chunk(full[sent:], req.finish_reason)
-        if (body.get("stream_options") or {}).get("include_usage"):
-            chunk("", usage={"prompt_tokens": n_prompt, "completion_tokens": len(ids),
-                             "total_tokens": n_prompt + len(ids)})
-        self.wfile.write(b"data: [DONE]\n\n")
-        self.wfile.flush()
+    def _completions(self) -> None:
+        body = self._json_body()
+        prompt = body.get("prompt")
+        if prompt is None:
+            raise HTTPError(400, "missing 'prompt'")
+        validate_body(body)
+        self._check_admission()
+        if isinstance(prompt, list):
+            prompt = prompt[0] if prompt else ""
+        METRICS.inc("substratus_serve_requests_total")
+        if body.get("stream"):
+            return self._stream(str(prompt), body, chat=False)
+        text, n_prompt, n_gen, finish = self._generate(str(prompt), body)
+        self._send(200, completion_body(self.state, text, n_prompt, n_gen, finish, model=body.get("model")))
+
+    def _chat(self) -> None:
+        body = self._json_body()
+        validate_body(body)
+        self._check_admission()
+        prompt, templated = self.state.render_chat(body.get("messages") or [])
+        METRICS.inc("substratus_serve_requests_total")
+        if body.get("stream"):
+            return self._stream(prompt, body, chat=True, templated=templated)
+        text, n_prompt, n_gen, finish = self._generate(prompt, body, templated)
+        resp = completion_body(self.state, text, n_prompt, n_gen, finish, model=body.get("model"))
+        resp["object"] = "chat.completion"
+        resp["choices"] = [{"index": 0, "message": {"role": "assistant", "content": text}, "finish_reason": finish}]
+        self._send(200, resp)
+
+    # --- operations ---------------------------------------------------------
+
+    def _swapz(self) -> None:
+        """Hot weight swap: load the named checkpoint and install it on the
+        live engine (Engine.swap_params): no drain, no teardown, every
+        captured graph kept. Body: {"checkpoint": ref, "version": optional
+        int, "source": "swap"|"rollout"}."""
+        state = self.state
+        body = self._json_body()
+        ref = body.get("checkpoint")
+        if not ref or not isinstance(ref, str):
+            raise HTTPError(400, "missing 'checkpoint'")
+        source = str(body.get("source", "swap"))
+        if source not in ("swap", "rollout"):
+            raise HTTPError(400, "'source' must be 'swap' or 'rollout'")
+        version = body.get("version")
+        if version is not None:
+            try:
+                version = int(version)
+            except (TypeError, ValueError):
+                raise HTTPError(400, "'version' must be an integer")
+        if state.checkpoint_loader is None:
+            raise _json_error(501, "this replica has no checkpoint loader configured; hot swap is unavailable",
+                              "swap_unavailable")
+        # One swap at a time: concurrent loads would race on the version's
+        # order and double the peak memory for nothing.
+        with state.swap_lock:
+            try:
+                params = state.checkpoint_loader(ref)
+                applied = state.engine.swap_params(params, version=version)
+            except ValueError as e:
+                # A name/shape/dtype mismatch: the engine kept the old
+                # weights (409: the request conflicts with the live model).
+                raise _json_error(409, str(e), "swap_rejected")
+            except FileNotFoundError as e:
+                raise _json_error(400, str(e), "checkpoint_not_found")
+        self._send(200, {"weights_version": applied, "checkpoint": ref, "source": source})
+
+    def _profile(self) -> None:
+        """A device trace while serving: {"seconds": N} blocks N seconds
+        (0 < N <= 60); {"action": "start"} / {"action": "stop"} bracket
+        the traffic of interest, a watchdog ending a forgotten capture
+        after 60 s."""
+        body = self._json_body(missing_ok=True)
+        prof = self.state.profile
+        action = body.get("action")
+        if action not in (None, "start", "stop"):
+            raise HTTPError(400, "'action' must be start or stop")
+        if action == "stop":
+            return self._send(200, {"stopped": True, **prof.stop()})
+        if action == "start":
+            live = prof.start(PROFILE_CAP_S)
+            return self._send(200, {"started": True, "dir": live["dir"], "cap_seconds": PROFILE_CAP_S})
+        try:
+            seconds = float(body.get("seconds", 3))
+        except (TypeError, ValueError):
+            raise HTTPError(400, "'seconds' must be a number")
+        if not (0 < seconds <= PROFILE_CAP_S):
+            raise HTTPError(400, "'seconds' must be in (0, 60]")
+        out = prof.capture(seconds)
+        self._send(200, {"dir": out["dir"], "seconds": seconds, "files": out["files"],
+                         **{k: v for k, v in out.items() if k.endswith("error")}})
+
+
+def drain(state: ServerState, grace_s: float = 30.0, poll_s: float = 0.1) -> bool:
+    """Graceful shutdown's core: readiness off (new requests 503, /loadz
+    fails, so the gateway stops routing here), then wait for the requests
+    in flight, SSE streams included, to finish and their handlers to write
+    their responses, up to `grace_s`. True when everything drained in
+    time."""
+    state.draining = True
+    deadline = time.monotonic() + grace_s
+    while (state.inflight or state.handlers) and time.monotonic() < deadline:
+        time.sleep(poll_s)
+    return not (state.inflight or state.handlers)
+
+
+class _HTTPServer(ThreadingHTTPServer):
+    daemon_threads = True
+    # Closing never waits for connection threads: an idle keep-alive
+    # connection would hold it forever (drain() waits for the handlers).
+    block_on_close = False
 
 
 class Server:
     """The HTTP server and its engine, started and stopped together."""
 
-    def __init__(self, state: ServerState, host: str = "0.0.0.0", port: int = 8080):
+    def __init__(self, state: ServerState, host: str = "0.0.0.0", port: int = 8080,
+                 drain_grace_s: Optional[float] = None):
         handler = type("BoundHandler", (Handler,), {"state": state})
         self.state = state
-        self.httpd = ThreadingHTTPServer((host, port), handler)
-        self.httpd.daemon_threads = True
+        self.drain_grace_s = drain_grace_s
+        self.httpd = _HTTPServer((host, port), handler)
         self._thread: Optional[threading.Thread] = None
 
     @property
@@ -245,13 +766,29 @@ class Server:
         self._thread.start()
         return self
 
-    def serve_forever(self) -> None:
+    def serve_forever(self) -> bool:
+        """Serve until SIGTERM or SIGINT (from the main thread), then drain:
+        readiness fails first, in-flight streams finish (up to the grace:
+        drain_grace_s, else SUBSTRATUS_DRAIN_GRACE, else 30 s), then the
+        listener closes and the engine stops last. True when everything
+        drained within the grace."""
+        grace = self.drain_grace_s
+        if grace is None:
+            grace = float(os.environ.get("SUBSTRATUS_DRAIN_GRACE", 30))
+        stop = threading.Event()
+        previous = {sig: signal.signal(sig, lambda *_: stop.set()) for sig in (signal.SIGTERM, signal.SIGINT)}
         try:
-            self.httpd.serve_forever()
-        except KeyboardInterrupt:
-            pass
+            self.start()
+            while not stop.wait(0.5):
+                pass
+            clean = drain(self.state, grace_s=grace)
+            print(f"drained {'cleanly' if clean else 'at the deadline'} ({self.state.handlers} handlers still "
+                  "running)", flush=True)
         finally:
+            for sig, handler in previous.items():
+                signal.signal(sig, handler)
             self.stop()
+        return clean
 
     def stop(self) -> None:
         if self._thread is not None:
@@ -259,4 +796,5 @@ class Server:
             self._thread.join(timeout=10)
             self._thread = None
         self.httpd.server_close()
+        # The engine last: its scheduler must outlive every stream it feeds.
         self.state.engine.stop()

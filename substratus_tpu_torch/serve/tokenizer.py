@@ -4,8 +4,11 @@ substratus_tpu/serve/tokenizer.py).
 A checkpoint's tokenizer resolves as in the JAX package: the vocab a GGUF
 file embeds (load/gguf.py's GGUFTokenizer), then tokenizer files beside
 the weights (HFTokenizer, through transformers), then UTF-8 bytes
-(ByteTokenizer: tests and random-weight configs). The card's machine has
-no transformers: a directory whose tokenizer files need it exits there,
+(ByteTokenizer: tests and random-weight configs). A GGUF's chat template
+and an HF tokenizer's render /v1/chat/completions messages
+(apply_chat_template, encoded by encode_templated); bytes have none, and
+the server joins the messages into a generic transcript. The card's
+machine has no transformers: a directory whose tokenizer files need it exits there,
 naming the package, rather than serve bytes against a real vocabulary.
 """
 from __future__ import annotations
@@ -57,6 +60,18 @@ class HFTokenizer:
 
     def decode(self, ids: List[int]) -> str:
         return self._tok.decode(ids, skip_special_tokens=True)
+
+    def apply_chat_template(self, messages) -> Optional[str]:
+        """Rendered prompt, or None when the checkpoint ships no template
+        (callers fall back to the generic transcript)."""
+        if not getattr(self._tok, "chat_template", None):
+            return None
+        return self._tok.apply_chat_template(messages, tokenize=False, add_generation_prompt=True)
+
+    def encode_templated(self, text: str) -> List[int]:
+        """Encode a template-rendered prompt: the template already laid
+        down BOS and the special tokens, so none are added again."""
+        return self._tok.encode(text, add_special_tokens=False)
 
 
 def _has_hf_tokenizer(path: str) -> bool:

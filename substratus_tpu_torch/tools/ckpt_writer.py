@@ -211,12 +211,26 @@ def write_gguf(path: str, model: Llama, vocab: Optional[Dict[str, Any]] = None,
     return expected
 
 
-def spm_vocab(size: int = 32000, seed: int = 0, texts: Tuple[str, ...] = ()) -> Dict[str, Any]:
+# A Llama-2-style chat template (jinja, as GGUF files embed it in
+# tokenizer.chat_template): BOS, an optional <<SYS>> block, [INST] turns,
+# assistant turns closed by EOS; other roles raise through the renderer's
+# raise_exception helper.
+LLAMA2_CHAT_TEMPLATE = (
+    "{{ bos_token }}{% for message in messages %}"
+    "{% if message['role'] == 'system' %}<<SYS>>\n{{ message['content'] | trim }}\n<</SYS>>\n\n"
+    "{% elif message['role'] == 'user' %}[INST] {{ message['content'] | trim }} [/INST]"
+    "{% elif message['role'] == 'assistant' %} {{ message['content'] | trim }} {{ eos_token }}"
+    "{% else %}{{ raise_exception('roles are system, user and assistant') }}{% endif %}{% endfor %}"
+)
+
+
+def spm_vocab(size: int = 32000, seed: int = 0, texts: Tuple[str, ...] = (),
+              chat_template: Optional[str] = None) -> Dict[str, Any]:
     """An embedded SentencePiece vocabulary of `size` pieces: <unk>, <s>,
     </s>, the 256 <0xXX> byte pieces, then every prefix of "▁" + word for
     the words of `texts` and of a seeded corpus of syllable words, most
     frequent first (so the greedy merge reaches every such word), scored
-    by rank."""
+    by rank; with `chat_template`, that jinja template too."""
     if size < 300:
         raise ValueError(f"an SPM vocabulary of {size} pieces leaves no room beyond the 259 special and byte pieces")
     rng = random.Random(seed)
@@ -241,7 +255,8 @@ def spm_vocab(size: int = 32000, seed: int = 0, texts: Tuple[str, ...] = ()) -> 
             "tokenizer.ggml.scores": [0.0] * 259 + [-float(i) for i in range(n - 259)],
             "tokenizer.ggml.token_type": [2, 3, 3] + [6] * 256 + [1] * (n - 259),
             "tokenizer.ggml.bos_token_id": 1, "tokenizer.ggml.eos_token_id": 2,
-            "tokenizer.ggml.unknown_token_id": 0}
+            "tokenizer.ggml.unknown_token_id": 0,
+            **({"tokenizer.chat_template": chat_template} if chat_template else {})}
 
 
 def main(argv=None) -> int:

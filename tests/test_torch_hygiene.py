@@ -1,9 +1,11 @@
 """Import and device hygiene of the PyTorch port (substratus_tpu_torch/):
 
 * no module of the port, nor chip_smoke.py, imports jax or the JAX
-  package (substratus_tpu), even one that does not import jax, nor
-  transformers or safetensors at module level (the card's machine has
-  neither);
+  package (substratus_tpu), even one that does not import jax (the
+  serving surface's observability/ and gateway/ subpackages are the
+  port's own copies), nor aiohttp (the server is the standard library's),
+  nor transformers or safetensors at module level (the card's machine has
+  none of them);
 * every module imports without CUDA, nvcc or triton, and every module
   imports with transformers and safetensors unimportable;
 * the entry points run on cuda unless asked for the CPU, and raise here
@@ -55,8 +57,12 @@ def _module_level_imports(path: Path):
 
 def test_no_jax_and_no_jax_package():
     assert len(SOURCES) > 10
+    scanned = {str(path.relative_to(REPO)) for path in SOURCES}
+    for sub in ("observability/metrics.py", "observability/sketch.py", "observability/httpstats.py",
+                "gateway/loadreport.py", "gateway/limiter.py"):
+        assert f"substratus_tpu_torch/{sub}" in scanned
     bad = [f"{path.relative_to(REPO)}: imports {name}" for path in SOURCES for name in _imports(path)
-           if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "substratus_tpu")]
+           if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "substratus_tpu", "aiohttp")]
     assert not bad
     bad = [f"{path.relative_to(REPO)}: imports {name} at module level" for path in SOURCES
            for name in _module_level_imports(path) if name.split(".")[0] in ("transformers", "safetensors")]
@@ -68,6 +74,9 @@ def test_no_jax_and_no_jax_package():
 def test_every_module_imports_without_cuda():
     names = [m.name for m in pkgutil.walk_packages(substratus_tpu_torch.__path__, "substratus_tpu_torch.")]
     assert "substratus_tpu_torch.serve.server" in names and "substratus_tpu_torch.kernels" in names
+    assert {"substratus_tpu_torch.observability.metrics", "substratus_tpu_torch.observability.sketch",
+            "substratus_tpu_torch.observability.httpstats", "substratus_tpu_torch.gateway.loadreport",
+            "substratus_tpu_torch.gateway.limiter"} <= set(names)
     for name in names:
         importlib.import_module(name)
     from substratus_tpu_torch import kernels

@@ -16,6 +16,7 @@ has moved on), and stop() drains the step in flight. Sampled rows are
 held by their masked logits (the generators differ). Each test asserts
 the precondition it depends on.
 """
+import queue
 import threading
 
 import jax
@@ -80,21 +81,43 @@ def _collect(req):
     return toks, req.finish_reason
 
 
+class _SubmitAtSecondToken(queue.Queue):
+    """A token queue that calls `hook` once, on the scheduler thread, as
+    its second token is put: under overlap that is the drain of the first
+    step, with the next step already dispatched, so whatever `hook`
+    submits is admitted while a step holding this request is in flight,
+    whatever the host's load."""
+
+    def __init__(self, hook):
+        super().__init__()
+        self.hook, self.puts = hook, 0
+
+    def put(self, item, *args, **kw):
+        super().put(item, *args, **kw)
+        self.puts += 1
+        if self.puts == 2 and item is not None:
+            self.hook()
+
+
 def _serve(engine, req_cls, prompts, max_tokens, later=()):
     """Submit `prompts` before the scheduler starts (the first admission
-    boards as many as there are slots), then, once the first request has
-    its first token, the `later` prompts; returns [(tokens, finish)] in
-    submission order."""
-    reqs = [engine.submit(req_cls(list(p), max_tokens=n, temperature=0.0)) for p, n in zip(prompts, max_tokens)]
+    boards as many as there are slots), and the `later` prompts as the
+    first request's second token is put (_SubmitAtSecondToken); returns
+    [(tokens, finish)] in submission order."""
+    reqs = []
+
+    def submit_later():
+        reqs.extend(engine.submit(req_cls(list(p), max_tokens=n, temperature=0.0)) for p, n in later)
+
+    reqs += [engine.submit(req_cls(list(p), max_tokens=n, temperature=0.0,
+                                   **({"out": _SubmitAtSecondToken(submit_later)} if later and i == 0 else {})))
+             for i, (p, n) in enumerate(zip(prompts, max_tokens))]
+    n_all = len(prompts) + len(later)
     engine.start()
     try:
-        if later:
-            first = reqs[0].out.get(timeout=300)
-            reqs += [engine.submit(req_cls(list(p), max_tokens=n, temperature=0.0)) for p, n in later]
-        outs = [_collect(r) for r in reqs]
-        if later:
-            outs[0] = ([first] + outs[0][0], outs[0][1]) if first is not None else ([], outs[0][1])
-        return outs
+        outs = [_collect(reqs[0])]
+        assert len(reqs) == n_all, "the later prompts were never submitted"
+        return outs + [_collect(r) for r in reqs[1:]]
     finally:
         engine.stop()
 
