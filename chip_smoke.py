@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases card,build,serve-ckpt
     python3 chip_smoke.py --phases card,build,serve,serve-paged,profile
     python3 chip_smoke.py --phases card,build,serve-surface
+    python3 chip_smoke.py --phases card,build,kernels,serve-families
 
 Phases, each of which exits non-zero on failure:
 
@@ -202,6 +203,39 @@ Phases, each of which exits non-zero on failure:
               same gradient check over every weight, the launch counts,
               every weight unchanged by step 0 (rate 0) and changed by
               step 1;
+  serve-families
+              the OPT and Falcon families through the entry points: (a)
+              falcon-7b (seed 0, bf16, 71 query heads on one kv head)
+              written by tools/ckpt_writer.py as an HF Falcon directory
+              (the fused query_key_value per kv group) and served by
+              serve.main --model with examples/falcon-7b-instruct/
+              server.yaml's params (max_batch 16; the dense cache, which
+              auto resolves to for Falcon): 16 concurrent requests of
+              16-600 tokens (the 600 in two chunks), 32 tokens each, one
+              streamed, one at temperature 0.8; the loaded state bit for
+              bit the source's, the decode kernel launched 32 x decode
+              steps at G = 71 (the split design, 9 slices of 8 query
+              rows), the flash forward 32 x prefills at H = 71, KH = 1 and
+              the cached flash 32 x chunks (wgmma); every greedy token
+              held by the single-shot reference, the graph engine's
+              tokens the eager synchronous step's, the sampling and
+              sync-free checks of the serve phases; the load seconds, the
+              mean served step and, under torch.profiler, a full batch's
+              step and its device-busy share; (b) the quickstart:
+              opt-125m (seed 0) as an HF OPT directory, train.main with
+              examples/facebook-opt-125m/finetuned-model.yaml's params (10
+              steps, batch 2 x 256, LoRA r8) on a seeded token corpus, its
+              artifact served by serve.main --model: the merged weights
+              bit for bit, greedy tokens those of an in-process engine on
+              them and held by the reference; (c) falcon-7b LoRA through
+              train.main (r16 on wq/wv, batch 2 x 1024, remat, 2 steps):
+              the flash backward at G = 71, 32 dQ and 32 dK/dV launches a
+              step, finite losses, the merged artifact reloaded bit for
+              bit. The kernels phase holds the new head shapes too:
+              decode at falcon-7b's (B=16, bf16 and int8), falcon-40b's
+              (G = 16) and a group of 3, the fused decode at G = 71, the
+              flash forward at H = 71, KH = 1 and the backward at
+              falcon-7b's LoRA shape;
   profile     (only when named) host-clock prefill and decode-step times
               (the overlapped graph replays) and, under torch.profiler,
               their device busy time and top kernels, after serve
@@ -221,7 +255,7 @@ Phases, each of which exits non-zero on failure:
 
 The line before the last is one JSON object with every kernel's numbers
 (launches from the serve or train phase whose path runs the kernel, with
-serve-spec's and serve-surface's beside; the
+serve-spec's, serve-surface's and serve-families' beside; the
 int4 matmul's three designs are three entries, q4_matmul.cu's with no
 launch on the main path, and the cached flash's int8 route another); the
 last line
@@ -233,6 +267,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import math
 import queue
 import random
 import shutil
@@ -444,7 +479,8 @@ def decode_case(gen, b, s, h, kh, int8, positions, d=128, compare=False):
 
     from substratus_tpu_torch import kernels
     from substratus_tpu_torch.ops.decode_attention import decode_attention, decode_attention_plain
-    from substratus_tpu_torch.ops.fused_decode import decode_design, decode_split_plan, sm_count, split_workspace
+    from substratus_tpu_torch.ops.fused_decode import (
+        decode_design, decode_split_plan, group_slices, sm_count, split_workspace)
     from substratus_tpu_torch.ops.quant import quantize_kv
 
     dev = "cuda"
@@ -474,7 +510,7 @@ def decode_case(gen, b, s, h, kh, int8, positions, d=128, compare=False):
         fail(f"{label}: a slot before the cache (pos < 0) is not exactly 0")
     # The planted fault: each slot without its last live split (rows from
     # cut on), i.e. attending rows 0..cut-1.
-    n_split, rows = decode_split_plan(s, b * kh, sm_count(0))
+    n_split, rows = decode_split_plan(s, b * kh * group_slices(h // kh)[1], sm_count(0))
     live = [0 if p < 0 else min(p + 1, s) for p in positions]
     cut = torch.tensor([rows * ((n - 1) // rows) - 1 if n else -1 for n in live], dtype=torch.int32, device=dev)
     fault = row_rel_err(decode_attention_plain(q, k, v, cut, ks, vs), ref)
@@ -621,8 +657,8 @@ def fused_case(gen, h, kh, int8, positions, b=8, s=4096, d=128, compare=False):
     from substratus_tpu_torch import kernels
     from substratus_tpu_torch.ops.decode_attention import _write_rows, decode_attention, decode_attention_plain
     from substratus_tpu_torch.ops.fused_decode import (
-        decode_design, decode_split_plan, fused_decode_attention, fused_decode_attention_plain, sm_count,
-        split_workspace)
+        decode_design, decode_split_plan, fused_decode_attention, fused_decode_attention_plain, group_slices,
+        sm_count, split_workspace)
     from substratus_tpu_torch.ops.quant import quantize_kv
 
     dev = "cuda"
@@ -658,7 +694,7 @@ def fused_case(gen, h, kh, int8, positions, b=8, s=4096, d=128, compare=False):
     # The planted fault: each slot's history without its last live split
     # (rows from cut on): the current token placed at row cut of a copy and
     # attended with rows 0..cut-1 by the plain decode attention.
-    n_split, split_rows = decode_split_plan(s, b * kh, sm_count(0))
+    n_split, split_rows = decode_split_plan(s, b * kh * group_slices(h // kh)[1], sm_count(0))
     cut = torch.tensor([split_rows * ((p - 1) // split_rows) if p > 0 else 0 for p in positions], device=dev)
     at_cut = (rows[0], rows[1], cut[:, None])
     kf, vf = kp.clone(), vp.clone()
@@ -926,6 +962,7 @@ def kernel_phase():
         flash_case(gen, 1, 512, 32, 8, True),  # llama3-8b heads (GQA 4)
         flash_case(gen, 1, 384, 32, 32, False),
         flash_case(gen, 8, 1024, 32, 4, True, d=64),  # tinyllama's heads in training
+        flash_case(gen, 1, 512, 71, 1, True, d=64),  # falcon-7b's heads (MQA, G = 71), a 512-token bucket
     ]
     positions = [0, 1, 17, 255, 511, 700, 1000, 1023]
     decode = [
@@ -938,6 +975,12 @@ def kernel_phase():
         # serve-int4's cache length (two splits): at and around the first
         # split's end, before the cache and past it
         decode_case(gen, 8, 2048, 32, 32, False, [-1, 0, 1023, 1024, 1025, 1500, 2047, 3000]),
+        # falcon-7b's heads (G = 71: nine slices of 8 rows) at its example's
+        # max_batch 16, bf16 and int8; falcon-40b's (G = 16); a group of 3
+        decode_case(gen, 16, 1024, 71, 1, False, positions * 2, d=64),
+        decode_case(gen, 16, 1024, 71, 1, True, positions * 2, d=64),
+        decode_case(gen, 8, 1024, 128, 8, False, positions, d=64),
+        decode_case(gen, 8, 1024, 12, 4, False, positions),
     ]
     cached = [
         cached_case(gen, 32, 32, False, compare=True),  # llama2-7b, the fifth chunk of a long prompt
@@ -962,6 +1005,7 @@ def kernel_phase():
         fused_case(gen, 32, 8, False, spread, compare=True),  # llama3-8b heads (GQA 4)
         fused_case(gen, 32, 8, True, spread, compare=True),
         fused_case(gen, 32, 32, False, [4000], b=1, compare=True),  # one long conversation
+        fused_case(gen, 71, 1, False, [0, 1, 17, 255, 511, 700, 1000, 1023] * 2, b=16, s=1024, d=64),  # G = 71
     ]
     q4 = [  # the first case of each design is its main-path shape (q4_matmul.cu's: off the main path)
         q4_case(gen, 8, 11008, compare=True),  # llama2-7b w_gate/w_up at B=8
@@ -991,6 +1035,7 @@ def kernel_phase():
         bwd_case(gen, 2, 384, 32, 32, False),
         bwd_case(gen, 8, 1024, 32, 4, True, d=64),  # tinyllama's heads
         bwd_case(gen, 2, 1024, 32, 32, True, d=32),  # the mma design (head_dim 16 and 32)
+        bwd_case(gen, 2, 1024, 71, 1, True, d=64),  # falcon-7b's LoRA step: dK/dV summed over 71 heads
     ]
     report = {"flash_fwd": flash, "decode_attn": decode, "flash_cached": cached, "flash_cached_int8": cached_int8,
               "fused_decode": fused,
@@ -1272,10 +1317,17 @@ def profile_engine(engine, label: str = "profile", lens=(16, 400), fill: int = 1
     return out
 
 
-def start_server(name: str, params: dict, argv=()):
+# (dim, layers, heads, kv heads, vocabulary) of the full-width models served.
+LLAMA2_7B = ("llama2-7b", (4096, 32, 32, 32, 32000))
+FALCON_7B = ("falcon-7b", (4544, 32, 71, 1, 65024))
+OPT_125M = ("opt-125m", (768, 12, 12, 12, 50272))
+
+
+def start_server(name: str, params: dict, argv=(), model=LLAMA2_7B):
     """serve.main's server in-process from a params.json (and `argv`), at
-    llama2-7b's full width and depth, answering GET / and warmed up by one
-    request. Returns (server, engine, base URL)."""
+    the full width and depth of `model` (llama2-7b unless named), answering
+    GET / and warmed up by one request. Returns (server, engine, base
+    URL)."""
     import torch
 
     from substratus_tpu_torch.serve import main as serve_main
@@ -1288,11 +1340,11 @@ def start_server(name: str, params: dict, argv=()):
     engine = server.state.engine
     torch.cuda.synchronize()
     cfg = engine.cfg
-    if (cfg.dim, cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.vocab_size) != (4096, 32, 32, 32, 32000):
-        fail(f"not llama2-7b at full width and depth: {cfg}")
+    if (cfg.dim, cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.vocab_size) != model[1]:
+        fail(f"not {model[0]} at full width and depth: {cfg}")
     server.start()
     base = f"http://127.0.0.1:{server.port}"
-    print(f"{name}: llama2-7b built in {time.perf_counter() - t0:.1f} s "
+    print(f"{name}: {model[0]} built in {time.perf_counter() - t0:.1f} s "
           f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card)", flush=True)
     if (status := http(base, "/", timeout=60)[0]) != 200:
         fail(f"GET / -> {status}")
@@ -1449,7 +1501,6 @@ def graph_checks(engine, requests, label: str) -> dict:
     import numpy as np
     import torch
 
-    from substratus_tpu_torch.models import llama
     from substratus_tpu_torch.ops.sampling import masked_logits
     from substratus_tpu_torch.serve.engine import Request
 
@@ -1457,7 +1508,7 @@ def graph_checks(engine, requests, label: str) -> dict:
     for req in sampled:
         prompt, toks = engine.clipped_prompt(req.prompt_tokens), req.out.tokens
         with torch.inference_mode():
-            logits, _ = llama.forward(engine.params, torch.tensor([prompt + toks[:-1]], device=engine.device),
+            logits, _ = engine.model.forward(engine.params, torch.tensor([prompt + toks[:-1]], device=engine.device),
                                       engine.cfg)
         n = len(toks)
         masked = masked_logits(logits[0, len(prompt) - 1:], torch.full((n,), req.temperature, device=engine.device),
@@ -1623,17 +1674,15 @@ def long_reference_check(engine, requests, label: str = "serve-long", quiet: boo
     """Each served greedy token (chunked prefill + fused decode) within 5%
     of the logit scale of the best logit of one teacher-forced single-shot
     forward (flash prefill, no cache) over prompt + served tokens, on the
-    engine's own weights. quiet: one line for all requests."""
+    engine's own weights and family. quiet: one line for all requests."""
     import torch
-
-    from substratus_tpu_torch.models import llama
 
     out = []
     for req in requests:
         prompt, toks = engine.clipped_prompt(req.prompt_tokens), req.out.tokens
         seq = torch.tensor([prompt + toks[:-1]], device=engine.device)
         with torch.inference_mode():
-            logits, _ = llama.forward(engine.params, seq, engine.cfg)
+            logits, _ = engine.model.forward(engine.params, seq, engine.cfg)
         logits = logits[0, len(prompt) - 1:]
         if not torch.isfinite(logits).all():
             fail(f"{label}: non-finite logits in the reference of a {len(prompt)}-token prompt")
@@ -3693,10 +3742,267 @@ def train_full_phase(card: str, profile_steps: bool = False) -> dict:
             "profile": profiled, **stats}
 
 
+# --- serve-families: OPT and Falcon at full width ----------------------------
+
+# examples/falcon-7b-instruct/server.yaml's params (max_batch 16; the rest
+# serve.main's defaults: max_seq_len 1024, max_prefill_len 512, the dense
+# cache, which auto resolves to for Falcon). 16 concurrent requests of
+# 16-400 tokens and one of 600 (two chunks), 32 tokens each, one streamed,
+# one at temperature 0.8 (ByteTokenizer ids: 1 + bytes).
+FAMILY_PARAMS = {"max_batch": 16}
+FAMILY_LENS = (16, 24, 40, 64, 100, 128, 160, 200, 240, 256, 300, 333, 360, 380, 400, 600)
+FAMILY_PROMPTS = [(_long_text(n - 1, 40 + i), 32, 0.8 if i == 3 else 0.0, i == 1) for i, n in enumerate(FAMILY_LENS)]
+# examples/facebook-opt-125m/finetuned-model.yaml's params.
+OPT_TRAIN_PARAMS = {"steps": 10, "batch_size": 2, "seq_len": 256, "lora_rank": 8}
+# The finetune example's LoRA (r16 on wq/wv, remat) on falcon-7b, two steps
+# of batch 2 x 1024.
+FALCON_TRAIN_PARAMS = {"config": "falcon-7b", "steps": 2, "batch_size": 2, "seq_len": 1024, "lora_rank": 16,
+                       "lora_alpha": 16, "learning_rate": 2e-4, "save_steps": 2, "remat": True, "seed": 0}
+
+
+def _serving_counters():
+    from substratus_tpu_torch.ops.decode_attention import decode_attention
+    from substratus_tpu_torch.ops.flash_attention import flash_attention, flash_cached_attention
+
+    return flash_attention, flash_cached_attention, decode_attention
+
+
+def _serving_launches(engine) -> dict:
+    flash, cached, decode = _serving_counters()
+    return {"flash_fwd": launched(engine, flash), "flash_fwd_wgmma": launched(engine, flash, "launches_wgmma"),
+            "flash_cached": launched(engine, cached), "flash_cached_wgmma": launched(engine, cached, "launches_wgmma"),
+            "decode_attn": launched(engine, decode), "decode_attn_split": launched(engine, decode, "launches_split")}
+
+
+def _check_serving_launches(launches: dict, stats: dict, n_layers: int, label: str) -> None:
+    """The flash forward once a layer per single-shot prefill, the cached
+    flash per chunk and the decode kernel per decode step, each all of the
+    design at head_dim 64 (wgmma, split)."""
+    want = {"flash_fwd": n_layers * stats["prefills"], "flash_cached": n_layers * stats["prefill_chunks"],
+            "decode_attn": n_layers * stats["decode_steps"]}
+    want.update(flash_fwd_wgmma=want["flash_fwd"], flash_cached_wgmma=want["flash_cached"],
+                decode_attn_split=want["decode_attn"])
+    if launches != want or not launches["flash_fwd"] or not launches["decode_attn"]:
+        fail(f"{label}: launches {launches}, want {want} ({stats['prefills']} prefills, {stats['prefill_chunks']} "
+             f"chunks, {stats['decode_steps']} decode steps)")
+
+
+def _token_corpus(path: Path, vocab: int, n: int) -> None:
+    import numpy as np
+
+    path.mkdir(parents=True, exist_ok=True)
+    np.save(path / "corpus.npy", np.random.default_rng(0).integers(0, vocab, n, dtype=np.int32))
+
+
+def families_falcon_serve(card: str, tmp: Path) -> dict:
+    """(a) falcon-7b (seed 0, bf16) written by tools/ckpt_writer.py as an HF
+    Falcon directory (the fused query_key_value per kv group) and served
+    through serve.main --model with the example's params."""
+    import torch
+
+    from substratus_tpu_torch.models import falcon
+    from substratus_tpu_torch.tools.ckpt_writer import write_hf
+
+    label = "serve-families falcon-7b"
+    cfg = falcon.CONFIGS["falcon-7b"]
+    source = falcon.init_params(cfg, seed=0, device="cuda")
+    nbytes = sum(t.numel() * t.element_size() for t in source.state_dict().values())
+    disk_room(tmp, nbytes, label)
+    t0 = time.perf_counter()
+    written = write_hf(str(tmp / "falcon-7b"), source)
+    write_s = time.perf_counter() - t0
+    config = json.loads((tmp / "falcon-7b" / "config.json").read_text())
+    print(f"{label}: written as {len(written['files'])} safetensors shards, {written['bytes']} bytes in "
+          f"{write_s:.1f} s; config.json model_type {config['model_type']}, multi_query {config['multi_query']}",
+          flush=True)
+    loads, restore = timed_loads()
+    try:
+        server, engine, base = start_server("serve-families-falcon", FAMILY_PARAMS,
+                                            ["--model", str(tmp / "falcon-7b")], model=FALCON_7B)
+    finally:
+        restore()
+    requests = tee_requests(engine)
+    try:
+        compared = same_state(engine.params, source, label)
+        del source
+        if engine.paged or engine.ec.max_batch != 16 or type(engine.cfg) is not falcon.FalconConfig:
+            fail(f"{label}: not the dense cache at max_batch 16: paged={engine.paged}, {engine.ec}")
+        zero_counts(engine, _serving_counters())
+        results, wall = run_concurrent(base, FAMILY_PROMPTS)
+        wait_idle(engine)
+        launches = _serving_launches(engine)
+        stats = dict(engine.stats)
+        del engine.submit
+    finally:
+        server.stop()
+    shutil.rmtree(tmp / "falcon-7b", ignore_errors=True)
+    generated = check_usage(FAMILY_PROMPTS, results)
+    check_graph_run(engine, stats, label)
+    _check_serving_launches(launches, stats, cfg.n_layers, label)
+    if stats["prefill_chunks"] != 2 or stats["prefills"] != len(FAMILY_PROMPTS) - 1:
+        fail(f"{label}: {stats['prefills']} prefills and {stats['prefill_chunks']} chunks, want 15 and 2")
+    step_ms = 1e3 * stats["decode_seconds"] / stats["decode_steps"]
+    decode_tps = (generated - len(FAMILY_PROMPTS)) / stats["decode_seconds"]
+    print(f"{label}: {len(FAMILY_PROMPTS)} concurrent requests, {generated} tokens in {wall:.2f} s; "
+          f"{stats['prefills']} prefills, {stats['prefill_chunks']} chunks, {stats['decode_steps']} decode steps; "
+          f"launches {launches}: the decode kernel at G = 71 (csrc/decode_split.cu, 9 slices of 8 query rows) "
+          f"{launches['decode_attn_split']} times, the flash forward at H = 71, KH = 1 {launches['flash_fwd_wgmma']} "
+          f"times", flush=True)
+    reference = long_reference_check(engine, [r for r in requests if r.temperature == 0.0], label, quiet=True)
+    eager = eager_check(engine, requests, label)
+    graph = graph_checks(engine, requests, label)
+    profiled = profile_engine(engine, label, lens=(16, 400))
+    busy = profiled["decode"]["device_busy_ms"] / profiled["decode_step_ms"]
+    gb_s = written["bytes"] / loads[0] / 1e9
+    prefill_ms = 1e3 * stats["prefill_seconds"] / (stats["prefills"] + stats["prefill_chunks"])
+    print(f"{label} [{card}]: loaded {written['bytes']} bytes in {loads[0]:.2f} s ({gb_s:.2f} GB/s), {compared} "
+          f"bytes bit for bit the source's; mean prefill {prefill_ms:.1f} ms a forward; mean decode step "
+          f"{step_ms:.2f} ms at up to 16 slots, decode {decode_tps:.1f} tokens/s; a full batch's step "
+          f"{profiled['decode_step_ms']:.2f} ms, device busy {profiled['decode']['device_busy_ms']:.2f} ms "
+          f"({100 * busy:.1f}%)", flush=True)
+    del engine, server
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"bytes": written["bytes"], "write_s": write_s, "load_s": loads[0], "launches": launches, "stats": stats,
+            "generated": generated, "wall_s": wall, "step_ms": step_ms, "decode_tokens_per_s": decode_tps,
+            "reference": reference, "eager_sync": eager, "graph": graph, "profile": profiled, "busy_share": busy}
+
+
+def families_opt_quickstart(card: str, tmp: Path) -> dict:
+    """(b) The reference's quickstart: opt-125m (seed 0) written as an HF OPT
+    directory, finetuned by train.main with the example's params on a
+    seeded token corpus, its artifact served through serve.main --model."""
+    import torch
+
+    from substratus_tpu_torch.models import opt
+    from substratus_tpu_torch.tools.ckpt_writer import write_hf
+    from substratus_tpu_torch.train import main as train_main
+
+    label = "serve-families opt-125m"
+    cfg = opt.CONFIGS["opt-125m"]
+    write_hf(str(tmp / "opt-125m"), opt.init_params(cfg, seed=0, device="cuda"))
+    _token_corpus(tmp / "opt-data", cfg.vocab_size, 200_000)
+    params_path = tmp / "opt-train.json"
+    params_path.write_text(json.dumps(OPT_TRAIN_PARAMS))
+    _zero_train_counts()
+    t0 = time.perf_counter()
+    res = train_main.run(["--model", str(tmp / "opt-125m"), "--data", str(tmp / "opt-data"), "--out",
+                          str(tmp / "opt-out"), "--params", str(params_path)])
+    train_s = time.perf_counter() - t0
+    train_launches = _train_launches()
+    n, L = len(res["losses"]), cfg.n_layers
+    want = {"flash_fwd": 2 * L * n, "flash_fwd_all": 2 * L * n, "flash_bwd_dq": L * n, "flash_bwd_dq_all": L * n,
+            "flash_bwd_dkv": L * n, "flash_bwd_dkv_all": L * n}
+    if n != OPT_TRAIN_PARAMS["steps"] or train_launches != want or not all(map(math.isfinite, res["losses"])):
+        fail(f"{label}: {n} steps, losses {res['losses']}, launches {train_launches} (want {want})")
+    merged = res["merged"]
+    loads, restore = timed_loads()
+    try:
+        server, engine, base = start_server("serve-families-opt", {"max_batch": 8},
+                                            ["--model", str(tmp / "opt-out")], model=OPT_125M)
+    finally:
+        restore()
+    requests = tee_requests(engine)
+    try:
+        same_state(engine.params, merged, f"{label} artifact")
+        zero_counts(engine, _serving_counters())
+        results, wall = run_concurrent(base, PROMPTS)
+        wait_idle(engine)
+        launches = _serving_launches(engine)
+        stats = dict(engine.stats)
+        del engine.submit
+        same = eager_check(engine, requests, label, params=merged)
+        reference = long_reference_check(engine, [r for r in requests if r.temperature == 0.0], label, quiet=True)
+    finally:
+        server.stop()
+    generated = check_usage(PROMPTS, results)
+    _check_serving_launches(launches, stats, L, label)
+    print(f"{label} [{card}]: train.main {n} steps of batch 2 x 256 (LoRA r8) in {train_s:.1f} s, losses "
+          f"{[round(x, 4) for x in res['losses']]}, launches {train_launches}; the artifact served in "
+          f"{loads[0]:.2f} s of load, {generated} tokens for {len(PROMPTS)} requests in {wall:.2f} s, launches "
+          f"{launches}", flush=True)
+    del engine, server, res, merged
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"train_s": train_s, "train_launches": train_launches, "launches": launches, "stats": stats,
+            "same_as_merged": same, "reference": reference, "load_s": loads[0]}
+
+
+def families_falcon_lora(card: str, tmp: Path) -> dict:
+    """(c) falcon-7b LoRA through train.main: the flash backward at G = 71
+    (dK/dV summed over the 71 query heads of the one kv head), the loss
+    finite, the merged artifact loads."""
+    import torch
+
+    from substratus_tpu_torch.models import falcon
+    from substratus_tpu_torch.train import main as train_main
+    from substratus_tpu_torch.train.checkpoints import load_artifact
+
+    label = "serve-families falcon-7b LoRA"
+    cfg = falcon.CONFIGS["falcon-7b"]
+    _token_corpus(tmp / "falcon-data", cfg.vocab_size, 200_000)
+    params_path = tmp / "falcon-train.json"
+    params_path.write_text(json.dumps(FALCON_TRAIN_PARAMS))
+    disk_room(tmp, 14 * 10**9, label)
+    _zero_train_counts()
+    torch.cuda.reset_peak_memory_stats()
+    res = train_main.run(["--data", str(tmp / "falcon-data"), "--out", str(tmp / "falcon-out"), "--params",
+                          str(params_path)])
+    peak = torch.cuda.max_memory_allocated()
+    train_launches = _train_launches()
+    n, L = len(res["losses"]), cfg.n_layers
+    want = {"flash_fwd": 2 * L * n, "flash_fwd_all": 2 * L * n, "flash_bwd_dq": L * n, "flash_bwd_dq_all": L * n,
+            "flash_bwd_dkv": L * n, "flash_bwd_dkv_all": L * n}
+    if n != 2 or train_launches != want or not all(map(math.isfinite, res["losses"])):
+        fail(f"{label}: {n} steps, losses {res['losses']}, launches {train_launches} (want {want})")
+    t0 = time.perf_counter()
+    cfg2, model = load_artifact(str(tmp / "falcon-out"))
+    load_s = time.perf_counter() - t0
+    if cfg2 != res["cfg"] or type(model) is not falcon.Falcon:
+        fail(f"{label}: the artifact loads as {type(model).__name__} {cfg2}")
+    same_state(model, res["merged"], f"{label} artifact")
+    print(f"{label} [{card}]: train.main 2 steps of batch 2 x 1024 (r16 on wq/wv, remat): losses {res['losses']}, "
+          f"step {res['step_seconds']} s, peak {peak / 2**30:.1f} GiB, launches {train_launches}; the merged "
+          f"artifact written in {res['artifact_seconds']:.1f} s, loaded in {load_s:.1f} s, bit for bit", flush=True)
+    del model, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"train_launches": train_launches, "peak_bytes": peak, "artifact_load_s": load_s}
+
+
+def serve_families_phase(card: str) -> dict:
+    """OPT and Falcon through the entry points at full width: (a) falcon-7b
+    served, (b) the opt-125m quickstart, (c) a falcon-7b LoRA step (module
+    docstring). Everything written lives in a temporary directory removed
+    at the end."""
+    import tempfile
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_families_"))
+    try:
+        served = families_falcon_serve(card, tmp)
+        quickstart = families_opt_quickstart(card, tmp)
+        lora = families_falcon_lora(card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    a, b, c = served["launches"], quickstart, lora["train_launches"]
+    launches = {"flash_fwd_wgmma": a["flash_fwd_wgmma"] + b["launches"]["flash_fwd_wgmma"]
+                + b["train_launches"]["flash_fwd"] + c["flash_fwd"],
+                "decode_attn_split": a["decode_attn_split"] + b["launches"]["decode_attn_split"],
+                "flash_cached_wgmma": a["flash_cached_wgmma"] + b["launches"]["flash_cached_wgmma"],
+                "flash_bwd_dq": b["train_launches"]["flash_bwd_dq"] + c["flash_bwd_dq"],
+                "flash_bwd_dkv": b["train_launches"]["flash_bwd_dkv"] + c["flash_bwd_dkv"]}
+    print(f"serve-families: launches over its three legs {launches}", flush=True)
+    return {"falcon_serve": served, "opt_quickstart": quickstart, "falcon_lora": lora, "launches": launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default="card,build,kernels,serve,serve-long,serve-int4,serve-paged,serve-spec,"
-                                        "serve-ckpt,serve-surface,train,train-full")
+                                        "serve-ckpt,serve-surface,train,train-full,serve-families")
     phases = ap.parse_args().phases.split(",")
     t_start = time.perf_counter()
 
@@ -3740,6 +4046,8 @@ def main() -> int:
         report["train"] = train_phase(card, profile_steps="profile" in phases)
     if "train-full" in phases:
         report["train-full"] = train_full_phase(card, profile_steps="profile" in phases)
+    if "serve-families" in phases:
+        report["serve-families"] = serve_families_phase(card)
     report["wall_s"] = time.perf_counter() - t_start
     print(f"chip_smoke: phases {','.join(phases)} in {report['wall_s']:.1f} s", flush=True)
     OUT_DIR.mkdir(exist_ok=True)
@@ -3783,6 +4091,8 @@ def main() -> int:
         # its own count.
         spec_launches_of = report.get("serve-spec", {}).get("launches", {})
         surface_launches_of = report.get("serve-surface", {}).get("launches", {})
+        # serve-families' (OPT and Falcon; falcon-7b's decode at G = 71).
+        families_launches_of = report.get("serve-families", {}).get("launches", {})
         line = []
         for name, cases in report["kernels"].items():
             main_case = cases[0]  # the main path's shape
@@ -3791,6 +4101,7 @@ def main() -> int:
                 "launches": report.get(phase_of[name][0], {}).get("launches", {}).get(phase_of[name][1], 0),
                 "launches_serve_spec": spec_launches_of.get(phase_of[name][1]),
                 "launches_serve_surface": surface_launches_of.get(phase_of[name][1]),
+                "launches_serve_families": families_launches_of.get(phase_of[name][1]),
                 "max_abs_err": main_case["max_abs_err"], "ms": main_case["ms"],
                 "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
                 "bound_by": main_case["bound_by"], "library_ms": main_case["library_ms"],

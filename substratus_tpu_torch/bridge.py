@@ -1,13 +1,16 @@
 """Carry weights from the JAX package's parameter tree into the port.
 
-``params_from_jax`` carries the model's weights: it takes the llama
-params pytree with numpy (or numpy-convertible) leaves -- per-layer
-weights stacked on a leading L axis -- and returns the port's
-``state_dict`` for ``models.llama.Llama.load_state_dict``. It needs no
-JAX: leaves go through ``numpy.asarray``.
+``params_from_jax`` carries the model's weights: it takes a family's
+params pytree with numpy (or numpy-convertible) leaves -- top-level
+leaves beside ``layers``, whose per-layer weights are stacked on a
+leading L axis -- and returns the port's ``state_dict`` for the family's
+module (``models.llama.Llama``, ``models.opt.OPT``,
+``models.falcon.Falcon``): the three trees share that shape and their
+names, so one mapping serves every family. It needs no JAX: leaves go
+through ``numpy.asarray``.
 
-``lora_from_jax`` does the same for the trainer's LoRA adapters: the
-state_dict of ``train.lora.LoraAdapters``.
+``lora_from_jax`` does the same for the trainer's LoRA adapters, whose
+layout every family shares: the state_dict of ``train.lora.LoraAdapters``.
 
 Quantized leaves carry over as they are: an int4 ``Q4Tensor`` as its
 ``packed`` bytes, ``scale`` and (as the module's extra state) its
@@ -44,13 +47,14 @@ def _entries(leaf: Any) -> Dict[str, Any]:
 
 
 def params_from_jax(tree: Dict[str, Any]) -> Dict[str, Any]:
-    """JAX llama params {tok_embed, layers: {name: [L, ...]}, out_norm[,
-    lm_head]} -> {"tok_embed", "layers.{i}.{name}[.buffer]", "out_norm"[,
-    "lm_head[.buffer]"]}."""
+    """JAX params {name: leaf, ..., layers: {name: [L, ...]}} of any family
+    (llama: tok_embed, out_norm[, lm_head]; opt: tok_embed, pos_embed,
+    final_ln_scale, final_ln_bias; falcon: the same without pos_embed) ->
+    {"{name}[.buffer]", "layers.{i}.{name}[.buffer]"}."""
     state: Dict[str, Any] = {}
-    for name in ("tok_embed", "out_norm", "lm_head"):
-        if name in tree:
-            state.update({name + suffix: v for suffix, v in _entries(tree[name]).items()})
+    for name, leaf in tree.items():
+        if name != "layers":
+            state.update({name + suffix: v for suffix, v in _entries(leaf).items()})
     for name, stacked in tree["layers"].items():
         entries = _entries(stacked)
         n_layers = next(v.shape[0] for v in entries.values() if isinstance(v, torch.Tensor))

@@ -1,7 +1,8 @@
 // Single-token decode attention, and the fused cache write + decode
 // attention, over the dense slot cache (bf16 or int8), split over blocks
 // along S (flash-decoding), for Hopper (sm_90a). One kernel template
-// serves both: decode_split_kernel<TC, D, G, FUSED>.
+// serves both: decode_split_kernel<TC, D, G, FUSED>, where G is the query
+// rows a block serves (1, 2, 4 or 8; below).
 //
 // Replaces the TPU kernels substratus_tpu/ops/decode_attention.py _kernel
 // (FUSED = false: row b attends cache rows 0..pos[b], none when
@@ -25,14 +26,22 @@
 // parallel blocks and a combine.
 //
 // Design.
-// - Grid (B * KH, n_split): block (head, split) reads rows [split * rows,
-//   (split + 1) * rows) of one kv head, clipped to the slot's limit (pos
-//   for decode, pos - 1 for the fused kernel's strict history), and
-//   serves all G = H / KH query rows of the group, so each cache tile is
-//   read once per kv head. n_split and rows come from the shapes and the
-//   SM count alone (ops/fused_decode.py::decode_split_plan): no position
-//   is read on the host. A block whose rows begin past the limit exits at
-//   once.
+// - Grid (B * KH, n_split, n_slice): block (head, split, slice) reads
+//   rows [split * rows, (split + 1) * rows) of one kv head, clipped to the
+//   slot's limit (pos for decode, pos - 1 for the fused kernel's strict
+//   history), and serves G query rows of the group of H / KH: the whole
+//   group when it has 1, 2, 4 or 8 rows (n_slice = 1, so each cache tile
+//   is read once per kv head), else slices of G = 8 rows (G = 4 or 8 for
+//   a group of 3 or 5-7), the last one masked: falcon-7b's 71 rows on its
+//   one kv head are 9 slices, the ninth of 7 rows. Each slice keeps the
+//   registers and shared memory of a group of 8 (qr[G][VEC], acc[G][CPL],
+//   the [G][T] scores) and reads its kv head's tiles again; after the
+//   first slice those reads mostly hit L2 (falcon-7b's cache at B = 16, S
+//   = 1024 is 4.2 MB a layer). A masked row's query is 0 and its output
+//   is never written. n_split and rows come from the shapes and the SM
+//   count alone (ops/fused_decode.py::decode_split_plan, over B * KH *
+//   n_slice blocks): no position is read on the host. A block whose rows
+//   begin past the limit exits at once.
 // - A ring of NW * RING = 8 tile stages in shared memory, each of the NW
 //   = 8 warps a pipeline of its own over the block's 32-row tiles w,
 //   w + NW, ... through its RING = 1 stage: each tile one contiguous span
@@ -56,15 +65,15 @@
 //   score, v_scale folds into p. PV: D/32 columns a lane, p broadcast
 //   from shared memory, f32 throughout.
 // - The warps' states merge in shared memory. With n_split = 1 the block
-//   writes o; otherwise it writes f32 (acc[D], m, l) for its G rows to the
-//   workspace `ws` [B * KH, n_split, G, D + 2] (allocated by the caller)
-//   and a second launch, decode_combine_kernel, merges the live splits
-//   of each (slot, kv head) and writes o. A second launch was chosen over
+//   writes o; otherwise it writes f32 (acc[D], m, l) for its live rows to
+//   the workspace `ws` [B * KH, n_split, H / KH, D + 2] (allocated by the
+//   caller) and a second launch, decode_combine_kernel, merges the live
+//   splits of each (slot, kv head, slice) and writes o. A second launch was chosen over
 //   a last-block counter: it needs no zeroed counter kept between calls
 //   (the C side allocates nothing) and holds no state a CUDA graph replay
 //   would have to find reset.
-// - Fused: split 0's block copies the fresh k and v rows into row pos
-//   before anything else; no block reads row pos, so no ordering across
+// - Fused: the block of split 0 and slice 0 copies the fresh k and v rows
+//   into row pos before anything else; no block reads row pos, so no ordering across
 //   blocks is needed. The current token's score and value enter where o
 //   is written (the combine, or the single split), scaled by new_ks and
 //   new_vs for int8; pos = 0 attends to the current token alone.
@@ -95,8 +104,9 @@ struct Args {
   const float* nvs;
   const int* pos;          // [B]
   __nv_bfloat16* o;        // [B, H, D]
-  float* ws;               // n_split > 1: [B * KH, n_split, G, D + 2]
+  float* ws;               // n_split > 1: [B * KH, n_split, group, D + 2]
   int KH, S, rows, n_split;
+  int group;  // H / KH query rows a kv head (a block serves G of them)
   float scale;
 };
 
@@ -201,15 +211,17 @@ __device__ __forceinline__ void reduce_scatter(float (&x)[N], int lane) {
   }
 }
 
-// The current token's score for each query row of the group, into cur[G]
-// (fused only): warp w takes rows w, w + nw, ...; ends with __syncthreads().
+// The current token's score for each of the block's n_rows live query
+// rows, from row q0 of q, into cur[G] (fused only): warp w takes rows w,
+// w + nw, ...; ends with __syncthreads().
 template <typename TC, int D, int G>
-__device__ __forceinline__ void current_scores(const Args& a, int head, int nw, float* cur) {
+__device__ __forceinline__ void current_scores(const Args& a, int head, size_t q0, int n_rows, int nw,
+                                               float* cur) {
   constexpr bool kQuant = sizeof(TC) == 1;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const TC* nk = static_cast<const TC*>(a.nk) + (size_t)head * D;
-  for (int g = warp; g < G; g += nw) {
-    const __nv_bfloat16* qg = a.q + ((size_t)head * G + g) * D;
+  for (int g = warp; g < n_rows; g += nw) {
+    const __nv_bfloat16* qg = a.q + (q0 + g) * D;
     float dot = 0.f;
     for (int d = lane; d < D; d += 32) dot += __bfloat162float(qg[d]) * a.scale * to_float(nk[d]);
 #pragma unroll
@@ -267,6 +279,9 @@ __global__ void __launch_bounds__(NW * 32) decode_split_kernel(const Args a) {
 
   const int head = blockIdx.x;  // b * KH + kv head
   const int split = blockIdx.y;
+  const int g0 = blockIdx.z * G;                // the slice's first row of the group
+  const int n_rows = min(G, a.group - g0);      // its live query rows
+  const size_t q0 = (size_t)head * a.group + g0;  // its first row of q and o
   const int b = head / a.KH;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int limit = row_limit<FUSED>(a.pos[b], a.S);
@@ -274,7 +289,7 @@ __global__ void __launch_bounds__(NW * 32) decode_split_kernel(const Args a) {
   const int r1 = min(r0 + a.rows, limit);
   const size_t hrow = (size_t)head * a.S;  // the head's first cache row
 
-  if (FUSED && split == 0) {  // the fresh row into row pos (= limit), 16 bytes a thread
+  if (FUSED && split == 0 && blockIdx.z == 0) {  // the fresh row into row pos (= limit), 16 bytes a thread
     constexpr int CH = D * (int)sizeof(TC) / 16;
     if (threadIdx.x < 2 * CH) {
       const bool is_v = threadIdx.x >= CH;
@@ -322,14 +337,16 @@ __global__ void __launch_bounds__(NW * 32) decode_split_kernel(const Args a) {
       if (warp + j * NW < n_tiles) issue(warp + j * NW, j);
   }
 
-  // This lane's VEC elements of each query row, scaled in f32.
+  // This lane's VEC elements of each query row, scaled in f32 (0 for a
+  // masked row).
   const int e0 = (lane % LPR) * VEC;
   const int rg = lane / LPR;
   float qr[G][VEC];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) qr[g][e] = __bfloat162float(a.q[((size_t)head * G + g) * D + e0 + e]) * a.scale;
+    for (int e = 0; e < VEC; ++e)
+      qr[g][e] = g < n_rows ? __bfloat162float(a.q[(q0 + g) * D + e0 + e]) * a.scale : 0.f;
   }
   float m[G], l[G], acc[G][CPL];
 #pragma unroll
@@ -441,9 +458,9 @@ __global__ void __launch_bounds__(NW * 32) decode_split_kernel(const Args a) {
   __syncthreads();
 
   if (a.n_split == 1) {
-    if (FUSED) current_scores<TC, D, G>(a, head, NW, cur);
+    if (FUSED) current_scores<TC, D, G>(a, head, q0, n_rows, NW, cur);
     const float vs_cur = kQuant && FUSED ? a.nvs[head] : 1.f;
-    for (int i = threadIdx.x; i < G * D; i += NW * 32) {
+    for (int i = threadIdx.x; i < n_rows * D; i += NW * 32) {
       const int g = i / D, d = i % D;
       const float vd = FUSED ? vs_cur * to_float(static_cast<const TC*>(a.nv)[(size_t)head * D + d]) : 0.f;
       const float out = merge_states<FUSED>(
@@ -451,11 +468,11 @@ __global__ void __launch_bounds__(NW * 32) decode_split_kernel(const Args a) {
             mw = pm[w * G + g], lw = pl[w * G + g], aw = pacc[(w * G + g) * D + d];
           },
           FUSED ? cur[g] : 0.f, vd);
-      a.o[((size_t)head * G + g) * D + d] = __float2bfloat16(out);
+      a.o[(q0 + g) * D + d] = __float2bfloat16(out);
     }
     return;
   }
-  for (int i = threadIdx.x; i < G * D; i += NW * 32) {
+  for (int i = threadIdx.x; i < n_rows * D; i += NW * 32) {
     const int g = i / D, d = i % D;
     float mx = kNegInf;
 #pragma unroll
@@ -467,35 +484,49 @@ __global__ void __launch_bounds__(NW * 32) decode_split_kernel(const Args a) {
       lsum += c * pl[w * G + g];
       acc_d += c * pacc[(w * G + g) * D + d];
     }
-    float* part = a.ws + (((size_t)head * a.n_split + split) * G + g) * (D + 2);
+    float* part = a.ws + (((size_t)head * a.n_split + split) * a.group + g0 + g) * (D + 2);
     part[d] = acc_d;
     if (d == 0) part[D] = mx, part[D + 1] = lsum;
   }
 }
 
-// The live splits of each (slot, kv head), and the fused kernel's current
-// token, into o: one block a (slot, kv head), one thread a (g, d).
+// The live splits of each (slot, kv head, slice), and the fused kernel's
+// current token, into o: one block a (slot, kv head, slice), one thread a
+// (g, d).
 template <typename TC, int D, int G, bool FUSED>
 __global__ void __launch_bounds__(COMBINE_THREADS) decode_combine_kernel(const Args a) {
   constexpr bool kQuant = sizeof(TC) == 1;
   __shared__ float cur[G];
   const int head = blockIdx.x;
+  const int g0 = blockIdx.y * G;
+  const int n_rows = min(G, a.group - g0);
+  const size_t q0 = (size_t)head * a.group + g0;
   const int limit = row_limit<FUSED>(a.pos[head / a.KH], a.S);
   const int live = (limit + a.rows - 1) / a.rows;
-  if (FUSED) current_scores<TC, D, G>(a, head, COMBINE_THREADS / 32, cur);
+  if (FUSED) current_scores<TC, D, G>(a, head, q0, n_rows, COMBINE_THREADS / 32, cur);
   const float vs_cur = kQuant && FUSED ? a.nvs[head] : 1.f;
-  for (int i = threadIdx.x; i < G * D; i += COMBINE_THREADS) {
+  for (int i = threadIdx.x; i < n_rows * D; i += COMBINE_THREADS) {
     const int g = i / D, d = i % D;
-    const float* part = a.ws + ((size_t)head * a.n_split * G + g) * (D + 2);
+    const float* part = a.ws + ((size_t)head * a.n_split * a.group + g0 + g) * (D + 2);
     const float vd = FUSED ? vs_cur * to_float(static_cast<const TC*>(a.nv)[(size_t)head * D + d]) : 0.f;
     const float out = merge_states<FUSED>(
         live, [&](int s, float& ms, float& ls, float& as) {
-          const float* ps = part + (size_t)s * G * (D + 2);
+          const float* ps = part + (size_t)s * a.group * (D + 2);
           ms = ps[D], ls = ps[D + 1], as = ps[d];
         },
         FUSED ? cur[g] : 0.f, vd);
-    a.o[((size_t)head * G + g) * D + d] = __float2bfloat16(out);
+    a.o[(q0 + g) * D + d] = __float2bfloat16(out);
   }
+}
+
+// Query rows a block for a group of `group` rows: the group itself at 1, 2,
+// 4 and 8, the next of those above it below 8, else slices of 8
+// (ops/fused_decode.py::group_slices computes the same).
+int block_rows(int group) {
+  if (group >= 8) return 8;
+  int g = 1;
+  while (g < group) g *= 2;
+  return g;
 }
 
 template <typename TC, int D, int G, bool FUSED>
@@ -503,33 +534,34 @@ int launch(const Args& a, int B, cudaStream_t stream) {
   constexpr int smem = split_smem<TC, D, G>();
   static bool configured = false;
   if (cudaError_t err = allow_smem(decode_split_kernel<TC, D, G, FUSED>, smem, configured)) return (int)err;
-  decode_split_kernel<TC, D, G, FUSED><<<dim3(B * a.KH, a.n_split), NW * 32, smem, stream>>>(a);
+  const int n_slice = (a.group + G - 1) / G;
+  decode_split_kernel<TC, D, G, FUSED><<<dim3(B * a.KH, a.n_split, n_slice), NW * 32, smem, stream>>>(a);
   if (cudaError_t err = cudaGetLastError()) return (int)err;
-  if (a.n_split > 1) decode_combine_kernel<TC, D, G, FUSED><<<B * a.KH, COMBINE_THREADS, 0, stream>>>(a);
+  if (a.n_split > 1)
+    decode_combine_kernel<TC, D, G, FUSED><<<dim3(B * a.KH, n_slice), COMBINE_THREADS, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <typename TC, int D, bool FUSED>
-int dispatch_g(int G, const Args& a, int B, cudaStream_t s) {
-  switch (G) {
+int dispatch_g(const Args& a, int B, cudaStream_t s) {
+  switch (block_rows(a.group)) {
     case 1: return launch<TC, D, 1, FUSED>(a, B, s);
     case 2: return launch<TC, D, 2, FUSED>(a, B, s);
     case 4: return launch<TC, D, 4, FUSED>(a, B, s);
-    case 8: return launch<TC, D, 8, FUSED>(a, B, s);
-    default: return -2;
+    default: return launch<TC, D, 8, FUSED>(a, B, s);
   }
 }
 
 template <bool FUSED>
-int dispatch(int D, int G, bool int8, const Args& a, int B, cudaStream_t s) {
-  if (D == 64) return int8 ? dispatch_g<int8_t, 64, FUSED>(G, a, B, s) : dispatch_g<__nv_bfloat16, 64, FUSED>(G, a, B, s);
+int dispatch(int D, bool int8, const Args& a, int B, cudaStream_t s) {
+  if (D == 64) return int8 ? dispatch_g<int8_t, 64, FUSED>(a, B, s) : dispatch_g<__nv_bfloat16, 64, FUSED>(a, B, s);
   if (D == 128)
-    return int8 ? dispatch_g<int8_t, 128, FUSED>(G, a, B, s) : dispatch_g<__nv_bfloat16, 128, FUSED>(G, a, B, s);
+    return int8 ? dispatch_g<int8_t, 128, FUSED>(a, B, s) : dispatch_g<__nv_bfloat16, 128, FUSED>(a, B, s);
   return -2;
 }
 
 // -1 for arguments this design does not take, -2 for a head_dim other than
-// 64 and 128 or a group other than 1, 2, 4, 8, -3 for another cache dtype.
+// 64 and 128, -3 for another cache dtype.
 int check_args(int B, int H, int KH, int S, int D, int cache_dtype, int rows, int n_split, const Args& a) {
   if (B < 1 || S < 1 || KH < 1 || H % KH != 0) return -1;
   if (cache_dtype != kBF16 && cache_dtype != kInt8) return -3;
@@ -546,8 +578,7 @@ int check_args(int B, int H, int KH, int S, int D, int cache_dtype, int rows, in
   for (const void* p : aligned)
     if ((uintptr_t)p % 16 != 0) return -1;
   if (D != 64 && D != 128) return -2;
-  const int G = H / KH;
-  if (G != 1 && G != 2 && G != 4 && G != 8) return -2;
+  if ((H / KH + 7) / 8 > 65535) return -1;  // slices of the grid's z
   return 0;
 }
 
@@ -564,9 +595,9 @@ extern "C" int decode_split(const void* q, const void* k, const void* v, const v
   const Args a{static_cast<const __nv_bfloat16*>(q), const_cast<void*>(k), const_cast<void*>(v),
                static_cast<const float*>(k_scale), static_cast<const float*>(v_scale), nullptr, nullptr, nullptr,
                nullptr, static_cast<const int*>(pos), static_cast<__nv_bfloat16*>(o), static_cast<float*>(ws), KH, S,
-               rows, n_split, scale};
+               rows, n_split, KH > 0 ? H / KH : 0, scale};
   if (int rc = check_args(B, H, KH, S, D, cache_dtype, rows, n_split, a)) return rc;
-  return dispatch<false>(D, H / KH, cache_dtype == kInt8, a, B, static_cast<cudaStream_t>(stream));
+  return dispatch<false>(D, cache_dtype == kInt8, a, B, static_cast<cudaStream_t>(stream));
 }
 
 // fused_decode's function (csrc/fused_decode.cu) split over blocks, with
@@ -579,9 +610,9 @@ extern "C" int fused_decode_split(const void* q, const void* new_k, const void* 
   const Args a{static_cast<const __nv_bfloat16*>(q), k, v, static_cast<const float*>(k_scale),
                static_cast<const float*>(v_scale), new_k, new_v, static_cast<const float*>(new_ks),
                static_cast<const float*>(new_vs), static_cast<const int*>(pos), static_cast<__nv_bfloat16*>(o),
-               static_cast<float*>(ws), KH, S, rows, n_split, scale};
+               static_cast<float*>(ws), KH, S, rows, n_split, KH > 0 ? H / KH : 0, scale};
   if (int rc = check_args(B, H, KH, S, D, cache_dtype, rows, n_split, a)) return rc;
   if (new_k == nullptr || new_v == nullptr || (cache_dtype == kInt8) != (new_ks != nullptr && new_vs != nullptr))
     return -1;
-  return dispatch<true>(D, H / KH, cache_dtype == kInt8, a, B, static_cast<cudaStream_t>(stream));
+  return dispatch<true>(D, cache_dtype == kInt8, a, B, static_cast<cudaStream_t>(stream));
 }

@@ -121,8 +121,8 @@ CONFIGS: Dict[str, LlamaConfig] = {
 }
 
 
-def _check_dense(cfg: LlamaConfig) -> None:
-    if cfg.n_experts > 0:
+def _check_dense(cfg) -> None:
+    if getattr(cfg, "n_experts", 0) > 0:
         raise NotImplementedError(
             "mixture-of-experts llama configs are not ported yet: ROADMAP Queue 1"
         )
@@ -308,8 +308,17 @@ def init_cache(
 
 
 # The engine may serve this family on the paged pool (serve/paged_kv.py
-# owns the allocator; ops/kvcache.py the device ops).
+# owns the allocator; ops/kvcache.py the device ops) and with an int8
+# cache; the entry points may quantize its weights (quantize_weights,
+# quantized_layout, lay_out_quantized); train/lora.py adapts its attention
+# and MLP projections. OPT and Falcon have LoRA on attention alone, as in
+# the JAX package. The engine and the entry points read these flags and
+# nothing else to tell the families apart.
 SUPPORTS_PAGED = True
+SUPPORTS_INT8_KV = True
+SUPPORTS_QUANTIZE = True
+SUPPORTS_LORA = True
+LORA_TARGETS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
 
 def init_paged_cache(
@@ -338,10 +347,11 @@ def _self_attention(q, k, v, positions, cfg: LlamaConfig) -> torch.Tensor:
     raise NotImplementedError(f"attn_impl={cfg.attn_impl!r} is not ported (flash|plain)")
 
 
-def _project(eq: str, x: torch.Tensor, w, cfg: LlamaConfig) -> torch.Tensor:
+def project(eq: str, x: torch.Tensor, w, cfg) -> torch.Tensor:
     """einsum(eq, x, w) in the JAX package's layouts: a quantized weight
     through qeinsum, a dense one as one torch.matmul over the flattened
-    contracted and kept dims."""
+    contracted and kept dims, in cfg.dtype (any family's config; the OPT
+    and Falcon modules project through it too)."""
     if isinstance(w, (QTensor, Q4Tensor)):
         return qeinsum(eq, x, w, cfg.dtype)
     ins, out = eq.split("->")
@@ -366,7 +376,7 @@ def _block(
     lora = lora_layer if lora_layer is not None else {}
 
     def proj(name: str, inp: torch.Tensor, eq: str, lora_eq: str) -> torch.Tensor:
-        out = _project(eq, inp, getattr(lp, name), cfg)
+        out = project(eq, inp, getattr(lp, name), cfg)
         if name in lora:
             out = out + lora_delta(inp, lora[name], lora_scale, lora_eq)
         return out
@@ -389,7 +399,7 @@ def _block(
             layer_cache, q, kk, vv, positions, kv_length=kv_length,
             impl=cfg.decode_attn_impl, chunk_impl=cfg.chunk_attn_impl,
         )
-    o = _project("bshk,hkd->bsd", attn, lp.wo, cfg)
+    o = project("bshk,hkd->bsd", attn, lp.wo, cfg)
     if "wo" in lora:  # the adapter sees the flattened [B, S, H*hd]
         o = o + lora_delta(attn.flatten(2), lora["wo"], lora_scale, "bsr,rd->bsd")
     x = x + o
@@ -430,28 +440,38 @@ def forward(
     if positions is None:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
     x = params.tok_embed[tokens.long()].to(cfg.dtype)
+    x, kv = run_layers(_block, params, x, positions, cfg, cache, kv_length, lora, remat, train, block_table)
+    x = rms_norm(x, params.out_norm, cfg.norm_eps)
+    head = params.tok_embed.t() if cfg.tie_embeddings else params.lm_head
+    return project("bsd,dv->bsv", x, head, cfg).float(), kv
+
+
+def run_layers(block, params, x, positions, cfg, cache, kv_length, lora, remat: bool, train: bool, *extra):
+    """The layer loop of every family's forward: block(x, lp, positions,
+    cfg, layer_cache, kv_length, lora_layer, lora_scale, *extra) over
+    params.layers, each with its slice of the stacked cache and its
+    adapters, recomputed in the backward with remat. Returns (x, kv): the
+    cache when given, {} when training, else the prefill fragment {k, v:
+    [L, B, S, KH, hd]}."""
     lora_layers = lora["layers"] if lora is not None else None
     lora_scale = lora["scale"] if lora is not None else 1.0
     fresh = []
     for i, lp in enumerate(params.layers):
         layer_cache = None if cache is None else {name: t[i] for name, t in cache.items()}
         args = (x, lp, positions, cfg, layer_cache, kv_length,
-                None if lora_layers is None else lora_layers[i], lora_scale, block_table)
+                None if lora_layers is None else lora_layers[i], lora_scale, *extra)
         if remat:
             # The block draws no random numbers: no RNG state to stash.
-            x, kv = checkpoint(_block, *args, use_reentrant=False, preserve_rng_state=False)
+            x, kv = checkpoint(block, *args, use_reentrant=False, preserve_rng_state=False)
         else:
-            x, kv = _block(*args)
+            x, kv = block(*args)
         if cache is None and not train:
             fresh.append(kv)
-    x = rms_norm(x, params.out_norm, cfg.norm_eps)
-    head = params.tok_embed.t() if cfg.tie_embeddings else params.lm_head
-    logits = _project("bsd,dv->bsv", x, head, cfg).float()
     if cache is not None:
-        return logits, cache
+        return x, cache
     if train:
-        return logits, {}
-    return logits, {name: torch.stack([kv[name] for kv in fresh]) for name in ("k", "v")}
+        return x, {}
+    return x, {name: torch.stack([kv[name] for kv in fresh]) for name in ("k", "v")}
 
 
 def decode_step(

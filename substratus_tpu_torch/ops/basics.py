@@ -38,6 +38,21 @@ def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return F.silu(gate) * up
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Classic LayerNorm (mean-centered, affine) in float32 accumulation,
+    the OPT and Falcon normalizer (llama uses rms_norm)."""
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    normed = (x32 - mean) * torch.reciprocal(torch.sqrt(var + eps))
+    return (normed * scale.float() + bias.float()).to(x.dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The exact (erf) GELU of Falcon's MLP: jax.nn.gelu(approximate=False)."""
+    return F.gelu(x, approximate="none")
+
+
 def lora_delta(h: torch.Tensor, adapter, scale: float, out_einsum: str) -> torch.Tensor:
     """LoRA low-rank update h @ A @ B * scale (port of the JAX package's
     lora_delta); adapter {"a": [in, r], "b": [r, *out]} from

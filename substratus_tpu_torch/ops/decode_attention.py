@@ -10,9 +10,10 @@ The kernels replace substratus_tpu/ops/decode_attention.py::_kernel
 live cache once per layer per step, so they are bound by bytes. Two
 designs, chosen by shape alone (ops/fused_decode.py::decode_design):
 csrc/decode_split.cu (S split over blocks by decode_split_plan, a ring of
-cache tiles, one softmax rescale a tile; head_dim 64 and 128) and
-csrc/decode_attn.cu (one block per slot and kv head; head_dim 16 and 32).
-See the source notes.
+cache tiles, one softmax rescale a tile, any query group in slices of at
+most 8 rows; head_dim 64 and 128) and csrc/decode_attn.cu (one block per
+slot and kv head; head_dim 16 and 32, groups of 1, 2, 4 and 8; any other
+group there raises). See the source notes.
 
 Cache layout is [B, KH, S, D] (each kv head's history contiguous); int8
 caches carry f32 scales [B, KH, S]. k_scale multiplies the score after
@@ -33,11 +34,11 @@ import torch
 from substratus_tpu_torch import kernels
 from substratus_tpu_torch.ops.attention import NEG_INF, dot_product_attention
 from substratus_tpu_torch.ops.flash_attention import flash_cached_attention
-from substratus_tpu_torch.ops.fused_decode import decode_design, fused_decode_attention, split_workspace
+from substratus_tpu_torch.ops.fused_decode import (
+    GROUPS, SPLIT_HEAD_DIMS, decode_design, fused_decode_attention, split_workspace)
 from substratus_tpu_torch.ops.quant import dequantize_kv, quantize_kv
 
 HEAD_DIMS = (16, 32, 64, 128)
-GROUPS = (1, 2, 4, 8)
 
 
 def decode_attention_plain(
@@ -93,8 +94,12 @@ def decode_attention(
     quantized = k_scale is not None
     if sq != 1 or dk != d or v.shape != k.shape or k.shape[0] != b or h % kh:
         raise ValueError(f"decode_attention: unsupported shapes q{tuple(q.shape)} k{tuple(k.shape)}")
-    if d not in HEAD_DIMS or h // kh not in GROUPS:
-        raise ValueError(f"decode_attention: head_dim {d} / group {h // kh} not built (head_dim {HEAD_DIMS}, group {GROUPS})")
+    design = decode_design(d, s, quantized)
+    if d not in HEAD_DIMS or (design == "rows" and h // kh not in GROUPS):
+        raise ValueError(
+            f"decode_attention: head_dim {d} / group {h // kh} not built (head_dim {HEAD_DIMS}; "
+            f"csrc/decode_attn.cu, at head_dim 16/32 or an int8 cache of S % 4 != 0, takes groups {GROUPS}; "
+            f"csrc/decode_split.cu, head_dim {SPLIT_HEAD_DIMS}, any)")
     if q.dtype != torch.bfloat16:
         raise ValueError(f"decode_attention: the kernel takes bf16 queries, got {q.dtype}")
     want = torch.int8 if quantized else torch.bfloat16
@@ -120,7 +125,7 @@ def decode_attention(
             k_scale.data_ptr() if quantized else None, v_scale.data_ptr() if quantized else None,
             pos.data_ptr(), out.data_ptr())
     dims = (b, h, kh, s, d, kernels.DTYPE_CODES[k.dtype], float(d**-0.5))
-    if decode_design(d, s, quantized) == "split":
+    if design == "split":
         if quantized and (k_scale.data_ptr() | v_scale.data_ptr()) % 16:
             raise ValueError("decode_attention: scales must be 16-byte aligned")
         rows, n_split, ws = split_workspace(q, b, kh, s)

@@ -10,9 +10,10 @@ strictly below ``pos`` and the current token's term comes from the
 operands, so the fresh row is never read back. They are bound by the bytes
 of the history rows. Two designs compute it, chosen by shape alone
 (``decode_design``): csrc/decode_split.cu (S split over blocks, a ring of
-cache tiles, one softmax rescale a tile; head_dim 64 and 128) and
-csrc/fused_decode.cu (one block per slot and kv head; head_dim 16 and 32).
-See the source notes.
+cache tiles, one softmax rescale a tile, any query group in slices of at
+most 8 rows; head_dim 64 and 128) and csrc/fused_decode.cu (one block per
+slot and kv head; head_dim 16 and 32, groups of 1, 2, 4 and 8). See the
+source notes.
 
 The fresh row arrives in the cache dtype; for int8 its scales
 ``new_ks``/``new_vs`` [B, KH, 1] weight the current token's term, and the
@@ -36,7 +37,7 @@ from substratus_tpu_torch import kernels
 from substratus_tpu_torch.ops.attention import NEG_INF
 
 HEAD_DIMS = (16, 32, 64, 128)  # built by csrc/fused_decode.cu
-GROUPS = (1, 2, 4, 8)
+GROUPS = (1, 2, 4, 8)  # the rows design's groups; the split design takes any
 SPLIT_HEAD_DIMS = (64, 128)  # built by csrc/decode_split.cu
 # The split plan: rows a split in whole rounds of the kernel's 8 warps x
 # 32-row tiles, from SPLIT_MIN_ROWS to SPLIT_MAX_ROWS, as many as make
@@ -61,6 +62,16 @@ def decode_split_plan(s: int, heads: int, sms: int) -> Tuple[int, int]:
     return -(-s // rows), rows
 
 
+def group_slices(group: int) -> Tuple[int, int]:
+    """(query rows a block, blocks a kv head) of csrc/decode_split.cu for
+    a query group of `group` rows: a group of 1, 2, 4 or 8 rows in one
+    block, 3 and 5-7 in one block of 4 or 8 rows (the rest masked), a wider
+    one in slices of 8 (falcon-7b's 71: 9 blocks, the last of 7 live rows).
+    The C side's block_rows computes the same."""
+    rows = 8 if group >= 8 else 1 << (group - 1).bit_length()
+    return rows, -(-group // rows)
+
+
 def decode_design(d: int, s: int, quantized: bool) -> str:
     """The CUDA design of the decode kernels (decode_attention and
     fused_decode_attention) at head_dim d and S rows: "split"
@@ -79,9 +90,12 @@ def sm_count(device_index: int) -> int:
 
 def split_workspace(q: torch.Tensor, b: int, kh: int, s: int):
     """(rows, n_split, workspace) of the split design for q [B, 1, H, D]:
-    the f32 partials [B * KH, n_split, G, D + 2] when n_split > 1."""
+    the f32 partials [B * KH, n_split, G, D + 2] when n_split > 1. The plan
+    counts a block per slice of the group (group_slices), so a wide group
+    on few kv heads (falcon-7b: KH = 1) is not split as if it were one
+    block a slot."""
     h, d = q.shape[2], q.shape[3]
-    n_split, rows = decode_split_plan(s, b * kh, sm_count(q.device.index))
+    n_split, rows = decode_split_plan(s, b * kh * group_slices(h // kh)[1], sm_count(q.device.index))
     ws = (torch.empty(b * kh * n_split * (h // kh) * (d + 2), dtype=torch.float32, device=q.device)
           if n_split > 1 else None)
     return rows, n_split, ws
@@ -160,10 +174,12 @@ def fused_decode_attention(
         raise ValueError(
             f"fused_decode_attention: unsupported shapes q{tuple(q.shape)} new_k{tuple(new_k.shape)} "
             f"cache{tuple(cache_k.shape)} positions{tuple(positions.shape)}")
-    if d not in HEAD_DIMS or h // kh not in GROUPS:
+    design = decode_design(d, s, quantized)
+    if d not in HEAD_DIMS or (design == "rows" and h // kh not in GROUPS):
         raise ValueError(
-            f"fused_decode_attention: head_dim {d} / group {h // kh} not built "
-            f"(head_dim {HEAD_DIMS}, group {GROUPS})")
+            f"fused_decode_attention: head_dim {d} / group {h // kh} not built (head_dim {HEAD_DIMS}; "
+            f"csrc/fused_decode.cu, at head_dim 16/32 or an int8 cache of S % 4 != 0, takes groups {GROUPS}; "
+            f"csrc/decode_split.cu, head_dim {SPLIT_HEAD_DIMS}, any)")
     if q.dtype != torch.bfloat16:
         raise ValueError(f"fused_decode_attention: the kernel takes bf16 queries, got {q.dtype}")
     want = torch.int8 if quantized else torch.bfloat16
@@ -198,7 +214,7 @@ def fused_decode_attention(
             cache_ks.data_ptr() if quantized else None, cache_vs.data_ptr() if quantized else None,
             pos.data_ptr(), out.data_ptr())
     dims = (b, h, kh, s, d, kernels.DTYPE_CODES[cache_k.dtype], float(d**-0.5))
-    if decode_design(d, s, quantized) == "split":
+    if design == "split":
         if quantized and (cache_ks.data_ptr() | cache_vs.data_ptr()) % 16:
             raise ValueError("fused_decode_attention: cache scales must be 16-byte aligned")
         rows, n_split, ws = split_workspace(q, b, kh, s)

@@ -8,9 +8,12 @@ A DecodeGraph owns the step's inputs on the device (``tokens``,
 on the paged pool also its ``block_table`` [B, max_pages]) and its output
 (``out``, the sampled tokens). The step itself, ``step(tokens, positions,
 temps, top_ps[, block_table]) -> sampled``, is the engine's decode_step +
-sample over its cache and params. The block table is an input like the
-others, so a replay reads the pages the engine has grown since the
-capture. Each launch:
+sample over its cache and params, for any family: the engine passes the
+family's ``decode_step`` only the arguments it takes (a block table on
+the paged pool alone, so OPT and Falcon, dense only, get none; no
+attention switch, which only llama's config carries). The block table is
+an input like the others, so a replay reads the pages the engine has
+grown since the capture. Each launch:
 
   1. writes the host inputs into a pinned staging set (two sets, used in
      turns) and copies them into the static buffers without a host sync;

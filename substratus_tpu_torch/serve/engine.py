@@ -1,5 +1,8 @@
 """Continuous-batching inference engine (port of
-substratus_tpu/serve/engine.py), on the paged pool or the dense cache.
+substratus_tpu/serve/engine.py), on the paged pool or the dense cache, for
+any model family (models/registry.py): llama on either layout, OPT and
+Falcon on the dense cache in the model dtype (the JAX engine's
+SUPPORTS_PAGED and SUPPORTS_INT8_KV are llama's alone).
 
   * the decode batch is a fixed array of slots. EngineConfig.kv_layout
     picks their cache: "paged" (a pool of pages [L, P, bs, KH, hd] shared
@@ -91,7 +94,9 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from substratus_tpu_torch.models import llama
+from torch import nn
+
+from substratus_tpu_torch.models import registry
 from substratus_tpu_torch.observability.metrics import METRICS, RATIO_BUCKETS
 from substratus_tpu_torch.observability.sketch import SLOTracker
 from substratus_tpu_torch.ops.decode_attention import pack_fragment
@@ -338,17 +343,19 @@ def _pad_to_bucket(tokens, cap: int):
 class Engine:
     def __init__(
         self,
-        cfg: llama.LlamaConfig,
-        params: llama.Llama,
+        cfg,
+        params: nn.Module,
         ec: Optional[EngineConfig] = None,
         *,
         device: DeviceLike = None,
-        model=llama,
+        model=None,
         decode_graph: bool = True,
-        draft: Optional[Tuple[llama.LlamaConfig, llama.Llama]] = None,
+        draft: Optional[Tuple[object, nn.Module]] = None,
     ):
-        """Serve `params` (a models.llama.Llama) on `device`: cuda unless
-        the caller passes device="cpu"; params must already live there.
+        """Serve `params` (the family module's parameter container, e.g. a
+        models.llama.Llama) on `device`: cuda unless the caller passes
+        device="cpu"; params must already live there. `model` is the
+        family module, from the config's type when omitted.
         On the card the decode step (or the speculative round) is captured
         as CUDA graphs unless decode_graph=False (the eager step, kept to
         compare the two); on the CPU it always runs eagerly. `draft`
@@ -368,8 +375,11 @@ class Engine:
                 f"invalid engine config: max_prefill_len={ec.max_prefill_len} "
                 f"max_batch={ec.max_batch} max_seq_len={ec.max_seq_len}"
             )
+        model = model if model is not None else registry.module_of(cfg)
         self.cfg, self.params, self.ec, self.model = cfg, params, ec, model
         B, S = ec.max_batch, ec.max_seq_len
+        if ec.kv_cache_dtype == "int8" and not getattr(model, "SUPPORTS_INT8_KV", False):
+            raise ValueError(f"kv_cache_dtype=int8 unsupported for {model.__name__}")
         cache_dtype = torch.int8 if ec.kv_cache_dtype == "int8" else None
         supports_paged = getattr(model, "SUPPORTS_PAGED", False)
         layout = ec.kv_layout
@@ -915,7 +925,7 @@ class Engine:
         self.top_ps[slot] = req.top_p
         self._emit(slot, first_id)
 
-    def _device_step(self, cfg: llama.LlamaConfig, tokens: torch.Tensor, positions: torch.Tensor,
+    def _device_step(self, cfg, tokens: torch.Tensor, positions: torch.Tensor,
                      temps: torch.Tensor, top_ps: torch.Tensor,
                      block_table: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The decode step's device work: advance every slot one token (the
@@ -925,7 +935,7 @@ class Engine:
         logits, _ = self.model.decode_step(self.params, self.cache, tokens, positions, cfg, **kw)
         return sample(logits, self.generator, temps, top_k=self.ec.top_k, top_p=top_ps)
 
-    def _verify_step(self, cfg: llama.LlamaConfig, tokens: torch.Tensor, positions: torch.Tensor,
+    def _verify_step(self, cfg, tokens: torch.Tensor, positions: torch.Tensor,
                      temps: torch.Tensor, top_ps: torch.Tensor,
                      block_table: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """A speculative round's target forward over tokens [B, w] at

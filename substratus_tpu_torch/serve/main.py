@@ -2,8 +2,9 @@
 
     python -m substratus_tpu_torch.serve.main [--model PATH] [--config llama2-7b] [--port 8080] [--device cpu]
 
-It serves a checkpoint, or a named configuration with random weights from
-a seed (the JAX entry point's weightless ``--config`` mode), over the
+It serves a checkpoint, or a named configuration of any family with random
+weights from a seed (the JAX entry point's weightless ``--config`` mode:
+``llama2-7b``, ``opt-125m``, ``falcon-7b``, ...), over the
 container contract's serving surface of serve/server.py (``GET /``,
 ``/loadz``, ``/metrics``, ``/v1/models``, ``POST /v1/completions`` with
 ``stop``, ``/v1/chat/completions``, ``/swapz``, ``/debug/profile``; 429,
@@ -18,8 +19,18 @@ The checkpoint is ``--model``, else params.json ``model``, else a
 directory mounted at ``/content/model`` (the container contract), resolved
 as the JAX entry point's load_checkpoint does: a .gguf file (or a
 directory holding one), then the port's own artifact (train/checkpoints.py),
-then a local HF directory (load/hf.py); its tokenizer comes from the same
-path (serve/tokenizer.py) and its directory's name is the served model's.
+then a local HF directory of the llama, OPT or Falcon family (load/hf.py);
+its tokenizer comes from the same path (serve/tokenizer.py) and its
+directory's name is the served model's.
+
+OPT and Falcon serve on the dense cache in the model dtype, as in the JAX
+package: ``kv_layout`` ``auto`` resolves to dense for them, and
+``kv_layout: paged`` or ``kv_cache_dtype: int8`` exits with the engine's
+refusal; ``quantize`` prints "... quantization not supported for this
+family; skipping" and serves dense weights; the attention knobs print that
+they are ignored (they exist on llama alone); prompt lookup (``spec_k``)
+works, a draft model (which needs the paged pool) is turned off with
+JAX's message.
 
 Knobs come from flags or from the container contract's params file
 (``/content/params.json``, or ``--params``); flags win. The port serves
@@ -292,6 +303,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
+def _skip_llama_knobs(cfg, params_json: Dict[str, Any], quantize: str) -> None:
+    """Say which llama-only knobs a family without them skips, as the JAX
+    entry point's _maybe_quantize and decode_attn_impl messages do."""
+    if quantize != "none":
+        print(f"{quantize} quantization not supported for this family; skipping", flush=True)
+    for key in ("decode_attn_impl", "chunk_attn_impl", "attn_impl"):
+        if params_json.get(key):
+            print(f"{key} ignored: {type(cfg).__name__} has no attention implementation switch", flush=True)
+
+
 def build(argv=None):
     """Parse the flags, build the model, engine and HTTP server, start the
     engine, and return the (not yet serving) serve.server.Server, with its
@@ -322,9 +343,15 @@ def build(argv=None):
             cfg = cfg.replace(vocab_size=tokenizer.vocab_size)
         params = registry.module_of(cfg).init_params(cfg, seed=0, device=device)
     family = registry.module_of(cfg)
-    decode_impl, chunk_impl, prefill_impl = resolve_attn_impls(params_json)
-    cfg = cfg.replace(decode_attn_impl=decode_impl, chunk_attn_impl=chunk_impl, attn_impl=prefill_impl)
-    params = family.quantize_weights(params, quantize)
+    # The attention switches and quantized weights are llama's alone.
+    llama_knobs = getattr(family, "SUPPORTS_QUANTIZE", False)
+    if llama_knobs:
+        decode_impl, chunk_impl, prefill_impl = resolve_attn_impls(params_json)
+        cfg = cfg.replace(decode_attn_impl=decode_impl, chunk_attn_impl=chunk_impl, attn_impl=prefill_impl)
+        params = family.quantize_weights(params, quantize)
+    else:
+        _skip_llama_knobs(cfg, params_json, quantize)
+        decode_impl, chunk_impl, prefill_impl, quantize = "kernel", "flash", "flash", "none"
 
     def knob(flag, key, default):
         return flag if flag is not None else params_json.get(key, default)
@@ -335,7 +362,7 @@ def build(argv=None):
     max_queue = int(params_json.get("max_queue", 4 * max_batch))
     kv_layout = resolve_kv_layout(params_json)
     spec_k, draft_path = resolve_spec(args.spec_k, args.draft_model, params_json)
-    if spec_k and draft_path and kv_layout == "dense":
+    if spec_k and draft_path and (kv_layout == "dense" or not getattr(family, "SUPPORTS_PAGED", False)):
         # The draft shares the target's page tables; prompt lookup would
         # work on the dense cache, but the operator asked for a draft.
         print("draft spec_k needs kv_layout=paged; speculation disabled", flush=True)
@@ -351,7 +378,7 @@ def build(argv=None):
             raise SystemExit("draft model must be the same family as the target")
         # The draft rides the target's quantization: it is there to cut
         # the bytes a token costs, not to add bf16 streams.
-        draft = (draft_cfg, family.quantize_weights(draft_params, quantize))
+        draft = (draft_cfg, family.quantize_weights(draft_params, quantize) if llama_knobs else draft_params)
     ec = EngineConfig(
         max_batch=max_batch,
         max_seq_len=int(knob(args.max_seq_len, "max_seq_len", 1024)),
@@ -379,7 +406,8 @@ def build(argv=None):
         try:
             with torch.cuda.stream(side) if side is not None else contextlib.nullcontext():
                 _, new_params = load_checkpoint(ref, device)
-                new_params = family.quantize_weights(new_params, quantize)
+                if llama_knobs:
+                    new_params = family.quantize_weights(new_params, quantize)
         except SystemExit as e:  # a file this port cannot load: the swap is refused
             raise ValueError(str(e)) from None
         if side is not None:
@@ -393,7 +421,7 @@ def build(argv=None):
                "int8": "int8 weights (scale after the dot), torch.einsum",
                "int4": f"int4 weights, int4 matmul kernel (q4_impl={params_json.get('q4_impl', 'auto')})"}
     # An artifact may hold quantized weights without a quantize knob (QLoRA's int8 base).
-    held = set(family.quantized_layout(params).values())
+    held = set(family.quantized_layout(params).values()) if llama_knobs else set()
     shown = quantize if quantize != "none" or len(held) != 1 else held.pop()
     layout = f"kv_layout={params_json.get('kv_layout', 'auto')}"
     if engine.paged:

@@ -1,6 +1,9 @@
-"""Checkpoint writers for tests and the on-card smoke run: a port model
-written as a local HF directory (config.json and safetensors shards with
-their index) or as a llama.cpp GGUF file (F32, F16, Q4_0 or Q8_0 tensors,
+"""Checkpoint writers for tests and the on-card smoke run: a port model of
+any family written as a local HF directory (config.json with
+transformers' keys and safetensors shards under its names, with their
+index; Falcon's q, k and v fused into query_key_value per kv group, the
+order load/hf.py's converter undoes), or a llama model as a llama.cpp GGUF
+file (F32, F16, Q4_0 or Q8_0 tensors,
 q/k permuted as llama.cpp's converter permutes them, an embedded
 SentencePiece vocabulary). The serving path never imports this module.
 
@@ -12,6 +15,7 @@ produce: each weight dequantized as GGML defines it (f16 d -> f32 times
 the code, then f16), in the port's layout and the model's dtype.
 
     python -m substratus_tpu_torch.tools.ckpt_writer --config tiny --hf DIR --gguf FILE [--device cpu]
+    python -m substratus_tpu_torch.tools.ckpt_writer --config falcon-7b --hf DIR
 """
 from __future__ import annotations
 
@@ -27,38 +31,91 @@ import torch
 
 from substratus_tpu_torch.load.gguf import (
     _BLOCK, _NAME_MAP, GGML_F16, GGML_F32, GGML_Q4_0, GGML_Q8_0, _gguf_string, gguf_header)
-from substratus_tpu_torch.load.hf import HF_LAYER, HF_TOP, copy_hf_state
+from torch import nn
+
+from substratus_tpu_torch.load.hf import FALCON_QKV, copy_hf_state, hf_layout
+from substratus_tpu_torch.models import registry
 from substratus_tpu_torch.models.llama import Llama, LlamaConfig
 
 _ST_NAMES = {torch.bfloat16: "BF16", torch.float16: "F16", torch.float32: "F32"}
 SHARD_BYTES = 5 * 10**9  # the shard size of transformers' save_pretrained
 
 
-def hf_tensors(model: Llama) -> Iterator[Tuple[str, torch.Tensor]]:
-    """(HF name, tensor) of every weight of a dense port model, on its
-    device and in its dtype: Linear weights [out, in] (contiguous)."""
-    to_hf = {port: (hf, t) for hf, (port, t) in HF_TOP.items()}
-    layer = {port: (hf, t) for hf, (port, t) in HF_LAYER.items()}
+def _to_hf(name: str, w: torch.Tensor, transposed: bool) -> torch.Tensor:
+    """A port weight in an HF tensor's layout: a Linear's [in..., out...]
+    as [out, in] (contiguous; wo's input is [H, hd]), OPT's q/k/v biases
+    [H, hd] flat, the rest as they are."""
+    if transposed:
+        return (w.flatten(0, 1) if name.endswith(".wo") else w.flatten(1)).t().contiguous()
+    return w.flatten() if name.rsplit(".", 1)[-1] in ("bq", "bk", "bv") else w
+
+
+def _fused_qkv(lp: nn.Module, cfg) -> torch.Tensor:
+    """Falcon's query_key_value [(H + 2 KH) hd, D] of a layer's wq [D, H,
+    hd], wk, wv [D, KH, hd]: per kv group its G query heads, then its k,
+    then its v head (transformers' layout, which load/hf.py::falcon_qkv
+    splits)."""
+    H, KH, hd, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_size, cfg.dim
+    q = lp.wq.permute(1, 2, 0).reshape(KH, H // KH, hd, D)
+    k = lp.wk.permute(1, 2, 0).reshape(KH, 1, hd, D)
+    v = lp.wv.permute(1, 2, 0).reshape(KH, 1, hd, D)
+    return torch.cat([q, k, v], dim=1).reshape((H + 2 * KH) * hd, D)
+
+
+def hf_tensors(model: nn.Module) -> Iterator[Tuple[str, torch.Tensor]]:
+    """(HF name, tensor) of every weight of a dense port model of any
+    family, on its device and in its dtype: Linear weights [out, in]
+    (contiguous), under transformers' names for the family (a tied head
+    written once, as save_pretrained writes it)."""
+    cfg = model.cfg
+    family = registry.family_of(cfg)
+    prefixes, layers, top, layer = hf_layout(cfg)
+    top_prefix, layer_prefix = prefixes[0], prefixes[0] + layers
+    to_hf = {port: (hf, t) for hf, (port, t) in top.items()}
+    to_hf_layer = {port: (hf, t) for hf, (port, t) in layer.items()}
     for name, w in model.state_dict().items():
         if name.startswith("layers."):
             _, i, port = name.split(".")
-            hf, transposed = layer[port]
-            hf = f"model.layers.{i}.{hf}"
+            if family == "falcon" and port in ("wq", "wk", "wv"):
+                if port == "wq":  # the fused tensor, once a layer
+                    yield f"{layer_prefix}.{i}.{FALCON_QKV}", _fused_qkv(model.layers[int(i)], cfg)
+                continue
+            hf, transposed = to_hf_layer[port]
+            hf = f"{layer_prefix}.{i}.{hf}"
         else:
             hf, transposed = to_hf[name]
-            hf = hf if hf == "lm_head.weight" else f"model.{hf}"
-        if transposed:  # [in..., out...] -> [out, in]; wo's input is [H, hd]
-            w = (w.flatten(0, 1) if name.endswith(".wo") else w.flatten(1)).t().contiguous()
-        yield hf, w
+            hf = hf if hf == "lm_head.weight" else top_prefix + hf
+        yield hf, _to_hf(name, w, transposed)
 
 
-def hf_config(cfg: LlamaConfig) -> Dict[str, Any]:
-    """config.json of a port LlamaConfig, as transformers writes a Llama's."""
+def hf_config(cfg) -> Dict[str, Any]:
+    """config.json of a port config, with the keys transformers writes
+    for the family's model."""
+    dtype = str(cfg.dtype).removeprefix("torch.")
+    family = registry.family_of(cfg)
+    if family == "opt":
+        return {"architectures": ["OPTForCausalLM"], "model_type": "opt", "vocab_size": cfg.vocab_size,
+                "hidden_size": cfg.dim, "ffn_dim": cfg.hidden_dim, "num_hidden_layers": cfg.n_layers,
+                "num_attention_heads": cfg.n_heads, "max_position_embeddings": cfg.max_seq_len,
+                "do_layer_norm_before": True, "activation_function": "relu", "word_embed_proj_dim": cfg.dim,
+                "enable_bias": True, "layer_norm_elementwise_affine": True, "tie_word_embeddings": True,
+                "torch_dtype": dtype, "bos_token_id": 2, "eos_token_id": 2, "pad_token_id": 1}
+    if family == "falcon":
+        if not cfg.separate_ln and cfg.n_kv_heads not in (1, cfg.n_heads):
+            raise ValueError(f"a 7b-style Falcon config has 1 or {cfg.n_heads} kv heads in transformers' format, "
+                             f"not {cfg.n_kv_heads}")
+        return {"architectures": ["FalconForCausalLM"], "model_type": "falcon", "vocab_size": cfg.vocab_size,
+                "hidden_size": cfg.dim, "num_hidden_layers": cfg.n_layers, "num_attention_heads": cfg.n_heads,
+                "num_kv_heads": cfg.n_kv_heads, "multi_query": cfg.n_kv_heads == 1,
+                "new_decoder_architecture": cfg.separate_ln, "parallel_attn": True, "bias": False, "alibi": False,
+                "layer_norm_epsilon": cfg.norm_eps, "rope_theta": cfg.rope_theta,
+                "max_position_embeddings": cfg.max_seq_len, "tie_word_embeddings": True, "torch_dtype": dtype,
+                "bos_token_id": 11, "eos_token_id": 11}
     return {"architectures": ["LlamaForCausalLM"], "model_type": "llama", "vocab_size": cfg.vocab_size,
             "hidden_size": cfg.dim, "intermediate_size": cfg.hidden_dim, "num_hidden_layers": cfg.n_layers,
             "num_attention_heads": cfg.n_heads, "num_key_value_heads": cfg.n_kv_heads, "head_dim": cfg.head_size,
             "rms_norm_eps": cfg.norm_eps, "rope_theta": cfg.rope_theta, "max_position_embeddings": cfg.max_seq_len,
-            "tie_word_embeddings": cfg.tie_embeddings, "torch_dtype": str(cfg.dtype).removeprefix("torch."),
+            "tie_word_embeddings": cfg.tie_embeddings, "torch_dtype": dtype,
             "hidden_act": "silu", "bos_token_id": 1, "eos_token_id": 2}
 
 
@@ -78,7 +135,7 @@ def _host_bytes(t: torch.Tensor) -> np.ndarray:
     return t.contiguous().view(torch.uint8).cpu().numpy()
 
 
-def write_hf(path: str, model: Llama, shard_bytes: int = SHARD_BYTES) -> Dict[str, Any]:
+def write_hf(path: str, model: nn.Module, shard_bytes: int = SHARD_BYTES) -> Dict[str, Any]:
     """Write `model` as an HF directory: config.json and safetensors
     shards of at most `shard_bytes` (one file, or several with
     model.safetensors.index.json). Returns {"files", "bytes"}."""
@@ -260,8 +317,6 @@ def spm_vocab(size: int = 32000, seed: int = 0, texts: Tuple[str, ...] = (),
 
 
 def main(argv=None) -> int:
-    from substratus_tpu_torch.models import llama, registry
-
     ap = argparse.ArgumentParser(prog="python -m substratus_tpu_torch.tools.ckpt_writer")
     ap.add_argument("--config", default="tiny", help="named config, random weights from --seed")
     ap.add_argument("--seed", type=int, default=0)
@@ -269,10 +324,12 @@ def main(argv=None) -> int:
     ap.add_argument("--gguf", default=None, help="write a Q4_0 GGUF file with an SPM vocabulary here")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    cfg = registry.find_named_config(args.config)[1]
+    family, cfg = registry.find_named_config(args.config)
+    if args.gguf and registry.family_of(cfg) != "llama":
+        raise SystemExit(f"--gguf writes llama models; {args.config} is {registry.family_of(cfg)}'s")
     if args.gguf and cfg.vocab_size < 512:  # room for the byte pieces and some merges
         cfg = cfg.replace(vocab_size=512)
-    model = llama.init_params(cfg, seed=args.seed, device=args.device)
+    model = family.init_params(cfg, seed=args.seed, device=args.device)
     if args.hf:
         print(f"{args.hf}: {write_hf(args.hf, model)}")
     if args.gguf:

@@ -9,9 +9,11 @@ checkpoints.py):
   resumes from the newest;
 * model artifacts: ``save_artifact`` writes the model's state_dict
   (``params.pt``) beside the ``substratus.json`` sidecar (model config,
-  family, ``"format": "substratus-tpu-torch-v1"``, and ``quantized``, the
-  weights held int8 or int4, as after QLoRA); ``load_artifact`` rebuilds
-  the ``Llama`` with that layout;
+  family (llama, opt or falcon, models/registry.py), ``"format":
+  "substratus-tpu-torch-v1"``, and for llama ``quantized``, the weights
+  held int8 or int4, as after QLoRA); ``load_artifact`` rebuilds the
+  family's module with that layout (an artifact without a family is
+  llama's, as in the JAX package);
 * adapter artifacts: ``save_adapter_artifact`` writes a LoRA adapter's
   state_dict (``adapters.pt``) and its sidecar (rank, alpha, targets).
 
@@ -27,7 +29,10 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from substratus_tpu_torch.models.llama import Llama, LlamaConfig, lay_out_quantized, quantized_layout
+from torch import nn
+
+from substratus_tpu_torch.models import registry
+from substratus_tpu_torch.models.llama import lay_out_quantized, quantized_layout
 from substratus_tpu_torch.utils.device import DeviceLike, resolve_device
 
 META_FILE = "substratus.json"
@@ -44,7 +49,7 @@ def _atomic_save(obj: Any, path: str) -> None:
     os.replace(tmp, path)  # a reader sees the whole file or none
 
 
-def _cfg_to_dict(cfg: LlamaConfig) -> Dict[str, Any]:
+def _cfg_to_dict(cfg) -> Dict[str, Any]:
     d = dataclasses.asdict(cfg)
     d["dtype"] = str(cfg.dtype).removeprefix("torch.")
     # attn_impl is an execution choice, not architecture: never persisted.
@@ -52,10 +57,10 @@ def _cfg_to_dict(cfg: LlamaConfig) -> Dict[str, Any]:
     return d
 
 
-def _cfg_from_dict(d: Dict[str, Any]) -> LlamaConfig:
+def _cfg_from_dict(d: Dict[str, Any], family: str = "llama"):
     d = dict(d)
     d["dtype"] = getattr(torch, d.get("dtype", "bfloat16"))
-    return LlamaConfig(**d)
+    return registry.config_class(family)(**d)
 
 
 def _write_meta(path: str, meta: Dict[str, Any], extra_meta: Optional[Dict[str, Any]]) -> None:
@@ -64,27 +69,30 @@ def _write_meta(path: str, meta: Dict[str, Any], extra_meta: Optional[Dict[str, 
         json.dump(meta, f, indent=2)
 
 
-def save_artifact(path: str, params: Llama, cfg: LlamaConfig, extra_meta: Optional[Dict[str, Any]] = None) -> None:
+def save_artifact(path: str, params: nn.Module, cfg, extra_meta: Optional[Dict[str, Any]] = None) -> None:
     """Write a model artifact: params.pt (the state_dict) and the
     substratus.json sidecar."""
     os.makedirs(path, exist_ok=True)
     _atomic_save(params.state_dict(), os.path.join(path, PARAMS_FILE))
-    meta = {"model_config": _cfg_to_dict(cfg), "family": "llama", "format": FORMAT}
-    layout = quantized_layout(params)
+    meta = {"model_config": _cfg_to_dict(cfg), "family": registry.family_of(cfg), "format": FORMAT}
+    layout = quantized_layout(params) if getattr(registry.module_of(cfg), "SUPPORTS_QUANTIZE", False) else {}
     if layout:
         meta["quantized"] = layout
     _write_meta(path, meta, extra_meta)
 
 
-def load_artifact(path: str, device: DeviceLike = None) -> Tuple[LlamaConfig, Llama]:
+def load_artifact(path: str, device: DeviceLike = None) -> Tuple[Any, nn.Module]:
     """(cfg, model) of a save_artifact directory, on `device` (cuda unless
-    the caller asks for the CPU)."""
+    the caller asks for the CPU), built by the family the sidecar names."""
     with open(os.path.join(path, META_FILE)) as f:
         meta = json.load(f)
     if meta.get("format") != FORMAT:
         raise ValueError(f"{path}: format {meta.get('format')!r} is not {FORMAT!r}")
-    cfg = _cfg_from_dict(meta["model_config"])
-    model = lay_out_quantized(Llama(cfg, device=resolve_device(device)), meta.get("quantized", {}))
+    family = meta.get("family", "llama")
+    cfg = _cfg_from_dict(meta["model_config"], family)
+    model = registry.MODEL_CLASSES[family](cfg, device=resolve_device(device))
+    if meta.get("quantized"):
+        model = lay_out_quantized(model, meta["quantized"])
     # Memory-mapped on the host, copied tensor by tensor into the model:
     # no second device copy of the weights.
     state = torch.load(os.path.join(path, PARAMS_FILE), map_location="cpu", mmap=True, weights_only=True)

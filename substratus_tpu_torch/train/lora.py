@@ -1,10 +1,13 @@
-"""LoRA adapters (port of substratus_tpu/train/lora.py), llama family.
+"""LoRA adapters (port of substratus_tpu/train/lora.py) for every family:
+llama's attention and MLP projections, OPT's and Falcon's attention
+projections (wq, wk, wv, wo; Falcon's wk/wv are [D, KH, hd], KH = 1 on
+falcon-7b), which are all their forwards adapt.
 
 The JAX package stacks every layer's adapter on a leading L axis
 ({name: {a: [L, in, r], b: [L, r, *out]}}); the port keeps one entry per
-layer, beside the per-layer ``LlamaBlock``s, as the parameters of
+layer, beside the family's per-layer blocks, as the parameters of
 ``LoraAdapters``: ``adapters.layers[i][name]["a"]`` is [in, r] and
-``["b"]`` is [r, *out]. models/llama.py::forward takes
+``["b"]`` is [r, *out]. Each family's forward takes
 ``{"layers": adapters.layers, "scale": alpha / rank}``.
 """
 from __future__ import annotations
@@ -15,7 +18,8 @@ from typing import Dict, List, Tuple
 import torch
 from torch import nn
 
-from substratus_tpu_torch.models.llama import Llama, LlamaConfig, _check_dense
+from substratus_tpu_torch.models import registry
+from substratus_tpu_torch.models.llama import _check_dense
 from substratus_tpu_torch.ops.quant import QTensor
 from substratus_tpu_torch.ops.quant4 import Q4Tensor
 from substratus_tpu_torch.utils.device import DeviceLike, resolve_device, seeded_generator
@@ -24,10 +28,11 @@ from substratus_tpu_torch.utils.device import DeviceLike, resolve_device, seeded
 DEFAULT_TARGETS = ("wq", "wv")
 
 
-def _shapes(cfg: LlamaConfig) -> Dict[str, Tuple[int, Tuple[int, ...]]]:
-    """name -> (in_dim, out_shape) of each adaptable projection."""
+def _shapes(cfg) -> Dict[str, Tuple[int, Tuple[int, ...]]]:
+    """name -> (in_dim, out_shape) of each projection the config's family
+    adapts (its LORA_TARGETS: the MLP's only on llama)."""
     hd = cfg.head_size
-    return {
+    shapes = {
         "wq": (cfg.dim, (cfg.n_heads, hd)),
         "wk": (cfg.dim, (cfg.n_kv_heads, hd)),
         "wv": (cfg.dim, (cfg.n_kv_heads, hd)),
@@ -36,6 +41,7 @@ def _shapes(cfg: LlamaConfig) -> Dict[str, Tuple[int, Tuple[int, ...]]]:
         "w_up": (cfg.dim, (cfg.hidden_dim,)),
         "w_down": (cfg.hidden_dim, (cfg.dim,)),
     }
+    return {name: shapes[name] for name in registry.module_of(cfg).LORA_TARGETS}
 
 
 class LoraAdapters(nn.Module):
@@ -57,7 +63,7 @@ class LoraAdapters(nn.Module):
 
 
 def init_lora(
-    cfg: LlamaConfig,
+    cfg,
     seed: int = 0,
     rank: int = 8,
     targets: Tuple[str, ...] = DEFAULT_TARGETS,
@@ -73,7 +79,8 @@ def init_lora(
     shapes = _shapes(cfg)
     unknown = [name for name in targets if name not in shapes]
     if unknown:
-        raise ValueError(f"unknown LoRA targets {unknown} (one of {sorted(shapes)})")
+        raise ValueError(f"unknown LoRA targets {unknown} for the {registry.family_of(cfg)} family (one of "
+                         f"{sorted(shapes)})")
     layers: List[Dict[str, Dict[str, torch.Tensor]]] = [{} for _ in range(cfg.n_layers)]
     for name in targets:
         in_dim, out_shape = shapes[name]
@@ -85,7 +92,7 @@ def init_lora(
 
 
 @torch.no_grad()
-def merge_lora(params: Llama, adapters: LoraAdapters, scale: float) -> Llama:
+def merge_lora(params: nn.Module, adapters: LoraAdapters, scale: float) -> nn.Module:
     """A model to save or serve without adapters: the base weights plus
     scale * A @ B (in f32, then rounded to W's dtype), one layer at a time.
     A quantized base weight (QLoRA) is dequantized in f32 first and the

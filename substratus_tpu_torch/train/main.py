@@ -7,19 +7,24 @@ Container contract: the base model at /content/model, the dataset at
 /content/artifacts. It trains from a checkpoint (``--model``, else the
 mounted /content/model: a .gguf file, a port artifact or a local HF
 directory, resolved as serve.main resolves it, the tokenizer from the same
-path), or else a named configuration from random weights, on one card, or
-on the CPU with ``--device cpu``.
+path), or else a named configuration from random weights (``config``: any
+family's, e.g. ``llama2-7b``, ``opt-125m``, ``falcon-7b``), on one card,
+or on the CPU with ``--device cpu``. The trainer takes the family's module
+from the registry; LoRA adapts the attention projections of every family
+(and llama's MLP).
 
 params.json keys served, under the JAX entry point's names and defaults:
 ``steps`` (or ``max_steps``), ``batch_size``, ``seq_len``,
 ``learning_rate``, ``warmup_steps``, ``save_steps``, ``lora_rank``,
 ``lora_alpha``, ``config``, ``remat``, ``seed``, ``grad_accum_steps``;
 ``quantize``: ``int8`` quantizes a loaded base that is not quantized yet
-(QLoRA: LoRA adapters over int8 weights, as the JAX entry point does),
-``none`` leaves it; without a model it exits (QLoRA needs a base model);
-``attn_impl``: absent, ``xla`` or ``flash`` run the flash kernels and
-their backward (the port has no XLA), ``plain`` the plain attention (for
-the CPU); ``dp``/``fsdp``/``sequence``/``tensor`` only as 1 or -1 (one
+(QLoRA: LoRA adapters over int8 weights, as the JAX entry point does; a
+llama base only: an OPT or Falcon base exits), ``none`` leaves it; without
+a model it exits (QLoRA needs a base model); ``attn_impl``: absent, ``xla``
+or ``flash`` run the flash kernels and their backward (the port has no
+XLA), ``plain`` the plain attention (for the CPU); OPT and Falcon run the
+flash kernels and print that ``attn_impl`` is ignored, as the JAX entry
+point prints it; ``dp``/``fsdp``/``sequence``/``tensor`` only as 1 or -1 (one
 card). Every other key or value exits naming the ROADMAP item that will
 serve it.
 
@@ -94,7 +99,7 @@ def run(argv=None) -> Dict[str, Any]:
     run the merged copy; the trainer keeps its base and adapters), the
     StepLogger, the first step of this run, and per step of this run the
     loss, step seconds and checkpoint seconds; the artifact's seconds."""
-    from substratus_tpu_torch.models import llama, registry
+    from substratus_tpu_torch.models import registry
     from substratus_tpu_torch.ops.quant import is_quantized
     from substratus_tpu_torch.serve.tokenizer import copy_tokenizer, load_tokenizer
     from substratus_tpu_torch.train.checkpoints import CheckpointManager, save_adapter_artifact, save_artifact
@@ -123,8 +128,12 @@ def run(argv=None) -> Dict[str, Any]:
         cfg, params = load_checkpoint(model_path, device)
         tokenizer = load_tokenizer(model_path)
         check_vocab(tokenizer, cfg)
+        family = registry.module_of(cfg)
+        if p.get("quantize") == "int8" and not getattr(family, "SUPPORTS_QUANTIZE", False):
+            raise SystemExit(f"params.json: quantize='int8' (QLoRA) trains over an int8 llama base; "
+                             f"{type(cfg).__name__} weights are not quantized (as in the JAX package)")
         if p.get("quantize") == "int8" and not is_quantized(params):  # int8 artifacts arrive quantized
-            llama.quantize_weights(params, "int8")
+            family.quantize_weights(params, "int8")
         print(f"base model {model_path}: {cfg.n_layers} layers, dim {cfg.dim}, {cfg.dtype}"
               f"{', int8 (QLoRA)' if is_quantized(params) else ''}", flush=True)
     else:
@@ -132,7 +141,10 @@ def run(argv=None) -> Dict[str, Any]:
         tokenizer = load_tokenizer(None)
         if cfg.vocab_size < tokenizer.vocab_size:
             cfg = cfg.replace(vocab_size=tokenizer.vocab_size)
-    cfg = cfg.replace(attn_impl=ATTN_IMPLS[p.get("attn_impl", "xla")])
+    if hasattr(cfg, "attn_impl"):
+        cfg = cfg.replace(attn_impl=ATTN_IMPLS[p.get("attn_impl", "xla")])
+    elif "attn_impl" in p:
+        print(f"attn_impl ignored for the {type(cfg).__name__} family", flush=True)
     accum = max(1, int(p.get("grad_accum_steps", 1)))
     if batch_size % accum:
         batch_size = (batch_size // accum + 1) * accum
@@ -151,7 +163,7 @@ def run(argv=None) -> Dict[str, Any]:
     trainer = Trainer(cfg, tc, params=params, device=device)
     data = PackedDataset(args.data, tokenizer, batch_size, seq_len, seed=tc.seed)
     print(f"training on {device}: steps={steps}, batch {batch_size} x {seq_len}, corpus={data.n_tokens} tokens, "
-          f"lora_rank={lora_rank}, attention {cfg.attn_impl}", flush=True)
+          f"lora_rank={lora_rank}, attention {getattr(cfg, 'attn_impl', 'flash')}", flush=True)
 
     ckpt = CheckpointManager(os.path.join(args.out, "checkpoints"),
                              save_steps=int(p.get("save_steps", max(1, steps // 5))))

@@ -1,9 +1,10 @@
 """The trainer (port of substratus_tpu/train/trainer.py) on one card: full
-or LoRA finetuning of a llama model, with gradient accumulation and
-per-block recompute (remat).
+or LoRA finetuning of a model of any family (llama, opt, falcon; the
+family module comes from models/registry.py, as in the JAX trainer), with
+gradient accumulation and per-block recompute (remat).
 
 Where the JAX trainer jits one sharded step over a mesh, this one runs the
-step eagerly on one device: the forward (models/llama.py, attention
+step eagerly on one device: the forward (the family's, attention
 through the flash kernel and its FlashAttention backward), the loss in f32,
 torch.autograd.grad for the trainable tensors, then the optax-equivalent
 optimizer of train/optim.py. Meshes, process counts and globally sharded
@@ -20,8 +21,9 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from substratus_tpu_torch.models import llama
-from substratus_tpu_torch.models.llama import Llama, LlamaConfig
+from torch import nn
+
+from substratus_tpu_torch.models import registry
 from substratus_tpu_torch.train import lora as lora_lib
 from substratus_tpu_torch.train.optim import AdamW, warmup_cosine_decay_schedule
 from substratus_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -86,14 +88,19 @@ class Trainer:
 
     In LoRA mode `lora` holds the adapters (the trainable tensors) and
     `params` stays frozen; otherwise every tensor of `params` trains.
-    Random weights come from init_params(seed=tc.seed), adapters from
-    init_lora(seed=tc.seed + 1), unless `params` is given."""
+    Random weights come from the family's init_params(seed=tc.seed),
+    adapters from init_lora(seed=tc.seed + 1), unless `params` is given.
+    The family module comes from the config's type."""
 
-    def __init__(self, cfg: LlamaConfig, tc: TrainConfig, params: Optional[Llama] = None,
+    def __init__(self, cfg, tc: TrainConfig, params: Optional[nn.Module] = None,
                  device: DeviceLike = None):
         self.cfg, self.tc = cfg, tc
+        self.model = registry.module_of(cfg)
+        if tc.lora_rank > 0 and not getattr(self.model, "SUPPORTS_LORA", False):
+            raise NotImplementedError(f"LoRA is not implemented for the {registry.family_of(cfg)} family; use full "
+                                      "finetuning (lora_rank: 0)")
         if params is None:
-            params = llama.init_params(cfg, seed=tc.seed, device=resolve_device(device))
+            params = self.model.init_params(cfg, seed=tc.seed, device=resolve_device(device))
         self.params = params
         self.device = params.device
         if tc.lora_rank > 0:
@@ -117,7 +124,7 @@ class Trainer:
         """(logits, targets, weights) of next-token prediction: the
         arguments of cross_entropy_sum / cross_entropy_loss."""
         lora = {"layers": self.lora.layers, "scale": self.lora_scale} if self.lora is not None else None
-        logits, _ = llama.forward(self.params, tokens, self.cfg, lora=lora, remat=self.tc.remat, train=True)
+        logits, _ = self.model.forward(self.params, tokens, self.cfg, lora=lora, remat=self.tc.remat, train=True)
         return logits[:, :-1], tokens[:, 1:], weights[:, 1:]
 
     def train_step(self, batch: Dict[str, np.ndarray]) -> float:

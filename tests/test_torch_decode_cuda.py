@@ -149,12 +149,14 @@ def test_ragged_caches(cuda):
 
 def test_entry_points_refuse(cuda):
     """The C entry points refuse what the design does not take: a head_dim
-    of 96, a group of 3, rows that are not whole tiles or leave a split
-    empty, a missing workspace, an int8 cache whose S is not a multiple of
-    4 (its scale rows are copied 16 bytes at a time), a misaligned cache."""
+    of 96, a group of more slices of 8 query rows than the grid's z axis
+    holds (65535), rows that are not whole tiles or leave a split empty, a
+    missing workspace, an int8 cache whose S is not a multiple of 4 (its
+    scale rows are copied 16 bytes at a time), a misaligned cache. A group
+    of 3 they take (its values: tests/test_torch_decode_groups_cuda.py)."""
     lib = kernels.library()
     b, s, d = 2, 512, 128
-    q = torch.zeros((b, 1, 8, d), dtype=torch.bfloat16, device=cuda)
+    q = torch.zeros((b, 1, 24, d), dtype=torch.bfloat16, device=cuda)  # room for 24 query heads
     k = torch.zeros((b, 8, s, d), dtype=torch.bfloat16, device=cuda)
     k8 = torch.zeros((b, 8, s - 2, d), dtype=torch.int8, device=cuda)
     sc = torch.zeros((b, 8, s), dtype=torch.float32, device=cuda)
@@ -169,7 +171,8 @@ def test_entry_points_refuse(cuda):
 
     assert call() == 0
     torch.cuda.synchronize()
-    assert call(dd=96) == -2 and call(h=24, kh=8) == -2
+    assert call(dd=96) == -2 and call(h=24, kh=8) == 0 and call(h=8 * 65535 + 1, kh=1) == -1
+    torch.cuda.synchronize()
     assert call(rows=200) == -1 and call(rows=128, n_split=2) == -1 and call(rows=256, n_split=3) == -1
     assert call(w=None) == -1 and call(off=2) == -1
     assert call(kk=k8, ks=sc.data_ptr(), dtype=1, ss=s - 2) == -1  # S % 4 != 0

@@ -111,8 +111,11 @@ def test_safetensors_reader_matches_safe_open(tmp_path):
 
 
 def test_unported_and_non_local_checkpoints_exit(tmp_path):
-    for name, raw, match in (("opt", {"model_type": "opt"}, "other families"),
-                             ("falcon", {"model_type": "falcon"}, "other families"),
+    # OPT and Falcon load (tests/test_torch_families_load.py); the variants
+    # their JAX converters refuse exit.
+    for name, raw, match in (("opt", {"model_type": "opt", "do_layer_norm_before": False, "hidden_size": 8},
+                              "post-LN OPT"),
+                             ("falcon", {"model_type": "falcon", "alibi": True}, "alibi"),
                              ("mixtral", {"model_type": "mixtral", "num_local_experts": 8, "vocab_size": 32,
                                           "hidden_size": 8, "num_hidden_layers": 1, "num_attention_heads": 2,
                                           "intermediate_size": 16}, "mixture of experts"),
