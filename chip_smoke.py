@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases card,build,serve,serve-paged,profile
     python3 chip_smoke.py --phases card,build,serve-surface
     python3 chip_smoke.py --phases card,build,kernels,serve-families
+    python3 chip_smoke.py --phases card,build,serve-batchgen
 
 Phases, each of which exits non-zero on failure:
 
@@ -231,11 +232,50 @@ Phases, each of which exits non-zero on failure:
               train.main (r16 on wq/wv, batch 2 x 1024, remat, 2 steps):
               the flash backward at G = 71, 32 dQ and 32 dK/dV launches a
               step, finite losses, the merged artifact reloaded bit for
-              bit. The kernels phase holds the new head shapes too:
-              decode at falcon-7b's (B=16, bf16 and int8), falcon-40b's
-              (G = 16) and a group of 3, the fused decode at G = 71, the
-              flash forward at H = 71, KH = 1 and the backward at
-              falcon-7b's LoRA shape;
+              bit; (d) facebook/opt-2.7b's shape (hidden 2560, 32 heads:
+              head_dim 80, which no kernel is built for; 32 layers, FFN
+              10240, vocabulary 50272), written by tools/ckpt_writer.py as
+              overrides of opt-1.3b, served by serve.main --model with
+              (a)'s params: 8 greedy requests of 16-600 tokens, the dense
+              cache laid out at head_dim 128 and named so by the startup
+              line, every flash, cached-flash and decode launch through
+              the padded route (launches_padded), every token by the
+              single-shot reference; its LoRA gradients (r16 on wq/wv,
+              2 x 512) through the kernels against the plain attention by
+              the train phase's rule; 2 LoRA steps through train.main,
+              every forward, dQ and dK/dV launch padded. The kernels phase
+              holds the new head shapes too: decode at falcon-7b's (B=16,
+              bf16 and int8), falcon-40b's (G = 16) and a group of 3, the
+              fused decode at G = 71, the flash forward at H = 71, KH = 1
+              and the backward at falcon-7b's LoRA shape; and at head_dim
+              80 (padded to 128, the bound counted at 80) every family:
+              the flash forward, the cached flash (bf16, int8), the decode
+              (bf16, int8) and the fused decode over caches laid out at
+              128, dQ and dK/dV at opt-2.7b's LoRA shape; and a group of 3
+              over an int8 cache of 1022 rows (decode and fused), laid out
+              for the split design at 1024 rows;
+  serve-batchgen
+              examples/batch-generation/batchgen-server.yaml at llama2-7b
+              width (seed 0, written as an HF directory): a 64-record
+              manifest (48 text prompts of 16-1000 byte-tokens, 14 of
+              token ids, one with no prompt, one naming an adapter). (a)
+              python -m substratus_tpu_torch.serve.batchgen as a child with
+              the example's params (int8 weights, max_batch 16, maxTokens
+              128, the paged pool) and a progress port: every index once,
+              62 ok, the invalid and error records; its tokens/s, slot
+              occupancy, wall seconds, the mean decode phase from
+              /metrics, the weights' bytes and the peak while quantizing;
+              (b) the same child SIGKILLed once 16 records are durable, a
+              torn line appended to its last shard, the command again:
+              every index exactly once, `resumed` the durable count, the
+              rerun's records in a fresh shard; (c) the same manifest and
+              int8 weights in-process through BatchGenDriver on a dense
+              Engine: the decode kernel, the flash forward and the cached
+              flash launched 32 a step, prefill and chunk (replays
+              included); 8 greedy records of (a) and of (c) by the
+              single-shot reference; before (c), one replayed step of the
+              example's paged int8 engine at 16 slots under torch.profiler
+              (the weights' bf16 copies, the GEMMs, the gather);
   profile     (only when named) host-clock prefill and decode-step times
               (the overlapped graph replays) and, under torch.profiler,
               their device busy time and top kernels, after serve
@@ -413,20 +453,22 @@ def flash_case(gen, b, s, h, kh, causal, d=128, compare=False):
 
     from substratus_tpu_torch import kernels
     from substratus_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain, flash_fwd_design
+    from substratus_tpu_torch.ops.headdim import padded_head_dim
 
     dev = "cuda"
     q = torch.randn((b, s, h, d), generator=gen, device=dev).to(torch.bfloat16)
     k = torch.randn((b, s, kh, d), generator=gen, device=dev).to(torch.bfloat16)
     v = torch.randn((b, s, kh, d), generator=gen, device=dev).to(torch.bfloat16)
-    design = flash_fwd_design(d)
-    before = {x: getattr(flash_attention, f"launches_{x}") for x in ("wgmma", "mma")}
+    dp = padded_head_dim(d)
+    design = flash_fwd_design(dp)
+    before = {x: getattr(flash_attention, f"launches_{x}") for x in ("wgmma", "mma", "padded")}
     out, lse = flash_attention(q, k, v, causal, return_lse=True)
     launched = {x: getattr(flash_attention, f"launches_{x}") - n for x, n in before.items()}
     ref, ref_lse = flash_attention_plain(q, k, v, causal, return_lse=True)
     torch.cuda.synchronize()
-    label = f"flash b{b} s{s} h{h}/{kh} causal={causal}"
-    if launched != {x: int(x == design) for x in launched}:
-        fail(f"{label}: launches {launched}, want one of the {design} design")
+    label = f"flash b{b} s{s} h{h}/{kh} d{d} causal={causal}"
+    if launched != {x: int(x == design or (x == "padded" and dp != d)) for x in launched}:
+        fail(f"{label}: launches {launched}, want one of the {design} design{' at the padded route' * (dp != d)}")
     err = (out.float() - ref.float()).abs().max().item()
     rel = row_rel_err(out, ref)
     lse_err = (lse - ref_lse).abs().max().item()
@@ -444,8 +486,8 @@ def flash_case(gen, b, s, h, kh, causal, d=128, compare=False):
     pairs = s * (s + 1) // 2 if causal else s * s
     b_ms, by = bound(2 * (2 * b * s * h * d + 2 * b * s * kh * d), 4 * d * h * b * pairs)
     case = {
-        "case": f"B={b} S={s} H={h} KH={kh} D={d} causal={causal}", "design": design,
-        "max_abs_err": err, "lse_max_abs_err": lse_err, "tol": BF16_ATOL, "row_rel_err": rel,
+        "case": f"B={b} S={s} H={h} KH={kh} D={d}{f' (padded to {dp})' * (dp != d)} causal={causal}",
+        "design": design, "max_abs_err": err, "lse_max_abs_err": lse_err, "tol": BF16_ATOL, "row_rel_err": rel,
         "fault_row_rel_err": min(faults),
         "ms": time_ms(lambda: flash_attention(q, k, v, causal), hold=True),
         "plain_ms": time_ms(lambda: flash_attention_plain(q, k, v, causal), n=5),
@@ -465,12 +507,27 @@ def flash_case(gen, b, s, h, kh, causal, d=128, compare=False):
     return case
 
 
+def laid_out(t, rows: int, d: int):
+    """A [B, KH, S, D] cache (or its [B, KH, S] scales: d None) with zero
+    rows and columns appended up to the layout of cache_layout."""
+    import torch.nn.functional as F
+
+    if t is None:
+        return None
+    pad = (0, rows - t.shape[2]) if d is None else (0, d - t.shape[3], 0, rows - t.shape[2])
+    return F.pad(t, pad).contiguous()
+
+
 def decode_case(gen, b, s, h, kh, int8, positions, d=128, compare=False):
     """Single-token decode attention against its plain version at
     `positions`: the call must launch the design decode_design names; held
     by max-abs and per output vector (row_rel_err <= ROW_REL), a limit
     that must reject the planted fault (the plain output without each
-    slot's last live split of decode_split_plan's rows). compare: the
+    slot's last live split of decode_split_plan's rows). The kernel reads
+    the cache as cache_layout lays it out (a head dim not built padded to
+    the next built one, the rows of an int8 cache for the split design at
+    a group it alone takes rounded up to a multiple of 4; positions inside
+    the s rows), the plain version the s rows at the true D. compare: the
     design's kernel timed in turns with decode_attn.cu's (the rows design,
     called through its C entry point), and each C entry point's host time
     a call. The kernel and SDPA are timed with the card held (time_ms)."""
@@ -480,7 +537,7 @@ def decode_case(gen, b, s, h, kh, int8, positions, d=128, compare=False):
     from substratus_tpu_torch import kernels
     from substratus_tpu_torch.ops.decode_attention import decode_attention, decode_attention_plain
     from substratus_tpu_torch.ops.fused_decode import (
-        decode_design, decode_split_plan, group_slices, sm_count, split_workspace)
+        cache_layout, decode_design, decode_split_plan, group_slices, sm_count, split_workspace)
     from substratus_tpu_torch.ops.quant import quantize_kv
 
     dev = "cuda"
@@ -493,15 +550,21 @@ def decode_case(gen, b, s, h, kh, int8, positions, d=128, compare=False):
         k, ks = quantize_kv(k)
         v, vs = quantize_kv(v)
         ks, vs = ks[..., 0].contiguous(), vs[..., 0].contiguous()
-    design = decode_design(d, s, int8)
-    before = {x: getattr(decode_attention, f"launches_{x}") for x in ("split", "rows")}
-    out = decode_attention(q, k, v, pos, ks, vs)
+    sc, dc = cache_layout(d, s, int8, h // kh)
+    padded = (sc, dc) != (s, d)
+    if padded and max(positions) >= s:
+        fail(f"decode case at a laid-out cache: positions {positions} reach past its {s} rows")
+    kc, vc = (laid_out(t, sc, dc) if padded else t for t in (k, v))
+    ksc, vsc = (laid_out(t, sc, None) if padded else t for t in (ks, vs))
+    design = decode_design(dc, sc, int8, h // kh)
+    before = {x: getattr(decode_attention, f"launches_{x}") for x in ("split", "rows", "padded")}
+    out = decode_attention(q, kc, vc, pos, ksc, vsc)
     launched = {x: getattr(decode_attention, f"launches_{x}") - n for x, n in before.items()}
     ref = decode_attention_plain(q, k, v, pos, ks, vs)
     torch.cuda.synchronize()
     label = f"decode b{b} s{s} h{h}/{kh} d{d} int8={int8}"
-    if launched != {x: int(x == design) for x in launched}:
-        fail(f"{label}: launches {launched}, want one of the {design} design")
+    if launched != {x: int(x == design or (x == "padded" and dc != d)) for x in launched}:
+        fail(f"{label}: launches {launched}, want one of the {design} design at the cache's head dim {dc}")
     err = (out.float() - ref.float()).abs().max().item()
     rel = row_rel_err(out, ref)
     if not (torch.isfinite(out.float()).all() and err <= BF16_ATOL and rel <= ROW_REL):
@@ -526,10 +589,13 @@ def decode_case(gen, b, s, h, kh, int8, positions, d=128, compare=False):
         mask = (torch.arange(s, device=dev)[None, :] <= pos[:, None].long())[:, None, None, :]
         gqa = {"enable_gqa": True} if h != kh else {}
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, k, v, attn_mask=mask, **gqa), hold=True)
+    if padded:  # the plan of the laid-out cache, the kernel's
+        n_split, rows = decode_split_plan(sc, b * kh * group_slices(h // kh)[1], sm_count(0))
     case = {
-        "case": f"B={b} S={s} H={h} KH={kh} D={d} {'int8' if int8 else 'bf16'} pos={positions}", "design": design,
+        "case": f"B={b} S={s} H={h} KH={kh} D={d} {'int8' if int8 else 'bf16'} pos={positions}"
+                + (f" (cache laid out {sc} x {dc})" if padded else ""), "design": design,
         "plan": [n_split, rows], "max_abs_err": err, "tol": BF16_ATOL, "row_rel_err": rel, "fault_row_rel_err": fault,
-        "ms": time_ms(lambda: decode_attention(q, k, v, pos, ks, vs), hold=True),
+        "ms": time_ms(lambda: decode_attention(q, kc, vc, pos, ksc, vsc), hold=True),
         "plain_ms": time_ms(lambda: decode_attention_plain(q, k, v, pos, ks, vs), n=5),
         "library_ms": library_ms, "bound_ms": b_ms, "bound_by": by,
     }
@@ -568,6 +634,7 @@ def cached_case(gen, h, kh, int8, limit_row=False, b=1, sq=512, sk=4096, start=2
     from substratus_tpu_torch import kernels
     from substratus_tpu_torch.ops.flash_attention import (
         flash_cached_attention, flash_cached_attention_plain, flash_cached_design)
+    from substratus_tpu_torch.ops.headdim import padded_head_dim
     from substratus_tpu_torch.ops.quant import quantize_kv
 
     dev = "cuda"
@@ -586,16 +653,18 @@ def cached_case(gen, h, kh, int8, limit_row=False, b=1, sq=512, sk=4096, start=2
         k, ks = quantize_kv(k)
         v, vs = quantize_kv(v)
         ks, vs = ks[..., 0].contiguous(), vs[..., 0].contiguous()
-    design = flash_cached_design(d)
+    dp = padded_head_dim(d)  # the cache as the engine lays it out: zero columns up to a built head dim
+    design = flash_cached_design(dp)
     args = (q, k, v, pos, ks, vs, kv_len)
-    before = {x: getattr(flash_cached_attention, f"launches_{x}") for x in ("wgmma", "mma")}
-    out = flash_cached_attention(*args)
+    kernel_args = (q, laid_out(k, sk, dp), laid_out(v, sk, dp), pos, ks, vs, kv_len) if dp != d else args
+    before = {x: getattr(flash_cached_attention, f"launches_{x}") for x in ("wgmma", "mma", "padded")}
+    out = flash_cached_attention(*kernel_args)
     launched = {x: getattr(flash_cached_attention, f"launches_{x}") - n for x, n in before.items()}
     ref = flash_cached_attention_plain(*args)
     torch.cuda.synchronize()
-    label = f"flash_cached sq{sq} h{h}/{kh} int8={int8} limit_row={limit_row}"
-    if launched != {x: int(x == design) for x in launched}:
-        fail(f"{label}: launches {launched}, want one of the {design} design")
+    label = f"flash_cached sq{sq} h{h}/{kh} d{d} int8={int8} limit_row={limit_row}"
+    if launched != {x: int(x == design or (x == "padded" and dp != d)) for x in launched}:
+        fail(f"{label}: launches {launched}, want one of the {design} design{' at the padded route' * (dp != d)}")
     err = (out.float() - ref.float()).abs().max().item()
     rel = row_rel_err(out, ref)
     if not (torch.isfinite(out.float()).all() and err <= BF16_ATOL and rel <= ROW_REL):
@@ -621,11 +690,12 @@ def cached_case(gen, h, kh, int8, limit_row=False, b=1, sq=512, sk=4096, start=2
         gqa = {"enable_gqa": True} if h != kh else {}
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, k, v, attn_mask=mask, **gqa), hold=True)
     case = {
-        "case": f"B={b} Sq={sq} Sk={sk} H={h} KH={kh} D={d} {'int8' if int8 else 'bf16'} "
+        "case": f"B={b} Sq={sq} Sk={sk} H={h} KH={kh} D={d}{f' (cache at {dp})' * (dp != d)} "
+                f"{'int8' if int8 else 'bf16'} "
                 + (f"pos {start}..{start + sq - 1}" if starts is None else f"rows from {min(starts)}..{max(starts)}")
                 + f"{' kv_length, one row at limit -1' if limit_row else ''}",
         "design": design, "max_abs_err": err, "tol": BF16_ATOL, "row_rel_err": rel, "fault_row_rel_err": min(faults),
-        "ms": time_ms(lambda: flash_cached_attention(*args), hold=True),
+        "ms": time_ms(lambda: flash_cached_attention(*kernel_args), hold=True),
         "plain_ms": time_ms(lambda: flash_cached_attention_plain(*args), n=5),
         "library_ms": library_ms, "bound_ms": b_ms, "bound_by": by,
     }
@@ -657,8 +727,9 @@ def fused_case(gen, h, kh, int8, positions, b=8, s=4096, d=128, compare=False):
     from substratus_tpu_torch import kernels
     from substratus_tpu_torch.ops.decode_attention import _write_rows, decode_attention, decode_attention_plain
     from substratus_tpu_torch.ops.fused_decode import (
-        decode_design, decode_split_plan, fused_decode_attention, fused_decode_attention_plain, group_slices,
-        sm_count, split_workspace)
+        cache_layout, decode_design, decode_split_plan, fused_decode_attention, fused_decode_attention_plain,
+        group_slices, sm_count, split_workspace)
+    from substratus_tpu_torch.ops.headdim import pad_head
     from substratus_tpu_torch.ops.quant import quantize_kv
 
     dev = "cuda"
@@ -674,23 +745,34 @@ def fused_case(gen, h, kh, int8, positions, b=8, s=4096, d=128, compare=False):
         nks, nvs, cks, cvs = nks[..., 0], nvs[..., 0], cks[..., 0].contiguous(), cvs[..., 0].contiguous()
         cks[rows], cvs[rows] = nks[..., 0], nvs[..., 0]  # the caller's scale writes
         scales = (nks, nvs, cks, cvs)
-    design = decode_design(d, s, int8)
-    kc, vc, kp, vp = ck.clone(), cv.clone(), ck.clone(), cv.clone()
-    before = {x: getattr(fused_decode_attention, f"launches_{x}") for x in ("split", "rows")}
-    out, _, _ = fused_decode_attention(q, nk, nv, kc, vc, pos, *scales)
+    # The kernel's caches as cache_layout lays them out (zero columns and
+    # rows where the head dim or the design asks), the fresh rows padded
+    # as update_cache_and_attend pads them; the plain version's at s x d.
+    sc, dc = cache_layout(d, s, int8, h // kh)
+    padded = (sc, dc) != (s, d)
+    if padded and max(positions) >= s:
+        fail(f"fused case at a laid-out cache: positions {positions} reach past its {s} rows")
+    design = decode_design(dc, sc, int8, h // kh)
+    kc, vc = (laid_out(t, sc, dc) for t in (ck, cv))
+    kp, vp = ck.clone(), cv.clone()
+    k_scales = (scales[0], scales[1], laid_out(scales[2], sc, None), laid_out(scales[3], sc, None)) if int8 else ()
+    nkc, nvc = pad_head(nk, dc), pad_head(nv, dc)
+    before = {x: getattr(fused_decode_attention, f"launches_{x}") for x in ("split", "rows", "padded")}
+    out, _, _ = fused_decode_attention(q, nkc, nvc, kc, vc, pos, *k_scales)
     launched = {x: getattr(fused_decode_attention, f"launches_{x}") - n for x, n in before.items()}
     ref, _, _ = fused_decode_attention_plain(q, nk, nv, kp, vp, pos, *scales)
     torch.cuda.synchronize()
     label = f"fused_decode b{b} s{s} h{h}/{kh} d{d} int8={int8}"
-    if launched != {x: int(x == design) for x in launched}:
-        fail(f"{label}: launches {launched}, want one of the {design} design")
+    if launched != {x: int(x == design or (x == "padded" and dc != d)) for x in launched}:
+        fail(f"{label}: launches {launched}, want one of the {design} design at the cache's head dim {dc}")
     err = (out.float() - ref.float()).abs().max().item()
     rel = row_rel_err(out, ref)
     if not (torch.isfinite(out.float()).all() and err <= BF16_ATOL and rel <= ROW_REL):
         fail(f"{label}: max|err| {err} (tol {BF16_ATOL}), row error {rel} (limit {ROW_REL})")
-    if not (torch.equal(kc[rows], nk[:, :, 0]) and torch.equal(vc[rows], nv[:, :, 0])
-            and torch.equal(kc, kp) and torch.equal(vc, vp)):
-        fail(f"{label}: the cache row at pos is not the new row, or another row moved")
+    if not (torch.equal(kc[rows][..., :d], nk[:, :, 0]) and torch.equal(vc[rows][..., :d], nv[:, :, 0])
+            and torch.equal(kc[:, :, :s, :d], kp) and torch.equal(vc[:, :, :s, :d], vp)
+            and not kc[..., d:].any() and not kc[:, :, s:].any()):
+        fail(f"{label}: the cache row at pos is not the new row, or another row or a padding moved")
     # The planted fault: each slot's history without its last live split
     # (rows from cut on): the current token placed at row cut of a copy and
     # attended with rows 0..cut-1 by the plain decode attention.
@@ -711,11 +793,11 @@ def fused_case(gen, h, kh, int8, positions, b=8, s=4096, d=128, compare=False):
     nbytes = (2 * b * h * d * 2 + 2 * hist * kh * d * elem + (2 * hist * kh * 4 if int8 else 0)
               + 2 * 2 * b * kh * d * elem + (2 * b * kh * 4 if int8 else 0) + 4 * b)
     b_ms, by = bound(nbytes, 4 * d * h * (hist + b))
-    ks_c, vs_c = (scales[2], scales[3]) if int8 else (None, None)
+    ks_c, vs_c = (k_scales[2], k_scales[3]) if int8 else (None, None)
 
     def unfused():
-        _write_rows(kc, nk, pos2)
-        _write_rows(vc, nv, pos2)
+        _write_rows(kc, nkc, pos2)
+        _write_rows(vc, nvc, pos2)
         if int8:
             _write_rows(ks_c, scales[0], pos2)
             _write_rows(vs_c, scales[1], pos2)
@@ -726,12 +808,15 @@ def fused_case(gen, h, kh, int8, positions, b=8, s=4096, d=128, compare=False):
         qt = q.transpose(1, 2)
         mask = (torch.arange(s, device=dev)[None, :] <= pos2)[:, None, None, :]
         gqa = {"enable_gqa": True} if h != kh else {}
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kc, vc, attn_mask=mask, **gqa), hold=True)
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kp, vp, attn_mask=mask, **gqa), hold=True)
+    if padded:  # the plan of the laid-out cache, the kernel's
+        n_split, split_rows = decode_split_plan(sc, b * kh * group_slices(h // kh)[1], sm_count(0))
     case = {
-        "case": f"B={b} S={s} H={h} KH={kh} D={d} {'int8' if int8 else 'bf16'} pos={positions}", "design": design,
+        "case": f"B={b} S={s} H={h} KH={kh} D={d} {'int8' if int8 else 'bf16'} pos={positions}"
+                + (f" (cache laid out {sc} x {dc})" if padded else ""), "design": design,
         "plan": [n_split, split_rows], "max_abs_err": err, "tol": BF16_ATOL, "row_rel_err": rel,
         "fault_row_rel_err": fault,
-        "ms": time_ms(lambda: fused_decode_attention(q, nk, nv, kc, vc, pos, *scales), hold=True),
+        "ms": time_ms(lambda: fused_decode_attention(q, nkc, nvc, kc, vc, pos, *k_scales), hold=True),
         "plain_ms": time_ms(lambda: fused_decode_attention_plain(q, nk, nv, kp, vp, pos, *scales), n=5),
         "unfused_ms": time_ms(unfused, hold=True), "library_ms": library_ms, "bound_ms": b_ms, "bound_by": by,
     }
@@ -881,6 +966,7 @@ def bwd_case(gen, b, s, h, kh, causal, d=128):
 
     from substratus_tpu_torch import kernels
     from substratus_tpu_torch.ops import flash_attention as fa
+    from substratus_tpu_torch.ops.headdim import padded_head_dim
 
     dev = "cuda"
     q, do = (torch.randn((b, s, h, d), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
@@ -889,7 +975,9 @@ def bwd_case(gen, b, s, h, kh, causal, d=128):
     out, lse = fa.flash_attention(q, k, v, causal, return_lse=True)
     delta = fa.bwd_delta(out, do)
     args = (q, k, v, do, lse, delta, causal, scale)
-    design = fa.flash_bwd_design(d)
+    dp = padded_head_dim(d)  # a head dim not built runs padded (q, k, v, dO) and is sliced back
+    padded = [fn.launches_padded for fn in (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)]
+    design = fa.flash_bwd_design(dp)
     counters = [getattr(fn, f"launches_{design}") for fn in (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)]
     got = (fa.flash_attention_bwd_dq(*args), *fa.flash_attention_bwd_dkv(*args))
     ref = (fa._bwd_dq_plain(*args), *fa._bwd_dkv_plain(*args))
@@ -905,8 +993,10 @@ def bwd_case(gen, b, s, h, kh, causal, d=128):
     dkv_fault = fa._bwd_dkv_plain(q, k, v, do_cut, lse, delta_cut, causal, scale)
     torch.cuda.synchronize()
     label = f"flash backward b{b} s{s} h{h}/{kh} d{d} causal={causal}"
-    if launched != [1, 1]:
-        fail(f"{label}: launches of the {design} design {launched}, want one of each kernel")
+    padded = [fn.launches_padded - n for fn, n in zip((fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv), padded)]
+    if launched != [1, 1] or padded != [int(dp != d)] * 2:
+        fail(f"{label}: launches of the {design} design {launched}, at the padded route {padded}, want one of each "
+             f"kernel{' padded' * (dp != d)}")
     errs, rels = [], []
     for name, g, r in zip(("dq", "dk", "dv"), got, ref):
         errs.append((g.float() - r.float()).abs().max().item())
@@ -923,18 +1013,21 @@ def bwd_case(gen, b, s, h, kh, causal, d=128):
     library_ms = time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True))
     pairs = s * (s + 1) // 2 if causal else s * s
     read = 2 * (2 * b * s * h * d + 2 * b * s * kh * d) + 4 * 2 * b * h * s  # q, dO, k, v; lse, delta
-    name = f"B={b} S={s} H={h} KH={kh} D={d} causal={causal}"
+    name = f"B={b} S={s} H={h} KH={kh} D={d}{f' (padded to {dp})' * (dp != d)} causal={causal}"
     dq_bound = bound(read + 2 * b * s * h * d, 6 * d * h * b * pairs)  # S, dP, dQ
     dkv_bound = bound(read + 2 * 2 * b * s * kh * d, 8 * d * h * b * pairs)  # S, dP, dV, dK
     delta_ms = time_ms(lambda: fa.bwd_delta(out, do))  # FlashAttention.backward's third launch
     # Host time of one call of the dQ kernel's C entry point: the wgmma
     # design encodes four tensor maps a call, the mma design none.
-    dq_out = torch.empty_like(q)
-    c_dq = getattr(kernels.library(), "flash_bwd_dq_wgmma" if design == "wgmma" else "flash_bwd_dq")
-    c_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-              dq_out.data_ptr(), b, s, s, h, kh, d, kernels.DTYPE_CODES[q.dtype], scale, int(causal),
-              kernels.stream_ptr(q.device))
-    host_us = host_time_us(lambda: kernels.check(c_dq(*c_args), "flash_bwd_dq"))
+    # (at a built head dim: the padded route's pads are host and device work of their own)
+    host_us = None
+    if dp == d:
+        dq_out = torch.empty_like(q)
+        c_dq = getattr(kernels.library(), "flash_bwd_dq_wgmma" if design == "wgmma" else "flash_bwd_dq")
+        c_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                  dq_out.data_ptr(), b, s, s, h, kh, d, kernels.DTYPE_CODES[q.dtype], scale, int(causal),
+                  kernels.stream_ptr(q.device))
+        host_us = host_time_us(lambda: kernels.check(c_dq(*c_args), "flash_bwd_dq"))
     return (
         {"case": name, "design": design, "max_abs_err": errs[0], "row_rel_err": rels[0],
          "fault_row_rel_err": faults[0], "delta_ms": delta_ms, "host_us": host_us,
@@ -963,6 +1056,7 @@ def kernel_phase():
         flash_case(gen, 1, 384, 32, 32, False),
         flash_case(gen, 8, 1024, 32, 4, True, d=64),  # tinyllama's heads in training
         flash_case(gen, 1, 512, 71, 1, True, d=64),  # falcon-7b's heads (MQA, G = 71), a 512-token bucket
+        flash_case(gen, 1, 512, 32, 32, True, d=80),  # opt-2.7b's heads: head_dim 80, padded to 128
     ]
     positions = [0, 1, 17, 255, 511, 700, 1000, 1023]
     decode = [
@@ -981,6 +1075,12 @@ def kernel_phase():
         decode_case(gen, 16, 1024, 71, 1, True, positions * 2, d=64),
         decode_case(gen, 8, 1024, 128, 8, False, positions, d=64),
         decode_case(gen, 8, 1024, 12, 4, False, positions),
+        # opt-2.7b's heads (head_dim 80) over a cache laid out at 128, bf16
+        # and int8; a group of 3 over an int8 cache of 1022 rows, which the
+        # rows design does not take: the split design on 1024 rows
+        decode_case(gen, 8, 1024, 32, 32, False, positions, d=80),
+        decode_case(gen, 8, 1024, 32, 32, True, positions, d=80),
+        decode_case(gen, 8, 1022, 12, 4, True, positions[:-1] + [1021]),
     ]
     cached = [
         cached_case(gen, 32, 32, False, compare=True),  # llama2-7b, the fifth chunk of a long prompt
@@ -990,6 +1090,7 @@ def kernel_phase():
         cached_case(gen, 32, 4, False, d=64, sq=1000, start=1024),  # tinyllama's heads, ragged
         # a verify round of width 5 at B=8 over a 1024-row cache, two rows idle at S-1
         cached_case(gen, 32, 32, False, b=8, sq=5, sk=1024, starts=[0, 131, 302, 511, 777, 1019, 1023, 1023]),
+        cached_case(gen, 32, 32, False, d=80),  # opt-2.7b's heads, the cache laid out at 128
     ]
     cached_int8 = [  # serve-int4's int8 cache
         cached_case(gen, 32, 32, True, compare=True),
@@ -997,6 +1098,7 @@ def kernel_phase():
         cached_case(gen, 32, 4, True, d=64, sq=1000, start=1024),
         # serve-spec (b)'s verify of width 4 at B=24 over the int8 cache, two rows idle at S-1
         cached_case(gen, 32, 32, True, b=24, sq=4, sk=1024, starts=[37 * i for i in range(22)] + [1023, 1023]),
+        cached_case(gen, 32, 32, True, d=80),  # head_dim 80 over an int8 cache laid out at 128
     ]
     spread = [0, 1, 300, 1024, 2047, 3000, 4000, 4095]  # one slot at S-1
     fused = [
@@ -1006,6 +1108,8 @@ def kernel_phase():
         fused_case(gen, 32, 8, True, spread, compare=True),
         fused_case(gen, 32, 32, False, [4000], b=1, compare=True),  # one long conversation
         fused_case(gen, 71, 1, False, [0, 1, 17, 255, 511, 700, 1000, 1023] * 2, b=16, s=1024, d=64),  # G = 71
+        fused_case(gen, 32, 32, False, positions, s=1024, d=80),  # head_dim 80, the cache laid out at 128
+        fused_case(gen, 12, 4, True, positions[:-1] + [1021], s=1022),  # a group of 3, int8, 1022 rows (1024)
     ]
     q4 = [  # the first case of each design is its main-path shape (q4_matmul.cu's: off the main path)
         q4_case(gen, 8, 11008, compare=True),  # llama2-7b w_gate/w_up at B=8
@@ -1036,6 +1140,7 @@ def kernel_phase():
         bwd_case(gen, 8, 1024, 32, 4, True, d=64),  # tinyllama's heads
         bwd_case(gen, 2, 1024, 32, 32, True, d=32),  # the mma design (head_dim 16 and 32)
         bwd_case(gen, 2, 1024, 71, 1, True, d=64),  # falcon-7b's LoRA step: dK/dV summed over 71 heads
+        bwd_case(gen, 2, 512, 32, 32, True, d=80),  # opt-2.7b's LoRA step (B=2 S=512), padded to 128
     ]
     report = {"flash_fwd": flash, "decode_attn": decode, "flash_cached": cached, "flash_cached_int8": cached_int8,
               "fused_decode": fused,
@@ -1072,9 +1177,10 @@ def kernel_phase():
               + "; ".join(f"{x} {', '.join(f'{t:.4f}' for t in ts)}" for x, ts in c["turns_ms"].items())
               + f" (torch.matmul on the bf16 weight {c['library_ms']:.4f}, bound {c['bound_ms']:.4f})", flush=True)
     for dq, dkv in zip(report["flash_bwd_dq"], report["flash_bwd_dkv"]):
+        host = f"{dq['host_us']:.1f} us" if dq["host_us"] is not None else "n/a (padded)"
         print(f"flash backward [{dq['case']}]: dq {dq['ms']:.4f} + dkv {dkv['ms']:.4f} + bwd_delta "
               f"{dq['delta_ms']:.4f} = {dq['ms'] + dkv['ms'] + dq['delta_ms']:.4f} ms against SDPA's backward "
-              f"{dq['library_ms']:.4f}; dq's C entry point {dq['host_us']:.1f} us of host time a call "
+              f"{dq['library_ms']:.4f}; dq's C entry point {host} of host time a call "
               f"({dq['design']} design)", flush=True)
     return report
 
@@ -1211,7 +1317,8 @@ def _device_summary(prof, wall: float, reps: int, top_n: int = 10) -> dict:
     return {"profiled_ms": 1e3 * wall / reps, "device_busy_ms": 1e3 * busy / reps,
             "q4_matmul_ms": ms_of(Q4_NAMES), "q4_matmul_wgmma_ms": ms_of(("q4_matmul_wgmma",)),
             "q4_matmul_decode_ms": ms_of(("q4_matmul_decode",)), "q4_splitk_ms": ms_of(("q4_splitk",)),
-            "gemm_ms": ms_of(GEMM_NAMES), "flash_ms": {name: ms_of((name.lower(),)) for name in FLASH_NAMES},
+            "gemm_ms": ms_of(GEMM_NAMES), "copy_ms": ms_of(("copy",)), "gather_ms": ms_of(("gather",)),
+            "flash_ms": {name: ms_of((name.lower(),)) for name in FLASH_NAMES},
             "decode_ms": {name: ms_of((name,)) for name in DECODE_NAMES},
             "top": [{"name": e.key, "ms": dev_us(e) / 1e3 / reps, "calls": e.count / reps} for e in top]}
 
@@ -3469,45 +3576,80 @@ def _train_launches() -> dict:
             "flash_bwd_dkv_all": flash_attention_bwd_dkv.launches}
 
 
-def grad_check(trainer, batch, label: str) -> dict:
+def _grad_cosine(grads, refs):
+    """(cosine over all as one vector, worst per-tensor cosine, worst
+    per-tensor relative error) of two lists of gradients; fails on a
+    non-finite one or on a gradient the reference gives as 0 that is not."""
+    import torch
+
+    worst_cos, worst_rel, dot, n_g, n_ref = 1.0, 0.0, 0.0, 0.0, 0.0
+    for g, ref in zip(grads, refs):
+        g, ref = g.float().flatten(), ref.float().flatten()
+        if not torch.isfinite(g).all():
+            fail("non-finite gradients")
+        dot, n_g, n_ref = dot + (g @ ref).item(), n_g + (g @ g).item(), n_ref + (ref @ ref).item()
+        if ref.norm().item() == 0.0:
+            if g.norm().item() != 0.0:
+                fail("a gradient the plain path gives as 0 is not 0 through the kernels")
+            continue
+        worst_cos = min(worst_cos, (g @ ref / (g.norm() * ref.norm()).clamp(min=1e-30)).item())
+        worst_rel = max(worst_rel, ((g - ref).norm() / ref.norm()).item())
+    return dot / max((n_g * n_ref) ** 0.5, 1e-30), worst_cos, worst_rel
+
+
+def grad_check(trainer, batch, label: str, twin_floor: bool = False) -> dict:
     """One step's gradients of the trainer's trainable tensors through the
-    kernels and through attn_impl="plain" (same weights, same batch)."""
+    kernels and through attn_impl="plain" (same weights, same batch; OPT
+    and Falcon, which have no switch, through their module's attention
+    swapped for the plain one). twin_floor: also through autograd of the
+    kernels' plain twin, flash_attention_plain (p rounded to bf16 as the
+    kernels round it), and the cosine over all need only lie within twice
+    the twin's own distance from the plain path when that is the nearer
+    bar (OPT's gradients at opt-2.7b's width: two correct bf16 attentions
+    lie 0.9988-0.9991 apart at any depth, tools/grad_probe.py); the
+    per-tensor limits stay."""
     import numpy as np
     import torch
 
+    from substratus_tpu_torch.ops.attention import dot_product_attention
+    from substratus_tpu_torch.ops.flash_attention import flash_attention_plain
     from substratus_tpu_torch.train.trainer import cross_entropy_loss
 
     tokens = torch.from_numpy(np.asarray(batch["tokens"])).to(trainer.device, torch.long)
     weights = torch.from_numpy(batch["weights"]).to(trainer.device)
-    cfg = trainer.cfg
-    grads = []
-    for impl in ("flash", "plain"):
-        trainer.cfg = cfg.replace(attn_impl=impl)
-        loss = cross_entropy_loss(*trainer.loss_inputs(tokens, weights))
-        grads.append(torch.autograd.grad(loss, trainer.trainable))
-    trainer.cfg = cfg
-    def cos(a, b):
-        return (a @ b / (a.norm() * b.norm()).clamp(min=1e-30)).item()
-
-    worst_cos, worst_rel, dot, n_g, n_ref = 1.0, 0.0, 0.0, 0.0, 0.0
-    for g, ref in zip(*grads):
-        g, ref = g.float().flatten(), ref.float().flatten()
-        if not torch.isfinite(g).all():
-            fail(f"{label}: non-finite gradients through the kernels")
-        dot, n_g, n_ref = dot + (g @ ref).item(), n_g + (g @ g).item(), n_ref + (ref @ ref).item()
-        if ref.norm().item() == 0.0:
-            if g.norm().item() != 0.0:
-                fail(f"{label}: a gradient the plain path gives as 0 is not 0 through the kernels")
-            continue
-        worst_cos = min(worst_cos, cos(g, ref))
-        worst_rel = max(worst_rel, ((g - ref).norm() / ref.norm()).item())
-    all_cos = dot / max((n_g * n_ref) ** 0.5, 1e-30)
-    print(f"{label}: {len(grads[0])} trainable tensors' gradients through the kernels against attn_impl=plain: "
-          f"cosine {all_cos:.6f} over all (at least {GRAD_COS_ALL}); per tensor worst cosine {worst_cos:.6f} "
-          f"(at least {GRAD_COS}), worst relative error {worst_rel:.4g} (at most {GRAD_REL})", flush=True)
-    if all_cos < GRAD_COS_ALL or worst_cos < GRAD_COS or worst_rel > GRAD_REL:
+    cfg, kernel = trainer.cfg, getattr(trainer.model, "flash_attention", None)
+    swapped = {"plain": lambda q, k, v, causal: dot_product_attention(q, k, v, causal=causal),
+               "twin": lambda q, k, v, causal: flash_attention_plain(q, k, v, causal)}
+    grads = {}
+    for impl in ("flash", "plain") + (("twin",) if twin_floor else ()):
+        if hasattr(cfg, "attn_impl") and impl != "twin":
+            trainer.cfg = cfg.replace(attn_impl=impl)
+        elif impl != "flash":
+            trainer.model.flash_attention = swapped[impl]
+        try:
+            loss = cross_entropy_loss(*trainer.loss_inputs(tokens, weights))
+            grads[impl] = torch.autograd.grad(loss, trainer.trainable)
+        finally:
+            trainer.cfg = cfg
+            if kernel is not None:
+                trainer.model.flash_attention = kernel
+    all_cos, worst_cos, worst_rel = _grad_cosine(grads["flash"], grads["plain"])
+    bar, twin = GRAD_COS_ALL, None
+    if twin_floor:
+        twin = _grad_cosine(grads["twin"], grads["plain"])
+        bar = min(GRAD_COS_ALL, 1 - 2 * (1 - twin[0]))
+    print(f"{label}: {len(grads['flash'])} trainable tensors' gradients through the kernels against attn_impl=plain: "
+          f"cosine {all_cos:.6f} over all (at least {bar:.6f}"
+          + (f": the kernels' plain twin's own cosine {twin[0]:.6f} (worst tensor {twin[1]:.6f}, relative error "
+             f"{twin[2]:.4g}), at most twice as far from 1" if twin else "")
+          + f"); per tensor worst cosine {worst_cos:.6f} (at least {GRAD_COS}), worst relative error {worst_rel:.4g} "
+          f"(at most {GRAD_REL})", flush=True)
+    if all_cos < bar or worst_cos < GRAD_COS or worst_rel > GRAD_REL:
         fail(f"{label}: gradients through the kernels disagree with the plain path")
-    return {"cosine_all": all_cos, "worst_cosine": worst_cos, "worst_rel_err": worst_rel, "tensors": len(grads[0])}
+    out = {"cosine_all": all_cos, "worst_cosine": worst_cos, "worst_rel_err": worst_rel, "tensors": len(grads["flash"])}
+    if twin:
+        out.update(bar=bar, twin_cosine_all=twin[0], twin_worst_cosine=twin[1], twin_worst_rel_err=twin[2])
+    return out
 
 
 def profile_train_step(trainer, batch, label: str) -> dict:
@@ -3970,6 +4112,122 @@ def families_falcon_lora(card: str, tmp: Path) -> dict:
     return {"train_launches": train_launches, "peak_bytes": peak, "artifact_load_s": load_s}
 
 
+# facebook/opt-2.7b's published shape (config.json: hidden_size 2560, 32
+# attention heads, so head_dim 80; 32 layers, ffn_dim 10240, vocabulary
+# 50272) as overrides of opt-1.3b: the port's CONFIGS gain no entry the JAX
+# package lacks. Served with falcon-7b's params, then 2 LoRA steps of 2 x 512.
+OPT_2_7B_SHAPE = "dim=2560,n_heads=32,n_layers=32,hidden_dim=10240"
+OPT_2_7B = ("opt-2.7b's shape", (2560, 32, 32, 32, 50272))
+OPT_2_7B_PROMPTS = [p for p in FAMILY_PROMPTS if p[2] == 0.0][::2]  # 8 greedy prompts of 16-600 tokens
+OPT_2_7B_TRAIN = {"steps": 2, "batch_size": 2, "seq_len": 512, "lora_rank": 16, "lora_alpha": 16,
+                  "learning_rate": 2e-4, "save_steps": 2, "remat": True, "seed": 0}
+
+
+def families_opt_2_7b(card: str, tmp: Path) -> dict:
+    """(d) opt-2.7b's shape (head_dim 80, which no kernel is built for)
+    written by tools/ckpt_writer.py as an HF OPT directory, served by
+    serve.main --model (greedy requests, every launch through the padded
+    route, the reference), its LoRA gradients through the kernels against
+    the plain attention, then 2 LoRA steps through train.main."""
+    import numpy as np
+    import torch
+
+    from substratus_tpu_torch.models import opt
+    from substratus_tpu_torch.ops.decode_attention import decode_attention
+    from substratus_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_cached_attention)
+    from substratus_tpu_torch.tools.ckpt_writer import shape_overrides, write_hf
+    from substratus_tpu_torch.train import main as train_main
+    from substratus_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    label = "serve-families opt-2.7b"
+    cfg = shape_overrides(opt.CONFIGS["opt-1.3b"], OPT_2_7B_SHAPE)
+    if cfg.head_size != 80:
+        fail(f"{label}: head_dim {cfg.head_size}, want 80")
+    source = opt.init_params(cfg, seed=0, device="cuda")
+    disk_room(tmp, 2 * sum(t.numel() * t.element_size() for t in source.state_dict().values()), label)
+    written = write_hf(str(tmp / "opt-2.7b"), source)
+    loads, restore = timed_loads()
+    try:
+        server, engine, base = start_server("serve-families-opt-2.7b", FAMILY_PARAMS,
+                                            ["--model", str(tmp / "opt-2.7b")], model=OPT_2_7B)
+    finally:
+        restore()
+    requests = tee_requests(engine)
+    counters = (flash_attention, flash_cached_attention, decode_attention)
+    try:
+        same_state(engine.params, source, label)
+        route = engine.attention_route()
+        if "head_dim 80 padded to 128" not in route or engine.cache["k"].shape[-1] != 128:
+            fail(f"{label}: the dense cache is not laid out at 128: {route}")
+        zero_counts(engine, _serving_counters())
+        results, wall = run_concurrent(base, OPT_2_7B_PROMPTS)
+        wait_idle(engine)
+        launches = _serving_launches(engine)
+        padded = {c.__name__: launched(engine, c, "launches_padded") for c in counters}
+        stats = dict(engine.stats)
+        del engine.submit
+        reference = long_reference_check(engine, requests, label, quiet=True)
+    finally:
+        server.stop()
+    generated = check_usage(OPT_2_7B_PROMPTS, results)
+    _check_serving_launches(launches, stats, cfg.n_layers, label)
+    want = {"flash_attention": launches["flash_fwd"], "flash_cached_attention": launches["flash_cached"],
+            "decode_attention": launches["decode_attn"]}
+    if padded != want or not stats["prefill_chunks"]:
+        fail(f"{label}: launches at the padded route {padded}, want every launch {want} (and a chunked prompt)")
+    step_ms = 1e3 * stats["decode_seconds"] / stats["decode_steps"]
+    print(f"{label} [{card}]: {written['bytes']} bytes loaded in {loads[0]:.2f} s; {route}; {len(results)} greedy "
+          f"requests, {generated} tokens in {wall:.2f} s, mean decode step {step_ms:.2f} ms at up to 16 slots; "
+          f"launches {launches}, each through the padded route {padded}", flush=True)
+    del engine, server
+
+    # Its LoRA gradients through the kernels (forward, dQ, dK/dV at the
+    # padded head dim) against the plain attention, on the source weights.
+    tc = TrainConfig(lora_rank=16, lora_alpha=16, learning_rate=2e-4, seed=0, remat=True)
+    check = Trainer(cfg, tc, params=source)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    with torch.no_grad():
+        for layer in check.lora.layers:
+            for ab in layer.values():
+                ab["b"].copy_(torch.randn(ab["b"].shape, generator=gen, device="cuda") * 1e-2)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 512)), "weights": np.ones((2, 512), np.float32)}
+    grads = grad_check(check, batch, label, twin_floor=True)
+    del check, source
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    _token_corpus(tmp / "opt-2.7b-data", cfg.vocab_size, 200_000)
+    params_path = tmp / "opt-2.7b-train.json"
+    params_path.write_text(json.dumps(OPT_2_7B_TRAIN))
+    _zero_train_counts()
+    bwd = (flash_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv)
+    for c in bwd:
+        c.launches_padded = 0
+    res = train_main.run(["--model", str(tmp / "opt-2.7b"), "--data", str(tmp / "opt-2.7b-data"), "--out",
+                          str(tmp / "opt-2.7b-out"), "--params", str(params_path)])
+    train_launches = _train_launches()
+    n, L = len(res["losses"]), cfg.n_layers
+    want = {"flash_fwd": 2 * L * n, "flash_fwd_all": 2 * L * n, "flash_bwd_dq": L * n, "flash_bwd_dq_all": L * n,
+            "flash_bwd_dkv": L * n, "flash_bwd_dkv_all": L * n}
+    train_padded = {c.__name__: c.launches_padded for c in bwd}
+    if (n != 2 or train_launches != want or not all(map(math.isfinite, res["losses"]))
+            or list(train_padded.values()) != [2 * L * n, L * n, L * n]):
+        fail(f"{label}: {n} LoRA steps, losses {res['losses']}, launches {train_launches} (want {want}), at the "
+             f"padded route {train_padded}")
+    print(f"{label} [{card}]: train.main 2 LoRA steps of 2 x 512 (r16, remat): losses {res['losses']}, step "
+          f"{res['step_seconds']} s, launches {train_launches}, all padded {train_padded}", flush=True)
+    shutil.rmtree(tmp / "opt-2.7b", ignore_errors=True)
+    shutil.rmtree(tmp / "opt-2.7b-out", ignore_errors=True)
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"bytes": written["bytes"], "load_s": loads[0], "route": route, "launches": launches, "padded": padded,
+            "stats": stats, "step_ms": step_ms, "reference": reference, "grads": grads,
+            "train_launches": train_launches, "train_padded": train_padded}
+
+
 def serve_families_phase(card: str) -> dict:
     """OPT and Falcon through the entry points at full width: (a) falcon-7b
     served, (b) the opt-125m quickstart, (c) a falcon-7b LoRA step (module
@@ -3986,6 +4244,7 @@ def serve_families_phase(card: str) -> dict:
         served = families_falcon_serve(card, tmp)
         quickstart = families_opt_quickstart(card, tmp)
         lora = families_falcon_lora(card, tmp)
+        opt27 = families_opt_2_7b(card, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     a, b, c = served["launches"], quickstart, lora["train_launches"]
@@ -3995,14 +4254,328 @@ def serve_families_phase(card: str) -> dict:
                 "flash_cached_wgmma": a["flash_cached_wgmma"] + b["launches"]["flash_cached_wgmma"],
                 "flash_bwd_dq": b["train_launches"]["flash_bwd_dq"] + c["flash_bwd_dq"],
                 "flash_bwd_dkv": b["train_launches"]["flash_bwd_dkv"] + c["flash_bwd_dkv"]}
-    print(f"serve-families: launches over its three legs {launches}", flush=True)
-    return {"falcon_serve": served, "opt_quickstart": quickstart, "falcon_lora": lora, "launches": launches}
+    print(f"serve-families: launches over its legs (a)-(c) {launches}; (d), opt-2.7b's shape, all padded: "
+          f"serving {opt27['padded']}, training {opt27['train_padded']}", flush=True)
+    return {"falcon_serve": served, "opt_quickstart": quickstart, "falcon_lora": lora, "opt_2_7b": opt27,
+            "launches": launches}
+
+
+# --- serve-batchgen: the batch-generation example at llama2-7b width ---------
+
+# examples/batch-generation/batchgen-server.yaml's params (chips: 1):
+# weight-only int8, 16 slots, 128 tokens a record unless it sets its own.
+BATCHGEN_PARAMS = {"quantize": "int8", "max_batch": 16}
+BATCHGEN_MAX_TOKENS = 128
+BATCHGEN_KILL_AT = 16  # leg (b): durable records before the SIGKILL
+BATCHGEN_REFERENCE = 8  # greedy records held by the single-shot reference in legs (a) and (c)
+BATCHGEN_TEXT_LENS = (16, 40, 100, 200, 400, 700, 1000)  # byte-tokens (1 + bytes) of the text prompts, in turn
+
+
+def batchgen_records() -> list:
+    """The manifest: 48 text prompts of 16 to 1000 byte-tokens (mixed; a
+    few with their own budget of 32, three sampled at 0.8), 14 records of
+    token ids (8-307), one with no prompt (written once as "invalid") and
+    one naming an adapter (an "error" record: the port has no adapter
+    store). 64 records, the two odd ones at lines 20 and 41."""
+    rng = random.Random(16)
+    recs = []
+    for i in range(48):
+        rec = {"id": f"text-{i}", "prompt": _long_text(BATCHGEN_TEXT_LENS[i % 7] - 1, 300 + i)}
+        if i % 12 == 5:
+            rec["max_tokens"] = 32
+        if i % 16 == 7:
+            rec["temperature"] = 0.8
+        recs.append(rec)
+    recs += [{"id": f"tokens-{i}", "tokens": [rng.randrange(3, 32000) for _ in range(8 + 23 * i)]} for i in range(14)]
+    recs.insert(20, {"id": "no-prompt"})
+    recs.insert(41, {"id": "adapter", "tokens": [1, 2, 3, 4], "model": "t0"})
+    return recs
+
+
+class BatchgenChild:
+    """serve.batchgen in a child process, its output in OUT_DIR/<name>.log;
+    /metrics of its progress server read every half second while it runs
+    (the last reading is kept: the child exits when the manifest drains)."""
+
+    def __init__(self, name: str, model: Path, params: dict, env: dict):
+        OUT_DIR.mkdir(exist_ok=True)
+        params_path = OUT_DIR / f"chip_smoke_params_{name}.json"
+        params_path.write_text(json.dumps(params))
+        self.log = (OUT_DIR / f"{name}.log").open("w")
+        self.lines, self.metrics = [], None
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen([sys.executable, "-m", "substratus_tpu_torch.serve.batchgen", "--model", str(model),
+                                      "--params", str(params_path)], cwd=Path(__file__).resolve().parent, env=env,
+                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self.port = None
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.poller = threading.Thread(target=self._poll, daemon=True)
+        self.reader.start()
+        self.poller.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.log.write(line)
+            self.log.flush()
+            self.lines.append(line)
+            if line.startswith("batchgen progress on :"):
+                self.port = int(line.rsplit(":", 1)[1])
+
+    def _poll(self):
+        while self.proc.poll() is None:
+            if self.port is not None:
+                try:
+                    status, _, text = http(f"http://127.0.0.1:{self.port}", "/metrics", timeout=5)
+                    if status == 200:
+                        self.metrics = text
+                except OSError:  # the child is exiting
+                    pass
+            time.sleep(0.5)
+
+    def line(self, prefix: str) -> str:
+        return next((ln for ln in self.lines if ln.startswith(prefix)), "")
+
+    def finish(self, label: str, timeout: float = 900) -> dict:
+        """Wait for the run to end; its summary (the last line)."""
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            fail(f"{label}: the child did not finish in {timeout} s: {''.join(self.lines[-20:])}")
+        self.reader.join(timeout=10)
+        self.poller.join(timeout=10)
+        self.log.close()
+        if rc != 0:
+            fail(f"{label}: the child exited {rc}: {''.join(self.lines[-20:])}")
+        return json.loads(self.lines[-1])
+
+    def kill(self):
+        self.proc.send_signal(signal.SIGKILL)
+        self.proc.wait(timeout=60)
+        self.reader.join(timeout=10)
+        self.poller.join(timeout=10)
+        self.log.close()
+
+
+def batchgen_shards(out: Path) -> dict:
+    """{index: [output records]} over every shard, torn lines skipped."""
+    got = {}
+    for path in sorted(out.glob("shard-*.jsonl")):
+        for line in path.read_text().splitlines():
+            try:
+                rec = json.loads(line)
+            except ValueError:
+                continue
+            got.setdefault(rec["index"], []).append(rec)
+    return got
+
+
+def phase_mean(metrics: str, phase: str):
+    """The mean of substratus_serve_phase_seconds{phase=...} in a /metrics text."""
+    def value(kind):
+        for line in metrics.splitlines():
+            if line.startswith(f'substratus_serve_phase_seconds_{kind}{{phase="{phase}"}}'):
+                return float(line.rsplit(" ", 1)[1])
+        return None
+
+    total, count = value("sum"), value("count")
+    return total / count if total is not None and count else None
+
+
+def check_batchgen_output(got: dict, recs: list, label: str) -> None:
+    """Every manifest index exactly once; the no-prompt record "invalid",
+    the adapter record "error", every other ok with its budget kept."""
+    if sorted(got) != list(range(len(recs))) or any(len(rs) != 1 for rs in got.values()):
+        dup = sorted(i for i, rs in got.items() if len(rs) != 1)
+        fail(f"{label}: indices {sorted(set(range(len(recs))) - set(got))} missing, {dup} more than once")
+    for i, rec in enumerate(recs):
+        out = got[i][0]
+        if rec["id"] == "no-prompt":
+            ok = out["finish_reason"].startswith("invalid") and out["tokens"] == []
+        elif rec["id"] == "adapter":
+            ok = out["finish_reason"] == "error" and out["tokens"] == [] and out["model"] == "t0"
+        else:
+            budget = rec.get("max_tokens", BATCHGEN_MAX_TOKENS)
+            ok = (out["finish_reason"] in ("stop", "length") and 1 <= out["gen_tokens"] <= budget
+                  and out["gen_tokens"] == len(out["tokens"]))
+        if not ok or out["id"] != rec["id"]:
+            fail(f"{label}: record {i} ({rec['id']}) written as {out}")
+
+
+def batchgen_reference(engine, recs: list, got: dict, label: str) -> dict:
+    """BATCHGEN_REFERENCE greedy ok records of several prompt lengths held
+    by long_reference_check on `engine`'s weights (the same int8 weights
+    the child quantized): each token within 5% of the logit scale of the
+    single-shot forward's best logit."""
+    from types import SimpleNamespace
+
+    from substratus_tpu_torch.serve.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    greedy = [i for i, r in enumerate(recs) if "model" not in r and r.get("temperature", 0.0) == 0.0
+              and ("tokens" in r or "prompt" in r)]
+    picked = greedy[:: max(1, len(greedy) // BATCHGEN_REFERENCE)][:BATCHGEN_REFERENCE]
+    shims = [SimpleNamespace(prompt_tokens=recs[i].get("tokens") or tok.encode(recs[i]["prompt"]),
+                             out=SimpleNamespace(tokens=got[i][0]["tokens"])) for i in picked]
+    return long_reference_check(engine, shims, label, quiet=True)
+
+
+def serve_batchgen_phase(card: str) -> dict:
+    """The batch-generation example at llama2-7b width: its params through
+    python -m substratus_tpu_torch.serve.batchgen as a child on a seeded HF
+    directory (leg a), a SIGKILL and a rerun (leg b), the same manifest on
+    the dense layout in-process (leg c), and one replayed step of the
+    example's paged int8 engine under the profiler."""
+    import os
+    import tempfile
+
+    import torch
+
+    from substratus_tpu_torch.load.manifest import completed_indices, list_shards, write_manifest
+    from substratus_tpu_torch.models import llama
+    from substratus_tpu_torch.ops.decode_attention import decode_attention
+    from substratus_tpu_torch.ops.flash_attention import flash_attention, flash_cached_attention
+    from substratus_tpu_torch.serve.batchgen import BatchGenDriver
+    from substratus_tpu_torch.serve.engine import Engine, EngineConfig
+    from substratus_tpu_torch.serve.main import load_model
+    from substratus_tpu_torch.serve.tokenizer import ByteTokenizer
+    from substratus_tpu_torch.tools.ckpt_writer import write_hf
+
+    label = "serve-batchgen"
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_batchgen_"))
+    env = {**os.environ,
+           "PYTHONPATH": str(Path(__file__).resolve().parent) + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    try:
+        cfg = llama.CONFIGS["llama2-7b"]
+        source = llama.init_params(cfg, seed=0, device="cuda")
+        disk_room(tmp, 13_500_000_000, label)
+        t0 = time.perf_counter()
+        written = write_hf(str(tmp / "llama2-7b"), source)
+        print(f"{label}: llama2-7b (seed 0, bf16) written as {len(written['files'])} safetensors shards, "
+              f"{written['bytes']} bytes in {time.perf_counter() - t0:.1f} s", flush=True)
+        del source
+        gc.collect()
+        torch.cuda.empty_cache()
+        recs = batchgen_records()
+        man = tmp / "prompts.jsonl"
+        write_manifest(str(man), recs)
+
+        def params(out: Path) -> dict:
+            return dict(BATCHGEN_PARAMS, batchGenerate={"manifest": str(man), "output": str(out),
+                                                        "maxTokens": BATCHGEN_MAX_TOKENS, "progressPort": 0})
+
+        # (a) The example as written.
+        child = BatchgenChild("serve_batchgen_a", tmp / "llama2-7b", params(tmp / "out-a"), env)
+        summary = child.finish(f"{label} (a)")
+        got_a = batchgen_shards(tmp / "out-a")
+        check_batchgen_output(got_a, recs, f"{label} (a)")
+        if (summary["written"], summary["ok"], summary["errors"], summary["resumed"]) != (64, 62, 2, 0):
+            fail(f"{label} (a): summary {summary}")
+        startup = child.line("batchgen: ")
+        weights = [int(w) for w in startup.split("(")[1].split(")")[0].replace(",", "").split() if w.isdigit()]
+        decode_s = phase_mean(child.metrics or "", "decode")
+        if child.metrics is None or decode_s is None or "int8 weights" not in startup or "paged kv" not in startup:
+            fail(f"{label} (a): startup {startup!r}, /metrics read {child.metrics is not None}")
+        print(f"{label} (a) [{card}]: {startup.strip()}; {summary['written']} records ({summary['ok']} ok, "
+              f"{summary['errors']} errors) in {summary['wall_s']} s, {summary['gen_tokens']} generated tokens, "
+              f"{summary['gen_tok_s']} tokens/s, slot occupancy {summary['slot_occupancy']}; mean decode phase "
+              f"{1e3 * decode_s:.2f} ms (/metrics)", flush=True)
+        leg_a = {"summary": summary, "startup": startup.strip(), "weight_bytes": weights[0],
+                 "peak_bytes": weights[1], "decode_phase_ms": 1e3 * decode_s}
+
+        # (b) A SIGKILL once BATCHGEN_KILL_AT records are durable, a torn
+        # line appended to the last shard, the same command again.
+        out_b = tmp / "out-b"
+        child = BatchgenChild("serve_batchgen_b1", tmp / "llama2-7b", params(out_b), env)
+        deadline = time.perf_counter() + 600
+        while len(completed_indices(str(out_b))) < BATCHGEN_KILL_AT:
+            if child.proc.poll() is not None or time.perf_counter() > deadline:
+                fail(f"{label} (b): the child ended before {BATCHGEN_KILL_AT} records were durable")
+            time.sleep(0.05)
+        child.kill()
+        durable = completed_indices(str(out_b))
+        if len(durable) >= len(recs):
+            fail(f"{label} (b): the kill landed after the run")
+        last = Path(list_shards(str(out_b))[-1])
+        torn = min(set(range(len(recs))) - durable)
+        with last.open("a") as f:
+            f.write(json.dumps({"index": torn, "tokens": [1, 2, 3]})[:20])
+        shards_before = len(list_shards(str(out_b)))
+        child = BatchgenChild("serve_batchgen_b2", tmp / "llama2-7b", params(out_b), env)
+        again = child.finish(f"{label} (b)")
+        got_b = batchgen_shards(out_b)
+        check_batchgen_output(got_b, recs, f"{label} (b)")
+        fresh = {json.loads(line)["index"] for line in Path(list_shards(str(out_b))[-1]).read_text().splitlines()}
+        if (again["resumed"] != len(durable) or again["written"] != len(recs) - len(durable)
+                or len(list_shards(str(out_b))) != shards_before + 1 or fresh != set(range(len(recs))) - durable):
+            fail(f"{label} (b): {len(durable)} durable at the kill, rerun {again}, shards {list_shards(str(out_b))}")
+        print(f"{label} (b): killed with {len(durable)} records durable, a torn line for index {torn} appended to "
+              f"{last.name}; the rerun resumed {again['resumed']} and wrote {again['written']} into a fresh shard: "
+              f"every index once over {len(list_shards(str(out_b)))} shards", flush=True)
+        leg_b = {"durable_at_kill": len(durable), "rerun": again}
+
+        # (c) The same manifest and int8 weights in-process on the dense
+        # layout (the decode kernel, the flash forward and the cached flash
+        # under the pull source and the decode graph); before it, one
+        # replayed step of the example's own paged engine under the profiler.
+        cfg, params_c, tok, _, _, _ = load_model(str(tmp / "llama2-7b"), None, {}, torch.device("cuda"), "int8")
+        engine = Engine(cfg, params_c, EngineConfig(max_batch=16, max_seq_len=1024, eos_token_id=tok.eos_id))
+        if not engine.paged:
+            fail(f"{label}: the example's engine is not on the paged pool")
+        profiled = profile_engine(engine, f"{label} paged int8", lens=(16, 400), fill=100, steps=8)
+        step = profiled["decode"]
+        print(f"{label} paged int8 [{card}]: one replayed step at B={profiled['batch']}: "
+              f"{profiled['decode_step_ms']:.2f} ms, device busy {step['device_busy_ms']:.2f} ms: copies "
+              f"{step['copy_ms']:.2f} ms (the int8 weights' bf16 copies among them), GEMMs {step['gemm_ms']:.2f}, "
+              f"the gather {step['gather_ms']:.2f}", flush=True)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        engine = Engine(cfg, params_c, EngineConfig(max_batch=16, max_seq_len=1024, eos_token_id=tok.eos_id,
+                                                    kv_layout="dense"))
+        engine.start()
+        engine.generate([256, 1, 2, 3], max_tokens=2)  # the warm-up: the decode graph captured
+        wait_idle(engine)
+        counters = (flash_attention, flash_cached_attention, decode_attention)
+        zero_counts(engine, counters)
+        try:
+            summary_c = BatchGenDriver([engine], str(man), str(tmp / "out-c"), tokenizer=ByteTokenizer(),
+                                       max_tokens=BATCHGEN_MAX_TOKENS).run()
+            wait_idle(engine)
+        finally:
+            engine.stop()
+        stats = dict(engine.stats)
+        launches = {c.__name__: launched(engine, c) for c in counters}
+        got_c = batchgen_shards(tmp / "out-c")
+        check_batchgen_output(got_c, recs, f"{label} (c)")
+        want = {"flash_attention": 32 * stats["prefills"], "flash_cached_attention": 32 * stats["prefill_chunks"],
+                "decode_attention": 32 * stats["decode_steps"]}
+        if launches != want or not all(want.values()) or stats["graph_replays"] != stats["decode_steps"]:
+            fail(f"{label} (c): launches {launches}, want {want} (stats {stats})")
+        same = sum(got_c[i][0]["tokens"] == got_a[i][0]["tokens"] for i in got_a)
+        ref_a = batchgen_reference(engine, recs, got_a, f"{label} (a)")
+        ref_c = batchgen_reference(engine, recs, got_c, f"{label} (c)")
+        step_ms = 1e3 * stats["decode_seconds"] / stats["decode_steps"]
+        print(f"{label} (c) [{card}]: dense, {summary_c['written']} records in {summary_c['wall_s']} s, "
+              f"{summary_c['gen_tok_s']} tokens/s (leg (a), paged: {summary['gen_tok_s']}), slot occupancy "
+              f"{summary_c['slot_occupancy']}, mean step {step_ms:.2f} ms; launches with replays {launches}; "
+              f"{same} of 64 records token for token leg (a)'s", flush=True)
+        del engine, params_c
+        gc.collect()
+        torch.cuda.empty_cache()
+        return {"a": leg_a, "b": leg_b, "c": {"summary": summary_c, "launches": launches, "stats": stats,
+                                               "step_ms": step_ms, "same_as_a": same},
+                "reference_a": ref_a, "reference_c": ref_c, "profile_paged": profiled}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default="card,build,kernels,serve,serve-long,serve-int4,serve-paged,serve-spec,"
-                                        "serve-ckpt,serve-surface,train,train-full,serve-families")
+                                        "serve-ckpt,serve-surface,train,train-full,serve-families,serve-batchgen")
     phases = ap.parse_args().phases.split(",")
     t_start = time.perf_counter()
 
@@ -4048,6 +4621,8 @@ def main() -> int:
         report["train-full"] = train_full_phase(card, profile_steps="profile" in phases)
     if "serve-families" in phases:
         report["serve-families"] = serve_families_phase(card)
+    if "serve-batchgen" in phases:
+        report["serve-batchgen"] = serve_batchgen_phase(card)
     report["wall_s"] = time.perf_counter() - t_start
     print(f"chip_smoke: phases {','.join(phases)} in {report['wall_s']:.1f} s", flush=True)
     OUT_DIR.mkdir(exist_ok=True)

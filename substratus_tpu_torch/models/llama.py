@@ -43,6 +43,7 @@ from substratus_tpu_torch.ops.attention import dot_product_attention
 from substratus_tpu_torch.ops.basics import lora_delta, rms_norm, rope, swiglu
 from substratus_tpu_torch.ops.decode_attention import update_cache_and_attend
 from substratus_tpu_torch.ops.flash_attention import flash_attention
+from substratus_tpu_torch.ops.fused_decode import cache_layout
 from substratus_tpu_torch.ops.quant import QTensor, qeinsum, quantize_params
 from substratus_tpu_torch.ops.quant4 import Q4Tensor, quantize4_params
 from substratus_tpu_torch.utils.device import DeviceLike, resolve_device, seeded_generator
@@ -290,13 +291,22 @@ def init_cache(
     max_len: Optional[int] = None,
     dtype: Optional[torch.dtype] = None,
     device: DeviceLike = None,
+    padded: Optional[bool] = None,
 ) -> Cache:
     """Dense decode cache, layers-stacked: k/v [L, B, KH, S, hd]; with
-    dtype=torch.int8, per-vector int8 entries plus f32 scales [L, B, KH, S]."""
+    dtype=torch.int8, per-vector int8 entries plus f32 scales [L, B, KH, S].
+    padded (default: on the card) lays it out as the kernels read it,
+    ops/fused_decode.py::cache_layout: hd padded to a built head dim with
+    zero columns, and S rounded up where the split design needs it; on the
+    CPU it keeps the model's S and hd unless asked. Any family's config
+    (OPT and Falcon build theirs here)."""
     device = resolve_device(device)
     S = max_len or cfg.max_seq_len
     dtype = dtype or cfg.dtype
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, S, cfg.head_size)
+    hd = cfg.head_size
+    if padded if padded is not None else device.type == "cuda":
+        S, hd = cache_layout(hd, S, dtype == torch.int8, cfg.n_heads // cfg.n_kv_heads)
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, S, hd)
     cache = {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),

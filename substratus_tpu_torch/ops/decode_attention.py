@@ -13,9 +13,13 @@ csrc/decode_split.cu (S split over blocks by decode_split_plan, a ring of
 cache tiles, one softmax rescale a tile, any query group in slices of at
 most 8 rows; head_dim 64 and 128) and csrc/decode_attn.cu (one block per
 slot and kv head; head_dim 16 and 32, groups of 1, 2, 4 and 8; any other
-group there raises). See the source notes.
+group goes to the split design). See the source notes.
 
-Cache layout is [B, KH, S, D] (each kv head's history contiguous); int8
+Cache layout is [B, KH, S, D] (each kv head's history contiguous), on the
+card at the rows and head dim of ops/fused_decode.py::cache_layout: a
+head dim the kernels are not built for padded to the next built one
+(ops/headdim.py), and for the split design D at least 64 and int8 rows a
+multiple of 4. The new rows are written padded the same way; int8
 caches carry f32 scales [B, KH, S]. k_scale multiplies the score after
 the QK dot and v_scale folds into p, so no dequantized copy is made.
 
@@ -34,11 +38,9 @@ import torch
 from substratus_tpu_torch import kernels
 from substratus_tpu_torch.ops.attention import NEG_INF, dot_product_attention
 from substratus_tpu_torch.ops.flash_attention import flash_cached_attention
-from substratus_tpu_torch.ops.fused_decode import (
-    GROUPS, SPLIT_HEAD_DIMS, decode_design, fused_decode_attention, split_workspace)
+from substratus_tpu_torch.ops.fused_decode import check_decode_layout, fused_decode_attention, split_workspace
+from substratus_tpu_torch.ops.headdim import pad_head
 from substratus_tpu_torch.ops.quant import dequantize_kv, quantize_kv
-
-HEAD_DIMS = (16, 32, 64, 128)
 
 
 def decode_attention_plain(
@@ -48,9 +50,11 @@ def decode_attention_plain(
     positions: torch.Tensor,  # [B]
     k_scale: Optional[torch.Tensor] = None,  # [B, KH, S] f32
     v_scale: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """The kernel's function in plain PyTorch, following the JAX Pallas
-    _kernel: q scaled by D^-0.5 in f32, f32 scores (times k_scale), mask
+    _kernel: q scaled by `scale` (D^-0.5 when None) in f32, f32 scores
+    (times k_scale), mask
     cols <= pos, f32 softmax, p times v_scale kept f32 for the PV
     product. A row with no live column outputs 0. (The JAX _xla path
     scales q in the model dtype and rounds p to it instead; the two agree
@@ -58,7 +62,7 @@ def decode_attention_plain(
     b, _, h, d = q.shape
     kh, s = k.shape[1], k.shape[2]
     g = h // kh
-    qf = (q.float() * d**-0.5).reshape(b, kh, g, d)
+    qf = (q.float() * (d**-0.5 if scale is None else scale)).reshape(b, kh, g, d)
     logits = torch.einsum("bkgd,bksd->bkgs", qf, k.float())
     if k_scale is not None:
         logits = logits * k_scale[:, :, None, :]
@@ -81,12 +85,27 @@ def decode_attention(
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Single-token attention against the cache, columns <= positions[b].
-    Returns [B, 1, H, D] in q's dtype. CUDA tensors launch the design
-    decode_design names (or raise); CPU tensors run the plain version.
-    ``decode_attention.launches`` counts kernel launches, its
-    ``launches_split`` and ``launches_rows`` those of each design."""
+    Returns [B, 1, H, D] in q's dtype. A cache laid out at a padded head
+    dim (ops/fused_decode.py::cache_layout) takes q padded to it, at q's
+    own D^-0.5, and the output is sliced back. CUDA tensors launch the
+    design decode_design names (or raise); CPU tensors run the plain
+    version. ``decode_attention.launches`` counts kernel launches, its
+    ``launches_split`` and ``launches_rows`` those of each design,
+    ``launches_padded`` those with q padded."""
+    d = q.shape[-1]
+    if k.shape[-1] > d:
+        out = _decode(pad_head(q, k.shape[-1]), k, v, positions, k_scale, v_scale, d**-0.5)
+        if q.device.type == "cuda":
+            decode_attention.launches_padded += 1
+        return out[..., :d]
+    return _decode(q, k, v, positions, k_scale, v_scale, d**-0.5)
+
+
+def _decode(q, k, v, positions, k_scale, v_scale, scale: float) -> torch.Tensor:
+    """The decode kernel's launch at the cache's head dim (or, for CPU
+    tensors, its plain version)."""
     if q.device.type == "cpu":
-        return decode_attention_plain(q, k, v, positions, k_scale, v_scale)
+        return decode_attention_plain(q, k, v, positions, k_scale, v_scale, scale)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
     b, sq, h, d = q.shape
@@ -94,12 +113,7 @@ def decode_attention(
     quantized = k_scale is not None
     if sq != 1 or dk != d or v.shape != k.shape or k.shape[0] != b or h % kh:
         raise ValueError(f"decode_attention: unsupported shapes q{tuple(q.shape)} k{tuple(k.shape)}")
-    design = decode_design(d, s, quantized)
-    if d not in HEAD_DIMS or (design == "rows" and h // kh not in GROUPS):
-        raise ValueError(
-            f"decode_attention: head_dim {d} / group {h // kh} not built (head_dim {HEAD_DIMS}; "
-            f"csrc/decode_attn.cu, at head_dim 16/32 or an int8 cache of S % 4 != 0, takes groups {GROUPS}; "
-            f"csrc/decode_split.cu, head_dim {SPLIT_HEAD_DIMS}, any)")
+    design = check_decode_layout("decode_attention", d, s, quantized, h // kh)
     if q.dtype != torch.bfloat16:
         raise ValueError(f"decode_attention: the kernel takes bf16 queries, got {q.dtype}")
     want = torch.int8 if quantized else torch.bfloat16
@@ -124,7 +138,7 @@ def decode_attention(
     head = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
             k_scale.data_ptr() if quantized else None, v_scale.data_ptr() if quantized else None,
             pos.data_ptr(), out.data_ptr())
-    dims = (b, h, kh, s, d, kernels.DTYPE_CODES[k.dtype], float(d**-0.5))
+    dims = (b, h, kh, s, d, kernels.DTYPE_CODES[k.dtype], float(scale))
     if design == "split":
         if quantized and (k_scale.data_ptr() | v_scale.data_ptr()) % 16:
             raise ValueError("decode_attention: scales must be 16-byte aligned")
@@ -144,6 +158,7 @@ def decode_attention(
 decode_attention.launches = 0  # every launch
 decode_attention.launches_split = 0  # csrc/decode_split.cu (head_dim 64, 128)
 decode_attention.launches_rows = 0  # csrc/decode_attn.cu (head_dim 16, 32)
+decode_attention.launches_padded = 0  # q padded to a cache laid out at a padded head dim
 
 
 def _write_rows(cache: torch.Tensor, rows: torch.Tensor, positions: torch.Tensor) -> None:
@@ -198,15 +213,20 @@ def update_cache_and_attend(
     ops/fused_decode.py (impl="fused"). Multi-token continuation (chunked
     prefill) or kv_length-masked resumes run flash_cached_attention on the
     written cache (chunk_impl="flash", no dequantized copy) or dequantize
-    and run dot_product_attention (chunk_impl="plain"). Returns (attn
-    [B, S, H, D], the layer cache dict)."""
+    and run dot_product_attention (chunk_impl="plain"). A cache laid out
+    at a padded head dim (ops/fused_decode.py::cache_layout) gets the rows
+    padded with zero columns (an int8 row's scale is unchanged: a zero
+    moves no max-abs); the kernels take q padded, the plain versions read
+    the cache's first D columns. Returns (attn [B, S, H, D], the layer
+    cache dict)."""
     if impl not in ("kernel", "plain", "fused"):
         raise ValueError(f"decode attention impl {impl!r} invalid (kernel|plain|fused)")
     if chunk_impl not in ("flash", "plain"):
         raise ValueError(f"chunk attention impl {chunk_impl!r} invalid (flash|plain)")
     s = kk.shape[1]
-    kkT = kk.transpose(1, 2)  # [B, KH, S, D]
-    vvT = vv.transpose(1, 2)
+    dc = layer_cache["k"].shape[-1]
+    kkT = pad_head(kk.transpose(1, 2), dc)  # [B, KH, S, D of the cache]
+    vvT = pad_head(vv.transpose(1, 2), dc)
     quantized = "k_scale" in layer_cache
 
     if s == 1 and kv_length is None and impl == "fused":
@@ -240,12 +260,14 @@ def update_cache_and_attend(
     else:
         _write_rows(layer_cache["k"], kkT, positions)
         _write_rows(layer_cache["v"], vvT, positions)
+    d = q.shape[-1]
     if s == 1 and kv_length is None:
-        attend = decode_attention if impl == "kernel" else decode_attention_plain
-        attn = attend(
-            q, layer_cache["k"], layer_cache["v"], positions[:, 0],
-            layer_cache.get("k_scale"), layer_cache.get("v_scale"),
-        )
+        if impl == "kernel":
+            attn = decode_attention(q, layer_cache["k"], layer_cache["v"], positions[:, 0],
+                                    layer_cache.get("k_scale"), layer_cache.get("v_scale"))
+        else:
+            attn = decode_attention_plain(q, layer_cache["k"][..., :d], layer_cache["v"][..., :d], positions[:, 0],
+                                          layer_cache.get("k_scale"), layer_cache.get("v_scale"))
         return attn, layer_cache
     if chunk_impl == "flash":
         attn = flash_cached_attention(
@@ -259,7 +281,7 @@ def update_cache_and_attend(
     else:
         k_cache, v_cache = layer_cache["k"], layer_cache["v"]
     attn = dot_product_attention(
-        q, k_cache.transpose(1, 2), v_cache.transpose(1, 2),
+        q, k_cache[..., :d].transpose(1, 2), v_cache[..., :d].transpose(1, 2),
         causal=True, q_positions=positions, kv_length=kv_length,
     )
     return attn, layer_cache
@@ -268,9 +290,11 @@ def update_cache_and_attend(
 def pack_fragment(cache: Dict[str, torch.Tensor], kv: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Convert an activation-layout prefill fragment {k, v: [..., S, KH, D]}
     into the slot-cache layout {k, v: [..., KH, S, D][, scales [..., KH, S]]},
-    quantizing when `cache` is int8."""
-    kT = kv["k"].transpose(-3, -2)
-    vT = kv["v"].transpose(-3, -2)
+    quantizing when `cache` is int8, at the cache's head dim (zero columns
+    where it is laid out padded)."""
+    dc = cache["k"].shape[-1]
+    kT = pad_head(kv["k"].transpose(-3, -2), dc)
+    vT = pad_head(kv["v"].transpose(-3, -2), dc)
     if "k_scale" in cache:
         kq, ks = quantize_kv(kT)
         vq, vs = quantize_kv(vT)

@@ -22,12 +22,17 @@
   producer warpgroup) at head_dim 64 and 128, every model but ``tiny``;
   csrc/flash_bwd.cu (mma.sync) at 16 and 32. See the source notes.
 
-Each wrapper launches its kernel for CUDA tensors (or raises) and runs the
+Each wrapper serves any head dim up to 128 (ops/headdim.py): one the
+kernels are not built for runs padded with zero columns to the next built
+size, at the true softmax scale, and comes back sliced (the cached flash
+takes q at the true D against a cache laid out at the padded one). Each
+wrapper launches its kernel for CUDA tensors (or raises) and runs the
 plain version only for tensors on the CPU. ``flash_attention.launches``,
 ``flash_cached_attention.launches``, ``flash_attention_bwd_dq.launches``
 and ``flash_attention_bwd_dkv.launches`` count kernel launches (each one's
-``launches_wgmma`` and ``launches_mma`` those of each design). See the
-source notes in csrc/ for each design and its bound.
+``launches_wgmma`` and ``launches_mma`` those of each design,
+``launches_padded`` those at a padded head dim). See the source notes in
+csrc/ for each design and its bound.
 """
 from __future__ import annotations
 
@@ -36,9 +41,9 @@ from typing import Optional, Tuple, Union
 import torch
 
 from substratus_tpu_torch import kernels
+from substratus_tpu_torch.ops.headdim import HEAD_DIMS, pad_head, padded_head_dim
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
 
 
 def flash_attention_plain(
@@ -89,7 +94,10 @@ def _check_qkv(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *mo
             f"{name}: the kernel takes bf16 operands, got {q.dtype}/{k.dtype}/{v.dtype} "
             "(attn_impl='plain' serves other dtypes)"
         )
-    if (d not in HEAD_DIMS or k.shape[-1] != d or v.shape != k.shape or k.shape[0] != b
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {d} above {HEAD_DIMS[-1]}, the largest the kernels take (a smaller one "
+                         "runs padded to the next built size)")
+    if (k.shape[-1] != d or v.shape != k.shape or k.shape[0] != b
             or any(t.shape != q.shape for t in more)):
         raise ValueError(f"{name}: unsupported shapes q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)}")
     if h % kh:
@@ -137,7 +145,16 @@ def flash_fwd_design(d: int) -> str:
 
 
 def _flash_forward(q, k, v, causal: bool, scale: float, return_lse: bool):
-    """The forward kernel's launch (or, for CPU tensors, its plain version)."""
+    """The forward kernel's launch (or, for CPU tensors, its plain version);
+    a head dim not built runs padded (q, k, v) and is sliced back (the LSE
+    is the padded run's: zero columns change no score)."""
+    d = q.shape[-1]
+    dp = padded_head_dim(d)
+    if dp is not None and dp != d:
+        res = _flash_forward(pad_head(q, dp), pad_head(k, dp), pad_head(v, dp), causal, scale, return_lse)
+        if q.device.type == "cuda":
+            flash_attention.launches_padded += 1
+        return (res[0][..., :d], res[1]) if return_lse else res[..., :d]
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, scale, return_lse)
     b, sq, h, d = q.shape
@@ -165,6 +182,7 @@ def _flash_forward(q, k, v, causal: bool, scale: float, return_lse: bool):
 flash_attention.launches = 0  # every launch
 flash_attention.launches_wgmma = 0  # csrc/flash_fwd_wgmma.cu (head_dim 64, 128)
 flash_attention.launches_mma = 0  # csrc/flash_fwd.cu (head_dim 16, 32)
+flash_attention.launches_padded = 0  # at a head dim padded to a built one (ops/headdim.py)
 
 
 def _bwd_probs(q, k, v, do, lse, delta, causal: bool, scale: float):
@@ -265,6 +283,13 @@ def flash_attention_bwd_dq(
     raise); CPU tensors run the plain version."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    d = q.shape[-1]
+    dp = padded_head_dim(d)
+    if dp is not None and dp != d:  # q, k, v and dO padded, dQ sliced
+        dq = flash_attention_bwd_dq(*(pad_head(t, dp) for t in (q, k, v, do)), lse, delta, causal, scale)
+        if q.device.type == "cuda":
+            flash_attention_bwd_dq.launches_padded += 1
+        return dq[..., :d]
     if q.device.type == "cpu":
         return _bwd_dq_plain(q, k, v, do, lse, delta, causal, scale)
     b, sq, h, d = q.shape
@@ -291,6 +316,7 @@ def flash_attention_bwd_dq(
 flash_attention_bwd_dq.launches = 0  # every launch
 flash_attention_bwd_dq.launches_wgmma = 0  # csrc/flash_bwd_wgmma.cu (head_dim 64, 128)
 flash_attention_bwd_dq.launches_mma = 0  # csrc/flash_bwd.cu (head_dim 16, 32)
+flash_attention_bwd_dq.launches_padded = 0  # at a padded head dim
 
 
 def flash_attention_bwd_dkv(
@@ -308,6 +334,13 @@ def flash_attention_bwd_dkv(
     the plain version."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    d = q.shape[-1]
+    dp = padded_head_dim(d)
+    if dp is not None and dp != d:  # q, k, v and dO padded, dK and dV sliced
+        dk, dv = flash_attention_bwd_dkv(*(pad_head(t, dp) for t in (q, k, v, do)), lse, delta, causal, scale)
+        if q.device.type == "cuda":
+            flash_attention_bwd_dkv.launches_padded += 1
+        return dk[..., :d], dv[..., :d]
     if q.device.type == "cpu":
         return _bwd_dkv_plain(q, k, v, do, lse, delta, causal, scale)
     b, sq, h, d = q.shape
@@ -334,6 +367,7 @@ def flash_attention_bwd_dkv(
 flash_attention_bwd_dkv.launches = 0  # every launch
 flash_attention_bwd_dkv.launches_wgmma = 0  # csrc/flash_bwd_wgmma.cu (head_dim 64, 128)
 flash_attention_bwd_dkv.launches_mma = 0  # csrc/flash_bwd.cu (head_dim 16, 32)
+flash_attention_bwd_dkv.launches_padded = 0  # at a padded head dim
 
 
 class FlashAttention(torch.autograd.Function):
@@ -367,10 +401,12 @@ def flash_cached_attention_plain(
     k_scale: Optional[torch.Tensor] = None,  # [B, KH, Sk] f32
     v_scale: Optional[torch.Tensor] = None,
     kv_length: Optional[torch.Tensor] = None,  # [B]
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """The kernel's function in plain PyTorch, following the Pallas
     _cached_kernel (not _xla): the cache converts to q's dtype, scores are
-    f32 sums of q.k products in that dtype, times D^-0.5 and then k_scale;
+    f32 sums of q.k products in that dtype, times `scale` (D^-0.5 when
+    None) and then k_scale;
     row r attends columns 0..min(q_pos, kv_length-1); p = exp(s - m) sums
     into l, takes v_scale, and is rounded to q's dtype before the PV
     product; out = acc / l, and a row with no live column is 0."""
@@ -381,7 +417,7 @@ def flash_cached_attention_plain(
     if kv_length is not None:
         limit = torch.minimum(limit, kv_length.long()[:, None] - 1)
     qf = q.float().reshape(b, sq, kh, h // kh, d)
-    s = torch.einsum("bqkgd,bksd->bkgqs", qf, k.to(dt).float()) * d**-0.5
+    s = torch.einsum("bqkgd,bksd->bkgqs", qf, k.to(dt).float()) * (d**-0.5 if scale is None else scale)
     if k_scale is not None:
         s = s * k_scale[:, :, None, None, :]
     live = torch.arange(sk, device=q.device)[None, None, :] <= limit[:, :, None]  # [B, Sq, Sk]
@@ -418,10 +454,24 @@ def flash_cached_attention(
 ) -> torch.Tensor:
     """A multi-token chunk against the slot cache: row r of batch b
     attends cache columns 0..min(q_positions[b, r], kv_length[b] - 1).
-    Returns [B, Sq, H, D] in q's dtype. CUDA tensors launch the kernel (or
-    raise); CPU tensors run the plain version."""
+    Returns [B, Sq, H, D] in q's dtype. A cache laid out at a padded head
+    dim (fused_decode.cache_layout) takes q padded to it, at q's own
+    D^-0.5, and the output is sliced back. CUDA tensors launch the kernel
+    (or raise); CPU tensors run the plain version."""
+    d = q.shape[-1]
+    if k.shape[-1] > d:
+        out = _flash_cached(pad_head(q, k.shape[-1]), k, v, q_positions, k_scale, v_scale, kv_length, d**-0.5)
+        if q.device.type == "cuda":
+            flash_cached_attention.launches_padded += 1
+        return out[..., :d]
+    return _flash_cached(q, k, v, q_positions, k_scale, v_scale, kv_length, d**-0.5)
+
+
+def _flash_cached(q, k, v, q_positions, k_scale, v_scale, kv_length, scale: float) -> torch.Tensor:
+    """The cached flash kernel's launch at the cache's head dim (or, for
+    CPU tensors, its plain version)."""
     if q.device.type == "cpu":
-        return flash_cached_attention_plain(q, k, v, q_positions, k_scale, v_scale, kv_length)
+        return flash_cached_attention_plain(q, k, v, q_positions, k_scale, v_scale, kv_length, scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_cached_attention: unsupported device {q.device}")
     b, sq, h, d = q.shape
@@ -432,7 +482,8 @@ def flash_cached_attention(
             f"flash_cached_attention: unsupported shapes q{tuple(q.shape)} k{tuple(k.shape)} "
             f"positions{tuple(q_positions.shape)}")
     if d not in HEAD_DIMS:
-        raise ValueError(f"flash_cached_attention: head_dim {d} not built ({HEAD_DIMS})")
+        raise ValueError(f"flash_cached_attention: head_dim {d} not built ({HEAD_DIMS}): lay the cache out at the "
+                         "padded head dim (ops/fused_decode.py::cache_layout)")
     if q.dtype != torch.bfloat16:
         raise ValueError(f"flash_cached_attention: the kernel takes bf16 queries, got {q.dtype}")
     want = torch.int8 if quantized else torch.bfloat16
@@ -462,7 +513,7 @@ def flash_cached_attention(
         k_scale.data_ptr() if quantized else None,
         v_scale.data_ptr() if quantized else None,
         pos.data_ptr(), kv_len.data_ptr() if kv_len is not None else None, out.data_ptr(),
-        b, sq, sk, h, kh, d, kernels.DTYPE_CODES[k.dtype], float(d**-0.5),
+        b, sq, sk, h, kh, d, kernels.DTYPE_CODES[k.dtype], float(scale),
         kernels.stream_ptr(q.device),
     )
     kernels.check(rc, name)
@@ -477,3 +528,4 @@ def flash_cached_attention(
 flash_cached_attention.launches = 0  # every launch
 flash_cached_attention.launches_wgmma = 0  # csrc/flash_fwd_wgmma.cu (head_dim 64, 128)
 flash_cached_attention.launches_mma = 0  # csrc/flash_cached.cu (head_dim 16, 32)
+flash_cached_attention.launches_padded = 0  # q padded to a cache laid out at a padded head dim

@@ -12,8 +12,10 @@ of the history rows. Two designs compute it, chosen by shape alone
 (``decode_design``): csrc/decode_split.cu (S split over blocks, a ring of
 cache tiles, one softmax rescale a tile, any query group in slices of at
 most 8 rows; head_dim 64 and 128) and csrc/fused_decode.cu (one block per
-slot and kv head; head_dim 16 and 32, groups of 1, 2, 4 and 8). See the
-source notes.
+slot and kv head; head_dim 16 and 32, groups of 1, 2, 4 and 8). A shape the
+rows design does not take goes to the split design on a cache that
+``cache_layout`` lays out for it; a head dim not built runs padded to the
+next built one (ops/headdim.py). See the source notes.
 
 The fresh row arrives in the cache dtype; for int8 its scales
 ``new_ks``/``new_vs`` [B, KH, 1] weight the current token's term, and the
@@ -35,8 +37,8 @@ import torch
 
 from substratus_tpu_torch import kernels
 from substratus_tpu_torch.ops.attention import NEG_INF
+from substratus_tpu_torch.ops.headdim import HEAD_DIMS, MAX_HEAD_DIM, pad_head, padded_head_dim
 
-HEAD_DIMS = (16, 32, 64, 128)  # built by csrc/fused_decode.cu
 GROUPS = (1, 2, 4, 8)  # the rows design's groups; the split design takes any
 SPLIT_HEAD_DIMS = (64, 128)  # built by csrc/decode_split.cu
 # The split plan: rows a split in whole rounds of the kernel's 8 warps x
@@ -72,15 +74,38 @@ def group_slices(group: int) -> Tuple[int, int]:
     return rows, -(-group // rows)
 
 
-def decode_design(d: int, s: int, quantized: bool) -> str:
+def decode_design(d: int, s: int, quantized: bool, group: int = 1) -> str:
     """The CUDA design of the decode kernels (decode_attention and
-    fused_decode_attention) at head_dim d and S rows: "split"
-    (csrc/decode_split.cu) at head_dim 64 and 128 (an int8 cache also
-    needs S a multiple of 4, its scale rows copied 16 bytes at a time),
-    "rows" (csrc/decode_attn.cu, csrc/fused_decode.cu) otherwise. By shape
+    fused_decode_attention) for a cache of S rows at head_dim d and a
+    query group of `group`: "split" (csrc/decode_split.cu) at head_dim 64
+    and 128 (an int8 cache also needs S a multiple of 4, its scale rows
+    copied 16 bytes at a time); "rows" (csrc/decode_attn.cu,
+    csrc/fused_decode.cu) otherwise, where it takes the group (1, 2, 4 or
+    8); "split" again for any other group, on a cache that cache_layout
+    lays out for it (D at least 64, S a multiple of 4 when int8). By shape
     alone: a launch that fails raises, it is not retried on the other
     design."""
-    return "split" if d in SPLIT_HEAD_DIMS and (not quantized or s % 4 == 0) else "rows"
+    if d in SPLIT_HEAD_DIMS and (not quantized or s % 4 == 0):
+        return "split"
+    return "rows" if d in HEAD_DIMS and group in GROUPS else "split"
+
+
+def cache_layout(d: int, s: int, quantized: bool, group: int) -> Tuple[int, int]:
+    """(rows, head dim) of the dense slot cache that the decode kernels and
+    the cached flash read for a model of head_dim d, a window of s rows and
+    a query group of `group`: D padded up to the next built head dim
+    (ops/headdim.py), and where the design decode_design then names is the
+    split design, D at least 64 and, for an int8 cache, the rows rounded up
+    to a multiple of 4. Positions past s are never attended (the engine
+    keeps a request inside its window), so extra rows and zero columns
+    change no output, and no step copies the cache. A head dim above
+    MAX_HEAD_DIM raises."""
+    dp = padded_head_dim(d)
+    if dp is None:
+        raise ValueError(f"cache_layout: head_dim {d} above {MAX_HEAD_DIM}, the largest the kernels take")
+    if decode_design(dp, s, quantized, group) == "rows":
+        return s, dp
+    return (-(-s // 4) * 4 if quantized else s), max(dp, SPLIT_HEAD_DIMS[0])
 
 
 @functools.lru_cache(maxsize=None)
@@ -112,12 +137,13 @@ def fused_decode_attention_plain(
     new_vs: Optional[torch.Tensor] = None,
     cache_ks: Optional[torch.Tensor] = None,  # [B, KH, S] f32 (fresh scale already scattered)
     cache_vs: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The kernel's function in plain PyTorch, following the Pallas
-    _kernel: write the row, then q scaled by D^-0.5 in f32 against the
-    history cols < pos (times cache_ks) and the current token from the
-    operands (times new_ks); f32 softmax over both; p times the v scales
-    kept f32 for the PV product."""
+    _kernel: write the row, then q scaled by `scale` (D^-0.5 when None) in
+    f32 against the history cols < pos (times cache_ks) and the current
+    token from the operands (times new_ks); f32 softmax over both; p times
+    the v scales kept f32 for the PV product."""
     b, _, h, d = q.shape
     kh, s = cache_k.shape[1], cache_k.shape[2]
     pos = torch.clamp(positions.long(), 0, s - 1)
@@ -126,7 +152,7 @@ def fused_decode_attention_plain(
     cache_k[bidx, hidx, pos[:, None]] = new_k[:, :, 0]
     cache_v[bidx, hidx, pos[:, None]] = new_v[:, :, 0]
 
-    qf = (q.float() * d**-0.5).reshape(b, kh, h // kh, d)
+    qf = (q.float() * (d**-0.5 if scale is None else scale)).reshape(b, kh, h // kh, d)
     hist = torch.einsum("bkgd,bksd->bkgs", qf, cache_k.float())  # [B, KH, G, S]
     cur = torch.einsum("bkgd,bkd->bkg", qf, new_k[:, :, 0].float())[..., None]  # [B, KH, G, 1]
     if new_ks is not None:
@@ -159,9 +185,40 @@ def fused_decode_attention(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Write the fresh kv row into its cache slot AND attend, one kernel.
     Returns (attn [B, 1, H, D] in q's dtype, cache_k, cache_v), the caches
-    being the tensors given, written in place. CUDA tensors launch the
-    kernel (or raise); CPU tensors run the plain version."""
-    args = (q, new_k, new_v, cache_k, cache_v, positions, new_ks, new_vs, cache_ks, cache_vs)
+    being the tensors given, written in place. A cache laid out at a
+    padded head dim (cache_layout) takes the fresh rows at its D and q at
+    the model's: q runs padded at its own D^-0.5 and the output is sliced
+    back. CUDA tensors launch the kernel (or raise); CPU tensors run the
+    plain version."""
+    d = q.shape[-1]
+    args = (new_k, new_v, cache_k, cache_v, positions, new_ks, new_vs, cache_ks, cache_vs, d**-0.5)
+    if cache_k.shape[-1] > d:
+        out, _, _ = _fused_decode(pad_head(q, cache_k.shape[-1]), *args)
+        if q.device.type == "cuda":
+            fused_decode_attention.launches_padded += 1
+        return out[..., :d], cache_k, cache_v
+    return _fused_decode(q, *args)
+
+
+def check_decode_layout(name: str, d: int, s: int, quantized: bool, group: int) -> str:
+    """The design decode_design names for a cache of s rows at head_dim d
+    and a query group of `group`; raises when the cache is not laid out for
+    it (cache_layout's padding left out)."""
+    design = decode_design(d, s, quantized, group)
+    if design == "split" and not (d in SPLIT_HEAD_DIMS and (not quantized or s % 4 == 0)):
+        raise ValueError(
+            f"{name}: a {'int8' if quantized else 'bf16'} cache of {s} rows at head_dim {d} for a group of {group} "
+            f"is laid out for no built design: allocate it with ops/fused_decode.py::cache_layout (the rows "
+            f"design, csrc/decode_attn.cu and csrc/fused_decode.cu, takes groups {GROUPS} at head_dim {HEAD_DIMS}; "
+            f"the split design, csrc/decode_split.cu, any group at head_dim {SPLIT_HEAD_DIMS}, S a multiple of 4 "
+            "when int8)")
+    return design
+
+
+def _fused_decode(q, new_k, new_v, cache_k, cache_v, positions, new_ks, new_vs, cache_ks, cache_vs, scale: float):
+    """The fused kernel's launch at the cache's head dim (or, for CPU
+    tensors, its plain version)."""
+    args = (q, new_k, new_v, cache_k, cache_v, positions, new_ks, new_vs, cache_ks, cache_vs, scale)
     if q.device.type == "cpu":
         return fused_decode_attention_plain(*args)
     if q.device.type != "cuda":
@@ -174,12 +231,7 @@ def fused_decode_attention(
         raise ValueError(
             f"fused_decode_attention: unsupported shapes q{tuple(q.shape)} new_k{tuple(new_k.shape)} "
             f"cache{tuple(cache_k.shape)} positions{tuple(positions.shape)}")
-    design = decode_design(d, s, quantized)
-    if d not in HEAD_DIMS or (design == "rows" and h // kh not in GROUPS):
-        raise ValueError(
-            f"fused_decode_attention: head_dim {d} / group {h // kh} not built (head_dim {HEAD_DIMS}; "
-            f"csrc/fused_decode.cu, at head_dim 16/32 or an int8 cache of S % 4 != 0, takes groups {GROUPS}; "
-            f"csrc/decode_split.cu, head_dim {SPLIT_HEAD_DIMS}, any)")
+    design = check_decode_layout("fused_decode_attention", d, s, quantized, h // kh)
     if q.dtype != torch.bfloat16:
         raise ValueError(f"fused_decode_attention: the kernel takes bf16 queries, got {q.dtype}")
     want = torch.int8 if quantized else torch.bfloat16
@@ -213,7 +265,7 @@ def fused_decode_attention(
             cache_k.data_ptr(), cache_v.data_ptr(),
             cache_ks.data_ptr() if quantized else None, cache_vs.data_ptr() if quantized else None,
             pos.data_ptr(), out.data_ptr())
-    dims = (b, h, kh, s, d, kernels.DTYPE_CODES[cache_k.dtype], float(d**-0.5))
+    dims = (b, h, kh, s, d, kernels.DTYPE_CODES[cache_k.dtype], float(scale))
     if design == "split":
         if quantized and (cache_ks.data_ptr() | cache_vs.data_ptr()) % 16:
             raise ValueError("fused_decode_attention: cache scales must be 16-byte aligned")
@@ -233,3 +285,4 @@ def fused_decode_attention(
 fused_decode_attention.launches = 0  # every launch
 fused_decode_attention.launches_split = 0  # csrc/decode_split.cu (head_dim 64, 128)
 fused_decode_attention.launches_rows = 0  # csrc/fused_decode.cu (head_dim 16, 32)
+fused_decode_attention.launches_padded = 0  # q padded to a cache laid out at a padded head dim

@@ -74,16 +74,23 @@ swap_params() (POST /swapz: the new weights copied into the served tensors
 by the scheduler thread on a settled pipeline, so every captured graph
 stays valid).
 
+Batch generation (serve/batchgen.py) attaches a pull source
+(set_source): the scheduler thread pulls the next request the moment a
+slot frees, after the resume list and the submit queue, and admission
+fills every free slot while a source is attached.
+
 Not ported yet (ROADMAP Queue 1): adapters (and the registry's adapter
-salt), disaggregated roles with their page export and import, lockstep
-gangs, and request journeys and the step timeline (item 3b);
-EngineConfig has none of their fields.
+salt; a request naming one ends with finish_reason "error" at admission,
+as the JAX engine ends it without an adapter store), disaggregated roles
+with their page export and import, lockstep gangs, and request journeys
+and the step timeline (item 3b); EngineConfig has none of their fields.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import itertools
+import logging
 import math
 import queue
 import threading
@@ -100,6 +107,7 @@ from substratus_tpu_torch.models import registry
 from substratus_tpu_torch.observability.metrics import METRICS, RATIO_BUCKETS
 from substratus_tpu_torch.observability.sketch import SLOTracker
 from substratus_tpu_torch.ops.decode_attention import pack_fragment
+from substratus_tpu_torch.ops.headdim import check_head_dim, head_dim_route
 from substratus_tpu_torch.ops.sampling import sample
 from substratus_tpu_torch.serve.decode_graph import DecodeGraph, SpecGraph
 from substratus_tpu_torch.serve.paged_kv import PageAllocator, PrefixRegistry, SlotPages, chain_entries
@@ -269,6 +277,10 @@ class EngineConfig:
     # sketches ride load_snapshot() (/loadz).
     slo_ttft_s: float = 2.0
     slo_inter_token_s: float = 0.25
+    # The JAX engine's bench and test knob: the least wall time of a decode
+    # iteration and of a prefill chunk (a simulated device step, so that a
+    # CPU run of a tiny model lasts long enough to be interrupted). 0 = off.
+    step_floor_s: float = 0.0
 
 
 @dataclass
@@ -292,6 +304,10 @@ class Request:
     # TTFT) and the previous emit (inter-token gap).
     submit_ts: float = 0.0
     last_emit_ts: float = 0.0
+    # A LoRA adapter id (a batch record's `model`): the port has no adapter
+    # store yet (ROADMAP Queue 1, multi-tenant adapters), so such a request
+    # ends with finish_reason "error" at admission.
+    adapter: Optional[str] = None
 
 
 @dataclass
@@ -351,6 +367,7 @@ class Engine:
         model=None,
         decode_graph: bool = True,
         draft: Optional[Tuple[object, nn.Module]] = None,
+        padded_cache: Optional[bool] = None,
     ):
         """Serve `params` (the family module's parameter container, e.g. a
         models.llama.Llama) on `device`: cuda unless the caller passes
@@ -360,7 +377,11 @@ class Engine:
         as CUDA graphs unless decode_graph=False (the eager step, kept to
         compare the two); on the CPU it always runs eagerly. `draft`
         (cfg, params of the same family, on the same device) proposes for
-        ec.spec_k > 0; without it, prompt lookup does."""
+        ec.spec_k > 0; without it, prompt lookup does. The dense cache is
+        laid out as the kernels read it (models/llama.py::init_cache:
+        padded, default on the card); padded_cache=True asks for that
+        layout on the CPU too. A head dim above the kernels' largest is
+        refused here on the dense layout, where they read the cache."""
         # Copy before clamping: never mutate the caller's config.
         ec = dataclasses.replace(ec) if ec is not None else EngineConfig()
         self.device = resolve_device(device)
@@ -411,7 +432,8 @@ class Engine:
             self.prefix = PrefixRegistry(self.alloc) if ec.prefix_cache else None
             self.slot_pages = SlotPages(B)
         else:
-            self.cache = model.init_cache(cfg, B, S, dtype=cache_dtype, device=self.device)
+            check_head_dim(cfg.head_size, "the engine's dense kv layout")
+            self.cache = model.init_cache(cfg, B, S, dtype=cache_dtype, device=self.device, padded=padded_cache)
         if ec.spec_k < 0:
             raise ValueError(f"spec_k {ec.spec_k} invalid")
         self.spec = bool(ec.spec_k)
@@ -465,6 +487,8 @@ class Engine:
         self._graph_cfg = None  # the model config the graph was made for
 
         self.queue: "queue.Queue[Request]" = queue.Queue()
+        # The pull source of batch generation (set_source), or None.
+        self.source = None
         self._stop = threading.Event()
         self._wake = threading.Event()
         self._thread: Optional[threading.Thread] = None
@@ -549,6 +573,27 @@ class Engine:
             req.finish_reason = "error"
             req.out.put(None)
         return req
+
+    def set_source(self, source) -> None:
+        """Attach (or detach, with None) a pull-based request source, the
+        batch-generation admission path (serve/batchgen.py). The source's
+        pull() runs on the scheduler thread and returns a Request (with its
+        out sink) or None; pending() says whether pull() could yield. It is
+        read after the resume list and the submit queue, so submitted
+        requests board first. (The JAX engine also refuses a source on a
+        decode-role engine and on a gang follower; the port has neither.)"""
+        self.source = source
+        self._wake.set()
+
+    def attention_route(self) -> str:
+        """What the attention kernels run at, for the startup lines: the
+        head dim (padded where the kernels are not built for it) and, on
+        the dense layout, the cache's rows and head dim as laid out."""
+        route = head_dim_route(self.cfg.head_size)
+        if self.paged:
+            return f"{route} (paged: plain attention, no kernel)"
+        s, hd = self.cache["k"].shape[3:]
+        return f"{route}; dense cache laid out {s} rows x head_dim {hd}"
 
     def swap_params(self, new_params, version: Optional[int] = None, *, timeout_s: float = 120.0) -> int:
         """Hot weight-swap: serve `new_params` (a module of the served
@@ -683,6 +728,11 @@ class Engine:
             "load_ts": round(time.time(), 3),
             "slo": self.slo.snapshot(),
         }
+        src = self.source
+        if src is not None and hasattr(src, "progress"):
+            # Batch-generation progress (serve/batchgen.py), as the JAX
+            # engine reports it.
+            snap["batchgen"] = src.progress()
         if self.spec:
             # Lifetime acceptance, and each active greedy stream's draft
             # length as the policy would plan it next (0: degraded or
@@ -725,25 +775,48 @@ class Engine:
     # --- scheduler ----------------------------------------------------------
 
     def _next_request(self) -> Optional[Request]:
-        """Preempted and held-back requests board before the queue."""
+        """Preempted and held-back requests board before the queue, the
+        queue before the pull source."""
         if self._resume:
             return self._resume.pop(0)
         try:
             return self.queue.get_nowait()
         except queue.Empty:
-            return None
+            pass
+        if self.source is not None:
+            # Continuous refill: a freed slot's replacement boards in this
+            # same scheduler iteration, straight off the source.
+            return self.source.pull()
+        return None
+
+    def _has_pending(self) -> bool:
+        return (bool(self._resume) or not self.queue.empty()
+                or (self.source is not None and self.source.pending()))
 
     def _admit(self) -> int:
-        """Fill free slots from the queue; capped per iteration while
-        slots decode, so a burst of arrivals cannot starve them. On the
+        """Fill free slots from the queue and the pull source; capped per
+        iteration while slots decode, so a burst of arrivals cannot starve
+        them, but not while a source is attached (an offline run's only
+        objective is keeping every slot busy), as in the JAX engine. On the
         paged pool a request that finds too few pages is held at the front
-        of the line and the round ends: decoding slots will free pages."""
-        cap = max(1, self.ec.max_batch // 4) if self.active.any() else self.ec.max_batch
+        of the line and the round ends: decoding slots will free pages. A
+        request naming an adapter ends as "error" here (no adapter store)."""
+        busy = self.active.any() and self.source is None
+        cap = max(1, self.ec.max_batch // 4) if busy else self.ec.max_batch
         admitted = 0
-        while admitted < cap and not self.active.all():
+        while admitted < cap and self._has_pending() and not self.active.all():
             req = self._next_request()
             if req is None:
                 break
+            if req.adapter is not None:
+                # The JAX engine's _acquire_adapter without a store: fail
+                # this request, not the engine; the slot stays free.
+                logging.getLogger(__name__).warning(
+                    "adapter %r failed to load for request %s: no adapter store (ROADMAP Queue 1, multi-tenant "
+                    "adapters)", req.adapter, req.id)
+                req.finish_reason = "error"
+                req.out.put(None)
+                continue
             self._admitting = req
             slot = int(np.flatnonzero(~self.active)[0])
             # Queue wait is submission -> first prefill; a preempted
@@ -808,6 +881,7 @@ class Engine:
         kw = {} if block_table is None else {"block_table": block_table}
         offset, last_logits = start, None
         while offset < len(prompt):
+            t0 = time.perf_counter()
             padded, clen = _pad_to_bucket(prompt[offset : offset + chunk], chunk)
             tokens = self._to_device(padded)
             # The padded tail clamps onto the one slot past the prompt: real
@@ -822,7 +896,15 @@ class Engine:
             last_logits = logits[0, clen - 1]
             offset += clen
             self.stats[counter] += 1
+            self._floor(t0)
         return last_logits
+
+    def _floor(self, t0: float) -> None:
+        """Sleep out EngineConfig.step_floor_s since t0 (a simulated device
+        step; 0, the default, never sleeps)."""
+        dt = time.perf_counter() - t0
+        if self.ec.step_floor_s > dt:
+            time.sleep(self.ec.step_floor_s - dt)
 
     def _admit_paged(self, req: Request, slot: int) -> bool:
         """Paged admission: take the registry's pages for the prompt's
@@ -1300,15 +1382,18 @@ class Engine:
 
     def _decode_step(self) -> None:
         """One synchronous iteration (overlap=False): dispatch, then drain
-        at once."""
+        at once (the simulated step floor between the two, as in JAX)."""
+        t0 = time.perf_counter()
         step = self._dispatch_any()
         if step is not None:
+            self._floor(t0)
             self._drain_any(step)
 
     def _step_overlapped(self) -> None:
         """One pipelined iteration: dispatch step N, then drain step N-1
         while step N occupies the card. Dispatch first: a dispatch that
         replaces the graph, or preempts, flushes the pending step itself."""
+        t0 = time.perf_counter()
         launched = self._dispatch_any()
         prev, self._pending = self._pending, launched
         if prev is not None:
@@ -1317,6 +1402,7 @@ class Engine:
             if self._pending is not None:
                 # Host work hidden under the step in flight.
                 METRICS.observe("substratus_serve_host_overlap_seconds", time.perf_counter() - t_drain)
+        self._floor(t0)
 
     def _step(self) -> None:
         """One scheduler iteration's decoding, on the resolved scheduler."""

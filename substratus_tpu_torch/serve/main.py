@@ -88,10 +88,12 @@ attention, as in the JAX package. Every other key of the JAX entry point
 exits with the ROADMAP item that will serve it, named by its title
 (``baseModel`` and ``adapters``: multi-tenant adapters; ``role``,
 ``disaggregated``, ``transfer_port``, ``decode_peers``: disaggregated
-prefill/decode; ``batchGenerate``: batch generation; ``tensor``,
-``sequence``, ``replicas``: multi-GPU serving), unless it holds the one
+prefill/decode; ``tensor``, ``sequence``, ``replicas``: multi-GPU
+serving), unless it holds the one
 value this port already serves (for example ``role: both``): a knob is
 never silently ignored, and an unknown value of a served knob exits too.
+``batchGenerate`` is a known key, as in the JAX entry point: the batch
+run itself is ``python -m substratus_tpu_torch.serve.batchgen``.
 """
 from __future__ import annotations
 
@@ -112,14 +114,13 @@ _NOT_SERVED = {
     "disaggregated": (None, "Queue 1, disaggregated prefill/decode"),
     "transfer_port": (None, "Queue 1, disaggregated prefill/decode"),
     "decode_peers": (None, "Queue 1, disaggregated prefill/decode"),
-    "batchGenerate": (None, "Queue 1, batch generation"),
     "tensor": (None, "Queue 1, multi-GPU serving"),
     "sequence": (None, "Queue 1, multi-GPU serving"),
     "replicas": (None, "Queue 1, multi-GPU serving"),
 }
 _SERVED = ("model", "config", "max_batch", "max_seq_len", "max_prefill_len", "kv_cache_dtype", "max_queue",
            "overlap", "kv_layout", "decode_attn_impl", "chunk_attn_impl", "attn_impl", "quantize", "q4_impl",
-           "spec_k", "draft_model", "drain_grace")
+           "spec_k", "draft_model", "drain_grace", "batchGenerate")
 _KV_LAYOUTS = ("auto", "paged", "dense")
 _QUANTIZE = ("none", "int8", "int4")
 # The port has no XLA: both of the JAX entry point's int4 lowerings run the kernel.
@@ -313,30 +314,25 @@ def _skip_llama_knobs(cfg, params_json: Dict[str, Any], quantize: str) -> None:
             print(f"{key} ignored: {type(cfg).__name__} has no attention implementation switch", flush=True)
 
 
-def build(argv=None):
-    """Parse the flags, build the model, engine and HTTP server, start the
-    engine, and return the (not yet serving) serve.server.Server, with its
-    checkpoint loader for POST /swapz and its drain grace."""
+def load_model(model_flag: Optional[str], config_flag: Optional[str], params_json: Dict[str, Any], device,
+               quantize: str):
+    """The served model, as both serving entry points (this one and
+    serve/batchgen.py) load it: (cfg, params, tokenizer, name, family,
+    quantize). A checkpoint (resolve_model_path) or a named config with
+    random weights from seed 0; llama takes the attention knobs of
+    params.json and is quantized on its device, layer by layer; another
+    family says which knobs it skips (quantize becomes "none")."""
     from substratus_tpu_torch.models import registry
-    from substratus_tpu_torch.serve.engine import Engine, EngineConfig
-    from substratus_tpu_torch.serve.server import Server, ServerState
     from substratus_tpu_torch.serve.tokenizer import load_tokenizer
-    from substratus_tpu_torch.utils.device import resolve_device
 
-    args = parse_args(argv)
-    params_json = load_params_json(args.params)
-    check_params(params_json)
-    device = resolve_device(args.device)
-
-    quantize = resolve_quantize(params_json)
-    model_path = resolve_model_path(args.model, params_json)
+    model_path = resolve_model_path(model_flag, params_json)
     if model_path:
         cfg, params = load_checkpoint(model_path, device)
         name = os.path.basename(os.path.normpath(model_path))
         tokenizer = load_tokenizer(model_path)
         check_vocab(tokenizer, cfg)
     else:
-        name = args.config or params_json.get("config", "tiny")
+        name = config_flag or params_json.get("config", "tiny")
         cfg = registry.find_named_config(name)[1]
         tokenizer = load_tokenizer(None)
         if cfg.vocab_size < tokenizer.vocab_size:
@@ -344,14 +340,35 @@ def build(argv=None):
         params = registry.module_of(cfg).init_params(cfg, seed=0, device=device)
     family = registry.module_of(cfg)
     # The attention switches and quantized weights are llama's alone.
-    llama_knobs = getattr(family, "SUPPORTS_QUANTIZE", False)
-    if llama_knobs:
+    if getattr(family, "SUPPORTS_QUANTIZE", False):
         decode_impl, chunk_impl, prefill_impl = resolve_attn_impls(params_json)
         cfg = cfg.replace(decode_attn_impl=decode_impl, chunk_attn_impl=chunk_impl, attn_impl=prefill_impl)
         params = family.quantize_weights(params, quantize)
     else:
         _skip_llama_knobs(cfg, params_json, quantize)
-        decode_impl, chunk_impl, prefill_impl, quantize = "kernel", "flash", "flash", "none"
+        quantize = "none"
+    return cfg, params, tokenizer, name, family, quantize
+
+
+def build(argv=None):
+    """Parse the flags, build the model, engine and HTTP server, start the
+    engine, and return the (not yet serving) serve.server.Server, with its
+    checkpoint loader for POST /swapz and its drain grace."""
+    from substratus_tpu_torch.models import registry
+    from substratus_tpu_torch.serve.engine import Engine, EngineConfig
+    from substratus_tpu_torch.serve.server import Server, ServerState
+    from substratus_tpu_torch.utils.device import resolve_device
+
+    args = parse_args(argv)
+    params_json = load_params_json(args.params)
+    check_params(params_json)
+    device = resolve_device(args.device)
+
+    cfg, params, tokenizer, name, family, quantize = load_model(
+        args.model, args.config, params_json, device, resolve_quantize(params_json))
+    llama_knobs = getattr(family, "SUPPORTS_QUANTIZE", False)
+    decode_impl = getattr(cfg, "decode_attn_impl", "kernel")
+    prefill_impl = getattr(cfg, "attn_impl", "flash")
 
     def knob(flag, key, default):
         return flag if flag is not None else params_json.get(key, default)
@@ -435,7 +452,8 @@ def build(argv=None):
                  f"(attn_impl={params_json.get('attn_impl', 'xla')}); decode attention: "
                  f"{'fused cache-write + decode kernel' if decode_impl == 'fused' else 'decode kernel'} "
                  f"(decode_attn_impl={params_json.get('decode_attn_impl', 'xla')}), long-prompt chunks: "
-                 f"cached flash kernel (chunk_attn_impl={params_json.get('chunk_attn_impl', 'xla')})")
+                 f"cached flash kernel (chunk_attn_impl={params_json.get('chunk_attn_impl', 'xla')}); "
+                 f"{engine.attention_route()}")
     spec = "off"
     if spec_k:
         spec = f"draft={draft_path} k={spec_k}" if draft is not None else f"prompt-lookup k={spec_k}"

@@ -16,6 +16,12 @@ the code, then f16), in the port's layout and the model's dtype.
 
     python -m substratus_tpu_torch.tools.ckpt_writer --config tiny --hf DIR --gguf FILE [--device cpu]
     python -m substratus_tpu_torch.tools.ckpt_writer --config falcon-7b --hf DIR
+    # facebook/opt-2.7b's published shape (head_dim 80) as overrides of opt-1.3b
+    python -m substratus_tpu_torch.tools.ckpt_writer --config opt-1.3b \
+        --shape dim=2560,n_heads=32,n_layers=32,hidden_dim=10240 --hf DIR
+    # a written directory through batch generation (a JSONL manifest of
+    # {"prompt": ...} or {"tokens": [...]} records, sharded JSONL out)
+    python -m substratus_tpu_torch.serve.batchgen --model DIR --params '' --manifest m.jsonl --output out/
 """
 from __future__ import annotations
 
@@ -316,15 +322,32 @@ def spm_vocab(size: int = 32000, seed: int = 0, texts: Tuple[str, ...] = (),
             **({"tokenizer.chat_template": chat_template} if chat_template else {})}
 
 
+def shape_overrides(cfg, text: Optional[str]):
+    """cfg with the integer fields of `text` ("dim=2560,n_heads=32")
+    replaced: a published shape the named configs lack, written without a
+    new CONFIGS entry."""
+    if not text:
+        return cfg
+    fields = {}
+    for item in text.split(","):
+        key, _, value = item.partition("=")
+        if not isinstance(getattr(cfg, key.strip(), None), int) or not value.strip().isdigit():
+            raise SystemExit(f"--shape {item!r}: not an integer field of {type(cfg).__name__} set to a count")
+        fields[key.strip()] = int(value)
+    return cfg.replace(**fields)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m substratus_tpu_torch.tools.ckpt_writer")
     ap.add_argument("--config", default="tiny", help="named config, random weights from --seed")
+    ap.add_argument("--shape", default=None, help="integer overrides of the config, e.g. dim=2560,n_heads=32")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--hf", default=None, help="write an HF safetensors directory here")
     ap.add_argument("--gguf", default=None, help="write a Q4_0 GGUF file with an SPM vocabulary here")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     family, cfg = registry.find_named_config(args.config)
+    cfg = shape_overrides(cfg, args.shape)
     if args.gguf and registry.family_of(cfg) != "llama":
         raise SystemExit(f"--gguf writes llama models; {args.config} is {registry.family_of(cfg)}'s")
     if args.gguf and cfg.vocab_size < 512:  # room for the byte pieces and some merges

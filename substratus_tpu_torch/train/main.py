@@ -43,6 +43,7 @@ import os
 import time
 from typing import Any, Dict, List, Optional
 
+from substratus_tpu_torch.ops.headdim import head_dim_route
 from substratus_tpu_torch.serve.main import (
     ATTN_IMPLS, check_vocab, load_checkpoint, load_params_json, resolve_model_path)
 
@@ -163,7 +164,8 @@ def run(argv=None) -> Dict[str, Any]:
     trainer = Trainer(cfg, tc, params=params, device=device)
     data = PackedDataset(args.data, tokenizer, batch_size, seq_len, seed=tc.seed)
     print(f"training on {device}: steps={steps}, batch {batch_size} x {seq_len}, corpus={data.n_tokens} tokens, "
-          f"lora_rank={lora_rank}, attention {getattr(cfg, 'attn_impl', 'flash')}", flush=True)
+          f"lora_rank={lora_rank}, attention {getattr(cfg, 'attn_impl', 'flash')} at {head_dim_route(cfg.head_size)}",
+          flush=True)
 
     ckpt = CheckpointManager(os.path.join(args.out, "checkpoints"),
                              save_steps=int(p.get("save_steps", max(1, steps // 5))))

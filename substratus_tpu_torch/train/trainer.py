@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from substratus_tpu_torch.models import registry
+from substratus_tpu_torch.ops.headdim import check_head_dim
 from substratus_tpu_torch.train import lora as lora_lib
 from substratus_tpu_torch.train.optim import AdamW, warmup_cosine_decay_schedule
 from substratus_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -90,12 +91,17 @@ class Trainer:
     `params` stays frozen; otherwise every tensor of `params` trains.
     Random weights come from the family's init_params(seed=tc.seed),
     adapters from init_lora(seed=tc.seed + 1), unless `params` is given.
-    The family module comes from the config's type."""
+    The family module comes from the config's type. Attention through the
+    flash kernels (every family but llama at attn_impl "plain") refuses a
+    head dim above the kernels' largest here (ops/headdim.py); a smaller
+    one the kernels are not built for runs padded."""
 
     def __init__(self, cfg, tc: TrainConfig, params: Optional[nn.Module] = None,
                  device: DeviceLike = None):
         self.cfg, self.tc = cfg, tc
         self.model = registry.module_of(cfg)
+        if getattr(cfg, "attn_impl", "flash") == "flash":
+            check_head_dim(cfg.head_size, "the trainer's flash attention")
         if tc.lora_rank > 0 and not getattr(self.model, "SUPPORTS_LORA", False):
             raise NotImplementedError(f"LoRA is not implemented for the {registry.family_of(cfg)} family; use full "
                                       "finetuning (lora_rank: 0)")
