@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases card,build,serve-surface
     python3 chip_smoke.py --phases card,build,kernels,serve-families
     python3 chip_smoke.py --phases card,build,serve-batchgen
+    python3 chip_smoke.py --phases card,build,kernels,serve-adapters
 
 Phases, each of which exits non-zero on failure:
 
@@ -276,6 +277,46 @@ Phases, each of which exits non-zero on failure:
               single-shot reference; before (c), one replayed step of the
               example's paged int8 engine at 16 slots under torch.profiler
               (the weights' bf16 copies, the GEMMs, the gather);
+  serve-adapters
+              multi-tenant LoRA at llama2-7b's full width and depth: the
+              seed-0 base written as an HF directory by tools/ckpt_writer.py;
+              four tenants as adapter artifacts (random B, so no delta is
+              zero): two of rank 16 on all seven targets and one of rank 8
+              on wq/wv in the contract's npz format, and the adapters.pt of
+              one train.main LoRA step (r16 on wq/wv, rate 1e-3 from step
+              0); serve.main --model <the dir> --adapters-dir <the tenants>
+              with adapters.capacity 2 (two preloaded, the others hot-load
+              and evict) in two legs: (a) the default paged pool in bf16 and
+              (b) the dense cache with int4 weights, the int8 cache and the
+              fused decode (the flash forward, the cached flash, the fused
+              decode and both int4 designs under the tenants' deltas, their
+              launches against the forwards), 16 concurrent greedy requests
+              of 18-393 tokens over the base and the four tenants, 16
+              tokens each (b: and one of 1308 tokens under the trained
+              tenant, 3 chunks); each
+              leg: usage, the store's hits, hot loads (= evictions: the
+              store starts full) and waits against the requests, every
+              served token the argmax (or a near-tie within 5% of the logit
+              scale) of a single-shot forward with the request's adapter
+              applied by the plain lora_delta, the base rows token for token
+              an engine with no store (the identity slot exact), the graph
+              engine's tokens the eager synchronous step's, a replayed step
+              at B=8 with and without the store in turns; (a) also lora-a's
+              tokens against an engine on merge_lora(base, lora-a) (a first
+              difference a near-tie), and each tenant's load seconds; (c)
+              the kernels at head_dim 256 on a served and trained path: a
+              llama at gemma-7b's attention widths (16 heads of 256, 4
+              layers) on the dense cache with two tenants, once with the
+              decode kernel over a bf16 cache and once with the fused decode
+              over an int8 cache (6 requests each, one in 2 chunks; every
+              flash, cached-flash and decode launch of the design at 256,
+              every token by the adapter reference), then one LoRA step
+              through the Trainer (dQ and dK/dV of the mma design at 256).
+              The kernels phase holds every instance at 256 (and 192,
+              padded to 256) against its plain version: the flash forward,
+              the cached flash (bf16, int8), the decode and fused decode
+              (gemma-7b's heads, gemma-2b's G = 8), a group of 3 on the
+              split design's 4-warp instance, dQ and dK/dV;
   profile     (only when named) host-clock prefill and decode-step times
               (the overlapped graph replays) and, under torch.profiler,
               their device busy time and top kernels, after serve
@@ -1142,12 +1183,42 @@ def kernel_phase():
         bwd_case(gen, 2, 1024, 71, 1, True, d=64),  # falcon-7b's LoRA step: dK/dV summed over 71 heads
         bwd_case(gen, 2, 512, 32, 32, True, d=80),  # opt-2.7b's LoRA step (B=2 S=512), padded to 128
     ]
+    # The instances at head_dim 256 (gemma's; 129-255 run padded to them):
+    # the mma.sync designs of the forward, the cached flash and the
+    # backward (dK/dV in two column halves), the rows design of the decode
+    # kernels, the split design's 4-warp instance for a group the rows
+    # design does not take; the first case of each is the shape
+    # serve-adapters (c) runs (gemma-7b's 16 heads of 256 on 16 kv heads).
+    d256 = {
+        "flash_fwd_d256": [flash_case(gen, 1, 512, 16, 16, True, d=256),
+                           flash_case(gen, 1, 1000, 16, 16, True, d=256),  # ragged
+                           flash_case(gen, 1, 512, 32, 32, True, d=192)],  # padded to 256
+        "flash_cached_d256": [cached_case(gen, 16, 16, False, d=256, sk=2048, start=512),
+                              cached_case(gen, 16, 16, False, d=192, sk=2048, start=512)],
+        "flash_cached_int8_d256": [cached_case(gen, 16, 16, True, d=256, sk=2048, start=512),
+                                   cached_case(gen, 16, 16, True, d=256, sq=100, sk=2048, start=700)],
+        "decode_attn_d256": [decode_case(gen, 8, 1024, 16, 16, False, positions, d=256),
+                             decode_case(gen, 8, 1024, 16, 16, True, positions, d=256),
+                             decode_case(gen, 8, 1024, 8, 1, False, positions, d=256),  # gemma-2b's heads (G = 8)
+                             decode_case(gen, 8, 1024, 16, 16, False, positions, d=192)],
+        "fused_decode_d256": [fused_case(gen, 16, 16, True, positions, s=1024, d=256),
+                              fused_case(gen, 16, 16, False, positions, s=1024, d=256),
+                              fused_case(gen, 8, 1, True, positions, s=1024, d=256)],
+        # a group of 3 at 256: the split design on 4 warps, bf16 and int8 (1022 rows laid out at 1024)
+        "decode_split_d256": [decode_case(gen, 8, 1024, 12, 4, False, positions, d=256),
+                              decode_case(gen, 8, 1022, 12, 4, True, positions[:-1] + [1021], d=256),
+                              fused_case(gen, 12, 4, True, positions[:-1] + [1021], s=1022, d=256)],
+    }
+    bwd256 = [bwd_case(gen, 2, 1024, 16, 16, True, d=256),  # a LoRA step at gemma-7b's heads
+              bwd_case(gen, 2, 1000, 16, 8, True, d=256),  # ragged, GQA 2
+              bwd_case(gen, 2, 512, 32, 32, True, d=192)]  # padded to 256
     report = {"flash_fwd": flash, "decode_attn": decode, "flash_cached": cached, "flash_cached_int8": cached_int8,
               "fused_decode": fused,
               "q4_matmul_decode": [c for c in q4 if c["design"] == "decode"],
               "q4_matmul": [c for c in q4 if c["design"] == "mma"],
               "q4_matmul_wgmma": [c for c in q4 if c["design"] == "wgmma"],
-              "flash_bwd_dq": [c[0] for c in bwd], "flash_bwd_dkv": [c[1] for c in bwd]}
+              "flash_bwd_dq": [c[0] for c in bwd], "flash_bwd_dkv": [c[1] for c in bwd],
+              **d256, "flash_bwd_dq_d256": [c[0] for c in bwd256], "flash_bwd_dkv_d256": [c[1] for c in bwd256]}
     for name, cases in report.items():
         for c in cases:
             lib = "n/a" if c["library_ms"] is None else f"{c['library_ms']:.4f}"
@@ -1176,7 +1247,8 @@ def kernel_phase():
         print(f"q4_matmul_decode [{c['case']}] plan {c['plan']} in turns with q4_matmul.cu, ms (L2 flushed): "
               + "; ".join(f"{x} {', '.join(f'{t:.4f}' for t in ts)}" for x, ts in c["turns_ms"].items())
               + f" (torch.matmul on the bf16 weight {c['library_ms']:.4f}, bound {c['bound_ms']:.4f})", flush=True)
-    for dq, dkv in zip(report["flash_bwd_dq"], report["flash_bwd_dkv"]):
+    for dq, dkv in zip(report["flash_bwd_dq"] + report["flash_bwd_dq_d256"],
+                       report["flash_bwd_dkv"] + report["flash_bwd_dkv_d256"]):
         host = f"{dq['host_us']:.1f} us" if dq["host_us"] is not None else "n/a (padded)"
         print(f"flash backward [{dq['case']}]: dq {dq['ms']:.4f} + dkv {dkv['ms']:.4f} + bwd_delta "
               f"{dq['delta_ms']:.4f} = {dq['ms'] + dkv['ms'] + dq['delta_ms']:.4f} ms against SDPA's backward "
@@ -1559,15 +1631,17 @@ def eager_check(engine, requests, label: str, params=None) -> dict:
 
     if params is None:
         ec = dataclasses.replace(engine.ec, overlap=False)
-        eager = Engine(engine.cfg, engine.params, ec, device=engine.device, model=engine.model, decode_graph=False)
+        eager = Engine(engine.cfg, engine.params, ec, device=engine.device, model=engine.model, decode_graph=False,
+                       adapters=engine.adapters)
         if eager.overlap or eager.decode_graph:
             fail(f"{label}: the comparison engine must be synchronous and eager")
     else:
-        eager = Engine(engine.cfg, params, engine.ec, device=engine.device, model=engine.model)
+        eager = Engine(engine.cfg, params, engine.ec, device=engine.device, model=engine.model,
+                       adapters=engine.adapters)
     eager.start()
     try:
         reqs = [eager.submit(Request(list(r.prompt_tokens), max_tokens=r.max_tokens, temperature=r.temperature,
-                                     top_p=r.top_p)) for r in requests]
+                                     top_p=r.top_p, adapter=r.adapter)) for r in requests]
         outs = []
         for req in reqs:
             toks = []
@@ -4572,10 +4646,508 @@ def serve_batchgen_phase(card: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# --- serve-adapters: multi-tenant LoRA adapters at llama2-7b width -------------
+
+ADAPTER_TARGETS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+# The four tenants, as the store lists them (sorted): the first two are
+# preloaded into the capacity-2 store, the others hot-load and evict.
+# (id, rank, alpha, targets); "trained" comes from one train.main LoRA step.
+ADAPTER_SPECS = (("lora-a", 16, 32.0, ADAPTER_TARGETS), ("lora-b", 16, 32.0, ADAPTER_TARGETS),
+                 ("lora-qv", 8, 16.0, ("wq", "wv")))
+ADAPTER_IDS = ("lora-a", "lora-b", "lora-qv", "trained")
+ADAPTER_TRAIN_PARAMS = {"steps": 1, "batch_size": 1, "seq_len": 256, "lora_rank": 16, "lora_alpha": 32,
+                        "learning_rate": 1e-3, "warmup_steps": 0, "save_steps": 1000}
+# Leg (a): serve.main's default layout for llama (the paged pool), bf16;
+# leg (b): the dense cache with int4 weights, the int8 cache and the fused
+# decode (serve-int4's stack). Both: the adapters directory at capacity 2.
+ADAPTER_PARAMS = {"max_batch": 8, "max_seq_len": 1024, "max_prefill_len": 512, "adapters": {"capacity": 2}}
+ADAPTER_INT4_PARAMS = dict(ADAPTER_PARAMS, max_seq_len=2048, kv_layout="dense", quantize="int4",
+                           kv_cache_dtype="int8", decode_attn_impl="fused")
+# 16 greedy requests of 18-393 tokens over the base and the four tenants in
+# turn (a tag first, so no two prompts share a 16-token page); leg (b) adds
+# one of 1308 tokens under the trained adapter (3 chunks of 512).
+ADAPTER_PROMPTS = [(f"[{i:02d}] " + _long_text(12 + 25 * i, 40 + i), 16, ((None,) + ADAPTER_IDS)[i % 5])
+                   for i in range(16)]
+ADAPTER_LONG = ("[long] " + _long_text(1300, 60), 16, "trained")
+# serve-adapters (c): a llama at gemma-7b's attention widths (16 heads of
+# 256 on 16 kv heads, hidden 3072, FFN 24576), its depth cut to 4 layers.
+GEMMA_HEADS = dict(vocab_size=32000, dim=3072, n_layers=4, n_heads=16, n_kv_heads=16, head_dim=256,
+                   hidden_dim=24576, max_seq_len=8192)
+
+
+def random_lora(cfg, seed: int, rank: int, alpha: float, targets) -> dict:
+    """{name: {"a": [L, in, r], "b": [L, r, *out]}} float32 numpy from a
+    seed: A ~ N(0, 1/in), B random too (so no delta is zero), scaled so a
+    delta's norm is about 0.3 of its projection's."""
+    import numpy as np
+
+    from substratus_tpu_torch.serve.adapters import _target_shapes
+
+    rng = np.random.default_rng(seed)
+    sigma = 0.3 / ((alpha / rank) * rank**0.5)
+    return {name: {"a": rng.standard_normal((cfg.n_layers, ind, rank), dtype=np.float32) * np.float32(ind**-0.5),
+                   "b": rng.standard_normal((cfg.n_layers, rank) + out, dtype=np.float32) * np.float32(sigma)}
+            for name, (ind, out) in _target_shapes(cfg, targets).items()}
+
+
+def plain_lora(layers: dict, scale: float, device, dtype) -> dict:
+    """An artifact's tree as the models' forward takes it for one request:
+    {"layers": [{name: {"a": [in, r], "b": [r, *out]}}], "scale"} in the
+    model's dtype, for the plain (non-indexed) lora_delta."""
+    import torch
+
+    n = next(iter(layers.values()))["a"].shape[0]
+    return {"layers": [{name: {k: torch.from_numpy(ab[k][i]).to(device=device, dtype=dtype) for k in ("a", "b")}
+                        for name, ab in layers.items()} for i in range(n)], "scale": scale}
+
+
+def adapter_reference(engine, requests, trees: dict, label: str) -> dict:
+    """Each served greedy token against one teacher-forced single-shot
+    forward over prompt + served tokens on the engine's weights with the
+    request's adapter applied by the plain lora_delta (none for the base):
+    its argmax, or a near-tie within 5% of the logit scale (reported)."""
+    import torch
+
+    agree = total = 0
+    worst = (0.0, 1.0)
+    for req in requests:
+        prompt, toks = engine.clipped_prompt(req.prompt_tokens), req.out.tokens
+        seq = torch.tensor([prompt + toks[:-1]], device=engine.device)
+        with torch.inference_mode():
+            logits, _ = engine.model.forward(engine.params, seq, engine.cfg, lora=trees.get(req.adapter))
+        logits = logits[0, len(prompt) - 1:]
+        if not torch.isfinite(logits).all():
+            fail(f"{label}: non-finite reference logits ({req.adapter})")
+        scale = logits.abs().max().item()
+        gaps = logits.max(dim=-1).values - logits[torch.arange(len(toks)), torch.tensor(toks)]
+        agree += sum(int(logits[i].argmax()) == t for i, t in enumerate(toks))
+        total += len(toks)
+        if gaps.max().item() / scale > worst[0] / worst[1]:
+            worst = (gaps.max().item(), scale)
+        if not toks or gaps.max().item() > 0.05 * scale:
+            fail(f"{label}: a served token of a {len(prompt)}-token prompt under {req.adapter} departs from the "
+                 f"single-shot reference by more than a near-tie: gap {gaps.max().item():.4g} at scale {scale:.4g}")
+    print(f"{label} reference: {agree}/{total} served greedy tokens of {len(requests)} requests (base and tenants) "
+          f"are the argmax of the single-shot forward with the request's adapter applied by the plain lora_delta; "
+          f"the rest near-ties, the largest gap {worst[0]:.4g} at logit scale {worst[1]:.4g}", flush=True)
+    return {"argmax_agree": agree, "tokens": total, "max_gap": worst[0], "logit_scale": worst[1]}
+
+
+def post_tenants(base: str, prompts) -> tuple:
+    """POST every (text, max_tokens, tenant) at once, greedy, each with its
+    tenant in the `model` field (none for the base); ([(status, body)],
+    wall seconds)."""
+    results = [None] * len(prompts)
+
+    def run(i, text, n, tenant):
+        body = {"prompt": text, "max_tokens": n, "temperature": 0.0, **({"model": tenant} if tenant else {})}
+        try:
+            results[i] = post(base, body)[:2]
+        except Exception as e:  # reported below as a failed request
+            results[i] = (None, repr(e))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=run, args=(i, *p)) for i, p in enumerate(prompts)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return results, time.perf_counter() - t0
+
+
+def engine_tokens(engine, requests, adapters: bool) -> list:
+    """The requests served again, all submitted at once, through `engine`
+    (started here and stopped): [(tokens, finish)], greedy."""
+    from substratus_tpu_torch.serve.engine import Request
+
+    engine.start()
+    try:
+        reqs = [engine.submit(Request(list(r.prompt_tokens), max_tokens=r.max_tokens, temperature=0.0,
+                                      adapter=r.adapter if adapters else None)) for r in requests]
+        outs = []
+        for req in reqs:
+            toks = []
+            while (tok := req.out.get(timeout=600)) is not None:
+                toks.append(tok)
+            outs.append((toks, req.finish_reason))
+        return outs
+    finally:
+        engine.stop()
+
+
+def steady_step_ms(engine, tenants, label: str) -> float:
+    """Host clock of 16 overlapped steps (graph replays) with every slot
+    filled by 100-token prompts under `tenants` (one a slot), on a stopped
+    engine driven by hand; the slots (and pins) released after."""
+    import torch
+
+    from substratus_tpu_torch.serve.engine import Request
+
+    b = engine.ec.max_batch
+    for i in range(b):
+        engine.queue.put(Request([256] + [65 + i] * 99, max_tokens=10_000, adapter=tenants[i % len(tenants)]))
+    while not engine.active.all():
+        if engine._admit() == 0:
+            fail(f"{label}: admission failed")
+    for _ in range(4):
+        engine._step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(16):
+        engine._step()
+    engine._flush()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / 16
+    for slot in range(b):
+        engine._release_slot(slot)
+    return ms
+
+
+def adapter_counts() -> dict:
+    from substratus_tpu_torch.observability.metrics import METRICS
+
+    return {k: METRICS.get(f"substratus_serve_adapter_{k}_total") or 0 for k in ("cache_hits", "cache_misses",
+                                                                                   "evictions")}
+
+
+def adapters_leg(label: str, params: dict, prompts, model_dir: Path, adapters_dir: Path, trees_of, card: str,
+                 merged_tenant=None) -> dict:
+    """serve.main --model <the seeded HF dir> --adapters-dir <the four
+    tenants> with `params` (capacity 2): the prompts at once over HTTP, then
+    the checks: usage; the store's counts; each kernel's launches (int4:
+    by design against the forwards); every token by the adapter reference;
+    the base rows an engine with no store's, token for token; the graph
+    engine's tokens the eager synchronous step's (eager_check, with the
+    store); for `merged_tenant` its tokens an engine on merge_lora(base,
+    adapter)'s (a first difference a near-tie); the step with and without
+    the store at full batch."""
+    import torch
+
+    from substratus_tpu_torch.serve.engine import Engine
+    from substratus_tpu_torch.train.lora import LoraAdapters, merge_lora
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    server, engine, base = start_server(label, params, ("--model", str(model_dir), "--adapters-dir",
+                                                        str(adapters_dir)))
+    store = engine.adapters
+    if store is None or store.capacity != 2 or store.loaded_ids() != list(ADAPTER_IDS[:2]):
+        fail(f"{label}: the store is {store and store.snapshot()}, want capacity 2 with {ADAPTER_IDS[:2]} preloaded")
+    trees = trees_of(engine)
+    counters = int4_counters()
+    requests = tee_requests(engine)
+    try:
+        zero_counts(engine, counters.values())
+        before_store, before_metrics = dict(store.stats), adapter_counts()
+        results, wall = post_tenants(base, prompts)
+        wait_idle(engine)
+        stats = dict(engine.stats)
+        launches = int4_launches(engine, counters)
+        store_moved = {k: store.stats[k] - before_store[k] for k in store.stats}
+        metrics_moved = adapter_counts()
+        metrics_moved = {k: metrics_moved[k] - before_metrics[k] for k in metrics_moved}
+        del engine.submit
+    finally:
+        server.stop()
+    for (text, n, tenant), (status, body) in zip(prompts, results):
+        usage = body.get("usage") if status == 200 else None
+        if status != 200 or usage["prompt_tokens"] != len(text.encode()) + 1 or not 1 <= usage["completion_tokens"] <= n:
+            fail(f"{label}: a request under {tenant}: {status} {body}")
+    tenants = sum(t is not None for _, _, t in prompts)
+    # What the traffic implies: every tenant request pinned its adapter
+    # once, a hit or a hot load; the store starts full, so every hot load
+    # evicts the least recently used unpinned tenant (hits + evictions =
+    # tenant requests); the two tenants not preloaded load at least once
+    # each; a miss is also counted for each admission attempt that found
+    # every slot pinned and waited (the JAX store's count: misses -
+    # evictions are those waits); the registry moves with the store.
+    loads = store_moved["evictions"]
+    if (stats["adapter_requests"] != tenants or store_moved["hits"] + loads != tenants or loads < 2
+            or store_moved["misses"] < loads
+            or metrics_moved != {"cache_hits": store_moved["hits"], "cache_misses": store_moved["misses"],
+                                 "evictions": store_moved["evictions"]} or len(store.loaded_ids()) != 2):
+        fail(f"{label}: {tenants} tenant requests, stats {stats['adapter_requests']}, store {store_moved}, "
+             f"registry {metrics_moved}, resident {store.loaded_ids()}")
+    if params.get("quantize") == "int4":
+        check_int4_launches(engine, stats, launches, [len(text.encode()) + 1 for text, _, _ in prompts], label)
+    elif any(launches[k] for k in ("flash_fwd", "flash_cached", "decode_attn", "fused_decode", "q4_matmul_total")):
+        fail(f"{label}: the paged bf16 path launched an attention or int4 kernel: {launches}")
+    check_graph_run(engine, stats, label)
+    step_ms = 1e3 * stats["decode_seconds"] / stats["decode_steps"]
+    print(f"{label} [{card}]: {len(prompts)} concurrent requests ({tenants} under 4 tenants, the rest the base) in "
+          f"{wall:.2f} s; {stats['prefills']} prefills, {stats['prefill_chunks']} chunks, {stats['decode_steps']} "
+          f"decode steps, mean step {step_ms:.2f} ms; the store: {store_moved['hits']} hits, {loads} hot loads "
+          f"({loads} evictions), {store_moved['misses'] - loads} admissions waiting for a slot ({store_moved['misses']} "
+          f"misses), resident {store.loaded_ids()}; launches "
+          f"{launches}", flush=True)
+    reference = adapter_reference(engine, requests, trees, label)
+
+    # The base rows: an engine with no store, the served engine's knobs and weights.
+    bare = Engine(engine.cfg, engine.params, engine.ec, device=engine.device, model=engine.model)
+    base_reqs = [r for r in requests if r.adapter is None]
+    got = engine_tokens(bare, base_reqs, adapters=False)
+    if got != [(r.out.tokens, r.finish_reason) for r in base_reqs]:
+        fail(f"{label}: the base rows differ from an engine with no store: {got} against "
+             f"{[r.out.tokens for r in base_reqs]}")
+    print(f"{label}: all {len(base_reqs)} base requests token for token an engine with no store (the identity slot "
+          "adds exactly nothing)", flush=True)
+    eager = eager_check(engine, requests, label)
+    merged = None
+    if merged_tenant is not None:
+        tree = trees[merged_tenant]
+        mod = LoraAdapters([{n: dict(ab) for n, ab in layer.items()} for layer in tree["layers"]])
+        twin = Engine(engine.cfg, merge_lora(engine.params, mod, tree["scale"]), engine.ec, device=engine.device,
+                      model=engine.model)
+        mine = [r for r in requests if r.adapter == merged_tenant]
+        outs = engine_tokens(twin, mine, adapters=False)
+        identical, diffs = 0, []
+        for req, (toks, _) in zip(mine, outs):
+            a = req.out.tokens
+            if a == toks:
+                identical += 1
+                continue
+            i = next((j for j, (x, y) in enumerate(zip(a, toks)) if x != y), min(len(a), len(toks)))
+            pick = [t[i] if i < len(t) else engine.ec.eos_token_id for t in (a, toks)]
+            prompt = engine.clipped_prompt(req.prompt_tokens)
+            with torch.inference_mode():
+                logits, _ = twin.model.forward(twin.params, torch.tensor([prompt + a[:i]], device=engine.device),
+                                               twin.cfg)
+            row = logits[0, -1]
+            gaps = [(row.max() - row[t]).item() for t in pick]
+            diffs.append((i, [round(g, 4) for g in gaps]))
+            if max(gaps) > 0.05 * row.abs().max().item():
+                fail(f"{label}: {merged_tenant}'s tokens depart from the merged engine's at {i} by more than a "
+                     f"near-tie: {gaps}")
+        print(f"{label}: {identical} of {len(mine)} {merged_tenant} requests token for token an engine on "
+              f"merge_lora(base, {merged_tenant})" + (f"; the others first differ at a near-tie: {diffs}" if diffs
+                                                      else ""), flush=True)
+        merged = {"identical": identical, "requests": len(mine), "differ": diffs}
+        del twin
+        gc.collect()
+        torch.cuda.empty_cache()
+    # The step at full batch with the store (two tenants and the base) and
+    # without it (the engine of the base rows), in turns.
+    with_store = steady_step_ms(engine, ("lora-a", "lora-b", None, None), label)
+    without = steady_step_ms(bare, (None,), label)
+    with_store2 = steady_step_ms(engine, ("lora-a", "lora-b", None, None), label)
+    without2 = steady_step_ms(bare, (None,), label)
+    print(f"{label} [{card}]: a replayed step at B={engine.ec.max_batch} with the store (7 x 2 products a layer "
+          f"gathered per row) {with_store:.2f} / {with_store2:.2f} ms, without {without:.2f} / {without2:.2f} ms, "
+          f"in turns", flush=True)
+    del bare
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "stats": stats, "wall_s": wall, "store": store_moved, "reference": reference,
+            "eager_sync": eager, "merged": merged, "step_ms": step_ms,
+            "step_with_store_ms": [with_store, with_store2], "step_without_store_ms": [without, without2],
+            "engine": engine}
+
+
+def gemma_heads_leg(card: str) -> dict:
+    """(c) The kernels at head_dim 256 on a served and trained path: a llama
+    at gemma-7b's attention widths (4 layers, seed 0, bf16) on the dense
+    cache with a store of two tenants (rank 16 on every target), twice:
+    the decode kernel over a bf16 cache, then the fused decode over an int8
+    cache; 6 greedy requests each (one of 700 tokens: 2 chunks), every
+    token by the adapter reference, each kernel's launches 4 x prefills,
+    chunks and decode steps (replays included), of the design at 256; then
+    one LoRA step (r16 on wq/wv, batch 2 x 512) through the Trainer: dQ
+    and dK/dV 4 launches each, of the mma design."""
+    import numpy as np
+    import torch
+
+    from substratus_tpu_torch.models import llama
+    from substratus_tpu_torch.ops import flash_attention as fa
+    from substratus_tpu_torch.ops.decode_attention import decode_attention
+    from substratus_tpu_torch.ops.fused_decode import fused_decode_attention
+    from substratus_tpu_torch.serve.adapters import AdapterStore
+    from substratus_tpu_torch.serve.engine import Engine, EngineConfig, Request
+    from substratus_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    label = "serve-adapters (c)"
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = llama.LlamaConfig(**GEMMA_HEADS)
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    loras = {f"g{i}": (random_lora(cfg, 70 + i, 16, 32.0, ADAPTER_TARGETS), 2.0) for i in range(2)}
+    trees = {aid: plain_lora(layers, scale, "cuda", cfg.dtype) for aid, (layers, scale) in loras.items()}
+    prompts = [[(37 * i + j) % 30000 + 1 for j in range(n)] for i, n in enumerate((12, 100, 700, 40, 260, 33))]
+    tenants = [None, "g0", "g1", "g0", None, "g1"]
+    counters = (fa.flash_attention, fa.flash_cached_attention, decode_attention, fused_decode_attention)
+    out = {"launches": {"flash_fwd_d256": 0}, "reference": []}
+    for cache, decode in (("model", "kernel"), ("int8", "fused")):
+        store = AdapterStore(cfg, capacity=2, rank=16, targets=ADAPTER_TARGETS, device="cuda")
+        for aid, (layers, scale) in loras.items():
+            store.install(aid, layers, scale)
+        engine = Engine(cfg.replace(decode_attn_impl=decode), params,
+                        EngineConfig(max_batch=8, max_seq_len=1024, max_prefill_len=512, kv_layout="dense",
+                                     kv_cache_dtype=cache, eos_token_id=-1), adapters=store)
+        engine.start()
+        engine.generate([1, 2, 3], max_tokens=2)  # the warm-up: the decode graph captured
+        wait_idle(engine)
+        zero_counts(engine, counters)
+        requests = tee_requests(engine)
+        try:
+            reqs = [engine.submit(Request(list(p), max_tokens=16, temperature=0.0, adapter=a))
+                    for p, a in zip(prompts, tenants)]
+            for r in reqs:
+                while r.out.get(timeout=600) is not None:
+                    pass
+            wait_idle(engine)
+        finally:
+            engine.stop()
+        del engine.submit
+        stats = dict(engine.stats)
+        step = {c.__name__: {k: launched(engine, c, k) for k in vars(c) if k.startswith("launches")}
+                for c in counters}
+        L = cfg.n_layers
+        attn = "decode_attention" if decode == "kernel" else "fused_decode_attention"
+        want = {"flash_attention": L * stats["prefills"], "flash_cached_attention": L * stats["prefill_chunks"],
+                attn: L * stats["decode_steps"]}
+        designs = {"flash_attention": "mma", "flash_cached_attention": "mma", attn: "rows"}
+        if (any(step[n]["launches"] != w or step[n][f"launches_{designs[n]}"] != w or step[n]["launches_padded"]
+                for n, w in want.items()) or not all(want.values())
+                or step["decode_attention" if decode == "fused" else "fused_decode_attention"]["launches"]):
+            fail(f"{label} {cache} cache: launches {step}, want {want} of the designs {designs}; stats {stats}")
+        ref = adapter_reference(engine, requests, trees, f"{label} {cache} cache")
+        out["launches"]["flash_fwd_d256"] += want["flash_attention"]
+        out["launches"]["flash_cached_d256" if cache == "model" else "flash_cached_int8_d256"] = \
+            want["flash_cached_attention"]
+        out["launches"]["decode_attn_d256" if decode == "kernel" else "fused_decode_d256"] = want[attn]
+        out["reference"].append(ref)
+        print(f"{label} [{card}]: gemma-7b's heads (16 x 256), {L} layers, {cache} cache, decode_attn_impl {decode}: "
+              f"{len(prompts)} requests under 2 tenants and the base; {stats['prefills']} prefills, "
+              f"{stats['prefill_chunks']} chunks, {stats['decode_steps']} decode steps; launches with replays "
+              f"{want} (designs {designs}), mean step {1e3 * stats['decode_seconds'] / stats['decode_steps']:.2f} ms",
+              flush=True)
+        del engine, store
+        gc.collect()
+    trainer = Trainer(cfg, TrainConfig(lora_rank=16, lora_alpha=32, learning_rate=1e-3, warmup_steps=0,
+                                       total_steps=10, remat=False), params=params)
+    rng = np.random.default_rng(3)
+    batch = {"tokens": rng.integers(1, 30000, (2, 512)).astype(np.int32), "weights": np.ones((2, 512), np.float32)}
+    bwd = (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+    for c in bwd + (fa.flash_attention,):
+        for k in [k for k in vars(c) if k.startswith("launches")]:
+            setattr(c, k, 0)
+    loss = trainer.train_step(batch)
+    torch.cuda.synchronize()
+    got = {c.__name__: {k: getattr(c, k) for k in vars(c) if k.startswith("launches")} for c in bwd}
+    if (not np.isfinite(loss) or any(g["launches"] != cfg.n_layers or g["launches_mma"] != cfg.n_layers
+                                     for g in got.values())):
+        fail(f"{label}: a LoRA step at head_dim 256: loss {loss}, backward launches {got}")
+    out["launches"].update(flash_bwd_dq_d256=cfg.n_layers, flash_bwd_dkv_d256=cfg.n_layers, decode_split_d256=0)
+    out["loss"] = loss
+    print(f"{label}: one LoRA step (r16 on wq/wv, 2 x 512) through the Trainer: loss {loss:.4f}, dQ and dK/dV "
+          f"{cfg.n_layers} launches each (mma design at 256); launches on this path {out['launches']}", flush=True)
+    del trainer, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_adapters_phase(card: str) -> dict:
+    """Multi-tenant LoRA at llama2-7b's full width and depth: the seed-0
+    base written as an HF directory by tools/ckpt_writer.py, four tenants
+    as contract artifacts (two of rank 16 on every target, one of rank 8 on
+    wq/wv, one from a train.main LoRA step), served by serve.main
+    --adapters-dir at capacity 2 on the paged pool in bf16 (a) and on the
+    dense cache with int4 weights (b); then (c), the kernels at head_dim
+    256 on a served and trained path."""
+    import os
+    import tempfile
+
+    import torch
+
+    from substratus_tpu_torch.models import llama
+    from substratus_tpu_torch.serve.adapters import load_adapter_artifact, save_adapter_artifact
+    from substratus_tpu_torch.tools.ckpt_writer import write_hf
+    from substratus_tpu_torch.train import main as train_main
+
+    label = "serve-adapters"
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_adapters_"))
+    try:
+        cfg = llama.CONFIGS["llama2-7b"]
+        source = llama.init_params(cfg, seed=0, device="cuda")
+        disk_room(tmp, 2 * 13_500_000_000, label)
+        t0 = time.perf_counter()
+        written = write_hf(str(tmp / "llama2-7b"), source)
+        print(f"{label}: llama2-7b (seed 0, bf16) written as {len(written['files'])} safetensors shards in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        del source
+        gc.collect()
+        torch.cuda.empty_cache()
+        adapters_dir = tmp / "adapters"
+        for i, (aid, rank, alpha, targets) in enumerate(ADAPTER_SPECS):
+            save_adapter_artifact(str(adapters_dir / aid), random_lora(cfg, 50 + i, rank, alpha, targets), alpha, rank)
+        # The fourth tenant: one LoRA step of train.main on the HF directory
+        # (rate 1e-3 from step 0, so B moves off zero); its adapter artifact
+        # (the port's adapters.pt) is served as it is.
+        _token_corpus(tmp / "data", cfg.vocab_size, 10_000)
+        (tmp / "train.json").write_text(json.dumps(ADAPTER_TRAIN_PARAMS))
+        res = train_main.run(["--model", str(tmp / "llama2-7b"), "--data", str(tmp / "data"), "--out",
+                              str(tmp / "train"), "--params", str(tmp / "train.json")])
+        losses = res["losses"]
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.move(str(tmp / "train" / "adapter"), str(adapters_dir / "trained"))
+        shutil.rmtree(tmp / "train")
+        arts = {aid: load_adapter_artifact(str(adapters_dir / aid)) for aid in ADAPTER_IDS}
+        if not (all(x == x for x in losses) and any(ab["b"].any() for ab in arts["trained"][0].values())):
+            fail(f"{label}: the train.main adapter: losses {losses}, its B all zero")
+        sizes = {aid: sum(f.stat().st_size for f in (adapters_dir / aid).iterdir()) for aid in ADAPTER_IDS}
+        print(f"{label}: four tenants in {adapters_dir}: {[(aid, arts[aid][2]['lora']) for aid in ADAPTER_IDS]}, "
+              f"bytes {sizes}; the train.main step's loss {losses}", flush=True)
+
+        def trees_of(engine):
+            return {aid: plain_lora(layers, scale, engine.device, engine.cfg.dtype)
+                    for aid, (layers, scale, _) in arts.items()}
+
+        leg_a = adapters_leg(f"{label} (a)", ADAPTER_PARAMS, ADAPTER_PROMPTS, tmp / "llama2-7b", adapters_dir,
+                             trees_of, card, merged_tenant="lora-a")
+        engine = leg_a.pop("engine")
+        # Load seconds a tenant: the artifact read, the host install (the
+        # scale folded into b), the in-place copy to the card, synchronized.
+        from substratus_tpu_torch.serve.adapters import AdapterStore
+
+        store = AdapterStore(engine.cfg, capacity=4, rank=16, targets=ADAPTER_TARGETS, device="cuda")
+        loads = {}
+        for aid in ADAPTER_IDS:
+            t0 = time.perf_counter()
+            store.load(aid, str(adapters_dir / aid))
+            store.sync()
+            torch.cuda.synchronize()
+            loads[aid] = time.perf_counter() - t0
+        dev_bytes = sum(t.numel() * t.element_size() for t in (*store._dev_a.values(), *store._dev_b.values()))
+        print(f"{label} [{card}]: load seconds a tenant (read, install, copy to the card): "
+              + ", ".join(f"{aid} {s:.3f}" for aid, s in loads.items())
+              + f"; the store's device tensors {dev_bytes} bytes at capacity 4", flush=True)
+        del engine, store
+        gc.collect()
+        torch.cuda.empty_cache()
+        prompts_b = ADAPTER_PROMPTS + [ADAPTER_LONG]
+        leg_b = adapters_leg(f"{label} (b)", ADAPTER_INT4_PARAMS, prompts_b, tmp / "llama2-7b", adapters_dir,
+                             trees_of, card)
+        del leg_b["engine"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        leg_c = gemma_heads_leg(card)
+        print(f"{label}: {time.perf_counter() - t_phase:.1f} s", flush=True)
+        return {"a": leg_a, "b": leg_b, "c": leg_c, "loads_s": loads, "artifact_bytes": sizes,
+                "train_losses": losses, "launches": leg_c["launches"], "launches_b": leg_b["launches"]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default="card,build,kernels,serve,serve-long,serve-int4,serve-paged,serve-spec,"
-                                        "serve-ckpt,serve-surface,train,train-full,serve-families,serve-batchgen")
+                                        "serve-ckpt,serve-surface,train,train-full,serve-families,serve-batchgen,"
+                                        "serve-adapters")
     phases = ap.parse_args().phases.split(",")
     t_start = time.perf_counter()
 
@@ -4623,6 +5195,8 @@ def main() -> int:
         report["serve-families"] = serve_families_phase(card)
     if "serve-batchgen" in phases:
         report["serve-batchgen"] = serve_batchgen_phase(card)
+    if "serve-adapters" in phases:
+        report["serve-adapters"] = serve_adapters_phase(card)
     report["wall_s"] = time.perf_counter() - t_start
     print(f"chip_smoke: phases {','.join(phases)} in {report['wall_s']:.1f} s", flush=True)
     OUT_DIR.mkdir(exist_ok=True)
@@ -4647,7 +5221,24 @@ def main() -> int:
                    "flash_bwd_dq": ("substratus_tpu_torch/csrc/flash_bwd_wgmma.cu",
                                     "substratus_tpu/ops/flash_attention.py:247"),
                    "flash_bwd_dkv": ("substratus_tpu_torch/csrc/flash_bwd_wgmma.cu",
-                                     "substratus_tpu/ops/flash_attention.py:290")}
+                                     "substratus_tpu/ops/flash_attention.py:290"),
+                   # the instances at head_dim 256
+                   "flash_fwd_d256": ("substratus_tpu_torch/csrc/flash_fwd.cu",
+                                      "substratus_tpu/ops/flash_attention.py:91"),
+                   "flash_cached_d256": ("substratus_tpu_torch/csrc/flash_cached.cu",
+                                         "substratus_tpu/ops/flash_attention.py:452"),
+                   "flash_cached_int8_d256": ("substratus_tpu_torch/csrc/flash_cached.cu",
+                                              "substratus_tpu/ops/flash_attention.py:452"),
+                   "decode_attn_d256": ("substratus_tpu_torch/csrc/decode_attn.cu",
+                                        "substratus_tpu/ops/decode_attention.py:138"),
+                   "fused_decode_d256": ("substratus_tpu_torch/csrc/fused_decode.cu",
+                                         "substratus_tpu/ops/fused_decode.py:48"),
+                   "decode_split_d256": ("substratus_tpu_torch/csrc/decode_split.cu",
+                                         "substratus_tpu/ops/decode_attention.py:138"),
+                   "flash_bwd_dq_d256": ("substratus_tpu_torch/csrc/flash_bwd.cu",
+                                         "substratus_tpu/ops/flash_attention.py:247"),
+                   "flash_bwd_dkv_d256": ("substratus_tpu_torch/csrc/flash_bwd.cu",
+                                          "substratus_tpu/ops/flash_attention.py:290")}
         # Each kernel's launches come from the serve or train phase whose
         # path runs it (train: the first train.main call, 4 steps), as
         # (phase, its launch count): the flash forward's and the cached
@@ -4660,7 +5251,12 @@ def main() -> int:
                     "fused_decode": ("serve-long", "fused_decode_split"),
                     "q4_matmul_decode": ("serve-int4", "q4_matmul_decode"), "q4_matmul": ("serve-int4", "q4_matmul"),
                     "q4_matmul_wgmma": ("serve-int4", "q4_matmul_wgmma"),
-                    "flash_bwd_dq": ("train", "flash_bwd_dq"), "flash_bwd_dkv": ("train", "flash_bwd_dkv")}
+                    "flash_bwd_dq": ("train", "flash_bwd_dq"), "flash_bwd_dkv": ("train", "flash_bwd_dkv"),
+                    # serve-adapters (c): a model at gemma-7b's heads (head_dim 256) served and LoRA-trained;
+                    # a group of 3 at 256 is no model's, so the split design's 4-warp instance runs on no path
+                    **{name: ("serve-adapters", name) for name in (
+                        "flash_fwd_d256", "flash_cached_d256", "flash_cached_int8_d256", "decode_attn_d256",
+                        "fused_decode_d256", "decode_split_d256", "flash_bwd_dq_d256", "flash_bwd_dkv_d256")}}
         # serve-spec's launches (legs (a) and (b)) of each design, and
         # serve-surface's (its child process's legs (a), (b) and (d)), each
         # its own count.
@@ -4668,6 +5264,8 @@ def main() -> int:
         surface_launches_of = report.get("serve-surface", {}).get("launches", {})
         # serve-families' (OPT and Falcon; falcon-7b's decode at G = 71).
         families_launches_of = report.get("serve-families", {}).get("launches", {})
+        # serve-adapters (b)'s (int4 weights, the dense cache, the tenants' deltas on top).
+        adapters_launches_of = report.get("serve-adapters", {}).get("launches_b", {})
         line = []
         for name, cases in report["kernels"].items():
             main_case = cases[0]  # the main path's shape
@@ -4677,6 +5275,7 @@ def main() -> int:
                 "launches_serve_spec": spec_launches_of.get(phase_of[name][1]),
                 "launches_serve_surface": surface_launches_of.get(phase_of[name][1]),
                 "launches_serve_families": families_launches_of.get(phase_of[name][1]),
+                "launches_serve_adapters": adapters_launches_of.get(phase_of[name][1]),
                 "max_abs_err": main_case["max_abs_err"], "ms": main_case["ms"],
                 "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
                 "bound_by": main_case["bound_by"], "library_ms": main_case["library_ms"],

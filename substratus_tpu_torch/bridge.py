@@ -11,6 +11,10 @@ through ``numpy.asarray``.
 
 ``lora_from_jax`` does the same for the trainer's LoRA adapters, whose
 layout every family shares: the state_dict of ``train.lora.LoraAdapters``.
+For multi-tenant serving, ``adapter_layers_from_jax`` gives a JAX LoRA tree
+as the float32 numpy tree ``serve.adapters.AdapterStore.install`` takes,
+and ``adapter_store_from_jax`` carries a JAX AdapterStore's slots (host
+buffers and ids) into the port's store.
 
 Quantized leaves carry over as they are: an int4 ``Q4Tensor`` as its
 ``packed`` bytes, ``scale`` and (as the module's extra state) its
@@ -77,3 +81,35 @@ def lora_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             for i in range(stacked.shape[0]):
                 state[f"layers.{i}.{name}.{key}"] = stacked[i]
     return state
+
+
+def adapter_layers_from_jax(tree: Dict[str, Any]) -> Dict[str, Dict[str, np.ndarray]]:
+    """A JAX LoRA tree {name: {"a": [L, in, r], "b": [L, r, *out]}}
+    (train/lora.py::init_lora, Trainer.lora, or load_adapter_artifact's
+    tree) as float32 numpy arrays, the tree serve/adapters.py's
+    AdapterStore.install takes (bf16 leaves convert exactly)."""
+    return {name: {key: _tensor(ab[key]).float().numpy() for key in ("a", "b")} for name, ab in tree.items()}
+
+
+def adapter_store_from_jax(jax_store, store) -> None:
+    """Carry a JAX AdapterStore's tenants into the port's `store` (built on
+    the same config, capacity, rank and targets): every slot's float32 host
+    buffers (the scale already folded into b) and its adapter id, so both
+    engines gather the same adapter for the same slot index; the device
+    sees them at the store's next sync. Reads the JAX store's host state
+    only, under its lock: no JAX call is made."""
+    with jax_store._lock:
+        layers = {name: (np.array(jax_store._a[name]), np.array(jax_store._b[name])) for name in jax_store._a}
+        slot_ids = list(jax_store._slot_id)
+    if set(layers) != set(store._shapes) or len(slot_ids) != store.n_slots:
+        raise ValueError(f"store shapes differ: targets {sorted(layers)} vs {sorted(store._shapes)}, "
+                         f"{len(slot_ids)} vs {store.n_slots} slots")
+    with store._lock:
+        for name, (a, b) in layers.items():
+            if a.shape != store._a[name].shape or b.shape != store._b[name].shape:
+                raise ValueError(f"{name}: {a.shape}/{b.shape} vs {store._a[name].shape}/{store._b[name].shape}")
+            store._a[name][...] = a
+            store._b[name][...] = b
+        store._slot_id = slot_ids
+        store._by_id = {aid: slot for slot, aid in enumerate(slot_ids) if aid is not None}
+        store._dirty.update(range(1, store.n_slots))

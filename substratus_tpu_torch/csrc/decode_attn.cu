@@ -30,7 +30,9 @@
 // blocks on 132 SMs; a GQA model at small batch (KH=8, B=8: 64 blocks)
 // fills under half of them. csrc/decode_split.cu splits S over more
 // blocks and serves head_dim 64 and 128 (ops/fused_decode.py::
-// decode_design); this kernel serves 16 and 32, and its 64/128
+// decode_design); this kernel serves 16, 32 and 256 (129-255
+// padded to 256; a group other than 1, 2, 4 or 8 at 256 goes to the split
+// design), and its 64/128
 // instances stay for chip_smoke.py's side-by-side timing.
 #include "decode_common.cuh"
 
@@ -46,7 +48,7 @@ __global__ void __launch_bounds__(NW * 32) decode_attn_kernel(
     const float* __restrict__ v_scale, const int* __restrict__ pos,
     __nv_bfloat16* __restrict__ o, int KH, int S, float scale) {
   constexpr bool kQuant = sizeof(TC) == 1;
-  __shared__ decode::Partials<G, D> part;
+  decode::Partials<G, D>& part = decode::partials<G, D>();
 
   const int b = blockIdx.x / KH;
   const int kvh = blockIdx.x % KH;
@@ -79,12 +81,12 @@ __global__ void __launch_bounds__(NW * 32) decode_attn_kernel(
 template <typename TC, int D, int G>
 int launch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
            const void* pos, void* o, int B, int KH, int S, float scale, cudaStream_t stream) {
-  decode_attn_kernel<TC, D, G><<<B * KH, NW * 32, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const TC*>(k),
-      static_cast<const TC*>(v), static_cast<const float*>(ks),
-      static_cast<const float*>(vs), static_cast<const int*>(pos),
-      static_cast<__nv_bfloat16*>(o), KH, S, scale);
-  return (int)cudaGetLastError();
+  static bool configured = false;
+  return decode::launch_rows<G, D>(
+      decode_attn_kernel<TC, D, G>, B * KH, stream, configured, static_cast<const __nv_bfloat16*>(q),
+      static_cast<const TC*>(k), static_cast<const TC*>(v), static_cast<const float*>(ks),
+      static_cast<const float*>(vs), static_cast<const int*>(pos), static_cast<__nv_bfloat16*>(o), KH, S,
+      scale);
 }
 
 template <typename TC, int D>
@@ -109,6 +111,7 @@ int dispatch_d(int D, int G, const void* q, const void* k, const void* v, const 
     case 32: return dispatch_g<TC, 32>(G, q, k, v, ks, vs, pos, o, B, KH, S, scale, stream);
     case 64: return dispatch_g<TC, 64>(G, q, k, v, ks, vs, pos, o, B, KH, S, scale, stream);
     case 128: return dispatch_g<TC, 128>(G, q, k, v, ks, vs, pos, o, B, KH, S, scale, stream);
+    case 256: return dispatch_g<TC, 256>(G, q, k, v, ks, vs, pos, o, B, KH, S, scale, stream);
     default: return -2;
   }
 }

@@ -51,13 +51,31 @@ template <> struct Row8<int8_t> {
   }
 };
 
-// Per-warp online-softmax state of the G query rows.
+// Per-warp online-softmax state of the G query rows. It lives in dynamic
+// shared memory (partials): at head_dim 256 and G = 8 it is 64 KB, above
+// the 48 KB a block's static shared memory may hold.
 template <int G, int D>
 struct Partials {
   float m[NW][G];
   float l[NW][G];
   float acc[NW][G][D];
 };
+
+template <int G, int D>
+__device__ __forceinline__ Partials<G, D>& partials() {
+  extern __shared__ __align__(16) unsigned char partials_raw[];
+  return *reinterpret_cast<Partials<G, D>*>(partials_raw);
+}
+
+// Launch `kernel` (one block of NW warps per (slot, kv head)) with its
+// Partials in dynamic shared memory, allowed once per instantiation.
+template <int G, int D, typename Kernel, typename... Args>
+int launch_rows(Kernel kernel, int blocks, cudaStream_t stream, bool& configured, Args... args) {
+  constexpr size_t smem = sizeof(Partials<G, D>);
+  if (cudaError_t err = allow_smem(kernel, smem, configured)) return (int)err;
+  kernel<<<blocks, NW * 32, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
 
 // Attend cache rows [0, n) of one kv head: q [G, D] bf16 (the group's
 // query rows), k/v [S, D] of that head, ks/vs [S] f32 when TC is int8.

@@ -12,7 +12,9 @@
 // token's term comes from the operands). Each runs once per layer on
 // every decode step. csrc/decode_attn.cu and csrc/fused_decode.cu keep
 // the shapes this design does not take (head_dim 16 and 32; int8 caches
-// whose S is not a multiple of 4).
+// whose S is not a multiple of 4; head_dim 256 at a group of 1, 2, 4 or
+// 8, which ops/fused_decode.py::decode_design gives them: this design's
+// instance at 256 serves the other groups, on 4 warps, below).
 //
 // Layout: q [B, 1, H, D] bf16; k/v [B, KH, S, D] bf16 or int8 with f32
 // scales [B, KH, S]; pos [B] int32; o [B, 1, H, D] bf16; fused: the fresh
@@ -42,8 +44,8 @@
 //   count alone (ops/fused_decode.py::decode_split_plan, over B * KH *
 //   n_slice blocks): no position is read on the host. A block whose rows
 //   begin past the limit exits at once.
-// - A ring of NW * RING = 8 tile stages in shared memory, each of the NW
-//   = 8 warps a pipeline of its own over the block's 32-row tiles w,
+// - A ring of NW * RING = 8 tile stages in shared memory (4 at head_dim
+//   256: NWARPS), each of the NW = 8 warps a pipeline of its own over the block's 32-row tiles w,
 //   w + NW, ... through its RING = 1 stage: each tile one contiguous span
 //   of the head's K rows, one of its V rows (and of each scale row for
 //   int8), copied by cp.async.bulk (TMA's 1-D form, no tensor map to
@@ -86,7 +88,11 @@
 namespace substratus {
 namespace {
 
-constexpr int NW = 8;    // warps a block, each its own pipeline of tiles
+// Warps a block, each its own pipeline of tiles: 8 at head_dim 64 and 128;
+// 4 at 256, where one stage of 32 K and 32 V rows is 32 KB of bf16 and
+// eight stages would pass the 227 KB a block may have.
+template <int D>
+constexpr int NWARPS = D == 256 ? 4 : 8;
 constexpr int RING = 1;  // tiles in flight a warp: the block's ring holds NW
 constexpr int T = 32;    // rows of a tile (one a lane in the softmax)
 constexpr int VEC = 8;   // elements of a row a lane reads for the scores
@@ -149,10 +155,12 @@ __device__ __forceinline__ void load8(const int8_t* p, float (&out)[8]) {
   i8x4(raw.y, out + 4);
 }
 
-// N (= 2, 4) consecutive cache elements at p as f32 (the PV columns of a lane).
+// N (= 2, 4, 8) consecutive cache elements at p as f32 (the PV columns of a lane).
 template <int N>
 __device__ __forceinline__ void load_cols(const __nv_bfloat16* p, float (&out)[N]) {
-  if constexpr (N == 4) {
+  if constexpr (N == 8) {
+    load8(p, out);
+  } else if constexpr (N == 4) {
     const uint2 raw = *reinterpret_cast<const uint2*>(p);
     out[0] = __uint_as_float(raw.x << 16), out[1] = __uint_as_float(raw.x & 0xffff0000u);
     out[2] = __uint_as_float(raw.y << 16), out[3] = __uint_as_float(raw.y & 0xffff0000u);
@@ -164,7 +172,9 @@ __device__ __forceinline__ void load_cols(const __nv_bfloat16* p, float (&out)[N
 
 template <int N>
 __device__ __forceinline__ void load_cols(const int8_t* p, float (&out)[N]) {
-  if constexpr (N == 4) {
+  if constexpr (N == 8) {
+    load8(p, out);
+  } else if constexpr (N == 4) {
     i8x4(*reinterpret_cast<const uint32_t*>(p), out);
   } else {
     float f[4];
@@ -259,12 +269,13 @@ __device__ __forceinline__ float merge_states(int n, State state, float cur_g, f
 
 template <typename TC, int D, int G>
 constexpr int split_smem() {
-  return NW * RING * Stage<TC, D>::bytes + 2 * NW * G * T * 4;
+  return NWARPS<D> * RING * Stage<TC, D>::bytes + 2 * NWARPS<D> * G * T * 4;
 }
 
 template <typename TC, int D, int G, bool FUSED>
-__global__ void __launch_bounds__(NW * 32) decode_split_kernel(const Args a) {
+__global__ void __launch_bounds__(NWARPS<D> * 32) decode_split_kernel(const Args a) {
   using St = Stage<TC, D>;
+  constexpr int NW = NWARPS<D>;
   constexpr bool kQuant = sizeof(TC) == 1;
   constexpr int LPR = D / VEC;   // lanes a row in the scores
   constexpr int RPI = 32 / LPR;  // rows an iteration
@@ -535,7 +546,7 @@ int launch(const Args& a, int B, cudaStream_t stream) {
   static bool configured = false;
   if (cudaError_t err = allow_smem(decode_split_kernel<TC, D, G, FUSED>, smem, configured)) return (int)err;
   const int n_slice = (a.group + G - 1) / G;
-  decode_split_kernel<TC, D, G, FUSED><<<dim3(B * a.KH, a.n_split, n_slice), NW * 32, smem, stream>>>(a);
+  decode_split_kernel<TC, D, G, FUSED><<<dim3(B * a.KH, a.n_split, n_slice), NWARPS<D> * 32, smem, stream>>>(a);
   if (cudaError_t err = cudaGetLastError()) return (int)err;
   if (a.n_split > 1)
     decode_combine_kernel<TC, D, G, FUSED><<<dim3(B * a.KH, n_slice), COMBINE_THREADS, 0, stream>>>(a);
@@ -557,11 +568,13 @@ int dispatch(int D, bool int8, const Args& a, int B, cudaStream_t s) {
   if (D == 64) return int8 ? dispatch_g<int8_t, 64, FUSED>(a, B, s) : dispatch_g<__nv_bfloat16, 64, FUSED>(a, B, s);
   if (D == 128)
     return int8 ? dispatch_g<int8_t, 128, FUSED>(a, B, s) : dispatch_g<__nv_bfloat16, 128, FUSED>(a, B, s);
+  if (D == 256)
+    return int8 ? dispatch_g<int8_t, 256, FUSED>(a, B, s) : dispatch_g<__nv_bfloat16, 256, FUSED>(a, B, s);
   return -2;
 }
 
 // -1 for arguments this design does not take, -2 for a head_dim other than
-// 64 and 128, -3 for another cache dtype.
+// 64, 128 and 256, -3 for another cache dtype.
 int check_args(int B, int H, int KH, int S, int D, int cache_dtype, int rows, int n_split, const Args& a) {
   if (B < 1 || S < 1 || KH < 1 || H % KH != 0) return -1;
   if (cache_dtype != kBF16 && cache_dtype != kInt8) return -3;
@@ -577,7 +590,7 @@ int check_args(int B, int H, int KH, int S, int D, int cache_dtype, int rows, in
   const void* aligned[] = {a.k, a.v, a.ks, a.vs, a.nk, a.nv};
   for (const void* p : aligned)
     if ((uintptr_t)p % 16 != 0) return -1;
-  if (D != 64 && D != 128) return -2;
+  if (D != 64 && D != 128 && D != 256) return -2;
   if ((H / KH + 7) / 8 > 65535) return -1;  // slices of the grid's z
   return 0;
 }

@@ -1,9 +1,9 @@
-// Flash-attention backward for Hopper (sm_90a) at head_dim 16 and 32: dQ
+// Flash-attention backward for Hopper (sm_90a) at head_dim 16, 32 and 256: dQ
 // and dK/dV from the forward's row logsumexp, recomputing the
 // probabilities tile by tile so no [Sq, Sk] matrix reaches device memory.
 //
 // Replaces, with flash_bwd_wgmma.cu (head_dim 64 and 128, every model but
-// the tiny test configs), the TPU kernels
+// the tiny test configs and head dims above 128), the TPU kernels
 // substratus_tpu/ops/flash_attention.py _bwd_dq_kernel and
 // _bwd_dkv_kernel (driven by _flash_backward), the training backward of
 // every attention layer; ops/flash_attention.py::flash_bwd_design routes
@@ -38,6 +38,16 @@
 //    summed inside the block: no per-query-head f32 partials (the TPU
 //    kernel writes [B*H, Sk, D] f32 and sums afterwards). Per-column lse
 //    and delta of the q-tile go through shared memory.
+//  * Head dim 256 (gemma's; 129-255 run padded to it). Shared memory
+//    fits: dQ 135,168 B, dK/dV 101,632 B. Registers do not: dK and dV of
+//    16 keys x 256 columns in f32 are 256 a thread. So at 256 a dK/dV
+//    block writes one half of the columns (DO = 128, grid.z = 2): both
+//    halves compute the whole S^T and dP^T (over all 256 columns of K, Q,
+//    V and dO), and each accumulates dV and dK for its own 128 columns of
+//    dO and Q. That doubles the two score products, a quarter more work
+//    in all, for accumulators of 128 registers. dQ keeps its 16 x 256
+//    accumulator (128 registers) beside the scores and spills some of
+//    them (nvcc -Xptxas -v prints how much).
 //
 // Bound on an H100 (SXM, 3.35 TB/s, 989 TFLOP/s bf16) at the llama2-7b
 // training shape (B=8, S=1024, H=KH=32, D=128, causal): dQ runs three
@@ -120,12 +130,13 @@ __device__ __forceinline__ void mma_abt(float (&c)[NTILE][4], const __nv_bfloat1
   }
 }
 
-// acc (16 x D) += x (16 x 8*NTILE, accumulator registers rounded to bf16)
-// times the first 8*NTILE rows of `y_tile`. The m16n8 accumulators of
-// tiles 2kk and 2kk+1 are the m16k16 A fragment of k-step kk.
-template <int NTILE, int D>
-__device__ __forceinline__ void mma_xy(float (&acc)[D / 8][4], const float (&x)[NTILE][4],
-                                       const __nv_bfloat16* y_tile, int lane) {
+// acc (16 x DO) += x (16 x 8*NTILE, accumulator registers rounded to
+// bf16) times the first 8*NTILE rows of `y_tile` (D columns a row), its
+// columns c0..c0+DO-1. The m16n8 accumulators of tiles 2kk and 2kk+1 are
+// the m16k16 A fragment of k-step kk.
+template <int NTILE, int D, int DO = D>
+__device__ __forceinline__ void mma_xy(float (&acc)[DO / 8][4], const float (&x)[NTILE][4],
+                                       const __nv_bfloat16* y_tile, int lane, int c0 = 0) {
   constexpr int LD = D + PAD;
 #pragma unroll
   for (int kk = 0; kk < NTILE / 2; ++kk) {
@@ -133,9 +144,9 @@ __device__ __forceinline__ void mma_xy(float (&acc)[D / 8][4], const float (&x)[
                            pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
                            pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
 #pragma unroll
-    for (int dp = 0; dp < D / 8; dp += 2) {
+    for (int dp = 0; dp < DO / 8; dp += 2) {
       uint32_t b[4];
-      load_b_trans<LD>(b, y_tile, kk * 16, dp * 8, lane);
+      load_b_trans<LD>(b, y_tile, kk * 16, c0 + dp * 8, lane);
       mma_bf16(acc[dp], a, b[0], b[1]);
       mma_bf16(acc[dp + 1], a, b[2], b[3]);
     }
@@ -237,7 +248,9 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
   store_rows<D>(dq + q_off, q_stride, row0, Sq, acc, t);
 }
 
-template <int D>
+// DO: the columns of dK and dV a block writes, c0 = blockIdx.z * DO
+// (DO = D but at 256: above).
+template <int D, int DO>
 __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
@@ -266,10 +279,11 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
   const size_t q_stride = (size_t)H * D;
   const size_t kv_stride = (size_t)KH * D;
   const size_t kv_off = ((size_t)b * Sk * KH + kvh) * D;
+  const int c0 = blockIdx.z * DO;
 
   load_tile<KV_BK, D, NT>(Ks, k + kv_off, kv_stride, k0, Sk);
   load_tile<KV_BK, D, NT>(Vs, v + kv_off, kv_stride, k0, Sk);
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+  float dk_acc[DO / 8][4], dv_acc[DO / 8][4];
   zero(dk_acc);
   zero(dv_acc);
 
@@ -307,12 +321,12 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
           dpt[j][e] = p * (dpt[j][e] - delta_s[qi]) * scale;  // dS^T
         }
       }
-      mma_xy<NTQ, D>(dv_acc, st, dOs, lane);  // dV += P^T dO
-      mma_xy<NTQ, D>(dk_acc, dpt, Qs, lane);  // dK += dS^T Q
+      mma_xy<NTQ, D, DO>(dv_acc, st, dOs, lane, c0);  // dV += P^T dO
+      mma_xy<NTQ, D, DO>(dk_acc, dpt, Qs, lane, c0);  // dK += dS^T Q
     }
   }
-  store_rows<D>(dk + kv_off, kv_stride, key0, Sk, dk_acc, t);
-  store_rows<D>(dv + kv_off, kv_stride, key0, Sk, dv_acc, t);
+  store_rows<DO>(dk + kv_off + c0, kv_stride, key0, Sk, dk_acc, t);
+  store_rows<DO>(dv + kv_off + c0, kv_stride, key0, Sk, dv_acc, t);
 }
 
 template <int D>
@@ -335,12 +349,13 @@ template <int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
                const float* delta, void* dk, void* dv, int B, int Sq, int Sk, int H, int KH,
                float scale, int causal, cudaStream_t stream) {
+  constexpr int DO = D == 256 ? D / 2 : D;
   constexpr size_t smem = dkv_smem_bytes<D>();
   static bool configured = false;
-  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<D>, smem, configured);
+  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<D, DO>, smem, configured);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sk + KV_BK - 1) / KV_BK, B * KH);
-  flash_bwd_dkv_kernel<D><<<grid, NT, smem, stream>>>(
+  dim3 grid((Sk + KV_BK - 1) / KV_BK, B * KH, D / DO);
+  flash_bwd_dkv_kernel<D, DO><<<grid, NT, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), lse, delta,
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), Sq, Sk, H, KH, scale, causal);
@@ -370,6 +385,8 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
       return launch_dq<16>(q, k, v, dout, l, dl, dq, B, Sq, Sk, H, KH, scale, causal, s);
     case 32:
       return launch_dq<32>(q, k, v, dout, l, dl, dq, B, Sq, Sk, H, KH, scale, causal, s);
+    case 256:
+      return launch_dq<256>(q, k, v, dout, l, dl, dq, B, Sq, Sk, H, KH, scale, causal, s);
     default:
       return -2;
   }
@@ -390,6 +407,8 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
       return launch_dkv<16>(q, k, v, dout, l, dl, dk, dv, B, Sq, Sk, H, KH, scale, causal, s);
     case 32:
       return launch_dkv<32>(q, k, v, dout, l, dl, dk, dv, B, Sq, Sk, H, KH, scale, causal, s);
+    case 256:
+      return launch_dkv<256>(q, k, v, dout, l, dl, dk, dv, B, Sq, Sk, H, KH, scale, causal, s);
     default:
       return -2;
   }

@@ -4,9 +4,11 @@
 //
 // Replaces the TPU kernel substratus_tpu/ops/flash_attention.py
 // _cached_kernel (driven by _cached_impl / flash_cached_attention) at
-// head_dim 16 and 32 (ops/flash_attention.py::flash_cached_design);
-// flash_fwd_wgmma.cu takes 64 and 128, and this kernel's 64 and 128
-// instances serve chip_smoke.py's side-by-side timing.
+// head_dim 16, 32 and 256 (ops/flash_attention.py::flash_cached_design;
+// 129-255 on a cache laid out at 256); flash_fwd_wgmma.cu takes 64 and
+// 128, and this kernel's 64 and 128 instances serve chip_smoke.py's
+// side-by-side timing. At 256 the shared memory is 101,376 B and the
+// registers spill as in flash_fwd.cu's instance at 256.
 //
 // Layout: q [B, Sq, H, D] bf16; k/v [B, KH, Sk, D] bf16, or int8 with f32
 // scales [B, KH, Sk]; pos [B, Sq] int32 absolute positions of the queries;
@@ -310,6 +312,7 @@ int dispatch_d(int D, const void* q, const void* k, const void* v, const void* k
     case 32: return launch<TC, 32>(q, k, v, ks, vs, pos, kv_len, o, B, Sq, Sk, H, KH, scale, s);
     case 64: return launch<TC, 64>(q, k, v, ks, vs, pos, kv_len, o, B, Sq, Sk, H, KH, scale, s);
     case 128: return launch<TC, 128>(q, k, v, ks, vs, pos, kv_len, o, B, Sq, Sk, H, KH, scale, s);
+    case 256: return launch<TC, 256>(q, k, v, ks, vs, pos, kv_len, o, B, Sq, Sk, H, KH, scale, s);
     default: return -2;
   }
 }

@@ -4,9 +4,18 @@
 //
 // Replaces the TPU kernel substratus_tpu/ops/flash_attention.py
 // _flash_kernel (driven by _flash_forward / flash_attention) at head_dim
-// 16 and 32 (ops/flash_attention.py::flash_fwd_design); flash_fwd_wgmma.cu
-// takes 64 and 128, and this kernel's 64 and 128 instances serve
-// chip_smoke.py's side-by-side timing.
+// 16, 32 and 256 (ops/flash_attention.py::flash_fwd_design; 129-255 run
+// padded to 256, ops/headdim.py); flash_fwd_wgmma.cu takes 64 and 128,
+// and this kernel's 64 and 128 instances serve chip_smoke.py's
+// side-by-side timing.
+//
+// At head_dim 256 the shared memory is (64 + 2 * 64) * 264 * 2 B =
+// 101,376 B; a warp's 16 x 256 f32 output tile is 128 registers a thread
+// and the Q fragments 64 more, beside the 32 of the scores, so the
+// compiler spills some of them to local memory (nvcc -Xptxas -v prints
+// how much). This first instance at 256 is right and simple; keeping the
+// output in two column halves, or wgmma with the accumulator split over
+// two consumer warpgroups, is the way to take the spills back.
 //
 // Layout: q [B, Sq, H, D], k/v [B, Sk, KH, D], o [B, Sq, H, D], bf16,
 // contiguous; lse (optional) [B*H, Sq] f32. Query head h reads kv head
@@ -259,6 +268,8 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, v
       return launch<64>(q, k, v, o, lse_f, B, Sq, Sk, H, KH, scale, causal, s);
     case 128:
       return launch<128>(q, k, v, o, lse_f, B, Sq, Sk, H, KH, scale, causal, s);
+    case 256:
+      return launch<256>(q, k, v, o, lse_f, B, Sq, Sk, H, KH, scale, causal, s);
     default:
       return -2;
   }

@@ -34,7 +34,9 @@
 // bf16, positions spread over 0..4095 (14,467 history rows), it reads
 // about 237 MB per layer (about 71 us). csrc/decode_split.cu serves
 // head_dim 64 and 128 (S split over blocks; ops/fused_decode.py::
-// decode_design); this kernel serves 16 and 32, and its 64/128 instances
+// decode_design); this kernel serves 16, 32 and 256 (129-255
+// padded to 256; a group other than 1, 2, 4 or 8 at 256 goes to the split
+// design), and its 64/128 instances
 // stay for chip_smoke.py's side-by-side timing.
 #include "decode_common.cuh"
 
@@ -53,7 +55,7 @@ __global__ void __launch_bounds__(NW * 32) fused_decode_kernel(
   constexpr bool kQuant = sizeof(TC) == 1;
   constexpr int ROW_CHUNKS = D * (int)sizeof(TC) / 16;  // 16-byte pieces of one row
   static_assert(ROW_CHUNKS >= 1 && 2 * ROW_CHUNKS <= NW * 32, "unsupported head_dim");
-  __shared__ decode::Partials<G, D> part;
+  decode::Partials<G, D>& part = decode::partials<G, D>();
   __shared__ float cur_s[G];
 
   const int b = blockIdx.x / KH;
@@ -120,13 +122,13 @@ template <typename TC, int D, int G>
 int launch(const void* q, const void* nk, const void* nv, const void* nks, const void* nvs,
            void* k, void* v, const void* ks, const void* vs, const void* pos, void* o, int B,
            int KH, int S, float scale, cudaStream_t stream) {
-  fused_decode_kernel<TC, D, G><<<B * KH, NW * 32, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const TC*>(nk),
-      static_cast<const TC*>(nv), static_cast<const float*>(nks),
-      static_cast<const float*>(nvs), static_cast<TC*>(k), static_cast<TC*>(v),
-      static_cast<const float*>(ks), static_cast<const float*>(vs),
-      static_cast<const int*>(pos), static_cast<__nv_bfloat16*>(o), KH, S, scale);
-  return (int)cudaGetLastError();
+  static bool configured = false;
+  return decode::launch_rows<G, D>(
+      fused_decode_kernel<TC, D, G>, B * KH, stream, configured, static_cast<const __nv_bfloat16*>(q),
+      static_cast<const TC*>(nk), static_cast<const TC*>(nv), static_cast<const float*>(nks),
+      static_cast<const float*>(nvs), static_cast<TC*>(k), static_cast<TC*>(v), static_cast<const float*>(ks),
+      static_cast<const float*>(vs), static_cast<const int*>(pos), static_cast<__nv_bfloat16*>(o), KH, S,
+      scale);
 }
 
 #define FUSED_ARGS q, nk, nv, nks, nvs, k, v, ks, vs, pos, o, B, KH, S, scale, stream
@@ -155,6 +157,7 @@ int dispatch_d(int D, int G, const void* q, const void* nk, const void* nv, cons
     case 32: return dispatch_g<TC, 32>(G, FUSED_ARGS);
     case 64: return dispatch_g<TC, 64>(G, FUSED_ARGS);
     case 128: return dispatch_g<TC, 128>(G, FUSED_ARGS);
+    case 256: return dispatch_g<TC, 256>(G, FUSED_ARGS);
     default: return -2;
   }
 }

@@ -40,7 +40,7 @@ from torch.utils.checkpoint import checkpoint
 
 from substratus_tpu_torch.ops import kvcache
 from substratus_tpu_torch.ops.attention import dot_product_attention
-from substratus_tpu_torch.ops.basics import lora_delta, rms_norm, rope, swiglu
+from substratus_tpu_torch.ops.basics import lora_delta, lora_delta_indexed, rms_norm, rope, swiglu
 from substratus_tpu_torch.ops.decode_attention import update_cache_and_attend
 from substratus_tpu_torch.ops.flash_attention import flash_attention
 from substratus_tpu_torch.ops.fused_decode import cache_layout
@@ -329,6 +329,10 @@ SUPPORTS_INT8_KV = True
 SUPPORTS_QUANTIZE = True
 SUPPORTS_LORA = True
 LORA_TARGETS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+# forward() takes slot-stacked adapters and a per-row adapter_ids gather:
+# multi-tenant adapter serving (serve/adapters.py). OPT and Falcon have no
+# such flag, as in the JAX package.
+SUPPORTS_INDEXED_LORA = True
 
 
 def init_paged_cache(
@@ -380,15 +384,24 @@ def _block(
     lora_layer=None,  # this layer's adapters {name: {"a", "b"}}
     lora_scale: float = 1.0,
     block_table: Optional[torch.Tensor] = None,  # [B, M]: layer_cache is a page pool
+    adapter_ids: Optional[torch.Tensor] = None,  # [B]: lora_layer is slot-stacked
 ) -> Tuple[torch.Tensor, Cache]:
     """One transformer block. Returns (x_out, kv): the fresh {k, v}
-    entries without a cache (prefill), else the updated layer cache."""
+    entries without a cache (prefill), else the updated layer cache. With
+    adapter_ids the adapters carry a leading slot axis (serve/adapters.py)
+    and every row gathers its own pair: one forward serves a mixed-tenant
+    batch."""
     lora = lora_layer if lora_layer is not None else {}
+
+    def delta(name: str, inp: torch.Tensor, lora_eq: str) -> torch.Tensor:
+        if adapter_ids is not None:
+            return lora_delta_indexed(inp, lora[name], lora_scale, lora_eq, adapter_ids)
+        return lora_delta(inp, lora[name], lora_scale, lora_eq)
 
     def proj(name: str, inp: torch.Tensor, eq: str, lora_eq: str) -> torch.Tensor:
         out = project(eq, inp, getattr(lp, name), cfg)
         if name in lora:
-            out = out + lora_delta(inp, lora[name], lora_scale, lora_eq)
+            out = out + delta(name, inp, lora_eq)
         return out
 
     h = rms_norm(x, lp.attn_norm, cfg.norm_eps)
@@ -411,7 +424,7 @@ def _block(
         )
     o = project("bshk,hkd->bsd", attn, lp.wo, cfg)
     if "wo" in lora:  # the adapter sees the flattened [B, S, H*hd]
-        o = o + lora_delta(attn.flatten(2), lora["wo"], lora_scale, "bsr,rd->bsd")
+        o = o + delta("wo", attn.flatten(2), "bsr,rd->bsd")
     x = x + o
     h = rms_norm(x, lp.mlp_norm, cfg.norm_eps)
     gate = proj("w_gate", h, "bsd,dm->bsm", "bsr,rm->bsm")
@@ -430,6 +443,7 @@ def forward(
     block_table: Optional[torch.Tensor] = None,  # [B, M] page ids: `cache` is the paged pool
     kv_length: Optional[torch.Tensor] = None,  # [B] valid cache prefix
     lora=None,  # {"layers": per-layer adapters (train/lora.py), "scale": alpha / rank}
+    adapter_ids: Optional[torch.Tensor] = None,  # [B]: `lora` is an AdapterStore's slot-stacked tree
     remat: bool = False,  # recompute each block in the backward (training memory saver)
     train: bool = False,  # a training forward: no cache fragment (MoE's dispatch is not ported)
 ) -> Tuple[torch.Tensor, Cache]:
@@ -440,7 +454,9 @@ def forward(
     (train=True) returns no fragment (kv = {}), which nothing reads there.
     With cache: tokens are written at `positions` and attention runs over
     the cache (with block_table, over each row's pages gathered through
-    it); kv is the same (updated) cache dict.
+    it); kv is the same (updated) cache dict. With adapter_ids, `lora`
+    is serve/adapters.py's device tree (leaves [A, in, r], [A, r, *out])
+    and row b adds the delta of slot adapter_ids[b] (slot 0: none).
 
     Autograd records the call unless the caller turns it off (serving runs
     it under torch.inference_mode()); gradients reach what requires them:
@@ -450,7 +466,8 @@ def forward(
     if positions is None:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
     x = params.tok_embed[tokens.long()].to(cfg.dtype)
-    x, kv = run_layers(_block, params, x, positions, cfg, cache, kv_length, lora, remat, train, block_table)
+    x, kv = run_layers(_block, params, x, positions, cfg, cache, kv_length, lora, remat, train, block_table,
+                       adapter_ids)
     x = rms_norm(x, params.out_norm, cfg.norm_eps)
     head = params.tok_embed.t() if cfg.tie_embeddings else params.lm_head
     return project("bsd,dv->bsv", x, head, cfg).float(), kv
@@ -491,9 +508,11 @@ def decode_step(
     positions: torch.Tensor,  # [B] position to write/attend at
     cfg: LlamaConfig,
     block_table: Optional[torch.Tensor] = None,  # [B, M]: `cache` is the paged pool
+    lora=None,  # an AdapterStore's device tree, with adapter_ids
+    adapter_ids: Optional[torch.Tensor] = None,  # [B] each row's adapter slot
 ) -> Tuple[torch.Tensor, Cache]:
     """One decode step: logits [B, vocab] for the next token; the cache
     is updated in place (and returned, as the JAX function returns it)."""
     logits, cache = forward(params, tokens[:, None], cfg, positions=positions[:, None], cache=cache,
-                            block_table=block_table)
+                            block_table=block_table, lora=lora, adapter_ids=adapter_ids)
     return logits[:, 0, :], cache

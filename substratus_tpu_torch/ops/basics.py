@@ -64,3 +64,32 @@ def lora_delta(h: torch.Tensor, adapter, scale: float, out_einsum: str) -> torch
     down = torch.einsum("bsd,dr->bsr", h.to(dt), a.to(dt))
     dt = torch.promote_types(dt, b.dtype)
     return torch.einsum(out_einsum, down.to(dt), b.to(dt)) * scale
+
+
+def batched_lora_einsum(out_einsum: str) -> str:
+    """The per-row form of a lora_delta output einsum: the second operand
+    (the gathered B matrices) grows a leading batch axis, e.g.
+    'bsr,rhk->bshk' -> 'bsr,brhk->bshk'."""
+    lhs, _, out = out_einsum.partition("->")
+    first, _, second = lhs.partition(",")
+    return f"{first},b{second}->{out}"
+
+
+def lora_delta_indexed(h: torch.Tensor, adapter, scale: float, out_einsum: str,
+                       adapter_ids: torch.Tensor) -> torch.Tensor:
+    """Per-batch-row LoRA update for multi-tenant serving (port of the JAX
+    package's lora_delta_indexed; serve/adapters.py): the adapter leaves
+    carry a leading adapter-slot axis (a [A, in, r], b [A, r, *out]) and
+    adapter_ids [B] gathers each row's pair (index_select on the slot
+    axis), so one pair of einsums applies every tenant's delta in the same
+    dispatch. Slot 0 is the all-zero identity adapter: rows without a
+    tenant gather zeros and stay exactly the base model. Types promote as
+    lora_delta's. Not a kernel: the JAX package leaves it to XLA's gather
+    and einsums too."""
+    ids = adapter_ids.to(device=h.device, dtype=torch.long)
+    a = adapter["a"].index_select(0, ids)  # [B, in, r]
+    b = adapter["b"].index_select(0, ids)  # [B, r, *out]
+    dt = torch.promote_types(h.dtype, a.dtype)
+    down = torch.einsum("bsd,bdr->bsr", h.to(dt), a.to(dt))
+    dt = torch.promote_types(dt, b.dtype)
+    return torch.einsum(batched_lora_einsum(out_einsum), down.to(dt), b.to(dt)) * scale

@@ -12,8 +12,9 @@ designs, chosen by shape alone (ops/fused_decode.py::decode_design):
 csrc/decode_split.cu (S split over blocks by decode_split_plan, a ring of
 cache tiles, one softmax rescale a tile, any query group in slices of at
 most 8 rows; head_dim 64 and 128) and csrc/decode_attn.cu (one block per
-slot and kv head; head_dim 16 and 32, groups of 1, 2, 4 and 8; any other
-group goes to the split design). See the source notes.
+slot and kv head; head_dim 16, 32 and 256, groups of 1, 2, 4 and 8; any
+other group goes to the split design, built at 256 too). See the source
+notes.
 
 Cache layout is [B, KH, S, D] (each kv head's history contiguous), on the
 card at the rows and head dim of ops/fused_decode.py::cache_layout: a
@@ -156,8 +157,8 @@ def _decode(q, k, v, positions, k_scale, v_scale, scale: float) -> torch.Tensor:
 
 
 decode_attention.launches = 0  # every launch
-decode_attention.launches_split = 0  # csrc/decode_split.cu (head_dim 64, 128)
-decode_attention.launches_rows = 0  # csrc/decode_attn.cu (head_dim 16, 32)
+decode_attention.launches_split = 0  # csrc/decode_split.cu (head_dim 64, 128; 256 at other groups)
+decode_attention.launches_rows = 0  # csrc/decode_attn.cu (head_dim 16, 32, 256)
 decode_attention.launches_padded = 0  # q padded to a cache laid out at a padded head dim
 
 

@@ -6,12 +6,12 @@
   designs compute it, chosen by shape alone (``flash_fwd_design``):
   csrc/flash_fwd_wgmma.cu (wgmma, a TMA ring, a producer warpgroup) at
   head_dim 64 and 128, every model but ``tiny``; csrc/flash_fwd.cu
-  (mma.sync) at 16 and 32.
+  (mma.sync) at 16, 32 and 256.
 * ``flash_cached_attention`` replaces ``_cached_kernel``: a multi-token
   chunk against the dense slot cache (every chunk of a chunked prefill),
   per-row limits from the query positions, bf16 or int8 cache
   (``flash_cached_design``: csrc/flash_fwd_wgmma.cu at head_dim 64 and
-  128, csrc/flash_cached.cu at 16 and 32).
+  128, csrc/flash_cached.cu at 16, 32 and 256).
 
 * ``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv`` replace
   ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``, the training backward:
@@ -20,9 +20,9 @@
   calls both. Two designs compute them, chosen by head_dim alone
   (``flash_bwd_design``): csrc/flash_bwd_wgmma.cu (wgmma, TMA rings, a
   producer warpgroup) at head_dim 64 and 128, every model but ``tiny``;
-  csrc/flash_bwd.cu (mma.sync) at 16 and 32. See the source notes.
+  csrc/flash_bwd.cu (mma.sync) at 16, 32 and 256. See the source notes.
 
-Each wrapper serves any head dim up to 128 (ops/headdim.py): one the
+Each wrapper serves any head dim up to 256 (ops/headdim.py): one the
 kernels are not built for runs padded with zero columns to the next built
 size, at the true softmax scale, and comes back sliced (the cached flash
 takes q at the true D against a cache laid out at the padded one). Each
@@ -137,7 +137,7 @@ def flash_fwd_design(d: int) -> str:
     """The CUDA design of the forward kernel at head_dim d: "wgmma"
     (csrc/flash_fwd_wgmma.cu: wgmma, a TMA ring of K/V tiles, 128 query
     rows a block) at 64 and 128, "mma" (csrc/flash_fwd.cu: mma.sync, 64
-    rows a block) at 16 and 32. 64-row blocks of the wgmma design were
+    rows a block) at 16, 32 and 256. 64-row blocks of the wgmma design were
     slower at both the serving and the training shape (PERF.md), so
     no other shape picks them. By shape alone: a launch that fails raises,
     it is not retried on the other design."""
@@ -181,7 +181,7 @@ def _flash_forward(q, k, v, causal: bool, scale: float, return_lse: bool):
 
 flash_attention.launches = 0  # every launch
 flash_attention.launches_wgmma = 0  # csrc/flash_fwd_wgmma.cu (head_dim 64, 128)
-flash_attention.launches_mma = 0  # csrc/flash_fwd.cu (head_dim 16, 32)
+flash_attention.launches_mma = 0  # csrc/flash_fwd.cu (head_dim 16, 32, 256)
 flash_attention.launches_padded = 0  # at a head dim padded to a built one (ops/headdim.py)
 
 
@@ -255,7 +255,7 @@ def flash_attention_bwd_plain(
 def flash_bwd_design(d: int) -> str:
     """The CUDA design of the backward kernels at head_dim d: "wgmma"
     (csrc/flash_bwd_wgmma.cu: TMA rings, wgmma products, 128 rows a block)
-    at 64 and 128, "mma" (csrc/flash_bwd.cu: mma.sync) at 16 and 32. By
+    at 64 and 128, "mma" (csrc/flash_bwd.cu: mma.sync) at 16, 32 and 256. By
     shape alone: a launch that fails raises, it is not retried on the
     other design."""
     return "wgmma" if d in (64, 128) else "mma"
@@ -315,7 +315,7 @@ def flash_attention_bwd_dq(
 
 flash_attention_bwd_dq.launches = 0  # every launch
 flash_attention_bwd_dq.launches_wgmma = 0  # csrc/flash_bwd_wgmma.cu (head_dim 64, 128)
-flash_attention_bwd_dq.launches_mma = 0  # csrc/flash_bwd.cu (head_dim 16, 32)
+flash_attention_bwd_dq.launches_mma = 0  # csrc/flash_bwd.cu (head_dim 16, 32, 256)
 flash_attention_bwd_dq.launches_padded = 0  # at a padded head dim
 
 
@@ -366,7 +366,7 @@ def flash_attention_bwd_dkv(
 
 flash_attention_bwd_dkv.launches = 0  # every launch
 flash_attention_bwd_dkv.launches_wgmma = 0  # csrc/flash_bwd_wgmma.cu (head_dim 64, 128)
-flash_attention_bwd_dkv.launches_mma = 0  # csrc/flash_bwd.cu (head_dim 16, 32)
+flash_attention_bwd_dkv.launches_mma = 0  # csrc/flash_bwd.cu (head_dim 16, 32, 256)
 flash_attention_bwd_dkv.launches_padded = 0  # at a padded head dim
 
 
@@ -437,7 +437,7 @@ def flash_cached_design(d: int) -> str:
     """The CUDA design of the cached flash kernel at head_dim d: "wgmma"
     (csrc/flash_fwd_wgmma.cu, 128 query rows a block; an int8 cache's
     tiles converted to bf16 in shared memory) at 64 and 128, "mma"
-    (csrc/flash_cached.cu: mma.sync) at 16 and 32, for a bf16 or an int8
+    (csrc/flash_cached.cu: mma.sync) at 16, 32 and 256, for a bf16 or an int8
     cache alike. By head_dim alone: a launch that fails raises, it is not
     retried on the other design."""
     return "wgmma" if d in (64, 128) else "mma"
@@ -527,5 +527,5 @@ def _flash_cached(q, k, v, q_positions, k_scale, v_scale, kv_length, scale: floa
 
 flash_cached_attention.launches = 0  # every launch
 flash_cached_attention.launches_wgmma = 0  # csrc/flash_fwd_wgmma.cu (head_dim 64, 128)
-flash_cached_attention.launches_mma = 0  # csrc/flash_cached.cu (head_dim 16, 32)
+flash_cached_attention.launches_mma = 0  # csrc/flash_cached.cu (head_dim 16, 32, 256)
 flash_cached_attention.launches_padded = 0  # q padded to a cache laid out at a padded head dim

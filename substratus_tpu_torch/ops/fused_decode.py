@@ -12,8 +12,9 @@ of the history rows. Two designs compute it, chosen by shape alone
 (``decode_design``): csrc/decode_split.cu (S split over blocks, a ring of
 cache tiles, one softmax rescale a tile, any query group in slices of at
 most 8 rows; head_dim 64 and 128) and csrc/fused_decode.cu (one block per
-slot and kv head; head_dim 16 and 32, groups of 1, 2, 4 and 8). A shape the
-rows design does not take goes to the split design on a cache that
+slot and kv head; head_dim 16, 32 and 256, groups of 1, 2, 4 and 8). A
+shape the rows design does not take (at 256: another group) goes to the
+split design, built at 64, 128 and 256, on a cache that
 ``cache_layout`` lays out for it; a head dim not built runs padded to the
 next built one (ops/headdim.py). See the source notes.
 
@@ -40,7 +41,10 @@ from substratus_tpu_torch.ops.attention import NEG_INF
 from substratus_tpu_torch.ops.headdim import HEAD_DIMS, MAX_HEAD_DIM, pad_head, padded_head_dim
 
 GROUPS = (1, 2, 4, 8)  # the rows design's groups; the split design takes any
-SPLIT_HEAD_DIMS = (64, 128)  # built by csrc/decode_split.cu
+SPLIT_HEAD_DIMS = (64, 128)  # where csrc/decode_split.cu is the design of every group
+# csrc/decode_split.cu's instances: also 256 (on 4 warps), for the groups
+# the rows design does not take there
+SPLIT_BUILT = SPLIT_HEAD_DIMS + (256,)
 # The split plan: rows a split in whole rounds of the kernel's 8 warps x
 # 32-row tiles, from SPLIT_MIN_ROWS to SPLIT_MAX_ROWS, as many as make
 # about SPLIT_BLOCKS_PER_SM blocks an SM when every slot is at its last
@@ -80,9 +84,10 @@ def decode_design(d: int, s: int, quantized: bool, group: int = 1) -> str:
     query group of `group`: "split" (csrc/decode_split.cu) at head_dim 64
     and 128 (an int8 cache also needs S a multiple of 4, its scale rows
     copied 16 bytes at a time); "rows" (csrc/decode_attn.cu,
-    csrc/fused_decode.cu) otherwise, where it takes the group (1, 2, 4 or
-    8); "split" again for any other group, on a cache that cache_layout
-    lays out for it (D at least 64, S a multiple of 4 when int8). By shape
+    csrc/fused_decode.cu) otherwise (head_dim 16, 32 and 256), where it
+    takes the group (1, 2, 4 or 8); "split" again for any other group, on
+    a cache that cache_layout lays out for it (D at least 64, S a multiple
+    of 4 when int8; at 256 the split design's instance of 4 warps). By shape
     alone: a launch that fails raises, it is not retried on the other
     design."""
     if d in SPLIT_HEAD_DIMS and (not quantized or s % 4 == 0):
@@ -205,12 +210,12 @@ def check_decode_layout(name: str, d: int, s: int, quantized: bool, group: int) 
     and a query group of `group`; raises when the cache is not laid out for
     it (cache_layout's padding left out)."""
     design = decode_design(d, s, quantized, group)
-    if design == "split" and not (d in SPLIT_HEAD_DIMS and (not quantized or s % 4 == 0)):
+    if design == "split" and not (d in SPLIT_BUILT and (not quantized or s % 4 == 0)):
         raise ValueError(
             f"{name}: a {'int8' if quantized else 'bf16'} cache of {s} rows at head_dim {d} for a group of {group} "
             f"is laid out for no built design: allocate it with ops/fused_decode.py::cache_layout (the rows "
             f"design, csrc/decode_attn.cu and csrc/fused_decode.cu, takes groups {GROUPS} at head_dim {HEAD_DIMS}; "
-            f"the split design, csrc/decode_split.cu, any group at head_dim {SPLIT_HEAD_DIMS}, S a multiple of 4 "
+            f"the split design, csrc/decode_split.cu, any group at head_dim {SPLIT_BUILT}, S a multiple of 4 "
             "when int8)")
     return design
 
@@ -283,6 +288,6 @@ def _fused_decode(q, new_k, new_v, cache_k, cache_v, positions, new_ks, new_vs, 
 
 
 fused_decode_attention.launches = 0  # every launch
-fused_decode_attention.launches_split = 0  # csrc/decode_split.cu (head_dim 64, 128)
-fused_decode_attention.launches_rows = 0  # csrc/fused_decode.cu (head_dim 16, 32)
+fused_decode_attention.launches_split = 0  # csrc/decode_split.cu (head_dim 64, 128; 256 at other groups)
+fused_decode_attention.launches_rows = 0  # csrc/fused_decode.cu (head_dim 16, 32, 256)
 fused_decode_attention.launches_padded = 0  # q padded to a cache laid out at a padded head dim

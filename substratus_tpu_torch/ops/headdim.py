@@ -1,19 +1,23 @@
 """The head dims the attention kernels are built for, and the padded route
 that serves the others up to the largest.
 
-Every attention kernel of the port (csrc/flash_fwd*.cu, flash_cached.cu,
-flash_bwd*.cu, decode_split.cu, decode_attn.cu, fused_decode.cu) is
-compiled for head_dim 16, 32, 64 and 128. A checkpoint may have another:
-facebook/opt-2.7b has 80 (hidden 2560, 32 heads). The JAX reference
-attends such a model through XLA, which takes any head dim. The port pads
-D up to the next built size instead: zero columns of q and k add nothing
-to a score, the extra columns of v come out as extra columns of the output
-and are sliced off, and the softmax scale stays the true D^-0.5 (each C
-entry point takes the scale as an argument). So 80 and 96 run at 128, 48
-at 64, 20 at 32. The dense cache is allocated at the padded D where a
-kernel reads it (fused_decode.cache_layout), so no step copies it. A head
-dim above 128 has no route: the engine's dense layout and the trainer's
-flash attention refuse it when they are built (check_head_dim).
+Every attention kernel of the port is compiled for head_dim 16, 32, 64,
+128 and 256: the wgmma designs (csrc/flash_fwd_wgmma.cu, flash_bwd_wgmma.cu)
+and the split decode (decode_split.cu) at 64 and 128, the mma.sync designs
+(flash_fwd.cu, flash_cached.cu, flash_bwd.cu) and the rows decode
+(decode_attn.cu, fused_decode.cu) at 16, 32 and 256, the split decode at
+256 too for the query groups the rows design does not take. A checkpoint
+may have another: facebook/opt-2.7b has 80 (hidden 2560, 32 heads). The
+JAX reference attends such a model through XLA, which takes any head dim.
+The port pads D up to the next built size instead: zero columns of q and k
+add nothing to a score, the extra columns of v come out as extra columns
+of the output and are sliced off, and the softmax scale stays the true
+D^-0.5 (each C entry point takes the scale as an argument). So 80 and 96
+run at 128, 192 at 256, 48 at 64, 20 at 32. The dense cache is allocated
+at the padded D where a kernel reads it (fused_decode.cache_layout), so no
+step copies it. A head dim above 256 has no route (no model the repository
+names has one): the engine's dense layout and the trainer's flash
+attention refuse it when they are built (check_head_dim).
 """
 from __future__ import annotations
 
@@ -22,7 +26,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-HEAD_DIMS = (16, 32, 64, 128)  # built by every attention kernel
+HEAD_DIMS = (16, 32, 64, 128, 256)  # built by every attention kernel family
 MAX_HEAD_DIM = HEAD_DIMS[-1]
 
 

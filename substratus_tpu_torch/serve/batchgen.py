@@ -7,10 +7,12 @@ no HTTP path.
 
 * **manifest in**: a JSONL prompt manifest (load/manifest.py), read-only at
   /content/data by the container contract; each record carries its own
-  max_tokens/temperature/top_p and an optional `model` field naming a LoRA
-  adapter. The port has no adapter store yet (ROADMAP Queue 1,
-  multi-tenant adapters), so such a record is written once with outcome
-  "error", as the JAX engine writes it without a store;
+  max_tokens/temperature/top_p and an optional `model` field that selects
+  a LoRA adapter slot of the engine's store (serve/adapters.py, built by
+  serve.main's build_adapter_store from params.json ``adapters`` or the
+  mounted /content/adapters), so mixed-tenant records share one engine; a
+  record whose adapter is unknown (or no store is configured) is written
+  once with outcome "error", as the JAX package's BatchGenDriver writes it;
 * **continuous refill**: the engine takes requests through its pull
   source (Engine.set_source): the scheduler thread pulls the next prompt
   the moment a slot frees, after the resume list and the submit queue,
@@ -28,8 +30,8 @@ no HTTP path.
 
 One actor engine a process here (BatchGenDriver takes several engines of
 one process, as JAX's does); multi-process gangs, a second device and
-``tensor`` exit naming their ROADMAP items, and so do ``adapters`` and
-``baseModel``.
+``tensor`` exit naming their ROADMAP items. ``baseModel`` is a known key
+with no effect, as in serve.main.
 
 Metrics (observability/metrics.py, the JAX names): records written by
 outcome, the slot occupancy the refill exists to hold at 1.0, and the
@@ -534,7 +536,8 @@ def main(argv=None) -> int:
 
     from substratus_tpu_torch.serve.engine import Engine, EngineConfig
     from substratus_tpu_torch.serve.main import (
-        check_params, load_model, load_params_json, resolve_kv_layout, resolve_overlap, resolve_quantize)
+        build_adapter_store, check_params, load_model, load_params_json, resolve_kv_layout, resolve_overlap,
+        resolve_quantize)
     from substratus_tpu_torch.utils.device import resolve_device
 
     params_json = load_params_json(args.params)
@@ -574,7 +577,9 @@ def main(argv=None) -> int:
         overlap=resolve_overlap(params_json),
         step_floor_s=args.step_floor_ms / 1e3,
     )
-    engine = Engine(cfg, params, ec, device=device, model=family)
+    # Per-record `model` fields select LoRA slots of one shared store.
+    adapters = build_adapter_store(family, cfg, params_json, None, device)
+    engine = Engine(cfg, params, ec, device=device, model=family, adapters=adapters)
     engine.start()
     on_card = f", peak {peak} bytes while loading and quantizing" if peak is not None else ""
     print(f"batchgen: {name} on {device}, {quantize} weights ({weight_bytes} bytes{on_card}); "

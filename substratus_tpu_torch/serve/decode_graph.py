@@ -5,15 +5,19 @@ round (SpecGraph, below: a few graphs sharing one memory pool).
 
 A DecodeGraph owns the step's inputs on the device (``tokens``,
 ``positions``, ``temps``, ``top_ps`` and the ``fresh`` mask; for an engine
-on the paged pool also its ``block_table`` [B, max_pages]) and its output
+on the paged pool also its ``block_table`` [B, max_pages]; for an engine
+with an adapter store its rows' ``adapter_ids`` [B]) and its output
 (``out``, the sampled tokens). The step itself, ``step(tokens, positions,
-temps, top_ps[, block_table]) -> sampled``, is the engine's decode_step +
-sample over its cache and params, for any family: the engine passes the
-family's ``decode_step`` only the arguments it takes (a block table on
-the paged pool alone, so OPT and Falcon, dense only, get none; no
-attention switch, which only llama's config carries). The block table is
-an input like the others, so a replay reads the pages the engine has
-grown since the capture. Each launch:
+temps, top_ps[, block_table][, adapter_ids=]) -> sampled``, is the
+engine's decode_step + sample over its cache and params, for any family:
+the engine passes the family's ``decode_step`` only the arguments it
+takes (a block table on the paged pool alone, so OPT and Falcon, dense
+only, get none; adapter ids with a store alone, which only llama takes;
+no attention switch, which only llama's config carries). The block table
+and the adapter ids are inputs like the others, so a replay reads the
+pages the engine has grown and the adapter slots its rows have taken
+since the capture (the store's tensors are written in place, never
+reallocated). Each launch:
 
   1. writes the host inputs into a pinned staging set (two sets, used in
      turns) and copies them into the static buffers without a host sync;
@@ -66,7 +70,8 @@ from substratus_tpu_torch.ops.quant4 import check_weight, q4_matmul
 COUNTED = (decode_attention, fused_decode_attention, flash_cached_attention, q4_matmul, check_weight)
 
 _INPUTS = ("tokens", "positions", "temps", "top_ps", "fresh")
-_PAGED_INPUTS = _INPUTS + ("block_table",)
+# The optional inputs, each staged only when the engine has it.
+_OPTIONAL = ("block_table", "adapter_ids")
 
 
 def _counters() -> Iterator[Tuple[str, object, str]]:
@@ -156,6 +161,29 @@ class _Staged:
         self._unread[turn] = False
         return {name: out.numpy().copy() for name, out in self._host_out[turn].items()}
 
+    def _init_optional(self, batch: int, pages: int, adapters: bool) -> None:
+        """The optional device inputs: the paged pool's block table [batch,
+        pages] and the rows' adapter slots [batch]; None where absent."""
+        self.block_table = torch.zeros(batch, pages, dtype=torch.int64, device=self.device) if pages else None
+        self.adapter_ids = torch.zeros(batch, dtype=torch.int64, device=self.device) if adapters else None
+
+    def _optional(self) -> Tuple[str, ...]:
+        return tuple(name for name in _OPTIONAL if getattr(self, name) is not None)
+
+    def _check_optional(self, given: Dict[str, Optional[np.ndarray]]) -> None:
+        owner = {"block_table": "the paged engine's step", "adapter_ids": "the step of an engine with an adapter store"}
+        for name in _OPTIONAL:
+            if (given[name] is None) != (getattr(self, name) is None):
+                raise ValueError(f"a {name.replace('_', ' ')} is an input of exactly {owner[name]}")
+
+    def _pages(self) -> tuple:
+        """The block table as the step's positional argument, if any."""
+        return () if self.block_table is None else (self.block_table,)
+
+    def _ids(self) -> Dict[str, torch.Tensor]:
+        """The rows' adapter slots as the step's keyword, if any."""
+        return {} if self.adapter_ids is None else {"adapter_ids": self.adapter_ids}
+
 
 class DecodeGraph(_Staged):
     """One decode step's static buffers and the step over them: captured
@@ -172,8 +200,10 @@ class DecodeGraph(_Staged):
         stats: Dict[str, float],
         capture: bool,
         pages: int = 0,
+        adapters: bool = False,
     ):
-        """`pages` > 0: the step also takes a block table [batch, pages]."""
+        """`pages` > 0: the step also takes a block table [batch, pages];
+        `adapters`: the rows' adapter slots [batch]."""
         if capture and device.type != "cuda":
             raise ValueError(f"a decode graph is captured on the card, not on {device}")
         self.step, self.device, self.generator, self.stats = step, device, generator, stats
@@ -184,8 +214,8 @@ class DecodeGraph(_Staged):
         self.top_ps = torch.ones(batch, dtype=torch.float32, device=device)
         self.fresh = torch.ones(batch, dtype=torch.bool, device=device)
         self.out = torch.zeros(batch, dtype=torch.int32, device=device)
-        self.block_table = torch.zeros(batch, pages, dtype=torch.int64, device=device) if pages else None
-        self._init_staging(_PAGED_INPUTS if pages else _INPUTS, ("out",))
+        self._init_optional(batch, pages, adapters)
+        self._init_staging(_INPUTS + self._optional(), ("out",))
         self.graph = None
         self.captured: Dict[str, int] = {}  # launches of each counter in one replay
         self.capture_seconds = 0.0  # host clock of the warm-up and the capture
@@ -193,20 +223,20 @@ class DecodeGraph(_Staged):
     def _body(self) -> None:
         with torch.inference_mode():  # serving builds no autograd graph
             tokens = torch.where(self.fresh, self.tokens, self.out.to(torch.int64))
-            pages = () if self.block_table is None else (self.block_table,)
-            self.out.copy_(self.step(tokens, self.positions, self.temps, self.top_ps, *pages))
+            self.out.copy_(self.step(tokens, self.positions, self.temps, self.top_ps, *self._pages(), **self._ids()))
 
     def _capture(self) -> None:
         self.graph, self.captured, self.capture_seconds = capture(self._body, self.device, self.generator, self.stats)
 
     def launch(self, tokens: np.ndarray, positions: np.ndarray, temps: np.ndarray, top_ps: np.ndarray,
-               fresh: np.ndarray, block_table: Optional[np.ndarray] = None) -> Callable[[], np.ndarray]:
+               fresh: np.ndarray, block_table: Optional[np.ndarray] = None,
+               adapter_ids: Optional[np.ndarray] = None) -> Callable[[], np.ndarray]:
         """Stage the host inputs, run the step (replay, capture first, or
         eager) and queue its tokens' copy to the host. Returns the read of
         this launch's tokens."""
-        if (block_table is None) != (self.block_table is None):
-            raise ValueError("a block table is an input of exactly the paged engine's step")
-        turn = self._stage((tokens, positions, temps, top_ps, fresh, block_table))
+        given = {"block_table": block_table, "adapter_ids": adapter_ids}
+        self._check_optional(given)
+        turn = self._stage((tokens, positions, temps, top_ps, fresh) + tuple(given[n] for n in self._optional()))
         if self.capture and self.graph is None:
             self._capture()
         if self.graph is not None:
@@ -240,7 +270,9 @@ class SpecGraph(_Staged):
       1. the host inputs (tokens, positions, temps, top_ps, the ``fresh``
          mask, this round's ``k_eff`` and ``greedy`` rows; with prompt
          lookup its proposals ``props_in`` [B, spec_k]; on the paged pool
-         the block table) staged as in DecodeGraph;
+         the block table; with an adapter store the rows' adapter slots,
+         which the verify reads and the draft does not: it runs the base,
+         as in the JAX engine) staged as in DecodeGraph;
       2. ``advance``: the previous round's accept walk on the device, from
          the state it left (``st_*``: its greedy choices, position-0
          samples, proposals, base positions, k_eff and greedy rows): per
@@ -281,13 +313,15 @@ class SpecGraph(_Staged):
         stats: Dict[str, float],
         capture: bool,
         pages: int = 0,
+        adapters: bool = False,
     ):
-        """verify(tokens [B, w], positions [B, w], temps, top_ps[, block
-        table]) -> (greedy choices [B, w], samples of position 0 [B]);
-        propose(tokens [B], positions [B], k[, block table]) -> the draft's
-        k greedy tokens [B, k], or None for prompt lookup (the proposals
-        are then a host input); `pages` > 0: the paged pool's block table
-        [batch, pages] is an input of both."""
+        """verify(tokens [B, w], positions [B, w], temps, top_ps[,
+        block_table][, adapter_ids=]) -> (greedy choices [B, w], samples
+        of position 0 [B]); propose(tokens [B], positions [B], k[,
+        block_table]) -> the draft's k greedy tokens [B, k], or None for
+        prompt lookup (the proposals are then a host input); `pages` > 0:
+        the paged pool's block table [batch, pages] is an input of both;
+        `adapters`: the rows' adapter slots [batch], of the verify."""
         if capture and device.type != "cuda":
             raise ValueError(f"a speculative round is captured on the card, not on {device}")
         self.verify, self.propose, self.spec_k, self.max_pos = verify, propose, spec_k, max_pos
@@ -302,14 +336,14 @@ class SpecGraph(_Staged):
         self.fresh = torch.ones(b, dtype=torch.bool, device=device)
         self.k_eff, self.greedy = zeros(b), zeros(b, dtype=torch.bool)
         self.props_in = zeros(b, k) if propose is None else None
-        self.block_table = zeros(b, pages) if pages else None
+        self._init_optional(b, pages, adapters)
         self.tok_in, self.pos_in = zeros(b), zeros(b)
         self.draft_props = zeros(b, k) if propose is not None else None
         self.props_src = self.draft_props if propose is not None else self.props_in
         self.st_choices, self.st_sampled, self.st_props = zeros(b, k + 1), zeros(b), zeros(b, k)
         self.st_pos0, self.st_keff, self.st_greedy = zeros(b), zeros(b), zeros(b, dtype=torch.bool)
         self.arange = torch.arange(k + 1, device=device)
-        inputs = _SPEC_INPUTS + (("props_in",) if propose is None else ()) + (("block_table",) if pages else ())
+        inputs = _SPEC_INPUTS + (("props_in",) if propose is None else ()) + self._optional()
         self._init_staging(inputs, ("st_choices", "st_sampled", "st_props"))
         self.pool = torch.cuda.graph_pool_handle() if capture else None
         self.graphs: Dict[str, "torch.cuda.CUDAGraph"] = {}
@@ -317,9 +351,6 @@ class SpecGraph(_Staged):
         self.capture_seconds = 0.0  # host clock of every warm-up and capture
 
     # --- the round's device work ------------------------------------------
-
-    def _pages(self) -> tuple:
-        return () if self.block_table is None else (self.block_table,)
 
     def _advance(self) -> None:
         k_eff, props, choices = self.st_keff, self.st_props, self.st_choices
@@ -346,7 +377,8 @@ class SpecGraph(_Staged):
             props = self.props_src[:, : width - 1]
             tokens = torch.cat([self.tok_in[:, None], props], dim=1)
             positions = self.pos_in[:, None] + self.arange[None, :width]
-            choices, sampled = self.verify(tokens, positions, self.temps, self.top_ps, *self._pages())
+            choices, sampled = self.verify(tokens, positions, self.temps, self.top_ps, *self._pages(),
+                                           **self._ids())
             self.st_choices[:, :width].copy_(choices)
             self.st_sampled.copy_(sampled)
             self.st_props[:, : width - 1].copy_(props)
@@ -368,19 +400,20 @@ class SpecGraph(_Staged):
 
     def launch(self, tokens: np.ndarray, positions: np.ndarray, temps: np.ndarray, top_ps: np.ndarray,
                fresh: np.ndarray, k_eff: np.ndarray, greedy: np.ndarray, width: int,
-               props: Optional[np.ndarray] = None,
-               block_table: Optional[np.ndarray] = None) -> Callable[[], Tuple[np.ndarray, ...]]:
+               props: Optional[np.ndarray] = None, block_table: Optional[np.ndarray] = None,
+               adapter_ids: Optional[np.ndarray] = None) -> Callable[[], Tuple[np.ndarray, ...]]:
         """Stage the host inputs and run one round of `width` (its lookup
         proposals `props` [B, spec_k] without a draft). Returns the read of
         this round's (choices [B, width], samples [B], draft proposals
         [B, width-1] or None)."""
         if not 1 <= width <= self.spec_k + 1:
             raise ValueError(f"verify width {width} outside 1..{self.spec_k + 1}")
-        if (props is None) != (self.propose is not None) or (block_table is None) != (self.block_table is None):
-            raise ValueError("lookup proposals are an input of exactly the draft-free round, a block table of "
-                             "exactly the paged one")
+        if (props is None) != (self.propose is not None):
+            raise ValueError("lookup proposals are an input of exactly the draft-free round")
+        given = {"block_table": block_table, "adapter_ids": adapter_ids}
+        self._check_optional(given)
         turn = self._stage((tokens, positions, temps, top_ps, fresh, k_eff, greedy)
-                           + tuple(v for v in (props, block_table) if v is not None))
+                           + (() if props is None else (props,)) + tuple(given[n] for n in self._optional()))
         self._run("advance", self._advance)
         if self.propose is not None:
             if width > 1:

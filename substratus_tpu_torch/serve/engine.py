@@ -79,11 +79,21 @@ Batch generation (serve/batchgen.py) attaches a pull source
 slot frees, after the resume list and the submit queue, and admission
 fills every free slot while a source is attached.
 
-Not ported yet (ROADMAP Queue 1): adapters (and the registry's adapter
-salt; a request naming one ends with finish_reason "error" at admission,
-as the JAX engine ends it without an adapter store), disaggregated roles
-with their page export and import, lockstep gangs, and request journeys
-and the step timeline (item 3b); EngineConfig has none of their fields.
+Multi-tenant adapters (Engine(..., adapters=AdapterStore), serve/adapters.py):
+one engine serves N LoRA tenants on one base model, as the JAX engine
+does. A request's adapter is resolved and its store slot pinned at
+admission (hot-loaded on a miss; every slot pinned holds the request, an
+unknown or unreadable artifact ends it as "error"); its prefill and every
+chunk run with that slot's id, each decode step and verify with the
+batch's per-row ids (a static input of the decode graph, slot 0 the
+identity for rows without one), and the paged prefix chain is salted with
+the adapter id, so pages never cross tenants. The store's device tensors
+are written in place by this thread (AdapterStore.sync, before each
+admission's prefill and each iteration), so no graph is captured again.
+
+Not ported yet (ROADMAP Queue 1): disaggregated roles with their page
+export and import, lockstep gangs, and request journeys and the step
+timeline (item 3b); EngineConfig has none of their fields.
 """
 from __future__ import annotations
 
@@ -109,6 +119,7 @@ from substratus_tpu_torch.observability.sketch import SLOTracker
 from substratus_tpu_torch.ops.decode_attention import pack_fragment
 from substratus_tpu_torch.ops.headdim import check_head_dim, head_dim_route
 from substratus_tpu_torch.ops.sampling import sample
+from substratus_tpu_torch.serve.adapters import AdapterCapacityError, UnknownAdapter
 from substratus_tpu_torch.serve.decode_graph import DecodeGraph, SpecGraph
 from substratus_tpu_torch.serve.paged_kv import PageAllocator, PrefixRegistry, SlotPages, chain_entries
 from substratus_tpu_torch.utils.device import DeviceLike, resolve_device, seeded_generator
@@ -304,10 +315,12 @@ class Request:
     # TTFT) and the previous emit (inter-token gap).
     submit_ts: float = 0.0
     last_emit_ts: float = 0.0
-    # A LoRA adapter id (a batch record's `model`): the port has no adapter
-    # store yet (ROADMAP Queue 1, multi-tenant adapters), so such a request
-    # ends with finish_reason "error" at admission.
+    # Multi-tenant serving (serve/adapters.py): the LoRA adapter id this
+    # request runs under (None = the base model; a server's `model` field,
+    # a batch record's `model`). `adapter_slot` is engine bookkeeping: the
+    # store slot pinned for it while it holds a decode slot (0 = identity).
     adapter: Optional[str] = None
+    adapter_slot: int = 0
 
 
 @dataclass
@@ -368,6 +381,7 @@ class Engine:
         decode_graph: bool = True,
         draft: Optional[Tuple[object, nn.Module]] = None,
         padded_cache: Optional[bool] = None,
+        adapters=None,
     ):
         """Serve `params` (the family module's parameter container, e.g. a
         models.llama.Llama) on `device`: cuda unless the caller passes
@@ -381,7 +395,11 @@ class Engine:
         laid out as the kernels read it (models/llama.py::init_cache:
         padded, default on the card); padded_cache=True asks for that
         layout on the CPU too. A head dim above the kernels' largest is
-        refused here on the dense layout, where they read the cache."""
+        refused here on the dense layout, where they read the cache.
+        `adapters` (a serve.adapters.AdapterStore on the same device)
+        serves its LoRA tenants multi-tenant: each batch row gathers its
+        own adapter by slot index (a family without SUPPORTS_INDEXED_LORA
+        raises, as in the JAX engine)."""
         # Copy before clamping: never mutate the caller's config.
         ec = dataclasses.replace(ec) if ec is not None else EngineConfig()
         self.device = resolve_device(device)
@@ -454,6 +472,16 @@ class Engine:
             # The target's page ids index this pool too, in the same dtype.
             self.draft_cache = model.init_paged_cache(self.draft_cfg, self.n_pages + 1, bs, dtype=cache_dtype,
                                                       device=self.device)
+        self.adapters = adapters
+        if adapters is not None:
+            if not getattr(model, "SUPPORTS_INDEXED_LORA", False):
+                raise NotImplementedError(f"multi-tenant adapters unsupported for {model.__name__}")
+            if adapters.device != self.device:
+                raise ValueError(f"the adapter store lives on {adapters.device}, engine device is {self.device}")
+        # Per-row adapter slot fed to every prefill, decode step and verify
+        # (0 = identity); slot_adapter mirrors the pins so release can unpin.
+        self.adapter_ids = np.zeros((B,), np.int64)
+        self.slot_adapter: List[int] = [0] * B
         self.generator = seeded_generator(0, self.device)
         self.overlap = ec.overlap is not False
         self.decode_graph = decode_graph and self.device.type == "cuda"
@@ -531,6 +559,7 @@ class Engine:
             "spec_proposed": 0,
             "spec_accepted": 0,
             "draft_prefill_chunks": 0,
+            "adapter_requests": 0,
         }
         self.stats.update({f"rounds_w{w}": 0 for w in range(1, ec.spec_k + 2)} if self.spec else {})
         # Serving telemetry: one SLO tracker fed from _emit (its sketches
@@ -564,6 +593,10 @@ class Engine:
             depth = self.queue.qsize()
             if depth >= self.ec.max_queue:
                 raise EngineOverloaded(depth)
+        if req.adapter is not None and (self.adapters is None or not self.adapters.known(req.adapter)):
+            # Refuse an unservable adapter in the caller's thread, so the
+            # server answers 404 before anything is queued.
+            raise UnknownAdapter(req.adapter)
         req.submit_ts = time.perf_counter()
         self.queue.put(req)
         self._wake.set()
@@ -728,6 +761,16 @@ class Engine:
             "load_ts": round(time.time(), 3),
             "slo": self.slo.snapshot(),
         }
+        if self.adapters is not None:
+            # Resident adapter ids and the hit/miss/evict counters: the
+            # gateway's affinity scoring reads `adapters`
+            # (gateway/loadreport.py).
+            a = self.adapters.snapshot()
+            snap["adapters"] = a["loaded"]
+            snap["adapter_capacity"] = a["capacity"]
+            snap["adapter_hits"] = a["hits"]
+            snap["adapter_misses"] = a["misses"]
+            snap["adapter_evictions"] = a["evictions"]
         src = self.source
         if src is not None and hasattr(src, "progress"):
             # Batch-generation progress (serve/batchgen.py), as the JAX
@@ -800,7 +843,9 @@ class Engine:
         objective is keeping every slot busy), as in the JAX engine. On the
         paged pool a request that finds too few pages is held at the front
         of the line and the round ends: decoding slots will free pages. A
-        request naming an adapter ends as "error" here (no adapter store)."""
+        request's adapter is pinned first (_acquire_adapter): with every
+        store slot pinned it is held the same way; an adapter that cannot
+        be loaded ends the request as "error" and the slot stays free."""
         busy = self.active.any() and self.source is None
         cap = max(1, self.ec.max_batch // 4) if busy else self.ec.max_batch
         admitted = 0
@@ -808,16 +853,17 @@ class Engine:
             req = self._next_request()
             if req is None:
                 break
-            if req.adapter is not None:
-                # The JAX engine's _acquire_adapter without a store: fail
-                # this request, not the engine; the slot stays free.
-                logging.getLogger(__name__).warning(
-                    "adapter %r failed to load for request %s: no adapter store (ROADMAP Queue 1, multi-tenant "
-                    "adapters)", req.adapter, req.id)
-                req.finish_reason = "error"
-                req.out.put(None)
-                continue
             self._admitting = req
+            verdict = self._acquire_adapter(req)
+            if verdict == "dead":
+                self._admitting = None
+                continue
+            if verdict == "wait":
+                # Transient: every adapter slot is pinned by an active
+                # request. Hold it at the front; decoding slots will unpin.
+                self._admitting = None
+                self._resume.insert(0, req)
+                break
             slot = int(np.flatnonzero(~self.active)[0])
             # Queue wait is submission -> first prefill; a preempted
             # request boarding again (last_emit_ts set) already paid it.
@@ -832,53 +878,111 @@ class Engine:
             METRICS.observe("substratus_serve_phase_seconds", time.perf_counter() - t_prefill, {"phase": "prefill"})
             self._admitting = None
             if not ok:
+                # Pool dry: the adapter pin drops too; boarding again
+                # acquires it again.
+                self._release_adapter_pin(req)
                 self._resume.insert(0, req)
                 break
             admitted += 1
         self.stats["max_active"] = max(self.stats["max_active"], int(self.active.sum()))
         return admitted
 
+    def _acquire_adapter(self, req: Request) -> str:
+        """Resolve and pin the request's adapter before its prefill (the
+        JAX engine's). Returns "ok" (adapter_slot set; 0 = base), "wait"
+        (every store slot is pinned: transient, hold the request) or
+        "dead" (the adapter is unknown or its artifact unreadable: the
+        request ends with finish_reason "error", the engine serves on)."""
+        req.adapter_slot = 0
+        if req.adapter is None:
+            return "ok"
+        try:
+            if self.adapters is None:
+                raise UnknownAdapter(req.adapter)
+            req.adapter_slot = self.adapters.acquire(req.adapter)
+            self.stats["adapter_requests"] += 1
+            return "ok"
+        except AdapterCapacityError:
+            return "wait"
+        except (UnknownAdapter, OSError, ValueError) as e:
+            # The artifact vanished (or is corrupt) between submit()'s
+            # known() check and admission: fail this request, not the engine.
+            logging.getLogger(__name__).warning("adapter %r failed to load for request %s: %s", req.adapter,
+                                                req.id, e)
+            req.finish_reason = "error"
+            req.out.put(None)
+            return "dead"
+
+    def _release_adapter_pin(self, req: Request) -> None:
+        if self.adapters is not None and req.adapter_slot:
+            self.adapters.release(req.adapter_slot)
+        req.adapter_slot = 0
+
+    def _prefill_lora(self, req: Request) -> Dict[str, object]:
+        """forward()'s keywords for one request's prefill: the store's
+        device tree and a [1] adapter id, after copying any slot the store
+        wrote since the last sync (a hot load at this admission); {}
+        without a store."""
+        if self.adapters is None:
+            return {}
+        self.adapters.sync()
+        return {"lora": self.adapters.device_tree(),
+                "adapter_ids": self._to_device(np.array([req.adapter_slot], np.int64))}
+
+    def _batch_lora(self, adapter_ids: Optional[torch.Tensor]) -> Dict[str, object]:
+        """forward()'s keywords for a batched step: the device tree and the
+        rows' ids [B] (a decode graph input); {} without a store."""
+        if adapter_ids is None:
+            return {}
+        return {"lora": self.adapters.device_tree(), "adapter_ids": adapter_ids}
+
     def _admit_dense(self, req: Request, slot: int) -> None:
         t0 = time.perf_counter()
         prompt = self.clipped_prompt(req.prompt_tokens)
         true_len = len(prompt)
+        lora = self._prefill_lora(req)
         # An empty prompt, as the reference's dense path admits it, pads to
         # the smallest bucket and samples from the last padded row
         # (true_len - 1 = -1); decoding starts at position 0.
         if true_len <= self.ec.max_prefill_len:
             padded, true_len = _pad_to_bucket(prompt, self.ec.max_prefill_len)
             with torch.inference_mode():  # serving builds no autograd graph
-                logits, kv = self.model.forward(self.params, self._to_device(padded), self.cfg)
+                logits, kv = self.model.forward(self.params, self._to_device(padded), self.cfg, **lora)
             self._insert(kv, slot)
             last_logits = logits[0, true_len - 1]
             self.stats["prefills"] += 1
         else:
-            last_logits = self._chunked_prefill(prompt, slot)
+            last_logits = self._chunked_prefill(prompt, slot, lora)
         self.stats["prefill_tokens"] += true_len
         METRICS.inc("substratus_serve_prefill_tokens_total", by=true_len)
         self._finalize_admit(req, slot, last_logits, true_len)
         # _finalize_admit's host read of the first token ends the prefill.
         self.stats["prefill_seconds"] += time.perf_counter() - t0
 
-    def _chunked_prefill(self, prompt: List[int], slot: int) -> torch.Tensor:
+    def _chunked_prefill(self, prompt: List[int], slot: int,
+                         lora: Optional[Dict[str, object]] = None) -> torch.Tensor:
         """Prefill a prompt longer than one bucket on the dense cache: its
         chunks written in place into cache[:, slot] (a view whose per-layer
         slices are contiguous), each attending everything before it.
         Returns the last real token's logits."""
         slot_cache = {name: t[:, slot : slot + 1] for name, t in self.cache.items()}
-        return self._run_chunks(prompt, 0, cache=slot_cache)
+        return self._run_chunks(prompt, 0, cache=slot_cache, lora=lora)
 
     def _run_chunks(self, prompt: List[int], start: int, cache: Dict[str, torch.Tensor],
-                    block_table: Optional[torch.Tensor] = None, draft: bool = False) -> torch.Tensor:
+                    block_table: Optional[torch.Tensor] = None, draft: bool = False,
+                    lora: Optional[Dict[str, object]] = None) -> torch.Tensor:
         """Run prompt[start:] through the model (the draft model with
-        `draft`) in bucket-sized chunks against `cache` (one slot's dense
-        cache, or a paged pool through a block-table row [1, M]), each
-        chunk attending everything before it. Returns the last real
-        token's logits."""
+        `draft`: the base, as in the JAX engine) in bucket-sized chunks
+        against `cache` (one slot's dense cache, or a paged pool through a
+        block-table row [1, M]), each chunk attending everything before it,
+        with the request's adapter keywords `lora` (_prefill_lora).
+        Returns the last real token's logits."""
         params, cfg = (self.draft_params, self.draft_cfg) if draft else (self.params, self.cfg)
         counter = "draft_prefill_chunks" if draft else "prefill_chunks"
         chunk = self.ec.max_prefill_len
-        kw = {} if block_table is None else {"block_table": block_table}
+        kw = dict(lora or {})
+        if block_table is not None:
+            kw["block_table"] = block_table
         offset, last_logits = start, None
         while offset < len(prompt):
             t0 = time.perf_counter()
@@ -917,7 +1021,10 @@ class Engine:
         # first-token logits exist, as the JAX engine's paged path does.
         prompt = self.clipped_prompt(req.prompt_tokens) or [0]
         true_len = len(prompt)
-        entries = chain_entries(prompt, bs) if self.prefix is not None else []
+        # Prefix chains are salted with the adapter id: K/V written under
+        # one tenant's wk/wv deltas must never seed another tenant's (or
+        # the base model's) prompt.
+        entries = chain_entries(prompt, bs, salt=req.adapter) if self.prefix is not None else []
         # Reuse only pages strictly before the last prompt token: that
         # token must run through the model for its logits.
         shared = self.prefix.match(entries[: (true_len - 1) // bs]) if self.prefix is not None else []
@@ -939,7 +1046,7 @@ class Engine:
         self.block_table[slot] = 0
         self.block_table[slot, : len(pages)] = pages
         row = self._to_device(self.block_table[slot : slot + 1].copy())
-        last_logits = self._run_chunks(prompt, reuse, cache=self.cache, block_table=row)
+        last_logits = self._run_chunks(prompt, reuse, cache=self.cache, block_table=row, lora=self._prefill_lora(req))
         if self.spec_draft:
             # The draft's prefill starts at the hit too: a shared page was
             # written by the admission that registered it, for both pools
@@ -991,6 +1098,8 @@ class Engine:
         self.slot_req[slot] = req
         self.slot_generated[slot] = 0
         self.slot_tokens[slot] = []
+        self.slot_adapter[slot] = req.adapter_slot
+        self.adapter_ids[slot] = req.adapter_slot
         self._admit_counter += 1
         self.slot_admit_seq[slot] = self._admit_counter
         self.active[slot] = True
@@ -1009,22 +1118,28 @@ class Engine:
 
     def _device_step(self, cfg, tokens: torch.Tensor, positions: torch.Tensor,
                      temps: torch.Tensor, top_ps: torch.Tensor,
-                     block_table: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     block_table: Optional[torch.Tensor] = None,
+                     adapter_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The decode step's device work: advance every slot one token (the
         cache is written in place; on the paged pool through the block
-        table) and sample, all on the device."""
-        kw = {} if block_table is None else {"block_table": block_table}
+        table; each row with its adapter) and sample, all on the device."""
+        kw = self._batch_lora(adapter_ids)
+        if block_table is not None:
+            kw["block_table"] = block_table
         logits, _ = self.model.decode_step(self.params, self.cache, tokens, positions, cfg, **kw)
         return sample(logits, self.generator, temps, top_k=self.ec.top_k, top_p=top_ps)
 
     def _verify_step(self, cfg, tokens: torch.Tensor, positions: torch.Tensor,
                      temps: torch.Tensor, top_ps: torch.Tensor,
-                     block_table: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                     block_table: Optional[torch.Tensor] = None,
+                     adapter_ids: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """A speculative round's target forward over tokens [B, w] at
-        positions [B, w] (the cache written in place): the greedy choice at
-        every position and the sample of position 0. At w = 1 it is the
-        decode step."""
-        kw = {} if block_table is None else {"block_table": block_table}
+        positions [B, w] (the cache written in place; each row with its
+        adapter): the greedy choice at every position and the sample of
+        position 0. At w = 1 it is the decode step."""
+        kw = self._batch_lora(adapter_ids)
+        if block_table is not None:
+            kw["block_table"] = block_table
         logits, _ = self.model.forward(self.params, tokens, cfg, positions=positions, cache=self.cache, **kw)
         sampled = sample(logits[:, 0], self.generator, temps, top_k=self.ec.top_k, top_p=top_ps)
         return logits.argmax(dim=-1), sampled
@@ -1056,11 +1171,12 @@ class Engine:
                 self._graph = SpecGraph(functools.partial(self._verify_step, self.cfg),
                                         self._propose_steps if self.spec_draft else None, self.ec.max_batch,
                                         self.ec.spec_k, self.ec.max_seq_len - 1, self.device, self.generator,
-                                        self.stats, capture=self.decode_graph, pages=pages)
+                                        self.stats, capture=self.decode_graph, pages=pages,
+                                        adapters=self.adapters is not None)
             else:
                 self._graph = DecodeGraph(functools.partial(self._device_step, self.cfg), self.ec.max_batch,
                                           self.device, self.generator, self.stats, capture=self.decode_graph,
-                                          pages=pages)
+                                          pages=pages, adapters=self.adapters is not None)
         return self._graph
 
     def replayed_launches(self, counter: str) -> int:
@@ -1251,9 +1367,8 @@ class Engine:
         graph = self._decode_graph()
         # With nothing in flight every row takes the host's token and position.
         fresh = self._token_fresh if self._pending is not None else np.ones_like(self._token_fresh)
-        pages = {"block_table": self.block_table} if self.paged else {}
         read = graph.launch(self.tokens, self.positions, self.temps, self.top_ps, fresh, k_eff, greedy, width,
-                            props=lookup, **pages)
+                            props=lookup, **self._step_inputs())
         if width > 1:
             # Width-1 rounds are plain decode steps, not verify passes.
             self.stats["verify_passes"] += 1
@@ -1324,6 +1439,17 @@ class Engine:
         else:
             self._drain(step)
 
+    def _step_inputs(self) -> Dict[str, np.ndarray]:
+        """The host inputs a step's graph takes beyond the tokens and the
+        sampling knobs: the block table on the paged pool, the rows'
+        adapter slots with a store."""
+        inputs = {}
+        if self.paged:
+            inputs["block_table"] = self.block_table
+        if self.adapters is not None:
+            inputs["adapter_ids"] = self.adapter_ids
+        return inputs
+
     def _dispatch(self) -> Optional[_InFlightStep]:
         """Device half of one decode step: launch it (each continuing slot's
         token from the last step's output on the device, each freshly
@@ -1338,8 +1464,8 @@ class Engine:
             if not self.active.any():
                 return None
         graph = self._decode_graph()
-        pages = (self.block_table,) if self.paged else ()
-        read = graph.launch(self.tokens, self.positions, self.temps, self.top_ps, self._token_fresh, *pages)
+        read = graph.launch(self.tokens, self.positions, self.temps, self.top_ps, self._token_fresh,
+                            **self._step_inputs())
         self._token_fresh[:] = False
         # Clamp at the last cache row: active slots are released at the
         # window before reaching it (_emit's hit_window), so the clamp only
@@ -1451,6 +1577,12 @@ class Engine:
         self.active[slot] = False
         self.slot_req[slot] = None
         self.slot_tokens[slot] = []
+        if self.adapters is not None and self.slot_adapter[slot]:
+            self.adapters.release(self.slot_adapter[slot])
+        self.slot_adapter[slot] = 0
+        # Idle rows gather the identity adapter: their decode writes go on
+        # (static shapes) and must stay adapter-free.
+        self.adapter_ids[slot] = 0
         if self.paged:
             self.slot_pages.release(slot, self.alloc)
             # Point the idle row at the trash page: its decode writes go on
@@ -1462,6 +1594,10 @@ class Engine:
         try:
             while not self._stop.is_set():
                 self._apply_staged_swaps()
+                if self.adapters is not None:
+                    # Slots a host thread loaded since the last iteration,
+                    # in place, ordered behind the step in flight.
+                    self.adapters.sync()
                 t_admit = time.perf_counter()
                 if self._admit():
                     # Only iterations that boarded someone: an idle engine

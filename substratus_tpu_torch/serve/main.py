@@ -84,12 +84,23 @@ The port has no XLA, so a reference name runs a kernel too; the startup
 line says which. On the paged pool the attention knobs choose nothing:
 every prompt runs as chunks through its block-table row, and chunks and
 decode steps alike attend the pages gathered through it with the plain
-attention, as in the JAX package. Every other key of the JAX entry point
-exits with the ROADMAP item that will serve it, named by its title
-(``baseModel`` and ``adapters``: multi-tenant adapters; ``role``,
-``disaggregated``, ``transfer_port``, ``decode_peers``: disaggregated
-prefill/decode; ``tensor``, ``sequence``, ``replicas``: multi-GPU
-serving), unless it holds the one
+attention, as in the JAX package.
+
+Multi-tenant adapters (serve/adapters.py): ``--adapters-dir``, else
+params.json ``adapters`` (``dir``, ``paths`` {id: artifact dir},
+``capacity`` (8), ``rank`` and ``targets``, inferred from the artifacts
+when absent), else a directory mounted at ``/content/adapters`` (the
+container contract) builds an AdapterStore (build_adapter_store): every
+artifact subdir is a tenant named by the subdir, preloaded up to the
+capacity, the rest hot-loaded by the first request whose ``model`` field
+names it; the startup line prints the store. ``baseModel`` is a known key
+with no effect here, as in the JAX entry point (the controller reads it).
+
+Every other key of the JAX entry point exits with the ROADMAP item that
+will serve it, named by its title (``role``, ``disaggregated``,
+``transfer_port``, ``decode_peers``: disaggregated prefill/decode;
+``tensor``, ``sequence``, ``replicas``: multi-GPU serving), unless it
+holds the one
 value this port already serves (for example ``role: both``): a knob is
 never silently ignored, and an unknown value of a served knob exits too.
 ``batchGenerate`` is a known key, as in the JAX entry point: the batch
@@ -108,8 +119,6 @@ import torch
 # params.json keys the port does not serve yet: the value it does serve
 # (a key holding it passes), and where the rest waits.
 _NOT_SERVED = {
-    "baseModel": (None, "Queue 1, multi-tenant adapters (a base model shared by adapters)"),
-    "adapters": (None, "Queue 1, multi-tenant adapters"),
     "role": ("both", "Queue 1, disaggregated prefill/decode"),
     "disaggregated": (None, "Queue 1, disaggregated prefill/decode"),
     "transfer_port": (None, "Queue 1, disaggregated prefill/decode"),
@@ -120,7 +129,7 @@ _NOT_SERVED = {
 }
 _SERVED = ("model", "config", "max_batch", "max_seq_len", "max_prefill_len", "kv_cache_dtype", "max_queue",
            "overlap", "kv_layout", "decode_attn_impl", "chunk_attn_impl", "attn_impl", "quantize", "q4_impl",
-           "spec_k", "draft_model", "drain_grace", "batchGenerate")
+           "spec_k", "draft_model", "drain_grace", "batchGenerate", "adapters", "baseModel")
 _KV_LAYOUTS = ("auto", "paged", "dense")
 _QUANTIZE = ("none", "int8", "int4")
 # The port has no XLA: both of the JAX entry point's int4 lowerings run the kernel.
@@ -132,8 +141,9 @@ _CHUNK_IMPLS = {"xla": "flash", "flash": "flash"}
 # The JAX entry points' attn_impl (serving and training) -> models/llama.py's.
 ATTN_IMPLS = {"xla": "flash", "flash": "flash", "plain": "plain"}
 _MULTI_GPU = "Queue 1, multi-GPU and RL (ring and Ulysses attention)"
-# The container contract's model mount.
+# The container contract's model and adapter mounts.
 CONTENT_MODEL = "/content/model"
+CONTENT_ADAPTERS = "/content/adapters"
 
 
 def load_params_json(path: Optional[str]) -> Dict[str, Any]:
@@ -273,6 +283,55 @@ def load_checkpoint(path: str, device=None, dtype=torch.bfloat16) -> Tuple[Any, 
     return load_pretrained(path, dtype=dtype, device=device)
 
 
+def build_adapter_store(family, cfg, params_json: Dict[str, Any], adapters_dir_flag: Optional[str], device):
+    """The multi-tenant AdapterStore (the JAX entry point's
+    build_adapter_store), shared by this server and serve/batchgen.py, so
+    a batch record's `model` field selects the same LoRA slots a request
+    would: from --adapters-dir, else params.json `adapters`, else the
+    mounted /content/adapters, on `device` in the model's dtype. None
+    when no adapters are configured, or when the family cannot index
+    them (said, not silent)."""
+    from substratus_tpu_torch.serve.adapters import AdapterStore, infer_store_shape, is_adapter_artifact
+
+    adapters_cfg = params_json.get("adapters") or {}
+    if not isinstance(adapters_cfg, dict):
+        raise SystemExit(f"params.json: adapters={adapters_cfg!r} invalid (an object: dir, paths, capacity, rank, "
+                         "targets)")
+    adapters_dir = adapters_dir_flag or adapters_cfg.get("dir") or (
+        CONTENT_ADAPTERS if os.path.isdir(CONTENT_ADAPTERS) else None)
+    if not adapters_dir and not adapters_cfg.get("paths"):
+        return None
+    if not getattr(family, "SUPPORTS_INDEXED_LORA", False):
+        # Tell the operator the tenants will not be served instead of
+        # answering every adapter request 404 with nothing in the logs.
+        print("multi-tenant adapters unsupported for this family; serving the base model only", flush=True)
+        return None
+    explicit = dict(adapters_cfg.get("paths") or {})
+    discovered = {}
+    if adapters_dir and os.path.isdir(adapters_dir):
+        for entry in sorted(os.listdir(adapters_dir)):
+            path = os.path.join(adapters_dir, entry)
+            if is_adapter_artifact(path):
+                discovered[entry] = path
+    inferred_rank, inferred_targets = infer_store_shape(list(explicit.values()) + list(discovered.values()))
+    store = AdapterStore(cfg, capacity=int(adapters_cfg.get("capacity", 8)),
+                         rank=int(adapters_cfg.get("rank", inferred_rank)),
+                         targets=tuple(adapters_cfg.get("targets", inferred_targets)), search_dir=adapters_dir,
+                         device=device)
+    for aid, path in explicit.items():
+        store.register_path(aid, path)
+    # Preload up to capacity, so first requests do not pay the artifact
+    # read; the rest hot-load on demand (a cache miss).
+    for aid in list(store.available_ids())[: store.capacity]:
+        try:
+            store.load(aid)
+        except (OSError, ValueError) as e:
+            print(f"adapter {aid!r} failed to preload: {e}", flush=True)
+    print(f"adapter store: {len(store.loaded_ids())} loaded / {len(store.available_ids())} available "
+          f"(capacity {store.capacity}, rank {store.rank}, targets {','.join(store.targets)})", flush=True)
+    return store
+
+
 def resolve_model_path(flag: Optional[str], params: Dict[str, Any]) -> Optional[str]:
     """The checkpoint to serve or train from: the flag, else params.json
     ``model``, else the container contract's mount if it exists."""
@@ -301,6 +360,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--draft-model", default=None, help="draft checkpoint for speculative decoding (params.json "
                                                         "draft_model)")
     ap.add_argument("--spec-k", type=int, default=None, help="proposals a verify round (0 = off; params.json spec_k)")
+    ap.add_argument("--adapters-dir", default=None,
+                    help="directory of LoRA adapter artifacts served multi-tenant (one subdir per adapter id; "
+                         "default: params.json adapters.dir, else /content/adapters when mounted)")
     return ap.parse_args(argv)
 
 
@@ -407,7 +469,8 @@ def build(argv=None):
         overlap=resolve_overlap(params_json),
         spec_k=spec_k,
     )
-    engine = Engine(cfg, params, ec, device=device, model=family, draft=draft)
+    adapters = build_adapter_store(family, cfg, params_json, args.adapters_dir, device)
+    engine = Engine(cfg, params, ec, device=device, model=family, draft=draft, adapters=adapters)
 
     def checkpoint_loader(ref: str):
         """POST /swapz's checkpoint ref -> weights ready to install: boot's
@@ -460,7 +523,9 @@ def build(argv=None):
     print(f"serving {name} on {args.host}:{server.port} ({device}); {weights[shown]}; {cache}; scheduler: "
           f"{'overlapped' if engine.overlap else 'synchronous'}, decode step "
           f"{('a CUDA graph a width' if engine.spec else 'one CUDA graph') if engine.decode_graph else 'eager'}; "
-          f"speculative decoding: {spec}", flush=True)
+          f"speculative decoding: {spec}; adapters: "
+          + ("none" if adapters is None else f"{adapters.loaded_ids()} resident of {adapters.available_ids()} "
+             f"(capacity {adapters.capacity}, rank {adapters.rank})"), flush=True)
     return server
 
 

@@ -11,8 +11,11 @@ server's:
     draining, 500 with the error;
   * ``GET /metrics`` the Prometheus text of observability/metrics.py, the
     engine gauges refreshed at scrape, in the versioned content type;
-  * ``GET /v1/models`` the served model (a ``model`` field naming any other
-    gets 404 ``model_not_found``: adapters wait for ROADMAP Queue 1 item 6);
+  * ``GET /v1/models`` the served model and, with an adapter store
+    (serve/adapters.py), every servable tenant adapter (``parent`` the base,
+    ``loaded`` whether it is resident); a request's ``model`` field names
+    the base (or is empty) or an adapter, anything else gets 404
+    ``model_not_found``;
   * ``POST /v1/completions`` ``{prompt, max_tokens, temperature, top_p,
     stop, stream}`` and ``POST /v1/chat/completions`` (``messages``,
     rendered by the tokenizer's chat template, else a generic transcript):
@@ -68,6 +71,7 @@ from substratus_tpu_torch.gateway.loadreport import HEADER as LOAD_HEADER
 from substratus_tpu_torch.gateway.loadreport import LoadReport
 from substratus_tpu_torch.observability.httpstats import count_http_response
 from substratus_tpu_torch.observability.metrics import METRICS
+from substratus_tpu_torch.serve.adapters import UnknownAdapter
 from substratus_tpu_torch.serve.engine import Engine, EngineOverloaded, Request
 
 # Scrape-time engine gauges (the request-latency histograms live in
@@ -463,8 +467,16 @@ class Handler(BaseHTTPRequestHandler):
         self._send(200, METRICS.render().encode(), METRICS_CONTENT_TYPE)
 
     def _models(self) -> None:
-        self._send(200, {"object": "list", "data": [{"id": self.state.model_name, "object": "model",
-                                                     "owned_by": "substratus-tpu"}]})
+        state = self.state
+        data = [{"id": state.model_name, "object": "model", "owned_by": "substratus-tpu"}]
+        store = state.engine.adapters
+        if store is not None:
+            # Every servable tenant adapter is a model clients can name in
+            # the `model` field (loaded or hot-loadable).
+            loaded = set(store.loaded_ids())
+            data.extend({"id": aid, "object": "model", "owned_by": "substratus-tpu", "parent": state.model_name,
+                         "loaded": aid in loaded} for aid in store.available_ids())
+        self._send(200, {"object": "list", "data": data})
 
     # --- completions --------------------------------------------------------
 
@@ -478,20 +490,32 @@ class Handler(BaseHTTPRequestHandler):
         if remaining is not None and remaining <= 0:
             raise _json_error(504, "request deadline already expired", "deadline")
 
+    def _resolve_adapter(self, body: dict) -> Optional[str]:
+        """The `model` field -> an engine adapter id: the base model's own
+        name (or an absent or empty field) means none; anything else must
+        be a servable adapter, or the request is a 404 before any engine
+        work."""
+        state = self.state
+        name = body.get("model")
+        if not name or name == state.model_name:
+            return None
+        store = state.engine.adapters
+        if store is not None and store.known(str(name)):
+            return str(name)
+        raise _json_error(404, f"model {name!r} not found", "invalid_request_error", code="model_not_found")
+
     def _submit(self, prompt: str, body: dict, templated: bool = False) -> Tuple[Request, int]:
         """The request on the engine's queue, tracked, and its prompt's
         length; 404 for a model this replica does not serve, 429 with
         Retry-After when the queue is full."""
         state = self.state
-        name = body.get("model")
-        if name and name != state.model_name:
-            raise _json_error(404, f"model {name!r} not found", "invalid_request_error", code="model_not_found")
         req = Request(
             prompt_tokens=state.encode_prompt(prompt, templated),
             max_tokens=int(body.get("max_tokens", 16)),
             temperature=float(body.get("temperature", 1.0)),
             top_p=float(body.get("top_p", 1.0)),
             eos_token_id=state.tokenizer.eos_id,
+            adapter=self._resolve_adapter(body),
             id=uuid.uuid4().hex,
         )
         # Counted now: a request preempted on the paged pool resumes with
@@ -500,6 +524,11 @@ class Handler(BaseHTTPRequestHandler):
         state.track_request(req)
         try:
             return state.engine.submit(req), n_prompt
+        except UnknownAdapter as e:
+            # The artifact vanished between the known() check and submit:
+            # the same answer as _resolve_adapter's.
+            state.untrack_request(req)
+            raise _json_error(404, str(e), "invalid_request_error", code="model_not_found")
         except EngineOverloaded as e:
             state.untrack_request(req)
             # Bounded queue -> explicit shed: 429 + Retry-After beats a

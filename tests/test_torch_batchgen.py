@@ -371,9 +371,10 @@ def test_manifest_functions_match_jax(tmp_path):
 def test_params_batchgenerate_and_refusals(tmp_path):
     """serve.main accepts batchGenerate as a known key (as JAX's does);
     serve.batchgen runs on the card unless --device cpu is given (here it
-    raises), and exits on a batchGenerate key it does not know and on the
-    keys the port does not serve yet (adapters, baseModel, tensor), with
-    serve.main's messages."""
+    raises), and exits on a batchGenerate key it does not know, on a key
+    the port does not serve yet (tensor) and on an adapters value that is
+    not an object, with serve.main's messages; baseModel is a known key
+    with no effect (as in serve.main)."""
     assert batchgen.parse_args([]).device is None
     with pytest.raises(RuntimeError, match="CUDA"):
         batchgen.main(["--config", "tiny", "--params", ""])
@@ -383,8 +384,8 @@ def test_params_batchgenerate_and_refusals(tmp_path):
     with pytest.raises(SystemExit, match="unknown batchGenerate key"):
         batchgen.batchgen_params({"batchGenerate": dict(bg, shards=3)})
     man = write(tmp_path / "m.jsonl", records()[:2])
-    for key, value, where in (("adapters", ["a"], "multi-tenant adapters"), ("baseModel", "b", "multi-tenant"),
-                              ("tensor", 2, "multi-GPU")):
+    check_params({"baseModel": "b", "adapters": {"dir": str(tmp_path)}, "batchGenerate": bg})
+    for key, value, where in (("adapters", ["a"], r"adapters=\['a'\] invalid"), ("tensor", 2, "multi-GPU")):
         params = tmp_path / "p.json"
         params.write_text(json.dumps({key: value, "batchGenerate": bg}))
         with pytest.raises(SystemExit, match=where):

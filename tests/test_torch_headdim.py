@@ -1,7 +1,7 @@
 """Head dims the attention kernels are not built for (ops/headdim.py): the
 padded route against the plain versions at the true D, on the CPU.
 
-A head dim of 20, 80 or 96 runs padded to 32, 128 and 128: zero columns
+A head dim of 20, 80, 96 or 192 runs padded to 32, 128, 128 and 256: zero columns
 of q and k change no score, v's extra columns are sliced off the output,
 and the softmax scale stays the true D^-0.5. On the CPU the wrappers run
 the same route over the plain versions, so what is held here is the
@@ -13,8 +13,10 @@ the output's scale (another summation length, nothing else). Then a tiny
 OPT at head dim 20 served from the padded dense cache matches the JAX
 engine token for token; a llama config with a group of 3, an int8 cache
 and max_seq_len 1022 is laid out for the split design (rows rounded to
-1024, head dim 16 padded to 64) and matches the JAX int8 engine; and a
-head dim above 128 is refused when the engine or the trainer is built.
+1024, head dim 16 padded to 64) and matches the JAX int8 engine; a
+llama at head dim 256 (built) and 192 (padded to 256) matches the JAX
+dense engine token for token and the JAX trainer's LoRA steps; and a head
+dim above 256 is refused when the engine or the trainer is built.
 """
 import jax
 import jax.numpy as jnp
@@ -24,10 +26,13 @@ import torch
 
 from substratus_tpu.models import llama as jllama
 from substratus_tpu.models import opt as jopt
+from substratus_tpu.parallel.mesh import build_mesh
 from substratus_tpu.serve.engine import Engine as JEngine
 from substratus_tpu.serve.engine import EngineConfig as JEngineConfig
 from substratus_tpu.serve.engine import Request as JRequest
-from substratus_tpu_torch.bridge import params_from_jax
+from substratus_tpu.train.trainer import TrainConfig as JTrainConfig
+from substratus_tpu.train.trainer import Trainer as JTrainer
+from substratus_tpu_torch.bridge import lora_from_jax, params_from_jax
 from substratus_tpu_torch.models import llama, opt
 from substratus_tpu_torch.ops import flash_attention as fa
 from substratus_tpu_torch.ops.decode_attention import (
@@ -65,9 +70,14 @@ def _randn(r, *shape):
 def test_routes_and_layouts():
     """The padded size of each head dim, the startup lines' names, and the
     dense cache's layout by design."""
-    assert [padded_head_dim(d) for d in (8, 16, 20, 48, 64, 80, 96, 128, 160)] == [
-        16, 16, 32, 64, 64, 128, 128, 128, None]
+    assert [padded_head_dim(d) for d in (8, 16, 20, 48, 64, 80, 96, 128, 160, 192, 256, 288)] == [
+        16, 16, 32, 64, 64, 128, 128, 128, 256, 256, 256, None]
     assert head_dim_route(80) == "head_dim 80 padded to 128" and head_dim_route(128) == "head_dim 128"
+    assert head_dim_route(192) == "head_dim 192 padded to 256" and head_dim_route(256) == "head_dim 256"
+    # 256: the rows design at groups 1, 2, 4, 8; the split design's instance at 256 at any other
+    assert decode_design(256, 1024, False, 1) == decode_design(256, 1022, True, 8) == "rows"
+    assert decode_design(256, 1024, False, 3) == "split" and cache_layout(192, 1022, True, 3) == (1024, 256)
+    assert cache_layout(192, 1022, True, 2) == (1022, 256)
     assert cache_layout(80, 1024, False, 1) == (1024, 128)  # opt-2.7b: the split design at 128
     assert cache_layout(80, 1022, True, 1) == (1022, 128)  # int8, S % 4: the rows design takes group 1
     assert cache_layout(128, 1022, True, 3) == (1024, 128)  # int8, S % 4, group 3: split, rows rounded up
@@ -76,11 +86,11 @@ def test_routes_and_layouts():
     assert decode_design(128, 1022, True, 3) == "split" and decode_design(128, 1022, True, 1) == "rows"
     assert decode_design(128, 1024, True, 3) == decode_design(64, 64, False, 3) == "split"
     assert decode_design(32, 64, False, 2) == "rows"
-    with pytest.raises(ValueError, match="above 128"):
-        cache_layout(160, 64, False, 1)
+    with pytest.raises(ValueError, match="above 256"):
+        cache_layout(288, 64, False, 1)
 
 
-@pytest.mark.parametrize("d", [20, 80, 96])
+@pytest.mark.parametrize("d", [20, 80, 96, 192])
 def test_padded_route_matches_plain(d):
     """Every wrapper at head dim d against its plain version at d."""
     r = np.random.default_rng(d)
@@ -218,15 +228,72 @@ def test_group_of_3_int8_cache_1022_rows_matches_jax_engine():
 
 
 def test_head_dim_above_128_refused_when_built():
-    """Head dim 160: the dense engine and the trainer's flash attention
-    refuse it when built, naming the limit; the paged engine (no kernel
-    reads its pages) and the trainer at attn_impl plain build."""
+    """Above 128 the kernels are built at 256 (129-255 padded to it), so
+    head dim 160 builds; above 256, head dim 288: the dense engine and the
+    trainer's flash attention refuse it when built, naming the limit; the
+    paged engine (no kernel reads its pages) and the trainer at attn_impl
+    plain build."""
     cfg = llama.CONFIGS["tiny"].replace(dim=320, n_heads=2, n_kv_heads=2, dtype=torch.float32)
     assert cfg.head_size == 160
+    engine = Engine(cfg, llama.init_params(cfg, seed=0, device="cpu"),
+                    EngineConfig(kv_layout="dense", max_seq_len=64), device="cpu", padded_cache=True)
+    assert engine.cache["k"].shape[-1] == 256 and "head_dim 160 padded to 256" in engine.attention_route()
+    cfg = llama.CONFIGS["tiny"].replace(dim=576, n_heads=2, n_kv_heads=2, dtype=torch.float32)
+    assert cfg.head_size == 288
     params = llama.init_params(cfg, seed=0, device="cpu")
-    with pytest.raises(ValueError, match="head_dim 160 is above 128"):
+    with pytest.raises(ValueError, match="head_dim 288 is above 256"):
         Engine(cfg, params, EngineConfig(kv_layout="dense", max_seq_len=64), device="cpu")
     assert Engine(cfg, params, EngineConfig(kv_layout="paged", max_seq_len=64), device="cpu").paged
-    with pytest.raises(ValueError, match="head_dim 160 is above 128"):
+    with pytest.raises(ValueError, match="head_dim 288 is above 256"):
         Trainer(cfg, TrainConfig(), params=params)
     Trainer(cfg.replace(attn_impl="plain"), TrainConfig(), params=params)
+
+
+def _wide_heads(d):
+    """tiny at head dim d (4 heads on 2 kv heads), f32, in both packages."""
+    jcfg = jllama.CONFIGS["tiny"].replace(vocab_size=258, head_dim=d, dtype=jnp.float32)
+    tcfg = llama.CONFIGS["tiny"].replace(vocab_size=258, head_dim=d, dtype=torch.float32)
+    return jcfg, tcfg
+
+
+@pytest.mark.parametrize("d", [192, 256])
+def test_dense_engine_at_head_dim_above_128_matches_jax_engine(d):
+    """The dense engine at head dim 256 (built) and 192 (the cache laid
+    out at 256), short prompts and chunks, int8 and model-dtype caches:
+    greedy tokens the JAX dense engine's, synchronous and overlapped."""
+    jcfg, tcfg = _wide_heads(d)
+    j_params = jllama.init_params(jcfg, jax.random.key(0))
+    t_params = llama.Llama(tcfg, device="cpu")
+    t_params.load_state_dict(params_from_jax(jax.device_get(j_params)))
+    for cache_dtype in ("model", "int8"):
+        ec = dict(max_batch=4, max_seq_len=64, max_prefill_len=16, eos_token_id=EOS, kv_layout="dense",
+                  kv_cache_dtype=cache_dtype)
+        want = _run(JEngine(jcfg, j_params, JEngineConfig(overlap=False, **ec)), JRequest, PROMPTS)
+        assert [len(t) for t, _ in want] == [10] * 4
+        for overlap in (False, None):
+            engine = Engine(tcfg, t_params, EngineConfig(overlap=overlap, **ec), device="cpu", padded_cache=True)
+            assert engine.cache["k"].shape[-1] == 256 and f"head_dim {d}" in engine.attention_route()
+            assert _run(engine, Request, PROMPTS) == want, (cache_dtype, overlap)
+            assert engine.stats["prefill_chunks"] > 0
+
+
+@pytest.mark.parametrize("d", [192, 256])
+def test_lora_steps_at_head_dim_above_128_match_jax_trainer(d):
+    """Three LoRA steps at head dim d through the trainer's flash attention
+    (the plain version at 256 on the CPU: 192 padded) against the JAX
+    trainer from the same weights and adapters: losses and adapters."""
+    jcfg, tcfg = _wide_heads(d)
+    tc = dict(learning_rate=2e-4, warmup_steps=1, total_steps=10, lora_rank=4)
+    jt = JTrainer(jcfg, JTrainConfig(remat=False, **tc), build_mesh(devices=jax.devices()[:1]))
+    tt = Trainer(tcfg, TrainConfig(remat=False, **tc), params=llama.Llama(tcfg, device="cpu"))
+    tt.params.load_state_dict(params_from_jax(jax.device_get(jt.params)))
+    tt.lora.load_state_dict(lora_from_jax(jax.device_get(jt.lora)))
+    rng = np.random.default_rng(d)
+    batch = {"tokens": rng.integers(0, 256, (2, 24)).astype(np.int32), "weights": np.ones((2, 24), np.float32)}
+    want = [jt.train_step(batch) for _ in range(3)]
+    got = [tt.train_step(batch) for _ in range(3)]
+    np.testing.assert_allclose(got, want, atol=1e-4)
+    assert got[2] < got[0]
+    ref = lora_from_jax(jax.device_get(jt.lora))
+    for name, t in tt.lora.state_dict().items():
+        np.testing.assert_allclose(t.float().numpy(), ref[name].numpy(), rtol=2 * 2**-8, atol=1e-5, err_msg=name)

@@ -1,9 +1,12 @@
-"""Head dims the kernels are not built for, on the card (ops/headdim.py):
-every attention kernel family at head_dim 80 (facebook/opt-2.7b's) and 96,
-run padded to 128, against its plain PyTorch version at the true D; the
-decode kernels at a group of 3 on an int8 cache of 1022 rows, laid out
-for the split design at 1024 rows; and a small llama at head_dim 80 through
-the kernels and the Engine, the padded route counted.
+"""Head dims the kernels are not built for, and the instances at 256, on
+the card (ops/headdim.py): every attention kernel family at head_dim 80
+(facebook/opt-2.7b's) and 96, run padded to 128, at 192, run padded to
+256, and at 256 (gemma's; the mma.sync designs and the rows decode, the
+split decode at other groups), against its plain PyTorch version at the
+true D; the decode kernels at a group of 3 on an int8 cache of 1022 rows,
+laid out for the split design at 1024 rows, at head_dim 128 and 256; and
+a small llama at head_dim 80 through the kernels and the Engine, the
+padded route counted.
 
 Every test here needs an NVIDIA card (the kernels are CUDA C++ for sm_90a
 with no CPU mode) and skips without one. The file imports only torch and
@@ -25,14 +28,14 @@ from substratus_tpu_torch.ops import flash_attention as fa
 from substratus_tpu_torch.ops.decode_attention import decode_attention, decode_attention_plain
 from substratus_tpu_torch.ops.fused_decode import (
     cache_layout, decode_design, fused_decode_attention, fused_decode_attention_plain)
-from substratus_tpu_torch.ops.headdim import pad_head
+from substratus_tpu_torch.ops.headdim import pad_head, padded_head_dim
 from substratus_tpu_torch.ops.quant import quantize_kv
 from substratus_tpu_torch.serve.engine import Engine, EngineConfig
 
 pytestmark = pytest.mark.cuda
 ROW_REL = 2**-6
 LSE_ATOL = 1e-3
-DIMS = [80, 96]
+DIMS = [80, 96, 192, 256]
 
 
 @pytest.fixture
@@ -68,17 +71,24 @@ def _moved(fn, before):
     return {k: v - before[k] for k, v in _counts(fn).items() if v != before[k]}
 
 
+def _want(design: str, padded: bool) -> dict:
+    """One launch of `design`, counted padded where the head dim is not built."""
+    return {"launches": 1, f"launches_{design}": 1, **({"launches_padded": 1} if padded else {})}
+
+
 @pytest.mark.parametrize("d", DIMS)
 def test_flash_forward_and_backward(cuda, d):
     """The flash forward (with its LSE), dQ and dK/dV at head_dim d, causal
-    and GQA, through the wgmma designs at 128."""
+    and GQA, through the wgmma designs at 128 and the mma.sync designs at
+    256 (dK/dV in two column halves)."""
     gen = torch.Generator(device=cuda).manual_seed(d)
     b, s, h, kh = 2, 1000, 8, 2
+    dp = padded_head_dim(d)
     q, do = _bf16(gen, b, s, h, d, device=cuda), _bf16(gen, b, s, h, d, device=cuda)
     k, v = _bf16(gen, b, s, kh, d, device=cuda), _bf16(gen, b, s, kh, d, device=cuda)
     before = _counts(fa.flash_attention)
     out, lse = fa.flash_attention(q, k, v, True, return_lse=True)
-    assert _moved(fa.flash_attention, before) == {"launches": 1, "launches_wgmma": 1, "launches_padded": 1}
+    assert _moved(fa.flash_attention, before) == _want(fa.flash_fwd_design(dp), dp != d)
     ref, ref_lse = fa.flash_attention_plain(q, k, v, True, return_lse=True)
     _check(f"flash forward d{d}", out, ref)
     assert (lse - ref_lse).abs().max().item() <= LSE_ATOL
@@ -89,18 +99,20 @@ def test_flash_forward_and_backward(cuda, d):
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         _check(f"flash backward {name} d{d}", g, w)
     for fn in (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv):
-        assert fn.launches_padded >= 1 and fn.launches_wgmma >= 1
+        assert fn.launches_padded >= (dp != d) and getattr(fn, f"launches_{fa.flash_bwd_design(dp)}") >= 1
 
 
 @pytest.mark.parametrize("d", DIMS)
 def test_cached_flash_and_decode_kernels(cuda, d):
     """The cached flash (a 512-row chunk), the decode attention and the
     fused decode at head_dim d, bf16 and int8, over caches laid out at 128
-    (zero columns), against the plain versions over the caches at d."""
+    or 256 (zero columns), against the plain versions over the caches at
+    d."""
     gen = torch.Generator(device=cuda).manual_seed(d + 1)
     b, s, h, kh = 4, 2048, 8, 2
     dc = cache_layout(d, s, False, h // kh)[1]
-    assert dc == 128 and cache_layout(d, s, True, h // kh) == (s, 128)
+    assert dc == padded_head_dim(d) and cache_layout(d, s, True, h // kh) == (s, dc)
+    padded = dc != d
     k, v = _bf16(gen, b, kh, s, d, device=cuda), _bf16(gen, b, kh, s, d, device=cuda)
     (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
     ks, vs = ks[..., 0].contiguous(), vs[..., 0].contiguous()
@@ -111,16 +123,16 @@ def test_cached_flash_and_decode_kernels(cuda, d):
     pos = (1024 + torch.arange(512, device=cuda)).repeat(b, 1).to(torch.int32)
     q1 = _bf16(gen, b, 1, h, d, device=cuda)
     dpos = torch.tensor([0, 700, 1500, s - 1], dtype=torch.int32, device=cuda)
-    for name, (padded, true, scales) in caches.items():
+    for name, (padded_kv, true, scales) in caches.items():
         before = _counts(fa.flash_cached_attention)
-        out = fa.flash_cached_attention(qc, *padded, pos, *scales)
-        assert _moved(fa.flash_cached_attention, before) == {"launches": 1, "launches_wgmma": 1,
-                                                             "launches_padded": 1}
+        out = fa.flash_cached_attention(qc, *padded_kv, pos, *scales)
+        assert _moved(fa.flash_cached_attention, before) == _want(fa.flash_cached_design(dc), padded)
         _check(f"cached flash d{d} {name}", out, fa.flash_cached_attention_plain(qc, *true, pos, *scales))
-        assert decode_design(dc, s, name == "int8", h // kh) == "split"
+        design = decode_design(dc, s, name == "int8", h // kh)
+        assert design == ("rows" if dc == 256 else "split")
         before = _counts(decode_attention)
-        out = decode_attention(q1, *padded, dpos, *scales)
-        assert _moved(decode_attention, before) == {"launches": 1, "launches_split": 1, "launches_padded": 1}
+        out = decode_attention(q1, *padded_kv, dpos, *scales)
+        assert _moved(decode_attention, before) == _want(design, padded)
         _check(f"decode d{d} {name}", out, decode_attention_plain(q1, *true, dpos, *scales))
 
     nk, nv = _bf16(gen, b, kh, 1, d, device=cuda), _bf16(gen, b, kh, 1, d, device=cuda)
@@ -134,21 +146,22 @@ def test_cached_flash_and_decode_kernels(cuda, d):
         kt, vt = (c.clone() for c in cache)
         before = _counts(fused_decode_attention)
         out, kp, vp = fused_decode_attention(q1, *(pad_head(x, dc) for x in new), kp, vp, dpos, *scales)
-        assert _moved(fused_decode_attention, before) == {"launches": 1, "launches_split": 1, "launches_padded": 1}
+        assert _moved(fused_decode_attention, before) == _want(decode_design(dc, s, name == "int8", h // kh), padded)
         ref, kt, vt = fused_decode_attention_plain(q1, *new, kt, vt, dpos, *scales)
         _check(f"fused decode d{d} {name}", out, ref)
         assert torch.equal(kp[..., :d], kt) and torch.equal(vp[..., :d], vt) and not kp[..., d:].any()
 
 
-def test_group_of_3_on_an_int8_cache_of_1022_rows(cuda):
-    """A group of 3 at head_dim 128 over an int8 cache of 1022 rows: the
+@pytest.mark.parametrize("d", [128, 256])
+def test_group_of_3_on_an_int8_cache_of_1022_rows(cuda, d):
+    """A group of 3 at head_dim d over an int8 cache of 1022 rows: the
     rows design takes no group of 3 and the split design wants the rows a
     multiple of 4, so the cache is laid out at 1024 rows; decode and fused
-    decode through the split design against the plain versions over the
-    1022 rows."""
-    b, s, h, kh, d = 8, 1022, 12, 4, 128
+    decode through the split design (at 256 its instance of 4 warps)
+    against the plain versions over the 1022 rows."""
+    b, s, h, kh = 8, 1022, 12, 4
     sp, dp = cache_layout(d, s, True, 3)
-    assert (sp, dp) == (1024, 128) and decode_design(d, s, True, 3) == "split"
+    assert (sp, dp) == (1024, d) and decode_design(d, s, True, 3) == "split"
     gen = torch.Generator(device=cuda).manual_seed(3)
     k, v = _bf16(gen, b, kh, sp, d, device=cuda), _bf16(gen, b, kh, sp, d, device=cuda)
     (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
@@ -159,7 +172,7 @@ def test_group_of_3_on_an_int8_cache_of_1022_rows(cuda):
     out = decode_attention(q, kq, vq, pos, ks, vs)
     assert _moved(decode_attention, before) == {"launches": 1, "launches_split": 1}
     true = [t[:, :, :s].contiguous() for t in (kq, vq, ks, vs)]
-    _check("decode g3 int8 S=1022", out, decode_attention_plain(q, *true[:2], pos, *true[2:]))
+    _check(f"decode g3 int8 S=1022 d{d}", out, decode_attention_plain(q, *true[:2], pos, *true[2:]))
     nk, nv = _bf16(gen, b, kh, 1, d, device=cuda), _bf16(gen, b, kh, 1, d, device=cuda)
     (nkq, nks), (nvq, nvs) = quantize_kv(nk), quantize_kv(nv)
     rows = (torch.arange(b, device=cuda)[:, None], torch.arange(kh, device=cuda)[None, :], pos.long()[:, None])
@@ -169,7 +182,7 @@ def test_group_of_3_on_an_int8_cache_of_1022_rows(cuda):
     true = [t[:, :, :s].clone() for t in (kq, vq, ks, vs)]
     ref, kt, vt = fused_decode_attention_plain(q, nkq, nvq, true[0], true[1], pos, nks[..., 0], nvs[..., 0],
                                                true[2], true[3])
-    _check("fused decode g3 int8 S=1022", out, ref)
+    _check(f"fused decode g3 int8 S=1022 d{d}", out, ref)
     assert torch.equal(kc[:, :, :s], kt) and torch.equal(vc[:, :, :s], vt)
 
 

@@ -174,11 +174,11 @@ def test_engine_runs_the_kernels(cuda, name):
     (bf16 cache for head_dim 128, int8 for tiny); with the bf16 cache each
     served greedy token is within 5% of the logit scale of the best logit
     of a single-shot forward over prompt + tokens. The kernels refuse a
-    head dim above 128, the largest they are built for (a smaller one runs
+    head dim above 256, the largest they are built for (a smaller one runs
     padded: tests/test_torch_headdim_cuda.py), and f32 on the card."""
     cfg = llama.CONFIGS["tiny"] if name == "tiny" else llama.LlamaConfig(
         vocab_size=512, dim=512, n_layers=2, n_heads=4, n_kv_heads=2, hidden_dim=1024, max_seq_len=256)
-    for shape, dtype in (((1, 16, 4, 160), torch.bfloat16), ((1, 16, 4, 128), torch.float32)):
+    for shape, dtype in (((1, 16, 4, 288), torch.bfloat16), ((1, 16, 4, 128), torch.float32)):
         x = torch.zeros(shape, dtype=dtype, device=cuda)
         with pytest.raises(ValueError):
             flash_attention(x, x, x, True)

@@ -167,8 +167,8 @@ def test_params_policy():
     for layout in ("auto", "paged", "dense"):  # every layout is served; no key is the paged pool
         main.check_params({"kv_layout": layout})
     main.check_params({"spec_k": 4, "draft_model": "/models/draft"})  # served: speculative decoding
-    for params in ({"quantize": "w8a8"}, {"adapters": {"dir": "x"}},
-                   {"role": "prefill"}, {"attn_impl": "ring"}, {"attn_impl": "ulysses"}, {"baseModel": "m"}):
+    main.check_params({"adapters": {"dir": "x"}, "baseModel": "m"})  # served: multi-tenant adapters
+    for params in ({"quantize": "w8a8"}, {"role": "prefill"}, {"attn_impl": "ring"}, {"attn_impl": "ulysses"}):
         with pytest.raises(SystemExit, match="ROADMAP"):
             main.check_params(params)
     for params, match in (({"decode_attn_impl": "fused", "kv_layout": "paged"}, "requires kv_layout=dense"),
