@@ -12,6 +12,7 @@
     python3 chip_smoke.py --phases card,build,kernels,serve-families
     python3 chip_smoke.py --phases card,build,serve-batchgen
     python3 chip_smoke.py --phases card,build,kernels,serve-adapters
+    python3 chip_smoke.py --phases card,build,kernels,serve-moe
 
 Phases, each of which exits non-zero on failure:
 
@@ -317,6 +318,35 @@ Phases, each of which exits non-zero on failure:
               the cached flash (bf16, int8), the decode and fused decode
               (gemma-7b's heads, gemma-2b's G = 8), a group of 3 on the
               split design's 4-warp instance, dQ and dK/dV;
+  serve-moe   mixtral-8x7b at full width (D=4096, M=14336, 8 experts, top
+              2, 32 heads on 8 kv heads; seed-0 weights) in four legs: (a)
+              int4 at full depth, drawn and quantized layer by layer on the
+              card by serve.main (the peak while drawing printed beside the
+              weights), the default engine (the paged pool, overlapped, the
+              step one CUDA graph), 8 concurrent greedy requests of 20-400
+              tokens, 32 tokens each: every expert product one int4 launch
+              an expert, (4 + 3 x 8) x 32 + 1 = 897 launches a forward by
+              design (wgmma above 16 rows, decode up to it), every served
+              token by the teacher-forced reference, the eager synchronous
+              step token for token; (b) int8 at full depth on the dense
+              cache (max_batch 6): a 1500-token prompt in 3 chunks through
+              the cached flash and 5 short prompts through the flash
+              forward, the decode kernel's split design at G = 4, each 32
+              launches a forward, the same checks, the peak while serving;
+              (c) 2 layers at full width written by tools/ckpt_writer.py
+              as a Mixtral HF directory (6.33 GB of bf16) and served by
+              serve.main --model with int4 quantized at load, layer by
+              layer: every tensor bit for bit the writer's model quantized,
+              the load's seconds and its peak above the quantized model
+              (at most a dense layer's experts + 2 GiB), 2 requests by the
+              reference; (d) train.main on (c)'s directory, LoRA r16 on wq,
+              wv and the expert-routed w_gate/w_up/w_down, 2 x 512, 3
+              steps (capacity 160 an expert): finite losses, each layer's
+              moe_aux, the flash forward and backward launches, and before
+              it one step's gradients through the kernels against the
+              plain attention by the train phase's rule. With profile, a
+              400-token prefill and a full batch's step of (a) and (b)
+              under torch.profiler;
   profile     (only when named) host-clock prefill and decode-step times
               (the overlapped graph replays) and, under torch.profiler,
               their device busy time and top kernels, after serve
@@ -336,7 +366,8 @@ Phases, each of which exits non-zero on failure:
 
 The line before the last is one JSON object with every kernel's numbers
 (launches from the serve or train phase whose path runs the kernel, with
-serve-spec's, serve-surface's and serve-families' beside; the
+serve-spec's, serve-surface's, serve-families', serve-adapters' and
+serve-moe's beside; the
 int4 matmul's three designs are three entries, q4_matmul.cu's with no
 launch on the main path, and the cached flash's int8 route another); the
 last line
@@ -1160,11 +1191,14 @@ def kernel_phase():
         q4_case(gen, 1, 11008, compare=True),  # one decoding slot
         q4_case(gen, 16, 11008, compare=True),  # the 16-token prefill bucket
         q4_case(gen, 8, 128256, compare=True),  # llama3-8b's lm_head at B=8
+        q4_case(gen, 8, 14336, compare=True),  # a mixtral-8x7b expert's w_gate/w_up at B=8 (serve-moe)
+        q4_case(gen, 8, 4096, c=14336, compare=True),  # an expert's w_down at B=8
         q4_case(gen, 512, 11008),  # w_gate over a 512-token prefill bucket or chunk
         q4_case(gen, 128, 32000),  # the lm_head over a 128-token prefill bucket
         q4_case(gen, 512, 4096),  # wq/wk/wv/wo over a 512-row chunk
         q4_case(gen, 512, 4096, c=11008),  # w_down over a 512-row chunk
         q4_case(gen, 512, 32000),  # the lm_head over a 512-row chunk
+        q4_case(gen, 512, 14336),  # an expert's w_gate over a 512-row chunk (serve-moe)
         q4_case(gen, 32, 11008),  # w_gate over a 32-token bucket
         q4_case(gen, 24, 11008),  # w_gate of a width-1 round at B=24 (serve-spec)
         q4_case(gen, 96, 11008),  # w_gate of a width-4 verify at B=24
@@ -1998,10 +2032,12 @@ def int4_launches(engine, counters) -> dict:
     return launches
 
 
-def check_int4_launches(engine, stats, launches, lengths, label: str) -> None:
+def check_int4_launches(engine, stats, launches, lengths, label: str, per_layer: int = 7) -> None:
     """The int4 path's launches against what the requests' prompt lengths
-    (in tokens) and the engine's stats ask for: every projection and the
-    lm_head of every forward once through the int4 matmul, by design."""
+    (in tokens) and the engine's stats ask for: every projection (per_layer
+    a layer: 7 dense, 4 + 3 x E under a mixture of experts, one launch an
+    expert) and the lm_head of every forward once through the int4 matmul,
+    by design."""
     from substratus_tpu_torch.ops.quant4 import WGMMA_MIN_M
     from substratus_tpu_torch.serve.engine import _bucket
 
@@ -2026,8 +2062,9 @@ def check_int4_launches(engine, stats, launches, lengths, label: str) -> None:
     rows += [min(_bucket(min(chunk, n - o)), chunk) for n in lengths if n > chunk for o in range(0, n, chunk)]
     wide = sum(r > WGMMA_MIN_M for r in rows)
     attn = 0 if engine.paged else L
-    want = {"q4_matmul_decode": (7 * L + 1) * (forwards - wide), "q4_matmul": 0, "q4_matmul_wgmma": (7 * L + 1) * wide,
-            "q4_matmul_total": (7 * L + 1) * forwards, "flash_fwd": attn * stats["prefills"],
+    per_forward = per_layer * L + 1
+    want = {"q4_matmul_decode": per_forward * (forwards - wide), "q4_matmul": 0, "q4_matmul_wgmma": per_forward * wide,
+            "q4_matmul_total": per_forward * forwards, "flash_fwd": attn * stats["prefills"],
             "flash_cached": attn * stats["prefill_chunks"], "fused_decode": attn * stats["decode_steps"],
             "decode_attn": 0, "flash_fwd_wgmma": attn * stats["prefills"],
             "flash_cached_int8": attn * stats["prefill_chunks"], "fused_decode_split": attn * stats["decode_steps"]}
@@ -3671,6 +3708,47 @@ def _grad_cosine(grads, refs):
     return dot / max((n_g * n_ref) ** 0.5, 1e-30), worst_cos, worst_rel
 
 
+class pin_routing:
+    """Record a mixture of experts' routing (models/llama.py::route, each
+    call's top-k experts) in one pass, and replay it in the next: the
+    replaying pass takes the recorded experts, weighted by its own router
+    probabilities. Two correct bf16 paths (the attention kernels against
+    the plain attention) round a token's state differently, and where the
+    router's k-th and (k+1)-th probabilities nearly tie, one would pick
+    another expert (and under capacity dispatch drop other pairs): a
+    discrete change no gradient tolerance covers. Pinned, the two passes
+    differ only in the attention's rounding, which is what the gradient
+    check holds. Counts the choices the replaying pass would have made
+    otherwise."""
+
+    def __init__(self, llama_module):
+        self.module, self.route = llama_module, llama_module.route
+        self.seen, self.calls, self.flips, self.choices = [], 0, 0, 0
+
+    def start(self, replay: bool) -> None:
+        import torch
+
+        self.i = 0
+
+        def routed(h, router, k):
+            probs, top_w, top_idx = self.route(h, router, k)
+            if not replay:
+                self.seen.append(top_idx)
+                self.calls += 1
+                return probs, top_w, top_idx
+            pinned = self.seen[self.i]
+            self.i += 1
+            self.flips += int((torch.sort(top_idx, -1).values != torch.sort(pinned, -1).values).any(-1).sum())
+            self.choices += pinned[..., 0].numel()
+            w = probs.gather(-1, pinned)
+            return probs, w / w.sum(dim=-1, keepdim=True), pinned
+
+        self.module.route = routed
+
+    def stop(self) -> None:
+        self.module.route = self.route
+
+
 def grad_check(trainer, batch, label: str, twin_floor: bool = False) -> dict:
     """One step's gradients of the trainer's trainable tensors through the
     kernels and through attn_impl="plain" (same weights, same batch; OPT
@@ -3687,11 +3765,11 @@ def grad_check(trainer, batch, label: str, twin_floor: bool = False) -> dict:
 
     from substratus_tpu_torch.ops.attention import dot_product_attention
     from substratus_tpu_torch.ops.flash_attention import flash_attention_plain
-    from substratus_tpu_torch.train.trainer import cross_entropy_loss
 
     tokens = torch.from_numpy(np.asarray(batch["tokens"])).to(trainer.device, torch.long)
     weights = torch.from_numpy(batch["weights"]).to(trainer.device)
     cfg, kernel = trainer.cfg, getattr(trainer.model, "flash_attention", None)
+    pinned = pin_routing(trainer.model) if getattr(cfg, "n_experts", 0) > 0 else None
     swapped = {"plain": lambda q, k, v, causal: dot_product_attention(q, k, v, causal=causal),
                "twin": lambda q, k, v, causal: flash_attention_plain(q, k, v, causal)}
     grads = {}
@@ -3700,13 +3778,17 @@ def grad_check(trainer, batch, label: str, twin_floor: bool = False) -> dict:
             trainer.cfg = cfg.replace(attn_impl=impl)
         elif impl != "flash":
             trainer.model.flash_attention = swapped[impl]
+        if pinned is not None:
+            pinned.start(replay=impl != "flash")
         try:
-            loss = cross_entropy_loss(*trainer.loss_inputs(tokens, weights))
+            loss = trainer.loss(tokens, weights)  # the step's loss (a mixture of experts adds its aux)
             grads[impl] = torch.autograd.grad(loss, trainer.trainable)
         finally:
             trainer.cfg = cfg
             if kernel is not None:
                 trainer.model.flash_attention = kernel
+            if pinned is not None:
+                pinned.stop()
     all_cos, worst_cos, worst_rel = _grad_cosine(grads["flash"], grads["plain"])
     bar, twin = GRAD_COS_ALL, None
     if twin_floor:
@@ -3721,6 +3803,11 @@ def grad_check(trainer, batch, label: str, twin_floor: bool = False) -> dict:
     if all_cos < bar or worst_cos < GRAD_COS or worst_rel > GRAD_REL:
         fail(f"{label}: gradients through the kernels disagree with the plain path")
     out = {"cosine_all": all_cos, "worst_cosine": worst_cos, "worst_rel_err": worst_rel, "tensors": len(grads["flash"])}
+    if pinned is not None:
+        out["routing_flips"] = pinned.flips
+        print(f"{label}: the plain pass routed as the kernels' pass ({pinned.calls} router calls); left to itself it "
+              f"would have picked other experts for {pinned.flips} of {pinned.choices} (token, layer) choices",
+              flush=True)
     if twin:
         out.update(bar=bar, twin_cosine_all=twin[0], twin_worst_cosine=twin[1], twin_worst_rel_err=twin[2])
     return out
@@ -5143,13 +5230,381 @@ def serve_adapters_phase(card: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# --- serve-moe: mixtral-8x7b, served and finetuned ----------------------------
+
+MIXTRAL = ("mixtral-8x7b", (4096, 32, 32, 8, 32000))
+MIXTRAL_2L = ("mixtral-8x7b's width at 2 layers", (4096, 2, 32, 8, 32000))
+# (a) int4 weights drawn and quantized layer by layer on the card, the
+# default engine: the paged pool, overlapped, the step a CUDA graph.
+MOE_INT4_PARAMS = {"config": "mixtral-8x7b", "quantize": "int4", "max_batch": 8, "max_seq_len": 2048,
+                   "max_prefill_len": 512}
+MOE_INT4_PROMPTS = [(f"[{i}] " + _long_text(n - 5, 70 + i), 32, 0.0, i == 1)
+                    for i, n in enumerate((20, 48, 80, 130, 190, 250, 320, 400))]
+# (b) int8 weights on the dense cache: the flash forward, the cached flash
+# (a ~1500-token prompt in 3 chunks) and the decode kernel at GQA 4.
+MOE_INT8_PARAMS = {"config": "mixtral-8x7b", "quantize": "int8", "kv_layout": "dense", "kv_cache_dtype": "model",
+                   "max_batch": 6, "max_seq_len": 2048, "max_prefill_len": 512}
+MOE_INT8_PROMPTS = ([(_long_text(1499, 80), 32, 0.0, True)]
+                    + [(f"[{i}] " + _long_text(n - 5, 81 + i), 32, 0.0, False) for i, n in enumerate((16, 60, 100,
+                                                                                                      200, 300))])
+# (c) the loader: 2 layers at full width written as a Mixtral HF directory,
+# served by serve.main --model with int4 quantized at load; (d) LoRA on it.
+MOE_CKPT_PARAMS = {"quantize": "int4", "max_batch": 2, "max_seq_len": 1024, "max_prefill_len": 512}
+MOE_CKPT_PROMPTS = [("The experts route this prompt " * 4, 32, 0.0, False), ("x" * 300, 32, 0.0, True)]
+MOE_TRAIN_PARAMS = {"steps": 3, "batch_size": 2, "seq_len": 512, "lora_rank": 16, "lora_alpha": 16,
+                    "lora_targets": ["wq", "wv", "w_gate", "w_up", "w_down"], "learning_rate": 2e-4,
+                    "save_steps": 3, "remat": True, "seed": 0}
+
+
+# A mixture of experts in bf16 breaks the reference rule's premise: two
+# correct paths (the served chunks and decode steps against one single-shot
+# forward) round differently, a router near-tie then picks another expert
+# for a token in one layer, and that token's state moves by a whole expert's
+# output, in every later layer and, through its K and V, at every later
+# position. Dense bf16 and f32 MoE do not depart (the CPU: a dense model's
+# served tokens within the rule, an f32 MoE's the single-shot argmax every
+# one; bf16 MoE 10-16% of the logit scale off at a few positions). So the
+# served path is held token for token against the eager synchronous step
+# (eager_check) and, against the single-shot forward, as a share: at least
+# MOE_AGREE of the served greedy tokens within 5% of the logit scale of the
+# best logit. A wrong kernel, weight or cache gives a share near 0.
+MOE_AGREE = 0.75
+
+
+def moe_reference_check(engine, requests, label: str) -> dict:
+    """The served greedy tokens against one teacher-forced single-shot
+    forward each (long_reference_check's reference): the share within 5%
+    of the logit scale, at least MOE_AGREE; every logit finite."""
+    import torch
+
+    out, within, total = [], 0, 0
+    for req in requests:
+        prompt, toks = engine.clipped_prompt(req.prompt_tokens), req.out.tokens
+        with torch.inference_mode():
+            logits, _ = engine.model.forward(engine.params, torch.tensor([prompt + toks[:-1]], device=engine.device),
+                                             engine.cfg)
+        logits = logits[0, len(prompt) - 1:]
+        if not toks or not torch.isfinite(logits).all():
+            fail(f"{label}: no tokens or non-finite logits in the reference of a {len(prompt)}-token prompt")
+        scale = logits.abs().max().item()
+        gaps = (logits.max(dim=-1).values - logits[torch.arange(len(toks)), torch.tensor(toks)]) / scale
+        ok = int((gaps <= 0.05).sum())
+        first = next((i for i, g in enumerate(gaps.tolist()) if g > 0.05), None)
+        out.append({"prompt_tokens": len(prompt), "tokens": len(toks), "within": ok,
+                    "argmax_agree": sum(int(logits[i].argmax()) == t for i, t in enumerate(toks)),
+                    "first_departure": first, "worst_gap_share": gaps.max().item()})
+        within, total = within + ok, total + len(toks)
+    share = within / total
+    print(f"{label} reference: {within}/{total} served greedy tokens ({share:.3f}) within 5% of the logit scale of a "
+          f"single-shot forward's best logit (at least {MOE_AGREE}); per request (prompt tokens: within/tokens, first "
+          f"departure): " + ", ".join(f"{r['prompt_tokens']}: {r['within']}/{r['tokens']} {r['first_departure']}"
+                                        for r in out), flush=True)
+    if share < MOE_AGREE:
+        fail(f"{label}: {share:.3f} of the served tokens within the single-shot reference's 5%, below {MOE_AGREE}")
+    return {"share": share, "requests": out}
+
+
+def _moe_bytes(engine, peak: int) -> dict:
+    """Bytes on the card: the weights, the KV store, all allocated, and
+    the peak while the model was drawn (or loaded) and quantized."""
+    import torch
+
+    cache = engine.cache.values() if isinstance(engine.cache, dict) else ()
+    return {"weights": sum(t.numel() * t.element_size() for t in engine.params.state_dict().values()
+                           if torch.is_tensor(t)),
+            "kv": sum(t.numel() * t.element_size() for t in cache), "allocated": torch.cuda.memory_allocated(),
+            "peak_while_building": peak}
+
+
+def _free_card() -> None:
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def moe_int4_leg(card: str, profile_steps: bool) -> dict:
+    """(a) int4 mixtral-8x7b through serve.main on the default engine."""
+    import torch
+
+    from substratus_tpu_torch.ops.quant4 import Q4Tensor
+
+    label = "serve-moe (a) int4"
+    _free_card()
+    t0 = time.perf_counter()
+    server, engine, base = start_server("serve-moe-int4", MOE_INT4_PARAMS, model=MIXTRAL)
+    nbytes = _moe_bytes(engine, torch.cuda.max_memory_allocated())
+    lp = engine.params.layers[0]
+    if not engine.paged or not isinstance(lp.w_gate, Q4Tensor) or lp.w_gate.packed.shape != (8, 2048, 14336):
+        fail(f"{label}: not int4 experts on the paged pool: paged={engine.paged}, {type(lp.w_gate).__name__}")
+    print(f"{label}: drawn and quantized layer by layer and served in {time.perf_counter() - t0:.1f} s; bytes "
+          f"{nbytes}: the peak while building is the int4 model plus "
+          f"{(nbytes['peak_while_building'] - nbytes['weights']) / 2**30:.2f} GiB (one bf16 layer is 2.72 GiB)",
+          flush=True)
+    counters = int4_counters()
+    requests = tee_requests(engine)
+    try:
+        zero_counts(engine, counters.values())
+        results, wall = run_concurrent(base, MOE_INT4_PROMPTS)
+        wait_idle(engine)
+        launches = int4_launches(engine, counters)
+        stats = dict(engine.stats)
+    finally:
+        server.stop()
+    generated = check_usage(MOE_INT4_PROMPTS, results)
+    del engine.submit
+    check_graph_run(engine, stats, label)
+    E = engine.cfg.n_experts
+    check_int4_launches(engine, stats, launches, [len(text.encode()) + 1 for text, *_ in MOE_INT4_PROMPTS], label,
+                        per_layer=4 + 3 * E)
+    reference = moe_reference_check(engine, requests, label)
+    eager = eager_check(engine, requests, label)
+    profiled = profile_engine(engine, f"{label} profile", (16, 400)) if profile_steps else None
+    step_ms = 1e3 * stats["decode_seconds"] / stats["decode_steps"]
+    prefill_ms = 1e3 * stats["prefill_seconds"] / len(MOE_INT4_PROMPTS)
+    decode_tps = (generated - len(MOE_INT4_PROMPTS)) / stats["decode_seconds"]
+    print(f"{label} [{card}]: {len(MOE_INT4_PROMPTS)} concurrent requests, {generated} tokens in {wall:.2f} s; "
+          f"{stats['prefill_chunks']} prefill chunks, {stats['decode_steps']} decode steps; mean step {step_ms:.2f} ms "
+          f"(overlapped, the step one CUDA graph; {(4 + 3 * E) * 32 + 1} int4 launches a forward), mean prefill "
+          f"{prefill_ms:.1f} ms a request, decode {decode_tps:.1f} tokens/s; launches {launches}", flush=True)
+    del engine, server
+    _free_card()
+    return {"launches": launches, "stats": stats, "bytes": nbytes, "wall_s": wall, "generated": generated,
+            "step_ms": step_ms, "prefill_ms": prefill_ms, "decode_tokens_per_s": decode_tps, "reference": reference,
+            "eager_sync": eager, "profile": profiled}
+
+
+def moe_int8_leg(card: str, profile_steps: bool) -> dict:
+    """(b) int8 mixtral-8x7b on the dense cache: the attention kernels."""
+    import torch
+
+    from substratus_tpu_torch.ops.quant import QTensor
+
+    label = "serve-moe (b) int8 dense"
+    _free_card()
+    t0 = time.perf_counter()
+    server, engine, base = start_server("serve-moe-int8", MOE_INT8_PARAMS, model=MIXTRAL)
+    nbytes = _moe_bytes(engine, torch.cuda.max_memory_allocated())
+    if engine.paged or not isinstance(engine.params.layers[5].w_down, QTensor):
+        fail(f"{label}: not int8 experts on the dense cache")
+    print(f"{label}: built in {time.perf_counter() - t0:.1f} s; bytes {nbytes}", flush=True)
+    requests = tee_requests(engine)
+    try:
+        zero_counts(engine, _serving_counters())
+        torch.cuda.reset_peak_memory_stats()
+        results, wall = run_concurrent(base, MOE_INT8_PROMPTS)
+        wait_idle(engine)
+        serving_peak = torch.cuda.max_memory_allocated()
+        launches = _serving_launches(engine)
+        stats = dict(engine.stats)
+    finally:
+        server.stop()
+    generated = check_usage(MOE_INT8_PROMPTS, results)
+    del engine.submit
+    check_graph_run(engine, stats, label)
+    _check_serving_launches(launches, stats, engine.cfg.n_layers, label)
+    if (stats["prefill_chunks"], stats["prefills"]) != (3, 5):
+        fail(f"{label}: {stats['prefill_chunks']} chunks and {stats['prefills']} prefills, want 3 and 5")
+    reference = moe_reference_check(engine, requests, label)
+    eager = eager_check(engine, requests, label)
+    profiled = profile_engine(engine, f"{label} profile", (16, 512)) if profile_steps else None
+    step_ms = 1e3 * stats["decode_seconds"] / stats["decode_steps"]
+    prefill_ms = 1e3 * stats["prefill_seconds"] / len(MOE_INT8_PROMPTS)
+    decode_tps = (generated - len(MOE_INT8_PROMPTS)) / stats["decode_seconds"]
+    print(f"{label} [{card}]: {len(MOE_INT8_PROMPTS)} concurrent requests, {generated} tokens in {wall:.2f} s; "
+          f"{stats['prefills']} prefills, {stats['prefill_chunks']} chunks, {stats['decode_steps']} decode steps; "
+          f"mean step {step_ms:.2f} ms, mean prefill {prefill_ms:.1f} ms a request, decode {decode_tps:.1f} tokens/s; "
+          f"the peak while serving {serving_peak} bytes (the weights {nbytes['weights']}: the int8 experts' bf16 "
+          f"copies and the dropless intermediates above them); launches {launches}: the decode kernel at G = 4 "
+          f"(the split design) {launches['decode_attn_split']} times", flush=True)
+    del engine, server
+    _free_card()
+    return {"launches": launches, "stats": stats, "bytes": nbytes, "serving_peak": serving_peak, "wall_s": wall,
+            "generated": generated, "step_ms": step_ms, "prefill_ms": prefill_ms,
+            "decode_tokens_per_s": decode_tps, "reference": reference, "eager_sync": eager, "profile": profiled}
+
+
+def moe_ckpt_leg(card: str, tmp: Path) -> dict:
+    """(c) a Mixtral HF directory (2 layers at full width, seed 0, bf16)
+    written by tools/ckpt_writer.py and served by serve.main --model with
+    int4 quantized at load, layer by layer."""
+    import torch
+
+    from substratus_tpu_torch.models import llama
+    from substratus_tpu_torch.serve import main as serve_main
+    from substratus_tpu_torch.tools.ckpt_writer import write_hf
+
+    label = "serve-moe (c) loader"
+    cfg = llama.CONFIGS["mixtral-8x7b"].replace(n_layers=2)
+    _free_card()
+    source = llama.init_params(cfg, seed=0, device="cuda")
+    nbytes = sum(t.numel() * t.element_size() for t in source.state_dict().values())
+    disk_room(tmp, nbytes, label)
+    t0 = time.perf_counter()
+    written = write_hf(str(tmp / "mixtral"), source)
+    write_s = time.perf_counter() - t0
+    config = json.loads((tmp / "mixtral" / "config.json").read_text())
+    del source
+    _free_card()
+    print(f"{label}: written as {len(written['files'])} safetensors shards, {written['bytes']} bytes in "
+          f"{write_s:.1f} s; config.json model_type {config['model_type']}, {config['num_local_experts']} experts",
+          flush=True)
+    load, loads = serve_main.load_checkpoint, []
+
+    def timed(*args, **kw):  # the load's seconds and the card's peak during it
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_bytes = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        out = load(*args, **kw)
+        torch.cuda.synchronize()
+        loads.append((time.perf_counter() - t, torch.cuda.max_memory_allocated() - base_bytes))
+        return out
+
+    serve_main.load_checkpoint = timed
+    try:
+        server, engine, base = start_server("serve-moe-ckpt", MOE_CKPT_PARAMS, ["--model", str(tmp / "mixtral")],
+                                            model=MIXTRAL_2L)
+    finally:
+        serve_main.load_checkpoint = load
+    requests = tee_requests(engine)
+    try:
+        want = llama.init_params(cfg, seed=0, device="cuda", quantize="int4")  # = quantize(the written bf16)
+        compared = same_state(engine.params, want, label)
+        qbytes = sum(t.numel() * t.element_size() for t in want.state_dict().values() if torch.is_tensor(t))
+        del want
+        counters = int4_counters()
+        zero_counts(engine, counters.values())
+        results, wall = run_concurrent(base, MOE_CKPT_PROMPTS)
+        wait_idle(engine)
+        launches = int4_launches(engine, counters)
+        stats = dict(engine.stats)
+        del engine.submit
+    finally:
+        server.stop()
+    check_usage(MOE_CKPT_PROMPTS, results)
+    check_int4_launches(engine, stats, launches, [len(text.encode()) + 1 for text, *_ in MOE_CKPT_PROMPTS], label,
+                        per_layer=4 + 3 * cfg.n_experts)
+    reference = moe_reference_check(engine, requests, label)
+    load_s, load_peak = loads[0]
+    over = load_peak - qbytes
+    print(f"{label} [{card}]: loaded {written['bytes']} bytes of bf16 in {load_s:.2f} s "
+          f"({written['bytes'] / load_s / 1e9:.2f} GB/s) and quantized to int4 at load, {compared} bytes bit for "
+          f"bit quantize(the source); the load's peak {load_peak} bytes, {over} above the {qbytes} quantized "
+          f"({over / 2**30:.2f} GiB; one bf16 layer is {cfg.n_experts * 3 * cfg.dim * cfg.hidden_dim * 2 / 2**30:.2f} "
+          f"GiB of experts)", flush=True)
+    if over > 2 * 2**30 + cfg.n_experts * 3 * cfg.dim * cfg.hidden_dim * 2:
+        fail(f"{label}: the load's peak is {over} bytes above the quantized model, more than a dense layer + 2 GiB")
+    del engine, server
+    _free_card()
+    return {"bytes": written["bytes"], "write_s": write_s, "load_s": load_s, "load_peak_over_quantized": over,
+            "launches": launches, "stats": stats, "reference": reference, "wall_s": wall}
+
+
+def moe_train_leg(card: str, tmp: Path) -> dict:
+    """(d) LoRA r16 on wq, wv and the expert-routed w_gate/w_up/w_down
+    through train.main on (c)'s directory: capacity dispatch in every
+    forward, the router's aux in the loss, the gradients through the
+    kernels against the plain attention."""
+    import numpy as np
+    import torch
+
+    from substratus_tpu_torch.load.hf import load_pretrained
+    from substratus_tpu_torch.train.trainer import TrainConfig, Trainer
+    from substratus_tpu_torch.train import main as train_main
+
+    label = "serve-moe (d) LoRA"
+    _free_card()
+    _token_corpus(tmp / "moe-data", 32000, 100_000)
+    params_path = tmp / "moe-train.json"
+    params_path.write_text(json.dumps(MOE_TRAIN_PARAMS))
+    # One step's gradients through the kernels against the plain attention,
+    # on the checkpoint's weights, before the run.
+    cfg, params = load_pretrained(str(tmp / "mixtral"))
+    p = MOE_TRAIN_PARAMS
+    trainer = Trainer(cfg, TrainConfig(lora_rank=p["lora_rank"], lora_alpha=p["lora_alpha"],
+                                       lora_targets=tuple(p["lora_targets"]), remat=True), params=params)
+    rng = np.random.default_rng(1)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 512)).astype(np.int64),
+             "weights": np.ones((2, 512), np.float32)}
+    for layer in trainer.lora.layers:  # B away from zero, so that A has a gradient too
+        for ab in layer.values():
+            torch.nn.init.normal_(ab["b"], std=0.01)
+    grads = grad_check(trainer, batch, label)
+    with torch.no_grad():
+        _, kv = trainer.model.forward(trainer.params, torch.from_numpy(batch["tokens"]).cuda(), cfg, train=True)
+    aux = kv["moe_aux"].tolist()
+    capacity = max(1, int(cfg.capacity_factor * 512 * cfg.n_experts_per_token / cfg.n_experts))
+    del trainer, params, kv
+    _free_card()
+    _zero_train_counts()
+    t0 = time.perf_counter()
+    res = train_main.run(["--model", str(tmp / "mixtral"), "--data", str(tmp / "moe-data"), "--out",
+                          str(tmp / "moe-out"), "--params", str(params_path)])
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    train_launches = _train_launches()
+    n, L = len(res["losses"]), cfg.n_layers
+    want = {"flash_fwd": 2 * L * n, "flash_fwd_all": 2 * L * n, "flash_bwd_dq": L * n, "flash_bwd_dq_all": L * n,
+            "flash_bwd_dkv": L * n, "flash_bwd_dkv_all": L * n}
+    experts = res["trainer"].lora.layers[0]["w_gate"]["a"].shape
+    if n != p["steps"] or train_launches != want or not all(map(math.isfinite, res["losses"])) \
+            or tuple(experts) != (cfg.n_experts, cfg.dim, p["lora_rank"]):
+        fail(f"{label}: {n} steps, losses {res['losses']}, launches {train_launches} (want {want}), expert "
+             f"adapters {tuple(experts)}")
+    print(f"{label} [{card}]: train.main {n} steps of batch 2 x 512 (LoRA r16 on {','.join(p['lora_targets'])}, "
+          f"expert-routed pairs {tuple(experts)}, capacity {capacity} a expert) in {train_s:.1f} s: losses "
+          f"{[round(x, 4) for x in res['losses']]}, step {[round(x, 3) for x in res['step_seconds']]} s, peak "
+          f"{peak / 2**30:.1f} GiB, launches {train_launches}; moe_aux per layer {[round(a, 4) for a in aux]} "
+          f"(1.0 is balanced)", flush=True)
+    del res
+    _free_card()
+    return {"train_launches": train_launches, "grads": grads, "moe_aux": aux, "capacity": capacity,
+            "train_s": train_s, "peak_bytes": peak}
+
+
+def serve_moe_phase(card: str, profile_steps: bool = False) -> dict:
+    """mixtral-8x7b at full width: (a) int4 at full depth through serve.main
+    on the default engine, (b) int8 at full depth on the dense cache, (c) a
+    2-layer Mixtral HF directory quantized at load, (d) LoRA on it through
+    train.main (module docstring). Files live in a temporary directory
+    removed at the end."""
+    import tempfile
+
+    a = moe_int4_leg(card, profile_steps)
+    b = moe_int8_leg(card, profile_steps)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_moe_"))
+    try:
+        c = moe_ckpt_leg(card, tmp)
+        d = moe_train_leg(card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    la, lb, lc, ld = a["launches"], b["launches"], c["launches"], d["train_launches"]
+    launches = {"q4_matmul_decode": la["q4_matmul_decode"] + lc["q4_matmul_decode"],
+                "q4_matmul_wgmma": la["q4_matmul_wgmma"] + lc["q4_matmul_wgmma"],
+                "q4_matmul": la["q4_matmul"] + lc["q4_matmul"],
+                "flash_fwd_wgmma": lb["flash_fwd_wgmma"] + ld["flash_fwd"],
+                "flash_cached_wgmma": lb["flash_cached_wgmma"], "decode_attn_split": lb["decode_attn_split"],
+                "flash_bwd_dq": ld["flash_bwd_dq"], "flash_bwd_dkv": ld["flash_bwd_dkv"]}
+    print(f"serve-moe: launches over its legs {launches}", flush=True)
+    return {"int4": a, "int8": b, "ckpt": c, "train": d, "launches": launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default="card,build,kernels,serve,serve-long,serve-int4,serve-paged,serve-spec,"
                                         "serve-ckpt,serve-surface,train,train-full,serve-families,serve-batchgen,"
-                                        "serve-adapters")
+                                        "serve-adapters,serve-moe")
     phases = ap.parse_args().phases.split(",")
     t_start = time.perf_counter()
+    phase_s = {}
+
+    def timed(name, fn, *args, **kw):  # a phase's seconds, printed at the end
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        phase_s[name] = round(time.perf_counter() - t0, 1)
+        return out
 
     import torch
 
@@ -5169,36 +5624,40 @@ def main() -> int:
         kernels.library()
         print(f"build: {time.perf_counter() - t0:.1f} s (nvcc {kernels.build_seconds} s)", flush=True)
     if "kernels" in phases:
-        report["kernels"] = kernel_phase()
+        report["kernels"] = timed("kernels", kernel_phase)
     if "serve" in phases:
-        report["serve"] = serve_phase(card, profile_steps="profile" in phases)
+        report["serve"] = timed("serve", serve_phase, card, profile_steps="profile" in phases)
     if "serve-long" in phases:
-        report["serve-long"] = serve_long_phase(card, profile_steps="profile" in phases)
+        report["serve-long"] = timed("serve-long", serve_long_phase, card, profile_steps="profile" in phases)
     if "serve-int4" in phases:
-        report["serve-int4"] = serve_int4_phase(card, profile_steps="profile" in phases)
+        report["serve-int4"] = timed("serve-int4", serve_int4_phase, card, profile_steps="profile" in phases)
     if "serve-paged" in phases:
-        report["serve-paged"] = serve_paged_phase(card, report.get("serve", {}).get("step_ms"),
-                                                  profile_steps="profile" in phases)
+        report["serve-paged"] = timed("serve-paged", serve_paged_phase, card, report.get("serve", {}).get("step_ms"),
+                                      profile_steps="profile" in phases)
     if "serve-spec" in phases:
-        report["serve-spec"] = serve_spec_phase(card, profile_steps="profile" in phases)
+        report["serve-spec"] = timed("serve-spec", serve_spec_phase, card, profile_steps="profile" in phases)
     if "serve-ckpt" in phases:
-        report["serve-ckpt"] = serve_ckpt_phase(card)
+        report["serve-ckpt"] = timed("serve-ckpt", serve_ckpt_phase, card)
     if "serve-surface" in phases:
         lookup = report.get("serve-spec", {}).get("lookup")
         spec_step = (lookup["spec"]["round_ms"], lookup["plain"]["round_ms"]) if lookup else None
-        report["serve-surface"] = serve_surface_phase(card, spec_step)
+        report["serve-surface"] = timed("serve-surface", serve_surface_phase, card, spec_step)
     if "train" in phases:
-        report["train"] = train_phase(card, profile_steps="profile" in phases)
+        report["train"] = timed("train", train_phase, card, profile_steps="profile" in phases)
     if "train-full" in phases:
-        report["train-full"] = train_full_phase(card, profile_steps="profile" in phases)
+        report["train-full"] = timed("train-full", train_full_phase, card, profile_steps="profile" in phases)
     if "serve-families" in phases:
-        report["serve-families"] = serve_families_phase(card)
+        report["serve-families"] = timed("serve-families", serve_families_phase, card)
     if "serve-batchgen" in phases:
-        report["serve-batchgen"] = serve_batchgen_phase(card)
+        report["serve-batchgen"] = timed("serve-batchgen", serve_batchgen_phase, card)
     if "serve-adapters" in phases:
-        report["serve-adapters"] = serve_adapters_phase(card)
+        report["serve-adapters"] = timed("serve-adapters", serve_adapters_phase, card)
+    if "serve-moe" in phases:
+        report["serve-moe"] = timed("serve-moe", serve_moe_phase, card, profile_steps="profile" in phases)
     report["wall_s"] = time.perf_counter() - t_start
-    print(f"chip_smoke: phases {','.join(phases)} in {report['wall_s']:.1f} s", flush=True)
+    report["phase_s"] = phase_s
+    print(f"chip_smoke: phases {','.join(phases)} in {report['wall_s']:.1f} s; seconds by phase {phase_s}",
+          flush=True)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
@@ -5266,6 +5725,9 @@ def main() -> int:
         families_launches_of = report.get("serve-families", {}).get("launches", {})
         # serve-adapters (b)'s (int4 weights, the dense cache, the tenants' deltas on top).
         adapters_launches_of = report.get("serve-adapters", {}).get("launches_b", {})
+        # serve-moe's (mixtral-8x7b: (a) int4 paged, (b) int8 dense, (c) the
+        # 2-layer checkpoint at int4, (d) its LoRA steps), by design.
+        moe_launches_of = report.get("serve-moe", {}).get("launches", {})
         line = []
         for name, cases in report["kernels"].items():
             main_case = cases[0]  # the main path's shape
@@ -5276,6 +5738,7 @@ def main() -> int:
                 "launches_serve_surface": surface_launches_of.get(phase_of[name][1]),
                 "launches_serve_families": families_launches_of.get(phase_of[name][1]),
                 "launches_serve_adapters": adapters_launches_of.get(phase_of[name][1]),
+                "launches_serve_moe": moe_launches_of.get(phase_of[name][1]),
                 "max_abs_err": main_case["max_abs_err"], "ms": main_case["ms"],
                 "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
                 "bound_by": main_case["bound_by"], "library_ms": main_case["library_ms"],

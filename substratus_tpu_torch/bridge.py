@@ -16,6 +16,11 @@ as the float32 numpy tree ``serve.adapters.AdapterStore.install`` takes,
 and ``adapter_store_from_jax`` carries a JAX AdapterStore's slots (host
 buffers and ids) into the port's store.
 
+A mixture of experts' leaves carry over the same way: the router [L, D,
+E] and the experts [L, E, D, M] / [L, E, M, D] split on their layer axis
+into each block's [D, E] and [E, ...], and expert-routed LoRA pairs [L, E,
+in, r] / [L, E, r, out] into each layer's [E, in, r] / [E, r, out].
+
 Quantized leaves carry over as they are: an int4 ``Q4Tensor`` as its
 ``packed`` bytes, ``scale`` and (as the module's extra state) its
 ``pack_axis`` and ``block``; an int8 ``QTensor`` as ``q`` and ``scale``.

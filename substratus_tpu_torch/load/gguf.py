@@ -258,11 +258,17 @@ def _hf_name(gname: str) -> Optional[str]:
 def config_from_gguf(path: str, meta: Dict[str, Any], infos: List[GGUFTensor],
                      dtype: torch.dtype = torch.bfloat16) -> LlamaConfig:
     """The LlamaConfig of a llama-architecture file (the Llama/Mistral
-    GGUF ecosystem); other architectures and rope scaling raise."""
+    GGUF ecosystem); other architectures, rope scaling and a mixture of
+    experts raise (the JAX GGUF loader maps no expert tensors either: a
+    Mixtral loads from its HF directory)."""
     arch = meta.get("general.architecture")
     if arch != "llama":
         raise ValueError(f"{path}: gguf architecture {arch!r} unsupported (llama only)")
     p = "llama."
+    if int(meta.get(p + "expert_count", 0) or 0) > 0:
+        raise ValueError(f"{path}: a mixture-of-experts GGUF (expert_count={meta[p + 'expert_count']}) is not "
+                         "mapped (the GGUF loader maps dense llama tensors, as the JAX package's does); load "
+                         "the model's HF directory")
     scaling = meta.get(p + "rope.scaling.type")
     if scaling and scaling != "none":
         # loud-not-silent: serving to an extended context with unscaled

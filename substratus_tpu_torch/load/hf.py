@@ -1,7 +1,7 @@
 """HuggingFace checkpoint import (port of substratus_tpu/load/hf.py): a
 local directory (``config.json`` beside safetensors or torch ``.bin``
-files) of a Llama-family (llama, mistral), OPT or Falcon model loaded into
-the family's module (models/registry.py) on its device.
+files) of a Llama-family (llama, mistral, mixtral), OPT or Falcon model
+loaded into the family's module (models/registry.py) on its device.
 
 safetensors are read by a parser of the format written here (the card's
 machine has no ``safetensors`` package): an 8-byte little-endian header
@@ -17,8 +17,14 @@ convert_falcon_state_dict) one tensor at a time: each HF tensor goes to
 the model's device, is transposed there into the port's einsum layout (HF
 Linear [out, in] -> [in, ...out]; Falcon's fused query_key_value split per
 kv group into [G q | k | v]) and copied into the allocated model, rounding
-to its dtype (as the JAX converter's asarray does). The refusals of
-config_from_hf_opt and config_from_hf_falcon exit with the JAX messages.
+to its dtype (as the JAX converter's asarray does); Mixtral's experts go
+expert by expert into the stacked [E, ...] weights, with no whole-tensor
+transient. With ``quantize`` (int8 or int4, llama only) the layers are
+staged dense one at a time and quantized as each completes, so the peak is
+the quantized model plus about one dense layer, not the dense model: the
+bytes are those of loading dense and then quantizing, as the JAX entry
+point does. The refusals of config_from_hf_opt and config_from_hf_falcon
+exit with the JAX messages.
 The JAX loader's hub fallback is not ported: the port loads local
 checkpoints only.
 """
@@ -26,6 +32,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import struct
 from types import SimpleNamespace
 from typing import Any, Dict, Iterable, Tuple
@@ -37,21 +44,16 @@ from torch import nn
 
 from substratus_tpu_torch.models import registry
 from substratus_tpu_torch.models.falcon import FalconConfig
+from substratus_tpu_torch.models import llama
 from substratus_tpu_torch.models.llama import LlamaConfig
 from substratus_tpu_torch.models.opt import OPTConfig
 from substratus_tpu_torch.utils.device import DeviceLike, resolve_device
 
-OTHER_FAMILIES = "ROADMAP Queue 1, other families (MoE)"
-
-
 def config_from_hf(hf_cfg: Any, dtype: torch.dtype = torch.bfloat16) -> LlamaConfig:
-    """Map a transformers Llama/Mistral config (or a namespace of its
-    config.json) to LlamaConfig; a mixture-of-experts config exits (the
-    port has no MoE)."""
+    """Map a transformers Llama/Mistral/Mixtral config (or a namespace of
+    its config.json) to LlamaConfig, the MoE fields as the JAX package maps
+    them."""
     get = lambda name, default=None: getattr(hf_cfg, name, default)  # noqa: E731
-    if get("num_local_experts"):
-        raise SystemExit(f"HF config with num_local_experts={get('num_local_experts')} (mixture of experts) is not "
-                         f"served by the PyTorch port yet: {OTHER_FAMILIES}")
     return LlamaConfig(
         vocab_size=hf_cfg.vocab_size,
         dim=hf_cfg.hidden_size,
@@ -64,6 +66,9 @@ def config_from_hf(hf_cfg: Any, dtype: torch.dtype = torch.bfloat16) -> LlamaCon
         norm_eps=get("rms_norm_eps", 1e-5),
         max_seq_len=get("max_position_embeddings", 4096),
         tie_embeddings=bool(get("tie_word_embeddings", False)),
+        n_experts=get("num_local_experts", 0) or 0,
+        n_experts_per_token=get("num_experts_per_tok", 2) or 2,
+        router_aux_weight=get("router_aux_loss_coef", 0.01) or 0.01,
         dtype=dtype,
     )
 
@@ -128,7 +133,12 @@ HF_LAYER = {
     "mlp.gate_proj.weight": ("w_gate", True),
     "mlp.up_proj.weight": ("w_up", True),
     "mlp.down_proj.weight": ("w_down", True),
+    # Mixtral: the router; experts.N.{w1,w3,w2} are HF_EXPERT's
+    "block_sparse_moe.gate.weight": ("router", True),
 }
+# Mixtral's expert weights [out, in] -> (the port's stacked weight, expert).
+HF_EXPERT = re.compile(r"block_sparse_moe\.experts\.(\d+)\.(w[123])\.weight")
+HF_EXPERT_NAMES = {"w1": "w_gate", "w3": "w_up", "w2": "w_down"}
 
 
 # HF OPT names (without "model.decoder." or "decoder."): the decoder's
@@ -179,12 +189,12 @@ def hf_layout(cfg) -> Tuple[Tuple[str, ...], str, Dict[str, Tuple[str, bool]], D
     return ("model.",), "layers", HF_TOP, HF_LAYER
 
 
-def port_name(hf_name: str, cfg) -> Tuple[str, bool] | None:
+def port_name(hf_name: str, cfg) -> Tuple[str, bool, int | None] | None:
     """(the port's state_dict name, whether the HF tensor is transposed
-    into it) of an HF tensor name of the config's family; None for a
-    tensor the model does not hold (rotary tables, a tied lm_head and the
-    like) and for Falcon's fused query_key_value (copy_hf_state splits
-    it)."""
+    into it, the expert it fills of a stacked expert weight or None) of an
+    HF tensor name of the config's family; None for a tensor the model
+    does not hold (rotary tables, a tied lm_head and the like) and for
+    Falcon's fused query_key_value (copy_hf_state splits it)."""
     prefixes, layers, top, layer = hf_layout(cfg)
     name = hf_name
     for prefix in prefixes:
@@ -192,11 +202,15 @@ def port_name(hf_name: str, cfg) -> Tuple[str, bool] | None:
             name = name.removeprefix(prefix)
             break
     if name in top:
-        return top[name]
+        return (*top[name], None)
     parts = name.split(".", 2)
-    if len(parts) == 3 and parts[0] == layers and parts[2] in layer:
-        port, transposed = layer[parts[2]]
-        return f"layers.{parts[1]}.{port}", transposed
+    if len(parts) == 3 and parts[0] == layers:
+        if parts[2] in layer:
+            port, transposed = layer[parts[2]]
+            return f"layers.{parts[1]}.{port}", transposed, None
+        expert = HF_EXPERT.fullmatch(parts[2]) if getattr(cfg, "n_experts", 0) > 0 else None
+        if expert:
+            return f"layers.{parts[1]}.{HF_EXPERT_NAMES[expert[2]]}", True, int(expert[1])
     return None
 
 
@@ -210,23 +224,79 @@ def falcon_qkv(w: torch.Tensor, cfg: FalconConfig) -> Dict[str, torch.Tensor]:
             "wv": grouped[:, -1].reshape(KH * hd, -1).t()}
 
 
+class _Staging:
+    """Dense staging of a llama model laid out quantized (llama.Llama(cfg,
+    quantize=...)): every tensor of a layer (norms and router too) lands in
+    a dense LlamaBlock, and the lm_head in a dense tensor, which is
+    quantized into the model as soon as its last tensor arrives and
+    replaces the model's (uninitialized) storage."""
+
+    def __init__(self, model: nn.Module, quantize: str):
+        self.model, self.quantize, self.cfg = model, quantize, model.cfg
+        self.layer_axes = llama._layer_contracting(self.cfg)
+        self.blocks: Dict[str, Tuple[nn.Module, set]] = {}  # "layers.i" or "" -> (dense owner, names to fill)
+
+    def target(self, name: str) -> torch.Tensor:
+        """The dense tensor `name` (a quantized weight's) fills."""
+        owner, _, attr = name.rpartition(".")
+        if owner not in self.blocks:
+            if owner:
+                block = llama.LlamaBlock(self.cfg, self.model.device)
+                self.blocks[owner] = (block, set(dict(block.named_parameters())))
+            else:
+                dense = llama._weight((self.cfg.dim, self.cfg.vocab_size), self.cfg, self.model.device)
+                self.blocks[owner] = (nn.ParameterDict({attr: dense}), {attr})
+        return getattr(self.blocks[owner][0], attr) if owner else self.blocks[owner][0][attr]
+
+    def done(self, name: str) -> None:
+        """`name`'s tensor is in: quantize and install its owner once full."""
+        owner, _, attr = name.rpartition(".")
+        block, todo = self.blocks[owner]
+        todo.discard(attr)
+        if todo:
+            return
+        del self.blocks[owner]
+        if owner:
+            llama._quantize_module(block, self.quantize, self.layer_axes, self.cfg)
+            self.model.layers[int(owner.split(".")[1])] = block
+        else:
+            w = llama.quantize_leaf(block[attr], llama.quant_contracting(self.cfg)["lm_head"], self.quantize)
+            delattr(self.model, attr)
+            setattr(self.model, attr, w)
+
+
 @torch.no_grad()
-def copy_hf_state(model: nn.Module, items: Iterable[Tuple[str, torch.Tensor]]) -> None:
+def copy_hf_state(model: nn.Module, items: Iterable[Tuple[str, torch.Tensor]], quantize: str = "none") -> None:
     """Copy (HF name, tensor) pairs into `model` (any family's module; the
     names those of model.cfg's family), each as it comes: moved to the
     model's device, transposed there into the port's layout, and rounded to
-    the model's dtype. Raises KeyError naming every weight of the model
-    that no item filled."""
-    state = model.state_dict(keep_vars=True)
+    the model's dtype; an expert's tensor into its slice of the stacked
+    weight. With quantize (a llama model laid out by Llama(cfg,
+    quantize=quantize)), each layer is staged dense and quantized when its
+    last tensor arrives (_Staging). Raises KeyError naming every weight of
+    the model that no item filled."""
     cfg = model.cfg
-    filled = set()
+    state = model.state_dict(keep_vars=True)
+    stage = _Staging(model, quantize) if quantize != "none" else None
+    experts = getattr(cfg, "n_experts", 0)
+    wanted = {name for name in state if not name.endswith("._extra_state")}
+    if stage is not None:  # a quantized weight is wanted by its dense name
+        wanted = {name.rsplit(".", 1)[0] if name.endswith((".packed", ".q", ".scale")) else name
+                  for name in wanted}
+    filled: Dict[str, set] = {}
 
-    def put(name: str, hf_name: str, w: torch.Tensor) -> None:
-        target = state[name]
+    def put(name: str, hf_name: str, w: torch.Tensor, expert: int | None = None) -> None:
+        staged = stage is not None and (name.startswith("layers.") or name not in state)
+        target = stage.target(name) if staged else state[name]
+        if expert is not None:
+            target = target[expert]
         if target.numel() != w.numel():
             raise ValueError(f"{hf_name}: shape {tuple(w.shape)} does not fit {name} {tuple(target.shape)}")
         target.view(w.shape).copy_(w)
-        filled.add(name)
+        got = filled.setdefault(name, set())
+        got.add(expert)
+        if staged and (expert is None or len(got) == experts):
+            stage.done(name)
 
     for hf_name, w in items:
         if registry.family_of(cfg) == "falcon" and hf_name.endswith(FALCON_QKV):
@@ -235,14 +305,18 @@ def copy_hf_state(model: nn.Module, items: Iterable[Tuple[str, torch.Tensor]]) -
                 put(f"layers.{layer}.{port}", hf_name, part)
             continue
         found = port_name(hf_name, cfg)
-        if found is None or found[0] not in state:
+        if found is None or found[0] not in wanted:
             continue
-        name, transposed = found
-        w = w.to(state[name].device)
-        put(name, hf_name, w.t() if transposed else w)
-    missing = sorted(set(state) - filled)
+        name, transposed, expert = found
+        w = w.to(model.tok_embed.device)
+        put(name, hf_name, w.t() if transposed else w, expert)
+    missing = sorted(name for name in wanted if name not in filled
+                     or (name.rsplit(".", 1)[-1] in llama.EXPERT_WEIGHTS and experts
+                         and len(filled[name]) != experts))
     if missing:
         raise KeyError(f"the checkpoint has no tensor for {missing}")
+    if stage is not None and stage.blocks:
+        raise KeyError(f"the checkpoint left {sorted(stage.blocks)} incomplete")
 
 
 # safetensors dtypes the port reads -> (numpy dtype of the bytes, torch view)
@@ -296,13 +370,15 @@ def is_hf_dir(path: str) -> bool:
 _HF_CONFIGS = {"llama": config_from_hf, "opt": config_from_hf_opt, "falcon": config_from_hf_falcon}
 
 
-def load_pretrained(path: str, dtype: torch.dtype = torch.bfloat16,
-                    device: DeviceLike = None) -> Tuple[Any, nn.Module]:
-    """A local HF directory of the llama, OPT or Falcon family -> (config,
-    the family's module on `device`), cuda unless the caller asks for the
-    CPU. Exits for any other path (the port reads no hub), for other
-    model types, for mixture-of-experts configs and for the OPT and Falcon
-    variants the JAX converters refuse."""
+def load_pretrained(path: str, dtype: torch.dtype = torch.bfloat16, device: DeviceLike = None,
+                    quantize: str = "none") -> Tuple[Any, nn.Module]:
+    """A local HF directory of the llama (Mixtral included), OPT or Falcon
+    family -> (config, the family's module on `device`), cuda unless the
+    caller asks for the CPU; a llama model quantized at load with
+    quantize="int8"|"int4" (layer by layer: copy_hf_state; another family
+    loads dense, its caller says it skips the quantization). Exits for any
+    other path (the port reads no hub), for other model types and for the
+    OPT and Falcon variants the JAX converters refuse."""
     if not is_hf_dir(path):
         raise SystemExit(f"{path}: not a local checkpoint; the PyTorch port loads local checkpoints only (a "
                          "directory with config.json, a .gguf file or a port artifact), with no download")
@@ -315,6 +391,9 @@ def load_pretrained(path: str, dtype: torch.dtype = torch.bfloat16,
         raise SystemExit(f"{path}: unsupported HF model_type {model_type!r} (supported: "
                          f"{sorted(registry.HF_MODEL_TYPES)})")
     cfg = _HF_CONFIGS[family](SimpleNamespace(**raw), dtype)
-    model = registry.MODEL_CLASSES[family](cfg, device=device)
-    copy_hf_state(model, _state_items(path))
+    if not getattr(registry.module_for(family), "SUPPORTS_QUANTIZE", False):
+        quantize = "none"
+    model = (llama.Llama(cfg, device=device, quantize=quantize) if quantize != "none"
+             else registry.MODEL_CLASSES[family](cfg, device=device))
+    copy_hf_state(model, _state_items(path), quantize)
     return cfg, model

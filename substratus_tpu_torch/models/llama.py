@@ -1,8 +1,10 @@
-"""Llama model family (port of substratus_tpu/models/llama.py), dense
-configurations.
+"""Llama model family (port of substratus_tpu/models/llama.py): dense
+configurations and the Mixtral-style mixture of experts.
 
 The weights keep the JAX package's einsum layouts (wq [D, H, hd], wo
-[H, hd, D], w_gate [D, M], ...), one ``LlamaBlock`` per layer in an
+[H, hd, D], w_gate [D, M], ...; with ``n_experts`` a dense router [D, E]
+and experts w_gate/w_up [E, D, M], w_down [E, M, D]), one ``LlamaBlock``
+per layer in an
 ``nn.ModuleList`` where the JAX tree stacks layers on a leading axis
 (bridge.params_from_jax splits it). Dense projections and the lm_head are
 plain ``torch.matmul``; a quantized one (``quantize_weights``: int8
@@ -14,6 +16,15 @@ update_cache_and_attend ``decode_attention`` or ``fused_decode_attention``
 for decode steps and ``flash_cached_attention`` for the chunks of a long
 prompt, chosen by ``attn_impl`` / ``decode_attn_impl`` /
 ``chunk_attn_impl``.
+
+``_moe_ffn`` is the JAX package's routed FFN: the router in f32, a
+softmax and top-k (ties to the lower expert, as lax.top_k), the Switch
+load-balancing aux; serving runs every expert for every token and mixes
+them by the renormalised top-k weights (exact, static shapes: the decode
+step stays one CUDA graph), training the GShard capacity dispatch, which
+drops the pairs past an expert's capacity. An int4 expert weight runs one
+launch of the int4 kernel an expert (ops/quant4.py's expert route). The
+gating is plain torch ops, as it is XLA ops in JAX: MoE adds no kernel.
 
 ``forward`` also trains: with ``lora`` it adds the adapters' low-rank
 updates (ops/basics.py::lora_delta), with ``remat`` it recomputes each
@@ -44,8 +55,8 @@ from substratus_tpu_torch.ops.basics import lora_delta, lora_delta_indexed, rms_
 from substratus_tpu_torch.ops.decode_attention import update_cache_and_attend
 from substratus_tpu_torch.ops.flash_attention import flash_attention
 from substratus_tpu_torch.ops.fused_decode import cache_layout
-from substratus_tpu_torch.ops.quant import QTensor, qeinsum, quantize_params
-from substratus_tpu_torch.ops.quant4 import Q4Tensor, quantize4_params
+from substratus_tpu_torch.ops.quant import QTensor, _einsum, qeinsum, quantize
+from substratus_tpu_torch.ops.quant4 import Q4Tensor, quantize4
 from substratus_tpu_torch.utils.device import DeviceLike, resolve_device, seeded_generator
 
 Cache = Dict[str, torch.Tensor]
@@ -77,9 +88,14 @@ class LlamaConfig:
     # ops/flash_attention.py's cached kernel on the card, "plain" =
     # dequantize + ops/attention.py reference.
     chunk_attn_impl: str = "flash"
-    # Mixture-of-experts (Mixtral family): not ported yet, so these
-    # configs raise.
+    # Mixture-of-experts (Mixtral family): n_experts == 0 means the dense
+    # MLP; else routed top-k (_moe_ffn), dropless when serving and with
+    # GShard capacity dispatch when training. The trainer adds
+    # router_aux_weight x the mean load-balancing aux to the loss.
     n_experts: int = 0
+    n_experts_per_token: int = 2
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
 
     @property
     def head_size(self) -> int:
@@ -117,16 +133,12 @@ CONFIGS: Dict[str, LlamaConfig] = {
     "mixtral-8x7b": LlamaConfig(
         vocab_size=32000, dim=4096, n_layers=32, n_heads=32, n_kv_heads=8,
         hidden_dim=14336, rope_theta=1000000.0, max_seq_len=32768,
-        n_experts=8,
+        n_experts=8, n_experts_per_token=2,
     ),
 }
 
 
-def _check_dense(cfg) -> None:
-    if getattr(cfg, "n_experts", 0) > 0:
-        raise NotImplementedError(
-            "mixture-of-experts llama configs are not ported yet: ROADMAP Queue 1"
-        )
+EXPERT_WEIGHTS = ("w_gate", "w_up", "w_down")  # [E, ...] under n_experts > 0
 
 
 def quant_contracting(cfg: LlamaConfig) -> Dict:
@@ -134,11 +146,14 @@ def quant_contracting(cfg: LlamaConfig) -> Dict:
     quantize4_params); () = dense. Axes are for the JAX package's STACKED
     layer leaves (leading layer dim), e.g. wq [L, d, h, k] contracts d=1;
     the port's per-layer weights contract one axis lower
-    (_layer_contracting). The scales come out per output channel. Dense
-    configurations only (the JAX function's expert entries wait for MoE)."""
-    _check_dense(cfg)
+    (_layer_contracting). The scales come out per output channel; expert
+    weights carry a leading expert dim, so they contract one axis later,
+    and the router stays dense."""
+    moe = cfg.n_experts > 0
     layers = {"attn_norm": (), "wq": (1,), "wk": (1,), "wv": (1,), "wo": (1, 2), "mlp_norm": (),
-              "w_gate": (1,), "w_up": (1,), "w_down": (1,)}
+              **{name: (2,) if moe else (1,) for name in EXPERT_WEIGHTS}}
+    if moe:
+        layers["router"] = ()
     q = {"tok_embed": (), "layers": layers, "out_norm": ()}
     if not cfg.tie_embeddings:
         q["lm_head"] = (0,)
@@ -150,7 +165,7 @@ def _layer_contracting(cfg: LlamaConfig) -> Dict[str, Tuple[int, ...]]:
     return {name: tuple(c - 1 for c in axes) for name, axes in quant_contracting(cfg)["layers"].items()}
 
 
-QUANTIZE_MODES = {"int8": (QTensor, quantize_params), "int4": (Q4Tensor, quantize4_params)}
+QUANTIZE_MODES = {"int8": (QTensor, quantize), "int4": (Q4Tensor, quantize4)}  # (storage, leaf quantizer)
 
 
 def _check_quantize(quantize: str) -> None:
@@ -169,9 +184,13 @@ class LlamaBlock(nn.Module):
 
     def __init__(self, cfg: LlamaConfig, device: torch.device, quantize: str = "none"):
         super().__init__()
-        D, H, KH, hd, M = cfg.dim, cfg.n_heads, cfg.n_kv_heads, cfg.head_size, cfg.hidden_dim
+        D, H, KH, hd, M, E = cfg.dim, cfg.n_heads, cfg.n_kv_heads, cfg.head_size, cfg.hidden_dim, cfg.n_experts
         shapes = {"attn_norm": (D,), "wq": (D, H, hd), "wk": (D, KH, hd), "wv": (D, KH, hd),
-                  "wo": (H, hd, D), "mlp_norm": (D,), "w_gate": (D, M), "w_up": (D, M), "w_down": (M, D)}
+                  "wo": (H, hd, D), "mlp_norm": (D,)}
+        if E > 0:
+            shapes.update({"router": (D, E), "w_gate": (E, D, M), "w_up": (E, D, M), "w_down": (E, M, D)})
+        else:
+            shapes.update({"w_gate": (D, M), "w_up": (D, M), "w_down": (M, D)})
         contracting = _layer_contracting(cfg)
         for name, shape in shapes.items():
             setattr(self, name, _weight(shape, cfg, device, quantize, contracting[name]))
@@ -185,7 +204,6 @@ class Llama(nn.Module):
 
     def __init__(self, cfg: LlamaConfig, device: DeviceLike = None, quantize: str = "none"):
         super().__init__()
-        _check_dense(cfg)
         _check_quantize(quantize)
         device = resolve_device(device)
         self.cfg = cfg
@@ -201,12 +219,19 @@ class Llama(nn.Module):
 
 
 @torch.no_grad()
-def init_params(cfg: LlamaConfig, seed: int = 0, device: DeviceLike = None) -> Llama:
+def init_params(cfg: LlamaConfig, seed: int = 0, device: DeviceLike = None, quantize: str = "none") -> Llama:
     """Random init on `device` from a seeded torch.Generator: truncated
     normal in [-2, 2] scaled by fan_in^-0.5 (the JAX init's distribution,
-    not its numbers), norms at 1."""
-    params = Llama(cfg, device)
-    gen = seeded_generator(seed, params.device)
+    not its numbers), norms at 1. quantize="int8"|"int4" draws and
+    quantizes one layer at a time (then the lm_head), so the peak is the
+    quantized model plus one dense layer: mixtral-8x7b's 93 GB of bf16
+    never stands on the card. The draws are the same in either case, so
+    the result is quantize_weights(init_params(cfg, seed), quantize) bit
+    for bit."""
+    _check_quantize(quantize)
+    params = Llama(cfg, device, quantize)
+    device = params.device
+    gen = seeded_generator(seed, device)
 
     def dense(w: torch.Tensor, fan_in: int) -> None:
         tmp = torch.empty(w.shape, dtype=torch.float32, device=w.device)
@@ -215,30 +240,65 @@ def init_params(cfg: LlamaConfig, seed: int = 0, device: DeviceLike = None) -> L
 
     D, H, hd, M = cfg.dim, cfg.n_heads, cfg.head_size, cfg.hidden_dim
     dense(params.tok_embed, D)
-    for lp in params.layers:
+    for i in range(cfg.n_layers):
+        # Quantized storage is replaced by a dense block before the draw.
+        lp = params.layers[i] if quantize == "none" else LlamaBlock(cfg, device)
+        params.layers[i] = lp
         lp.attn_norm.fill_(1.0)
         lp.mlp_norm.fill_(1.0)
         dense(lp.wq, D)
         dense(lp.wk, D)
         dense(lp.wv, D)
         dense(lp.wo, H * hd)
+        if cfg.n_experts > 0:
+            dense(lp.router, D)
         dense(lp.w_gate, D)
         dense(lp.w_up, D)
         dense(lp.w_down, M)
+        _quantize_module(lp, quantize, _layer_contracting(cfg), cfg)
     params.out_norm.fill_(1.0)
     if not cfg.tie_embeddings:
+        if quantize != "none":
+            delattr(params, "lm_head")
+            params.lm_head = _weight((D, cfg.vocab_size), cfg, device)
         dense(params.lm_head, D)
+        _quantize_module(params, quantize, {"lm_head": quant_contracting(cfg)["lm_head"]}, cfg)
     return params
 
 
-def _quantize_module(module: nn.Module, qfn, contracting: Dict[str, Tuple[int, ...]]) -> None:
+def quantize_leaf(w: torch.Tensor, axes: Tuple[int, ...], quantize: str, experts: bool = False):
+    """w quantized along `axes` as QUANTIZE_MODES[quantize]'s quantizer
+    does; an expert weight [E, ...] (experts=True) one expert at a time
+    into storage allocated once, so the f32 transients are one expert's
+    (the bytes are the same: every scale is per expert)."""
+    cls, qfn = QUANTIZE_MODES[quantize]
+    if not experts:
+        return qfn(w, axes)
+    out = cls.empty(tuple(w.shape), axes, w.device)
+    for e in range(w.shape[0]):
+        part = qfn(w[e:e + 1], axes)
+        for name, buf in part.named_buffers():
+            getattr(out, name)[e:e + 1].copy_(buf)
+        if isinstance(part, Q4Tensor):
+            out.pack_axis, out.block = part.pack_axis, part.block
+    return out
+
+
+def _quantize_module(module: nn.Module, quantize: str, contracting: Dict[str, Tuple[int, ...]],
+                     cfg: LlamaConfig) -> None:
     """Replace `module`'s dense weights named in `contracting` by their
-    quantized form; the dense copies are freed on return."""
-    dense = {name: getattr(module, name) for name, axes in contracting.items()
-             if axes and not isinstance(getattr(module, name), (QTensor, Q4Tensor))}
-    for name, q in qfn(dense, {name: contracting[name] for name in dense}).items():
+    quantized form ("none" keeps them); the dense copies are freed on
+    return."""
+    if quantize == "none":
+        return
+    for name, axes in contracting.items():
+        w = getattr(module, name)
+        if not axes or isinstance(w, (QTensor, Q4Tensor)):
+            continue
+        q = quantize_leaf(w, axes, quantize, experts=cfg.n_experts > 0 and name in EXPERT_WEIGHTS)
         delattr(module, name)
         setattr(module, name, q)
+        del w
 
 
 @torch.no_grad()
@@ -246,16 +306,13 @@ def quantize_weights(params: Llama, quantize: str) -> Llama:
     """Turn an initialized Llama's weights into int8 QTensors or int4
     Q4Tensors in place ("none" keeps them dense), one layer at a time, so
     each layer's dense copy is freed before the next is quantized: no
-    dense transient beside the quantized model. tok_embed and the norms
-    stay dense; quantized weights pass as they are."""
+    dense transient beside the quantized model. tok_embed, the norms and
+    the router stay dense; quantized weights pass as they are."""
     _check_quantize(quantize)
-    if quantize == "none":
-        return params
-    qfn = QUANTIZE_MODES[quantize][1]
-    layer = _layer_contracting(params.cfg)
+    cfg = params.cfg
     for lp in params.layers:
-        _quantize_module(lp, qfn, layer)
-    _quantize_module(params, qfn, {"lm_head": quant_contracting(params.cfg).get("lm_head", ())})
+        _quantize_module(lp, quantize, _layer_contracting(cfg), cfg)
+    _quantize_module(params, quantize, {"lm_head": quant_contracting(cfg).get("lm_head", ())}, cfg)
     return params
 
 
@@ -385,12 +442,13 @@ def _block(
     lora_scale: float = 1.0,
     block_table: Optional[torch.Tensor] = None,  # [B, M]: layer_cache is a page pool
     adapter_ids: Optional[torch.Tensor] = None,  # [B]: lora_layer is slot-stacked
+    train: bool = False,  # MoE: capacity dispatch (train) vs exact dropless (serving)
 ) -> Tuple[torch.Tensor, Cache]:
     """One transformer block. Returns (x_out, kv): the fresh {k, v}
-    entries without a cache (prefill), else the updated layer cache. With
-    adapter_ids the adapters carry a leading slot axis (serve/adapters.py)
-    and every row gathers its own pair: one forward serves a mixed-tenant
-    batch."""
+    entries without a cache (prefill; with experts also this layer's
+    "moe_aux"), else the updated layer cache. With adapter_ids the
+    adapters carry a leading slot axis (serve/adapters.py) and every row
+    gathers its own pair: one forward serves a mixed-tenant batch."""
     lora = lora_layer if lora_layer is not None else {}
 
     def delta(name: str, inp: torch.Tensor, lora_eq: str) -> torch.Tensor:
@@ -427,10 +485,84 @@ def _block(
         o = o + delta("wo", attn.flatten(2), "bsr,rd->bsd")
     x = x + o
     h = rms_norm(x, lp.mlp_norm, cfg.norm_eps)
+    if cfg.n_experts > 0:
+        y, aux = _moe_ffn(h, lp, cfg, train, lora, lora_scale)
+        if layer_cache is None:  # the prefill and training forwards report the aux
+            kv = {**kv, "moe_aux": aux}
+        return x + y, kv
     gate = proj("w_gate", h, "bsd,dm->bsm", "bsr,rm->bsm")
     up = proj("w_up", h, "bsd,dm->bsm", "bsr,rm->bsm")
     x = x + proj("w_down", swiglu(gate, up), "bsm,md->bsd", "bsr,rd->bsd")
     return x, kv
+
+
+def route(h: torch.Tensor, router: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(probs [B, S, E] f32, top_w [B, S, k] renormalised, top_idx [B, S,
+    k]) of the router over post-norm h, in f32 as the JAX package routes.
+    The top k by a stable descending sort: equal probabilities take the
+    lower expert first, as lax.top_k orders them."""
+    probs = torch.softmax(torch.matmul(h.float(), router.float()), dim=-1)
+    top_w, top_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_w, top_idx = top_w[..., :k], top_idx[..., :k]
+    return probs, top_w / top_w.sum(dim=-1, keepdim=True), top_idx
+
+
+def _moe_ffn(
+    h: torch.Tensor,  # [B, S, D] (post-norm)
+    lp: LlamaBlock,
+    cfg: LlamaConfig,
+    train: bool,
+    lora: Optional[Dict] = None,  # this layer's adapters; expert-routed pairs a [E, in, r], b [E, r, out]
+    lora_scale: float = 1.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Routed top-k expert FFN (Mixtral), the JAX package's _moe_ffn:
+    (output [B, S, D] in cfg.dtype, the Switch load-balancing aux, a f32
+    scalar). train=False: exact dropless top-k, every expert over every
+    token mixed by the routing weights (static shapes; decode streams
+    every expert's weights whatever the routing). train=True: GShard
+    capacity dispatch over the flattened (token, choice) pairs in JAX's
+    order, the pairs past an expert's capacity dropped."""
+    dt = cfg.dtype
+    b, s, d = h.shape
+    E, k = cfg.n_experts, cfg.n_experts_per_token
+    lora = lora or {}
+
+    def eproj(name: str, x: torch.Tensor, eq_w: str, eq_a: str, eq_b: str) -> torch.Tensor:
+        out = qeinsum(eq_w, x, getattr(lp, name), dt)
+        if name in lora:
+            down = _einsum(eq_a, x, lora[name]["a"].to(dt))
+            out = out + _einsum(eq_b, down, lora[name]["b"].to(dt)) * lora_scale
+        return out
+
+    probs, top_w, top_idx = route(h, lp.router, k)
+    # Switch-style aux: the share of tokens whose first choice is each
+    # expert times its mean router probability, scaled by E.
+    assigned = torch.zeros_like(probs).scatter_(-1, top_idx[..., :1], 1.0)
+    aux = (assigned.mean(dim=(0, 1)) * probs.mean(dim=(0, 1))).sum() * E
+
+    if not train:
+        w_full = torch.zeros_like(probs).scatter_(-1, top_idx, top_w)  # [B, S, E]
+        gate = eproj("w_gate", h, "bsd,edm->bsem", "bsd,edr->bser", "bser,erm->bsem")
+        up = eproj("w_up", h, "bsd,edm->bsem", "bsd,edr->bser", "bser,erm->bsem")
+        out = eproj("w_down", swiglu(gate, up), "bsem,emd->bsed", "bsem,emr->bser", "bser,erd->bsed")
+        return _einsum("bsed,bse->bsd", out, w_full.to(dt)).to(dt), aux
+
+    t = s * k
+    capacity = max(1, int(cfg.capacity_factor * s * k / E))
+    flat = torch.zeros((b, s, k, E), dtype=torch.float32, device=h.device)
+    flat = flat.scatter_(-1, top_idx[..., None], 1.0).reshape(b, t, E)  # (token, choice) pairs
+    pos = torch.cumsum(flat, dim=1) - flat  # arrival order per expert
+    keep = (pos < capacity).float() * flat  # [B, T, E]
+    slots = torch.arange(capacity, device=h.device, dtype=pos.dtype)
+    dispatch = keep[..., None] * (pos[..., None] == slots).float()  # [B, T, E, C]
+    combine = dispatch * top_w.reshape(b, t)[..., None, None]
+    h_rep = h.repeat_interleave(k, dim=1)  # [B, T, D], the pairs' order
+    expert_in = _einsum("btec,btd->ebcd", dispatch.to(dt), h_rep)  # [E, B, C, D]
+    gate = eproj("w_gate", expert_in, "ebcd,edm->ebcm", "ebcd,edr->ebcr", "ebcr,erm->ebcm")
+    up = eproj("w_up", expert_in, "ebcd,edm->ebcm", "ebcd,edr->ebcr", "ebcr,erm->ebcm")
+    out = eproj("w_down", swiglu(gate, up), "ebcm,emd->ebcd", "ebcm,emr->ebcr", "ebcr,erd->ebcd")
+    y = _einsum("ebcd,btec->btd", out, combine.to(dt))  # [B, T, D]
+    return y.reshape(b, s, k, d).sum(dim=2).to(dt), aux
 
 
 def forward(
@@ -445,13 +577,16 @@ def forward(
     lora=None,  # {"layers": per-layer adapters (train/lora.py), "scale": alpha / rank}
     adapter_ids: Optional[torch.Tensor] = None,  # [B]: `lora` is an AdapterStore's slot-stacked tree
     remat: bool = False,  # recompute each block in the backward (training memory saver)
-    train: bool = False,  # a training forward: no cache fragment (MoE's dispatch is not ported)
+    train: bool = False,  # a training forward: no cache fragment; MoE's capacity dispatch
 ) -> Tuple[torch.Tensor, Cache]:
     """Returns (logits [B, S, vocab] float32, kv).
 
     Without cache (prefill): kv = fresh entries {k, v: [L, B, S, KH, hd]},
     the fragment the engine inserts into a slot cache; a training forward
     (train=True) returns no fragment (kv = {}), which nothing reads there.
+    With experts, either also holds "moe_aux" [L], each layer's
+    load-balancing aux (the trainer adds router_aux_weight x its mean;
+    the engine ignores it), as the JAX forward returns it.
     With cache: tokens are written at `positions` and attention runs over
     the cache (with block_table, over each row's pages gathered through
     it); kv is the same (updated) cache dict. With adapter_ids, `lora`
@@ -461,13 +596,12 @@ def forward(
     Autograd records the call unless the caller turns it off (serving runs
     it under torch.inference_mode()); gradients reach what requires them:
     the adapters in `lora`, or the weights the trainer unfroze."""
-    _check_dense(cfg)
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
     x = params.tok_embed[tokens.long()].to(cfg.dtype)
     x, kv = run_layers(_block, params, x, positions, cfg, cache, kv_length, lora, remat, train, block_table,
-                       adapter_ids)
+                       adapter_ids, train)
     x = rms_norm(x, params.out_norm, cfg.norm_eps)
     head = params.tok_embed.t() if cfg.tie_embeddings else params.lm_head
     return project("bsd,dv->bsv", x, head, cfg).float(), kv
@@ -479,10 +613,11 @@ def run_layers(block, params, x, positions, cfg, cache, kv_length, lora, remat: 
     params.layers, each with its slice of the stacked cache and its
     adapters, recomputed in the backward with remat. Returns (x, kv): the
     cache when given, {} when training, else the prefill fragment {k, v:
-    [L, B, S, KH, hd]}."""
+    [L, B, S, KH, hd]}; without a cache, the blocks' "moe_aux" stacked
+    [L] beside (a mixture of experts' load-balancing aux)."""
     lora_layers = lora["layers"] if lora is not None else None
     lora_scale = lora["scale"] if lora is not None else 1.0
-    fresh = []
+    fresh, aux = [], []
     for i, lp in enumerate(params.layers):
         layer_cache = None if cache is None else {name: t[i] for name, t in cache.items()}
         args = (x, lp, positions, cfg, layer_cache, kv_length,
@@ -492,13 +627,16 @@ def run_layers(block, params, x, positions, cfg, cache, kv_length, lora, remat: 
             x, kv = checkpoint(block, *args, use_reentrant=False, preserve_rng_state=False)
         else:
             x, kv = block(*args)
+        if cache is None and "moe_aux" in kv:
+            aux.append(kv["moe_aux"])
         if cache is None and not train:
             fresh.append(kv)
     if cache is not None:
         return x, cache
-    if train:
-        return x, {}
-    return x, {name: torch.stack([kv[name] for kv in fresh]) for name in ("k", "v")}
+    out = {} if train else {name: torch.stack([kv[name] for kv in fresh]) for name in ("k", "v")}
+    if aux:
+        out["moe_aux"] = torch.stack(aux)
+    return x, out
 
 
 def decode_step(

@@ -69,7 +69,9 @@ def qeinsum(eq: str, x: torch.Tensor, w: Any, dtype: torch.dtype = torch.bfloat1
 
     For a QTensor whose scale is constant along every contracted dim
     (per-output-channel, what quantize() produces), the scale commutes out
-    of the contraction: einsum(x, q) * scale. Falls back to
+    of the contraction: einsum(x, q) * scale (with a leading expert axis
+    of the weight kept in the output, one such product an expert, stacked
+    on that axis). Falls back to
     dequant-then-dot when the scale varies along a contracted dim, and to
     a plain einsum for dense weights; a Q4Tensor goes to q4einsum."""
     if isinstance(w, Q4Tensor):
@@ -77,10 +79,21 @@ def qeinsum(eq: str, x: torch.Tensor, w: Any, dtype: torch.dtype = torch.bfloat1
     if not isinstance(w, QTensor):
         return _einsum(eq, x, materialize(w, dtype))
     ins, out = eq.split("->")
-    _, wsub = ins.split(",")
+    xsub, wsub = ins.split(",")
     for i, letter in enumerate(wsub):
         if letter not in out and w.scale.shape[i] != 1:
             return _einsum(eq, x, w.dequant(dtype))
+    e = wsub[0]
+    if e in out and xsub.count(e) <= 1:
+        # A leading kept axis of the weight (a mixture of experts' expert
+        # axis): one product an expert, so that each expert's bf16 copy is
+        # an expert's (117 MB at mixtral-8x7b's width, not 940) and the
+        # einsum never lays the whole weight out again.
+        sub_out = out.replace(e, "")
+        sub = f"{xsub.replace(e, '')},{wsub[1:]}->{sub_out}"
+        ys = [_einsum(sub, x if e not in xsub else x.select(xsub.index(e), i), w.q[i].to(dtype))
+              * _scale_for_out(w.scale[i], wsub[1:], sub_out).to(dtype) for i in range(w.q.shape[0])]
+        return torch.stack(ys, dim=out.index(e))
     y = _einsum(eq, x, w.q.to(dtype))
     return y * _scale_for_out(w.scale, wsub, out).to(dtype)
 

@@ -23,9 +23,13 @@ launch, ``launches_decode``, ``launches_wgmma`` and ``launches_mma`` those
 of each design. ``q4einsum`` routes every dense-layer projection
 (wq/wk/wv, wo, gate/up/down, lm_head) through them, with the weight
 checked once per pair of buffers (``q4_operands``) and a call's Python
-kept to the activation's checks and the launch; an equation that does not
-fit dequantizes and runs a plain einsum on the CPU, as in the JAX package,
-and raises on the card.
+kept to the activation's checks and the launch. A mixture of experts'
+einsums (the weight [E, C/2, N] with a leading kept expert letter) run
+one launch an expert, each expert's slice checked once as well, where the
+JAX package dequantizes every expert and runs XLA's einsum: the same
+function, without 25 GB of dequantized weights a step at mixtral-8x7b's
+width. Any other equation that does not fit dequantizes and runs a plain
+einsum on the CPU, as in the JAX package, and raises on the card.
 
 The card runs a kernel for every M >= 1, where the JAX package gives
 M < 8 to its XLA formula because of the TPU's tiling; the math is the same.
@@ -75,7 +79,7 @@ class Q4Tensor(nn.Module):
         self.register_buffer("scale", scale)
         self.pack_axis = pack_axis
         self.block = block
-        self._operands = None  # q4_operands' checked views of the buffers
+        self._operands = None  # q4_operands' checked views of the buffers: (packed, scale, {key: views})
 
     def _apply(self, fn, *args, **kwargs):
         self._operands = None  # .to() and the like make new buffers: drop the old ones' views
@@ -295,23 +299,28 @@ def check_weight(packed: torch.Tensor, scale: torch.Tensor, block: int) -> None:
 check_weight.calls = 0  # weights checked (once per weight on the model's path)
 
 
-def q4_operands(w: Q4Tensor, nc: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def q4_operands(w: Q4Tensor, nc: int, expert: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """w's packed [C/2, N] and scale [C/block, N] as the kernels take them
-    (nc contracted dims flattened into C), checked by check_weight once
-    per pair of buffers: the views are kept on w and reused while its
-    buffers are the same tensors. ``.to()`` (Q4Tensor._apply), an
-    assignment or load_state_dict(assign=True) gives new buffers, which are
-    checked again; an in-place load_state_dict keeps buffers and layout."""
+    (nc contracted dims flattened into C; of w[expert] for a stacked
+    expert weight [E, ...]), checked by check_weight once per pair of
+    buffers: the views are kept on w and reused while its buffers are the
+    same tensors. ``.to()`` (Q4Tensor._apply), an assignment or
+    load_state_dict(assign=True) gives new buffers, which are checked
+    again; an in-place load_state_dict keeps buffers and layout."""
     cached = w._operands
-    if cached is None or cached[0] is not w.packed or cached[1] is not w.scale or cached[2] != nc:
+    if cached is None or cached[0] is not w.packed or cached[1] is not w.scale:
+        cached = w._operands = (w.packed, w.scale, {})
+    views = cached[2].get((nc, expert))
+    if views is None:
+        packed, scale = (w.packed, w.scale) if expert is None else (w.packed[expert], w.scale[expert])
         c = 1
-        for d in w.packed.shape[:nc]:
+        for d in packed.shape[:nc]:
             c *= d
-        p2 = w.packed.reshape(c, -1)
-        s2 = w.scale.reshape(-1, p2.shape[1])
+        p2 = packed.reshape(c, -1)
+        s2 = scale.reshape(-1, p2.shape[1])
         check_weight(p2, s2, w.block)
-        cached = w._operands = (w.packed, w.scale, nc, p2, s2)
-    return cached[3], cached[4]
+        views = cached[2][(nc, expert)] = (p2, s2)
+    return views
 
 
 def _launch(x2: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor, block: int) -> torch.Tensor:
@@ -397,26 +406,34 @@ def _contracted_count(eq: str, pack_dim: int) -> int:
     return nc if ok else 0
 
 
+@functools.lru_cache(maxsize=None)
+def _expert_split(eq: str, pack_dim: int) -> Optional[Tuple[str, int, int, int]]:
+    """(the equation of one expert, x's axis of the expert letter or -1,
+    the output's axis of it, the per-expert contracted count) when `eq`'s
+    weight leads with a kept letter (an expert axis, kept in the output)
+    and the equation without it takes q4einsum's matmul path: the MoE
+    expert einsums "bsd,edm->bsem", "bsem,emd->bsed", "ebcd,edm->ebcm" and
+    "ebcm,emd->ebcd". Else None."""
+    ins, out = eq.split("->")
+    xsub, wsub = ins.split(",")
+    e = wsub[0]
+    if e not in out or pack_dim < 1 or xsub.count(e) > 1:
+        return None
+    sub = f"{xsub.replace(e, '')},{wsub[1:]}->{out.replace(e, '')}"
+    nc = _contracted_count(sub, pack_dim - 1)
+    return (sub, xsub.find(e), out.index(e), nc) if nc else None
+
+
 def _einsum(eq: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """torch.einsum with jnp.einsum's type promotion of mixed operands."""
     ct = torch.promote_types(x.dtype, w.dtype)
     return torch.einsum(eq, x.to(ct), w.to(ct))
 
 
-def q4einsum(eq: str, x: torch.Tensor, w: Q4Tensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """einsum(eq, x, w) for a nibble-packed int4 weight: x's contracted
-    dims flatten into C (for wo, "bshk,hkd->bsd", C = H * hd, folded along
-    hd) and go through q4_matmul. An equation that does not fit (the MoE
-    expert einsums) dequantizes and runs a plain einsum on CPU tensors, as
-    the JAX package does, and raises on the card, where every projection
-    must reach the kernel."""
-    nc = _contracted_count(eq, w.pack_axis % w.packed.ndim)
-    if not nc:
-        if x.device.type != "cpu":
-            raise ValueError(f"q4einsum: {eq!r} with the weight packed along axis {w.pack_axis} does not "
-                             "fit the int4 kernel (contracted dims trailing in x and leading in w, the "
-                             "pack axis the last of them)")
-        return _einsum(eq, x, w.dequant(dtype))
+def _q4_matmul_nd(x: torch.Tensor, w: Q4Tensor, nc: int, dtype: torch.dtype, expert: Optional[int] = None):
+    """x's trailing nc dims contracted with w (or w[expert]) through
+    q4_matmul: the plain version on the CPU, one launch on the card."""
+    packed, scale = (w.packed, w.scale) if expert is None else (w.packed[expert], w.scale[expert])
     batch_shape = x.shape[:-nc]
     m = 1
     for d in batch_shape:
@@ -426,7 +443,32 @@ def q4einsum(eq: str, x: torch.Tensor, w: Q4Tensor, dtype: torch.dtype = torch.b
         c *= d
     x2 = x.reshape(m, c).to(dtype)
     if x2.device.type == "cpu":
-        y = q4_matmul_plain(x2, w.packed.reshape(c // 2, -1), w.scale.reshape(c // w.block, -1), w.block)
+        y = q4_matmul_plain(x2, packed.reshape(c // 2, -1), scale.reshape(c // w.block, -1), w.block)
     else:
-        y = _launch(x2, *q4_operands(w, nc), w.block)
-    return y.reshape(*batch_shape, *w.packed.shape[nc:]).to(dtype)
+        y = _launch(x2, *q4_operands(w, nc, expert), w.block)
+    return y.reshape(*batch_shape, *packed.shape[nc:])
+
+
+def q4einsum(eq: str, x: torch.Tensor, w: Q4Tensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """einsum(eq, x, w) for a nibble-packed int4 weight: x's contracted
+    dims flatten into C (for wo, "bshk,hkd->bsd", C = H * hd, folded along
+    hd) and go through q4_matmul. The MoE expert einsums (_expert_split)
+    run one q4_matmul an expert, stacked on the expert axis. An equation
+    that fits neither dequantizes and runs a plain einsum on CPU tensors,
+    as the JAX package does, and raises on the card, where every
+    projection must reach the kernel."""
+    pack_dim = w.pack_axis % w.packed.ndim
+    nc = _contracted_count(eq, pack_dim)
+    if nc:
+        return _q4_matmul_nd(x, w, nc, dtype).to(dtype)
+    split = _expert_split(eq, pack_dim)
+    if split is not None:
+        _, x_axis, out_axis, nc = split
+        ys = [_q4_matmul_nd(x if x_axis < 0 else x.select(x_axis, e), w, nc, dtype, e)
+              for e in range(w.packed.shape[0])]
+        return torch.stack(ys, dim=out_axis).to(dtype)
+    if x.device.type != "cpu":
+        raise ValueError(f"q4einsum: {eq!r} with the weight packed along axis {w.pack_axis} does not "
+                         "fit the int4 kernel (contracted dims trailing in x and leading in w, the "
+                         "pack axis the last of them, after at most one leading expert axis)")
+    return _einsum(eq, x, w.dequant(dtype))

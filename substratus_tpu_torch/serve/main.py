@@ -258,12 +258,16 @@ def check_params(params: Dict[str, Any]) -> None:
             raise SystemExit(f"params.json: unknown key {key!r}")
 
 
-def load_checkpoint(path: str, device=None, dtype=torch.bfloat16) -> Tuple[Any, Any]:
+def load_checkpoint(path: str, device=None, dtype=torch.bfloat16, quantize: str = "none") -> Tuple[Any, Any]:
     """(cfg, model on `device`) of a checkpoint path, by the JAX entry
     point's rule: a .gguf file (or a directory holding one), then the
     port's own artifact, then a local HF directory. A JAX Orbax artifact
     exits: reading it needs JAX and Orbax. `dtype` applies to GGUF and HF
-    checkpoints; an artifact keeps the dtype it was saved in."""
+    checkpoints; an artifact keeps the dtype it was saved in. With
+    quantize, an HF llama checkpoint is quantized as it loads, layer by
+    layer (a Mixtral's dense bf16 would not fit the card); the caller
+    quantizes the others after loading (quantize_weights), which gives the
+    same bytes."""
     from substratus_tpu_torch.load.gguf import load_gguf, resolve_gguf_or_exit
     from substratus_tpu_torch.load.hf import load_pretrained
     from substratus_tpu_torch.train.checkpoints import FORMAT, META_FILE, load_artifact
@@ -280,7 +284,7 @@ def load_checkpoint(path: str, device=None, dtype=torch.bfloat16) -> Tuple[Any, 
                              f"'substratus-tpu-v1', their weights need JAX and Orbax to read); the PyTorch port "
                              f"serves its own artifacts ({FORMAT!r}), GGUF files and local HF directories")
         return load_artifact(path, device=device)
-    return load_pretrained(path, dtype=dtype, device=device)
+    return load_pretrained(path, dtype=dtype, device=device, quantize=quantize)
 
 
 def build_adapter_store(family, cfg, params_json: Dict[str, Any], adapters_dir_flag: Optional[str], device):
@@ -382,14 +386,16 @@ def load_model(model_flag: Optional[str], config_flag: Optional[str], params_jso
     serve/batchgen.py) load it: (cfg, params, tokenizer, name, family,
     quantize). A checkpoint (resolve_model_path) or a named config with
     random weights from seed 0; llama takes the attention knobs of
-    params.json and is quantized on its device, layer by layer; another
-    family says which knobs it skips (quantize becomes "none")."""
+    params.json and is quantized on its device, layer by layer (drawn or
+    loaded so: the dense model never stands whole, as mixtral-8x7b's could
+    not); another family says which knobs it skips (quantize becomes
+    "none")."""
     from substratus_tpu_torch.models import registry
     from substratus_tpu_torch.serve.tokenizer import load_tokenizer
 
     model_path = resolve_model_path(model_flag, params_json)
     if model_path:
-        cfg, params = load_checkpoint(model_path, device)
+        cfg, params = load_checkpoint(model_path, device, quantize=quantize)
         name = os.path.basename(os.path.normpath(model_path))
         tokenizer = load_tokenizer(model_path)
         check_vocab(tokenizer, cfg)
@@ -399,7 +405,9 @@ def load_model(model_flag: Optional[str], config_flag: Optional[str], params_jso
         tokenizer = load_tokenizer(None)
         if cfg.vocab_size < tokenizer.vocab_size:
             cfg = cfg.replace(vocab_size=tokenizer.vocab_size)
-        params = registry.module_of(cfg).init_params(cfg, seed=0, device=device)
+        family = registry.module_of(cfg)
+        drawn = {"quantize": quantize} if getattr(family, "SUPPORTS_QUANTIZE", False) else {}
+        params = family.init_params(cfg, seed=0, device=device, **drawn)
     family = registry.module_of(cfg)
     # The attention switches and quantized weights are llama's alone.
     if getattr(family, "SUPPORTS_QUANTIZE", False):
@@ -485,7 +493,7 @@ def build(argv=None):
         side = torch.cuda.Stream(device) if device.type == "cuda" else None
         try:
             with torch.cuda.stream(side) if side is not None else contextlib.nullcontext():
-                _, new_params = load_checkpoint(ref, device)
+                _, new_params = load_checkpoint(ref, device, quantize=quantize if llama_knobs else "none")
                 if llama_knobs:
                     new_params = family.quantize_weights(new_params, quantize)
         except SystemExit as e:  # a file this port cannot load: the swap is refused

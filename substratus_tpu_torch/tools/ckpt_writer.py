@@ -2,7 +2,9 @@
 any family written as a local HF directory (config.json with
 transformers' keys and safetensors shards under its names, with their
 index; Falcon's q, k and v fused into query_key_value per kv group, the
-order load/hf.py's converter undoes), or a llama model as a llama.cpp GGUF
+order load/hf.py's converter undoes; a mixture of experts as Mixtral's
+``block_sparse_moe`` gate and experts.N.w1/w3/w2, model_type mixtral),
+or a dense llama model as a llama.cpp GGUF
 file (F32, F16, Q4_0 or Q8_0 tensors,
 q/k permuted as llama.cpp's converter permutes them, an embedded
 SentencePiece vocabulary). The serving path never imports this module.
@@ -16,6 +18,8 @@ the code, then f16), in the port's layout and the model's dtype.
 
     python -m substratus_tpu_torch.tools.ckpt_writer --config tiny --hf DIR --gguf FILE [--device cpu]
     python -m substratus_tpu_torch.tools.ckpt_writer --config falcon-7b --hf DIR
+    # mixtral-8x7b's width at 2 layers (6.33 GB of bf16)
+    python -m substratus_tpu_torch.tools.ckpt_writer --config mixtral-8x7b --shape n_layers=2 --hf DIR
     # facebook/opt-2.7b's published shape (head_dim 80) as overrides of opt-1.3b
     python -m substratus_tpu_torch.tools.ckpt_writer --config opt-1.3b \
         --shape dim=2560,n_heads=32,n_layers=32,hidden_dim=10240 --hf DIR
@@ -39,9 +43,9 @@ from substratus_tpu_torch.load.gguf import (
     _BLOCK, _NAME_MAP, GGML_F16, GGML_F32, GGML_Q4_0, GGML_Q8_0, _gguf_string, gguf_header)
 from torch import nn
 
-from substratus_tpu_torch.load.hf import FALCON_QKV, copy_hf_state, hf_layout
+from substratus_tpu_torch.load.hf import FALCON_QKV, HF_EXPERT_NAMES, copy_hf_state, hf_layout
 from substratus_tpu_torch.models import registry
-from substratus_tpu_torch.models.llama import Llama, LlamaConfig
+from substratus_tpu_torch.models.llama import EXPERT_WEIGHTS, Llama, LlamaConfig
 
 _ST_NAMES = {torch.bfloat16: "BF16", torch.float16: "F16", torch.float32: "F32"}
 SHARD_BYTES = 5 * 10**9  # the shard size of transformers' save_pretrained
@@ -72,19 +76,26 @@ def hf_tensors(model: nn.Module) -> Iterator[Tuple[str, torch.Tensor]]:
     """(HF name, tensor) of every weight of a dense port model of any
     family, on its device and in its dtype: Linear weights [out, in]
     (contiguous), under transformers' names for the family (a tied head
-    written once, as save_pretrained writes it)."""
+    written once, as save_pretrained writes it; a stacked expert weight as
+    its experts' tensors)."""
     cfg = model.cfg
     family = registry.family_of(cfg)
     prefixes, layers, top, layer = hf_layout(cfg)
     top_prefix, layer_prefix = prefixes[0], prefixes[0] + layers
     to_hf = {port: (hf, t) for hf, (port, t) in top.items()}
     to_hf_layer = {port: (hf, t) for hf, (port, t) in layer.items()}
+    expert_hf = {port: hf for hf, port in HF_EXPERT_NAMES.items()}
     for name, w in model.state_dict().items():
         if name.startswith("layers."):
             _, i, port = name.split(".")
             if family == "falcon" and port in ("wq", "wk", "wv"):
                 if port == "wq":  # the fused tensor, once a layer
                     yield f"{layer_prefix}.{i}.{FALCON_QKV}", _fused_qkv(model.layers[int(i)], cfg)
+                continue
+            if getattr(cfg, "n_experts", 0) > 0 and port in EXPERT_WEIGHTS:
+                for e in range(cfg.n_experts):
+                    yield (f"{layer_prefix}.{i}.block_sparse_moe.experts.{e}.{expert_hf[port]}.weight",
+                           w[e].t().contiguous())
                 continue
             hf, transposed = to_hf_layer[port]
             hf = f"{layer_prefix}.{i}.{hf}"
@@ -117,6 +128,16 @@ def hf_config(cfg) -> Dict[str, Any]:
                 "layer_norm_epsilon": cfg.norm_eps, "rope_theta": cfg.rope_theta,
                 "max_position_embeddings": cfg.max_seq_len, "tie_word_embeddings": True, "torch_dtype": dtype,
                 "bos_token_id": 11, "eos_token_id": 11}
+    if cfg.n_experts > 0:
+        return {"architectures": ["MixtralForCausalLM"], "model_type": "mixtral", "vocab_size": cfg.vocab_size,
+                "hidden_size": cfg.dim, "intermediate_size": cfg.hidden_dim, "num_hidden_layers": cfg.n_layers,
+                "num_attention_heads": cfg.n_heads, "num_key_value_heads": cfg.n_kv_heads,
+                "head_dim": cfg.head_size, "num_local_experts": cfg.n_experts,
+                "num_experts_per_tok": cfg.n_experts_per_token, "router_aux_loss_coef": cfg.router_aux_weight,
+                "output_router_logits": False, "sliding_window": None, "rms_norm_eps": cfg.norm_eps,
+                "rope_theta": cfg.rope_theta, "max_position_embeddings": cfg.max_seq_len,
+                "tie_word_embeddings": cfg.tie_embeddings, "torch_dtype": dtype, "hidden_act": "silu",
+                "bos_token_id": 1, "eos_token_id": 2}
     return {"architectures": ["LlamaForCausalLM"], "model_type": "llama", "vocab_size": cfg.vocab_size,
             "hidden_size": cfg.dim, "intermediate_size": cfg.hidden_dim, "num_hidden_layers": cfg.n_layers,
             "num_attention_heads": cfg.n_heads, "num_key_value_heads": cfg.n_kv_heads, "head_dim": cfg.head_size,
@@ -348,8 +369,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     family, cfg = registry.find_named_config(args.config)
     cfg = shape_overrides(cfg, args.shape)
-    if args.gguf and registry.family_of(cfg) != "llama":
-        raise SystemExit(f"--gguf writes llama models; {args.config} is {registry.family_of(cfg)}'s")
+    if args.gguf and (registry.family_of(cfg) != "llama" or getattr(cfg, "n_experts", 0)):
+        raise SystemExit(f"--gguf writes dense llama models; {args.config} is not one")
     if args.gguf and cfg.vocab_size < 512:  # room for the byte pieces and some merges
         cfg = cfg.replace(vocab_size=512)
     model = family.init_params(cfg, seed=args.seed, device=args.device)

@@ -7,7 +7,10 @@ The JAX package stacks every layer's adapter on a leading L axis
 ({name: {a: [L, in, r], b: [L, r, *out]}}); the port keeps one entry per
 layer, beside the family's per-layer blocks, as the parameters of
 ``LoraAdapters``: ``adapters.layers[i][name]["a"]`` is [in, r] and
-``["b"]`` is [r, *out]. Each family's forward takes
+``["b"]`` is [r, *out]. Under a mixture of experts (llama with
+``n_experts``) the MLP's adapters are expert-routed, as in the JAX
+package: each expert its own pair, a [E, in, r] and b [E, r, out],
+applied inside models/llama.py::_moe_ffn. Each family's forward takes
 ``{"layers": adapters.layers, "scale": alpha / rank}``.
 """
 from __future__ import annotations
@@ -19,7 +22,7 @@ import torch
 from torch import nn
 
 from substratus_tpu_torch.models import registry
-from substratus_tpu_torch.models.llama import _check_dense
+from substratus_tpu_torch.models.llama import EXPERT_WEIGHTS
 from substratus_tpu_torch.ops.quant import QTensor
 from substratus_tpu_torch.ops.quant4 import Q4Tensor
 from substratus_tpu_torch.utils.device import DeviceLike, resolve_device, seeded_generator
@@ -72,8 +75,9 @@ def init_lora(
 ) -> LoraAdapters:
     """A gaussian times 1/rank (drawn in f32 from a seeded torch.Generator,
     then cast), B zero: training starts from the base model. The adapters
-    are bf16 by default whatever the model's dtype, as in the JAX package."""
-    _check_dense(cfg)
+    are bf16 by default whatever the model's dtype, as in the JAX package;
+    an expert-routed target (the MLP under n_experts) gets a pair an
+    expert, a [E, in, r] and b [E, r, out]."""
     device = resolve_device(device)
     gen = seeded_generator(seed, device)
     shapes = _shapes(cfg)
@@ -81,13 +85,15 @@ def init_lora(
     if unknown:
         raise ValueError(f"unknown LoRA targets {unknown} for the {registry.family_of(cfg)} family (one of "
                          f"{sorted(shapes)})")
+    n_experts = getattr(cfg, "n_experts", 0)
     layers: List[Dict[str, Dict[str, torch.Tensor]]] = [{} for _ in range(cfg.n_layers)]
     for name in targets:
         in_dim, out_shape = shapes[name]
-        a = torch.randn((cfg.n_layers, in_dim, rank), generator=gen, device=device) * (1.0 / rank)
+        experts = (n_experts,) if n_experts > 0 and name in EXPERT_WEIGHTS else ()
+        a = torch.randn((cfg.n_layers, *experts, in_dim, rank), generator=gen, device=device) * (1.0 / rank)
         for i, layer in enumerate(layers):
             layer[name] = {"a": a[i].to(dtype),
-                           "b": torch.zeros((rank,) + out_shape, dtype=dtype, device=device)}
+                           "b": torch.zeros((*experts, rank) + out_shape, dtype=dtype, device=device)}
     return LoraAdapters(layers)
 
 
@@ -108,7 +114,8 @@ def merge_lora(params: nn.Module, adapters: LoraAdapters, scale: float) -> nn.Mo
             w = getattr(lp, name)
             quantized = isinstance(w, (QTensor, Q4Tensor))
             base = w.dequant(torch.float32) if quantized else w.float()
-            delta = torch.einsum("dr,r...->d...", ab["a"].float(), ab["b"].float()) * scale
+            eq = "edr,er...->ed..." if ab["a"].ndim == 3 else "dr,r...->d..."  # expert-routed: a pair an expert
+            delta = torch.einsum(eq, ab["a"].float(), ab["b"].float()) * scale
             # wo's adapter input is the flattened [H*hd]: reshape to [H, hd, D].
             out = (base + delta.reshape(base.shape)).to(torch.bfloat16 if quantized else w.dtype)
             if quantized:

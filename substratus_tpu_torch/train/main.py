@@ -17,6 +17,9 @@ params.json keys served, under the JAX entry point's names and defaults:
 ``steps`` (or ``max_steps``), ``batch_size``, ``seq_len``,
 ``learning_rate``, ``warmup_steps``, ``save_steps``, ``lora_rank``,
 ``lora_alpha``, ``config``, ``remat``, ``seed``, ``grad_accum_steps``;
+``lora_targets`` (the port's own key: a list of the family's LoRA
+targets, default wq and wv as the JAX entry point trains; on a mixture of
+experts w_gate/w_up/w_down are expert-routed, a pair an expert);
 ``quantize``: ``int8`` quantizes a loaded base that is not quantized yet
 (QLoRA: LoRA adapters over int8 weights, as the JAX entry point does; a
 llama base only: an OPT or Falcon base exits), ``none`` leaves it; without
@@ -48,7 +51,8 @@ from substratus_tpu_torch.serve.main import (
     ATTN_IMPLS, check_vocab, load_checkpoint, load_params_json, resolve_model_path)
 
 _SERVED = ("steps", "max_steps", "batch_size", "seq_len", "learning_rate", "warmup_steps", "save_steps",
-           "lora_rank", "lora_alpha", "config", "remat", "seed", "grad_accum_steps", "attn_impl", "quantize")
+           "lora_rank", "lora_alpha", "config", "remat", "seed", "grad_accum_steps", "attn_impl", "quantize",
+           "lora_targets")
 _MESH_AXES = ("dp", "fsdp", "sequence", "tensor")
 _NOT_SERVED = {
     "profile_steps": "Queue 1, multi-GPU and RL (profiling windows)",
@@ -78,6 +82,9 @@ def check_params(p: Dict[str, Any]) -> None:
                                  f"ROADMAP {_MULTI_GPU}")
             if value not in ATTN_IMPLS:
                 raise SystemExit(f"params.json: attn_impl={value!r} invalid (one of {sorted(ATTN_IMPLS)})")
+        elif key == "lora_targets":
+            if not isinstance(value, list) or not value or not all(isinstance(v, str) for v in value):
+                raise SystemExit(f"params.json: lora_targets={value!r} invalid (a list of projection names)")
         elif key not in _SERVED:
             raise SystemExit(f"params.json: unknown key {key!r}")
 
@@ -126,7 +133,8 @@ def run(argv=None) -> Dict[str, Any]:
     lora_alpha = float(p.get("lora_alpha", 16.0))
     params = None
     if model_path:
-        cfg, params = load_checkpoint(model_path, device)
+        # A QLoRA base quantizes as it loads (HF llama; the others after).
+        cfg, params = load_checkpoint(model_path, device, quantize=p.get("quantize", "none"))
         tokenizer = load_tokenizer(model_path)
         check_vocab(tokenizer, cfg)
         family = registry.module_of(cfg)
@@ -157,6 +165,7 @@ def run(argv=None) -> Dict[str, Any]:
         total_steps=steps,
         lora_rank=lora_rank,
         lora_alpha=lora_alpha,
+        lora_targets=tuple(p.get("lora_targets", TrainConfig.lora_targets)),
         remat=bool(p.get("remat", True)),
         seed=int(p.get("seed", 0)),
         grad_accum_steps=accum,

@@ -11,7 +11,10 @@ optimizer of train/optim.py. Meshes, process counts and globally sharded
 batches wait for multi-GPU (ROADMAP Queue 1, multi-GPU and RL).
 
 In LoRA mode the base weights stay frozen and only the adapters
-(train/lora.py) train; otherwise every weight trains.
+(train/lora.py) train; otherwise every weight trains. A mixture of
+experts adds router_aux_weight x the mean of the forward's "moe_aux" to
+the loss (token-weighted in the accumulated form), as the JAX trainer
+does.
 """
 from __future__ import annotations
 
@@ -126,23 +129,40 @@ class Trainer:
         """The module whose state_dict is the trainable state."""
         return self.lora if self.lora is not None else self.params
 
+    def _forward(self, tokens: torch.Tensor, weights: torch.Tensor):
+        """((logits, targets, weights) of next-token prediction, the router
+        aux term: router_aux_weight x the layers' mean aux, None without
+        experts)."""
+        lora = {"layers": self.lora.layers, "scale": self.lora_scale} if self.lora is not None else None
+        logits, kv = self.model.forward(self.params, tokens, self.cfg, lora=lora, remat=self.tc.remat, train=True)
+        aux = self.cfg.router_aux_weight * kv["moe_aux"].mean() if "moe_aux" in kv else None
+        return (logits[:, :-1], tokens[:, 1:], weights[:, 1:]), aux
+
     def loss_inputs(self, tokens: torch.Tensor, weights: torch.Tensor):
         """(logits, targets, weights) of next-token prediction: the
-        arguments of cross_entropy_sum / cross_entropy_loss."""
-        lora = {"layers": self.lora.layers, "scale": self.lora_scale} if self.lora is not None else None
-        logits, _ = self.model.forward(self.params, tokens, self.cfg, lora=lora, remat=self.tc.remat, train=True)
-        return logits[:, :-1], tokens[:, 1:], weights[:, 1:]
+        arguments of cross_entropy_sum / cross_entropy_loss (loss() adds a
+        mixture of experts' aux term)."""
+        return self._forward(tokens, weights)[0]
+
+    def loss(self, tokens: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+        """One batch's training loss, as train_step takes its gradient
+        without accumulation: the weighted mean nll, plus the router's aux
+        term under a mixture of experts (the JAX trainer's loss_fn)."""
+        inputs, aux = self._forward(tokens, weights)
+        loss = cross_entropy_loss(*inputs)
+        return loss if aux is None else loss + aux
 
     def train_step(self, batch: Dict[str, np.ndarray]) -> float:
         """batch: {"tokens": [B, S] int, "weights": [B, S] 0/1} as numpy.
-        One optimizer update; returns the loss (weighted mean nll)."""
+        One optimizer update; returns the loss (weighted mean nll, plus
+        the router's aux term under a mixture of experts)."""
         tokens = torch.from_numpy(np.asarray(batch["tokens"])).to(self.device, torch.long)
         weights = torch.from_numpy(np.asarray(batch["weights"], np.float32)).to(self.device)
         accum = max(1, self.tc.grad_accum_steps)
         if tokens.shape[0] % accum:
             raise ValueError(f"batch size {tokens.shape[0]} must split into grad_accum_steps={accum} microbatches")
         if accum == 1:
-            loss = cross_entropy_loss(*self.loss_inputs(tokens, weights))
+            loss = self.loss(tokens, weights)
             grads = torch.autograd.grad(loss, self.trainable)
         else:
             # Grad-of-sum per microbatch, accumulated in f32 and normalized
@@ -152,7 +172,10 @@ class Trainer:
             w_sum = torch.zeros((), device=self.device)
             acc = [torch.zeros(p.shape, dtype=torch.float32, device=self.device) for p in self.trainable]
             for mb_tokens, mb_weights in zip(tokens.chunk(accum), weights.chunk(accum)):
-                s, w = cross_entropy_sum(*self.loss_inputs(mb_tokens, mb_weights))
+                inputs, aux = self._forward(mb_tokens, mb_weights)
+                s, w = cross_entropy_sum(*inputs)
+                if aux is not None:  # token-weighted, so the sum normalizes as the loss does
+                    s = s + aux * w
                 for a, g in zip(acc, torch.autograd.grad(s, self.trainable)):
                     a += g.float()
                 s_sum, w_sum = s_sum + s.detach(), w_sum + w

@@ -9,8 +9,9 @@ save_pretrained (no download): one safetensors file, sharded safetensors
   logits match transformers' within tests/test_torch_model.py's 1e-4;
 * the hand-written safetensors reader equals safetensors.safe_open on
   BF16, F16 and F32 tensors, and refuses another dtype by name;
-* opt, falcon and mixture-of-experts configs and a path that is not a
-  local checkpoint exit;
+* the OPT and Falcon variants the JAX converters refuse, another
+  model_type and a path that is not a local checkpoint exit (Mixtral
+  loads: tests/test_torch_moe_load.py);
 * load_tokenizer on a tokenizers-built tokenizer.json gives the JAX
   load_tokenizer's ids; without transformers it exits naming it.
 """
@@ -116,9 +117,6 @@ def test_unported_and_non_local_checkpoints_exit(tmp_path):
     for name, raw, match in (("opt", {"model_type": "opt", "do_layer_norm_before": False, "hidden_size": 8},
                               "post-LN OPT"),
                              ("falcon", {"model_type": "falcon", "alibi": True}, "alibi"),
-                             ("mixtral", {"model_type": "mixtral", "num_local_experts": 8, "vocab_size": 32,
-                                          "hidden_size": 8, "num_hidden_layers": 1, "num_attention_heads": 2,
-                                          "intermediate_size": 16}, "mixture of experts"),
                              ("gpt2", {"model_type": "gpt2"}, "unsupported HF model_type")):
         (tmp_path / name).mkdir()
         (tmp_path / name / "config.json").write_text(json.dumps(raw))

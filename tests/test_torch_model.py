@@ -141,5 +141,9 @@ def test_registry_and_unported_configs():
                                                      jcfg.n_experts)
     with pytest.raises(KeyError):
         registry.find_named_config("no-such-model")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        llama.init_params(llama.CONFIGS["tiny-moe"], device="cpu")
+    for name in ("tiny-moe", "mixtral-8x7b"):  # the mixture-of-experts fields too, now the port runs them
+        tcfg, jcfg = llama.CONFIGS[name], jllama.CONFIGS[name]
+        assert (tcfg.n_experts, tcfg.n_experts_per_token, tcfg.capacity_factor, tcfg.router_aux_weight) == (
+            jcfg.n_experts, jcfg.n_experts_per_token, jcfg.capacity_factor, jcfg.router_aux_weight)
+    moe = llama.init_params(llama.CONFIGS["tiny-moe"], device="cpu")
+    assert tuple(moe.layers[0].w_gate.shape) == (4, 64, 128) and tuple(moe.layers[0].router.shape) == (64, 4)

@@ -135,7 +135,7 @@ def test_q4_design_routes_by_shape():
     ("bsd,dm->bsm", (2, 3, 256), (256, 128), (0,)),  # gate/up
     ("bsm,md->bsd", (2, 3, 128), (128, 256), (0,)),  # down
     ("bsd,dv->bsv", (2, 3, 256), (256, 300), (0,)),  # lm_head
-    ("bsd,edm->bsem", (2, 3, 256), (4, 256, 128), (1,)),  # MoE: does not fit, dequant path
+    ("bsd,edm->bsem", (2, 3, 256), (4, 256, 128), (1,)),  # MoE: one q4_matmul an expert
 ])
 def test_q4einsum_matches_jax(eq, xs, ws, contr):
     x = _randn(xs, 6)
@@ -146,9 +146,14 @@ def test_q4einsum_matches_jax(eq, xs, ws, contr):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
     # qeinsum hands a Q4Tensor to q4einsum
     np.testing.assert_array_equal(quant.qeinsum(eq, torch.from_numpy(x), tq, torch.float32).numpy(), got.numpy())
-    if eq == "bsd,edm->bsem":  # the dequant path is the CPU's: off the CPU it raises
+    if eq == "bsd,edm->bsem":  # an equation that fits no route (the expert axis summed): the dequant
+        # path on the CPU, as JAX computes it; off the CPU it raises
+        summed = "bsd,edm->bsm"
+        np.testing.assert_allclose(quant4.q4einsum(summed, torch.from_numpy(x), tq, torch.float32).numpy(),
+                                   np.asarray(jq4.q4einsum(summed, jnp.asarray(x), jq, jnp.float32)), atol=1e-5,
+                                   rtol=1e-5)
         with pytest.raises(ValueError, match="does not fit"):
-            quant4.q4einsum(eq, torch.from_numpy(x).to("meta"), tq.to("meta"), torch.float32)
+            quant4.q4einsum(summed, torch.from_numpy(x).to("meta"), tq.to("meta"), torch.float32)
 
 
 def test_int8_quantize_and_qeinsum_match_jax():
