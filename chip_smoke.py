@@ -139,6 +139,15 @@ Phases, each of which exits non-zero on failure:
               delivered; (c) serve-int4's weights on int8 pages
               (kv_layout paged, no fused decode): the int4 matmul's
               launches by design, the references;
+  serve-spec  speculative decoding at llama2-7b's width in three legs ((a)
+              the throughput example through serve.main: int4, int8
+              pages, B=24, prompt lookup k=3; (b) the dense cache with the
+              fused decode; (c) a draft model), each against a plain engine
+              on the same requests; then (a)'s running engine serves 24
+              greedy requests for at least 32 recorded iterations under
+              torch.cuda.set_sync_debug_mode("warn"), and no warned host
+              sync may come from a frame under observability/ or inside a
+              journey, timeline or SLO recording call;
   serve-ckpt  checkpoints at llama2-7b's full width and depth, written from
               the seed-0 weights by tools/ckpt_writer.py, one on disk at a
               time (the free bytes printed before each write, too few fail
@@ -157,6 +166,18 @@ Phases, each of which exits non-zero on failure:
               an in-process engine on those weights, the int4 path's
               launches per design, every prompt through the vocabulary and
               back, usage equal to the encode lengths, tokens per byte;
+              and the loader entry point on each: python -m
+              substratus_tpu_torch.load.main --name <the directory> as a
+              child under TRACEPARENT (the free bytes printed first; its
+              load seconds and GB/s, the artifact's bytes; load.run under
+              the trace in its trace.jsonl), the artifact served by
+              serve.main --model with serve's knobs, its state bit for bit
+              the source's and its greedy tokens the directory's server's;
+              with quantize int8, the artifact's int8 weights bit for bit
+              the in-process quantize_weights of the same weights and one
+              greedy request by the reference rule; on the GGUF, the
+              artifact's state bit for bit load_gguf's and tokenizer.gguf
+              beside it;
   serve-surface
               the container contract's serving surface: tools/ckpt_writer.py
               writes llama2-7b from seeds 0 and 1 and a 2-layer model of its
@@ -181,7 +202,18 @@ Phases, each of which exits non-zero on failure:
               writes a trace naming q4_matmul_decode_kernel; (c) SIGTERM
               during a 256-token stream: readiness and /loadz 503 within
               1 s, a new POST 503 with Retry-After, the stream whole, exit
-              0 within the grace. It prints the time to ready, the served
+              0 within the grace; the child runs under TRACEPARENT with
+              SUBSTRATUS_TRACE_EXPORT, and (e) a whole and a streamed
+              request under their own traceparents answer x-trace-id,
+              /debug/tracez roots each at serve.http, /debug/requestz?id=
+              gives each journey (submit, admit, prefill, drains,
+              speculative rounds, end), /debug/perfz, slowz, eventz and
+              requestz answer with the JAX keys; after (d) /debug/stepz
+              parses as a Chrome trace (its bubble seconds by cause, floor
+              estimate and iterations over the run printed) and eventz
+              holds the capture's event; at exit the export holds
+              serve.start under the child's trace and each request's
+              serve.http with engine.prefill under it. It prints the time to ready, the served
               mean round from the phase histogram beside serve-spec (a)'s
               round and plain step of the same run, and the child's int4
               launches by design (substratus_serve_kernel_launches, counted
@@ -189,8 +221,13 @@ Phases, each of which exits non-zero on failure:
   train       train.main at llama2-7b's full width and depth (random weights
               from seed 0, bf16) with the finetune example's params: LoRA
               rank 16 on wq/wv, batch 8 x 1024, learning rate 2e-4, remat,
-              4 steps (checkpoints every 2) on a seeded token corpus, then
-              a second call to 6 steps that resumes from step 4. Before it,
+              4 steps (checkpoints every 2) on a seeded token corpus
+              (imported by load.dataset's files source), then
+              a second call to 6 steps that resumes from step 4, under
+              TRACEPARENT with profile_steps [4, 5]: its profile names the
+              flash forward and both backward kernels, trace.jsonl holds
+              train.run under the trace, each progress line carries the
+              trace id, substratus_train_step_seconds counts its steps. Before it,
               one step's adapter gradients through the kernels against
               attn_impl="plain", and the first batch's loss without grad.
               Launches per optimizer step exactly 64 forward (forward and
@@ -258,7 +295,8 @@ Phases, each of which exits non-zero on failure:
               for the split design at 1024 rows;
   serve-batchgen
               examples/batch-generation/batchgen-server.yaml at llama2-7b
-              width (seed 0, written as an HF directory): a 64-record
+              width, 16 of its 32 layers (seed 0, written as an HF
+              directory): a 64-record
               manifest (48 text prompts of 16-1000 byte-tokens, 14 of
               token ids, one with no prompt, one naming an adapter). (a)
               python -m substratus_tpu_torch.serve.batchgen as a child with
@@ -2716,10 +2754,74 @@ def spec_lookup_leg(card: str, profile_steps: bool):
         report = spec_report(engine, stats, reqs, plain, launches, label, card, profile_steps)
         if stats["spec_accepted"] <= 0:
             fail(f"{label}: no proposal accepted")
+        report["recording_syncs"] = recording_sync_check(engine, ids, label)
     finally:
         server.stop()
     report["wall_s"] = wall
     return report, engine.params, engine.cfg
+
+
+# The host-side recording of the engine (journeys, the step timeline, the
+# SLO sketches and exemplars), by the functions that do it.
+RECORDING_FUNCS = {"record", "record_once", "breach", "record_iteration", "_journey_end", "_observe_latency",
+                   "snapshot"}
+
+
+def recording_sync_check(engine, ids, label: str, iterations: int = 32) -> dict:
+    """The running engine (serve-surface's params) serves 24 greedy requests
+    under torch.cuda.set_sync_debug_mode("warn") for at least `iterations`
+    replayed iterations: no warned host sync comes from a frame under
+    observability/ or inside a journey, timeline or SLO recording call (the
+    engine's own reads, the drain's and the first token's, may warn)."""
+    import threading as _threading
+    import traceback
+    import warnings
+
+    import torch
+
+    from substratus_tpu_torch.serve.engine import Request
+
+    seen = {"warnings": 0, "offending": []}
+    lock = _threading.Lock()
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        stack = traceback.extract_stack()[:-1]
+        bad = [f"{Path(f.filename).name}:{f.lineno} {f.name}" for f in stack
+               if "/observability/" in f.filename or f.name in RECORDING_FUNCS]
+        with lock:
+            seen["warnings"] += 1
+            if bad:
+                seen["offending"].append((str(message)[:120], bad))
+
+    replays0 = engine.stats["graph_replays"]
+    iters0 = engine.timeline.bubble_totals()["iterations"]
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            reqs = [engine.submit(Request(list(ids[i % len(ids)]), max_tokens=48, temperature=0.0))
+                    for i in range(engine.ec.max_batch)]
+            for req in reqs:
+                while req.out.get(timeout=600) is not None:
+                    pass
+            wait_idle(engine)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    replays = engine.stats["graph_replays"] - replays0
+    iters = engine.timeline.bubble_totals()["iterations"] - iters0
+    recs = engine.timeline.records()[-iters:] if iters else []
+    timing = {key: {"median_ms": 1e3 * statistics.median(r[key] for r in recs),
+                    "max_ms": 1e3 * max(r[key] for r in recs)} for key in ("wall_s", "dispatch_s", "drain_s")} \
+        if recs else {}
+    if replays < iterations or iters < iterations:
+        fail(f"{label} sync check: {replays} replays over {iters} recorded iterations, want {iterations}")
+    if seen["offending"]:
+        fail(f"{label} sync check: host syncs from the recording: {seen['offending'][:4]}")
+    print(f"{label}: {len(reqs)} requests, {iters} recorded iterations ({replays} graph replays) under sync debug "
+          f"mode warn: {seen['warnings']} warned syncs, none from observability/ or a recording call; the timeline's "
+          f"records of them (ms): {timing}", flush=True)
+    return {"iterations": iters, "replays": replays, "warned_syncs": seen["warnings"], "timeline_ms": timing}
 
 
 def check_spec_launches(engine, stats, launches, label: str) -> None:
@@ -3035,12 +3137,156 @@ def ckpt_hf_part(card: str, tmp: Path) -> dict:
     print(f"serve-ckpt safetensors [{card}]: serve.main --model loaded {written['bytes']} bytes in {load_s:.2f} s "
           f"({written['bytes'] / load_s / 1e9:.2f} GB/s); {compared} bytes bit for bit the source's; "
           f"{len(PROMPTS)} requests, {generated} tokens in {wall:.2f} s; launches {launches}", flush=True)
-    del engine, server, source
+    del engine, server
+    gc.collect()
+    torch.cuda.empty_cache()
+    loader = ckpt_load_main_part(card, tmp, source, requests, written["bytes"])
+    del source
     gc.collect()
     torch.cuda.empty_cache()
     return {"bytes": written["bytes"], "shards": len(written["files"]), "write_s": write_s, "load_s": load_s,
             "load_gb_per_s": written["bytes"] / load_s / 1e9, "free_bytes_before": free, "launches": launches,
-            "stats": stats, "same_as_source": same, "reference": reference}
+            "stats": stats, "same_as_source": same, "reference": reference, "load_main": loader}
+
+
+# The trace the loader's child joins (TRACEPARENT).
+LOADER_TRACE = ("10ad" * 8, "5a" * 8)
+
+
+def run_load_main(out: Path, args, label: str, params=None, env_extra=None, child: bool = True) -> dict:
+    """The loader entry point into `out`: python -m
+    substratus_tpu_torch.load.main as a child process (a non-zero exit
+    fails), or its run() in this process; its wall seconds, the load's
+    seconds (the weights on the card) and the whole run's as it prints
+    them, and the artifact's bytes."""
+    import os
+    import re
+
+    from substratus_tpu_torch.load import main as load_main
+
+    params_path = out.parent / f"{out.name}_params.json"
+    params_path.write_text(json.dumps(params or {}))
+    argv = ["--out", str(out), "--params", str(params_path), *args]
+    env = {**os.environ, **(env_extra or {}),
+           "PYTHONPATH": str(Path(__file__).resolve().parent) + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    t0 = time.perf_counter()
+    if child:
+        proc = subprocess.run([sys.executable, "-m", "substratus_tpu_torch.load.main", *argv],
+                              cwd=Path(__file__).resolve().parent, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, timeout=900)
+        if proc.returncode != 0:
+            fail(f"{label}: load.main exited {proc.returncode}: {proc.stdout[-2000:]}")
+        m = re.search(r"loaded in ([0-9.]+) s, ([0-9.]+) s in all", proc.stdout)
+        if m is None:
+            fail(f"{label}: load.main printed no timing: {proc.stdout[-1000:]}")
+        load_s, run_s = float(m.group(1)), float(m.group(2))
+    else:
+        res = load_main.run(argv)
+        load_s, run_s = res["load_seconds"], res["seconds"]
+        del res
+    wall = time.perf_counter() - t0
+    nbytes = sum(f.stat().st_size for f in out.iterdir() if f.is_file())
+    return {"wall_s": wall, "load_s": load_s, "run_s": run_s, "artifact_bytes": nbytes}
+
+
+def ckpt_load_main_part(card: str, tmp: Path, source, hf_requests, hf_bytes: int) -> dict:
+    """The loader entry point on the safetensors directory: load.main under
+    TRACEPARENT writes the port's artifact (its load and wall seconds, GB/s,
+    bytes; the free bytes printed first: the directory and the artifact
+    stand on disk together), which serve.main --model serves with serve's
+    knobs, its state bit for bit the source's and its greedy tokens those
+    the directory's server served; trace.jsonl holds load.run under the
+    trace. Then with quantize int8: the artifact's int8 weights bit for bit
+    the port's in-process quantize_weights of the same weights, one greedy
+    request by the reference rule."""
+    import copy
+
+    import torch
+
+    from substratus_tpu_torch.models import llama
+    from substratus_tpu_torch.ops.decode_attention import decode_attention
+    from substratus_tpu_torch.ops.flash_attention import flash_attention
+    from substratus_tpu_torch.train.checkpoints import load_artifact
+
+    label = "serve-ckpt load.main"
+    out = {}
+    art = tmp / "artifact"
+    free = disk_room(tmp, hf_bytes, label)
+    run = run_load_main(art, ["--name", str(tmp / "hf")], label,
+                        env_extra={"TRACEPARENT": traceparent(*LOADER_TRACE)})
+    spans = [json.loads(ln) for ln in (art / "trace.jsonl").read_text().splitlines()]
+    if not any(s["name"] == "load.run" and (s["trace_id"], s["parent_id"]) == LOADER_TRACE for s in spans):
+        fail(f"{label}: trace.jsonl holds {spans}")
+    print(f"{label} [{card}]: the safetensors directory ({hf_bytes} bytes; {free} bytes free before) to an artifact of "
+          f"{run['artifact_bytes']} bytes: the weights on the card in {run['load_s']:.2f} s "
+          f"({hf_bytes / run['load_s'] / 1e9:.2f} GB/s), {run['run_s']:.2f} s with the write, {run['wall_s']:.1f} s as a "
+          f"process; load.run in trace.jsonl under TRACEPARENT's trace", flush=True)
+    loads, restore = timed_loads()
+    try:
+        server, engine, base = start_server("serve-ckpt-artifact", {k: v for k, v in SERVE_PARAMS.items()
+                                                                     if k != "config"}, ["--model", str(art)])
+    finally:
+        restore()
+    requests = tee_requests(engine)
+    try:
+        compared = same_state(engine.params, source, label)
+        zero_counts(engine, (flash_attention, decode_attention))
+        results, wall = run_concurrent(base, PROMPTS)
+        wait_idle(engine)
+        launches = {"flash_fwd": launched(engine, flash_attention),
+                    "flash_fwd_wgmma": launched(engine, flash_attention, "launches_wgmma"),
+                    "decode_attn": launched(engine, decode_attention),
+                    "decode_attn_split": launched(engine, decode_attention, "launches_split")}
+        stats = dict(engine.stats)
+        del engine.submit
+    finally:
+        server.stop()
+    check_usage(PROMPTS, results)
+    greedy = lambda reqs: {tuple(r.prompt_tokens): r.out.tokens for r in reqs if r.temperature == 0.0}  # noqa: E731
+    want, got = greedy(hf_requests), greedy(requests)
+    if got != want or len(got) != sum(1 for _, _, temp, _ in PROMPTS if temp == 0.0):
+        fail(f"{label}: the artifact's server served other greedy tokens than the directory's")
+    L = engine.cfg.n_layers
+    if launches["flash_fwd"] != L * stats["prefills"] or launches["decode_attn"] != L * stats["decode_steps"] \
+            or not launches["decode_attn_split"] or launches["flash_fwd_wgmma"] != launches["flash_fwd"]:
+        fail(f"{label}: launches {launches} against {stats}")
+    print(f"{label} [{card}]: serve.main --model <the artifact> loaded it in {loads[0]:.2f} s "
+          f"({run['artifact_bytes'] / loads[0] / 1e9:.2f} GB/s); {compared} bytes bit for bit the source's; "
+          f"{len(got)} greedy requests token for token the directory's server's; launches {launches}", flush=True)
+    out["bf16"] = {**run, "hf_gb_per_s": hf_bytes / run["load_s"] / 1e9,
+                   "free_bytes_before": free, "serve_load_s": loads[0], "launches": launches, "stats": stats}
+    del engine, server
+    shutil.rmtree(art)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    art8 = tmp / "artifact_int8"
+    run8 = run_load_main(art8, ["--name", str(tmp / "hf")], f"{label} int8", params={"quantize": "int8"},
+                         child=False)
+    quantized = llama.quantize_weights(copy.deepcopy(source), "int8")
+    _, loaded = load_artifact(str(art8))
+    compared8 = same_state(loaded, quantized, f"{label} int8")
+    n_int8 = sum(1 for n, t in loaded.state_dict().items() if t.dtype == torch.int8)
+    del loaded, quantized
+    gc.collect()
+    torch.cuda.empty_cache()
+    server, engine, base = start_server("serve-ckpt-artifact-int8", {k: v for k, v in SERVE_PARAMS.items()
+                                                                      if k != "config"}, ["--model", str(art8)])
+    try:
+        if type(engine.params.layers[0].wq).__name__ != "QTensor":
+            fail(f"{label} int8: the served weights are {type(engine.params.layers[0].wq).__name__}")
+        reference = reference_check(engine)
+    finally:
+        server.stop()
+    print(f"{label} int8 [{card}]: quantize int8 wrote {run8['artifact_bytes']} bytes in {run8['run_s']:.2f} s; "
+          f"{compared8} bytes ({n_int8} int8 tensors and their scales) bit for bit the in-process quantize_weights; "
+          f"served by the reference rule", flush=True)
+    out["int8"] = {**run8, "reference": reference}
+    del engine, server
+    shutil.rmtree(art8)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def ckpt_qlora_part(card: str, tmp: Path) -> dict:
@@ -3128,6 +3374,23 @@ def ckpt_gguf_part(card: str, tmp: Path) -> dict:
     compared = same_state(loaded, expected, "serve-ckpt gguf")
     del expected
     torch.cuda.empty_cache()
+    gguf_art = tmp / "gguf_artifact"
+    disk_room(tmp, 2 * compared, "serve-ckpt gguf load.main")
+    run = run_load_main(gguf_art, ["--name", str(path)], "serve-ckpt gguf load.main", child=False)
+    state = torch.load(gguf_art / "params.pt", map_location="cuda", mmap=True, weights_only=True)
+    want = loaded.state_dict()
+    if set(state) != set(want) or any(not torch.equal(v, want[k]) or v.dtype != want[k].dtype
+                                      for k, v in state.items()):
+        fail("serve-ckpt gguf load.main: the artifact's state is not load_gguf's")
+    sidecar = (gguf_art / "tokenizer.gguf").stat().st_size if (gguf_art / "tokenizer.gguf").is_file() else 0
+    if not sidecar:
+        fail("serve-ckpt gguf load.main: no tokenizer.gguf beside the artifact")
+    print(f"serve-ckpt gguf load.main: the Q4_0 file to an artifact of {run['artifact_bytes']} bytes in "
+          f"{run['run_s']:.2f} s (the weights dequantized on the card in {run['load_s']:.2f} s); its state bit for bit "
+          f"load_gguf's; tokenizer.gguf {sidecar} bytes beside it", flush=True)
+    del state
+    shutil.rmtree(gguf_art)
+    torch.cuda.empty_cache()
     print(f"serve-ckpt gguf: {size} bytes written in {write_s:.1f} s; load_gguf {load_s:.2f} s "
           f"({size / load_s / 1e9:.2f} GB/s of file), {compared} bytes bit for bit the writer's dequantization",
           flush=True)
@@ -3170,6 +3433,7 @@ def ckpt_gguf_part(card: str, tmp: Path) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"bytes": size, "write_s": write_s, "load_gguf_s": load_s, "load_gb_per_s": size / load_s / 1e9,
+            "load_main": run, "tokenizer_sidecar_bytes": sidecar,
             "serve_load_s": loads[0], "free_bytes_before": free, "tokens_per_byte": n_tokens / n_bytes,
             "launches": launches, "stats": stats, "same_as_source": same, "reference": reference}
 
@@ -3527,6 +3791,110 @@ def surface_profile(base: str, label: str) -> dict:
     return {"trace_bytes": len(trace), "kernel_mentions": found}
 
 
+# The traces of serve-surface: the child's own (TRACEPARENT) and two requests'.
+SURFACE_TRACE = ("5e" * 16, "a1" * 8)
+REQUEST_TRACES = ("7a" * 16, "7b" * 16)
+# The keys of the JAX server's /debug pages (substratus_tpu/serve/server.py).
+DEBUG_KEYS = {"/debug/tracez": {"traces", "latency_buckets", "buffered_spans", "dropped_spans"},
+              "/debug/requestz": {"inflight", "queue_depth", "journeys"},
+              "/debug/perfz": {"phases", "first_compile_seconds", "latencies", "occupancy", "train_phases", "engine"},
+              "/debug/slowz": {"slow", "total_breaching", "slo", "exemplars"},
+              "/debug/eventz": {"events", "dropped"}}
+
+
+def traceparent(trace_id: str, span_id: str = "cd" * 8) -> str:
+    return f"00-{trace_id}-{span_id}-01"
+
+
+def surface_trace(base: str, label: str) -> dict:
+    """Leg (e): two greedy requests, one whole and one streamed, each under
+    its own traceparent: x-trace-id is its trace id (the stream's with its
+    headers); /debug/tracez holds each trace rooted at serve.http with the
+    engine's spans beside it; /debug/requestz?id= gives each one's journey,
+    from submit through admit, its drains and speculative rounds to its
+    end; the other /debug pages answer with the JAX keys."""
+    prompt = "the pages of a long prompt decode the pages of a long prompt decode the pages of a long"
+    out = {}
+    for trace_id, stream in zip(REQUEST_TRACES, (False, True)):
+        body = {"prompt": prompt, "max_tokens": 48, "temperature": 0, "stream": stream}
+        status, headers, text = http(base, "/v1/completions", body, {"traceparent": traceparent(trace_id)})
+        if status != 200 or headers.get("x-trace-id") != trace_id:
+            fail(f"{label}: {'streamed' if stream else 'whole'} -> {status}, x-trace-id {headers.get('x-trace-id')}")
+    time.sleep(0.5)
+    pages = {}
+    for page, keys in DEBUG_KEYS.items():
+        status, _, text = http(base, page)
+        pages[page] = json.loads(text) if status == 200 else fail(f"{label}: {page} -> {status} {text[:200]}")
+        if set(pages[page]) != keys:
+            fail(f"{label}: {page} keys {sorted(pages[page])}, the JAX server's {sorted(keys)}")
+    traces = {tr["trace_id"]: tr for tr in pages["/debug/tracez"]["traces"]}
+    journeys = {}
+    for trace_id in REQUEST_TRACES:
+        tr = traces.get(trace_id)
+        if tr is None or tr["root"] != "serve.http" or tr["spans"] < 2 or tr["status"] != "ok":
+            fail(f"{label}: /debug/tracez has {tr} for trace {trace_id}")
+        status, _, text = http(base, f"/debug/requestz?id={trace_id}")
+        if status != 200:
+            fail(f"{label}: /debug/requestz?id={trace_id} -> {status} {text[:200]}")
+        j = json.loads(text)
+        types = [e[1] for e in j["journey"]["events"]]
+        need = ("submit", "admit", "prefill", "drain", "spec_round", "emit", "end")
+        if j["journey"]["trace_id"] != trace_id or types[0] != "submit" or types[-1] != "end" \
+                or any(t not in types for t in need) or not j["waterfall"] or not j["chrome_trace"]["traceEvents"]:
+            fail(f"{label}: the journey of {trace_id}: {types}")
+        journeys[trace_id] = {t: types.count(t) for t in dict.fromkeys(types)}
+    out = {"journeys": journeys, "spans_in_ring": pages["/debug/tracez"]["buffered_spans"],
+           "perfz_phases": sorted(pages["/debug/perfz"]["phases"])}
+    print(f"{label}: x-trace-id on the whole and the streamed request; /debug/tracez roots both at serve.http "
+          f"({out['spans_in_ring']} spans in the ring); their journeys by event type {journeys}; /debug/perfz, "
+          f"/slowz, /eventz, /requestz answer with the JAX keys", flush=True)
+    return out
+
+
+def surface_stepz(base: str, label: str) -> dict:
+    """/debug/stepz parses as a Chrome trace: the bubble totals by cause,
+    the floor estimate and the iterations of the child's run so far; and
+    /debug/eventz holds the profile capture's events."""
+    status, _, text = http(base, "/debug/stepz")
+    body = json.loads(text) if status == 200 else fail(f"{label}: /debug/stepz -> {status}")
+    iters = [e for e in body["traceEvents"] if e.get("name") == "iteration" and e.get("ph") == "X"]
+    bubble = body["otherData"]["bubble"]
+    if not iters or bubble["iterations"] < len(iters) or set(bubble["by_cause"]) != {
+            "host_overrun", "flush", "admission_stall", "pool_dry"}:
+        fail(f"{label}: /debug/stepz: {len(iters)} iteration events, {bubble}")
+    events = json.loads(http(base, "/debug/eventz")[2])["events"]
+    reasons = {e["reason"] for e in events}
+    if "ProfileCaptureStopped" not in reasons:
+        fail(f"{label}: /debug/eventz has no ProfileCaptureStopped: {reasons}")
+    out = {"bubble": bubble, "floor_estimate_s": body["otherData"]["floor_estimate_s"],
+           "iterations_recorded": len(iters)}
+    print(f"{label}: /debug/stepz over the child's run: {bubble['iterations']} iterations, floor estimate "
+          f"{out['floor_estimate_s']} s, gap {bubble['gap_s']} s, bubble seconds by cause {bubble['by_cause']} "
+          f"(attributed {bubble['attributed_frac']}); /debug/eventz {sorted(reasons)}", flush=True)
+    return out
+
+
+def surface_export(path: Path, label: str) -> dict:
+    """The child's span export at its exit: serve.start under the trace of
+    its TRACEPARENT, each request's serve.http with engine.prefill under
+    it."""
+    spans = [json.loads(ln) for ln in path.read_text().splitlines()] if path.exists() else []
+    start = [s for s in spans if s["name"] == "serve.start"]
+    if len(start) != 1 or (start[0]["trace_id"], start[0]["parent_id"]) != SURFACE_TRACE:
+        fail(f"{label}: the export holds serve.start {start} ({len(spans)} spans)")
+    names = {}
+    for trace_id in REQUEST_TRACES:
+        mine = [s for s in spans if s["trace_id"] == trace_id]
+        http_span = next((s for s in mine if s["name"] == "serve.http"), None)
+        if http_span is None or not any(s["name"] == "engine.prefill" and s["parent_id"] == http_span["span_id"]
+                                        for s in mine):
+            fail(f"{label}: the export's spans of {trace_id}: {[s['name'] for s in mine]}")
+        names[trace_id] = sorted(s["name"] for s in mine)
+    print(f"{label}: at exit {path.name} held {len(spans)} spans: serve.start under TRACEPARENT's trace, "
+          f"{names}", flush=True)
+    return {"spans": len(spans), "by_request": names}
+
+
 def surface_drain(child: SurfaceChild, base: str, label: str) -> dict:
     """Leg (c): SIGTERM during a 256-token stream: within 1 s readiness and
     /loadz 503 (draining), a new POST 503 with Retry-After; the stream ends
@@ -3572,8 +3940,10 @@ def surface_drain(child: SurfaceChild, base: str, label: str) -> dict:
 def serve_surface_phase(card: str, spec_step_ms=None) -> dict:
     """The container contract's serving surface at llama2-7b's full width:
     serve.main as a child process on a Q4_0 GGUF with a chat template, with
-    the throughput example's params, in four legs: (a) the contract,
-    (b) hot weight swaps, (d) /debug/profile, (c) the drain on SIGTERM."""
+    the throughput example's params, under TRACEPARENT with
+    SUBSTRATUS_TRACE_EXPORT, in five legs: (a) the contract, (e) the trace
+    and the /debug pages, (b) hot weight swaps, (d) /debug/profile, (c) the
+    drain on SIGTERM; then the export the child wrote at its exit."""
     import os
     import tempfile
 
@@ -3591,7 +3961,8 @@ def serve_surface_phase(card: str, spec_step_ms=None) -> dict:
         paths = write_surface_checkpoints(tmp)
         tok = tokenizer_from_gguf(str(paths["seed0"]))
         env = {**os.environ, "PROFILE_DIR": str(tmp / "profile"),
-               "PYTHONPATH": str(Path(__file__).resolve().parent) + os.pathsep + os.environ.get("PYTHONPATH", "")}
+               "PYTHONPATH": str(Path(__file__).resolve().parent) + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               "TRACEPARENT": traceparent(*SURFACE_TRACE), "SUBSTRATUS_TRACE_EXPORT": str(tmp / "spans.jsonl")}
         child = SurfaceChild(paths["seed0"], SURFACE_PARAMS, env)
         base, ready_s = child.wait_ready()
         print(f"{label}: serve.main ready in {ready_s:.1f} s (a child process: load, int4, engine, first request "
@@ -3618,9 +3989,11 @@ def serve_surface_phase(card: str, spec_step_ms=None) -> dict:
               f"mean decode round from the phase histogram {step_ms:.2f} ms over {int(decode[1])} rounds"
               + (f"; serve-spec (a) in this run: mean round {spec_step_ms[0]:.2f} ms, plain step "
                  f"{spec_step_ms[1]:.2f} ms" if spec_step_ms else ""), flush=True)
+        trace = surface_trace(base, f"{label} (e)")
         swap = surface_swap(base, paths, f"{label} (b)")
         profile = surface_profile(base, f"{label} (d)")
         time.sleep(0.5)
+        stepz = surface_stepz(base, f"{label} (e)")
         m1 = scrape(base)
         counts1 = surface_launches(m1)
         launches = {k: counts1.get(k, 0) - counts0.get(k, 0) for k in counts1}
@@ -3637,6 +4010,7 @@ def serve_surface_phase(card: str, spec_step_ms=None) -> dict:
               f"(prefill chunks, rounds and the verify graphs' warm-ups) of {7 * paths['n_layers'] + 1} each, none "
               "through q4_matmul.cu", flush=True)
         drain = surface_drain(child, base, f"{label} (c)")
+        export = surface_export(tmp / "spans.jsonl", f"{label} (e)")
     finally:
         if child is not None:
             child.stop()
@@ -3645,7 +4019,7 @@ def serve_surface_phase(card: str, spec_step_ms=None) -> dict:
     print(f"{label}: {wall:.1f} s", flush=True)
     return {"ready_s": ready_s, "contract": contract, "step_ms": step_ms, "decode_rounds": int(decode[1]),
             "swap": swap, "profile": profile, "drain": drain, "launches": by_design, "all_launches": launches,
-            "seconds": wall}
+            "trace": trace, "stepz": stepz, "export": export, "seconds": wall}
 
 
 # --- training: train.main and the Trainer ----------------------------------------
@@ -3834,6 +4208,91 @@ def profile_train_step(trainer, batch, label: str) -> dict:
     return out
 
 
+# The resumed train.main call's profile window (steps 4 and 5) and trace.
+TRAIN_PROFILE = [4, 5]
+TRAIN_TRACE = ("7ea1" * 8, "5b" * 8)
+
+
+class _Tee:
+    """stdout that also keeps what is written."""
+
+    def __init__(self, stream):
+        self.stream, self.text = stream, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.stream.write(s)
+
+    def flush(self):
+        self.stream.flush()
+
+
+class traced_run:
+    """With TRACEPARENT set to `tp` (unless None) and stdout kept: the
+    context's value is the list of lines written."""
+
+    def __init__(self, tp):
+        self.tp, self.lines = tp, []
+
+    def __enter__(self):
+        import os
+
+        self.old = os.environ.get("TRACEPARENT")
+        if self.tp is not None:
+            os.environ["TRACEPARENT"] = self.tp
+        self.tee = _Tee(sys.stdout)
+        sys.stdout = self.tee
+        return self.lines
+
+    def __exit__(self, *exc):
+        import os
+
+        sys.stdout = self.tee.stream
+        self.lines.extend("".join(self.tee.text).splitlines())
+        if self.tp is not None:
+            if self.old is None:
+                os.environ.pop("TRACEPARENT", None)
+            else:
+                os.environ["TRACEPARENT"] = self.old
+        return False
+
+
+def step_seconds_count() -> int:
+    """The steps substratus_train_step_seconds has counted in this process."""
+    from substratus_tpu_torch.observability.metrics import METRICS
+
+    return METRICS.histogram_series("substratus_train_step_seconds").get("", {}).get("count", 0)
+
+
+def train_trace_checks(out: Path, res: dict, lines, counted: int, label: str) -> dict:
+    """The resumed call's telemetry: the profile window's trace names the
+    flash forward and both backward kernels; trace.jsonl holds train.run
+    under TRACEPARENT's trace; each progress line carries the trace id; the
+    registry counted each step once in substratus_train_step_seconds."""
+    window, trace_path = res["profile_window"], res["profile_trace"]
+    if window != tuple(TRAIN_PROFILE) or trace_path is None or not Path(trace_path).is_file():
+        fail(f"{label}: profile window {window}, trace {trace_path}")
+    trace = Path(trace_path).read_text()
+    names = ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel")
+    found = {n: trace.count(n) for n in names}
+    if not all(found.values()):
+        fail(f"{label}: the profile of steps {window} names {found} ({len(trace)} bytes)")
+    spans = [json.loads(ln) for ln in (out / "trace.jsonl").read_text().splitlines()]
+    run = [s for s in spans if s["name"] == "train.run" and s["trace_id"] == TRAIN_TRACE[0]]
+    if len(run) != 1 or run[0]["parent_id"] != TRAIN_TRACE[1]:
+        fail(f"{label}: trace.jsonl's train.run spans {[s for s in spans if s['name'] == 'train.run']}")
+    progress = [json.loads(ln) for ln in lines if ln.startswith('{"event":"train_step"')]
+    if not progress or any(ln.get("trace_id") != TRAIN_TRACE[0] for ln in progress):
+        fail(f"{label}: progress lines {progress}")
+    if counted != len(res["losses"]):
+        fail(f"{label}: substratus_train_step_seconds counted {counted} steps, {len(res['losses'])} ran")
+    print(f"{label}: the resumed call's profile of steps {window[0]}..{window[1]}: {len(trace)} bytes naming {found}; "
+          f"train.run under TRACEPARENT's trace in trace.jsonl; {len(progress)} progress lines with its trace id; "
+          f"substratus_train_step_seconds counted its {counted} steps", flush=True)
+    return {"profile_window": list(window), "profile_trace_bytes": len(trace), "kernel_mentions": found,
+            "progress_lines": len(progress), "step_seconds_count": counted}
+
+
 def _step_stats(seconds, step_log) -> dict:
     """Median step seconds after the first (which warms up), and the
     tokens/s and MFU of train/telemetry.py's StepLogger at that median."""
@@ -3851,6 +4310,7 @@ def train_phase(card: str, profile_steps: bool = False) -> dict:
     import numpy as np
     import torch
 
+    from substratus_tpu_torch.load.dataset import main as dataset_main
     from substratus_tpu_torch.models import llama
     from substratus_tpu_torch.ops.flash_attention import flash_attention
     from substratus_tpu_torch.train import main as train_main
@@ -3863,9 +4323,15 @@ def train_phase(card: str, profile_steps: bool = False) -> dict:
     torch.cuda.empty_cache()
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
     try:
-        (tmp / "data").mkdir()
-        # A seeded token stream over the vocabulary: 2M tokens, 1953 blocks.
-        np.save(tmp / "data" / "corpus.npy", np.random.default_rng(0).integers(0, 32000, 2_000_000, dtype=np.int32))
+        (tmp / "src").mkdir()
+        # A seeded token stream over the vocabulary: 2M tokens, 1953 blocks,
+        # imported into the data directory by the dataset loader's files
+        # source, as the container contract's dataset step does.
+        np.save(tmp / "src" / "corpus.npy", np.random.default_rng(0).integers(0, 32000, 2_000_000, dtype=np.int32))
+        (tmp / "dataset.json").write_text(json.dumps({"files": [str(tmp / "src" / "corpus.npy")]}))
+        if dataset_main(["--out", str(tmp / "data"), "--params", str(tmp / "dataset.json")]) != 0 or \
+                (tmp / "data" / "corpus.npy").read_bytes() != (tmp / "src" / "corpus.npy").read_bytes():
+            fail("train: load.dataset did not import the corpus")
         free_gb = shutil.disk_usage(tmp).free / 1e9
         p = TRAIN_PARAMS
         cfg = llama.CONFIGS[p["config"]]
@@ -3900,11 +4366,19 @@ def train_phase(card: str, profile_steps: bool = False) -> dict:
         runs = []
         for steps in TRAIN_STEPS:
             params_path = tmp / f"params_{steps}.json"
-            params_path.write_text(json.dumps(dict(p, steps=steps)))
+            resumed = steps != TRAIN_STEPS[0]
+            # The resumed call: a profile window over its two steps, under
+            # TRACEPARENT, its progress lines kept.
+            params_path.write_text(json.dumps(dict(p, steps=steps, **({"profile_steps": TRAIN_PROFILE} if resumed
+                                                                       else {}))))
             _zero_train_counts()
             torch.cuda.reset_peak_memory_stats()
-            res = train_main.run(["--data", str(tmp / "data"), "--out", str(tmp / "out"),
-                                  "--params", str(params_path)])
+            counted = step_seconds_count()
+            with traced_run(traceparent(*TRAIN_TRACE) if resumed else None) as lines:
+                res = train_main.run(["--data", str(tmp / "data"), "--out", str(tmp / "out"),
+                                      "--params", str(params_path)])
+            if resumed:
+                telemetry = train_trace_checks(tmp / "out", res, lines, step_seconds_count() - counted, "train")
             launches = _train_launches()
             n = len(res["losses"])
             want = {"flash_fwd": 64 * n, "flash_fwd_all": 64 * n, "flash_bwd_dq": 32 * n, "flash_bwd_dq_all": 32 * n,
@@ -3956,7 +4430,8 @@ def train_phase(card: str, profile_steps: bool = False) -> dict:
           f"{r0['artifact_s']:.1f} s, reloaded in {load_s:.1f} s, logits max|diff| {reload_err}; "
           f"{free_gb:.0f} GB were free", flush=True)
     return {"runs": runs, "grad_check": grads, "nograd_loss": nograd_loss, "artifact_bytes": artifact_bytes,
-            "artifact_load_s": load_s, "launches": r0["launches"], "served_artifact": served, "profile": profiled}
+            "artifact_load_s": load_s, "launches": r0["launches"], "served_artifact": served, "profile": profiled,
+            "telemetry": telemetry}
 
 
 def serve_artifact(path: Path, merged) -> dict:
@@ -4429,7 +4904,10 @@ BATCHGEN_PARAMS = {"quantize": "int8", "max_batch": 16}
 BATCHGEN_MAX_TOKENS = 128
 BATCHGEN_KILL_AT = 16  # leg (b): durable records before the SIGKILL
 BATCHGEN_REFERENCE = 8  # greedy records held by the single-shot reference in legs (a) and (c)
-BATCHGEN_TEXT_LENS = (16, 40, 100, 200, 400, 700, 1000)  # byte-tokens (1 + bytes) of the text prompts, in turn
+BATCHGEN_TEXT_LENS = (16, 40, 100, 200, 400, 700, 1000)
+# The phase's depth: llama2-7b's width at 16 of its 32 layers (cut so that
+# the default run stays under 1100 s with the observability legs).
+BATCHGEN_LAYERS = 16  # byte-tokens (1 + bytes) of the text prompts, in turn
 
 
 def batchgen_records() -> list:
@@ -4582,7 +5060,8 @@ def batchgen_reference(engine, recs: list, got: dict, label: str) -> dict:
 
 
 def serve_batchgen_phase(card: str) -> dict:
-    """The batch-generation example at llama2-7b width: its params through
+    """The batch-generation example at llama2-7b width (BATCHGEN_LAYERS
+    deep): its params through
     python -m substratus_tpu_torch.serve.batchgen as a child on a seeded HF
     directory (leg a), a SIGKILL and a rerun (leg b), the same manifest on
     the dense layout in-process (leg c), and one replayed step of the
@@ -4609,13 +5088,14 @@ def serve_batchgen_phase(card: str) -> dict:
     env = {**os.environ,
            "PYTHONPATH": str(Path(__file__).resolve().parent) + os.pathsep + os.environ.get("PYTHONPATH", "")}
     try:
-        cfg = llama.CONFIGS["llama2-7b"]
+        cfg = llama.CONFIGS["llama2-7b"].replace(n_layers=BATCHGEN_LAYERS)
         source = llama.init_params(cfg, seed=0, device="cuda")
-        disk_room(tmp, 13_500_000_000, label)
+        disk_room(tmp, 13_500_000_000 * BATCHGEN_LAYERS // 32, label)
         t0 = time.perf_counter()
         written = write_hf(str(tmp / "llama2-7b"), source)
-        print(f"{label}: llama2-7b (seed 0, bf16) written as {len(written['files'])} safetensors shards, "
-              f"{written['bytes']} bytes in {time.perf_counter() - t0:.1f} s", flush=True)
+        print(f"{label}: llama2-7b at {BATCHGEN_LAYERS} of its 32 layers (seed 0, bf16) written as "
+              f"{len(written['files'])} safetensors shards, {written['bytes']} bytes in {time.perf_counter() - t0:.1f} s",
+              flush=True)
         del source
         gc.collect()
         torch.cuda.empty_cache()
@@ -4711,8 +5191,9 @@ def serve_batchgen_phase(card: str) -> dict:
         launches = {c.__name__: launched(engine, c) for c in counters}
         got_c = batchgen_shards(tmp / "out-c")
         check_batchgen_output(got_c, recs, f"{label} (c)")
-        want = {"flash_attention": 32 * stats["prefills"], "flash_cached_attention": 32 * stats["prefill_chunks"],
-                "decode_attention": 32 * stats["decode_steps"]}
+        L = cfg.n_layers
+        want = {"flash_attention": L * stats["prefills"], "flash_cached_attention": L * stats["prefill_chunks"],
+                "decode_attention": L * stats["decode_steps"]}
         if launches != want or not all(want.values()) or stats["graph_replays"] != stats["decode_steps"]:
             fail(f"{label} (c): launches {launches}, want {want} (stats {stats})")
         same = sum(got_c[i][0]["tokens"] == got_a[i][0]["tokens"] for i in got_a)

@@ -1,0 +1,264 @@
+"""Engine step timeline: a bounded per-iteration flight recorder with
+pipeline-bubble attribution (the port's own copy of
+substratus_tpu/observability/timeline.py).
+
+The overlapped scheduler (docs/performance.md "Overlapped scheduling")
+made steady-state inter-token latency ``max(device_step, host_work)``
+— which means any residual gap above the device window is a *bubble*
+the pipeline failed to hide, and nothing in the phase histograms says
+WHY. This recorder closes that: the engine reports one record per
+scheduler iteration (dispatch/drain/flush/admission timings, slot
+occupancy), and the recorder attributes each iteration's gap over the
+device floor to a cause:
+
+  * ``host_overrun`` — the deferred drain + dispatch host work did not
+    fit under the device window (the overlap win eroding);
+  * ``flush`` — a metered pipeline flush (spec/gang/handoff/drain/
+    preempt) forced a synchronous drain, idling the device;
+  * ``admission_stall`` — prefill/admission ran while decodes waited;
+  * ``pool_dry`` — admission held a request because the KV pool was
+    dry (capacity, not host speed).
+
+The attribution feeds ``substratus_serve_pipeline_bubble_seconds``
+(counter, by cause) so a scrape can alert on host-path regressions,
+and the ring renders as Chrome-trace JSON on ``GET /debug/stepz``
+(load chrome://tracing or Perfetto on the payload).
+
+The device floor: the configured ``step_floor_s`` when the engine
+simulates a device window (CPU bench/smoke), else the minimum
+iteration wall over a sliding window — self-calibrating against the
+best the hardware recently did, so production bubbles are measured
+against reality, not a config guess.
+
+Thread contract: ``record_iteration`` is called by the engine
+scheduler thread only; readers (``/debug/stepz``, the bench) snapshot
+under the same lock.
+"""
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from typing import Dict, List, Optional, Sequence
+
+from substratus_tpu_torch.observability.metrics import METRICS
+
+METRICS.describe(
+    "substratus_serve_pipeline_bubble_seconds",
+    "Scheduler-iteration time above the device-step floor, attributed "
+    "by cause (host_overrun|flush|admission_stall|pool_dry): the gap "
+    "the overlapped pipeline failed to hide "
+    "(docs/performance.md \"Pipeline-bubble attribution\").",
+    type="counter",
+)
+
+BUBBLE_CAUSES = ("host_overrun", "flush", "admission_stall", "pool_dry")
+
+
+class StepTimeline:
+    """Bounded ring of per-iteration step records + bubble accounting."""
+
+    def __init__(self, capacity: int = 512, floor_window: int = 64):
+        if capacity < 1 or floor_window < 1:
+            raise ValueError(
+                f"invalid timeline shape: capacity={capacity} "
+                f"floor_window={floor_window}"
+            )
+        self._lock = threading.Lock()
+        self._ring: deque = deque(maxlen=capacity)
+        self._walls: deque = deque(maxlen=floor_window)
+        self._seq = 0
+        self._totals: Dict[str, float] = {c: 0.0 for c in BUBBLE_CAUSES}
+        self._gap_s = 0.0
+        self._unattributed_s = 0.0
+        # Epoch pair: perf_counter timestamps in records map onto the
+        # wall clock for Chrome-trace ts values.
+        self._epoch_perf = time.perf_counter()
+        self._epoch_wall = time.time()
+
+    # -- writer (engine scheduler thread) ---------------------------------
+
+    def record_iteration(
+        self,
+        *,
+        t_start: float,
+        wall_s: float,
+        admit_s: float = 0.0,
+        admitted: int = 0,
+        dispatch_s: float = 0.0,
+        drain_s: float = 0.0,
+        drain_off_s: float = 0.0,
+        flush_s: float = 0.0,
+        flush_reasons: Sequence[str] = (),
+        pool_dry: bool = False,
+        active_slots: int = 0,
+        max_slots: int = 1,
+        configured_floor_s: float = 0.0,
+    ) -> dict:
+        """Record one scheduler iteration and attribute its bubble.
+
+        Attribution walks the causes in blame order — flush first (a
+        metered stall is the most specific explanation), then
+        admission (pool_dry when the iteration held a request for
+        pages), and the remainder to host_overrun whenever host work
+        (dispatch/drain) actually ran this iteration. Anything left
+        (an iteration that idled for none of the known reasons) is
+        kept visible as ``unattributed`` rather than misfiled.
+        """
+        wall_s = max(0.0, float(wall_s))
+        with self._lock:
+            self._walls.append(wall_s)
+            if configured_floor_s > 0.0:
+                floor_s = float(configured_floor_s)
+            else:
+                floor_s = min(self._walls)
+            gap = max(0.0, wall_s - floor_s)
+            remaining = gap
+            bubble: Dict[str, float] = {}
+
+            def take(cause: str, amount: float) -> None:
+                nonlocal remaining
+                part = min(remaining, max(0.0, amount))
+                if part <= 0.0:
+                    return
+                bubble[cause] = bubble.get(cause, 0.0) + part
+                self._totals[cause] += part
+                remaining -= part
+
+            take("flush", flush_s)
+            if pool_dry or admitted:
+                # An empty-queue admission check costs microseconds and
+                # is not a stall; only iterations that actually boarded
+                # someone (or held a request for pages) bill admission.
+                take("pool_dry" if pool_dry else "admission_stall",
+                     admit_s)
+            if remaining > 0.0 and (drain_s > 0.0 or dispatch_s > 0.0):
+                take("host_overrun", remaining)
+            self._gap_s += gap
+            self._unattributed_s += remaining
+            self._seq += 1
+            rec = {
+                "seq": self._seq,
+                "t_start": round(t_start - self._epoch_perf, 6),
+                "wall_s": round(wall_s, 6),
+                "floor_s": round(floor_s, 6),
+                "gap_s": round(gap, 6),
+                "admit_s": round(admit_s, 6),
+                "admitted": int(admitted),
+                "dispatch_s": round(dispatch_s, 6),
+                "drain_s": round(drain_s, 6),
+                "drain_off_s": round(drain_off_s, 6),
+                "flush_s": round(flush_s, 6),
+                "flush_reasons": list(flush_reasons),
+                "pool_dry": bool(pool_dry),
+                "active_slots": int(active_slots),
+                "occupancy": round(int(active_slots) / max(1, max_slots), 4),
+                "bubble": {c: round(v, 6) for c, v in bubble.items()},
+                "unattributed_s": round(remaining, 6),
+            }
+            self._ring.append(rec)
+        for cause, part in bubble.items():
+            METRICS.inc(
+                "substratus_serve_pipeline_bubble_seconds",
+                {"cause": cause}, by=part,
+            )
+        return rec
+
+    # -- readers (debug endpoints, bench) ---------------------------------
+
+    def records(self) -> List[dict]:
+        with self._lock:
+            return [dict(r) for r in self._ring]
+
+    def bubble_totals(self) -> dict:
+        """Lifetime accounting (NOT bounded by the ring): per-cause
+        bubble seconds, the total measured gap, what stayed
+        unattributed, and the iteration count."""
+        with self._lock:
+            attributed = sum(self._totals.values())
+            return {
+                "by_cause": {c: round(v, 6) for c, v in self._totals.items()},
+                "attributed_s": round(attributed, 6),
+                "gap_s": round(self._gap_s, 6),
+                "unattributed_s": round(self._unattributed_s, 6),
+                "attributed_frac": (
+                    round(attributed / self._gap_s, 4)
+                    if self._gap_s > 0.0 else 1.0
+                ),
+                "iterations": self._seq,
+            }
+
+    def floor_estimate(self) -> Optional[float]:
+        with self._lock:
+            return min(self._walls) if self._walls else None
+
+    def chrome_trace(self) -> dict:
+        """The ring as Chrome-trace JSON (``chrome://tracing`` /
+        Perfetto load this directly). tid 0 = the scheduler iteration
+        spans; tid 1 = host-side sub-spans (admission, deferred drain,
+        flushes — placed at their measured offsets where known)."""
+        with self._lock:
+            recs = [dict(r) for r in self._ring]
+            totals = {c: round(v, 6) for c, v in self._totals.items()}
+            epoch_wall = self._epoch_wall
+        events: List[dict] = [
+            {"name": "process_name", "ph": "M", "pid": 0,
+             "args": {"name": "substratus-serve engine"}},
+            {"name": "thread_name", "ph": "M", "pid": 0, "tid": 0,
+             "args": {"name": "scheduler iterations"}},
+            {"name": "thread_name", "ph": "M", "pid": 0, "tid": 1,
+             "args": {"name": "host work (admit/drain/flush)"}},
+        ]
+        for r in recs:
+            ts = r["t_start"] * 1e6
+            events.append({
+                "name": "iteration", "cat": "engine", "ph": "X",
+                "pid": 0, "tid": 0, "ts": round(ts, 1),
+                "dur": round(r["wall_s"] * 1e6, 1),
+                "args": {
+                    "seq": r["seq"],
+                    "floor_ms": round(r["floor_s"] * 1e3, 3),
+                    "gap_ms": round(r["gap_s"] * 1e3, 3),
+                    "bubble": r["bubble"],
+                    "active_slots": r["active_slots"],
+                    "occupancy": r["occupancy"],
+                    "admitted": r["admitted"],
+                    "flush_reasons": r["flush_reasons"],
+                },
+            })
+            if r["admit_s"] > 0.0:
+                events.append({
+                    "name": "admit", "cat": "host", "ph": "X",
+                    "pid": 0, "tid": 1, "ts": round(ts, 1),
+                    "dur": round(r["admit_s"] * 1e6, 1),
+                    "args": {"admitted": r["admitted"],
+                             "pool_dry": r["pool_dry"]},
+                })
+            if r["drain_s"] > 0.0:
+                events.append({
+                    "name": "drain", "cat": "host", "ph": "X",
+                    "pid": 0, "tid": 1,
+                    "ts": round(ts + r["drain_off_s"] * 1e6, 1),
+                    "dur": round(r["drain_s"] * 1e6, 1),
+                    "args": {},
+                })
+            if r["flush_s"] > 0.0:
+                events.append({
+                    "name": "flush:" + ",".join(r["flush_reasons"]),
+                    "cat": "host", "ph": "X", "pid": 0, "tid": 1,
+                    # Flushes interleave dispatch/admission; the record
+                    # carries only their summed duration, so the span is
+                    # placed at the iteration start (approximate).
+                    "ts": round(ts, 1),
+                    "dur": round(r["flush_s"] * 1e6, 1),
+                    "args": {"reasons": r["flush_reasons"]},
+                })
+        return {
+            "traceEvents": events,
+            "displayTimeUnit": "ms",
+            "otherData": {
+                "epoch_unix_s": round(epoch_wall, 3),
+                "iterations_recorded": len(recs),
+                "bubble_totals_s": totals,
+            },
+        }

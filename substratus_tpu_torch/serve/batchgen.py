@@ -534,6 +534,8 @@ def main(argv=None) -> int:
 
     import torch
 
+    from substratus_tpu_torch.observability.propagation import context_from_env
+    from substratus_tpu_torch.observability.tracing import tracer
     from substratus_tpu_torch.serve.engine import Engine, EngineConfig
     from substratus_tpu_torch.serve.main import (
         build_adapter_store, check_params, load_model, load_params_json, resolve_kv_layout, resolve_overlap,
@@ -602,7 +604,10 @@ def main(argv=None) -> int:
             records_per_shard=args.records_per_shard or int(bg.get("recordsPerShard", 10000)),
             resume=not args.no_resume,
         )
-        summary = batch.run()
+        # Joins the spawner's trace (the TRACEPARENT variable), as the JAX
+        # entry point does.
+        with tracer.span("batchgen.run", parent=context_from_env(), manifest=manifest, records=batch.total):
+            summary = batch.run()
         print(json.dumps(summary), flush=True)
     except RuntimeError as e:
         print(json.dumps({"error": str(e)}), flush=True)

@@ -91,9 +91,25 @@ the adapter id, so pages never cross tenants. The store's device tensors
 are written in place by this thread (AdapterStore.sync, before each
 admission's prefill and each iteration), so no graph is captured again.
 
+Forensics, as the JAX engine records them, all host clocks and host
+integers the scheduler already holds (no device read is added, and nothing
+enters a captured graph): each Request carries a RequestJourney
+(observability/journey.py), made at submit under the submitter's span
+context and stamped at the JAX engine's sites (admit, prefill, prefix
+hit, the pool's and the adapter store's waits, preemption, flushes, each
+drain and speculative round at the drain, each emit, the end); a finished
+journey lands in the engine's JourneyLog (/debug/requestz?id=) and, when
+it breached an SLO, in its SlowRing (/debug/slowz). Each scheduler
+iteration that decodes is one record of the engine's StepTimeline
+(observability/timeline.py, /debug/stepz), its time above the device
+floor attributed to flushes, admission, a dry pool or host overrun.
+Admission's prefill runs in an "engine.prefill" span under the request's
+context, passed explicitly across the thread hop; the first decode
+iteration in "engine.first_compile".
+
 Not ported yet (ROADMAP Queue 1): disaggregated roles with their page
-export and import, lockstep gangs, and request journeys and the step
-timeline (item 3b); EngineConfig has none of their fields.
+export and import, and lockstep gangs; EngineConfig has none of their
+fields.
 """
 from __future__ import annotations
 
@@ -114,8 +130,11 @@ import torch
 from torch import nn
 
 from substratus_tpu_torch.models import registry
+from substratus_tpu_torch.observability.journey import JourneyLog, RequestJourney, SlowRing
 from substratus_tpu_torch.observability.metrics import METRICS, RATIO_BUCKETS
 from substratus_tpu_torch.observability.sketch import SLOTracker
+from substratus_tpu_torch.observability.timeline import StepTimeline
+from substratus_tpu_torch.observability.tracing import SpanContext, tracer
 from substratus_tpu_torch.ops.decode_attention import pack_fragment
 from substratus_tpu_torch.ops.headdim import check_head_dim, head_dim_route
 from substratus_tpu_torch.ops.sampling import sample
@@ -237,11 +256,12 @@ class _StagedSwap:
     outcome back across the thread boundary (written before `done` is
     set)."""
 
-    __slots__ = ("state", "version", "done", "applied", "error")
+    __slots__ = ("state", "version", "source", "done", "applied", "error")
 
-    def __init__(self, state: Dict[str, object], version: Optional[int]):
+    def __init__(self, state: Dict[str, object], version: Optional[int], source: str = "swap"):
         self.state = state
         self.version = version
+        self.source = source  # the journey event in-flight requests record: "swap" or "rollout"
         self.done = threading.Event()
         self.applied: Optional[int] = None
         self.error: Optional[BaseException] = None
@@ -288,6 +308,11 @@ class EngineConfig:
     # sketches ride load_snapshot() (/loadz).
     slo_ttft_s: float = 2.0
     slo_inter_token_s: float = 0.25
+    # Request-journey forensics (observability/journey.py): each request's
+    # lifecycle event ring and the /debug/slowz ring of SLO-breaching
+    # journeys. Pure host work on the scheduler thread, so it stays on.
+    journey_events: int = 256
+    slow_journeys: int = 32
     # The JAX engine's bench and test knob: the least wall time of a decode
     # iteration and of a prefill chunk (a simulated device step, so that a
     # CPU run of a tiny model lasts long enough to be interrupted). 0 = off.
@@ -321,6 +346,12 @@ class Request:
     # store slot pinned for it while it holds a decode slot (0 = identity).
     adapter: Optional[str] = None
     adapter_slot: int = 0
+    # The submitter's span context (taken at submit on the submitting
+    # thread), the parent of the engine's spans on the scheduler thread;
+    # and the request's lifecycle journey, made at submit under its trace
+    # id and copied into the engine's JourneyLog when it ends.
+    trace_ctx: Optional[SpanContext] = None
+    journey: Optional[RequestJourney] = None
 
 
 @dataclass
@@ -335,6 +366,7 @@ class _InFlightStep:
     read: Callable[[], np.ndarray]  # waits for this step's tokens, host copy [B]
     slots: List[Tuple[int, "Request"]]
     pos_next: np.ndarray
+    t_dispatch: float = 0.0  # host clock at the launch (a journey's drain latency)
 
 
 @dataclass
@@ -351,6 +383,7 @@ class _InFlightSpecStep:
     tried: np.ndarray  # host [B] planned a proposal (the EWMA decays on a lookup miss)
     greedy: np.ndarray  # host [B] rows of the accept walk
     slots: List[Tuple[int, "Request"]]
+    t_dispatch: float = 0.0  # host clock at the launch (a journey's drain latency)
 
 
 def _bucket(n: int, lo: int = 16) -> int:
@@ -574,6 +607,22 @@ class Engine:
         self._load_seq = itertools.count(1)
         self.weights_version = 0
         self._swap_q: "queue.Queue[_StagedSwap]" = queue.Queue()
+        # Forensics: the step timeline (written by the scheduler thread
+        # only; /debug/stepz reads it), the finished journeys
+        # (/debug/requestz?id=) and the SLO-breaching ones (/debug/slowz),
+        # both read by HTTP threads under their own locks. The _tl_
+        # accumulators are the scheduler thread's scratch for the
+        # iteration's record, reset at each loop top.
+        self.timeline = StepTimeline()
+        self.journey_log = JourneyLog()
+        self.slow = SlowRing(ec.slow_journeys)
+        self._tl_iter_t0 = 0.0
+        self._tl_flush_s = 0.0
+        self._tl_flush_reasons: List[str] = []
+        self._tl_dispatch_s = 0.0
+        self._tl_drain_s = 0.0
+        self._tl_drain_off_s = 0.0
+        self._tl_pool_dry = False
 
     # --- public API -------------------------------------------------------
 
@@ -598,6 +647,14 @@ class Engine:
             # server answers 404 before anything is queued.
             raise UnknownAdapter(req.adapter)
         req.submit_ts = time.perf_counter()
+        if req.trace_ctx is None:
+            # Taken on the submitting thread: the scheduler thread has no
+            # span of the request's.
+            req.trace_ctx = tracer.current_context()
+        if req.journey is None:
+            req.journey = RequestJourney(trace_id=req.trace_ctx.trace_id if req.trace_ctx else None,
+                                         rid=req.id or None, origin="both", cap=self.ec.journey_events)
+        req.journey.record("submit", queue=self.queue.qsize(), prompt_tokens=len(req.prompt_tokens))
         self.queue.put(req)
         self._wake.set()
         if self.error is not None:
@@ -628,7 +685,8 @@ class Engine:
         s, hd = self.cache["k"].shape[3:]
         return f"{route}; dense cache laid out {s} rows x head_dim {hd}"
 
-    def swap_params(self, new_params, version: Optional[int] = None, *, timeout_s: float = 120.0) -> int:
+    def swap_params(self, new_params, version: Optional[int] = None, *, source: str = "swap",
+                    timeout_s: float = 120.0) -> int:
         """Hot weight-swap: serve `new_params` (a module of the served
         model's structure, or its state dict) on the live engine.
 
@@ -646,7 +704,9 @@ class Engine:
         in-flight streams keep their own pages, positions and generator,
         so a swap to value-identical weights is token-exact across the
         boundary. The draft model is not swapped. The version becomes
-        `version`, or the current one + 1.
+        `version`, or the current one + 1; each in-flight request's journey
+        records a `source` event ("swap", or "rollout" for a controller's
+        rolling swap).
 
         Blocks until the scheduler applied the swap and returns the new
         version."""
@@ -675,7 +735,9 @@ class Engine:
             raise ValueError(f"swap_params rejected: {mismatch}; matching structure is what keeps every captured "
                              "graph valid: load a checkpoint of the served architecture (or drain and restart for a "
                              "different one)")
-        sw = _StagedSwap(new, version)
+        if source not in ("swap", "rollout"):
+            raise ValueError(f"swap source {source!r} invalid (swap or rollout)")
+        sw = _StagedSwap(new, version, source)
         self._swap_q.put(sw)
         self._wake.set()
         deadline = time.monotonic() + timeout_s
@@ -709,6 +771,9 @@ class Engine:
         self.weights_version = version
         METRICS.inc("substratus_serve_weight_swaps_total", {"outcome": "applied"})
         METRICS.set("substratus_serve_weights_version", version)
+        for req in self.slot_req:
+            if req is not None and req.journey is not None:
+                req.journey.record(sw.source, version=version)
         sw.applied = version
         sw.done.set()
 
@@ -861,6 +926,8 @@ class Engine:
             if verdict == "wait":
                 # Transient: every adapter slot is pinned by an active
                 # request. Hold it at the front; decoding slots will unpin.
+                if req.journey is not None:
+                    req.journey.record_once("adapter_wait")
                 self._admitting = None
                 self._resume.insert(0, req)
                 break
@@ -869,19 +936,31 @@ class Engine:
             # request boarding again (last_emit_ts set) already paid it.
             if req.submit_ts and not req.last_emit_ts:
                 METRICS.observe("substratus_serve_queue_wait_seconds", time.perf_counter() - req.submit_ts)
+            if req.journey is not None:
+                wait_us = int((time.perf_counter() - req.submit_ts) * 1e6) if req.submit_ts and not req.last_emit_ts \
+                    else 0
+                req.journey.record("admit", slot=slot, wait_us=wait_us)
             t_prefill = time.perf_counter()
-            if self.paged:
-                ok = self._admit_paged(req, slot)
-            else:
-                self._admit_dense(req, slot)
-                ok = True
+            # The request's context crosses from its submitter's thread
+            # here, as an explicit parent.
+            with tracer.span("engine.prefill", parent=req.trace_ctx, request_id=req.id, slot=slot,
+                             prompt_tokens=len(req.prompt_tokens)):
+                if self.paged:
+                    ok = self._admit_paged(req, slot)
+                else:
+                    self._admit_dense(req, slot)
+                    ok = True
             METRICS.observe("substratus_serve_phase_seconds", time.perf_counter() - t_prefill, {"phase": "prefill"})
             self._admitting = None
             if not ok:
                 # Pool dry: the adapter pin drops too; boarding again
-                # acquires it again.
+                # acquires it again. The timeline bills this iteration's
+                # admission to capacity (pool_dry), not to host speed.
+                if req.journey is not None:
+                    req.journey.record_once("pool_wait")
                 self._release_adapter_pin(req)
                 self._resume.insert(0, req)
+                self._tl_pool_dry = True
                 break
             admitted += 1
         self.stats["max_active"] = max(self.stats["max_active"], int(self.active.sum()))
@@ -910,6 +989,7 @@ class Engine:
             logging.getLogger(__name__).warning("adapter %r failed to load for request %s: %s", req.adapter,
                                                 req.id, e)
             req.finish_reason = "error"
+            self._journey_end(req, "error", cause="adapter")
             req.out.put(None)
             return "dead"
 
@@ -955,6 +1035,8 @@ class Engine:
             last_logits = self._chunked_prefill(prompt, slot, lora)
         self.stats["prefill_tokens"] += true_len
         METRICS.inc("substratus_serve_prefill_tokens_total", by=true_len)
+        if req.journey is not None:
+            req.journey.record("prefill", tokens=true_len, chunks=max(1, -(-true_len // self.ec.max_prefill_len)))
         self._finalize_admit(req, slot, last_logits, true_len)
         # _finalize_admit's host read of the first token ends the prefill.
         self.stats["prefill_seconds"] += time.perf_counter() - t0
@@ -1057,6 +1139,11 @@ class Engine:
         METRICS.inc("substratus_serve_prefill_tokens_total", by=true_len - reuse)
         if reuse:
             METRICS.inc("substratus_serve_prefix_hit_tokens_total", by=reuse)
+        if req.journey is not None:
+            if reuse:
+                req.journey.record("prefix_hit", tokens=reuse)
+            req.journey.record("prefill", tokens=true_len - reuse,
+                               chunks=max(1, -(-(true_len - reuse) // self.ec.max_prefill_len)))
         n_full = true_len // bs
         if self.prefix is not None and n_full:
             self.prefix.register(entries[:n_full], pages[:n_full])
@@ -1217,6 +1304,8 @@ class Engine:
         gen = self.slot_tokens[victim]
         req.prompt_tokens = list(req.prompt_tokens) + gen
         req.max_tokens -= len(gen)
+        if req.journey is not None:
+            req.journey.record("preempt", generated=len(gen))
         self._release_slot(victim)
         self._resume.insert(0, req)
         self.stats["preemptions"] += 1
@@ -1247,6 +1336,7 @@ class Engine:
                 if victim is None:
                     req = self.slot_req[slot]
                     req.finish_reason = "length"
+                    self._journey_end(req, "length", cause="pool")
                     req.out.put(None)
                     self._release_slot(slot)
                     self.stats["truncated_by_pool"] += 1
@@ -1367,6 +1457,7 @@ class Engine:
         graph = self._decode_graph()
         # With nothing in flight every row takes the host's token and position.
         fresh = self._token_fresh if self._pending is not None else np.ones_like(self._token_fresh)
+        t_dispatch = time.perf_counter()
         read = graph.launch(self.tokens, self.positions, self.temps, self.top_ps, fresh, k_eff, greedy, width,
                             props=lookup, **self._step_inputs())
         if width > 1:
@@ -1377,7 +1468,8 @@ class Engine:
         self._token_fresh[:] = False
         return _InFlightSpecStep(read=read, props=None if lookup is None else lookup[:, : width - 1],
                                  k_eff=k_eff, tried=tried, greedy=greedy,
-                                 slots=[(int(s), self.slot_req[int(s)]) for s in np.flatnonzero(self.active)])
+                                 slots=[(int(s), self.slot_req[int(s)]) for s in np.flatnonzero(self.active)],
+                                 t_dispatch=t_dispatch)
 
     def _spec_drain(self, step: _InFlightSpecStep) -> None:
         """Host half of one speculative round: its one host read, then per
@@ -1390,11 +1482,16 @@ class Engine:
         round's base, and each emit carries its own (pos0 + i) for the
         window's release."""
         chs, smp, draft_props = step.read()
+        t_drained = time.perf_counter()
         props = step.props if step.props is not None else draft_props
         d = self.ec.spec_ewma_decay
         for slot, req in step.slots:
             if self.slot_req[slot] is not req:
                 continue  # released (or re-admitted) since the dispatch
+            if req.journey is not None:
+                # Stamped after the round's host read: the round's device
+                # window never waits for forensics.
+                req.journey.record("drain", lat_us=int((t_drained - step.t_dispatch) * 1e6))
             ke = int(step.k_eff[slot])
             pos0 = int(self.positions[slot])
             if not step.greedy[slot]:
@@ -1404,6 +1501,8 @@ class Engine:
                 while accepted < ke and props[slot, accepted] == chs[slot, accepted]:
                     accepted += 1
                 if ke > 0:
+                    if req.journey is not None:
+                        req.journey.record("spec_round", k=ke, accepted=accepted)
                     self.stats["spec_proposed"] += ke
                     self.stats["spec_accepted"] += accepted
                     METRICS.inc("substratus_serve_spec_proposed_tokens_total", by=ke)
@@ -1464,6 +1563,7 @@ class Engine:
             if not self.active.any():
                 return None
         graph = self._decode_graph()
+        t_dispatch = time.perf_counter()
         read = graph.launch(self.tokens, self.positions, self.temps, self.top_ps, self._token_fresh,
                             **self._step_inputs())
         self._token_fresh[:] = False
@@ -1474,7 +1574,7 @@ class Engine:
         self.positions = np.minimum(self.positions + 1, self.ec.max_seq_len - 1)
         self.stats["decode_steps"] += 1
         return _InFlightStep(read=read, slots=[(int(s), self.slot_req[int(s)]) for s in np.flatnonzero(self.active)],
-                             pos_next=self.positions.copy())
+                             pos_next=self.positions.copy(), t_dispatch=t_dispatch)
 
     def _drain(self, step: _InFlightStep) -> None:
         """Host half of one decode step: the one host read of the sampled
@@ -1483,9 +1583,13 @@ class Engine:
         and EOS/budget/window release for the slots active at dispatch
         whose request still holds them."""
         host = step.read()
+        t_drained = time.perf_counter()
         for slot, req in step.slots:
             if self.slot_req[slot] is not req:
                 continue  # released (or re-admitted) since the dispatch
+            if req.journey is not None:
+                # Stamped after the host read, never inside the dispatch.
+                req.journey.record("drain", lat_us=int((t_drained - step.t_dispatch) * 1e6))
             self.tokens[slot] = host[slot]
             self._emit(slot, int(host[slot]), int(step.pos_next[slot]))
         if not self.overlap:
@@ -1503,7 +1607,14 @@ class Engine:
         if pending is None:
             return
         METRICS.inc("substratus_serve_pipeline_flushes_total", {"reason": reason})
+        for slot, req in pending.slots:
+            if self.slot_req[slot] is req and req.journey is not None:
+                req.journey.record("flush", reason=reason)
+        t_flush = time.perf_counter()
         self._drain_any(pending)
+        # The timeline's flush bubble: a drain the pipeline could not hide.
+        self._tl_flush_s += time.perf_counter() - t_flush
+        self._tl_flush_reasons.append(reason)
         self._token_fresh[:] = True
 
     def _decode_step(self) -> None:
@@ -1511,9 +1622,13 @@ class Engine:
         at once (the simulated step floor between the two, as in JAX)."""
         t0 = time.perf_counter()
         step = self._dispatch_any()
+        self._tl_dispatch_s = time.perf_counter() - t0
         if step is not None:
             self._floor(t0)
+            t_drain = time.perf_counter()
             self._drain_any(step)
+            self._tl_drain_off_s = t_drain - self._tl_iter_t0
+            self._tl_drain_s = time.perf_counter() - t_drain
 
     def _step_overlapped(self) -> None:
         """One pipelined iteration: dispatch step N, then drain step N-1
@@ -1521,10 +1636,13 @@ class Engine:
         replaces the graph, or preempts, flushes the pending step itself."""
         t0 = time.perf_counter()
         launched = self._dispatch_any()
+        self._tl_dispatch_s = time.perf_counter() - t0
         prev, self._pending = self._pending, launched
         if prev is not None:
             t_drain = time.perf_counter()
             self._drain_any(prev)
+            self._tl_drain_off_s = t_drain - self._tl_iter_t0
+            self._tl_drain_s = time.perf_counter() - t_drain
             if self._pending is not None:
                 # Host work hidden under the step in flight.
                 METRICS.observe("substratus_serve_host_overlap_seconds", time.perf_counter() - t_drain)
@@ -1555,23 +1673,46 @@ class Engine:
         if not hit_eos and not cancelled:
             now = time.perf_counter()
             if req.last_emit_ts:
-                self._observe_latency("inter_token", now - req.last_emit_ts)
+                self._observe_latency(req, "inter_token", now - req.last_emit_ts)
             elif req.submit_ts:
-                self._observe_latency("ttft", now - req.submit_ts)
+                self._observe_latency(req, "ttft", now - req.submit_ts)
             req.last_emit_ts = now
             req.out.put(token_id)
             self.slot_tokens[slot].append(token_id)
+            if req.journey is not None:
+                req.journey.record("emit", t=token_id)
         if hit_eos or hit_budget or hit_window or cancelled:
             # EOS and cancellation are natural stops; the budget and the
             # context window truncate ("length").
             req.finish_reason = "stop" if hit_eos or cancelled else "length"
+            self._journey_end(req, "cancel" if cancelled else req.finish_reason, tokens=self.slot_generated[slot])
             req.out.put(None)
             self._release_slot(slot)
 
-    def _observe_latency(self, slo: str, seconds: float) -> None:
-        """One TTFT or inter-token gap: its histogram and its SLO sketch."""
-        self.slo.observe(slo, seconds)
-        METRICS.observe(f"substratus_serve_{slo}_seconds", seconds)
+    def _observe_latency(self, req: Request, slo: str, seconds: float) -> None:
+        """One TTFT or inter-token gap: its SLO sketch and its histogram; a
+        breach attaches the request's trace id to the histogram's bucket
+        (an exemplar) and marks its journey for the slow ring."""
+        breach = self.slo.observe(slo, seconds)
+        j = req.journey
+        METRICS.observe(f"substratus_serve_{slo}_seconds", seconds,
+                        exemplar=j.trace_id if breach and j is not None else None)
+        if breach and j is not None:
+            j.breach(slo, seconds, self.slo.thresholds.get(slo, 0.0))
+            METRICS.inc("substratus_serve_slo_exemplars_total", {"slo": slo})
+
+    def _journey_end(self, req: Request, reason: str, **data) -> None:
+        """Stamp the journey's "end" once, then keep the finished journey:
+        in the JourneyLog, and in the slow ring when an SLO breached.
+        Runs before the request's terminal None."""
+        j = req.journey
+        if j is None or j.ended:
+            return
+        j.record("end", reason=reason, **data)
+        snap = j.snapshot()
+        self.journey_log.add(snap)
+        if j.breaches:
+            self.slow.add(snap)
 
     def _release_slot(self, slot: int) -> None:
         self.active[slot] = False
@@ -1593,17 +1734,26 @@ class Engine:
     def _loop(self) -> None:
         try:
             while not self._stop.is_set():
+                # The timeline's accumulators for this iteration's record:
+                # _flush, the dispatch and drain halves and _admit fill them.
+                t_iter = time.perf_counter()
+                self._tl_iter_t0 = t_iter
+                self._tl_flush_s = 0.0
+                self._tl_flush_reasons = []
+                self._tl_dispatch_s = self._tl_drain_s = self._tl_drain_off_s = 0.0
+                self._tl_pool_dry = False
                 self._apply_staged_swaps()
                 if self.adapters is not None:
                     # Slots a host thread loaded since the last iteration,
                     # in place, ordered behind the step in flight.
                     self.adapters.sync()
                 t_admit = time.perf_counter()
-                if self._admit():
+                admitted = self._admit()
+                admit_s = time.perf_counter() - t_admit
+                if admitted:
                     # Only iterations that boarded someone: an idle engine
                     # waking on its empty queue would flood it with ~0 s.
-                    METRICS.observe("substratus_serve_phase_seconds", time.perf_counter() - t_admit,
-                                    {"phase": "admission"})
+                    METRICS.observe("substratus_serve_phase_seconds", admit_s, {"phase": "admission"})
                 if not self.active.any():
                     # Nothing decoding: a step still in flight holds only
                     # released slots, and waits for the next dispatch or
@@ -1611,21 +1761,33 @@ class Engine:
                     self._wake.wait(timeout=0.05)
                     self._wake.clear()
                     continue
-                METRICS.observe("substratus_serve_batch_occupancy_ratio", self.active.sum() / self.ec.max_batch)
+                n_active = int(self.active.sum())
+                METRICS.observe("substratus_serve_batch_occupancy_ratio", n_active / self.ec.max_batch)
                 if self.paged:
                     METRICS.observe("substratus_serve_kv_page_utilization_ratio",
                                     (self.n_pages - self.alloc.free_pages) / self.n_pages)
                 t0 = time.perf_counter()
+                if not self._first_decode_done:
+                    # The first iteration holds the decode graph's warm-up
+                    # and capture: kept out of the steady-state histogram
+                    # and the timeline, as the JAX engine keeps its compile.
+                    with tracer.span("engine.first_compile") as span:
+                        self._step()
+                        dt = time.perf_counter() - t0
+                        span.set_attribute("seconds", round(dt, 6))
+                    self.stats["decode_seconds"] += dt
+                    self._first_decode_done = True
+                    METRICS.set("substratus_serve_first_compile_seconds", dt)
+                    continue
                 self._step()
                 dt = time.perf_counter() - t0
                 self.stats["decode_seconds"] += dt
-                if self._first_decode_done:
-                    METRICS.observe("substratus_serve_phase_seconds", dt, {"phase": "decode"})
-                else:
-                    # The first iteration holds the decode graph's warm-up
-                    # and capture: kept out of the steady-state histogram.
-                    self._first_decode_done = True
-                    METRICS.set("substratus_serve_first_compile_seconds", dt)
+                METRICS.observe("substratus_serve_phase_seconds", dt, {"phase": "decode"})
+                self.timeline.record_iteration(
+                    t_start=t_iter, wall_s=time.perf_counter() - t_iter, admit_s=admit_s, admitted=admitted,
+                    dispatch_s=self._tl_dispatch_s, drain_s=self._tl_drain_s, drain_off_s=self._tl_drain_off_s,
+                    flush_s=self._tl_flush_s, flush_reasons=self._tl_flush_reasons, pool_dry=self._tl_pool_dry,
+                    active_slots=n_active, max_slots=self.ec.max_batch, configured_floor_s=self.ec.step_floor_s)
             # A clean stop with a step in flight delivers its tokens first.
             self._flush("drain")
             self._fail_staged_swaps(RuntimeError("engine stopped before the swap was applied"))
@@ -1638,6 +1800,7 @@ class Engine:
 
             def kill(req: Request) -> None:
                 req.finish_reason = "error"
+                self._journey_end(req, "error", cause="engine")
                 req.out.put(None)
 
             if self._admitting is not None:

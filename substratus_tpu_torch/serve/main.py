@@ -105,16 +105,25 @@ value this port already serves (for example ``role: both``): a knob is
 never silently ignored, and an unknown value of a served knob exits too.
 ``batchGenerate`` is a known key, as in the JAX entry point: the batch
 run itself is ``python -m substratus_tpu_torch.serve.batchgen``.
+
+Tracing: a ``serve.start`` span joins the trace named by the
+``TRACEPARENT`` variable, and with ``SUBSTRATUS_TRACE_EXPORT`` set every
+buffered span (the server's ``serve.http``, the engine's) is appended to
+that file as JSONL at exit.
 """
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import json
 import os
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+
+from substratus_tpu_torch.observability.propagation import context_from_env
+from substratus_tpu_torch.observability.tracing import tracer
 
 # params.json keys the port does not serve yet: the value it does serve
 # (a key holding it passes), and where the rest waits.
@@ -430,6 +439,14 @@ def build(argv=None):
     from substratus_tpu_torch.utils.device import resolve_device
 
     args = parse_args(argv)
+    # Distributed tracing: join the spawner's trace (the TRACEPARENT
+    # variable) and, with SUBSTRATUS_TRACE_EXPORT set, append the buffered
+    # spans there as JSONL at exit, as the JAX entry point does.
+    with tracer.span("serve.start", parent=context_from_env()):
+        pass
+    trace_export = os.environ.get("SUBSTRATUS_TRACE_EXPORT")
+    if trace_export:
+        atexit.register(tracer.export_jsonl, trace_export)
     params_json = load_params_json(args.params)
     check_params(params_json)
     device = resolve_device(args.device)

@@ -38,12 +38,30 @@ server's:
   * ``POST /debug/profile`` ``{"seconds": N}`` (0 < N <= 60) or
     ``{"action": "start"|"stop"}`` (capped at 60 s): a torch.profiler
     capture (the card's kernels with CUDA activity) written as a Chrome
-    trace under PROFILE_DIR; 409 while one runs.
+    trace under PROFILE_DIR; 409 while one runs; a ``serve.profile`` span
+    and ProfileCapture* events;
+  * ``GET /debug/tracez`` (the span ring by trace, latency-bucketed),
+    ``/debug/requestz`` (requests in flight; with ``?id=`` a trace or
+    request id, the request's journey with its waterfall and Chrome trace,
+    404 when none is known), ``/debug/perfz`` (the phase histograms, the
+    latency quantiles, the engine's counters), ``/debug/stepz`` (the
+    engine's step timeline as a Chrome trace with the bubble totals),
+    ``/debug/slowz`` (the SLO-breaching journeys and the latency
+    histograms' exemplars) and ``/debug/eventz`` (the event recorder),
+    with the JAX server's keys.
 
-Every response counts in substratus_http_requests_total. Spans,
-traceparent propagation, request journeys and the other /debug pages wait
-for ROADMAP Queue 1 item 3b; the RBAC authorizer too (the JAX entry point
-passes none, so /swapz and /debug are open there as here).
+Tracing (the JAX server's trace middleware): each request on ``/v1/`` or
+``/debug/`` runs in a ``serve.http`` span under its ``traceparent`` header
+(a malformed one starts a new trace), its trace id goes back as
+``x-trace-id`` on every response (a stream's with its headers, before any
+token; errors too) and as one structured JSON line on the
+``substratus.serve.access`` logger. The engine takes the request's context
+at submit on the handler's thread. `/debug/*` and ``/swapz`` are gated by
+the `authorizer` when one is given (observability/authz.py: 401 with
+``WWW-Authenticate: Bearer``, 403, or 500 when the review failed); the
+serving entry point passes none, as the JAX one does, so they are open.
+
+Every response counts in substratus_http_requests_total.
 
 Each connection runs on its own thread (``ThreadingHTTPServer``) and
 blocks on its request's token queue; the engine's one scheduler thread
@@ -55,8 +73,10 @@ from __future__ import annotations
 
 import contextlib
 import json
+import logging
 import math
 import os
+import re
 import signal
 import tempfile
 import threading
@@ -64,13 +84,17 @@ import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Dict, Optional, Tuple
-from urllib.parse import urlsplit
+from urllib.parse import parse_qs, urlsplit
 
 from substratus_tpu_torch.gateway.limiter import deadline_remaining, parse_deadline
 from substratus_tpu_torch.gateway.loadreport import HEADER as LOAD_HEADER
 from substratus_tpu_torch.gateway.loadreport import LoadReport
+from substratus_tpu_torch.observability.events import EVENTS
 from substratus_tpu_torch.observability.httpstats import count_http_response
-from substratus_tpu_torch.observability.metrics import METRICS
+from substratus_tpu_torch.observability.journey import chrome_trace, waterfall
+from substratus_tpu_torch.observability.metrics import METRICS, quantile_from_buckets
+from substratus_tpu_torch.observability.propagation import parse_traceparent
+from substratus_tpu_torch.observability.tracing import tracer
 from substratus_tpu_torch.serve.adapters import UnknownAdapter
 from substratus_tpu_torch.serve.engine import Engine, EngineOverloaded, Request
 
@@ -90,6 +114,13 @@ METRICS.describe("substratus_serve_kernel_launches",
                  "Launches of each kernel counter of the port's CUDA kernels (function.counter; a design's own "
                  "counter beside the total) since the process started: the wrapper's count plus the launches inside "
                  "the engine's CUDA graph replays.", type="gauge")
+
+# Structured access log: one JSON line a traced request, with its trace id,
+# so log pipelines join lines to span exports.
+access_log = logging.getLogger("substratus.serve.access")
+# The paths the trace middleware wraps (probes and scrapes stay untraced:
+# a 5 s scrape interval would crowd the span ring).
+TRACED_PREFIXES = ("/v1/", "/debug/")
 
 # Per-token wait before a stream is declared dead (the engine puts a
 # terminal None on every request, error included, so this only guards a
@@ -115,7 +146,7 @@ def _json_error(status: int, message: str, kind: str, headers: Optional[dict] = 
 
 
 class ServerState:
-    def __init__(self, engine: Engine, tokenizer, model_name: str,
+    def __init__(self, engine: Engine, tokenizer, model_name: str, authorizer=None,
                  checkpoint_loader: Optional[Callable[[str], object]] = None):
         self.engine = engine
         self.tokenizer = tokenizer
@@ -128,8 +159,11 @@ class ServerState:
         # SIGTERM sets it: readiness (`GET /`, `/loadz`) and new requests
         # answer 503 while in-flight streams run to the drain deadline.
         self.draining = False
-        # In-flight requests by id; handler threads add and remove under
-        # the lock.
+        # The /debug pages' and /swapz's RBAC check (observability/authz.py
+        # MetricsAuthorizer); None = open, as the serving entry point runs.
+        self.authorizer = authorizer
+        # In-flight requests by id, {req, endpoint, trace_id, start} for
+        # /debug/requestz; handler threads add and remove under the lock.
         self.inflight: dict = {}
         # Handlers running, from the parsed request line to the written
         # response: drain() waits for none to run, so a response owed
@@ -138,11 +172,13 @@ class ServerState:
         self.handlers = 0
         self._lock = threading.Lock()
         self.swap_lock = threading.Lock()  # one swap at a time
-        self.profile = _Profile(engine)
+        self.profile = _Profile(engine, model_name)
 
-    def track_request(self, req: Request) -> None:
+    def track_request(self, req: Request, endpoint: str) -> None:
+        ctx = tracer.current_context()
         with self._lock:
-            self.inflight[req.id] = req
+            self.inflight[req.id] = {"req": req, "endpoint": endpoint,
+                                     "trace_id": ctx.trace_id if ctx is not None else None, "start": time.time()}
 
     def untrack_request(self, req: Request) -> None:
         with self._lock:
@@ -274,10 +310,14 @@ class _Profile:
     watchdog of a started one) and writes a Chrome trace into a fresh
     directory under PROFILE_DIR (default: the temp dir's
     substratus-profile). A capture its cap ended is over, as in JAX: the
-    next start succeeds and a stop finds none running."""
+    next start succeeds and a stop finds none running. Each capture ends
+    in a ``serve.profile`` span (under the span of the request that began
+    it) and a ProfileCaptureStopped event; a started one also emits
+    ProfileCaptureStarted, as the JAX server does."""
 
-    def __init__(self, engine: Engine):
+    def __init__(self, engine: Engine, model_name: str = ""):
         self.engine = engine
+        self.model_name = model_name
         self.lock = threading.Lock()
         self.live: Optional[dict] = None  # {"dir", "t0", "stop", "thread", "result", "blocking"} while one runs
 
@@ -302,6 +342,7 @@ class _Profile:
             live = {"dir": self._dir(), "t0": time.perf_counter(), "stop": threading.Event(), "result": {},
                     "blocking": blocking}
             started = threading.Event()
+            parent = tracer.current_context()
 
             def run():
                 try:
@@ -321,6 +362,11 @@ class _Profile:
                 except Exception as e:  # the capture must still be clearable; the error is in the response
                     live["result"]["stop_error"] = str(e)
                 live["result"]["seconds"] = round(time.perf_counter() - live["t0"], 3)
+                with tracer.span("serve.profile", parent=parent, mode="blocking" if blocking else "capture",
+                                 dir=live["dir"]) as span:
+                    span.set_attribute("seconds", cap_s if blocking else live["result"]["seconds"])
+                EVENTS.emit("ProfileCaptureStopped", kind="Server", name=self.model_name,
+                            message=f"device trace in {live['dir']}")
                 if capped:  # cleared once the trace is out: the next capture starts a fresh profiler
                     with self.lock:
                         if self.live is live:
@@ -333,6 +379,9 @@ class _Profile:
                 live["thread"].join()
                 raise HTTPError(500, live["result"]["error"])
             self.live = live
+            if not blocking:
+                EVENTS.emit("ProfileCaptureStarted", kind="Server", name=self.model_name,
+                            message=f"device trace to {live['dir']}")
             return live
 
     @staticmethod
@@ -382,9 +431,12 @@ class Handler(BaseHTTPRequestHandler):
             # Passive load reporting: the gateway learns this replica's
             # load from the responses it already gets.
             self.send_header(LOAD_HEADER, self._load_header())
+        if self._span is not None:
+            self.send_header("x-trace-id", self._span.trace_id)
         for k, v in (headers or {}).items():
             self.send_header(k, v)
         self.end_headers()
+        self._status = status
         self.wfile.write(data)
         count_http_response(self._path, status)
 
@@ -392,30 +444,71 @@ class Handler(BaseHTTPRequestHandler):
         return LoadReport.from_snapshot(self.state.engine.load_snapshot()).to_header()
 
     def _route(self, routes: dict) -> None:
-        self._path = urlsplit(self.path).path
+        split = urlsplit(self.path)
+        self._path, self._query = split.path, parse_qs(split.query)
         self._committed = False  # a stream's 200 and headers are out
+        self._status = 500  # until a response is sent
+        self._span = None
         fn = routes.get(self._path)
         with self.state.handling():
+            if not self._path.startswith(TRACED_PREFIXES):
+                return self._handle(fn)
+            # The trace middleware: the handler runs in a serve.http span
+            # under the caller's traceparent, on this thread.
+            t0 = time.perf_counter()
+            self._span = tracer.span("serve.http", parent=parse_traceparent(self.headers.get("traceparent")),
+                                     method=self.command, path=self._path)
             try:
-                if fn is None:
-                    raise HTTPError(404, "404: Not Found")
-                fn()
-            except (BrokenPipeError, ConnectionResetError):
+                with self._span:
+                    self._handle(fn)
+                    self._span.set_attribute("http_status", self._status)
+            finally:
+                access_log.info(json.dumps({
+                    "event": "http_request", "method": self.command, "path": self._path, "status": self._status,
+                    "duration_ms": round((time.perf_counter() - t0) * 1e3, 3),
+                    "trace_id": self._span.trace_id, "span_id": self._span.span_id}, separators=(",", ":")))
+
+    def _handle(self, fn) -> None:
+        """Run a route's handler; an error becomes its response (a last
+        resort 500 as JSON, with the trace id on a traced path)."""
+        try:
+            if fn is None:
+                raise HTTPError(404, "404: Not Found")
+            fn()
+        except (BrokenPipeError, ConnectionResetError):
+            self.close_connection = True
+        except Exception as e:
+            if self._committed:  # the status is sent: only the connection can end
                 self.close_connection = True
-            except Exception as e:
-                if self._committed:  # the status is sent: only the connection can end
-                    self.close_connection = True
-                elif isinstance(e, HTTPError):
-                    self._send(e.status, e.body, headers=e.headers)
-                else:  # last resort: a JSON 500 beats an opaque one
-                    self._send(500, {"error": f"{type(e).__name__}: {e}"})
+            elif isinstance(e, HTTPError):
+                self._send(e.status, e.body, headers=e.headers)
+            else:  # last resort: a JSON 500 beats an opaque one
+                body = {"error": f"{type(e).__name__}: {e}"}
+                if self._span is not None:
+                    body["trace_id"] = self._span.trace_id
+                self._send(500, body)
 
     def do_GET(self):
-        self._route({"/": self._root, "/loadz": self._loadz, "/metrics": self._metrics, "/v1/models": self._models})
+        self._route({"/": self._root, "/loadz": self._loadz, "/metrics": self._metrics, "/v1/models": self._models,
+                     "/debug/tracez": self._tracez, "/debug/requestz": self._requestz, "/debug/perfz": self._perfz,
+                     "/debug/stepz": self._stepz, "/debug/slowz": self._slowz, "/debug/eventz": self._eventz})
 
     def do_POST(self):
         self._route({"/v1/completions": self._completions, "/v1/chat/completions": self._chat,
                      "/swapz": self._swapz, "/debug/profile": self._profile})
+
+    def _authorize(self) -> None:
+        """Gate a /debug page or /swapz with the RBAC check (TokenReview and
+        SubjectAccessReview through state.authorizer); open without one."""
+        authorizer = self.state.authorizer
+        if authorizer is None:
+            return
+        status, reason = authorizer.allow(self.headers.get("Authorization"))
+        if status == 200:
+            return
+        if status == 401:
+            raise HTTPError(401, reason, {"WWW-Authenticate": "Bearer"})
+        raise HTTPError(403 if status == 403 else 500, reason)
 
     def _json_body(self, missing_ok: bool = False):
         raw = self.rfile.read(int(self.headers.get("Content-Length") or 0))
@@ -521,7 +614,7 @@ class Handler(BaseHTTPRequestHandler):
         # Counted now: a request preempted on the paged pool resumes with
         # its delivered tokens appended to prompt_tokens.
         n_prompt = len(req.prompt_tokens)
-        state.track_request(req)
+        state.track_request(req, self._path)
         try:
             return state.engine.submit(req), n_prompt
         except UnknownAdapter as e:
@@ -590,9 +683,13 @@ class Handler(BaseHTTPRequestHandler):
             self.send_header("Cache-Control", "no-cache")
             self.send_header("Connection", "close")
             # The load report at the stream's start: by its end it would
-            # be stale anyway.
+            # be stale anyway. The trace id goes out with it, before any
+            # token.
             self.send_header(LOAD_HEADER, self._load_header())
+            if self._span is not None:
+                self.send_header("x-trace-id", self._span.trace_id)
             self.end_headers()
+            self._status = 200
             self.close_connection = True
             self._committed = True
             cid = f"cmpl-{uuid.uuid4().hex[:24]}"
@@ -698,6 +795,7 @@ class Handler(BaseHTTPRequestHandler):
         captured graph kept. Body: {"checkpoint": ref, "version": optional
         int, "source": "swap"|"rollout"}."""
         state = self.state
+        self._authorize()
         body = self._json_body()
         ref = body.get("checkpoint")
         if not ref or not isinstance(ref, str):
@@ -719,7 +817,7 @@ class Handler(BaseHTTPRequestHandler):
         with state.swap_lock:
             try:
                 params = state.checkpoint_loader(ref)
-                applied = state.engine.swap_params(params, version=version)
+                applied = state.engine.swap_params(params, version=version, source=source)
             except ValueError as e:
                 # A name/shape/dtype mismatch: the engine kept the old
                 # weights (409: the request conflicts with the live model).
@@ -733,6 +831,7 @@ class Handler(BaseHTTPRequestHandler):
         (0 < N <= 60); {"action": "start"} / {"action": "stop"} bracket
         the traffic of interest, a watchdog ending a forgotten capture
         after 60 s."""
+        self._authorize()
         body = self._json_body(missing_ok=True)
         prof = self.state.profile
         action = body.get("action")
@@ -752,6 +851,144 @@ class Handler(BaseHTTPRequestHandler):
         out = prof.capture(seconds)
         self._send(200, {"dir": out["dir"], "seconds": seconds, "files": out["files"],
                          **{k: v for k, v in out.items() if k.endswith("error")}})
+
+    # --- the /debug pages (the JAX server's keys and codes) -----------------
+
+    def _tracez(self) -> None:
+        """The span ring by trace: each trace's root span (no parent, or a
+        parent outside the ring: a remote caller or an evicted ancestor),
+        newest first, and each root name's latency buckets."""
+        self._authorize()
+        spans = tracer.finished()
+        by_trace: dict = {}
+        for s in spans:
+            by_trace.setdefault(s["trace_id"], []).append(s)
+        buckets = (0.01, 0.1, 1.0)  # seconds; the last bucket is +Inf
+
+        def bucket_label(duration_us: int) -> str:
+            return next((f"le_{b}s" for b in buckets if duration_us / 1e6 <= b), "gt_1s")
+
+        traces, by_root = [], {}
+        for tid, ss in by_trace.items():
+            ids = {s["span_id"] for s in ss}
+            root = next((s for s in ss if not s["parent_id"] or s["parent_id"] not in ids), ss[0])
+            errors = [s["status"] for s in ss if s["status"] != "ok"]
+            traces.append({"trace_id": tid, "root": root["name"], "start_us": root["start_us"],
+                           "duration_us": root["duration_us"], "spans": len(ss),
+                           "status": errors[0] if errors else "ok"})
+            hist = by_root.setdefault(root["name"], {f"le_{b}s": 0 for b in buckets} | {"gt_1s": 0})
+            hist[bucket_label(root["duration_us"])] += 1
+        traces.sort(key=lambda tr: tr["start_us"], reverse=True)
+        self._send(200, {"traces": traces[:100], "latency_buckets": by_root, "buffered_spans": len(spans),
+                         "dropped_spans": tracer.dropped})
+
+    def _requestz(self) -> None:
+        """The requests in flight (where each is: a decoding slot, the
+        queue, or pending), or with ?id= (a trace id or request id) one
+        request's journey: a live request first, then the engine's
+        finished journeys, then its slow ring; 404 when none matches."""
+        self._authorize()
+        state, eng = self.state, self.state.engine
+        with state._lock:
+            infos = list(state.inflight.values())
+        wanted = (self._query.get("id") or [""])[0]
+        if wanted:
+            snap = None
+            for info in infos:
+                j = info["req"].journey
+                if j is not None and wanted in (j.trace_id, info["req"].id):
+                    snap = j.snapshot()
+                    break
+            if snap is None:
+                snap = eng.journey_log.find(wanted)
+            if snap is None:
+                snap = next((e.get("journey") for e in eng.slow.snapshot()
+                             if wanted in (e.get("trace_id"), e.get("rid"))), None)
+            if snap is None:
+                raise HTTPError(404, f"no journey for id {wanted!r}")
+            return self._send(200, {"journey": snap, "waterfall": waterfall(snap), "chrome_trace": chrome_trace(snap)})
+        now = time.time()
+        # Snapshots: the scheduler thread moves these on meanwhile; a debug
+        # page may be slightly stale, never wrong by a crash.
+        slot_req = list(eng.slot_req)
+        queued = list(eng.queue.queue)
+        rows = []
+        for info in infos:
+            req = info["req"]
+            slot = next((i for i, r in enumerate(slot_req) if r is req), None)
+            if slot is not None:
+                where, tokens, queue_position = "decoding", eng.slot_generated[slot], None
+            else:
+                pos = next((i for i, r in enumerate(queued) if r is req), None)
+                where, tokens, queue_position = "queued" if pos is not None else "pending", 0, pos
+            rows.append({"request_id": req.id, "endpoint": info["endpoint"], "trace_id": info["trace_id"],
+                         "age_s": round(now - info["start"], 3), "state": where, "slot": slot,
+                         "queue_position": queue_position, "prompt_tokens": len(req.prompt_tokens),
+                         "max_tokens": req.max_tokens, "tokens_emitted": tokens})
+        rows.sort(key=lambda r: r["age_s"], reverse=True)
+        self._send(200, {"inflight": rows, "queue_depth": eng.queue.qsize(), "journeys": eng.journey_log.ids()})
+
+    def _perfz(self) -> None:
+        """The phase histograms (they nest: admission holds prefill holds
+        sample), the first decode iteration's seconds, the latency
+        quantiles, occupancy, the trainer's phases when it shares the
+        process, and the engine's counters."""
+        self._authorize()
+        phase_re = re.compile(r'^phase="(.*)"$')
+
+        def family(name: str) -> dict:
+            out = {}
+            for ls, s in METRICS.histogram_series(name).items():
+                m = phase_re.match(ls) if ls else None
+                quantiles = {}
+                for q in (0.5, 0.9, 0.99):
+                    v = quantile_from_buckets(s["buckets"], q)
+                    quantiles[f"p{int(q * 100)}_s"] = None if v is None else round(v, 6)
+                out[m.group(1) if m else (ls or "all")] = {
+                    "count": s["count"], "sum_s": round(s["sum"], 6),
+                    "mean_s": round(s["sum"] / s["count"], 6) if s["count"] else None, **quantiles}
+            return out
+
+        eng = self.state.engine
+        self._send(200, {
+            "phases": family("substratus_serve_phase_seconds"),
+            "first_compile_seconds": METRICS.get("substratus_serve_first_compile_seconds"),
+            "latencies": {short: family(f"substratus_serve_{short}_seconds")
+                          for short in ("ttft", "inter_token", "queue_wait")},
+            "occupancy": family("substratus_serve_batch_occupancy_ratio"),
+            "train_phases": family("substratus_train_phase_seconds"),
+            "engine": {"active_slots": int(eng.active.sum()), "max_slots": eng.ec.max_batch,
+                       "queue_depth": eng.queue.qsize(), "kv_layout": "paged" if eng.paged else "dense",
+                       "stats": dict(eng.stats)},
+        })
+
+    def _stepz(self) -> None:
+        """The engine's step timeline as Chrome-trace JSON (load it in
+        chrome://tracing or Perfetto), its otherData with the lifetime
+        bubble totals and the floor estimate."""
+        self._authorize()
+        eng = self.state.engine
+        tl = eng.timeline
+        body = tl.chrome_trace()
+        body["otherData"]["bubble"] = tl.bubble_totals()
+        floor = tl.floor_estimate()
+        body["otherData"]["floor_estimate_s"] = round(floor, 6) if floor is not None else None
+        body["otherData"]["configured_step_floor_s"] = eng.ec.step_floor_s
+        self._send(200, body)
+
+    def _slowz(self) -> None:
+        """The SLO-breaching journeys and the TTFT and inter-token
+        histograms' exemplar trace ids (each a /debug/requestz?id=)."""
+        self._authorize()
+        eng = self.state.engine
+        self._send(200, {"slow": eng.slow.snapshot(), "total_breaching": eng.slow.total, "slo": eng.slo.snapshot(),
+                         "exemplars": {short: METRICS.exemplars(f"substratus_serve_{short}_seconds")
+                                       for short in ("ttft", "inter_token")}})
+
+    def _eventz(self) -> None:
+        """The event recorder's newest 100 (count-deduplicated)."""
+        self._authorize()
+        self._send(200, {"events": EVENTS.recent(100), "dropped": EVENTS.dropped})
 
 
 def drain(state: ServerState, grace_s: float = 30.0, poll_s: float = 0.1) -> bool:

@@ -28,8 +28,18 @@ or ``flash`` run the flash kernels and their backward (the port has no
 XLA), ``plain`` the plain attention (for the CPU); OPT and Falcon run the
 flash kernels and print that ``attn_impl`` is ignored, as the JAX entry
 point prints it; ``dp``/``fsdp``/``sequence``/``tensor`` only as 1 or -1 (one
-card). Every other key or value exits naming the ROADMAP item that will
-serve it.
+card); ``profile_steps`` ``[a, b]``: a torch.profiler capture of steps a
+to b (CUDA activity on the card), clamped to the steps this run takes (a
+resume can skip past it), written as a Chrome trace under {out}/profile,
+stopped and flushed however the run ends (a malformed value is said and
+ignored, as in the JAX entry point). Every other key or value exits naming
+the ROADMAP item that will serve it.
+
+Tracing: the steps run in a ``train.run`` span that joins the spawner's
+trace (the ``TRACEPARENT`` variable); each progress line carries its trace
+and span ids (train/telemetry.py), and the spans are appended as JSONL to
+{out}/trace.jsonl (or ``SUBSTRATUS_TRACE_EXPORT``) before the artifact is
+written.
 
 It resumes from the newest checkpoint under {out}/checkpoints (skipping
 the batches the finished steps drew, so a resumed run sees the batches an
@@ -44,7 +54,7 @@ from __future__ import annotations
 import argparse
 import os
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 from substratus_tpu_torch.ops.headdim import head_dim_route
 from substratus_tpu_torch.serve.main import (
@@ -52,11 +62,8 @@ from substratus_tpu_torch.serve.main import (
 
 _SERVED = ("steps", "max_steps", "batch_size", "seq_len", "learning_rate", "warmup_steps", "save_steps",
            "lora_rank", "lora_alpha", "config", "remat", "seed", "grad_accum_steps", "attn_impl", "quantize",
-           "lora_targets")
+           "lora_targets", "profile_steps")
 _MESH_AXES = ("dp", "fsdp", "sequence", "tensor")
-_NOT_SERVED = {
-    "profile_steps": "Queue 1, multi-GPU and RL (profiling windows)",
-}
 _MULTI_GPU = "Queue 1, multi-GPU and RL (training meshes, ring and Ulysses attention)"
 
 
@@ -64,9 +71,6 @@ def check_params(p: Dict[str, Any]) -> None:
     """Exit on a key or value the port does not train with yet, naming
     its ROADMAP item, and on an unknown key."""
     for key, value in p.items():
-        if key in _NOT_SERVED:
-            raise SystemExit(f"params.json: {key}={value!r} is not served by the PyTorch port yet: "
-                             f"ROADMAP {_NOT_SERVED[key]}")
         if key in _MESH_AXES:
             if int(value) not in (1, -1):
                 raise SystemExit(f"params.json: {key}={value!r}: the port trains on one card; ROADMAP {_MULTI_GPU}")
@@ -89,6 +93,46 @@ def check_params(p: Dict[str, Any]) -> None:
             raise SystemExit(f"params.json: unknown key {key!r}")
 
 
+def profile_window(prof: Any, start_step: int, steps: int) -> Optional[Tuple[int, int]]:
+    """params.json ``profile_steps`` [a, b] clamped to the steps this run
+    takes (start_step..steps-1), as the JAX entry point clamps it; None
+    when the window is empty, absent or malformed (said)."""
+    if prof and isinstance(prof, (list, tuple)) and len(prof) == 2:
+        a, b = (int(x) for x in prof)
+        a, b = max(a, start_step), min(b, steps - 1)
+        return (a, b) if a <= b else None
+    if prof:
+        print(f"ignoring malformed profile_steps {prof!r} (need [start, end])", flush=True)
+    return None
+
+
+class ProfileWindow:
+    """A torch.profiler capture of a window of steps (CPU activity, and CUDA
+    activity on the card), written as a Chrome trace into `out_dir` when it
+    stops."""
+
+    def __init__(self, device, out_dir: str):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        self.device, self.out_dir = device, out_dir
+        activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+        self.prof = profile(activities=activities)
+        self.prof.start()
+        self._torch = torch
+
+    def stop(self) -> str:
+        """End the capture (the card's kernels in flight included) and write
+        the trace; its path."""
+        if self.device.type == "cuda":
+            self._torch.cuda.synchronize(self.device)
+        self.prof.stop()
+        os.makedirs(self.out_dir, exist_ok=True)
+        path = os.path.join(self.out_dir, "trace.json")
+        self.prof.export_chrome_trace(path)
+        return path
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(prog="python -m substratus_tpu_torch.train.main")
     ap.add_argument("--data", default="/content/data")
@@ -106,8 +150,12 @@ def run(argv=None) -> Dict[str, Any]:
     trainer, the config, the model written as the artifact (for a LoRA
     run the merged copy; the trainer keeps its base and adapters), the
     StepLogger, the first step of this run, and per step of this run the
-    loss, step seconds and checkpoint seconds; the artifact's seconds."""
+    loss, step seconds and checkpoint seconds; the artifact's seconds; the
+    profile window and its trace file (None without one) and the span
+    export's path."""
     from substratus_tpu_torch.models import registry
+    from substratus_tpu_torch.observability.propagation import context_from_env
+    from substratus_tpu_torch.observability.tracing import tracer
     from substratus_tpu_torch.ops.quant import is_quantized
     from substratus_tpu_torch.serve.tokenizer import copy_tokenizer, load_tokenizer
     from substratus_tpu_torch.train.checkpoints import CheckpointManager, save_adapter_artifact, save_artifact
@@ -189,28 +237,47 @@ def run(argv=None) -> Dict[str, Any]:
             next(data)
         print(f"resumed from step {start_step}", flush=True)
 
+    prof_range = profile_window(p.get("profile_steps"), start_step, steps)
     step_log = StepLogger(n_params=sum(t.numel() for t in trainer.params.parameters()),
                           tokens_per_step=batch_size * seq_len, peak_flops=device_peak_flops(trainer.device))
     losses: List[float] = []
     step_seconds: List[float] = []
     checkpoint_seconds: List[float] = []
-    for step in range(start_step, steps):
-        # Phase splits: data, the step (its loss read waits for the
-        # device), the checkpoint.
-        t0 = time.perf_counter()
-        batch = next(data)
-        t_step = time.perf_counter()
-        loss = trainer.train_step(batch)
-        t_ckpt = time.perf_counter()
-        ckpt.maybe_save(step + 1, {"trainable": trainer.trainable_module().state_dict(),
-                                   "opt_state": trainer.optimizer.state_dict()}, force=step == steps - 1)
-        t_end = time.perf_counter()
-        step_log.log_step(step, loss, t_ckpt - t_step, last=step == steps - 1,
-                          data_seconds=t_step - t0, checkpoint_seconds=t_end - t_ckpt)
-        losses.append(loss)
-        step_seconds.append(t_ckpt - t_step)
-        checkpoint_seconds.append(t_end - t_ckpt)
+    window, profile_trace = None, None
+    try:
+        with tracer.span("train.run", parent=context_from_env(), steps=steps, start_step=start_step,
+                         batch_size=batch_size, seq_len=seq_len, lora_rank=lora_rank):
+            for step in range(start_step, steps):
+                if prof_range and step == prof_range[0]:
+                    window = ProfileWindow(trainer.device, os.path.join(args.out, "profile"))
+                # Phase splits: data, the step (its loss read waits for the
+                # device), the checkpoint.
+                t0 = time.perf_counter()
+                batch = next(data)
+                t_step = time.perf_counter()
+                loss = trainer.train_step(batch)
+                t_ckpt = time.perf_counter()
+                if window is not None and step == prof_range[1]:
+                    profile_trace, window = window.stop(), None
+                ckpt.maybe_save(step + 1, {"trainable": trainer.trainable_module().state_dict(),
+                                           "opt_state": trainer.optimizer.state_dict()}, force=step == steps - 1)
+                t_end = time.perf_counter()
+                step_log.log_step(step, loss, t_ckpt - t_step, last=step == steps - 1,
+                                  data_seconds=t_step - t0, checkpoint_seconds=t_end - t_ckpt)
+                losses.append(loss)
+                step_seconds.append(t_ckpt - t_step)
+                checkpoint_seconds.append(t_end - t_ckpt)
+    finally:
+        if window is not None:  # a run that ended inside the window still writes its trace
+            profile_trace = window.stop()
+    if profile_trace is not None:
+        print(f"profile of steps {prof_range[0]}..{prof_range[1]} written to {profile_trace}", flush=True)
     ckpt.close()
+    trace_path = os.environ.get("SUBSTRATUS_TRACE_EXPORT", os.path.join(args.out, "trace.jsonl"))
+    try:
+        tracer.export_jsonl(trace_path)
+    except OSError as e:
+        print(f"trace export failed (continuing): {e}", flush=True)
 
     t0 = time.perf_counter()
     final = merge_lora(trainer.params, trainer.lora, trainer.lora_scale) if trainer.lora is not None else trainer.params
@@ -225,7 +292,8 @@ def run(argv=None) -> Dict[str, Any]:
     print(f"artifact saved to {args.out} in {artifact_seconds:.1f} s", flush=True)
     return {"trainer": trainer, "cfg": cfg, "merged": final, "step_log": step_log, "start_step": start_step,
             "losses": losses, "step_seconds": step_seconds, "checkpoint_seconds": checkpoint_seconds,
-            "artifact_seconds": artifact_seconds}
+            "artifact_seconds": artifact_seconds, "profile_window": prof_range, "profile_trace": profile_trace,
+            "trace_path": trace_path}
 
 
 def main(argv: Optional[List[str]] = None) -> int:
