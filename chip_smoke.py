@@ -13,6 +13,7 @@
     python3 chip_smoke.py --phases card,build,serve-batchgen
     python3 chip_smoke.py --phases card,build,kernels,serve-adapters
     python3 chip_smoke.py --phases card,build,kernels,serve-moe
+    python3 chip_smoke.py --phases card,build,serve-disagg
 
 Phases, each of which exits non-zero on failure:
 
@@ -148,7 +149,8 @@ Phases, each of which exits non-zero on failure:
               torch.cuda.set_sync_debug_mode("warn"), and no warned host
               sync may come from a frame under observability/ or inside a
               journey, timeline or SLO recording call;
-  serve-ckpt  checkpoints at llama2-7b's full width and depth, written from
+  serve-ckpt  checkpoints at llama2-7b's full width, 16 of its 32 layers
+              (cut to keep the default run in its limit), written from
               the seed-0 weights by tools/ckpt_writer.py, one on disk at a
               time (the free bytes printed before each write, too few fail
               the run): an HF directory of bf16 safetensors shards of at
@@ -295,7 +297,7 @@ Phases, each of which exits non-zero on failure:
               for the split design at 1024 rows;
   serve-batchgen
               examples/batch-generation/batchgen-server.yaml at llama2-7b
-              width, 16 of its 32 layers (seed 0, written as an HF
+              width, 8 of its 32 layers (seed 0, written as an HF
               directory): a 64-record
               manifest (48 text prompts of 16-1000 byte-tokens, 14 of
               token ids, one with no prompt, one naming an adapter). (a)
@@ -317,8 +319,9 @@ Phases, each of which exits non-zero on failure:
               example's paged int8 engine at 16 slots under torch.profiler
               (the weights' bf16 copies, the GEMMs, the gather);
   serve-adapters
-              multi-tenant LoRA at llama2-7b's full width and depth: the
-              seed-0 base written as an HF directory by tools/ckpt_writer.py;
+              multi-tenant LoRA at llama2-7b's full width, 16 of its 32
+              layers in (a) and (b) (cut to keep the default run in its
+              limit): the seed-0 base written as an HF directory by tools/ckpt_writer.py;
               four tenants as adapter artifacts (random B, so no delta is
               zero): two of rank 16 on all seven targets and one of rank 8
               on wq/wv in the contract's npz format, and the adapters.pt of
@@ -385,6 +388,31 @@ Phases, each of which exits non-zero on failure:
               plain attention by the train phase's rule. With profile, a
               400-token prefill and a full batch's step of (a) and (b)
               under torch.profiler;
+  serve-disagg disaggregated prefill/decode (serve/disagg.py) through
+              serve.main at llama2-7b's full width and depth, int4 weights
+              (seed 0) on the paged pool, max_batch 8, max_seq_len 2048:
+              five child processes on the one card, a monolith (int8
+              pages), a prefill tier on int8 pages, one on bf16 pages and
+              two decode tiers on int8 pages, every tier's weights digest
+              equal to this process's draw; (a) 8 concurrent greedy
+              requests of 20-1500 tokens (the 1500 in 3 chunks) through the
+              int8 pair, every token the monolith's (read from each
+              request's journey on /debug/requestz: the decode segment's
+              emits under the request's trace id), each handoff's pages,
+              bytes, export and staging ms and GB/s, the sends'
+              kv_transfer_seconds; (b) the bf16 pool's pages quantized into
+              the int8 pools, every token by the 5% rule against a
+              single-shot forward; the client TTFT through the pair beside
+              the monolith's (20, 520 and 1500 tokens, one at a time); the
+              send's encode and loopback socket timed in this process; each
+              tier's int4 launches by design (a decode tier never
+              prefills); (c) the decode tier holding a stream SIGKILLed
+              after 3 tokens: the request is requeued, the survivor streams
+              the rest, each token the monolith's; the inter-token gaps of
+              6 streams while two 1500-token prompts arrive, the pair (one
+              decode tier left) and the monolith in turns; then the last
+              decode tier killed: the stream ends "error" within the ship
+              timeout + 5 s;
   profile     (only when named) host-clock prefill and decode-step times
               (the overlapped graph replays) and, under torch.profiler,
               their device busy time and top kernels, after serve
@@ -404,8 +432,8 @@ Phases, each of which exits non-zero on failure:
 
 The line before the last is one JSON object with every kernel's numbers
 (launches from the serve or train phase whose path runs the kernel, with
-serve-spec's, serve-surface's, serve-families', serve-adapters' and
-serve-moe's beside; the
+serve-spec's, serve-surface's, serve-families', serve-adapters',
+serve-moe's and serve-disagg's beside; the
 int4 matmul's three designs are three entries, q4_matmul.cu's with no
 launch on the main path, and the cached flash's int8 route another); the
 last line
@@ -3034,6 +3062,11 @@ def serve_spec_phase(card: str, profile_steps: bool = False) -> dict:
 # --- checkpoints: serve.main and train.main on loaded weights -------------------
 
 CKPT_TRAIN_STEPS = 2
+# serve-ckpt's depth: llama2-7b's width at 16 of its 32 layers, cut so that
+# the default run stays within its time limit once serve-disagg joined it
+# (every leg and check as at full depth; bytes and seconds halve).
+CKPT_LAYERS = 16
+CKPT_MODEL = ("llama2-7b at 16 layers", (4096, CKPT_LAYERS, 32, 32, 32000))
 
 
 def disk_room(path: Path, need: int, label: str) -> int:
@@ -3094,7 +3127,7 @@ def ckpt_hf_part(card: str, tmp: Path) -> dict:
     from substratus_tpu_torch.ops.flash_attention import flash_attention
     from substratus_tpu_torch.tools.ckpt_writer import write_hf
 
-    cfg = llama.CONFIGS["llama2-7b"]
+    cfg = llama.CONFIGS["llama2-7b"].replace(n_layers=CKPT_LAYERS)
     source = llama.init_params(cfg, seed=0, device="cuda")
     nbytes = sum(t.numel() * t.element_size() for t in source.state_dict().values())
     free = disk_room(tmp, nbytes, "serve-ckpt safetensors")
@@ -3107,7 +3140,7 @@ def ckpt_hf_part(card: str, tmp: Path) -> dict:
     loads, restore = timed_loads()
     try:
         server, engine, base = start_server("serve-ckpt-hf", {k: v for k, v in SERVE_PARAMS.items() if k != "config"},
-                                            ["--model", str(tmp / "hf")])
+                                            ["--model", str(tmp / "hf")], model=CKPT_MODEL)
     finally:
         restore()
     requests = tee_requests(engine)
@@ -3224,7 +3257,8 @@ def ckpt_load_main_part(card: str, tmp: Path, source, hf_requests, hf_bytes: int
     loads, restore = timed_loads()
     try:
         server, engine, base = start_server("serve-ckpt-artifact", {k: v for k, v in SERVE_PARAMS.items()
-                                                                     if k != "config"}, ["--model", str(art)])
+                                                                     if k != "config"}, ["--model", str(art)],
+                                            model=CKPT_MODEL)
     finally:
         restore()
     requests = tee_requests(engine)
@@ -3271,7 +3305,8 @@ def ckpt_load_main_part(card: str, tmp: Path, source, hf_requests, hf_bytes: int
     gc.collect()
     torch.cuda.empty_cache()
     server, engine, base = start_server("serve-ckpt-artifact-int8", {k: v for k, v in SERVE_PARAMS.items()
-                                                                      if k != "config"}, ["--model", str(art8)])
+                                                                      if k != "config"}, ["--model", str(art8)],
+                                        model=CKPT_MODEL)
     try:
         if type(engine.params.layers[0].wq).__name__ != "QTensor":
             fail(f"{label} int8: the served weights are {type(engine.params.layers[0].wq).__name__}")
@@ -3313,8 +3348,9 @@ def ckpt_qlora_part(card: str, tmp: Path) -> dict:
         quantized = type(res["trainer"].params.layers[0].wk).__name__
         if quantized != "QTensor" or res["trainer"].lora is None:
             fail(f"serve-ckpt QLoRA: the base is {quantized}, adapters {res['trainer'].lora is not None}")
-        if launches != {"flash_fwd": 64 * n, "flash_fwd_all": 64 * n, "flash_bwd_dq": 32 * n,
-                        "flash_bwd_dq_all": 32 * n, "flash_bwd_dkv": 32 * n, "flash_bwd_dkv_all": 32 * n}:
+        L = CKPT_LAYERS  # with remat: 2 x L forward launches a step, L of each backward kernel
+        if launches != {"flash_fwd": 2 * L * n, "flash_fwd_all": 2 * L * n, "flash_bwd_dq": L * n,
+                        "flash_bwd_dq_all": L * n, "flash_bwd_dkv": L * n, "flash_bwd_dkv_all": L * n}:
             fail(f"serve-ckpt QLoRA: launches {launches} over {n} steps")
         if n != CKPT_TRAIN_STEPS or not all(np.isfinite(res["losses"])):
             fail(f"serve-ckpt QLoRA: losses {res['losses']}")
@@ -3354,11 +3390,11 @@ def ckpt_gguf_part(card: str, tmp: Path) -> dict:
     from substratus_tpu_torch.models import llama
     from substratus_tpu_torch.tools.ckpt_writer import spm_vocab, write_gguf
 
-    cfg = llama.CONFIGS["llama2-7b"]
+    cfg = llama.CONFIGS["llama2-7b"].replace(n_layers=CKPT_LAYERS)
     source = llama.init_params(cfg, seed=0, device="cuda")
     vocab = spm_vocab(cfg.vocab_size, 0, tuple(text for text, *_ in PROMPTS) + (_long_text(20000, 5),))
     path = tmp / "llama2-7b-q4_0.gguf"
-    free = disk_room(tmp, 4_100_000_000, "serve-ckpt gguf")
+    free = disk_room(tmp, 4_100_000_000 * CKPT_LAYERS // 32, "serve-ckpt gguf")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     expected = write_gguf(str(path), source, vocab)
@@ -3404,7 +3440,7 @@ def ckpt_gguf_part(card: str, tmp: Path) -> dict:
     loads, restore = timed_loads()
     try:
         params = {k: v for k, v in INT4_PARAMS.items() if k != "config"}
-        server, engine, base = start_server("serve-ckpt-gguf", params, ["--model", str(path)])
+        server, engine, base = start_server("serve-ckpt-gguf", params, ["--model", str(path)], model=CKPT_MODEL)
     finally:
         restore()
     counters = int4_counters()
@@ -3439,8 +3475,8 @@ def ckpt_gguf_part(card: str, tmp: Path) -> dict:
 
 
 def serve_ckpt_phase(card: str) -> dict:
-    """Checkpoints at llama2-7b's full width and depth, one on disk at a
-    time: the safetensors directory (served, then the QLoRA base), then
+    """Checkpoints at llama2-7b's full width (CKPT_LAYERS deep), one on disk
+    at a time: the safetensors directory (served, then the QLoRA base), then
     the GGUF file."""
     import tempfile
 
@@ -4904,10 +4940,11 @@ BATCHGEN_PARAMS = {"quantize": "int8", "max_batch": 16}
 BATCHGEN_MAX_TOKENS = 128
 BATCHGEN_KILL_AT = 16  # leg (b): durable records before the SIGKILL
 BATCHGEN_REFERENCE = 8  # greedy records held by the single-shot reference in legs (a) and (c)
-BATCHGEN_TEXT_LENS = (16, 40, 100, 200, 400, 700, 1000)
-# The phase's depth: llama2-7b's width at 16 of its 32 layers (cut so that
-# the default run stays under 1100 s with the observability legs).
-BATCHGEN_LAYERS = 16  # byte-tokens (1 + bytes) of the text prompts, in turn
+BATCHGEN_TEXT_LENS = (16, 40, 100, 200, 400, 700, 1000)  # byte-tokens (1 + bytes) of the text prompts, in turn
+# The phase's depth: llama2-7b's width at 8 of its 32 layers (cut to 16 so
+# that the default run stayed under 1100 s with the observability legs, and
+# to 8 once serve-disagg joined it).
+BATCHGEN_LAYERS = 8
 
 
 def batchgen_records() -> list:
@@ -5217,6 +5254,11 @@ def serve_batchgen_phase(card: str) -> dict:
 # --- serve-adapters: multi-tenant LoRA adapters at llama2-7b width -------------
 
 ADAPTER_TARGETS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+# serve-adapters' depth for legs (a) and (b): llama2-7b's width at 16 of its
+# 32 layers, cut so that the default run stays within its time limit once
+# serve-disagg joined it (every check as at full depth).
+ADAPTERS_LAYERS = 16
+ADAPTERS_MODEL = ("llama2-7b at 16 layers", (4096, ADAPTERS_LAYERS, 32, 32, 32000))
 # The four tenants, as the store lists them (sorted): the first two are
 # preloaded into the capacity-2 store, the others hot-load and evict.
 # (id, rank, alpha, targets); "trained" comes from one train.main LoRA step.
@@ -5397,7 +5439,7 @@ def adapters_leg(label: str, params: dict, prompts, model_dir: Path, adapters_di
     gc.collect()
     torch.cuda.empty_cache()
     server, engine, base = start_server(label, params, ("--model", str(model_dir), "--adapters-dir",
-                                                        str(adapters_dir)))
+                                                        str(adapters_dir)), model=ADAPTERS_MODEL)
     store = engine.adapters
     if store is None or store.capacity != 2 or store.loaded_ids() != list(ADAPTER_IDS[:2]):
         fail(f"{label}: the store is {store and store.snapshot()}, want capacity 2 with {ADAPTER_IDS[:2]} preloaded")
@@ -5615,8 +5657,8 @@ def gemma_heads_leg(card: str) -> dict:
 
 
 def serve_adapters_phase(card: str) -> dict:
-    """Multi-tenant LoRA at llama2-7b's full width and depth: the seed-0
-    base written as an HF directory by tools/ckpt_writer.py, four tenants
+    """Multi-tenant LoRA at llama2-7b's full width (ADAPTERS_LAYERS deep):
+    the seed-0 base written as an HF directory by tools/ckpt_writer.py, four tenants
     as contract artifacts (two of rank 16 on every target, one of rank 8 on
     wq/wv, one from a train.main LoRA step), served by serve.main
     --adapters-dir at capacity 2 on the paged pool in bf16 (a) and on the
@@ -5638,9 +5680,9 @@ def serve_adapters_phase(card: str) -> dict:
     torch.cuda.empty_cache()
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_adapters_"))
     try:
-        cfg = llama.CONFIGS["llama2-7b"]
+        cfg = llama.CONFIGS["llama2-7b"].replace(n_layers=ADAPTERS_LAYERS)
         source = llama.init_params(cfg, seed=0, device="cuda")
-        disk_room(tmp, 2 * 13_500_000_000, label)
+        disk_room(tmp, 2 * 13_500_000_000 * ADAPTERS_LAYERS // 32, label)
         t0 = time.perf_counter()
         written = write_hf(str(tmp / "llama2-7b"), source)
         print(f"{label}: llama2-7b (seed 0, bf16) written as {len(written['files'])} safetensors shards in "
@@ -6072,11 +6114,492 @@ def serve_moe_phase(card: str, profile_steps: bool = False) -> dict:
     return {"int4": a, "int8": b, "ckpt": c, "train": d, "launches": launches}
 
 
+# --- disaggregated prefill/decode: serve.main tiers on one card ---------------
+
+# The JAX package's int4 serving stack on the paged pool (int8 pages) at
+# llama2-7b's full width and depth, every tier drawing the same seed-0
+# weights: a monolith, a prefill tier on an int8 pool, one on a bf16 pool,
+# and two decode tiers on int8 pools, each serve.main in a child process.
+DISAGG_PARAMS = {"config": "llama2-7b", "quantize": "int4", "kv_cache_dtype": "int8", "max_batch": 8,
+                 "max_seq_len": 2048, "max_prefill_len": 512}
+# Leg (a): 8 greedy requests of 20-1500 tokens, 64 new tokens each; the
+# 1500-token prompt runs as 3 chunks, the 520-token one as 512 + an 8-token
+# chunk (the int4 decode design on the prefill tier).
+DISAGG_LENS = (20, 60, 150, 300, 520, 800, 1100, 1500)
+DISAGG_NEW = 64
+DISAGG_B_LENS = (20, 300, 520, 1500)  # leg (b): a bf16 pool's pages into an int8 pool
+DISAGG_TTFT_LENS = (20, 520, 1500)
+DISAGG_SHIP_TIMEOUT_S = 30.0  # HandoffManager's default, which serve.main keeps
+
+
+def page_token_bytes(cfg, int8: bool) -> int:
+    """The bytes a token's pages ship: k and v over every layer and kv head
+    (llama2-7b: 524,288 in bf16; 270,336 in int8 with f32 scales)."""
+    import torch
+
+    vectors = 2 * cfg.n_layers * cfg.n_kv_heads
+    return vectors * (cfg.head_size + 4) if int8 else vectors * cfg.head_size * torch.empty(
+        0, dtype=cfg.dtype).element_size()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class DisaggChild:
+    """serve.main as one tier in a child process, its output in
+    OUT_DIR/serve_disagg_{name}.log."""
+
+    def __init__(self, name: str, params: dict, args, env: dict):
+        OUT_DIR.mkdir(exist_ok=True)
+        self.name = name
+        path = OUT_DIR / f"chip_smoke_params_serve-disagg-{name}.json"
+        path.write_text(json.dumps(params))
+        self.log = (OUT_DIR / f"serve_disagg_{name}.log").open("w")
+        self.lines = []
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen([sys.executable, "-m", "substratus_tpu_torch.serve.main", "--params", str(path),
+                                      "--host", "127.0.0.1", "--port", "0", *args],
+                                     cwd=Path(__file__).resolve().parent, env=env, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.log.write(line)
+            self.log.flush()
+            self.lines.append(line)
+
+    def wait_ready(self, timeout: float = 300) -> str:
+        """The child's base URL once GET / answers 200 (the model drawn and
+        quantized, the engine started)."""
+        while not any(ln.startswith("serving ") for ln in self.lines):
+            if self.proc.poll() is not None or time.perf_counter() - self.t0 > timeout:
+                fail(f"serve-disagg: the {self.name} tier did not start: {''.join(self.lines[-20:])}")
+            time.sleep(0.1)
+        self.serving = next(ln for ln in self.lines if ln.startswith("serving "))
+        self.base = f"http://127.0.0.1:{int(self.serving.split('127.0.0.1:')[1].split()[0])}"
+        while http(self.base, "/", timeout=30)[0] != 200:
+            time.sleep(0.1)
+        self.ready_s = time.perf_counter() - self.t0
+        return self.base
+
+    @property
+    def digest(self) -> str:
+        return self.serving.split("weights digest ")[1].split(";")[0]
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=60)
+        self.reader.join(timeout=10)
+        self.log.close()
+
+
+def stream_times(base: str, body: dict, headers=None, on_chunk=None) -> dict:
+    """One streamed completion: the host clock of each token's chunk, its
+    pieces, the finish reason and usage; `on_chunk(n)` runs after the n-th
+    token's chunk."""
+    body = {**body, "stream": True, "stream_options": {"include_usage": True}}
+    req = urllib.request.Request(f"{base}/v1/completions", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json", **(headers or {})})
+    t0, times, pieces, finish, usage = time.perf_counter(), [], [], None, None
+    with urllib.request.urlopen(req, timeout=600) as r:
+        for raw in r:
+            line = raw.decode().strip()
+            if not line.startswith("data: {"):
+                continue
+            obj = json.loads(line[6:])
+            usage = obj.get("usage") or usage
+            for ch in obj["choices"]:
+                if ch["finish_reason"] is not None:
+                    finish = ch["finish_reason"]
+                    continue
+                times.append(time.perf_counter())
+                pieces.append(ch["text"])
+                if on_chunk is not None:
+                    on_chunk(len(times))
+    return {"t0": t0, "times": times, "pieces": pieces, "finish": finish, "usage": usage, "end": time.perf_counter()}
+
+
+def disagg_trace(tag: int, i: int) -> str:
+    return f"{tag:08x}" + f"{i:024x}"
+
+
+def journey_of(base: str, trace: str, label: str) -> dict:
+    status, _, text = http(base, f"/debug/requestz?id={trace}", timeout=60)
+    if status != 200:
+        fail(f"{label}: /debug/requestz?id={trace} -> {status} {text[:200]}")
+    return json.loads(text)["journey"]
+
+
+def emitted(events) -> list:
+    return [e[2]["t"] for e in events if e[1] == "emit"]
+
+
+def run_traced(base: str, prompts, tag: int, new_tokens: int, label: str) -> list:
+    """Every (text) at once, greedy, each under its own trace id; each
+    request's journey from `base` afterwards."""
+    results = [None] * len(prompts)
+
+    def one(i, text):
+        tp = {"traceparent": f"00-{disagg_trace(tag, i)}-{'ab' * 8}-01"}
+        results[i] = http(base, "/v1/completions", {"prompt": text, "max_tokens": new_tokens, "temperature": 0},
+                          headers=tp)
+
+    threads = [threading.Thread(target=one, args=(i, t)) for i, t in enumerate(prompts)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    for i, (status, _, text) in enumerate(results):
+        if status != 200 or not json.loads(text)["usage"]["completion_tokens"]:
+            fail(f"{label}: request {i} -> {status} {text[:200]}")
+    return [journey_of(base, disagg_trace(tag, i), label) for i in range(len(prompts))], wall
+
+
+def handoff_rows(journeys) -> list:
+    """Per handoff: its ship (prefill tier) and kv_recv (decode tier) data."""
+    rows = []
+    for j in journeys:
+        ship = next(e[2] for e in j["events"] if e[1] == "ship")
+        recv = next(e[2] for e in j["segments"][-1]["events"] if e[1] == "kv_recv")
+        rows.append({"tokens": ship["tokens"], "pages": ship["pages"], "bytes": ship["bytes"],
+                     "export_ms": ship["export_us"] / 1e3, "recv_bytes": recv["bytes"],
+                     "stage_ms": recv["stage_us"] / 1e3, "stage_gb_s": recv["bytes"] / max(recv["stage_us"], 1) / 1e3})
+    return rows
+
+
+def transfer_seconds(base: str) -> tuple:
+    s = scrape(base)["samples"]
+    return (s.get("substratus_serve_kv_transfer_seconds_sum", 0.0),
+            s.get("substratus_serve_kv_transfer_seconds_count", 0.0))
+
+
+def tier_launches(base: str) -> dict:
+    """A tier's int4 matmul launches by design (wrapper counts plus graph
+    replays, from its /metrics)."""
+    c = surface_launches(scrape(base))
+    return {"q4_matmul_decode": c.get("q4_matmul.launches_decode", 0),
+            "q4_matmul_wgmma": c.get("q4_matmul.launches_wgmma", 0),
+            "q4_matmul": c.get("q4_matmul.launches_mma", 0), "all": c.get("q4_matmul.launches", 0)}
+
+
+def itl_run(base: str, label: str, seed: int) -> dict:
+    """6 short greedy streams; once each has its first token, two
+    1500-token prompts arrive. The streams' inter-token gaps inside the
+    burst's window (its send to both answers) and outside it."""
+    shorts = [_long_text(31, seed * 100 + i) for i in range(6)]
+    longs = [_long_text(1499, seed * 100 + 50 + i) for i in range(2)]
+    firsts = threading.Semaphore(0)
+    out = [None] * 6
+
+    def short(i):
+        out[i] = stream_times(base, {"prompt": shorts[i], "max_tokens": 40, "temperature": 0},
+                              on_chunk=lambda n: n == 1 and firsts.release())
+
+    threads = [threading.Thread(target=short, args=(i,)) for i in range(6)]
+    for t in threads:
+        t.start()
+    for _ in threads:
+        if not firsts.acquire(timeout=120):
+            fail(f"{label}: a short stream never started")
+    t_burst = time.perf_counter()
+    burst = [threading.Thread(target=http, args=(base, "/v1/completions",
+                                                 {"prompt": text, "max_tokens": 4, "temperature": 0}))
+             for text in longs]
+    for t in burst:
+        t.start()
+    for t in burst:
+        t.join()
+    t_done = time.perf_counter()
+    for t in threads:
+        t.join()
+    inside, outside = [], []
+    for r in out:
+        if r["usage"] is None:
+            fail(f"{label}: a short stream ended {r['finish']} with no usage")
+        for a, b in zip(r["times"], r["times"][1:]):
+            (inside if t_burst <= b and a <= t_done else outside).append(b - a)
+    if not inside:
+        fail(f"{label}: no stream decoded while the burst arrived")
+    return {"burst_s": t_done - t_burst, "max_gap_ms": 1e3 * max(inside), "mean_gap_in_ms": 1e3 * statistics.mean(inside),
+            "mean_gap_out_ms": 1e3 * statistics.mean(outside) if outside else None, "gaps_in": len(inside)}
+
+
+def disagg_reference(tiers_model, journeys, prompts, label: str) -> dict:
+    """The 5% near-tie rule of long_reference_check on each request's
+    served tokens (from its journey) against a single-shot forward on the
+    in-process copy of the tiers' weights."""
+    from types import SimpleNamespace
+
+    from substratus_tpu_torch.serve.tokenizer import ByteTokenizer
+
+    cfg, params, family = tiers_model
+    tok = ByteTokenizer()
+    engine = SimpleNamespace(clipped_prompt=lambda p: p[-(DISAGG_PARAMS["max_seq_len"] - 1):], device=params.device,
+                             model=family, params=params, cfg=cfg)
+    requests = [SimpleNamespace(prompt_tokens=tok.encode(text), out=SimpleNamespace(tokens=emitted(
+        j["segments"][-1]["events"]))) for j, text in zip(journeys, prompts)]
+    return long_reference_check(engine, requests, label, quiet=True)
+
+
+def send_probe(nbytes: int) -> dict:
+    """The handoff send's two parts outside a tier, in this process:
+    encode_pages (the payload's one copy of pinned pages) and one frame of
+    it through send_frame -> recv_frame over loopback TCP."""
+    import socket
+
+    import torch
+
+    from substratus_tpu_torch.serve import disagg
+
+    pages = {n: torch.zeros(nbytes // 2, dtype=torch.int8, pin_memory=True) for n in ("k", "v")}
+    t0 = time.perf_counter()
+    manifest, payload = disagg.encode_pages(pages)
+    encode_s = time.perf_counter() - t0
+    done = {}
+    with socket.create_server(("127.0.0.1", 0)) as srv:
+        def read():
+            conn, _ = srv.accept()
+            with conn:
+                done["bytes"] = len(disagg.recv_frame(conn)[1])
+
+        reader = threading.Thread(target=read)
+        reader.start()
+        with socket.create_connection(srv.getsockname(), timeout=60) as sock:
+            t0 = time.perf_counter()
+            disagg.send_frame(sock, {"t": "kv", "arrays": manifest}, payload)
+            reader.join(timeout=60)
+            socket_s = time.perf_counter() - t0
+    if done.get("bytes") != nbytes:
+        fail(f"serve-disagg: the send probe moved {done.get('bytes')} of {nbytes} bytes")
+    return {"bytes": nbytes, "encode_ms": 1e3 * encode_s, "socket_ms": 1e3 * socket_s,
+            "socket_gb_s": nbytes / socket_s / 1e9}
+
+
+def serve_disagg_phase(card: str) -> dict:
+    """Disaggregated prefill/decode through serve.main at llama2-7b's full
+    width and depth on one card (module docstring): a monolith, two prefill
+    tiers and two decode tiers as child processes; legs (a) same-dtype pair
+    against the monolith, token for token, (b) a bf16 pool's pages
+    quantized into an int8 pool, held by the 5% rule, TTFT, (c) failover,
+    the inter-token gaps in turns (the pair down to one decode tier, as the
+    monolith is one engine), then the last worker's loss."""
+    import os
+
+    import torch
+
+    from substratus_tpu_torch.serve import main as serve_main
+
+    label = "serve-disagg"
+    _free_card()
+    t_phase = time.perf_counter()
+    env = {**os.environ, "OMP_NUM_THREADS": "1",
+           "PYTHONPATH": str(Path(__file__).resolve().parent) + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    env.pop("SUBSTRATUS_SERVE_ROLE", None)
+    ports = [free_port(), free_port()]
+    peers = ",".join(f"127.0.0.1:{p}" for p in ports)
+    bf16_pool = {**DISAGG_PARAMS, "kv_cache_dtype": "model"}
+    specs = {"mono": (DISAGG_PARAMS, []),
+             "decode1": (DISAGG_PARAMS, ["--role", "decode", "--transfer-port", str(ports[0])]),
+             "decode2": (DISAGG_PARAMS, ["--role", "decode", "--transfer-port", str(ports[1])]),
+             "prefill": (DISAGG_PARAMS, ["--role", "prefill", "--decode-peers", peers]),
+             "prefill_bf16": (bf16_pool, ["--role", "prefill", "--decode-peers", peers])}
+    children = {}
+    try:
+        for name, (params, args) in specs.items():
+            children[name] = DisaggChild(name, params, args, env)
+        # The same weights in this process, drawn as every tier draws them:
+        # the digests must agree, and leg (b)'s reference runs on them.
+        cfg, params, _, _, family, _ = serve_main.load_model(None, None, DISAGG_PARAMS, torch.device("cuda"), "int4")
+        digest = serve_main.weights_digest(params)
+        bases = {name: child.wait_ready() for name, child in children.items()}
+        digests = {name: child.digest for name, child in children.items()}
+        if set(digests.values()) != {digest}:
+            fail(f"{label}: the tiers' weights differ: {digests}, this process's {digest}")
+        print(f"{label}: 5 tiers ready in {max(c.ready_s for c in children.values()):.1f} s "
+              f"({', '.join(f'{n} {c.ready_s:.1f}' for n, c in children.items())}); weights digest {digest} in "
+              f"every tier and here; {torch.cuda.mem_get_info()[1] - torch.cuda.mem_get_info()[0]} bytes of the card "
+              "in use", flush=True)
+        # Warm-ups: cuBLAS handles, each decode tier's graph capture (the
+        # prefill tiers hand off round-robin), the monolith's.
+        for name in ("mono", "prefill", "prefill", "prefill_bf16", "prefill_bf16"):
+            status = http(bases[name], "/v1/completions", {"prompt": "warm up", "max_tokens": 4, "temperature": 0})[0]
+            if status != 200:
+                fail(f"{label}: the warm-up through {name} -> {status}")
+        start = {name: tier_launches(b) for name, b in bases.items()}
+
+        # (a) the same-dtype pair against the monolith, token for token.
+        prompts = [_long_text(n - 1, 40 + i) for i, n in enumerate(DISAGG_LENS)]
+        mono_j, mono_wall = run_traced(bases["mono"], prompts, 0xa0, DISAGG_NEW, f"{label} (a)")
+        t_sum0, t_count0 = transfer_seconds(bases["prefill"])
+        pair_j, pair_wall = run_traced(bases["prefill"], prompts, 0xa0, DISAGG_NEW, f"{label} (a)")
+        t_sum1, t_count1 = transfer_seconds(bases["prefill"])
+        for i, (m, p) in enumerate(zip(mono_j, pair_j)):
+            want, got = emitted(m["events"]), emitted(p["segments"][-1]["events"]) if p["segments"] else []
+            if got != want or not got:
+                first = next((k for k, (a, b) in enumerate(zip(got, want)) if a != b), None)
+                fail(f"{label} (a): the {DISAGG_LENS[i]}-token request's tokens through the pair differ from the "
+                     f"monolith's at token {first}: {got[:8]}... against {want[:8]}...")
+            if p["segments"][-1]["trace_id"] != p["trace_id"] or p["trace_id"] != disagg_trace(0xa0, i):
+                fail(f"{label} (a): the decode segment's trace id {p['segments'][-1]['trace_id']} is not the request's")
+        rows = handoff_rows(pair_j)
+        for n, r in zip(DISAGG_LENS, rows):
+            if r["pages"] != -(-(n + 1) // 16) or r["bytes"] != r["recv_bytes"] \
+                    or r["bytes"] != r["pages"] * 16 * page_token_bytes(cfg, int8=True):
+                fail(f"{label} (a): the {n}-token handoff's pages and bytes {r}")
+        sends = int(t_count1 - t_count0)
+        print(f"{label} (a) [{card}]: {len(prompts)} concurrent greedy requests of {min(DISAGG_LENS)}-"
+              f"{max(DISAGG_LENS)} tokens, up to {DISAGG_NEW} new each, through the int8 pair: every token the "
+              f"monolith's ({sum(len(emitted(m['events'])) for m in mono_j)}); wall {pair_wall:.2f} s (monolith {mono_wall:.2f} s); {sends} sends, "
+              f"kv_transfer_seconds mean {(t_sum1 - t_sum0) / max(sends, 1) * 1e3:.1f} ms", flush=True)
+        for n, r in zip(DISAGG_LENS, rows):
+            print(f"{label} (a) handoff: {n} tokens, {r['pages']} pages, {r['bytes']} bytes, export (gather + read "
+                  f"to pinned host memory) {r['export_ms']:.2f} ms, decode tier's staging (into pinned memory and "
+                  f"onto the card) {r['stage_ms']:.2f} ms, {r['stage_gb_s']:.2f} GB/s", flush=True)
+
+        # (b) a bf16 pool's pages into the int8 pools (quantized on import).
+        b_prompts = [_long_text(n - 1, 60 + i) for i, n in enumerate(DISAGG_B_LENS)]
+        b_j, b_wall = run_traced(bases["prefill_bf16"], b_prompts, 0xb0, 32, f"{label} (b)")
+        b_rows = handoff_rows(b_j)
+        for n, r in zip(DISAGG_B_LENS, b_rows):
+            if r["bytes"] != r["pages"] * 16 * page_token_bytes(cfg, int8=False):
+                fail(f"{label} (b): the {n}-token handoff shipped {r['bytes']} bytes, not bf16 pages")
+        reference = disagg_reference((cfg, params, family), b_j, b_prompts, f"{label} (b)")
+        print(f"{label} (b) [{card}]: {len(b_prompts)} requests of {DISAGG_B_LENS} tokens from the bf16 pool into "
+              f"the int8 pools, 32 new each, in {b_wall:.2f} s; bf16 pages {[r['bytes'] for r in b_rows]} bytes, "
+              f"staged at {[round(r['stage_gb_s'], 2) for r in b_rows]} GB/s", flush=True)
+
+        # TTFT: one streamed request at a time through the monolith and the pair.
+        ttft = []
+        for i, n in enumerate(DISAGG_TTFT_LENS):
+            text = _long_text(n - 1, 80 + i)
+            trace = disagg_trace(0xc0, i)
+            tp = {"traceparent": f"00-{trace}-{'ab' * 8}-01"}
+            m = stream_times(bases["mono"], {"prompt": text, "max_tokens": 8, "temperature": 0}, tp)
+            s0 = transfer_seconds(bases["prefill"])
+            p = stream_times(bases["prefill"], {"prompt": text, "max_tokens": 8, "temperature": 0}, tp)
+            s1 = transfer_seconds(bases["prefill"])
+            (row,) = handoff_rows([journey_of(bases["prefill"], trace, f"{label} TTFT")])
+            row.update(prompt=n, ttft_mono_ms=1e3 * (m["times"][0] - m["t0"]), ttft_pair_ms=1e3 * (p["times"][0] - p["t0"]),
+                       send_ms=1e3 * (s1[0] - s0[0]), sends=int(s1[1] - s0[1]))
+            ttft.append(row)
+            print(f"{label} TTFT [{card}]: {n}-token prompt, monolith {row['ttft_mono_ms']:.1f} ms, pair "
+                  f"{row['ttft_pair_ms']:.1f} ms (client, streamed); its handoff {row['pages']} pages, {row['bytes']} "
+                  f"bytes, export {row['export_ms']:.2f} ms, send (kv_transfer_seconds) {row['send_ms']:.2f} ms, "
+                  f"staging {row['stage_ms']:.2f} ms ({row['stage_gb_s']:.2f} GB/s)", flush=True)
+
+        probe = send_probe(406_585_344)
+        print(f"{label} send probe [{card}]: the 1500-token handoff's 406585344 bytes in this process: encode_pages "
+              f"{probe['encode_ms']:.1f} ms, one frame over loopback TCP {probe['socket_ms']:.1f} ms "
+              f"({probe['socket_gb_s']:.2f} GB/s)", flush=True)
+        end = {name: tier_launches(b) for name, b in bases.items()}
+        launches = {name: {k: end[name][k] - start[name][k] for k in end[name]} for name in end}
+        for name, got in launches.items():
+            decode_tier = name.startswith("decode")
+            if got["q4_matmul"] or not got["q4_matmul_decode"] or bool(got["q4_matmul_wgmma"]) == decode_tier \
+                    or got["all"] != got["q4_matmul_decode"] + got["q4_matmul_wgmma"]:
+                fail(f"{label}: the {name} tier's int4 launches {got}")
+        print(f"{label}: int4 matmul launches by tier since the warm-ups {launches} (a decode tier never prefills: "
+              "the decode design alone)", flush=True)
+
+        # (c) failover: the decode tier holding a stream dies after 3 tokens.
+        text = _long_text(99, 90)
+        trace = disagg_trace(0xd0, 0)
+        tp = {"traceparent": f"00-{trace}-{'ab' * 8}-01"}
+        status, _, body = http(bases["mono"], "/v1/completions", {"prompt": text, "max_tokens": 48, "temperature": 0},
+                               headers=tp)
+        if status != 200:
+            fail(f"{label} (c): the monolith's request -> {status} {body[:200]}")
+        mono_finish = json.loads(body)["choices"][0]["finish_reason"]
+        want = emitted(journey_of(bases["mono"], trace, f"{label} (c)")["events"])
+        killed = []
+
+        def kill_holder(n):
+            if n == 3 and not killed:
+                for name in ("decode1", "decode2"):
+                    if json.loads(http(bases[name], "/loadz", timeout=30)[2])["active_slots"]:
+                        children[name].proc.kill()
+                        killed.append(name)
+                        return
+
+        migrations0 = {n: scrape(bases[n])["samples"].get("substratus_serve_migrations_in", 0)
+                       for n in ("decode1", "decode2")}
+        c = stream_times(bases["prefill"], {"prompt": text, "max_tokens": 48, "temperature": 0}, tp,
+                         on_chunk=kill_holder)
+        if not killed:
+            fail(f"{label} (c): no decode tier held the stream")
+        survivor = "decode2" if killed[0] == "decode1" else "decode1"
+        journey = journey_of(bases["prefill"], trace, f"{label} (c)")
+        seg = journey["segments"][-1]
+        recv = next(e[2] for e in seg["events"] if e[1] == "kv_recv")
+        head = recv["prompt_tokens"] - (len(text) + 1)  # tokens streamed before the loss
+        tail = emitted(seg["events"])
+        moved = scrape(bases[survivor])["samples"].get("substratus_serve_migrations_in", 0) - migrations0[survivor]
+        if c["finish"] != mono_finish or len(c["times"]) != len(want) or tail != want[head:] or head < 3 \
+                or "requeue" not in [e[1] for e in journey["events"]] or moved < 1:
+            fail(f"{label} (c): finish {c['finish']}, {len(c['times'])} tokens, {head} before the loss, the "
+                 f"survivor's {tail[:6]}... against the monolith's {want[head:head + 6]}..., {moved} migrations")
+        print(f"{label} (c) [{card}]: {killed[0]} killed after 3 streamed tokens ({head} reached the client); the "
+              f"request was requeued and {survivor} ({int(moved)} migration) streamed the other {len(tail)}, "
+              f"each the monolith's; the client's stream whole, {len(want)} tokens, finish {mono_finish}", flush=True)
+
+        # Inter-token gaps of 6 streams while two 1500-token prompts arrive,
+        # in turns; the pair has one decode tier left, as the monolith has
+        # one engine.
+        itl = {}
+        for turn, name in enumerate(("mono", "prefill", "prefill", "mono")):
+            itl.setdefault(name, []).append(itl_run(bases[name], f"{label} gaps", 9 + turn))
+        for name, runs in itl.items():
+            who = f"pair (decode tier {survivor})" if name == "prefill" else "monolith"
+            print(f"{label} gaps [{card}]: {who}: 6 streams, two 1500-token prompts arriving: largest gap in the "
+                  f"burst {[round(r['max_gap_ms'], 1) for r in runs]} ms, mean "
+                  f"{[round(r['mean_gap_in_ms'], 1) for r in runs]} ms in it and "
+                  f"{[round(r['mean_gap_out_ms'] or 0, 1) for r in runs]} ms outside, the burst answered in "
+                  f"{[round(r['burst_s'], 2) for r in runs]} s", flush=True)
+
+        lost = []
+
+        def kill_last(n):
+            if n == 3 and not lost:
+                children[survivor].proc.kill()
+                lost.append(time.perf_counter())
+
+        d = stream_times(bases["prefill"], {"prompt": _long_text(99, 91), "max_tokens": 48, "temperature": 0},
+                         on_chunk=kill_last)
+        error_s = d["end"] - lost[0] if lost else None
+        if not lost or d["finish"] != "error" or error_s > DISAGG_SHIP_TIMEOUT_S + 5:
+            fail(f"{label} (c): with no decode tier left the stream ended {d['finish']} after {error_s} s")
+        print(f"{label} (c): the last decode tier killed after 3 tokens: the stream ended \"error\" {error_s:.2f} s "
+              f"later (bound {DISAGG_SHIP_TIMEOUT_S + 5:.0f} s)", flush=True)
+    finally:
+        for child in children.values():
+            child.stop()
+    wall = time.perf_counter() - t_phase
+    pair_launches = {k: sum(launches[n][k] for n in launches if n != "mono")
+                     for k in ("q4_matmul_decode", "q4_matmul_wgmma", "q4_matmul")}
+    print(f"{label}: {wall:.1f} s", flush=True)
+    return {"ready_s": {n: c.ready_s for n, c in children.items()}, "digest": digest, "handoffs": rows,
+            "pair_wall_s": pair_wall, "mono_wall_s": mono_wall, "transfer_mean_s": (t_sum1 - t_sum0) / max(sends, 1),
+            "mixed": b_rows, "reference": reference, "ttft": ttft, "send_probe": probe, "gaps": itl,
+            "tier_launches": launches,
+            "launches": pair_launches, "failover": {"head": head, "killed": killed[0]}, "error_s": error_s,
+            "seconds": wall}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default="card,build,kernels,serve,serve-long,serve-int4,serve-paged,serve-spec,"
                                         "serve-ckpt,serve-surface,train,train-full,serve-families,serve-batchgen,"
-                                        "serve-adapters,serve-moe")
+                                        "serve-adapters,serve-moe,serve-disagg")
     phases = ap.parse_args().phases.split(",")
     t_start = time.perf_counter()
     phase_s = {}
@@ -6135,6 +6658,8 @@ def main() -> int:
         report["serve-adapters"] = timed("serve-adapters", serve_adapters_phase, card)
     if "serve-moe" in phases:
         report["serve-moe"] = timed("serve-moe", serve_moe_phase, card, profile_steps="profile" in phases)
+    if "serve-disagg" in phases:
+        report["serve-disagg"] = timed("serve-disagg", serve_disagg_phase, card)
     report["wall_s"] = time.perf_counter() - t_start
     report["phase_s"] = phase_s
     print(f"chip_smoke: phases {','.join(phases)} in {report['wall_s']:.1f} s; seconds by phase {phase_s}",
@@ -6209,6 +6734,8 @@ def main() -> int:
         # serve-moe's (mixtral-8x7b: (a) int4 paged, (b) int8 dense, (c) the
         # 2-layer checkpoint at int4, (d) its LoRA steps), by design.
         moe_launches_of = report.get("serve-moe", {}).get("launches", {})
+        # serve-disagg's (its four tiers, llama2-7b int4 on int8 and bf16 pages), by design.
+        disagg_launches_of = report.get("serve-disagg", {}).get("launches", {})
         line = []
         for name, cases in report["kernels"].items():
             main_case = cases[0]  # the main path's shape
@@ -6220,6 +6747,7 @@ def main() -> int:
                 "launches_serve_families": families_launches_of.get(phase_of[name][1]),
                 "launches_serve_adapters": adapters_launches_of.get(phase_of[name][1]),
                 "launches_serve_moe": moe_launches_of.get(phase_of[name][1]),
+                "launches_serve_disagg": disagg_launches_of.get(phase_of[name][1]),
                 "max_abs_err": main_case["max_abs_err"], "ms": main_case["ms"],
                 "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
                 "bound_by": main_case["bound_by"], "library_ms": main_case["library_ms"],

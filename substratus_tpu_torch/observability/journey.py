@@ -1,7 +1,7 @@
 """Per-request lifecycle journeys: the "why was THIS request slow" layer
 (the port's own copy of substratus_tpu/observability/journey.py; the
-port has no disaggregated roles yet, so the wire form and ``stitch`` wait
-for their caller, ROADMAP Queue 1 item 9b).
+wire form and ``stitch`` carry a decode tier's segment back to the
+prefill tier, serve/disagg.py).
 
 The fleet plane answers "how is the fleet doing" and the step timeline
 answers "where does the engine lose time"; a ``RequestJourney`` answers

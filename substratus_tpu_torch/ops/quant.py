@@ -142,7 +142,10 @@ def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     scale keeps a size-1 trailing dim."""
     x32 = x.float()
     absmax = x32.abs().amax(dim=-1, keepdim=True)
-    scale = torch.where(absmax == 0, torch.ones_like(absmax), absmax / 127.0)
+    # A tensor divisor: on the card, PyTorch divides by a Python scalar as a
+    # multiply by its reciprocal, an ulp off the quotient the CPU (and JAX)
+    # computes at times; this keeps the card's pages bit for bit the CPU's.
+    scale = torch.where(absmax == 0, torch.ones_like(absmax), absmax / absmax.new_full((), 127.0))
     q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
     return q, scale
 

@@ -84,8 +84,8 @@ METRICS.describe(
 # The batchGenerate keys of params.json (the JAX entry point's).
 BATCHGEN_KEYS = ("manifest", "output", "maxTokens", "temperature", "recordsPerShard", "progressPort")
 # Serving knobs the batch run takes no part in, as in the JAX entry point.
-_SERVER_ONLY = ("max_queue", "drain_grace", "spec_k", "draft_model")
-_GANG = "Queue 1, disaggregated prefill/decode and gangs (a multi-process batch gang)"
+_SERVER_ONLY = ("max_queue", "drain_grace", "spec_k", "draft_model", "role", "transfer_port", "decode_peers")
+_GANG = "Queue 1, multi-GPU and RL (a multi-process batch gang)"
 _MULTI_GPU = "Queue 1, multi-GPU and RL (a batch run over several cards)"
 
 
@@ -203,6 +203,10 @@ class BatchGenDriver:
     ):
         if not engines:
             raise ValueError("batch generation needs at least one engine")
+        for e in engines:
+            if e.ec.role != "both":
+                raise ValueError(f"batch generation drives monolithic engines (role={e.ec.role!r} given); split "
+                                 "pools belong to the interactive path")
         self.engines = list(engines)
         self.tokenizer = tokenizer
         self.default_max_tokens = int(max_tokens)

@@ -107,9 +107,18 @@ Admission's prefill runs in an "engine.prefill" span under the request's
 context, passed explicitly across the thread hop; the first decode
 iteration in "engine.first_compile".
 
-Not ported yet (ROADMAP Queue 1): disaggregated roles with their page
-export and import, and lockstep gangs; EngineConfig has none of their
-fields.
+Disaggregated roles (EngineConfig.role, serve/disagg.py), on the paged
+pool: a "prefill" engine runs a prompt's chunks, samples its first token,
+reads the request's pages to the host once (_handoff_request), frees the
+slot and ships pages and sampling state through its HandoffManager; it
+never decodes, so its overlap resolves off. A "decode" engine refuses
+submit() and a pull source: requests arrive as migrations
+(submit_migration), whose pages are copied into freshly allocated pages of
+its pool on the scheduler thread's stream, behind any step in flight
+(_install_migration), and decode on. A requeued request (its decode worker
+lost) boards the prefill engine again through resubmit().
+
+Not ported yet (ROADMAP Queue 1, multi-GPU and RL): lockstep gangs.
 """
 from __future__ import annotations
 
@@ -137,6 +146,7 @@ from substratus_tpu_torch.observability.timeline import StepTimeline
 from substratus_tpu_torch.observability.tracing import SpanContext, tracer
 from substratus_tpu_torch.ops.decode_attention import pack_fragment
 from substratus_tpu_torch.ops.headdim import check_head_dim, head_dim_route
+from substratus_tpu_torch.ops.quant import dequantize_kv, quantize_kv
 from substratus_tpu_torch.ops.sampling import sample
 from substratus_tpu_torch.serve.adapters import AdapterCapacityError, UnknownAdapter
 from substratus_tpu_torch.serve.decode_graph import DecodeGraph, SpecGraph
@@ -195,8 +205,9 @@ METRICS.histogram(
 METRICS.describe(
     "substratus_serve_pipeline_flushes_total",
     "Overlapped-scheduler pipeline flushes by reason (drain|preempt|swap|"
-    "graph): points where the engine must observe a settled batch before "
-    "proceeding (graph: a new model config's decode graph).",
+    "graph|handoff): points where the engine must observe a settled batch "
+    "before proceeding (graph: a new model config's decode graph; handoff: "
+    "a prefill-role engine's page export).",
     type="counter",
 )
 METRICS.describe(
@@ -291,9 +302,14 @@ class EngineConfig:
     kv_pool_tokens: Optional[int] = None
     prefix_cache: bool = True  # share full prompt pages across requests (paged)
     # The overlapped scheduler (module docstring). None = on, as the JAX
-    # engine resolves it for a single-process engine (the port has no roles
-    # or gangs); False gives the synchronous scheduler.
+    # engine resolves it for a single-process engine of role "both" or
+    # "decode"; a "prefill" engine never decodes and resolves it off. False
+    # gives the synchronous scheduler.
     overlap: Optional[bool] = None
+    # Disaggregated serving (serve/disagg.py; module docstring): "both", the
+    # monolithic engine; "prefill" (needs a HandoffManager and the paged
+    # layout) or "decode" (accepts migrations, refuses submit()).
+    role: str = "both"
     # Speculative decoding (module docstring): up to spec_k proposals a
     # greedy slot a round; 0 = off. Per slot the draft length is
     # ceil(ewma * spec_k) while the acceptance EWMA (decay spec_ewma_decay)
@@ -415,6 +431,7 @@ class Engine:
         draft: Optional[Tuple[object, nn.Module]] = None,
         padded_cache: Optional[bool] = None,
         adapters=None,
+        handoff=None,
     ):
         """Serve `params` (the family module's parameter container, e.g. a
         models.llama.Llama) on `device`: cuda unless the caller passes
@@ -432,7 +449,9 @@ class Engine:
         `adapters` (a serve.adapters.AdapterStore on the same device)
         serves its LoRA tenants multi-tenant: each batch row gathers its
         own adapter by slot index (a family without SUPPORTS_INDEXED_LORA
-        raises, as in the JAX engine)."""
+        raises, as in the JAX engine). `handoff` (a
+        serve.disagg.HandoffManager) is where a prefill-role engine ships
+        its requests."""
         # Copy before clamping: never mutate the caller's config.
         ec = dataclasses.replace(ec) if ec is not None else EngineConfig()
         self.device = resolve_device(device)
@@ -440,6 +459,8 @@ class Engine:
             raise ValueError(f"params live on {params.device}, engine device is {self.device}")
         if ec.kv_cache_dtype not in ("model", "int8"):
             raise ValueError(f"kv_cache_dtype {ec.kv_cache_dtype!r} invalid (expected 'model' or 'int8')")
+        if ec.role not in ("both", "prefill", "decode"):
+            raise ValueError(f"role {ec.role!r} invalid (both|prefill|decode)")
         ec.max_seq_len = min(ec.max_seq_len, cfg.max_seq_len)
         ec.max_prefill_len = min(ec.max_prefill_len, ec.max_seq_len)
         if ec.max_prefill_len < 1 or ec.max_batch < 1 or ec.max_seq_len < 2:
@@ -462,6 +483,15 @@ class Engine:
         if layout == "paged" and not supports_paged:
             raise ValueError(f"kv_layout=paged unsupported for {model.__name__}")
         self.paged = layout == "paged"
+        if ec.role != "both" and not self.paged:
+            # The handoff ships pool pages; the dense slot cache has no
+            # page-granular export.
+            raise ValueError(f"role={ec.role!r} requires the paged kv layout")
+        self.handoff = handoff
+        if ec.role == "prefill":
+            if handoff is None:
+                raise ValueError("role='prefill' needs a serve.disagg.HandoffManager")
+            handoff.bind_engine(self)
         if self.paged:
             bs = ec.page_size
             if bs < 1:
@@ -516,7 +546,8 @@ class Engine:
         self.adapter_ids = np.zeros((B,), np.int64)
         self.slot_adapter: List[int] = [0] * B
         self.generator = seeded_generator(0, self.device)
-        self.overlap = ec.overlap is not False
+        # A prefill-role engine never decodes: nothing to pipeline.
+        self.overlap = ec.overlap is not False and ec.role != "prefill"
         self.decode_graph = decode_graph and self.device.type == "cuda"
 
         # Per-slot decode inputs live on the host and go to the device
@@ -548,6 +579,11 @@ class Engine:
         self._graph_cfg = None  # the model config the graph was made for
 
         self.queue: "queue.Queue[Request]" = queue.Queue()
+        # A decode-role engine's migrations (serve/disagg.py), fed by the
+        # HandoffServer's connection threads; ones held back (pool dry,
+        # adapter slots pinned) wait in _resume_migrations, in front.
+        self._migrations: "queue.Queue" = queue.Queue()
+        self._resume_migrations: List = []
         # The pull source of batch generation (set_source), or None.
         self.source = None
         self._stop = threading.Event()
@@ -574,7 +610,9 @@ class Engine:
         # "spec_proposed" and "spec_accepted" count greedy proposals and
         # the accepted ones; "draft_prefill_chunks" the draft's chunks;
         # a round's "graph_replays" holds one "replays_<graph>" of each of
-        # its SpecGraph graphs.
+        # its SpecGraph graphs. Disaggregated roles: "handoffs" counts a
+        # prefill engine's shipped requests, "migrations_in" a decode
+        # engine's installed ones.
         self.stats: Dict[str, float] = {
             "prefills": 0,
             "prefill_chunks": 0,
@@ -593,6 +631,8 @@ class Engine:
             "spec_accepted": 0,
             "draft_prefill_chunks": 0,
             "adapter_requests": 0,
+            "handoffs": 0,
+            "migrations_in": 0,
         }
         self.stats.update({f"rounds_w{w}": 0 for w in range(1, ec.spec_k + 2)} if self.spec else {})
         # Serving telemetry: one SLO tracker fed from _emit (its sketches
@@ -632,6 +672,9 @@ class Engine:
         return prompt_tokens[-(self.ec.max_seq_len - 1):]
 
     def submit(self, req: Request) -> Request:
+        if self.ec.role == "decode":
+            raise RuntimeError("decode-role engine: requests arrive as KV migrations from the prefill tier "
+                               "(serve/disagg.py)")
         if self.error is not None:
             req.finish_reason = "error"
             req.out.put(None)  # engine is dead; never strand the caller
@@ -653,7 +696,7 @@ class Engine:
             req.trace_ctx = tracer.current_context()
         if req.journey is None:
             req.journey = RequestJourney(trace_id=req.trace_ctx.trace_id if req.trace_ctx else None,
-                                         rid=req.id or None, origin="both", cap=self.ec.journey_events)
+                                         rid=req.id or None, origin=self.ec.role, cap=self.ec.journey_events)
         req.journey.record("submit", queue=self.queue.qsize(), prompt_tokens=len(req.prompt_tokens))
         self.queue.put(req)
         self._wake.set()
@@ -664,14 +707,52 @@ class Engine:
             req.out.put(None)
         return req
 
+    def resubmit(self, req: Request) -> None:
+        """Board a request that already passed admission once again (a
+        handoff requeued after its decode worker was lost,
+        serve/disagg.py), past the max_queue bound: shedding an accepted
+        request halfway through its stream would turn a worker's failure
+        into a client's 429."""
+        if self.error is not None:
+            req.finish_reason = "error"
+            req.out.put(None)
+            return
+        if req.journey is not None:
+            req.journey.record("requeue", queue=self.queue.qsize())
+        self.queue.put(req)
+        self._wake.set()
+        if self.error is not None:  # submit()'s race: never strand it
+            req.finish_reason = "error"
+            req.out.put(None)
+
+    def submit_migration(self, mig) -> None:
+        """Board a migrated request (a serve.disagg.Migration): its KV pages
+        were computed by a prefill engine and are installed without
+        recompute. Called from the HandoffServer's connection threads; the
+        scheduler thread is the only consumer."""
+        if self.ec.role != "decode":
+            raise RuntimeError(f"role={self.ec.role!r} engine cannot accept migrations")
+        if self.error is not None:
+            mig.req.finish_reason = "error"
+            mig.req.out.put(None)
+            return
+        self._migrations.put(mig)
+        self._wake.set()
+        if self.error is not None:
+            mig.req.finish_reason = "error"
+            mig.req.out.put(None)
+
     def set_source(self, source) -> None:
         """Attach (or detach, with None) a pull-based request source, the
         batch-generation admission path (serve/batchgen.py). The source's
         pull() runs on the scheduler thread and returns a Request (with its
         out sink) or None; pending() says whether pull() could yield. It is
         read after the resume list and the submit queue, so submitted
-        requests board first. (The JAX engine also refuses a source on a
-        decode-role engine and on a gang follower; the port has neither.)"""
+        requests board first. A decode-role engine refuses one: its
+        requests arrive as migrations. (The JAX engine also refuses a
+        source on a gang follower; the port has no gangs.)"""
+        if source is not None and self.ec.role == "decode":
+            raise RuntimeError("decode-role engine: requests arrive as KV migrations, not from a pull source")
         self.source = source
         self._wake.set()
 
@@ -802,21 +883,28 @@ class Engine:
         the JAX engine's keys: host counters only, no device read, no
         lock (a slightly torn snapshot routes marginally worse, which is
         fine). Served on /loadz and compacted into the x-substratus-load
-        header. The port has no disaggregated roles yet: role "both",
-        transfer_queue_depth 0."""
+        header. `role` and `transfer_queue_depth` (a prefill engine's
+        transfer queue, a decode engine's waiting migrations) are what a
+        role-aware gateway routes by."""
         active = int(self.active.sum())
         if self.paged:
             kv_free = self.alloc.free_pages / max(1, self.n_pages)
         else:
             kv_free = (self.ec.max_batch - active) / self.ec.max_batch
+        if self.ec.role == "prefill":
+            transfer_q = self.handoff.depth()
+        elif self.ec.role == "decode":
+            transfer_q = self._migrations.qsize() + len(self._resume_migrations)
+        else:
+            transfer_q = 0
         snap = {
             "queue_depth": self.queue.qsize() + len(self._resume),
             "active_slots": active,
             "max_slots": self.ec.max_batch,
             "kv_free_frac": round(kv_free, 4),
             "max_queue": self.ec.max_queue,
-            "role": "both",
-            "transfer_queue_depth": 0,
+            "role": self.ec.role,
+            "transfer_queue_depth": transfer_q,
             "overlap": self.overlap,
             "weights_version": self.weights_version,
             "prefill_tokens": self.stats["prefill_tokens"],
@@ -910,10 +998,12 @@ class Engine:
         of the line and the round ends: decoding slots will free pages. A
         request's adapter is pinned first (_acquire_adapter): with every
         store slot pinned it is held the same way; an adapter that cannot
-        be loaded ends the request as "error" and the slot stays free."""
+        be loaded ends the request as "error" and the slot stays free.
+        A decode-role engine boards its migrations first (and they count
+        toward the cap)."""
+        admitted = self._admit_migrations()
         busy = self.active.any() and self.source is None
         cap = max(1, self.ec.max_batch // 4) if busy else self.ec.max_batch
-        admitted = 0
         while admitted < cap and self._has_pending() and not self.active.all():
             req = self._next_request()
             if req is None:
@@ -997,6 +1087,145 @@ class Engine:
         if self.adapters is not None and req.adapter_slot:
             self.adapters.release(req.adapter_slot)
         req.adapter_slot = 0
+
+    # --- disaggregated roles (serve/disagg.py) ------------------------------
+
+    def _admit_migrations(self) -> int:
+        """Board migrated requests (decode role): their pages arrive
+        computed, so admission is an allocation and one scatter, no model
+        forward, and no cap but the free slots. A migration that finds its
+        adapter's store slots all pinned, or the pool dry, waits at the
+        front (decoding slots will free them); none is preempted for, since
+        a migration is cheaper to delay than a decode is to evict."""
+        admitted = 0
+        while (self._resume_migrations or not self._migrations.empty()) and not self.active.all():
+            if self._resume_migrations:
+                mig = self._resume_migrations.pop(0)
+            else:
+                try:
+                    mig = self._migrations.get_nowait()
+                except queue.Empty:
+                    break
+            if int(mig.pages["k"].shape[1]) > self.max_pages:
+                # More pages than a slot holds (a prefill tier with a longer
+                # max_seq_len): the request fails, not the engine.
+                mig.req.finish_reason = "error"
+                self._journey_end(mig.req, "error", cause="migration")
+                mig.req.out.put(None)
+                continue
+            verdict = self._acquire_adapter(mig.req)
+            if verdict == "dead":
+                continue
+            if verdict == "wait":
+                self._resume_migrations.insert(0, mig)
+                break
+            if not self._install_migration(mig):
+                self._release_adapter_pin(mig.req)
+                self._resume_migrations.insert(0, mig)
+                self._tl_pool_dry = True  # held for pages: the same bubble as a dry admission
+                break
+            admitted += 1
+        return admitted
+
+    def _install_migration(self, mig) -> bool:
+        """Allocate pages for one migration, write its transferred KV into
+        them and activate its slot, emitting the first token (sampled by the
+        prefill engine, delivered by this one). False when the pool is dry
+        (nothing held)."""
+        req = mig.req
+        n = int(mig.pages["k"].shape[1])
+        owned = self._try_alloc(n)
+        if owned is None:
+            return False
+        slot = int(np.flatnonzero(~self.active)[0])
+        self.slot_pages.assign(slot, [], owned)  # imported pages are this engine's own
+        self.block_table[slot] = 0
+        self.block_table[slot, :n] = owned
+        self._import_pages(mig.convert, owned, mig.pages)
+        self.stats["migrations_in"] += 1
+        self.slot_req[slot] = req
+        self.slot_generated[slot] = 0
+        self.slot_tokens[slot] = []
+        self.slot_adapter[slot] = req.adapter_slot
+        self.adapter_ids[slot] = req.adapter_slot
+        self._admit_counter += 1
+        self.slot_admit_seq[slot] = self._admit_counter
+        self.active[slot] = True
+        self.tokens[slot] = mig.first_token
+        self._token_fresh[slot] = True  # the next dispatch feeds the host's token
+        self._spec_ewma[slot] = 1.0
+        self._spec_degraded[slot] = 0
+        self.positions[slot] = mig.true_len
+        self.temps[slot] = req.temperature
+        self.top_ps[slot] = req.top_p
+        if req.journey is not None:
+            req.journey.record("install", slot=slot, pages=n, tokens=mig.true_len)
+        self._emit(slot, mig.first_token)
+        return True
+
+    def _import_pages(self, convert: str, owned: List[int], pages: Dict[str, torch.Tensor]) -> None:
+        """Write transferred pages (on this engine's device) into the pool's
+        pages `owned`, on this thread's stream, so behind any step in
+        flight: "none" casts (bf16 <-> f32), "quantize" writes model-dtype
+        pages into the int8 pool by the pool's own per-vector quantization,
+        "dequantize" int8 pages into a model-dtype pool."""
+        ids = self._to_device(np.asarray(owned, np.int64))
+        if convert == "quantize":
+            for name in ("k", "v"):
+                q, scale = quantize_kv(pages[name])
+                self.cache[name].index_copy_(1, ids, q)
+                self.cache[f"{name}_scale"].index_copy_(1, ids, scale)
+        elif convert == "dequantize":
+            for name in ("k", "v"):
+                self.cache[name].index_copy_(1, ids, dequantize_kv(pages[name], pages[f"{name}_scale"],
+                                                                   self.cache[name].dtype))
+        else:
+            for name, t in self.cache.items():
+                t.index_copy_(1, ids, pages[name].to(t.dtype))
+        if self.device.type == "cuda":
+            # Staged on the HandoffServer's copy stream: not freed for reuse
+            # there before this stream's reads are done.
+            stream = torch.cuda.current_stream(self.device)
+            for t in pages.values():
+                t.record_stream(stream)
+
+    def _export_pages(self, pages: List[int]) -> Dict[str, torch.Tensor]:
+        """One request's pages out of the pool, read to the host once (into
+        pinned memory on the card): {name: [L, n, bs, KH, hd]} (scales
+        [..., 1])."""
+        ids = self._to_device(np.asarray(pages, np.int64))
+        cuda = self.device.type == "cuda"
+        host = {}
+        for name, t in self.cache.items():
+            frag = t.index_select(1, ids)
+            host[name] = torch.empty(frag.shape, dtype=frag.dtype, pin_memory=cuda)
+            host[name].copy_(frag, non_blocking=cuda)
+        if cuda:
+            torch.cuda.current_stream(self.device).synchronize()
+        return host
+
+    def _handoff_request(self, req: Request, slot: int, first_id: int, true_len: int) -> None:
+        """Prefill role: export the admitted slot's pages (shared prefix
+        pages too), free the slot (its own pages; registered ones stay in
+        the prefix registry) and hand pages, first token and sampling state
+        to the transfer layer. The slot never activates: the decode tier
+        owns the rest of the request. The export reads the live pool, so
+        it must see a settled batch; a prefill engine never decodes, so
+        this flush is a guard that pins the invariant."""
+        self._flush("handoff")
+        pages = list(self.slot_pages.pages[slot])
+        t0 = time.perf_counter()
+        host = self._export_pages(pages)
+        export_us = int((time.perf_counter() - t0) * 1e6)
+        self.slot_pages.release(slot, self.alloc)
+        self.block_table[slot] = 0
+        self._release_adapter_pin(req)
+        self.stats["handoffs"] += 1
+        if req.journey is not None:
+            # export_us: the gather and the read to the host.
+            req.journey.record("ship", tokens=true_len, pages=len(pages),
+                               bytes=sum(t.numel() * t.element_size() for t in host.values()), export_us=export_us)
+        self.handoff.ship(req, host, true_len, first_id)
 
     def _prefill_lora(self, req: Request) -> Dict[str, object]:
         """forward()'s keywords for one request's prefill: the store's
@@ -1182,6 +1411,9 @@ class Engine:
         )
         first_id = int(first[0])  # the host read of the first token
         METRICS.observe("substratus_serve_phase_seconds", time.perf_counter() - t_sample, {"phase": "sample"})
+        if self.ec.role == "prefill":
+            self._handoff_request(req, slot, first_id, true_len)
+            return
         self.slot_req[slot] = req
         self.slot_generated[slot] = 0
         self.slot_tokens[slot] = []
@@ -1599,8 +1831,9 @@ class Engine:
     def _flush(self, reason: str = "drain") -> None:
         """Drain the in-flight step (or round) now, where the engine must
         see a settled batch: before the scheduler exits ("drain"),
-        preemption or truncation ("preempt"), a weight swap ("swap") and
-        a new decode graph ("graph"); counted by reason in
+        preemption or truncation ("preempt"), a weight swap ("swap"), a
+        new decode graph ("graph") and a prefill-role engine's page export
+        ("handoff"); counted by reason in
         substratus_serve_pipeline_flushes_total. The batch is then
         settled, and the next dispatch feeds host tokens for every slot."""
         pending, self._pending = self._pending, None
@@ -1807,6 +2040,13 @@ class Engine:
                 kill(self._admitting)
             for req in self._resume:
                 kill(req)
+            for mig in self._resume_migrations:
+                kill(mig.req)
+            while True:
+                try:
+                    kill(self._migrations.get_nowait().req)
+                except queue.Empty:
+                    break
             for req in self.slot_req:
                 if req is not None:
                     kill(req)

@@ -96,13 +96,26 @@ capacity, the rest hot-loaded by the first request whose ``model`` field
 names it; the startup line prints the store. ``baseModel`` is a known key
 with no effect here, as in the JAX entry point (the controller reads it).
 
+Disaggregated prefill/decode (serve/disagg.py): ``--role`` (``both``, the
+default; ``prefill``; ``decode``), else the SUBSTRATUS_SERVE_ROLE
+variable, else params.json ``role``; ``--decode-peers`` (a prefill tier's
+comma-separated ``host:port`` transfer endpoints of its decode tier), else
+SUBSTRATUS_DECODE_PEERS, else params.json ``decode_peers`` (a list); and
+``--transfer-port`` (a decode tier's listener, 8500 by default), else
+SUBSTRATUS_TRANSFER_PORT, else params.json ``transfer_port``: flag > env >
+params, as in the JAX entry point (the controller stamps the variable per
+tier while both tiers share one params file). Both tiers need the paged
+layout; a prefill tier without peers exits; a decode tier answers
+completions 503 ``wrong_role``. ``disaggregated`` is a known key with no
+effect here, as in the JAX entry point (the controller reads it).
+
 Every other key of the JAX entry point exits with the ROADMAP item that
-will serve it, named by its title (``role``, ``disaggregated``,
-``transfer_port``, ``decode_peers``: disaggregated prefill/decode;
-``tensor``, ``sequence``, ``replicas``: multi-GPU serving), unless it
-holds the one
-value this port already serves (for example ``role: both``): a knob is
-never silently ignored, and an unknown value of a served knob exits too.
+will serve it, named by its title (``tensor``, ``sequence``,
+``replicas``: multi-GPU serving), unless it holds the one value this port
+already serves: a knob is never silently ignored, and an unknown value of
+a served knob exits too. So does an operator's environment that names a
+multi-process gang (JAX_NUM_PROCESSES > 1 with JAX_COORDINATOR_ADDRESS
+set): each process would otherwise load the whole model and serve alone.
 ``batchGenerate`` is a known key, as in the JAX entry point: the batch
 run itself is ``python -m substratus_tpu_torch.serve.batchgen``.
 
@@ -116,9 +129,10 @@ from __future__ import annotations
 import argparse
 import atexit
 import contextlib
+import hashlib
 import json
 import os
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -128,17 +142,15 @@ from substratus_tpu_torch.observability.tracing import tracer
 # params.json keys the port does not serve yet: the value it does serve
 # (a key holding it passes), and where the rest waits.
 _NOT_SERVED = {
-    "role": ("both", "Queue 1, disaggregated prefill/decode"),
-    "disaggregated": (None, "Queue 1, disaggregated prefill/decode"),
-    "transfer_port": (None, "Queue 1, disaggregated prefill/decode"),
-    "decode_peers": (None, "Queue 1, disaggregated prefill/decode"),
     "tensor": (None, "Queue 1, multi-GPU serving"),
     "sequence": (None, "Queue 1, multi-GPU serving"),
     "replicas": (None, "Queue 1, multi-GPU serving"),
 }
 _SERVED = ("model", "config", "max_batch", "max_seq_len", "max_prefill_len", "kv_cache_dtype", "max_queue",
            "overlap", "kv_layout", "decode_attn_impl", "chunk_attn_impl", "attn_impl", "quantize", "q4_impl",
-           "spec_k", "draft_model", "drain_grace", "batchGenerate", "adapters", "baseModel")
+           "spec_k", "draft_model", "drain_grace", "batchGenerate", "adapters", "baseModel", "role", "disaggregated",
+           "transfer_port", "decode_peers")
+_ROLES = ("both", "prefill", "decode")
 _KV_LAYOUTS = ("auto", "paged", "dense")
 _QUANTIZE = ("none", "int8", "int4")
 # The port has no XLA: both of the JAX entry point's int4 lowerings run the kernel.
@@ -150,6 +162,7 @@ _CHUNK_IMPLS = {"xla": "flash", "flash": "flash"}
 # The JAX entry points' attn_impl (serving and training) -> models/llama.py's.
 ATTN_IMPLS = {"xla": "flash", "flash": "flash", "plain": "plain"}
 _MULTI_GPU = "Queue 1, multi-GPU and RL (ring and Ulysses attention)"
+_GANGS = "Queue 1, multi-GPU and RL (gangs: one model over several processes)"
 # The container contract's model and adapter mounts.
 CONTENT_MODEL = "/content/model"
 CONTENT_ADAPTERS = "/content/adapters"
@@ -246,6 +259,52 @@ def resolve_drain_grace(params: Dict[str, Any]) -> Optional[float]:
     return float(grace)
 
 
+def check_single_process(what: str) -> None:
+    """Exit when the operator's environment names a multi-process gang, as
+    the JAX package's parallel/distributed.py reads it: JAX_NUM_PROCESSES
+    above 1 with JAX_COORDINATOR_ADDRESS set. The port has no gangs: every
+    process would load the whole model and serve or train alone, every
+    follower answering requests the reference leaves to its leader."""
+    n = int(os.environ.get("JAX_NUM_PROCESSES", "1") or 1)
+    if n > 1 and os.environ.get("JAX_COORDINATOR_ADDRESS"):
+        raise SystemExit(f"JAX_NUM_PROCESSES={n} with JAX_COORDINATOR_ADDRESS set: {what} across {n} processes is "
+                         f"not served by the PyTorch port yet: ROADMAP {_GANGS}")
+
+
+def resolve_role(flag: Optional[str], params: Dict[str, Any]) -> str:
+    """The disaggregated role: the flag, else SUBSTRATUS_SERVE_ROLE, else
+    params.json ``role``, else "both"; exits on any other value."""
+    role = flag or os.environ.get("SUBSTRATUS_SERVE_ROLE") or str(params.get("role", "both"))
+    if role not in _ROLES:
+        raise SystemExit(f"role {role!r} invalid (both|prefill|decode)")
+    return role
+
+
+def resolve_decode_peers(flag: Optional[str], params: Dict[str, Any]) -> List[str]:
+    """A prefill tier's decode peers (host:port): the flag, else
+    SUBSTRATUS_DECODE_PEERS (comma-separated both), else params.json
+    ``decode_peers`` (a list)."""
+    peers = params.get("decode_peers") or []
+    if isinstance(peers, str) or not all(isinstance(p, str) for p in peers):
+        raise SystemExit(f"params.json: decode_peers={peers!r} invalid (a list of host:port)")
+    raw = flag or os.environ.get("SUBSTRATUS_DECODE_PEERS") or ",".join(peers)
+    return [p.strip() for p in raw.split(",") if p.strip()]
+
+
+def resolve_transfer_port(flag: Optional[int], params: Dict[str, Any]) -> int:
+    """A decode tier's transfer port: the flag, else
+    SUBSTRATUS_TRANSFER_PORT, else params.json ``transfer_port``, else
+    8500 (serve/disagg.py's DEFAULT_TRANSFER_PORT)."""
+    from substratus_tpu_torch.serve.disagg import DEFAULT_TRANSFER_PORT
+
+    port = flag if flag is not None else os.environ.get("SUBSTRATUS_TRANSFER_PORT") or params.get(
+        "transfer_port", DEFAULT_TRANSFER_PORT)
+    try:
+        return int(port)
+    except (TypeError, ValueError):
+        raise SystemExit(f"transfer_port={port!r} invalid (a port number)") from None
+
+
 def check_params(params: Dict[str, Any]) -> None:
     """Exit on any key the port does not serve yet (naming its ROADMAP
     queue), on any key it does not know, and on an attention, weight,
@@ -256,6 +315,11 @@ def check_params(params: Dict[str, Any]) -> None:
     resolve_overlap(params)
     resolve_spec(None, None, params)
     resolve_drain_grace(params)
+    if params.get("role", "both") not in _ROLES:
+        raise SystemExit(f"params.json: role={params['role']!r} invalid (both|prefill|decode)")
+    resolve_decode_peers(None, params)
+    if "transfer_port" in params:
+        resolve_transfer_port(params["transfer_port"], {})
     for key, value in params.items():
         if key in _NOT_SERVED:
             served, where = _NOT_SERVED[key]
@@ -351,6 +415,22 @@ def resolve_model_path(flag: Optional[str], params: Dict[str, Any]) -> Optional[
     return flag or params.get("model") or (CONTENT_MODEL if os.path.isdir(CONTENT_MODEL) else None)
 
 
+def weights_digest(params) -> str:
+    """A short digest of served weights: each state-dict tensor's name,
+    shape, dtype and 4096 of its values at an even stride, read to the
+    host. Replicas that must hold the same weights (the two tiers of a
+    disaggregated pair) print the same digest."""
+    h = hashlib.sha256()
+    for name, t in sorted(params.state_dict().items()):
+        if not torch.is_tensor(t):
+            continue
+        flat = t.detach().reshape(-1)
+        sample = flat[:: max(1, flat.numel() // 4096)][:4096].contiguous().cpu()
+        h.update(f"{name}{tuple(t.shape)}{t.dtype}".encode())
+        h.update(sample.view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def check_vocab(tokenizer, cfg) -> None:
     """Exit if the tokenizer has ids the model's embedding has no row for."""
     if tokenizer.vocab_size > cfg.vocab_size:
@@ -376,6 +456,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--adapters-dir", default=None,
                     help="directory of LoRA adapter artifacts served multi-tenant (one subdir per adapter id; "
                          "default: params.json adapters.dir, else /content/adapters when mounted)")
+    ap.add_argument("--role", default=None, choices=_ROLES,
+                    help="disaggregated serving role (serve/disagg.py): prefill workers hand KV pages to decode "
+                         "workers; default both (monolithic). Env SUBSTRATUS_SERVE_ROLE, params.json role "
+                         "(flag > env > params)")
+    ap.add_argument("--transfer-port", type=int, default=None,
+                    help="KV-transfer listen port of a decode tier (default 8500; env SUBSTRATUS_TRANSFER_PORT, "
+                         "params.json transfer_port)")
+    ap.add_argument("--decode-peers", default=None,
+                    help="comma-separated host:port transfer endpoints of the decode tier, for a prefill tier "
+                         "(env SUBSTRATUS_DECODE_PEERS, params.json decode_peers)")
     return ap.parse_args(argv)
 
 
@@ -449,6 +539,11 @@ def build(argv=None):
         atexit.register(tracer.export_jsonl, trace_export)
     params_json = load_params_json(args.params)
     check_params(params_json)
+    check_single_process("serving")
+    role = resolve_role(args.role, params_json)
+    peers = resolve_decode_peers(args.decode_peers, params_json) if role == "prefill" else []
+    if role == "prefill" and not peers:
+        raise SystemExit("role=prefill needs --decode-peers")
     device = resolve_device(args.device)
 
     cfg, params, tokenizer, name, family, quantize = load_model(
@@ -493,9 +588,22 @@ def build(argv=None):
         max_queue=max_queue if max_queue > 0 else None,
         overlap=resolve_overlap(params_json),
         spec_k=spec_k,
+        role=role,
     )
     adapters = build_adapter_store(family, cfg, params_json, args.adapters_dir, device)
-    engine = Engine(cfg, params, ec, device=device, model=family, draft=draft, adapters=adapters)
+    handoff = None
+    if role == "prefill":
+        from substratus_tpu_torch.serve.disagg import HandoffManager, PoolSpec
+
+        handoff = HandoffManager(peers, PoolSpec.from_engine_config(cfg, ec))
+        print(f"prefill role: decode peers {peers}", flush=True)
+    try:
+        engine = Engine(cfg, params, ec, device=device, model=family, draft=draft, adapters=adapters,
+                        handoff=handoff)
+    except ValueError:  # a role off the paged pool, a layout the family lacks
+        if handoff is not None:
+            handoff.close()
+        raise
 
     def checkpoint_loader(ref: str):
         """POST /swapz's checkpoint ref -> weights ready to install: boot's
@@ -522,6 +630,14 @@ def build(argv=None):
     server = Server(ServerState(engine, tokenizer, name, checkpoint_loader=checkpoint_loader), host=args.host,
                     port=args.port, drain_grace_s=resolve_drain_grace(params_json))
     engine.start()
+    if handoff is not None:
+        server.closers.append(handoff.close)
+    if role == "decode":
+        from substratus_tpu_torch.serve.disagg import HandoffServer
+
+        transfer = HandoffServer(engine, host=args.host, port=resolve_transfer_port(args.transfer_port, params_json))
+        server.closers.append(transfer.close)
+        print(f"decode role: KV transfer on :{transfer.port}", flush=True)
     weights = {"none": f"{str(cfg.dtype).removeprefix('torch.')} weights, torch.matmul",
                "int8": "int8 weights (scale after the dot), torch.einsum",
                "int4": f"int4 weights, int4 matmul kernel (q4_impl={params_json.get('q4_impl', 'auto')})"}
@@ -548,7 +664,7 @@ def build(argv=None):
     print(f"serving {name} on {args.host}:{server.port} ({device}); {weights[shown]}; {cache}; scheduler: "
           f"{'overlapped' if engine.overlap else 'synchronous'}, decode step "
           f"{('a CUDA graph a width' if engine.spec else 'one CUDA graph') if engine.decode_graph else 'eager'}; "
-          f"speculative decoding: {spec}; adapters: "
+          f"speculative decoding: {spec}; role: {role}; weights digest {weights_digest(params)}; adapters: "
           + ("none" if adapters is None else f"{adapters.loaded_ids()} resident of {adapters.available_ids()} "
              f"(capacity {adapters.capacity}, rank {adapters.rank})"), flush=True)
     return server

@@ -27,7 +27,8 @@ server's:
     ``data: [DONE]``. A ``stop`` match cancels the engine's slot at once
     and cuts the text before the match; a stream never sends a stop
     sequence, even one split across tokens;
-  * admission: 503 with ``Retry-After`` while draining, 504 for an expired
+  * admission: 503 ``wrong_role`` with ``Retry-After`` on a decode-role
+    replica (serve/disagg.py), 503 with ``Retry-After`` while draining, 504 for an expired
     ``x-request-deadline``, 429 with ``Retry-After`` when the engine's
     queue is at ``max_queue``; 200 responses of ``/v1/`` carry the
     ``x-substratus-load`` report header (streams at their start);
@@ -83,7 +84,7 @@ import threading
 import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 from urllib.parse import parse_qs, urlsplit
 
 from substratus_tpu_torch.gateway.limiter import deadline_remaining, parse_deadline
@@ -574,9 +575,15 @@ class Handler(BaseHTTPRequestHandler):
     # --- completions --------------------------------------------------------
 
     def _check_admission(self) -> None:
-        """A draining server takes no new request (503: the caller retries
-        on a live replica); an expired deadline is shed as 504 (decoding
-        for a client that gave up wastes a slot)."""
+        """A decode-role replica takes no completion (503 wrong_role: its
+        requests arrive as KV migrations from the prefill tier, and a
+        role-aware gateway never routes here); a draining server takes no
+        new request (503: the caller retries on a live replica); an expired
+        deadline is shed as 504 (decoding for a client that gave up wastes a
+        slot)."""
+        if self.state.engine.ec.role == "decode":
+            raise _json_error(503, "decode-role replica: completions are admitted by the prefill tier", "wrong_role",
+                              {"Retry-After": "1"})
         if self.state.draining:
             raise _json_error(503, "server is draining", "draining", {"Retry-After": "1"})
         remaining = deadline_remaining(parse_deadline(self.headers))
@@ -1021,6 +1028,9 @@ class Server:
         self.drain_grace_s = drain_grace_s
         self.httpd = _HTTPServer((host, port), handler)
         self._thread: Optional[threading.Thread] = None
+        # What else the replica runs, closed after the engine stops (a
+        # disaggregated tier's transfer listener or handoff manager).
+        self.closers: List[Callable[[], None]] = []
 
     @property
     def port(self) -> int:
@@ -1064,3 +1074,5 @@ class Server:
         self.httpd.server_close()
         # The engine last: its scheduler must outlive every stream it feeds.
         self.state.engine.stop()
+        for close in self.closers:
+            close()

@@ -33,7 +33,9 @@ to b (CUDA activity on the card), clamped to the steps this run takes (a
 resume can skip past it), written as a Chrome trace under {out}/profile,
 stopped and flushed however the run ends (a malformed value is said and
 ignored, as in the JAX entry point). Every other key or value exits naming
-the ROADMAP item that will serve it.
+the ROADMAP item that will serve it, as does an operator's environment
+that names a multi-process gang (JAX_NUM_PROCESSES > 1 with
+JAX_COORDINATOR_ADDRESS set), where each process would train alone.
 
 Tracing: the steps run in a ``train.run`` span that joins the spawner's
 trace (the ``TRACEPARENT`` variable); each progress line carries its trace
@@ -58,7 +60,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from substratus_tpu_torch.ops.headdim import head_dim_route
 from substratus_tpu_torch.serve.main import (
-    ATTN_IMPLS, check_vocab, load_checkpoint, load_params_json, resolve_model_path)
+    ATTN_IMPLS, check_single_process, check_vocab, load_checkpoint, load_params_json, resolve_model_path)
 
 _SERVED = ("steps", "max_steps", "batch_size", "seq_len", "learning_rate", "warmup_steps", "save_steps",
            "lora_rank", "lora_alpha", "config", "remat", "seed", "grad_accum_steps", "attn_impl", "quantize",
@@ -168,6 +170,7 @@ def run(argv=None) -> Dict[str, Any]:
     args = parse_args(argv)
     p = load_params_json(args.params)
     check_params(p)
+    check_single_process("training")
     model_path = resolve_model_path(args.model, {})
     if p.get("quantize", "none") != "none" and model_path is None:
         raise SystemExit("params.json: quantize='int8' is QLoRA, which needs a base model (--model or "

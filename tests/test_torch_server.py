@@ -168,12 +168,14 @@ def test_params_policy():
         main.check_params({"kv_layout": layout})
     main.check_params({"spec_k": 4, "draft_model": "/models/draft"})  # served: speculative decoding
     main.check_params({"adapters": {"dir": "x"}, "baseModel": "m"})  # served: multi-tenant adapters
-    for params in ({"quantize": "w8a8"}, {"role": "prefill"}, {"attn_impl": "ring"}, {"attn_impl": "ulysses"}):
+    # served: the disaggregated roles (serve/disagg.py) and the controller's key
+    main.check_params({"role": "prefill", "decode_peers": ["d:8500"], "transfer_port": 8500, "disaggregated": True})
+    for params in ({"quantize": "w8a8"}, {"tensor": 2}, {"attn_impl": "ring"}, {"attn_impl": "ulysses"}):
         with pytest.raises(SystemExit, match="ROADMAP"):
             main.check_params(params)
     for params, match in (({"decode_attn_impl": "fused", "kv_layout": "paged"}, "requires kv_layout=dense"),
                           ({"decode_attn_impl": "magic"}, "invalid"), ({"chunk_attn_impl": "plain"}, "invalid"),
-                          ({"attn_impl": "splash"}, "invalid"),
+                          ({"attn_impl": "splash"}, "invalid"), ({"role": "sideways"}, "invalid"),
                           ({"quantize": "int3"}, "invalid"), ({"quantize": "int4", "q4_impl": "triton"}, "invalid"),
                           ({"q4_impl": "auto"}, "invalid"), ({"spec_k": -1}, "invalid"), ({"spec_k": "3"}, "invalid")):
         with pytest.raises(SystemExit, match=match):
