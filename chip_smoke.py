@@ -14,6 +14,7 @@
     python3 chip_smoke.py --phases card,build,kernels,serve-adapters
     python3 chip_smoke.py --phases card,build,kernels,serve-moe
     python3 chip_smoke.py --phases card,build,serve-disagg
+    python3 chip_smoke.py --phases card,build,kernels,serve-w8a8,rl
 
 Phases, each of which exits non-zero on failure:
 
@@ -413,6 +414,39 @@ Phases, each of which exits non-zero on failure:
               decode tier left) and the monolith in turns; then the last
               decode tier killed: the stream ends "error" within the ship
               timeout + 5 s;
+  serve-w8a8  quantize: w8a8 through serve.main at llama2-7b's full width
+              and depth, serve-int4's params and prompts otherwise (the
+              dense int8 cache, fused decode, max_seq_len 2048): int8
+              weights and per-token int8 activations, every projection
+              but wo and the lm_head of every forward one launch of the
+              quantize kernel (csrc/w8a8_quantize.cu) and one of the s8
+              matmul (csrc/w8a8_matmul.cu), (6 x 32 + 1) x forwards, a
+              replay holding as many; every served greedy token against a
+              single-shot w8a8 forward (5% rule), the eager synchronous
+              step token for token, the graph checks, the bytes on the
+              card; the decode step beside weight-only int8 on the same
+              weights (quant_activations off), in turns. The kernels
+              phase holds both kernels at M = 1, 8 and 512 over
+              llama2-7b's (C, N) of wq, w_gate, w_down, the lm_head and
+              mixtral's expert w_gate: the int8 rows and scales, the s32
+              sums and the bf16 output bit for bit their plain versions
+              (float64 over the int8 values for the product), a dropped
+              K tile rejected by the row limit; the yardsticks
+              torch._int_mm (M padded to 32) and torch.matmul over the
+              dequantized bf16 weight;
+  rl          the RL loop (substratus_tpu_torch/rl/) at llama2-7b's width,
+              4 layers, bf16, full finetuning: one actor engine (the
+              default: overlapped, paged, the step a graph) and the
+              learner on the card, 16 prompts of 16-64 tokens, 32 tokens
+              at temperature 0.9, 3 rounds of 2 updates (8 x 96): every
+              prompt an episode, no generation error, weights_version 1,
+              2, 3, finite losses, the actor's weights the learner's
+              snapshot after each swap and a greedy probe through it
+              within the 5% rule of a single-shot forward of them; the
+              scheduler thread never restarted, no graph captured again;
+              each round's generation seconds and tokens/s, learn,
+              snapshot and swap seconds, the peak bytes. With profile,
+              one more round under torch.profiler;
   profile     (only when named) host-clock prefill and decode-step times
               (the overlapped graph replays) and, under torch.profiler,
               their device busy time and top kernels, after serve
@@ -435,7 +469,9 @@ The line before the last is one JSON object with every kernel's numbers
 serve-spec's, serve-surface's, serve-families', serve-adapters',
 serve-moe's and serve-disagg's beside; the
 int4 matmul's three designs are three entries, q4_matmul.cu's with no
-launch on the main path, and the cached flash's int8 route another); the
+launch on the main path, and the cached flash's int8 route another; the
+two w8a8 kernels replace no TPU kernel and name the XLA ops of JAX's
+qeinsum_w8a8 they replace, with serve-w8a8's launches); the
 last line
 is {"ok": true, "device": {...}}. Details go to chip_smoke.json in OUT_DIR.
 Nothing here imports JAX.
@@ -1071,6 +1107,118 @@ def q4_case(gen, m, n, c=4096, heads=None, compare=False):
     return case
 
 
+INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core peak
+
+
+def bound_int8(nbytes: float, ops: float):
+    """bound() with the operations at the card's dense int8 peak."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def yardstick_ms(fn, **kw):
+    """time_ms of a library call timed as a yardstick only, or None (said
+    on a line) where this PyTorch build refuses the call."""
+    try:
+        return time_ms(fn, **kw)
+    except RuntimeError as e:
+        print(f"yardstick refused: {str(e).splitlines()[0][:200]}", flush=True)
+        return None
+
+
+def w8a8_quantize_case(gen, m, c):
+    """The per-token activation quantization (csrc/w8a8_quantize.cu) on bf16
+    rows [m, c] (one row all zeros, one of huge values) against its plain
+    version: int8 rows and f32 scales bit for bit. No single PyTorch call
+    computes it (library null)."""
+    import torch
+
+    from substratus_tpu_torch.ops.quant import w8a8_quantize, w8a8_quantize_plain
+
+    x = (torch.randn((m, c), generator=gen, device="cuda") * 3).to(torch.bfloat16)
+    if m > 2:
+        x[1] = 0
+        x[2] *= 1e4
+    before = w8a8_quantize.launches
+    xq, ascale = w8a8_quantize(x)
+    ref_q, ref_s = w8a8_quantize_plain(x)
+    torch.cuda.synchronize()
+    label = f"w8a8_quantize m{m} c{c}"
+    if w8a8_quantize.launches != before + 1:
+        fail(f"{label}: no launch counted")
+    if not (torch.equal(xq, ref_q) and torch.equal(ascale, ref_s)):
+        bad = (xq != ref_q).sum().item()
+        fail(f"{label}: {bad} int8 values and {(ascale != ref_s).sum().item()} scales differ from the plain version")
+    b_ms, by = bound_int8(3 * m * c + 4 * m, 0)
+    return {"case": f"M={m} C={c}", "max_abs_err": 0.0, "tol": 0, "bit_exact": True,
+            "ms": time_ms(lambda: w8a8_quantize(x), hold=True),
+            "plain_ms": time_ms(lambda: w8a8_quantize_plain(x), n=5, hold=True),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": by}
+
+
+def w8a8_matmul_case(gen, m, c, n):
+    """The s8 x s8 -> s32 product with the two-scale epilogue
+    (csrc/w8a8_matmul.cu) on int8 activations [m, c] from w8a8_quantize and
+    a weight [c, n] quantized as the model's, against its plain version
+    (float64 over the int8 values, exact): the raw s32 sums bit for bit,
+    the bf16 output bit for bit and per output row within ROW_REL, a limit
+    that must also reject the product without its last 128-row K tile (one
+    stage of the kernel's ring). Timed with the L2 flushed before each
+    launch, as a decode step streams the weights; the yardsticks are
+    torch._int_mm (cuBLASLt, which refuses M <= 16: M padded to 32 rows)
+    and torch.matmul over the dequantized bf16 weight (library_bf16_ms)."""
+    import torch
+
+    from substratus_tpu_torch.ops.quant import (quantize, w8a8_matmul, w8a8_matmul_plain, w8a8_quantize,
+                                                w8a8_scale)
+
+    dev = "cuda"
+    qt = quantize(torch.randn((c, n), generator=gen, device=dev) * c**-0.5, (0,))
+    wq, ws = qt.q, qt.scale.reshape(-1)
+    x = torch.randn((m, c), generator=gen, device=dev).to(torch.bfloat16)
+    xq, ascale = w8a8_quantize(x)
+    a1 = ascale.reshape(-1)
+    raw = torch.empty((m, n), dtype=torch.int32, device=dev)
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+    before = w8a8_matmul.launches
+    w8a8_matmul(xq, a1, wq, ws, raw, raw=True)
+    w8a8_matmul(xq, a1, wq, ws, out)
+    y = w8a8_matmul_plain(xq, wq)
+    ref = w8a8_scale(y, a1, ws, torch.bfloat16)
+    torch.cuda.synchronize()
+    label = f"w8a8_matmul m{m} c{c} n{n}"
+    if w8a8_matmul.launches != before + 2:
+        fail(f"{label}: launches not counted")
+    if not torch.equal(raw, y):
+        fail(f"{label}: {(raw != y).sum().item()} of {raw.numel()} s32 sums differ from the exact product")
+    err = (out.float() - ref.float()).abs().max().item()
+    rel = row_rel_err(out, ref)
+    if not (torch.isfinite(out.float()).all() and torch.equal(out, ref) and rel <= ROW_REL):
+        fail(f"{label}: bf16 output max|err| {err}, row error {rel} (limit {ROW_REL})")
+    k = c - 128
+    short = w8a8_scale(w8a8_matmul_plain(xq[:, :k].contiguous(), wq[:k].contiguous()), a1, ws, torch.bfloat16)
+    fault = row_rel_err(short, ref)
+    if fault <= ROW_REL:
+        fail(f"{label}: the limit {ROW_REL} accepts a dropped K tile (row error {fault})")
+    l2 = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)  # 256 MB, 5x the 50 MB L2
+
+    def flush():
+        l2.sum()
+
+    pad = torch.zeros((max(m, 32), c), dtype=torch.int8, device=dev)
+    pad[:m] = xq
+    dense = qt.dequant(torch.bfloat16)
+    b_ms, by = bound_int8(m * c + c * n + 4 * (m + n) + 2 * m * n, 2 * m * c * n)
+    return {"case": f"M={m} C={c} N={n}", "max_abs_err": err, "tol": 0, "row_rel_err": rel,
+            "fault_row_rel_err": fault, "bit_exact": True,
+            "ms": time_ms(lambda: w8a8_matmul(xq, a1, wq, ws, out), flush=flush),
+            "plain_ms": time_ms(lambda: w8a8_scale(w8a8_matmul_plain(xq, wq), a1, ws, torch.bfloat16), n=5,
+                                flush=flush),
+            "library_ms": yardstick_ms(lambda: torch._int_mm(pad, wq), flush=flush),
+            "library_bf16_ms": time_ms(lambda: torch.matmul(x, dense), flush=flush),
+            "bound_ms": b_ms, "bound_by": by}
+
+
 def row_rel_err(got, ref) -> float:
     """The largest error of one output vector (a query row of dQ, a key's
     dK or dV, over D) relative to that vector's own norm, or to 2^-8 of
@@ -1312,13 +1460,19 @@ def kernel_phase():
     bwd256 = [bwd_case(gen, 2, 1024, 16, 16, True, d=256),  # a LoRA step at gemma-7b's heads
               bwd_case(gen, 2, 1000, 16, 8, True, d=256),  # ragged, GQA 2
               bwd_case(gen, 2, 512, 32, 32, True, d=192)]  # padded to 256
+    # w8a8: the first case of each is the main path's (serve-w8a8's decode
+    # step at B=8: the quantize of a layer's input, w_gate's product)
+    w8a8_quant = [w8a8_quantize_case(gen, m, c) for m in (8, 1, 512) for c in (4096, 11008, 14336)]
+    w8a8_mm = [w8a8_matmul_case(gen, m, c, n) for m in (8, 1, 512)
+               for c, n in ((4096, 11008), (4096, 4096), (11008, 4096), (4096, 32000), (4096, 14336))]
     report = {"flash_fwd": flash, "decode_attn": decode, "flash_cached": cached, "flash_cached_int8": cached_int8,
               "fused_decode": fused,
               "q4_matmul_decode": [c for c in q4 if c["design"] == "decode"],
               "q4_matmul": [c for c in q4 if c["design"] == "mma"],
               "q4_matmul_wgmma": [c for c in q4 if c["design"] == "wgmma"],
               "flash_bwd_dq": [c[0] for c in bwd], "flash_bwd_dkv": [c[1] for c in bwd],
-              **d256, "flash_bwd_dq_d256": [c[0] for c in bwd256], "flash_bwd_dkv_d256": [c[1] for c in bwd256]}
+              **d256, "flash_bwd_dq_d256": [c[0] for c in bwd256], "flash_bwd_dkv_d256": [c[1] for c in bwd256],
+              "w8a8_quantize": w8a8_quant, "w8a8_matmul": w8a8_mm}
     for name, cases in report.items():
         for c in cases:
             lib = "n/a" if c["library_ms"] is None else f"{c['library_ms']:.4f}"
@@ -1343,6 +1497,12 @@ def kernel_phase():
                       f"{', on head-major copies ' + format(c['library_contiguous_ms'], '.4f') if 'library_contiguous_ms' in c else ''}"
                       f", bound {c['bound_ms']:.4f}); host time a call of each C "
                       "entry point: " + ", ".join(f"{x} {us:.1f} us" for x, us in c["host_us"].items()), flush=True)
+    for c in report["w8a8_matmul"]:
+        int_mm = "refused" if c["library_ms"] is None else f"{c['library_ms']:.4f}"
+        print(f"w8a8_matmul [{c['case']}] (L2 flushed): ms {c['ms']:.4f}, torch._int_mm {int_mm} (M "
+              f"padded to 32 where smaller), torch.matmul on the dequantized bf16 weight {c['library_bf16_ms']:.4f}, "
+              f"bound {c['bound_ms']:.4f} ({c['bound_by']}); s32 sums and bf16 output bit for bit the plain "
+              f"version's, a dropped K tile {c['fault_row_rel_err']:.4g}", flush=True)
     for c in report["q4_matmul_decode"]:
         print(f"q4_matmul_decode [{c['case']}] plan {c['plan']} in turns with q4_matmul.cu, ms (L2 flushed): "
               + "; ".join(f"{x} {', '.join(f'{t:.4f}' for t in ts)}" for x, ts in c["turns_ms"].items())
@@ -6595,11 +6755,274 @@ def serve_disagg_phase(card: str) -> dict:
             "seconds": wall}
 
 
+# --- serve-w8a8: int8 weights x per-token int8 activations --------------------
+
+# serve-int4's stack with w8a8 weights: the dense int8 cache, fused decode,
+# the same prompts, so that its step sits beside serve-int4's.
+W8A8_PARAMS = dict(INT4_PARAMS, quantize="w8a8")
+
+
+def w8a8_counters() -> dict:
+    from substratus_tpu_torch.ops.decode_attention import decode_attention
+    from substratus_tpu_torch.ops.flash_attention import flash_attention, flash_cached_attention
+    from substratus_tpu_torch.ops.fused_decode import fused_decode_attention
+    from substratus_tpu_torch.ops.quant import w8a8_matmul, w8a8_quantize
+    from substratus_tpu_torch.ops.quant4 import q4_matmul
+
+    return {"w8a8_quantize": w8a8_quantize, "w8a8_matmul": w8a8_matmul, "q4_matmul": q4_matmul,
+            "flash_fwd": flash_attention, "flash_cached": flash_cached_attention,
+            "fused_decode": fused_decode_attention, "decode_attn": decode_attention}
+
+
+def w8a8_turns(engine, label: str, steps: int = 16) -> dict:
+    """On the stopped engine with every slot filled by 100-token prompts:
+    the decode step's host clock (overlapped graph replays) with w8a8 and
+    with weight-only int8 (quant_activations off: qeinsum's bf16 copy of
+    each int8 weight) on the same int8 weights and slots, in turns w8a8,
+    int8, int8, w8a8; each config captures its own graph before it is
+    timed. The slots are released after."""
+    import torch
+
+    from substratus_tpu_torch.serve.engine import Request
+
+    def decode(n: int) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            engine._step()
+        engine._flush()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / n
+
+    b = engine.ec.max_batch
+    for i in range(b):
+        engine.queue.put(Request([256] + [65 + i] * 99, max_tokens=10_000, temperature=0.0))
+    while not engine.active.all():
+        if engine._admit() == 0:
+            fail(f"{label}: admission failed")
+    cfg = engine.cfg
+    cfgs = {"w8a8": cfg, "int8": cfg.replace(quant_activations=False)}
+    turns = {"w8a8": [], "int8": []}
+    for mode in ("w8a8", "int8", "int8", "w8a8"):
+        engine.cfg = cfgs[mode]
+        decode(2)  # captures this config's graph when it changed
+        turns[mode].append(decode(steps))
+    engine.cfg = cfg
+    for slot in range(b):
+        engine._release_slot(slot)
+    print(f"{label} [{card_line()}]: decode step at B={b}, ms, in turns (each config's own graph): "
+          + "; ".join(f"{mode} {', '.join(f'{t:.2f}' for t in ts)}" for mode, ts in turns.items())
+          + " (int8: the same int8 weights weight-only, a bf16 copy of each a call)", flush=True)
+    return turns
+
+
+def serve_w8a8_phase(card: str, profile_steps: bool = False) -> dict:
+    """quantize: w8a8 through serve.main at llama2-7b's full width and
+    depth: serve-int4's params and prompts with int8 weights and per-token
+    int8 activations. Every projection but wo, and the lm_head, of every
+    forward launches the quantize kernel and the s8 matmul once ((6 x 32 +
+    1) x forwards); wo stays weight-only, as in JAX. The served greedy
+    tokens are held against a single-shot w8a8 forward (5% rule) and the
+    eager synchronous step token for token; the step beside weight-only
+    int8 on the same weights, in turns."""
+    import torch
+
+    from substratus_tpu_torch.ops.quant import QTensor
+
+    _free_card()
+    server, engine, base = start_server("serve-w8a8", W8A8_PARAMS)
+    params, cfg = engine.params, engine.cfg
+    nbytes = {"weights": sum(t.numel() * t.element_size() for t in params.state_dict().values()
+                             if isinstance(t, torch.Tensor)),
+              "cache": sum(t.numel() * t.element_size() for t in engine.cache.values()),
+              "allocated": torch.cuda.memory_allocated(), "peak_while_building": torch.cuda.max_memory_allocated()}
+    print(f"serve-w8a8: bytes on the card: {nbytes['weights']} of weights (int8 projections and lm_head, bf16 "
+          f"tok_embed and norms), {nbytes['cache']} of int8 cache, {nbytes['allocated']} allocated in all; peak "
+          f"{nbytes['peak_while_building']} while the bf16 weights were quantized", flush=True)
+    if not (cfg.quant_activations and isinstance(params.layers[0].wq, QTensor) and isinstance(params.lm_head, QTensor)):
+        fail(f"serve-w8a8: not w8a8: quant_activations {cfg.quant_activations}, wq {type(params.layers[0].wq)}")
+    L, per_forward = cfg.n_layers, 6 * cfg.n_layers + 1
+    captured = engine._graph.captured
+    if (captured.get("w8a8_quantize.launches"), captured.get("w8a8_matmul.launches")) != (per_forward, per_forward):
+        fail(f"serve-w8a8: one replay holds {captured}, want {per_forward} launches of each w8a8 kernel")
+    counters = w8a8_counters()
+    requests = tee_requests(engine)
+    try:
+        zero_counts(engine, counters.values())
+        results, wall = run_concurrent(base, INT4_PROMPTS)
+        wait_idle(engine)
+        launches = {name: launched(engine, c) for name, c in counters.items()}
+        stats = dict(engine.stats)
+    finally:
+        server.stop()
+    generated = check_usage(INT4_PROMPTS, results)
+    del engine.submit
+    check_graph_run(engine, stats, "serve-w8a8")
+    forwards = stats["prefills"] + stats["prefill_chunks"] + stats["decode_steps"]
+    want = {"w8a8_quantize": per_forward * forwards, "w8a8_matmul": per_forward * forwards, "q4_matmul": 0,
+            "flash_fwd": L * stats["prefills"], "flash_cached": L * stats["prefill_chunks"],
+            "fused_decode": L * stats["decode_steps"], "decode_attn": 0}
+    if launches != want or stats["prefill_chunks"] != 3:
+        fail(f"serve-w8a8: launches {launches} against {want}; stats {stats}")
+    print(f"serve-w8a8: {forwards} forwards ({stats['prefills']} single-shot prefills, {stats['prefill_chunks']} "
+          f"chunks, {stats['decode_steps']} decode steps, every step a graph replay), each {per_forward} launches of "
+          f"the quantize kernel and {per_forward} of the s8 matmul (6 a layer + the lm_head; wo weight-only): "
+          f"{launches}", flush=True)
+    reference = long_reference_check(engine, [r for r in requests if r.temperature == 0.0], "serve-w8a8")
+    eager = eager_check(engine, requests, "serve-w8a8")
+    graph = graph_checks(engine, requests, "serve-w8a8")
+    turns = w8a8_turns(engine, "serve-w8a8")
+    profiled = profile_engine(engine, "profile-w8a8", (16, 1500)) if profile_steps else None
+    step_ms = 1e3 * stats["decode_seconds"] / stats["decode_steps"]
+    decode_tps = (generated - len(INT4_PROMPTS)) / stats["decode_seconds"]
+    prefill_ms = 1e3 * stats["prefill_seconds"] / len(INT4_PROMPTS)
+    ttft = results[-1][2]
+    print(f"serve-w8a8 [{card}]: {len(INT4_PROMPTS)} concurrent requests, {generated} tokens in {wall:.2f} s; mean "
+          f"prefill (engine) {prefill_ms:.1f} ms, decode {decode_tps:.1f} tokens/s, mean step {step_ms:.2f} ms "
+          f"(overlapped, the step one CUDA graph), TTFT of the 1500-token request {ttft * 1e3:.1f} ms (client, "
+          "streamed)", flush=True)
+    return {"launches": launches, "stats": stats, "bytes": nbytes, "wall_s": wall, "generated": generated,
+            "prefill_ms": prefill_ms, "decode_tokens_per_s": decode_tps, "step_ms": step_ms,
+            "ttft_1500_ms": ttft * 1e3, "reference": reference, "eager_sync": eager, "graph": graph,
+            "turns_ms": turns, "profile": profiled}
+
+
+# --- rl: the actor-learner loop on one card -----------------------------------
+
+RL_LAYERS = 4  # train-full's depth: the learner's weights, gradients and Adam state beside the actor's
+RL_PROMPTS = 16
+RL_TOKENS = 32
+RL_ROUNDS = 3
+RL_SEQ = 96  # prompts of 16-64 tokens + 32 generated
+
+
+def rl_phase(card: str, profile_steps: bool = False) -> dict:
+    """The RL loop (substratus_tpu_torch/rl/) at llama2-7b's width, 4
+    layers, bf16, full finetuning: one actor engine (the default: overlapped,
+    the paged pool, the step a CUDA graph) and the learner on one card; 16
+    prompts, 32 tokens at temperature 0.9, 3 rounds, 2 updates a round
+    (batch 8 x 96). Each round: every prompt an episode, no generation
+    error, weights_version r + 1, finite losses, the actor's weights after
+    the swap equal to the learner's snapshot, and a greedy probe through the
+    actor within the 5% rule of a single-shot forward of those weights. The
+    scheduler thread is never restarted and no graph is captured again.
+    Each round's generation, learn, snapshot and swap seconds and the peak
+    bytes are printed. With profile, one more round under torch.profiler."""
+    import numpy as np
+    import torch
+
+    from substratus_tpu_torch.models import llama
+    from substratus_tpu_torch.rl import RLLearner, RLLoop
+    from substratus_tpu_torch.serve.engine import Engine, EngineConfig
+    from substratus_tpu_torch.train.trainer import TrainConfig
+
+    _free_card()
+    cfg = llama.CONFIGS["llama2-7b"].replace(n_layers=RL_LAYERS)
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    engine = Engine(cfg, params, EngineConfig(max_batch=RL_PROMPTS, max_seq_len=256, eos_token_id=2), device="cuda")
+    if not (engine.overlap and engine.decode_graph and engine.paged):
+        fail("rl: the actor must be the default engine (overlapped, paged, the step a graph)")
+    engine.start()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(3, cfg.vocab_size, int(rng.integers(16, 65))).tolist() for _ in range(RL_PROMPTS)]
+    probe = prompts[0][:24]
+    engine.generate(probe, max_tokens=4, temperature=0.0)  # captures the step's graph
+    thread, captures = engine._thread, engine.stats["graph_warmups"]
+    learner = RLLearner(cfg, TrainConfig(lora_rank=0, learning_rate=2e-4, warmup_steps=1,
+                                         total_steps=2 * RL_ROUNDS), params=params, device="cuda", batch_size=8,
+                        seq_len=RL_SEQ)
+    seconds = {"learn": [], "snapshot": [], "swap": []}
+    snapshots = []
+
+    def timed(key, fn, keep=None):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            seconds[key].append(time.perf_counter() - t0)
+            if keep is not None:
+                keep.append(out)
+            return out
+        return call
+
+    learner.learn = timed("learn", learner.learn)
+    learner.snapshot_params = timed("snapshot", learner.snapshot_params, snapshots)
+    engine.swap_params = timed("swap", engine.swap_params)
+
+    def reward(record, prompt_tokens):  # the share of completion tokens in the vocabulary's lower half
+        toks = record.get("tokens") or []
+        return sum(1 for t in toks if t < cfg.vocab_size // 2) / max(len(toks), 1)
+
+    OUT_DIR.mkdir(exist_ok=True)
+    out_dir = OUT_DIR / "rl"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    loop = RLLoop([engine], learner, prompts, reward, str(out_dir), max_tokens=RL_TOKENS, temperature=0.9)
+    reports, probes = [], []
+    try:
+        for rnd in range(RL_ROUNDS):
+            rep = loop.run_round()
+            reports.append(rep)
+            if (rep["episodes"], rep["gen"]["errors"], rep["weights_version"], len(rep["losses"])) != (
+                    RL_PROMPTS, 0, rnd + 1, 2) or not np.isfinite(rep["losses"]).all():
+                fail(f"rl: round {rnd}: {rep}")
+            served = engine.params.state_dict()
+            if any(not torch.equal(served[k].cpu(), v) for k, v in snapshots[-1].items()):
+                fail(f"rl: round {rnd}: the actor's weights are not the learner's snapshot after the swap")
+            toks = engine.generate(probe, max_tokens=16, temperature=0.0)
+            with torch.inference_mode():
+                logits, _ = llama.forward(engine.params, torch.tensor([probe + toks[:-1]], device="cuda"), cfg)
+            logits = logits[0, len(probe) - 1:]
+            scale = logits.abs().max().item()
+            gap = (logits.max(dim=-1).values - logits[torch.arange(len(toks)), torch.tensor(toks)]).max().item()
+            agree = sum(int(logits[i].argmax()) == t for i, t in enumerate(toks))
+            probes.append({"tokens": toks, "argmax_agree": agree, "max_gap": gap, "logit_scale": scale})
+            if not torch.isfinite(logits).all() or gap > 0.05 * scale:
+                fail(f"rl: round {rnd}: the probe's tokens disagree with the snapshot's single-shot forward "
+                     f"{probes[-1]}")
+        peak = torch.cuda.max_memory_allocated()
+        if engine._thread is not thread or not thread.is_alive() or engine.error is not None:
+            fail("rl: the actor's scheduler thread was restarted or died")
+        if engine.stats["graph_warmups"] != captures:
+            fail(f"rl: {engine.stats['graph_warmups'] - captures} graphs captured again across the swaps")
+        profiled = None
+        if profile_steps:
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                extra = loop.run_round()
+                wall = time.perf_counter() - t0
+            profiled = _device_summary(prof, wall, 1)
+            print(f"profile-rl: one more round {wall:.2f} s, device busy {profiled['device_busy_ms']:.1f} ms, "
+                  f"losses {extra['losses']}", flush=True)
+            for e in profiled["top"]:
+                print(f"profile-rl: {e['ms']:8.3f} ms {e['calls']:6.1f} calls  {e['name'][:80]}", flush=True)
+    finally:
+        engine.stop()
+    snap_bytes = sum(v.numel() * v.element_size() for v in snapshots[-1].values())
+    for rnd, rep in enumerate(reports):
+        print(f"rl [{card}]: round {rnd}: {rep['episodes']} episodes, {rep['gen']['gen_tokens']} tokens generated in "
+              f"{rep['gen']['wall_s']:.2f} s ({rep['gen']['gen_tok_s']:.1f} tokens/s), mean reward "
+              f"{rep['mean_reward']:.4f}; learn {seconds['learn'][rnd]:.2f} s (losses {rep['losses']}), snapshot "
+              f"{seconds['snapshot'][rnd]:.2f} s and swap {seconds['swap'][rnd]:.2f} s for {snap_bytes} bytes; "
+              f"weights_version {rep['weights_version']}; probe {probes[rnd]['argmax_agree']}/16 the argmax "
+              f"(largest gap {probes[rnd]['max_gap']:.4g} at logit scale {probes[rnd]['logit_scale']:.4g})",
+              flush=True)
+    print(f"rl: llama2-7b width at {RL_LAYERS} layers, one actor and the learner on the card: {RL_ROUNDS} rounds, "
+          f"versions {[r['weights_version'] for r in reports]}, the scheduler thread never restarted, no graph "
+          f"captured again ({captures} captures); peak {peak} bytes ({peak / 2**30:.1f} GiB)", flush=True)
+    return {"rounds": reports,
+            "seconds": seconds, "probes": probes, "peak_bytes": peak, "snapshot_bytes": snap_bytes,
+            "captures": captures, "profile": profiled}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default="card,build,kernels,serve,serve-long,serve-int4,serve-paged,serve-spec,"
                                         "serve-ckpt,serve-surface,train,train-full,serve-families,serve-batchgen,"
-                                        "serve-adapters,serve-moe,serve-disagg")
+                                        "serve-adapters,serve-moe,serve-disagg,serve-w8a8,rl")
     phases = ap.parse_args().phases.split(",")
     t_start = time.perf_counter()
     phase_s = {}
@@ -6660,6 +7083,10 @@ def main() -> int:
         report["serve-moe"] = timed("serve-moe", serve_moe_phase, card, profile_steps="profile" in phases)
     if "serve-disagg" in phases:
         report["serve-disagg"] = timed("serve-disagg", serve_disagg_phase, card)
+    if "serve-w8a8" in phases:
+        report["serve-w8a8"] = timed("serve-w8a8", serve_w8a8_phase, card, profile_steps="profile" in phases)
+    if "rl" in phases:
+        report["rl"] = timed("rl", rl_phase, card, profile_steps="profile" in phases)
     report["wall_s"] = time.perf_counter() - t_start
     report["phase_s"] = phase_s
     print(f"chip_smoke: phases {','.join(phases)} in {report['wall_s']:.1f} s; seconds by phase {phase_s}",
@@ -6703,7 +7130,10 @@ def main() -> int:
                    "flash_bwd_dq_d256": ("substratus_tpu_torch/csrc/flash_bwd.cu",
                                          "substratus_tpu/ops/flash_attention.py:247"),
                    "flash_bwd_dkv_d256": ("substratus_tpu_torch/csrc/flash_bwd.cu",
-                                          "substratus_tpu/ops/flash_attention.py:290")}
+                                          "substratus_tpu/ops/flash_attention.py:290"),
+                   # w8a8: no TPU kernel; the XLA ops of qeinsum_w8a8 they replace
+                   "w8a8_quantize": ("substratus_tpu_torch/csrc/w8a8_quantize.cu", "substratus_tpu/ops/quant.py:142"),
+                   "w8a8_matmul": ("substratus_tpu_torch/csrc/w8a8_matmul.cu", "substratus_tpu/ops/quant.py:147")}
         # Each kernel's launches come from the serve or train phase whose
         # path runs it (train: the first train.main call, 4 steps), as
         # (phase, its launch count): the flash forward's and the cached
@@ -6721,7 +7151,8 @@ def main() -> int:
                     # a group of 3 at 256 is no model's, so the split design's 4-warp instance runs on no path
                     **{name: ("serve-adapters", name) for name in (
                         "flash_fwd_d256", "flash_cached_d256", "flash_cached_int8_d256", "decode_attn_d256",
-                        "fused_decode_d256", "decode_split_d256", "flash_bwd_dq_d256", "flash_bwd_dkv_d256")}}
+                        "fused_decode_d256", "decode_split_d256", "flash_bwd_dq_d256", "flash_bwd_dkv_d256")},
+                    "w8a8_quantize": ("serve-w8a8", "w8a8_quantize"), "w8a8_matmul": ("serve-w8a8", "w8a8_matmul")}
         # serve-spec's launches (legs (a) and (b)) of each design, and
         # serve-surface's (its child process's legs (a), (b) and (d)), each
         # its own count.

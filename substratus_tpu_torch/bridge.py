@@ -21,6 +21,11 @@ E] and the experts [L, E, D, M] / [L, E, M, D] split on their layer axis
 into each block's [D, E] and [E, ...], and expert-routed LoRA pairs [L, E,
 in, r] / [L, E, r, out] into each layer's [E, in, r] / [E, r, out].
 
+``config_from_jax`` gives the port's config of a JAX family config: the
+fields the two share (``quant_activations``, w8a8, among them) and the
+dtype by name; the attention switches keep the port's defaults, since
+the port's names differ (it has no XLA).
+
 Quantized leaves carry over as they are: an int4 ``Q4Tensor`` as its
 ``packed`` bytes, ``scale`` and (as the module's extra state) its
 ``pack_axis`` and ``block``; an int8 ``QTensor`` as ``q`` and ``scale``.
@@ -29,6 +34,7 @@ negative ``pack_axis`` stays valid when the layer axis is split off.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict
 
 import numpy as np
@@ -53,6 +59,24 @@ def _entries(leaf: Any) -> Dict[str, Any]:
     if hasattr(leaf, "q") and hasattr(leaf, "scale"):  # QTensor
         return {".q": _tensor(leaf.q), ".scale": _tensor(leaf.scale)}
     return {"": _tensor(leaf)}
+
+
+# The JAX config classes' names -> the port's family names.
+_FAMILY_OF_JAX_CONFIG = {"LlamaConfig": "llama", "OPTConfig": "opt", "FalconConfig": "falcon"}
+# Switches whose values name JAX's implementations ("xla", "pallas").
+_IMPL_FIELDS = ("attn_impl", "decode_attn_impl", "chunk_attn_impl")
+
+
+def config_from_jax(jcfg: Any):
+    """The port's config (models/registry.py's class of the family) of a
+    JAX family config: every field both have but the attention switches,
+    and the dtype by its numpy name (jnp.float32 -> torch.float32)."""
+    from substratus_tpu_torch.models import registry
+
+    cls = registry.config_class(_FAMILY_OF_JAX_CONFIG[type(jcfg).__name__])
+    names = {f.name for f in dataclasses.fields(cls)} - set(_IMPL_FIELDS) - {"dtype"}
+    kw = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg) if f.name in names}
+    return cls(**kw, dtype=getattr(torch, np.dtype(jcfg.dtype).name))
 
 
 def params_from_jax(tree: Dict[str, Any]) -> Dict[str, Any]:

@@ -10,7 +10,10 @@ per layer in an
 plain ``torch.matmul``; a quantized one (``quantize_weights``: int8
 ``QTensor`` or int4 ``Q4Tensor``, chosen by ``quant_contracting``) goes
 through ``ops.quant.qeinsum`` with the JAX equations, which runs the int4
-kernel of ops/quant4.py. Attention goes through the kernel wrappers:
+kernel of ops/quant4.py, or, with ``quant_activations`` (w8a8), through
+``qeinsum_w8a8``, as JAX's project, eproj and lm_head choose it: the
+int8 activation and product kernels of ops/quant.py (wo stays
+weight-only, as in JAX). Attention goes through the kernel wrappers:
 ``flash_attention`` for the no-cache prefill, and inside
 update_cache_and_attend ``decode_attention`` or ``fused_decode_attention``
 for decode steps and ``flash_cached_attention`` for the chunks of a long
@@ -55,7 +58,7 @@ from substratus_tpu_torch.ops.basics import lora_delta, lora_delta_indexed, rms_
 from substratus_tpu_torch.ops.decode_attention import update_cache_and_attend
 from substratus_tpu_torch.ops.flash_attention import flash_attention
 from substratus_tpu_torch.ops.fused_decode import cache_layout
-from substratus_tpu_torch.ops.quant import QTensor, _einsum, qeinsum, quantize
+from substratus_tpu_torch.ops.quant import QTensor, _einsum, qeinsum, qeinsum_w8a8, quantize
 from substratus_tpu_torch.ops.quant4 import Q4Tensor, quantize4
 from substratus_tpu_torch.utils.device import DeviceLike, resolve_device, seeded_generator
 
@@ -88,6 +91,11 @@ class LlamaConfig:
     # ops/flash_attention.py's cached kernel on the card, "plain" =
     # dequantize + ops/attention.py reference.
     chunk_attn_impl: str = "flash"
+    # W8A8: quantize activations per token so the quantized projections
+    # run as int8 x int8 products (ops/quant.py::qeinsum_w8a8, the two
+    # w8a8 kernels on the card). Opt-in (serve.main's quantize: w8a8);
+    # weight-only int8 (qeinsum) is the default quantized path.
+    quant_activations: bool = False
     # Mixture-of-experts (Mixtral family): n_experts == 0 means the dense
     # MLP; else routed top-k (_moe_ffn), dropless when serving and with
     # GShard capacity dispatch when training. The trainer adds
@@ -420,11 +428,11 @@ def _self_attention(q, k, v, positions, cfg: LlamaConfig) -> torch.Tensor:
 
 def project(eq: str, x: torch.Tensor, w, cfg) -> torch.Tensor:
     """einsum(eq, x, w) in the JAX package's layouts: a quantized weight
-    through qeinsum, a dense one as one torch.matmul over the flattened
+    through qeinsum (qeinsum_w8a8 under cfg.quant_activations), a dense one as one torch.matmul over the flattened
     contracted and kept dims, in cfg.dtype (any family's config; the OPT
     and Falcon modules project through it too)."""
     if isinstance(w, (QTensor, Q4Tensor)):
-        return qeinsum(eq, x, w, cfg.dtype)
+        return (qeinsum_w8a8 if getattr(cfg, "quant_activations", False) else qeinsum)(eq, x, w, cfg.dtype)
     ins, out = eq.split("->")
     nc = sum(letter not in out for letter in ins.split(",")[0])
     y = torch.matmul(x.flatten(-nc), w.to(cfg.dtype).flatten(0, nc - 1).flatten(1))
@@ -526,9 +534,10 @@ def _moe_ffn(
     b, s, d = h.shape
     E, k = cfg.n_experts, cfg.n_experts_per_token
     lora = lora or {}
+    qe = qeinsum_w8a8 if cfg.quant_activations else qeinsum
 
     def eproj(name: str, x: torch.Tensor, eq_w: str, eq_a: str, eq_b: str) -> torch.Tensor:
-        out = qeinsum(eq_w, x, getattr(lp, name), dt)
+        out = qe(eq_w, x, getattr(lp, name), dt)
         if name in lora:
             down = _einsum(eq_a, x, lora[name]["a"].to(dt))
             out = out + _einsum(eq_b, down, lora[name]["b"].to(dt)) * lora_scale

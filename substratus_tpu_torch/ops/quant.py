@@ -1,13 +1,24 @@
-"""Quantization (port of substratus_tpu/ops/quant.py): int8 weights, and
-the int8 KV cache.
+"""Quantization (port of substratus_tpu/ops/quant.py): int8 weights, the
+w8a8 product, and the int8 KV cache.
 
 Weights: ``QTensor`` holds symmetric per-output-channel int8 values and a
 broadcastable f32 scale (contracting dims size 1); ``qeinsum`` applies
 the scale after the dot, dequantizes when the scale varies along a
 contracted dim, and hands a ``Q4Tensor`` to ``q4einsum`` (ops/quant4.py).
 int8 weight-only is plain torch ops, as the JAX package computes it with
-XLA ops and has no kernel for it; its int8 x int8 activation path
-(``qeinsum_w8a8``) is not ported.
+XLA ops and has no kernel for it.
+
+w8a8 (``qeinsum_w8a8``, models/llama.py under ``quant_activations``):
+each activation row is quantized to int8 with its own f32 scale
+(``w8a8_quantize``, csrc/w8a8_quantize.cu on the card), the int8 rows
+times the int8 weight sum exactly in s32 and the two scales apply after
+the dot (``w8a8_matmul``, csrc/w8a8_matmul.cu: mma.sync s8 x s8 -> s32
+with the scales in its epilogue). Neither replaces a TPU kernel: the JAX
+package runs XLA ops and an s8 einsum there. Where JAX falls back to the
+weight-only product (a Q4Tensor, a scale that varies along a contracted
+dim, more than one contracted dim or one that is not x's last: wo's
+"bshk,hkd->bsd"), so does the port, decided the same way. CPU tensors run
+each kernel's plain version; CUDA tensors launch the kernel or raise.
 
 torch.round rounds half to even, as jnp.round does, so the port's int8
 values match the JAX package's bit for bit.
@@ -19,7 +30,8 @@ from typing import Any, Sequence, Tuple
 import torch
 from torch import nn
 
-from substratus_tpu_torch.ops.quant4 import Q4Tensor, _einsum, q4einsum
+from substratus_tpu_torch import kernels
+from substratus_tpu_torch.ops.quant4 import Q4Tensor, _contracted_count, _einsum, _expert_split, q4einsum
 
 
 class QTensor(nn.Module):
@@ -30,6 +42,7 @@ class QTensor(nn.Module):
         super().__init__()
         self.register_buffer("q", q)
         self.register_buffer("scale", scale)
+        self._operands = None  # w8a8_operands' checked views of the buffers: (q, scale, {expert: views})
 
     @classmethod
     def empty(cls, shape: Sequence[int], contracting: Sequence[int], device=None) -> "QTensor":
@@ -115,6 +128,171 @@ def _scale_for_out(scale: torch.Tensor, opsub: str, out: str) -> torch.Tensor:
         if letter in out:
             shape[out.index(letter)] = scale.shape[i]
     return scale.reshape(shape)
+
+
+def w8a8_quantize_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(xq int8, ascale f32 [..., 1]): per-row symmetric int8 over x's
+    last dim, the JAX formula: ascale = where(amax == 0, 1, amax / 127)
+    in f32, xq = clip(round(x / ascale), -127, 127). Both divisions by a
+    tensor (on the card a Python-scalar divisor is a multiply by its
+    reciprocal, an ulp off at times)."""
+    x32 = x.float()
+    amax = x32.abs().amax(dim=-1, keepdim=True)
+    ascale = torch.where(amax == 0, torch.ones_like(amax), amax / amax.new_full((), 127.0))
+    return torch.clamp(torch.round(x32 / ascale), -127, 127).to(torch.int8), ascale
+
+
+def w8a8_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """w8a8_quantize_plain's result: the plain version for CPU tensors;
+    on the card one launch of csrc/w8a8_quantize.cu, which takes bf16 rows
+    of a width that is a multiple of 8, else raises."""
+    if x.device.type == "cpu":
+        return w8a8_quantize_plain(x)
+    c = x.shape[-1]
+    if x.device.type != "cuda" or x.dtype != torch.bfloat16 or c % 8 or x.numel() == 0:
+        raise ValueError(f"w8a8_quantize: the kernel takes non-empty bf16 CUDA rows of a multiple of 8 values, "
+                         f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+    x2 = x.reshape(-1, c)
+    if x2.stride(1) != 1 or x2.stride(0) % 8 or x2.data_ptr() % 16:
+        x2 = x2.contiguous()
+    xq = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    ascale = torch.empty((*x.shape[:-1], 1), dtype=torch.float32, device=x.device)
+    rc = kernels.library().w8a8_quantize(x2.data_ptr(), x2.stride(0), xq.data_ptr(), ascale.data_ptr(),
+                                         x2.shape[0], c, kernels.stream_ptr(x.device))
+    kernels.check(rc, "w8a8_quantize")
+    w8a8_quantize.launches += 1
+    return xq, ascale
+
+
+w8a8_quantize.launches = 0
+
+
+def w8a8_matmul_plain(xq2: torch.Tensor, wq2: torch.Tensor) -> torch.Tensor:
+    """The exact s32 product xq2 [M, C] int8 @ wq2 [C, N] int8: int32
+    torch.mm on the CPU; on the card float64, exact below 2^53 (|sum| <=
+    127^2 C), as CUDA has no integer matmul."""
+    if xq2.device.type == "cpu":
+        return torch.mm(xq2.int(), wq2.int())
+    return torch.mm(xq2.double(), wq2.double()).to(torch.int32)
+
+
+def w8a8_scale(y: torch.Tensor, ascale1: torch.Tensor, wscale1: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The epilogue of the w8a8 product, in the JAX formula's order:
+    (y.f32 * ascale[m]) * wscale[n], then the cast."""
+    return (y.float() * ascale1[:, None] * wscale1).to(dtype)
+
+
+def w8a8_matmul(xq2: torch.Tensor, ascale1: torch.Tensor, wq2: torch.Tensor, wscale1: torch.Tensor,
+                out2: torch.Tensor, raw: bool = False) -> torch.Tensor:
+    """out2 [M, N] = w8a8_scale(xq2 @ wq2, ascale1, wscale1) in out2's
+    dtype (raw: out2 int32 takes the s32 sums). xq2 [M, C] int8 and out2
+    may be strided row views (an expert's slice), ascale1 [M] f32 likewise,
+    wq2 [C, N] int8 and wscale1 [N] f32 contiguous. CPU tensors run the
+    plain version; CUDA tensors one launch of csrc/w8a8_matmul.cu (bf16
+    out, or int32 raw; C, N and the row strides multiples of 16, 8 for
+    out2; 16-byte aligned), else it raises."""
+    if xq2.device.type == "cpu":
+        y = w8a8_matmul_plain(xq2, wq2)
+        return out2.copy_(y if raw else w8a8_scale(y, ascale1, wscale1, out2.dtype))
+    m, c = xq2.shape
+    n = wq2.shape[1]
+    want = torch.int32 if raw else torch.bfloat16
+    if (xq2.dtype != torch.int8 or wq2.dtype != torch.int8 or ascale1.dtype != torch.float32
+            or wscale1.dtype != torch.float32 or out2.dtype != want or xq2.device.type != "cuda"
+            or len({t.device for t in (xq2, ascale1, wq2, wscale1, out2)}) != 1):
+        raise ValueError(f"w8a8_matmul: the kernel takes int8 x and W with f32 scales into {want} on one card, got "
+                         f"{xq2.dtype}/{wq2.dtype}/{ascale1.dtype}/{wscale1.dtype} -> {out2.dtype}")
+    if (wq2.shape[0] != c or tuple(out2.shape) != (m, n) or ascale1.shape != (m,) or wscale1.shape != (n,)
+            or m < 1 or c % 16 or n % 16 or xq2.stride(1) != 1 or xq2.stride(0) % 16 or out2.stride(1) != 1
+            or out2.stride(0) % 8 or not wq2.is_contiguous() or not wscale1.is_contiguous()
+            or (xq2.data_ptr() | wq2.data_ptr() | wscale1.data_ptr() | out2.data_ptr()) % 16):
+        raise ValueError(f"w8a8_matmul: unsupported operands x{tuple(xq2.shape)}/{xq2.stride()} "
+                         f"W{tuple(wq2.shape)} out{tuple(out2.shape)}/{out2.stride()}: C and N multiples of 16, "
+                         "rows contiguous with 16-byte aligned strides")
+    rc = kernels.library().w8a8_matmul(xq2.data_ptr(), xq2.stride(0), ascale1.data_ptr(), ascale1.stride(0),
+                                       wq2.data_ptr(), wscale1.data_ptr(), out2.data_ptr(), out2.stride(0),
+                                       int(raw), m, n, c, kernels.stream_ptr(xq2.device))
+    kernels.check(rc, "w8a8_matmul")
+    w8a8_matmul.launches += 1
+    return out2
+
+
+w8a8_matmul.launches = 0
+
+
+def w8a8_operands(w: QTensor, c: int, expert=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """w's int8 values [C, N] and f32 scales [N] (of w[expert] for a
+    stacked expert weight), as w8a8_matmul takes them, made once per pair
+    of buffers and kept on w while its buffers are the same tensors (an
+    in-place load or swap keeps them)."""
+    cached = w._operands
+    if cached is None or cached[0] is not w.q or cached[1] is not w.scale:
+        cached = w._operands = (w.q, w.scale, {})
+    views = cached[2].get(expert)
+    if views is None:
+        q, scale = (w.q, w.scale) if expert is None else (w.q[expert], w.scale[expert])
+        q2 = q.reshape(c, -1)
+        views = cached[2][expert] = (q2, scale.expand(1, *q.shape[1:]).reshape(-1))
+    return views
+
+
+def _rows(t: torch.Tensor, width: int) -> torch.Tensor:
+    """t as a [rows, width] view (no copy), for a kernel that steps rows by
+    a stride; raises when t's leading dims do not merge into one stride."""
+    try:
+        return t.view(-1, width)
+    except RuntimeError:
+        raise ValueError(f"w8a8: a {tuple(t.shape)} slice with strides {t.stride()} is not rows of one "
+                         "stride") from None
+
+
+def qeinsum_w8a8(eq: str, x: torch.Tensor, w: Any, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """qeinsum with dynamic per-token activation quantization (JAX's
+    qeinsum_w8a8): both operands int8, the product summed exactly in s32,
+    then (y.f32 * ascale * wscale).to(dtype).
+
+    It takes (a) a per-output-channel QTensor and (b) an activation whose
+    LAST dim is the single contracted dim, as JAX decides: the q/k/v,
+    gate/up/down and lm_head projections and the expert einsums; anything
+    else (a Q4Tensor or dense weight, wo's "bshk,hkd->bsd") goes to
+    qeinsum, weight-only. x is quantized once (one w8a8_quantize), then
+    each product is a w8a8_matmul: one for a dense equation, one an
+    expert for a weight with a leading kept expert axis, each writing its
+    slice of the output in place. On the CPU an equation that is neither
+    runs an exact int32 einsum, as JAX's s8 einsum; on the card it raises."""
+    if not isinstance(w, QTensor):
+        return qeinsum(eq, x, w, dtype)
+    ins, out = eq.split("->")
+    xsub, wsub = ins.split(",")
+    contracted = [c for c in xsub if c not in out]
+    if len(contracted) != 1 or xsub[-1] != contracted[0]:
+        return qeinsum(eq, x, w, dtype)
+    for i, letter in enumerate(wsub):
+        if letter not in out and w.scale.shape[i] != 1:
+            return qeinsum(eq, x, w, dtype)
+    xq, ascale = w8a8_quantize(x)
+    sizes = dict(zip(xsub, x.shape))
+    sizes.update(zip(wsub, w.q.shape))
+    c = x.shape[-1]
+    if _contracted_count(eq, 0) == 1:
+        y = torch.empty([sizes[letter] for letter in out], dtype=dtype, device=x.device)
+        q2, s1 = w8a8_operands(w, c)
+        w8a8_matmul(xq.reshape(-1, c), ascale.reshape(-1), q2, s1, y.view(-1, q2.shape[1]))
+        return y
+    split = _expert_split(eq, 1)
+    if split is not None and split[3] == 1:
+        _, x_axis, out_axis, _ = split
+        y = torch.empty([sizes[letter] for letter in out], dtype=dtype, device=x.device)
+        for e in range(w.q.shape[0]):
+            xe, ae = (xq, ascale) if x_axis < 0 else (xq.select(x_axis, e), ascale.select(x_axis, e))
+            q2, s1 = w8a8_operands(w, c, e)
+            w8a8_matmul(_rows(xe, c), _rows(ae, 1)[:, 0], q2, s1, _rows(y.select(out_axis, e), q2.shape[1]))
+        return y
+    if x.device.type != "cpu":
+        raise ValueError(f"qeinsum_w8a8: {eq!r} does not fit the w8a8 kernel (the contracted dim last in x and "
+                         "first in w, kept dims in order, after at most one leading expert axis)")
+    y = torch.einsum(eq, xq.int(), w.q.int())
+    return (y.float() * _scale_for_out(ascale, xsub, out) * _scale_for_out(w.scale, wsub, out)).to(dtype)
 
 
 def is_quantized(params: Any) -> bool:

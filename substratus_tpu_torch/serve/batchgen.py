@@ -85,8 +85,8 @@ METRICS.describe(
 BATCHGEN_KEYS = ("manifest", "output", "maxTokens", "temperature", "recordsPerShard", "progressPort")
 # Serving knobs the batch run takes no part in, as in the JAX entry point.
 _SERVER_ONLY = ("max_queue", "drain_grace", "spec_k", "draft_model", "role", "transfer_port", "decode_peers")
-_GANG = "Queue 1, multi-GPU and RL (a multi-process batch gang)"
-_MULTI_GPU = "Queue 1, multi-GPU and RL (a batch run over several cards)"
+_GANG = "Queue 1, multi-GPU (a multi-process batch gang)"
+_MULTI_GPU = "Queue 1, multi-GPU (a batch run over several cards)"
 
 
 class ShardWriter:

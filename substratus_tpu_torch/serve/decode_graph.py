@@ -62,12 +62,14 @@ import torch
 from substratus_tpu_torch.ops.decode_attention import decode_attention
 from substratus_tpu_torch.ops.flash_attention import flash_cached_attention
 from substratus_tpu_torch.ops.fused_decode import fused_decode_attention
+from substratus_tpu_torch.ops.quant import w8a8_matmul, w8a8_quantize
 from substratus_tpu_torch.ops.quant4 import check_weight, q4_matmul
 
 # The kernel wrappers a decode step or a speculative round can call, each
 # with host-side counters (the cached flash kernel: a verify of more than
-# one token on the dense cache).
-COUNTED = (decode_attention, fused_decode_attention, flash_cached_attention, q4_matmul, check_weight)
+# one token on the dense cache; the w8a8 kernels under quantize: w8a8).
+COUNTED = (decode_attention, fused_decode_attention, flash_cached_attention, q4_matmul, check_weight,
+           w8a8_quantize, w8a8_matmul)
 
 _INPUTS = ("tokens", "positions", "temps", "top_ps", "fresh")
 # The optional inputs, each staged only when the engine has it.

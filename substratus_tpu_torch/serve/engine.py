@@ -118,7 +118,7 @@ its pool on the scheduler thread's stream, behind any step in flight
 (_install_migration), and decode on. A requeued request (its decode worker
 lost) boards the prefill engine again through resubmit().
 
-Not ported yet (ROADMAP Queue 1, multi-GPU and RL): lockstep gangs.
+Not ported yet (ROADMAP Queue 1, multi-GPU): lockstep gangs.
 """
 from __future__ import annotations
 

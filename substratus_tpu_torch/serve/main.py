@@ -61,11 +61,14 @@ the cache's layout
 
 the weight knobs
 
-* ``quantize``: ``none``, ``int8`` (weight-only int8, plain torch ops) and
+* ``quantize``: ``none``, ``int8`` (weight-only int8, plain torch ops),
   ``int4`` (nibble-packed groups through the int4 matmul kernel of
-  ops/quant4.py); the loaded or random weights are quantized on the
-  device, layer by layer, as the JAX entry point's _maybe_quantize does
-  (weights an artifact holds quantized stay as they are). ``w8a8`` exits;
+  ops/quant4.py) and ``w8a8`` (int8 weights times per-token int8
+  activations: the weights quantize as int8 and ``quant_activations`` is
+  set, so the projections run ops/quant.py's w8a8 kernels; wo stays
+  weight-only, as in JAX); the loaded or random weights are quantized on
+  the device, layer by layer, as the JAX entry point's _maybe_quantize
+  does (weights an artifact holds quantized stay as they are);
 * ``q4_impl``: ``pallas`` and ``xla`` both run the int4 kernel;
 
 and the attention knobs under the JAX entry point's names:
@@ -152,7 +155,7 @@ _SERVED = ("model", "config", "max_batch", "max_seq_len", "max_prefill_len", "kv
            "transfer_port", "decode_peers")
 _ROLES = ("both", "prefill", "decode")
 _KV_LAYOUTS = ("auto", "paged", "dense")
-_QUANTIZE = ("none", "int8", "int4")
+_QUANTIZE = ("none", "int8", "int4", "w8a8")
 # The port has no XLA: both of the JAX entry point's int4 lowerings run the kernel.
 _Q4_IMPLS = ("pallas", "xla")
 # The JAX entry point's attention names -> the port's models/llama.py
@@ -161,8 +164,8 @@ _DECODE_IMPLS = {"xla": "kernel", "pallas": "kernel", "fused": "fused"}
 _CHUNK_IMPLS = {"xla": "flash", "flash": "flash"}
 # The JAX entry points' attn_impl (serving and training) -> models/llama.py's.
 ATTN_IMPLS = {"xla": "flash", "flash": "flash", "plain": "plain"}
-_MULTI_GPU = "Queue 1, multi-GPU and RL (ring and Ulysses attention)"
-_GANGS = "Queue 1, multi-GPU and RL (gangs: one model over several processes)"
+_MULTI_GPU = "Queue 1, multi-GPU (ring and Ulysses attention)"
+_GANGS = "Queue 1, multi-GPU (gangs: one model over several processes)"
 # The container contract's model and adapter mounts.
 CONTENT_MODEL = "/content/model"
 CONTENT_ADAPTERS = "/content/adapters"
@@ -214,18 +217,21 @@ def resolve_kv_layout(params: Dict[str, Any]) -> str:
 
 
 def resolve_quantize(params: Dict[str, Any]) -> str:
-    """The weight mode of params.json; exits on w8a8 (not ported), on an
-    unknown mode and on a q4_impl other than the JAX entry point's two."""
+    """The weight mode of params.json; exits on an unknown mode and on a
+    q4_impl other than the JAX entry point's two."""
     quantize = params.get("quantize", "none")
-    if quantize == "w8a8":
-        raise SystemExit("params.json: quantize='w8a8' is not served by the PyTorch port yet: ROADMAP Queue 1, "
-                         "w8a8 (qeinsum_w8a8, an int8 x int8 product that wants a kernel of its own)")
     if quantize not in _QUANTIZE:
-        raise SystemExit(f"params.json: quantize={quantize!r} invalid (one of {_QUANTIZE + ('w8a8',)})")
+        raise SystemExit(f"params.json: quantize={quantize!r} invalid (one of {_QUANTIZE})")
     q4_impl = params.get("q4_impl")
     if q4_impl is not None and q4_impl not in _Q4_IMPLS:
         raise SystemExit(f"params.json: q4_impl={q4_impl!r} invalid (one of {_Q4_IMPLS})")
     return quantize
+
+
+def weight_mode(quantize: str) -> str:
+    """How a quantize mode stores the weights: w8a8's are int8 (its
+    activations quantize at run time, cfg.quant_activations)."""
+    return "int8" if quantize == "w8a8" else quantize
 
 
 def resolve_overlap(params: Dict[str, Any]) -> Optional[bool]:
@@ -493,8 +499,9 @@ def load_model(model_flag: Optional[str], config_flag: Optional[str], params_jso
     from substratus_tpu_torch.serve.tokenizer import load_tokenizer
 
     model_path = resolve_model_path(model_flag, params_json)
+    stored = weight_mode(quantize)
     if model_path:
-        cfg, params = load_checkpoint(model_path, device, quantize=quantize)
+        cfg, params = load_checkpoint(model_path, device, quantize=stored)
         name = os.path.basename(os.path.normpath(model_path))
         tokenizer = load_tokenizer(model_path)
         check_vocab(tokenizer, cfg)
@@ -505,14 +512,15 @@ def load_model(model_flag: Optional[str], config_flag: Optional[str], params_jso
         if cfg.vocab_size < tokenizer.vocab_size:
             cfg = cfg.replace(vocab_size=tokenizer.vocab_size)
         family = registry.module_of(cfg)
-        drawn = {"quantize": quantize} if getattr(family, "SUPPORTS_QUANTIZE", False) else {}
+        drawn = {"quantize": stored} if getattr(family, "SUPPORTS_QUANTIZE", False) else {}
         params = family.init_params(cfg, seed=0, device=device, **drawn)
     family = registry.module_of(cfg)
     # The attention switches and quantized weights are llama's alone.
     if getattr(family, "SUPPORTS_QUANTIZE", False):
         decode_impl, chunk_impl, prefill_impl = resolve_attn_impls(params_json)
-        cfg = cfg.replace(decode_attn_impl=decode_impl, chunk_attn_impl=chunk_impl, attn_impl=prefill_impl)
-        params = family.quantize_weights(params, quantize)
+        cfg = cfg.replace(decode_attn_impl=decode_impl, chunk_attn_impl=chunk_impl, attn_impl=prefill_impl,
+                          quant_activations=quantize == "w8a8")
+        params = family.quantize_weights(params, stored)
     else:
         _skip_llama_knobs(cfg, params_json, quantize)
         quantize = "none"
@@ -577,7 +585,10 @@ def build(argv=None):
             raise SystemExit("draft model must be the same family as the target")
         # The draft rides the target's quantization: it is there to cut
         # the bytes a token costs, not to add bf16 streams.
-        draft = (draft_cfg, family.quantize_weights(draft_params, quantize) if llama_knobs else draft_params)
+        if llama_knobs:
+            draft_cfg = draft_cfg.replace(quant_activations=cfg.quant_activations)
+            draft_params = family.quantize_weights(draft_params, weight_mode(quantize))
+        draft = (draft_cfg, draft_params)
     ec = EngineConfig(
         max_batch=max_batch,
         max_seq_len=int(knob(args.max_seq_len, "max_seq_len", 1024)),
@@ -618,9 +629,9 @@ def build(argv=None):
         side = torch.cuda.Stream(device) if device.type == "cuda" else None
         try:
             with torch.cuda.stream(side) if side is not None else contextlib.nullcontext():
-                _, new_params = load_checkpoint(ref, device, quantize=quantize if llama_knobs else "none")
+                _, new_params = load_checkpoint(ref, device, quantize=weight_mode(quantize) if llama_knobs else "none")
                 if llama_knobs:
-                    new_params = family.quantize_weights(new_params, quantize)
+                    new_params = family.quantize_weights(new_params, weight_mode(quantize))
         except SystemExit as e:  # a file this port cannot load: the swap is refused
             raise ValueError(str(e)) from None
         if side is not None:
@@ -640,7 +651,9 @@ def build(argv=None):
         print(f"decode role: KV transfer on :{transfer.port}", flush=True)
     weights = {"none": f"{str(cfg.dtype).removeprefix('torch.')} weights, torch.matmul",
                "int8": "int8 weights (scale after the dot), torch.einsum",
-               "int4": f"int4 weights, int4 matmul kernel (q4_impl={params_json.get('q4_impl', 'auto')})"}
+               "int4": f"int4 weights, int4 matmul kernel (q4_impl={params_json.get('q4_impl', 'auto')})",
+               "w8a8": "w8a8: int8 weights x per-token int8 activations, the w8a8 quantize and s8 matmul kernels "
+                       "(wo weight-only)"}
     # An artifact may hold quantized weights without a quantize knob (QLoRA's int8 base).
     held = set(family.quantized_layout(params).values()) if llama_knobs else set()
     shown = quantize if quantize != "none" or len(held) != 1 else held.pop()

@@ -287,10 +287,12 @@ def kernel_launches(engine: Engine) -> Dict[str, int]:
     from substratus_tpu_torch.ops.decode_attention import decode_attention
     from substratus_tpu_torch.ops.flash_attention import flash_attention, flash_cached_attention
     from substratus_tpu_torch.ops.fused_decode import fused_decode_attention
+    from substratus_tpu_torch.ops.quant import w8a8_matmul, w8a8_quantize
     from substratus_tpu_torch.ops.quant4 import q4_matmul
 
     out = {}
-    for fn in (flash_attention, flash_cached_attention, decode_attention, fused_decode_attention, q4_matmul):
+    for fn in (flash_attention, flash_cached_attention, decode_attention, fused_decode_attention, q4_matmul,
+               w8a8_quantize, w8a8_matmul):
         for attr, value in list(vars(fn).items()):
             if attr.startswith("launches") and isinstance(value, int):
                 key = f"{fn.__name__}.{attr}"

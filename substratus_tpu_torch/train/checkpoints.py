@@ -52,8 +52,10 @@ def _atomic_save(obj: Any, path: str) -> None:
 def _cfg_to_dict(cfg) -> Dict[str, Any]:
     d = dataclasses.asdict(cfg)
     d["dtype"] = str(cfg.dtype).removeprefix("torch.")
-    # attn_impl is an execution choice, not architecture: never persisted.
+    # attn_impl and quant_activations (w8a8) are execution choices, not
+    # architecture: never persisted.
     d.pop("attn_impl", None)
+    d.pop("quant_activations", None)
     return d
 
 

@@ -9,7 +9,7 @@ Supported inputs (a directory or a single file):
   *.npy    -- a pre-tokenized 1-D int array (a concatenated token stream)
 
 Per-process sharding of the sources waits for multi-GPU training (ROADMAP
-Queue 1, multi-GPU and RL). For the same files and seed the batches are the JAX
+Queue 1, multi-GPU). For the same files and seed the batches are the JAX
 package's, block for block.
 """
 from __future__ import annotations

@@ -66,7 +66,7 @@ _SERVED = ("steps", "max_steps", "batch_size", "seq_len", "learning_rate", "warm
            "lora_rank", "lora_alpha", "config", "remat", "seed", "grad_accum_steps", "attn_impl", "quantize",
            "lora_targets", "profile_steps")
 _MESH_AXES = ("dp", "fsdp", "sequence", "tensor")
-_MULTI_GPU = "Queue 1, multi-GPU and RL (training meshes, ring and Ulysses attention)"
+_MULTI_GPU = "Queue 1, multi-GPU (training meshes, ring and Ulysses attention)"
 
 
 def check_params(p: Dict[str, Any]) -> None:

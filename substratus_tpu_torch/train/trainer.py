@@ -8,7 +8,7 @@ step eagerly on one device: the forward (the family's, attention
 through the flash kernel and its FlashAttention backward), the loss in f32,
 torch.autograd.grad for the trainable tensors, then the optax-equivalent
 optimizer of train/optim.py. Meshes, process counts and globally sharded
-batches wait for multi-GPU (ROADMAP Queue 1, multi-GPU and RL).
+batches wait for multi-GPU (ROADMAP Queue 1, multi-GPU).
 
 In LoRA mode the base weights stay frozen and only the adapters
 (train/lora.py) train; otherwise every weight trains. A mixture of
@@ -58,9 +58,11 @@ class TrainConfig:
 def cross_entropy_sum(
     logits: torch.Tensor,  # [B, S, V] float32
     targets: torch.Tensor,  # [B, S] integer
-    weights: Optional[torch.Tensor] = None,  # [B, S] 0/1 loss mask
+    weights: Optional[torch.Tensor] = None,  # [B, S] per-token loss weights
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(weighted nll sum, weight sum): the accumulation-friendly form."""
+    """(weighted nll sum, weight sum): the accumulation-friendly form.
+    The weights are real-valued: a 0/1 loss mask, or the RL learner's
+    reward weights (rl/buffer.py: 0 on the prompt and filler rows)."""
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
     if weights is None:
@@ -153,7 +155,7 @@ class Trainer:
         return loss if aux is None else loss + aux
 
     def train_step(self, batch: Dict[str, np.ndarray]) -> float:
-        """batch: {"tokens": [B, S] int, "weights": [B, S] 0/1} as numpy.
+        """batch: {"tokens": [B, S] int, "weights": [B, S] f32} as numpy.
         One optimizer update; returns the loss (weighted mean nll, plus
         the router's aux term under a mixture of experts)."""
         tokens = torch.from_numpy(np.asarray(batch["tokens"])).to(self.device, torch.long)

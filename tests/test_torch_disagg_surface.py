@@ -322,14 +322,14 @@ def test_entry_point_refusals(tmp_path):
     eng = Engine(cfg, llama.init_params(cfg, seed=0, device="cpu"), EngineConfig(role="decode"), device="cpu")
     with pytest.raises(ValueError, match="batch generation drives monolithic engines"):
         batchgen.BatchGenDriver([eng], str(tmp_path / "m.jsonl"), str(tmp_path / "out"), tokenizer=ByteTokenizer())
-    assert "multi-GPU and RL" in batchgen._GANG
+    assert "multi-GPU" in batchgen._GANG
 
 
 @pytest.mark.parametrize("entry", ["serve", "train"])
 def test_a_multi_process_environment_exits(tmp_path, monkeypatch, entry):
     """The repair: JAX_NUM_PROCESSES=2 with JAX_COORDINATOR_ADDRESS set (the
     operator's gang) makes serve.main and train.main exit, citing ROADMAP
-    Queue 1's multi-GPU and RL item, before a model is built; either
+    Queue 1's multi-GPU item, before a model is built; either
     variable alone names no gang."""
     params = tmp_path / "p.json"
     params.write_text(json.dumps({"config": "tiny"} if entry == "serve" else
@@ -343,7 +343,7 @@ def test_a_multi_process_environment_exits(tmp_path, monkeypatch, entry):
     for var, value in GANG.items():
         monkeypatch.setenv(var, value)
     with pytest.raises(SystemExit, match=r"JAX_NUM_PROCESSES=2 with JAX_COORDINATOR_ADDRESS set: .* ROADMAP Queue "
-                                         r"1, multi-GPU and RL"):
+                                         r"1, multi-GPU"):
         run(argv)
     monkeypatch.delenv("JAX_COORDINATOR_ADDRESS")
     main.check_single_process(entry)

@@ -59,7 +59,7 @@ def test_no_jax_and_no_jax_package():
     assert len(SOURCES) > 10
     scanned = {str(path.relative_to(REPO)) for path in SOURCES}
     for sub in ("observability/metrics.py", "observability/sketch.py", "observability/httpstats.py",
-                "gateway/loadreport.py", "gateway/limiter.py"):
+                "gateway/loadreport.py", "gateway/limiter.py", "rl/buffer.py", "rl/learner.py", "rl/loop.py"):
         assert f"substratus_tpu_torch/{sub}" in scanned
     bad = [f"{path.relative_to(REPO)}: imports {name}" for path in SOURCES for name in _imports(path)
            if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "substratus_tpu", "aiohttp")]
@@ -76,7 +76,8 @@ def test_every_module_imports_without_cuda():
     assert "substratus_tpu_torch.serve.server" in names and "substratus_tpu_torch.kernels" in names
     assert {"substratus_tpu_torch.observability.metrics", "substratus_tpu_torch.observability.sketch",
             "substratus_tpu_torch.observability.httpstats", "substratus_tpu_torch.gateway.loadreport",
-            "substratus_tpu_torch.gateway.limiter"} <= set(names)
+            "substratus_tpu_torch.gateway.limiter", "substratus_tpu_torch.rl.buffer", "substratus_tpu_torch.rl.learner",
+            "substratus_tpu_torch.rl.loop"} <= set(names)
     for name in names:
         importlib.import_module(name)
     from substratus_tpu_torch import kernels
@@ -173,5 +174,14 @@ def test_cpu_kernel_wrappers_use_plain_version_only_for_cpu_tensors():
         flash_attention_bwd_dq(q, q, q, q, stats, stats)
     with pytest.raises((ValueError, RuntimeError)):
         flash_attention_bwd_dkv(q, q, q, q, stats, stats)
+    from substratus_tpu_torch.ops.quant import w8a8_matmul, w8a8_quantize
+
+    with pytest.raises((ValueError, RuntimeError)):
+        w8a8_quantize(q.to(torch.bfloat16))
+    xq = torch.zeros((2, 64), dtype=torch.int8, device="meta")
+    with pytest.raises((ValueError, RuntimeError)):
+        w8a8_matmul(xq, torch.ones(2, device="meta"), xq.t().contiguous(), torch.ones(2, device="meta"),
+                    torch.empty((2, 2), dtype=torch.bfloat16, device="meta"))
+    assert (w8a8_quantize.launches, w8a8_matmul.launches) == (0, 0)
     assert (flash_cached_attention.launches, fused_decode_attention.launches) == (0, 0)
     assert (flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches) == (0, 0)

@@ -160,17 +160,18 @@ def test_params_policy():
     for impl, want in (("xla", "flash"), ("flash", "flash"), ("plain", "plain")):
         main.check_params({"attn_impl": impl})
         assert main.resolve_attn_impls({"attn_impl": impl})[2] == want
-    for quantize in ("none", "int8", "int4"):
+    for quantize in ("none", "int8", "int4", "w8a8"):  # w8a8: served (int8 weights x int8 activations)
         for q4_impl in ("pallas", "xla"):
             main.check_params({"quantize": quantize, "q4_impl": q4_impl})
     assert main.resolve_quantize({}) == "none" and main.resolve_quantize({"quantize": "int4"}) == "int4"
+    assert main.resolve_quantize({"quantize": "w8a8"}) == "w8a8" and main.weight_mode("w8a8") == "int8"
     for layout in ("auto", "paged", "dense"):  # every layout is served; no key is the paged pool
         main.check_params({"kv_layout": layout})
     main.check_params({"spec_k": 4, "draft_model": "/models/draft"})  # served: speculative decoding
     main.check_params({"adapters": {"dir": "x"}, "baseModel": "m"})  # served: multi-tenant adapters
     # served: the disaggregated roles (serve/disagg.py) and the controller's key
     main.check_params({"role": "prefill", "decode_peers": ["d:8500"], "transfer_port": 8500, "disaggregated": True})
-    for params in ({"quantize": "w8a8"}, {"tensor": 2}, {"attn_impl": "ring"}, {"attn_impl": "ulysses"}):
+    for params in ({"tensor": 2}, {"attn_impl": "ring"}, {"attn_impl": "ulysses"}):
         with pytest.raises(SystemExit, match="ROADMAP"):
             main.check_params(params)
     for params, match in (({"decode_attn_impl": "fused", "kv_layout": "paged"}, "requires kv_layout=dense"),

@@ -118,9 +118,9 @@ def test_full_finetune_with_accumulation(tmp_path, corpus):
 
 @pytest.mark.parametrize("params,argv,match", [
     ({"quantize": "int8", "lora_rank": 4}, [], "QLoRA, which needs a base model"),
-    ({"sequence": 4}, [], "Queue 1, multi-GPU and RL"),
-    ({"attn_impl": "ring", "sequence": 1}, [], "Queue 1, multi-GPU and RL"),
-    ({"tensor": 2}, [], "Queue 1, multi-GPU and RL"),
+    ({"sequence": 4}, [], "Queue 1, multi-GPU"),
+    ({"attn_impl": "ring", "sequence": 1}, [], "Queue 1, multi-GPU"),
+    ({"tensor": 2}, [], "Queue 1, multi-GPU"),
     ({"attn_impl": "pallas"}, [], "invalid"),
     ({"optimizer": "sgd"}, [], "unknown key"),
     ({}, ["--model", "/nonexistent"], "local checkpoints only"),
