@@ -15,6 +15,7 @@
     python3 chip_smoke.py --phases card,build,kernels,serve-moe
     python3 chip_smoke.py --phases card,build,serve-disagg
     python3 chip_smoke.py --phases card,build,kernels,serve-w8a8,rl
+    python3 chip_smoke.py --phases card,build,kernels,serve-gang
 
 Phases, each of which exits non-zero on failure:
 
@@ -141,7 +142,8 @@ Phases, each of which exits non-zero on failure:
               delivered; (c) serve-int4's weights on int8 pages
               (kv_layout paged, no fused decode): the int4 matmul's
               launches by design, the references;
-  serve-spec  speculative decoding at llama2-7b's width in three legs ((a)
+  serve-spec  speculative decoding at llama2-7b's width, 8 of its 32 layers
+              (cut to keep the default run well inside its limit), in three legs ((a)
               the throughput example through serve.main: int4, int8
               pages, B=24, prompt lookup k=3; (b) the dense cache with the
               fused decode; (c) a draft model), each against a plain engine
@@ -150,7 +152,7 @@ Phases, each of which exits non-zero on failure:
               torch.cuda.set_sync_debug_mode("warn"), and no warned host
               sync may come from a frame under observability/ or inside a
               journey, timeline or SLO recording call;
-  serve-ckpt  checkpoints at llama2-7b's full width, 16 of its 32 layers
+  serve-ckpt  checkpoints at llama2-7b's full width, 4 of its 32 layers
               (cut to keep the default run in its limit), written from
               the seed-0 weights by tools/ckpt_writer.py, one on disk at a
               time (the free bytes printed before each write, too few fail
@@ -217,11 +219,11 @@ Phases, each of which exits non-zero on failure:
               holds the capture's event; at exit the export holds
               serve.start under the child's trace and each request's
               serve.http with engine.prefill under it. It prints the time to ready, the served
-              mean round from the phase histogram beside serve-spec (a)'s
-              round and plain step of the same run, and the child's int4
+              mean round from the phase histogram, and the child's int4
               launches by design (substratus_serve_kernel_launches, counted
               from the end of the warm-up request);
-  train       train.main at llama2-7b's full width and depth (random weights
+  train       train.main at llama2-7b's full width, 8 of its 32 layers (cut
+              to keep the default run well inside its limit; random weights
               from seed 0, bf16) with the finetune example's params: LoRA
               rank 16 on wq/wv, batch 8 x 1024, learning rate 2e-4, remat,
               4 steps (checkpoints every 2) on a seeded token corpus
@@ -233,8 +235,8 @@ Phases, each of which exits non-zero on failure:
               trace id, substratus_train_step_seconds counts its steps. Before it,
               one step's adapter gradients through the kernels against
               attn_impl="plain", and the first batch's loss without grad.
-              Launches per optimizer step exactly 64 forward (forward and
-              recompute), 32 dQ and 32 dK/dV, all through the wgmma
+              Launches per optimizer step exactly 2 x layers forward (forward
+              and recompute), layers dQ and layers dK/dV, all through the wgmma
               designs; every loss finite; the first
               equal to the no-grad loss; the merged artifact reloads to the
               same logits, and serve.main --model serves it with the greedy
@@ -248,7 +250,8 @@ Phases, each of which exits non-zero on failure:
               step 1;
   serve-families
               the OPT and Falcon families through the entry points: (a)
-              falcon-7b (seed 0, bf16, 71 query heads on one kv head)
+              falcon-7b (seed 0, bf16, 71 query heads on one kv head; 8
+              of its 32 layers, cut to keep the default run in its limit)
               written by tools/ckpt_writer.py as an HF Falcon directory
               (the fused query_key_value per kv group) and served by
               serve.main --model with examples/falcon-7b-instruct/
@@ -270,12 +273,12 @@ Phases, each of which exits non-zero on failure:
               steps, batch 2 x 256, LoRA r8) on a seeded token corpus, its
               artifact served by serve.main --model: the merged weights
               bit for bit, greedy tokens those of an in-process engine on
-              them and held by the reference; (c) falcon-7b LoRA through
-              train.main (r16 on wq/wv, batch 2 x 1024, remat, 2 steps):
+              them and held by the reference; (c) falcon-7b LoRA at (a)'s
+              depth through train.main (r16 on wq/wv, batch 2 x 1024, remat, 2 steps):
               the flash backward at G = 71, 32 dQ and 32 dK/dV launches a
               step, finite losses, the merged artifact reloaded bit for
               bit; (d) facebook/opt-2.7b's shape (hidden 2560, 32 heads:
-              head_dim 80, which no kernel is built for; 32 layers, FFN
+              head_dim 80, which no kernel is built for; 8 of its 32 layers, FFN
               10240, vocabulary 50272), written by tools/ckpt_writer.py as
               overrides of opt-1.3b, served by serve.main --model with
               (a)'s params: 8 greedy requests of 16-600 tokens, the dense
@@ -320,7 +323,7 @@ Phases, each of which exits non-zero on failure:
               example's paged int8 engine at 16 slots under torch.profiler
               (the weights' bf16 copies, the GEMMs, the gather);
   serve-adapters
-              multi-tenant LoRA at llama2-7b's full width, 16 of its 32
+              multi-tenant LoRA at llama2-7b's full width, 4 of its 32
               layers in (a) and (b) (cut to keep the default run in its
               limit): the seed-0 base written as an HF directory by tools/ckpt_writer.py;
               four tenants as adapter artifacts (random B, so no delta is
@@ -447,6 +450,26 @@ Phases, each of which exits non-zero on failure:
               each round's generation seconds and tokens/s, learn,
               snapshot and swap seconds, the peak bytes. With profile,
               one more round under torch.profiler;
+  serve-gang  a tensor-parallel gang (parallel/, serve/multihost.py): two
+              ranks of tensor=2 on the one card, gloo, at llama2-7b's width
+              and GANG_LAYERS layers written as an HF directory (each rank
+              loads its shard a layer at a time): (a) serve.main x 2 under
+              the operator's gang environment, bf16, dense, 8 concurrent
+              greedy requests of 64-1500 tokens (the longest chunked), 64
+              new each, every served token (from the leader's journeys)
+              within the near-tie rule of a single-process single-shot
+              forward, the flash, cached flash and decode kernels at 16
+              heads a rank counted on the leader, then SIGTERM to the
+              leader ends both ranks with 0; (b) tools/gang_worker.py as
+              both ranks over the same requests with one sampled row:
+              both ranks' tokens equal; gloo's all-reduce of CUDA bf16
+              tensors at [8,1,4096] and [1,512,4096], the event
+              broadcast's time, the decode step and TTFT in turns with a
+              single process on the same weights (single, gang, single),
+              each rank's peak memory; (c) paged with int8 weights, 4
+              requests sharing a prefix, by the same rule, then a SIGKILLed
+              follower makes the leader exit non-zero within its printed
+              collective timeout;
   profile     (only when named) host-clock prefill and decode-step times
               (the overlapped graph replays) and, under torch.profiler,
               their device busy time and top kernels, after serve
@@ -479,6 +502,7 @@ Nothing here imports JAX.
 from __future__ import annotations
 
 import argparse
+import faulthandler
 import gc
 import json
 import math
@@ -498,6 +522,7 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
+WATCHDOG_S = 1100  # of the default run's 1200 s limit
 # bf16 tolerance: the kernel and the plain version round p (flash) and the
 # output to bf16 after summing in another order, so they differ by about
 # one bf16 ulp of values of order 1 (2^-7 to 2^-6).
@@ -1465,6 +1490,15 @@ def kernel_phase():
     w8a8_quant = [w8a8_quantize_case(gen, m, c) for m in (8, 1, 512) for c in (4096, 11008, 14336)]
     w8a8_mm = [w8a8_matmul_case(gen, m, c, n) for m in (8, 1, 512)
                for c, n in ((4096, 11008), (4096, 4096), (11008, 4096), (4096, 32000), (4096, 14336))]
+    # serve-gang's per-rank shapes (tensor=2: llama2-7b's 32 heads and 32 kv
+    # heads halved), the first case of each the gang's main path: a 512-token
+    # bucket, the decode step at B=8 over its 2048-row cache (and over 1024
+    # rows, the decode cases' length above), the 1500-token prompt's third
+    # chunk.
+    tp2 = {"flash_fwd_tp2": [flash_case(gen, 1, 512, 16, 16, True)],
+           "decode_attn_tp2": [decode_case(gen, 8, 2048, 16, 16, False, positions[:-1] + [2047]),
+                               decode_case(gen, 8, 1024, 16, 16, False, positions)],
+           "flash_cached_tp2": [cached_case(gen, 16, 16, False, sk=2048, start=1024)]}
     report = {"flash_fwd": flash, "decode_attn": decode, "flash_cached": cached, "flash_cached_int8": cached_int8,
               "fused_decode": fused,
               "q4_matmul_decode": [c for c in q4 if c["design"] == "decode"],
@@ -1472,7 +1506,7 @@ def kernel_phase():
               "q4_matmul_wgmma": [c for c in q4 if c["design"] == "wgmma"],
               "flash_bwd_dq": [c[0] for c in bwd], "flash_bwd_dkv": [c[1] for c in bwd],
               **d256, "flash_bwd_dq_d256": [c[0] for c in bwd256], "flash_bwd_dkv_d256": [c[1] for c in bwd256],
-              "w8a8_quantize": w8a8_quant, "w8a8_matmul": w8a8_mm}
+              "w8a8_quantize": w8a8_quant, "w8a8_matmul": w8a8_mm, **tp2}
     for name, cases in report.items():
         for c in cases:
             lib = "n/a" if c["library_ms"] is None else f"{c['library_ms']:.4f}"
@@ -1758,7 +1792,31 @@ def profile_engine(engine, label: str = "profile", lens=(16, 400), fill: int = 1
 
 # (dim, layers, heads, kv heads, vocabulary) of the full-width models served.
 LLAMA2_7B = ("llama2-7b", (4096, 32, 32, 32, 32000))
-FALCON_7B = ("falcon-7b", (4544, 32, 71, 1, 65024))
+
+
+def at_depth(name: str, layers: int) -> str:
+    """The named config `name` at `layers` of its layers, registered in its
+    family's CONFIGS in this process as f"{name}@{layers}" (serve.main and
+    train.main, run in-process, draw it by that name); that name."""
+    from substratus_tpu_torch.models import registry
+
+    family, cfg = registry.find_named_config(name)
+    cut = f"{name}@{layers}"
+    family.CONFIGS[cut] = cfg.replace(n_layers=layers)
+    return cut
+
+
+def llama2_7b_at(layers: int) -> tuple:
+    """start_server's `model` for llama2-7b's width at `layers` layers."""
+    return (f"llama2-7b at {layers} layers", (4096, layers, 32, 32, 32000))
+
+
+# serve-families (a)'s and (c)'s depth: falcon-7b's width at 8 of its 32
+# layers, cut so that the default run stays within its time limit (16 once
+# serve-gang joined it, 8 to keep it well inside; every check as at full
+# depth).
+FALCON_LAYERS = 8
+FALCON_7B = (f"falcon-7b at {FALCON_LAYERS} layers", (4544, FALCON_LAYERS, 71, 1, 65024))
 OPT_125M = ("opt-125m", (768, 12, 12, 12, 50272))
 
 
@@ -2644,6 +2702,10 @@ def serve_paged_phase(card: str, dense_step_ms=None, profile_steps: bool = False
 # examples/llama2-7b/server-throughput.yaml's params as written: no
 # kv_layout (the paged pool) and serve.main's default max_seq_len, 1024.
 SPEC_PARAMS = {"config": "llama2-7b", "quantize": "int4", "kv_cache_dtype": "int8", "max_batch": 24, "spec_k": 3}
+# The phase's depth: llama2-7b's width at 8 of its 32 layers in every leg,
+# cut so that the default run stays well inside its time limit (every check
+# as at full depth; the draft leg's target too).
+SPEC_LAYERS = 8
 
 
 def _repeat_text(i: int, n_bytes: int) -> str:
@@ -2918,7 +2980,8 @@ def spec_lookup_leg(card: str, profile_steps: bool):
     from substratus_tpu_torch.serve.tokenizer import ByteTokenizer
 
     label = "serve-spec (a)"
-    server, engine, base = start_server("serve-spec", SPEC_PARAMS)
+    server, engine, base = start_server("serve-spec", {**SPEC_PARAMS, "config": at_depth("llama2-7b", SPEC_LAYERS)},
+                                        model=llama2_7b_at(SPEC_LAYERS))
     if not (engine.spec and not engine.spec_draft and engine.paged and engine.ec.spec_k == 3
             and engine.ec.max_batch == 24 and engine.ec.max_seq_len == 1024 and engine.cache["k"].dtype == torch.int8
             and isinstance(engine.params.layers[0].w_gate, Q4Tensor)):
@@ -3143,10 +3206,10 @@ def spec_draft_leg(card: str, profile_steps: bool) -> dict:
         disk_room(tmp, sum(t.numel() * t.element_size() for t in source.state_dict().values()), "serve-spec draft")
         written = write_hf(str(tmp / "tinyllama-1.1b"), source)
         del source
-        params_json = {"config": "llama2-7b", "max_batch": 8, "max_seq_len": 1024, "max_prefill_len": 512,
-                       "spec_k": 4, "draft_model": str(tmp / "tinyllama-1.1b")}
+        params_json = {"config": at_depth("llama2-7b", SPEC_LAYERS), "max_batch": 8, "max_seq_len": 1024,
+                       "max_prefill_len": 512, "spec_k": 4, "draft_model": str(tmp / "tinyllama-1.1b")}
         label = "serve-spec (c) tinyllama draft"
-        server, engine, base = start_server("serve-spec-draft", params_json)
+        server, engine, base = start_server("serve-spec-draft", params_json, model=llama2_7b_at(SPEC_LAYERS))
         d = engine.draft_cfg if engine.spec_draft else None
         if d is None or not engine.paged or any(getattr(d, f) != getattr(dcfg, f) for f in (
                 "dim", "n_layers", "n_heads", "n_kv_heads", "hidden_dim", "vocab_size")):
@@ -3222,11 +3285,12 @@ def serve_spec_phase(card: str, profile_steps: bool = False) -> dict:
 # --- checkpoints: serve.main and train.main on loaded weights -------------------
 
 CKPT_TRAIN_STEPS = 2
-# serve-ckpt's depth: llama2-7b's width at 16 of its 32 layers, cut so that
-# the default run stays within its time limit once serve-disagg joined it
-# (every leg and check as at full depth; bytes and seconds halve).
-CKPT_LAYERS = 16
-CKPT_MODEL = ("llama2-7b at 16 layers", (4096, CKPT_LAYERS, 32, 32, 32000))
+# serve-ckpt's depth: llama2-7b's width at 4 of its 32 layers, cut so that
+# the default run stays within its time limit (16 once serve-disagg joined
+# it, 8 once serve-gang did, 4 to keep it well inside; every leg and check
+# as at full depth).
+CKPT_LAYERS = 4
+CKPT_MODEL = (f"llama2-7b at {CKPT_LAYERS} layers", (4096, CKPT_LAYERS, 32, 32, 32000))
 
 
 def disk_room(path: Path, need: int, label: str) -> int:
@@ -3894,11 +3958,71 @@ def surface_stream(base: str, prompt: str, max_tokens: int, during=None) -> tupl
     return "".join(pieces), usage, finish, extra
 
 
-def surface_swap(base: str, paths: dict, label: str) -> dict:
+def polled_journey(base: str, trace: str, done: threading.Event, label: str) -> list:
+    """Every event of a request's journey, however long its stream: the
+    ring (the newest 256 events) polled from /debug/requestz?id= every
+    0.2 s until `done` is set and once after, merged by position (the
+    ring's first event is number total - len(events)). None when the
+    polls missed an event (the caller fails: this runs on a thread)."""
+    seen, total = {}, None
+    while True:
+        finished = done.is_set()
+        status, _, text = http(base, f"/debug/requestz?id={trace}", timeout=60)
+        if status == 200:
+            j = json.loads(text)["journey"]
+            total = j["total"]
+            first = total - len(j["events"])
+            seen.update((first + k, e) for k, e in enumerate(j["events"]))
+        if finished:
+            break
+        time.sleep(0.2)
+    if total is None or sorted(seen) != list(range(total)):
+        print(f"{label}: the journey of {trace} was not read whole ({len(seen)} of {total} events)", flush=True)
+        return None
+    return [seen[i] for i in range(total)]
+
+
+def swap_departure(ref, prompt_ids, plain, got, landing: int, eos: int) -> dict:
+    """Where a stream swapped mid-stream departs from the unswapped run
+    (`plain`): token for token up to the swap's landing (`landing` tokens
+    emitted before the journey's swap event), then the first differing
+    token of each run against a teacher-forced forward of the served
+    weights (`ref`: cfg, params) over the prompt and the common prefix,
+    the rule of against_plain: a near-tie is both picks within 5% of the
+    row's logit scale."""
+    import torch
+
+    from substratus_tpu_torch.models import llama
+
+    cfg, params = ref
+    i = next((j for j, (x, y) in enumerate(zip(got, plain)) if x != y), None)
+    if i is None and len(got) == len(plain):
+        return {"at": None, "landing": landing, "near_tie": True}
+    i = min(len(got), len(plain)) if i is None else i
+    pick = [t[i] if i < len(t) else eos for t in (got, plain)]  # a stream that stopped there sampled EOS
+    with torch.inference_mode():
+        logits, _ = llama.forward(params, torch.tensor([prompt_ids + plain[:i]], device=params.device), cfg)
+    row = logits[0, -1]
+    scale = row.abs().max().item()
+    gaps = [(row.max() - row[t]).item() for t in pick]
+    return {"at": i, "landing": landing, "tokens": pick, "gaps": gaps, "logit_scale": scale,
+            "near_tie": i >= landing and max(gaps) <= 0.05 * scale}
+
+
+def surface_swap(base: str, paths: dict, label: str, tok) -> dict:
     """Leg (b): a swap to the same file mid-stream leaves the stream as an
-    unswapped run's; seed 1 changes a greedy completion and bumps the
-    version; back to seed 0 gives the first completion again; the 2-layer
-    file gets 409 and the version stays; no graph is captured twice."""
+    unswapped run's up to the swap's landing round and departs from it, if
+    at all, at a near-tie (swap_departure: the swap's flush replans the
+    next rounds from the settled history, as JAX does, so the int4
+    kernels' row counts can change and a bf16 near-tie flip); a swap to the
+    seed-1 file mid-stream is caught as more than a near-tie, and seed 1
+    changes a greedy completion and bumps the version; back to seed 0
+    gives the first completion again; the 2-layer file gets 409 and the
+    version stays; no graph is captured twice."""
+    import torch
+
+    from substratus_tpu_torch.serve import main as serve_main
+
     def swap(path, want_status=200):
         t0 = time.perf_counter()
         status, _, text = http(base, "/swapz", {"checkpoint": str(path)})
@@ -3915,23 +4039,64 @@ def surface_swap(base: str, paths: dict, label: str) -> dict:
                       if k.startswith("substratus_serve_replays_") and v > 0)
         return int(s.get("substratus_serve_graph_warmups", 0)), used
 
+    def traced(i, during=None):
+        """A 160-token stream under its own trace id: its served ids (the
+        journey's emits) and how many were emitted before a swap landed."""
+        trace = f"{0x5b:08x}{i:024x}"
+        body = {"prompt": prompt, "max_tokens": 160, "temperature": 0, "stream": True,
+                "stream_options": {"include_usage": True}}
+        extra, threads = {}, []
+
+        def started():
+            if during is not None:
+                threads.append(threading.Thread(target=lambda: extra.update(during())))
+                threads[0].start()
+
+        done, journey = threading.Event(), []
+        poller = threading.Thread(target=lambda: journey.append(polled_journey(base, trace, done, label)))
+        poller.start()
+        t0 = time.perf_counter()
+        status, _, text = http(base, "/v1/completions", body, headers={"traceparent": f"00-{trace}-{'ab' * 8}-01"},
+                               on_first=started)
+        stream_s = time.perf_counter() - t0
+        done.set()
+        for thread in threads + [poller]:
+            thread.join()
+        if status != 200 or not journey or journey[0] is None:
+            fail(f"{label}: a stream answered {status} ({text[:200]}) or its journey was not read whole")
+        events = journey[0]
+        names = [e[1] for e in events]
+        landing = sum(1 for e in events[:names.index("swap")] if e[1] == "emit") if "swap" in names else None
+        if during is not None and (landing is None or extra["swapped_at"] - t0 >= stream_s):
+            fail(f"{label}: the stream ended before the swap landed ({names[-6:]})")
+        return emitted(events), landing, extra
+
     before = graphs(scrape(base))
     prompt = "a long prompt runs"  # fewer than 16 tokens: no page is registered, every run prefills it whole
-    plain, usage, _, _ = surface_stream(base, prompt, 160)
+    prompt_ids = tok.encode(prompt)
+    # The served weights, loaded here as the child loads them (the same
+    # GGUF, dequantized, quantized to int4): the rule's reference.
+    cfg, ref_params, _, _, _, _ = serve_main.load_model(str(paths["seed0"]), None, SURFACE_PARAMS,
+                                                        torch.device("cuda"), "int4")
+    plain, _, _ = traced(0)
     v0 = version()
-    t0 = time.perf_counter()
-    swapped, usage_s, _, extra = surface_stream(
-        base, prompt, 160, during=lambda: {"swap": swap(paths["seed0"]), "swapped_at": time.perf_counter()})
-    stream_s = time.perf_counter() - t0
-    if extra["swapped_at"] - t0 >= stream_s:
-        fail(f"{label}: the stream of {usage_s} ended before the swap was applied")
-    if swapped != plain or usage_s != usage:
-        fail(f"{label}: a swap to the same weights mid-stream changed the stream: {swapped!r} against {plain!r}")
+    swapped, landing, extra = traced(1, lambda: {"swap": swap(paths["seed0"]), "swapped_at": time.perf_counter()})
+    same = swap_departure((cfg, ref_params), prompt_ids, plain, swapped, landing, tok.eos_id)
+    if not same["near_tie"]:
+        fail(f"{label}: a swap to the same weights mid-stream departs from the unswapped run by more than a "
+             f"near-tie (or before the swap landed): {same}")
     first, _, _, _ = surface_stream(base, prompt, 64)
-    reply, seconds1 = swap(paths["seed1"])
+    planted, p_landing, p_extra = traced(2, lambda: {"swap": swap(paths["seed1"]), "swapped_at": time.perf_counter()})
+    fault = swap_departure((cfg, ref_params), prompt_ids, plain, planted, p_landing, tok.eos_id)
+    if fault["near_tie"] or fault["at"] is None:
+        fail(f"{label}: the rule did not catch a mid-stream swap to the seed-1 file: {fault}")
+    del ref_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds1 = p_extra["swap"][1]
     other, _, _, _ = surface_stream(base, prompt, 64)
-    if reply["weights_version"] != v0 + 2 or version() != v0 + 2 or other == first:
-        fail(f"{label}: the seed-1 swap: {reply}, its completion {other[:80]!r} (seed 0: {first[:80]!r})")
+    if version() != v0 + 2 or p_extra["swap"][0]["weights_version"] != v0 + 2 or other == first:
+        fail(f"{label}: the seed-1 swap: {p_extra['swap'][0]}, its completion {other[:80]!r} (seed 0: {first[:80]!r})")
     reply, seconds0 = swap(paths["seed0"])
     again, _, _, _ = surface_stream(base, prompt, 64)
     if again != first:
@@ -3943,12 +4108,18 @@ def surface_swap(base: str, paths: dict, label: str) -> dict:
     new = sorted(set(after[1]) - set(before[1]))
     if after[0] != len(after[1]) or after[0] != before[0] + len(new):
         fail(f"{label}: {after[0]} captures for the graphs {after[1]} (before: {before}): a graph was captured again")
-    print(f"{label}: a swap to the same file mid-stream left the stream token for token ({usage['completion_tokens']}"
-          f" tokens); seed 1 changed the completion, seed 0 again gave the first one; swaps took "
-          f"{extra['swap'][1]:.1f}, {seconds1:.1f} and {seconds0:.1f} s (load, quantize, install); the 2-layer file "
-          f"409; graphs captured {before[0]} before, {after[0]} after ({after[1]})", flush=True)
+    departed = ("token for token" if same["at"] is None else
+                f"token for token to the landing, then at token {same['at']} a near-tie (gaps "
+                f"{[round(g, 4) for g in same['gaps']]} at logit scale {same['logit_scale']:.4g})")
+    print(f"{label}: a swap to the same file mid-stream (landing after {landing} of {len(swapped)} tokens) left the "
+          f"stream {departed}; the seed-1 swap mid-stream (landing after {p_landing}) departs at token {fault['at']} "
+          f"by gaps {[round(g, 4) for g in fault['gaps']]} at logit scale {fault['logit_scale']:.4g}: caught; seed 1 "
+          f"changed the completion, seed 0 again gave the first one; swaps took {extra['swap'][1]:.1f}, "
+          f"{seconds1:.1f} and {seconds0:.1f} s (load, quantize, install); the 2-layer file 409; graphs captured "
+          f"{before[0]} before, {after[0]} after ({after[1]})", flush=True)
     return {"swap_seconds": [extra["swap"][1], seconds1, seconds0], "captures_before": before[0],
-            "captures_after": after[0], "graphs": after[1], "weights_version": version()}
+            "captures_after": after[0], "graphs": after[1], "weights_version": version(), "same_file": same,
+            "planted": fault}
 
 
 def surface_profile(base: str, label: str) -> dict:
@@ -4133,7 +4304,7 @@ def surface_drain(child: SurfaceChild, base: str, label: str) -> dict:
             "exit_s": exit_s}
 
 
-def serve_surface_phase(card: str, spec_step_ms=None) -> dict:
+def serve_surface_phase(card: str) -> dict:
     """The container contract's serving surface at llama2-7b's full width:
     serve.main as a child process on a Q4_0 GGUF with a chat template, with
     the throughput example's params, under TRACEPARENT with
@@ -4182,11 +4353,9 @@ def serve_surface_phase(card: str, spec_step_ms=None) -> dict:
         step_ms = 1e3 * decode[0] / decode[1]
         print(f"{label} (a) [{card}]: chat held by the template, stop whole and streamed, {contract['burst']}, 504, "
               f"/loadz keys, /metrics: TTFT count {ttft_count} = {served} requests, spec totals {spec}; the served "
-              f"mean decode round from the phase histogram {step_ms:.2f} ms over {int(decode[1])} rounds"
-              + (f"; serve-spec (a) in this run: mean round {spec_step_ms[0]:.2f} ms, plain step "
-                 f"{spec_step_ms[1]:.2f} ms" if spec_step_ms else ""), flush=True)
+              f"mean decode round from the phase histogram {step_ms:.2f} ms over {int(decode[1])} rounds", flush=True)
         trace = surface_trace(base, f"{label} (e)")
-        swap = surface_swap(base, paths, f"{label} (b)")
+        swap = surface_swap(base, paths, f"{label} (b)", tok)
         profile = surface_profile(base, f"{label} (d)")
         time.sleep(0.5)
         stepz = surface_stepz(base, f"{label} (e)")
@@ -4226,6 +4395,9 @@ def serve_surface_phase(card: str, spec_step_ms=None) -> dict:
 TRAIN_PARAMS = {"config": "llama2-7b", "lora_rank": 16, "lora_alpha": 16, "batch_size": 8, "seq_len": 1024,
                 "learning_rate": 2e-4, "save_steps": 2, "remat": True, "seed": 0}
 TRAIN_STEPS = (4, 6)
+# The phase's depth: 8 of llama2-7b's 32 layers, cut so that the default run
+# stays well inside its time limit (every check as at full depth).
+TRAIN_LAYERS = 8
 # Gradients through the kernels against attn_impl="plain": the two paths
 # round attention differently in bf16 (the kernels round p to bf16 before
 # PV, the plain path keeps the softmax in f32), and the difference passes
@@ -4529,10 +4701,10 @@ def train_phase(card: str, profile_steps: bool = False) -> dict:
                 (tmp / "data" / "corpus.npy").read_bytes() != (tmp / "src" / "corpus.npy").read_bytes():
             fail("train: load.dataset did not import the corpus")
         free_gb = shutil.disk_usage(tmp).free / 1e9
-        p = TRAIN_PARAMS
+        p = {**TRAIN_PARAMS, "config": at_depth(TRAIN_PARAMS["config"], TRAIN_LAYERS)}
         cfg = llama.CONFIGS[p["config"]]
-        if (cfg.dim, cfg.n_layers, cfg.n_heads, cfg.vocab_size) != (4096, 32, 32, 32000):
-            fail(f"train: not llama2-7b at full width and depth: {cfg}")
+        if (cfg.dim, cfg.n_layers, cfg.n_heads, cfg.vocab_size) != (4096, TRAIN_LAYERS, 32, 32000):
+            fail(f"train: not llama2-7b at full width and {TRAIN_LAYERS} layers: {cfg}")
         tc = TrainConfig(lora_rank=p["lora_rank"], lora_alpha=p["lora_alpha"], learning_rate=p["learning_rate"],
                          seed=p["seed"], remat=p["remat"])
         first = next(PackedDataset(str(tmp / "data"), ByteTokenizer(), p["batch_size"], p["seq_len"],
@@ -4577,8 +4749,9 @@ def train_phase(card: str, profile_steps: bool = False) -> dict:
                 telemetry = train_trace_checks(tmp / "out", res, lines, step_seconds_count() - counted, "train")
             launches = _train_launches()
             n = len(res["losses"])
-            want = {"flash_fwd": 64 * n, "flash_fwd_all": 64 * n, "flash_bwd_dq": 32 * n, "flash_bwd_dq_all": 32 * n,
-                    "flash_bwd_dkv": 32 * n, "flash_bwd_dkv_all": 32 * n}
+            L = cfg.n_layers
+            want = {"flash_fwd": 2 * L * n, "flash_fwd_all": 2 * L * n, "flash_bwd_dq": L * n, "flash_bwd_dq_all": L * n,
+                    "flash_bwd_dkv": L * n, "flash_bwd_dkv_all": L * n}
             if launches != want:
                 fail(f"train: launches {launches} over {n} steps, want {want}")
             if not all(np.isfinite(res["losses"])):
@@ -4617,7 +4790,8 @@ def train_phase(card: str, profile_steps: bool = False) -> dict:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     r0, r1 = runs
-    print(f"train: llama2-7b LoRA r16, batch 8 x 1024, {TRAIN_STEPS[0]} steps then {TRAIN_STEPS[1] - TRAIN_STEPS[0]} "
+    print(f"train: llama2-7b at {TRAIN_LAYERS} layers, LoRA r16, batch 8 x 1024, {TRAIN_STEPS[0]} steps then "
+          f"{TRAIN_STEPS[1] - TRAIN_STEPS[0]} "
           f"resumed; losses {r0['losses']} then {r1['losses']}; first loss {r0['losses'][0]:.6f} against "
           f"{nograd_loss:.6f} without grad; launches {r0['launches']} and {r1['launches']}", flush=True)
     print(f"train [{card}]: step {r0['median_step_s']:.3f} s (median after the first; all {r0['step_s']}), "
@@ -4640,7 +4814,8 @@ def serve_artifact(path: Path, merged) -> dict:
     loads, restore = timed_loads()
     try:
         server, engine, base = start_server("train-artifact", {k: v for k, v in SERVE_PARAMS.items()
-                                                               if k != "config"}, ["--model", str(path)])
+                                                               if k != "config"}, ["--model", str(path)],
+                                            model=llama2_7b_at(TRAIN_LAYERS))
     finally:
         restore()
     requests = tee_requests(engine)
@@ -4778,7 +4953,7 @@ def families_falcon_serve(card: str, tmp: Path) -> dict:
     from substratus_tpu_torch.tools.ckpt_writer import write_hf
 
     label = "serve-families falcon-7b"
-    cfg = falcon.CONFIGS["falcon-7b"]
+    cfg = falcon.CONFIGS["falcon-7b"].replace(n_layers=FALCON_LAYERS)
     source = falcon.init_params(cfg, seed=0, device="cuda")
     nbytes = sum(t.numel() * t.element_size() for t in source.state_dict().values())
     disk_room(tmp, nbytes, label)
@@ -4913,10 +5088,11 @@ def families_falcon_lora(card: str, tmp: Path) -> dict:
     from substratus_tpu_torch.train.checkpoints import load_artifact
 
     label = "serve-families falcon-7b LoRA"
-    cfg = falcon.CONFIGS["falcon-7b"]
+    params = {**FALCON_TRAIN_PARAMS, "config": at_depth(FALCON_TRAIN_PARAMS["config"], FALCON_LAYERS)}
+    cfg = falcon.CONFIGS[params["config"]]
     _token_corpus(tmp / "falcon-data", cfg.vocab_size, 200_000)
     params_path = tmp / "falcon-train.json"
-    params_path.write_text(json.dumps(FALCON_TRAIN_PARAMS))
+    params_path.write_text(json.dumps(params))
     disk_room(tmp, 14 * 10**9, label)
     _zero_train_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -4945,11 +5121,12 @@ def families_falcon_lora(card: str, tmp: Path) -> dict:
 
 
 # facebook/opt-2.7b's published shape (config.json: hidden_size 2560, 32
-# attention heads, so head_dim 80; 32 layers, ffn_dim 10240, vocabulary
-# 50272) as overrides of opt-1.3b: the port's CONFIGS gain no entry the JAX
-# package lacks. Served with falcon-7b's params, then 2 LoRA steps of 2 x 512.
-OPT_2_7B_SHAPE = "dim=2560,n_heads=32,n_layers=32,hidden_dim=10240"
-OPT_2_7B = ("opt-2.7b's shape", (2560, 32, 32, 32, 50272))
+# attention heads, so head_dim 80; ffn_dim 10240, vocabulary 50272) at 8 of
+# its 32 layers (cut to keep the default run well inside its time limit) as
+# overrides of opt-1.3b: the port's CONFIGS gain no entry the JAX package
+# lacks. Served with falcon-7b's params, then 2 LoRA steps of 2 x 512.
+OPT_2_7B_SHAPE = "dim=2560,n_heads=32,n_layers=8,hidden_dim=10240"
+OPT_2_7B = ("opt-2.7b's shape at 8 layers", (2560, 8, 32, 32, 50272))
 OPT_2_7B_PROMPTS = [p for p in FAMILY_PROMPTS if p[2] == 0.0][::2]  # 8 greedy prompts of 16-600 tokens
 OPT_2_7B_TRAIN = {"steps": 2, "batch_size": 2, "seq_len": 512, "lora_rank": 16, "lora_alpha": 16,
                   "learning_rate": 2e-4, "save_steps": 2, "remat": True, "seed": 0}
@@ -5414,11 +5591,12 @@ def serve_batchgen_phase(card: str) -> dict:
 # --- serve-adapters: multi-tenant LoRA adapters at llama2-7b width -------------
 
 ADAPTER_TARGETS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
-# serve-adapters' depth for legs (a) and (b): llama2-7b's width at 16 of its
-# 32 layers, cut so that the default run stays within its time limit once
-# serve-disagg joined it (every check as at full depth).
-ADAPTERS_LAYERS = 16
-ADAPTERS_MODEL = ("llama2-7b at 16 layers", (4096, ADAPTERS_LAYERS, 32, 32, 32000))
+# serve-adapters' depth for legs (a) and (b): llama2-7b's width at 4 of its
+# 32 layers, cut so that the default run stays within its time limit (16
+# once serve-disagg joined it, 8 once serve-gang did, 4 to keep it well
+# inside; every check as at full depth).
+ADAPTERS_LAYERS = 4
+ADAPTERS_MODEL = (f"llama2-7b at {ADAPTERS_LAYERS} layers", (4096, ADAPTERS_LAYERS, 32, 32, 32000))
 # The four tenants, as the store lists them (sorted): the first two are
 # preloaded into the capacity-2 store, the others hot-load and evict.
 # (id, rank, alpha, targets); "trained" comes from one train.main LoRA step.
@@ -7018,17 +7196,318 @@ def rl_phase(card: str, profile_steps: bool = False) -> dict:
             "captures": captures, "profile": profiled}
 
 
+# --- serve-gang: a tensor-parallel gang of two ranks on the card ---------------
+
+GANG_LAYERS = 8  # llama2-7b's width; the phase's depth, printed
+GANG_NEW = 64
+GANG_LENS = [64, 180, 333, 500, 700, 950, 1200, 1500]  # the 1500-token prompt runs as 3 chunks of 512
+GANG_PARAMS = {"tensor": 2, "kv_layout": "dense", "max_batch": 8, "max_seq_len": 2048, "drain_grace": 30}
+GANG_C_PARAMS = {"tensor": 2, "quantize": "int8", "max_batch": 8, "max_seq_len": 2048}  # kv_layout auto: paged
+GANG_PREFIX = "System: " + _long_text(399, 7)  # (c)'s shared prefix, 25 full pages
+GANG_SAMPLED = 3  # (b)'s sampled row
+
+
+class GangChild:
+    """One rank of serve.main under the operator's gang environment in a
+    child process, its output in OUT_DIR/serve_gang_{name}.log."""
+
+    def __init__(self, name: str, params: dict, rank: int, coord: int):
+        import os
+
+        OUT_DIR.mkdir(exist_ok=True)
+        self.name, self.rank = name, rank
+        path = OUT_DIR / f"chip_smoke_params_serve-gang-{name}.json"
+        path.write_text(json.dumps(params))
+        env = {**os.environ, "OMP_NUM_THREADS": "1", "JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{coord}",
+               "JAX_NUM_PROCESSES": "2", "TPU_WORKER_ID": str(rank),
+               "PYTHONPATH": str(Path(__file__).resolve().parent) + os.pathsep + os.environ.get("PYTHONPATH", "")}
+        self.log = (OUT_DIR / f"serve_gang_{name}.log").open("w")
+        self.lines = []
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen([sys.executable, "-m", "substratus_tpu_torch.serve.main", "--params", str(path),
+                                      "--model", str(params["model"]), "--host", "127.0.0.1", "--port", "0"],
+                                     cwd=Path(__file__).resolve().parent, env=env, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.log.write(line)
+            self.log.flush()
+            self.lines.append(line)
+
+    def wait_line(self, prefix: str, timeout: float = 180) -> str:
+        while not any(ln.startswith(prefix) for ln in self.lines):
+            if self.proc.poll() is not None or time.perf_counter() - self.t0 > timeout:
+                fail(f"serve-gang: rank {self.rank} ({self.name}) did not start: {''.join(self.lines[-20:])}")
+            time.sleep(0.1)
+        self.ready_s = time.perf_counter() - self.t0
+        return next(ln for ln in self.lines if ln.startswith(prefix))
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=60)
+        self.reader.join(timeout=10)
+        self.log.close()
+
+
+def start_gang(name: str, params: dict) -> tuple:
+    """Both ranks of a serve.main gang; (children, the leader's base URL,
+    its startup line, the follower's)."""
+    coord = free_port()
+    children = [GangChild(name, params, r, coord) for r in range(2)]
+    lead = children[0].wait_line("serving ")
+    follow = children[1].wait_line("gang follower ")
+    base = f"http://127.0.0.1:{int(lead.split('127.0.0.1:')[1].split()[0])}"
+    deadline = time.perf_counter() + 120
+    while http(base, "/", timeout=30)[0] != 200:
+        if time.perf_counter() > deadline:
+            fail(f"serve-gang ({name}): the leader printed its address but GET / is not 200 after 120 s")
+        time.sleep(0.1)
+    for want, line in (("rank 0/2 (leader), mesh tensor=2", lead), ("rank 1/2 (follower), mesh tensor=2", follow)):
+        if want not in line or "graph: off (gang)" not in line:
+            fail(f"serve-gang ({name}): a startup line lacks {want!r} or the eager step: {line}")
+    return children, base, lead, follow
+
+
+def gang_reference(model, cfg, prompts, tokens, label: str) -> dict:
+    """The 5% near-tie rule of long_reference_check on each request's
+    served tokens against a single-shot forward of the whole model in this
+    process (one rank of nothing: the single process)."""
+    from types import SimpleNamespace
+
+    from substratus_tpu_torch.models import llama
+
+    engine = SimpleNamespace(clipped_prompt=lambda p: p[-(GANG_PARAMS["max_seq_len"] - 1):], device=model.device,
+                             model=llama, params=model, cfg=cfg)
+    requests = [SimpleNamespace(prompt_tokens=p, out=SimpleNamespace(tokens=t)) for p, t in zip(prompts, tokens)]
+    return long_reference_check(engine, requests, label, quiet=True)
+
+
+def engine_turn(engine, prompts, sampled=None) -> dict:
+    """All requests at once through an in-process engine: tokens, each
+    request's time to first token (a reader thread a request), the mean
+    decode step."""
+    from substratus_tpu_torch.serve.engine import Request
+
+    steps0, seconds0 = engine.stats["decode_steps"], engine.stats["decode_seconds"]
+    reqs = [engine.submit(Request(list(p), max_tokens=GANG_NEW, temperature=0.8 if i == sampled else 0.0))
+            for i, p in enumerate(prompts)]
+    out = [None] * len(reqs)
+
+    def read(i, req):
+        toks, first = [], None
+        while (tok := req.out.get(timeout=600)) is not None:
+            first = first or time.perf_counter()
+            toks.append(tok)
+        out[i] = (toks, first - req.submit_ts)
+
+    threads = [threading.Thread(target=read, args=(i, r)) for i, r in enumerate(reqs)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    steps = engine.stats["decode_steps"] - steps0
+    return {"tokens": [t for t, _ in out], "ttft_s": [s for _, s in out],
+            "step_ms": 1e3 * (engine.stats["decode_seconds"] - seconds0) / max(steps, 1)}
+
+
+def run_gang_workers(model_dir: Path, prompts, label: str) -> list:
+    """Part (b): tools/gang_worker.py as both ranks on the card over the
+    checkpoint and (a)'s prompts at once, one sampled row, the all-reduce
+    probe first; each rank's result."""
+    import os
+
+    coord = free_port()
+    plan = OUT_DIR / "serve_gang_plan.json"
+    plan.write_text(json.dumps({"concurrent": True, "requests": [
+        {"prompt": p, "max_tokens": GANG_NEW, "temperature": 0.8 if i == GANG_SAMPLED else 0.0}
+        for i, p in enumerate(prompts)]}))
+    procs, outs = [], []
+    for rank in range(2):
+        env = {**os.environ, "OMP_NUM_THREADS": "1", "JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{coord}",
+               "JAX_NUM_PROCESSES": "2", "TPU_WORKER_ID": str(rank),
+               "PYTHONPATH": str(Path(__file__).resolve().parent) + os.pathsep + os.environ.get("PYTHONPATH", "")}
+        outs.append(OUT_DIR / f"serve_gang_worker{rank}.json")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "substratus_tpu_torch.tools.gang_worker", "--model", str(model_dir),
+             "--params", json.dumps({k: v for k, v in GANG_PARAMS.items() if k != "drain_grace"}), "--requests",
+             str(plan), "--out", str(outs[-1]), "--probe-allreduce", "--timeout", "120"],
+            cwd=Path(__file__).resolve().parent, env=env, stdout=(OUT_DIR / f"serve_gang_worker{rank}.log").open("w"),
+            stderr=subprocess.STDOUT))
+    try:
+        rcs = [p.wait(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    if rcs != [0, 0]:
+        fail(f"{label}: gang_worker ranks exited {rcs} (logs in {OUT_DIR}/serve_gang_worker*.log)")
+    return [json.loads(o.read_text()) for o in outs]
+
+
+def serve_gang_phase(card: str) -> dict:
+    """A tensor-parallel gang of two ranks on the one card at llama2-7b's
+    width and GANG_LAYERS layers: (a) serve.main x 2, bf16, dense, 8
+    concurrent greedy requests held by the near-tie rule against a single
+    process, then SIGTERM to the leader ends both ranks with 0; (b) two
+    gang_worker ranks, one sampled row, the ranks' tokens equal, and the
+    numbers (the all-reduce, the broadcast, step and TTFT in turns with a
+    single process, each rank's peak memory); (c) paged with int8 weights,
+    4 requests sharing a prefix by the same rule, then a SIGKILLed follower
+    fails the leader within its collective timeout."""
+    import tempfile
+
+    import torch
+
+    from substratus_tpu_torch.models import llama
+    from substratus_tpu_torch.serve.engine import Engine, EngineConfig
+    from substratus_tpu_torch.serve.tokenizer import ByteTokenizer
+    from substratus_tpu_torch.tools.ckpt_writer import write_hf
+
+    label = "serve-gang"
+    _free_card()
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_gang_"))
+    cfg = llama.CONFIGS["llama2-7b"].replace(n_layers=GANG_LAYERS)
+    tok = ByteTokenizer()
+    children = []
+    try:
+        model = llama.init_params(cfg, seed=0, device="cuda")
+        model_dir = tmp / "llama2-7b"
+        write_hf(str(model_dir), model)
+        print(f"{label}: llama2-7b at {GANG_LAYERS} of its 32 layers (full width: dim 4096, 32 heads, hidden 11008, "
+              f"vocab 32000), seed 0, written as an HF directory in {time.perf_counter() - t_phase:.1f} s; two ranks "
+              "of tensor=2 on the one card (16 heads and 16 kv heads a rank)", flush=True)
+        texts = [_long_text(n - 1, 110 + i) for i, n in enumerate(GANG_LENS)]
+        prompts = [tok.encode(t) for t in texts]
+
+        # (a) serve.main x 2, bf16, dense; 8 concurrent greedy requests.
+        children, base, lead, follow = start_gang("a", {**GANG_PARAMS, "model": str(model_dir)})
+        print(f"{label} (a): ranks ready in {children[0].ready_s:.1f} / {children[1].ready_s:.1f} s; leader: "
+              f"{lead.split('; gang: ')[1].strip()}; follower: {follow.strip()}", flush=True)
+        http(base, "/v1/completions", {"prompt": "warm up", "max_tokens": 2, "temperature": 0})
+        time.sleep(0.5)
+        counts0 = surface_launches(scrape(base))
+        journeys, wall = run_traced(base, texts, 0x9a, GANG_NEW, f"{label} (a)")
+        counts1 = surface_launches(scrape(base))
+        served = [emitted(j["events"]) for j in journeys]
+        reference = gang_reference(model, cfg, prompts, served, f"{label} (a)")
+        delta = {k: counts1.get(k, 0) - counts0.get(k, 0) for k in counts1}
+        launches = {"flash_fwd_tp2": delta.get("flash_attention.launches_wgmma", 0),
+                    "flash_cached_tp2": delta.get("flash_cached_attention.launches_wgmma", 0),
+                    "decode_attn_tp2": delta.get("decode_attention.launches_split", 0)}
+        if min(launches.values()) <= 0 or any(v % GANG_LAYERS for v in launches.values()):
+            fail(f"{label} (a): the leader's kernel launches {launches} ({delta})")
+        exact = sum(r["argmax_agree"] for r in reference["requests"])
+        total = sum(r["tokens"] for r in reference["requests"])
+        print(f"{label} (a) [{card}]: {len(texts)} concurrent greedy requests of {min(GANG_LENS)}-{max(GANG_LENS)} "
+              f"tokens, {GANG_NEW} new each, in {wall:.2f} s through the gang; {exact}/{total} served tokens the "
+              f"single process's argmax, every one within the near-tie rule; the leader's launches {launches} "
+              f"(per-rank heads: the flash forward's, cached flash's and decode kernel's designs)", flush=True)
+        t_term = time.perf_counter()
+        children[0].proc.send_signal(signal.SIGTERM)
+        rcs = [c.proc.wait(timeout=120) for c in children]
+        if rcs != [0, 0]:
+            fail(f"{label} (a): after SIGTERM to the leader the ranks exited {rcs}")
+        print(f"{label} (a): SIGTERM to the leader: it drained and broadcast stop; both ranks exited 0 in "
+              f"{time.perf_counter() - t_term:.1f} s", flush=True)
+        for c in children:
+            c.stop()
+        children = []
+
+        # (b) the ranks agree; the numbers, in turns with a single process.
+        single = Engine(cfg, model, EngineConfig(max_batch=8, max_seq_len=2048, kv_layout="dense"), device="cuda")
+        single.start()
+        try:
+            engine_turn(single, prompts[:1])  # the graph's capture
+            turn1 = engine_turn(single, prompts, GANG_SAMPLED)
+            ranks = run_gang_workers(model_dir, prompts, f"{label} (b)")
+            turn2 = engine_turn(single, prompts, GANG_SAMPLED)
+        finally:
+            single.stop()
+        lead_r, follow_r = ranks
+        got = [q["tokens"] for q in lead_r["requests"]]
+        if got != [q["tokens"] for q in follow_r["requests"]] or lead_r["error"] or follow_r["error"]:
+            fail(f"{label} (b): the ranks' tokens differ or an engine failed: {lead_r['error']} {follow_r['error']}")
+        greedy = [i for i in range(len(prompts)) if i != GANG_SAMPLED]
+        ref_b = gang_reference(model, cfg, [prompts[i] for i in greedy], [got[i] for i in greedy], f"{label} (b)")
+        bcast = sorted(s for _, s in lead_r["timings"])
+        gang_ttft = [q["ttft_s"] for q in lead_r["requests"]]
+        gang_step = 1e3 * lead_r["stats"]["decode_seconds"] / lead_r["stats"]["decode_steps"]
+        ar = lead_r["allreduce_s"]
+        print(f"{label} (b) [{card}]: both ranks' {sum(len(t) for t in got)} tokens equal, the sampled row "
+              f"({len(got[GANG_SAMPLED])} tokens at temperature 0.8) too; data backend {lead_r['backend']} (two ranks "
+              f"on one card), the event broadcast gloo", flush=True)
+        print(f"{label} (b) [{card}]: gloo all-reduce of CUDA bf16 tensors, median of 50: [8,1,4096] "
+              f"{1e3 * ar[f'8x1x{cfg.dim}']:.3f} ms, [1,512,4096] {1e3 * ar[f'1x512x{cfg.dim}']:.3f} ms; the event "
+              f"broadcast "
+              f"median {1e3 * statistics.median(bcast):.3f} ms over {len(bcast)} iterations (largest "
+              f"{max(n for n, _ in lead_r['timings'])} bytes)", flush=True)
+        print(f"{label} (b) [{card}]: in turns (single, gang, single; 8 requests at once, {GANG_NEW} new each): mean "
+              f"decode step {turn1['step_ms']:.2f} / {gang_step:.2f} / {turn2['step_ms']:.2f} ms (the single process's "
+              f"step one CUDA graph, the gang's eager); TTFT of the {GANG_LENS[-1]}-token prompt "
+              f"{1e3 * turn1['ttft_s'][-1]:.1f} / {1e3 * gang_ttft[-1]:.1f} / {1e3 * turn2['ttft_s'][-1]:.1f} ms, mean "
+              f"TTFT {1e3 * statistics.mean(turn1['ttft_s']):.1f} / {1e3 * statistics.mean(gang_ttft):.1f} / "
+              f"{1e3 * statistics.mean(turn2['ttft_s']):.1f} ms; peak memory rank 0 {lead_r['peak_memory_bytes']} "
+              f"bytes, rank 1 {follow_r['peak_memory_bytes']} bytes (the single process "
+              f"{torch.cuda.max_memory_allocated()} bytes, this process)", flush=True)
+
+        # (c) paged with int8 weights: 4 requests sharing a prefix; then the follower's SIGKILL.
+        llama.quantize_weights(model, "int8")  # the ranks quantize the same layers whole, then slice
+        c_texts = [GANG_PREFIX + _long_text(40 + 60 * i, 130 + i) for i in range(4)]
+        c_prompts = [tok.encode(t) for t in c_texts]
+        children, base, lead, _ = start_gang("c", {**GANG_C_PARAMS, "model": str(model_dir)})
+        c_j, c_wall = run_traced(base, c_texts, 0x9c, 32, f"{label} (c)")
+        c_served = [emitted(j["events"]) for j in c_j]
+        ref_c = gang_reference(model, cfg, c_prompts, c_served, f"{label} (c)")
+        hits = sum(e[2]["tokens"] for j in c_j for e in j["events"] if e[1] == "prefix_hit")
+        timeout_s = int(lead.split("collective timeout ")[1].split()[0])
+        t_kill = time.perf_counter()
+        children[1].proc.kill()
+        try:
+            rc = children[0].proc.wait(timeout=timeout_s + 60)
+        except subprocess.TimeoutExpired:
+            fail(f"{label} (c): the leader still runs {timeout_s + 60} s after its follower's SIGKILL")
+        waited = time.perf_counter() - t_kill
+        if rc == 0 or waited > timeout_s:
+            fail(f"{label} (c): after the follower's SIGKILL the leader exited {rc} in {waited:.1f} s "
+                 f"(timeout {timeout_s} s)")
+        print(f"{label} (c) [{card}]: paged, int8 weights: 4 requests sharing a {len(tok.encode(GANG_PREFIX))}-token "
+              f"prefix ({hits} prompt tokens from the registry), 32 new each in {c_wall:.2f} s, every token within the "
+              f"near-tie rule; the follower SIGKILLed: the leader exited {rc} after {waited:.1f} s (its collective "
+              f"timeout {timeout_s} s)", flush=True)
+    finally:
+        for c in children:
+            c.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    print(f"{label}: {wall:.1f} s at {GANG_LAYERS} layers", flush=True)
+    return {"layers": GANG_LAYERS, "launches": launches, "reference_a": reference, "reference_b": ref_b,
+            "reference_c": ref_c, "allreduce_s": ar, "broadcast_median_s": statistics.median(bcast),
+            "step_ms": {"single": [turn1["step_ms"], turn2["step_ms"]], "gang": gang_step},
+            "ttft_s": {"single": [turn1["ttft_s"], turn2["ttft_s"]], "gang": gang_ttft},
+            "peak_bytes": [lead_r["peak_memory_bytes"], follow_r["peak_memory_bytes"]],
+            "worker_launches": lead_r["launches"], "kill_exit": rc, "kill_seconds": waited, "seconds": wall}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default="card,build,kernels,serve,serve-long,serve-int4,serve-paged,serve-spec,"
                                         "serve-ckpt,serve-surface,train,train-full,serve-families,serve-batchgen,"
-                                        "serve-adapters,serve-moe,serve-disagg,serve-w8a8,rl")
+                                        "serve-adapters,serve-moe,serve-disagg,serve-w8a8,rl,serve-gang")
     phases = ap.parse_args().phases.split(",")
     t_start = time.perf_counter()
     phase_s = {}
+    # Past WATCHDOG_S every thread's stack goes to standard error, so that a
+    # run stopped at its time limit says where it was.
+    faulthandler.dump_traceback_later(WATCHDOG_S)
 
     def timed(name, fn, *args, **kw):  # a phase's seconds, printed at the end
         t0 = time.perf_counter()
+        print(f"chip_smoke: {name} from {t0 - t_start:.1f} s", file=sys.stderr, flush=True)
         out = fn(*args, **kw)
         phase_s[name] = round(time.perf_counter() - t0, 1)
         return out
@@ -7066,9 +7545,7 @@ def main() -> int:
     if "serve-ckpt" in phases:
         report["serve-ckpt"] = timed("serve-ckpt", serve_ckpt_phase, card)
     if "serve-surface" in phases:
-        lookup = report.get("serve-spec", {}).get("lookup")
-        spec_step = (lookup["spec"]["round_ms"], lookup["plain"]["round_ms"]) if lookup else None
-        report["serve-surface"] = timed("serve-surface", serve_surface_phase, card, spec_step)
+        report["serve-surface"] = timed("serve-surface", serve_surface_phase, card)
     if "train" in phases:
         report["train"] = timed("train", train_phase, card, profile_steps="profile" in phases)
     if "train-full" in phases:
@@ -7087,8 +7564,11 @@ def main() -> int:
         report["serve-w8a8"] = timed("serve-w8a8", serve_w8a8_phase, card, profile_steps="profile" in phases)
     if "rl" in phases:
         report["rl"] = timed("rl", rl_phase, card, profile_steps="profile" in phases)
+    if "serve-gang" in phases:
+        report["serve-gang"] = timed("serve-gang", serve_gang_phase, card)
     report["wall_s"] = time.perf_counter() - t_start
     report["phase_s"] = phase_s
+    faulthandler.cancel_dump_traceback_later()
     print(f"chip_smoke: phases {','.join(phases)} in {report['wall_s']:.1f} s; seconds by phase {phase_s}",
           flush=True)
     OUT_DIR.mkdir(exist_ok=True)
@@ -7133,7 +7613,14 @@ def main() -> int:
                                           "substratus_tpu/ops/flash_attention.py:290"),
                    # w8a8: no TPU kernel; the XLA ops of qeinsum_w8a8 they replace
                    "w8a8_quantize": ("substratus_tpu_torch/csrc/w8a8_quantize.cu", "substratus_tpu/ops/quant.py:142"),
-                   "w8a8_matmul": ("substratus_tpu_torch/csrc/w8a8_matmul.cu", "substratus_tpu/ops/quant.py:147")}
+                   "w8a8_matmul": ("substratus_tpu_torch/csrc/w8a8_matmul.cu", "substratus_tpu/ops/quant.py:147"),
+                   # serve-gang's per-rank shapes (tensor=2)
+                   "flash_fwd_tp2": ("substratus_tpu_torch/csrc/flash_fwd_wgmma.cu",
+                                     "substratus_tpu/ops/flash_attention.py:91"),
+                   "decode_attn_tp2": ("substratus_tpu_torch/csrc/decode_split.cu",
+                                       "substratus_tpu/ops/decode_attention.py:138"),
+                   "flash_cached_tp2": ("substratus_tpu_torch/csrc/flash_fwd_wgmma.cu",
+                                        "substratus_tpu/ops/flash_attention.py:452")}
         # Each kernel's launches come from the serve or train phase whose
         # path runs it (train: the first train.main call, 4 steps), as
         # (phase, its launch count): the flash forward's and the cached
@@ -7152,7 +7639,10 @@ def main() -> int:
                     **{name: ("serve-adapters", name) for name in (
                         "flash_fwd_d256", "flash_cached_d256", "flash_cached_int8_d256", "decode_attn_d256",
                         "fused_decode_d256", "decode_split_d256", "flash_bwd_dq_d256", "flash_bwd_dkv_d256")},
-                    "w8a8_quantize": ("serve-w8a8", "w8a8_quantize"), "w8a8_matmul": ("serve-w8a8", "w8a8_matmul")}
+                    "w8a8_quantize": ("serve-w8a8", "w8a8_quantize"), "w8a8_matmul": ("serve-w8a8", "w8a8_matmul"),
+                    # serve-gang (a): the leader's launches at the per-rank heads
+                    **{name: ("serve-gang", name) for name in ("flash_fwd_tp2", "decode_attn_tp2",
+                                                              "flash_cached_tp2")}}
         # serve-spec's launches (legs (a) and (b)) of each design, and
         # serve-surface's (its child process's legs (a), (b) and (d)), each
         # its own count.

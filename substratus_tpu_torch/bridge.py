@@ -21,6 +21,11 @@ E] and the experts [L, E, D, M] / [L, E, M, D] split on their layer axis
 into each block's [D, E] and [E, ...], and expert-routed LoRA pairs [L, E,
 in, r] / [L, E, r, out] into each layer's [E, in, r] / [E, r, out].
 
+``shard_from_jax`` gives a gang rank's share of a llama tree: the state
+dict of its tensor shard (parallel/sharding.py's shard_params, the JAX
+package's sharding_tree rule), to load into
+``Llama(llama.shard_config(cfg, tensor))``.
+
 ``config_from_jax`` gives the port's config of a JAX family config: the
 fields the two share (``quant_activations``, w8a8, among them) and the
 dtype by name; the attention switches keep the port's defaults, since
@@ -96,6 +101,18 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, Any]:
                 # Tensors lose the layer axis; extra state is every layer's.
                 state[f"layers.{i}.{name}{suffix}"] = value[i] if isinstance(value, torch.Tensor) else value
     return state
+
+
+def shard_from_jax(tree: Dict[str, Any], cfg, mesh) -> Dict[str, Any]:
+    """JAX llama params (as params_from_jax takes them) -> the state dict
+    of `mesh`'s rank's tensor shard (contiguous tensors): each weight
+    sliced by its logical axes (models/llama.py's param_logical_axes) under
+    the serving rules, an int8 QTensor's scale by the keepdims rule."""
+    from substratus_tpu_torch.models import llama
+    from substratus_tpu_torch.parallel.sharding import SERVE_RULES, shard_params
+
+    shard = shard_params(params_from_jax(tree), llama.param_logical_axes(cfg), mesh, SERVE_RULES)
+    return {k: v.contiguous() if isinstance(v, torch.Tensor) else v for k, v in shard.items()}
 
 
 def lora_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:

@@ -229,10 +229,21 @@ class _Staging:
     quantize=...)): every tensor of a layer (norms and router too) lands in
     a dense LlamaBlock, and the lm_head in a dense tensor, which is
     quantized into the model as soon as its last tensor arrives and
-    replaces the model's (uninitialized) storage."""
+    replaces the model's (uninitialized) storage.
 
-    def __init__(self, model: nn.Module, quantize: str):
-        self.model, self.quantize, self.cfg = model, quantize, model.cfg
+    With a `mesh` (a gang rank's tensor shard, `model` laid out by
+    llama.shard_config's config) every tensor is staged, at the whole
+    model's shape (`whole`, its config): a full layer (or the embedding,
+    the final norm, the lm_head) is quantized whole, then sliced by
+    parallel.sharding.shard_params into the model's shard, so an int8
+    shard keeps the whole weight's scales and no rank holds more than one
+    whole layer beside its shard."""
+
+    TOP = ("tok_embed", "out_norm", "lm_head")
+
+    def __init__(self, model: nn.Module, quantize: str, whole=None, mesh=None):
+        self.model, self.quantize, self.cfg = model, quantize, whole or model.cfg
+        self.mesh = mesh
         self.layer_axes = llama._layer_contracting(self.cfg)
         self.blocks: Dict[str, Tuple[nn.Module, set]] = {}  # "layers.i" or "" -> (dense owner, names to fill)
 
@@ -244,9 +255,15 @@ class _Staging:
                 block = llama.LlamaBlock(self.cfg, self.model.device)
                 self.blocks[owner] = (block, set(dict(block.named_parameters())))
             else:
-                dense = llama._weight((self.cfg.dim, self.cfg.vocab_size), self.cfg, self.model.device)
-                self.blocks[owner] = (nn.ParameterDict({attr: dense}), {attr})
-        return getattr(self.blocks[owner][0], attr) if owner else self.blocks[owner][0][attr]
+                cfg = self.cfg
+                shapes = {"tok_embed": (cfg.vocab_size, cfg.dim), "out_norm": (cfg.dim,),
+                          "lm_head": (cfg.dim, cfg.vocab_size)}
+                names = [n for n in self.TOP if hasattr(self.model, n)] if self.mesh is not None else [attr]
+                holder = nn.Module()
+                for n in names:
+                    setattr(holder, n, llama._weight(shapes[n], cfg, self.model.device))
+                self.blocks[owner] = (holder, set(names))
+        return getattr(self.blocks[owner][0], attr)
 
     def done(self, name: str) -> None:
         """`name`'s tensor is in: quantize and install its owner once full."""
@@ -256,28 +273,49 @@ class _Staging:
         if todo:
             return
         del self.blocks[owner]
-        if owner:
+        if self.mesh is not None:
+            self._install_shard(owner, block)
+        elif owner:
             llama._quantize_module(block, self.quantize, self.layer_axes, self.cfg)
             self.model.layers[int(owner.split(".")[1])] = block
         else:
-            w = llama.quantize_leaf(block[attr], llama.quant_contracting(self.cfg)["lm_head"], self.quantize)
+            w = llama.quantize_leaf(getattr(block, attr), llama.quant_contracting(self.cfg)["lm_head"], self.quantize)
             delattr(self.model, attr)
             setattr(self.model, attr, w)
 
+    def _install_shard(self, owner: str, block: nn.Module) -> None:
+        """Quantize a staged whole owner, slice it, copy the slices into the
+        model's shard."""
+        from substratus_tpu_torch.parallel.sharding import shard_params
+
+        top = {"lm_head": llama.quant_contracting(self.cfg).get("lm_head", ())}
+        llama._quantize_module(block, self.quantize, self.layer_axes if owner else top, self.cfg)
+        prefix = f"{owner}." if owner else ""
+        state = {prefix + k: v for k, v in block.state_dict().items()}
+        shard = shard_params(state, llama.param_logical_axes(self.cfg), self.mesh)
+        missing, unexpected = self.model.load_state_dict(shard, strict=False)
+        if unexpected:
+            raise KeyError(f"staged {unexpected} that the shard does not hold")
+
 
 @torch.no_grad()
-def copy_hf_state(model: nn.Module, items: Iterable[Tuple[str, torch.Tensor]], quantize: str = "none") -> None:
+def copy_hf_state(model: nn.Module, items: Iterable[Tuple[str, torch.Tensor]], quantize: str = "none",
+                  shard=None) -> None:
     """Copy (HF name, tensor) pairs into `model` (any family's module; the
     names those of model.cfg's family), each as it comes: moved to the
     model's device, transposed there into the port's layout, and rounded to
     the model's dtype; an expert's tensor into its slice of the stacked
     weight. With quantize (a llama model laid out by Llama(cfg,
     quantize=quantize)), each layer is staged dense and quantized when its
-    last tensor arrives (_Staging). Raises KeyError naming every weight of
-    the model that no item filled."""
+    last tensor arrives (_Staging). With `shard` (the whole model's config
+    and a gang's mesh; `model` a rank's shard) every tensor is staged whole
+    and sliced as its owner completes. Raises KeyError naming every weight
+    of the model that no item filled."""
     cfg = model.cfg
     state = model.state_dict(keep_vars=True)
     stage = _Staging(model, quantize) if quantize != "none" else None
+    if shard is not None:
+        stage = _Staging(model, quantize, *shard)
     experts = getattr(cfg, "n_experts", 0)
     wanted = {name for name in state if not name.endswith("._extra_state")}
     if stage is not None:  # a quantized weight is wanted by its dense name
@@ -286,7 +324,7 @@ def copy_hf_state(model: nn.Module, items: Iterable[Tuple[str, torch.Tensor]], q
     filled: Dict[str, set] = {}
 
     def put(name: str, hf_name: str, w: torch.Tensor, expert: int | None = None) -> None:
-        staged = stage is not None and (name.startswith("layers.") or name not in state)
+        staged = stage is not None and (shard is not None or name.startswith("layers.") or name not in state)
         target = stage.target(name) if staged else state[name]
         if expert is not None:
             target = target[expert]
@@ -371,14 +409,17 @@ _HF_CONFIGS = {"llama": config_from_hf, "opt": config_from_hf_opt, "falcon": con
 
 
 def load_pretrained(path: str, dtype: torch.dtype = torch.bfloat16, device: DeviceLike = None,
-                    quantize: str = "none") -> Tuple[Any, nn.Module]:
+                    quantize: str = "none", mesh_for=None) -> Tuple[Any, nn.Module]:
     """A local HF directory of the llama (Mixtral included), OPT or Falcon
     family -> (config, the family's module on `device`), cuda unless the
     caller asks for the CPU; a llama model quantized at load with
     quantize="int8"|"int4" (layer by layer: copy_hf_state; another family
     loads dense, its caller says it skips the quantization). Exits for any
     other path (the port reads no hub), for other model types and for the
-    OPT and Falcon variants the JAX converters refuse."""
+    OPT and Falcon variants the JAX converters refuse. With `mesh_for`
+    (cfg -> a gang's mesh with a tensor axis above 1), a llama checkpoint
+    loads as this rank's tensor shard (llama.shard_model's, a layer at a
+    time: copy_hf_state); the returned cfg is the shard's."""
     if not is_hf_dir(path):
         raise SystemExit(f"{path}: not a local checkpoint; the PyTorch port loads local checkpoints only (a "
                          "directory with config.json, a .gguf file or a port artifact), with no download")
@@ -393,6 +434,13 @@ def load_pretrained(path: str, dtype: torch.dtype = torch.bfloat16, device: Devi
     cfg = _HF_CONFIGS[family](SimpleNamespace(**raw), dtype)
     if not getattr(registry.module_for(family), "SUPPORTS_QUANTIZE", False):
         quantize = "none"
+    mesh = mesh_for(cfg) if mesh_for is not None and family == "llama" else None
+    if mesh is not None and mesh.shape["tensor"] > 1:
+        llama.check_shardable(cfg, (quantize,))
+        model = llama.Llama(llama.shard_config(cfg, mesh.shape["tensor"]), device=device, quantize=quantize)
+        copy_hf_state(model, _state_items(path), quantize, shard=(cfg, mesh))
+        model.tp = llama.tensor_shard(cfg, mesh)
+        return model.cfg, model
     model = (llama.Llama(cfg, device=device, quantize=quantize) if quantize != "none"
              else registry.MODEL_CLASSES[family](cfg, device=device))
     copy_hf_state(model, _state_items(path), quantize)

@@ -210,6 +210,10 @@ class Llama(nn.Module):
     quantize="int8"|"int4" lays out quantized storage for the weights
     quant_contracting names (to load a quantized state dict into)."""
 
+    # A rank's tensor shard (shard_model) sets its parallel.sharding.TensorShard:
+    # the forward then issues the tensor axis's collectives.
+    tp = None
+
     def __init__(self, cfg: LlamaConfig, device: DeviceLike = None, quantize: str = "none"):
         super().__init__()
         _check_quantize(quantize)
@@ -350,6 +354,112 @@ def lay_out_quantized(params: Llama, layout: Dict[str, str]) -> Llama:
     return params
 
 
+def param_logical_axes(cfg: LlamaConfig) -> Dict:
+    """Logical axis names of every weight (parallel/sharding.py), the JAX
+    package's tree: layer leaves carry its stacked leading "layers" axis,
+    which the port's per-layer tensors do not (sharding.shard_params drops
+    it)."""
+    layers = {
+        "attn_norm": ("layers", "embed"),
+        "wq": ("layers", "embed", "heads", "head_dim"),
+        "wk": ("layers", "embed", "kv_heads", "head_dim"),
+        "wv": ("layers", "embed", "kv_heads", "head_dim"),
+        "wo": ("layers", "heads", "head_dim", "embed"),
+        "mlp_norm": ("layers", "embed"),
+    }
+    if cfg.n_experts > 0:
+        layers.update({"router": ("layers", "embed", None), "w_gate": ("layers", "expert", "embed", "mlp"),
+                       "w_up": ("layers", "expert", "embed", "mlp"), "w_down": ("layers", "expert", "mlp", "embed")})
+    else:
+        layers.update({"w_gate": ("layers", "embed", "mlp"), "w_up": ("layers", "embed", "mlp"),
+                       "w_down": ("layers", "mlp", "embed")})
+    axes = {"tok_embed": ("vocab", "embed"), "layers": layers, "out_norm": ("embed",)}
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    return axes
+
+
+def cache_logical_axes(cfg: LlamaConfig, quantized: bool = False) -> Dict:
+    """Logical axes of init_cache's dense cache, the JAX package's."""
+    ax = ("layers", "cache_batch", "kv_heads", "cache_seq", "head_dim")
+    axes = {"k": ax, "v": ax}
+    if quantized:
+        axes["k_scale"] = ax[:-1]
+        axes["v_scale"] = ax[:-1]
+    return axes
+
+
+def paged_cache_logical_axes(cfg: LlamaConfig, quantized: bool = False) -> Dict:
+    """Logical axes of init_paged_cache's pool, the JAX package's: pages
+    and page slots replicated (the block tables are every rank's), the kv
+    heads over "tensor"."""
+    ax = ("layers", None, None, "kv_heads", "head_dim")
+    axes = {"k": ax, "v": ax}
+    if quantized:
+        axes["k_scale"] = ax
+        axes["v_scale"] = ax
+    return axes
+
+
+def shard_config(cfg: LlamaConfig, tensor: int) -> LlamaConfig:
+    """A rank's config under a tensor axis of `tensor`: its heads, kv heads
+    and, where the axis divides them, its part of the MLP and the vocab
+    (sharding.fit's rule: otherwise they stay whole), with the head dim
+    pinned to the model's (n_heads / tensor would change dim // n_heads).
+    Raises where the heads or kv heads do not divide: the JAX package
+    replicates such a projection, a rank here would attend heads it does
+    not hold."""
+    if cfg.n_heads % tensor or cfg.n_kv_heads % tensor:
+        raise ValueError(f"tensor={tensor} must divide the heads ({cfg.n_heads}) and kv heads ({cfg.n_kv_heads})")
+    return cfg.replace(
+        n_heads=cfg.n_heads // tensor, n_kv_heads=cfg.n_kv_heads // tensor, head_dim=cfg.head_size,
+        hidden_dim=cfg.hidden_dim // tensor if cfg.hidden_dim % tensor == 0 else cfg.hidden_dim,
+        vocab_size=cfg.vocab_size // tensor if cfg.vocab_size % tensor == 0 else cfg.vocab_size)
+
+
+def tensor_shard(cfg: LlamaConfig, mesh):
+    """The TensorShard of this rank of `mesh` for the model `cfg`."""
+    from substratus_tpu_torch.parallel.sharding import TensorShard
+
+    t = mesh.shape["tensor"]
+    return TensorShard(mesh.group("tensor"), t, mesh.coords["tensor"], cfg.vocab_size,
+                       vocab_sharded=cfg.vocab_size % t == 0, mlp_sharded=cfg.hidden_dim % t == 0)
+
+
+def check_shardable(cfg: LlamaConfig, modes) -> None:
+    """Raise for what a tensor-parallel gang does not serve yet: int4 and
+    w8a8 weights (`modes`: the weights' storage modes, "int8", "int4")."""
+    from substratus_tpu_torch.parallel.sharding import NEXT_GANG_SLICE
+
+    if cfg.quant_activations:
+        raise NotImplementedError(f"w8a8 in a tensor-parallel gang is not served by the PyTorch port yet: "
+                                  f"{NEXT_GANG_SLICE}")
+    if "int4" in modes:
+        raise NotImplementedError(f"int4 weights in a tensor-parallel gang are not served by the PyTorch port yet: "
+                                  f"{NEXT_GANG_SLICE}")
+
+
+@torch.no_grad()
+def shard_model(params: Llama, mesh, rules=None) -> Llama:
+    """This rank's tensor shard of a whole model (on any device): a Llama
+    of shard_config's config on the same device, each weight sliced by
+    parallel.sharding.shard_params (int8 weights keep the whole weight's
+    scales), its forward summing over the mesh's tensor group. A mesh with
+    tensor == 1, or params already a shard, returns `params` itself."""
+    from substratus_tpu_torch.parallel.sharding import SERVE_RULES, shard_params
+
+    t = mesh.shape["tensor"]
+    if t == 1 or params.tp is not None:
+        return params
+    cfg = params.cfg
+    layout = quantized_layout(params)
+    check_shardable(cfg, layout.values())
+    local = lay_out_quantized(Llama(shard_config(cfg, t), device=params.device), layout)
+    local.load_state_dict(shard_params(params.state_dict(), param_logical_axes(cfg), mesh, rules or SERVE_RULES))
+    local.tp = tensor_shard(cfg, mesh)
+    return local
+
+
 def init_cache(
     cfg: LlamaConfig,
     batch: int,
@@ -451,6 +561,7 @@ def _block(
     block_table: Optional[torch.Tensor] = None,  # [B, M]: layer_cache is a page pool
     adapter_ids: Optional[torch.Tensor] = None,  # [B]: lora_layer is slot-stacked
     train: bool = False,  # MoE: capacity dispatch (train) vs exact dropless (serving)
+    tp=None,  # a rank's TensorShard: wo's and w_down's partial outputs are summed over it
 ) -> Tuple[torch.Tensor, Cache]:
     """One transformer block. Returns (x_out, kv): the fresh {k, v}
     entries without a cache (prefill; with experts also this layer's
@@ -491,17 +602,23 @@ def _block(
     o = project("bshk,hkd->bsd", attn, lp.wo, cfg)
     if "wo" in lora:  # the adapter sees the flattened [B, S, H*hd]
         o = o + delta("wo", attn.flatten(2), "bsr,rd->bsd")
+    if tp is not None:  # this rank's heads: a partial sum over the tensor group
+        o = tp.reduce(o)
     x = x + o
     h = rms_norm(x, lp.mlp_norm, cfg.norm_eps)
     if cfg.n_experts > 0:
         y, aux = _moe_ffn(h, lp, cfg, train, lora, lora_scale)
+        if tp is not None and tp.mlp_sharded:
+            y = tp.reduce(y)
         if layer_cache is None:  # the prefill and training forwards report the aux
             kv = {**kv, "moe_aux": aux}
         return x + y, kv
     gate = proj("w_gate", h, "bsd,dm->bsm", "bsr,rm->bsm")
     up = proj("w_up", h, "bsd,dm->bsm", "bsr,rm->bsm")
-    x = x + proj("w_down", swiglu(gate, up), "bsm,md->bsd", "bsr,rd->bsd")
-    return x, kv
+    y = proj("w_down", swiglu(gate, up), "bsm,md->bsd", "bsr,rd->bsd")
+    if tp is not None and tp.mlp_sharded:
+        y = tp.reduce(y)
+    return x + y, kv
 
 
 def route(h: torch.Tensor, router: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -608,12 +725,17 @@ def forward(
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
-    x = params.tok_embed[tokens.long()].to(cfg.dtype)
+    tp = params.tp
+    if tp is None:
+        x = params.tok_embed[tokens.long()].to(cfg.dtype)
+    else:
+        x = tp.embed(params.tok_embed, tokens.long(), cfg.dtype)
     x, kv = run_layers(_block, params, x, positions, cfg, cache, kv_length, lora, remat, train, block_table,
-                       adapter_ids, train)
+                       adapter_ids, train, tp)
     x = rms_norm(x, params.out_norm, cfg.norm_eps)
     head = params.tok_embed.t() if cfg.tie_embeddings else params.lm_head
-    return project("bsd,dv->bsv", x, head, cfg).float(), kv
+    logits = project("bsd,dv->bsv", x, head, cfg).float()
+    return (logits if tp is None else tp.gather_vocab(logits)), kv
 
 
 def run_layers(block, params, x, positions, cfg, cache, kv_length, lora, remat: bool, train: bool, *extra):

@@ -118,7 +118,18 @@ its pool on the scheduler thread's stream, behind any step in flight
 (_install_migration), and decode on. A requeued request (its decode worker
 lost) boards the prefill engine again through resubmit().
 
-Not ported yet (ROADMAP Queue 1, multi-GPU): lockstep gangs.
+Gangs (Engine(..., mesh=, sync=), serve/multihost.py): every rank of a
+gang runs this engine over its tensor shard of the model
+(models/llama.py's tensor-parallel forward), and the scheduler is
+replicated: at the top of every iteration (_sync_iterate) the leader drains
+its queue, numbers the new requests (sync_id) and broadcasts them with the
+cancel latches, the stop and the swap barrier; every rank applies the same
+events and runs the same iteration, so every rank issues the same
+collectives in the same order. A follower refuses submit() and delivers
+into a NullSink. Under a sync the scheduler is the synchronous one (a
+settled batch each broadcast) with the idle tick of the JAX engine; under
+a tensor axis the decode step runs eagerly (no CUDA graph can capture
+gloo's collectives).
 """
 from __future__ import annotations
 
@@ -148,8 +159,10 @@ from substratus_tpu_torch.ops.decode_attention import pack_fragment
 from substratus_tpu_torch.ops.headdim import check_head_dim, head_dim_route
 from substratus_tpu_torch.ops.quant import dequantize_kv, quantize_kv
 from substratus_tpu_torch.ops.sampling import sample
+from substratus_tpu_torch.parallel.sharding import NEXT_GANG_SLICE
 from substratus_tpu_torch.serve.adapters import AdapterCapacityError, UnknownAdapter
 from substratus_tpu_torch.serve.decode_graph import DecodeGraph, SpecGraph
+from substratus_tpu_torch.serve.multihost import NullSink, decode_events, encode_events
 from substratus_tpu_torch.serve.paged_kv import PageAllocator, PrefixRegistry, SlotPages, chain_entries
 from substratus_tpu_torch.utils.device import DeviceLike, resolve_device, seeded_generator
 
@@ -368,6 +381,11 @@ class Request:
     # id and copied into the engine's JourneyLog when it ends.
     trace_ctx: Optional[SpanContext] = None
     journey: Optional[RequestJourney] = None
+    # Gangs: the leader's number for the request (every rank's mirror
+    # carries it), and the cancellation every rank applies, latched from
+    # `cancelled` by the iteration's broadcast.
+    sync_id: Optional[int] = None
+    cancel_latched: bool = False
 
 
 @dataclass
@@ -432,6 +450,8 @@ class Engine:
         padded_cache: Optional[bool] = None,
         adapters=None,
         handoff=None,
+        mesh=None,
+        sync=None,
     ):
         """Serve `params` (the family module's parameter container, e.g. a
         models.llama.Llama) on `device`: cuda unless the caller passes
@@ -451,7 +471,10 @@ class Engine:
         own adapter by slot index (a family without SUPPORTS_INDEXED_LORA
         raises, as in the JAX engine). `handoff` (a
         serve.disagg.HandoffManager) is where a prefill-role engine ships
-        its requests."""
+        its requests. `mesh` (parallel.mesh.Mesh) with a tensor axis above
+        1 serves `params`, this rank's shard (models.llama.shard_model),
+        eagerly; `sync` (a serve.multihost.StepSync or TcpSync of more
+        than one process) replicates the scheduler over the gang."""
         # Copy before clamping: never mutate the caller's config.
         ec = dataclasses.replace(ec) if ec is not None else EngineConfig()
         self.device = resolve_device(device)
@@ -461,6 +484,20 @@ class Engine:
             raise ValueError(f"kv_cache_dtype {ec.kv_cache_dtype!r} invalid (expected 'model' or 'int8')")
         if ec.role not in ("both", "prefill", "decode"):
             raise ValueError(f"role {ec.role!r} invalid (both|prefill|decode)")
+        if ec.role != "both" and sync is not None:
+            raise ValueError("disaggregated roles are incompatible with lockstep sync (a gang engine is one replica; "
+                             "split pools across gangs)")
+        self.mesh = mesh
+        tensor = mesh.shape["tensor"] if mesh is not None else 1
+        tp = getattr(params, "tp", None)
+        if (tp.size if tp is not None else 1) != tensor:
+            raise ValueError(f"the mesh's tensor axis is {tensor} but params are a shard of "
+                             f"{tp.size if tp is not None else 1}: serve a rank's shard (models.llama.shard_model)")
+        if tensor > 1 or sync is not None:
+            for what, used in (("speculative decoding", ec.spec_k), ("multi-tenant adapters", adapters)):
+                if used:
+                    raise NotImplementedError(f"{what} in a gang is not served by the PyTorch port yet: "
+                                              f"{NEXT_GANG_SLICE}")
         ec.max_seq_len = min(ec.max_seq_len, cfg.max_seq_len)
         ec.max_prefill_len = min(ec.max_prefill_len, ec.max_seq_len)
         if ec.max_prefill_len < 1 or ec.max_batch < 1 or ec.max_seq_len < 2:
@@ -546,9 +583,22 @@ class Engine:
         self.adapter_ids = np.zeros((B,), np.int64)
         self.slot_adapter: List[int] = [0] * B
         self.generator = seeded_generator(0, self.device)
-        # A prefill-role engine never decodes: nothing to pipeline.
-        self.overlap = ec.overlap is not False and ec.role != "prefill"
-        self.decode_graph = decode_graph and self.device.type == "cuda"
+        # Multi-process lockstep (serve/multihost.py): the broadcast list
+        # replaces the queue as the scheduler's source, so requests enter it
+        # only through _sync_iterate, identically on every rank.
+        self.sync = sync if (sync is not None and sync.num_processes > 1) else None
+        self._sync_seq = 0
+        self._sync_reqs: Dict[int, Request] = {}
+        self._synced: List[Request] = []
+        # Where a follower's mirror requests deliver: nowhere (a tool that
+        # reads a follower's tokens sets a recording sink's class).
+        self.follower_sink = NullSink
+        # A prefill-role engine never decodes, and a gang's broadcast needs a
+        # settled batch: nothing to pipeline.
+        self.overlap = ec.overlap is not False and ec.role != "prefill" and self.sync is None
+        # No CUDA graph captures a tensor axis's collectives (gloo's run on
+        # the host): its decode step runs eagerly.
+        self.decode_graph = decode_graph and self.device.type == "cuda" and tensor == 1
 
         # Per-slot decode inputs live on the host and go to the device
         # each step (a few bytes per row).
@@ -672,6 +722,8 @@ class Engine:
         return prompt_tokens[-(self.ec.max_seq_len - 1):]
 
     def submit(self, req: Request) -> Request:
+        if self.sync is not None and not self.sync.leader:
+            raise RuntimeError("follower engine: requests arrive via the leader broadcast")
         if self.ec.role == "decode":
             raise RuntimeError("decode-role engine: requests arrive as KV migrations from the prefill tier "
                                "(serve/disagg.py)")
@@ -749,10 +801,13 @@ class Engine:
         out sink) or None; pending() says whether pull() could yield. It is
         read after the resume list and the submit queue, so submitted
         requests board first. A decode-role engine refuses one: its
-        requests arrive as migrations. (The JAX engine also refuses a
-        source on a gang follower; the port has no gangs.)"""
+        requests arrive as migrations. A gang refuses one (batch
+        generation's gang is a later slice)."""
         if source is not None and self.ec.role == "decode":
             raise RuntimeError("decode-role engine: requests arrive as KV migrations, not from a pull source")
+        if source is not None and self.sync is not None:
+            raise NotImplementedError(f"a pull source on a gang engine is not served by the PyTorch port yet: "
+                                      f"{NEXT_GANG_SLICE}")
         self.source = source
         self._wake.set()
 
@@ -767,7 +822,7 @@ class Engine:
         return f"{route}; dense cache laid out {s} rows x head_dim {hd}"
 
     def swap_params(self, new_params, version: Optional[int] = None, *, source: str = "swap",
-                    timeout_s: float = 120.0) -> int:
+                    timeout_s: float = 120.0, wait: bool = True) -> Optional[int]:
         """Hot weight-swap: serve `new_params` (a module of the served
         model's structure, or its state dict) on the live engine.
 
@@ -789,8 +844,15 @@ class Engine:
         records a `source` event ("swap", or "rollout" for a controller's
         rolling swap).
 
-        Blocks until the scheduler applied the swap and returns the new
-        version."""
+        On a gang the leader's staged swap sets the barrier: its version
+        rides the iteration's broadcast and every rank installs its own
+        staged weights at that iteration (stage with wait=False on the
+        followers first; a follower with nothing staged within 60 s fails
+        the gang). The broadcast version wins over a follower's `version`.
+
+        With `wait` (the default) blocks until the scheduler applied the
+        swap and returns the new version; wait=False returns None at once
+        (gang followers)."""
         if self.error is not None:
             raise RuntimeError("engine is dead") from self.error
         if self._thread is None or self._stop.is_set():
@@ -821,6 +883,8 @@ class Engine:
         sw = _StagedSwap(new, version, source)
         self._swap_q.put(sw)
         self._wake.set()
+        if not wait:
+            return None
         deadline = time.monotonic() + timeout_s
         while not sw.done.wait(timeout=0.05):
             if not self._thread.is_alive():
@@ -975,6 +1039,10 @@ class Engine:
         queue before the pull source."""
         if self._resume:
             return self._resume.pop(0)
+        if self.sync is not None:
+            # Lockstep: the queue drains only at _sync_iterate; admission
+            # takes the broadcast's order, the same on every rank.
+            return self._synced.pop(0) if self._synced else None
         try:
             return self.queue.get_nowait()
         except queue.Empty:
@@ -986,8 +1054,89 @@ class Engine:
         return None
 
     def _has_pending(self) -> bool:
+        if self.sync is not None:
+            return bool(self._resume) or bool(self._synced)
         return (bool(self._resume) or not self.queue.empty()
                 or (self.source is not None and self.source.pending()))
+
+    def _is_cancelled(self, req: Request) -> bool:
+        """Lockstep reads the broadcast latch (every rank's at a given
+        iteration); one process reads the live flag."""
+        return req.cancel_latched if self.sync is not None else req.cancelled
+
+    def _sync_iterate(self) -> bool:
+        """The top of a scheduler iteration; False when the engine should
+        stop. One process installs its staged swaps. A gang first settles
+        the batch (_flush("gang")); the leader drains its queue, numbers
+        the new requests and broadcasts them with this iteration's cancel
+        latches, stop and swap barrier; every rank then applies them
+        identically."""
+        if self.sync is None:
+            self._apply_staged_swaps()
+            return not self._stop.is_set()
+        self._flush("gang")
+        leader_sw = None
+        if self.sync.leader:
+            new: List[Request] = []
+            while True:
+                try:
+                    new.append(self.queue.get_nowait())
+                except queue.Empty:
+                    break
+            for r in new:
+                self._sync_seq += 1
+                r.sync_id = self._sync_seq
+            cancels = [i for i, r in self._sync_reqs.items() if r.cancelled and not r.cancel_latched]
+            stop = self._stop.is_set()
+            # The swap barrier: one staged swap an iteration rides the
+            # broadcast as its target version; not taken when stopping (the
+            # exit path fails its waiter instead).
+            if not stop:
+                try:
+                    leader_sw = self._swap_q.get_nowait()
+                except queue.Empty:
+                    pass
+            swap_version = None
+            if leader_sw is not None:
+                swap_version = leader_sw.version if leader_sw.version is not None else self.weights_version + 1
+            self.sync.broadcast(encode_events(new, cancels, stop, swap=swap_version))
+            msg = {"cancels": cancels, "stop": stop, "swap": swap_version}
+        else:
+            msg = decode_events(self.sync.broadcast(None))
+            new = []
+            for d in msg["reqs"]:
+                self._sync_seq += 1  # mirrors the leader's numbering
+                new.append(Request(prompt_tokens=d["p"], max_tokens=d["m"], temperature=d["t"], top_p=d["tp"],
+                                   eos_token_id=d["e"], id=d["id"], adapter=d.get("ad"), out=self.follower_sink(),
+                                   sync_id=d["sid"]))
+        for r in new:
+            self._sync_reqs[r.sync_id] = r
+            self._synced.append(r)
+        for cid in msg["cancels"]:
+            r = self._sync_reqs.get(cid)
+            if r is not None:
+                r.cancel_latched = True
+        if msg["stop"]:
+            self._stop.set()
+            return False
+        swap_version = msg.get("swap")
+        if swap_version is not None:
+            if self.sync.leader:
+                sw = leader_sw
+            else:
+                # The leader committed the gang to swap at this iteration;
+                # this rank's weights come through its own swap_params(...,
+                # wait=False). A bounded wait keeps a misconfigured rollout
+                # from wedging the gang silently.
+                try:
+                    sw = self._swap_q.get(timeout=60.0)
+                except queue.Empty:
+                    raise RuntimeError(f"gang swap barrier: leader swapped to weights_version {swap_version} but no "
+                                       "params were staged on this process within 60s; call swap_params(..., "
+                                       "wait=False) on every process") from None
+            # The broadcast version wins: the gang agrees on what it serves.
+            self._apply_swap(sw, int(swap_version))
+        return True
 
     def _admit(self) -> int:
         """Fill free slots from the queue and the pull source; capped per
@@ -1571,6 +1720,8 @@ class Engine:
                     self._journey_end(req, "length", cause="pool")
                     req.out.put(None)
                     self._release_slot(slot)
+                    if req.sync_id is not None:
+                        self._sync_reqs.pop(req.sync_id, None)
                     self.stats["truncated_by_pool"] += 1
                     return
                 self._preempt(victim)
@@ -1902,7 +2053,7 @@ class Engine:
         hit_eos = token_id == eos
         hit_budget = self.slot_generated[slot] >= req.max_tokens
         hit_window = pos_next + 1 >= self.ec.max_seq_len
-        cancelled = req.cancelled
+        cancelled = self._is_cancelled(req)
         if not hit_eos and not cancelled:
             now = time.perf_counter()
             if req.last_emit_ts:
@@ -1921,6 +2072,8 @@ class Engine:
             self._journey_end(req, "cancel" if cancelled else req.finish_reason, tokens=self.slot_generated[slot])
             req.out.put(None)
             self._release_slot(slot)
+            if req.sync_id is not None:
+                self._sync_reqs.pop(req.sync_id, None)
 
     def _observe_latency(self, req: Request, slo: str, seconds: float) -> None:
         """One TTFT or inter-token gap: its SLO sketch and its histogram; a
@@ -1966,7 +2119,7 @@ class Engine:
 
     def _loop(self) -> None:
         try:
-            while not self._stop.is_set():
+            while self._sync_iterate():
                 # The timeline's accumulators for this iteration's record:
                 # _flush, the dispatch and drain halves and _admit fill them.
                 t_iter = time.perf_counter()
@@ -1975,7 +2128,6 @@ class Engine:
                 self._tl_flush_reasons = []
                 self._tl_dispatch_s = self._tl_drain_s = self._tl_drain_off_s = 0.0
                 self._tl_pool_dry = False
-                self._apply_staged_swaps()
                 if self.adapters is not None:
                     # Slots a host thread loaded since the last iteration,
                     # in place, ordered behind the step in flight.
@@ -1990,9 +2142,14 @@ class Engine:
                 if not self.active.any():
                     # Nothing decoding: a step still in flight holds only
                     # released slots, and waits for the next dispatch or
-                    # the stop's flush.
-                    self._wake.wait(timeout=0.05)
-                    self._wake.clear()
+                    # the stop's flush. A gang keeps the 20 ms tick: every
+                    # iteration pays a broadcast, and a follower's wake
+                    # event never fires for the leader's submissions.
+                    if self.sync is not None:
+                        time.sleep(0.02)
+                    else:
+                        self._wake.wait(timeout=0.05)
+                        self._wake.clear()
                     continue
                 n_active = int(self.active.sum())
                 METRICS.observe("substratus_serve_batch_occupancy_ratio", n_active / self.ec.max_batch)
@@ -2030,6 +2187,14 @@ class Engine:
             self._pending = None
             self.error = e
             self._fail_staged_swaps(e)
+            if self.sync is not None and self.sync.leader:
+                # Best effort: a stop broadcast lets followers waiting at
+                # the next iteration's broadcast exit instead of hanging.
+                try:
+                    self.sync.broadcast(encode_events([], [], True))
+                except Exception:  # the collective itself may be what broke; `e` is re-raised below
+                    logging.getLogger(__name__).warning("stop broadcast failed after an engine error",
+                                                        exc_info=True)
 
             def kill(req: Request) -> None:
                 req.finish_reason = "error"

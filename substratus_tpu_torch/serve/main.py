@@ -113,12 +113,32 @@ completions 503 ``wrong_role``. ``disaggregated`` is a known key with no
 effect here, as in the JAX entry point (the controller reads it).
 
 Every other key of the JAX entry point exits with the ROADMAP item that
-will serve it, named by its title (``tensor``, ``sequence``,
-``replicas``: multi-GPU serving), unless it holds the one value this port
-already serves: a knob is never silently ignored, and an unknown value of
-a served knob exits too. So does an operator's environment that names a
-multi-process gang (JAX_NUM_PROCESSES > 1 with JAX_COORDINATOR_ADDRESS
-set): each process would otherwise load the whole model and serve alone.
+will serve it, named by its title (``sequence``, ``replicas``: multi-GPU
+serving), unless it holds the one value this port already serves: a knob
+is never silently ignored, and an unknown value of a served knob exits
+too.
+
+Gangs (parallel/, serve/multihost.py): an operator's environment that
+names one (JAX_NUM_PROCESSES > 1 with JAX_COORDINATOR_ADDRESS set, this
+process's rank in TPU_WORKER_ID) makes every process join it with a TCP
+rendezvous at the coordinator's address, one process a card: rank r runs
+on cuda:(r % the cards it sees), or on the CPU with ``--device cpu``. The
+ranks form a ``tensor`` x ``data`` mesh: ``tensor`` is params.json's,
+else the largest size up to the world that divides the kv heads (the JAX
+entry point's loop); a mesh with ``data`` above 1 exits (this slice
+serves one replica a gang), and so do speculation, adapters, a
+disaggregated role, int4 and w8a8 weights in a gang, each naming ROADMAP
+Queue 1. Every rank loads the checkpoint and keeps its tensor shard
+(models/llama.py's shard_model; an HF directory is staged a layer at a
+time, so no rank holds the whole model), and runs the engine over it with
+the scheduler replicated by a per-iteration broadcast. Only rank 0, the
+leader, binds HTTP; a follower runs no server, mirrors the leader until
+its stop broadcast and exits 0, or 1 if its engine failed. The leader exits
+1 when the gang fails under it (a follower's death fails its next
+collective), and a SIGTERM to the leader drains, broadcasts stop and ends
+every rank with 0. ``tensor`` without a gang exits (one process serves
+one card).
+
 ``batchGenerate`` is a known key, as in the JAX entry point: the batch
 run itself is ``python -m substratus_tpu_torch.serve.batchgen``.
 
@@ -135,24 +155,25 @@ import contextlib
 import hashlib
 import json
 import os
+from types import SimpleNamespace
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from substratus_tpu_torch.observability.propagation import context_from_env
 from substratus_tpu_torch.observability.tracing import tracer
+from substratus_tpu_torch.parallel import distributed
 
 # params.json keys the port does not serve yet: the value it does serve
 # (a key holding it passes), and where the rest waits.
 _NOT_SERVED = {
-    "tensor": (None, "Queue 1, multi-GPU serving"),
     "sequence": (None, "Queue 1, multi-GPU serving"),
     "replicas": (None, "Queue 1, multi-GPU serving"),
 }
 _SERVED = ("model", "config", "max_batch", "max_seq_len", "max_prefill_len", "kv_cache_dtype", "max_queue",
            "overlap", "kv_layout", "decode_attn_impl", "chunk_attn_impl", "attn_impl", "quantize", "q4_impl",
            "spec_k", "draft_model", "drain_grace", "batchGenerate", "adapters", "baseModel", "role", "disaggregated",
-           "transfer_port", "decode_peers")
+           "transfer_port", "decode_peers", "tensor")
 _ROLES = ("both", "prefill", "decode")
 _KV_LAYOUTS = ("auto", "paged", "dense")
 _QUANTIZE = ("none", "int8", "int4", "w8a8")
@@ -166,6 +187,7 @@ _CHUNK_IMPLS = {"xla": "flash", "flash": "flash"}
 ATTN_IMPLS = {"xla": "flash", "flash": "flash", "plain": "plain"}
 _MULTI_GPU = "Queue 1, multi-GPU (ring and Ulysses attention)"
 _GANGS = "Queue 1, multi-GPU (gangs: one model over several processes)"
+_GANG_NEXT = "Queue 1, multi-GPU (the next gang slice)"
 # The container contract's model and adapter mounts.
 CONTENT_MODEL = "/content/model"
 CONTENT_ADAPTERS = "/content/adapters"
@@ -268,13 +290,65 @@ def resolve_drain_grace(params: Dict[str, Any]) -> Optional[float]:
 def check_single_process(what: str) -> None:
     """Exit when the operator's environment names a multi-process gang, as
     the JAX package's parallel/distributed.py reads it: JAX_NUM_PROCESSES
-    above 1 with JAX_COORDINATOR_ADDRESS set. The port has no gangs: every
-    process would load the whole model and serve or train alone, every
-    follower answering requests the reference leaves to its leader."""
+    above 1 with JAX_COORDINATOR_ADDRESS set. For the entry points without
+    a gang yet (train.main): every process would train alone."""
     n = int(os.environ.get("JAX_NUM_PROCESSES", "1") or 1)
     if n > 1 and os.environ.get("JAX_COORDINATOR_ADDRESS"):
         raise SystemExit(f"JAX_NUM_PROCESSES={n} with JAX_COORDINATOR_ADDRESS set: {what} across {n} processes is "
                          f"not served by the PyTorch port yet: ROADMAP {_GANGS}")
+
+
+def resolve_tensor(params: Dict[str, Any]) -> Optional[int]:
+    """params.json ``tensor`` (None when absent); exits on a value that is
+    not a positive count, and on one above 1 outside a gang: one process
+    serves one card."""
+    tensor = params.get("tensor")
+    if tensor is None:
+        return None
+    if isinstance(tensor, bool) or not isinstance(tensor, int) or tensor < 1:
+        raise SystemExit(f"params.json: tensor={tensor!r} invalid (a count of ranks)")
+    coord, world, _ = distributed.world_info()
+    if tensor > 1 and (world <= 1 or coord is None):
+        raise SystemExit(f"params.json: tensor={tensor} needs a gang of processes (JAX_NUM_PROCESSES, "
+                         "JAX_COORDINATOR_ADDRESS, TPU_WORKER_ID); one process serves one card, and several cards "
+                         f"in one process are not served by the PyTorch port yet: ROADMAP {_GANG_NEXT}")
+    return tensor
+
+
+def gang_mesh(world: int, params: Dict[str, Any], cfg):
+    """The gang's mesh: tensor from params.json, else the largest size up
+    to the world that divides the kv heads, lowered until it divides both
+    (the JAX entry point's loop); data the rest. Exits on a tensor above
+    the world and on data above 1."""
+    from substratus_tpu_torch.parallel.mesh import build_mesh
+
+    tensor = resolve_tensor(params)
+    if tensor is not None and tensor > world:
+        raise SystemExit(f"params.json: tensor={tensor} is larger than the gang ({world} processes)")
+    tp = tensor or min(world, cfg.n_kv_heads)
+    while world % tp or cfg.n_kv_heads % tp:
+        tp -= 1
+    if world // tp > 1:
+        raise SystemExit(f"a gang of {world} with tensor={tp} (kv heads {cfg.n_kv_heads}) would serve data="
+                         f"{world // tp} replicas; data > 1 in a gang is not served by the PyTorch port yet: "
+                         f"ROADMAP {_GANG_NEXT}")
+    return build_mesh(data=world // tp, tensor=tp)
+
+
+def check_gang_params(params: Dict[str, Any], args) -> None:
+    """Exit on what a gang does not serve yet, before the rendezvous:
+    speculation, adapters, a disaggregated role, int4 and w8a8 weights."""
+    refused = []
+    if resolve_spec(args.spec_k, args.draft_model, params)[0]:
+        refused.append("speculative decoding")
+    if args.adapters_dir or params.get("adapters") or os.path.isdir(CONTENT_ADAPTERS):
+        refused.append("multi-tenant adapters")
+    if resolve_role(args.role, params) != "both":
+        refused.append("a disaggregated role")
+    if resolve_quantize(params) in ("int4", "w8a8"):
+        refused.append(f"quantize={resolve_quantize(params)}")
+    if refused:
+        raise SystemExit(f"{', '.join(refused)} in a gang: not served by the PyTorch port yet: ROADMAP {_GANG_NEXT}")
 
 
 def resolve_role(flag: Optional[str], params: Dict[str, Any]) -> str:
@@ -326,6 +400,7 @@ def check_params(params: Dict[str, Any]) -> None:
     resolve_decode_peers(None, params)
     if "transfer_port" in params:
         resolve_transfer_port(params["transfer_port"], {})
+    resolve_tensor(params)
     for key, value in params.items():
         if key in _NOT_SERVED:
             served, where = _NOT_SERVED[key]
@@ -337,7 +412,8 @@ def check_params(params: Dict[str, Any]) -> None:
             raise SystemExit(f"params.json: unknown key {key!r}")
 
 
-def load_checkpoint(path: str, device=None, dtype=torch.bfloat16, quantize: str = "none") -> Tuple[Any, Any]:
+def load_checkpoint(path: str, device=None, dtype=torch.bfloat16, quantize: str = "none",
+                    mesh_for=None) -> Tuple[Any, Any]:
     """(cfg, model on `device`) of a checkpoint path, by the JAX entry
     point's rule: a .gguf file (or a directory holding one), then the
     port's own artifact, then a local HF directory. A JAX Orbax artifact
@@ -346,7 +422,9 @@ def load_checkpoint(path: str, device=None, dtype=torch.bfloat16, quantize: str 
     quantize, an HF llama checkpoint is quantized as it loads, layer by
     layer (a Mixtral's dense bf16 would not fit the card); the caller
     quantizes the others after loading (quantize_weights), which gives the
-    same bytes."""
+    same bytes. With `mesh_for` (cfg -> a gang's mesh) an HF llama
+    checkpoint loads as this rank's tensor shard, a layer at a time
+    (load/hf.py); the caller shards the others (load_model)."""
     from substratus_tpu_torch.load.gguf import load_gguf, resolve_gguf_or_exit
     from substratus_tpu_torch.load.hf import load_pretrained
     from substratus_tpu_torch.train.checkpoints import FORMAT, META_FILE, load_artifact
@@ -363,7 +441,7 @@ def load_checkpoint(path: str, device=None, dtype=torch.bfloat16, quantize: str 
                              f"'substratus-tpu-v1', their weights need JAX and Orbax to read); the PyTorch port "
                              f"serves its own artifacts ({FORMAT!r}), GGUF files and local HF directories")
         return load_artifact(path, device=device)
-    return load_pretrained(path, dtype=dtype, device=device, quantize=quantize)
+    return load_pretrained(path, dtype=dtype, device=device, quantize=quantize, mesh_for=mesh_for)
 
 
 def build_adapter_store(family, cfg, params_json: Dict[str, Any], adapters_dir_flag: Optional[str], device):
@@ -486,7 +564,7 @@ def _skip_llama_knobs(cfg, params_json: Dict[str, Any], quantize: str) -> None:
 
 
 def load_model(model_flag: Optional[str], config_flag: Optional[str], params_json: Dict[str, Any], device,
-               quantize: str):
+               quantize: str, mesh_for=None):
     """The served model, as both serving entry points (this one and
     serve/batchgen.py) load it: (cfg, params, tokenizer, name, family,
     quantize). A checkpoint (resolve_model_path) or a named config with
@@ -494,17 +572,21 @@ def load_model(model_flag: Optional[str], config_flag: Optional[str], params_jso
     params.json and is quantized on its device, layer by layer (drawn or
     loaded so: the dense model never stands whole, as mixtral-8x7b's could
     not); another family says which knobs it skips (quantize becomes
-    "none")."""
+    "none"). With `mesh_for` (cfg -> a gang's mesh), a gang rank's: the
+    whole model quantized, then this rank's tensor shard of it (an HF
+    directory loads as the shard a layer at a time), and the returned cfg
+    the shard's."""
     from substratus_tpu_torch.models import registry
     from substratus_tpu_torch.serve.tokenizer import load_tokenizer
 
     model_path = resolve_model_path(model_flag, params_json)
     stored = weight_mode(quantize)
     if model_path:
-        cfg, params = load_checkpoint(model_path, device, quantize=stored)
+        cfg, params = load_checkpoint(model_path, device, quantize=stored, mesh_for=mesh_for)
         name = os.path.basename(os.path.normpath(model_path))
         tokenizer = load_tokenizer(model_path)
-        check_vocab(tokenizer, cfg)
+        tp = getattr(params, "tp", None)  # a shard's config holds its vocab rows; the tokenizer spans the model's
+        check_vocab(tokenizer, cfg if tp is None else cfg.replace(vocab_size=tp.vocab_size))
     else:
         name = config_flag or params_json.get("config", "tiny")
         cfg = registry.find_named_config(name)[1]
@@ -518,9 +600,18 @@ def load_model(model_flag: Optional[str], config_flag: Optional[str], params_jso
     # The attention switches and quantized weights are llama's alone.
     if getattr(family, "SUPPORTS_QUANTIZE", False):
         decode_impl, chunk_impl, prefill_impl = resolve_attn_impls(params_json)
-        cfg = cfg.replace(decode_attn_impl=decode_impl, chunk_attn_impl=chunk_impl, attn_impl=prefill_impl,
-                          quant_activations=quantize == "w8a8")
+        knobs = dict(decode_attn_impl=decode_impl, chunk_attn_impl=chunk_impl, attn_impl=prefill_impl,
+                     quant_activations=quantize == "w8a8")
+        cfg = cfg.replace(**knobs)
         params = family.quantize_weights(params, stored)
+        if mesh_for is not None:
+            params = family.shard_model(params, mesh_for(cfg))
+            cfg = params.cfg.replace(**knobs)
+    elif mesh_for is not None:
+        from substratus_tpu_torch.parallel.sharding import NEXT_GANG_SLICE
+
+        raise SystemExit(f"{family.__name__.rsplit('.', 1)[-1]} in a gang is not served by the PyTorch port yet: "
+                         f"{NEXT_GANG_SLICE}")
     else:
         _skip_llama_knobs(cfg, params_json, quantize)
         quantize = "none"
@@ -547,15 +638,31 @@ def build(argv=None):
         atexit.register(tracer.export_jsonl, trace_export)
     params_json = load_params_json(args.params)
     check_params(params_json)
-    check_single_process("serving")
     role = resolve_role(args.role, params_json)
     peers = resolve_decode_peers(args.decode_peers, params_json) if role == "prefill" else []
     if role == "prefill" and not peers:
         raise SystemExit("role=prefill needs --decode-peers")
-    device = resolve_device(args.device)
+    gang, mesh_for, meshes = None, None, []
+    coord, world, _ = distributed.world_info()
+    if world > 1 and coord:
+        # Refuse what a gang does not serve before the rendezvous, then join.
+        check_gang_params(params_json, args)
+        distributed.maybe_initialize(device_type="cpu" if args.device == "cpu" else "cuda")
+        gang = distributed.current()
+        device = gang.device
+
+        def mesh_for(model_cfg):
+            """The gang's mesh, built once (its process groups are made
+            collectively), from the whole model's config."""
+            if not meshes:
+                meshes.append(gang_mesh(gang.world, params_json, model_cfg))
+            return meshes[0]
+    else:
+        device = resolve_device(args.device)
 
     cfg, params, tokenizer, name, family, quantize = load_model(
-        args.model, args.config, params_json, device, resolve_quantize(params_json))
+        args.model, args.config, params_json, device, resolve_quantize(params_json), mesh_for=mesh_for)
+    mesh = meshes[0] if meshes else None
     llama_knobs = getattr(family, "SUPPORTS_QUANTIZE", False)
     decode_impl = getattr(cfg, "decode_attn_impl", "kernel")
     prefill_impl = getattr(cfg, "attn_impl", "flash")
@@ -608,13 +715,29 @@ def build(argv=None):
 
         handoff = HandoffManager(peers, PoolSpec.from_engine_config(cfg, ec))
         print(f"prefill role: decode peers {peers}", flush=True)
+    sync = None
+    if gang is not None:
+        from substratus_tpu_torch.serve.multihost import StepSync
+
+        sync = StepSync()
     try:
         engine = Engine(cfg, params, ec, device=device, model=family, draft=draft, adapters=adapters,
-                        handoff=handoff)
+                        handoff=handoff, mesh=mesh, sync=sync)
     except ValueError:  # a role off the paged pool, a layout the family lacks
         if handoff is not None:
             handoff.close()
         raise
+    gang_line = ""
+    if gang is not None:
+        gang_line = (f"; gang: rank {gang.rank}/{gang.world} ({'leader' if gang.leader else 'follower'}), mesh "
+                     f"{mesh.describe()}, data backend {gang.backend} (event broadcast: gloo), device {device}, "
+                     f"collective timeout {gang.timeout_s} s")
+    if gang is not None and not gang.leader:
+        # A follower binds no HTTP: it mirrors the leader's scheduler.
+        engine.start()
+        print(f"gang follower of {name} ({device}); scheduler: synchronous (lockstep), decode step eager, graph: "
+              f"off (gang){gang_line}", flush=True)
+        return Follower(engine)
 
     def checkpoint_loader(ref: str):
         """POST /swapz's checkpoint ref -> weights ready to install: boot's
@@ -674,19 +797,43 @@ def build(argv=None):
     spec = "off"
     if spec_k:
         spec = f"draft={draft_path} k={spec_k}" if draft is not None else f"prompt-lookup k={spec_k}"
+    graph = ('a CUDA graph a width' if engine.spec else 'one CUDA graph') if engine.decode_graph else 'eager'
+    if gang is not None:
+        graph += ", graph: off (gang)"
     print(f"serving {name} on {args.host}:{server.port} ({device}); {weights[shown]}; {cache}; scheduler: "
-          f"{'overlapped' if engine.overlap else 'synchronous'}, decode step "
-          f"{('a CUDA graph a width' if engine.spec else 'one CUDA graph') if engine.decode_graph else 'eager'}; "
+          f"{'overlapped' if engine.overlap else 'synchronous'}, decode step {graph}; "
           f"speculative decoding: {spec}; role: {role}; weights digest {weights_digest(params)}; adapters: "
           + ("none" if adapters is None else f"{adapters.loaded_ids()} resident of {adapters.available_ids()} "
-             f"(capacity {adapters.capacity}, rank {adapters.rank})"), flush=True)
+             f"(capacity {adapters.capacity}, rank {adapters.rank})") + gang_line, flush=True)
     return server
+
+
+class Follower:
+    """A gang follower's stand-in for the Server: no HTTP; serve_forever
+    waits for the engine, which ends on the leader's stop broadcast or on
+    a failed collective."""
+
+    def __init__(self, engine):
+        self.state = SimpleNamespace(engine=engine)
+
+    def serve_forever(self) -> bool:
+        self.state.engine._thread.join()
+        return self.state.engine.error is None
 
 
 def main(argv=None) -> int:
     """Serve until SIGTERM or SIGINT, then drain (serve/server.py) and
-    exit 0."""
-    build(argv).serve_forever()
+    exit 0. A gang's rank exits 1 when its engine failed (a follower's
+    death fails the leader's next collective); a follower exits 0 on the
+    leader's stop."""
+    server = build(argv)
+    server.serve_forever()
+    engine = server.state.engine
+    if distributed.current() is not None:
+        if engine.error is not None:
+            print(f"gang rank {distributed.current().rank} engine died: {engine.error!r}", flush=True)
+            return 1
+        distributed.shutdown()
     return 0
 
 

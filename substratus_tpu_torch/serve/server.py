@@ -1058,7 +1058,8 @@ class Server:
         try:
             self.start()
             while not stop.wait(0.5):
-                pass
+                if getattr(self.state.engine, "sync", None) is not None and self.state.engine.error is not None:
+                    break  # a gang's leader: the gang failed under it (a collective), nothing to serve
             clean = drain(self.state, grace_s=grace)
             print(f"drained {'cleanly' if clean else 'at the deadline'} ({self.state.handlers} handlers still "
                   "running)", flush=True)

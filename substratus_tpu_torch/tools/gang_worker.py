@@ -1,0 +1,242 @@
+"""One rank of a serving gang, for the tests and the card (the port's
+counterpart of the JAX package's tools/multihost_serve_worker.py).
+
+Run one process per rank under the operator's gang environment:
+
+    JAX_COORDINATOR_ADDRESS=127.0.0.1:9911 JAX_NUM_PROCESSES=2 TPU_WORKER_ID=0 \\
+        python -m substratus_tpu_torch.tools.gang_worker --requests reqs.json --out rank0.json [--device cpu]
+
+Each rank joins the gang (parallel/distributed.py), loads its tensor shard
+of the model (serve.main's load path: ``--model`` a checkpoint, else
+``--config`` drawn from seed 0; or ``--weights``, a whole-model state dict
+file, with ``--config``/``--shape``/``--vocab``/``--dtype``), builds the engine with
+the gang's StepSync, and the leader generates the request list
+(``--requests``: ``{"concurrent": bool, "requests": [{"prompt": [ids],
+"max_tokens": n, "temperature": t, "cancel_after": k}, ...]}``; sequential
+unless concurrent, a request with ``cancel_after`` cancelled after k
+tokens). A follower records what its mirror requests would deliver, so
+each rank writes its own tokens: the port's follower has no HTTP. With
+``--logits`` (a JSON token batch) every rank first runs one forward over
+it and the leader writes the full-vocab logits beside the result
+(``{out}.logits.npy``). The leader then stops the gang, or with ``--hold``
+keeps it idling until its engine fails (the test of a killed follower;
+``{out}.hold`` marks the moment) and exits 1.
+
+With ``--probe-allreduce`` every rank first times the tensor group's
+all-reduce in the model's dtype on its device at the decode step's and a
+prefill chunk's activation shapes ([8, 1, dim] and [1, 512, dim]; the
+median of 50).
+
+The result (``--out``): rank, world, leader, the startup line (backend,
+mesh, device, collective timeout), tokens and finish reasons a request
+(the leader's with its time to first token), the broadcast timings
+``[(bytes, seconds)]``, the engine's stats and error, the kernel launches
+(serve/server.py's counters) and on the card the peak memory.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from typing import List
+
+import numpy as np
+import torch
+
+
+class RecordingSink:
+    """A follower's mirror request's tokens, recorded (serve/multihost.py's
+    NullSink drops them)."""
+
+    made: List["RecordingSink"] = []
+
+    def __init__(self) -> None:
+        self.tokens: List[int] = []
+        self.done = False
+        RecordingSink.made.append(self)
+
+    def put(self, item) -> None:
+        if item is None:
+            self.done = True
+        else:
+            self.tokens.append(int(item))
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(prog="python -m substratus_tpu_torch.tools.gang_worker")
+    ap.add_argument("--out", required=True, help="this rank's result (JSON)")
+    ap.add_argument("--requests", required=True, help="the leader's request list (JSON)")
+    ap.add_argument("--device", default=None, help="cuda (default: cuda:(rank % cards)) or cpu")
+    ap.add_argument("--model", default=None, help="a checkpoint, loaded as serve.main loads it")
+    ap.add_argument("--config", default="tiny", help="a named llama config")
+    ap.add_argument("--weights", default=None, help="a whole-model state dict (torch.save) for --config")
+    ap.add_argument("--shape", default=None, help="--config's integer overrides with --weights, e.g. n_kv_heads=4")
+    ap.add_argument("--vocab", type=int, default=None, help="--config's vocab size (with --weights)")
+    ap.add_argument("--dtype", default="bfloat16", help="--config's dtype (with --weights)")
+    ap.add_argument("--params", default="{}", help="params.json's keys as a JSON object (kv_layout, max_batch, "
+                                                   "max_seq_len, max_prefill_len, kv_cache_dtype, quantize, tensor)")
+    ap.add_argument("--eos", type=int, default=None, help="the engine's eos id (default: the tokenizer's)")
+    ap.add_argument("--logits", default=None, help="a JSON token batch [[ids], ...] run through one forward")
+    ap.add_argument("--hold", action="store_true", help="after the requests, idle until the engine fails")
+    ap.add_argument("--probe-allreduce", action="store_true", help="time the tensor group's all-reduce first")
+    ap.add_argument("--timeout", type=int, default=300, help="collective timeout, seconds")
+    return ap.parse_args(argv)
+
+
+def load(args, params_json, gang):
+    """(cfg, this rank's shard, mesh, eos): --weights into --config, else
+    serve.main's load_model with the gang's mesh."""
+    from substratus_tpu_torch.models import llama
+    from substratus_tpu_torch.serve import main as serve_main
+    from substratus_tpu_torch.tools.ckpt_writer import shape_overrides
+
+    if args.weights:
+        cfg = shape_overrides(llama.CONFIGS[args.config], args.shape).replace(dtype=getattr(torch, args.dtype))
+        if args.vocab:
+            cfg = cfg.replace(vocab_size=args.vocab)
+        whole = llama.Llama(cfg, device=gang.device)
+        whole.load_state_dict(torch.load(args.weights, map_location=gang.device, weights_only=True))
+        mesh = serve_main.gang_mesh(gang.world, params_json, cfg)
+        params = llama.shard_model(whole, mesh)
+        del whole
+        return params.cfg, params, mesh, args.eos if args.eos is not None else 2
+    meshes = []
+
+    def mesh_for(model_cfg):
+        if not meshes:
+            meshes.append(serve_main.gang_mesh(gang.world, params_json, model_cfg))
+        return meshes[0]
+
+    cfg, params, tokenizer, _, _, _ = serve_main.load_model(
+        args.model, args.config, params_json, gang.device, serve_main.resolve_quantize(params_json), mesh_for)
+    return cfg, params, meshes[0], args.eos if args.eos is not None else tokenizer.eos_id
+
+
+def leader_run(engine, plan) -> List[dict]:
+    """Generate the plan's requests (sequentially unless concurrent);
+    every request's tokens, finish reason and time to first token."""
+    from substratus_tpu_torch.serve.engine import Request
+
+    def submit(i, spec):
+        return engine.submit(Request(list(spec["prompt"]), max_tokens=int(spec.get("max_tokens", 16)),
+                                     temperature=float(spec.get("temperature", 0.0)), id=f"req-{i}"))
+
+    def read(req, spec):
+        got, ttft = [], None
+        while (tok := req.out.get(timeout=600)) is not None:
+            if ttft is None:
+                ttft = time.perf_counter() - req.submit_ts
+            got.append(tok)
+            if spec.get("cancel_after") and len(got) >= spec["cancel_after"]:
+                req.cancelled = True
+        return {"tokens": got, "finish_reason": req.finish_reason, "ttft_s": ttft,
+                "seconds": time.perf_counter() - req.submit_ts}
+
+    specs = plan["requests"]
+    if plan.get("concurrent"):
+        reqs = [submit(i, spec) for i, spec in enumerate(specs)]
+        return [read(req, spec) for req, spec in zip(reqs, specs)]
+    return [read(submit(i, spec), spec) for i, spec in enumerate(specs)]
+
+
+def probe_allreduce(mesh, cfg, device, reps: int = 50) -> dict:
+    """Median seconds of the tensor group's all-reduce at [8, 1, dim] and
+    [1, 512, dim] in the model's dtype (every rank calls it)."""
+    import statistics
+
+    import torch.distributed as dist
+
+    out = {}
+    for shape in ((8, 1, cfg.dim), (1, 512, cfg.dim)):
+        x = torch.zeros(shape, dtype=cfg.dtype, device=device)
+        times = []
+        for i in range(reps + 5):
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            dist.all_reduce(x, group=mesh.group("tensor"))
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            if i >= 5:
+                times.append(time.perf_counter() - t0)
+        out["x".join(map(str, shape))] = statistics.median(times)
+    return out
+
+
+def main(argv=None) -> int:
+    from substratus_tpu_torch.parallel import distributed
+    from substratus_tpu_torch.serve.engine import Engine, EngineConfig
+    from substratus_tpu_torch.serve.multihost import StepSync
+    from substratus_tpu_torch.serve.server import kernel_launches
+
+    args = parse_args(argv)
+    params_json = json.loads(args.params)
+    if not distributed.maybe_initialize(args.timeout, "cpu" if args.device == "cpu" else "cuda"):
+        raise SystemExit("gang_worker needs the gang environment: JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES > 1, "
+                         "TPU_WORKER_ID")
+    gang = distributed.current()
+    cfg, params, mesh, eos = load(args, params_json, gang)
+    with open(args.requests) as f:
+        plan = json.load(f)
+    ec = EngineConfig(max_batch=int(params_json.get("max_batch", 4)),
+                      max_seq_len=int(params_json.get("max_seq_len", 64)),
+                      max_prefill_len=int(params_json.get("max_prefill_len", EngineConfig.max_prefill_len)),
+                      kv_cache_dtype=params_json.get("kv_cache_dtype", "model"),
+                      kv_layout=params_json.get("kv_layout", "auto"), eos_token_id=eos)
+    sync = StepSync()
+    engine = Engine(cfg, params, ec, device=gang.device, mesh=mesh, sync=sync)
+    engine.follower_sink = RecordingSink
+    line = (f"gang worker rank {gang.rank}/{gang.world} ({'leader' if gang.leader else 'follower'}); mesh "
+            f"{mesh.describe()}; data backend {gang.backend} (event broadcast: gloo); device {gang.device}; "
+            f"kv_layout {'paged' if engine.paged else 'dense'}; decode step "
+            f"{'one CUDA graph' if engine.decode_graph else 'eager'}; heads {cfg.n_heads} kv heads "
+            f"{cfg.n_kv_heads} per rank; collective timeout {gang.timeout_s} s")
+    print(line, flush=True)
+    if gang.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(gang.device)
+    if args.logits:
+        with open(args.logits) as f:
+            batch = torch.tensor(json.load(f), dtype=torch.long, device=gang.device)
+        with torch.inference_mode():
+            logits, _ = engine.model.forward(params, batch, cfg)
+        if gang.leader:
+            np.save(args.out + ".logits.npy", logits.float().cpu().numpy())
+    result = {"rank": gang.rank, "world": gang.world, "leader": gang.leader, "startup": line,
+              "backend": gang.backend, "mesh": mesh.shape, "device": str(gang.device), "n_layers": cfg.n_layers}
+    if args.probe_allreduce:
+        result["allreduce_s"] = probe_allreduce(mesh, cfg, gang.device)
+    engine.start()
+    exit_code = 0
+    if gang.leader:
+        t0 = time.perf_counter()
+        result["requests"] = leader_run(engine, plan)
+        result["seconds"] = time.perf_counter() - t0
+        if args.hold:
+            open(args.out + ".hold", "w").close()
+            engine._thread.join(timeout=args.timeout + 60)
+            exit_code = 1
+        else:
+            engine.stop()
+    else:
+        engine._thread.join()
+        result["requests"] = [{"tokens": s.tokens, "done": s.done} for s in RecordingSink.made]
+    result["stopped"] = not engine._thread.is_alive()
+    result["error"] = repr(engine.error) if engine.error else None
+    result["stats"] = dict(engine.stats)
+    result["timings"] = list(sync.timings)
+    result["launches"] = kernel_launches(engine)
+    if gang.device.type == "cuda":
+        result["peak_memory_bytes"] = torch.cuda.max_memory_allocated(gang.device)
+    with open(args.out, "w") as f:
+        json.dump(result, f)
+    if engine.error is not None:
+        print(f"rank {gang.rank} engine died: {engine.error!r}", file=sys.stderr, flush=True)
+        return 1
+    if exit_code == 0:
+        distributed.shutdown()
+    return exit_code
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -327,12 +327,14 @@ def test_entry_point_refusals(tmp_path):
 
 @pytest.mark.parametrize("entry", ["serve", "train"])
 def test_a_multi_process_environment_exits(tmp_path, monkeypatch, entry):
-    """The repair: JAX_NUM_PROCESSES=2 with JAX_COORDINATOR_ADDRESS set (the
-    operator's gang) makes serve.main and train.main exit, citing ROADMAP
-    Queue 1's multi-GPU item, before a model is built; either
-    variable alone names no gang."""
+    """JAX_NUM_PROCESSES=2 with JAX_COORDINATOR_ADDRESS set (the operator's
+    gang) makes train.main and batch generation exit, citing ROADMAP
+    Queue 1's multi-GPU item, before a model is built. serve.main joins
+    such a gang (tests/test_torch_gang.py), and exits, citing the same
+    item, on what a gang does not serve yet (here speculation) before its
+    rendezvous. Either variable alone names no gang."""
     params = tmp_path / "p.json"
-    params.write_text(json.dumps({"config": "tiny"} if entry == "serve" else
+    params.write_text(json.dumps({"config": "tiny", "spec_k": 2} if entry == "serve" else
                                  {"config": "tiny", "steps": 1, "batch_size": 1, "seq_len": 16}))
     data = tmp_path / "d.jsonl"
     data.write_text('{"text": "a tiny document"}\n')
@@ -342,9 +344,16 @@ def test_a_multi_process_environment_exits(tmp_path, monkeypatch, entry):
     run = {"serve": main.build, "train": train_main.run}[entry]
     for var, value in GANG.items():
         monkeypatch.setenv(var, value)
-    with pytest.raises(SystemExit, match=r"JAX_NUM_PROCESSES=2 with JAX_COORDINATOR_ADDRESS set: .* ROADMAP Queue "
-                                         r"1, multi-GPU"):
+    match = {"serve": r"speculative decoding in a gang: .* ROADMAP Queue 1, multi-GPU",
+             "train": r"JAX_NUM_PROCESSES=2 with JAX_COORDINATOR_ADDRESS set: .* ROADMAP Queue 1, multi-GPU"}[entry]
+    with pytest.raises(SystemExit, match=match):
         run(argv)
+    if entry == "serve":
+        man = tmp_path / "m.jsonl"
+        man.write_text('{"prompt": "x"}\n')
+        with pytest.raises(SystemExit, match=r"batch generation across processes .* ROADMAP Queue 1, multi-GPU"):
+            batchgen.main(["--config", "tiny", "--params", "", "--manifest", str(man), "--output",
+                           str(tmp_path / "o"), "--device", "cpu"])
     monkeypatch.delenv("JAX_COORDINATOR_ADDRESS")
     main.check_single_process(entry)
     monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", GANG["JAX_COORDINATOR_ADDRESS"])

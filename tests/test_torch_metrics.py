@@ -128,16 +128,26 @@ def _families(text: str) -> dict:
     return {line.split(" ")[2]: line.split(" ")[3] for line in text.splitlines() if line.startswith("# TYPE ")}
 
 
+def _samples(text: str, name: str) -> list:
+    """The sample lines of family `name` (a histogram's _bucket, _sum and _count too)."""
+    own = (name, f"{name}_bucket", f"{name}_sum", f"{name}_count")
+    return [line for line in text.splitlines() if line.split("{")[0].split(" ")[0] in own]
+
+
 @pytest.fixture(scope="module")
 def scraped():
     """Both servers (paged, spec_k 3, SLO thresholds 0) serve the same
     greedy requests one after another (a shared 60-character prefix, so
     prefix hits; repetitive text, so lookup proposals), then both
-    /metrics. Returns ({package: exposition}, {package: {name: delta}})."""
+    /metrics. Returns ({package: exposition}, {package: {name: delta}},
+    {package: its registry's exposition before the traffic}): the
+    registries are the process's, so other tests run in this process may
+    have left series in one package's alone."""
     j_params, t_params = weights(0)
     pair = serve_pair(j_params, t_params, spec_k=3, slo_ttft_s=0.0, slo_inter_token_s=0.0)
     registries = {"jax": jmetrics.METRICS, "port": metrics.METRICS}
     before = {k: {n: r.get(n) or 0 for n in DELTAS} for k, r in registries.items()}
+    rendered = {k: r.render() for k, r in registries.items()}
     try:
         calls = [("POST", "/v1/completions", {"prompt": SYSTEM + text, "max_tokens": 24, "temperature": 0}, None)
                  for text in ("read the page", "write the token, read the page, write the token", "the page",
@@ -155,16 +165,19 @@ def scraped():
         close_pair(pair)
     after = {k: {n: r.get(n) or 0 for n in DELTAS} for k, r in registries.items()}
     deltas = {k: {n: after[k][n] - before[k][n] for n in DELTAS} for k in registries}
-    return {"jax": j[2], "port": t[2]}, deltas
+    return {"jax": j[2], "port": t[2]}, deltas, rendered
 
 
 def test_metrics_families_and_types_match_jax(scraped):
-    text, _ = scraped
+    text, _, before = scraped
     assert metrics.lint_exposition(text["port"]) == []
     jax_f, port_f = _families(text["jax"]), _families(text["port"])
     serving = {n: k for n, k in jax_f.items() if n.startswith(("substratus_serve_", "substratus_slo_",
                                                                  "substratus_http_"))}
-    missing = sorted(n for n in serving if n not in port_f and n not in NOT_PORTED)
+    # A JAX family whose samples this traffic left as they were is another
+    # test's (a JAX disaggregation test's transfers, say), not this traffic's.
+    untouched = {n for n in serving if _samples(before["jax"], n) == _samples(text["jax"], n)}
+    missing = sorted(n for n in serving if n not in port_f and n not in NOT_PORTED and n not in untouched)
     assert not missing
     assert {n: port_f[n] for n in serving if n in port_f} == {n: k for n, k in serving.items() if n in port_f}
     for name in ("substratus_serve_ttft_seconds", "substratus_serve_phase_seconds",
@@ -177,7 +190,7 @@ def test_metrics_families_and_types_match_jax(scraped):
 
 
 def test_metrics_deltas_match_jax(scraped):
-    _, deltas = scraped
+    _, deltas, _ = scraped
     assert deltas["port"] == deltas["jax"]
     d = deltas["port"]
     assert d["substratus_serve_ttft_seconds"] == 5
