@@ -22,7 +22,10 @@ Phases, each of which exits non-zero on failure:
   card        the card's name and power limit (nvidia-smi) and torch's name;
   build       nvcc builds csrc/*.cu for sm_90a (one process per source);
   kernels     each kernel against its plain PyTorch version on the card, in
-              bf16 (and int8 caches), at the serving path's shapes: max-abs
+              bf16 (and int8 caches), at the serving path's shapes (and
+              the int4 matmul at llama2-70b's per-rank shapes at tensor 2
+              and 8, at 16 and 512 rows; w8a8_quantize's row-parallel
+              modes bit for bit): max-abs
               error beside its tolerance, the kernel's time, the plain
               version's, one PyTorch library call's (timed as a yardstick
               only; the port never calls it) and the least time the card
@@ -142,7 +145,7 @@ Phases, each of which exits non-zero on failure:
               delivered; (c) serve-int4's weights on int8 pages
               (kv_layout paged, no fused decode): the int4 matmul's
               launches by design, the references;
-  serve-spec  speculative decoding at llama2-7b's width, 8 of its 32 layers
+  serve-spec  speculative decoding at llama2-7b's width, 4 of its 32 layers
               (cut to keep the default run well inside its limit), in three legs ((a)
               the throughput example through serve.main: int4, int8
               pages, B=24, prompt lookup k=3; (b) the dense cache with the
@@ -222,7 +225,7 @@ Phases, each of which exits non-zero on failure:
               mean round from the phase histogram, and the child's int4
               launches by design (substratus_serve_kernel_launches, counted
               from the end of the warm-up request);
-  train       train.main at llama2-7b's full width, 8 of its 32 layers (cut
+  train       train.main at llama2-7b's full width, 4 of its 32 layers (cut
               to keep the default run well inside its limit; random weights
               from seed 0, bf16) with the finetune example's params: LoRA
               rank 16 on wq/wv, batch 8 x 1024, learning rate 2e-4, remat,
@@ -301,7 +304,7 @@ Phases, each of which exits non-zero on failure:
               for the split design at 1024 rows;
   serve-batchgen
               examples/batch-generation/batchgen-server.yaml at llama2-7b
-              width, 8 of its 32 layers (seed 0, written as an HF
+              width, 4 of its 32 layers (seed 0, written as an HF
               directory): a 64-record
               manifest (48 text prompts of 16-1000 byte-tokens, 14 of
               token ids, one with no prompt, one naming an adapter). (a)
@@ -365,19 +368,20 @@ Phases, each of which exits non-zero on failure:
               split design's 4-warp instance, dQ and dK/dV;
   serve-moe   mixtral-8x7b at full width (D=4096, M=14336, 8 experts, top
               2, 32 heads on 8 kv heads; seed-0 weights) in four legs: (a)
-              int4 at full depth, drawn and quantized layer by layer on the
+              int4 at 8 of its 32 layers (MOE_LAYERS), drawn and quantized
+              layer by layer on the
               card by serve.main (the peak while drawing printed beside the
               weights), the default engine (the paged pool, overlapped, the
               step one CUDA graph), 8 concurrent greedy requests of 20-400
               tokens, 32 tokens each: every expert product one int4 launch
-              an expert, (4 + 3 x 8) x 32 + 1 = 897 launches a forward by
+              an expert, (4 + 3 x 8) x 8 + 1 = 225 launches a forward by
               design (wgmma above 16 rows, decode up to it), every served
               token by the teacher-forced reference, the eager synchronous
-              step token for token; (b) int8 at full depth on the dense
+              step token for token; (b) int8 at MOE_LAYERS on the dense
               cache (max_batch 6): a 1500-token prompt in 3 chunks through
               the cached flash and 5 short prompts through the flash
               forward, the decode kernel's split design at G = 4, each 32
-              launches a forward, the same checks, the peak while serving;
+              launches a layer, the same checks, the peak while serving;
               (c) 2 layers at full width written by tools/ckpt_writer.py
               as a Mixtral HF directory (6.33 GB of bf16) and served by
               serve.main --model with int4 quantized at load, layer by
@@ -393,8 +397,10 @@ Phases, each of which exits non-zero on failure:
               400-token prefill and a full batch's step of (a) and (b)
               under torch.profiler;
   serve-disagg disaggregated prefill/decode (serve/disagg.py) through
-              serve.main at llama2-7b's full width and depth, int4 weights
-              (seed 0) on the paged pool, max_batch 8, max_seq_len 2048:
+              serve.main at llama2-7b's full width, DISAGG_LAYERS (8) of
+              its 32 layers written as an HF directory, int4 weights
+              (seed 0, quantized at load) on the paged pool, max_batch 8,
+              max_seq_len 2048:
               five child processes on the one card, a monolith (int8
               pages), a prefill tier on int8 pages, one on bf16 pages and
               two decode tiers on int8 pages, every tier's weights digest
@@ -469,7 +475,28 @@ Phases, each of which exits non-zero on failure:
               each rank's peak memory; (c) paged with int8 weights, 4
               requests sharing a prefix, by the same rule, then a SIGKILLed
               follower makes the leader exit non-zero within its printed
-              collective timeout;
+              collective timeout; (d) the llama2-70b example's serving gang
+              as written (examples/llama2-70b/server.yaml's params: int4,
+              int8 cache, max_batch 32, the paged pool) with tensor 2 for
+              16: four serve.main ranks on the one card, data=2 x tensor=2,
+              llama2-70b at full width and GANG_70B_LAYERS layers written
+              as an HF directory (each rank quantizes and slices its
+              shard a layer at a time), 8 concurrent requests of 64-960
+              tokens, half sharing a 256-token prefix, 48 new each: every
+              served token within the near-tie rule of a single-process
+              teacher-forced int4 forward on the same bytes, a prefix hit
+              on each data replica, the int4 kernels' launches on the
+              leader, then a SIGKILL to a rank of the other data replica
+              makes the leader exit non-zero within its collective
+              timeout; then four gang_worker ranks on the same directory
+              and requests, in turns with a single process (single, gang,
+              single): the ranks' tokens equal, the decode step and TTFT,
+              the data exchange's and the int32 all-reduce's medians, each
+              rank's peak memory; (e) w8a8 in a gang: two gang_worker
+              ranks at llama2-7b's width (tensor=2, dense, 8 rows, one
+              sampled): both ranks' tokens equal, every greedy token by
+              the rule against a single-process w8a8 forward, the
+              row-parallel w_down's two w8a8_quantize modes counted;
   profile     (only when named) host-clock prefill and decode-step times
               (the overlapped graph replays) and, under torch.profiler,
               their device busy time and top kernels, after serve
@@ -1181,6 +1208,54 @@ def w8a8_quantize_case(gen, m, c):
             "library_ms": None, "bound_ms": b_ms, "bound_by": by}
 
 
+def w8a8_rows_case(gen, m, c):
+    """csrc/w8a8_quantize.cu's row-parallel modes on bf16 rows [m, c] (a
+    rank's slice of w_down's input; one row all zeros): mode 1's row amax
+    and mode 2's int8 values and scales from a given amax (1.75x the
+    slice's, as another rank's larger maximum gives it) bit for bit their
+    plain versions. Timed as the two launches of one row-parallel
+    quantization (the all-reduce between them apart); no single PyTorch
+    call computes it (library null)."""
+    import torch
+
+    from substratus_tpu_torch.ops.quant import w8a8_quantize, w8a8_quantize_scaled, w8a8_row_amax, w8a8_scaled_plain
+
+    x = (torch.randn((m, c), generator=gen, device="cuda") * 3).to(torch.bfloat16)
+    x[1 % m] = 0
+    before = (w8a8_quantize.launches_amax, w8a8_quantize.launches_scaled)
+    amax = w8a8_row_amax(x)
+    wider = amax * 1.75
+    xq, ascale = w8a8_quantize_scaled(x, wider)
+    ref_amax = x.float().abs().amax(dim=-1, keepdim=True)
+    ref_q, ref_s = w8a8_scaled_plain(x, wider)
+    torch.cuda.synchronize()
+    label = f"w8a8_quantize (row-parallel) m{m} c{c}"
+    if (w8a8_quantize.launches_amax, w8a8_quantize.launches_scaled) != (before[0] + 1, before[1] + 1):
+        fail(f"{label}: launches not counted")
+    if not (torch.equal(amax, ref_amax) and torch.equal(xq, ref_q) and torch.equal(ascale, ref_s)):
+        fail(f"{label}: {(amax != ref_amax).sum().item()} amax, {(xq != ref_q).sum().item()} int8 values and "
+             f"{(ascale != ref_s).sum().item()} scales differ from the plain version")
+    b_ms, by = bound_int8((2 * m * c + 4 * m) + (2 * m * c + 4 * m + m * c + 4 * m), 0)
+
+    def plain():
+        a = x.float().abs().amax(dim=-1, keepdim=True)
+        return w8a8_scaled_plain(x, a)
+
+    return {"case": f"M={m} C={c}", "max_abs_err": 0.0, "tol": 0, "bit_exact": True,
+            "ms": time_ms(lambda: w8a8_quantize_scaled(x, w8a8_row_amax(x)), hold=True),
+            "plain_ms": time_ms(plain, n=5, hold=True), "library_ms": None, "bound_ms": b_ms, "bound_by": by}
+
+
+# (C, N, wo) of llama2-70b's projections on a rank of tensor 2 (serve-gang
+# (d)'s) and of the example's tensor 8, w_gate first: wq, wk/wv, w_gate and
+# w_up, w_down (whole groups: 28672 / t rows), wo (t's heads of 128), the
+# lm_head (32000 / t).
+Q4_70B = [(8192, 14336, False), (8192, 4096, False), (8192, 512, False), (14336, 8192, False), (4096, 8192, True),
+          (8192, 16000, False),
+          (8192, 3584, False), (8192, 1024, False), (8192, 128, False), (3584, 8192, False), (1024, 8192, True),
+          (8192, 4000, False)]
+
+
 def w8a8_matmul_case(gen, m, c, n):
     """The s8 x s8 -> s32 product with the two-scale epilogue
     (csrc/w8a8_matmul.cu) on int8 activations [m, c] from w8a8_quantize and
@@ -1495,6 +1570,13 @@ def kernel_phase():
     # bucket, the decode step at B=8 over its 2048-row cache (and over 1024
     # rows, the decode cases' length above), the 1500-token prompt's third
     # chunk.
+    # serve-gang (d)'s int4 shapes a rank (llama2-70b at tensor 2, then the
+    # example's tensor 8) at a decode step's 16 rows (max_batch 32 over data
+    # 2) and a 512-row chunk, each the design q4_design names; (e)'s
+    # row-parallel quantization of w_down's input (llama2-7b at tensor 2:
+    # 5504 of 11008 a rank, 8 rows) first, then llama2-70b's at both.
+    q4_70b = [q4_case(gen, m, n, c=c, heads=c // 128 if wo else None) for m in (16, 512) for c, n, wo in Q4_70B]
+    w8a8_rows = [w8a8_rows_case(gen, m, c) for m, c in ((8, 5504), (16, 14336), (16, 3584), (512, 14336))]
     tp2 = {"flash_fwd_tp2": [flash_case(gen, 1, 512, 16, 16, True)],
            "decode_attn_tp2": [decode_case(gen, 8, 2048, 16, 16, False, positions[:-1] + [2047]),
                                decode_case(gen, 8, 1024, 16, 16, False, positions)],
@@ -1506,7 +1588,13 @@ def kernel_phase():
               "q4_matmul_wgmma": [c for c in q4 if c["design"] == "wgmma"],
               "flash_bwd_dq": [c[0] for c in bwd], "flash_bwd_dkv": [c[1] for c in bwd],
               **d256, "flash_bwd_dq_d256": [c[0] for c in bwd256], "flash_bwd_dkv_d256": [c[1] for c in bwd256],
-              "w8a8_quantize": w8a8_quant, "w8a8_matmul": w8a8_mm, **tp2}
+              "w8a8_quantize": w8a8_quant, "w8a8_matmul": w8a8_mm, **tp2,
+              "q4_matmul_decode_70b": [c for c in q4_70b if c["design"] == "decode"],
+              "q4_matmul_wgmma_70b": [c for c in q4_70b if c["design"] == "wgmma"],
+              "w8a8_quantize_rows": w8a8_rows}
+    if len(report["q4_matmul_decode_70b"]) != len(Q4_70B) or len(report["q4_matmul_wgmma_70b"]) != len(Q4_70B):
+        fail(f"kernels: llama2-70b's per-rank int4 shapes took other designs than decode at 16 rows and wgmma at "
+             f"512: {[(c['case'], c['design']) for c in q4_70b]}")
     for name, cases in report.items():
         for c in cases:
             lib = "n/a" if c["library_ms"] is None else f"{c['library_ms']:.4f}"
@@ -1811,11 +1899,11 @@ def llama2_7b_at(layers: int) -> tuple:
     return (f"llama2-7b at {layers} layers", (4096, layers, 32, 32, 32000))
 
 
-# serve-families (a)'s and (c)'s depth: falcon-7b's width at 8 of its 32
+# serve-families (a)'s and (c)'s depth: falcon-7b's width at 4 of its 32
 # layers, cut so that the default run stays within its time limit (16 once
-# serve-gang joined it, 8 to keep it well inside; every check as at full
-# depth).
-FALCON_LAYERS = 8
+# serve-gang joined it, 8 to keep it well inside, 4 once serve-gang's
+# llama2-70b leg did; every check as at full depth).
+FALCON_LAYERS = 4
 FALCON_7B = (f"falcon-7b at {FALCON_LAYERS} layers", (4544, FALCON_LAYERS, 71, 1, 65024))
 OPT_125M = ("opt-125m", (768, 12, 12, 12, 50272))
 
@@ -2702,10 +2790,11 @@ def serve_paged_phase(card: str, dense_step_ms=None, profile_steps: bool = False
 # examples/llama2-7b/server-throughput.yaml's params as written: no
 # kv_layout (the paged pool) and serve.main's default max_seq_len, 1024.
 SPEC_PARAMS = {"config": "llama2-7b", "quantize": "int4", "kv_cache_dtype": "int8", "max_batch": 24, "spec_k": 3}
-# The phase's depth: llama2-7b's width at 8 of its 32 layers in every leg,
-# cut so that the default run stays well inside its time limit (every check
-# as at full depth; the draft leg's target too).
-SPEC_LAYERS = 8
+# The phase's depth: llama2-7b's width at 4 of its 32 layers in every leg,
+# cut so that the default run stays well inside its time limit (8, then 4
+# once serve-gang's llama2-70b leg joined it; every check as at full depth;
+# the draft leg's target too).
+SPEC_LAYERS = 4
 
 
 def _repeat_text(i: int, n_bytes: int) -> str:
@@ -4395,9 +4484,10 @@ def serve_surface_phase(card: str) -> dict:
 TRAIN_PARAMS = {"config": "llama2-7b", "lora_rank": 16, "lora_alpha": 16, "batch_size": 8, "seq_len": 1024,
                 "learning_rate": 2e-4, "save_steps": 2, "remat": True, "seed": 0}
 TRAIN_STEPS = (4, 6)
-# The phase's depth: 8 of llama2-7b's 32 layers, cut so that the default run
-# stays well inside its time limit (every check as at full depth).
-TRAIN_LAYERS = 8
+# The phase's depth: 4 of llama2-7b's 32 layers, cut so that the default run
+# stays well inside its time limit (8, then 4 once serve-gang's llama2-70b
+# leg joined it; every check as at full depth).
+TRAIN_LAYERS = 4
 # Gradients through the kernels against attn_impl="plain": the two paths
 # round attention differently in bf16 (the kernels round p to bf16 before
 # PV, the plain path keeps the softmax in f32), and the difference passes
@@ -5278,10 +5368,11 @@ BATCHGEN_MAX_TOKENS = 128
 BATCHGEN_KILL_AT = 16  # leg (b): durable records before the SIGKILL
 BATCHGEN_REFERENCE = 8  # greedy records held by the single-shot reference in legs (a) and (c)
 BATCHGEN_TEXT_LENS = (16, 40, 100, 200, 400, 700, 1000)  # byte-tokens (1 + bytes) of the text prompts, in turn
-# The phase's depth: llama2-7b's width at 8 of its 32 layers (cut to 16 so
-# that the default run stayed under 1100 s with the observability legs, and
-# to 8 once serve-disagg joined it).
-BATCHGEN_LAYERS = 8
+# The phase's depth: llama2-7b's width at 4 of its 32 layers (cut to 16 so
+# that the default run stayed under 1100 s with the observability legs, to 8
+# once serve-disagg joined it, and to 4 once serve-gang's llama2-70b leg
+# did).
+BATCHGEN_LAYERS = 4
 
 
 def batchgen_records() -> list:
@@ -6093,17 +6184,21 @@ def serve_adapters_phase(card: str) -> dict:
 
 # --- serve-moe: mixtral-8x7b, served and finetuned ----------------------------
 
-MIXTRAL = ("mixtral-8x7b", (4096, 32, 32, 8, 32000))
+# (a) and (b)'s depth: mixtral-8x7b's width at 8 of its 32 layers, cut once
+# serve-gang's llama2-70b leg joined the default run (every check as at full
+# depth).
+MOE_LAYERS = 8
+MIXTRAL = (f"mixtral-8x7b at {MOE_LAYERS} layers", (4096, MOE_LAYERS, 32, 8, 32000))
 MIXTRAL_2L = ("mixtral-8x7b's width at 2 layers", (4096, 2, 32, 8, 32000))
 # (a) int4 weights drawn and quantized layer by layer on the card, the
 # default engine: the paged pool, overlapped, the step a CUDA graph.
-MOE_INT4_PARAMS = {"config": "mixtral-8x7b", "quantize": "int4", "max_batch": 8, "max_seq_len": 2048,
+MOE_INT4_PARAMS = {"config": f"mixtral-8x7b@{MOE_LAYERS}", "quantize": "int4", "max_batch": 8, "max_seq_len": 2048,
                    "max_prefill_len": 512}
 MOE_INT4_PROMPTS = [(f"[{i}] " + _long_text(n - 5, 70 + i), 32, 0.0, i == 1)
                     for i, n in enumerate((20, 48, 80, 130, 190, 250, 320, 400))]
 # (b) int8 weights on the dense cache: the flash forward, the cached flash
 # (a ~1500-token prompt in 3 chunks) and the decode kernel at GQA 4.
-MOE_INT8_PARAMS = {"config": "mixtral-8x7b", "quantize": "int8", "kv_layout": "dense", "kv_cache_dtype": "model",
+MOE_INT8_PARAMS = {"config": f"mixtral-8x7b@{MOE_LAYERS}", "quantize": "int8", "kv_layout": "dense", "kv_cache_dtype": "model",
                    "max_batch": 6, "max_seq_len": 2048, "max_prefill_len": 512}
 MOE_INT8_PROMPTS = ([(_long_text(1499, 80), 32, 0.0, True)]
                     + [(f"[{i}] " + _long_text(n - 5, 81 + i), 32, 0.0, False) for i, n in enumerate((16, 60, 100,
@@ -6227,7 +6322,7 @@ def moe_int4_leg(card: str, profile_steps: bool) -> dict:
     decode_tps = (generated - len(MOE_INT4_PROMPTS)) / stats["decode_seconds"]
     print(f"{label} [{card}]: {len(MOE_INT4_PROMPTS)} concurrent requests, {generated} tokens in {wall:.2f} s; "
           f"{stats['prefill_chunks']} prefill chunks, {stats['decode_steps']} decode steps; mean step {step_ms:.2f} ms "
-          f"(overlapped, the step one CUDA graph; {(4 + 3 * E) * 32 + 1} int4 launches a forward), mean prefill "
+          f"(overlapped, the step one CUDA graph; {(4 + 3 * E) * MOE_LAYERS + 1} int4 launches a forward), mean prefill "
           f"{prefill_ms:.1f} ms a request, decode {decode_tps:.1f} tokens/s; launches {launches}", flush=True)
     del engine, server
     _free_card()
@@ -6426,13 +6521,14 @@ def moe_train_leg(card: str, tmp: Path) -> dict:
 
 
 def serve_moe_phase(card: str, profile_steps: bool = False) -> dict:
-    """mixtral-8x7b at full width: (a) int4 at full depth through serve.main
-    on the default engine, (b) int8 at full depth on the dense cache, (c) a
-    2-layer Mixtral HF directory quantized at load, (d) LoRA on it through
-    train.main (module docstring). Files live in a temporary directory
-    removed at the end."""
+    """mixtral-8x7b at full width: (a) int4 at MOE_LAYERS layers through
+    serve.main on the default engine, (b) int8 at MOE_LAYERS on the dense
+    cache, (c) a 2-layer Mixtral HF directory quantized at load, (d) LoRA on
+    it through train.main (module docstring). Files live in a temporary
+    directory removed at the end."""
     import tempfile
 
+    at_depth("mixtral-8x7b", MOE_LAYERS)
     a = moe_int4_leg(card, profile_steps)
     b = moe_int8_leg(card, profile_steps)
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_moe_"))
@@ -6455,11 +6551,15 @@ def serve_moe_phase(card: str, profile_steps: bool = False) -> dict:
 # --- disaggregated prefill/decode: serve.main tiers on one card ---------------
 
 # The JAX package's int4 serving stack on the paged pool (int8 pages) at
-# llama2-7b's full width and depth, every tier drawing the same seed-0
-# weights: a monolith, a prefill tier on an int8 pool, one on a bf16 pool,
-# and two decode tiers on int8 pools, each serve.main in a child process.
-DISAGG_PARAMS = {"config": "llama2-7b", "quantize": "int4", "kv_cache_dtype": "int8", "max_batch": 8,
-                 "max_seq_len": 2048, "max_prefill_len": 512}
+# llama2-7b's full width and DISAGG_LAYERS of its layers, every tier loading
+# the same seed-0 weights from one HF directory (quantized at load): a
+# monolith, a prefill tier on an int8 pool, one on a bf16 pool, and two
+# decode tiers on int8 pools, each serve.main in a child process. The depth
+# was cut from 32 once serve-gang's llama2-70b leg joined the default run
+# (every check as at full depth).
+DISAGG_LAYERS = 8
+DISAGG_PARAMS = {"quantize": "int4", "kv_cache_dtype": "int8", "max_batch": 8, "max_seq_len": 2048,
+                 "max_prefill_len": 512}
 # Leg (a): 8 greedy requests of 20-1500 tokens, 64 new tokens each; the
 # 1500-token prompt runs as 3 chunks, the 520-token one as 512 + an 8-token
 # chunk (the int4 decode design on the prefill tier).
@@ -6725,31 +6825,43 @@ def send_probe(nbytes: int) -> dict:
 
 def serve_disagg_phase(card: str) -> dict:
     """Disaggregated prefill/decode through serve.main at llama2-7b's full
-    width and depth on one card (module docstring): a monolith, two prefill
+    width, DISAGG_LAYERS deep, on one card (module docstring): a monolith, two prefill
     tiers and two decode tiers as child processes; legs (a) same-dtype pair
     against the monolith, token for token, (b) a bf16 pool's pages
     quantized into an int8 pool, held by the 5% rule, TTFT, (c) failover,
     the inter-token gaps in turns (the pair down to one decode tier, as the
     monolith is one engine), then the last worker's loss."""
     import os
+    import tempfile
 
     import torch
 
+    from substratus_tpu_torch.models import llama
     from substratus_tpu_torch.serve import main as serve_main
+    from substratus_tpu_torch.tools.ckpt_writer import write_hf
 
     label = "serve-disagg"
     _free_card()
     t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_disagg_"))
+    disk_room(tmp, 13_500_000_000 * DISAGG_LAYERS // 32, label)
+    model = llama.init_params(llama.CONFIGS["llama2-7b"].replace(n_layers=DISAGG_LAYERS), seed=0, device="cuda")
+    write_hf(str(tmp / "llama2-7b"), model)
+    del model
+    _free_card()
+    tier_params = {**DISAGG_PARAMS, "model": str(tmp / "llama2-7b")}
+    print(f"{label}: llama2-7b at {DISAGG_LAYERS} of its 32 layers (seed 0) written as an HF directory in "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     env = {**os.environ, "OMP_NUM_THREADS": "1",
            "PYTHONPATH": str(Path(__file__).resolve().parent) + os.pathsep + os.environ.get("PYTHONPATH", "")}
     env.pop("SUBSTRATUS_SERVE_ROLE", None)
     ports = [free_port(), free_port()]
     peers = ",".join(f"127.0.0.1:{p}" for p in ports)
-    bf16_pool = {**DISAGG_PARAMS, "kv_cache_dtype": "model"}
-    specs = {"mono": (DISAGG_PARAMS, []),
-             "decode1": (DISAGG_PARAMS, ["--role", "decode", "--transfer-port", str(ports[0])]),
-             "decode2": (DISAGG_PARAMS, ["--role", "decode", "--transfer-port", str(ports[1])]),
-             "prefill": (DISAGG_PARAMS, ["--role", "prefill", "--decode-peers", peers]),
+    bf16_pool = {**tier_params, "kv_cache_dtype": "model"}
+    specs = {"mono": (tier_params, []),
+             "decode1": (tier_params, ["--role", "decode", "--transfer-port", str(ports[0])]),
+             "decode2": (tier_params, ["--role", "decode", "--transfer-port", str(ports[1])]),
+             "prefill": (tier_params, ["--role", "prefill", "--decode-peers", peers]),
              "prefill_bf16": (bf16_pool, ["--role", "prefill", "--decode-peers", peers])}
     children = {}
     try:
@@ -6757,7 +6869,7 @@ def serve_disagg_phase(card: str) -> dict:
             children[name] = DisaggChild(name, params, args, env)
         # The same weights in this process, drawn as every tier draws them:
         # the digests must agree, and leg (b)'s reference runs on them.
-        cfg, params, _, _, family, _ = serve_main.load_model(None, None, DISAGG_PARAMS, torch.device("cuda"), "int4")
+        cfg, params, _, _, family, _ = serve_main.load_model(None, None, tier_params, torch.device("cuda"), "int4")
         digest = serve_main.weights_digest(params)
         bases = {name: child.wait_ready() for name, child in children.items()}
         digests = {name: child.digest for name, child in children.items()}
@@ -6921,6 +7033,7 @@ def serve_disagg_phase(card: str) -> dict:
     finally:
         for child in children.values():
             child.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
     wall = time.perf_counter() - t_phase
     pair_launches = {k: sum(launches[n][k] for n in launches if n != "mono")
                      for k in ("q4_matmul_decode", "q4_matmul_wgmma", "q4_matmul")}
@@ -7198,20 +7311,31 @@ def rl_phase(card: str, profile_steps: bool = False) -> dict:
 
 # --- serve-gang: a tensor-parallel gang of two ranks on the card ---------------
 
-GANG_LAYERS = 8  # llama2-7b's width; the phase's depth, printed
+GANG_LAYERS = 4  # llama2-7b's width; legs (a)-(c) and (e)'s depth, printed
 GANG_NEW = 64
 GANG_LENS = [64, 180, 333, 500, 700, 950, 1200, 1500]  # the 1500-token prompt runs as 3 chunks of 512
 GANG_PARAMS = {"tensor": 2, "kv_layout": "dense", "max_batch": 8, "max_seq_len": 2048, "drain_grace": 30}
 GANG_C_PARAMS = {"tensor": 2, "quantize": "int8", "max_batch": 8, "max_seq_len": 2048}  # kv_layout auto: paged
 GANG_PREFIX = "System: " + _long_text(399, 7)  # (c)'s shared prefix, 25 full pages
 GANG_SAMPLED = 3  # (b)'s sampled row
+# (d): examples/llama2-70b/server.yaml's params with tensor 2 for 16 (the
+# card holds four ranks, not sixteen); max_seq_len is serve.main's default.
+GANG_70B_LAYERS = 2  # llama2-70b's width; (d)'s depth, printed
+GANG_70B_PARAMS = {"quantize": "int4", "kv_cache_dtype": "int8", "max_batch": 32, "tensor": 2}
+GANG_70B_SEQ = 1024  # serve.main's max_seq_len when params.json names none
+GANG_70B_NEW = 48
+GANG_70B_PREFIX = "System: " + _long_text(247, 11)  # 256 tokens with the BOS: 16 full pages
+# (tokens, shares the prefix) in submission order: the prefix prompts first,
+# so the balanced slots put them on both data replicas
+GANG_70B_PROMPTS = [(300, True), (450, True), (600, True), (750, True), (64, False), (180, False), (880, False),
+                    (960, False)]
 
 
 class GangChild:
     """One rank of serve.main under the operator's gang environment in a
     child process, its output in OUT_DIR/serve_gang_{name}.log."""
 
-    def __init__(self, name: str, params: dict, rank: int, coord: int):
+    def __init__(self, name: str, params: dict, rank: int, coord: int, world: int = 2):
         import os
 
         OUT_DIR.mkdir(exist_ok=True)
@@ -7219,9 +7343,9 @@ class GangChild:
         path = OUT_DIR / f"chip_smoke_params_serve-gang-{name}.json"
         path.write_text(json.dumps(params))
         env = {**os.environ, "OMP_NUM_THREADS": "1", "JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{coord}",
-               "JAX_NUM_PROCESSES": "2", "TPU_WORKER_ID": str(rank),
+               "JAX_NUM_PROCESSES": str(world), "TPU_WORKER_ID": str(rank),
                "PYTHONPATH": str(Path(__file__).resolve().parent) + os.pathsep + os.environ.get("PYTHONPATH", "")}
-        self.log = (OUT_DIR / f"serve_gang_{name}.log").open("w")
+        self.log = (OUT_DIR / f"serve_gang_{name}{rank}.log").open("w")
         self.lines = []
         self.t0 = time.perf_counter()
         self.proc = subprocess.Popen([sys.executable, "-m", "substratus_tpu_torch.serve.main", "--params", str(path),
@@ -7272,7 +7396,7 @@ def start_gang(name: str, params: dict) -> tuple:
     return children, base, lead, follow
 
 
-def gang_reference(model, cfg, prompts, tokens, label: str) -> dict:
+def gang_reference(model, cfg, prompts, tokens, label: str, max_seq_len: int = GANG_PARAMS["max_seq_len"]) -> dict:
     """The 5% near-tie rule of long_reference_check on each request's
     served tokens against a single-shot forward of the whole model in this
     process (one rank of nothing: the single process)."""
@@ -7280,20 +7404,20 @@ def gang_reference(model, cfg, prompts, tokens, label: str) -> dict:
 
     from substratus_tpu_torch.models import llama
 
-    engine = SimpleNamespace(clipped_prompt=lambda p: p[-(GANG_PARAMS["max_seq_len"] - 1):], device=model.device,
+    engine = SimpleNamespace(clipped_prompt=lambda p: p[-(max_seq_len - 1):], device=model.device,
                              model=llama, params=model, cfg=cfg)
     requests = [SimpleNamespace(prompt_tokens=p, out=SimpleNamespace(tokens=t)) for p, t in zip(prompts, tokens)]
     return long_reference_check(engine, requests, label, quiet=True)
 
 
-def engine_turn(engine, prompts, sampled=None) -> dict:
+def engine_turn(engine, prompts, sampled=None, new: int = GANG_NEW) -> dict:
     """All requests at once through an in-process engine: tokens, each
     request's time to first token (a reader thread a request), the mean
     decode step."""
     from substratus_tpu_torch.serve.engine import Request
 
     steps0, seconds0 = engine.stats["decode_steps"], engine.stats["decode_seconds"]
-    reqs = [engine.submit(Request(list(p), max_tokens=GANG_NEW, temperature=0.8 if i == sampled else 0.0))
+    reqs = [engine.submit(Request(list(p), max_tokens=new, temperature=0.8 if i == sampled else 0.0))
             for i, p in enumerate(prompts)]
     out = [None] * len(reqs)
 
@@ -7314,38 +7438,229 @@ def engine_turn(engine, prompts, sampled=None) -> dict:
             "step_ms": 1e3 * (engine.stats["decode_seconds"] - seconds0) / max(steps, 1)}
 
 
-def run_gang_workers(model_dir: Path, prompts, label: str) -> list:
-    """Part (b): tools/gang_worker.py as both ranks on the card over the
-    checkpoint and (a)'s prompts at once, one sampled row, the all-reduce
-    probe first; each rank's result."""
+def run_gang_workers(model_dir: Path, prompts, label: str, params=None, world: int = 2, new: int = GANG_NEW,
+                     sampled=GANG_SAMPLED, tag: str = "b") -> list:
+    """tools/gang_worker.py as `world` ranks on the card over the
+    checkpoint and the prompts at once (one sampled row, unless None; (a)'s
+    params unless given), the all-reduce probe first; each rank's
+    result."""
     import os
 
     coord = free_port()
-    plan = OUT_DIR / "serve_gang_plan.json"
+    plan = OUT_DIR / f"serve_gang_plan_{tag}.json"
     plan.write_text(json.dumps({"concurrent": True, "requests": [
-        {"prompt": p, "max_tokens": GANG_NEW, "temperature": 0.8 if i == GANG_SAMPLED else 0.0}
+        {"prompt": p, "max_tokens": new, "temperature": 0.8 if i == sampled else 0.0}
         for i, p in enumerate(prompts)]}))
+    params = params or {k: v for k, v in GANG_PARAMS.items() if k != "drain_grace"}
     procs, outs = [], []
-    for rank in range(2):
+    for rank in range(world):
         env = {**os.environ, "OMP_NUM_THREADS": "1", "JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{coord}",
-               "JAX_NUM_PROCESSES": "2", "TPU_WORKER_ID": str(rank),
+               "JAX_NUM_PROCESSES": str(world), "TPU_WORKER_ID": str(rank),
                "PYTHONPATH": str(Path(__file__).resolve().parent) + os.pathsep + os.environ.get("PYTHONPATH", "")}
-        outs.append(OUT_DIR / f"serve_gang_worker{rank}.json")
+        outs.append(OUT_DIR / f"serve_gang_worker_{tag}{rank}.json")
         procs.append(subprocess.Popen(
             [sys.executable, "-m", "substratus_tpu_torch.tools.gang_worker", "--model", str(model_dir),
-             "--params", json.dumps({k: v for k, v in GANG_PARAMS.items() if k != "drain_grace"}), "--requests",
-             str(plan), "--out", str(outs[-1]), "--probe-allreduce", "--timeout", "120"],
-            cwd=Path(__file__).resolve().parent, env=env, stdout=(OUT_DIR / f"serve_gang_worker{rank}.log").open("w"),
-            stderr=subprocess.STDOUT))
+             "--params", json.dumps(params), "--requests", str(plan), "--out", str(outs[-1]), "--probe-allreduce",
+             "--timeout", "120"],
+            cwd=Path(__file__).resolve().parent, env=env,
+            stdout=(OUT_DIR / f"serve_gang_worker_{tag}{rank}.log").open("w"), stderr=subprocess.STDOUT))
     try:
         rcs = [p.wait(timeout=300) for p in procs]
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
-    if rcs != [0, 0]:
-        fail(f"{label}: gang_worker ranks exited {rcs} (logs in {OUT_DIR}/serve_gang_worker*.log)")
+    if rcs != [0] * world:
+        fail(f"{label}: gang_worker ranks exited {rcs} (logs in {OUT_DIR}/serve_gang_worker_{tag}*.log)")
     return [json.loads(o.read_text()) for o in outs]
+
+
+def run_staggered(base: str, texts, tag: int, new_tokens: int, label: str, gap_s: float = 0.05) -> tuple:
+    """run_traced's requests, each started gap_s after the one before (all
+    in flight together), so that they board in submission order."""
+    results = [None] * len(texts)
+
+    def one(i, text):
+        tp = {"traceparent": f"00-{disagg_trace(tag, i)}-{'ab' * 8}-01"}
+        results[i] = http(base, "/v1/completions", {"prompt": text, "max_tokens": new_tokens, "temperature": 0},
+                          headers=tp)
+
+    threads = [threading.Thread(target=one, args=(i, t)) for i, t in enumerate(texts)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+        time.sleep(gap_s)
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    for i, (status, _, text) in enumerate(results):
+        if status != 200 or not json.loads(text)["usage"]["completion_tokens"]:
+            fail(f"{label}: request {i} -> {status} {text[:200]}")
+    return [journey_of(base, disagg_trace(tag, i), label) for i in range(len(texts))], wall
+
+
+def gang_70b_leg(card: str, tmp: Path) -> dict:
+    """(d): the llama2-70b example's gang as written, four serve.main ranks
+    of data=2 x tensor=2 on the card, then four gang_worker ranks in turns
+    with a single process (the phase's docstring)."""
+    import statistics
+
+    import torch
+
+    from substratus_tpu_torch.models import llama
+    from substratus_tpu_torch.serve.engine import Engine, EngineConfig
+    from substratus_tpu_torch.serve.tokenizer import ByteTokenizer
+    from substratus_tpu_torch.tools.ckpt_writer import write_hf
+
+    label = "serve-gang (d)"
+    t_leg = time.perf_counter()
+    cfg = llama.CONFIGS["llama2-70b"].replace(n_layers=GANG_70B_LAYERS)
+    model = llama.init_params(cfg, seed=0, device="cuda")
+    model_dir = tmp / "llama2-70b"
+    write_hf(str(model_dir), model)
+    llama.quantize_weights(model, "int4")  # the bytes each rank quantizes whole a layer, then slices
+    _free_card()
+    print(f"{label}: llama2-70b at {GANG_70B_LAYERS} of its 80 layers (full width: dim 8192, 64 heads, 8 kv heads, "
+          f"hidden 28672, vocab 32000), seed 0, written as an HF directory in {time.perf_counter() - t_leg:.1f} s; "
+          f"examples/llama2-70b/server.yaml's params {GANG_70B_PARAMS} (tensor 2 for its 16) on four ranks of the "
+          "one card", flush=True)
+    tok = ByteTokenizer()
+    texts = [(GANG_70B_PREFIX + _long_text(n - 257, 150 + i)) if shared else _long_text(n - 1, 150 + i)
+             for i, (n, shared) in enumerate(GANG_70B_PROMPTS)]
+    prompts = [tok.encode(t) for t in texts]
+    coord = free_port()
+    children = [GangChild("d", {**GANG_70B_PARAMS, "model": str(model_dir)}, r, coord, world=4) for r in range(4)]
+    try:
+        lead = children[0].wait_line("serving ")
+        for c in children[1:]:
+            c.wait_line("gang follower ")
+        mesh_lines = [c.wait_line("serving mesh:").strip() for c in children]
+        if mesh_lines != ["serving mesh: data=2 tensor=2"] * 4 or "rank 0/4 (leader), mesh data=2 tensor=2" not in lead \
+                or "weights int4:" not in lead:
+            fail(f"{label}: startup lines {mesh_lines} / {lead}")
+        base = f"http://127.0.0.1:{int(lead.split('127.0.0.1:')[1].split()[0])}"
+        deadline = time.perf_counter() + 120
+        while http(base, "/", timeout=30)[0] != 200:
+            if time.perf_counter() > deadline:
+                fail(f"{label}: the leader printed its address but GET / is not 200 after 120 s")
+            time.sleep(0.1)
+        print(f"{label}: four ranks ready in {', '.join(f'{c.ready_s:.1f}' for c in children)} s; leader: "
+              f"{lead.split('; gang: ')[1].strip()}", flush=True)
+        # The prefix's pages, written on every replica (each runs every
+        # prefill of the paged pool), before the requests that share them.
+        http(base, "/v1/completions", {"prompt": GANG_70B_PREFIX + " warm up", "max_tokens": 2, "temperature": 0})
+        time.sleep(0.5)
+        counts0 = surface_launches(scrape(base))
+        journeys, wall = run_staggered(base, texts, 0x9d, GANG_70B_NEW, label)
+        counts1 = surface_launches(scrape(base))
+        served = [emitted(j["events"]) for j in journeys]
+        reference = gang_reference(model, cfg, prompts, served, label, max_seq_len=GANG_70B_SEQ)
+        delta = {k: counts1.get(k, 0) - counts0.get(k, 0) for k in counts1}
+        launches = {"q4_matmul_decode_70b": delta.get("q4_matmul.launches_decode", 0),
+                    "q4_matmul_wgmma_70b": delta.get("q4_matmul.launches_wgmma", 0)}
+        per_forward = 7 * GANG_70B_LAYERS + 1
+        if min(launches.values()) <= 0 or delta.get("q4_matmul.launches", 0) % per_forward or \
+                delta.get("q4_matmul.launches_mma", 0):
+            fail(f"{label}: the leader's int4 launches {delta}")
+        slots = [next(e[2]["slot"] for e in j["events"] if e[1] == "admit") for j in journeys]
+        hits = [sum(e[2]["tokens"] for e in j["events"] if e[1] == "prefix_hit") for j in journeys]
+        per = GANG_70B_PARAMS["max_batch"] // 2
+        hit_replicas = {s // per for s, h in zip(slots, hits) if h}
+        if hit_replicas != {0, 1}:
+            fail(f"{label}: prefix hits {hits} at slots {slots}: not on both data replicas")
+        exact = sum(r["argmax_agree"] for r in reference["requests"])
+        total = sum(r["tokens"] for r in reference["requests"])
+        print(f"{label} [{card}]: {len(texts)} requests of {min(len(p) for p in prompts)}-{max(len(p) for p in prompts)} "
+              f"tokens, {GANG_70B_NEW} new each, in {wall:.2f} s; {exact}/{total} served tokens the single process's "
+              f"argmax, every one within the near-tie rule; slots {slots}, prefix-hit tokens {hits} (both data "
+              f"replicas); the leader's int4 launches {launches} ({per_forward} a forward)", flush=True)
+        timeout_s = int(lead.split("collective timeout ")[1].split()[0])
+        t_kill = time.perf_counter()
+        children[2].proc.kill()  # rank 2: data replica 1
+        try:
+            rc = children[0].proc.wait(timeout=timeout_s + 60)
+        except subprocess.TimeoutExpired:
+            fail(f"{label}: the leader still runs {timeout_s + 60} s after rank 2's SIGKILL")
+        waited = time.perf_counter() - t_kill
+        if rc == 0 or waited > timeout_s:
+            fail(f"{label}: after rank 2's SIGKILL the leader exited {rc} in {waited:.1f} s (timeout {timeout_s} s)")
+        print(f"{label}: rank 2 (data replica 1) SIGKILLed: the leader exited {rc} after {waited:.1f} s (its collective "
+              f"timeout {timeout_s} s)", flush=True)
+    finally:
+        for c in children:
+            c.stop()
+    # The numbers: four gang_worker ranks in turns with a single process.
+    single = Engine(cfg, model, EngineConfig(max_batch=GANG_70B_PARAMS["max_batch"], max_seq_len=GANG_70B_SEQ,
+                                             kv_cache_dtype="int8"), device="cuda")
+    single.start()
+    try:
+        engine_turn(single, prompts[:1], new=2)  # the graph's capture
+        turn1 = engine_turn(single, prompts, new=GANG_70B_NEW)
+        ranks = run_gang_workers(model_dir, prompts, label, params={**GANG_70B_PARAMS, "max_seq_len": GANG_70B_SEQ},
+                                 world=4, new=GANG_70B_NEW, sampled=None, tag="d")
+        turn2 = engine_turn(single, prompts, new=GANG_70B_NEW)
+    finally:
+        single.stop()
+    got = [q["tokens"] for q in ranks[0]["requests"]]
+    if any([q["tokens"] for q in r["requests"]] != got for r in ranks[1:]) or any(r["error"] for r in ranks):
+        fail(f"{label}: the worker ranks' tokens differ or an engine failed: {[r['error'] for r in ranks]}")
+    ref_w = gang_reference(model, cfg, prompts, got, label + " workers", max_seq_len=GANG_70B_SEQ)
+    lead_r = ranks[0]
+    ar = lead_r["allreduce_s"]
+    step = 1e3 * lead_r["stats"]["decode_seconds"] / lead_r["stats"]["decode_steps"]
+    ttft = [q["ttft_s"] for q in lead_r["requests"]]
+    exchange = statistics.median(lead_r["exchange_s"])
+    int32_key, max_key = f"16x1x{cfg.dim}_int32", "16x1x1_float32_max"
+    print(f"{label} [{card}]: four gang_worker ranks' {sum(len(t) for t in got)} tokens equal, every one within the "
+          f"rule; the token exchange over the data group (gloo, [32] int64) median {1e3 * exchange:.3f} ms a step "
+          f"(the probe's {1e3 * ar['32_int64']:.3f} ms); the tensor group's all-reduce of a w8a8 w_down's s32 "
+          f"partials [16,1,{cfg.dim}] int32 {1e3 * ar[int32_key]:.3f} ms, its rows' amax (MAX, f32) "
+          f"{1e3 * ar[max_key]:.3f} ms, bf16 [8,1,{cfg.dim}] {1e3 * ar[f'8x1x{cfg.dim}']:.3f} ms, [1,512,{cfg.dim}] "
+          f"{1e3 * ar[f'1x512x{cfg.dim}']:.3f} ms (medians of 50)", flush=True)
+    print(f"{label} [{card}]: in turns (single, gang, single; 8 requests at once, {GANG_70B_NEW} new each): mean "
+          f"decode step {turn1['step_ms']:.2f} / {step:.2f} / {turn2['step_ms']:.2f} ms (the single process's step "
+          f"one CUDA graph, the gang's eager); mean TTFT {1e3 * statistics.mean(turn1['ttft_s']):.1f} / "
+          f"{1e3 * statistics.mean(ttft):.1f} / {1e3 * statistics.mean(turn2['ttft_s']):.1f} ms; peak memory "
+          + ", ".join(f"rank {r['rank']} {r['peak_memory_bytes']} bytes" for r in ranks)
+          + f" (the single process {torch.cuda.max_memory_allocated()} bytes); leg {time.perf_counter() - t_leg:.1f} s",
+          flush=True)
+    del model, single
+    _free_card()
+    return {"layers": GANG_70B_LAYERS, "launches": launches, "reference": reference, "reference_workers": ref_w,
+            "slots": slots, "prefix_hit_tokens": hits, "kill_exit": rc, "kill_seconds": waited,
+            "allreduce_s": ar, "exchange_median_s": exchange,
+            "step_ms": {"single": [turn1["step_ms"], turn2["step_ms"]], "gang": step},
+            "ttft_s": {"single": [turn1["ttft_s"], turn2["ttft_s"]], "gang": ttft},
+            "peak_bytes": [r["peak_memory_bytes"] for r in ranks], "seconds": time.perf_counter() - t_leg}
+
+
+def gang_w8a8_leg(card: str, model_dir: Path, model, cfg, prompts) -> dict:
+    """(e): two gang_worker ranks at llama2-7b's width, tensor=2, w8a8, the
+    dense cache, 8 rows, one sampled; `model` holds the int8 weights (c)
+    quantized, the single process's w8a8 weights."""
+    label = "serve-gang (e)"
+    t0 = time.perf_counter()
+    params = {**{k: v for k, v in GANG_PARAMS.items() if k != "drain_grace"}, "quantize": "w8a8"}
+    ranks = run_gang_workers(model_dir, prompts, label, params=params, new=32, tag="e")
+    got = [q["tokens"] for q in ranks[0]["requests"]]
+    if got != [q["tokens"] for q in ranks[1]["requests"]] or any(r["error"] for r in ranks):
+        fail(f"{label}: the ranks' tokens differ or an engine failed: {[r['error'] for r in ranks]}")
+    greedy = [i for i in range(len(prompts)) if i != GANG_SAMPLED]
+    ref = gang_reference(model, cfg.replace(quant_activations=True), [prompts[i] for i in greedy],
+                         [got[i] for i in greedy], label)
+    counts = ranks[0]["launches"]
+    rows = counts.get("w8a8_quantize.launches_amax", 0)
+    if rows <= 0 or rows != counts.get("w8a8_quantize.launches_scaled") or rows % cfg.n_layers:
+        fail(f"{label}: the row-parallel quantize's launches {counts}")
+    int32 = ranks[0]["allreduce_s"][f"16x1x{cfg.dim}_int32"]
+    print(f"{label} [{card}]: w8a8 at tensor=2 ({ranks[0]['startup'].split('; weights ')[1].split(';')[0]}): both "
+          f"ranks' {sum(len(t) for t in got)} tokens equal, the sampled row's too; every greedy token within the "
+          f"rule of a single-process w8a8 forward; w_down's row-parallel quantize {rows} launches of each mode on "
+          f"the leader ({rows // cfg.n_layers} forwards); the int32 all-reduce [16,1,{cfg.dim}] median "
+          f"{1e3 * int32:.3f} ms; peak memory {[r['peak_memory_bytes'] for r in ranks]} bytes; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return {"reference": ref, "launches": {"w8a8_quantize_rows": rows}, "int32_allreduce_s": int32,
+            "peak_bytes": [r["peak_memory_bytes"] for r in ranks]}
 
 
 def serve_gang_phase(card: str) -> dict:
@@ -7357,7 +7672,9 @@ def serve_gang_phase(card: str) -> dict:
     numbers (the all-reduce, the broadcast, step and TTFT in turns with a
     single process, each rank's peak memory); (c) paged with int8 weights,
     4 requests sharing a prefix by the same rule, then a SIGKILLed follower
-    fails the leader within its collective timeout."""
+    fails the leader within its collective timeout; (e) w8a8 on (c)'s int8
+    weights (gang_w8a8_leg); (d) the llama2-70b example's gang of four
+    ranks, data=2 x tensor=2 (gang_70b_leg)."""
     import tempfile
 
     import torch
@@ -7479,13 +7796,24 @@ def serve_gang_phase(card: str) -> dict:
               f"prefix ({hits} prompt tokens from the registry), 32 new each in {c_wall:.2f} s, every token within the "
               f"near-tie rule; the follower SIGKILLed: the leader exited {rc} after {waited:.1f} s (its collective "
               f"timeout {timeout_s} s)", flush=True)
+        for c in children:
+            c.stop()
+        children = []
+
+        # (e) w8a8 on (c)'s int8 weights; (d) the llama2-70b example.
+        leg_e = gang_w8a8_leg(card, model_dir, model, cfg, prompts)
+        del model
+        _free_card()
+        leg_d = gang_70b_leg(card, tmp)
+        launches.update(leg_d["launches"])
+        launches.update(leg_e["launches"])
     finally:
         for c in children:
             c.stop()
         shutil.rmtree(tmp, ignore_errors=True)
     wall = time.perf_counter() - t_phase
-    print(f"{label}: {wall:.1f} s at {GANG_LAYERS} layers", flush=True)
-    return {"layers": GANG_LAYERS, "launches": launches, "reference_a": reference, "reference_b": ref_b,
+    print(f"{label}: {wall:.1f} s at {GANG_LAYERS} layers ((d) at {GANG_70B_LAYERS} of llama2-70b's)", flush=True)
+    return {"layers": GANG_LAYERS, "launches": launches, "d": leg_d, "e": leg_e, "reference_a": reference, "reference_b": ref_b,
             "reference_c": ref_c, "allreduce_s": ar, "broadcast_median_s": statistics.median(bcast),
             "step_ms": {"single": [turn1["step_ms"], turn2["step_ms"]], "gang": gang_step},
             "ttft_s": {"single": [turn1["ttft_s"], turn2["ttft_s"]], "gang": gang_ttft},
@@ -7620,7 +7948,15 @@ def main() -> int:
                    "decode_attn_tp2": ("substratus_tpu_torch/csrc/decode_split.cu",
                                        "substratus_tpu/ops/decode_attention.py:138"),
                    "flash_cached_tp2": ("substratus_tpu_torch/csrc/flash_fwd_wgmma.cu",
-                                        "substratus_tpu/ops/flash_attention.py:452")}
+                                        "substratus_tpu/ops/flash_attention.py:452"),
+                   # serve-gang (d)'s per-rank int4 shapes (llama2-70b, tensor 2 and 8)
+                   "q4_matmul_decode_70b": ("substratus_tpu_torch/csrc/q4_matmul_decode.cu",
+                                            "substratus_tpu/ops/quant4.py:168"),
+                   "q4_matmul_wgmma_70b": ("substratus_tpu_torch/csrc/q4_matmul_wgmma.cu",
+                                           "substratus_tpu/ops/quant4.py:168"),
+                   # (e)'s row-parallel w8a8 quantization: no TPU kernel (the XLA ops GSPMD partitions)
+                   "w8a8_quantize_rows": ("substratus_tpu_torch/csrc/w8a8_quantize.cu",
+                                          "substratus_tpu/ops/quant.py:142")}
         # Each kernel's launches come from the serve or train phase whose
         # path runs it (train: the first train.main call, 4 steps), as
         # (phase, its launch count): the flash forward's and the cached
@@ -7642,7 +7978,8 @@ def main() -> int:
                     "w8a8_quantize": ("serve-w8a8", "w8a8_quantize"), "w8a8_matmul": ("serve-w8a8", "w8a8_matmul"),
                     # serve-gang (a): the leader's launches at the per-rank heads
                     **{name: ("serve-gang", name) for name in ("flash_fwd_tp2", "decode_attn_tp2",
-                                                              "flash_cached_tp2")}}
+                                                              "flash_cached_tp2", "q4_matmul_decode_70b",
+                                                              "q4_matmul_wgmma_70b", "w8a8_quantize_rows")}}
         # serve-spec's launches (legs (a) and (b)) of each design, and
         # serve-surface's (its child process's legs (a), (b) and (d)), each
         # its own count.

@@ -107,7 +107,10 @@ def shard_from_jax(tree: Dict[str, Any], cfg, mesh) -> Dict[str, Any]:
     """JAX llama params (as params_from_jax takes them) -> the state dict
     of `mesh`'s rank's tensor shard (contiguous tensors): each weight
     sliced by its logical axes (models/llama.py's param_logical_axes) under
-    the serving rules, an int8 QTensor's scale by the keepdims rule."""
+    the serving rules, an int8 QTensor's scale (a w8a8 weight's too) by the
+    keepdims rule, an int4 Q4Tensor's packed bytes and scales each fitted
+    to its own shape, or whole where parallel.sharding.q4_row_parallel
+    refuses the slices."""
     from substratus_tpu_torch.models import llama
     from substratus_tpu_torch.parallel.sharding import SERVE_RULES, shard_params
 

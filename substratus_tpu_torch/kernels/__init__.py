@@ -74,8 +74,10 @@ SIGNATURES = {
     # the same two at head_dim 64 and 128 (csrc/flash_bwd_wgmma.cu)
     "flash_bwd_dq_wgmma": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     "flash_bwd_dkv_wgmma": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
-    # x, ldx, xq, ascale, M, C, stream (csrc/w8a8_quantize.cu)
-    "w8a8_quantize": [_P, _I, _P, _P, _I, _I, _P],
+    # x, ldx, xq, amax, ascale, M, C, mode, stream (csrc/w8a8_quantize.cu;
+    # mode 0 the whole quantization, 1 the rows' amax, 2 the values from a
+    # given amax: a row-parallel product's halves)
+    "w8a8_quantize": [_P, _I, _P, _P, _P, _I, _I, _I, _P],
     # xq, lda, ascale, as_stride, w, wscale, out, ldo, raw, M, N, C, stream (csrc/w8a8_matmul.cu)
     "w8a8_matmul": [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }

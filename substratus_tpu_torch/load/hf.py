@@ -237,7 +237,9 @@ class _Staging:
     the final norm, the lm_head) is quantized whole, then sliced by
     parallel.sharding.shard_params into the model's shard, so an int8
     shard keeps the whole weight's scales and no rank holds more than one
-    whole layer beside its shard."""
+    whole layer beside its shard. An int4 slice is whole scale groups (or
+    the weight is kept whole), so its bytes are quantize4 of the slice's
+    dense values as well."""
 
     TOP = ("tok_embed", "out_norm", "lm_head")
 
@@ -293,7 +295,7 @@ class _Staging:
         prefix = f"{owner}." if owner else ""
         state = {prefix + k: v for k, v in block.state_dict().items()}
         shard = shard_params(state, llama.param_logical_axes(self.cfg), self.mesh)
-        missing, unexpected = self.model.load_state_dict(shard, strict=False)
+        missing, unexpected = llama.load_shard(self.model, shard, strict=False)
         if unexpected:
             raise KeyError(f"staged {unexpected} that the shard does not hold")
 
@@ -436,10 +438,10 @@ def load_pretrained(path: str, dtype: torch.dtype = torch.bfloat16, device: Devi
         quantize = "none"
     mesh = mesh_for(cfg) if mesh_for is not None and family == "llama" else None
     if mesh is not None and mesh.shape["tensor"] > 1:
-        llama.check_shardable(cfg, (quantize,))
-        model = llama.Llama(llama.shard_config(cfg, mesh.shape["tensor"]), device=device, quantize=quantize)
+        t = mesh.shape["tensor"]
+        model = llama.Llama(llama.shard_config(cfg, t), device=device, quantize=quantize)
         copy_hf_state(model, _state_items(path), quantize, shard=(cfg, mesh))
-        model.tp = llama.tensor_shard(cfg, mesh)
+        model.tp = llama.tensor_shard(cfg, mesh, llama.down_kept_whole(cfg, t, quantize))
         return model.cfg, model
     model = (llama.Llama(cfg, device=device, quantize=quantize) if quantize != "none"
              else registry.MODEL_CLASSES[family](cfg, device=device))

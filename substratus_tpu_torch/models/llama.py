@@ -417,35 +417,59 @@ def shard_config(cfg: LlamaConfig, tensor: int) -> LlamaConfig:
         vocab_size=cfg.vocab_size // tensor if cfg.vocab_size % tensor == 0 else cfg.vocab_size)
 
 
-def tensor_shard(cfg: LlamaConfig, mesh):
+def down_kept_whole(cfg: LlamaConfig, tensor: int, quantize: str) -> bool:
+    """Whether a rank of a tensor axis of `tensor` holds an int4 w_down
+    whole (sharding.q4_row_parallel refuses its slices: llama2-7b's 11008
+    rows at tensor=4 leave 2752 a rank, not whole groups of 128) while
+    w_gate and w_up shard over the MLP."""
+    M = cfg.hidden_dim
+    if quantize != "int4" or tensor == 1 or M % tensor:
+        return False
+    from substratus_tpu_torch.ops.quant4 import _pack_block_for
+    from substratus_tpu_torch.parallel.sharding import q4_row_parallel
+
+    block = _pack_block_for(M)
+    return not q4_row_parallel(M, M // block, block, tensor)
+
+
+def tensor_shard(cfg: LlamaConfig, mesh, down_whole: bool = False):
     """The TensorShard of this rank of `mesh` for the model `cfg`."""
     from substratus_tpu_torch.parallel.sharding import TensorShard
 
     t = mesh.shape["tensor"]
     return TensorShard(mesh.group("tensor"), t, mesh.coords["tensor"], cfg.vocab_size,
-                       vocab_sharded=cfg.vocab_size % t == 0, mlp_sharded=cfg.hidden_dim % t == 0)
+                       vocab_sharded=cfg.vocab_size % t == 0, mlp_sharded=cfg.hidden_dim % t == 0,
+                       down_whole=down_whole)
 
 
-def check_shardable(cfg: LlamaConfig, modes) -> None:
-    """Raise for what a tensor-parallel gang does not serve yet: int4 and
-    w8a8 weights (`modes`: the weights' storage modes, "int8", "int4")."""
-    from substratus_tpu_torch.parallel.sharding import NEXT_GANG_SLICE
-
-    if cfg.quant_activations:
-        raise NotImplementedError(f"w8a8 in a tensor-parallel gang is not served by the PyTorch port yet: "
-                                  f"{NEXT_GANG_SLICE}")
-    if "int4" in modes:
-        raise NotImplementedError(f"int4 weights in a tensor-parallel gang are not served by the PyTorch port yet: "
-                                  f"{NEXT_GANG_SLICE}")
+def load_shard(model: Llama, state: Dict, strict: bool = True):
+    """load_state_dict of a rank's shard (sharding.shard_params's) into
+    `model`, laid out by shard_config's config: an int4 weight the shard
+    holds at another shape (whole, where q4_row_parallel refused its
+    slices) gets storage of that shape first."""
+    for name, value in state.items():
+        owner_name, _, attr = name.rpartition(".")
+        if attr not in ("packed", "scale") or not torch.is_tensor(value):
+            continue
+        try:
+            owner = model.get_submodule(owner_name)
+        except AttributeError:
+            continue
+        if isinstance(owner, Q4Tensor) and getattr(owner, attr).shape != value.shape:
+            setattr(owner, attr, torch.empty(value.shape, dtype=value.dtype, device=getattr(owner, attr).device))
+            owner._operands = None
+    return model.load_state_dict(state, strict=strict)
 
 
 @torch.no_grad()
 def shard_model(params: Llama, mesh, rules=None) -> Llama:
     """This rank's tensor shard of a whole model (on any device): a Llama
     of shard_config's config on the same device, each weight sliced by
-    parallel.sharding.shard_params (int8 weights keep the whole weight's
-    scales), its forward summing over the mesh's tensor group. A mesh with
-    tensor == 1, or params already a shard, returns `params` itself."""
+    parallel.sharding.shard_params (int8 and w8a8 weights keep the whole
+    weight's scales; int4 weights are sliced in whole scale groups, or
+    kept whole), its forward summing over the mesh's tensor group. A mesh
+    with tensor == 1, or params already a shard, returns `params`
+    itself."""
     from substratus_tpu_torch.parallel.sharding import SERVE_RULES, shard_params
 
     t = mesh.shape["tensor"]
@@ -453,10 +477,9 @@ def shard_model(params: Llama, mesh, rules=None) -> Llama:
         return params
     cfg = params.cfg
     layout = quantized_layout(params)
-    check_shardable(cfg, layout.values())
     local = lay_out_quantized(Llama(shard_config(cfg, t), device=params.device), layout)
-    local.load_state_dict(shard_params(params.state_dict(), param_logical_axes(cfg), mesh, rules or SERVE_RULES))
-    local.tp = tensor_shard(cfg, mesh)
+    load_shard(local, shard_params(params.state_dict(), param_logical_axes(cfg), mesh, rules or SERVE_RULES))
+    local.tp = tensor_shard(cfg, mesh, down_kept_whole(cfg, t, layout.get("layers.0.w_down", "none")))
     return local
 
 
@@ -536,13 +559,17 @@ def _self_attention(q, k, v, positions, cfg: LlamaConfig) -> torch.Tensor:
     raise NotImplementedError(f"attn_impl={cfg.attn_impl!r} is not ported (flash|plain)")
 
 
-def project(eq: str, x: torch.Tensor, w, cfg) -> torch.Tensor:
+def project(eq: str, x: torch.Tensor, w, cfg, tp=None) -> torch.Tensor:
     """einsum(eq, x, w) in the JAX package's layouts: a quantized weight
     through qeinsum (qeinsum_w8a8 under cfg.quant_activations), a dense one as one torch.matmul over the flattened
     contracted and kept dims, in cfg.dtype (any family's config; the OPT
-    and Falcon modules project through it too)."""
+    and Falcon modules project through it too). With `tp` (a TensorShard;
+    w8a8 only) x's contracting dim is this rank's slice and the result is
+    summed over the tensor group inside the product."""
     if isinstance(w, (QTensor, Q4Tensor)):
-        return (qeinsum_w8a8 if getattr(cfg, "quant_activations", False) else qeinsum)(eq, x, w, cfg.dtype)
+        if getattr(cfg, "quant_activations", False):
+            return qeinsum_w8a8(eq, x, w, cfg.dtype, tp=tp)
+        return qeinsum(eq, x, w, cfg.dtype)
     ins, out = eq.split("->")
     nc = sum(letter not in out for letter in ins.split(",")[0])
     y = torch.matmul(x.flatten(-nc), w.to(cfg.dtype).flatten(0, nc - 1).flatten(1))
@@ -575,8 +602,8 @@ def _block(
             return lora_delta_indexed(inp, lora[name], lora_scale, lora_eq, adapter_ids)
         return lora_delta(inp, lora[name], lora_scale, lora_eq)
 
-    def proj(name: str, inp: torch.Tensor, eq: str, lora_eq: str) -> torch.Tensor:
-        out = project(eq, inp, getattr(lp, name), cfg)
+    def proj(name: str, inp: torch.Tensor, eq: str, lora_eq: str, row_tp=None) -> torch.Tensor:
+        out = project(eq, inp, getattr(lp, name), cfg, row_tp)
         if name in lora:
             out = out + delta(name, inp, lora_eq)
         return out
@@ -606,17 +633,25 @@ def _block(
         o = tp.reduce(o)
     x = x + o
     h = rms_norm(x, lp.mlp_norm, cfg.norm_eps)
+    # A row-parallel w8a8 w_down sums its s32 partials inside the product
+    # (ops/quant.py); any other sharded w_down's output is summed here.
+    row_w8a8 = tp is not None and tp.reduce_down and cfg.quant_activations and isinstance(lp.w_down, QTensor)
+    row_tp = tp if row_w8a8 else None
+    gather = tp.gather_mlp if tp is not None and tp.down_whole else None
     if cfg.n_experts > 0:
-        y, aux = _moe_ffn(h, lp, cfg, train, lora, lora_scale)
-        if tp is not None and tp.mlp_sharded:
+        y, aux = _moe_ffn(h, lp, cfg, train, lora, lora_scale, gather, row_tp)
+        if tp is not None and tp.reduce_down and not row_w8a8:
             y = tp.reduce(y)
         if layer_cache is None:  # the prefill and training forwards report the aux
             kv = {**kv, "moe_aux": aux}
         return x + y, kv
     gate = proj("w_gate", h, "bsd,dm->bsm", "bsr,rm->bsm")
     up = proj("w_up", h, "bsd,dm->bsm", "bsr,rm->bsm")
-    y = proj("w_down", swiglu(gate, up), "bsm,md->bsd", "bsr,rd->bsd")
-    if tp is not None and tp.mlp_sharded:
+    act = swiglu(gate, up)
+    if gather is not None:  # an int4 w_down kept whole: the full MLP width in
+        act = gather(act)
+    y = proj("w_down", act, "bsm,md->bsd", "bsr,rd->bsd", row_tp)
+    if tp is not None and tp.reduce_down and not row_w8a8:
         y = tp.reduce(y)
     return x + y, kv
 
@@ -639,6 +674,8 @@ def _moe_ffn(
     train: bool,
     lora: Optional[Dict] = None,  # this layer's adapters; expert-routed pairs a [E, in, r], b [E, r, out]
     lora_scale: float = 1.0,
+    gather=None,  # a rank's gather of the experts' MLP activation to full width (an int4 w_down kept whole)
+    row_tp=None,  # a rank's TensorShard: a w8a8 w_down's s32 partials summed inside the product
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Routed top-k expert FFN (Mixtral), the JAX package's _moe_ffn:
     (output [B, S, D] in cfg.dtype, the Switch load-balancing aux, a f32
@@ -654,7 +691,10 @@ def _moe_ffn(
     qe = qeinsum_w8a8 if cfg.quant_activations else qeinsum
 
     def eproj(name: str, x: torch.Tensor, eq_w: str, eq_a: str, eq_b: str) -> torch.Tensor:
-        out = qe(eq_w, x, getattr(lp, name), dt)
+        if name == "w_down" and gather is not None:
+            x = gather(x)
+        w = getattr(lp, name)
+        out = qeinsum_w8a8(eq_w, x, w, dt, tp=row_tp) if name == "w_down" and row_tp is not None else qe(eq_w, x, w, dt)
         if name in lora:
             down = _einsum(eq_a, x, lora[name]["a"].to(dt))
             out = out + _einsum(eq_b, down, lora[name]["b"].to(dt)) * lora_scale

@@ -28,6 +28,7 @@ from __future__ import annotations
 from typing import Any, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from substratus_tpu_torch import kernels
@@ -157,14 +158,68 @@ def w8a8_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         x2 = x2.contiguous()
     xq = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     ascale = torch.empty((*x.shape[:-1], 1), dtype=torch.float32, device=x.device)
-    rc = kernels.library().w8a8_quantize(x2.data_ptr(), x2.stride(0), xq.data_ptr(), ascale.data_ptr(),
-                                         x2.shape[0], c, kernels.stream_ptr(x.device))
+    rc = kernels.library().w8a8_quantize(x2.data_ptr(), x2.stride(0), xq.data_ptr(), None, ascale.data_ptr(),
+                                         x2.shape[0], c, 0, kernels.stream_ptr(x.device))
     kernels.check(rc, "w8a8_quantize")
     w8a8_quantize.launches += 1
     return xq, ascale
 
 
-w8a8_quantize.launches = 0
+w8a8_quantize.launches = 0  # every launch of csrc/w8a8_quantize.cu
+w8a8_quantize.launches_amax = 0  # mode 1: the rows' amax of a slice (row-parallel)
+w8a8_quantize.launches_scaled = 0  # mode 2: the values from a given amax (row-parallel)
+
+
+def w8a8_scaled_plain(x: torch.Tensor, amax: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """w8a8_quantize_plain's (xq, ascale) with each row's amax given
+    (amax [..., 1] f32: a max over more than x's own values)."""
+    ascale = torch.where(amax == 0, torch.ones_like(amax), amax / amax.new_full((), 127.0))
+    return torch.clamp(torch.round(x.float() / ascale), -127, 127).to(torch.int8), ascale
+
+
+def _rows_launch(x: torch.Tensor, mode: int, amax=None):
+    """One launch of csrc/w8a8_quantize.cu's row-parallel modes over x's
+    rows (bf16 on the card, a width a multiple of 8), else a raise."""
+    c = x.shape[-1]
+    if x.device.type != "cuda" or x.dtype != torch.bfloat16 or c % 8 or x.numel() == 0:
+        raise ValueError(f"w8a8_quantize: the kernel takes non-empty bf16 CUDA rows of a multiple of 8 values, "
+                         f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+    x2 = x.reshape(-1, c)
+    if x2.stride(1) != 1 or x2.stride(0) % 8 or x2.data_ptr() % 16:
+        x2 = x2.contiguous()
+    xq = ascale = None
+    if mode == 1:
+        amax = torch.empty((*x.shape[:-1], 1), dtype=torch.float32, device=x.device)
+    else:
+        xq = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+        ascale = torch.empty((*x.shape[:-1], 1), dtype=torch.float32, device=x.device)
+    rc = kernels.library().w8a8_quantize(x2.data_ptr(), x2.stride(0), None if xq is None else xq.data_ptr(),
+                                         amax.contiguous().data_ptr(), None if ascale is None else ascale.data_ptr(),
+                                         x2.shape[0], c, mode, kernels.stream_ptr(x.device))
+    kernels.check(rc, "w8a8_quantize (row-parallel)")
+    w8a8_quantize.launches += 1
+    return amax if mode == 1 else (xq, ascale)
+
+
+def w8a8_row_amax(x: torch.Tensor) -> torch.Tensor:
+    """Each row's amax of x as f32 [..., 1] (the first half of a
+    row-parallel quantization): the plain ops on the CPU, csrc/
+    w8a8_quantize.cu's mode 1 on the card."""
+    if x.device.type == "cpu":
+        return x.float().abs().amax(dim=-1, keepdim=True)
+    out = _rows_launch(x, 1)
+    w8a8_quantize.launches_amax += 1
+    return out
+
+
+def w8a8_quantize_scaled(x: torch.Tensor, amax: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """w8a8_scaled_plain's result (the second half): the plain version on
+    the CPU, csrc/w8a8_quantize.cu's mode 2 on the card."""
+    if x.device.type == "cpu":
+        return w8a8_scaled_plain(x, amax)
+    out = _rows_launch(x, 2, amax)
+    w8a8_quantize.launches_scaled += 1
+    return out
 
 
 def w8a8_matmul_plain(xq2: torch.Tensor, wq2: torch.Tensor) -> torch.Tensor:
@@ -246,10 +301,19 @@ def _rows(t: torch.Tensor, width: int) -> torch.Tensor:
                          "stride") from None
 
 
-def qeinsum_w8a8(eq: str, x: torch.Tensor, w: Any, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+def qeinsum_w8a8(eq: str, x: torch.Tensor, w: Any, dtype: torch.dtype = torch.bfloat16, tp=None) -> torch.Tensor:
     """qeinsum with dynamic per-token activation quantization (JAX's
     qeinsum_w8a8): both operands int8, the product summed exactly in s32,
     then (y.f32 * ascale * wscale).to(dtype).
+
+    With `tp` (a parallel.sharding.TensorShard) the product is
+    row-parallel: x holds this rank's slice of the contracted dim and w the
+    matching rows, and the result is JAX's qeinsum_w8a8 on the whole
+    operands as GSPMD partitions it: each row's amax of the slice is
+    all-reduced (MAX, f32) over the tensor group before the quantization,
+    and the s32 partial products are all-reduced (SUM, int32: |sum| <=
+    127^2 C stays below 2^31) before the scales apply. A product this path
+    does not take sums its weight-only result over the group instead.
 
     It takes (a) a per-output-channel QTensor and (b) an activation whose
     LAST dim is the single contracted dim, as JAX decides: the q/k/v,
@@ -260,34 +324,60 @@ def qeinsum_w8a8(eq: str, x: torch.Tensor, w: Any, dtype: torch.dtype = torch.bf
     expert for a weight with a leading kept expert axis, each writing its
     slice of the output in place. On the CPU an equation that is neither
     runs an exact int32 einsum, as JAX's s8 einsum; on the card it raises."""
+    def fallback():
+        y = qeinsum(eq, x, w, dtype)
+        return y if tp is None else tp.reduce(y)
+
     if not isinstance(w, QTensor):
-        return qeinsum(eq, x, w, dtype)
+        return fallback()
     ins, out = eq.split("->")
     xsub, wsub = ins.split(",")
     contracted = [c for c in xsub if c not in out]
     if len(contracted) != 1 or xsub[-1] != contracted[0]:
-        return qeinsum(eq, x, w, dtype)
+        return fallback()
     for i, letter in enumerate(wsub):
         if letter not in out and w.scale.shape[i] != 1:
-            return qeinsum(eq, x, w, dtype)
-    xq, ascale = w8a8_quantize(x)
+            return fallback()
+    if tp is None:
+        xq, ascale = w8a8_quantize(x)
+    else:
+        xq, ascale = w8a8_quantize_scaled(x, tp.reduce(w8a8_row_amax(x), op=dist.ReduceOp.MAX))
     sizes = dict(zip(xsub, x.shape))
     sizes.update(zip(wsub, w.q.shape))
     c = x.shape[-1]
+    shape = [sizes[letter] for letter in out]
+    y = torch.empty(shape, dtype=dtype, device=x.device)
+    # Row-parallel: the s32 partials first, summed over the group, then the
+    # epilogue (w8a8_scale, the kernel's own formula) into y.
+    raw = None if tp is None else torch.empty(shape, dtype=torch.int32, device=x.device)
     if _contracted_count(eq, 0) == 1:
-        y = torch.empty([sizes[letter] for letter in out], dtype=dtype, device=x.device)
         q2, s1 = w8a8_operands(w, c)
-        w8a8_matmul(xq.reshape(-1, c), ascale.reshape(-1), q2, s1, y.view(-1, q2.shape[1]))
+        a1 = ascale.reshape(-1)
+        if raw is None:
+            w8a8_matmul(xq.reshape(-1, c), a1, q2, s1, y.view(-1, q2.shape[1]))
+            return y
+        w8a8_matmul(xq.reshape(-1, c), a1, q2, s1, raw.view(-1, q2.shape[1]), raw=True)
+        y.view(-1, q2.shape[1]).copy_(w8a8_scale(tp.reduce(raw).view(-1, q2.shape[1]), a1, s1, dtype))
         return y
     split = _expert_split(eq, 1)
     if split is not None and split[3] == 1:
         _, x_axis, out_axis, _ = split
-        y = torch.empty([sizes[letter] for letter in out], dtype=dtype, device=x.device)
         for e in range(w.q.shape[0]):
             xe, ae = (xq, ascale) if x_axis < 0 else (xq.select(x_axis, e), ascale.select(x_axis, e))
             q2, s1 = w8a8_operands(w, c, e)
-            w8a8_matmul(_rows(xe, c), _rows(ae, 1)[:, 0], q2, s1, _rows(y.select(out_axis, e), q2.shape[1]))
+            dest = y if raw is None else raw
+            w8a8_matmul(_rows(xe, c), _rows(ae, 1)[:, 0], q2, s1, _rows(dest.select(out_axis, e), q2.shape[1]),
+                        raw=raw is not None)
+        if raw is not None:
+            tp.reduce(raw)
+            for e in range(w.q.shape[0]):
+                ae = ascale if x_axis < 0 else ascale.select(x_axis, e)
+                ye = _rows(y.select(out_axis, e), w.q.shape[-1])
+                ye.copy_(w8a8_scale(_rows(raw.select(out_axis, e), w.q.shape[-1]), _rows(ae, 1)[:, 0],
+                                    w8a8_operands(w, c, e)[1], dtype))
         return y
+    if tp is not None:
+        raise ValueError(f"qeinsum_w8a8: {eq!r} has no row-parallel form here")
     if x.device.type != "cpu":
         raise ValueError(f"qeinsum_w8a8: {eq!r} does not fit the w8a8 kernel (the contracted dim last in x and "
                          "first in w, kept dims in order, after at most one leading expert axis)")

@@ -130,9 +130,26 @@ into a NullSink. Under a sync the scheduler is the synchronous one (a
 settled batch each broadcast) with the idle tick of the JAX engine; under
 a tensor axis the decode step runs eagerly (no CUDA graph can capture
 gloo's collectives).
+
+A mesh with a data axis above 1 splits the batch's slots into blocks,
+as a NamedSharding of the batch over "data" lays them out: replica d owns
+slots [d B/dp, (d+1) B/dp). The scheduler stays replicated (every rank
+keeps every slot's state); a decode step runs the model on the replica's
+own rows only, and the step's sampled tokens are exchanged over the data
+group (an all-reduce of each replica's rows written into a zeroed [B]
+buffer), at the same point of every iteration on every rank, so every
+rank applies every row's token. The dense cache holds the owned rows
+only ([L, B/dp, KH, S, D]): a prefill runs on the slot's replica, which
+broadcasts the first token over the data group. The paged pool is
+replicated, as the JAX package keeps it (its block tables are global and a
+prefix hit may name a page another replica's prompt wrote): every replica
+runs every prefill, so every page a prompt writes is on every replica,
+while decode writes land in pages only their own row reads (the prefix
+registry holds prompt pages alone).
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import itertools
@@ -142,11 +159,11 @@ import queue
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-
+import torch.distributed as dist
 from torch import nn
 
 from substratus_tpu_torch.models import registry
@@ -489,6 +506,18 @@ class Engine:
                              "split pools across gangs)")
         self.mesh = mesh
         tensor = mesh.shape["tensor"] if mesh is not None else 1
+        self.data = mesh.shape["data"] if mesh is not None else 1
+        if self.data > 1:
+            if sync is None:
+                raise ValueError("a data axis above 1 needs the gang's replicated scheduler (sync)")
+            if ec.max_batch % self.data:
+                raise ValueError(f"max_batch {ec.max_batch} is not a multiple of data={self.data} (serve.main rounds "
+                                 "it up, as the JAX entry point does)")
+        per = ec.max_batch // self.data
+        # This replica's block of slots: [lo, hi).
+        self.rows = (mesh.coords["data"] * per, (mesh.coords["data"] + 1) * per) if self.data > 1 else (0, per)
+        # Host-clock seconds of the last decode steps' token exchanges (data > 1).
+        self.exchange_s: Deque[float] = collections.deque(maxlen=4096)
         tp = getattr(params, "tp", None)
         if (tp.size if tp is not None else 1) != tensor:
             raise ValueError(f"the mesh's tensor axis is {tensor} but params are a shard of "
@@ -551,7 +580,8 @@ class Engine:
             self.slot_pages = SlotPages(B)
         else:
             check_head_dim(cfg.head_size, "the engine's dense kv layout")
-            self.cache = model.init_cache(cfg, B, S, dtype=cache_dtype, device=self.device, padded=padded_cache)
+            self.cache = model.init_cache(cfg, B // self.data, S, dtype=cache_dtype, device=self.device,
+                                          padded=padded_cache)
         if ec.spec_k < 0:
             raise ValueError(f"spec_k {ec.spec_k} invalid")
         self.spec = bool(ec.spec_k)
@@ -596,9 +626,9 @@ class Engine:
         # A prefill-role engine never decodes, and a gang's broadcast needs a
         # settled batch: nothing to pipeline.
         self.overlap = ec.overlap is not False and ec.role != "prefill" and self.sync is None
-        # No CUDA graph captures a tensor axis's collectives (gloo's run on
-        # the host): its decode step runs eagerly.
-        self.decode_graph = decode_graph and self.device.type == "cuda" and tensor == 1
+        # No CUDA graph captures a mesh's collectives (gloo's run on the
+        # host): its decode step runs eagerly.
+        self.decode_graph = decode_graph and self.device.type == "cuda" and tensor == 1 and self.data == 1
 
         # Per-slot decode inputs live on the host and go to the device
         # each step (a few bytes per row).
@@ -1170,7 +1200,7 @@ class Engine:
                 self._admitting = None
                 self._resume.insert(0, req)
                 break
-            slot = int(np.flatnonzero(~self.active)[0])
+            slot = self._free_slot()
             # Queue wait is submission -> first prefill; a preempted
             # request boarding again (last_emit_ts set) already paid it.
             if req.submit_ts and not req.last_emit_ts:
@@ -1394,6 +1424,23 @@ class Engine:
             return {}
         return {"lora": self.adapters.device_tree(), "adapter_ids": adapter_ids}
 
+    def _free_slot(self) -> int:
+        """The slot an admission takes: the first free one; under a data
+        axis the first free one of the replica decoding the fewest rows,
+        so that the replicas share the batch (JAX's engine takes the first
+        free slot, and its first replica decodes every row of a batch up
+        to B/dp; the rows' tokens are the same either way)."""
+        free = np.flatnonzero(~self.active)
+        if self.data == 1:
+            return int(free[0])
+        per = self.ec.max_batch // self.data
+        load = self.active.reshape(self.data, per).sum(axis=1)
+        return int(min(free, key=lambda s: (load[s // per], s)))
+
+    def _owns(self, slot: int) -> bool:
+        """Whether this data replica's block holds `slot`."""
+        return self.rows[0] <= slot < self.rows[1]
+
     def _admit_dense(self, req: Request, slot: int) -> None:
         t0 = time.perf_counter()
         prompt = self.clipped_prompt(req.prompt_tokens)
@@ -1402,7 +1449,11 @@ class Engine:
         # An empty prompt, as the reference's dense path admits it, pads to
         # the smallest bucket and samples from the last padded row
         # (true_len - 1 = -1); decoding starts at position 0.
-        if true_len <= self.ec.max_prefill_len:
+        if not self._owns(slot):
+            # Another data replica's slot: its prefill runs there, and the
+            # first token arrives by _finalize_admit's broadcast.
+            last_logits = None
+        elif true_len <= self.ec.max_prefill_len:
             padded, true_len = _pad_to_bucket(prompt, self.ec.max_prefill_len)
             with torch.inference_mode():  # serving builds no autograd graph
                 logits, kv = self.model.forward(self.params, self._to_device(padded), self.cfg, **lora)
@@ -1425,7 +1476,8 @@ class Engine:
         chunks written in place into cache[:, slot] (a view whose per-layer
         slices are contiguous), each attending everything before it.
         Returns the last real token's logits."""
-        slot_cache = {name: t[:, slot : slot + 1] for name, t in self.cache.items()}
+        row = slot - self.rows[0]  # the slot's row of this replica's dense cache
+        slot_cache = {name: t[:, row : row + 1] for name, t in self.cache.items()}
         return self._run_chunks(prompt, 0, cache=slot_cache, lora=lora)
 
     def _run_chunks(self, prompt: List[int], start: int, cache: Dict[str, torch.Tensor],
@@ -1534,9 +1586,10 @@ class Engine:
         """Write a prefill fragment {k, v: [L, 1, Sb, KH, hd]} into
         cache[:, slot, :, :Sb] (quantized when the cache is int8)."""
         frag = pack_fragment(self.cache, kv)
+        row = slot - self.rows[0]  # the slot's row of this replica's dense cache
         for key, value in frag.items():
             sb = value.shape[3]
-            self.cache[key][:, slot, :, :sb].copy_(value[:, 0])
+            self.cache[key][:, row, :, :sb].copy_(value[:, 0])
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         """A host array on the engine's device; on the card through pinned
@@ -1553,11 +1606,15 @@ class Engine:
 
     def _finalize_admit(self, req: Request, slot: int, last_logits, true_len: int) -> None:
         t_sample = time.perf_counter()
-        first = self._sample(
-            last_logits[None, :],
-            np.array([req.temperature], np.float32),
-            np.array([req.top_p], np.float32),
-        )
+        first = None
+        if last_logits is not None:
+            first = self._sample(
+                last_logits[None, :],
+                np.array([req.temperature], np.float32),
+                np.array([req.top_p], np.float32),
+            )
+        if self.data > 1 and not self.paged:
+            first = self._share_first(first, slot)
         first_id = int(first[0])  # the host read of the first token
         METRICS.observe("substratus_serve_phase_seconds", time.perf_counter() - t_sample, {"phase": "sample"})
         if self.ec.role == "prefill":
@@ -1584,18 +1641,49 @@ class Engine:
         self.top_ps[slot] = req.top_p
         self._emit(slot, first_id)
 
+    def _share_first(self, first: Optional[torch.Tensor], slot: int) -> torch.Tensor:
+        """A dense admission's first token [1] on every data replica: the
+        slot's replica sampled it, and broadcasts it over the data group
+        from its rank of this rank's other coordinates (ranks are laid out
+        data-major, parallel/mesh.py)."""
+        buf = torch.zeros((1,), dtype=torch.int64, device=self.device)
+        if first is not None:
+            buf.copy_(first)
+        per_replica = self.mesh.size // self.data
+        src = slot // (self.ec.max_batch // self.data) * per_replica + self.mesh.rank % per_replica
+        dist.broadcast(buf, src=src, group=self.mesh.group("data"))
+        return buf
+
+    def _exchange(self, sampled: torch.Tensor) -> torch.Tensor:
+        """Every row's token [B] from each data replica's own rows: its
+        sampled rows written into a zeroed buffer, summed over the data
+        group (gloo takes no all_gather of CUDA tensors; zeros add
+        exactly)."""
+        t0 = time.perf_counter()
+        full = torch.zeros((self.ec.max_batch,), dtype=torch.int64, device=self.device)
+        full[self.rows[0]:self.rows[1]] = sampled
+        dist.all_reduce(full, group=self.mesh.group("data"))
+        self.exchange_s.append(time.perf_counter() - t0)
+        return full
+
     def _device_step(self, cfg, tokens: torch.Tensor, positions: torch.Tensor,
                      temps: torch.Tensor, top_ps: torch.Tensor,
                      block_table: Optional[torch.Tensor] = None,
                      adapter_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The decode step's device work: advance every slot one token (the
         cache is written in place; on the paged pool through the block
-        table; each row with its adapter) and sample, all on the device."""
+        table; each row with its adapter) and sample, all on the device.
+        Under a data axis: this replica's rows only, then the exchange."""
         kw = self._batch_lora(adapter_ids)
+        if self.data > 1:
+            lo, hi = self.rows
+            tokens, positions, temps, top_ps = tokens[lo:hi], positions[lo:hi], temps[lo:hi], top_ps[lo:hi]
+            block_table = None if block_table is None else block_table[lo:hi]
         if block_table is not None:
             kw["block_table"] = block_table
         logits, _ = self.model.decode_step(self.params, self.cache, tokens, positions, cfg, **kw)
-        return sample(logits, self.generator, temps, top_k=self.ec.top_k, top_p=top_ps)
+        sampled = sample(logits, self.generator, temps, top_k=self.ec.top_k, top_p=top_ps)
+        return sampled if self.data == 1 else self._exchange(sampled)
 
     def _verify_step(self, cfg, tokens: torch.Tensor, positions: torch.Tensor,
                      temps: torch.Tensor, top_ps: torch.Tensor,

@@ -123,15 +123,19 @@ names one (JAX_NUM_PROCESSES > 1 with JAX_COORDINATOR_ADDRESS set, this
 process's rank in TPU_WORKER_ID) makes every process join it with a TCP
 rendezvous at the coordinator's address, one process a card: rank r runs
 on cuda:(r % the cards it sees), or on the CPU with ``--device cpu``. The
-ranks form a ``tensor`` x ``data`` mesh: ``tensor`` is params.json's,
-else the largest size up to the world that divides the kv heads (the JAX
-entry point's loop); a mesh with ``data`` above 1 exits (this slice
-serves one replica a gang), and so do speculation, adapters, a
-disaggregated role, int4 and w8a8 weights in a gang, each naming ROADMAP
-Queue 1. Every rank loads the checkpoint and keeps its tensor shard
-(models/llama.py's shard_model; an HF directory is staged a layer at a
-time, so no rank holds the whole model), and runs the engine over it with
-the scheduler replicated by a per-iteration broadcast. Only rank 0, the
+ranks form a ``data`` x ``tensor`` mesh: ``tensor`` is params.json's,
+lowered until it divides the kv heads (the JAX entry point's loop: the
+llama2-70b example's 16 on 16 ranks is data=2 x tensor=8), else the
+largest size up to the world that divides them; ``data`` is the rest,
+printed as the JAX entry point's ``serving mesh`` line, and ``max_batch``
+rounds up to a multiple of it. Speculation, adapters and a disaggregated
+role in a gang exit, naming ROADMAP Queue 1. Every rank loads the
+checkpoint and keeps its tensor shard (models/llama.py's shard_model, any
+weight mode: int4 in whole scale groups or whole, w8a8 as int8; an HF
+directory is staged a layer at a time, so no rank holds the whole model),
+and runs the engine over it with the scheduler replicated by a
+per-iteration broadcast; each data replica decodes its own block of
+slots (serve/engine.py). Only rank 0, the
 leader, binds HTTP; a follower runs no server, mirrors the leader until
 its stop broadcast and exits 0, or 1 if its engine failed. The leader exits
 1 when the gang fails under it (a follower's death fails its next
@@ -318,8 +322,9 @@ def resolve_tensor(params: Dict[str, Any]) -> Optional[int]:
 def gang_mesh(world: int, params: Dict[str, Any], cfg):
     """The gang's mesh: tensor from params.json, else the largest size up
     to the world that divides the kv heads, lowered until it divides both
-    (the JAX entry point's loop); data the rest. Exits on a tensor above
-    the world and on data above 1."""
+    (the JAX entry point's loop: llama2-70b's 8 kv heads take the example's
+    tensor 16 on 16 ranks as data=2 x tensor=8); data the rest. Exits on a
+    tensor above the world."""
     from substratus_tpu_torch.parallel.mesh import build_mesh
 
     tensor = resolve_tensor(params)
@@ -328,16 +333,48 @@ def gang_mesh(world: int, params: Dict[str, Any], cfg):
     tp = tensor or min(world, cfg.n_kv_heads)
     while world % tp or cfg.n_kv_heads % tp:
         tp -= 1
-    if world // tp > 1:
-        raise SystemExit(f"a gang of {world} with tensor={tp} (kv heads {cfg.n_kv_heads}) would serve data="
-                         f"{world // tp} replicas; data > 1 in a gang is not served by the PyTorch port yet: "
-                         f"ROADMAP {_GANG_NEXT}")
     return build_mesh(data=world // tp, tensor=tp)
+
+
+def mesh_line(mesh) -> str:
+    """The JAX entry point's line naming the serving mesh (its sequence
+    axis is not served here)."""
+    return f"serving mesh: data={mesh.shape['data']} tensor={mesh.shape['tensor']}"
+
+
+def gang_batch(max_batch: int, mesh) -> int:
+    """max_batch rounded up to a multiple of the mesh's data axis, as the
+    JAX entry point rounds it: each data replica owns an equal block of
+    slots."""
+    dp = mesh.shape["data"] if mesh is not None else 1
+    return max_batch if max_batch % dp == 0 else (max_batch // dp + 1) * dp
+
+
+def shard_layout(params) -> str:
+    """The startup line's account of a rank's quantized weights: each
+    kind's storage and whether its slices are row-parallel, column-parallel
+    or whole on every rank (an int4 weight q4_row_parallel keeps whole)."""
+    tp = getattr(params, "tp", None)
+    if tp is None:
+        return "whole (tensor=1)"
+    layer = params.layers[0]
+    kinds = []
+    for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+        w = getattr(layer, name)
+        mode = "int4" if hasattr(w, "packed") else "int8" if hasattr(w, "q") else "dense"
+        if name == "w_down" and tp.down_whole:
+            how = "whole"
+        elif name in ("wo", "w_down"):
+            how = "row-parallel" if name == "wo" or tp.mlp_sharded else "whole"
+        else:
+            how = "column-parallel"
+        kinds.append(f"{name} {mode} {how}")
+    return ", ".join(kinds)
 
 
 def check_gang_params(params: Dict[str, Any], args) -> None:
     """Exit on what a gang does not serve yet, before the rendezvous:
-    speculation, adapters, a disaggregated role, int4 and w8a8 weights."""
+    speculation, adapters, a disaggregated role."""
     refused = []
     if resolve_spec(args.spec_k, args.draft_model, params)[0]:
         refused.append("speculative decoding")
@@ -345,8 +382,6 @@ def check_gang_params(params: Dict[str, Any], args) -> None:
         refused.append("multi-tenant adapters")
     if resolve_role(args.role, params) != "both":
         refused.append("a disaggregated role")
-    if resolve_quantize(params) in ("int4", "w8a8"):
-        refused.append(f"quantize={resolve_quantize(params)}")
     if refused:
         raise SystemExit(f"{', '.join(refused)} in a gang: not served by the PyTorch port yet: ROADMAP {_GANG_NEXT}")
 
@@ -670,7 +705,7 @@ def build(argv=None):
     def knob(flag, key, default):
         return flag if flag is not None else params_json.get(key, default)
 
-    max_batch = int(knob(args.max_batch, "max_batch", 8))
+    max_batch = gang_batch(int(knob(args.max_batch, "max_batch", 8)), mesh)
     # Bounded admission: 4x max_batch waiters by default, 0 = unbounded,
     # as the JAX entry point has it.
     max_queue = int(params_json.get("max_queue", 4 * max_batch))
@@ -731,12 +766,14 @@ def build(argv=None):
     if gang is not None:
         gang_line = (f"; gang: rank {gang.rank}/{gang.world} ({'leader' if gang.leader else 'follower'}), mesh "
                      f"{mesh.describe()}, data backend {gang.backend} (event broadcast: gloo), device {device}, "
-                     f"collective timeout {gang.timeout_s} s")
+                     f"collective timeout {gang.timeout_s} s; weights {quantize}: {shard_layout(params)}; max_batch "
+                     f"{max_batch} (slots {engine.rows[0]}-{engine.rows[1] - 1} on this data replica)")
     if gang is not None and not gang.leader:
         # A follower binds no HTTP: it mirrors the leader's scheduler.
         engine.start()
         print(f"gang follower of {name} ({device}); scheduler: synchronous (lockstep), decode step eager, graph: "
               f"off (gang){gang_line}", flush=True)
+        print(mesh_line(mesh), flush=True)
         return Follower(engine)
 
     def checkpoint_loader(ref: str):
@@ -805,6 +842,8 @@ def build(argv=None):
           f"speculative decoding: {spec}; role: {role}; weights digest {weights_digest(params)}; adapters: "
           + ("none" if adapters is None else f"{adapters.loaded_ids()} resident of {adapters.available_ids()} "
              f"(capacity {adapters.capacity}, rank {adapters.rank})") + gang_line, flush=True)
+    if mesh is not None:
+        print(mesh_line(mesh), flush=True)
     return server
 
 

@@ -22,16 +22,31 @@ it and the leader writes the full-vocab logits beside the result
 keeps it idling until its engine fails (the test of a killed follower;
 ``{out}.hold`` marks the moment) and exits 1.
 
+The mesh is serve.main's (``gang_mesh``): ``tensor`` from the params,
+or the world over ``--data``; ``max_batch`` rounds up to a multiple of
+the data axis. ``--quantize`` (none, int8, int4, w8a8; else the params'
+``quantize``) quantizes the whole weights before each rank takes its
+shard (``--weights``), or loads them so (``--model``/``--config``).
+
+``--params`` may be a JSON list: the rank then serves one leg a params
+object, in turn, in the one gang (each leg its own mesh groups, engine and
+stop), with ``--requests`` one plan for every leg or a list of them; the
+result holds ``{"legs": [...]}``, the last leg's ``--hold`` too.
+
 With ``--probe-allreduce`` every rank first times the tensor group's
 all-reduce in the model's dtype on its device at the decode step's and a
 prefill chunk's activation shapes ([8, 1, dim] and [1, 512, dim]; the
-median of 50).
+median of 50), and with a data axis the token exchange's all-reduce
+([max_batch] int64) and the int32 all-reduce of a row-parallel w8a8
+w_down's partials ([16, 1, dim]).
 
 The result (``--out``): rank, world, leader, the startup line (backend,
-mesh, device, collective timeout), tokens and finish reasons a request
-(the leader's with its time to first token), the broadcast timings
-``[(bytes, seconds)]``, the engine's stats and error, the kernel launches
-(serve/server.py's counters) and on the card the peak memory.
+mesh, device, collective timeout, weight mode), the mesh's shape and this
+rank's coordinates, tokens and finish reasons a request (the leader's with
+its time to first token), the broadcast timings ``[(bytes, seconds)]``,
+the data exchange's host-clock seconds a step, the engine's stats and
+error, the kernel launches (serve/server.py's counters) and on the card
+the peak memory.
 """
 from __future__ import annotations
 
@@ -75,7 +90,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--vocab", type=int, default=None, help="--config's vocab size (with --weights)")
     ap.add_argument("--dtype", default="bfloat16", help="--config's dtype (with --weights)")
     ap.add_argument("--params", default="{}", help="params.json's keys as a JSON object (kv_layout, max_batch, "
-                                                   "max_seq_len, max_prefill_len, kv_cache_dtype, quantize, tensor)")
+                                                   "max_seq_len, max_prefill_len, kv_cache_dtype, quantize, tensor), "
+                                                   "or a list of them: one leg each")
+    ap.add_argument("--quantize", default=None, help="the weight mode (none|int8|int4|w8a8; default: the params')")
+    ap.add_argument("--data", type=int, default=None, help="the mesh's data axis (tensor = world / data)")
     ap.add_argument("--eos", type=int, default=None, help="the engine's eos id (default: the tokenizer's)")
     ap.add_argument("--logits", default=None, help="a JSON token batch [[ids], ...] run through one forward")
     ap.add_argument("--hold", action="store_true", help="after the requests, idle until the engine fails")
@@ -91,16 +109,19 @@ def load(args, params_json, gang):
     from substratus_tpu_torch.serve import main as serve_main
     from substratus_tpu_torch.tools.ckpt_writer import shape_overrides
 
+    quantize = serve_main.resolve_quantize(params_json)
     if args.weights:
         cfg = shape_overrides(llama.CONFIGS[args.config], args.shape).replace(dtype=getattr(torch, args.dtype))
         if args.vocab:
             cfg = cfg.replace(vocab_size=args.vocab)
         whole = llama.Llama(cfg, device=gang.device)
         whole.load_state_dict(torch.load(args.weights, map_location=gang.device, weights_only=True))
+        llama.quantize_weights(whole, serve_main.weight_mode(quantize))
         mesh = serve_main.gang_mesh(gang.world, params_json, cfg)
         params = llama.shard_model(whole, mesh)
         del whole
-        return params.cfg, params, mesh, args.eos if args.eos is not None else 2
+        return (params.cfg.replace(quant_activations=quantize == "w8a8"), params, mesh,
+                args.eos if args.eos is not None else 2)
     meshes = []
 
     def mesh_for(model_cfg):
@@ -109,7 +130,7 @@ def load(args, params_json, gang):
         return meshes[0]
 
     cfg, params, tokenizer, _, _, _ = serve_main.load_model(
-        args.model, args.config, params_json, gang.device, serve_main.resolve_quantize(params_json), mesh_for)
+        args.model, args.config, params_json, gang.device, quantize, mesh_for)
     return cfg, params, meshes[0], args.eos if args.eos is not None else tokenizer.eos_id
 
 
@@ -140,58 +161,75 @@ def leader_run(engine, plan) -> List[dict]:
     return [read(submit(i, spec), spec) for i, spec in enumerate(specs)]
 
 
-def probe_allreduce(mesh, cfg, device, reps: int = 50) -> dict:
+def probe_allreduce(mesh, cfg, device, max_batch: int, reps: int = 50) -> dict:
     """Median seconds of the tensor group's all-reduce at [8, 1, dim] and
-    [1, 512, dim] in the model's dtype (every rank calls it)."""
+    [1, 512, dim] in the model's dtype and at [16, 1, dim] int32 (a
+    row-parallel w8a8 w_down's partials; with MAX, [16, 1, 1] f32: its
+    rows' amax), and of the data group's token exchange ([max_batch]
+    int64), each axis above 1 (every rank calls it)."""
     import statistics
 
     import torch.distributed as dist
 
+    cases = []
+    if mesh.shape["tensor"] > 1:
+        cases += [("tensor", (8, 1, cfg.dim), cfg.dtype, dist.ReduceOp.SUM),
+                  ("tensor", (1, 512, cfg.dim), cfg.dtype, dist.ReduceOp.SUM),
+                  ("tensor", (16, 1, cfg.dim), torch.int32, dist.ReduceOp.SUM),
+                  ("tensor", (16, 1, 1), torch.float32, dist.ReduceOp.MAX)]
+    if mesh.shape["data"] > 1:
+        cases.append(("data", (max_batch,), torch.int64, dist.ReduceOp.SUM))
     out = {}
-    for shape in ((8, 1, cfg.dim), (1, 512, cfg.dim)):
-        x = torch.zeros(shape, dtype=cfg.dtype, device=device)
+    for axis, shape, dtype, op in cases:
+        x = torch.zeros(shape, dtype=dtype, device=device)
         times = []
         for i in range(reps + 5):
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             t0 = time.perf_counter()
-            dist.all_reduce(x, group=mesh.group("tensor"))
+            dist.all_reduce(x, op=op, group=mesh.group(axis))
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             if i >= 5:
                 times.append(time.perf_counter() - t0)
-        out["x".join(map(str, shape))] = statistics.median(times)
+        key = "x".join(map(str, shape))
+        if dtype != cfg.dtype:
+            key += f"_{str(dtype).removeprefix('torch.')}" + ("_max" if op == dist.ReduceOp.MAX else "")
+        out[key] = statistics.median(times)
     return out
 
 
-def main(argv=None) -> int:
-    from substratus_tpu_torch.parallel import distributed
+def run_leg(args, gang, params_json: dict, plan: dict, hold: bool) -> dict:
+    """One leg: load this rank's shard, serve the plan (the leader) or
+    mirror it (a follower), stop; the leg's result."""
+    from substratus_tpu_torch.serve import main as serve_main
     from substratus_tpu_torch.serve.engine import Engine, EngineConfig
     from substratus_tpu_torch.serve.multihost import StepSync
     from substratus_tpu_torch.serve.server import kernel_launches
 
-    args = parse_args(argv)
-    params_json = json.loads(args.params)
-    if not distributed.maybe_initialize(args.timeout, "cpu" if args.device == "cpu" else "cuda"):
-        raise SystemExit("gang_worker needs the gang environment: JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES > 1, "
-                         "TPU_WORKER_ID")
-    gang = distributed.current()
+    params_json = dict(params_json)
+    if args.quantize is not None:
+        params_json["quantize"] = args.quantize
+    if args.data is not None and "tensor" not in params_json:
+        params_json["tensor"] = gang.world // args.data
     cfg, params, mesh, eos = load(args, params_json, gang)
-    with open(args.requests) as f:
-        plan = json.load(f)
-    ec = EngineConfig(max_batch=int(params_json.get("max_batch", 4)),
+    ec = EngineConfig(max_batch=serve_main.gang_batch(int(params_json.get("max_batch", 4)), mesh),
                       max_seq_len=int(params_json.get("max_seq_len", 64)),
                       max_prefill_len=int(params_json.get("max_prefill_len", EngineConfig.max_prefill_len)),
                       kv_cache_dtype=params_json.get("kv_cache_dtype", "model"),
-                      kv_layout=params_json.get("kv_layout", "auto"), eos_token_id=eos)
+                      kv_layout=params_json.get("kv_layout", "auto"), eos_token_id=eos,
+                      kv_pool_tokens=params_json.get("kv_pool_tokens"))
     sync = StepSync()
     engine = Engine(cfg, params, ec, device=gang.device, mesh=mesh, sync=sync)
+    RecordingSink.made = []
     engine.follower_sink = RecordingSink
+    quantize = serve_main.resolve_quantize(params_json)
     line = (f"gang worker rank {gang.rank}/{gang.world} ({'leader' if gang.leader else 'follower'}); mesh "
             f"{mesh.describe()}; data backend {gang.backend} (event broadcast: gloo); device {gang.device}; "
             f"kv_layout {'paged' if engine.paged else 'dense'}; decode step "
             f"{'one CUDA graph' if engine.decode_graph else 'eager'}; heads {cfg.n_heads} kv heads "
-            f"{cfg.n_kv_heads} per rank; collective timeout {gang.timeout_s} s")
+            f"{cfg.n_kv_heads} per rank; weights {quantize}: {serve_main.shard_layout(params)}; max_batch "
+            f"{ec.max_batch}, slots {engine.rows[0]}-{engine.rows[1] - 1} here; collective timeout {gang.timeout_s} s")
     print(line, flush=True)
     if gang.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(gang.device)
@@ -203,19 +241,20 @@ def main(argv=None) -> int:
         if gang.leader:
             np.save(args.out + ".logits.npy", logits.float().cpu().numpy())
     result = {"rank": gang.rank, "world": gang.world, "leader": gang.leader, "startup": line,
-              "backend": gang.backend, "mesh": mesh.shape, "device": str(gang.device), "n_layers": cfg.n_layers}
+              "backend": gang.backend, "mesh": mesh.shape, "coords": mesh.coords, "device": str(gang.device),
+              "n_layers": cfg.n_layers, "max_batch": ec.max_batch, "rows": list(engine.rows), "quantize": quantize}
     if args.probe_allreduce:
-        result["allreduce_s"] = probe_allreduce(mesh, cfg, gang.device)
+        result["allreduce_s"] = probe_allreduce(mesh, cfg, gang.device, ec.max_batch)
     engine.start()
-    exit_code = 0
+    result["held"] = False
     if gang.leader:
         t0 = time.perf_counter()
         result["requests"] = leader_run(engine, plan)
         result["seconds"] = time.perf_counter() - t0
-        if args.hold:
+        if hold:
             open(args.out + ".hold", "w").close()
             engine._thread.join(timeout=args.timeout + 60)
-            exit_code = 1
+            result["held"] = True
         else:
             engine.stop()
     else:
@@ -225,17 +264,45 @@ def main(argv=None) -> int:
     result["error"] = repr(engine.error) if engine.error else None
     result["stats"] = dict(engine.stats)
     result["timings"] = list(sync.timings)
+    result["exchange_s"] = list(engine.exchange_s)
     result["launches"] = kernel_launches(engine)
     if gang.device.type == "cuda":
         result["peak_memory_bytes"] = torch.cuda.max_memory_allocated(gang.device)
+    del engine, params
+    if gang.device.type == "cuda":
+        torch.cuda.empty_cache()
+    return result
+
+
+def main(argv=None) -> int:
+    from substratus_tpu_torch.parallel import distributed
+
+    args = parse_args(argv)
+    params_json = json.loads(args.params)
+    if not distributed.maybe_initialize(args.timeout, "cpu" if args.device == "cpu" else "cuda"):
+        raise SystemExit("gang_worker needs the gang environment: JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES > 1, "
+                         "TPU_WORKER_ID")
+    gang = distributed.current()
+    with open(args.requests) as f:
+        plans = json.load(f)
+    legs = params_json if isinstance(params_json, list) else [params_json]
+    plans = plans if isinstance(plans, list) else [plans] * len(legs)
+    results = []
+    for i, (leg, plan) in enumerate(zip(legs, plans)):
+        results.append(run_leg(args, gang, leg, plan, args.hold and i == len(legs) - 1))
+        if results[-1]["error"] is not None:
+            break
+    result = results[0] if not isinstance(params_json, list) else {"legs": results, "rank": gang.rank}
     with open(args.out, "w") as f:
         json.dump(result, f)
-    if engine.error is not None:
-        print(f"rank {gang.rank} engine died: {engine.error!r}", file=sys.stderr, flush=True)
+    error = results[-1]["error"]
+    if error is not None:
+        print(f"rank {gang.rank} engine died: {error}", file=sys.stderr, flush=True)
         return 1
-    if exit_code == 0:
-        distributed.shutdown()
-    return exit_code
+    if results[-1]["held"]:
+        return 1
+    distributed.shutdown()
+    return 0
 
 
 if __name__ == "__main__":

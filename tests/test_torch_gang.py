@@ -295,9 +295,11 @@ def test_serve_main_gang_killed_follower_fails_the_leader(tmp_path):
 
 def test_gang_refusals_cite_roadmap(tmp_path, monkeypatch):
     """In a gang, serve.main exits before the rendezvous on speculation,
-    adapters, a role, int4 and w8a8, and gang_mesh on data > 1 and on a
-    tensor above the world, each citing ROADMAP Queue 1; outside a gang,
-    tensor above 1 exits."""
+    adapters and a role, each citing ROADMAP Queue 1, and gang_mesh on a
+    tensor above the world; int4 and w8a8 pass the gang's check and
+    gang_mesh lays out data > 1 (tests/test_torch_gang_quant.py and
+    tests/test_torch_gang_data.py serve them); outside a gang, tensor above
+    1 exits."""
     params = tmp_path / "p.json"
     base = ["--device", "cpu", "--params", str(params), "--host", "127.0.0.1", "--port", "0"]
     params.write_text(json.dumps({"config": "tiny", "tensor": 2}))
@@ -306,13 +308,20 @@ def test_gang_refusals_cite_roadmap(tmp_path, monkeypatch):
     for var, value in _gang_env(0, 1).items():
         monkeypatch.setenv(var, value)
     for extra, flags, what in (({"spec_k": 3}, [], "speculative decoding"), ({}, ["--role", "decode"], "role"),
-                               ({"quantize": "int4"}, [], "quantize=int4"), ({"quantize": "w8a8"}, [], "w8a8"),
+                               ({"quantize": "int4"}, [], None), ({"quantize": "w8a8"}, [], None),
                                ({"adapters": {"dir": str(tmp_path)}}, [], "adapters")):
         params.write_text(json.dumps({"config": "tiny", **extra}))
+        if what is None:
+            assert main.check_gang_params(extra, main.parse_args(base + flags)) is None
+            continue
         with pytest.raises(SystemExit, match=rf"{what}.* ROADMAP Queue 1, multi-GPU \(the next gang slice\)"):
             main.build(base + flags)
-    with pytest.raises(SystemExit, match=r"data=2 replicas; .* ROADMAP Queue 1"):
-        main.gang_mesh(2, {"tensor": 1}, T_CFG)
+    from substratus_tpu_torch.parallel import mesh as pmesh
+
+    built = []
+    monkeypatch.setattr(pmesh, "build_mesh", lambda **kw: built.append(kw))
+    main.gang_mesh(2, {"tensor": 1}, T_CFG)
+    assert built == [{"data": 2, "tensor": 1}]
     with pytest.raises(SystemExit, match="tensor=4 is larger than the gang"):
         main.gang_mesh(2, {"tensor": 4}, T_CFG)
     params.write_text(json.dumps({"config": "tiny", "sequence": 2}))

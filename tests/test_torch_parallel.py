@@ -9,7 +9,8 @@ addressable shard on the tensor-axis device r of an in-process CPU mesh
 (tensor=2), including leaves that `fit` leaves whole (an odd vocab). The
 shards load into the config shard_config gives, and shard_model of the
 port's model equals them, as does an HF directory loaded as each rank's
-shard a layer at a time (dense and int8); int4 and w8a8 weights refuse.
+shard a layer at a time (dense and int8); int4 and w8a8 weights shard
+(held against JAX's shards in tests/test_torch_gang_quant.py).
 """
 import jax
 import jax.numpy as jnp
@@ -162,11 +163,16 @@ def test_rank_shards_equal_jax_addressable_shards(vocab):
     with pytest.raises(ValueError, match="must divide the heads"):
         llama.shard_config(cfg, 4)
     m = mesh.build_mesh(tensor=2, world=2, rank=0)
-    with pytest.raises(NotImplementedError, match="int4 weights in a tensor-parallel gang .* Queue 1"):
-        llama.shard_model(llama.init_params(cfg, seed=0, device="cpu", quantize="int4"), m)
+    m.groups["tensor"] = None
+    # int4 and w8a8 shard (tests/test_torch_gang_quant.py holds their bytes
+    # against JAX's): tiny's int4 w_down stays whole, w8a8 slices as int8.
+    q4 = llama.shard_model(llama.init_params(cfg, seed=0, device="cpu", quantize="int4"), m)
+    assert q4.tp.down_whole and q4.layers[0].w_down.shape == (cfg.hidden_dim, cfg.dim)
+    assert q4.layers[0].wq.shape == (cfg.dim, cfg.n_heads // 2, cfg.head_size)
     w8a8 = llama.init_params(cfg.replace(quant_activations=True), seed=0, device="cpu", quantize="int8")
-    with pytest.raises(NotImplementedError, match="w8a8 in a tensor-parallel gang .* Queue 1"):
-        llama.shard_model(w8a8, m)
+    shard = llama.shard_model(w8a8, m)
+    assert shard.cfg.quant_activations and not shard.tp.down_whole
+    assert shard.layers[0].w_down.q.shape == (cfg.hidden_dim // 2, cfg.dim)
 
 
 @pytest.mark.parametrize("quantize", ["none", "int8"])
