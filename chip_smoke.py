@@ -304,7 +304,7 @@ Phases, each of which exits non-zero on failure:
               for the split design at 1024 rows;
   serve-batchgen
               examples/batch-generation/batchgen-server.yaml at llama2-7b
-              width, 4 of its 32 layers (seed 0, written as an HF
+              width, 2 of its 32 layers (seed 0, written as an HF
               directory): a 64-record
               manifest (48 text prompts of 16-1000 byte-tokens, 14 of
               token ids, one with no prompt, one naming an adapter). (a)
@@ -368,13 +368,13 @@ Phases, each of which exits non-zero on failure:
               split design's 4-warp instance, dQ and dK/dV;
   serve-moe   mixtral-8x7b at full width (D=4096, M=14336, 8 experts, top
               2, 32 heads on 8 kv heads; seed-0 weights) in four legs: (a)
-              int4 at 8 of its 32 layers (MOE_LAYERS), drawn and quantized
+              int4 at 4 of its 32 layers (MOE_LAYERS), drawn and quantized
               layer by layer on the
               card by serve.main (the peak while drawing printed beside the
               weights), the default engine (the paged pool, overlapped, the
               step one CUDA graph), 8 concurrent greedy requests of 20-400
               tokens, 32 tokens each: every expert product one int4 launch
-              an expert, (4 + 3 x 8) x 8 + 1 = 225 launches a forward by
+              an expert, (4 + 3 x 8) x 4 + 1 = 113 launches a forward by
               design (wgmma above 16 rows, decode up to it), every served
               token by the teacher-forced reference, the eager synchronous
               step token for token; (b) int8 at MOE_LAYERS on the dense
@@ -497,6 +497,40 @@ Phases, each of which exits non-zero on failure:
               sampled): both ranks' tokens equal, every greedy token by
               the rule against a single-process w8a8 forward, the
               row-parallel w_down's two w8a8_quantize modes counted;
+              (f)-(h) in one gang_worker call of five legs, two ranks of
+              tensor=2 at GANG_LAYERS: (f) examples/llama2-7b/
+              server-throughput.yaml's params (int4, int8 cache, B=24,
+              prompt lookup k=3) on the paged pool as written, then on the
+              dense cache (the cached flash carries every verify wider
+              than one token at 16 heads a rank: launched L x verify
+              passes), 24 requests (two sampled), 48 new each: both
+              ranks' tokens equal, verify passes above 0, acceptance,
+              every greedy token within the rule of a single-process int4
+              forward, the round's host clock in turns with a
+              single-process spec engine (single, gang, single); (g) bf16
+              pages with a draft at tinyllama-1.1b's width and
+              GANG_DRAFT_LAYERS layers written as an HF directory, sharded
+              at tensor 2, k=4; (h) three seeded tenants of rank 16
+              (capacity 2) with base rows, t0 and t1 in one batch and t2
+              hot-loaded mid-run (an eviction), on bf16 pages and on int4
+              (w_down row-parallel in whole groups) over the dense int8
+              cache: both ranks' tokens and stores equal, t0 and t1
+              different, every token within the rule of a single-shot
+              forward with the row's adapter; (i) serve.batchgen as two
+              ranks under examples/batch-generation's params (int8,
+              max_batch 16) with tensor 2, 32 records of 32 tokens: the
+              follower SIGKILLed once a record is durable makes the leader
+              exit non-zero, the rerun resumes, every record written once
+              with tokens within the rule of a single-process int8
+              forward; (e) runs as a sixth leg of (f)-(h)'s call;
+  serve-gang-data
+              (only when named) (f)'s paged leg as four gang_worker ranks
+              of data=2 x tensor=2 on the one card: each replica verifies
+              its 12 rows and exchanges the round's choices and samples
+              [24, w+1] with the other; the four ranks' tokens equal (the
+              sampled rows too), every greedy token within the rule of a
+              single-process int4 forward, the exchange's median and the
+              round's host clock;
   profile     (only when named) host-clock prefill and decode-step times
               (the overlapped graph replays) and, under torch.profiler,
               their device busy time and top kernels, after serve
@@ -542,6 +576,7 @@ import subprocess
 import sys
 import threading
 import time
+import traceback
 import urllib.error
 import urllib.request
 from pathlib import Path
@@ -572,7 +607,10 @@ KT_WGMMA = 128  # keys of a bf16 K/V tile of csrc/flash_fwd_wgmma.cu (an int8 ca
 
 
 def fail(msg: str) -> None:
+    """Exit 1 with `msg` on both streams (standard error's tail is what a
+    refused run's report shows)."""
     print(f"chip_smoke: FAIL: {msg}", flush=True)
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -1580,7 +1618,15 @@ def kernel_phase():
     tp2 = {"flash_fwd_tp2": [flash_case(gen, 1, 512, 16, 16, True)],
            "decode_attn_tp2": [decode_case(gen, 8, 2048, 16, 16, False, positions[:-1] + [2047]),
                                decode_case(gen, 8, 1024, 16, 16, False, positions)],
-           "flash_cached_tp2": [cached_case(gen, 16, 16, False, sk=2048, start=1024)]}
+           "flash_cached_tp2": [cached_case(gen, 16, 16, False, sk=2048, start=1024)],
+           # serve-gang (f)'s verify rounds at a rank's heads: the dense leg's
+           # width-4 verify at B=24 over the int8 cache, two rows idle at S-1;
+           # the int4 wgmma design at that verify's 96 rows over a rank's w_gate
+           "flash_cached_int8_verify_tp2": [cached_case(gen, 16, 16, True, b=24, sq=4, sk=1024,
+                                                        starts=[37 * i for i in range(22)] + [1023, 1023])],
+           "q4_matmul_wgmma_verify_tp2": [q4_case(gen, 96, 5504)]}
+    if tp2["q4_matmul_wgmma_verify_tp2"][0]["design"] != "wgmma":
+        fail(f"kernels: M=96 N=5504 took the {tp2['q4_matmul_wgmma_verify_tp2'][0]['design']} design, not wgmma")
     report = {"flash_fwd": flash, "decode_attn": decode, "flash_cached": cached, "flash_cached_int8": cached_int8,
               "fused_decode": fused,
               "q4_matmul_decode": [c for c in q4 if c["design"] == "decode"],
@@ -1650,21 +1696,43 @@ PROMPTS = [  # (text, max_tokens, temperature, stream): ByteTokenizer ids = 1 + 
 ]
 
 
+# Every server this script talks to is its own child on 127.0.0.1: no
+# proxy from the environment.
+LOCAL = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+
+
 def http(base: str, path: str, body=None, headers=None, timeout: float = 600, on_first=None):
     """(status, headers, text) of a GET (body None) or a JSON POST;
     `on_first` runs once the body's first line is in (a stream's first
-    chunk)."""
+    chunk). A read past `timeout` raises TimeoutError naming the request."""
     data = None if body is None else json.dumps(body).encode()
     req = urllib.request.Request(f"{base}{path}", data=data, headers={"Content-Type": "application/json",
                                                                        **(headers or {})})
     try:
-        with urllib.request.urlopen(req, timeout=timeout) as r:
+        with LOCAL.open(req, timeout=timeout) as r:
             first = r.readline()
             if on_first is not None:
                 on_first()
             return r.status, dict(r.headers), (first + r.read()).decode()
     except urllib.error.HTTPError as e:
         return e.code, dict(e.headers), e.read().decode()
+    except TimeoutError:
+        raise TimeoutError(f"{'GET' if body is None else 'POST'} {base}{path}: no answer within {timeout} s") from None
+
+
+def wait_ok(base: str, label: str, deadline_s: float = 120) -> None:
+    """GET / until it answers 200, within `deadline_s`; a read that times
+    out on the way counts as not ready yet."""
+    deadline = time.perf_counter() + deadline_s
+    while True:
+        try:
+            if http(base, "/", timeout=30)[0] == 200:
+                return
+        except TimeoutError:
+            pass
+        if time.perf_counter() > deadline:
+            fail(f"{label}: the server printed its address but GET / is not 200 after {deadline_s} s")
+        time.sleep(0.1)
 
 
 def sse_parse(text: str, chat: bool = False):
@@ -3114,7 +3182,6 @@ def recording_sync_check(engine, ids, label: str, iterations: int = 32) -> dict:
     observability/ or inside a journey, timeline or SLO recording call (the
     engine's own reads, the drain's and the first token's, may warn)."""
     import threading as _threading
-    import traceback
     import warnings
 
     import torch
@@ -4371,7 +4438,7 @@ def surface_drain(child: SurfaceChild, base: str, label: str) -> dict:
             post = http(base, "/v1/completions", {"prompt": "x"}, timeout=5)
             seen.update(loadz=(loadz[0], json.loads(loadz[2]).get("draining")),
                         post=(post[0], post[1].get("Retry-After")))
-        except (urllib.error.URLError, ConnectionError) as e:  # the listener closed: reported below
+        except OSError as e:  # the listener closed, or a read timed out: reported below
             seen["error"] = repr(e)
         return {}
 
@@ -5368,11 +5435,11 @@ BATCHGEN_MAX_TOKENS = 128
 BATCHGEN_KILL_AT = 16  # leg (b): durable records before the SIGKILL
 BATCHGEN_REFERENCE = 8  # greedy records held by the single-shot reference in legs (a) and (c)
 BATCHGEN_TEXT_LENS = (16, 40, 100, 200, 400, 700, 1000)  # byte-tokens (1 + bytes) of the text prompts, in turn
-# The phase's depth: llama2-7b's width at 4 of its 32 layers (cut to 16 so
+# The phase's depth: llama2-7b's width at 2 of its 32 layers (cut to 16 so
 # that the default run stayed under 1100 s with the observability legs, to 8
-# once serve-disagg joined it, and to 4 once serve-gang's llama2-70b leg
-# did).
-BATCHGEN_LAYERS = 4
+# once serve-disagg joined it, to 4 once serve-gang's llama2-70b leg did,
+# and to 2 once serve-gang's legs (f)-(h) went through serve.main).
+BATCHGEN_LAYERS = 2
 
 
 def batchgen_records() -> list:
@@ -6184,10 +6251,10 @@ def serve_adapters_phase(card: str) -> dict:
 
 # --- serve-moe: mixtral-8x7b, served and finetuned ----------------------------
 
-# (a) and (b)'s depth: mixtral-8x7b's width at 8 of its 32 layers, cut once
-# serve-gang's llama2-70b leg joined the default run (every check as at full
-# depth).
-MOE_LAYERS = 8
+# (a) and (b)'s depth: mixtral-8x7b's width at 4 of its 32 layers, cut once
+# serve-gang's llama2-70b leg joined the default run (8) and again once its
+# legs (f)-(i) did (every check as at full depth).
+MOE_LAYERS = 4
 MIXTRAL = (f"mixtral-8x7b at {MOE_LAYERS} layers", (4096, MOE_LAYERS, 32, 8, 32000))
 MIXTRAL_2L = ("mixtral-8x7b's width at 2 layers", (4096, 2, 32, 8, 32000))
 # (a) int4 weights drawn and quantized layer by layer on the card, the
@@ -6342,7 +6409,7 @@ def moe_int8_leg(card: str, profile_steps: bool) -> dict:
     t0 = time.perf_counter()
     server, engine, base = start_server("serve-moe-int8", MOE_INT8_PARAMS, model=MIXTRAL)
     nbytes = _moe_bytes(engine, torch.cuda.max_memory_allocated())
-    if engine.paged or not isinstance(engine.params.layers[5].w_down, QTensor):
+    if engine.paged or not isinstance(engine.params.layers[-1].w_down, QTensor):
         fail(f"{label}: not int8 experts on the dense cache")
     print(f"{label}: built in {time.perf_counter() - t0:.1f} s; bytes {nbytes}", flush=True)
     requests = tee_requests(engine)
@@ -6556,7 +6623,8 @@ def serve_moe_phase(card: str, profile_steps: bool = False) -> dict:
 # monolith, a prefill tier on an int8 pool, one on a bf16 pool, and two
 # decode tiers on int8 pools, each serve.main in a child process. The depth
 # was cut from 32 once serve-gang's llama2-70b leg joined the default run
-# (every check as at full depth).
+# (every check as at full depth; at 4 layers (c)'s survivor parted from the
+# monolith's tokens, so 8 stays).
 DISAGG_LAYERS = 8
 DISAGG_PARAMS = {"quantize": "int4", "kv_cache_dtype": "int8", "max_batch": 8, "max_seq_len": 2048,
                  "max_prefill_len": 512}
@@ -6622,8 +6690,7 @@ class DisaggChild:
             time.sleep(0.1)
         self.serving = next(ln for ln in self.lines if ln.startswith("serving "))
         self.base = f"http://127.0.0.1:{int(self.serving.split('127.0.0.1:')[1].split()[0])}"
-        while http(self.base, "/", timeout=30)[0] != 200:
-            time.sleep(0.1)
+        wait_ok(self.base, f"serve-disagg: the {self.name} tier", deadline_s=timeout)
         self.ready_s = time.perf_counter() - self.t0
         return self.base
 
@@ -6647,7 +6714,7 @@ def stream_times(base: str, body: dict, headers=None, on_chunk=None) -> dict:
     req = urllib.request.Request(f"{base}/v1/completions", data=json.dumps(body).encode(),
                                  headers={"Content-Type": "application/json", **(headers or {})})
     t0, times, pieces, finish, usage = time.perf_counter(), [], [], None, None
-    with urllib.request.urlopen(req, timeout=600) as r:
+    with LOCAL.open(req, timeout=600) as r:
         for raw in r:
             line = raw.decode().strip()
             if not line.startswith("data: {"):
@@ -6680,27 +6747,47 @@ def emitted(events) -> list:
     return [e[2]["t"] for e in events if e[1] == "emit"]
 
 
-def run_traced(base: str, prompts, tag: int, new_tokens: int, label: str) -> list:
-    """Every (text) at once, greedy, each under its own trace id; each
-    request's journey from `base` afterwards."""
-    results = [None] * len(prompts)
+def post_traced(base: str, items, tag: int, label: str) -> tuple:
+    """Every item (a completion's body, and `after`: an item's index) at
+    once, each under its own trace id; an item with `after` once that
+    item's request has ended (a tenant hot-loaded mid-run). (Each
+    request's journey from `base` afterwards, the responses, the wall
+    seconds.)"""
+    ended = [threading.Event() for _ in items]
+    results = [None] * len(items)
 
-    def one(i, text):
-        tp = {"traceparent": f"00-{disagg_trace(tag, i)}-{'ab' * 8}-01"}
-        results[i] = http(base, "/v1/completions", {"prompt": text, "max_tokens": new_tokens, "temperature": 0},
-                          headers=tp)
+    def one(i, item):
+        try:
+            if "after" in item:
+                ended[item["after"]].wait(timeout=600)
+            body = {k: v for k, v in item.items() if k != "after"}
+            results[i] = http(base, "/v1/completions", body, timeout=300, headers={
+                "traceparent": f"00-{disagg_trace(tag, i)}-{'ab' * 8}-01"})
+        except Exception as e:  # reported below as a failed request
+            results[i] = (None, {}, repr(e))
+        finally:
+            ended[i].set()
 
-    threads = [threading.Thread(target=one, args=(i, t)) for i, t in enumerate(prompts)]
+    threads = [threading.Thread(target=one, args=(i, item)) for i, item in enumerate(items)]
     t0 = time.perf_counter()
     for t in threads:
         t.start()
     for t in threads:
         t.join()
     wall = time.perf_counter() - t0
-    for i, (status, _, text) in enumerate(results):
-        if status != 200 or not json.loads(text)["usage"]["completion_tokens"]:
-            fail(f"{label}: request {i} -> {status} {text[:200]}")
-    return [journey_of(base, disagg_trace(tag, i), label) for i in range(len(prompts))], wall
+    for i, res in enumerate(results):
+        if res is None or res[0] != 200 or not json.loads(res[2])["usage"]["completion_tokens"]:
+            fail(f"{label}: request {i} -> {res and res[0]} {res and res[2][:200]}")
+    return ([journey_of(base, disagg_trace(tag, i), label) for i in range(len(items))],
+            [json.loads(res[2]) for res in results], wall)
+
+
+def run_traced(base: str, prompts, tag: int, new_tokens: int, label: str) -> list:
+    """Every (text) at once, greedy, each under its own trace id; each
+    request's journey from `base` afterwards."""
+    journeys, _, wall = post_traced(base, [{"prompt": text, "max_tokens": new_tokens, "temperature": 0}
+                                           for text in prompts], tag, label)
+    return journeys, wall
 
 
 def handoff_rows(journeys) -> list:
@@ -7320,7 +7407,7 @@ GANG_PREFIX = "System: " + _long_text(399, 7)  # (c)'s shared prefix, 25 full pa
 GANG_SAMPLED = 3  # (b)'s sampled row
 # (d): examples/llama2-70b/server.yaml's params with tensor 2 for 16 (the
 # card holds four ranks, not sixteen); max_seq_len is serve.main's default.
-GANG_70B_LAYERS = 2  # llama2-70b's width; (d)'s depth, printed
+GANG_70B_LAYERS = 1  # llama2-70b's width; (d)'s depth, printed (2 until legs (f)-(i) joined)
 GANG_70B_PARAMS = {"quantize": "int4", "kv_cache_dtype": "int8", "max_batch": 32, "tensor": 2}
 GANG_70B_SEQ = 1024  # serve.main's max_seq_len when params.json names none
 GANG_70B_NEW = 48
@@ -7336,21 +7423,17 @@ class GangChild:
     child process, its output in OUT_DIR/serve_gang_{name}.log."""
 
     def __init__(self, name: str, params: dict, rank: int, coord: int, world: int = 2):
-        import os
-
         OUT_DIR.mkdir(exist_ok=True)
         self.name, self.rank = name, rank
         path = OUT_DIR / f"chip_smoke_params_serve-gang-{name}.json"
         path.write_text(json.dumps(params))
-        env = {**os.environ, "OMP_NUM_THREADS": "1", "JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{coord}",
-               "JAX_NUM_PROCESSES": str(world), "TPU_WORKER_ID": str(rank),
-               "PYTHONPATH": str(Path(__file__).resolve().parent) + os.pathsep + os.environ.get("PYTHONPATH", "")}
         self.log = (OUT_DIR / f"serve_gang_{name}{rank}.log").open("w")
         self.lines = []
         self.t0 = time.perf_counter()
         self.proc = subprocess.Popen([sys.executable, "-m", "substratus_tpu_torch.serve.main", "--params", str(path),
                                       "--model", str(params["model"]), "--host", "127.0.0.1", "--port", "0"],
-                                     cwd=Path(__file__).resolve().parent, env=env, stdout=subprocess.PIPE,
+                                     cwd=Path(__file__).resolve().parent, env=gang_env(coord, world, rank),
+                                     stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True)
         self.reader = threading.Thread(target=self._read, daemon=True)
         self.reader.start()
@@ -7382,17 +7465,19 @@ def start_gang(name: str, params: dict) -> tuple:
     its startup line, the follower's)."""
     coord = free_port()
     children = [GangChild(name, params, r, coord) for r in range(2)]
-    lead = children[0].wait_line("serving ")
-    follow = children[1].wait_line("gang follower ")
-    base = f"http://127.0.0.1:{int(lead.split('127.0.0.1:')[1].split()[0])}"
-    deadline = time.perf_counter() + 120
-    while http(base, "/", timeout=30)[0] != 200:
-        if time.perf_counter() > deadline:
-            fail(f"serve-gang ({name}): the leader printed its address but GET / is not 200 after 120 s")
-        time.sleep(0.1)
-    for want, line in (("rank 0/2 (leader), mesh tensor=2", lead), ("rank 1/2 (follower), mesh tensor=2", follow)):
-        if want not in line or "graph: off (gang)" not in line:
-            fail(f"serve-gang ({name}): a startup line lacks {want!r} or the eager step: {line}")
+    try:
+        lead = children[0].wait_line("serving ")
+        follow = children[1].wait_line("gang follower ")
+        base = f"http://127.0.0.1:{int(lead.split('127.0.0.1:')[1].split()[0])}"
+        wait_ok(base, f"serve-gang ({name})")
+        for want, line in (("rank 0/2 (leader), mesh tensor=2", lead),
+                           ("rank 1/2 (follower), mesh tensor=2", follow)):
+            if want not in line or "graph: off (gang)" not in line:
+                fail(f"serve-gang ({name}): a startup line lacks {want!r} or the eager step: {line}")
+    except BaseException:  # fail() too: no rank outlives this script
+        for c in children:
+            c.stop()
+        raise
     return children, base, lead, follow
 
 
@@ -7438,34 +7523,35 @@ def engine_turn(engine, prompts, sampled=None, new: int = GANG_NEW) -> dict:
             "step_ms": 1e3 * (engine.stats["decode_seconds"] - seconds0) / max(steps, 1)}
 
 
-def run_gang_workers(model_dir: Path, prompts, label: str, params=None, world: int = 2, new: int = GANG_NEW,
-                     sampled=GANG_SAMPLED, tag: str = "b") -> list:
-    """tools/gang_worker.py as `world` ranks on the card over the
-    checkpoint and the prompts at once (one sampled row, unless None; (a)'s
-    params unless given), the all-reduce probe first; each rank's
-    result."""
+def gang_env(coord: int, world: int, rank: int) -> dict:
+    """The operator's gang environment of one rank, the checkout on the
+    path."""
     import os
 
+    return {**os.environ, "OMP_NUM_THREADS": "1", "JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{coord}",
+            "JAX_NUM_PROCESSES": str(world), "TPU_WORKER_ID": str(rank),
+            "PYTHONPATH": str(Path(__file__).resolve().parent) + os.pathsep + os.environ.get("PYTHONPATH", "")}
+
+
+def gang_worker_call(model_dir: Path, params, plans, label: str, tag: str, extra=(), world: int = 2,
+                     timeout: float = 300) -> list:
+    """tools/gang_worker.py as `world` ranks on the card over the
+    checkpoint: `params` one leg's object (or a list of legs), `plans` its
+    request plan (or one a leg); each rank's result."""
     coord = free_port()
     plan = OUT_DIR / f"serve_gang_plan_{tag}.json"
-    plan.write_text(json.dumps({"concurrent": True, "requests": [
-        {"prompt": p, "max_tokens": new, "temperature": 0.8 if i == sampled else 0.0}
-        for i, p in enumerate(prompts)]}))
-    params = params or {k: v for k, v in GANG_PARAMS.items() if k != "drain_grace"}
+    plan.write_text(json.dumps(plans))
     procs, outs = [], []
     for rank in range(world):
-        env = {**os.environ, "OMP_NUM_THREADS": "1", "JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{coord}",
-               "JAX_NUM_PROCESSES": str(world), "TPU_WORKER_ID": str(rank),
-               "PYTHONPATH": str(Path(__file__).resolve().parent) + os.pathsep + os.environ.get("PYTHONPATH", "")}
         outs.append(OUT_DIR / f"serve_gang_worker_{tag}{rank}.json")
         procs.append(subprocess.Popen(
             [sys.executable, "-m", "substratus_tpu_torch.tools.gang_worker", "--model", str(model_dir),
-             "--params", json.dumps(params), "--requests", str(plan), "--out", str(outs[-1]), "--probe-allreduce",
-             "--timeout", "120"],
-            cwd=Path(__file__).resolve().parent, env=env,
+             "--params", json.dumps(params), "--requests", str(plan), "--out", str(outs[-1]), "--timeout", "120",
+             *extra],
+            cwd=Path(__file__).resolve().parent, env=gang_env(coord, world, rank),
             stdout=(OUT_DIR / f"serve_gang_worker_{tag}{rank}.log").open("w"), stderr=subprocess.STDOUT))
     try:
-        rcs = [p.wait(timeout=300) for p in procs]
+        rcs = [p.wait(timeout=timeout) for p in procs]
     finally:
         for p in procs:
             if p.poll() is None:
@@ -7473,6 +7559,19 @@ def run_gang_workers(model_dir: Path, prompts, label: str, params=None, world: i
     if rcs != [0] * world:
         fail(f"{label}: gang_worker ranks exited {rcs} (logs in {OUT_DIR}/serve_gang_worker_{tag}*.log)")
     return [json.loads(o.read_text()) for o in outs]
+
+
+def run_gang_workers(model_dir: Path, prompts, label: str, params=None, world: int = 2, new: int = GANG_NEW,
+                     sampled=GANG_SAMPLED, tag: str = "b") -> list:
+    """tools/gang_worker.py as `world` ranks on the card over the
+    checkpoint and the prompts at once (one sampled row, unless None; (a)'s
+    params unless given), the all-reduce probe first; each rank's
+    result."""
+    plan = {"concurrent": True, "requests": [{"prompt": p, "max_tokens": new,
+                                              "temperature": 0.8 if i == sampled else 0.0}
+                                             for i, p in enumerate(prompts)]}
+    params = params or {k: v for k, v in GANG_PARAMS.items() if k != "drain_grace"}
+    return gang_worker_call(model_dir, params, plan, label, tag, extra=("--probe-allreduce",), world=world)
 
 
 def run_staggered(base: str, texts, tag: int, new_tokens: int, label: str, gap_s: float = 0.05) -> tuple:
@@ -7539,11 +7638,7 @@ def gang_70b_leg(card: str, tmp: Path) -> dict:
                 or "weights int4:" not in lead:
             fail(f"{label}: startup lines {mesh_lines} / {lead}")
         base = f"http://127.0.0.1:{int(lead.split('127.0.0.1:')[1].split()[0])}"
-        deadline = time.perf_counter() + 120
-        while http(base, "/", timeout=30)[0] != 200:
-            if time.perf_counter() > deadline:
-                fail(f"{label}: the leader printed its address but GET / is not 200 after 120 s")
-            time.sleep(0.1)
+        wait_ok(base, label)
         print(f"{label}: four ranks ready in {', '.join(f'{c.ready_s:.1f}' for c in children)} s; leader: "
               f"{lead.split('; gang: ')[1].strip()}", flush=True)
         # The prefix's pages, written on every replica (each runs every
@@ -7634,14 +7729,12 @@ def gang_70b_leg(card: str, tmp: Path) -> dict:
             "peak_bytes": [r["peak_memory_bytes"] for r in ranks], "seconds": time.perf_counter() - t_leg}
 
 
-def gang_w8a8_leg(card: str, model_dir: Path, model, cfg, prompts) -> dict:
-    """(e): two gang_worker ranks at llama2-7b's width, tensor=2, w8a8, the
-    dense cache, 8 rows, one sampled; `model` holds the int8 weights (c)
-    quantized, the single process's w8a8 weights."""
+def gang_w8a8_leg(card: str, ranks, model, cfg, prompts) -> dict:
+    """(e): the w8a8 leg of gang_rest_legs' call (`ranks`, each rank's
+    result): two gang_worker ranks at llama2-7b's width, tensor=2, w8a8,
+    the dense cache, 8 rows, one sampled; `model` holds the int8 weights
+    (c) quantized, the single process's w8a8 weights."""
     label = "serve-gang (e)"
-    t0 = time.perf_counter()
-    params = {**{k: v for k, v in GANG_PARAMS.items() if k != "drain_grace"}, "quantize": "w8a8"}
-    ranks = run_gang_workers(model_dir, prompts, label, params=params, new=32, tag="e")
     got = [q["tokens"] for q in ranks[0]["requests"]]
     if got != [q["tokens"] for q in ranks[1]["requests"]] or any(r["error"] for r in ranks):
         fail(f"{label}: the ranks' tokens differ or an engine failed: {[r['error'] for r in ranks]}")
@@ -7657,10 +7750,430 @@ def gang_w8a8_leg(card: str, model_dir: Path, model, cfg, prompts) -> dict:
           f"ranks' {sum(len(t) for t in got)} tokens equal, the sampled row's too; every greedy token within the "
           f"rule of a single-process w8a8 forward; w_down's row-parallel quantize {rows} launches of each mode on "
           f"the leader ({rows // cfg.n_layers} forwards); the int32 all-reduce [16,1,{cfg.dim}] median "
-          f"{1e3 * int32:.3f} ms; peak memory {[r['peak_memory_bytes'] for r in ranks]} bytes; "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f"{1e3 * int32:.3f} ms; peak memory {[r['peak_memory_bytes'] for r in ranks]} bytes", flush=True)
     return {"reference": ref, "launches": {"w8a8_quantize_rows": rows}, "int32_allreduce_s": int32,
             "peak_bytes": [r["peak_memory_bytes"] for r in ranks]}
+
+
+# (f)-(i): the rest of serving in a gang, two ranks of tensor=2 at
+# GANG_LAYERS of llama2-7b. (f): examples/llama2-7b/server-throughput.yaml's
+# params (int4, int8 cache, B=24, prompt lookup k=3) on the paged pool as
+# written, through serve.main over HTTP, then on the dense cache; (g) a
+# self-draft (the target's own checkpoint, its proposals accepted) on bf16
+# pages through serve.main, then a draft at tinyllama-1.1b's width and
+# GANG_DRAFT_LAYERS layers (2 kv heads a rank); (h) three seeded tenants of
+# rank 16 with a store of capacity 2, a third hot-loaded mid-run: bf16 pages
+# through serve.main, then int4 on the dense cache. The second of each, (b)
+# and (e) run in one gang_worker call, which also reads the follower's tokens
+# and store. (i) examples/batch-generation's params through serve.batchgen
+# as a gang.
+GANG_SPEC_PARAMS = {"tensor": 2, "quantize": "int4", "kv_cache_dtype": "int8", "max_batch": 24, "spec_k": 3,
+                    "max_seq_len": 1024}
+GANG_SPEC_NEW = 48
+GANG_DRAFT_LAYERS = 2
+GANG_DRAFT_PARAMS = {"tensor": 2, "max_batch": 8, "spec_k": 4, "max_seq_len": 1024}
+GANG_TENANT_RANK = 16
+GANG_TENANT_PARAMS = {"tensor": 2, "max_batch": 8, "max_seq_len": 1024,
+                      "adapters": {"capacity": 2, "rank": GANG_TENANT_RANK}}
+GANG_TENANT_NEW = 32
+# (prompt index, tenant, after): t2 boards once the first t0 request ended (a hot load, an eviction)
+GANG_TENANT_PLAN = [(0, None, None), (1, "t0", None), (1, "t1", None), (2, "t0", None), (3, None, None),
+                    (4, "t2", 1)]
+GANG_BATCH_PARAMS = {"quantize": "int8", "max_batch": 16, "tensor": 2}  # examples/batch-generation, tensor 2
+GANG_BATCH_RECORDS = 32
+GANG_BATCH_NEW = 32
+
+
+def spec_rows(ranks, leg: int, label: str) -> list:
+    """The leg's rows, every rank's equal (sampled rows too), no error."""
+    rows = [q["tokens"] for q in ranks[0]["legs"][leg]["requests"]]
+    for r in ranks:
+        got = r["legs"][leg]
+        if [q["tokens"] for q in got["requests"]] != rows or got["error"] is not None:
+            fail(f"{label}: rank {r['rank']}'s tokens differ from the leader's or its engine failed: {got['error']}")
+    return rows
+
+
+def gang_http_leg(name: str, params: dict, items, tag: int, label: str, want: str) -> tuple:
+    """One serve.main gang of two ranks (start_gang) serving `items` over
+    HTTP (post_traced), both startup lines naming `want`; (tokens,
+    responses, the leader's /metrics samples and kernel launches, its
+    startup line, the wall seconds), both ranks stopped."""
+    children, base, lead, follow = start_gang(name, params)
+    try:
+        for line in (lead, follow):
+            if want not in line:
+                fail(f"{label}: a startup line lacks {want!r}: {line}")
+        journeys, bodies, wall = post_traced(base, items, tag, label)
+        metrics = scrape(base)
+        status, _, models = http(base, "/v1/models")
+    finally:
+        for c in children:
+            c.stop()
+    if status != 200:
+        fail(f"{label}: /v1/models -> {status} {models[:200]}")
+    prefix = "substratus_serve_"
+    stats = {k[len(prefix):]: v for k, v in metrics["samples"].items() if k.startswith(prefix) and "{" not in k}
+    read = {"stats": stats, "launches": surface_launches(metrics), "models": json.loads(models)}
+    return [emitted(j["events"]) for j in journeys], bodies, read, lead, wall
+
+
+def gang_rest_legs(card: str, tmp: Path, model_dir: Path, model, cfg, prompts) -> tuple:
+    """(f), (g), (h): three serve.main gangs over HTTP and one gang_worker
+    call of their second legs, (b)'s leg and (e)'s w8a8 leg on (b)'s
+    `prompts` (one call: one start of its ranks), held by the near-tie rule
+    against single-process forwards on the same bytes, (f)'s paged round in
+    turns with a single-process spec engine (the phase's docstring).
+    Returns (the report, each rank's (b) leg, each rank's (e) leg for
+    gang_w8a8_leg)."""
+    import copy
+    from types import SimpleNamespace
+
+    from substratus_tpu_torch.models import llama
+    from substratus_tpu_torch.serve.adapters import save_adapter_artifact
+    from substratus_tpu_torch.serve.engine import Engine, EngineConfig
+    from substratus_tpu_torch.serve.tokenizer import ByteTokenizer
+    from substratus_tpu_torch.tools.ckpt_writer import write_hf
+    from substratus_tpu_torch.tools.gang_worker import seeded_tenants
+
+    label = "serve-gang (f)-(h)"
+    t0 = time.perf_counter()
+    tok = ByteTokenizer()
+    L = cfg.n_layers
+    dcfg = llama.CONFIGS["tinyllama-1.1b"].replace(n_layers=GANG_DRAFT_LAYERS)
+    draft = llama.init_params(dcfg, seed=1, device="cuda")
+    write_hf(str(tmp / "draft"), draft)
+    del draft
+    tenants = seeded_tenants(cfg, 3, GANG_TENANT_RANK)
+    for aid, layers in tenants.items():
+        save_adapter_artifact(str(tmp / "tenants" / aid), layers, 2.0 * GANG_TENANT_RANK, GANG_TENANT_RANK)
+    tenant_params = {**GANG_TENANT_PARAMS, "adapters": {**GANG_TENANT_PARAMS["adapters"], "dir": str(tmp / "tenants")}}
+    model4 = copy.deepcopy(model)
+    llama.quantize_weights(model4, "int4")  # the bytes each rank quantizes whole, then slices
+    spec_ids = [tok.encode(text) for text, *_ in SPEC_PROMPTS]
+    spec_temps = [temp for _, _, temp, _ in SPEC_PROMPTS]
+    spec_items = [{"prompt": text, "max_tokens": GANG_SPEC_NEW, "temperature": temp}
+                  for text, _, temp, _ in SPEC_PROMPTS]
+    spec_plan = {"concurrent": True, "requests": [{"prompt": p, "max_tokens": GANG_SPEC_NEW, "temperature": t}
+                                                  for p, t in zip(spec_ids, spec_temps)]}
+    draft_ids = [tok.encode(text) for text, *_ in DRAFT_PROMPTS]
+    draft_temps = [temp for _, _, temp, _ in DRAFT_PROMPTS]
+    draft_items = [{"prompt": text, "max_tokens": 32, "temperature": temp} for text, _, temp, _ in DRAFT_PROMPTS]
+    draft_plan = {"concurrent": True, "requests": [{"prompt": p, "max_tokens": 32, "temperature": t}
+                                                   for p, t in zip(draft_ids, draft_temps)]}
+    tenant_texts = [_long_text(30 + 70 * i, 170 + i) for i in range(5)]
+    tenant_ids = [tok.encode(t) for t in tenant_texts]
+    tenant_items = [{"prompt": tenant_texts[i], "max_tokens": GANG_TENANT_NEW, "temperature": 0.0,
+                     **({"model": ad} if ad else {}), **({"after": after} if after is not None else {})}
+                    for i, ad, after in GANG_TENANT_PLAN]
+    tenant_plan = {"concurrent": True, "requests": [
+        {"prompt": tenant_ids[i], "max_tokens": GANG_TENANT_NEW, **({"adapter": ad} if ad else {}),
+         **({"after": after} if after is not None else {})} for i, ad, after in GANG_TENANT_PLAN]}
+    b_plan, w8a8_plan = ({"concurrent": True, "requests": [{"prompt": p, "max_tokens": new,
+                                                            "temperature": 0.8 if i == GANG_SAMPLED else 0.0}
+                                                           for i, p in enumerate(prompts)]} for new in (GANG_NEW, 32))
+    b_params = {k: v for k, v in GANG_PARAMS.items() if k != "drain_grace"}
+    legs = [b_params, {**GANG_SPEC_PARAMS, "kv_layout": "dense"},
+            {**GANG_DRAFT_PARAMS, "draft_model": str(tmp / "draft")},
+            {**tenant_params, "quantize": "int4", "kv_layout": "dense", "kv_cache_dtype": "int8"},
+            {**b_params, "quantize": "w8a8"}]
+    plans = [b_plan, spec_plan, draft_plan, tenant_plan, w8a8_plan]
+    greedy = [i for i, t in enumerate(spec_temps) if t == 0.0]
+    single = Engine(cfg, model4, EngineConfig(max_batch=24, max_seq_len=1024, kv_cache_dtype="int8", spec_k=3),
+                    device="cuda")
+    single.start()
+    try:
+        engine_turn(single, spec_ids[:2], new=8)  # the width graphs' captures
+        turn1 = engine_turn(single, [spec_ids[i] for i in greedy], new=GANG_SPEC_NEW)
+        f_rows, _, f_read, f_line, f_wall = gang_http_leg(
+            "f", {**GANG_SPEC_PARAMS, "model": str(model_dir)}, spec_items, 0x9f, "serve-gang (f) paged",
+            "speculation prompt-lookup k=3, eager rounds")
+        turn2 = engine_turn(single, [spec_ids[i] for i in greedy], new=GANG_SPEC_NEW)
+        single_stats = dict(single.stats)
+    finally:
+        single.stop()
+    del single
+    _free_card()
+    g_rows, _, g_read, g_line, _ = gang_http_leg(
+        "g", {**GANG_DRAFT_PARAMS, "model": str(model_dir), "draft_model": str(model_dir)}, draft_items, 0x96,
+        "serve-gang (g) self-draft", f"speculation draft={model_dir} k=4 ({cfg.n_heads // 2} heads, "
+                                     f"{cfg.n_kv_heads // 2} kv heads a rank), eager rounds")
+    h_rows, h_bodies, h_read, h_line, _ = gang_http_leg(
+        "h", {**tenant_params, "model": str(model_dir)}, tenant_items, 0x98, "serve-gang (h) bf16 pages",
+        f"adapter store capacity 2, rank {GANG_TENANT_RANK}, this rank's slice of each tenant")
+    ranks = gang_worker_call(model_dir, legs, plans, label, "f", world=2, timeout=420, extra=("--probe-allreduce",))
+    out = {"launches": {}}
+
+    # (f): the lookup legs, paged through serve.main, dense through gang_worker.
+    lab = "serve-gang (f) paged"
+    st, launches = f_read["stats"], f_read["launches"]
+    if st["verify_passes"] <= 0 or st["spec_proposed"] <= 0:
+        fail(f"{lab}: no verify pass wider than one token: {st}")
+    ref = gang_reference(model4, cfg, [spec_ids[i] for i in greedy], [f_rows[i] for i in greedy], lab,
+                         max_seq_len=1024)
+    wgmma = launches.get("q4_matmul.launches_wgmma", 0)
+    if wgmma <= 0 or launches.get("q4_matmul.launches_mma", 0):
+        fail(f"{lab}: the int4 launches {launches}")
+    out["launches"]["q4_matmul_wgmma_verify_tp2"] = wgmma
+    round_ms = 1e3 * st["decode_seconds"] / st["decode_steps"]
+    out["paged"] = {"reference": ref, "stats": st, "round_ms": round_ms, "launches": launches, "wall_s": f_wall,
+                    "acceptance": st["spec_accepted"] / st["spec_proposed"]}
+    widths = {k: int(v) for k, v in st.items() if k.startswith("rounds_w") and v}
+    print(f"{lab} [{card}]: the throughput example's params (int8 pages, B=24, lookup k=3) through two serve.main "
+          f"ranks of tensor=2 ({f_line.split('; gang: ')[1].split(';')[0]}), {len(spec_items)} requests at once over "
+          f"HTTP in {f_wall:.2f} s; {int(st['verify_passes'])} verify passes of {int(st['decode_steps'])} rounds "
+          f"{widths}, accepted {int(st['spec_accepted'])}/{int(st['spec_proposed'])} proposals; the round's host "
+          f"clock {round_ms:.2f} ms (eager, two ranks time-slicing the card); int4 wgmma launches {wgmma}", flush=True)
+    lab = "serve-gang (f) dense"
+    rows = spec_rows(ranks, 1, lab)
+    lead = ranks[0]["legs"][1]
+    st, launches = lead["stats"], lead["launches"]
+    if st["verify_passes"] <= 0 or st["spec_proposed"] <= 0:
+        fail(f"{lab}: no verify pass wider than one token: {st}")
+    ref = gang_reference(model4, cfg, [spec_ids[i] for i in greedy], [rows[i] for i in greedy], lab,
+                         max_seq_len=1024)
+    cached = launches.get("flash_cached_attention.launches_wgmma", 0)
+    if cached != L * st["verify_passes"]:
+        fail(f"{lab}: the cached flash launched {cached} times, want {L} x {st['verify_passes']} verify passes")
+    out["launches"]["flash_cached_int8_verify_tp2"] = cached
+    wgmma = launches.get("q4_matmul.launches_wgmma", 0)
+    if wgmma <= 0 or launches.get("q4_matmul.launches_mma", 0):
+        fail(f"{lab}: the int4 launches {launches}")
+    out["launches"]["q4_matmul_wgmma_verify_tp2"] += wgmma
+    round_ms = 1e3 * st["decode_seconds"] / st["decode_steps"]
+    out["dense"] = {"reference": ref, "stats": st, "round_ms": round_ms, "launches": launches,
+                    "acceptance": st["spec_accepted"] / st["spec_proposed"]}
+    widths = {k: v for k, v in st.items() if k.startswith("rounds_w") and v}
+    print(f"{lab} [{card}]: the same on the dense int8 cache through two gang_worker ranks: both ranks' "
+          f"{sum(len(r) for r in rows)} tokens equal (the sampled rows too); {st['verify_passes']} verify passes of "
+          f"{st['decode_steps']} rounds {widths}, accepted {st['spec_accepted']}/{st['spec_proposed']} proposals; the "
+          f"round's host clock {round_ms:.2f} ms; int4 wgmma launches {wgmma}, the cached flash {cached} ({L} a verify "
+          f"pass)", flush=True)
+    print(f"serve-gang (f) [{card}]: in turns (single, gang, single; {len(greedy)} greedy requests at once, "
+          f"{GANG_SPEC_NEW} new each, the gang's {len(spec_items)} with the sampled ones): the round's host clock "
+          f"{turn1['step_ms']:.2f} / {out['paged']['round_ms']:.2f} / {turn2['step_ms']:.2f} ms (the single process's "
+          f"rounds CUDA graphs, int8 pages; its acceptance {single_stats['spec_accepted']}/"
+          f"{single_stats['spec_proposed']}); the width exchange: none at data=1 (the serve-gang-data phase runs "
+          "data=2)", flush=True)
+    out["single_round_ms"] = [turn1["step_ms"], turn2["step_ms"]]
+    out["leg_launches"] = {"(f) paged": {k: v for k, v in out["paged"]["launches"].items() if v},
+                           "(g) self-draft": {k: v for k, v in g_read["launches"].items() if v},
+                           "(h) bf16 pages": {k: v for k, v in h_read["launches"].items() if v}}
+    for leg, name in enumerate(("(f) dense", "(g) tinyllama", "(h) int4 dense"), start=1):
+        out["leg_launches"][name] = {k: v for k, v in ranks[0]["legs"][leg]["launches"].items() if v}
+    for name, counts in out["leg_launches"].items():
+        print(f"serve-gang {name}: the leader's kernel launches {counts}", flush=True)
+
+    # (g): the self-draft through serve.main, the tinyllama-width draft through gang_worker.
+    dgreedy = [i for i, t in enumerate(draft_temps) if t == 0.0]
+    lab = "serve-gang (g) self-draft"
+    st = g_read["stats"]
+    if st["verify_passes"] <= 0 or st["spec_accepted"] <= 0 or st["draft_prefill_chunks"] <= 0:
+        fail(f"{lab}: no verify pass, no accepted proposal or no draft prefill: {st}")
+    out["self_draft"] = {"reference": gang_reference(model, cfg, [draft_ids[i] for i in dgreedy],
+                                                     [g_rows[i] for i in dgreedy], lab, max_seq_len=1024),
+                         "stats": st, "round_ms": 1e3 * st["decode_seconds"] / st["decode_steps"]}
+    print(f"{lab} [{card}]: bf16 pages, the target's own checkpoint as the draft through two serve.main ranks "
+          f"(serve.main loads it and its gang_draft shards it: {cfg.n_heads // 2} heads a rank), k=4: "
+          f"{int(st['verify_passes'])} verify passes, accepted {int(st['spec_accepted'])}/{int(st['spec_proposed'])}; "
+          f"the round {out['self_draft']['round_ms']:.2f} ms; every greedy token within the rule", flush=True)
+    lab = "serve-gang (g) tinyllama"
+    rows = spec_rows(ranks, 2, lab)
+    st = ranks[0]["legs"][2]["stats"]
+    if st["verify_passes"] <= 0 or st["draft_prefill_chunks"] <= 0:
+        fail(f"{lab}: the draft made no verify pass or prefilled nothing: {st}")
+    out["draft"] = {"reference": gang_reference(model, cfg, [draft_ids[i] for i in dgreedy],
+                                                [rows[i] for i in dgreedy], lab, max_seq_len=1024),
+                    "stats": st, "round_ms": 1e3 * st["decode_seconds"] / st["decode_steps"]}
+    print(f"{lab} [{card}]: bf16 pages, a draft at tinyllama-1.1b's width and {GANG_DRAFT_LAYERS} layers (seed 1, "
+          f"{ranks[0]['legs'][2]['startup'].split('speculation ')[1].split(';')[0]}), k=4: both ranks' tokens equal; "
+          f"{st['verify_passes']} verify passes, accepted {st['spec_accepted']}/{st['spec_proposed']}; the round "
+          f"{out['draft']['round_ms']:.2f} ms", flush=True)
+
+    # (h): the tenants, bf16 pages through serve.main, int4 dense through gang_worker.
+    trees = {aid: plain_lora(layers, 2.0, "cuda", cfg.dtype) for aid, layers in tenants.items()}
+
+    def tenant_reference(rows, weights, lab):
+        if rows[1] == rows[2]:
+            fail(f"{lab}: tenants t0 and t1 gave the same tokens on one prompt")
+        eng = SimpleNamespace(clipped_prompt=lambda p: p[-1023:], device=weights.device, model=llama, params=weights,
+                              cfg=cfg)
+        reqs = [SimpleNamespace(prompt_tokens=tenant_ids[i], adapter=ad, out=SimpleNamespace(tokens=rows[j]))
+                for j, (i, ad, _) in enumerate(GANG_TENANT_PLAN)]
+        return adapter_reference(eng, reqs, trees, lab)
+
+    lab = "serve-gang (h) bf16 pages"
+    s = h_read["stats"]
+    loaded = sorted(m["id"] for m in h_read["models"]["data"] if m.get("loaded"))
+    evictions = s.get("adapter_evictions_total", 0)
+    served_as = h_read["models"]["data"][0]["id"]  # the leader's model name
+    if (s["adapter_requests"] != 4 or evictions < 1 or "t2" not in loaded
+            or [b["model"] for b in h_bodies] != [ad or served_as for _, ad, _ in GANG_TENANT_PLAN]):
+        fail(f"{lab}: admissions {s['adapter_requests']}, evictions {evictions}, loaded {loaded}, the responses' "
+             f"models {[b['model'] for b in h_bodies]}")
+    out["tenants_http"] = {"reference": tenant_reference(h_rows, model, lab), "evictions": evictions,
+                           "loaded": loaded}
+    print(f"{lab} [{card}]: base rows and tenants t0, t1 in one batch through two serve.main ranks (the `model` field "
+          f"over HTTP), t2 hot-loaded once t0's first request ended ({int(evictions)} eviction, resident {loaded}); t0 "
+          f"and t1 differ on one prompt; every token within the rule of the plain lora_delta", flush=True)
+    lab = "serve-gang (h) int4, dense int8"
+    rows = spec_rows(ranks, 3, lab)
+    lead = ranks[0]["legs"][3]
+    snap = lead["adapters"]
+    if lead["stats"]["adapter_requests"] != 4 or snap["evictions"] < 1 or "t2" not in snap["loaded"]:
+        fail(f"{lab}: the store's admissions {lead['stats']['adapter_requests']}, snapshot {snap}")
+    if any(r["legs"][3]["adapters"] != snap for r in ranks):
+        fail(f"{lab}: the ranks' stores differ")
+    out["tenants_int4"] = {"reference": tenant_reference(rows, model4, lab), "store": snap}
+    print(f"{lab} [{card}]: the same through two gang_worker ranks ({snap['evictions']} eviction, {snap['misses']} "
+          f"miss): both ranks' tokens and stores equal, t0 and t1 differ on one prompt; weights "
+          f"{lead['startup'].split('; weights ')[1].split(';')[0]}", flush=True)
+    del model4
+    _free_card()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"{label}: {out['seconds']:.1f} s", flush=True)
+    return out, [r["legs"][0] for r in ranks], [r["legs"][4] for r in ranks]
+
+
+def gang_batchgen_leg(card: str, tmp: Path, model_dir: Path, model, cfg) -> dict:
+    """(i) serve.batchgen as two ranks of tensor=2 (examples/batch-generation's
+    params): the follower SIGKILLed mid-run fails the leader; the rerun
+    resumes from the leader's shards; every record once, each within the
+    near-tie rule of a single-process forward on the int8 bytes (`model`)."""
+    from substratus_tpu_torch.load import manifest
+    from substratus_tpu_torch.serve.tokenizer import ByteTokenizer
+
+    label = "serve-gang (i)"
+    t0 = time.perf_counter()
+    tok = ByteTokenizer()
+    recs = [{"id": f"g{i}", "prompt": _long_text(20 + 37 * i, 210 + i), "max_tokens": GANG_BATCH_NEW}
+            for i in range(GANG_BATCH_RECORDS)]
+    man, out_dir, params = tmp / "gang_manifest.jsonl", tmp / "gang_batch_out", tmp / "gang_batch_params.json"
+    manifest.write_manifest(str(man), recs)
+    params.write_text(json.dumps(GANG_BATCH_PARAMS))
+
+    def start(floor_ms: int, tag: str) -> list:
+        coord = free_port()
+        return [subprocess.Popen(
+            [sys.executable, "-m", "substratus_tpu_torch.serve.batchgen", "--manifest", str(man), "--output",
+             str(out_dir), "--model", str(model_dir), "--params", str(params), "--step-floor-ms", str(floor_ms)],
+            cwd=Path(__file__).resolve().parent, env=gang_env(coord, 2, r),
+            stdout=(OUT_DIR / f"serve_gang_batchgen_{tag}{r}.log").open("w"), stderr=subprocess.STDOUT)
+            for r in range(2)]
+
+    procs = start(30, "a")
+    try:
+        deadline = time.perf_counter() + 240
+        while not manifest.completed_indices(str(out_dir)):
+            if time.perf_counter() > deadline or procs[0].poll() is not None:
+                fail(f"{label}: the leader wrote no record (logs {OUT_DIR}/serve_gang_batchgen_a*.log)")
+            time.sleep(0.02)
+        procs[1].kill()
+        t_kill = time.perf_counter()
+        rc = procs[0].wait(timeout=180)
+        waited = time.perf_counter() - t_kill
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    first = manifest.completed_indices(str(out_dir))
+    if rc == 0 or len(first) >= len(recs):
+        fail(f"{label}: after the follower's SIGKILL the leader exited {rc} with {len(first)} of {len(recs)} records")
+    t_rerun = time.perf_counter()
+    procs = start(0, "b")
+    try:
+        rcs = [p.wait(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    rerun_s = time.perf_counter() - t_rerun
+    if rcs != [0, 0]:
+        fail(f"{label}: the rerun's ranks exited {rcs} (logs {OUT_DIR}/serve_gang_batchgen_b*.log)")
+    got = {}
+    for path in manifest.list_shards(str(out_dir)):
+        for line in open(path):
+            try:
+                r = json.loads(line)
+            except ValueError:
+                continue  # a torn tail
+            got.setdefault(r["index"], []).append(r)
+    if sorted(got) != list(range(len(recs))) or any(len(v) != 1 for v in got.values()) or any(
+            v[0]["finish_reason"] not in ("length", "stop") or not v[0]["tokens"] for v in got.values()):
+        fail(f"{label}: not every record written once with its tokens: {got}")
+    lines = (OUT_DIR / "serve_gang_batchgen_b0.log").read_text().splitlines()
+    summary = json.loads(next(ln for ln in reversed(lines) if ln.startswith('{"')))
+    ref = gang_reference(model, cfg, [tok.encode(r["prompt"]) for r in recs],
+                         [got[i][0]["tokens"] for i in range(len(recs))], label, max_seq_len=1024)
+    print(f"{label} [{card}]: examples/batch-generation's params (int8, max_batch 16) at tensor=2, {len(recs)} "
+          f"records of {GANG_BATCH_NEW} tokens: the follower SIGKILLed with {len(first)} durable, the leader out ({rc}) "
+          f"{waited:.1f} s after; the rerun resumed {summary['resumed']} and wrote {summary['written']} in "
+          f"{rerun_s:.1f} s ({summary['gen_tok_s']} tokens/s, occupancy {summary['slot_occupancy']}); every record "
+          f"once, every token within the rule", flush=True)
+    return {"reference": ref, "durable_at_kill": len(first), "kill_exit": rc, "kill_seconds": waited,
+            "rerun": summary, "seconds": time.perf_counter() - t0}
+
+
+def serve_gang_data_phase(card: str) -> dict:
+    """(f)'s paged leg at data=2 x tensor=2, then the same with a
+    self-draft (the target's checkpoint, int4 as the target), whose rounds
+    exchange the draft's proposals [B, k] over the data group besides the
+    verify's choices; apart from serve-gang to keep the default run inside
+    its time."""
+    import tempfile
+
+    from substratus_tpu_torch.models import llama
+    from substratus_tpu_torch.serve.tokenizer import ByteTokenizer
+    from substratus_tpu_torch.tools.ckpt_writer import write_hf
+
+    _free_card()
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_gang_data_"))
+    out = {}
+    try:
+        cfg = llama.CONFIGS["llama2-7b"].replace(n_layers=GANG_LAYERS)
+        model = llama.init_params(cfg, seed=0, device="cuda")
+        write_hf(str(tmp / "llama2-7b"), model)
+        llama.quantize_weights(model, "int4")  # the bytes each rank quantizes whole, then slices
+        tok = ByteTokenizer()
+        ids = [tok.encode(text) for text, *_ in SPEC_PROMPTS]
+        temps = [temp for _, _, temp, _ in SPEC_PROMPTS]
+        plan = {"concurrent": True, "requests": [{"prompt": p, "max_tokens": GANG_SPEC_NEW, "temperature": t}
+                                                 for p, t in zip(ids, temps)]}
+        legs = [GANG_SPEC_PARAMS, {**GANG_SPEC_PARAMS, "draft_model": str(tmp / "llama2-7b")}]
+        ranks = gang_worker_call(tmp / "llama2-7b", legs, plan, "serve-gang-data", "f4", world=4, timeout=420)
+        greedy = [i for i, t in enumerate(temps) if t == 0.0]
+        for leg, name in enumerate(("lookup", "self-draft")):
+            label = f"serve-gang-data (f) data=2 x tensor=2, {name}"
+            rows = spec_rows(ranks, leg, label)
+            lead = ranks[0]["legs"][leg]
+            st = lead["stats"]
+            # a round exchanges the verify's choices; a draft round its proposals before them
+            least = st["decode_steps"] + (st["verify_passes"] if leg else 0)
+            if lead["mesh"]["data"] != 2 or [r["legs"][leg]["rows"] for r in ranks] != [[0, 12], [0, 12], [12, 24],
+                                                                                         [12, 24]] or \
+                    st["verify_passes"] <= 0 or len(lead["exchange_s"]) < least or (leg and st["spec_accepted"] <= 0):
+                fail(f"{label}: mesh {lead['mesh']}, rows {[r['legs'][leg]['rows'] for r in ranks]}, stats {st}, "
+                     f"{len(lead['exchange_s'])} exchanges (want {least} or more)")
+            ref = gang_reference(model, cfg, [ids[i] for i in greedy], [rows[i] for i in greedy], label,
+                                 max_seq_len=1024)
+            exchange = statistics.median(lead["exchange_s"])
+            round_ms = 1e3 * st["decode_seconds"] / st["decode_steps"]
+            print(f"{label} [{card}]: four ranks' {sum(len(r) for r in rows)} tokens equal (the sampled rows too); "
+                  f"{st['verify_passes']} verify passes of {st['decode_steps']} rounds, accepted "
+                  f"{st['spec_accepted']}/{st['spec_proposed']}; the exchanges over the data group (gloo, int64: "
+                  f"[24, w+1]{', and the proposals [24, 3]' if leg else ''}) median {1e3 * exchange:.3f} ms over "
+                  f"{len(lead['exchange_s'])}; the round's host clock {round_ms:.2f} ms (four ranks time-slicing the "
+                  f"card)", flush=True)
+            out[name] = {"reference": ref, "stats": st, "round_ms": round_ms, "exchange_median_s": exchange,
+                         "exchanges": len(lead["exchange_s"])}
+        del model
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        _free_card()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"serve-gang-data: {out['seconds']:.1f} s", flush=True)
+    return out
 
 
 def serve_gang_phase(card: str) -> dict:
@@ -7668,13 +8181,19 @@ def serve_gang_phase(card: str) -> dict:
     width and GANG_LAYERS layers: (a) serve.main x 2, bf16, dense, 8
     concurrent greedy requests held by the near-tie rule against a single
     process, then SIGTERM to the leader ends both ranks with 0; (b) two
-    gang_worker ranks, one sampled row, the ranks' tokens equal, and the
+    gang_worker ranks (a leg of gang_rest_legs' call), one sampled row,
+    the ranks' tokens equal, and the
     numbers (the all-reduce, the broadcast, step and TTFT in turns with a
     single process, each rank's peak memory); (c) paged with int8 weights,
     4 requests sharing a prefix by the same rule, then a SIGKILLed follower
-    fails the leader within its collective timeout; (e) w8a8 on (c)'s int8
-    weights (gang_w8a8_leg); (d) the llama2-70b example's gang of four
-    ranks, data=2 x tensor=2 (gang_70b_leg)."""
+    fails the leader within its collective timeout; (f)-(h) speculation
+    (the throughput example's params, paged and dense), a sharded
+    self-draft and a tinyllama-width draft, and three tenants with a hot
+    load, the first of each through serve.main over HTTP, the second in
+    one gang_worker call (gang_rest_legs); (e) w8a8 on
+    (c)'s int8 weights (gang_w8a8_leg); (i) serve.batchgen as a gang, a
+    follower killed and a rerun (gang_batchgen_leg); (d) the llama2-70b
+    example's gang of four ranks, data=2 x tensor=2 (gang_70b_leg)."""
     import tempfile
 
     import torch
@@ -7741,11 +8260,12 @@ def serve_gang_phase(card: str) -> dict:
         try:
             engine_turn(single, prompts[:1])  # the graph's capture
             turn1 = engine_turn(single, prompts, GANG_SAMPLED)
-            ranks = run_gang_workers(model_dir, prompts, f"{label} (b)")
+            # (f)-(h) speculation, drafts and tenants: three serve.main gangs, and one gang_worker call with (b)'s
+            # and (e)'s legs, on the bf16 weights.
+            rest, (lead_r, follow_r), e_ranks = gang_rest_legs(card, tmp, model_dir, model, cfg, prompts)
             turn2 = engine_turn(single, prompts, GANG_SAMPLED)
         finally:
             single.stop()
-        lead_r, follow_r = ranks
         got = [q["tokens"] for q in lead_r["requests"]]
         if got != [q["tokens"] for q in follow_r["requests"]] or lead_r["error"] or follow_r["error"]:
             fail(f"{label} (b): the ranks' tokens differ or an engine failed: {lead_r['error']} {follow_r['error']}")
@@ -7800,20 +8320,23 @@ def serve_gang_phase(card: str) -> dict:
             c.stop()
         children = []
 
-        # (e) w8a8 on (c)'s int8 weights; (d) the llama2-70b example.
-        leg_e = gang_w8a8_leg(card, model_dir, model, cfg, prompts)
+        # (e) w8a8 on (c)'s int8 weights; (i) batch generation (int8); (d) the llama2-70b example.
+        leg_e = gang_w8a8_leg(card, e_ranks, model, cfg, prompts)
+        leg_i = gang_batchgen_leg(card, tmp, model_dir, model, cfg)
         del model
         _free_card()
         leg_d = gang_70b_leg(card, tmp)
         launches.update(leg_d["launches"])
         launches.update(leg_e["launches"])
+        launches.update(rest["launches"])
     finally:
         for c in children:
             c.stop()
         shutil.rmtree(tmp, ignore_errors=True)
     wall = time.perf_counter() - t_phase
     print(f"{label}: {wall:.1f} s at {GANG_LAYERS} layers ((d) at {GANG_70B_LAYERS} of llama2-70b's)", flush=True)
-    return {"layers": GANG_LAYERS, "launches": launches, "d": leg_d, "e": leg_e, "reference_a": reference, "reference_b": ref_b,
+    return {"layers": GANG_LAYERS, "launches": launches, "d": leg_d, "e": leg_e, "f_h": rest, "i": leg_i,
+            "reference_a": reference, "reference_b": ref_b,
             "reference_c": ref_c, "allreduce_s": ar, "broadcast_median_s": statistics.median(bcast),
             "step_ms": {"single": [turn1["step_ms"], turn2["step_ms"]], "gang": gang_step},
             "ttft_s": {"single": [turn1["ttft_s"], turn2["ttft_s"]], "gang": gang_ttft},
@@ -7836,7 +8359,11 @@ def main() -> int:
     def timed(name, fn, *args, **kw):  # a phase's seconds, printed at the end
         t0 = time.perf_counter()
         print(f"chip_smoke: {name} from {t0 - t_start:.1f} s", file=sys.stderr, flush=True)
-        out = fn(*args, **kw)
+        try:
+            out = fn(*args, **kw)
+        except Exception as e:  # the traceback, then the phase's name last on both streams
+            traceback.print_exc()
+            fail(f"{name}: {type(e).__name__}: {e}")
         phase_s[name] = round(time.perf_counter() - t0, 1)
         return out
 
@@ -7894,6 +8421,8 @@ def main() -> int:
         report["rl"] = timed("rl", rl_phase, card, profile_steps="profile" in phases)
     if "serve-gang" in phases:
         report["serve-gang"] = timed("serve-gang", serve_gang_phase, card)
+    if "serve-gang-data" in phases:
+        report["serve-gang-data"] = timed("serve-gang-data", serve_gang_data_phase, card)
     report["wall_s"] = time.perf_counter() - t_start
     report["phase_s"] = phase_s
     faulthandler.cancel_dump_traceback_later()
@@ -7949,6 +8478,11 @@ def main() -> int:
                                        "substratus_tpu/ops/decode_attention.py:138"),
                    "flash_cached_tp2": ("substratus_tpu_torch/csrc/flash_fwd_wgmma.cu",
                                         "substratus_tpu/ops/flash_attention.py:452"),
+                   # serve-gang (f)'s verify shapes a rank (tensor=2)
+                   "flash_cached_int8_verify_tp2": ("substratus_tpu_torch/csrc/flash_fwd_wgmma.cu",
+                                                    "substratus_tpu/ops/flash_attention.py:452"),
+                   "q4_matmul_wgmma_verify_tp2": ("substratus_tpu_torch/csrc/q4_matmul_wgmma.cu",
+                                                  "substratus_tpu/ops/quant4.py:168"),
                    # serve-gang (d)'s per-rank int4 shapes (llama2-70b, tensor 2 and 8)
                    "q4_matmul_decode_70b": ("substratus_tpu_torch/csrc/q4_matmul_decode.cu",
                                             "substratus_tpu/ops/quant4.py:168"),
@@ -7979,7 +8513,9 @@ def main() -> int:
                     # serve-gang (a): the leader's launches at the per-rank heads
                     **{name: ("serve-gang", name) for name in ("flash_fwd_tp2", "decode_attn_tp2",
                                                               "flash_cached_tp2", "q4_matmul_decode_70b",
-                                                              "q4_matmul_wgmma_70b", "w8a8_quantize_rows")}}
+                                                              "q4_matmul_wgmma_70b", "w8a8_quantize_rows",
+                                                              "flash_cached_int8_verify_tp2",
+                                                              "q4_matmul_wgmma_verify_tp2")}}
         # serve-spec's launches (legs (a) and (b)) of each design, and
         # serve-surface's (its child process's legs (a), (b) and (d)), each
         # its own count.

@@ -605,7 +605,10 @@ def _block(
     def proj(name: str, inp: torch.Tensor, eq: str, lora_eq: str, row_tp=None) -> torch.Tensor:
         out = project(eq, inp, getattr(lp, name), cfg, row_tp)
         if name in lora:
-            out = out + delta(name, inp, lora_eq)
+            d = delta(name, inp, lora_eq)
+            # A row-parallel product summed its partials inside itself; the
+            # delta of this rank's input rows is a partial sum of its own.
+            out = out + (row_tp.reduce(d) if row_tp is not None else d)
         return out
 
     h = rms_norm(x, lp.attn_norm, cfg.norm_eps)
@@ -697,7 +700,8 @@ def _moe_ffn(
         out = qeinsum_w8a8(eq_w, x, w, dt, tp=row_tp) if name == "w_down" and row_tp is not None else qe(eq_w, x, w, dt)
         if name in lora:
             down = _einsum(eq_a, x, lora[name]["a"].to(dt))
-            out = out + _einsum(eq_b, down, lora[name]["b"].to(dt)) * lora_scale
+            d = _einsum(eq_b, down, lora[name]["b"].to(dt)) * lora_scale
+            out = out + (row_tp.reduce(d) if name == "w_down" and row_tp is not None else d)
         return out
 
     probs, top_w, top_idx = route(h, lp.router, k)

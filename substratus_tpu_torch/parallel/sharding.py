@@ -30,9 +30,6 @@ from substratus_tpu_torch.parallel.mesh import Mesh, axis_names
 Axes = Tuple[Optional[Union[str, Tuple[str, ...]]], ...]
 Spec = Tuple[Optional[Union[str, Tuple[str, ...]]], ...]
 
-# The next gang slice (ROADMAP Queue 1, item 10): what a gang does not serve yet.
-NEXT_GANG_SLICE = "ROADMAP Queue 1, multi-GPU (the next gang slice)"
-
 
 @dataclass(frozen=True)
 class LogicalRules:

@@ -47,13 +47,24 @@ so what ``train.main`` writes serves as it is. The container contract
 mounts adapter artifacts under ``/content/adapters/<id>/``; the store's
 `search_dir` makes every subdir there loadable on demand: the cache-miss
 path is the hot-load path.
+
+On a gang rank (``tp``, the rank's TensorShard) the store holds its slice
+of every tenant, by the rule the rank's weight follows, since the model
+adds each delta inside the projection (models/llama.py ``proj``): ``b``
+by output columns for wq, wk, wv (heads) and w_gate, w_up (the MLP, where
+the axis divides it), ``a`` by input rows for wo (heads) and a w_down
+whose output is summed over the group, so each rank's partial delta is
+summed with the weight's partial output; a w_down kept whole keeps its
+``a`` whole. Artifacts are the whole model's; ``install`` slices them, and
+the device tensors are allocated once at the rank's shapes. (The JAX
+store replicates the stacked tree and lets GSPMD partition the delta.)
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import threading
-import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -149,6 +160,23 @@ def _target_shapes(cfg, targets: Sequence[str]) -> Dict[str, Tuple[int, Tuple[in
             )
         shapes[name] = (in_dim[name], out_shape[name])
     return shapes
+
+
+def _rank_slices(cfg, targets: Sequence[str], tp) -> Dict[str, Tuple[int, int, Tuple[int, ...]]]:
+    """Per target on a gang rank: (leaf, axis of the artifact's [L, ...]
+    leaf, whole size along it) to slice, or absent where the rank holds
+    it whole. `cfg` is the rank's (models/llama.py shard_config's)."""
+    if tp is None or tp.size == 1:
+        return {}
+    t, hd = tp.size, cfg.head_size
+    heads, kv = cfg.n_heads * t, cfg.n_kv_heads * t
+    mlp = cfg.hidden_dim * t if tp.mlp_sharded else cfg.hidden_dim
+    rule = {"wq": ("b", 2, heads), "wk": ("b", 2, kv), "wv": ("b", 2, kv), "wo": ("a", 1, heads * hd)}
+    if tp.mlp_sharded:
+        rule.update(w_gate=("b", 2, mlp), w_up=("b", 2, mlp))
+    if tp.reduce_down:
+        rule["w_down"] = ("a", 1, mlp)
+    return {name: rule[name] for name in targets if name in rule}
 
 
 def save_adapter_artifact(
@@ -273,6 +301,11 @@ class AdapterStore:
     model's, on `device`, cuda unless the caller asks for the CPU) carry
     one scale of 1.0 for every slot whatever each tenant's training
     hyperparameters.
+
+    `tp` (a gang rank's parallel.sharding.TensorShard; `cfg` the rank's
+    config) makes the store hold the rank's slice of every tenant (the
+    module docstring); artifacts and `install` trees stay the whole
+    model's.
     """
 
     def __init__(
@@ -284,6 +317,7 @@ class AdapterStore:
         dtype: Optional[torch.dtype] = None,
         search_dir: Optional[str] = None,
         device: DeviceLike = None,
+        tp=None,
     ):
         if capacity < 1:
             raise ValueError(f"adapter capacity {capacity} invalid")
@@ -300,6 +334,18 @@ class AdapterStore:
         A = capacity + 1  # + identity slot 0
         self.n_slots = A
         self._shapes = _target_shapes(cfg, self.targets)
+        # A gang rank's slices: the whole model's shapes are what installs
+        # check; a w_down kept whole (its activation gathered) reads all
+        # of the MLP's rows.
+        self.tp = tp
+        self._slices = _rank_slices(cfg, self.targets, tp)
+        self._whole = dict(self._shapes)
+        for name, (leaf, axis, size) in self._slices.items():
+            ind, out = self._whole[name]
+            self._whole[name] = (size, out) if leaf == "a" else (ind, (size,) + out[1:])
+        if tp is not None and tp.down_whole and "w_down" in self._shapes:
+            whole_in = cfg.hidden_dim * tp.size
+            self._shapes["w_down"] = self._whole["w_down"] = (whole_in, self._shapes["w_down"][1])
         self._lock = threading.Lock()
         # Everything below is shared between the scheduler thread and HTTP
         # handlers and only ever touched under self._lock.
@@ -309,7 +355,10 @@ class AdapterStore:
         self._by_id: Dict[str, int] = {}
         self._paths: Dict[str, str] = {}  # id -> artifact dir (reloadable)
         self._refs = [0] * A  # active engine slots pinning this adapter
-        self._last_used = [0.0] * A
+        # The LRU order by a logical clock of the store's uses: a gang's
+        # ranks, making the same uses in the same order, evict alike.
+        self._clock = itertools.count(1)
+        self._last_used = [0] * A
         self._dirty: set = set()  # slots whose host buffers the device has not seen
         self.stats: Dict[str, int] = {"hits": 0, "misses": 0, "evictions": 0}
         # The device tensors, allocated once (zeros: every slot the
@@ -391,7 +440,8 @@ class AdapterStore:
 
         Accepts rank <= the store rank (zero-padded: exact, the extra rank
         columns contribute nothing) and any subset of the store's targets
-        (missing targets stay zero)."""
+        (missing targets stay zero). `layers` holds the whole model's
+        shapes; a gang rank's store keeps its slice of them."""
         if not adapter_id:
             raise ValueError("adapter id must be non-empty")
         unknown = set(layers) - set(self._shapes)
@@ -401,7 +451,7 @@ class AdapterStore:
                 f"the store's target set {sorted(self._shapes)}"
             )
         checked: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
-        for name, (ind, out) in self._shapes.items():
+        for name, (ind, out) in self._whole.items():
             ab = layers.get(name)
             if ab is None:
                 continue
@@ -419,6 +469,14 @@ class AdapterStore:
                     f"adapter {adapter_id!r} {name}.b shape {b.shape} "
                     f"incompatible with [L, r={a.shape[2]}, {out}]"
                 )
+            if name in self._slices:
+                leaf, axis, size = self._slices[name]
+                block = size // self.tp.size
+                index = slice(self.tp.index * block, (self.tp.index + 1) * block)
+                if leaf == "a":
+                    a = a[(slice(None),) * axis + (index,)]
+                else:
+                    b = b[(slice(None),) * axis + (index,)]
             checked[name] = (a, b)
         with self._lock:
             slot = self._by_id.get(adapter_id)
@@ -438,7 +496,7 @@ class AdapterStore:
                 self._b[name][:, slot, :r] = b * scale
             self._slot_id[slot] = adapter_id
             self._by_id[adapter_id] = slot
-            self._last_used[slot] = time.monotonic()
+            self._last_used[slot] = next(self._clock)
             self._dirty.add(slot)
             METRICS.set("substratus_serve_adapters_loaded", len(self._by_id))
             return slot
@@ -489,7 +547,7 @@ class AdapterStore:
                 self.stats["hits"] += 1
                 METRICS.inc("substratus_serve_adapter_cache_hits_total")
                 self._refs[slot] += 1
-                self._last_used[slot] = time.monotonic()
+                self._last_used[slot] = next(self._clock)
                 return slot
             # Miss (counted, as the JAX store counts it, also when the
             # request then has to wait). With every slot pinned the load
@@ -506,7 +564,7 @@ class AdapterStore:
         slot = self.load(adapter_id)
         with self._lock:
             self._refs[slot] += 1
-            self._last_used[slot] = time.monotonic()
+            self._last_used[slot] = next(self._clock)
             return slot
 
     def release(self, slot: int) -> None:

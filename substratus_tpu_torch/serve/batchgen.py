@@ -28,10 +28,25 @@ no HTTP path.
   regenerates the rest into a fresh shard (torn tail lines from a kill are
   unparseable, ignored, and regenerated).
 
-One actor engine a process here (BatchGenDriver takes several engines of
-one process, as JAX's does); multi-process gangs, a second device and
-``tensor`` exit naming their ROADMAP items. ``baseModel`` is a known key
-with no effect, as in serve.main.
+One actor engine a process (BatchGenDriver takes several engines of one
+process, as JAX's does); outside a gang a second visible card exits
+naming its ROADMAP item. ``baseModel`` is a known key with no effect, as
+in serve.main.
+
+**A gang** (the operator's environment: JAX_COORDINATOR_ADDRESS,
+JAX_NUM_PROCESSES > 1, TPU_WORKER_ID), as the JAX entry point runs one:
+every rank joins the rendezvous, builds serve.main's mesh (``tensor`` over
+the kv heads, ``data`` the rest; ``max_batch`` rounded up to a multiple of
+``data``), loads its shard and its slice of the adapter store, and runs
+the engine with the replicated scheduler. The leader alone attaches the
+BatchGenDriver's source (its pulls ride the event broadcast), writes the
+shards and serves the progress port; a follower mirrors it until the leader's
+stop and exits 0, or 1 when its engine failed. A rank's death fails the
+others' next collective: the leader exits 1 with every durable record in
+its shards, and a rerun of the gang resumes from them. A record the
+engine's death ended is never written (JAX's BatchGenDriver writes it as
+an "error" record), so the rerun generates it: each record once, with its
+tokens.
 
 Metrics (observability/metrics.py, the JAX names): records written by
 outcome, the slot occupancy the refill exists to hold at 1.0, and the
@@ -85,7 +100,6 @@ METRICS.describe(
 BATCHGEN_KEYS = ("manifest", "output", "maxTokens", "temperature", "recordsPerShard", "progressPort")
 # Serving knobs the batch run takes no part in, as in the JAX entry point.
 _SERVER_ONLY = ("max_queue", "drain_grace", "spec_k", "draft_model", "role", "transfer_port", "decode_peers")
-_GANG = "Queue 1, multi-GPU (a multi-process batch gang)"
 _MULTI_GPU = "Queue 1, multi-GPU (a batch run over several cards)"
 
 
@@ -299,8 +313,14 @@ class BatchGenDriver:
             return bool(self._ready) or bool(self._records)
 
     def _complete(self, sink: _RecordSink) -> None:
+        # An "error" the engine's death gave (its error is set before it
+        # ends its requests) is not the record's outcome: never durable,
+        # so that a rerun generates it.
+        died = sink.req is not None and sink.req.finish_reason == "error" and any(
+            e.error is not None for e in self.engines)
         with self._lock:
-            self._buf.append(sink)
+            if not died:
+                self._buf.append(sink)
             self._in_flight -= 1
         self._wake.set()
 
@@ -540,21 +560,29 @@ def main(argv=None) -> int:
 
     from substratus_tpu_torch.observability.propagation import context_from_env
     from substratus_tpu_torch.observability.tracing import tracer
+    from substratus_tpu_torch.parallel import distributed
     from substratus_tpu_torch.serve.engine import Engine, EngineConfig
     from substratus_tpu_torch.serve.main import (
-        build_adapter_store, check_params, load_model, load_params_json, resolve_kv_layout, resolve_overlap,
-        resolve_quantize)
+        GangMesh, build_adapter_store, check_params, gang_batch, load_model, load_params_json, mesh_line,
+        resolve_kv_layout, resolve_overlap, resolve_quantize, shard_layout)
     from substratus_tpu_torch.utils.device import resolve_device
 
     params_json = load_params_json(args.params)
     check_params(params_json)
     bg = batchgen_params(params_json)
-    if int(os.environ.get("JAX_NUM_PROCESSES", "1") or 1) > 1:
-        raise SystemExit(f"batch generation across processes is not served by the PyTorch port yet: ROADMAP {_GANG}")
-    device = resolve_device(args.device)
-    if device.type == "cuda" and torch.cuda.device_count() > 1:
-        raise SystemExit(f"{torch.cuda.device_count()} cards visible: the PyTorch port's batch generation runs on one "
-                         f"(name it with CUDA_VISIBLE_DEVICES); ROADMAP {_MULTI_GPU}")
+    gang, mesh_for = None, None
+    coord, world, _ = distributed.world_info()
+    if world > 1 and coord:
+        # Every rank joins; each takes the device the rendezvous gives it.
+        distributed.maybe_initialize(device_type="cpu" if args.device == "cpu" else "cuda")
+        gang = distributed.current()
+        device = gang.device
+        mesh_for = GangMesh(gang.world, params_json)
+    else:
+        device = resolve_device(args.device)
+        if device.type == "cuda" and torch.cuda.device_count() > 1:
+            raise SystemExit(f"{torch.cuda.device_count()} cards visible: the PyTorch port's batch generation runs "
+                             f"on one (name it with CUDA_VISIBLE_DEVICES) outside a gang; ROADMAP {_MULTI_GPU}")
     for key in _SERVER_ONLY:
         if key in params_json:
             print(f"params.json: {key} ignored by batch generation", flush=True)
@@ -567,11 +595,12 @@ def main(argv=None) -> int:
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     cfg, params, tokenizer, name, family, quantize = load_model(args.model, args.config, params_json, device,
-                                                                quantize)
+                                                                quantize, mesh_for=mesh_for)
+    mesh = mesh_for.mesh if mesh_for is not None else None
     weight_bytes = sum(t.numel() * t.element_size() for t in params.state_dict().values() if torch.is_tensor(t))
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
 
-    max_batch = args.max_batch or int(params_json.get("max_batch", 8))
+    max_batch = gang_batch(args.max_batch or int(params_json.get("max_batch", 8)), mesh)
     max_seq_len = args.max_seq_len or int(params_json.get("max_seq_len", 1024))
     ec = EngineConfig(
         max_batch=max_batch,
@@ -584,14 +613,35 @@ def main(argv=None) -> int:
         step_floor_s=args.step_floor_ms / 1e3,
     )
     # Per-record `model` fields select LoRA slots of one shared store.
-    adapters = build_adapter_store(family, cfg, params_json, None, device)
-    engine = Engine(cfg, params, ec, device=device, model=family, adapters=adapters)
+    adapters = build_adapter_store(family, cfg, params_json, None, device, tp=getattr(params, "tp", None))
+    sync = None
+    if gang is not None:
+        from substratus_tpu_torch.serve.multihost import StepSync
+
+        sync = StepSync()
+    engine = Engine(cfg, params, ec, device=device, model=family, adapters=adapters, mesh=mesh, sync=sync)
     engine.start()
     on_card = f", peak {peak} bytes while loading and quantizing" if peak is not None else ""
+    gang_line = ""
+    if gang is not None:
+        gang_line = (f"; batchgen gang: rank {gang.rank}/{gang.world} ({'leader' if gang.leader else 'follower'}), "
+                     f"mesh {mesh.describe()}, data backend {gang.backend}, weights {shard_layout(params)}, slots "
+                     f"{engine.rows[0]}-{engine.rows[1] - 1} on this data replica")
     print(f"batchgen: {name} on {device}, {quantize} weights ({weight_bytes} bytes{on_card}); "
           f"{'paged' if engine.paged else 'dense'} kv, {engine.attention_route()}; max_batch {ec.max_batch}, "
           f"max_seq_len {ec.max_seq_len}; scheduler {'overlapped' if engine.overlap else 'synchronous'}, decode "
-          f"step {'one CUDA graph' if engine.decode_graph else 'eager'}", flush=True)
+          f"step {'one CUDA graph' if engine.decode_graph else 'eager'}{gang_line}", flush=True)
+    if mesh is not None:
+        print(mesh_line(mesh).replace("serving mesh", "batchgen mesh"), flush=True)
+    if gang is not None and not gang.leader:
+        # A follower mirrors the leader's scheduler (the pulled records
+        # arrive in the broadcast) until the stop, or fails with the gang.
+        engine._thread.join()
+        if engine.error is not None:
+            print(f"batchgen gang rank {gang.rank} engine died: {engine.error!r}", flush=True)
+            return 1
+        distributed.shutdown()
+        return 0
 
     progress_srv = None
     if args.progress_port is not None or bg.get("progressPort") is not None:
@@ -620,6 +670,11 @@ def main(argv=None) -> int:
         if progress_srv is not None:
             progress_srv.close()
         engine.stop()
+    if gang is not None:
+        if engine.error is not None:
+            print(f"batchgen gang rank {gang.rank} engine died: {engine.error!r}", flush=True)
+            return 1
+        distributed.shutdown()
     return rc
 
 

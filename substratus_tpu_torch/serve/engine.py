@@ -128,8 +128,15 @@ events and runs the same iteration, so every rank issues the same
 collectives in the same order. A follower refuses submit() and delivers
 into a NullSink. Under a sync the scheduler is the synchronous one (a
 settled batch each broadcast) with the idle tick of the JAX engine; under
-a tensor axis the decode step runs eagerly (no CUDA graph can capture
-gloo's collectives).
+a tensor axis the decode step and a speculative round run eagerly (no CUDA
+graph can capture gloo's collectives). What a gang decides on the host is
+a function of the event stream: the lookup scan, the round's width, each
+slot's EWMA, the adapter store's LRU and hot loads (every rank admits in
+broadcast order, and the ranks check each adapter admission's verdict and
+slot equal before acting on it); the draft model is a shard of its own
+(the target's serving rules), and a rank's adapter store holds its slice
+of every tenant. The leader's pull source (batch generation) is pulled
+inside _sync_iterate, so pulled requests ride the broadcast.
 
 A mesh with a data axis above 1 splits the batch's slots into blocks,
 as a NamedSharding of the batch over "data" lays them out: replica d owns
@@ -138,7 +145,9 @@ keeps every slot's state); a decode step runs the model on the replica's
 own rows only, and the step's sampled tokens are exchanged over the data
 group (an all-reduce of each replica's rows written into a zeroed [B]
 buffer), at the same point of every iteration on every rank, so every
-rank applies every row's token. The dense cache holds the owned rows
+rank applies every row's token (a speculative round's verify exchanges
+its greedy choices and position-0 samples [B, w + 1], the draft its
+proposals [B, k], the same way). The dense cache holds the owned rows
 only ([L, B/dp, KH, S, D]): a prefill runs on the slot's replica, which
 broadcasts the first token over the data group. The paged pool is
 replicated, as the JAX package keeps it (its block tables are global and a
@@ -176,7 +185,6 @@ from substratus_tpu_torch.ops.decode_attention import pack_fragment
 from substratus_tpu_torch.ops.headdim import check_head_dim, head_dim_route
 from substratus_tpu_torch.ops.quant import dequantize_kv, quantize_kv
 from substratus_tpu_torch.ops.sampling import sample
-from substratus_tpu_torch.parallel.sharding import NEXT_GANG_SLICE
 from substratus_tpu_torch.serve.adapters import AdapterCapacityError, UnknownAdapter
 from substratus_tpu_torch.serve.decode_graph import DecodeGraph, SpecGraph
 from substratus_tpu_torch.serve.multihost import NullSink, decode_events, encode_events
@@ -490,8 +498,9 @@ class Engine:
         serve.disagg.HandoffManager) is where a prefill-role engine ships
         its requests. `mesh` (parallel.mesh.Mesh) with a tensor axis above
         1 serves `params`, this rank's shard (models.llama.shard_model),
-        eagerly; `sync` (a serve.multihost.StepSync or TcpSync of more
-        than one process) replicates the scheduler over the gang."""
+        eagerly (with `draft`, the draft's shard too); `sync` (a
+        serve.multihost.StepSync or TcpSync of more than one process)
+        replicates the scheduler over the gang."""
         # Copy before clamping: never mutate the caller's config.
         ec = dataclasses.replace(ec) if ec is not None else EngineConfig()
         self.device = resolve_device(device)
@@ -516,17 +525,13 @@ class Engine:
         per = ec.max_batch // self.data
         # This replica's block of slots: [lo, hi).
         self.rows = (mesh.coords["data"] * per, (mesh.coords["data"] + 1) * per) if self.data > 1 else (0, per)
-        # Host-clock seconds of the last decode steps' token exchanges (data > 1).
+        # Host-clock seconds of the last exchanges over the data group (data > 1): a decode step's tokens, a
+        # verify's choices and samples, a draft's proposals.
         self.exchange_s: Deque[float] = collections.deque(maxlen=4096)
         tp = getattr(params, "tp", None)
         if (tp.size if tp is not None else 1) != tensor:
             raise ValueError(f"the mesh's tensor axis is {tensor} but params are a shard of "
                              f"{tp.size if tp is not None else 1}: serve a rank's shard (models.llama.shard_model)")
-        if tensor > 1 or sync is not None:
-            for what, used in (("speculative decoding", ec.spec_k), ("multi-tenant adapters", adapters)):
-                if used:
-                    raise NotImplementedError(f"{what} in a gang is not served by the PyTorch port yet: "
-                                              f"{NEXT_GANG_SLICE}")
         ec.max_seq_len = min(ec.max_seq_len, cfg.max_seq_len)
         ec.max_prefill_len = min(ec.max_prefill_len, ec.max_seq_len)
         if ec.max_prefill_len < 1 or ec.max_batch < 1 or ec.max_seq_len < 2:
@@ -599,6 +604,13 @@ class Engine:
             self.draft_cfg, self.draft_params = draft
             if self.draft_params.device != self.device:
                 raise ValueError(f"draft params live on {self.draft_params.device}, engine device is {self.device}")
+            draft_tp = getattr(self.draft_params, "tp", None)
+            if (draft_tp.size if draft_tp is not None else 1) != tensor:
+                # The draft is sharded by the target's serving rules (the
+                # JAX engine's shard_tree of the draft over the same mesh).
+                raise ValueError(f"the mesh's tensor axis is {tensor} but the draft is a shard of "
+                                 f"{draft_tp.size if draft_tp is not None else 1}: serve the draft's shard too "
+                                 "(models.llama.shard_model)")
             # The target's page ids index this pool too, in the same dtype.
             self.draft_cache = model.init_paged_cache(self.draft_cfg, self.n_pages + 1, bs, dtype=cache_dtype,
                                                       device=self.device)
@@ -618,6 +630,7 @@ class Engine:
         # only through _sync_iterate, identically on every rank.
         self.sync = sync if (sync is not None and sync.num_processes > 1) else None
         self._sync_seq = 0
+        self._pulling = False  # the iteration's broadcast: the leader pulls from a source
         self._sync_reqs: Dict[int, Request] = {}
         self._synced: List[Request] = []
         # Where a follower's mirror requests deliver: nowhere (a tool that
@@ -831,13 +844,14 @@ class Engine:
         out sink) or None; pending() says whether pull() could yield. It is
         read after the resume list and the submit queue, so submitted
         requests board first. A decode-role engine refuses one: its
-        requests arrive as migrations. A gang refuses one (batch
-        generation's gang is a later slice)."""
+        requests arrive as migrations. On a gang the leader's source is
+        pulled inside _sync_iterate, so pulled requests ride the broadcast
+        like submitted ones; a follower refuses one."""
         if source is not None and self.ec.role == "decode":
             raise RuntimeError("decode-role engine: requests arrive as KV migrations, not from a pull source")
-        if source is not None and self.sync is not None:
-            raise NotImplementedError(f"a pull source on a gang engine is not served by the PyTorch port yet: "
-                                      f"{NEXT_GANG_SLICE}")
+        if source is not None and self.sync is not None and not self.sync.leader:
+            raise RuntimeError("follower engine: the leader owns the source; followers receive pulled requests via "
+                               "the broadcast")
         self.source = source
         self._wake.set()
 
@@ -1100,7 +1114,9 @@ class Engine:
         the batch (_flush("gang")); the leader drains its queue, numbers
         the new requests and broadcasts them with this iteration's cancel
         latches, stop and swap barrier; every rank then applies them
-        identically."""
+        identically. The leader's pull source tops the gang up to its
+        free slots here, its requests numbered and broadcast like
+        submitted ones."""
         if self.sync is None:
             self._apply_staged_swaps()
             return not self._stop.is_set()
@@ -1113,6 +1129,15 @@ class Engine:
                     new.append(self.queue.get_nowait())
                 except queue.Empty:
                     break
+            if self.source is not None:
+                budget = (self.ec.max_batch - int(self.active.sum()) - len(self._synced) - len(self._resume)
+                          - len(new))
+                while budget > 0:
+                    r = self.source.pull()
+                    if r is None:
+                        break
+                    new.append(r)
+                    budget -= 1
             for r in new:
                 self._sync_seq += 1
                 r.sync_id = self._sync_seq
@@ -1129,8 +1154,8 @@ class Engine:
             swap_version = None
             if leader_sw is not None:
                 swap_version = leader_sw.version if leader_sw.version is not None else self.weights_version + 1
-            self.sync.broadcast(encode_events(new, cancels, stop, swap=swap_version))
-            msg = {"cancels": cancels, "stop": stop, "swap": swap_version}
+            self.sync.broadcast(encode_events(new, cancels, stop, swap=swap_version, source=self.source is not None))
+            msg = {"cancels": cancels, "stop": stop, "swap": swap_version, "source": self.source is not None}
         else:
             msg = decode_events(self.sync.broadcast(None))
             new = []
@@ -1139,6 +1164,9 @@ class Engine:
                 new.append(Request(prompt_tokens=d["p"], max_tokens=d["m"], temperature=d["t"], top_p=d["tp"],
                                    eos_token_id=d["e"], id=d["id"], adapter=d.get("ad"), out=self.follower_sink(),
                                    sync_id=d["sid"]))
+        # Admission fills freely while the leader pulls from a source: the
+        # broadcast's word, the same on every rank.
+        self._pulling = bool(msg.get("source"))
         for r in new:
             self._sync_reqs[r.sync_id] = r
             self._synced.append(r)
@@ -1181,7 +1209,8 @@ class Engine:
         A decode-role engine boards its migrations first (and they count
         toward the cap)."""
         admitted = self._admit_migrations()
-        busy = self.active.any() and self.source is None
+        pulling = self._pulling if self.sync is not None else self.source is not None
+        busy = self.active.any() and not pulling
         cap = max(1, self.ec.max_batch // 4) if busy else self.ec.max_batch
         while admitted < cap and self._has_pending() and not self.active.all():
             req = self._next_request()
@@ -1240,27 +1269,50 @@ class Engine:
         JAX engine's). Returns "ok" (adapter_slot set; 0 = base), "wait"
         (every store slot is pinned: transient, hold the request) or
         "dead" (the adapter is unknown or its artifact unreadable: the
-        request ends with finish_reason "error", the engine serves on)."""
+        request ends with finish_reason "error", the engine serves on).
+        A gang's ranks admit in broadcast order, so the LRU choice and a
+        hot load are the same on every rank; they agree on the verdict
+        and the slot before acting on it (_agree_adapter), so a load that
+        fails on one rank only fails the gang instead of diverging."""
         req.adapter_slot = 0
         if req.adapter is None:
             return "ok"
+        error = None
         try:
             if self.adapters is None:
                 raise UnknownAdapter(req.adapter)
             req.adapter_slot = self.adapters.acquire(req.adapter)
-            self.stats["adapter_requests"] += 1
-            return "ok"
+            verdict = "ok"
         except AdapterCapacityError:
-            return "wait"
+            verdict = "wait"
         except (UnknownAdapter, OSError, ValueError) as e:
+            verdict, error = "dead", e
+        if self.sync is not None:
+            self._agree_adapter(req, verdict)
+        if verdict == "ok":
+            self.stats["adapter_requests"] += 1
+        elif verdict == "dead":
             # The artifact vanished (or is corrupt) between submit()'s
             # known() check and admission: fail this request, not the engine.
             logging.getLogger(__name__).warning("adapter %r failed to load for request %s: %s", req.adapter,
-                                                req.id, e)
+                                                req.id, error)
             req.finish_reason = "error"
             self._journey_end(req, "error", cause="adapter")
             req.out.put(None)
-            return "dead"
+        return verdict
+
+    def _agree_adapter(self, req: Request, verdict: str) -> None:
+        """Every rank's admission of one adapter request, checked equal
+        over the gang's control group (the same point of every rank's
+        iteration): the verdict and the store slot. Raises (the engine
+        dies, the rank exits 1) where they differ, e.g. an artifact one
+        rank cannot read."""
+        slots = self.adapters.n_slots if self.adapters is not None else 1
+        code = ("ok", "wait", "dead").index(verdict) * slots + req.adapter_slot
+        lo, hi = self.sync.agree(code)
+        if lo != hi:
+            raise RuntimeError(f"gang ranks disagree on adapter {req.adapter!r} of request {req.sync_id}: this rank "
+                               f"{verdict} (slot {req.adapter_slot}); codes {lo}..{hi} (verdict x {slots} + slot)")
 
     def _release_adapter_pin(self, req: Request) -> None:
         if self.adapters is not None and req.adapter_slot:
@@ -1654,14 +1706,14 @@ class Engine:
         dist.broadcast(buf, src=src, group=self.mesh.group("data"))
         return buf
 
-    def _exchange(self, sampled: torch.Tensor) -> torch.Tensor:
-        """Every row's token [B] from each data replica's own rows: its
-        sampled rows written into a zeroed buffer, summed over the data
-        group (gloo takes no all_gather of CUDA tensors; zeros add
-        exactly)."""
+    def _exchange(self, rows: torch.Tensor) -> torch.Tensor:
+        """Every row's values [B, ...] (int64) from each data replica's own
+        rows [B/dp, ...]: its rows written into a zeroed buffer, summed over
+        the data group (gloo takes no all_gather of CUDA tensors; zeros add
+        exactly). Every rank reaches every exchange, idle rows or not."""
         t0 = time.perf_counter()
-        full = torch.zeros((self.ec.max_batch,), dtype=torch.int64, device=self.device)
-        full[self.rows[0]:self.rows[1]] = sampled
+        full = torch.zeros((self.ec.max_batch,) + tuple(rows.shape[1:]), dtype=torch.int64, device=self.device)
+        full[self.rows[0]:self.rows[1]] = rows
         dist.all_reduce(full, group=self.mesh.group("data"))
         self.exchange_s.append(time.perf_counter() - t0)
         return full
@@ -1674,16 +1726,22 @@ class Engine:
         cache is written in place; on the paged pool through the block
         table; each row with its adapter) and sample, all on the device.
         Under a data axis: this replica's rows only, then the exchange."""
+        tokens, positions, temps, top_ps, block_table, adapter_ids = self._replica_rows(
+            tokens, positions, temps, top_ps, block_table, adapter_ids)
         kw = self._batch_lora(adapter_ids)
-        if self.data > 1:
-            lo, hi = self.rows
-            tokens, positions, temps, top_ps = tokens[lo:hi], positions[lo:hi], temps[lo:hi], top_ps[lo:hi]
-            block_table = None if block_table is None else block_table[lo:hi]
         if block_table is not None:
             kw["block_table"] = block_table
         logits, _ = self.model.decode_step(self.params, self.cache, tokens, positions, cfg, **kw)
         sampled = sample(logits, self.generator, temps, top_k=self.ec.top_k, top_p=top_ps)
         return sampled if self.data == 1 else self._exchange(sampled)
+
+    def _replica_rows(self, *inputs):
+        """A step's per-row inputs (None passes) cut to this data
+        replica's block of slots; all of them with one replica."""
+        if self.data == 1:
+            return inputs
+        lo, hi = self.rows
+        return tuple(None if t is None else t[lo:hi] for t in inputs)
 
     def _verify_step(self, cfg, tokens: torch.Tensor, positions: torch.Tensor,
                      temps: torch.Tensor, top_ps: torch.Tensor,
@@ -1692,18 +1750,28 @@ class Engine:
         """A speculative round's target forward over tokens [B, w] at
         positions [B, w] (the cache written in place; each row with its
         adapter): the greedy choice at every position and the sample of
-        position 0. At w = 1 it is the decode step."""
+        position 0. At w = 1 it is the decode step. Under a data axis:
+        this replica's rows only, then one exchange of the choices and
+        the samples."""
+        tokens, positions, temps, top_ps, block_table, adapter_ids = self._replica_rows(
+            tokens, positions, temps, top_ps, block_table, adapter_ids)
         kw = self._batch_lora(adapter_ids)
         if block_table is not None:
             kw["block_table"] = block_table
         logits, _ = self.model.forward(self.params, tokens, cfg, positions=positions, cache=self.cache, **kw)
         sampled = sample(logits[:, 0], self.generator, temps, top_k=self.ec.top_k, top_p=top_ps)
-        return logits.argmax(dim=-1), sampled
+        choices = logits.argmax(dim=-1)
+        if self.data == 1:
+            return choices, sampled
+        both = self._exchange(torch.cat([choices, sampled.to(torch.int64)[:, None]], dim=1))
+        return both[:, :-1], both[:, -1]
 
     def _propose_steps(self, tokens: torch.Tensor, positions: torch.Tensor, k: int,
                        block_table: torch.Tensor) -> torch.Tensor:
         """k greedy decode steps of the draft through its paged pool from
-        tokens [B] at positions [B]: its proposals [B, k]."""
+        tokens [B] at positions [B]: its proposals [B, k]. Under a data
+        axis: this replica's rows, then one exchange of the proposals."""
+        tokens, positions, block_table = self._replica_rows(tokens, positions, block_table)
         props = []
         for i in range(k):
             logits, _ = self.model.forward(self.draft_params, tokens[:, None], self.draft_cfg,
@@ -1711,7 +1779,8 @@ class Engine:
                                            block_table=block_table)
             tokens = logits[:, 0].argmax(dim=-1)
             props.append(tokens)
-        return torch.stack(props, dim=1)
+        props = torch.stack(props, dim=1)
+        return props if self.data == 1 else self._exchange(props)
 
     def _decode_graph(self):
         """The step's graph (a SpecGraph for a spec engine) for the current

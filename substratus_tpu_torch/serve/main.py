@@ -128,8 +128,13 @@ lowered until it divides the kv heads (the JAX entry point's loop: the
 llama2-70b example's 16 on 16 ranks is data=2 x tensor=8), else the
 largest size up to the world that divides them; ``data`` is the rest,
 printed as the JAX entry point's ``serving mesh`` line, and ``max_batch``
-rounds up to a multiple of it. Speculation, adapters and a disaggregated
-role in a gang exit, naming ROADMAP Queue 1. Every rank loads the
+rounds up to a multiple of it. A gang serves speculation (prompt lookup,
+or a draft model, which every rank loads and shards by the same rules: its
+kv heads must divide ``tensor``) and multi-tenant adapters (every rank's
+store holds its slice of each tenant, hot loads alike; the ranks check
+each adapter admission equal, so a tenant one rank cannot load fails the
+gang); a disaggregated role in a gang exits, as the JAX entry point
+refuses it, naming ROADMAP Queue 1. Every rank loads the
 checkpoint and keeps its tensor shard (models/llama.py's shard_model, any
 weight mode: int4 in whole scale groups or whole, w8a8 as int8; an HF
 directory is staged a layer at a time, so no rank holds the whole model),
@@ -191,7 +196,7 @@ _CHUNK_IMPLS = {"xla": "flash", "flash": "flash"}
 ATTN_IMPLS = {"xla": "flash", "flash": "flash", "plain": "plain"}
 _MULTI_GPU = "Queue 1, multi-GPU (ring and Ulysses attention)"
 _GANGS = "Queue 1, multi-GPU (gangs: one model over several processes)"
-_GANG_NEXT = "Queue 1, multi-GPU (the next gang slice)"
+_CARDS = "Queue 1, multi-GPU (several cards in one process)"
 # The container contract's model and adapter mounts.
 CONTENT_MODEL = "/content/model"
 CONTENT_ADAPTERS = "/content/adapters"
@@ -315,7 +320,7 @@ def resolve_tensor(params: Dict[str, Any]) -> Optional[int]:
     if tensor > 1 and (world <= 1 or coord is None):
         raise SystemExit(f"params.json: tensor={tensor} needs a gang of processes (JAX_NUM_PROCESSES, "
                          "JAX_COORDINATOR_ADDRESS, TPU_WORKER_ID); one process serves one card, and several cards "
-                         f"in one process are not served by the PyTorch port yet: ROADMAP {_GANG_NEXT}")
+                         f"in one process are not served by the PyTorch port yet: ROADMAP {_CARDS}")
     return tensor
 
 
@@ -334,6 +339,21 @@ def gang_mesh(world: int, params: Dict[str, Any], cfg):
     while world % tp or cfg.n_kv_heads % tp:
         tp -= 1
     return build_mesh(data=world // tp, tensor=tp)
+
+
+class GangMesh:
+    """A gang's mesh as load_model's `mesh_for` (cfg -> mesh): built at
+    the first call, from the whole model's config (its process groups are
+    made collectively, once, in the same order on every rank)."""
+
+    def __init__(self, world: int, params: Dict[str, Any]):
+        self.world, self.params = world, params
+        self.mesh = None
+
+    def __call__(self, model_cfg):
+        if self.mesh is None:
+            self.mesh = gang_mesh(self.world, self.params, model_cfg)
+        return self.mesh
 
 
 def mesh_line(mesh) -> str:
@@ -373,17 +393,26 @@ def shard_layout(params) -> str:
 
 
 def check_gang_params(params: Dict[str, Any], args) -> None:
-    """Exit on what a gang does not serve yet, before the rendezvous:
-    speculation, adapters, a disaggregated role."""
-    refused = []
-    if resolve_spec(args.spec_k, args.draft_model, params)[0]:
-        refused.append("speculative decoding")
-    if args.adapters_dir or params.get("adapters") or os.path.isdir(CONTENT_ADAPTERS):
-        refused.append("multi-tenant adapters")
+    """Exit, before the rendezvous, on a disaggregated role in a gang, as
+    the JAX engine refuses it (one gang is one replica of one pool)."""
     if resolve_role(args.role, params) != "both":
-        refused.append("a disaggregated role")
-    if refused:
-        raise SystemExit(f"{', '.join(refused)} in a gang: not served by the PyTorch port yet: ROADMAP {_GANG_NEXT}")
+        raise SystemExit("a disaggregated role in a gang: disaggregated roles are incompatible with lockstep sync (a "
+                         "gang engine is one replica; split pools across gangs); ROADMAP Queue 1, multi-GPU")
+
+
+def gang_draft(family, draft_cfg, draft_params, mesh):
+    """A gang rank's shard of the draft model, by the target's serving
+    rules (the JAX engine shards the draft over the same mesh); exits
+    where the tensor axis does not divide its heads (JAX keeps such heads
+    whole on every device; a rank here would attend heads it does not
+    hold)."""
+    t = mesh.shape["tensor"]
+    if draft_cfg.n_kv_heads % t or draft_cfg.n_heads % t:
+        raise SystemExit(f"a draft model of {draft_cfg.n_heads} heads and {draft_cfg.n_kv_heads} kv heads at "
+                         f"tensor={t}: heads the tensor axis does not divide are not served by the PyTorch port yet: "
+                         "ROADMAP Queue 1, multi-GPU (a gang's heads that the tensor axis does not divide)")
+    shard = family.shard_model(draft_params, mesh)
+    return shard.cfg.replace(quant_activations=draft_cfg.quant_activations), shard
 
 
 def resolve_role(flag: Optional[str], params: Dict[str, Any]) -> str:
@@ -479,13 +508,15 @@ def load_checkpoint(path: str, device=None, dtype=torch.bfloat16, quantize: str 
     return load_pretrained(path, dtype=dtype, device=device, quantize=quantize, mesh_for=mesh_for)
 
 
-def build_adapter_store(family, cfg, params_json: Dict[str, Any], adapters_dir_flag: Optional[str], device):
+def build_adapter_store(family, cfg, params_json: Dict[str, Any], adapters_dir_flag: Optional[str], device,
+                        tp=None):
     """The multi-tenant AdapterStore (the JAX entry point's
     build_adapter_store), shared by this server and serve/batchgen.py, so
     a batch record's `model` field selects the same LoRA slots a request
     would: from --adapters-dir, else params.json `adapters`, else the
-    mounted /content/adapters, on `device` in the model's dtype. None
-    when no adapters are configured, or when the family cannot index
+    mounted /content/adapters, on `device` in the model's dtype; on a gang
+    rank (`tp`, its params' TensorShard) the rank's slice of each tenant.
+    None when no adapters are configured, or when the family cannot index
     them (said, not silent)."""
     from substratus_tpu_torch.serve.adapters import AdapterStore, infer_store_shape, is_adapter_artifact
 
@@ -513,7 +544,7 @@ def build_adapter_store(family, cfg, params_json: Dict[str, Any], adapters_dir_f
     store = AdapterStore(cfg, capacity=int(adapters_cfg.get("capacity", 8)),
                          rank=int(adapters_cfg.get("rank", inferred_rank)),
                          targets=tuple(adapters_cfg.get("targets", inferred_targets)), search_dir=adapters_dir,
-                         device=device)
+                         device=device, tp=tp)
     for aid, path in explicit.items():
         store.register_path(aid, path)
     # Preload up to capacity, so first requests do not pay the artifact
@@ -643,10 +674,8 @@ def load_model(model_flag: Optional[str], config_flag: Optional[str], params_jso
             params = family.shard_model(params, mesh_for(cfg))
             cfg = params.cfg.replace(**knobs)
     elif mesh_for is not None:
-        from substratus_tpu_torch.parallel.sharding import NEXT_GANG_SLICE
-
         raise SystemExit(f"{family.__name__.rsplit('.', 1)[-1]} in a gang is not served by the PyTorch port yet: "
-                         f"{NEXT_GANG_SLICE}")
+                         "ROADMAP Queue 1, multi-GPU (OPT and Falcon in a gang)")
     else:
         _skip_llama_knobs(cfg, params_json, quantize)
         quantize = "none"
@@ -677,7 +706,7 @@ def build(argv=None):
     peers = resolve_decode_peers(args.decode_peers, params_json) if role == "prefill" else []
     if role == "prefill" and not peers:
         raise SystemExit("role=prefill needs --decode-peers")
-    gang, mesh_for, meshes = None, None, []
+    gang, mesh_for = None, None
     coord, world, _ = distributed.world_info()
     if world > 1 and coord:
         # Refuse what a gang does not serve before the rendezvous, then join.
@@ -685,19 +714,13 @@ def build(argv=None):
         distributed.maybe_initialize(device_type="cpu" if args.device == "cpu" else "cuda")
         gang = distributed.current()
         device = gang.device
-
-        def mesh_for(model_cfg):
-            """The gang's mesh, built once (its process groups are made
-            collectively), from the whole model's config."""
-            if not meshes:
-                meshes.append(gang_mesh(gang.world, params_json, model_cfg))
-            return meshes[0]
+        mesh_for = GangMesh(gang.world, params_json)
     else:
         device = resolve_device(args.device)
 
     cfg, params, tokenizer, name, family, quantize = load_model(
         args.model, args.config, params_json, device, resolve_quantize(params_json), mesh_for=mesh_for)
-    mesh = meshes[0] if meshes else None
+    mesh = mesh_for.mesh if mesh_for is not None else None
     llama_knobs = getattr(family, "SUPPORTS_QUANTIZE", False)
     decode_impl = getattr(cfg, "decode_attn_impl", "kernel")
     prefill_impl = getattr(cfg, "attn_impl", "flash")
@@ -730,6 +753,8 @@ def build(argv=None):
         if llama_knobs:
             draft_cfg = draft_cfg.replace(quant_activations=cfg.quant_activations)
             draft_params = family.quantize_weights(draft_params, weight_mode(quantize))
+        if mesh is not None:
+            draft_cfg, draft_params = gang_draft(family, draft_cfg, draft_params, mesh)
         draft = (draft_cfg, draft_params)
     ec = EngineConfig(
         max_batch=max_batch,
@@ -743,7 +768,7 @@ def build(argv=None):
         spec_k=spec_k,
         role=role,
     )
-    adapters = build_adapter_store(family, cfg, params_json, args.adapters_dir, device)
+    adapters = build_adapter_store(family, cfg, params_json, args.adapters_dir, device, tp=getattr(params, "tp", None))
     handoff = None
     if role == "prefill":
         from substratus_tpu_torch.serve.disagg import HandoffManager, PoolSpec
@@ -762,12 +787,21 @@ def build(argv=None):
         if handoff is not None:
             handoff.close()
         raise
+    spec = "off"
+    if spec_k:
+        spec = f"draft={draft_path} k={spec_k}" if draft is not None else f"prompt-lookup k={spec_k}"
     gang_line = ""
     if gang is not None:
+        draft_shard = ""
+        if draft is not None:
+            draft_shard = f" ({draft[0].n_heads} heads, {draft[0].n_kv_heads} kv heads a rank)"
+        store = "none" if adapters is None else (f"capacity {adapters.capacity}, rank {adapters.rank}, this rank's "
+                                                 f"slice of each tenant")
         gang_line = (f"; gang: rank {gang.rank}/{gang.world} ({'leader' if gang.leader else 'follower'}), mesh "
                      f"{mesh.describe()}, data backend {gang.backend} (event broadcast: gloo), device {device}, "
                      f"collective timeout {gang.timeout_s} s; weights {quantize}: {shard_layout(params)}; max_batch "
-                     f"{max_batch} (slots {engine.rows[0]}-{engine.rows[1] - 1} on this data replica)")
+                     f"{max_batch} (slots {engine.rows[0]}-{engine.rows[1] - 1} on this data replica); speculation "
+                     f"{spec}{draft_shard}, eager rounds; adapter store {store}")
     if gang is not None and not gang.leader:
         # A follower binds no HTTP: it mirrors the leader's scheduler.
         engine.start()
@@ -831,9 +865,6 @@ def build(argv=None):
                  f"(decode_attn_impl={params_json.get('decode_attn_impl', 'xla')}), long-prompt chunks: "
                  f"cached flash kernel (chunk_attn_impl={params_json.get('chunk_attn_impl', 'xla')}); "
                  f"{engine.attention_route()}")
-    spec = "off"
-    if spec_k:
-        spec = f"draft={draft_path} k={spec_k}" if draft is not None else f"prompt-lookup k={spec_k}"
     graph = ('a CUDA graph a width' if engine.spec else 'one CUDA graph') if engine.decode_graph else 'eager'
     if gang is not None:
         graph += ", graph: off (gang)"

@@ -25,7 +25,10 @@ first four bytes, little-endian, and a second, bucket-padded broadcast
 only when the payload overflows it. ``TcpSync`` does the same over plain
 TCP (the leader fans each length-prefixed message out to every follower),
 a drop-in for the JAX package's TcpSync: the two speak the same bytes.
-``encode_events`` gives the JAX package's JSON byte for byte.
+``encode_events`` gives the JAX package's JSON byte for byte. ``agree``
+(the port's own, an all-reduce on StepSync's gloo group) gives the
+(min, max) of one int over the ranks: the engine's check that every rank
+admitted an adapter request alike.
 
 Gangs run the synchronous scheduler, a flush per step (the engine's
 ``_sync_iterate``): the broadcast encodes decisions every rank applies to
@@ -39,7 +42,7 @@ import socket
 import struct
 import time
 from collections import deque
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -91,6 +94,17 @@ class _TimedSync:
     def _broadcast(self, payload: Optional[bytes]) -> bytes:
         raise NotImplementedError
 
+    def agree(self, value: int) -> Tuple[int, int]:
+        """(min, max) of one int over every rank, each rank calling it at
+        the same point (the engine's check that the ranks admitted an
+        adapter request alike). One process: (value, value)."""
+        if self.num_processes == 1:
+            return value, value
+        return self._agree(value)
+
+    def _agree(self, value: int) -> Tuple[int, int]:
+        raise NotImplementedError(f"{type(self).__name__} has no agree: adapters in a gang are served over StepSync")
+
 
 class StepSync(_TimedSync):
     """Per-iteration event broadcast of a gang (torch.distributed, gloo).
@@ -141,6 +155,11 @@ class StepSync(_TimedSync):
         if self.leader:
             big[:n] = np.frombuffer(payload, np.uint8)
         return bytes(self._bcast(big)[:n].tobytes())
+
+    def _agree(self, value: int) -> Tuple[int, int]:
+        t = torch.tensor([value, -value], dtype=torch.int64)
+        dist.all_reduce(t, op=dist.ReduceOp.MIN, group=self.group)
+        return int(t[0]), -int(t[1])
 
 
 class TcpSync(_TimedSync):
@@ -217,13 +236,19 @@ class TcpSync(_TimedSync):
                 pass
 
 
-def encode_events(reqs: List[Any], cancels: List[int], stop: bool, swap: Optional[int] = None) -> bytes:
+def encode_events(reqs: List[Any], cancels: List[int], stop: bool, swap: Optional[int] = None,
+                  source: bool = False) -> bytes:
     """Iteration events -> wire bytes, the JAX package's JSON byte for
     byte. `reqs` carry every field admission reads, so a follower's mirror
     Request behaves identically. `swap` is the weight-swap barrier: the
-    leader's target weights_version for this iteration (None = no swap)."""
+    leader's target weights_version for this iteration (None = no swap).
+    `source`, the port's own key, present only when true: the leader has
+    a pull source attached, so every rank's admission fills every free
+    slot this iteration (the JAX follower, not told, caps its admission
+    while its leader fills, and the ranks' schedules part)."""
     return json.dumps(
         {
+            **({"source": True} if source else {}),
             "stop": stop,
             "cancels": cancels,
             "swap": swap,

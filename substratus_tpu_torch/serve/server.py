@@ -280,24 +280,38 @@ def validate_body(body: dict) -> None:
                 raise HTTPError(400, "'top_p' must be in (0, 1]")
 
 
-def kernel_launches(engine: Engine) -> Dict[str, int]:
-    """Each serving kernel counter ("function.counter") since the process
-    started: its wrapper's own launches plus those inside the engine's
-    graph replays, which no wrapper sees."""
+def _serving_kernels() -> tuple:
+    """The wrappers of the serving kernels, whose counters /metrics shows."""
     from substratus_tpu_torch.ops.decode_attention import decode_attention
     from substratus_tpu_torch.ops.flash_attention import flash_attention, flash_cached_attention
     from substratus_tpu_torch.ops.fused_decode import fused_decode_attention
     from substratus_tpu_torch.ops.quant import w8a8_matmul, w8a8_quantize
     from substratus_tpu_torch.ops.quant4 import q4_matmul
 
+    return (flash_attention, flash_cached_attention, decode_attention, fused_decode_attention, q4_matmul,
+            w8a8_quantize, w8a8_matmul)
+
+
+def kernel_launches(engine: Engine) -> Dict[str, int]:
+    """Each serving kernel counter ("function.counter") since the process
+    started (or reset_kernel_launches): its wrapper's own launches plus
+    those inside the engine's graph replays, which no wrapper sees."""
     out = {}
-    for fn in (flash_attention, flash_cached_attention, decode_attention, fused_decode_attention, q4_matmul,
-               w8a8_quantize, w8a8_matmul):
+    for fn in _serving_kernels():
         for attr, value in list(vars(fn).items()):
             if attr.startswith("launches") and isinstance(value, int):
                 key = f"{fn.__name__}.{attr}"
                 out[key] = value + engine.replayed_launches(key)
     return out
+
+
+def reset_kernel_launches() -> None:
+    """Set every serving kernel counter to 0 (before a run whose launches
+    are to be read on their own)."""
+    for fn in _serving_kernels():
+        for attr, value in list(vars(fn).items()):
+            if attr.startswith("launches") and isinstance(value, int):
+                setattr(fn, attr, 0)
 
 
 def _stops(body: dict) -> Optional[list]:

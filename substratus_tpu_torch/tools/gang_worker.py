@@ -33,6 +33,21 @@ object, in turn, in the one gang (each leg its own mesh groups, engine and
 stop), with ``--requests`` one plan for every leg or a list of them; the
 result holds ``{"legs": [...]}``, the last leg's ``--hold`` too.
 
+Speculation and tenants, after the JAX package's
+tools/multihost_serve_worker.py: a leg's ``spec_k`` proposes by prompt
+lookup, or with its ``draft_model`` by a draft model, which every rank
+loads and shards (serve.main's gang_draft): a checkpoint, or a whole-model
+state dict (``.pt``) of ``--config`` with ``--draft-shape``'s overrides. A
+leg whose params hold ``adapters`` (serve.main's object: capacity, rank,
+dir) serves a store built by serve.main's build_adapter_store, its tenants
+from the object's ``dir``, else ``--adapters-dir`` (seeded_tenants draws
+tenants to write there). A request's ``adapter`` names its tenant; in a
+concurrent plan a request with ``after`` is submitted when the request of
+that index has ended (a tenant hot-loaded mid-run).
+
+Each leg zeroes the kernel counters before its engine starts, so a leg's
+``launches`` are its own run's.
+
 With ``--probe-allreduce`` every rank first times the tensor group's
 all-reduce in the model's dtype on its device at the decode step's and a
 prefill chunk's activation shapes ([8, 1, dim] and [1, 512, dim]; the
@@ -44,9 +59,9 @@ The result (``--out``): rank, world, leader, the startup line (backend,
 mesh, device, collective timeout, weight mode), the mesh's shape and this
 rank's coordinates, tokens and finish reasons a request (the leader's with
 its time to first token), the broadcast timings ``[(bytes, seconds)]``,
-the data exchange's host-clock seconds a step, the engine's stats and
-error, the kernel launches (serve/server.py's counters) and on the card
-the peak memory.
+the data exchange's host-clock seconds a call, the engine's stats and
+error, the adapter store's snapshot, the kernel launches (serve/server.py's
+counters) and on the card the peak memory.
 """
 from __future__ import annotations
 
@@ -99,7 +114,32 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--hold", action="store_true", help="after the requests, idle until the engine fails")
     ap.add_argument("--probe-allreduce", action="store_true", help="time the tensor group's all-reduce first")
     ap.add_argument("--timeout", type=int, default=300, help="collective timeout, seconds")
+    ap.add_argument("--draft-shape", default=None, help="--config's integer overrides for a .pt draft_model, "
+                                                        "e.g. n_layers=1")
+    ap.add_argument("--adapters-dir", default=None, help="a directory of adapter artifacts (legs with adapters)")
     return ap.parse_args(argv)
+
+
+def seeded_tenants(cfg, n: int, rank: int, alpha: float = None) -> dict:
+    """N tenants {f"t{i}": {name: {"a": [L, in, r], "b": [L, r, *out]}}} of
+    every llama target (wq, wk, wv, wo, w_gate, w_up, w_down), float32
+    numpy from seeds 50 + i (a ~ N(0, 1/in), b scaled so a delta's norm is
+    about 0.3 of its projection's), at the whole model's shapes (`cfg` the
+    whole model's); alpha defaults to 2 x rank."""
+    from substratus_tpu_torch.models.llama import LORA_TARGETS
+    from substratus_tpu_torch.serve.adapters import _target_shapes
+
+    alpha = 2.0 * rank if alpha is None else alpha
+    sigma = 0.3 / ((alpha / rank) * rank**0.5)
+    out = {}
+    for i in range(n):
+        rng = np.random.default_rng(50 + i)
+        out[f"t{i}"] = {name: {"a": rng.standard_normal((cfg.n_layers, ind, rank), dtype=np.float32)
+                               * np.float32(ind**-0.5),
+                               "b": rng.standard_normal((cfg.n_layers, rank) + shape, dtype=np.float32)
+                               * np.float32(sigma)}
+                        for name, (ind, shape) in _target_shapes(cfg, LORA_TARGETS).items()}
+    return out
 
 
 def load(args, params_json, gang):
@@ -122,26 +162,56 @@ def load(args, params_json, gang):
         del whole
         return (params.cfg.replace(quant_activations=quantize == "w8a8"), params, mesh,
                 args.eos if args.eos is not None else 2)
-    meshes = []
-
-    def mesh_for(model_cfg):
-        if not meshes:
-            meshes.append(serve_main.gang_mesh(gang.world, params_json, model_cfg))
-        return meshes[0]
-
+    mesh_for = serve_main.GangMesh(gang.world, params_json)
     cfg, params, tokenizer, _, _, _ = serve_main.load_model(
         args.model, args.config, params_json, gang.device, quantize, mesh_for)
-    return cfg, params, meshes[0], args.eos if args.eos is not None else tokenizer.eos_id
+    return cfg, params, mesh_for.mesh, args.eos if args.eos is not None else tokenizer.eos_id
+
+
+def load_draft(args, params_json, cfg, mesh, device, quantize: str):
+    """(draft cfg, this rank's shard of it) of the leg's draft_model,
+    quantized as the target, or None."""
+    from substratus_tpu_torch.models import llama
+    from substratus_tpu_torch.serve import main as serve_main
+    from substratus_tpu_torch.tools.ckpt_writer import shape_overrides
+
+    path = params_json.get("draft_model")
+    if not path:
+        return None
+    if path.endswith(".pt"):
+        dcfg = shape_overrides(llama.CONFIGS[args.config], args.draft_shape).replace(
+            dtype=cfg.dtype, vocab_size=args.vocab or llama.CONFIGS[args.config].vocab_size)
+        whole = llama.Llama(dcfg, device=device)
+        whole.load_state_dict(torch.load(path, map_location=device, weights_only=True))
+    else:
+        dcfg, whole = serve_main.load_checkpoint(path, device)
+    llama.quantize_weights(whole, serve_main.weight_mode(quantize))
+    return serve_main.gang_draft(llama, dcfg.replace(quant_activations=cfg.quant_activations), whole, mesh)
+
+
+def adapter_store(args, params_json, cfg, params, device):
+    """The leg's AdapterStore (serve.main's build_adapter_store over the
+    params' adapters object), or None when the leg has none."""
+    from substratus_tpu_torch.models import llama
+    from substratus_tpu_torch.serve import main as serve_main
+
+    if "adapters" not in params_json:
+        return None
+    return serve_main.build_adapter_store(llama, cfg, params_json, args.adapters_dir, device, tp=params.tp)
 
 
 def leader_run(engine, plan) -> List[dict]:
-    """Generate the plan's requests (sequentially unless concurrent);
-    every request's tokens, finish reason and time to first token."""
+    """Generate the plan's requests (sequentially unless concurrent; a
+    concurrent request with ``after`` once that request has ended); every
+    request's tokens, finish reason and time to first token."""
+    import threading
+
     from substratus_tpu_torch.serve.engine import Request
 
     def submit(i, spec):
         return engine.submit(Request(list(spec["prompt"]), max_tokens=int(spec.get("max_tokens", 16)),
-                                     temperature=float(spec.get("temperature", 0.0)), id=f"req-{i}"))
+                                     temperature=float(spec.get("temperature", 0.0)), id=f"req-{i}",
+                                     adapter=spec.get("adapter")))
 
     def read(req, spec):
         got, ttft = [], None
@@ -155,10 +225,25 @@ def leader_run(engine, plan) -> List[dict]:
                 "seconds": time.perf_counter() - req.submit_ts}
 
     specs = plan["requests"]
-    if plan.get("concurrent"):
-        reqs = [submit(i, spec) for i, spec in enumerate(specs)]
-        return [read(req, spec) for req, spec in zip(reqs, specs)]
-    return [read(submit(i, spec), spec) for i, spec in enumerate(specs)]
+    if not plan.get("concurrent"):
+        return [read(submit(i, spec), spec) for i, spec in enumerate(specs)]
+    ended = [threading.Event() for _ in specs]
+    out = [None] * len(specs)
+    reqs = {i: submit(i, spec) for i, spec in enumerate(specs) if "after" not in spec}
+
+    def one(i, spec):
+        if i not in reqs:
+            ended[spec["after"]].wait(timeout=600)
+            reqs[i] = submit(i, spec)
+        out[i] = read(reqs[i], spec)
+        ended[i].set()
+
+    threads = [threading.Thread(target=one, args=(i, spec)) for i, spec in enumerate(specs)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out
 
 
 def probe_allreduce(mesh, cfg, device, max_batch: int, reps: int = 50) -> dict:
@@ -205,7 +290,7 @@ def run_leg(args, gang, params_json: dict, plan: dict, hold: bool) -> dict:
     from substratus_tpu_torch.serve import main as serve_main
     from substratus_tpu_torch.serve.engine import Engine, EngineConfig
     from substratus_tpu_torch.serve.multihost import StepSync
-    from substratus_tpu_torch.serve.server import kernel_launches
+    from substratus_tpu_torch.serve.server import kernel_launches, reset_kernel_launches
 
     params_json = dict(params_json)
     if args.quantize is not None:
@@ -213,23 +298,30 @@ def run_leg(args, gang, params_json: dict, plan: dict, hold: bool) -> dict:
     if args.data is not None and "tensor" not in params_json:
         params_json["tensor"] = gang.world // args.data
     cfg, params, mesh, eos = load(args, params_json, gang)
+    quantize = serve_main.resolve_quantize(params_json)
+    spec_k = int(params_json.get("spec_k", 0))
+    draft = load_draft(args, params_json, cfg, mesh, gang.device, quantize) if spec_k else None
+    adapters = adapter_store(args, params_json, cfg, params, gang.device)
     ec = EngineConfig(max_batch=serve_main.gang_batch(int(params_json.get("max_batch", 4)), mesh),
                       max_seq_len=int(params_json.get("max_seq_len", 64)),
                       max_prefill_len=int(params_json.get("max_prefill_len", EngineConfig.max_prefill_len)),
                       kv_cache_dtype=params_json.get("kv_cache_dtype", "model"),
                       kv_layout=params_json.get("kv_layout", "auto"), eos_token_id=eos,
-                      kv_pool_tokens=params_json.get("kv_pool_tokens"))
+                      kv_pool_tokens=params_json.get("kv_pool_tokens"), spec_k=spec_k)
     sync = StepSync()
-    engine = Engine(cfg, params, ec, device=gang.device, mesh=mesh, sync=sync)
+    engine = Engine(cfg, params, ec, device=gang.device, mesh=mesh, sync=sync, draft=draft, adapters=adapters)
     RecordingSink.made = []
     engine.follower_sink = RecordingSink
-    quantize = serve_main.resolve_quantize(params_json)
+    spec = "off" if not spec_k else (f"k={spec_k}, a draft of {draft[0].n_layers} layers ({draft[0].n_heads} heads, "
+                                     f"{draft[0].n_kv_heads} kv heads a rank)" if draft else f"k={spec_k}, prompt lookup")
+    store = "none" if adapters is None else f"capacity {adapters.capacity}, rank {adapters.rank}, {adapters.loaded_ids()}"
     line = (f"gang worker rank {gang.rank}/{gang.world} ({'leader' if gang.leader else 'follower'}); mesh "
             f"{mesh.describe()}; data backend {gang.backend} (event broadcast: gloo); device {gang.device}; "
             f"kv_layout {'paged' if engine.paged else 'dense'}; decode step "
             f"{'one CUDA graph' if engine.decode_graph else 'eager'}; heads {cfg.n_heads} kv heads "
             f"{cfg.n_kv_heads} per rank; weights {quantize}: {serve_main.shard_layout(params)}; max_batch "
-            f"{ec.max_batch}, slots {engine.rows[0]}-{engine.rows[1] - 1} here; collective timeout {gang.timeout_s} s")
+            f"{ec.max_batch}, slots {engine.rows[0]}-{engine.rows[1] - 1} here; collective timeout {gang.timeout_s} s; "
+            f"speculation {spec}; adapter store {store}")
     print(line, flush=True)
     if gang.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(gang.device)
@@ -245,6 +337,7 @@ def run_leg(args, gang, params_json: dict, plan: dict, hold: bool) -> dict:
               "n_layers": cfg.n_layers, "max_batch": ec.max_batch, "rows": list(engine.rows), "quantize": quantize}
     if args.probe_allreduce:
         result["allreduce_s"] = probe_allreduce(mesh, cfg, gang.device, ec.max_batch)
+    reset_kernel_launches()
     engine.start()
     result["held"] = False
     if gang.leader:
@@ -263,12 +356,13 @@ def run_leg(args, gang, params_json: dict, plan: dict, hold: bool) -> dict:
     result["stopped"] = not engine._thread.is_alive()
     result["error"] = repr(engine.error) if engine.error else None
     result["stats"] = dict(engine.stats)
+    result["adapters"] = adapters.snapshot() if adapters is not None else None
     result["timings"] = list(sync.timings)
     result["exchange_s"] = list(engine.exchange_s)
     result["launches"] = kernel_launches(engine)
     if gang.device.type == "cuda":
         result["peak_memory_bytes"] = torch.cuda.max_memory_allocated(gang.device)
-    del engine, params
+    del engine, params, draft, adapters
     if gang.device.type == "cuda":
         torch.cuda.empty_cache()
     return result

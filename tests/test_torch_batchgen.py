@@ -368,13 +368,14 @@ def test_manifest_functions_match_jax(tmp_path):
         assert str(te.value) == str(je.value) and ":2:" in str(te.value)
 
 
-def test_params_batchgenerate_and_refusals(tmp_path):
+def test_params_batchgenerate_and_refusals(tmp_path, monkeypatch):
     """serve.main accepts batchGenerate as a known key (as JAX's does);
     serve.batchgen runs on the card unless --device cpu is given (here it
-    raises), and exits on a batchGenerate key it does not know, on a key
-    the port does not serve yet (tensor) and on an adapters value that is
-    not an object, with serve.main's messages; baseModel is a known key
-    with no effect (as in serve.main)."""
+    raises), and exits on a batchGenerate key it does not know, on tensor
+    outside a gang and on an adapters value that is not an object, with
+    serve.main's messages; under the gang's environment tensor takes it to
+    the rendezvous (tests/test_torch_batchgen_gang.py runs the gang);
+    baseModel is a known key with no effect (as in serve.main)."""
     assert batchgen.parse_args([]).device is None
     with pytest.raises(RuntimeError, match="CUDA"):
         batchgen.main(["--config", "tiny", "--params", ""])
@@ -391,3 +392,13 @@ def test_params_batchgenerate_and_refusals(tmp_path):
         with pytest.raises(SystemExit, match=where):
             batchgen.main(["--params", str(params), "--manifest", man, "--output", str(tmp_path / "o"),
                            "--device", "cpu"])
+    from substratus_tpu_torch.parallel import distributed
+
+    def rendezvous(*a, **kw):
+        raise ConnectionRefusedError("the rendezvous")
+
+    monkeypatch.setattr(distributed, "maybe_initialize", rendezvous)
+    monkeypatch.setenv("JAX_NUM_PROCESSES", "2")
+    monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "127.0.0.1:1")
+    with pytest.raises(ConnectionRefusedError, match="the rendezvous"):
+        batchgen.main(["--params", str(params), "--manifest", man, "--output", str(tmp_path / "o"), "--device", "cpu"])

@@ -309,7 +309,7 @@ def test_a_traced_request_is_one_journey_across_both_processes(tiers):
 def test_entry_point_refusals(tmp_path):
     """A prefill tier without peers exits; a role off the paged pool is the
     engine's ValueError; batch generation refuses a role engine as JAX's
-    BatchGenerator does, and names the gang item."""
+    BatchGenerator does, and names the multi-card item."""
     params = tmp_path / "p.json"
     params.write_text(json.dumps({"config": "tiny"}))
     base = ["--device", "cpu", "--params", str(params), "--host", "127.0.0.1", "--port", "0"]
@@ -322,19 +322,20 @@ def test_entry_point_refusals(tmp_path):
     eng = Engine(cfg, llama.init_params(cfg, seed=0, device="cpu"), EngineConfig(role="decode"), device="cpu")
     with pytest.raises(ValueError, match="batch generation drives monolithic engines"):
         batchgen.BatchGenDriver([eng], str(tmp_path / "m.jsonl"), str(tmp_path / "out"), tokenizer=ByteTokenizer())
-    assert "multi-GPU" in batchgen._GANG
+    assert "multi-GPU" in batchgen._MULTI_GPU
 
 
 @pytest.mark.parametrize("entry", ["serve", "train"])
 def test_a_multi_process_environment_exits(tmp_path, monkeypatch, entry):
     """JAX_NUM_PROCESSES=2 with JAX_COORDINATOR_ADDRESS set (the operator's
-    gang) makes train.main and batch generation exit, citing ROADMAP
-    Queue 1's multi-GPU item, before a model is built. serve.main joins
-    such a gang (tests/test_torch_gang.py), and exits, citing the same
-    item, on what a gang does not serve yet (here speculation) before its
-    rendezvous. Either variable alone names no gang."""
+    gang) makes train.main exit, citing ROADMAP Queue 1's multi-GPU item,
+    before a model is built. serve.main joins such a gang
+    (tests/test_torch_gang.py), and exits, citing the same item, on what a
+    gang does not serve (a disaggregated role) before its rendezvous;
+    batch generation goes to the rendezvous (tests/test_torch_batchgen_gang.py
+    runs its gang). Either variable alone names no gang."""
     params = tmp_path / "p.json"
-    params.write_text(json.dumps({"config": "tiny", "spec_k": 2} if entry == "serve" else
+    params.write_text(json.dumps({"config": "tiny", "role": "decode"} if entry == "serve" else
                                  {"config": "tiny", "steps": 1, "batch_size": 1, "seq_len": 16}))
     data = tmp_path / "d.jsonl"
     data.write_text('{"text": "a tiny document"}\n')
@@ -344,14 +345,20 @@ def test_a_multi_process_environment_exits(tmp_path, monkeypatch, entry):
     run = {"serve": main.build, "train": train_main.run}[entry]
     for var, value in GANG.items():
         monkeypatch.setenv(var, value)
-    match = {"serve": r"speculative decoding in a gang: .* ROADMAP Queue 1, multi-GPU",
+    match = {"serve": r"a disaggregated role in a gang: .* ROADMAP Queue 1, multi-GPU",
              "train": r"JAX_NUM_PROCESSES=2 with JAX_COORDINATOR_ADDRESS set: .* ROADMAP Queue 1, multi-GPU"}[entry]
     with pytest.raises(SystemExit, match=match):
         run(argv)
     if entry == "serve":
         man = tmp_path / "m.jsonl"
         man.write_text('{"prompt": "x"}\n')
-        with pytest.raises(SystemExit, match=r"batch generation across processes .* ROADMAP Queue 1, multi-GPU"):
+        from substratus_tpu_torch.parallel import distributed
+
+        def rendezvous(*a, **kw):
+            raise ConnectionRefusedError("the rendezvous")
+
+        monkeypatch.setattr(distributed, "maybe_initialize", rendezvous)
+        with pytest.raises(ConnectionRefusedError, match="the rendezvous"):
             batchgen.main(["--config", "tiny", "--params", "", "--manifest", str(man), "--output",
                            str(tmp_path / "o"), "--device", "cpu"])
     monkeypatch.delenv("JAX_COORDINATOR_ADDRESS")

@@ -14,10 +14,11 @@ parallel forward's logits are within 1e-5 (relative, a row) of JAX's
 llama.forward, tiny-moe's too; four ranks of tensor=4, where the vocab
 stays whole, give JAX's tokens and logits as well. A SIGKILLed follower fails the leader (exit 1, not a
 hang), and serve.main's gang answers HTTP on the leader only and ends
-both ranks with 0 on the leader's SIGTERM. The engine's lockstep logic
-(the leader's frames, a follower's mirror, cancel latches, the swap
-barrier, the refusals) is held against JAX's messages in process with a
-scripted sync. Each process has its own timeout.
+both ranks with 0 on the leader's SIGTERM, with prompt lookup and an
+adapter store too. The engine's lockstep logic (the leader's frames, a
+follower's mirror, cancel latches, the swap barrier, the refusals) is
+held against JAX's messages in process with a scripted sync. Each process
+has its own timeout.
 """
 import json
 import os
@@ -255,6 +256,18 @@ def _first_line(proc, timeout=120):
     return lines.get(timeout=timeout)
 
 
+def _line_starting(proc, prefix, timeout=120):
+    """The process's first stdout line starting with `prefix`, within
+    `timeout`."""
+    lines = queue.Queue()
+
+    def read():
+        lines.put(next((ln for ln in iter(proc.stdout.readline, "") if ln.startswith(prefix)), ""))
+
+    threading.Thread(target=read, daemon=True).start()
+    return lines.get(timeout=timeout)
+
+
 def test_serve_main_gang_leader_answers_and_sigterm_ends_both(tmp_path):
     """serve.main under the gang environment: the leader's startup line
     names rank 0/2, the mesh, gloo and the timeout and it answers
@@ -294,12 +307,14 @@ def test_serve_main_gang_killed_follower_fails_the_leader(tmp_path):
 
 
 def test_gang_refusals_cite_roadmap(tmp_path, monkeypatch):
-    """In a gang, serve.main exits before the rendezvous on speculation,
-    adapters and a role, each citing ROADMAP Queue 1, and gang_mesh on a
-    tensor above the world; int4 and w8a8 pass the gang's check and
-    gang_mesh lays out data > 1 (tests/test_torch_gang_quant.py and
-    tests/test_torch_gang_data.py serve them); outside a gang, tensor above
-    1 exits."""
+    """In a gang, serve.main exits before the rendezvous on a disaggregated
+    role, citing ROADMAP Queue 1, and gang_mesh on a tensor above the
+    world; speculation, adapters, int4 and w8a8 pass the gang's check, and
+    a gang of two serve.main ranks with prompt lookup and an adapter store
+    starts, each rank's startup line naming the speculation and the store,
+    answers a tenant's completion and ends with 0 on the leader's SIGTERM
+    (tests/test_torch_gang_spec.py and tests/test_torch_gang_adapters.py
+    hold their tokens against JAX); outside a gang, tensor above 1 exits."""
     params = tmp_path / "p.json"
     base = ["--device", "cpu", "--params", str(params), "--host", "127.0.0.1", "--port", "0"]
     params.write_text(json.dumps({"config": "tiny", "tensor": 2}))
@@ -307,15 +322,12 @@ def test_gang_refusals_cite_roadmap(tmp_path, monkeypatch):
         main.build(base)
     for var, value in _gang_env(0, 1).items():
         monkeypatch.setenv(var, value)
-    for extra, flags, what in (({"spec_k": 3}, [], "speculative decoding"), ({}, ["--role", "decode"], "role"),
-                               ({"quantize": "int4"}, [], None), ({"quantize": "w8a8"}, [], None),
-                               ({"adapters": {"dir": str(tmp_path)}}, [], "adapters")):
-        params.write_text(json.dumps({"config": "tiny", **extra}))
-        if what is None:
-            assert main.check_gang_params(extra, main.parse_args(base + flags)) is None
-            continue
-        with pytest.raises(SystemExit, match=rf"{what}.* ROADMAP Queue 1, multi-GPU \(the next gang slice\)"):
-            main.build(base + flags)
+    params.write_text(json.dumps({"config": "tiny"}))
+    with pytest.raises(SystemExit, match=r"a disaggregated role in a gang: .* ROADMAP Queue 1, multi-GPU"):
+        main.build(base + ["--role", "decode"])
+    for extra in ({"spec_k": 3}, {"quantize": "int4"}, {"quantize": "w8a8"}, {"adapters": {"dir": str(tmp_path)}},
+                  {"spec_k": 2, "draft_model": str(tmp_path)}):
+        assert main.check_gang_params(extra, main.parse_args(base)) is None
     from substratus_tpu_torch.parallel import mesh as pmesh
 
     built = []
@@ -327,6 +339,32 @@ def test_gang_refusals_cite_roadmap(tmp_path, monkeypatch):
     params.write_text(json.dumps({"config": "tiny", "sequence": 2}))
     with pytest.raises(SystemExit, match="sequence=2 is not served .* ROADMAP Queue 1"):
         main.build(base)
+
+    from substratus_tpu_torch.serve.adapters import save_adapter_artifact
+    from substratus_tpu_torch.tools.gang_worker import seeded_tenants
+
+    cfg = llama.CONFIGS["tiny"]
+    for aid, tree in seeded_tenants(cfg, 2, 4).items():
+        save_adapter_artifact(str(tmp_path / "adapters" / aid), tree, 8.0, 4)
+    procs, http = _serve_gang(tmp_path, {"config": "tiny", "max_batch": 2, "max_seq_len": 128, "spec_k": 3,
+                                         "adapters": {"dir": str(tmp_path / "adapters"), "capacity": 2}})
+    try:
+        lead, follow = (_line_starting(p, prefix) for p, prefix in zip(procs, ("serving tiny", "gang follower")))
+        for line in (lead, follow):
+            assert "speculation prompt-lookup k=3, eager rounds" in line, line
+            assert "adapter store capacity 2, rank 4, this rank's slice of each tenant" in line, line
+        assert "speculative decoding: prompt-lookup k=3" in lead and "['t0', 't1'] resident" in lead, lead
+        body = json.dumps({"prompt": "hi hi hi hi", "max_tokens": 5, "temperature": 0, "model": "t1"}).encode()
+        req = urllib.request.Request(f"http://127.0.0.1:{http}/v1/completions", data=body,
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            answer = json.loads(resp.read())
+        assert answer["model"] == "t1" and answer["usage"]["completion_tokens"] >= 1, answer
+        procs[0].send_signal(signal.SIGTERM)
+        rcs = [p.wait(timeout=90) for p in procs]
+    finally:
+        _reap(procs)
+    assert rcs == [0, 0], [(tmp_path / f"err{r}.txt").read_text()[-2000:] for r in range(2)]
 
 
 class ScriptedSync:
@@ -395,7 +433,8 @@ def test_lockstep_engine_frames_mirror_latches_and_swap_barrier(weights):
     assert follow.weights_version == 7 and sinks[0].items[-1] is None and 1 <= len(sinks[0].items) - 1 < 24
     with pytest.raises(ValueError, match="disaggregated roles are incompatible with lockstep sync"):
         Engine(T_CFG, t_params, EngineConfig(role="decode"), device="cpu", sync=ScriptedSync(True))
-    with pytest.raises(NotImplementedError, match="speculative decoding in a gang .* Queue 1"):
-        Engine(T_CFG, t_params, EngineConfig(spec_k=2), device="cpu", sync=ScriptedSync(True))
-    with pytest.raises(NotImplementedError, match="pull source on a gang engine"):
-        Engine(T_CFG, t_params, ec, device="cpu", sync=ScriptedSync(True)).set_source(object())
+    spec = Engine(T_CFG, t_params, EngineConfig(spec_k=2), device="cpu", sync=ScriptedSync(True))
+    assert spec.spec and spec.overlap is False
+    spec.set_source(object())  # the leader's pulls ride the broadcast
+    with pytest.raises(RuntimeError, match="follower engine: the leader owns the source"):
+        Engine(T_CFG, t_params, ec, device="cpu", sync=ScriptedSync(False)).set_source(object())
